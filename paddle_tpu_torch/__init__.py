@@ -1,0 +1,16 @@
+"""PyTorch/CUDA port of ``paddle_tpu`` for NVIDIA Hopper (H100).
+
+The JAX package (``paddle_tpu``) stays the reference; this package is
+its counterpart module for module, in PyTorch idiom.  It imports
+``torch``, numpy and the stdlib only — never ``jax`` and nothing of
+``paddle_tpu`` (it keeps its own copies of what it needs).
+
+Slice 1 ports the serving path: ``InferenceServer.submit`` → page-pool
+admission → packed prefill (:func:`ops.attention.flash_attention_packed`)
+→ fixed-width paged decode (:func:`ops.attention.paged_decode_attention`).
+Both attention kernels are hand-written CUDA C++ for ``sm_90a`` under
+``csrc/``, built with ``nvcc`` at first use (``ops/_build.py``).
+
+Entry points run on CUDA unless the caller passes ``device="cpu"``; with
+no CUDA device they raise instead of moving to the CPU.
+"""

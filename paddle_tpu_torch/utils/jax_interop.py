@@ -1,0 +1,56 @@
+"""Take the JAX package's decoder parameters into the port.
+
+The JAX side hands over a dict of numpy arrays (``np.asarray`` of its
+params, or ``init_decoder_params`` directly); this module does not
+import JAX.  Names are checked against the config and layouts stay as
+they are: weight matrices are ``[in, out]`` and applied as ``x @ W``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..core.device import resolve_device
+from .error import enforce
+
+
+def decoder_param_shapes(cfg) -> Dict[str, Tuple[int, ...]]:
+    """Name → shape of every decoder parameter for ``cfg`` (a
+    ``DecoderConfig``): the artifact contract."""
+    shapes: Dict[str, Tuple[int, ...]] = {
+        "embed": (cfg.vocab, cfg.dim),
+        "pos_embed": (cfg.max_context, cfg.dim),
+        "ln_f": (cfg.dim,),
+        "lm_head": (cfg.dim, cfg.vocab),
+    }
+    for i in range(cfg.layers):
+        shapes[f"l{i}.ln1"] = (cfg.dim,)
+        shapes[f"l{i}.ln2"] = (cfg.dim,)
+        for w in ("wq", "wk", "wv", "wo"):
+            shapes[f"l{i}.{w}"] = (cfg.dim, cfg.dim)
+        shapes[f"l{i}.w1"] = (cfg.dim, cfg.ffn)
+        shapes[f"l{i}.w2"] = (cfg.ffn, cfg.dim)
+    return shapes
+
+
+def params_from_jax(np_params: Mapping[str, np.ndarray], cfg,
+                    device: Optional[Union[str, torch.device]] = None
+                    ) -> Dict[str, torch.Tensor]:
+    """The JAX decoder's params as fp32 tensors on ``device`` (default
+    CUDA; raises when CUDA is absent and the CPU was not asked for)."""
+    dev = resolve_device(device)
+    want = decoder_param_shapes(cfg)
+    enforce(set(np_params) == set(want),
+            f"decoder params do not match the config: missing "
+            f"{sorted(set(want) - set(np_params))}, unexpected "
+            f"{sorted(set(np_params) - set(want))}")
+    out: Dict[str, torch.Tensor] = {}
+    for name, shape in want.items():
+        arr = np.asarray(np_params[name], dtype=np.float32)
+        enforce(arr.shape == shape,
+                f"param {name}: shape {arr.shape} != expected {shape}")
+        out[name] = torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+    return out
