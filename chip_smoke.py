@@ -11,6 +11,15 @@ Phases (any failure exits nonzero, without the final ``ok`` line):
    (fp32, atol 2e-5): packed causal prefill at T_total in {16, 48*3,
    96*8} with a zero-length row and general segments; paged decode at
    Tq in {1, 4} with rows shorter than Tq and inactive slots;
+3b. the fused LSTM kernels (forward and BPTT, through their
+   ``autograd.Function``) against autograd through the plain per-step
+   scan on the same CUDA tensors: outputs within atol 1e-4, every
+   gradient (xw, w_hh, bias, peepholes, h0, c0) within 1e-5 + 1e-4 *
+   max|ref| (the recurrence compounds rounding over T), at (B, T, H) =
+   (8, 12, 128) forward and reversed with peepholes, boot state, a cell
+   cotangent and lengths 0 and T; (5, 7, 96); (6, 9, 200), reversed,
+   where a CTA owns 2 units; (200, 5, 50), two row chunks and rows of
+   50 floats; (3, 1, 64); and (128, 100, 512);
 4. the main path: the full-width decoder server (``bench.py``'s serving
    config, weights from ``init_decoder_params(seed=0)``) over 48 mixed
    prompts in continuous and in sequential mode — identical tokens,
@@ -19,13 +28,27 @@ Phases (any failure exits nonzero, without the final ``ok`` line):
    identical tokens again on a second prompt stream, plus the same
    model on the CPU (plain versions) against the card on a small input;
    then the RMS mean checked row-invariant across row counts;
-5. each kernel at the main path's shapes: its time, its plain version's,
-   one PyTorch yardstick call's (SDPA; the port never calls it) and the
-   card's bound, printed as one ``{"kernels": [...]}`` line with the
-   launches of each mode's timed pass.
+4d. the training main path: the LSTM text classifier at the width of
+   ``bench.py``'s first row (V 30000, E 128, H 512, 2 LSTMs; B 128,
+   T 100, lengths in [50, 100]; Adam lr 2e-3, L2 8e-4, clip 25; the
+   port's own init, seed 0): 3 warm steps, then 20 timed steps between
+   CUDA events with the counts set to 0 just before them — finite
+   losses, exactly 2 forward and 2 backward LSTM launches per step,
+   ms/step and samples/s; the same model on the CPU (plain versions)
+   and the card at (B, T, H) = (8, 12, 128): loss and every gradient
+   within the tolerances of 3b;
+5. each kernel at its main path's shapes: its time, its plain version's,
+   one PyTorch yardstick call's where one computes the same function
+   (SDPA for attention; none for the LSTM kernels: cuDNN's LSTM has no
+   peepholes or length mask) and the card's bound, printed as one
+   ``{"kernels": [...]}`` line with the launches of each path's timed
+   run (serving continuous, serving sequential, training).
 
 Also printed, for information: a ``torch.profiler`` window over one
-continuous pass: device time by kernel and the device's busy share.
+continuous pass and one over 3 training steps (device time by kernel,
+the device's busy share), and ``torch.nn.LSTM(512, 512)`` forward +
+backward at B 128, T 100 on full-length rows (cuDNN; it also does the
+input product, and is no function of the port).
 
 The last line is ``{"ok": true, "device": {...}}``.  Needs one card;
 imports nothing of JAX or of the JAX package.
@@ -45,6 +68,10 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 FP32_FLOPS_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
 ATOL = 2e-5                    # kernel vs plain version, fp32
+# fused LSTM kernels vs their plain versions: outputs within LSTM_ATOL,
+# gradients within LSTM_GRAD_ATOL + LSTM_GRAD_RTOL * max|ref| (fp32; the
+# recurrence compounds rounding differences over T steps)
+LSTM_ATOL, LSTM_GRAD_ATOL, LSTM_GRAD_RTOL = 1e-4, 1e-5, 1e-4
 
 # bench.py's serving config (DecoderConfig(4000, 256, 8, 4, 1024, 512)),
 # 48 prompts with T in [16, 96], max_new 32, batch 8, 512 pages x 16
@@ -52,6 +79,14 @@ CFG = dict(vocab=4000, dim=256, heads=8, layers=4, ffn=1024,
            max_context=512, eos_id=1)
 N_REQ, T_LO, T_HI, MAX_NEW, MAX_BATCH, POOL_PAGES, PAGE = \
     48, 16, 96, 32, 8, 512, 16
+# bench.py's first row (_bench_lstm_row at hidden 512, its optimizer)
+TRAIN = dict(vocab_size=30000, embed_dim=128, hidden_size=512, lstm_num=2,
+             num_classes=2)
+TRAIN_B, TRAIN_T, WARM_STEPS, TIMED_STEPS = 128, 100, 3, 20
+TRAIN_OPT = dict(learning_method="adam", learning_rate=2e-3,
+                 l2_weight_decay=8e-4, gradient_clipping_threshold=25.0)
+SERVING_KERNELS = ("flash_packed_fwd", "paged_decode")
+TRAINING_KERNELS = ("lstm_fwd", "lstm_bwd")
 
 
 def log(msg: str) -> None:
@@ -91,6 +126,40 @@ def time_ms(fn, reps: int = 20, rounds: int = 5) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / (reps * rounds)
+
+
+def reset_counts() -> None:
+    from paddle_tpu_torch.ops import attention as A
+    from paddle_tpu_torch.ops import lstm as L
+    A.reset_launch_counts()
+    L.reset_launch_counts()
+
+
+def read_counts():
+    from paddle_tpu_torch.ops import attention as A
+    from paddle_tpu_torch.ops import lstm as L
+    return {"flash_packed_fwd": A.flash_attention_packed.launches,
+            "paged_decode": A.paged_decode_attention.launches,
+            "lstm_fwd": L.lstm_fwd.launches,
+            "lstm_bwd": L.lstm_bwd.launches}
+
+
+def time_events_ms(fn, reps: int = 5) -> float:
+    """Device time of one ``fn()`` call between CUDA events, without a
+    graph (for work with a backward pass, which a graph does not take
+    here)."""
+    import torch
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def bound_ms(n_bytes: float, n_flops: float):
@@ -260,7 +329,6 @@ def _serve(model, prompts, continuous, warm=True):
     """One timed pass of ``prompts`` through a fresh server (after a warm
     pass when ``warm``).  The launch counts are set to 0 just before the
     timed pass and read just after it."""
-    from paddle_tpu_torch.ops import attention as A
     from paddle_tpu_torch.serving.server import InferenceServer
     srv = InferenceServer(model, max_batch=MAX_BATCH, n_pages=POOL_PAGES,
                           page_size=PAGE, continuous=continuous).start()
@@ -268,13 +336,12 @@ def _serve(model, prompts, continuous, warm=True):
         if warm:
             for r in [srv.submit(p, MAX_NEW) for p in prompts]:
                 srv.result(r, timeout=600.0)
-        A.reset_launch_counts()
+        reset_counts()
         t0 = time.perf_counter()
         reqs = [srv.submit(p, MAX_NEW) for p in prompts]
         tokens = [srv.result(r, timeout=600.0) for r in reqs]
         wall = time.perf_counter() - t0
-        launches = {"flash_packed_fwd": A.flash_attention_packed.launches,
-                    "paged_decode": A.paged_decode_attention.launches}
+        launches = read_counts()
     finally:
         srv.stop()
     ttft = np.array([r.ttft_s for r in reqs]) * 1e3
@@ -318,8 +385,8 @@ def phase_serve(dev):
             f"{m['tokens_per_s']:.1f} tokens/s ({m['tokens']} tokens in "
             f"{m['wall_s']:.3f} s); launches in the timed pass "
             f"{m['launches']}")
-        for name, n in m["launches"].items():
-            if n <= 0:
+        for name in SERVING_KERNELS:
+            if m["launches"][name] <= 0:
                 fail(f"kernel {name} was not launched on the {mode} path")
     _check_equal(cont_tokens, seq_tokens, "prompt seed 0")
     if not all(1 <= len(t) <= MAX_NEW and all(0 <= x < cfg.vocab for x in t)
@@ -330,8 +397,8 @@ def phase_serve(dev):
     more = _prompts(1, 16, cfg.vocab)
     _check_equal(_serve(model, more, True, warm=False)[0],
                  _serve(model, more, False, warm=False)[0], "prompt seed 1")
-    launches = {name: {"continuous": cont["launches"][name],
-                       "sequential": seq["launches"][name]}
+    launches = {name: {"serving_continuous": cont["launches"][name],
+                       "serving_sequential": seq["launches"][name]}
                 for name in cont["launches"]}
 
     # the same model on the CPU (plain versions) on a small input
@@ -387,6 +454,17 @@ def phase_rms_invariance(dev):
     log(f"  RMS mean of row 0 equal at row counts {sorted(bits)}")
 
 
+def device_rows(prof):
+    """(name, device µs, count) of every device-side item (kernels and
+    copies) in a profile; the host ops that launched them carry the same
+    device time and are left out, so the sum is the device's busy time."""
+    from torch.autograd import DeviceType
+    return [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+
+
 def phase_profile(model, prompts):
     """One continuous pass under torch.profiler: device time by
     kernel and the device's busy share of the pass's wall time."""
@@ -407,8 +485,7 @@ def phase_profile(model, prompts):
             wall = time.perf_counter() - t0
     finally:
         srv.stop()
-    rows = [(e.key, e.self_device_time_total, e.count)
-            for e in prof.key_averages() if e.self_device_time_total > 0]
+    rows = device_rows(prof)
     busy_us = sum(r[1] for r in rows)
     log(f"  profiled continuous pass: wall {wall * 1e3:.1f} ms, device busy "
         f"{busy_us / 1e3:.1f} ms ({100 * busy_us / (wall * 1e6):.1f} %)")
@@ -498,6 +575,285 @@ def phase_time(dev, launches, serve):
     return rows
 
 
+# ------------------------------------------------------------ LSTM phases
+def lstm_case(b, t, h, lengths, seed, dev):
+    """Random LSTM inputs (xw, w_hh, gate bias, peepholes, boot state) and
+    cotangents on (y, cells, final h, final c); lengths int32 [B]."""
+    import torch
+    rng = np.random.default_rng(seed)
+
+    def f(*shape, sc=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * sc)
+                                .astype(np.float32)).to(dev)
+    p = {"xw": f(b, t, 4 * h, sc=0.3), "w": f(h, 4 * h, sc=h ** -0.5),
+         "bias": f(4 * h, sc=0.1), "ci": f(h, sc=0.1), "cf": f(h, sc=0.1),
+         "co": f(h, sc=0.1), "h0": f(b, h, sc=0.5), "c0": f(b, h, sc=0.5)}
+    cot = [f(b, t, h), f(b, t, h), f(b, h), f(b, h)]
+    return p, cot, torch.tensor(lengths, dtype=torch.int32, device=dev)
+
+
+def lstm_run(p, cot, lengths, reverse, plain):
+    """(y, cells, final h, final c) and the gradient of every input under
+    sum(output * cotangent): through ``lstm_sequence`` (the fused kernels
+    on the card) or, when ``plain``, through the per-step scan."""
+    import torch
+    from paddle_tpu_torch.core.sequence import SequenceBatch
+    from paddle_tpu_torch.ops import recurrent_ops as R
+    q = {n: v.detach().clone().requires_grad_(True) for n, v in p.items()}
+    seq = SequenceBatch(q["xw"], lengths)
+    if plain:
+        xw, mask = q["xw"] + q["bias"], seq.mask()
+        if reverse:
+            xw, mask = torch.flip(xw, (1,)), torch.flip(mask, (1,))
+        y, cy, fh, fc = R.lstm_scan(xw, mask, q["w"], q["ci"], q["cf"],
+                                    q["co"], q["h0"], q["c0"])
+        if reverse:
+            y, cy = torch.flip(y, (1,)), torch.flip(cy, (1,))
+    else:
+        out, final, cells = R.lstm_sequence(
+            seq, None, q["w"], q["bias"], q["ci"], q["cf"], q["co"],
+            h0=q["h0"], c0=q["c0"], reverse=reverse, return_cells=True)
+        y, cy, fh, fc = out.data, cells.data, final.h, final.c
+    outs = (y, cy, fh, fc)
+    loss = sum((o * c).sum() for o, c in zip(outs, cot))
+    grads = torch.autograd.grad(loss, list(q.values()))
+    return [o.detach() for o in outs], dict(zip(q, grads))
+
+
+def grad_errors(got, want):
+    """(max abs error, worst error / tolerance) over gradients by name."""
+    err, ratio = 0.0, 0.0
+    for name, w in want.items():
+        e = (got[name] - w).abs().max().item()
+        tol = LSTM_GRAD_ATOL + LSTM_GRAD_RTOL * w.abs().max().item()
+        err, ratio = max(err, e), max(ratio, e / tol)
+    return err, ratio
+
+
+def phase_lstm_check(dev):
+    rng = np.random.RandomState(3)
+    main_lens = rng.randint(TRAIN_T // 2, TRAIN_T + 1, TRAIN_B).tolist()
+    cases = [((8, 12, 128), [12, 0, 7, 12, 3, 1, 9, 12], False),
+             ((8, 12, 128), [12, 0, 7, 12, 3, 1, 9, 12], True),
+             ((5, 7, 96), [7, 0, 3, 7, 5], False),
+             ((6, 9, 200), [9, 0, 4, 9, 1, 7], True),      # 2 units a CTA
+             # > 128 rows (two row chunks), H % 4 != 0 (scalar staging)
+             ((200, 5, 50), [5, 0] + [1 + i % 5 for i in range(198)], False),
+             ((3, 1, 64), [1, 0, 1], False),                # one step
+             ((TRAIN_B, TRAIN_T, TRAIN["hidden_size"]), main_lens, False)]
+    errs = {"lstm_fwd": 0.0, "lstm_bwd": 0.0}
+    for i, ((b, t, h), lengths, reverse) in enumerate(cases):
+        p, cot, ln = lstm_case(b, t, h, lengths, 10 + i, dev)
+        got_o, got_g = lstm_run(p, cot, ln, reverse, plain=False)
+        want_o, want_g = lstm_run(p, cot, ln, reverse, plain=True)
+        sync(dev)
+        e_out = max((g - w).abs().max().item()
+                    for g, w in zip(got_o, want_o))
+        e_grad, ratio = grad_errors(got_g, want_g)
+        log(f"  lstm B={b} T={t} H={h} reverse={reverse}: outputs max abs "
+            f"err {e_out:.3e}; gradients max abs err {e_grad:.3e} "
+            f"({ratio:.3f} of tolerance)")
+        if not e_out <= LSTM_ATOL:
+            fail(f"lstm_fwd disagrees with the plain scan at B={b} T={t} "
+                 f"H={h}: {e_out} > {LSTM_ATOL}")
+        if not ratio <= 1.0:
+            fail(f"lstm_bwd disagrees with autograd through the plain scan "
+                 f"at B={b} T={t} H={h}: {ratio:.3f} of tolerance")
+        errs["lstm_fwd"] = max(errs["lstm_fwd"], e_out)
+        errs["lstm_bwd"] = max(errs["lstm_bwd"], e_grad)
+    return errs
+
+
+def train_feed(seed, b, t, vocab, dev):
+    """bench.py's LSTM feed: ids, lengths in [T/2, T], labels, drawn in
+    that order from ``RandomState(seed)``."""
+    import torch
+    from paddle_tpu_torch.core.sequence import SequenceBatch
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, vocab, (b, t)).astype(np.int32)
+    lengths = rng.randint(t // 2, t + 1, (b,)).astype(np.int32)
+    labels = rng.randint(0, 2, (b,)).astype(np.int32)
+    return {"data": SequenceBatch(torch.from_numpy(ids),
+                                  torch.from_numpy(lengths)).to(dev),
+            "label": torch.from_numpy(labels).to(dev)}
+
+
+def phase_train(dev):
+    """The training main path at full width: warm steps, then the timed
+    steps with every launch count set to 0 just before them."""
+    import torch
+    from paddle_tpu_torch.config.model_config import OptimizationConfig
+    from paddle_tpu_torch.layers.network import NeuralNetwork
+    from paddle_tpu_torch.models import lstm_text_classifier
+    from paddle_tpu_torch.trainer.trainer import Trainer
+    net = NeuralNetwork(lstm_text_classifier(**TRAIN))
+    trainer = Trainer(net, OptimizationConfig(**TRAIN_OPT), seed=0,
+                      device=dev)
+    feed = train_feed(0, TRAIN_B, TRAIN_T, TRAIN["vocab_size"], dev)
+    warm = [float(trainer.train_one_batch(feed)) for _ in range(WARM_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    start.record()
+    losses = [trainer.train_one_batch(feed) for _ in range(TIMED_STEPS)]
+    end.record()
+    end.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    losses = [float(x) for x in losses]
+    ms = start.elapsed_time(end) / TIMED_STEPS
+    m = {"ms_per_step": ms, "samples_per_s": TRAIN_B * 1e3 / ms,
+         "host_wall_ms_per_step": wall * 1e3 / TIMED_STEPS,
+         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+         "warm_losses": warm, "losses": losses}
+    log(f"  {TIMED_STEPS} timed steps: {ms:.3f} ms/step (CUDA events), "
+        f"{m['samples_per_s']:.1f} samples/s, host wall "
+        f"{m['host_wall_ms_per_step']:.3f} ms/step, peak memory "
+        f"{m['peak_mem_gb']:.2f} GB; launches {launches}")
+    log(f"  losses: warm {[round(x, 6) for x in warm]}, timed "
+        f"{[round(x, 6) for x in losses]}")
+    if not all(np.isfinite(warm + losses)):
+        fail("non-finite training loss")
+    for name in TRAINING_KERNELS:
+        want = TRAIN["lstm_num"] * TIMED_STEPS
+        if launches[name] != want:
+            fail(f"{name}: {launches[name]} launches in {TIMED_STEPS} steps, "
+                 f"expected {want} (one per LSTM layer per step)")
+    return launches, m, trainer, feed
+
+
+def phase_train_small(dev):
+    """The same model on the CPU (plain versions) and on the card at
+    (B, T, H) = (8, 12, 128), from the same parameters: loss and every
+    gradient."""
+    import torch
+    from paddle_tpu_torch.layers.network import NeuralNetwork
+    from paddle_tpu_torch.models import lstm_text_classifier
+    net = NeuralNetwork(lstm_text_classifier(**dict(TRAIN, hidden_size=128)))
+    cpu_params = net.init_params(seed=0, device="cpu")
+    res = {}
+    for where in ("cpu", dev):
+        params = {n: p.to(where).requires_grad_(True)
+                  for n, p in cpu_params.items()}
+        loss, _ = net.loss(params, train_feed(1, 8, 12, TRAIN["vocab_size"],
+                                              where))
+        grads = torch.autograd.grad(loss, list(params.values()))
+        res[str(where)] = (loss.detach().cpu(),
+                           {n: g.cpu() for n, g in zip(params, grads)})
+    (l_cpu, g_cpu), (l_dev, g_dev) = res["cpu"], res[str(dev)]
+    e_loss = abs(float(l_dev) - float(l_cpu))
+    e_grad, ratio = grad_errors(g_dev, g_cpu)
+    log(f"  card vs CPU plain path, B=8 T=12 H=128: loss {float(l_dev):.6f} "
+        f"vs {float(l_cpu):.6f}; gradients max abs err {e_grad:.3e} "
+        f"({ratio:.3f} of tolerance)")
+    if not np.isfinite(float(l_dev)) \
+            or e_loss > LSTM_GRAD_ATOL + LSTM_GRAD_RTOL * abs(float(l_cpu)) \
+            or ratio > 1.0:
+        fail("card and CPU reference disagree on the training step")
+
+
+def phase_profile_train(trainer, feed):
+    """3 training steps under torch.profiler: device time by kernel and
+    the device's busy share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            trainer.train_one_batch(feed)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = device_rows(prof)
+    busy_us = sum(r[1] for r in rows)
+    log(f"  profiled 3 steps: wall {wall * 1e3:.1f} ms, device busy "
+        f"{busy_us / 1e3:.1f} ms ({100 * busy_us / (wall * 1e6):.1f} %)")
+    rows.sort(key=lambda r: -r[1])
+    for key, us, n in rows[:14]:
+        log(f"    {us / 1e3:9.3f} ms  {n:6d} x  {key[:90]}")
+
+
+def lstm_work(b, t, h, n_valid, backward):
+    """(bytes, flops) of one LSTM kernel call: every input read once and
+    every output written once; the recurrent products of the valid
+    (row, step) pairs (padded steps do no needed work)."""
+    full, gates, state = b * t, b * t * 4 * h, b * t * h
+    if not backward:   # xw, mask, w, checks, h0, c0 -> H, C, gates
+        n = 2 * gates + 2 * state + full + h * 4 * h + 3 * h + 2 * b * h
+        return 4 * n, 2 * n_valid * h * 4 * h
+    # gates, H, C, h0, c0, mask, w, checks, dy, dyc -> dxw, dw, dck, dh0, dc0
+    n = 2 * gates + 4 * state + full + 2 * h * 4 * h + 6 * h + 4 * b * h
+    return 4 * n, 2 * 2 * n_valid * h * 4 * h
+
+
+def phase_time_lstm(dev, launches):
+    import torch
+    from paddle_tpu_torch.ops import lstm as L
+    b, t, h = TRAIN_B, TRAIN_T, TRAIN["hidden_size"]
+    rng = np.random.RandomState(0)
+    rng.randint(0, TRAIN["vocab_size"], (b, t))       # bench feed order
+    lengths = rng.randint(t // 2, t + 1, (b,))
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def rnd(*shape, sc=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * sc
+    mask = (torch.arange(t, device=dev)[None, :]
+            < torch.from_numpy(lengths).to(dev)[:, None]).float()
+    xw, w = rnd(b, t, 4 * h, sc=0.3), rnd(h, 4 * h, sc=h ** -0.5)
+    checks, h0, c0 = rnd(3, h, sc=0.1), rnd(b, h, sc=0.5), rnd(b, h, sc=0.5)
+    fwd_args = (xw, mask, w, checks, h0, c0)
+    hseq, cseq, gates = L.lstm_fwd(*fwd_args)
+    ref = L.lstm_fwd_reference(*fwd_args)
+    e_fwd = max((a - r).abs().max().item()
+                for a, r in zip((hseq, cseq, gates), ref))
+    dy, dyc = rnd(b, t, h), rnd(b, t, h)
+    bwd_args = (gates, hseq, cseq, h0, c0, mask, w, checks, dy, dyc)
+    got = L.lstm_bwd(*bwd_args)
+    want = L.lstm_bwd_reference(*bwd_args)
+    e_bwd, ratio = grad_errors(dict(enumerate(got)), dict(enumerate(want)))
+    if not (e_fwd <= LSTM_ATOL and ratio <= 1.0):
+        fail(f"LSTM kernels disagree with their plain versions at the main "
+             f"shapes: forward {e_fwd}, backward {ratio:.3f} of tolerance")
+    rows = []
+    n_valid = int(lengths.sum())
+    for name, fn, plain, args, bwd, line in (
+            ("lstm_fwd", L.lstm_fwd, L.lstm_fwd_reference, fwd_args, False,
+             146),
+            ("lstm_bwd", L.lstm_bwd, L.lstm_bwd_reference, bwd_args, True,
+             219)):
+        ms = time_ms(lambda: fn(*args), reps=5, rounds=4)
+        plain_ms = time_ms(lambda: plain(*args), reps=2, rounds=2)
+        b_ms, b_by = bound_ms(*lstm_work(b, t, h, n_valid, bwd))
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"paddle_tpu_torch/csrc/{name}.cu",
+                     "replaces": f"paddle_tpu/ops/pallas_lstm.py:{line}",
+                     "launches": sum(launches[name].values()),
+                     "launches_by_path": launches[name],
+                     "max_abs_err": e_bwd if bwd else e_fwd, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": None,
+                     "shape": f"B {b}, T {t}, H {h}, {n_valid} valid steps"})
+    for r in rows:
+        log(f"  {r['name']}: {r['ms'] * 1e3:.2f} us (plain "
+            f"{r['plain_ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.3f}"
+            f" us by {r['bound_by']}); {r['shape']}")
+    # for information only: cuDNN's LSTM (no peepholes, no length mask,
+    # and it also does the input product) forward + backward
+    lstm = torch.nn.LSTM(h, h, batch_first=True).to(dev)
+    x = rnd(b, t, h).requires_grad_(True)
+
+    def cudnn_step():
+        y, _ = lstm(x)
+        y.sum().backward()
+    log(f"  for information: torch.nn.LSTM({h}, {h}) forward + backward at "
+        f"B {b}, T {t}, full-length rows (cuDNN): "
+        f"{time_events_ms(cudnn_step) * 1e3:.2f} us")
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -525,14 +881,26 @@ def main() -> int:
         phase_build()
         log("== phase 3: kernels vs plain versions (fp32, atol 2e-5)")
         phase_check(dev)
+        log("== phase 3b: fused LSTM kernels vs the plain scan (fp32)")
+        phase_lstm_check(dev)
         log("== phase 4: main path, full-width server")
         launches, serve, model, prompts = phase_serve(dev)
         log("== phase 4b: row invariance of the RMS mean")
         phase_rms_invariance(dev)
         log("== phase 4c: profile of one continuous pass")
         phase_profile(model, prompts)
-        log("== phase 5: kernel times at the main path's shapes")
-        rows = phase_time(dev, launches, serve)
+        log("== phase 4d: training main path, full-width LSTM classifier")
+        train_launches, train, trainer, feed = phase_train(dev)
+        for name in launches:
+            launches[name]["training"] = train_launches[name]
+        log("== phase 4e: training step, card vs CPU plain path")
+        phase_train_small(dev)
+        log("== phase 4f: profile of 3 training steps")
+        phase_profile_train(trainer, feed)
+        del trainer, feed
+        log("== phase 5: kernel times at the main paths' shapes")
+        rows = phase_time(dev, launches, serve) \
+            + phase_time_lstm(dev, launches)
     except SystemExit as e:
         print(e, file=sys.stderr)
         return 1
@@ -542,7 +910,7 @@ def main() -> int:
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"serving": {k: v for k, v in serve.items()
                                   if k != "prompt_lengths"},
-                      "card": card}))
+                      "training": train, "card": card}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

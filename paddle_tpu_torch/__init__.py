@@ -11,6 +11,11 @@ admission → packed prefill (:func:`ops.attention.flash_attention_packed`)
 Both attention kernels are hand-written CUDA C++ for ``sm_90a`` under
 ``csrc/``, built with ``nvcc`` at first use (``ops/_build.py``).
 
+Slice 2a ports the fp32 training step of the LSTM text classifier:
+``NeuralNetwork(ModelConfig)`` → ``Trainer.train_one_batch``, with the
+fused LSTM forward and BPTT as persistent cooperative CUDA kernels
+(``ops/lstm.py``, ``csrc/lstm_fwd.cu``, ``csrc/lstm_bwd.cu``).
+
 Entry points run on CUDA unless the caller passes ``device="cpu"``; with
 no CUDA device they raise instead of moving to the CPU.
 """

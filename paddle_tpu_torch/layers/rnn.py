@@ -1,0 +1,50 @@
+"""Recurrent layers this slice uses (counterpart of
+``paddle_tpu/layers/rnn.py``): ``lstmemory``.
+
+Like the reference, ``lstmemory`` takes its input already projected to
+4H by an upstream fc layer.
+"""
+
+from __future__ import annotations
+
+from ..core.sequence import SequenceBatch
+from ..ops import recurrent_ops
+from ..utils import enforce
+from .base import Layer, register_layer
+
+
+@register_layer("lstmemory")
+class LstmLayer(Layer):
+    """Input: a sequence of ``[B, T, 4H]`` pre-projected gates; output
+    ``[B, T, H]``.  Parameters: recurrent weight ``[H, 4H]`` and bias
+    ``[7H]`` = 4H gate bias + 3H peephole checks (i, f, o)."""
+
+    def param_specs(self):
+        h = self.conf.size
+        specs = [self._weight_spec(0, (h, 4 * h), initial_smart=True)]
+        if self.conf.with_bias:
+            specs.append(self._bias_spec((7 * h,)))
+        return specs
+
+    def forward(self, params, inputs):
+        seq = inputs[0]
+        enforce(isinstance(seq, SequenceBatch),
+                "lstmemory needs sequence input")
+        h = self.conf.size
+        gate_bias = check_i = check_f = check_o = None
+        if self.conf.with_bias:
+            bias = params[self.bias_name()]
+            gate_bias = bias[:4 * h]
+            check_i = bias[4 * h:5 * h]
+            check_f = bias[5 * h:6 * h]
+            check_o = bias[6 * h:7 * h]
+        # reference routing: active_type acts on the candidate input,
+        # active_state_type on the cell output
+        out, _ = recurrent_ops.lstm_sequence(
+            seq, None, params[self.weight_name(0)], gate_bias, check_i,
+            check_f, check_o,
+            reverse=self.conf.attrs.get("reversed", False),
+            gate_act=self.conf.attrs.get("active_gate_type", "sigmoid"),
+            cell_act=self.conf.active_type or "tanh",
+            out_act=self.conf.attrs.get("active_state_type", "tanh"))
+        return out

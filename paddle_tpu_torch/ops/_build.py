@@ -47,6 +47,8 @@ SIGNATURES = {
                          [_C] * 6 + [_I] * 5 + [_F, _C]),
     "paged_decode_fwd": ("paged_decode",
                          [_C] * 6 + [_I] * 7 + [_F, _C]),
+    "lstm_fwd": ("lstm_fwd", [_C] * 9 + [_I] * 4 + [_C]),
+    "lstm_bwd": ("lstm_bwd", [_C] * 16 + [_I] * 4 + [_C]),
 }
 
 _lock = threading.Lock()

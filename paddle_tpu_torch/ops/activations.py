@@ -1,0 +1,42 @@
+"""Activation functions this slice uses (counterpart of
+``paddle_tpu/ops/activations.py``), looked up by the reference's names."""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+import torch
+
+from ..utils import PaddleTpuError
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    return torch.sigmoid(x)
+
+
+def tanh(x: torch.Tensor) -> torch.Tensor:
+    return torch.tanh(x)
+
+
+def softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    # fp32 internally, as the reference
+    return torch.softmax(x.float(), dim=dim).to(x.dtype)
+
+
+def linear(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
+ACTIVATIONS: Dict[str, Callable] = {
+    "sigmoid": sigmoid, "tanh": tanh, "softmax": softmax,
+    "linear": linear, "": linear,
+}
+
+
+def get_activation(name: Optional[str]) -> Callable:
+    if name is None:
+        return linear
+    if name not in ACTIVATIONS:
+        raise PaddleTpuError(f"activation {name!r} is not ported; have "
+                             f"{sorted(ACTIVATIONS)}")
+    return ACTIVATIONS[name]

@@ -1,9 +1,10 @@
-"""Take the JAX package's decoder parameters into the port.
+"""Take the JAX package's parameters into the port.
 
 The JAX side hands over a dict of numpy arrays (``np.asarray`` of its
 params, or ``init_decoder_params`` directly); this module does not
-import JAX.  Names are checked against the config and layouts stay as
-they are: weight matrices are ``[in, out]`` and applied as ``x @ W``.
+import JAX.  Names are checked against the port's own specs and layouts
+stay as they are: weight matrices are ``[in, out]`` and applied as
+``x @ W``.
 """
 
 from __future__ import annotations
@@ -53,4 +54,27 @@ def params_from_jax(np_params: Mapping[str, np.ndarray], cfg,
         enforce(arr.shape == shape,
                 f"param {name}: shape {arr.shape} != expected {shape}")
         out[name] = torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+    return out
+
+
+def network_params_from_jax(np_params: Mapping[str, np.ndarray], net,
+                            device: Optional[Union[str, torch.device]] = None
+                            ) -> Dict[str, torch.Tensor]:
+    """The JAX ``NeuralNetwork.init_params`` output (as numpy) as fp32
+    tensors on ``device`` for the port's ``net`` (a
+    ``paddle_tpu_torch.layers.network.NeuralNetwork``): every name and
+    shape must equal the port's ``param_specs``, else this raises."""
+    dev = resolve_device(device)
+    want = {n: tuple(s.dims) if s.dims else (s.size,)
+            for n, s in net.param_specs.items()}
+    enforce(set(np_params) == set(want),
+            f"params do not match the network: missing "
+            f"{sorted(set(want) - set(np_params))}, unexpected "
+            f"{sorted(set(np_params) - set(want))}")
+    out: Dict[str, torch.Tensor] = {}
+    for name in sorted(want):
+        arr = np.array(np_params[name], dtype=np.float32)   # a copy
+        enforce(arr.shape == want[name],
+                f"param {name}: shape {arr.shape} != expected {want[name]}")
+        out[name] = torch.from_numpy(arr).to(dev)
     return out

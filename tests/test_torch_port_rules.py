@@ -106,3 +106,98 @@ def test_wrappers_reject_bad_inputs(wrapper, make, pos, bad):
     args[pos] = bad(args[pos])
     with pytest.raises(PaddleTpuError):
         wrapper(*args)
+
+
+# ------------------------------------------------------------ training slice
+from paddle_tpu_torch.entry import entry as lstm_entry  # noqa: E402
+from paddle_tpu_torch.layers.network import NeuralNetwork  # noqa: E402
+from paddle_tpu_torch.models import lstm_text_classifier  # noqa: E402
+from paddle_tpu_torch.ops import lstm as tl  # noqa: E402
+from paddle_tpu_torch.ops import recurrent_ops as tro  # noqa: E402
+from paddle_tpu_torch.core.sequence import SequenceBatch  # noqa: E402
+from paddle_tpu_torch.trainer.trainer import Trainer  # noqa: E402
+
+
+def test_scan_covers_the_training_slice():
+    scanned = {str(f.relative_to(PORT)) for f in PORT.rglob("*.py")}
+    assert {"ops/lstm.py", "ops/recurrent_ops.py", "layers/network.py",
+            "trainer/trainer.py", "optimizer/optimizers.py", "entry.py",
+            "utils/jax_interop.py"} <= scanned
+
+
+def test_training_entry_points_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    net = NeuralNetwork(lstm_text_classifier(50, 8, 16, 1, 2))
+    with pytest.raises(PaddleTpuError, match="no CUDA device"):
+        net.init_params(0)
+    with pytest.raises(PaddleTpuError, match="no CUDA device"):
+        Trainer(net, seed=0)
+    with pytest.raises(PaddleTpuError, match="no CUDA device"):
+        lstm_entry()
+    tr = Trainer(net, seed=0, device="cpu")
+    assert all(p.device.type == "cpu" for p in tr.params.values())
+
+
+def _lstm_fwd_args(b=3, t=4, h=8):
+    g = torch.Generator().manual_seed(0)
+    return [torch.randn(b, t, 4 * h, generator=g), torch.ones(b, t),
+            torch.randn(h, 4 * h, generator=g) * 0.1, torch.zeros(3, h),
+            torch.zeros(b, h), torch.zeros(b, h)]
+
+
+def _lstm_bwd_args(b=3, t=4, h=8):
+    fwd = _lstm_fwd_args(b, t, h)
+    hseq, cseq, gates = tl.lstm_fwd(*fwd)
+    xw, mask, w, ck, h0, c0 = fwd
+    return [gates, hseq, cseq, h0, c0, mask, w, ck, torch.ones_like(hseq),
+            torch.ones_like(cseq)]
+
+
+def test_lstm_launch_counters_stay_zero_on_cpu():
+    tl.reset_launch_counts()
+    xw = torch.randn(3, 5, 32, requires_grad=True)
+    seq = SequenceBatch(xw, torch.tensor([5, 0, 2], dtype=torch.int32))
+    out, final = tro.lstm_sequence(seq, None, torch.randn(8, 32) * 0.1)
+    (out.data.sum() + final.c.sum()).backward()
+    assert xw.grad is not None
+    assert tl.lstm_fwd.launches == 0 and tl.lstm_bwd.launches == 0
+
+
+@pytest.mark.parametrize("wrapper,make,pos,bad", [
+    (tl.lstm_fwd, _lstm_fwd_args, 0, lambda t: t.to(torch.bfloat16)),
+    (tl.lstm_fwd, _lstm_fwd_args, 2,
+     lambda t: t.t().contiguous().t()),
+    (tl.lstm_fwd, _lstm_fwd_args, 4, lambda t: t.to(torch.bfloat16)),
+    (tl.lstm_bwd, _lstm_bwd_args, 0,
+     lambda t: t.transpose(0, 1).contiguous().transpose(0, 1)),
+    (tl.lstm_bwd, _lstm_bwd_args, 8, lambda t: t.to(torch.bfloat16)),
+], ids=["fwd_xw_bf16", "fwd_whh_noncontig", "fwd_h0_bf16",
+        "bwd_gates_noncontig", "bwd_dy_bf16"])
+def test_lstm_wrappers_reject_bad_inputs(wrapper, make, pos, bad):
+    args = make()
+    wrapper(*args)                       # the good inputs run
+    args[pos] = bad(args[pos])
+    with pytest.raises(PaddleTpuError):
+        wrapper(*args)
+
+
+def test_fused_tier_from_hopper_resources():
+    assert tl.fused_tier(128, 512) == "fused"       # the bench row
+    assert tl.fused_tier(5, 96) == "fused"          # no tiling gate
+    assert tl.fused_tier(128, 513) is None          # kernels 10-12
+    assert tl.fused_tier(128, 1280) is None
+    assert tl.fused_tier(8192, 512) is None         # shared memory
+    assert tl.units_per_cta(512) == 4 and tl.units_per_cta(128) == 1
+    assert tl.units_per_cta(512, sms=114) is None
+
+
+def test_card_path_rejects_hidden_beyond_the_fused_tier(monkeypatch):
+    """A CUDA tensor at H > 512 raises, naming the unported kernels; the
+    device test is monkeypatched so the CPU reaches that branch."""
+    monkeypatch.setattr(tl, "_on_card", lambda tensors: True)
+    with pytest.raises(PaddleTpuError, match="kernels 10-12"):
+        tl.lstm_fwd(*_lstm_fwd_args(b=2, t=2, h=640))
+    seq = SequenceBatch(torch.zeros(2, 2, 4 * 640),
+                        torch.tensor([2, 1], dtype=torch.int32))
+    with pytest.raises(PaddleTpuError, match="kernels 10-12"):
+        tro.lstm_sequence(seq, None, torch.zeros(640, 4 * 640))
