@@ -37,12 +37,36 @@ Phases (any failure exits nonzero, without the final ``ok`` line):
    ms/step and samples/s; the same model on the CPU (plain versions)
    and the card at (B, T, H) = (8, 12, 128): loss and every gradient
    within the tolerances of 3b;
+3c. the hidden-blocked LSTM kernels 10-12 (forward, BPTT, dW): through
+   their ``autograd.Function`` against autograd through the plain scan,
+   and each wrapper against its plain version, at (B, T, H) = (8, 5,
+   640) with lengths 0, 1 and T; (200, 4, 700), B = 200 and H not a
+   multiple of 128, reversed; (3, 1, 642), one step and H % 4 != 0;
+   (128, 100, 1280) and (128, 100, 2048) with the bench feed's lengths;
+   tolerances of 3b;
+4g. the blocked main path: the classifier at H 1280 (``bench.py``'s
+   ``bench_lstm_1280`` row: its feed, its optimizer) under its flags
+   ``use_bf16`` and ``bf16_activations``: 3 warm and 10 timed steps,
+   counts set to 0 just before them — finite losses, exactly 2 launches
+   of each blocked kernel a step and none of kernels 8-9, ms/step,
+   samples/s, host wall, peak memory;
+4h. a profile of 3 H 1280 steps;
+4i. 3 ``--precision=bf16`` steps (fp32 masters, dynamic loss scale) of
+   the same model: finite losses, the scale;
+4j. 2 steps at H 2048 (``bench.py``'s scaling row);
+4k. the card against the CPU plain path at H = 640, B 8, T 12, same
+   parameters, fp32: loss and every gradient within the tolerances of
+   3b;
 5. each kernel at its main path's shapes: its time, its plain version's,
    one PyTorch yardstick call's where one computes the same function
-   (SDPA for attention; none for the LSTM kernels: cuDNN's LSTM has no
-   peepholes or length mask) and the card's bound, printed as one
-   ``{"kernels": [...]}`` line with the launches of each path's timed
-   run (serving continuous, serving sequential, training).
+   (SDPA for attention; ``torch.matmul`` for the blocked dW; none for
+   the other LSTM kernels: cuDNN's LSTM has no peepholes or length mask)
+   and the card's bound, printed as one ``{"kernels": [...]}`` line with
+   the launches of each path's timed run (serving continuous, serving
+   sequential, training at H 512, training at H 1280).
+
+Phases 3b-4f are PR 2's H 512 phases and run in fp32 (``use_bf16``
+off), so their readings stay comparable.
 
 Also printed, for information: a ``torch.profiler`` window over one
 continuous pass and one over 3 training steps (device time by kernel,
@@ -87,6 +111,12 @@ TRAIN_OPT = dict(learning_method="adam", learning_rate=2e-3,
                  l2_weight_decay=8e-4, gradient_clipping_threshold=25.0)
 SERVING_KERNELS = ("flash_packed_fwd", "paged_decode")
 TRAINING_KERNELS = ("lstm_fwd", "lstm_bwd")
+# bench.py's bench_lstm_1280 row (and its 2048 scaling row), under its
+# flags (bench.py:292, 352-368)
+BLOCKED = dict(TRAIN, hidden_size=1280)
+BLOCKED_STEPS, MIXED_STEPS = 10, 3
+BENCH_FLAGS = dict(use_bf16=True, bf16_activations=True)
+BLOCKED_KERNELS = ("lstm_fwd_blocked", "lstm_bwd_blocked", "lstm_dw_blocked")
 
 
 def log(msg: str) -> None:
@@ -138,10 +168,16 @@ def reset_counts() -> None:
 def read_counts():
     from paddle_tpu_torch.ops import attention as A
     from paddle_tpu_torch.ops import lstm as L
-    return {"flash_packed_fwd": A.flash_attention_packed.launches,
-            "paged_decode": A.paged_decode_attention.launches,
-            "lstm_fwd": L.lstm_fwd.launches,
-            "lstm_bwd": L.lstm_bwd.launches}
+    counts = {"flash_packed_fwd": A.flash_attention_packed.launches,
+              "paged_decode": A.paged_decode_attention.launches}
+    counts.update({fn.__name__: fn.launches for fn in L.KERNEL_WRAPPERS})
+    return counts
+
+
+def set_flags(**kw) -> None:
+    from paddle_tpu_torch.utils import FLAGS
+    for k, v in kw.items():
+        FLAGS.set(k, v)
 
 
 def time_events_ms(fn, reps: int = 5) -> float:
@@ -678,18 +714,22 @@ def train_feed(seed, b, t, vocab, dev):
             "label": torch.from_numpy(labels).to(dev)}
 
 
-def phase_train(dev):
-    """The training main path at full width: warm steps, then the timed
-    steps with every launch count set to 0 just before them."""
+def phase_train(dev, dims=TRAIN, steps=TIMED_STEPS, precision="fp32",
+                kernels=TRAINING_KERNELS, idle=()):
+    """A training main path at full width: warm steps, then the timed
+    steps with every launch count set to 0 just before them; each of
+    ``kernels`` must launch once per LSTM layer per step, each of
+    ``idle`` never."""
     import torch
     from paddle_tpu_torch.config.model_config import OptimizationConfig
     from paddle_tpu_torch.layers.network import NeuralNetwork
     from paddle_tpu_torch.models import lstm_text_classifier
     from paddle_tpu_torch.trainer.trainer import Trainer
-    net = NeuralNetwork(lstm_text_classifier(**TRAIN))
-    trainer = Trainer(net, OptimizationConfig(**TRAIN_OPT), seed=0,
-                      device=dev)
-    feed = train_feed(0, TRAIN_B, TRAIN_T, TRAIN["vocab_size"], dev)
+    net = NeuralNetwork(lstm_text_classifier(**dims))
+    trainer = Trainer(net, OptimizationConfig(**TRAIN_OPT,
+                                              precision=precision),
+                      seed=0, device=dev)
+    feed = train_feed(0, TRAIN_B, TRAIN_T, dims["vocab_size"], dev)
     warm = [float(trainer.train_one_batch(feed)) for _ in range(WARM_STEPS)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -698,41 +738,55 @@ def phase_train(dev):
     reset_counts()
     t0 = time.perf_counter()
     start.record()
-    losses = [trainer.train_one_batch(feed) for _ in range(TIMED_STEPS)]
+    losses = [trainer.train_one_batch(feed) for _ in range(steps)]
     end.record()
     end.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()
     losses = [float(x) for x in losses]
-    ms = start.elapsed_time(end) / TIMED_STEPS
+    ms = start.elapsed_time(end) / steps
     m = {"ms_per_step": ms, "samples_per_s": TRAIN_B * 1e3 / ms,
-         "host_wall_ms_per_step": wall * 1e3 / TIMED_STEPS,
+         "host_wall_ms_per_step": wall * 1e3 / steps,
          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
          "warm_losses": warm, "losses": losses}
-    log(f"  {TIMED_STEPS} timed steps: {ms:.3f} ms/step (CUDA events), "
-        f"{m['samples_per_s']:.1f} samples/s, host wall "
+    if trainer._ls_state is not None:
+        m["loss_scale"] = float(trainer._ls_state.scale)
+        m["skipped_steps"] = int(trainer._ls_state.skipped_total)
+    from paddle_tpu_torch.utils import FLAGS
+    mode = f"precision {precision}, use_bf16 {FLAGS.get('use_bf16')}, " \
+        f"bf16_activations {FLAGS.get('bf16_activations')}"
+    log(f"  {steps} timed steps ({mode}): {ms:.3f} ms/step (CUDA "
+        f"events), {m['samples_per_s']:.1f} samples/s, host wall "
         f"{m['host_wall_ms_per_step']:.3f} ms/step, peak memory "
-        f"{m['peak_mem_gb']:.2f} GB; launches {launches}")
+        f"{m['peak_mem_gb']:.2f} GB; launches "
+        f"{ {k: v for k, v in launches.items() if v} }"
+        + (f"; loss scale {m['loss_scale']}, skipped {m['skipped_steps']}"
+           if "loss_scale" in m else ""))
     log(f"  losses: warm {[round(x, 6) for x in warm]}, timed "
         f"{[round(x, 6) for x in losses]}")
     if not all(np.isfinite(warm + losses)):
         fail("non-finite training loss")
-    for name in TRAINING_KERNELS:
-        want = TRAIN["lstm_num"] * TIMED_STEPS
+    for name in kernels:
+        want = dims["lstm_num"] * steps
         if launches[name] != want:
-            fail(f"{name}: {launches[name]} launches in {TIMED_STEPS} steps, "
+            fail(f"{name}: {launches[name]} launches in {steps} steps, "
                  f"expected {want} (one per LSTM layer per step)")
+    for name in idle:
+        if launches[name]:
+            fail(f"{name} launched {launches[name]} times on a path that "
+                 "must not run it")
     return launches, m, trainer, feed
 
 
-def phase_train_small(dev):
+def phase_train_small(dev, hidden=128):
     """The same model on the CPU (plain versions) and on the card at
-    (B, T, H) = (8, 12, 128), from the same parameters: loss and every
+    (B, T) = (8, 12), from the same parameters: loss and every
     gradient."""
     import torch
     from paddle_tpu_torch.layers.network import NeuralNetwork
     from paddle_tpu_torch.models import lstm_text_classifier
-    net = NeuralNetwork(lstm_text_classifier(**dict(TRAIN, hidden_size=128)))
+    net = NeuralNetwork(lstm_text_classifier(**dict(TRAIN,
+                                                    hidden_size=hidden)))
     cpu_params = net.init_params(seed=0, device="cpu")
     res = {}
     for where in ("cpu", dev):
@@ -746,9 +800,9 @@ def phase_train_small(dev):
     (l_cpu, g_cpu), (l_dev, g_dev) = res["cpu"], res[str(dev)]
     e_loss = abs(float(l_dev) - float(l_cpu))
     e_grad, ratio = grad_errors(g_dev, g_cpu)
-    log(f"  card vs CPU plain path, B=8 T=12 H=128: loss {float(l_dev):.6f} "
-        f"vs {float(l_cpu):.6f}; gradients max abs err {e_grad:.3e} "
-        f"({ratio:.3f} of tolerance)")
+    log(f"  card vs CPU plain path, B=8 T=12 H={hidden}: loss "
+        f"{float(l_dev):.6f} vs {float(l_cpu):.6f}; gradients max abs err "
+        f"{e_grad:.3e} ({ratio:.3f} of tolerance)")
     if not np.isfinite(float(l_dev)) \
             or e_loss > LSTM_GRAD_ATOL + LSTM_GRAD_RTOL * abs(float(l_cpu)) \
             or ratio > 1.0:
@@ -854,6 +908,157 @@ def phase_time_lstm(dev, launches):
     return rows
 
 
+# ------------------------------------------------ blocked LSTM phases
+def bench_lengths(b, t, seed=0):
+    """The bench feed's lengths (drawn after the ids, as train_feed)."""
+    rng = np.random.RandomState(seed)
+    rng.randint(0, TRAIN["vocab_size"], (b, t))
+    return rng.randint(t // 2, t + 1, (b,))
+
+
+def blocked_args(b, t, h, lengths, seed, dev):
+    """Inputs of kernels 10-12 (forward, then the forward's residuals
+    with random cotangents) on the card."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape, sc=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * sc
+    mask = (torch.arange(t, device=dev)[None, :] < torch.as_tensor(
+        np.asarray(lengths), device=dev)[:, None]).float()
+    fwd = (rnd(b, t, 4 * h, sc=0.3), mask, rnd(h, 4 * h, sc=h ** -0.5),
+           rnd(3, h, sc=0.1), rnd(b, h, sc=0.5), rnd(b, h, sc=0.5))
+    return fwd, rnd(b, t, h), rnd(b, t, h)
+
+
+def blocked_kernel_errors(fwd, dy, dyc):
+    """(forward max abs error, backward and dW worst error / tolerance)
+    of each wrapper against its plain version on the same inputs."""
+    from paddle_tpu_torch.ops import lstm as L
+    xw, mask, w, checks, h0, c0 = fwd
+    hseq, cseq, gates = L.lstm_fwd_blocked(*fwd)
+    ref = L.lstm_fwd_blocked_reference(*fwd)
+    e_fwd = max((a - r).abs().max().item()
+                for a, r in zip((hseq, cseq, gates), ref))
+    bwd = (gates, cseq, c0, mask, w, checks, dy, dyc)
+    got = L.lstm_bwd_blocked(*bwd)
+    want = L.lstm_bwd_blocked_reference(*bwd)
+    e_bwd, r_bwd = grad_errors(dict(enumerate(got)), dict(enumerate(want)))
+    dw = L.lstm_dw_blocked(hseq, h0, got[0], mask)
+    e_dw, r_dw = grad_errors({0: dw},
+                             {0: L.lstm_dw_blocked_reference(hseq, h0,
+                                                             got[0], mask)})
+    return e_fwd, (e_bwd, r_bwd), (e_dw, r_dw)
+
+
+def phase_blocked_check(dev):
+    """Kernels 10-12 through their autograd.Function against autograd
+    through the plain scan, and each wrapper against its plain version
+    (fp32; the tolerances of 3b)."""
+    cases = [((8, 5, 640), [5, 0, 1, 5, 3, 5, 2, 4], False),
+             ((200, 4, 700), [4, 0] + [1 + i % 4 for i in range(198)], True),
+             ((3, 1, 642), [1, 0, 1], False),
+             ((TRAIN_B, TRAIN_T, 1280),
+              bench_lengths(TRAIN_B, TRAIN_T).tolist(), False),
+             ((TRAIN_B, TRAIN_T, 2048),
+              bench_lengths(TRAIN_B, TRAIN_T).tolist(), False)]
+    errs = dict.fromkeys(BLOCKED_KERNELS, 0.0)
+    for i, ((b, t, h), lengths, reverse) in enumerate(cases):
+        p, cot, ln = lstm_case(b, t, h, lengths, 20 + i, dev)
+        got_o, got_g = lstm_run(p, cot, ln, reverse, plain=False)
+        want_o, want_g = lstm_run(p, cot, ln, reverse, plain=True)
+        sync(dev)
+        e_out = max((g - w).abs().max().item()
+                    for g, w in zip(got_o, want_o))
+        e_grad, ratio = grad_errors(got_g, want_g)
+        fwd, dy, dyc = blocked_args(b, t, h, lengths, 30 + i, dev)
+        e_fwd, (e_bwd, r_bwd), (e_dw, r_dw) = blocked_kernel_errors(
+            fwd, dy, dyc)
+        sync(dev)
+        log(f"  blocked B={b} T={t} H={h} reverse={reverse}: vs the scan: "
+            f"outputs {e_out:.3e}, gradients {e_grad:.3e} ({ratio:.3f} of "
+            f"tolerance); vs plain versions: fwd {e_fwd:.3e}, bwd "
+            f"{e_bwd:.3e} ({r_bwd:.3f}), dW {e_dw:.3e} ({r_dw:.3f})")
+        if not max(e_out, e_fwd) <= LSTM_ATOL:
+            fail(f"lstm_fwd_blocked disagrees at B={b} T={t} H={h}: "
+                 f"{max(e_out, e_fwd)} > {LSTM_ATOL}")
+        if not max(ratio, r_bwd, r_dw) <= 1.0:
+            fail(f"lstm_bwd_blocked / lstm_dw_blocked disagree at B={b} "
+                 f"T={t} H={h}: {max(ratio, r_bwd, r_dw):.3f} of tolerance")
+        errs["lstm_fwd_blocked"] = max(errs["lstm_fwd_blocked"], e_out, e_fwd)
+        errs["lstm_bwd_blocked"] = max(errs["lstm_bwd_blocked"], e_bwd)
+        errs["lstm_dw_blocked"] = max(errs["lstm_dw_blocked"], e_dw)
+    return errs
+
+
+def blocked_work(name, b, t, h, n_valid):
+    """(bytes, flops) of one call of a blocked kernel: each input read
+    once, each output written once; the products of the valid row-steps
+    (2 * n_valid * H * 4H flops each: padded steps carry zeros)."""
+    full, gates, state, w = b * t, b * t * 4 * h, b * t * h, h * 4 * h
+    flops = 2 * n_valid * h * 4 * h
+    n = {  # xw, mask, w, checks, h0, c0 -> H, C, gates
+        "lstm_fwd_blocked": 2 * gates + 2 * state + full + w + 3 * h
+        + 2 * b * h,
+        # gates, C, c0, mask, w, checks, dy, dyc -> dxw, dh0, dc0
+        "lstm_bwd_blocked": 2 * gates + 3 * state + full + w + 3 * h
+        + 3 * b * h,
+        # H, h0, dxw, mask -> dW
+        "lstm_dw_blocked": gates + state + b * h + full + w}[name]
+    return 4 * n, flops
+
+
+def phase_time_blocked(dev, launches):
+    """Kernels 10-12 at the H 1280 main path's shapes (the bench feed's
+    lengths), each against its plain version; torch.matmul of the dW
+    product as kernel 12's yardstick."""
+    import torch
+    from paddle_tpu_torch.ops import lstm as L
+    b, t, h = TRAIN_B, TRAIN_T, BLOCKED["hidden_size"]
+    lengths = bench_lengths(b, t)
+    fwd, dy, dyc = blocked_args(b, t, h, lengths, 0, dev)
+    e_fwd, (e_bwd, r_bwd), (e_dw, r_dw) = blocked_kernel_errors(fwd, dy,
+                                                                dyc)
+    if not (e_fwd <= LSTM_ATOL and max(r_bwd, r_dw) <= 1.0):
+        fail("blocked LSTM kernels disagree with their plain versions at "
+             "the main shapes")
+    xw, mask, w, checks, h0, c0 = fwd
+    hseq, cseq, gates = L.lstm_fwd_blocked(*fwd)
+    bwd = (gates, cseq, c0, mask, w, checks, dy, dyc)
+    dxw = L.lstm_bwd_blocked(*bwd)[0]
+    h_prev = torch.cat([h0[:, None], hseq[:, :-1]], 1).reshape(-1, h)
+    g2 = dxw.reshape(-1, 4 * h)
+    n_valid = int(lengths.sum())
+    rows = []
+    for name, fn, plain, args, err, line, lib in (
+            ("lstm_fwd_blocked", L.lstm_fwd_blocked,
+             L.lstm_fwd_blocked_reference, fwd, e_fwd, 402, None),
+            ("lstm_bwd_blocked", L.lstm_bwd_blocked,
+             L.lstm_bwd_blocked_reference, bwd, e_bwd, 490, None),
+            ("lstm_dw_blocked", L.lstm_dw_blocked,
+             L.lstm_dw_blocked_reference, (hseq, h0, dxw, mask), e_dw, 602,
+             lambda: torch.matmul(h_prev.t(), g2))):
+        ms = time_ms(lambda: fn(*args), reps=3, rounds=3)
+        plain_ms = time_ms(lambda: plain(*args), reps=2, rounds=2)
+        lib_ms = time_ms(lib, reps=3, rounds=3) if lib else None
+        b_ms, b_by = bound_ms(*blocked_work(name, b, t, h, n_valid))
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"paddle_tpu_torch/csrc/{name}.cu",
+                     "replaces": f"paddle_tpu/ops/pallas_lstm.py:{line}",
+                     "launches": sum(launches[name].values()),
+                     "launches_by_path": launches[name],
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                     "shape": f"B {b}, T {t}, H {h}, {n_valid} valid steps"})
+    for r in rows:
+        lib = "" if r["library_ms"] is None else \
+            f", torch.matmul {r['library_ms'] * 1e3:.2f} us"
+        log(f"  {r['name']}: {r['ms'] * 1e3:.2f} us (plain "
+            f"{r['plain_ms'] * 1e3:.2f} us{lib}, bound "
+            f"{r['bound_ms'] * 1e3:.3f} us by {r['bound_by']}); {r['shape']}")
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -874,6 +1079,8 @@ def main() -> int:
 
     t_start = time.perf_counter()
     dev = resolve_device("cuda")
+    set_flags(use_bf16=False, bf16_activations=False, precision="fp32",
+              fused_rnn_hblock=True)
     try:
         log("== phase 1: card")
         card = phase_card()
@@ -883,6 +1090,9 @@ def main() -> int:
         phase_check(dev)
         log("== phase 3b: fused LSTM kernels vs the plain scan (fp32)")
         phase_lstm_check(dev)
+        log("== phase 3c: blocked LSTM kernels 10-12 vs the plain scan and "
+            "their plain versions (fp32)")
+        phase_blocked_check(dev)
         log("== phase 4: main path, full-width server")
         launches, serve, model, prompts = phase_serve(dev)
         log("== phase 4b: row invariance of the RMS mean")
@@ -898,9 +1108,35 @@ def main() -> int:
         log("== phase 4f: profile of 3 training steps")
         phase_profile_train(trainer, feed)
         del trainer, feed
+        log("== phase 4g: blocked main path, the classifier at H 1280 "
+            "under bench.py's flags (use_bf16, bf16_activations)")
+        set_flags(**BENCH_FLAGS)
+        blk_launches, blocked, trainer, feed = phase_train(
+            dev, BLOCKED, BLOCKED_STEPS, kernels=BLOCKED_KERNELS,
+            idle=TRAINING_KERNELS)
+        for name in launches:
+            launches[name]["training_h1280"] = blk_launches[name]
+        log("== phase 4h: profile of 3 H 1280 training steps")
+        phase_profile_train(trainer, feed)
+        del trainer, feed
+        log("== phase 4i: --precision=bf16 steps at H 1280")
+        _, mixed, trainer, feed = phase_train(
+            dev, BLOCKED, MIXED_STEPS, precision="bf16",
+            kernels=BLOCKED_KERNELS, idle=TRAINING_KERNELS)
+        del trainer, feed
+        log("== phase 4j: 2 steps at H 2048 under bench.py's flags")
+        _, wide, trainer, feed = phase_train(
+            dev, dict(BLOCKED, hidden_size=2048), 2,
+            kernels=BLOCKED_KERNELS, idle=TRAINING_KERNELS)
+        del trainer, feed
+        set_flags(use_bf16=False, bf16_activations=False)
+        log("== phase 4k: blocked training step, card vs CPU plain path "
+            "(fp32)")
+        phase_train_small(dev, hidden=640)
         log("== phase 5: kernel times at the main paths' shapes")
         rows = phase_time(dev, launches, serve) \
-            + phase_time_lstm(dev, launches)
+            + phase_time_lstm(dev, launches) \
+            + phase_time_blocked(dev, launches)
     except SystemExit as e:
         print(e, file=sys.stderr)
         return 1
@@ -910,7 +1146,9 @@ def main() -> int:
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"serving": {k: v for k, v in serve.items()
                                   if k != "prompt_lengths"},
-                      "training": train, "card": card}))
+                      "training": train, "training_h1280": blocked,
+                      "training_h1280_mixed_bf16": mixed,
+                      "training_h2048": wide, "card": card}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

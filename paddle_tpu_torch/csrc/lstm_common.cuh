@@ -1,12 +1,15 @@
-// Shared pieces of the fused LSTM kernels (lstm_fwd.cu, lstm_bwd.cu).
+// Shared pieces of the fused LSTM kernels: the single-block tier
+// (lstm_fwd.cu, lstm_bwd.cu) and the hidden-blocked tier
+// (lstm_fwd_blocked.cu, lstm_bwd_blocked.cu, lstm_dw_blocked.cu; see
+// the end of this file).
 //
-// Both kernels are persistent cooperative launches: one CTA per slice of
-// U hidden units (U in {1, 2, 4}, a template constant), the whole grid
-// resident, one grid barrier per time step.  Layouts are batch-major, as
-// the port's public function takes them: xw / gates / dxw [B, T, 4H]
-// (gate order i, f, c, o), state sequences [B, T, H], mask [B, T] (1.0
-// valid, 0.0 padding), w_hh [H, 4H], checks [3, H] (peepholes i, f on
-// c_prev; o on the new c).
+// The single-block kernels are persistent cooperative launches: one CTA
+// per slice of U hidden units (U in {1, 2, 4}, a template constant), the
+// whole grid resident, one grid barrier per time step.  Layouts are
+// batch-major, as the port's public function takes them: xw / gates /
+// dxw [B, T, 4H] (gate order i, f, c, o), state sequences [B, T, H],
+// mask [B, T] (1.0 valid, 0.0 padding), w_hh [H, 4H], checks [3, H]
+// (peepholes i, f on c_prev; o on the new c).
 //
 // A CTA's local gate columns are numbered j = g * U + u (gate g of its
 // unit u); unit0 + u is the hidden unit, g * H + unit0 + u the column of
@@ -193,6 +196,246 @@ __host__ inline int cooperative_launch(K kernel, int H, int U, long smem_floats,
   if (!coop || (long)per_sm * sms < grid) return -1;
   err = cudaLaunchCooperativeKernel((void*)kernel, dim3(grid), dim3(kThreads),
                                     args, smem, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------ hidden-blocked tier
+// The blocked kernels own no hidden units: they walk a list of output
+// tiles (kBRows batch rows x COLS columns) with a stride of the grid, so
+// any B and H run on any grid size, and a tile's result does not depend
+// on the grid.  Nothing stays resident: both operands of every product
+// stream from L2.  A CTA has kBThreads threads in KG k-groups; the
+// launcher picks, among the tile widths below, the one that spreads a
+// step's work most evenly over the co-resident CTAs (tile_cost).
+constexpr int kBThreads = 512;   // threads of a blocked-tier CTA
+constexpr int kBRows = 128;      // batch rows of a blocked-tier tile
+constexpr int kBStages = 3;      // k tiles in flight: 2 loading, 1 in use
+
+// Shape of one tile product: kBRows x COLS outputs; thread (cb, rg, g)
+// sums rows rg + RG i (i < DR) x columns cb + CB d (d < DC) over
+// k-group g's KS-wide slice of every kKT-wide k tile.
+template <int COLS_, int DR_, int DC_>
+struct NtTile {
+  static constexpr int ROWS = kBRows, COLS = COLS_, DR = DR_, DC = DC_;
+  static constexpr int RG = ROWS / DR, CB = COLS / DC;
+  static constexpr int KG = kBThreads / (RG * CB), KS = kKT / KG;
+  static constexpr int SF = (ROWS + COLS) * kTileStride;  // one stage
+  static constexpr long smem_floats = (long)kBStages * SF;
+  static_assert(ROWS % DR == 0 && COLS % DC == 0 &&
+                    KG * RG * CB == kBThreads && KS % 4 == 0,
+                "tile shape");
+  static_assert((long)KG * ROWS * COLS <= smem_floats,
+                "the k-group sums alias the stages");
+};
+// 20 sums a thread, 9 float4 shared loads per 80 FMAs; 32 sums, 12 / 128
+using Tile40 = NtTile<40, 4, 5>;
+using Tile64 = NtTile<64, 8, 4>;
+
+// Stage rows [0, ROWS) of A and [0, COLS) of B, columns [k0, k0 + kKT)
+// of each, into dst ([ROWS + COLS, kTileStride]); past K reads as 0.  A
+// null row (past an edge, or a skipped row) is not loaded at all: its
+// sums are never read.  `vec`: rows start 16-byte aligned, K % 4 == 0.
+template <class Tl, class ARow, class BRow>
+__device__ __forceinline__ void stage_nt(float* dst, ARow arow, BRow brow,
+                                         int k0, int K, bool vec,
+                                         const float* any) {
+  constexpr int NR = Tl::ROWS + Tl::COLS, C4 = kKT / 4;
+  if (vec) {
+    for (int idx = threadIdx.x; idx < NR * C4; idx += kBThreads) {
+      const int r = idx / C4, c = 4 * (idx % C4);
+      const float* src = r < Tl::ROWS ? arow(r) : brow(r - Tl::ROWS);
+      if (src == nullptr) continue;
+      const bool ok = k0 + c < K;
+      cp_async16(dst + r * kTileStride + c, ok ? src + k0 + c : any, ok);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < NR * kKT; idx += kBThreads) {
+      const int r = idx / kKT, c = idx % kKT;
+      const float* src = r < Tl::ROWS ? arow(r) : brow(r - Tl::ROWS);
+      if (src == nullptr) continue;
+      dst[r * kTileStride + c] = k0 + c < K ? __ldcg(src + k0 + c) : 0.f;
+    }
+  }
+}
+
+// "NT" tile product: C[r][c] = sum_{k < K} A(r)[k] * B(c)[k] for
+// r < ROWS, c < COLS, where arow(r) / brow(c) point at rows whose k is
+// contiguous (nullptr: a row past an edge or skipped, not loaded; its
+// sums are garbage and never read).  Only the first NB of each thread's
+// DR row blocks (rows rg + RG i, i < NB) are loaded and summed; the
+// others sum to 0.  k streams in kKT-wide tiles through a kBStages-deep
+// cp.async pipeline.  Per four k, a thread reads NB + DC float4 from
+// shared memory for 4 NB DC FMAs; in a quarter-warp the A loads are
+// broadcasts and the B loads hit distinct rows kTileStride floats
+// apart, so no bank conflicts.  On return the KG partial sums sit in
+// stages[(g * ROWS + r) * COLS + c]; red_sum_nt adds them in a fixed
+// order, so a result has the same bits on every run.
+template <class Tl, int NB, class ARow, class BRow>
+__device__ __forceinline__ void product_nt(ARow arow, BRow brow, int K,
+                                           bool vec, const float* any,
+                                           float* stages) {
+  constexpr int DR = Tl::DR, DC = Tl::DC, RG = Tl::RG, CB = Tl::CB;
+  constexpr int KS = Tl::KS, SF = Tl::SF;
+  const int tid = threadIdx.x;
+  const int cb = tid % CB, rg = (tid / CB) % RG, g = tid / (CB * RG);
+  const int nt = (K + kKT - 1) / kKT;
+  float acc[DR][DC];
+#pragma unroll
+  for (int i = 0; i < DR; ++i)
+#pragma unroll
+    for (int d = 0; d < DC; ++d) acc[i][d] = 0.f;
+  __syncthreads();  // the buffers (and the last tile's sums) are free
+#pragma unroll
+  for (int s = 0; s < kBStages - 1; ++s) {
+    if (s < nt)
+      stage_nt<Tl>(stages + s * SF, arow, brow, s * kKT, K, vec, any);
+    cp_commit();
+  }
+  for (int kt = 0; kt < nt; ++kt) {
+    cp_wait<kBStages - 2>();
+    __syncthreads();
+    if (kt + kBStages - 1 < nt)
+      stage_nt<Tl>(stages + ((kt + kBStages - 1) % kBStages) * SF, arow,
+                   brow, (kt + kBStages - 1) * kKT, K, vec, any);
+    cp_commit();
+    const float* ta = stages + (kt % kBStages) * SF;
+    const float* tb = ta + Tl::ROWS * kTileStride;
+#pragma unroll
+    for (int kk = g * KS; kk < (g + 1) * KS; kk += 4) {
+      float4 a[NB], b[DC];
+#pragma unroll
+      for (int i = 0; i < NB; ++i)
+        a[i] = *reinterpret_cast<const float4*>(ta + (rg + RG * i) *
+                                                kTileStride + kk);
+#pragma unroll
+      for (int d = 0; d < DC; ++d)
+        b[d] = *reinterpret_cast<const float4*>(tb + (cb + CB * d) *
+                                                kTileStride + kk);
+#pragma unroll
+      for (int i = 0; i < NB; ++i)
+#pragma unroll
+        for (int d = 0; d < DC; ++d) {
+          acc[i][d] += a[i].x * b[d].x;
+          acc[i][d] += a[i].y * b[d].y;
+          acc[i][d] += a[i].z * b[d].z;
+          acc[i][d] += a[i].w * b[d].w;
+        }
+    }
+  }
+  cp_wait<0>();
+  __syncthreads();  // every tile is read: the sums may overwrite them
+#pragma unroll
+  for (int i = 0; i < DR; ++i)
+#pragma unroll
+    for (int d = 0; d < DC; ++d)
+      stages[(g * Tl::ROWS + rg + RG * i) * Tl::COLS + cb + CB * d] =
+          acc[i][d];
+  __syncthreads();
+}
+
+template <class Tl>
+__device__ __forceinline__ float red_sum_nt(const float* red, int r, int c) {
+  float s = 0.f;
+#pragma unroll
+  for (int g = 0; g < Tl::KG; ++g) s += red[(g * Tl::ROWS + r) * Tl::COLS + c];
+  return s;
+}
+
+// The tile product over the first a_rows (>= 1) rows of A: the rows from
+// a_rows on are neither loaded nor summed, in quarters of the tile's
+// rows (32 rows), each count of quarters a straight-line product.
+template <class Tl, class ARow, class BRow>
+__device__ __forceinline__ void product_rows(ARow arow, BRow brow, int K,
+                                             bool vec, const float* any,
+                                             float* stages, int a_rows) {
+  static_assert(Tl::DR % 4 == 0, "quarters of the rows");
+  constexpr int Q = Tl::DR / 4;  // row blocks a quarter
+  switch ((a_rows + Q * Tl::RG - 1) / (Q * Tl::RG)) {
+    case 1:
+      product_nt<Tl, Q>(arow, brow, K, vec, any, stages);
+      break;
+    case 2:
+      product_nt<Tl, 2 * Q>(arow, brow, K, vec, any, stages);
+      break;
+    case 3:
+      product_nt<Tl, 3 * Q>(arow, brow, K, vec, any, stages);
+      break;
+    default:
+      product_nt<Tl, 4 * Q>(arow, brow, K, vec, any, stages);
+  }
+}
+
+// The rows of batch tile [r0, r0 + kBRows) valid at step t (mask[b, t] !=
+// 0, b < B), ascending: rows_s[0, n) holds them, pos_s[r] the place of
+// row r0 + r in that list (-1 when it is not valid).  Returns n; ends
+// with a barrier, after which both arrays are visible to the CTA.
+__device__ __forceinline__ int valid_tile_rows(const float* mask, int B,
+                                               int T, int t, int r0,
+                                               int* rows_s, int* pos_s) {
+  static_assert(kBThreads >= kBRows && kBRows % 32 == 0, "one row a thread");
+  __shared__ int warp_n[kBRows / 32];
+  const int tid = threadIdx.x;
+  const bool valid = tid < kBRows && r0 + tid < B &&
+                     mask[(long)(r0 + tid) * T + t] != 0.f;
+  const unsigned ballot = __ballot_sync(0xffffffffu, valid);
+  if (tid < kBRows && tid % 32 == 0) warp_n[tid / 32] = __popc(ballot);
+  __syncthreads();
+  int n = 0, before = 0;
+#pragma unroll
+  for (int w = 0; w < kBRows / 32; ++w) {
+    if (w < tid / 32) before += warp_n[w];
+    n += warp_n[w];
+  }
+  if (tid < kBRows) {
+    const int p = before + __popc(ballot & ((1u << (tid % 32)) - 1u));
+    pos_s[tid] = valid ? p : -1;
+    if (valid) rows_s[p] = r0 + tid;
+  }
+  __syncthreads();
+  return n;
+}
+
+// CTAs of `kernel` (kBThreads threads, smem_floats of shared memory) that
+// can be co-resident on the current card; 0 when the card has no
+// cooperative launch, a cudaError_t as a negative number on failure.
+template <typename K>
+__host__ inline long resident_ctas(K kernel, long smem_floats) {
+  const size_t smem = (size_t)smem_floats * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return -(long)err;
+  int dev = 0, sms = 0, per_sm = 0, coop = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return -(long)err;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kBThreads, smem);
+  if (err != cudaSuccess) return -(long)err;
+  return coop ? (long)per_sm * sms : 0;
+}
+
+// Per-CTA work of a tiling: rounds of the grid over n_tiles, times the
+// tile's width; "none" (a huge cost) when nothing is resident.
+__host__ inline long tile_cost(long n_tiles, long resident, int cols) {
+  if (resident <= 0) return 1L << 62;
+  return (n_tiles + resident - 1) / resident * cols;
+}
+
+// Launch `kernel` cooperatively on min(n_tiles, resident) CTAs of
+// kBThreads threads (the kernels stride over their tiles).  Returns 0 or
+// a cudaError_t; -1 when not even one CTA fits or the card has no
+// cooperative launch.
+template <typename K>
+__host__ inline int launch_tiles(K kernel, long n_tiles, long resident,
+                                 long smem_floats, void** args,
+                                 cudaStream_t stream) {
+  if (resident < 0) return (int)-resident;
+  if (resident == 0) return -1;
+  const int grid = (int)(n_tiles < resident ? n_tiles : resident);
+  cudaError_t err = cudaLaunchCooperativeKernel(
+      (void*)kernel, dim3(grid), dim3(kBThreads), args,
+      (size_t)smem_floats * sizeof(float), stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

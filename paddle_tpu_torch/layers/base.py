@@ -16,7 +16,8 @@ import numpy as np
 import torch
 
 from ..config.model_config import LayerConfig, ModelConfig, ParameterConfig
-from ..core.sequence import SequenceBatch
+from ..core.dtypes import current_policy
+from ..core.sequence import SequenceBatch, like, value_of
 from ..ops.activations import get_activation
 from ..utils import PaddleTpuError, enforce
 
@@ -88,6 +89,27 @@ class Layer:
         if isinstance(out, SequenceBatch):
             return out.with_data(act(out.data))
         return act(out)
+
+
+def cast_layer_output(layer: Layer, out: Any) -> Any:
+    """A layer's float outputs in the policy output dtype (under
+    ``--bf16_activations``, bf16: a layer that promoted to fp32 is cast
+    back at the engine boundary).  Cost layers are exempt: losses stay
+    fp32."""
+    odt = current_policy().output_dtype
+    if odt == torch.float32 or getattr(layer, "is_cost", False):
+        return out
+
+    def cast(v):
+        data = value_of(v)
+        if isinstance(data, torch.Tensor) and data.is_floating_point() \
+                and data.dtype != odt:
+            return like(v, data.to(odt))
+        return v
+
+    if isinstance(out, dict):
+        return {k: cast(v) for k, v in out.items()}
+    return cast(out)
 
 
 def init_parameter(gen: torch.Generator, spec: ParameterConfig

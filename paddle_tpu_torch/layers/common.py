@@ -5,7 +5,7 @@ strings match the reference's registered names."""
 from __future__ import annotations
 
 from ..core.sequence import like, value_of
-from ..ops import embedding_ops
+from ..ops import embedding_ops, math_ops
 from ..utils import PaddleTpuError
 from .base import Layer, register_layer
 
@@ -21,7 +21,9 @@ class DataLayer(Layer):
 @register_layer("fc")
 class FullyConnectedLayer(Layer):
     """``FullyConnectedLayer``: out = act(sum_i x_i W_i + b), W ``[in,
-    out]``; a sequence input is projected at every timestep."""
+    out]``, the products under the precision policy
+    (``math_ops.matmul``); a sequence input is projected at every
+    timestep."""
 
     def param_specs(self):
         specs = []
@@ -37,10 +39,11 @@ class FullyConnectedLayer(Layer):
     def forward(self, params, inputs):
         out = None
         for i, x in enumerate(inputs):
-            y = value_of(x) @ params[self.weight_name(i)]
+            y = math_ops.matmul(value_of(x), params[self.weight_name(i)])
             out = y if out is None else out + y
         if self.conf.with_bias:
-            out = out + params[self.bias_name()]
+            # added in the activation dtype, as the JAX package does
+            out = out + params[self.bias_name()].to(out.dtype)
         out = like(inputs[0], out)
         if self.conf.active_type == "softmax":
             # expose the pre-activation as '.logits' so a classification

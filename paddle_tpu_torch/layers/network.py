@@ -18,7 +18,7 @@ from ..config.model_config import ModelConfig, ParameterConfig
 from ..core.device import resolve_device
 from ..core.sequence import value_of
 from ..utils import PaddleTpuError, enforce
-from .base import Layer, get_layer_class, init_parameter
+from .base import Layer, cast_layer_output, get_layer_class, init_parameter
 from . import common, cost, rnn, seq  # noqa: F401  (register layers)
 
 
@@ -108,7 +108,7 @@ class NeuralNetwork:
             inputs = [values[i] for i in layer.conf.input_names()]
             if name in self._cost_logit_alias:
                 layer.logits_value = values.get(self._cost_logit_alias[name])
-            out = layer.forward(params, inputs)
+            out = cast_layer_output(layer, layer.forward(params, inputs))
             if isinstance(out, dict):
                 for k, v in out.items():
                     values[name if k == "out" else f"{name}.{k}"] = v

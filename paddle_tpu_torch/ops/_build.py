@@ -49,6 +49,10 @@ SIGNATURES = {
                          [_C] * 6 + [_I] * 7 + [_F, _C]),
     "lstm_fwd": ("lstm_fwd", [_C] * 9 + [_I] * 4 + [_C]),
     "lstm_bwd": ("lstm_bwd", [_C] * 16 + [_I] * 4 + [_C]),
+    "lstm_fwd_blocked": ("lstm_fwd_blocked", [_C] * 9 + [_I] * 3 + [_C]),
+    "lstm_bwd_blocked": ("lstm_bwd_blocked", [_C] * 14 + [_I] * 3 + [_C]),
+    "lstm_dw_blocked": ("lstm_dw_blocked", [_C] * 7 + [_I] * 4 + [_C]),
+    "lstm_dw_blocked_splits": ("lstm_dw_blocked", [_I] * 3),
 }
 
 _lock = threading.Lock()

@@ -14,6 +14,10 @@ def sigmoid(x: torch.Tensor) -> torch.Tensor:
     return torch.sigmoid(x)
 
 
+def relu(x: torch.Tensor) -> torch.Tensor:
+    return torch.relu(x)
+
+
 def tanh(x: torch.Tensor) -> torch.Tensor:
     return torch.tanh(x)
 
@@ -28,7 +32,7 @@ def linear(x: torch.Tensor) -> torch.Tensor:
 
 
 ACTIVATIONS: Dict[str, Callable] = {
-    "sigmoid": sigmoid, "tanh": tanh, "softmax": softmax,
+    "sigmoid": sigmoid, "tanh": tanh, "relu": relu, "softmax": softmax,
     "linear": linear, "": linear,
 }
 

@@ -1,26 +1,55 @@
-"""Fused LSTM sequence (counterpart of ``paddle_tpu/ops/pallas_lstm.py``,
-its single-block tier).
+"""Fused LSTM sequence (counterpart of ``paddle_tpu/ops/pallas_lstm.py``:
+its single-block tier and its hidden-blocked tier).
 
-Two hand-written CUDA C++ kernels for ``sm_90a``, each a whole time loop
-of one LSTM direction in one persistent cooperative launch:
+Hand-written CUDA C++ kernels for ``sm_90a``, each a whole time loop of
+one LSTM direction in one persistent cooperative launch, except the
+last (an ordinary product):
 
-- :func:`lstm_fwd` — forward (``csrc/lstm_fwd.cu``; plain version
-  :func:`lstm_fwd_reference`): writes the kept state sequences H, C and
-  the activated gates;
-- :func:`lstm_bwd` — BPTT (``csrc/lstm_bwd.cu``; plain version
-  :func:`lstm_bwd_reference`): dxw, dW_hh, the peephole grads, dh0, dc0.
+- single-block tier, H <= 512 (``"fused"``):
+  :func:`lstm_fwd` (``csrc/lstm_fwd.cu``; plain version
+  :func:`lstm_fwd_reference`) writes the kept state sequences H, C and
+  the activated gates; :func:`lstm_bwd` (``csrc/lstm_bwd.cu``; plain
+  :func:`lstm_bwd_reference`) gives dxw, dW_hh, the peephole grads,
+  dh0, dc0;
+- hidden-blocked tier, 512 < H (``"fused_blocked"``):
+  :func:`lstm_fwd_blocked` (``csrc/lstm_fwd_blocked.cu``; plain
+  :func:`lstm_fwd_blocked_reference`), :func:`lstm_bwd_blocked`
+  (``csrc/lstm_bwd_blocked.cu``; plain
+  :func:`lstm_bwd_blocked_reference`: dxw, dh0, dc0, no dW) and
+  :func:`lstm_dw_blocked` (``csrc/lstm_dw_blocked.cu``; plain
+  :func:`lstm_dw_blocked_reference`); the peephole grads are plain
+  reductions over dxw (:func:`peephole_grads`), as in the TPU tier.
+  Forward and backward walk tiles of 128 batch rows with a persistent
+  cooperative grid, one (forward) or two (backward) grid barriers a
+  step; the launcher picks the tile width that spreads a step over the
+  co-resident CTAs.  Their products take only the rows valid at each
+  step (a padded step keeps its state; its dgates are exact zeros, and
+  the forward writes its gates as 0).  The backward cuts the pull-back
+  dgates_t @ w_hh^T by gate and adds the four parts in gate order.  The
+  dW product skips the padded steps too and splits its rows when the
+  tiles would leave a round of CTAs mostly idle.
 
-:class:`_LstmCore` (a ``torch.autograd.Function``) launches the first
-in its forward and the second in its backward, as ``_lstm_core`` does
-with its custom VJP; :func:`lstm_fused_sequence` is the public function.
+:class:`_LstmCore` and :class:`_LstmCoreBlocked` (``torch.autograd.
+Function``) launch the forward kernel in their forward and the backward
+kernel(s) in their backward, as ``_lstm_core`` / ``_lstm_core_blocked``
+do with their custom VJPs; :func:`lstm_fused_sequence` and
+:func:`lstm_fused_sequence_blocked` are the public functions.
 
 Layouts are batch-major throughout (xw / gates ``[B, T, 4H]``, states
 ``[B, T, H]``, mask ``[B, T]``), so no time-major copy is made; checks
-are ``[3, H]`` (rows i, f, o).  A wrapper checks dtype (fp32 only),
-shape and contiguity first.  CPU tensors then take the plain version;
-CUDA tensors launch the kernel or raise — a shape the kernel does not
-serve (:func:`fused_tier`) raises too, never falls back.  Each wrapper
-counts its launches in ``.launches``.
+are ``[3, H]`` (rows i, f, o); w_hh stays ``[H, 4H]`` gate-major (the
+JAX tier's block-gate permutation is not carried over; the blocked
+forward reads w_hh through a transpose it makes itself).  A wrapper
+checks dtype (fp32 only), shape and contiguity first.  CPU tensors then
+take the plain version; CUDA tensors launch the kernel or raise — a
+shape the kernel's tier does not serve (:func:`fused_tier`) raises too,
+never falls back.  Each wrapper counts its launches in ``.launches``.
+
+Precision: the kernels compute in fp32, whatever the policy.  The
+public functions cast their inputs to fp32 before the kernels (a bf16
+xw converts exactly), so autograd returns dxw in xw's dtype, as the JAX
+kernels read xw in its dtype, compute the gates in f32 and cast dxw
+back (``pallas_lstm.py:422,677``).
 """
 
 from __future__ import annotations
@@ -29,21 +58,27 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..utils import PaddleTpuError, enforce
+from ..utils import FLAGS, PaddleTpuError, enforce
 from . import _build
 
-#: Hopper resources the tier is computed from (H100 SXM): SMs, and the
+#: Hopper resources the tiers are computed from (H100 SXM): SMs, and the
 #: shared memory one block may use.
 SM_COUNT = 132
 SMEM_BYTES = 232448
-#: Hidden units per CTA the kernels are built for (4U gate columns must
-#: divide the 256-thread block).
+#: Hidden units per CTA the single-block kernels are built for (4U gate
+#: columns must divide the 256-thread block).
 UNITS = (1, 2, 4)
-#: Largest H the single-block kernels take; the hidden-blocked tier
-#: (pallas_lstm.py kernels 10-12) is not ported yet.
+#: Largest H the single-block kernels take; above it, the blocked tier.
 MAX_HIDDEN = 512
+#: Largest H of the blocked tier: the kernels count a row-step's 4H gate
+#: columns and w_hh's 4H^2 elements in 32-bit ints.
+MAX_BLOCKED_HIDDEN = 23170
 # shared-memory pieces of csrc/lstm_common.cuh and the kernels, in floats
 _TILE_FLOATS, _RED_FLOATS, _DW_FLOATS = 3 * 128 * 68, 8 * 128 * 4, 3 * 32 * 200
+# blocked tier: 3 staging buffers of (128 rows + at most 64 columns) x 68
+# floats (forward and backward tiles), dW 3 x 32 x (132 + 132)
+_BLOCKED_FLOATS = (3 * 192 * 68, 3 * 32 * 264)
+
 
 def units_per_cta(h: int, sms: int = SM_COUNT) -> Optional[int]:
     """Smallest U whose grid of ceil(h / U) CTAs fits one per SM."""
@@ -54,8 +89,8 @@ def units_per_cta(h: int, sms: int = SM_COUNT) -> Optional[int]:
 
 
 def smem_bytes(b: int, h: int, u: int) -> Tuple[int, int]:
-    """Dynamic shared memory of (forward, backward) kernel, in bytes —
-    the arithmetic of ``csrc/lstm_common.cuh``."""
+    """Dynamic shared memory of the single-block (forward, backward)
+    kernels, in bytes — the arithmetic of ``csrc/lstm_common.cuh``."""
     n = 4 * u
     fwd = -(-h // 64) * 64 * n + _TILE_FLOATS + _RED_FLOATS + b * n + 2 * b * u
     bwd = n * -(-h // 4) * 4 + n * -(-b // 8) * 8 + 8 * b * u + _DW_FLOATS
@@ -63,16 +98,27 @@ def smem_bytes(b: int, h: int, u: int) -> Tuple[int, int]:
 
 
 def fused_tier(b: int, h: int, sms: int = SM_COUNT) -> Optional[str]:
-    """``"fused"`` when the ported kernels serve (b, h) on a card with
-    ``sms`` SMs: 1 <= h <= 512, a grid of ceil(h / U) CTAs at most one
-    per SM, and both kernels' shared memory within one block's limit.
-    Any B and H up to that: no tiling gate.  ``None`` otherwise."""
-    if b < 1 or h < 1 or h > MAX_HIDDEN:
+    """Which kernels serve (b, h) on a card with ``sms`` SMs:
+
+    - ``"fused"``: 1 <= h <= 512, a grid of ceil(h / U) CTAs at most one
+      per SM, both kernels' shared memory within one block's limit;
+    - ``"fused_blocked"``: 512 < h <= MAX_BLOCKED_HIDDEN under
+      ``--fused_rnn_hblock`` (default on).  The blocked kernels stride
+      over their tiles with as many CTAs as are co-resident, so any B
+      and any SM count serve; each kernel's shared memory (at most
+      157 KB) is within one block's limit;
+    - ``None`` otherwise.  No tiling gate in either tier."""
+    if b < 1 or h < 1:
         return None
-    u = units_per_cta(h, sms)
-    if u is None or max(smem_bytes(b, h, u)) > SMEM_BYTES:
+    if h <= MAX_HIDDEN:
+        u = units_per_cta(h, sms)
+        if u is None or max(smem_bytes(b, h, u)) > SMEM_BYTES:
+            return None
+        return "fused"
+    if not FLAGS.get("fused_rnn_hblock") or h > MAX_BLOCKED_HIDDEN \
+            or sms < 1 or 4 * max(_BLOCKED_FLOATS) > SMEM_BYTES:
         return None
-    return "fused"
+    return "fused_blocked"
 
 
 # ------------------------------------------------------------ plain versions
@@ -101,24 +147,31 @@ def lstm_fwd_reference(xw, mask, w_hh, checks, h0, c0
     return torch.stack(hs, 1), torch.stack(cs, 1), torch.stack(gs, 1)
 
 
-def lstm_bwd_reference(gates, hseq, cseq, h0, c0, mask, w_hh, checks, dy,
-                       dyc):
-    """Plain version of :func:`lstm_bwd`: the reversed step loop of
-    ``pallas_lstm._bwd_kernel``.  dy/dyc (the cotangents on H and C) join
-    the carries before the masked split; the (1-m) share passes both
-    carries to earlier steps."""
+def lstm_fwd_blocked_reference(xw, mask, w_hh, checks, h0, c0
+                               ) -> Tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+    """Plain version of :func:`lstm_fwd_blocked`: :func:`lstm_fwd_reference`
+    with the gates of padded steps written as 0 (the kernel skips their
+    products; the backward's masked split never reads them)."""
+    hseq, cseq, gates = lstm_fwd_reference(xw, mask, w_hh, checks, h0, c0)
+    return hseq, cseq, gates * (mask != 0).to(gates.dtype)[..., None]
+
+
+def lstm_bwd_blocked_reference(gates, cseq, c0, mask, w_hh, checks, dy,
+                               dyc):
+    """Plain version of :func:`lstm_bwd_blocked`: the reversed step loop
+    of ``pallas_lstm._bwd_kernel_blocked``.  dy/dyc (the cotangents on H
+    and C) join the carries before the masked split; the (1-m) share
+    passes both carries to earlier steps.  Returns (dxw, dh0, dc0)."""
     b, t, hd4 = gates.shape
     hd = hd4 // 4
-    dh_c = torch.zeros_like(h0)
+    dh_c = torch.zeros_like(c0)
     dc_c = torch.zeros_like(c0)
-    dw = torch.zeros_like(w_hh)
-    dck = torch.zeros_like(checks)
     dxw = torch.empty_like(gates)
     for s in range(t - 1, -1, -1):
         g = gates[:, s]
         g_i, g_f = g[:, :hd], g[:, hd:2 * hd]
         g_g, g_o = g[:, 2 * hd:3 * hd], g[:, 3 * hd:]
-        h_prev = hseq[:, s - 1] if s > 0 else h0
         c_prev = cseq[:, s - 1] if s > 0 else c0
         c = cseq[:, s]
         m = mask[:, s, None]
@@ -136,12 +189,41 @@ def lstm_bwd_reference(gates, hseq, cseq, h0, c0, mask, w_hh, checks, dy,
         dh_c = (1.0 - m) * dh_tot + dgates @ w_hh.t()
         dc_c = (1.0 - m) * dc_tot + dc * g_f + di_pre * checks[0] \
             + df_pre * checks[1]
-        dw = dw + h_prev.t() @ dgates
-        dck = dck + torch.stack([(di_pre * c_prev).sum(0),
-                                 (df_pre * c_prev).sum(0),
-                                 (do_pre * c).sum(0)])
         dxw[:, s] = dgates
-    return dxw, dw, dck, dh_c, dc_c
+    return dxw, dh_c, dc_c
+
+
+def _shifted(seq: torch.Tensor, first: torch.Tensor) -> torch.Tensor:
+    """The sequence one step back, ``first`` at t = 0 ([B, T, H])."""
+    return torch.cat([first[:, None], seq[:, :-1]], dim=1)
+
+
+def lstm_dw_blocked_reference(hseq, h0, dxw, mask) -> torch.Tensor:
+    """Plain version of :func:`lstm_dw_blocked`: dW_hh = sum over the
+    valid (b, t) of h_{t-1}[b]^T dgates_t[b], one summed product."""
+    hd = h0.shape[-1]
+    h_prev = _shifted(hseq, h0) * (mask != 0).to(hseq.dtype)[..., None]
+    return h_prev.reshape(-1, hd).t() @ dxw.reshape(-1, 4 * hd)
+
+
+def peephole_grads(dxw, cseq, c0) -> torch.Tensor:
+    """Gradients of the checks ``[3, H]`` from the dgates residue dxw:
+    i and f against c_{t-1}, o against c_t (``pallas_lstm.py:666-676``)."""
+    hd = c0.shape[-1]
+    c_prev = _shifted(cseq, c0)
+    return torch.stack([(dxw[..., :hd] * c_prev).sum((0, 1)),
+                        (dxw[..., hd:2 * hd] * c_prev).sum((0, 1)),
+                        (dxw[..., 3 * hd:] * cseq).sum((0, 1))])
+
+
+def lstm_bwd_reference(gates, hseq, cseq, h0, c0, mask, w_hh, checks, dy,
+                       dyc):
+    """Plain version of :func:`lstm_bwd`: the reversed step loop of
+    ``pallas_lstm._bwd_kernel`` → (dxw, dW_hh, dchecks, dh0, dc0)."""
+    dxw, dh0, dc0 = lstm_bwd_blocked_reference(gates, cseq, c0, mask, w_hh,
+                                               checks, dy, dyc)
+    return (dxw, lstm_dw_blocked_reference(hseq, h0, dxw, mask),
+            peephole_grads(dxw, cseq, c0), dh0, dc0)
 
 
 # ------------------------------------------------------------------ wrappers
@@ -169,26 +251,44 @@ def _on_card(tensors) -> bool:
     return True
 
 
-def _units_on_card(b: int, h: int, dev: torch.device) -> int:
+def _tier_on_card(b: int, h: int, dev: torch.device, want: str) -> None:
+    """Raise unless ``fused_tier`` gives ``want`` for (b, h) on ``dev``."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count \
         if dev.type == "cuda" else SM_COUNT
-    if fused_tier(b, h, sms) is None:
+    if fused_tier(b, h, sms) != want:
         raise PaddleTpuError(
-            f"the fused LSTM kernels do not serve batch={b} hidden={h} "
-            f"(hidden <= {MAX_HIDDEN}, shared memory <= {SMEM_BYTES} B); "
-            "the hidden-blocked tier (pallas_lstm.py kernels 10-12) is "
-            "not ported yet")
-    return units_per_cta(h, sms)
+            f"the {want!r} LSTM kernels do not serve batch={b} hidden={h} "
+            f"(fused: hidden <= {MAX_HIDDEN}, shared memory <= "
+            f"{SMEM_BYTES} B; fused_blocked: {MAX_HIDDEN} < hidden <= "
+            f"{MAX_BLOCKED_HIDDEN} with --fused_rnn_hblock on)")
 
 
 def _launch(symbol: str, ptrs, ints, dev) -> None:
     fn = _build.kernel(symbol)
     err = fn(*ptrs, *ints, torch.cuda.current_stream(dev).cuda_stream)
     if err == -1:
-        raise PaddleTpuError(f"{symbol}: the cooperative grid of "
-                             f"{-(-ints[2] // ints[3])} CTAs cannot be "
+        raise PaddleTpuError(f"{symbol}: the cooperative grid cannot be "
                              "resident on this card")
     enforce(err == 0, f"{symbol} launch failed (cudaError {err})")
+
+
+def _check_xw(name: str, xw) -> Tuple[int, int, int, int]:
+    enforce(isinstance(xw, torch.Tensor) and xw.dim() == 3
+            and xw.shape[-1] % 4 == 0,
+            f"{name}: expected [B, T, 4H], got "
+            f"{tuple(getattr(xw, 'shape', ()))}")
+    b, t, hd4 = xw.shape
+    return b, t, hd4, hd4 // 4
+
+
+def _check_fwd(xw, mask, w_hh, checks, h0, c0):
+    b, t, hd4, hd = _check_xw("xw", xw)
+    for name, x, shape in (("xw", xw, (b, t, hd4)), ("mask", mask, (b, t)),
+                           ("w_hh", w_hh, (hd, hd4)),
+                           ("checks", checks, (3, hd)), ("h0", h0, (b, hd)),
+                           ("c0", c0, (b, hd))):
+        _check(name, x, shape)
+    return b, t, hd
 
 
 def lstm_fwd(xw, mask, w_hh, checks, h0, c0
@@ -197,20 +297,13 @@ def lstm_fwd(xw, mask, w_hh, checks, h0, c0
     bias applied), mask ``[B, T]`` float, w_hh ``[H, 4H]``, checks
     ``[3, H]``, h0/c0 ``[B, H]`` → (H, C ``[B, T, H]`` kept states,
     gates ``[B, T, 4H]`` activated i, f, g, o)."""
-    enforce(isinstance(xw, torch.Tensor) and xw.dim() == 3
-            and xw.shape[-1] % 4 == 0,
-            f"xw: expected [B, T, 4H], got {tuple(getattr(xw, 'shape', ()))}")
-    b, t, hd4 = xw.shape
-    hd = hd4 // 4
-    for name, x, shape in (("xw", xw, (b, t, hd4)), ("mask", mask, (b, t)),
-                           ("w_hh", w_hh, (hd, hd4)),
-                           ("checks", checks, (3, hd)), ("h0", h0, (b, hd)),
-                           ("c0", c0, (b, hd))):
-        _check(name, x, shape)
+    b, t, hd = _check_fwd(xw, mask, w_hh, checks, h0, c0)
     args = (xw, mask, w_hh, checks, h0, c0)
     if not _on_card(args):
         return lstm_fwd_reference(*args)
-    u = _units_on_card(b, hd, xw.device)
+    _tier_on_card(b, hd, xw.device, "fused")
+    u = units_per_cta(hd, torch.cuda.get_device_properties(
+        xw.device).multi_processor_count)
     hseq = torch.empty((b, t, hd), dtype=torch.float32, device=xw.device)
     cseq = torch.empty_like(hseq)
     gates = torch.empty_like(xw)
@@ -230,12 +323,7 @@ def lstm_bwd(gates, hseq, cseq, h0, c0, mask, w_hh, checks, dy, dyc):
     ``[B, T, H]``, h0/c0, mask, w_hh, checks as in :func:`lstm_fwd`, and
     dy/dyc ``[B, T, H]`` the cotangents on H and C → (dxw ``[B, T, 4H]``,
     dw_hh ``[H, 4H]``, dchecks ``[3, H]``, dh0, dc0 ``[B, H]``)."""
-    enforce(isinstance(gates, torch.Tensor) and gates.dim() == 3
-            and gates.shape[-1] % 4 == 0,
-            f"gates: expected [B, T, 4H], got "
-            f"{tuple(getattr(gates, 'shape', ()))}")
-    b, t, hd4 = gates.shape
-    hd = hd4 // 4
+    b, t, hd4, hd = _check_xw("gates", gates)
     for name, x, shape in (("gates", gates, (b, t, hd4)),
                            ("hseq", hseq, (b, t, hd)),
                            ("cseq", cseq, (b, t, hd)), ("h0", h0, (b, hd)),
@@ -247,7 +335,9 @@ def lstm_bwd(gates, hseq, cseq, h0, c0, mask, w_hh, checks, dy, dyc):
     args = (gates, hseq, cseq, h0, c0, mask, w_hh, checks, dy, dyc)
     if not _on_card(args):
         return lstm_bwd_reference(*args)
-    u = _units_on_card(b, hd, gates.device)
+    _tier_on_card(b, hd, gates.device, "fused")
+    u = units_per_cta(hd, torch.cuda.get_device_properties(
+        gates.device).multi_processor_count)
     dxw = torch.empty_like(gates)
     dw = torch.empty_like(w_hh)
     dck = torch.empty_like(checks)
@@ -267,8 +357,111 @@ def lstm_bwd(gates, hseq, cseq, h0, c0, mask, w_hh, checks, dy, dyc):
 
 lstm_bwd.launches = 0
 
+
+def lstm_fwd_blocked(xw, mask, w_hh, checks, h0, c0
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Blocked-tier forward (kernel 10), the contract of
+    :func:`lstm_fwd` except that the gates of padded steps are 0; its
+    plain version is :func:`lstm_fwd_blocked_reference`."""
+    b, t, hd = _check_fwd(xw, mask, w_hh, checks, h0, c0)
+    args = (xw, mask, w_hh, checks, h0, c0)
+    if not _on_card(args):
+        return lstm_fwd_blocked_reference(*args)
+    _tier_on_card(b, hd, xw.device, "fused_blocked")
+    enforce(b * t < 2 ** 31, "the blocked LSTM kernels count B*T in int32")
+    hseq = torch.empty((b, t, hd), dtype=torch.float32, device=xw.device)
+    cseq = torch.empty_like(hseq)
+    gates = torch.empty_like(xw)
+    if xw.numel() == 0:
+        return hseq, cseq, gates
+    # the kernel reads w_hh's gate columns as rows of its transpose
+    w_t = w_hh.t().contiguous()
+    _launch("lstm_fwd_blocked",
+            [x.data_ptr() for x in (xw, mask, w_t, checks, h0, c0, hseq,
+                                    cseq, gates)], (b, t, hd), xw.device)
+    lstm_fwd_blocked.launches += 1
+    return hseq, cseq, gates
+
+
+lstm_fwd_blocked.launches = 0
+
+
+def lstm_bwd_blocked(gates, cseq, c0, mask, w_hh, checks, dy, dyc
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Blocked-tier BPTT without dW (kernel 11): gates ``[B, T, 4H]``, C
+    ``[B, T, H]``, c0 ``[B, H]``, mask, w_hh, checks as in
+    :func:`lstm_fwd`, dy/dyc ``[B, T, H]`` the cotangents on H and C →
+    (dxw ``[B, T, 4H]``, dh0, dc0 ``[B, H]``)."""
+    b, t, hd4, hd = _check_xw("gates", gates)
+    for name, x, shape in (("gates", gates, (b, t, hd4)),
+                           ("cseq", cseq, (b, t, hd)), ("c0", c0, (b, hd)),
+                           ("mask", mask, (b, t)),
+                           ("w_hh", w_hh, (hd, hd4)),
+                           ("checks", checks, (3, hd)),
+                           ("dy", dy, (b, t, hd)), ("dyc", dyc, (b, t, hd))):
+        _check(name, x, shape)
+    args = (gates, cseq, c0, mask, w_hh, checks, dy, dyc)
+    if not _on_card(args):
+        return lstm_bwd_blocked_reference(*args)
+    _tier_on_card(b, hd, gates.device, "fused_blocked")
+    enforce(b * t < 2 ** 31, "the blocked LSTM kernels count B*T in int32")
+    dxw = torch.empty_like(gates)
+    dh0 = torch.empty_like(c0)
+    dc0 = torch.empty_like(c0)
+    if gates.numel() == 0:
+        return dxw, dh0.zero_(), dc0.zero_()
+    # per-(row, unit) scratch: (1-m) dh_tot, the dc carry and the
+    # recurrent pull-back by gate
+    dhp = torch.empty_like(c0)
+    dcc = torch.empty_like(c0)
+    part = torch.empty((4, b, hd), dtype=torch.float32, device=gates.device)
+    _launch("lstm_bwd_blocked",
+            [x.data_ptr() for x in args + (dxw, dh0, dc0, dhp, dcc, part)],
+            (b, t, hd), gates.device)
+    lstm_bwd_blocked.launches += 1
+    return dxw, dh0, dc0
+
+
+lstm_bwd_blocked.launches = 0
+
+
+def lstm_dw_blocked(hseq, h0, dxw, mask) -> torch.Tensor:
+    """Blocked-tier weight gradient (kernel 12): H ``[B, T, H]``, h0
+    ``[B, H]``, dxw ``[B, T, 4H]`` and mask ``[B, T]`` → dW_hh ``[H, 4H]``
+    = sum over the valid (b, t) of h_{t-1}[b]^T dxw[b, t] (the backward
+    writes exact zeros into dxw at padded steps, so this is the sum over
+    all (b, t) there; the kernel skips those rows)."""
+    b, t, hd4, hd = _check_xw("dxw", dxw)
+    for name, x, shape in (("hseq", hseq, (b, t, hd)), ("h0", h0, (b, hd)),
+                           ("dxw", dxw, (b, t, hd4)), ("mask", mask, (b, t))):
+        _check(name, x, shape)
+    args = (hseq, h0, dxw, mask)
+    if not _on_card(args):
+        return lstm_dw_blocked_reference(*args)
+    _tier_on_card(b, hd, dxw.device, "fused_blocked")
+    enforce(b * t < 2 ** 31, "the blocked LSTM kernels count B*T in int32")
+    dw = torch.empty((hd, hd4), dtype=torch.float32, device=dxw.device)
+    if dxw.numel() == 0:
+        return dw.zero_()
+    # the valid rows' list (and its length), and one [H, 4H] sum per
+    # split of that list when the kernel splits it
+    n_split = _build.kernel("lstm_dw_blocked_splits")(b, t, hd)
+    enforce(n_split > 0, "lstm_dw_blocked: the occupancy query failed")
+    rows = torch.empty(b * t + 1, dtype=torch.int32, device=dxw.device)
+    part = torch.empty((n_split if n_split > 1 else 0, hd, hd4),
+                       dtype=torch.float32, device=dxw.device)
+    _launch("lstm_dw_blocked",
+            [x.data_ptr() for x in args + (rows, part, dw)],
+            (b, t, hd, n_split), dxw.device)
+    lstm_dw_blocked.launches += 1
+    return dw
+
+
+lstm_dw_blocked.launches = 0
+
 #: Every kernel wrapper of this module (for counters and reports).
-KERNEL_WRAPPERS = (lstm_fwd, lstm_bwd)
+KERNEL_WRAPPERS = (lstm_fwd, lstm_bwd, lstm_fwd_blocked, lstm_bwd_blocked,
+                   lstm_dw_blocked)
 
 
 def reset_launch_counts() -> None:
@@ -299,27 +492,67 @@ class _LstmCore(torch.autograd.Function):
         return dxw, None, dw, dck, dh0, dc0
 
 
+class _LstmCoreBlocked(torch.autograd.Function):
+    """The blocked tier's core, the contract of :class:`_LstmCore`: the
+    forward launches kernel 10; the backward launches kernel 11 (dxw,
+    dh0, dc0), then kernel 12 (dW_hh over dxw), and reduces the peephole
+    grads from dxw, as ``pallas_lstm._lstm_core_blocked`` does."""
+
+    @staticmethod
+    def forward(ctx, xw, mask, w_hh, checks, h0, c0):
+        hseq, cseq, gates = lstm_fwd_blocked(xw, mask, w_hh, checks, h0, c0)
+        ctx.save_for_backward(gates, hseq, cseq, h0, c0, mask, w_hh, checks)
+        return hseq, cseq
+
+    @staticmethod
+    def backward(ctx, dh, dc):
+        gates, hseq, cseq, h0, c0, mask, w_hh, checks = ctx.saved_tensors
+        dh = torch.zeros_like(hseq) if dh is None else dh.contiguous()
+        dc = torch.zeros_like(cseq) if dc is None else dc.contiguous()
+        dxw, dh0, dc0 = lstm_bwd_blocked(gates, cseq, c0, mask, w_hh, checks,
+                                         dh, dc)
+        dw = lstm_dw_blocked(hseq, h0, dxw, mask)
+        return dxw, None, dw, peephole_grads(dxw, cseq, c0), dh0, dc0
+
+
+def _fused_sequence(core, xw, mask, w_hh, check_i, check_f, check_o, h0, c0):
+    b, _, hd4 = xw.shape
+    hd = hd4 // 4
+    f32 = torch.float32
+    zeros = torch.zeros(hd, dtype=f32, device=xw.device)
+    rows = [check_i.to(f32), check_f.to(f32)] if check_i is not None \
+        else [zeros, zeros]
+    rows.append(check_o.to(f32) if check_o is not None else zeros)
+    checks = torch.stack(rows)
+    h0 = torch.zeros((b, hd), dtype=f32, device=xw.device) if h0 is None \
+        else h0.to(f32)
+    c0 = torch.zeros((b, hd), dtype=f32, device=xw.device) if c0 is None \
+        else c0.to(f32)
+    m = mask.to(f32)
+    hseq, cseq = core.apply(xw.to(f32), m, w_hh.to(f32), checks, h0, c0)
+    y = hseq * m[..., None]
+    cy = cseq * m[..., None]
+    return y, cy, hseq[:, -1], cseq[:, -1]
+
+
 def lstm_fused_sequence(xw, mask, w_hh, check_i, check_f, check_o, h0, c0):
     """Batch-major contract of ``pallas_lstm.lstm_fused_sequence``: xw
     ``[B, T, 4H]`` pre-projected (+ gate bias), mask ``[B, T]``; returns
     (y ``[B, T, H]`` masked hidden outputs, cy ``[B, T, H]`` masked cell
-    outputs, final_h, final_c ``[B, H]``) in fp32.
+    outputs, final_h, final_c ``[B, H]``) in fp32, whatever the inputs'
+    float dtype (callers cast per their policy).
 
     ``check_i`` and ``check_f`` are given together or not at all,
     ``check_o`` on its own; absent peepholes are zeros and get no
     gradient.  ``h0``/``c0`` default to zeros."""
-    b, _, hd4 = xw.shape
-    hd = hd4 // 4
-    zeros = torch.zeros(hd, dtype=torch.float32, device=xw.device)
-    rows = [check_i, check_f] if check_i is not None else [zeros, zeros]
-    rows.append(check_o if check_o is not None else zeros)
-    checks = torch.stack(rows)
-    if h0 is None:
-        h0 = torch.zeros((b, hd), dtype=torch.float32, device=xw.device)
-    if c0 is None:
-        c0 = torch.zeros((b, hd), dtype=torch.float32, device=xw.device)
-    m = mask.to(torch.float32)
-    hseq, cseq = _LstmCore.apply(xw, m, w_hh, checks, h0, c0)
-    y = hseq * m[..., None]
-    cy = cseq * m[..., None]
-    return y, cy, hseq[:, -1], cseq[:, -1]
+    return _fused_sequence(_LstmCore, xw, mask, w_hh, check_i, check_f,
+                           check_o, h0, c0)
+
+
+def lstm_fused_sequence_blocked(xw, mask, w_hh, check_i, check_f, check_o,
+                                h0, c0):
+    """The blocked tier's entry, the contract of
+    :func:`lstm_fused_sequence` (``pallas_lstm.
+    lstm_fused_sequence_blocked``)."""
+    return _fused_sequence(_LstmCoreBlocked, xw, mask, w_hh, check_i,
+                           check_f, check_o, h0, c0)

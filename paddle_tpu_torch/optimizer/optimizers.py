@@ -5,7 +5,9 @@ Adam).
 An :class:`Optimizer` holds static hyperparameters; ``init_state(params)``
 builds ``(count, slots by name)`` and ``apply(params, grads, state, lr)``
 returns new params and state.  Params are dicts of tensors; the update
-is written out of place, under ``torch.no_grad``.
+is written out of place, under ``torch.no_grad``.  ``count`` is a 0-d
+int32 tensor on the params' device, so a skipped mixed-precision step
+can keep it with the rest of the state without a host round trip.
 """
 
 from __future__ import annotations
@@ -35,8 +37,11 @@ class Optimizer:
     def _update(self, p, g, slot, lr, count):
         raise NotImplementedError
 
-    def init_state(self, params: Params) -> Tuple[int, Dict[str, tuple]]:
-        return 0, {n: self._init_slot(p) for n, p in params.items()}
+    def init_state(self, params: Params
+                   ) -> Tuple[torch.Tensor, Dict[str, tuple]]:
+        dev = next(iter(params.values())).device if params else "cpu"
+        return (torch.zeros((), dtype=torch.int32, device=dev),
+                {n: self._init_slot(p) for n, p in params.items()})
 
     @torch.no_grad()
     def apply(self, params: Params, grads: Params, state,
@@ -46,7 +51,7 @@ class Optimizer:
         the rule's step (the reference's order)."""
         lr = self.learning_rate if lr is None else lr
         count, slots = state
-        count += 1
+        count = count + 1
         new_p, new_slots = {}, {}
         for name, p in params.items():
             g = grads[name]
@@ -87,12 +92,13 @@ class Adam(Optimizer):
         g32 = g.float()
         m = self.beta1 * m + (1 - self.beta1) * g32
         v = self.beta2 * v + (1 - self.beta2) * g32 * g32
-        # bias corrections in fp32, as the reference computes them
-        t = torch.tensor(float(count), dtype=torch.float32)
-        c1 = 1 - torch.pow(torch.tensor(self.beta1, dtype=torch.float32), t)
-        c2 = 1 - torch.pow(torch.tensor(self.beta2, dtype=torch.float32), t)
-        step = lr * (m / c1.item()) / (torch.sqrt(v / c2.item())
-                                       + self.epsilon)
+        # bias corrections in fp32, as the reference computes them, on
+        # the count's device: a tensor made from a Python float on the
+        # card would be a blocking copy
+        t = count.to(torch.float32)
+        c1 = 1 - self.beta1 ** t
+        c2 = 1 - self.beta2 ** t
+        step = lr * (m / c1) / (torch.sqrt(v / c2) + self.epsilon)
         return (p - step).to(p.dtype), (m, v)
 
 

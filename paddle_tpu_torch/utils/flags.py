@@ -56,3 +56,25 @@ FLAGS.define("serve_continuous", True,
 FLAGS.define("kv_pool_pages", 128,
              "physical pages in the shared serving KV pool")
 FLAGS.define("kv_page_size", 16, "tokens per KV page")
+# precision policy (core/dtypes.py) and the mixed-precision train step
+FLAGS.define("use_bf16", True, "run matmul compute in bfloat16")
+FLAGS.define("bf16_activations", False,
+             "store layer activations in bfloat16 (params and losses stay "
+             "fp32)")
+FLAGS.define("precision", "fp32",
+             "end-to-end training precision policy: fp32 | bf16.  bf16 = "
+             "fp32 master weights cast to bfloat16 at the train-step "
+             "boundary, fp32 optimizer state, dynamic loss scaling with "
+             "skipped steps on non-finite gradients; it overrides "
+             "--use_bf16.  fp32 leaves the --use_bf16/--bf16_activations "
+             "resolution as it is")
+FLAGS.define("loss_scale_init", 32768.0,
+             "initial dynamic loss scale under --precision=bf16 (grows 2x "
+             "every --loss_scale_growth_interval overflow-free steps, "
+             "halves - floor 1.0 - and skips the step on inf/nan "
+             "gradients)")
+FLAGS.define("loss_scale_growth_interval", 2000,
+             "overflow-free steps between dynamic loss-scale doublings")
+FLAGS.define("fused_rnn_hblock", True,
+             "the hidden-blocked LSTM tier for 512 < H (ops/lstm.py); off "
+             "= such shapes take the per-step scan")

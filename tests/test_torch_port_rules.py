@@ -36,7 +36,8 @@ def _imported_roots(path: pathlib.Path):
 
 
 def test_port_imports_no_jax_nor_jax_package():
-    files = sorted(PORT.rglob("*.py")) + [PORT.parent / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [PORT.parent / "chip_smoke.py"] \
+        + sorted((PORT.parent / "tools").glob("*.py"))
     assert len(files) > 10
     bad = {str(f.relative_to(PORT.parent)): sorted(
         set(_imported_roots(f)) & FORBIDDEN) for f in files}
@@ -122,7 +123,9 @@ def test_scan_covers_the_training_slice():
     scanned = {str(f.relative_to(PORT)) for f in PORT.rglob("*.py")}
     assert {"ops/lstm.py", "ops/recurrent_ops.py", "layers/network.py",
             "trainer/trainer.py", "optimizer/optimizers.py", "entry.py",
-            "utils/jax_interop.py"} <= scanned
+            "utils/jax_interop.py", "core/dtypes.py", "ops/math_ops.py",
+            "optimizer/loss_scale.py"} <= scanned
+    assert (PORT.parent / "tools" / "lstm_blocked_probe.py").exists()
 
 
 def test_training_entry_points_raise_without_cuda(monkeypatch):
@@ -163,6 +166,45 @@ def test_lstm_launch_counters_stay_zero_on_cpu():
     assert tl.lstm_fwd.launches == 0 and tl.lstm_bwd.launches == 0
 
 
+def test_blocked_lstm_launch_counters_stay_zero_on_cpu():
+    tl.reset_launch_counts()
+    xw = torch.randn(2, 3, 4 * 520, requires_grad=True)
+    seq = SequenceBatch(xw, torch.tensor([3, 1], dtype=torch.int32))
+    out, final = tro.lstm_sequence(seq, None, torch.randn(520, 4 * 520) * 0.05)
+    (out.data.sum() + final.c.sum()).backward()
+    assert xw.grad is not None
+    assert all(fn.launches == 0 for fn in tl.KERNEL_WRAPPERS)
+
+
+def _lstm_bwd_blocked_args(b=3, t=4, h=8):
+    gates, hseq, cseq, h0, c0, mask, w, ck, dy, dyc = _lstm_bwd_args(b, t, h)
+    return [gates, cseq, c0, mask, w, ck, dy, dyc]
+
+
+def _lstm_dw_blocked_args(b=3, t=4, h=8):
+    gates, hseq, cseq, h0, c0, mask, *_ = _lstm_bwd_args(b, t, h)
+    return [hseq, h0, gates, mask]
+
+
+@pytest.mark.parametrize("wrapper,make,pos,bad", [
+    (tl.lstm_fwd_blocked, _lstm_fwd_args, 0, lambda t: t.to(torch.bfloat16)),
+    (tl.lstm_fwd_blocked, _lstm_fwd_args, 2,
+     lambda t: t.t().contiguous().t()),
+    (tl.lstm_bwd_blocked, _lstm_bwd_blocked_args, 1,
+     lambda t: t.transpose(0, 1).contiguous().transpose(0, 1)),
+    (tl.lstm_bwd_blocked, _lstm_bwd_blocked_args, 6,
+     lambda t: t.to(torch.bfloat16)),
+    (tl.lstm_dw_blocked, _lstm_dw_blocked_args, 2, lambda t: t[:, :, :-4]),
+], ids=["fwd_xw_bf16", "fwd_whh_noncontig", "bwd_cseq_noncontig",
+        "bwd_dy_bf16", "dw_dxw_shape"])
+def test_blocked_lstm_wrappers_reject_bad_inputs(wrapper, make, pos, bad):
+    args = make()
+    wrapper(*args)                       # the good inputs run
+    args[pos] = bad(args[pos])
+    with pytest.raises(PaddleTpuError):
+        wrapper(*args)
+
+
 @pytest.mark.parametrize("wrapper,make,pos,bad", [
     (tl.lstm_fwd, _lstm_fwd_args, 0, lambda t: t.to(torch.bfloat16)),
     (tl.lstm_fwd, _lstm_fwd_args, 2,
@@ -184,20 +226,26 @@ def test_lstm_wrappers_reject_bad_inputs(wrapper, make, pos, bad):
 def test_fused_tier_from_hopper_resources():
     assert tl.fused_tier(128, 512) == "fused"       # the bench row
     assert tl.fused_tier(5, 96) == "fused"          # no tiling gate
-    assert tl.fused_tier(128, 513) is None          # kernels 10-12
-    assert tl.fused_tier(128, 1280) is None
+    assert tl.fused_tier(128, 513) == "fused_blocked"   # kernels 10-12
+    assert tl.fused_tier(128, 1280) == "fused_blocked"
+    assert tl.fused_tier(128, tl.MAX_BLOCKED_HIDDEN + 1) is None
     assert tl.fused_tier(8192, 512) is None         # shared memory
     assert tl.units_per_cta(512) == 4 and tl.units_per_cta(128) == 1
     assert tl.units_per_cta(512, sms=114) is None
 
 
 def test_card_path_rejects_hidden_beyond_the_fused_tier(monkeypatch):
-    """A CUDA tensor at H > 512 raises, naming the unported kernels; the
+    """On CUDA a kernel raises on a shape its tier does not serve: the
+    single-block forward at H = 640, and the blocked tier past its
+    widest H (lowered here to 600), through ``lstm_sequence`` too.  The
     device test is monkeypatched so the CPU reaches that branch."""
     monkeypatch.setattr(tl, "_on_card", lambda tensors: True)
-    with pytest.raises(PaddleTpuError, match="kernels 10-12"):
+    with pytest.raises(PaddleTpuError, match="do not serve"):
         tl.lstm_fwd(*_lstm_fwd_args(b=2, t=2, h=640))
+    monkeypatch.setattr(tl, "MAX_BLOCKED_HIDDEN", 600)
+    with pytest.raises(PaddleTpuError, match="do not serve"):
+        tl.lstm_fwd_blocked(*_lstm_fwd_args(b=2, t=2, h=640))
     seq = SequenceBatch(torch.zeros(2, 2, 4 * 640),
                         torch.tensor([2, 1], dtype=torch.int32))
-    with pytest.raises(PaddleTpuError, match="kernels 10-12"):
+    with pytest.raises(PaddleTpuError, match="do not serve"):
         tro.lstm_sequence(seq, None, torch.zeros(640, 4 * 640))
