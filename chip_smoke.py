@@ -57,16 +57,41 @@ Phases (any failure exits nonzero, without the final ``ok`` line):
 4k. the card against the CPU plain path at H = 640, B 8, T 12, same
    parameters, fp32: loss and every gradient within the tolerances of
    3b;
+3d. the fused conv/BN kernels 18-21 against their plain versions, fp32
+   and bf16, ReLU and linear prologues: the four ResNet-50 stage shapes
+   at N = 4, N = 1 with H != W and Cin != Cout both ways, a large C
+   offset (the zero border lies in the transformed space) and a pixel
+   count off the 128-pixel tile, against the plain versions with their
+   conv summed in float64: fp32 within 1e-5 * max|ref| + 1e-6, bf16
+   within that plus 1 bf16 ulp;
+4l. the ResNet-50 main path: ``bench.py``'s row (B 128, 3x224x224, 1000
+   classes, its feed, Adam lr 1e-3 clip 25, under ``use_bf16`` and
+   ``bf16_activations``; the port's own init, seed 0): 2 warm and 10
+   timed steps, counts set to 0 just before them — finite losses,
+   exactly 16 launches of kernel 19 and 16 of kernel 20 a step and none
+   of 18 and 21, ms/step, samples/s, host wall, peak memory;
+4m. a profile of 3 ResNet-50 steps;
+4n. ResNet-50 under ``--conv_bn_fuse_fwd=false``, 2 steps: 16 launches
+   of kernel 18 a step, none of 19-21;
+4o. ``resnet_cifar10(20)`` at B 128, 3x32x32, 2 steps: 3 launches each
+   of kernels 19 and 21 a step (the 64-channel chain pairs);
+4p. the small bottleneck net of the CPU tests in fp32 on the card and on
+   the CPU (plain versions), same parameters and buffers: loss (rtol
+   1e-5), every gradient (tolerances of 3b), the new buffers (1e-5);
 5. each kernel at its main path's shapes: its time, its plain version's,
    one PyTorch yardstick call's where one computes the same function
    (SDPA for attention; ``torch.matmul`` for the blocked dW; none for
-   the other LSTM kernels: cuDNN's LSTM has no peepholes or length mask)
-   and the card's bound, printed as one ``{"kernels": [...]}`` line with
-   the launches of each path's timed run (serving continuous, serving
-   sequential, training at H 512, training at H 1280).
+   the other LSTM kernels: cuDNN's LSTM has no peepholes or length mask;
+   for kernels 18-21 ``F.conv2d`` / ``conv2d_input`` of the already
+   formed operand, the conv's share only, at each ResNet-50 stage shape
+   in bf16) and the card's bound, printed as one ``{"kernels": [...]}``
+   line with the launches of each path's timed run (serving continuous,
+   serving sequential, training at H 512, training at H 1280, ResNet-50,
+   ResNet-50 without the forward fusion, resnet_cifar10).
 
 Phases 3b-4f are PR 2's H 512 phases and run in fp32 (``use_bf16``
-off), so their readings stay comparable.
+off), so their readings stay comparable.  The order of the run: 1-3d,
+4-4k, 4l-4p, 5.
 
 Also printed, for information: a ``torch.profiler`` window over one
 continuous pass and one over 3 training steps (device time by kernel,
@@ -91,6 +116,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 FP32_FLOPS_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
 ATOL = 2e-5                    # kernel vs plain version, fp32
 # fused LSTM kernels vs their plain versions: outputs within LSTM_ATOL,
 # gradients within LSTM_GRAD_ATOL + LSTM_GRAD_RTOL * max|ref| (fp32; the
@@ -117,6 +143,13 @@ BLOCKED = dict(TRAIN, hidden_size=1280)
 BLOCKED_STEPS, MIXED_STEPS = 10, 3
 BENCH_FLAGS = dict(use_bf16=True, bf16_activations=True)
 BLOCKED_KERNELS = ("lstm_fwd_blocked", "lstm_bwd_blocked", "lstm_dw_blocked")
+# bench.py's ResNet row (_bench_resnet_once, bench.py:371-415): ResNet-50,
+# B 128, 3x224x224, 1000 classes, Adam lr 1e-3, clip 25, under BENCH_FLAGS;
+# and its small image config, resnet_cifar10(20) at 3x32x32
+RESNET_B, RESNET_IMG, RESNET_CLASSES = 128, 224, 1000
+RESNET_WARM, RESNET_STEPS = 2, 10
+RESNET_OPT = dict(learning_method="adam", learning_rate=1e-3,
+                  gradient_clipping_threshold=25.0)
 
 
 def log(msg: str) -> None:
@@ -160,17 +193,21 @@ def time_ms(fn, reps: int = 20, rounds: int = 5) -> float:
 
 def reset_counts() -> None:
     from paddle_tpu_torch.ops import attention as A
+    from paddle_tpu_torch.ops import conv as C
     from paddle_tpu_torch.ops import lstm as L
     A.reset_launch_counts()
     L.reset_launch_counts()
+    C.reset_launch_counts()
 
 
 def read_counts():
     from paddle_tpu_torch.ops import attention as A
+    from paddle_tpu_torch.ops import conv as C
     from paddle_tpu_torch.ops import lstm as L
     counts = {"flash_packed_fwd": A.flash_attention_packed.launches,
               "paged_decode": A.paged_decode_attention.launches}
-    counts.update({fn.__name__: fn.launches for fn in L.KERNEL_WRAPPERS})
+    counts.update({fn.__name__: fn.launches
+                   for fn in L.KERNEL_WRAPPERS + C.KERNEL_WRAPPERS})
     return counts
 
 
@@ -198,9 +235,10 @@ def time_events_ms(fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(n_bytes: float, n_flops: float):
+def bound_ms(n_bytes: float, n_flops: float,
+             flops_per_s: float = FP32_FLOPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = n_flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1059,6 +1097,393 @@ def phase_time_blocked(dev, launches):
     return rows
 
 
+# ------------------------------------------------------- conv/BN phases
+def conv_case(n, h, w, cin, cout, dtype, seed, dev, c_off=0.0):
+    """Random inputs of kernels 18-21 at one shape: z [N,H,W,Cin] (the
+    prologue's input), dy and z2 [N,H,W,Cout], HWIO weights at the
+    fan-in scale, the prologue affine (A, C + c_off) and the BN-backward
+    coefficients (A, B, C + c_off); a large c_off makes a wrong border
+    (act(C) or C where 0 belongs) show."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape, sc=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * sc
+    aff = torch.stack([rnd(cin, sc=0.5) + 1.0, rnd(cin, sc=0.5) + c_off])
+    co = torch.stack([rnd(cout, sc=0.5) + 1.0, rnd(cout, sc=0.1),
+                      rnd(cout, sc=0.5) + c_off])
+    return {"z": rnd(n, h, w, cin).to(dtype), "dy": rnd(n, h, w, cout).to(dtype),
+            "z2": rnd(n, h, w, cout).to(dtype),
+            "w": rnd(3, 3, cin, cout, sc=(9 * cin) ** -0.5).to(dtype),
+            "aff": aff, "co": co}
+
+
+def conv_calls(case, relu):
+    """(kernel name → (wrapper call, plain call)) for one case; the plain
+    call takes the dtype its conv sums in (f32 by default)."""
+    import torch
+    from paddle_tpu_torch.ops import conv as C
+    z, dy, z2, w, aff, co = (case[k] for k in ("z", "dy", "z2", "w", "aff",
+                                               "co"))
+    f32 = torch.float32
+    return {"conv3x3_dx": (
+                lambda: C.conv3x3_dx(dy, z2, co, w),
+                lambda acc=f32: C.conv3x3_dx_reference(dy, z2, co, w, acc)),
+            "conv3x3_fwd": (
+                lambda: C.conv3x3_fwd(z, aff, w, relu),
+                lambda acc=f32: C.conv3x3_fwd_reference(z, aff, w, relu,
+                                                        acc)),
+            "conv3x3_fwd_bwd": (
+                lambda: C.conv3x3_fwd_bwd(dy, z, aff, w, relu),
+                lambda acc=f32: C.conv3x3_fwd_bwd_reference(dy, z, aff, w,
+                                                            relu, acc)),
+            "conv3x3_chain_bwd": (
+                lambda: C.conv3x3_chain_bwd(dy, z2, co, z, aff, w, relu),
+                lambda acc=f32: C.conv3x3_chain_bwd_reference(
+                    dy, z2, co, z, aff, w, relu, acc))}
+
+
+#: kernels 18-21 against their plain versions with the conv summed in
+#: float64, so that only the kernel's own rounding is compared.  An f32
+#: output may be off by CONV_RTOL * max|ref| + 1e-6 (the kernel's f32
+#: sums of up to 9*512 products, and dA/dC of up to 401408 pixels); a
+#: bf16 output by that plus CONV_BF16_ULPS ulps of the larger of the two
+#: values (the f32 result rounded once to bf16, against the exact one
+#: rounded once).  The ratio reported is the worst error beyond those
+#: ulps over the f32 allowance: it must be at most 1.
+CONV_RTOL, CONV_BF16_ULPS = 1e-5, 1.0
+
+
+def conv_error(got, want, rtol=CONV_RTOL, ulps=CONV_BF16_ULPS):
+    """(max abs error, worst ratio) over a kernel's outputs, with the
+    tolerance of ``CONV_RTOL`` and ``CONV_BF16_ULPS``."""
+    import torch
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = ratio = 0.0
+    for a, b in zip(got, want):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            fail(f"kernel output {a.dtype} {tuple(a.shape)} vs plain "
+                 f"{b.dtype} {tuple(b.shape)}")
+        bf16 = a.dtype == torch.bfloat16
+        a, b = a.float(), b.float()
+        e = (a - b).abs()
+        err = max(err, e.max().item())
+        if bf16:   # one bf16 ulp of |x| in [2^(k-1), 2^k) is 2^(k-8)
+            top = torch.maximum(a.abs(), b.abs())
+            e = (e - ulps * torch.ldexp(torch.ones_like(b), torch.frexp(
+                top).exponent - 8)).clamp_min(0.0)
+        ratio = max(ratio, e.max().item()
+                    / (rtol * b.abs().max().item() + 1e-6))
+    return err, ratio
+
+
+#: phase 3d: the four ResNet-50 stage shapes at N = 4, then edge cases —
+#: N = 1 with H != W and Cin != Cout both ways, a large C offset (the
+#: border test), 128 < N*H*W not a multiple of the 128-pixel tile
+CONV_CASES = [(4, 56, 56, 64, 64, 0.0), (4, 28, 28, 128, 128, 0.0),
+              (4, 14, 14, 256, 256, 0.0), (4, 7, 7, 512, 512, 0.0),
+              (1, 9, 13, 64, 128, 0.0), (1, 13, 9, 128, 64, 0.0),
+              (2, 8, 8, 64, 64, 3.0), (3, 5, 7, 192, 64, -2.0)]
+
+
+def phase_conv_check(dev):
+    """Kernels 18-21 against their plain versions (conv summed in
+    float64) on the card, fp32 and bf16, ReLU and linear prologues;
+    tolerances of :func:`conv_error`; logs the worst ratio per dtype and,
+    for fp32 inputs, how far the kernel's f32 sums and the plain
+    version's (cuDNN's) lie from the float64 ones."""
+    import torch
+    from paddle_tpu_torch.ops import conv as C
+    errs = dict.fromkeys((fn.__name__ for fn in C.KERNEL_WRAPPERS), 0.0)
+    worst, f32_err = {}, {"kernel": 0.0, "plain f32": 0.0}
+
+    def rel(got, want):
+        got, want = ((x,) if torch.is_tensor(x) else x for x in (got, want))
+        return max(((a.double() - b.double()).abs().max()
+                    / b.double().abs().max()).item()
+                   for a, b in zip(got, want))
+    for i, (n, h, w, cin, cout, c_off) in enumerate(CONV_CASES):
+        for dtype in (torch.float32, torch.bfloat16):
+            case = conv_case(n, h, w, cin, cout, dtype, 40 + i, dev, c_off)
+            line = []
+            for relu in (True, False):
+                for name, (kern, plain) in conv_calls(case, relu).items():
+                    got, want = kern(), plain(torch.float64)
+                    sync(dev)
+                    e, ratio = conv_error(got, want)
+                    worst[dtype] = max(worst.get(dtype, 0.0), ratio)
+                    if dtype == torch.float32:
+                        for k, v in (("kernel", got), ("plain f32", plain())):
+                            f32_err[k] = max(f32_err[k], rel(v, want))
+                    line.append(f"{name[8:]}{'' if relu else '/lin'} "
+                                f"{e:.2e} ({ratio:.2f})")
+                    if not ratio <= 1.0:
+                        fail(f"{name} disagrees with its plain version at "
+                             f"N={n} H={h} W={w} Cin={cin} Cout={cout} "
+                             f"{dtype} relu={relu} C+{c_off}: {ratio:.3f} of "
+                             "tolerance")
+                    errs[name] = max(errs[name], e)
+            log(f"  N={n} H={h} W={w} Cin={cin} Cout={cout} C+{c_off} "
+                f"{str(dtype)[6:]}: " + ", ".join(line))
+    log("  worst error / tolerance: " + ", ".join(
+        f"{str(k)[6:]} {v:.3f}" for k, v in worst.items()))
+    log("  f32 sums against float64, worst |err| / max|ref|: " + ", ".join(
+        f"{k} {v:.3e}" for k, v in f32_err.items()))
+    return errs
+
+
+def image_feed(b, img, ncls, dev, seed=0):
+    """bench.py's image feed (bench.py:388-392): randn rows of 3*img*img,
+    then labels, from ``RandomState(seed)``."""
+    import torch
+    rng = np.random.RandomState(seed)
+    x = rng.randn(b, 3 * img * img).astype(np.float32)
+    y = rng.randint(0, ncls, (b,)).astype(np.int32)
+    return {"image": torch.from_numpy(x).to(dev),
+            "label": torch.from_numpy(y).to(dev)}
+
+
+def phase_train_image(dev, cfg, b, img, ncls, steps, warm, per_step):
+    """An image training path: ``warm`` steps, then ``steps`` steps between
+    CUDA events with every launch count set to 0 just before them; each
+    kernel of ``per_step`` must launch exactly that many times a step."""
+    import torch
+    from paddle_tpu_torch.config.model_config import OptimizationConfig
+    from paddle_tpu_torch.layers.network import NeuralNetwork
+    from paddle_tpu_torch.trainer.trainer import Trainer
+    from paddle_tpu_torch.utils import FLAGS
+    net = NeuralNetwork(cfg)
+    trainer = Trainer(net, OptimizationConfig(**RESNET_OPT), seed=0,
+                      device=dev)
+    feed = image_feed(b, img, ncls, dev)
+    t0 = time.perf_counter()
+    warm_losses = [float(trainer.train_one_batch(feed)) for _ in range(warm)]
+    warm_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    start.record()
+    losses = [trainer.train_one_batch(feed) for _ in range(steps)]
+    end.record()
+    end.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    losses = [float(x) for x in losses]
+    ms = start.elapsed_time(end) / steps
+    m = {"ms_per_step": ms, "samples_per_s": b * 1e3 / ms,
+         "host_wall_ms_per_step": wall * 1e3 / steps,
+         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+         "warm_s": warm_s, "warm_losses": warm_losses, "losses": losses,
+         "census": net.fused_pair_census,
+         "flags": {k: FLAGS.get(k) for k in ("use_bf16", "bf16_activations",
+                                             "conv_bn_fuse",
+                                             "conv_bn_fuse_fwd")}}
+    log(f"  {steps} timed steps (B {b}, {img}x{img}, flags {m['flags']}): "
+        f"{ms:.3f} ms/step (CUDA events), {m['samples_per_s']:.1f} "
+        f"samples/s, host wall {m['host_wall_ms_per_step']:.3f} ms/step, "
+        f"peak memory {m['peak_mem_gb']:.2f} GB, {warm} warm steps "
+        f"{warm_s:.1f} s; census {m['census']}; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    log(f"  losses: warm {[round(x, 6) for x in warm_losses]}, timed "
+        f"{[round(x, 6) for x in losses]}")
+    if not all(np.isfinite(warm_losses + losses)):
+        fail("non-finite training loss")
+    for name, want in per_step.items():
+        if launches[name] != want * steps:
+            fail(f"{name}: {launches[name]} launches in {steps} steps, "
+                 f"expected {want} a step")
+    return launches, m, trainer, feed
+
+
+def phase_image_small(dev):
+    """The small bottleneck net of the CPU tests (stem, max pool,
+    bottleneck(64, s1), bottleneck(128, s2); B 2, 3x32x32) in fp32 on the
+    card (kernels 19 and 20) and on the CPU (plain versions), from the
+    same parameters and buffers: loss, every gradient, the new buffers."""
+    import torch
+    from paddle_tpu_torch.layers.network import NeuralNetwork
+    from paddle_tpu_torch.models import image as I
+    from paddle_tpu_torch.ops import conv as C
+
+    def body(img, k):
+        net = I._bn_conv(img, 7, 64, 2, 3, channels=3)
+        net = I._pool(net, 3, 2, 1)
+        net = I._bottleneck(net, 64, 1)
+        net = I._bottleneck(net, 128, 2)
+        net = I._pool(net, 4, 1, 0, avg=True)
+        return I.fc(net, k, act="softmax")
+    net = NeuralNetwork(I.image_classifier(body, 32, 10))
+    cpu_params = net.init_params(seed=0, device="cpu")
+    res = {}
+    for where in ("cpu", dev):
+        params = {n: p.to(where).requires_grad_(True)
+                  for n, p in cpu_params.items()}
+        reset_counts()
+        loss, (_, nb) = net.loss(params, image_feed(2, 32, 10, where, 1),
+                                 net.init_buffers(where))
+        grads = torch.autograd.grad(loss, list(params.values()))
+        launched = {fn.__name__: fn.launches for fn in C.KERNEL_WRAPPERS}
+        res[str(where)] = (loss.detach().cpu(),
+                           {n: g.cpu() for n, g in zip(params, grads)},
+                           {n: v.cpu() for n, v in nb.items()}, launched)
+    (l_cpu, g_cpu, b_cpu, n_cpu), (l_dev, g_dev, b_dev, n_dev) = \
+        res["cpu"], res[str(dev)]
+    e_loss = abs(float(l_dev) - float(l_cpu))
+    e_grad, ratio = grad_errors(g_dev, g_cpu)
+    e_buf = max((b_dev[n] - b_cpu[n]).abs().max().item() for n in b_cpu)
+    log(f"  card vs CPU plain path, small bottleneck net B=2 32x32 (fp32): "
+        f"loss {float(l_dev):.6f} vs {float(l_cpu):.6f}; gradients max abs "
+        f"err {e_grad:.3e} ({ratio:.3f} of tolerance); buffers {e_buf:.3e};"
+        f" launches on the card {n_dev}")
+    if not np.isfinite(float(l_dev)) or e_loss > 1e-5 * abs(float(l_cpu)) \
+            or ratio > 1.0 or e_buf > 1e-5:
+        fail("card and CPU reference disagree on the small ResNet")
+    if any(n_cpu.values()) or not (n_dev["conv3x3_fwd"] == 2
+                                   and n_dev["conv3x3_fwd_bwd"] == 2):
+        fail(f"small net launches: CPU {n_cpu}, card {n_dev}")
+
+
+def conv_work(name, n, h, w, cin, cout, elem):
+    """(bytes, flops) of one call of kernel ``name``: each input read and
+    each output written once (``elem`` bytes an activation or weight
+    element, f32 affines and sums), 2 flops a multiply-add of the conv."""
+    m = n * h * w
+    wt = 9 * cin * cout * elem
+    n_bytes = {
+        "conv3x3_fwd": (m * cin + m * cout) * elem + wt + 4 * 2 * cin,
+        "conv3x3_fwd_bwd": (m * cout + 3 * m * cin) * elem + wt
+        + 4 * 4 * cin,
+        "conv3x3_dx": (3 * m * cout + m * cin) * elem + wt + 4 * 3 * cout,
+        "conv3x3_chain_bwd": (3 * m * cout + 3 * m * cin) * elem + wt
+        + 4 * (3 * cout + 4 * cin)}[name]
+    return n_bytes, 2 * m * 9 * cin * cout
+
+
+#: kernels whose product operands are their bf16 inputs as they are
+#: (kernel 20: dy and the flipped weights), so that a bf16 tensor-core
+#: product with f32 accumulation computes the same products; the others
+#: multiply an f32 operand formed on load (x = act(A·z + C), dz), which
+#: the fp32 rate bounds
+CONV_BF16_PRODUCTS = {"conv3x3_fwd_bwd"}
+#: the ResNet-50 stage shapes of kernels 18-21 at the main path's B
+RESNET_STAGES = [(56, 64), (28, 128), (14, 256), (7, 512)]
+CONV_LINES = {"conv3x3_dx": 194, "conv3x3_fwd": 339, "conv3x3_fwd_bwd": 398,
+              "conv3x3_chain_bwd": 509}
+
+
+def phase_time_conv(dev, launches):
+    """Kernels 18-21 at each ResNet-50 stage shape (B 128, bf16 as on the
+    main path): µs per call (CUDA-graph replay), the plain version's, and
+    a library yardstick for the conv's share only — ``F.conv2d`` (19) or
+    ``torch.nn.grad.conv2d_input`` (18, 20, 21) of the already-formed
+    operand, cuDNN with TF32 off."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import conv as C
+    rows = []
+    dt = torch.bfloat16
+    for name in CONV_LINES:
+        stages = []
+        for si, (hw, ch) in enumerate(RESNET_STAGES):
+            case = conv_case(RESNET_B, hw, hw, ch, ch, dt, 60 + si, dev)
+            kern, plain = conv_calls(case, True)[name]
+            e, ratio = conv_error(kern(), plain(torch.float64))
+            if not ratio <= 1.0:
+                fail(f"{name} disagrees at the stage shape {hw}x{hw}x{ch}")
+            z, dy, w = case["z"], case["dy"], case["w"]
+            xn = z.permute(0, 3, 1, 2)
+            wo = w.permute(3, 2, 0, 1)
+            dyn = dy.permute(0, 3, 1, 2)
+            lib = (lambda: F.conv2d(xn, wo, padding=1)) \
+                if name == "conv3x3_fwd" else \
+                (lambda: torch.nn.grad.conv2d_input(xn.shape, wo, dyn,
+                                                    padding=1))
+            ms = time_ms(kern, reps=3, rounds=3)
+            plain_ms = time_ms(plain, reps=2, rounds=2)
+            lib_ms = time_ms(lib, reps=3, rounds=3)
+            b_ms, b_by = bound_ms(
+                *conv_work(name, RESNET_B, hw, hw, ch, ch, 2),
+                BF16_FLOPS_PER_S if name in CONV_BF16_PRODUCTS
+                else FP32_FLOPS_PER_S)
+            stages.append({"shape": f"[{RESNET_B},{hw},{hw},{ch}] -> {ch}",
+                           "ms": ms, "plain_ms": plain_ms,
+                           "library_ms": lib_ms, "bound_ms": b_ms,
+                           "bound_by": b_by, "max_abs_err": e})
+            log(f"  {name} {stages[-1]['shape']} bf16: {ms * 1e3:.1f} us "
+                f"(plain {plain_ms * 1e3:.1f} us, library conv share "
+                f"{lib_ms * 1e3:.1f} us, bound {b_ms * 1e3:.1f} us by "
+                f"{b_by}); err {e:.2e} ({ratio:.2f} of tolerance)")
+        first = stages[0]
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"paddle_tpu_torch/csrc/{name}.cu",
+                     "replaces": f"paddle_tpu/ops/pallas_conv.py:"
+                                 f"{CONV_LINES[name]}",
+                     "launches": sum(launches[name].values()),
+                     "launches_by_path": launches[name],
+                     "max_abs_err": max(s["max_abs_err"] for s in stages),
+                     "ms": first["ms"], "plain_ms": first["plain_ms"],
+                     "bound_ms": first["bound_ms"],
+                     "bound_by": first["bound_by"],
+                     "library_ms": first["library_ms"],
+                     "shape": first["shape"] + " bf16 (row: stage 1; "
+                                               "by_stage: all four)",
+                     "by_stage": stages})
+    return rows
+
+
+def phase_resnet(dev, launches):
+    """Phases 4l-4p: the ResNet-50 main path under bench.py's flags, its
+    profile, the same net without the forward fusion, resnet_cifar10(20),
+    and the small net on the card against the CPU.  Adds each path's
+    launches to ``launches``; returns the readings by path."""
+    import torch
+    from paddle_tpu_torch.models import resnet, resnet_cifar10
+    out = {}
+    set_flags(**BENCH_FLAGS)
+    log("== phase 4l: ResNet-50 main path (bench.py's row: B 128, 224x224, "
+        "1000 classes, use_bf16 + bf16_activations, Adam lr 1e-3 clip 25)")
+    got, out["resnet50"], trainer, feed = phase_train_image(
+        dev, resnet(50, RESNET_CLASSES, RESNET_IMG), RESNET_B, RESNET_IMG,
+        RESNET_CLASSES, RESNET_STEPS, RESNET_WARM,
+        {"conv3x3_fwd": 16, "conv3x3_fwd_bwd": 16, "conv3x3_dx": 0,
+         "conv3x3_chain_bwd": 0})
+    for name in launches:
+        launches[name]["resnet50"] = got[name]
+    log("== phase 4m: profile of 3 ResNet-50 steps")
+    phase_profile_train(trainer, feed)
+    del trainer, feed
+    torch.cuda.empty_cache()
+    log("== phase 4n: ResNet-50 under --conv_bn_fuse_fwd=false (2 steps)")
+    set_flags(conv_bn_fuse_fwd=False)
+    got, out["resnet50_fwd_fusion_off"], trainer, feed = phase_train_image(
+        dev, resnet(50, RESNET_CLASSES, RESNET_IMG), RESNET_B, RESNET_IMG,
+        RESNET_CLASSES, 2, 1,
+        {"conv3x3_dx": 16, "conv3x3_fwd": 0, "conv3x3_fwd_bwd": 0,
+         "conv3x3_chain_bwd": 0})
+    set_flags(conv_bn_fuse_fwd=True)
+    for name in launches:
+        launches[name]["resnet50_fwd_fusion_off"] = got[name]
+    del trainer, feed
+    torch.cuda.empty_cache()
+    log("== phase 4o: resnet_cifar10(20), B 128, 3x32x32 (2 steps)")
+    got, out["resnet_cifar10_20"], trainer, feed = phase_train_image(
+        dev, resnet_cifar10(20, 10, 32), RESNET_B, 32, 10, 2, 1,
+        {"conv3x3_fwd": 3, "conv3x3_chain_bwd": 3, "conv3x3_dx": 0,
+         "conv3x3_fwd_bwd": 0})
+    for name in launches:
+        launches[name]["resnet_cifar10_20"] = got[name]
+    del trainer, feed
+    torch.cuda.empty_cache()
+    set_flags(use_bf16=False, bf16_activations=False)
+    log("== phase 4p: small bottleneck net, card vs CPU plain path (fp32)")
+    phase_image_small(dev)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1093,6 +1518,9 @@ def main() -> int:
         log("== phase 3c: blocked LSTM kernels 10-12 vs the plain scan and "
             "their plain versions (fp32)")
         phase_blocked_check(dev)
+        log("== phase 3d: conv/BN kernels 18-21 vs their plain versions "
+            "(fp32 and bf16)")
+        phase_conv_check(dev)
         log("== phase 4: main path, full-width server")
         launches, serve, model, prompts = phase_serve(dev)
         log("== phase 4b: row invariance of the RMS mean")
@@ -1133,10 +1561,12 @@ def main() -> int:
         log("== phase 4k: blocked training step, card vs CPU plain path "
             "(fp32)")
         phase_train_small(dev, hidden=640)
+        resnet = phase_resnet(dev, launches)
         log("== phase 5: kernel times at the main paths' shapes")
         rows = phase_time(dev, launches, serve) \
             + phase_time_lstm(dev, launches) \
-            + phase_time_blocked(dev, launches)
+            + phase_time_blocked(dev, launches) \
+            + phase_time_conv(dev, launches)
     except SystemExit as e:
         print(e, file=sys.stderr)
         return 1
@@ -1148,7 +1578,7 @@ def main() -> int:
                                   if k != "prompt_lengths"},
                       "training": train, "training_h1280": blocked,
                       "training_h1280_mixed_bf16": mixed,
-                      "training_h2048": wide, "card": card}))
+                      "training_h2048": wide, **resnet, "card": card}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

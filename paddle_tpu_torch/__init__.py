@@ -14,7 +14,12 @@ Both attention kernels are hand-written CUDA C++ for ``sm_90a`` under
 Slice 2a ports the fp32 training step of the LSTM text classifier:
 ``NeuralNetwork(ModelConfig)`` → ``Trainer.train_one_batch``, with the
 fused LSTM forward and BPTT as persistent cooperative CUDA kernels
-(``ops/lstm.py``, ``csrc/lstm_fwd.cu``, ``csrc/lstm_bwd.cu``).
+(``ops/lstm.py``, ``csrc/lstm_fwd.cu``, ``csrc/lstm_bwd.cu``); slice 2b
+the hidden-blocked LSTM tier and the bf16 precision policy.
+
+Slice 3 ports the ResNet-50 training step (``models/image.py``): batch-norm
+buffers, the conv/BN fusion plan (``analysis/netcheck.py``) and the fused
+conv/BN-affine 3×3 kernels (``ops/conv.py``, ``csrc/conv3x3_*.cu``).
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; with
 no CUDA device they raise instead of moving to the CPU.

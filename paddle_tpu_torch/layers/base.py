@@ -2,14 +2,17 @@
 ``paddle_tpu/layers/base.py``).
 
 A layer declares its parameter specs from its :class:`LayerConfig` and
-computes ``forward(params, inputs)`` on tensors; autograd through the
-whole network's forward gives the backward.  Dropout and error clipping
-have no layer in this slice: a config that asks for them is refused
-when the network is built.
+computes ``forward(params, inputs, ctx)`` on tensors; autograd through
+the whole network's forward gives the backward.  Batch-norm running
+statistics live in a separate ``buffers`` dict threaded through the
+:class:`ForwardContext` (a layer reads ``ctx.buffers`` and writes
+``ctx.new_buffers``).  Dropout and error clipping have no layer in this
+slice: a config that asks for them is refused when the network is built.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, List, Sequence
 
 import numpy as np
@@ -22,6 +25,15 @@ from ..ops.activations import get_activation
 from ..utils import PaddleTpuError, enforce
 
 LAYERS: Dict[str, type] = {}
+
+
+@dataclasses.dataclass
+class ForwardContext:
+    """Per-call context threaded through layer forwards."""
+
+    is_training: bool = True
+    buffers: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    new_buffers: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
 
 def register_layer(*names: str):
@@ -79,8 +91,8 @@ class Layer:
                                initial_std=0.0, **kw)
 
     # ---- execution -------------------------------------------------------
-    def forward(self, params: Dict[str, torch.Tensor],
-                inputs: List[Any]) -> Any:
+    def forward(self, params: Dict[str, torch.Tensor], inputs: List[Any],
+                ctx: ForwardContext) -> Any:
         raise NotImplementedError
 
     def finalize(self, out: Any) -> Any:

@@ -1,20 +1,45 @@
-"""Dense / glue layers this slice uses (counterpart of
-``paddle_tpu/layers/common.py``): data, fc, embedding.  Layer type
-strings match the reference's registered names."""
+"""Dense / glue layers the ported slices use (counterpart of
+``paddle_tpu/layers/common.py``): data, fc, embedding, addto.  Layer
+type strings match the reference's registered names."""
 
 from __future__ import annotations
 
-from ..core.sequence import like, value_of
+import torch
+
+from ..core.sequence import SequenceBatch, like, value_of
 from ..ops import embedding_ops, math_ops
 from ..utils import PaddleTpuError
 from .base import Layer, register_layer
+
+
+def flatten_image(v: torch.Tensor) -> torch.Tensor:
+    """NHWC image tensor → flat ``[B, C*H*W]`` rows in the reference's CHW
+    element order (so fc weights keep the reference layout)."""
+    if v.dim() == 4:
+        return torch.movedim(v, -1, 1).reshape(v.shape[0], -1)
+    return v.reshape(v.shape[0], -1)
+
+
+def _flat_apply(fn, x):
+    """Apply a ``[N, D] → [N, D']`` function across the batch (and time)
+    dims: a sequence per timestep, an image tensor flattened to
+    ``[B, C*H*W]`` rows."""
+    v = value_of(x)
+    if isinstance(x, SequenceBatch) and v.dim() > 2:
+        out = fn(v.reshape(-1, v.shape[-1]))
+        out = out.reshape(v.shape[:-1] + out.shape[1:])
+    elif v.dim() > 2:
+        out = fn(flatten_image(v))
+    else:
+        out = fn(v)
+    return like(x, out)
 
 
 @register_layer("data")
 class DataLayer(Layer):
     """Feed entry point; its value comes from the feed dict."""
 
-    def forward(self, params, inputs):
+    def forward(self, params, inputs, ctx):
         raise PaddleTpuError("data layers are fed, not computed")
 
 
@@ -23,7 +48,7 @@ class FullyConnectedLayer(Layer):
     """``FullyConnectedLayer``: out = act(sum_i x_i W_i + b), W ``[in,
     out]``, the products under the precision policy
     (``math_ops.matmul``); a sequence input is projected at every
-    timestep."""
+    timestep, an image input flattened to CHW rows first."""
 
     def param_specs(self):
         specs = []
@@ -36,10 +61,11 @@ class FullyConnectedLayer(Layer):
             specs.append(self._bias_spec((self.conf.size,)))
         return specs
 
-    def forward(self, params, inputs):
+    def forward(self, params, inputs, ctx):
         out = None
         for i, x in enumerate(inputs):
-            y = math_ops.matmul(value_of(x), params[self.weight_name(i)])
+            w = params[self.weight_name(i)]
+            y = value_of(_flat_apply(lambda v: math_ops.matmul(v, w), x))
             out = y if out is None else out + y
         if self.conf.with_bias:
             # added in the activation dtype, as the JAX package does
@@ -62,7 +88,22 @@ class EmbeddingLayer(Layer):
             0, (vocab, self.conf.size), initial_smart=True,
             sharded=self.conf.attrs.get("sharded", False))]
 
-    def forward(self, params, inputs):
+    def forward(self, params, inputs, ctx):
         out = embedding_ops.lookup_table(params[self.weight_name(0)],
                                          value_of(inputs[0]))
+        return self.finalize(like(inputs[0], out))
+
+
+@register_layer("addto")
+class AddtoLayer(Layer):
+    """``AddtoLayer``: the sum of its inputs, then the activation (the
+    residual join of ResNet).  A bias is not ported."""
+
+    def forward(self, params, inputs, ctx):
+        if self.conf.with_bias:
+            raise PaddleTpuError(f"layer {self.name!r}: addto with a bias "
+                                 "is not ported")
+        out = value_of(inputs[0])
+        for x in inputs[1:]:
+            out = out + value_of(x)
         return self.finalize(like(inputs[0], out))

@@ -23,7 +23,7 @@ class CrossEntropyCost(Layer):
     #: '.logits' sub-output
     logits_value = None
 
-    def forward(self, params, inputs):
+    def forward(self, params, inputs, ctx):
         logits, self.logits_value = self.logits_value, None
         enforce(logits is not None and len(inputs) == 2
                 and not isinstance(logits, SequenceBatch),

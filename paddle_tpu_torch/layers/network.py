@@ -2,10 +2,21 @@
 (counterpart of ``paddle_tpu/layers/network.py``).
 
 :meth:`NeuralNetwork.forward` runs the layers in topological order on
-tensors; the backward is autograd over the whole forward.  This slice
-covers plain layer graphs: the conv/BN fusion plan, recurrent groups and
-beam search wait for their slices, and a config that needs them is
-refused at build time.
+tensors; the backward is autograd over the whole forward.  Batch-norm
+running statistics are a separate ``buffers`` dict: :meth:`init_buffers`
+makes it, :meth:`forward` and :meth:`loss` return the updated one.
+
+The conv/BN fusion peepholes are built once from the static config by
+:func:`paddle_tpu_torch.analysis.netcheck.fusion_plan` (kill switches
+``--conv_bn_fuse``, ``--conv_bn_fuse_fwd``): a batch norm whose sole
+producer is a linear 3×3 stride-1 pad-1 conv runs that conv itself
+(``nn_ops.conv2d_bn``, the conv is skipped in the walk), and a batch
+norm whose sole consumer is a fusable conv publishes its folded affine
+instead of its output (``nn_ops.affine_act_conv2d``).  The ops re-gate
+on shapes and fall back to the exact unfused composition.
+
+Recurrent groups and beam search wait for their slices; a config that
+needs them is refused at build time.
 """
 
 from __future__ import annotations
@@ -14,12 +25,14 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 
+from ..analysis import netcheck
 from ..config.model_config import ModelConfig, ParameterConfig
 from ..core.device import resolve_device
 from ..core.sequence import value_of
-from ..utils import PaddleTpuError, enforce
-from .base import Layer, cast_layer_output, get_layer_class, init_parameter
-from . import common, cost, rnn, seq  # noqa: F401  (register layers)
+from ..utils import FLAGS, PaddleTpuError, enforce
+from .base import (ForwardContext, Layer, cast_layer_output,
+                   get_layer_class, init_parameter)
+from . import common, conv, cost, rnn, seq  # noqa: F401  (register layers)
 
 
 class NeuralNetwork:
@@ -58,6 +71,7 @@ class NeuralNetwork:
                               if s.is_static}
         self.cost_layers = [n for n in self.order
                             if getattr(self.layers[n], "is_cost", False)]
+        self.output_names = config.output_layer_names or self.order[-1:]
         # classification-cost logits peephole: a multi-class CE reading a
         # softmax fc gets the fc's '.logits' sub-output (fused CE path)
         lmap = config.layer_map()
@@ -71,6 +85,21 @@ class NeuralNetwork:
             if pconf is not None and pconf.type == "fc" \
                     and pconf.active_type == "softmax":
                 self._cost_logit_alias[cname] = pname + ".logits"
+
+        # conv/BN fusion peepholes: bn -> the conv it runs (backward
+        # fusion), conv -> the bn whose apply it takes (forward fusion)
+        self._conv_bn_fuse, self._bn_conv_fuse = netcheck.fusion_plan(
+            config, root_layers=set(self.layers),
+            output_names=self.output_names,
+            fuse_bwd=bool(FLAGS.get("conv_bn_fuse")),
+            fuse_fwd=bool(FLAGS.get("conv_bn_fuse_fwd")))
+        fwd3 = sum(1 for cv in self._bn_conv_fuse
+                   if lmap[cv].attrs.get("filter_size") == 3)
+        #: the pairs this topology resolved at build time, keyed as the
+        #: JAX package's ``network_conv_bn_fused_pairs`` gauge
+        self.fused_pair_census = {
+            "bwd_3x3": len(self._conv_bn_fuse), "fwd_3x3": fwd3,
+            "fwd_1x1": len(self._bn_conv_fuse) - fwd3}
 
     # ------------------------------------------------------------- params
     def init_params(self, seed: int = 1,
@@ -86,18 +115,38 @@ class NeuralNetwork:
         return {name: init_parameter(gen, spec).to(dev)
                 for name, spec in sorted(self.param_specs.items())}
 
+    def init_buffers(self, device: Optional[Union[str, torch.device]] = None
+                     ) -> Dict[str, torch.Tensor]:
+        """Every layer's buffers (batch-norm running mean 0 and var 1,
+        f32) on ``device`` (default CUDA, as :meth:`init_params`)."""
+        dev = resolve_device(device)
+        buffers: Dict[str, torch.Tensor] = {}
+        for layer in self.layers.values():
+            if hasattr(layer, "buffer_specs"):
+                buffers.update({k: v.to(dev) for k, v in
+                                layer.buffer_specs().items()})
+        return buffers
+
     def lr_scales(self, params: Dict[str, torch.Tensor]) -> Dict[str, float]:
         """Per-parameter learning-rate scale; 0 for static parameters."""
         return {n: 0.0 if n in self.static_params
                 else self.param_specs[n].learning_rate for n in params}
 
     # ------------------------------------------------------------ forward
-    def forward(self, params: Dict[str, torch.Tensor], feed: Dict[str, Any]
-                ) -> Dict[str, Any]:
-        """Run all layers; returns every output by name (sub-outputs as
-        ``name.key``)."""
+    def forward(self, params: Dict[str, torch.Tensor], feed: Dict[str, Any],
+                buffers: Optional[Dict[str, torch.Tensor]] = None,
+                is_training: bool = True
+                ) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
+        """Run all layers; returns (every output by name, sub-outputs as
+        ``name.key``; the buffers with this call's updates)."""
+        ctx = ForwardContext(is_training=is_training,
+                             buffers=dict(buffers or {}))
         values: Dict[str, Any] = {}
+        fused_convs = set(self._conv_bn_fuse.values())
+        defer = set(self._bn_conv_fuse.values())
         for name in self.order:
+            if name in fused_convs:
+                continue            # produced inside its batch-norm partner
             layer = self.layers[name]
             if layer.conf.type == "data":
                 if name not in feed:
@@ -105,26 +154,46 @@ class NeuralNetwork:
                         f"missing feed for data layer {name!r}")
                 values[name] = feed[name]
                 continue
-            inputs = [values[i] for i in layer.conf.input_names()]
-            if name in self._cost_logit_alias:
-                layer.logits_value = values.get(self._cost_logit_alias[name])
-            out = cast_layer_output(layer, layer.forward(params, inputs))
+            if name in defer:
+                # forward conv+BN fusion: publish (z, a, c) for the
+                # consuming conv, no activation materialised here
+                inputs = [values[i] for i in layer.conf.input_names()]
+                values[name] = layer.forward_deferred(params, inputs, ctx)
+                continue
+            src = self._conv_bn_fuse.get(name)
+            if src is not None:
+                cv = self.layers[src]
+                cinputs = [values[i] for i in cv.conf.input_names()]
+                out = cast_layer_output(
+                    layer, layer.forward_fused(params, cv, cinputs, ctx))
+            else:
+                inputs = [values[i] for i in layer.conf.input_names()]
+                if name in self._cost_logit_alias:
+                    layer.logits_value = values.get(
+                        self._cost_logit_alias[name])
+                out = cast_layer_output(layer,
+                                        layer.forward(params, inputs, ctx))
             if isinstance(out, dict):
                 for k, v in out.items():
                     values[name if k == "out" else f"{name}.{k}"] = v
             else:
                 values[name] = out
-        return values
+        ctx.buffers.update(ctx.new_buffers)
+        return values, ctx.buffers
 
-    def loss(self, params: Dict[str, torch.Tensor], feed: Dict[str, Any]
-             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    def loss(self, params: Dict[str, torch.Tensor], feed: Dict[str, Any],
+             buffers: Optional[Dict[str, torch.Tensor]] = None,
+             is_training: bool = True
+             ) -> Tuple[torch.Tensor, Tuple[Dict[str, Any],
+                                            Dict[str, torch.Tensor]]]:
         """Scalar objective = mean per-example total cost
-        (``Argument::sum`` / batch size)."""
-        values = self.forward(params, feed)
+        (``Argument::sum`` / batch size) → (loss, (values, buffers))."""
+        values, new_buffers = self.forward(params, feed, buffers,
+                                           is_training)
         enforce(self.cost_layers, "network has no cost layer")
         total = None
         for cname in self.cost_layers:
             v = value_of(values[cname])
             c = torch.sum(v) / v.shape[0]
             total = c if total is None else total + c
-        return total, values
+        return total, (values, new_buffers)

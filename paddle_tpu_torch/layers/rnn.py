@@ -26,7 +26,7 @@ class LstmLayer(Layer):
             specs.append(self._bias_spec((7 * h,)))
         return specs
 
-    def forward(self, params, inputs):
+    def forward(self, params, inputs, ctx):
         seq = inputs[0]
         enforce(isinstance(seq, SequenceBatch),
                 "lstmemory needs sequence input")

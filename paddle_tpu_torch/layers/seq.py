@@ -13,7 +13,7 @@ class SequenceLastInstanceLayer(Layer):
     """Each sequence's value at its last valid step ``[B, D]`` (step 0
     for an empty sequence).  Strided pooling is not ported."""
 
-    def forward(self, params, inputs):
+    def forward(self, params, inputs, ctx):
         seq = inputs[0]
         enforce(isinstance(seq, SequenceBatch),
                 "layer requires a sequence input")

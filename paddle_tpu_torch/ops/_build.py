@@ -53,6 +53,10 @@ SIGNATURES = {
     "lstm_bwd_blocked": ("lstm_bwd_blocked", [_C] * 14 + [_I] * 3 + [_C]),
     "lstm_dw_blocked": ("lstm_dw_blocked", [_C] * 7 + [_I] * 4 + [_C]),
     "lstm_dw_blocked_splits": ("lstm_dw_blocked", [_I] * 3),
+    "conv3x3_dx": ("conv3x3_dx", [_C] * 6 + [_I] * 6 + [_C]),
+    "conv3x3_fwd": ("conv3x3_fwd", [_C] * 4 + [_I] * 7 + [_C]),
+    "conv3x3_fwd_bwd": ("conv3x3_fwd_bwd", [_C] * 8 + [_I] * 7 + [_C]),
+    "conv3x3_chain_bwd": ("conv3x3_chain_bwd", [_C] * 11 + [_I] * 7 + [_C]),
 }
 
 _lock = threading.Lock()

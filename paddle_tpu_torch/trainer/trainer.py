@@ -4,6 +4,9 @@ its fp32 step and its ``--precision=bf16`` mixed step).
 ``Trainer.train_one_batch(feed)`` runs forward, autograd backward and
 the optimizer update: the JAX package's jitted step without its sparse,
 FSDP, health and pruning branches.  The schedule is the constant one.
+The step carries the network's buffers (batch-norm running statistics):
+it starts from ``network.init_buffers()`` and keeps the buffers each
+step returns.
 
 The precision is ``resolve_precision(opt_config)``.  fp32 (the default)
 runs the step under ``current_policy()``, so the legacy ``--use_bf16`` /
@@ -12,8 +15,8 @@ step of ``_build_mixed_train_step``: fp32 masters cast to bf16 at the
 step boundary (the backward through the cast gives fp32 gradients), the
 forward under ``policy_for("bf16")``, the loss multiplied by the dynamic
 scale and the gradients divided by it in fp32, and a step with a
-non-finite gradient skipped — params and optimizer state bit-identical,
-the scale halved (``optimizer/loss_scale.py``).  The skip is a
+non-finite gradient skipped — params, optimizer state and buffers
+bit-identical, the scale halved (``optimizer/loss_scale.py``).  The skip is a
 ``torch.where`` on the device: the step never reads a value back.
 """
 
@@ -77,6 +80,7 @@ class Trainer:
         self.optimizer, self.schedule = optimizer_from_config(oc)
         self.precision = resolve_precision(oc)
         self.params = network.init_params(seed, self.device)
+        self.buffers = network.init_buffers(self.device)
         self.opt_state = self.optimizer.init_state(self.params)
         self._lr_scales = network.lr_scales(self.params)
         self.samples_seen = 0
@@ -92,8 +96,10 @@ class Trainer:
                   for n, p in self.params.items()}
         lr = self.schedule(self.samples_seen)
         if self._ls_state is None:
-            loss, _ = self.network.loss(params, feed)
+            loss, (_, buffers) = self.network.loss(params, feed,
+                                                   self.buffers)
             grads = torch.autograd.grad(loss, list(params.values()))
+            self.buffers = {n: b.detach() for n, b in buffers.items()}
             self.params, self.opt_state = self.optimizer.apply(
                 {n: p.detach() for n, p in params.items()},
                 dict(zip(params, grads)), self.opt_state, lr,
@@ -112,7 +118,8 @@ class Trainer:
         with policy_scope(pol):
             cparams = {n: p.to(pol.compute_dtype) if p.is_floating_point()
                        else p for n, p in params.items()}
-            loss, _ = self.network.loss(cparams, feed)
+            loss, (_, buffers) = self.network.loss(cparams, feed,
+                                                   self.buffers)
             scaled = loss * state.scale.to(loss.dtype)
         grads = ls.unscale(dict(zip(params, torch.autograd.grad(
             scaled, list(params.values())))), state.scale)
@@ -122,5 +129,7 @@ class Trainer:
             old, grads, self.opt_state, lr, self._lr_scales)
         self.params = ls.select(finite, new_params, old)
         self.opt_state = ls.select(finite, new_opt, self.opt_state)
+        self.buffers = ls.select(finite, {n: b.detach() for n, b in
+                                          buffers.items()}, self.buffers)
         self._ls_state = ls.update(state, finite)
         return loss

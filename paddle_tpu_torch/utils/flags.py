@@ -75,6 +75,16 @@ FLAGS.define("loss_scale_init", 32768.0,
              "gradients)")
 FLAGS.define("loss_scale_growth_interval", 2000,
              "overflow-free steps between dynamic loss-scale doublings")
+FLAGS.define("conv_bn_fuse", True,
+             "fuse linear-conv->batch_norm pairs: the 3x3 backward-data "
+             "kernel forms the BN backward's affine as it loads "
+             "(ops/conv.py); off = the plain composition")
+FLAGS.define("conv_bn_fuse_fwd", True,
+             "fuse batch_norm(+relu)->conv pairs on the forward side: the "
+             "BN's per-channel affine + ReLU formed as the consuming conv "
+             "reads its input (3x3 kernel / 1x1 GEMM prologue, ops/conv.py "
+             "and ops/nn_ops.py) instead of materializing the normalized "
+             "activation; off = the backward fusion alone")
 FLAGS.define("fused_rnn_hblock", True,
              "the hidden-blocked LSTM tier for 512 < H (ops/lstm.py); off "
              "= such shapes take the per-step scan")

@@ -1,4 +1,4 @@
-"""Take the JAX package's parameters into the port.
+"""Take the JAX package's parameters (and network buffers) into the port.
 
 The JAX side hands over a dict of numpy arrays (``np.asarray`` of its
 params, or ``init_decoder_params`` directly); this module does not
@@ -76,5 +76,27 @@ def network_params_from_jax(np_params: Mapping[str, np.ndarray], net,
         arr = np.array(np_params[name], dtype=np.float32)   # a copy
         enforce(arr.shape == want[name],
                 f"param {name}: shape {arr.shape} != expected {want[name]}")
+        out[name] = torch.from_numpy(arr).to(dev)
+    return out
+
+
+def network_buffers_from_jax(np_buffers: Mapping[str, np.ndarray], net,
+                             device: Optional[Union[str, torch.device]] = None
+                             ) -> Dict[str, torch.Tensor]:
+    """The JAX ``NeuralNetwork.init_buffers`` output (or a step's new
+    buffers, as numpy) as fp32 tensors on ``device`` for the port's
+    ``net``: every name and shape must equal the port's
+    ``init_buffers()``, else this raises."""
+    dev = resolve_device(device)
+    want = {n: tuple(b.shape) for n, b in net.init_buffers("cpu").items()}
+    enforce(set(np_buffers) == set(want),
+            f"buffers do not match the network: missing "
+            f"{sorted(set(want) - set(np_buffers))}, unexpected "
+            f"{sorted(set(np_buffers) - set(want))}")
+    out: Dict[str, torch.Tensor] = {}
+    for name in sorted(want):
+        arr = np.array(np_buffers[name], dtype=np.float32)   # a copy
+        enforce(arr.shape == want[name],
+                f"buffer {name}: shape {arr.shape} != expected {want[name]}")
         out[name] = torch.from_numpy(arr).to(dev)
     return out

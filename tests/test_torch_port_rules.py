@@ -249,3 +249,98 @@ def test_card_path_rejects_hidden_beyond_the_fused_tier(monkeypatch):
                         torch.tensor([2, 1], dtype=torch.int32))
     with pytest.raises(PaddleTpuError, match="do not serve"):
         tro.lstm_sequence(seq, None, torch.zeros(640, 4 * 640))
+
+
+# --------------------------------------------------------------- image slice
+from paddle_tpu_torch.models import image as timage  # noqa: E402
+from paddle_tpu_torch.ops import conv as tconv  # noqa: E402
+
+
+def test_scan_covers_the_image_slice():
+    scanned = {str(f.relative_to(PORT)) for f in PORT.rglob("*.py")}
+    assert {"ops/conv.py", "ops/nn_ops.py", "layers/conv.py",
+            "analysis/netcheck.py", "models/image.py"} <= scanned
+    assert {"conv3x3_common.cuh", "conv3x3_dx.cu", "conv3x3_fwd.cu",
+            "conv3x3_fwd_bwd.cu", "conv3x3_chain_bwd.cu"} <= \
+        {f.name for f in (PORT / "csrc").iterdir()}
+
+
+def _small_resnet():
+    return NeuralNetwork(timage.resnet_cifar10(8, 10, 32))
+
+
+def test_image_entry_points_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    net = _small_resnet()
+    with pytest.raises(PaddleTpuError, match="no CUDA device"):
+        net.init_params(0)
+    with pytest.raises(PaddleTpuError, match="no CUDA device"):
+        net.init_buffers()
+    with pytest.raises(PaddleTpuError, match="no CUDA device"):
+        Trainer(net, seed=0)
+    tr = Trainer(net, seed=0, device="cpu")
+    assert all(b.device.type == "cpu" for b in tr.buffers.values())
+    assert len(tr.buffers) == 2 * 9          # mean and var of 9 batch norms
+
+
+def test_conv_launch_counters_stay_zero_on_cpu():
+    """A training step of resnet_cifar10(8) runs the chain op's forward
+    and backward (kernels 19 and 21) on CPU tensors: plain versions, no
+    count."""
+    tconv.reset_launch_counts()
+    net = _small_resnet()
+    tr = Trainer(net, seed=0, device="cpu")
+    rng = np.random.RandomState(0)
+    loss = tr.train_one_batch({
+        "image": rng.randn(2, 3 * 32 * 32).astype(np.float32),
+        "label": rng.randint(0, 10, (2,)).astype(np.int32)})
+    assert np.isfinite(float(loss))
+    assert all(fn.launches == 0 for fn in tconv.KERNEL_WRAPPERS)
+
+
+def _conv_args(name, n=1, h=3, w=4, cin=64, cout=64):
+    g = torch.Generator().manual_seed(0)
+    z = torch.randn(n, h, w, cin, generator=g)
+    dy = torch.randn(n, h, w, cout, generator=g)
+    wt = torch.randn(3, 3, cin, cout, generator=g) * 0.05
+    aff, co = torch.ones(2, cin), torch.ones(3, cout)
+    return {"fwd": [z, aff, wt, True], "fwd_bwd": [dy, z, aff, wt, True],
+            "dx": [dy, dy.clone(), co, wt],
+            "chain": [dy, dy.clone(), co, z, aff, wt, True]}[name]
+
+
+_CONV = {"fwd": tconv.conv3x3_fwd, "fwd_bwd": tconv.conv3x3_fwd_bwd,
+         "dx": tconv.conv3x3_dx, "chain": tconv.conv3x3_chain_bwd}
+
+
+@pytest.mark.parametrize("name,pos,bad", [
+    ("fwd", 0, lambda t: t.to(torch.float16)),
+    ("fwd", 1, lambda t: t.to(torch.bfloat16)),
+    ("fwd", 2, lambda t: t.to(torch.bfloat16)),
+    ("fwd", 0, lambda t: t.transpose(1, 2).contiguous().transpose(1, 2)),
+    ("fwd_bwd", 0, lambda t: t[..., :32].contiguous()),
+    ("fwd_bwd", 3, lambda t: t[:, :2].contiguous()),
+    ("dx", 1, lambda t: t.to(torch.bfloat16)),
+    ("dx", 2, lambda t: t[:2].contiguous()),
+    ("chain", 3, lambda t: t.transpose(1, 2).contiguous().transpose(1, 2)),
+    ("chain", 4, lambda t: t[:1].contiguous()),
+], ids=["fwd_z_fp16", "fwd_aff_bf16", "fwd_w_dtype", "fwd_z_noncontig",
+        "fwdbwd_dy_shape", "fwdbwd_w_not3x3", "dx_z_dtype", "dx_coeffs_rows",
+        "chain_z1_noncontig", "chain_ci_rows"])
+def test_conv_wrappers_reject_bad_inputs(name, pos, bad):
+    args = _conv_args(name)
+    _CONV[name](*args)                   # the good inputs run
+    args[pos] = bad(args[pos])
+    with pytest.raises(PaddleTpuError):
+        _CONV[name](*args)
+
+
+def test_conv_card_path_rejects_channels_off_the_tile(monkeypatch):
+    """On CUDA the kernels take channels that are multiples of 64 and
+    raise otherwise (no fallback).  The device test is monkeypatched so
+    the CPU reaches that check."""
+    monkeypatch.setattr(tconv, "_on_card", lambda tensors: True)
+    with pytest.raises(PaddleTpuError, match="multiples of 64"):
+        tconv.conv3x3_fwd(*_conv_args("fwd", cin=48))
+    with pytest.raises(PaddleTpuError, match="multiples of 64"):
+        tconv.conv3x3_dx(*_conv_args("dx", cout=96))

@@ -187,7 +187,7 @@ def test_bf16_activations_make_bf16_layer_outputs():
     tnet = TNet(t_classifier(V, E, 520, 1, C))
     params = tnet.init_params(seed=0, device="cpu")
     ids, lengths, labels = _feed(2, 3, 2)
-    loss, values = tnet.loss(params, {
+    loss, (values, _) = tnet.loss(params, {
         "data": TSeq(torch.from_numpy(ids), torch.from_numpy(lengths)),
         "label": torch.from_numpy(labels)})
     assert loss.dtype == torch.float32
