@@ -78,6 +78,28 @@ Phases (any failure exits nonzero, without the final ``ok`` line):
 4p. the small bottleneck net of the CPU tests in fp32 on the card and on
    the CPU (plain versions), same parameters and buffers: loss (rtol
    1e-5), every gradient (tolerances of 3b), the new buffers (1e-5);
+3e. the fused GRU kernels 13 and 14 through ``gru_sequence`` against
+   autograd through the plain per-step scan, and each wrapper against
+   its plain version, fp32: outputs within 2e-5, every gradient (xw,
+   w_hh, bias, h0) within 3e-5 + 3e-4 * max|ref| (the tolerances of
+   ``tests/test_pallas_gru.py``; a bf16 gradient also within one bf16
+   ulp), at the seq2seq row's encoder shape (B 128, T 30, H 512) in
+   both directions; rows of length 0, 1 and T with a nonzero h0; B = 3
+   without h0; H 384; B 200 (two row chunks); H 50 (scalar staging, a
+   part-filled CTA); and a bf16 xw;
+4q. the seq2seq main path: ``bench.py``'s row (``seq2seq_setup``: B 128,
+   source and target length 30, V 30000, E 512, H 512, its feed, Adam lr
+   5e-4 clip 25, under ``use_bf16`` and ``bf16_activations``; the port's
+   own init, seed 0): 2 warm and 10 timed steps, counts set to 0 just
+   before them — finite losses, exactly 2 launches each of kernels 13
+   and 14 a step (the two encoder directions) and no other kernel,
+   ms/step, target tokens/s (``bench.py``'s metric), host wall, peak
+   memory;
+4r. a profile of 3 seq2seq steps;
+4s. a small seq2seq net (B 8, S 6, T 5, V 50, E 16, H 128, source and
+   target lengths varied) in fp32 on the card and on the CPU (plain
+   versions), same parameters: loss and every gradient within 1e-4 of
+   the reference's (of max|ref| for a gradient);
 5. each kernel at its main path's shapes: its time, its plain version's,
    one PyTorch yardstick call's where one computes the same function
    (SDPA for attention; ``torch.matmul`` for the blocked dW; none for
@@ -87,11 +109,13 @@ Phases (any failure exits nonzero, without the final ``ok`` line):
    in bf16) and the card's bound, printed as one ``{"kernels": [...]}``
    line with the launches of each path's timed run (serving continuous,
    serving sequential, training at H 512, training at H 1280, ResNet-50,
-   ResNet-50 without the forward fusion, resnet_cifar10).
+   ResNet-50 without the forward fusion, resnet_cifar10, seq2seq);
+   kernels 13 and 14 at the seq2seq encoder's shape, no library call
+   (cuDNN's GRU applies the reset gate after the recurrent product).
 
 Phases 3b-4f are PR 2's H 512 phases and run in fp32 (``use_bf16``
-off), so their readings stay comparable.  The order of the run: 1-3d,
-4-4k, 4l-4p, 5.
+off), so their readings stay comparable.  The order of the run: 1-3e,
+4-4k, 4l-4p, 4q-4s, 5.
 
 Also printed, for information: a ``torch.profiler`` window over one
 continuous pass and one over 3 training steps (device time by kernel,
@@ -150,6 +174,21 @@ RESNET_B, RESNET_IMG, RESNET_CLASSES = 128, 224, 1000
 RESNET_WARM, RESNET_STEPS = 2, 10
 RESNET_OPT = dict(learning_method="adam", learning_rate=1e-3,
                   gradient_clipping_threshold=25.0)
+# bench.py's seq2seq row (seq2seq_setup / bench_seq2seq, bench.py:455-545):
+# B 128, source and target length 30, V 30000, E 512, H 512, Adam lr 5e-4,
+# clip 25, under BENCH_FLAGS
+S2S = dict(B=128, S=30, T=30, V=30000, E=512, H=512)
+S2S_OPT = dict(learning_method="adam", learning_rate=5e-4,
+               gradient_clipping_threshold=25.0)
+S2S_WARM, S2S_STEPS = 2, 10
+GRU_KERNELS = ("gru_fwd", "gru_bwd")
+# fused GRU kernels vs their plain versions (fp32): outputs within
+# GRU_ATOL, gradients within GRU_GRAD_ATOL + GRU_GRAD_RTOL * max|ref|
+# (the tolerances of tests/test_pallas_gru.py)
+GRU_ATOL, GRU_GRAD_ATOL, GRU_GRAD_RTOL = 2e-5, 3e-5, 3e-4
+# the small seq2seq net, card vs CPU (fp32; rounding order through the
+# GRU kernels and 5 decoder steps): loss and gradients relative to max|ref|
+S2S_RTOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -194,21 +233,46 @@ def time_ms(fn, reps: int = 20, rounds: int = 5) -> float:
 def reset_counts() -> None:
     from paddle_tpu_torch.ops import attention as A
     from paddle_tpu_torch.ops import conv as C
+    from paddle_tpu_torch.ops import gru as G
     from paddle_tpu_torch.ops import lstm as L
     A.reset_launch_counts()
     L.reset_launch_counts()
     C.reset_launch_counts()
+    G.reset_launch_counts()
 
 
 def read_counts():
     from paddle_tpu_torch.ops import attention as A
     from paddle_tpu_torch.ops import conv as C
+    from paddle_tpu_torch.ops import gru as G
     from paddle_tpu_torch.ops import lstm as L
     counts = {"flash_packed_fwd": A.flash_attention_packed.launches,
               "paged_decode": A.paged_decode_attention.launches}
-    counts.update({fn.__name__: fn.launches
-                   for fn in L.KERNEL_WRAPPERS + C.KERNEL_WRAPPERS})
+    counts.update({fn.__name__: fn.launches for fn in
+                   L.KERNEL_WRAPPERS + C.KERNEL_WRAPPERS + G.KERNEL_WRAPPERS})
     return counts
+
+
+def timed_steps(trainer, feed, steps):
+    """``steps`` training steps between CUDA events, every launch count
+    set to 0 just before them: (launches, losses, device ms a step, host
+    wall ms a step, peak memory in GB)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    start.record()
+    losses = [trainer.train_one_batch(feed) for _ in range(steps)]
+    end.record()
+    end.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    return (launches, [float(x) for x in losses],
+            start.elapsed_time(end) / steps, wall * 1e3 / steps,
+            torch.cuda.max_memory_allocated() / 1e9)
 
 
 def set_flags(**kw) -> None:
@@ -694,13 +758,21 @@ def lstm_run(p, cot, lengths, reverse, plain):
     return [o.detach() for o in outs], dict(zip(q, grads))
 
 
-def grad_errors(got, want):
-    """(max abs error, worst error / tolerance) over gradients by name."""
+def grad_errors(got, want, atol=LSTM_GRAD_ATOL, rtol=LSTM_GRAD_RTOL):
+    """(max abs error, worst error / tolerance) over gradients by name:
+    tolerance atol + rtol * max|ref| per gradient, plus one bf16 ulp of
+    the larger value where the gradient is bf16 (a bf16 input gets its
+    gradient rounded to bf16 on both paths)."""
+    import torch
     err, ratio = 0.0, 0.0
     for name, w in want.items():
-        e = (got[name] - w).abs().max().item()
-        tol = LSTM_GRAD_ATOL + LSTM_GRAD_RTOL * w.abs().max().item()
-        err, ratio = max(err, e), max(ratio, e / tol)
+        g, w = got[name].float(), w.float()
+        d = (g - w).abs()
+        tol = atol + rtol * w.abs().max().item()
+        if want[name].dtype == torch.bfloat16:
+            tol = tol + torch.maximum(g.abs(), w.abs()) * 2.0 ** -7
+        err = max(err, d.max().item())
+        ratio = max(ratio, (d / tol).max().item())
     return err, ratio
 
 
@@ -758,7 +830,6 @@ def phase_train(dev, dims=TRAIN, steps=TIMED_STEPS, precision="fp32",
     steps with every launch count set to 0 just before them; each of
     ``kernels`` must launch once per LSTM layer per step, each of
     ``idle`` never."""
-    import torch
     from paddle_tpu_torch.config.model_config import OptimizationConfig
     from paddle_tpu_torch.layers.network import NeuralNetwork
     from paddle_tpu_torch.models import lstm_text_classifier
@@ -769,23 +840,9 @@ def phase_train(dev, dims=TRAIN, steps=TIMED_STEPS, precision="fp32",
                       seed=0, device=dev)
     feed = train_feed(0, TRAIN_B, TRAIN_T, dims["vocab_size"], dev)
     warm = [float(trainer.train_one_batch(feed)) for _ in range(WARM_STEPS)]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    reset_counts()
-    t0 = time.perf_counter()
-    start.record()
-    losses = [trainer.train_one_batch(feed) for _ in range(steps)]
-    end.record()
-    end.synchronize()
-    wall = time.perf_counter() - t0
-    launches = read_counts()
-    losses = [float(x) for x in losses]
-    ms = start.elapsed_time(end) / steps
+    launches, losses, ms, wall_ms, peak = timed_steps(trainer, feed, steps)
     m = {"ms_per_step": ms, "samples_per_s": TRAIN_B * 1e3 / ms,
-         "host_wall_ms_per_step": wall * 1e3 / steps,
-         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+         "host_wall_ms_per_step": wall_ms, "peak_mem_gb": peak,
          "warm_losses": warm, "losses": losses}
     if trainer._ls_state is not None:
         m["loss_scale"] = float(trainer._ls_state.scale)
@@ -862,7 +919,9 @@ def phase_profile_train(trainer, feed):
     rows = device_rows(prof)
     busy_us = sum(r[1] for r in rows)
     log(f"  profiled 3 steps: wall {wall * 1e3:.1f} ms, device busy "
-        f"{busy_us / 1e3:.1f} ms ({100 * busy_us / (wall * 1e6):.1f} %)")
+        f"{busy_us / 1e3:.1f} ms ({100 * busy_us / (wall * 1e6):.1f} %), "
+        f"{sum(r[2] for r in rows) / 3:.0f} device items (kernels and "
+        "copies) a step")
     rows.sort(key=lambda r: -r[1])
     for key, us, n in rows[:14]:
         log(f"    {us / 1e3:9.3f} ms  {n:6d} x  {key[:90]}")
@@ -1248,7 +1307,6 @@ def phase_train_image(dev, cfg, b, img, ncls, steps, warm, per_step):
     """An image training path: ``warm`` steps, then ``steps`` steps between
     CUDA events with every launch count set to 0 just before them; each
     kernel of ``per_step`` must launch exactly that many times a step."""
-    import torch
     from paddle_tpu_torch.config.model_config import OptimizationConfig
     from paddle_tpu_torch.layers.network import NeuralNetwork
     from paddle_tpu_torch.trainer.trainer import Trainer
@@ -1260,23 +1318,9 @@ def phase_train_image(dev, cfg, b, img, ncls, steps, warm, per_step):
     t0 = time.perf_counter()
     warm_losses = [float(trainer.train_one_batch(feed)) for _ in range(warm)]
     warm_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    reset_counts()
-    t0 = time.perf_counter()
-    start.record()
-    losses = [trainer.train_one_batch(feed) for _ in range(steps)]
-    end.record()
-    end.synchronize()
-    wall = time.perf_counter() - t0
-    launches = read_counts()
-    losses = [float(x) for x in losses]
-    ms = start.elapsed_time(end) / steps
+    launches, losses, ms, wall_ms, peak = timed_steps(trainer, feed, steps)
     m = {"ms_per_step": ms, "samples_per_s": b * 1e3 / ms,
-         "host_wall_ms_per_step": wall * 1e3 / steps,
-         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+         "host_wall_ms_per_step": wall_ms, "peak_mem_gb": peak,
          "warm_s": warm_s, "warm_losses": warm_losses, "losses": losses,
          "census": net.fused_pair_census,
          "flags": {k: FLAGS.get(k) for k in ("use_bf16", "bf16_activations",
@@ -1484,6 +1528,273 @@ def phase_resnet(dev, launches):
     return out
 
 
+# ------------------------------------------------------------ GRU phases
+def gru_case(b, t, h, lengths, seed, dev, xw_dtype=None, boot=True):
+    """Random GRU inputs (xw, w_hh [H, 3H], bias, boot state h0, or none)
+    and cotangents on (y, final h); lengths int32 [B]."""
+    import torch
+    rng = np.random.default_rng(seed)
+
+    def f(*shape, sc=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * sc)
+                                .astype(np.float32)).to(dev)
+    p = {"xw": f(b, t, 3 * h, sc=0.5), "w": f(h, 3 * h, sc=h ** -0.5),
+         "bias": f(3 * h, sc=0.1)}
+    if boot:
+        p["h0"] = f(b, h, sc=0.5)
+    if xw_dtype is not None:
+        p["xw"] = p["xw"].to(xw_dtype)
+    cot = [f(b, t, h), f(b, h)]
+    return p, cot, torch.tensor(lengths, dtype=torch.int32, device=dev)
+
+
+def gru_run(p, cot, lengths, reverse, plain):
+    """(y, final h) and the gradient of every input under sum(output *
+    cotangent): through ``gru_sequence`` (kernels 13 and 14 on the card)
+    or, when ``plain``, through the per-step scan."""
+    import torch
+    from paddle_tpu_torch.core.sequence import SequenceBatch
+    from paddle_tpu_torch.ops import recurrent_ops as R
+    q = {n: v.detach().clone().requires_grad_(True) for n, v in p.items()}
+    h = q["w"].shape[0]
+    seq = SequenceBatch(q["xw"], lengths)
+    if plain:
+        xw, mask = q["xw"] + q["bias"], seq.mask()
+        if reverse:
+            xw, mask = torch.flip(xw, (1,)), torch.flip(mask, (1,))
+        y, fh = R.gru_scan(xw, mask, q["w"][:, :2 * h], q["w"][:, 2 * h:],
+                           q.get("h0"))
+        if reverse:
+            y = torch.flip(y, (1,))
+    else:
+        out, fh = R.gru_sequence(seq, None, q["w"], q["bias"],
+                                 h0=q.get("h0"), reverse=reverse)
+        y = out.data
+    loss = (y * cot[0]).sum() + (fh * cot[1]).sum()
+    grads = torch.autograd.grad(loss, list(q.values()))
+    return [y.detach(), fh.detach()], dict(zip(q, grads))
+
+
+def gru_kernel_errors(b, t, h, lengths, seed, dev):
+    """Each wrapper (kernels 13, 14) against its plain version on the
+    same CUDA tensors: (forward max abs error, (backward max abs error,
+    ratio to tolerance))."""
+    import torch
+    from paddle_tpu_torch.ops import gru as G
+    p, cot, ln = gru_case(b, t, h, lengths, seed, dev)
+    mask = (torch.arange(t, device=dev)[None, :] < ln[:, None]).float()
+    fwd = (p["xw"], mask, p["w"][:, :2 * h].contiguous(),
+           p["w"][:, 2 * h:].contiguous(), p["h0"])
+    got, want = G.gru_fwd(*fwd), G.gru_fwd_reference(*fwd)
+    e_fwd = max((a - r).abs().max().item() for a, r in zip(got, want))
+    hseq, gates = want
+    bwd = (gates, hseq, p["h0"], mask, fwd[2], fwd[3], cot[0])
+    got, want = G.gru_bwd(*bwd), G.gru_bwd_reference(*bwd)
+    return e_fwd, grad_errors(dict(enumerate(got)), dict(enumerate(want)),
+                              GRU_GRAD_ATOL, GRU_GRAD_RTOL)
+
+
+def phase_gru_check(dev):
+    """Kernels 13 and 14 through ``gru_sequence`` (their autograd.Function)
+    against autograd through the plain scan, and each wrapper against its
+    plain version, fp32: outputs within GRU_ATOL, every gradient (xw,
+    w_hh, bias, h0) within GRU_GRAD_ATOL + GRU_GRAD_RTOL * max|ref|."""
+    import torch
+    full = [S2S["T"]] * S2S["B"]
+    cases = [((S2S["B"], S2S["T"], S2S["H"]), full, False, None, True),
+             ((S2S["B"], S2S["T"], S2S["H"]), full, True, None, True),
+             ((8, 12, 128), [12, 1, 7, 12, 3, 1, 9, 12], True, None, True),
+             ((3, 5, 128), [5, 1, 3], False, None, False),        # B = 3
+             ((16, 7, 384), [7, 0, 1] + [1 + i % 7 for i in range(13)],
+              False, None, True),
+             # two row chunks; H % 4 != 0 (scalar staging, a part CTA)
+             ((200, 4, 256), [4, 0] + [1 + i % 4 for i in range(198)], True,
+              None, True),
+             ((5, 6, 50), [6, 1, 0, 6, 3], False, None, True),
+             ((8, 12, 128), [12, 1, 7, 12, 3, 1, 9, 12], False,
+              torch.bfloat16, True)]                           # bf16 xw
+    errs = {"gru_fwd": 0.0, "gru_bwd": 0.0}
+    for i, ((b, t, h), lengths, reverse, xdt, boot) in enumerate(cases):
+        p, cot, ln = gru_case(b, t, h, lengths, 40 + i, dev, xdt, boot)
+        got_o, got_g = gru_run(p, cot, ln, reverse, plain=False)
+        want_o, want_g = gru_run(p, cot, ln, reverse, plain=True)
+        sync(dev)
+        e_out = max((g - w).abs().max().item()
+                    for g, w in zip(got_o, want_o))
+        e_grad, ratio = grad_errors(got_g, want_g, GRU_GRAD_ATOL,
+                                    GRU_GRAD_RTOL)
+        e_fwd, (e_bwd, r_bwd) = gru_kernel_errors(b, t, h, lengths, 60 + i,
+                                                  dev)
+        sync(dev)
+        log(f"  gru B={b} T={t} H={h} reverse={reverse} xw "
+            f"{'bf16' if xdt else 'fp32'} h0={'yes' if boot else 'no'}: vs "
+            f"the scan: outputs {e_out:.3e}, gradients {e_grad:.3e} "
+            f"({ratio:.3f} of tolerance); vs plain versions: fwd "
+            f"{e_fwd:.3e}, bwd {e_bwd:.3e} ({r_bwd:.3f})")
+        if not max(e_out, e_fwd) <= GRU_ATOL:
+            fail(f"gru_fwd disagrees at B={b} T={t} H={h}: "
+                 f"{max(e_out, e_fwd)} > {GRU_ATOL}")
+        if not max(ratio, r_bwd) <= 1.0:
+            fail(f"gru_bwd disagrees at B={b} T={t} H={h}: "
+                 f"{max(ratio, r_bwd):.3f} of tolerance")
+        errs["gru_fwd"] = max(errs["gru_fwd"], e_out, e_fwd)
+        errs["gru_bwd"] = max(errs["gru_bwd"], e_bwd)
+    return errs
+
+
+def s2s_feed(b, s, t, v, dev, seed=0, lengths=None):
+    """bench.py's seq2seq feed (bench.py:503-514): source, target and
+    next-target ids drawn from ``RandomState(seed)`` in that order, every
+    length full; or the given (source, target) lengths."""
+    import torch
+    from paddle_tpu_torch.core.sequence import SequenceBatch
+    rng = np.random.RandomState(seed)
+    ids = [rng.randint(2, v, (b, n)).astype(np.int32) for n in (s, t, t)]
+    src_len, trg_len = lengths or (np.full((b,), s, np.int32),
+                                   np.full((b,), t, np.int32))
+    return {name: SequenceBatch(torch.from_numpy(x),
+                                torch.from_numpy(ln.astype(np.int32))).to(dev)
+            for name, x, ln in (("source", ids[0], src_len),
+                                ("target", ids[1], trg_len),
+                                ("target_next", ids[2], trg_len))}
+
+
+def phase_seq2seq(dev):
+    """Phase 4q: the seq2seq main path at bench.py's row under its flags:
+    warm steps, then the timed steps between CUDA events with every
+    launch count set to 0 just before them — finite losses, exactly 2
+    launches of each GRU kernel a step (the two encoder directions) and
+    no other kernel, ms/step, target tokens/s."""
+    from paddle_tpu_torch.config.model_config import OptimizationConfig
+    from paddle_tpu_torch.layers.network import NeuralNetwork
+    from paddle_tpu_torch.models import seq2seq_config
+    from paddle_tpu_torch.trainer.trainer import Trainer
+    b, steps = S2S["B"], S2S_STEPS
+    net = NeuralNetwork(seq2seq_config(S2S["V"], S2S["E"], S2S["H"]))
+    trainer = Trainer(net, OptimizationConfig(**S2S_OPT), seed=0, device=dev)
+    feed = s2s_feed(b, S2S["S"], S2S["T"], S2S["V"], dev)
+    t0 = time.perf_counter()
+    warm = [float(trainer.train_one_batch(feed)) for _ in range(S2S_WARM)]
+    warm_s = time.perf_counter() - t0
+    launches, losses, ms, wall_ms, peak = timed_steps(trainer, feed, steps)
+    m = {"ms_per_step": ms, "target_tokens_per_s": b * S2S["T"] * 1e3 / ms,
+         "host_wall_ms_per_step": wall_ms, "peak_mem_gb": peak,
+         "warm_s": warm_s, "warm_losses": warm, "losses": losses}
+    log(f"  {steps} timed steps (B {b}, S {S2S['S']}, T {S2S['T']}, V "
+        f"{S2S['V']}, E {S2S['E']}, H {S2S['H']}; use_bf16 + "
+        f"bf16_activations): {ms:.3f} ms/step (CUDA events), "
+        f"{m['target_tokens_per_s']:.1f} target tokens/s, host wall "
+        f"{m['host_wall_ms_per_step']:.3f} ms/step, peak memory "
+        f"{m['peak_mem_gb']:.2f} GB, {S2S_WARM} warm steps {warm_s:.1f} s; "
+        f"launches { {k: v for k, v in launches.items() if v} }")
+    log(f"  losses: warm {[round(x, 6) for x in warm]}, timed "
+        f"{[round(x, 6) for x in losses]}")
+    if not all(np.isfinite(warm + losses)):
+        fail("non-finite seq2seq training loss")
+    for name, n in launches.items():
+        want = 2 * steps if name in GRU_KERNELS else 0
+        if n != want:
+            fail(f"{name}: {n} launches in {steps} seq2seq steps, expected "
+                 f"{want}")
+    return launches, m, trainer, feed
+
+
+def phase_seq2seq_small(dev):
+    """Phase 4s: a small seq2seq net in fp32 on the CPU (plain versions)
+    and on the card, same parameters, source and target lengths varied:
+    the loss within S2S_RTOL of the CPU's, every gradient within
+    S2S_RTOL * max|ref| + 1e-8."""
+    import torch
+    from paddle_tpu_torch.layers.network import NeuralNetwork
+    from paddle_tpu_torch.models import seq2seq_config
+    b, s, t, v = 8, 6, 5, 50
+    net = NeuralNetwork(seq2seq_config(v, 16, 128))
+    cpu_params = net.init_params(seed=0, device="cpu")
+    lengths = (np.array([6, 1, 3, 6, 5, 2, 4, 6]),
+               np.array([5, 5, 1, 3, 2, 5, 4, 1]))
+    res = {}
+    for where in ("cpu", dev):
+        params = {n: p.to(where).requires_grad_(True)
+                  for n, p in cpu_params.items()}
+        loss, _ = net.loss(params, s2s_feed(b, s, t, v, where, seed=1,
+                                            lengths=lengths))
+        grads = torch.autograd.grad(loss, list(params.values()))
+        res[str(where)] = (float(loss.detach()),
+                           {n: g.cpu() for n, g in zip(params, grads)})
+    (l_cpu, g_cpu), (l_dev, g_dev) = res["cpu"], res[str(dev)]
+    ratio = max(((g_dev[n] - w).abs().max().item()
+                 / (S2S_RTOL * w.abs().max().item() + 1e-8))
+                for n, w in g_cpu.items())
+    log(f"  card vs CPU plain path, B {b} S {s} T {t} V {v} E 16 H 128: "
+        f"loss {l_dev:.7f} vs {l_cpu:.7f}; gradients {ratio:.3f} of "
+        f"tolerance")
+    if not np.isfinite(l_dev) or abs(l_dev - l_cpu) > S2S_RTOL * abs(l_cpu) \
+            or ratio > 1.0:
+        fail("card and CPU reference disagree on the seq2seq step")
+
+
+def gru_work(b, t, h, n_valid, backward):
+    """(bytes, flops) of one GRU kernel call: every input read once and
+    every output written once; the recurrent products of the valid (row,
+    step) pairs (a padded step's products are not needed)."""
+    seq, gates, w = b * t, b * t * 3 * h, 3 * h * h
+    if not backward:   # xw, mask, w_gates, w_cand, h0 -> H, gates
+        n = 2 * gates + seq + w + b * h + seq * h
+        return 4 * n, 2 * n_valid * h * 3 * h
+    # gates, H, h0, mask, w_gates, w_cand, dy -> dxw, dw_gates, dw_cand, dh0
+    n = 2 * gates + 2 * seq * h + seq + 2 * w + 2 * b * h
+    return 4 * n, 4 * n_valid * h * 3 * h
+
+
+def phase_time_gru(dev, launches):
+    """Kernels 13 and 14 at the seq2seq row's encoder shape (B 128, T 30,
+    H 512, every step valid, h0 zero): against their plain versions, then
+    timed with both."""
+    import torch
+    from paddle_tpu_torch.ops import gru as G
+    b, t, h = S2S["B"], S2S["T"], S2S["H"]
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def rnd(*shape, sc=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * sc
+    mask = torch.ones((b, t), device=dev)
+    fwd_args = (rnd(b, t, 3 * h, sc=0.5), mask, rnd(h, 2 * h, sc=h ** -0.5),
+                rnd(h, h, sc=h ** -0.5), torch.zeros((b, h), device=dev))
+    got, ref = G.gru_fwd(*fwd_args), G.gru_fwd_reference(*fwd_args)
+    e_fwd = max((a - r).abs().max().item() for a, r in zip(got, ref))
+    hseq, gates = got
+    bwd_args = (gates, hseq, fwd_args[4], mask, fwd_args[2], fwd_args[3],
+                rnd(b, t, h))
+    got, want = G.gru_bwd(*bwd_args), G.gru_bwd_reference(*bwd_args)
+    e_bwd, ratio = grad_errors(dict(enumerate(got)), dict(enumerate(want)),
+                               GRU_GRAD_ATOL, GRU_GRAD_RTOL)
+    if not (e_fwd <= GRU_ATOL and ratio <= 1.0):
+        fail(f"GRU kernels disagree with their plain versions at the main "
+             f"shapes: forward {e_fwd}, backward {ratio:.3f} of tolerance")
+    rows = []
+    for name, fn, plain, args, bwd, line in (
+            ("gru_fwd", G.gru_fwd, G.gru_fwd_reference, fwd_args, False, 58),
+            ("gru_bwd", G.gru_bwd, G.gru_bwd_reference, bwd_args, True,
+             115)):
+        ms = time_ms(lambda: fn(*args), reps=10, rounds=4)
+        plain_ms = time_ms(lambda: plain(*args), reps=2, rounds=2)
+        b_ms, b_by = bound_ms(*gru_work(b, t, h, b * t, bwd))
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"paddle_tpu_torch/csrc/{name}.cu",
+                     "replaces": f"paddle_tpu/ops/pallas_gru.py:{line}",
+                     "launches": sum(launches[name].values()),
+                     "launches_by_path": launches[name],
+                     "max_abs_err": e_bwd if bwd else e_fwd, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": None,
+                     "shape": f"B {b}, T {t}, H {h}, all steps valid"})
+    for r in rows:
+        log(f"  {r['name']}: {r['ms'] * 1e3:.2f} us (plain "
+            f"{r['plain_ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.3f}"
+            f" us by {r['bound_by']}); {r['shape']}")
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -1521,6 +1832,9 @@ def main() -> int:
         log("== phase 3d: conv/BN kernels 18-21 vs their plain versions "
             "(fp32 and bf16)")
         phase_conv_check(dev)
+        log("== phase 3e: fused GRU kernels 13-14 vs the plain scan and "
+            "their plain versions (fp32)")
+        phase_gru_check(dev)
         log("== phase 4: main path, full-width server")
         launches, serve, model, prompts = phase_serve(dev)
         log("== phase 4b: row invariance of the RMS mean")
@@ -1562,11 +1876,26 @@ def main() -> int:
             "(fp32)")
         phase_train_small(dev, hidden=640)
         resnet = phase_resnet(dev, launches)
+        set_flags(**BENCH_FLAGS)
+        log("== phase 4q: seq2seq main path (bench.py's row: B 128, S 30, "
+            "T 30, V 30000, E 512, H 512, use_bf16 + bf16_activations, "
+            "Adam lr 5e-4 clip 25)")
+        s2s_launches, seq2seq, trainer, feed = phase_seq2seq(dev)
+        for name in launches:
+            launches[name]["seq2seq"] = s2s_launches[name]
+        log("== phase 4r: profile of 3 seq2seq steps")
+        phase_profile_train(trainer, feed)
+        del trainer, feed
+        torch.cuda.empty_cache()
+        set_flags(use_bf16=False, bf16_activations=False)
+        log("== phase 4s: small seq2seq net, card vs CPU plain path (fp32)")
+        phase_seq2seq_small(dev)
         log("== phase 5: kernel times at the main paths' shapes")
         rows = phase_time(dev, launches, serve) \
             + phase_time_lstm(dev, launches) \
             + phase_time_blocked(dev, launches) \
-            + phase_time_conv(dev, launches)
+            + phase_time_conv(dev, launches) \
+            + phase_time_gru(dev, launches)
     except SystemExit as e:
         print(e, file=sys.stderr)
         return 1
@@ -1578,7 +1907,8 @@ def main() -> int:
                                   if k != "prompt_lengths"},
                       "training": train, "training_h1280": blocked,
                       "training_h1280_mixed_bf16": mixed,
-                      "training_h2048": wide, **resnet, "card": card}))
+                      "training_h2048": wide, **resnet, "seq2seq": seq2seq,
+                      "card": card}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,9 @@ reference proto's field vocabulary, serialisable to JSON.
 
 The port keeps its own copy, with the same field names and defaults, so
 a config built here dumps to the same JSON as one built by the JAX
-package.  Projections, recurrent-group sub-models and evaluators have no
-layer in this slice; their list fields stay, empty, for that equality.
+package.  Recurrent-group sub-models (:class:`SubModelConfig`) are
+ported; projections and evaluators have no layer yet, and their list
+fields stay, empty, for that equality.
 """
 
 from __future__ import annotations
@@ -71,6 +72,22 @@ class LayerConfig:
 
 
 @dataclass
+class SubModelConfig:
+    """Recurrent-group sub-model (``SubModelConfig``: in/out links,
+    memories; reference ``config_parser.py:367``).  A memory is a dict
+    ``{"layer_name", "link_name", "size", "boot_layer_name"}``."""
+
+    name: str = ""
+    layer_names: List[str] = field(default_factory=list)
+    in_links: List[str] = field(default_factory=list)
+    out_links: List[str] = field(default_factory=list)
+    memories: List[Dict[str, Any]] = field(default_factory=list)
+    reversed: bool = False
+    is_generating: bool = False
+    generator: Dict[str, Any] = field(default_factory=dict)
+
+
+@dataclass
 class ModelConfig:
     """Mirror of ``proto/ModelConfig.proto`` ModelConfig."""
 
@@ -78,17 +95,24 @@ class ModelConfig:
     parameters: List[ParameterConfig] = field(default_factory=list)
     input_layer_names: List[str] = field(default_factory=list)
     output_layer_names: List[str] = field(default_factory=list)
-    sub_models: List[Dict[str, Any]] = field(default_factory=list)
+    sub_models: List[SubModelConfig] = field(default_factory=list)
     evaluators: List[Dict[str, Any]] = field(default_factory=list)
 
     def layer_map(self) -> Dict[str, LayerConfig]:
         return {l.name: l for l in self.layers}
 
     def find_size(self, name: str) -> int:
+        """Size of a layer output or of a recurrent-group memory link."""
         for l in self.layers:
             if l.name == name:
                 return l.size
-        raise PaddleTpuError(f"no layer named {name!r}")
+        for sm in self.sub_models:
+            for mem in sm.memories:
+                if name in (mem.get("link_name"),
+                            mem["layer_name"] + "@pre"):
+                    return mem.get("size", 0) or \
+                        self.find_size(mem["layer_name"])
+        raise PaddleTpuError(f"no layer or memory link named {name!r}")
 
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), indent=1)

@@ -37,10 +37,6 @@
 namespace cg = cooperative_groups;
 using namespace lstm;
 
-constexpr int kGR = 32;                  // rows per dW product chunk
-constexpr int kGK = 128, kGC = 64;       // dW output tile: kGK x kGC
-constexpr int kGAS = kGK + 4, kGBS = kGC + 4;      // padded chunk rows
-constexpr int kGStage = kGR * (kGAS + kGBS);  // one A chunk + one B chunk
 constexpr int kXB = 8;                   // partials in flight per thread
 
 template <int U>
@@ -89,7 +85,7 @@ __global__ void __launch_bounds__(kThreads) lstm_bwd_kernel(
   float* dhp = dcc + B * U;              // [B, U]   (1-m) * dh_tot
   float* red = dhp + B * U;              // [3, B, U] peephole products
   float* part = red + 3 * B * U;         // [2, B, U] reduce halves
-  float* gst = part + 2 * B * U;         // [kStages, kGStage] dW chunks
+  float* gst = part + 2 * B * U;         // dW staging (dw_tile)
 
   for (int idx = tid; idx < N * Hp; idx += kThreads) {
     const int j = idx / Hp, k = idx % Hp, unit = u0 + j % U;
@@ -220,77 +216,24 @@ __global__ void __launch_bounds__(kThreads) lstm_bwd_kernel(
     dchecks[(tid / U) * H + u0 + tid % U] = ck_acc;
 
   // ---- dW_hh[k, c] = sum over rows r = (b, t) of h_{t-1}[b, k] *
-  // dgates_t[b, c]: 128 x 64 output tiles spread over the grid (rows
-  // 4 kb .. 4 kb + 3 and 64 + 4 kb .. x 4 columns per thread), rows streamed in chunks of kGR through a kStages-deep
-  // cp.async pipeline; every dxw row was written before the last grid
-  // barrier.
+  // dgates_t[b, c]: 128 x 64 output tiles spread over the grid
+  // (dw_tile); every dxw row was written before the last grid barrier.
   const bool vec = H % 4 == 0;
-  const int R = B * T, nkt = (H + kGK - 1) / kGK;
-  const int n_tiles = nkt * ((4 * H + kGC - 1) / kGC);
-  const int nch = (R + kGR - 1) / kGR;
-  const int kb = tid % 16, cb = tid / 16;
-  for (int tile = blockIdx.x; tile < n_tiles; tile += G) {
-    const int k0 = (tile % nkt) * kGK, col0 = (tile / nkt) * kGC;
-    auto fetch_chunk = [&](int ch) {
-      float* st = gst + (ch % kStages) * kGStage;
-      const int r0 = ch * kGR;
-      auto hrow = [&](int r) -> const float* {   // h_{t-1} of row (b, t)
-        const int row = r0 + r;
-        if (row >= R) return nullptr;
-        return row % T ? hseq + (long)(row - 1) * H : h0 + (long)(row / T) * H;
-      };
-      auto grow = [&](int r) -> const float* {
-        return r0 + r < R ? dxw + (long)(r0 + r) * 4 * H : nullptr;
-      };
-      stage(st, kGAS, hrow, kGR, kGK, k0, H, vec, h0);
-      stage(st + kGR * kGAS, kGBS, grow, kGR, kGC, col0, 4 * H, vec, h0);
-    };
-    float acc[8][4] = {};
-    __syncthreads();  // the staging buffers are free
-#pragma unroll
-    for (int s = 0; s < kStages - 1; ++s) {
-      if (s < nch) fetch_chunk(s);
-      cp_commit();
-    }
-    for (int ch = 0; ch < nch; ++ch) {
-      cp_wait<kStages - 2>();
-      __syncthreads();
-      if (ch + kStages - 1 < nch) fetch_chunk(ch + kStages - 1);
-      cp_commit();
-      const float* ga = gst + (ch % kStages) * kGStage;
-      const float* gb = ga + kGR * kGAS;
-#pragma unroll 2
-      for (int r = 0; r < kGR; ++r) {
-        const float4 a0 = *reinterpret_cast<const float4*>(ga + r * kGAS + 4 * kb);
-        const float4 a1 =
-            *reinterpret_cast<const float4*>(ga + r * kGAS + 64 + 4 * kb);
-        const float4 v = *reinterpret_cast<const float4*>(gb + r * kGBS + 4 * cb);
-        const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          acc[i][0] += av[i] * v.x;
-          acc[i][1] += av[i] * v.y;
-          acc[i][2] += av[i] * v.z;
-          acc[i][3] += av[i] * v.w;
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int k = k0 + (i < 4 ? 4 * kb + i : 64 + 4 * kb + i - 4);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int col = col0 + 4 * cb + c;
-        if (k < H && col < 4 * H) dw[(long)k * 4 * H + col] = acc[i][c];
-      }
-    }
-  }
+  const int nkt = (H + dwt::kGK - 1) / dwt::kGK;
+  const int n_tiles = nkt * ((4 * H + dwt::kGC - 1) / dwt::kGC);
+  auto hrow = [&](int row) -> const float* {   // h_{t-1} of row (b, t)
+    return row % T ? hseq + (long)(row - 1) * H : h0 + (long)(row / T) * H;
+  };
+  auto grow = [&](int row) -> const float* { return dxw + (long)row * 4 * H; };
+  for (int tile = blockIdx.x; tile < n_tiles; tile += G)
+    dw_tile(hrow, grow, B * T, H, 4 * H, (tile % nkt) * dwt::kGK,
+            (tile / nkt) * dwt::kGC, dw, 4 * H, gst, vec, h0);
 }
 
 template <int U>
 static int launch_bwd(void** args, int B, int H, cudaStream_t stream) {
   const long smem = 4L * U * round_up(H, 4) + 4L * U * round_up(B, 8) +
-                    8L * B * U + (long)kStages * kGStage;
+                    8L * B * U + (long)dwt::kStageFloats;
   return cooperative_launch(lstm_bwd_kernel<U>, H, U, smem, args, stream);
 }
 

@@ -200,6 +200,86 @@ __host__ inline int cooperative_launch(K kernel, int H, int U, long smem_floats,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------- weight gradient of a time loop
+// The single-block backward kernels (lstm_bwd.cu, gru_bwd.cu) sum their
+// weight gradients over all (b, t) rows after the time loop, one
+// kGK x kGC output tile per CTA at a time (dw_tile).
+namespace dwt {
+constexpr int kGR = 32;                  // rows per dW product chunk
+constexpr int kGK = 128, kGC = 64;       // dW output tile: kGK x kGC
+constexpr int kGAS = kGK + 4, kGBS = kGC + 4;      // padded chunk rows
+constexpr int kGStage = kGR * (kGAS + kGBS);  // one A chunk + one B chunk
+constexpr int kStageFloats = kStages * kGStage;   // the staging buffers
+}  // namespace dwt
+
+// One tile of dW[k, c] = sum over rows r < R of arow(r)[k] * brow(r)[c]
+// (k < K, c < C): dW rows k0 .. k0 + kGK, columns col0 .. col0 + kGC,
+// written at dw[k * ldw + c].  Rows stream in chunks of kGR through a
+// kStages-deep cp.async pipeline in gst (dwt::kStageFloats floats);
+// thread (kb, cb) sums dW rows 4 kb .. 4 kb + 3 and 64 + 4 kb .. 64 + 4 kb
+// + 3 by columns 4 cb .. 4 cb + 3 over all R rows in order, so the result
+// has the same bits on every run.
+template <class ARow, class BRow>
+__device__ __forceinline__ void dw_tile(ARow arow, BRow brow, int R, int K,
+                                        int C, int k0, int col0, float* dw,
+                                        long ldw, float* gst, bool vec,
+                                        const float* any) {
+  using dwt::kGR, dwt::kGK, dwt::kGC, dwt::kGAS, dwt::kGBS, dwt::kGStage;
+  const int tid = threadIdx.x, kb = tid % 16, cb = tid / 16;
+  const int nch = (R + kGR - 1) / kGR;
+  auto fetch_chunk = [&](int ch) {
+    float* st = gst + (ch % kStages) * kGStage;
+    const int r0 = ch * kGR;
+    auto a = [&](int r) -> const float* {
+      return r0 + r < R ? arow(r0 + r) : nullptr;
+    };
+    auto b = [&](int r) -> const float* {
+      return r0 + r < R ? brow(r0 + r) : nullptr;
+    };
+    stage(st, kGAS, a, kGR, kGK, k0, K, vec, any);
+    stage(st + kGR * kGAS, kGBS, b, kGR, kGC, col0, C, vec, any);
+  };
+  float acc[8][4] = {};
+  __syncthreads();  // the staging buffers are free
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nch) fetch_chunk(s);
+    cp_commit();
+  }
+  for (int ch = 0; ch < nch; ++ch) {
+    cp_wait<kStages - 2>();
+    __syncthreads();
+    if (ch + kStages - 1 < nch) fetch_chunk(ch + kStages - 1);
+    cp_commit();
+    const float* ga = gst + (ch % kStages) * kGStage;
+    const float* gb = ga + kGR * kGAS;
+#pragma unroll 2
+    for (int r = 0; r < kGR; ++r) {
+      const float4 a0 = *reinterpret_cast<const float4*>(ga + r * kGAS + 4 * kb);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(ga + r * kGAS + 64 + 4 * kb);
+      const float4 v = *reinterpret_cast<const float4*>(gb + r * kGBS + 4 * cb);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        acc[i][0] += av[i] * v.x;
+        acc[i][1] += av[i] * v.y;
+        acc[i][2] += av[i] * v.z;
+        acc[i][3] += av[i] * v.w;
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int k = k0 + (i < 4 ? 4 * kb + i : 64 + 4 * kb + i - 4);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int col = col0 + 4 * cb + c;
+      if (k < K && col < C) dw[(long)k * ldw + col] = acc[i][c];
+    }
+  }
+}
+
 // ------------------------------------------------ hidden-blocked tier
 // The blocked kernels own no hidden units: they walk a list of output
 // tiles (kBRows batch rows x COLS columns) with a stride of the grid, so

@@ -96,9 +96,12 @@ class Layer:
         raise NotImplementedError
 
     def finalize(self, out: Any) -> Any:
-        """The layer's activation (``Layer::forwardActivation``)."""
+        """The layer's activation (``Layer::forwardActivation``); a
+        sequence softmax of a sequence takes its length mask."""
         act = get_activation(self.conf.active_type or None)
         if isinstance(out, SequenceBatch):
+            if self.conf.active_type == "sequence_softmax":
+                return out.with_data(act(out.data, mask=out.mask()))
             return out.with_data(act(out.data))
         return act(out)
 

@@ -1,6 +1,6 @@
 """Dense / glue layers the ported slices use (counterpart of
-``paddle_tpu/layers/common.py``): data, fc, embedding, addto.  Layer
-type strings match the reference's registered names."""
+``paddle_tpu/layers/common.py``): data, fc, embedding, addto, concat,
+scaling.  Layer type strings match the reference's registered names."""
 
 from __future__ import annotations
 
@@ -107,3 +107,29 @@ class AddtoLayer(Layer):
         for x in inputs[1:]:
             out = out + value_of(x)
         return self.finalize(like(inputs[0], out))
+
+
+@register_layer("concat")
+class ConcatLayer(Layer):
+    """Concatenation of its inputs along the feature axis, then the
+    activation.  A bias is not ported."""
+
+    def forward(self, params, inputs, ctx):
+        if self.conf.with_bias:
+            raise PaddleTpuError(f"layer {self.name!r}: concat with a bias "
+                                 "is not ported")
+        out = torch.cat([value_of(x) for x in inputs], dim=-1)
+        return self.finalize(like(inputs[0], out))
+
+
+@register_layer("scaling")
+class ScalingLayer(Layer):
+    """Row-wise scale: the first input (one scalar per row or timestep)
+    times the second; a sequence stays a sequence."""
+
+    def forward(self, params, inputs, ctx):
+        w = value_of(inputs[0])
+        x = value_of(inputs[1])
+        if w.dim() != x.dim():
+            w = w.reshape(tuple(w.shape) + (1,) * (x.dim() - w.dim()))
+        return self.finalize(like(inputs[1], w * x))

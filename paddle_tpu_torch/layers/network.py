@@ -15,13 +15,16 @@ norm whose sole consumer is a fusable conv publishes its folded affine
 instead of its output (``nn_ops.affine_act_conv2d``).  The ops re-gate
 on shapes and fall back to the exact unfused composition.
 
-Recurrent groups and beam search wait for their slices; a config that
-needs them is refused at build time.
+Recurrent-group sub-models run through
+:class:`~paddle_tpu_torch.layers.recurrent_group.RecurrentGroup`: a
+group runs when one of its out-links is first needed, reading the outer
+values it needs as static inputs.  Generating groups (beam search) and
+nested groups are refused at build time.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Set, Tuple, Union
 
 import torch
 
@@ -33,18 +36,28 @@ from ..utils import FLAGS, PaddleTpuError, enforce
 from .base import (ForwardContext, Layer, cast_layer_output,
                    get_layer_class, init_parameter)
 from . import common, conv, cost, rnn, seq  # noqa: F401  (register layers)
+from .recurrent_group import RecurrentGroup, check_supported
 
 
 class NeuralNetwork:
     """Builds and executes a ModelConfig as a graph of tensor functions."""
 
     def __init__(self, config: ModelConfig):
-        enforce(not config.sub_models,
-                "recurrent-group sub-models are not ported")
+        check_supported(config)
         self.config = config
+        # recurrent groups: their step layers run inside the group
+        self.group_of: Dict[str, str] = {}
+        self.groups: Dict[str, RecurrentGroup] = {}
+        for sm in config.sub_models:
+            if sm.name == "root":
+                continue
+            self.group_of.update({ln: sm.name for ln in sm.layer_names})
+            self.groups[sm.name] = RecurrentGroup(sm, config)
         self.layers: Dict[str, Layer] = {}
         self.order: List[str] = []
         for lconf in config.layers:
+            if lconf.name in self.group_of and lconf.type != "data":
+                continue            # executed inside its recurrent group
             self.layers[lconf.name] = get_layer_class(lconf.type)(lconf,
                                                                   config)
             self.order.append(lconf.name)
@@ -52,21 +65,10 @@ class NeuralNetwork:
         # parameter specs: layer-declared, merged with config-declared
         declared = {p.name: p for p in config.parameters}
         self.param_specs: Dict[str, ParameterConfig] = {}
-        for layer in self.layers.values():
-            for spec in layer.param_specs():
-                if spec.name in declared:
-                    d = declared[spec.name]
-                    if not d.dims:
-                        d.dims = spec.dims
-                    d.size = d.size or spec.size
-                    spec = d
-                if spec.name in self.param_specs:
-                    enforce(self.param_specs[spec.name].dims == spec.dims,
-                            f"shared parameter {spec.name} shape mismatch: "
-                            f"{self.param_specs[spec.name].dims} vs "
-                            f"{spec.dims}")
-                    continue
-                self.param_specs[spec.name] = spec
+        for layers in [self.layers] + [g.layers for g in
+                                       self.groups.values()]:
+            for layer in layers.values():
+                self._collect_specs(layer, declared)
         self.static_params = {n for n, s in self.param_specs.items()
                               if s.is_static}
         self.cost_layers = [n for n in self.order
@@ -101,6 +103,22 @@ class NeuralNetwork:
             "bwd_3x3": len(self._conv_bn_fuse), "fwd_3x3": fwd3,
             "fwd_1x1": len(self._bn_conv_fuse) - fwd3}
 
+    def _collect_specs(self, layer: Layer,
+                       declared: Dict[str, ParameterConfig]) -> None:
+        for spec in layer.param_specs():
+            if spec.name in declared:
+                d = declared[spec.name]
+                if not d.dims:
+                    d.dims = spec.dims
+                d.size = d.size or spec.size
+                spec = d
+            if spec.name in self.param_specs:
+                enforce(self.param_specs[spec.name].dims == spec.dims,
+                        f"shared parameter {spec.name} shape mismatch: "
+                        f"{self.param_specs[spec.name].dims} vs {spec.dims}")
+                continue
+            self.param_specs[spec.name] = spec
+
     # ------------------------------------------------------------- params
     def init_params(self, seed: int = 1,
                     device: Optional[Union[str, torch.device]] = None
@@ -121,7 +139,9 @@ class NeuralNetwork:
         f32) on ``device`` (default CUDA, as :meth:`init_params`)."""
         dev = resolve_device(device)
         buffers: Dict[str, torch.Tensor] = {}
-        for layer in self.layers.values():
+        for layer in [*self.layers.values(),
+                      *(lyr for g in self.groups.values()
+                        for lyr in g.layers.values())]:
             if hasattr(layer, "buffer_specs"):
                 buffers.update({k: v.to(dev) for k, v in
                                 layer.buffer_specs().items()})
@@ -142,6 +162,16 @@ class NeuralNetwork:
         ctx = ForwardContext(is_training=is_training,
                              buffers=dict(buffers or {}))
         values: Dict[str, Any] = {}
+        done_groups: Set[str] = set()
+
+        def gather(names):
+            """Input values, running a group when an out-link is first
+            needed."""
+            for iname in names:
+                if iname not in values:
+                    self._run_group(iname, params, values, ctx, done_groups)
+            return [values[i] for i in names]
+
         fused_convs = set(self._conv_bn_fuse.values())
         defer = set(self._bn_conv_fuse.values())
         for name in self.order:
@@ -157,17 +187,17 @@ class NeuralNetwork:
             if name in defer:
                 # forward conv+BN fusion: publish (z, a, c) for the
                 # consuming conv, no activation materialised here
-                inputs = [values[i] for i in layer.conf.input_names()]
+                inputs = gather(layer.conf.input_names())
                 values[name] = layer.forward_deferred(params, inputs, ctx)
                 continue
             src = self._conv_bn_fuse.get(name)
             if src is not None:
                 cv = self.layers[src]
-                cinputs = [values[i] for i in cv.conf.input_names()]
+                cinputs = gather(cv.conf.input_names())
                 out = cast_layer_output(
                     layer, layer.forward_fused(params, cv, cinputs, ctx))
             else:
-                inputs = [values[i] for i in layer.conf.input_names()]
+                inputs = gather(layer.conf.input_names())
                 if name in self._cost_logit_alias:
                     layer.logits_value = values.get(
                         self._cost_logit_alias[name])
@@ -178,8 +208,25 @@ class NeuralNetwork:
                     values[name if k == "out" else f"{name}.{k}"] = v
             else:
                 values[name] = out
+        # declared outputs that are group out-links no layer consumes
+        for name in self.output_names:
+            gname = self.group_of.get(name)
+            if name not in values and gname is not None \
+                    and gname not in done_groups \
+                    and name in self.groups[gname].out_links:
+                self._run_group(name, params, values, ctx, done_groups)
         ctx.buffers.update(ctx.new_buffers)
         return values, ctx.buffers
+
+    def _run_group(self, name: str, params, values, ctx,
+                   done_groups: Set[str]) -> None:
+        """Produce ``name``, an out-link of a recurrent group not yet run,
+        by running its group."""
+        gname = self.group_of.get(name)
+        if gname is None or gname in done_groups:
+            raise PaddleTpuError(f"layer input {name!r} has no producer")
+        self.groups[gname].run(params, values, ctx)
+        done_groups.add(gname)
 
     def loss(self, params: Dict[str, torch.Tensor], feed: Dict[str, Any],
              buffers: Optional[Dict[str, torch.Tensor]] = None,
@@ -187,7 +234,9 @@ class NeuralNetwork:
              ) -> Tuple[torch.Tensor, Tuple[Dict[str, Any],
                                             Dict[str, torch.Tensor]]]:
         """Scalar objective = mean per-example total cost
-        (``Argument::sum`` / batch size) → (loss, (values, buffers))."""
+        (``Argument::sum`` / rows: B, or B·T for the per-token cost of
+        a sequence, as the JAX package divides) → (loss, (values,
+        buffers))."""
         values, new_buffers = self.forward(params, feed, buffers,
                                            is_training)
         enforce(self.cost_layers, "network has no cost layer")

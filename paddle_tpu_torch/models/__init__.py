@@ -1,3 +1,4 @@
 """Model configurations (counterpart of ``paddle_tpu/models``)."""
 from .image import resnet, resnet_cifar10  # noqa: F401
+from .seq2seq import seq2seq_config  # noqa: F401
 from .text import lstm_text_classifier  # noqa: F401

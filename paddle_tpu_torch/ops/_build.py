@@ -57,6 +57,8 @@ SIGNATURES = {
     "conv3x3_fwd": ("conv3x3_fwd", [_C] * 4 + [_I] * 7 + [_C]),
     "conv3x3_fwd_bwd": ("conv3x3_fwd_bwd", [_C] * 8 + [_I] * 7 + [_C]),
     "conv3x3_chain_bwd": ("conv3x3_chain_bwd", [_C] * 11 + [_I] * 7 + [_C]),
+    "gru_fwd": ("gru_fwd", [_C] * 8 + [_I] * 3 + [_C]),
+    "gru_bwd": ("gru_bwd", [_C] * 12 + [_I] * 3 + [_C]),
 }
 
 _lock = threading.Lock()

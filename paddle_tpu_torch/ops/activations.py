@@ -27,13 +27,29 @@ def softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return torch.softmax(x.float(), dim=dim).to(x.dtype)
 
 
+def sequence_softmax(x: torch.Tensor,
+                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Softmax over the time axis of a padded ``[B, T]`` (or ``[B, T,
+    1]``) batch, in x's dtype; padded positions (``mask`` 0) get 0
+    (the reference's per-sequence ``SequenceSoftmaxActivation``)."""
+    squeeze = x.dim() == 3 and x.shape[-1] == 1
+    if squeeze:
+        x = x[..., 0]
+    if mask is not None:
+        x = torch.where(mask > 0, x, float("-inf"))
+    out = torch.softmax(x, dim=-1)
+    if mask is not None:
+        out = torch.where(mask > 0, out, 0.0)
+    return out[..., None] if squeeze else out
+
+
 def linear(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
 ACTIVATIONS: Dict[str, Callable] = {
     "sigmoid": sigmoid, "tanh": tanh, "relu": relu, "softmax": softmax,
-    "linear": linear, "": linear,
+    "sequence_softmax": sequence_softmax, "linear": linear, "": linear,
 }
 
 

@@ -27,6 +27,14 @@ class _SoftmaxCE(torch.autograd.Function):
         return ((p - onehot) * dce[..., None]).to(logits.dtype), None
 
 
+def cross_entropy(p: torch.Tensor, label: torch.Tensor,
+                  eps: float = 1e-8) -> torch.Tensor:
+    """CE on probabilities ``[N, C]`` with int labels ``[N]`` (reference
+    ``cross_entropy_op``): ``-log(clip(p[label], eps, 1))`` in fp32."""
+    logp = torch.log(torch.clamp(p.float(), eps, 1.0))
+    return -torch.gather(logp, -1, label.reshape(-1, 1).long())[:, 0]
+
+
 def softmax_ce_fused(logits: torch.Tensor, label: torch.Tensor
                      ) -> torch.Tensor:
     """Hard-label softmax CE from logits [..., V] and int labels [...],

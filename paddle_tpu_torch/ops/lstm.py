@@ -247,7 +247,7 @@ def _on_card(tensors) -> bool:
     enforce(dev.type == "cuda", f"unsupported device {dev}")
     # the kernels stream rows with 16-byte asynchronous copies
     enforce(all(x.data_ptr() % 16 == 0 for x in tensors),
-            "the LSTM kernels need 16-byte aligned tensors")
+            "the fused LSTM/GRU kernels need 16-byte aligned tensors")
     return True
 
 

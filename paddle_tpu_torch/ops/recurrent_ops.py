@@ -1,13 +1,14 @@
-"""LSTM over padded sequences (counterpart of
-``paddle_tpu/ops/recurrent_ops.py``, its LSTM part).
+"""LSTM and GRU over padded sequences (counterpart of
+``paddle_tpu/ops/recurrent_ops.py``, its LSTM and GRU parts).
 
 The input projection for all timesteps is one product outside the time
-loop; the recurrence runs either in the fused kernels of
-:mod:`paddle_tpu_torch.ops.lstm` (default activations: the single-block
-tier for H <= 512, the hidden-blocked tier above) or in the per-step
-loop :func:`lstm_scan` (other activations, or ``--fused_rnn_hblock=false``
-for H > 512).  Padding keeps the state unchanged through masked steps.
-Peephole ("check") weights follow the reference LSTM.
+loop; the recurrence runs either in fused kernels (default activations:
+:mod:`paddle_tpu_torch.ops.lstm`, its single-block tier for H <= 512
+and its hidden-blocked tier above; :mod:`paddle_tpu_torch.ops.gru`) or
+in a per-step loop, :func:`lstm_scan` / :func:`gru_scan` (other
+activations, or ``--fused_rnn_hblock=false`` for H > 512).  Padding
+keeps the state unchanged through masked steps.  Peephole ("check")
+weights follow the reference LSTM; the GRU's gate layout is (u, r, c).
 
 Precision, as in the JAX package: the input projection and the gate
 bias are in the policy compute dtype; the fused kernels compute in fp32
@@ -24,9 +25,11 @@ import torch
 from ..core.dtypes import current_policy
 from ..core.sequence import SequenceBatch
 from ..utils import FLAGS
+from . import gru
 from .activations import get_activation
 from .lstm import (MAX_HIDDEN, lstm_fused_sequence,
                    lstm_fused_sequence_blocked)
+from .math_ops import matmul
 
 
 class LstmState(NamedTuple):
@@ -144,3 +147,90 @@ def lstm_sequence(seq: SequenceBatch, w_ih, w_hh, bias=None,
     if return_cells:
         return pack(y), final, pack(cy)
     return pack(y), final
+
+
+def gru_scan(xw, mask, w_gates, w_cand, h0=None, gate_act: str = "sigmoid",
+             act: str = "tanh") -> Tuple[torch.Tensor, torch.Tensor]:
+    """The per-step loop of ``recurrent_ops.gru_sequence``'s scan, with
+    the contract of :func:`~paddle_tpu_torch.ops.gru.gru_fused_sequence`:
+    xw ``[B, T, 3H]``, mask ``[B, T]`` → (y ``[B, T, H]`` masked, final
+    kept state).  The products run in the policy compute dtype and the
+    carry in the output dtype.  It is the plain version of the fused
+    kernels; autograd through it is the plain backward."""
+    b, t, hd3 = xw.shape
+    cd = current_policy().compute_dtype
+    carry = current_policy().output_dtype
+    wg, wc = w_gates.to(cd), w_cand.to(cd)
+    ga, ca = get_activation(gate_act), get_activation(act)
+    h = xw.new_zeros((b, hd3 // 3), dtype=carry) if h0 is None \
+        else h0.to(carry)
+    ys = []
+    for s in range(t):
+        x = xw[:, s]
+        xu, xr, xc = torch.chunk(x, 3, dim=-1)
+        hu, hr = torch.chunk((h.to(cd) @ wg).to(x.dtype), 2, dim=-1)
+        u = ga(xu + hu)
+        r = ga(xr + hr)
+        c = ca(xc + ((r * h).to(cd) @ wc).to(x.dtype))
+        # reference GruCompute: h_new = u * h_prev + (1 - u) * c
+        h_new = u * h + (1.0 - u) * c
+        m = mask[:, s, None]
+        h = m * h_new + (1 - m) * h
+        ys.append(m * h_new)
+    return torch.stack(ys, 1), h
+
+
+def gru_sequence(seq: SequenceBatch, w_ih, w_hh, bias=None, h0=None,
+                 reverse: bool = False, gate_act: str = "sigmoid",
+                 act: str = "tanh") -> Tuple[SequenceBatch, torch.Tensor]:
+    """GRU over a padded batch (reference ``GruCompute``): w_ih ``[D,
+    3H]`` (``None``: the input is already projected to 3H, the grumemory
+    convention), w_hh ``[H, 3H]`` packing w_gates ``[H, 2H]`` (u | r) and
+    w_cand ``[H, H]``, bias ``[3H]``.  Returns (hidden SequenceBatch
+    ``[B, T, H]``, final state ``[B, H]``) in the policy output dtype.
+
+    Default activations run the fused kernels (on the CPU their plain
+    versions).  H > 512 under ``--fused_rnn_hblock`` (default on) is the
+    hidden-blocked tier, kernels 15-17, not yet ported: on a CUDA tensor
+    the kernel wrappers raise (``ops.gru.fused_tier``), on the CPU the
+    plain versions serve any H.  It never loops quietly on the card.
+    Other activations take :func:`gru_scan`, and so does H > 512 under
+    ``--fused_rnn_hblock=false``, as the JAX package takes its scan."""
+    b, t, _ = seq.data.shape
+    hd = w_hh.shape[0]
+    pol = current_policy()
+    cd = pol.compute_dtype
+    xw = seq.data.to(cd) if w_ih is None else \
+        (seq.data.reshape(b * t, -1).to(cd) @ w_ih.to(cd)).reshape(
+            b, t, 3 * hd)
+    if bias is not None:
+        xw = xw + bias.to(cd)
+    mask = seq.mask(xw.dtype)
+    if reverse:
+        xw = torch.flip(xw, (1,))
+        mask = torch.flip(mask, (1,))
+    w_gates, w_cand = w_hh[:, :2 * hd], w_hh[:, 2 * hd:]
+    if gate_act == "sigmoid" and act == "tanh" \
+            and (hd <= gru.MAX_HIDDEN or FLAGS.get("fused_rnn_hblock")):
+        y, fh = gru.gru_fused_sequence(xw.contiguous(), mask, w_gates,
+                                       w_cand, h0)
+    else:
+        y, fh = gru_scan(xw, mask, w_gates, w_cand, h0, gate_act, act)
+    y = y.to(pol.output_dtype)
+    if reverse:
+        y = torch.flip(y, (1,))
+    return SequenceBatch(data=y, length=seq.length), fh.to(pol.output_dtype)
+
+
+def gru_unit(x_proj, h_prev, w_hh, gate_act: str = "sigmoid",
+             act: str = "tanh") -> torch.Tensor:
+    """Single GRU step given the pre-projected input ``[B, 3H]``
+    (``gru_unit_op``); the products under the precision policy."""
+    hd = h_prev.shape[-1]
+    xu, xr, xc = torch.chunk(x_proj, 3, dim=-1)
+    hu, hr = torch.chunk(matmul(h_prev, w_hh[:, :2 * hd]), 2, dim=-1)
+    ga, ca = get_activation(gate_act), get_activation(act)
+    u = ga(xu + hu)
+    r = ga(xr + hr)
+    c = ca(xc + matmul(r * h_prev, w_hh[:, 2 * hd:]))
+    return u * h_prev + (1.0 - u) * c

@@ -18,6 +18,7 @@ from typing import Dict, NamedTuple, Optional, Union
 
 import torch
 
+from ..core.device import resolve_device
 from ..utils import FLAGS
 
 GROWTH_FACTOR = 2.0
@@ -34,8 +35,11 @@ class LossScaleState(NamedTuple):
     skipped_total: torch.Tensor  # i32: skipped steps so far
 
 
-def init_state(device: Union[str, torch.device] = "cpu") -> LossScaleState:
-    """Fresh state from ``--loss_scale_init``."""
+def init_state(device: Optional[Union[str, torch.device]] = None
+               ) -> LossScaleState:
+    """Fresh state from ``--loss_scale_init`` on ``device`` (default
+    CUDA; raises when CUDA is absent and the CPU was not asked for)."""
+    device = resolve_device(device)
     return LossScaleState(
         scale=torch.tensor(float(FLAGS.get("loss_scale_init")),
                            dtype=torch.float32, device=device),

@@ -344,3 +344,75 @@ def test_conv_card_path_rejects_channels_off_the_tile(monkeypatch):
         tconv.conv3x3_fwd(*_conv_args("fwd", cin=48))
     with pytest.raises(PaddleTpuError, match="multiples of 64"):
         tconv.conv3x3_dx(*_conv_args("dx", cout=96))
+
+
+# ------------------------------------------------------------ seq2seq slice
+from paddle_tpu_torch.models import seq2seq_config  # noqa: E402
+from paddle_tpu_torch.ops import gru as tgru  # noqa: E402
+from paddle_tpu_torch.optimizer import loss_scale as tls  # noqa: E402
+
+
+def test_scan_covers_the_seq2seq_slice():
+    scanned = {str(f.relative_to(PORT)) for f in PORT.rglob("*.py")}
+    assert {"ops/gru.py", "ops/sequence_ops.py", "layers/recurrent_group.py",
+            "models/seq2seq.py", "layers/rnn.py", "layers/cost.py"} <= scanned
+    assert {"gru_fwd.cu", "gru_bwd.cu"} <= \
+        {f.name for f in (PORT / "csrc").iterdir()}
+
+
+def _s2s_feed():
+    rng = np.random.RandomState(0)
+    lens = torch.tensor([4, 2, 1], dtype=torch.int32)
+    return {name: SequenceBatch(torch.from_numpy(
+        rng.randint(2, 30, (3, 4)).astype(np.int32)), lens)
+        for name in ("source", "target", "target_next")}
+
+
+def test_seq2seq_entry_points_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    net = NeuralNetwork(seq2seq_config(30, 8, 16))
+    with pytest.raises(PaddleTpuError, match="no CUDA device"):
+        Trainer(net, seed=0)
+    with pytest.raises(PaddleTpuError, match="no CUDA device"):
+        tls.init_state()
+    assert tls.init_state(device="cpu").scale.device.type == "cpu"
+
+
+def test_gru_launch_counters_stay_zero_on_cpu():
+    """A seq2seq training step runs both GRU kernels' plain versions on
+    CPU tensors: no count."""
+    tgru.reset_launch_counts()
+    tr = Trainer(NeuralNetwork(seq2seq_config(30, 8, 16)), seed=0,
+                 device="cpu")
+    assert np.isfinite(float(tr.train_one_batch(_s2s_feed())))
+    assert all(fn.launches == 0 for fn in tgru.KERNEL_WRAPPERS)
+
+
+def _gru_fwd_args(b=3, t=4, h=8):
+    g = torch.Generator().manual_seed(0)
+    return [torch.randn(b, t, 3 * h, generator=g), torch.ones(b, t),
+            torch.randn(h, 2 * h, generator=g) * 0.1,
+            torch.randn(h, h, generator=g) * 0.1, torch.zeros(b, h)]
+
+
+def _gru_bwd_args(b=3, t=4, h=8):
+    xw, mask, wg, wc, h0 = _gru_fwd_args(b, t, h)
+    hseq, gates = tgru.gru_fwd(xw, mask, wg, wc, h0)
+    return [gates, hseq, h0, mask, wg, wc, torch.ones_like(hseq)]
+
+
+@pytest.mark.parametrize("wrapper,make,pos,bad", [
+    (tgru.gru_fwd, _gru_fwd_args, 0, lambda t: t.to(torch.bfloat16)),
+    (tgru.gru_fwd, _gru_fwd_args, 2, lambda t: t.t().contiguous().t()),
+    (tgru.gru_fwd, _gru_fwd_args, 3, lambda t: t[:, :4].contiguous()),
+    (tgru.gru_bwd, _gru_bwd_args, 1,
+     lambda t: t.transpose(0, 1).contiguous().transpose(0, 1)),
+    (tgru.gru_bwd, _gru_bwd_args, 6, lambda t: t.to(torch.bfloat16)),
+], ids=["fwd_xw_bf16", "fwd_wgates_noncontig", "fwd_wcand_shape",
+        "bwd_hseq_noncontig", "bwd_dy_bf16"])
+def test_gru_wrappers_reject_bad_inputs(wrapper, make, pos, bad):
+    args = make()
+    wrapper(*args)                       # the good inputs run
+    args[pos] = bad(args[pos])
+    with pytest.raises(PaddleTpuError):
+        wrapper(*args)

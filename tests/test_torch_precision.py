@@ -242,7 +242,7 @@ def test_loss_scale_helpers():
     assert kept["w"].numpy().tobytes() == old["w"].numpy().tobytes()
     assert int(kept["s"][0]) == 3
     TFLAGS.set("loss_scale_init", 256.0)
-    st = tls.init_state()
+    st = tls.init_state(device="cpu")
     assert float(st.scale) == 256.0 and int(st.skipped_total) == 0
 
 
