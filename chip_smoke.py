@@ -19,7 +19,10 @@ Phases (any failure exits nonzero, without the final ``ok`` line):
    (8, 12, 128) forward and reversed with peepholes, boot state, a cell
    cotangent and lengths 0 and T; (5, 7, 96); (6, 9, 200), reversed,
    where a CTA owns 2 units; (200, 5, 50), two row chunks and rows of
-   50 floats; (3, 1, 64); and (128, 100, 512);
+   50 floats; (3, 1, 64); and (128, 100, 512) — through ``lstm_sequence``
+   where the reference's dispatch rule (``recurrent_ops.dispatch_tier``)
+   sends the shape to the fused kernels, else through the tier's fused
+   entry called directly (so in 3c, 3e and 3f too);
 4. the main path: the full-width decoder server (``bench.py``'s serving
    config, weights from ``init_decoder_params(seed=0)``) over 48 mixed
    prompts in continuous and in sequential mode — identical tokens,
@@ -87,6 +90,11 @@ Phases (any failure exits nonzero, without the final ``ok`` line):
    both directions; rows of length 0, 1 and T with a nonzero h0; B = 3
    without h0; H 384; B 200 (two row chunks); H 50 (scalar staging, a
    part-filled CTA); and a bf16 xw;
+3f. the hidden-blocked GRU kernels 15-17 (forward, BPTT, dW) the same
+   way, with the tolerances of 3e, at (B, T, H) = (128, 30, 1024) in
+   both directions (the H 1024 encoder's shape); (8, 12, 640) with
+   lengths 0, 1 and T, reversed; (3, 5, 640) without h0; (16, 7, 520),
+   H off the 128-lane tiling; (128, 4, 2048); and a bf16 xw;
 4q. the seq2seq main path: ``bench.py``'s row (``seq2seq_setup``: B 128,
    source and target length 30, V 30000, E 512, H 512, its feed, Adam lr
    5e-4 clip 25, under ``use_bf16`` and ``bf16_activations``; the port's
@@ -96,10 +104,23 @@ Phases (any failure exits nonzero, without the final ``ok`` line):
    ms/step, target tokens/s (``bench.py``'s metric), host wall, peak
    memory;
 4r. a profile of 3 seq2seq steps;
+4t. the slice's main path at the blocked GRU tier: the same model, feed,
+   flags and optimizer at H 1024 (no ``bench.py`` row reaches the tier):
+   2 warm and 10 timed steps — finite losses, exactly 2 launches each
+   of kernels 15, 16 and 17 a step and no other kernel, every
+   ``rnn_dispatch_total`` decision ``fused_blocked``, ms/step, target
+   tokens/s, host wall, peak memory; then a profile of 3 steps;
+4v. fault C1 on the card: ``gru_sequence`` at (6, 10, 128) under the
+   bench flags takes the reference's bf16 scan (one decision, path scan,
+   the reference's reason, no kernel launched) and agrees with the same
+   call on the CPU (outputs within 1e-2, gradients within 1e-5 + 2e-2 *
+   max|ref|);
 4s. a small seq2seq net (B 8, S 6, T 5, V 50, E 16, H 128, source and
    target lengths varied) in fp32 on the card and on the CPU (plain
    versions), same parameters: loss and every gradient within 1e-4 of
-   the reference's (of max|ref| for a gradient);
+   the reference's (of max|ref| for a gradient), 2 launches each of
+   kernels 13 and 14; 4u the same at H 640, 2 launches each of kernels
+   15-17;
 5. each kernel at its main path's shapes: its time, its plain version's,
    one PyTorch yardstick call's where one computes the same function
    (SDPA for attention; ``torch.matmul`` for the blocked dW; none for
@@ -109,13 +130,15 @@ Phases (any failure exits nonzero, without the final ``ok`` line):
    in bf16) and the card's bound, printed as one ``{"kernels": [...]}``
    line with the launches of each path's timed run (serving continuous,
    serving sequential, training at H 512, training at H 1280, ResNet-50,
-   ResNet-50 without the forward fusion, resnet_cifar10, seq2seq);
-   kernels 13 and 14 at the seq2seq encoder's shape, no library call
-   (cuDNN's GRU applies the reset gate after the recurrent product).
+   ResNet-50 without the forward fusion, resnet_cifar10, seq2seq,
+   seq2seq at H 1024); kernels 13 and 14 at the seq2seq encoder's shape,
+   no library call (cuDNN's GRU applies the reset gate after the
+   recurrent product); kernels 15-17 at the H 1024 encoder's shape,
+   ``torch.matmul`` of the two dW products as 17's yardstick.
 
 Phases 3b-4f are PR 2's H 512 phases and run in fp32 (``use_bf16``
-off), so their readings stay comparable.  The order of the run: 1-3e,
-4-4k, 4l-4p, 4q-4s, 5.
+off), so their readings stay comparable.  The order of the run: 1-3f,
+4-4k, 4l-4p, 4q-4r, 4t, 4v, 4s, 4u, 5.
 
 Also printed, for information: a ``torch.profiler`` window over one
 continuous pass and one over 3 training steps (device time by kernel,
@@ -182,6 +205,11 @@ S2S_OPT = dict(learning_method="adam", learning_rate=5e-4,
                gradient_clipping_threshold=25.0)
 S2S_WARM, S2S_STEPS = 2, 10
 GRU_KERNELS = ("gru_fwd", "gru_bwd")
+# the slice's main path at the hidden-blocked GRU tier: the seq2seq row's
+# model, feed, optimizer and flags at H 1024 (no bench.py row reaches it)
+S2S_WIDE_H = 1024
+GRU_BLOCKED_KERNELS = ("gru_fwd_blocked", "gru_bwd_blocked",
+                       "gru_dw_blocked")
 # fused GRU kernels vs their plain versions (fp32): outputs within
 # GRU_ATOL, gradients within GRU_GRAD_ATOL + GRU_GRAD_RTOL * max|ref|
 # (the tolerances of tests/test_pallas_gru.py)
@@ -730,21 +758,37 @@ def lstm_case(b, t, h, lengths, seed, dev):
     return p, cot, torch.tensor(lengths, dtype=torch.int32, device=dev)
 
 
-def lstm_run(p, cot, lengths, reverse, plain):
+def rnn_route(kind, b, h):
+    """How a kernel check reaches the fused kernels at (b, h): through
+    ``lstm_sequence`` / ``gru_sequence`` where the reference's dispatch
+    rule sends the shape to them, else by calling the tier's fused entry
+    directly (the kernels still serve odd shapes)."""
+    from paddle_tpu_torch.ops import recurrent_ops as R
+    tier = R.dispatch_tier(b, h, 3 if kind == "gru" else 4)
+    if tier is not None:
+        return "sequence"
+    return "fused" if h <= 512 else "blocked"
+
+
+def lstm_run(p, cot, lengths, reverse, route):
     """(y, cells, final h, final c) and the gradient of every input under
-    sum(output * cotangent): through ``lstm_sequence`` (the fused kernels
-    on the card) or, when ``plain``, through the per-step scan."""
+    sum(output * cotangent): through ``lstm_sequence`` (``route``
+    "sequence": the fused kernels on the card), the fused entry called
+    directly ("fused", "blocked"), or the per-step scan ("scan")."""
     import torch
     from paddle_tpu_torch.core.sequence import SequenceBatch
+    from paddle_tpu_torch.ops import lstm as L
     from paddle_tpu_torch.ops import recurrent_ops as R
     q = {n: v.detach().clone().requires_grad_(True) for n, v in p.items()}
     seq = SequenceBatch(q["xw"], lengths)
-    if plain:
+    if route != "sequence":
+        fn = {"scan": R.lstm_scan, "fused": L.lstm_fused_sequence,
+              "blocked": L.lstm_fused_sequence_blocked}[route]
         xw, mask = q["xw"] + q["bias"], seq.mask()
         if reverse:
             xw, mask = torch.flip(xw, (1,)), torch.flip(mask, (1,))
-        y, cy, fh, fc = R.lstm_scan(xw, mask, q["w"], q["ci"], q["cf"],
-                                    q["co"], q["h0"], q["c0"])
+        y, cy, fh, fc = fn(xw, mask, q["w"], q["ci"], q["cf"], q["co"],
+                           q["h0"], q["c0"])
         if reverse:
             y, cy = torch.flip(y, (1,)), torch.flip(cy, (1,))
     else:
@@ -790,13 +834,15 @@ def phase_lstm_check(dev):
     errs = {"lstm_fwd": 0.0, "lstm_bwd": 0.0}
     for i, ((b, t, h), lengths, reverse) in enumerate(cases):
         p, cot, ln = lstm_case(b, t, h, lengths, 10 + i, dev)
-        got_o, got_g = lstm_run(p, cot, ln, reverse, plain=False)
-        want_o, want_g = lstm_run(p, cot, ln, reverse, plain=True)
+        route = rnn_route("lstm", b, h)
+        got_o, got_g = lstm_run(p, cot, ln, reverse, route)
+        want_o, want_g = lstm_run(p, cot, ln, reverse, "scan")
         sync(dev)
         e_out = max((g - w).abs().max().item()
                     for g, w in zip(got_o, want_o))
         e_grad, ratio = grad_errors(got_g, want_g)
-        log(f"  lstm B={b} T={t} H={h} reverse={reverse}: outputs max abs "
+        log(f"  lstm B={b} T={t} H={h} reverse={reverse} ({route}): "
+            f"outputs max abs "
             f"err {e_out:.3e}; gradients max abs err {e_grad:.3e} "
             f"({ratio:.3f} of tolerance)")
         if not e_out <= LSTM_ATOL:
@@ -1062,8 +1108,9 @@ def phase_blocked_check(dev):
     errs = dict.fromkeys(BLOCKED_KERNELS, 0.0)
     for i, ((b, t, h), lengths, reverse) in enumerate(cases):
         p, cot, ln = lstm_case(b, t, h, lengths, 20 + i, dev)
-        got_o, got_g = lstm_run(p, cot, ln, reverse, plain=False)
-        want_o, want_g = lstm_run(p, cot, ln, reverse, plain=True)
+        route = rnn_route("lstm", b, h)
+        got_o, got_g = lstm_run(p, cot, ln, reverse, route)
+        want_o, want_g = lstm_run(p, cot, ln, reverse, "scan")
         sync(dev)
         e_out = max((g - w).abs().max().item()
                     for g, w in zip(got_o, want_o))
@@ -1072,7 +1119,8 @@ def phase_blocked_check(dev):
         e_fwd, (e_bwd, r_bwd), (e_dw, r_dw) = blocked_kernel_errors(
             fwd, dy, dyc)
         sync(dev)
-        log(f"  blocked B={b} T={t} H={h} reverse={reverse}: vs the scan: "
+        log(f"  blocked B={b} T={t} H={h} reverse={reverse} ({route}): "
+            f"vs the scan: "
             f"outputs {e_out:.3e}, gradients {e_grad:.3e} ({ratio:.3f} of "
             f"tolerance); vs plain versions: fwd {e_fwd:.3e}, bwd "
             f"{e_bwd:.3e} ({r_bwd:.3f}), dW {e_dw:.3e} ({r_dw:.3f})")
@@ -1548,22 +1596,26 @@ def gru_case(b, t, h, lengths, seed, dev, xw_dtype=None, boot=True):
     return p, cot, torch.tensor(lengths, dtype=torch.int32, device=dev)
 
 
-def gru_run(p, cot, lengths, reverse, plain):
+def gru_run(p, cot, lengths, reverse, route):
     """(y, final h) and the gradient of every input under sum(output *
-    cotangent): through ``gru_sequence`` (kernels 13 and 14 on the card)
-    or, when ``plain``, through the per-step scan."""
+    cotangent): through ``gru_sequence`` (``route`` "sequence": the fused
+    kernels on the card), the fused entry called directly ("fused",
+    "blocked"), or the per-step scan ("scan")."""
     import torch
     from paddle_tpu_torch.core.sequence import SequenceBatch
+    from paddle_tpu_torch.ops import gru as G
     from paddle_tpu_torch.ops import recurrent_ops as R
     q = {n: v.detach().clone().requires_grad_(True) for n, v in p.items()}
     h = q["w"].shape[0]
     seq = SequenceBatch(q["xw"], lengths)
-    if plain:
+    if route != "sequence":
+        fn = {"scan": R.gru_scan, "fused": G.gru_fused_sequence,
+              "blocked": G.gru_fused_sequence_blocked}[route]
         xw, mask = q["xw"] + q["bias"], seq.mask()
         if reverse:
             xw, mask = torch.flip(xw, (1,)), torch.flip(mask, (1,))
-        y, fh = R.gru_scan(xw, mask, q["w"][:, :2 * h], q["w"][:, 2 * h:],
-                           q.get("h0"))
+        y, fh = fn(xw, mask, q["w"][:, :2 * h], q["w"][:, 2 * h:],
+                   q.get("h0"))
         if reverse:
             y = torch.flip(y, (1,))
     else:
@@ -1616,8 +1668,9 @@ def phase_gru_check(dev):
     errs = {"gru_fwd": 0.0, "gru_bwd": 0.0}
     for i, ((b, t, h), lengths, reverse, xdt, boot) in enumerate(cases):
         p, cot, ln = gru_case(b, t, h, lengths, 40 + i, dev, xdt, boot)
-        got_o, got_g = gru_run(p, cot, ln, reverse, plain=False)
-        want_o, want_g = gru_run(p, cot, ln, reverse, plain=True)
+        route = rnn_route("gru", b, h)
+        got_o, got_g = gru_run(p, cot, ln, reverse, route)
+        want_o, want_g = gru_run(p, cot, ln, reverse, "scan")
         sync(dev)
         e_out = max((g - w).abs().max().item()
                     for g, w in zip(got_o, want_o))
@@ -1626,7 +1679,7 @@ def phase_gru_check(dev):
         e_fwd, (e_bwd, r_bwd) = gru_kernel_errors(b, t, h, lengths, 60 + i,
                                                   dev)
         sync(dev)
-        log(f"  gru B={b} T={t} H={h} reverse={reverse} xw "
+        log(f"  gru B={b} T={t} H={h} reverse={reverse} ({route}) xw "
             f"{'bf16' if xdt else 'fp32'} h0={'yes' if boot else 'no'}: vs "
             f"the scan: outputs {e_out:.3e}, gradients {e_grad:.3e} "
             f"({ratio:.3f} of tolerance); vs plain versions: fwd "
@@ -1659,29 +1712,39 @@ def s2s_feed(b, s, t, v, dev, seed=0, lengths=None):
                                 ("target_next", ids[2], trg_len))}
 
 
-def phase_seq2seq(dev):
-    """Phase 4q: the seq2seq main path at bench.py's row under its flags:
-    warm steps, then the timed steps between CUDA events with every
-    launch count set to 0 just before them — finite losses, exactly 2
-    launches of each GRU kernel a step (the two encoder directions) and
-    no other kernel, ms/step, target tokens/s."""
+def phase_seq2seq(dev, hidden=S2S["H"], kernels=GRU_KERNELS):
+    """Phase 4q (4t at H 1024): the seq2seq main path at bench.py's row
+    under its flags: warm steps, then the timed steps between CUDA events
+    with every launch count and the RNN dispatch counter set to 0 just
+    before them — finite losses, exactly 2 launches of each of
+    ``kernels`` a step (the two encoder directions) and no other kernel,
+    no scan decision, ms/step, target tokens/s."""
     from paddle_tpu_torch.config.model_config import OptimizationConfig
     from paddle_tpu_torch.layers.network import NeuralNetwork
     from paddle_tpu_torch.models import seq2seq_config
+    from paddle_tpu_torch.ops import recurrent_ops as R
     from paddle_tpu_torch.trainer.trainer import Trainer
     b, steps = S2S["B"], S2S_STEPS
-    net = NeuralNetwork(seq2seq_config(S2S["V"], S2S["E"], S2S["H"]))
+    net = NeuralNetwork(seq2seq_config(S2S["V"], S2S["E"], hidden))
     trainer = Trainer(net, OptimizationConfig(**S2S_OPT), seed=0, device=dev)
     feed = s2s_feed(b, S2S["S"], S2S["T"], S2S["V"], dev)
     t0 = time.perf_counter()
     warm = [float(trainer.train_one_batch(feed)) for _ in range(S2S_WARM)]
     warm_s = time.perf_counter() - t0
+    R.rnn_dispatch_total.clear()
     launches, losses, ms, wall_ms, peak = timed_steps(trainer, feed, steps)
+    decisions = dict(R.rnn_dispatch_total)
     m = {"ms_per_step": ms, "target_tokens_per_s": b * S2S["T"] * 1e3 / ms,
          "host_wall_ms_per_step": wall_ms, "peak_mem_gb": peak,
-         "warm_s": warm_s, "warm_losses": warm, "losses": losses}
+         "warm_s": warm_s, "warm_losses": warm, "losses": losses,
+         "hidden": hidden,
+         "rnn_dispatch": {"/".join(k): v for k, v in decisions.items()}}
+    log(f"  rnn_dispatch_total over the timed steps: {decisions}")
+    if any(path == "scan" for _, path, _ in decisions) or \
+            sum(decisions.values()) != 2 * steps:
+        fail(f"the seq2seq encoder left the fused tier: {decisions}")
     log(f"  {steps} timed steps (B {b}, S {S2S['S']}, T {S2S['T']}, V "
-        f"{S2S['V']}, E {S2S['E']}, H {S2S['H']}; use_bf16 + "
+        f"{S2S['V']}, E {S2S['E']}, H {hidden}; use_bf16 + "
         f"bf16_activations): {ms:.3f} ms/step (CUDA events), "
         f"{m['target_tokens_per_s']:.1f} target tokens/s, host wall "
         f"{m['host_wall_ms_per_step']:.3f} ms/step, peak memory "
@@ -1692,23 +1755,24 @@ def phase_seq2seq(dev):
     if not all(np.isfinite(warm + losses)):
         fail("non-finite seq2seq training loss")
     for name, n in launches.items():
-        want = 2 * steps if name in GRU_KERNELS else 0
+        want = 2 * steps if name in kernels else 0
         if n != want:
             fail(f"{name}: {n} launches in {steps} seq2seq steps, expected "
                  f"{want}")
     return launches, m, trainer, feed
 
 
-def phase_seq2seq_small(dev):
-    """Phase 4s: a small seq2seq net in fp32 on the CPU (plain versions)
-    and on the card, same parameters, source and target lengths varied:
-    the loss within S2S_RTOL of the CPU's, every gradient within
-    S2S_RTOL * max|ref| + 1e-8."""
+def phase_seq2seq_small(dev, hidden=128):
+    """Phase 4s (4u at H 640): a small seq2seq net in fp32 on the CPU
+    (plain versions) and on the card, same parameters, source and target
+    lengths varied: the loss within S2S_RTOL of the CPU's, every gradient
+    within S2S_RTOL * max|ref| + 1e-8; the card's encoder launches its
+    GRU kernels."""
     import torch
     from paddle_tpu_torch.layers.network import NeuralNetwork
     from paddle_tpu_torch.models import seq2seq_config
     b, s, t, v = 8, 6, 5, 50
-    net = NeuralNetwork(seq2seq_config(v, 16, 128))
+    net = NeuralNetwork(seq2seq_config(v, 16, hidden))
     cpu_params = net.init_params(seed=0, device="cpu")
     lengths = (np.array([6, 1, 3, 6, 5, 2, 4, 6]),
                np.array([5, 5, 1, 3, 2, 5, 4, 1]))
@@ -1716,21 +1780,28 @@ def phase_seq2seq_small(dev):
     for where in ("cpu", dev):
         params = {n: p.to(where).requires_grad_(True)
                   for n, p in cpu_params.items()}
+        reset_counts()
         loss, _ = net.loss(params, s2s_feed(b, s, t, v, where, seed=1,
                                             lengths=lengths))
         grads = torch.autograd.grad(loss, list(params.values()))
         res[str(where)] = (float(loss.detach()),
                            {n: g.cpu() for n, g in zip(params, grads)})
+    launched = {k: n for k, n in read_counts().items() if n}
     (l_cpu, g_cpu), (l_dev, g_dev) = res["cpu"], res[str(dev)]
     ratio = max(((g_dev[n] - w).abs().max().item()
                  / (S2S_RTOL * w.abs().max().item() + 1e-8))
                 for n, w in g_cpu.items())
-    log(f"  card vs CPU plain path, B {b} S {s} T {t} V {v} E 16 H 128: "
-        f"loss {l_dev:.7f} vs {l_cpu:.7f}; gradients {ratio:.3f} of "
-        f"tolerance")
+    log(f"  card vs CPU plain path, B {b} S {s} T {t} V {v} E 16 H {hidden}"
+        f": loss {l_dev:.7f} vs {l_cpu:.7f}; gradients {ratio:.3f} of "
+        f"tolerance; the card's launches {launched}")
     if not np.isfinite(l_dev) or abs(l_dev - l_cpu) > S2S_RTOL * abs(l_cpu) \
             or ratio > 1.0:
         fail("card and CPU reference disagree on the seq2seq step")
+    want = GRU_BLOCKED_KERNELS if hidden > 512 else GRU_KERNELS
+    if sorted(launched) != sorted(want) or \
+            any(n != 2 for n in launched.values()):
+        fail(f"the small seq2seq step on the card launched {launched}, "
+             f"expected 2 each of {want}")
 
 
 def gru_work(b, t, h, n_valid, backward):
@@ -1795,6 +1866,206 @@ def phase_time_gru(dev, launches):
     return rows
 
 
+# ---------------------------------------------------- blocked GRU phases
+def gru_blocked_kernel_errors(b, t, h, lengths, seed, dev):
+    """Each wrapper of kernels 15-17 against its plain version on the
+    same CUDA tensors: (forward max abs error, (BPTT max abs error, ratio
+    to tolerance), (dW max abs error, ratio))."""
+    import torch
+    from paddle_tpu_torch.ops import gru as G
+    p, cot, ln = gru_case(b, t, h, lengths, seed, dev)
+    mask = (torch.arange(t, device=dev)[None, :] < ln[:, None]).float()
+    fwd = (p["xw"], mask, p["w"][:, :2 * h].contiguous(),
+           p["w"][:, 2 * h:].contiguous(), p["h0"])
+    got, want = G.gru_fwd_blocked(*fwd), G.gru_fwd_blocked_reference(*fwd)
+    e_fwd = max((a - r).abs().max().item() for a, r in zip(got, want))
+    hseq, gates = want
+    bwd = (gates, hseq, p["h0"], mask, fwd[2], fwd[3], cot[0])
+    got = G.gru_bwd_blocked(*bwd)
+    want = G.gru_bwd_blocked_reference(*bwd)
+    e_bwd = grad_errors(dict(enumerate(got)), dict(enumerate(want)),
+                        GRU_GRAD_ATOL, GRU_GRAD_RTOL)
+    dw_args = (hseq, p["h0"], want[2], want[0], mask)
+    e_dw = grad_errors(dict(enumerate(G.gru_dw_blocked(*dw_args))),
+                       dict(enumerate(G.gru_dw_blocked_reference(*dw_args))),
+                       GRU_GRAD_ATOL, GRU_GRAD_RTOL)
+    return e_fwd, e_bwd, e_dw
+
+
+def phase_gru_blocked_check(dev):
+    """Phase 3f: kernels 15-17 through their autograd.Function (by
+    ``gru_sequence`` where the reference's rule sends the shape to the
+    blocked tier, else ``gru_fused_sequence_blocked`` directly) against
+    autograd through the plain scan, and each wrapper against its plain
+    version, fp32: outputs within GRU_ATOL, every gradient within
+    GRU_GRAD_ATOL + GRU_GRAD_RTOL * max|ref| (and one bf16 ulp for a bf16
+    gradient)."""
+    import torch
+    b, t, h = S2S["B"], S2S["T"], S2S_WIDE_H
+    cases = [((b, t, h), [t] * b, False, None, True),
+             ((b, t, h), [t] * b, True, None, True),
+             ((8, 12, 640), [12, 0, 1, 12, 5, 1, 9, 3], True, None, True),
+             ((3, 5, 640), [5, 1, 3], False, None, False),        # B = 3
+             ((16, 7, 520), [7, 0, 1] + [1 + i % 7 for i in range(13)],
+              False, None, True),                                 # H % 128
+             ((b, 4, 2048), [4] * b, False, None, True),
+             ((8, 12, 640), [12, 1, 7, 12, 3, 1, 9, 12], False,
+              torch.bfloat16, True)]                              # bf16 xw
+    errs = dict.fromkeys(GRU_BLOCKED_KERNELS, 0.0)
+    for i, ((b, t, h), lengths, reverse, xdt, boot) in enumerate(cases):
+        p, cot, ln = gru_case(b, t, h, lengths, 80 + i, dev, xdt, boot)
+        route = rnn_route("gru", b, h)
+        got_o, got_g = gru_run(p, cot, ln, reverse, route)
+        want_o, want_g = gru_run(p, cot, ln, reverse, "scan")
+        sync(dev)
+        e_out = max((g - w).abs().max().item()
+                    for g, w in zip(got_o, want_o))
+        e_grad, ratio = grad_errors(got_g, want_g, GRU_GRAD_ATOL,
+                                    GRU_GRAD_RTOL)
+        e_fwd, (e_bwd, r_bwd), (e_dw, r_dw) = gru_blocked_kernel_errors(
+            b, t, h, lengths, 100 + i, dev)
+        sync(dev)
+        log(f"  gru blocked B={b} T={t} H={h} reverse={reverse} ({route}) "
+            f"xw {'bf16' if xdt else 'fp32'} h0={'yes' if boot else 'no'}: "
+            f"vs the scan: outputs {e_out:.3e}, gradients {e_grad:.3e} "
+            f"({ratio:.3f} of tolerance); vs plain versions: fwd "
+            f"{e_fwd:.3e}, bwd {e_bwd:.3e} ({r_bwd:.3f}), dW {e_dw:.3e} "
+            f"({r_dw:.3f})")
+        if not max(e_out, e_fwd) <= GRU_ATOL:
+            fail(f"gru_fwd_blocked disagrees at B={b} T={t} H={h}: "
+                 f"{max(e_out, e_fwd)} > {GRU_ATOL}")
+        if not max(ratio, r_bwd, r_dw) <= 1.0:
+            fail(f"gru_bwd_blocked / gru_dw_blocked disagree at B={b} T={t} "
+                 f"H={h}: {max(ratio, r_bwd, r_dw):.3f} of tolerance")
+        errs["gru_fwd_blocked"] = max(errs["gru_fwd_blocked"], e_out, e_fwd)
+        errs["gru_bwd_blocked"] = max(errs["gru_bwd_blocked"], e_bwd)
+        errs["gru_dw_blocked"] = max(errs["gru_dw_blocked"], e_dw)
+    return errs
+
+
+def phase_c1_card(dev):
+    """Phase 4v: fault C1 on the card.  ``gru_sequence`` at (6, 10, 128)
+    under bench.py's flags takes the reference's path, the bf16 scan (one
+    ``rnn_dispatch_total`` decision, path scan, the reference's reason;
+    no kernel launched), and agrees with the same call on the CPU:
+    outputs within 1e-2, gradients within 1e-5 + 2e-2 * max|ref| (the
+    bench-flag parity tolerances of tests/test_torch_gru.py; both sides
+    round to bf16 at the same places and sum in other orders)."""
+    import torch
+    from paddle_tpu_torch.ops import recurrent_ops as R
+    b, t, h = 6, 10, 128
+    lengths = [10, 9, 8, 7, 6, 5]
+    res = {}
+    for where in ("cpu", dev):
+        p, cot, ln = gru_case(b, t, h, lengths, 120, where)
+        R.rnn_dispatch_total.clear()
+        reset_counts()
+        res[str(where)] = gru_run(p, cot, ln, False, "sequence")
+        decisions = dict(R.rnn_dispatch_total)
+    launched = {k: n for k, n in read_counts().items() if n}
+    reason = R._fallback_reason(b, h)
+    (o_cpu, g_cpu), (o_dev, g_dev) = res["cpu"], res[str(dev)]
+    e_out = max((g.cpu().float() - w.float()).abs().max().item()
+                for g, w in zip(o_dev, o_cpu))
+    e_grad, ratio = grad_errors({n: g.cpu() for n, g in g_dev.items()},
+                                g_cpu, 1e-5, 2e-2)
+    log(f"  gru_sequence B={b} T={t} H={h} (use_bf16 + bf16_activations): "
+        f"decisions {decisions}, launches {launched}; card vs CPU: outputs "
+        f"{e_out:.3e}, gradients {e_grad:.3e} ({ratio:.3f} of tolerance)")
+    if decisions != {("gru", "scan", reason): 1} or launched:
+        fail(f"C1: gru_sequence at ({b}, {t}, {h}) did not take the "
+             f"reference's scan: {decisions}, launches {launched}")
+    if not (e_out <= 1e-2 and ratio <= 1.0):
+        fail("C1: the card's bf16 scan disagrees with the CPU's")
+    return {"decisions": {"/".join(k): v for k, v in decisions.items()},
+            "out_err": e_out, "grad_err": e_grad}
+
+
+def gru_blocked_work(name, b, t, h, n_valid):
+    """(bytes, flops) of one call of a blocked GRU kernel: each input read
+    once, each output written once; the products of the valid row-steps
+    (2 * n_valid * H * 3H flops each kernel)."""
+    seq, gates, state = b * t, b * t * 3 * h, b * t * h
+    w = 3 * h * h
+    n = {  # xw, mask, w_gates, w_cand, h0 -> H, gates
+        "gru_fwd_blocked": 2 * gates + seq + w + b * h + state,
+        # gates, H, h0, mask, w_gates, w_cand, dy -> dxw, dh0, rh
+        "gru_bwd_blocked": 2 * gates + 3 * state + seq + w + 2 * b * h,
+        # H, h0, rh, dxw, mask -> dW_gates, dW_cand
+        "gru_dw_blocked": 2 * state + b * h + gates + seq + w}[name]
+    return 4 * n, 2 * n_valid * h * 3 * h
+
+
+def phase_time_gru_blocked(dev, launches):
+    """Kernels 15-17 at the H 1024 main path's encoder shape (B 128, T 30,
+    every step valid, h0 zero), each against its plain version, then
+    timed with it; ``torch.matmul`` of the two dW products as kernel 17's
+    yardstick."""
+    import torch
+    from paddle_tpu_torch.ops import gru as G
+    b, t, h = S2S["B"], S2S["T"], S2S_WIDE_H
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def rnd(*shape, sc=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * sc
+    mask = torch.ones((b, t), device=dev)
+    fwd = (rnd(b, t, 3 * h, sc=0.5), mask, rnd(h, 2 * h, sc=h ** -0.5),
+           rnd(h, h, sc=h ** -0.5), torch.zeros((b, h), device=dev))
+    hseq, gates = G.gru_fwd_blocked(*fwd)
+    e_fwd = max((a - r).abs().max().item() for a, r in
+                zip((hseq, gates), G.gru_fwd_blocked_reference(*fwd)))
+    bwd = (gates, hseq, fwd[4], mask, fwd[2], fwd[3], rnd(b, t, h))
+    got = G.gru_bwd_blocked(*bwd)
+    e_bwd, r_bwd = grad_errors(
+        dict(enumerate(got)),
+        dict(enumerate(G.gru_bwd_blocked_reference(*bwd))),
+        GRU_GRAD_ATOL, GRU_GRAD_RTOL)
+    dxw, _, rh = got
+    dw_args = (hseq, fwd[4], rh, dxw, mask)
+    e_dw, r_dw = grad_errors(
+        dict(enumerate(G.gru_dw_blocked(*dw_args))),
+        dict(enumerate(G.gru_dw_blocked_reference(*dw_args))),
+        GRU_GRAD_ATOL, GRU_GRAD_RTOL)
+    if not (e_fwd <= GRU_ATOL and max(r_bwd, r_dw) <= 1.0):
+        fail(f"blocked GRU kernels disagree with their plain versions at "
+             f"the main shapes: forward {e_fwd}, BPTT {r_bwd:.3f}, dW "
+             f"{r_dw:.3f} of tolerance")
+    h_prev = torch.cat([fwd[4][:, None], hseq[:, :-1]], 1).reshape(-1, h)
+    d2 = dxw.reshape(-1, 3 * h)
+    dg, dc, rh2 = d2[:, :2 * h], d2[:, 2 * h:], rh.reshape(-1, h)
+
+    def library():
+        torch.matmul(h_prev.t(), dg)
+        torch.matmul(rh2.t(), dc)
+    rows = []
+    for name, fn, plain, args, err, line, lib in (
+            ("gru_fwd_blocked", G.gru_fwd_blocked,
+             G.gru_fwd_blocked_reference, fwd, e_fwd, 247, None),
+            ("gru_bwd_blocked", G.gru_bwd_blocked,
+             G.gru_bwd_blocked_reference, bwd, e_bwd, 334, None),
+            ("gru_dw_blocked", G.gru_dw_blocked, G.gru_dw_blocked_reference,
+             dw_args, e_dw, 448, library)):
+        ms = time_ms(lambda: fn(*args), reps=5, rounds=4)
+        plain_ms = time_ms(lambda: plain(*args), reps=2, rounds=2)
+        lib_ms = time_ms(lib, reps=5, rounds=4) if lib else None
+        b_ms, b_by = bound_ms(*gru_blocked_work(name, b, t, h, b * t))
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"paddle_tpu_torch/csrc/{name}.cu",
+                     "replaces": f"paddle_tpu/ops/pallas_gru.py:{line}",
+                     "launches": sum(launches[name].values()),
+                     "launches_by_path": launches[name],
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                     "shape": f"B {b}, T {t}, H {h}, all steps valid"})
+    for r in rows:
+        lib = "" if r["library_ms"] is None else \
+            f", torch.matmul {r['library_ms'] * 1e3:.2f} us"
+        log(f"  {r['name']}: {r['ms'] * 1e3:.2f} us (plain "
+            f"{r['plain_ms'] * 1e3:.2f} us{lib}, bound "
+            f"{r['bound_ms'] * 1e3:.3f} us by {r['bound_by']}); {r['shape']}")
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -1835,6 +2106,9 @@ def main() -> int:
         log("== phase 3e: fused GRU kernels 13-14 vs the plain scan and "
             "their plain versions (fp32)")
         phase_gru_check(dev)
+        log("== phase 3f: blocked GRU kernels 15-17 vs the plain scan and "
+            "their plain versions (fp32)")
+        phase_gru_blocked_check(dev)
         log("== phase 4: main path, full-width server")
         launches, serve, model, prompts = phase_serve(dev)
         log("== phase 4b: row invariance of the RMS mean")
@@ -1887,15 +2161,32 @@ def main() -> int:
         phase_profile_train(trainer, feed)
         del trainer, feed
         torch.cuda.empty_cache()
+        log(f"== phase 4t: seq2seq at H {S2S_WIDE_H} (the row's model, feed, "
+            "flags and optimizer): the blocked GRU tier")
+        wide_launches, seq2seq_wide, trainer, feed = phase_seq2seq(
+            dev, S2S_WIDE_H, GRU_BLOCKED_KERNELS)
+        for name in launches:
+            launches[name]["seq2seq_h1024"] = wide_launches[name]
+        log(f"  profile of 3 steps at H {S2S_WIDE_H}")
+        phase_profile_train(trainer, feed)
+        del trainer, feed
+        torch.cuda.empty_cache()
+        log("== phase 4v: C1 on the card: gru_sequence (6, 10, 128) under "
+            "bench.py's flags takes the reference's scan")
+        c1 = phase_c1_card(dev)
         set_flags(use_bf16=False, bf16_activations=False)
         log("== phase 4s: small seq2seq net, card vs CPU plain path (fp32)")
         phase_seq2seq_small(dev)
+        log("== phase 4u: small seq2seq net at H 640 (the blocked tier), "
+            "card vs CPU plain path (fp32)")
+        phase_seq2seq_small(dev, 640)
         log("== phase 5: kernel times at the main paths' shapes")
         rows = phase_time(dev, launches, serve) \
             + phase_time_lstm(dev, launches) \
             + phase_time_blocked(dev, launches) \
             + phase_time_conv(dev, launches) \
-            + phase_time_gru(dev, launches)
+            + phase_time_gru(dev, launches) \
+            + phase_time_gru_blocked(dev, launches)
     except SystemExit as e:
         print(e, file=sys.stderr)
         return 1
@@ -1908,6 +2199,7 @@ def main() -> int:
                       "training": train, "training_h1280": blocked,
                       "training_h1280_mixed_bf16": mixed,
                       "training_h2048": wide, **resnet, "seq2seq": seq2seq,
+                      "seq2seq_h1024": seq2seq_wide, "c1": c1,
                       "card": card}))
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -1,7 +1,7 @@
-// Shared pieces of the fused LSTM kernels: the single-block tier
-// (lstm_fwd.cu, lstm_bwd.cu) and the hidden-blocked tier
-// (lstm_fwd_blocked.cu, lstm_bwd_blocked.cu, lstm_dw_blocked.cu; see
-// the end of this file).
+// Shared pieces of the fused LSTM and GRU kernels: the single-block tier
+// (lstm_fwd.cu, lstm_bwd.cu, gru_fwd.cu, gru_bwd.cu) and the
+// hidden-blocked tier (lstm_{fwd,bwd,dw}_blocked.cu and
+// gru_{fwd,bwd,dw}_blocked.cu; see the end of this file).
 //
 // The single-block kernels are persistent cooperative launches: one CTA
 // per slice of U hidden units (U in {1, 2, 4}, a template constant), the
@@ -311,6 +311,21 @@ struct NtTile {
 // 20 sums a thread, 9 float4 shared loads per 80 FMAs; 32 sums, 12 / 128
 using Tile40 = NtTile<40, 4, 5>;
 using Tile64 = NtTile<64, 8, 4>;
+// The GRU's blocked kernels (gru_{fwd,bwd}_blocked.cu): a tile of U hidden
+// units sums 2U columns (the forward's u and r gates) or U columns (the
+// forward's candidate, both backward products), U in {8, 16}.
+template <int U>
+struct GruTile;
+template <>
+struct GruTile<8> {
+  using Gates = NtTile<16, 4, 4>;
+  using Units = NtTile<8, 4, 2>;
+};
+template <>
+struct GruTile<16> {
+  using Gates = NtTile<32, 4, 8>;
+  using Units = NtTile<16, 4, 4>;
+};
 
 // Stage rows [0, ROWS) of A and [0, COLS) of B, columns [k0, k0 + kKT)
 // of each, into dst ([ROWS + COLS, kTileStride]); past K reads as 0.  A
@@ -474,6 +489,159 @@ __device__ __forceinline__ int valid_tile_rows(const float* mask, int B,
   }
   __syncthreads();
   return n;
+}
+
+// The valid (b, t) rows of a [B, T] mask, for the blocked tiers' dW
+// products (lstm_dw_blocked.cu, gru_dw_blocked.cu), which skip the padded
+// rows: their dgates are exact zeros.  One CTA of kCompactThreads:
+// rows[0, n) = the indices r < R with mask[r] != 0, ascending; n into
+// rows[R].
+constexpr int kCompactThreads = 1024;
+__global__ void __launch_bounds__(kCompactThreads)
+    compact_rows_kernel(const float* __restrict__ mask, int R, int* rows) {
+  __shared__ int counts[kCompactThreads];
+  const int tid = threadIdx.x;
+  const int per = (R + kCompactThreads - 1) / kCompactThreads;
+  const int lo = min(R, tid * per), hi = min(R, lo + per);
+  int c = 0;
+  for (int r = lo; r < hi; ++r) c += mask[r] != 0.f;
+  counts[tid] = c;
+  __syncthreads();
+  for (int off = 1; off < kCompactThreads; off <<= 1) {  // inclusive scan
+    const int v = tid >= off ? counts[tid - off] : 0;
+    __syncthreads();
+    counts[tid] += v;
+    __syncthreads();
+  }
+  int pos = counts[tid] - c;
+  for (int r = lo; r < hi; ++r)
+    if (mask[r] != 0.f) rows[pos++] = r;
+  if (tid == kCompactThreads - 1) rows[R] = counts[tid];
+}
+
+// The blocked tiers' dW products (lstm_dw_blocked.cu, gru_dw_blocked.cu):
+// dW[k, c] = sum over the listed valid rows j of arow(j)[k] * brow(j)[c],
+// one CTA of kThreads per (kGK x kGC output tile, split of the row list).
+namespace dwb {
+constexpr int kGR = 32;                  // rows per streamed chunk
+constexpr int kGK = 128, kGC = 128;      // output tile: kGK x kGC
+constexpr int kGAS = kGK + 4, kGBS = kGC + 4;      // padded chunk rows
+constexpr int kGStage = kGR * (kGAS + kGBS);  // one A chunk + one B chunk
+constexpr long kSmemFloats = (long)kStages * kGStage;
+constexpr int kMaxSplit = 4;             // splits of the row list
+}  // namespace dwb
+
+// One tile of that product over split `split` of `n_split` of the n listed
+// rows: dW rows k0 .. k0 + kGK (k < K), columns col0 .. col0 + kGC (c <
+// C), written at dst[k * ldw + c].  The split's chunks of kGR rows stream
+// through a kStages-deep cp.async pipeline in gst (dwb::kSmemFloats
+// floats); thread (kb, cb) sums rows 4 kb .. + 3 and 64 + 4 kb .. + 3 by
+// columns 4 cb .. + 3 and 64 + 4 cb .. + 3 (4 float4 shared loads per 64
+// FMAs) over the split's rows in order, so the result has the same bits
+// on every run.
+template <class ARow, class BRow>
+__device__ __forceinline__ void dw_tile_blocked(ARow arow, BRow brow, int n,
+                                                int split, int n_split,
+                                                int K, int C, int k0,
+                                                int col0, float* dst,
+                                                long ldw, float* gst,
+                                                bool vec, const float* any) {
+  using dwb::kGR, dwb::kGK, dwb::kGC, dwb::kGAS, dwb::kGBS, dwb::kGStage;
+  const int tid = threadIdx.x;
+  const int nch = (n + kGR - 1) / kGR;
+  const int ch0 = (int)((long)nch * split / n_split);
+  const int ch1 = (int)((long)nch * (split + 1) / n_split);
+  const int kb = tid % 16, cb = tid / 16;
+  auto fetch_chunk = [&](int ch) {
+    float* st = gst + ((ch - ch0) % kStages) * kGStage;
+    const int j0 = ch * kGR;
+    auto a = [&](int r) -> const float* {
+      return j0 + r < n ? arow(j0 + r) : nullptr;
+    };
+    auto b = [&](int r) -> const float* {
+      return j0 + r < n ? brow(j0 + r) : nullptr;
+    };
+    stage(st, kGAS, a, kGR, kGK, k0, K, vec, any);
+    stage(st + kGR * kGAS, kGBS, b, kGR, kGC, col0, C, vec, any);
+  };
+  float acc[8][8] = {};
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (ch0 + s < ch1) fetch_chunk(ch0 + s);
+    cp_commit();
+  }
+  for (int ch = ch0; ch < ch1; ++ch) {
+    cp_wait<kStages - 2>();
+    __syncthreads();
+    if (ch + kStages - 1 < ch1) fetch_chunk(ch + kStages - 1);
+    cp_commit();
+    const float* ga = gst + ((ch - ch0) % kStages) * kGStage;
+    const float* gb = ga + kGR * kGAS;
+#pragma unroll 2
+    for (int r = 0; r < kGR; ++r) {
+      const float* ar = ga + r * kGAS;
+      const float* br = gb + r * kGBS;
+      const float4 a0 = *reinterpret_cast<const float4*>(ar + 4 * kb);
+      const float4 a1 = *reinterpret_cast<const float4*>(ar + 64 + 4 * kb);
+      const float4 v0 = *reinterpret_cast<const float4*>(br + 4 * cb);
+      const float4 v1 = *reinterpret_cast<const float4*>(br + 64 + 4 * cb);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[i][c] += av[i] * bv[c];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int k = k0 + (i < 4 ? 4 * kb + i : 64 + 4 * kb + i - 4);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int col = col0 + (c < 4 ? 4 * cb + c : 64 + 4 * cb + c - 4);
+      if (k < K && col < C) dst[(long)k * ldw + col] = acc[i][c];
+    }
+  }
+}
+
+// dw[i] = part[0][i] + part[1][i] + ... (split order).
+__global__ void reduce_splits_kernel(const float* __restrict__ part,
+                                     int n_split, long n, float* dw) {
+  for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (long)gridDim.x * blockDim.x) {
+    float s = part[i];
+    for (int k = 1; k < n_split; ++k) s += part[k * n + i];
+    dw[i] = s;
+  }
+}
+
+// Splits of the row list for n_tiles output tiles of `kernel` (kThreads
+// threads, dwb::kSmemFloats of shared memory) on the current card: the
+// fewest that minimise rounds of the co-resident CTAs per unit of work;
+// 0 on a CUDA error.
+template <typename K>
+__host__ inline int dw_blocked_splits(K kernel, long n_tiles) {
+  const size_t smem = (size_t)dwb::kSmemFloats * sizeof(float);
+  if (cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess)
+    return 0;
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                    kThreads, smem) !=
+          cudaSuccess)
+    return 0;
+  const long slots = (long)per_sm * sms;
+  if (slots < 1) return 1;
+  int best = 1;
+  for (int s = 2; s <= dwb::kMaxSplit; ++s)  // rounds / s < rounds_best / best
+    if ((n_tiles * s + slots - 1) / slots * best <
+        (n_tiles * best + slots - 1) / slots * s)
+      best = s;
+  return best;
 }
 
 // CTAs of `kernel` (kBThreads threads, smem_floats of shared memory) that

@@ -10,7 +10,29 @@ import torch
 from ..utils import PaddleTpuError
 
 
+class _Bf16Sigmoid(torch.autograd.Function):
+    """Sigmoid of a bf16 tensor with the reference's roundings.  XLA's CPU
+    backend lowers ``jax.nn.sigmoid`` (``lax.logistic``) of a bf16 array
+    to 1 / (1 + exp(-x)) with a bf16 rounding after each op, and JAX
+    differentiates it as g * (y * (1 - y)); ``torch.sigmoid`` rounds
+    once, which leaves a third of the values one bf16 ulp away and, over
+    a recurrence, bf16 scans up to 1.6e-2 apart."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = 1.0 / (1.0 + torch.exp(-x))
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        y, = ctx.saved_tensors
+        return g * (y * (1.0 - y))
+
+
 def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    if x.dtype == torch.bfloat16:
+        return _Bf16Sigmoid.apply(x)
     return torch.sigmoid(x)
 
 

@@ -1,38 +1,55 @@
 """Fused GRU sequence (counterpart of ``paddle_tpu/ops/pallas_gru.py``:
-its single-block tier).
+its single-block tier and its hidden-blocked tier).
 
 Hand-written CUDA C++ kernels for ``sm_90a``, each a whole time loop of
-one GRU direction in one persistent cooperative launch (the design of
-the LSTM's ``csrc/lstm_fwd.cu`` / ``lstm_bwd.cu``, sharing
-``csrc/lstm_common.cuh``):
+one GRU direction in one persistent cooperative launch, except the last
+(an ordinary product), sharing the pieces of the LSTM's kernels
+(``csrc/lstm_common.cuh``):
 
-- :func:`gru_fwd` (``csrc/gru_fwd.cu``, kernel 13; plain version
+- single-block tier, H <= 512 (``"fused"``): :func:`gru_fwd`
+  (``csrc/gru_fwd.cu``, kernel 13; plain version
   :func:`gru_fwd_reference`) writes the kept state sequence H and the
-  gate residue (u, r, c);
-- :func:`gru_bwd` (``csrc/gru_bwd.cu``, kernel 14; plain version
-  :func:`gru_bwd_reference`) gives dxw, dW_gates, dW_cand and dh0.
+  gate residue (u, r, c); :func:`gru_bwd` (``csrc/gru_bwd.cu``, kernel
+  14; plain version :func:`gru_bwd_reference`) gives dxw, dW_gates,
+  dW_cand and dh0;
+- hidden-blocked tier, 512 < H (``"fused_blocked"``):
+  :func:`gru_fwd_blocked` (``csrc/gru_fwd_blocked.cu``, kernel 15;
+  plain :func:`gru_fwd_blocked_reference`), :func:`gru_bwd_blocked`
+  (``csrc/gru_bwd_blocked.cu``, kernel 16; plain
+  :func:`gru_bwd_blocked_reference`: dxw, dh0 and r·h_prev, no dW) and
+  :func:`gru_dw_blocked` (``csrc/gru_dw_blocked.cu``, kernel 17; plain
+  :func:`gru_dw_blocked_reference`: dW_gates, dW_cand).  Forward and
+  backward walk tiles of 128 batch rows x U hidden units with a
+  persistent cooperative grid, two grid barriers a step; their products
+  take only the rows valid at each step (a padded step keeps h, its
+  residue is written as 0 and its dxw is exact zeros), and so does the
+  dW product.
 
 Gate layout (u, r, c), w_gates ``[H, 2H]`` (u | r), w_cand ``[H, H]``;
 the reset gate applies before the candidate product: c = tanh(x_c +
 (r·h) @ w_cand), h' = u·h + (1−u)·c, and a padded step keeps h.
 
-:class:`_GruCore` (``torch.autograd.Function``) launches the forward
-kernel in its forward and the backward kernel in its backward, as
-``pallas_gru._gru_core`` does with its custom VJP;
-:func:`gru_fused_sequence` is the public function.  The hidden-blocked
-tier (kernels 15–17, 512 < H) is not ported: on a CUDA tensor such a
-shape raises; CPU tensors take the plain versions at any H.
+:class:`_GruCore` and :class:`_GruCoreBlocked` (``torch.autograd.
+Function``) launch the forward kernel in their forward and the backward
+kernel(s) in their backward, as ``pallas_gru._gru_core`` /
+``_gru_core_blocked`` do with their custom VJPs;
+:func:`gru_fused_sequence` and :func:`gru_fused_sequence_blocked` are
+the public functions.
 
 Layouts are batch-major throughout (xw / gates / dxw ``[B, T, 3H]``,
-states ``[B, T, H]``, mask ``[B, T]``), so no time-major copy is made.
-A wrapper checks dtype (fp32 only), shape and contiguity first.  CPU
+states ``[B, T, H]``, mask ``[B, T]``), so no time-major copy is made
+and the JAX tier's block-gate permutation is not carried over.  A
+wrapper checks dtype (fp32 only), shape and contiguity first.  CPU
 tensors then take the plain version; CUDA tensors launch the kernel or
-raise.  Each wrapper counts its launches in ``.launches``.
+raise — a shape the kernel's tier does not serve (:func:`fused_tier`)
+raises too, never falls back.  Each wrapper counts its launches in
+``.launches``.
 
-Precision: the kernels compute in fp32, whatever the policy.
-:func:`gru_fused_sequence` casts xw to fp32 before the kernel (a bf16
-xw converts exactly), so autograd returns dxw in xw's dtype, as
-``_gru_core_bwd`` casts dxw to xw's dtype (``pallas_gru.py:213``).
+Precision: the kernels compute in fp32, whatever the policy.  The
+public functions cast xw to fp32 before the kernels (a bf16 xw converts
+exactly), so autograd returns dxw in xw's dtype, as ``_gru_core_bwd``
+and ``_gru_core_blocked_bwd`` cast dxw to xw's dtype
+(``pallas_gru.py:213,524``).
 """
 
 from __future__ import annotations
@@ -42,18 +59,25 @@ from typing import Optional, Tuple
 import torch
 
 from ..utils import FLAGS, PaddleTpuError, enforce
+from . import _build
 from .lstm import SM_COUNT, SMEM_BYTES, _check, _launch, _on_card, _shifted
 
-#: Hidden units per CTA (its 2U gate and U candidate columns feed the
-#: register-blocked products of ``csrc/lstm_common.cuh``, which take a
-#: multiple of 4 columns).
+#: Hidden units per CTA of the single-block kernels (its 2U gate and U
+#: candidate columns feed the register-blocked products of
+#: ``csrc/lstm_common.cuh``, which take a multiple of 4 columns).
 UNITS = 4
 #: Largest H the single-block kernels take; above it, the blocked tier
-#: (kernels 15-17, not ported).
+#: (kernels 15-17).
 MAX_HIDDEN = 512
+#: Largest H of the blocked tier: the kernels count a row-step's 3H gate
+#: columns and w_hh's 3H^2 elements in 32-bit ints.
+MAX_BLOCKED_HIDDEN = 26754
 # shared-memory pieces of csrc/lstm_common.cuh, in floats: three staged
 # [128, 68] tiles and the k-group partial sums
 _TILE_FLOATS, _RED_FLOATS = 3 * 128 * 68, 8 * 128 * 4
+# blocked tier: 3 staging buffers of (128 rows + at most 32 columns) x 68
+# floats (forward and backward tiles, GruTile<16>), dW 3 x 32 x (132 + 132)
+_BLOCKED_FLOATS = (3 * 160 * 68, 3 * 32 * 264)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -75,17 +99,24 @@ def fused_tier(b: int, h: int, sms: int = SM_COUNT) -> Optional[str]:
 
     - ``"fused"``: 1 <= h <= 512, a grid of ceil(h / 4) CTAs at most one
       per SM, both kernels' shared memory within one block's limit;
-    - ``"fused_blocked"``: 512 < h under ``--fused_rnn_hblock`` (default
-      on) — the JAX package's hidden-blocked tier, kernels 15-17, which
-      the port has not written yet (its wrappers raise on CUDA);
-    - ``None`` otherwise.  No tiling gate."""
+    - ``"fused_blocked"``: 512 < h <= MAX_BLOCKED_HIDDEN under
+      ``--fused_rnn_hblock`` (default on).  The blocked kernels stride
+      over their tiles with as many CTAs as are co-resident, so any B
+      and any SM count serve; each kernel's shared memory (at most
+      131 KB) is within one block's limit;
+    - ``None`` otherwise.  No tiling gate in either tier: which shapes
+      reach the kernels from ``gru_sequence`` is the reference's rule
+      (``recurrent_ops.dispatch_tier``)."""
     if b < 1 or h < 1:
         return None
     if h <= MAX_HIDDEN:
         if -(-h // UNITS) > sms or max(smem_bytes(b, h)) > SMEM_BYTES:
             return None
         return "fused"
-    return "fused_blocked" if FLAGS.get("fused_rnn_hblock") else None
+    if not FLAGS.get("fused_rnn_hblock") or h > MAX_BLOCKED_HIDDEN \
+            or sms < 1 or 4 * max(_BLOCKED_FLOATS) > SMEM_BYTES:
+        return None
+    return "fused_blocked"
 
 
 # ------------------------------------------------------------ plain versions
@@ -111,12 +142,22 @@ def gru_fwd_reference(xw, mask, w_gates, w_cand, h0
     return torch.stack(hs, 1), torch.stack(gs, 1)
 
 
-def gru_bwd_reference(gates, hseq, h0, mask, w_gates, w_cand, dy):
-    """Plain version of :func:`gru_bwd`: the reversed step loop of
-    ``pallas_gru._bwd_kernel``; dy joins the carry before the masked
-    split.  The weight gradients are one summed product each over all
-    (b, t) after the loop (a padded step's dgates are exact zeros) →
-    (dxw, dw_gates, dw_cand, dh0)."""
+def gru_fwd_blocked_reference(xw, mask, w_gates, w_cand, h0
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`gru_fwd_blocked`: :func:`gru_fwd_reference`
+    with the residue (u, r, c) of padded steps written as 0 (the kernel
+    skips their products; the backward's masked split never reads them).
+    At valid steps H and the residue are ``pallas_gru._fwd_call_blocked``'s,
+    in the batch-major (u | r | c) layout."""
+    hseq, gates = gru_fwd_reference(xw, mask, w_gates, w_cand, h0)
+    return hseq, gates * (mask != 0).to(gates.dtype)[..., None]
+
+
+def gru_bwd_blocked_reference(gates, hseq, h0, mask, w_gates, w_cand, dy):
+    """Plain version of :func:`gru_bwd_blocked`: the reversed step loop of
+    ``pallas_gru._bwd_kernel_blocked``; dy joins the carry before the
+    masked split → (dxw ``[B, T, 3H]`` = du_pre | dr_pre | dc_pre, dh0,
+    rh ``[B, T, H]`` = r·h_prev, which dW_cand takes)."""
     b, t, hd3 = gates.shape
     hd = hd3 // 3
     h_prev_seq = _shifted(hseq, h0)
@@ -137,11 +178,32 @@ def gru_bwd_reference(gates, hseq, h0, mask, w_gates, w_cand, dy):
         dh_prev = dh_new * u + drh * r + dg @ w_gates.t()
         dh_c = (1.0 - m) * dh_tot + dh_prev
         dxw[:, s] = torch.cat([dg, dc_pre], dim=-1)
-    rows = h_prev_seq.reshape(-1, hd)
-    r_all = gates[..., hd:2 * hd].reshape(-1, hd)
-    dxw2 = dxw.reshape(-1, 3 * hd)
-    return (dxw, rows.t() @ dxw2[:, :2 * hd],
-            (r_all * rows).t() @ dxw2[:, 2 * hd:], dh_c)
+    return dxw, dh_c, gates[..., hd:2 * hd] * h_prev_seq
+
+
+def gru_dw_blocked_reference(hseq, h0, rh, dxw, mask
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`gru_dw_blocked`: dW_gates = sum over the
+    valid (b, t) of h_{t-1}[b]^T dg_t[b] and dW_cand = sum of
+    rh_t[b]^T dc_pre_t[b], one summed product each (the rows of
+    ``pallas_gru._dw_kernel_blocked``'s T loop)."""
+    hd = h0.shape[-1]
+    keep = (mask != 0).to(hseq.dtype)[..., None]
+    h_prev = (_shifted(hseq, h0) * keep).reshape(-1, hd)
+    d = dxw.reshape(-1, 3 * hd)
+    return (h_prev.t() @ d[:, :2 * hd],
+            (rh * keep).reshape(-1, hd).t() @ d[:, 2 * hd:])
+
+
+def gru_bwd_reference(gates, hseq, h0, mask, w_gates, w_cand, dy):
+    """Plain version of :func:`gru_bwd`: the reversed step loop of
+    ``pallas_gru._bwd_kernel``; dy joins the carry before the masked
+    split.  The weight gradients are one summed product each over the
+    valid (b, t) after the loop (a padded step's dgates are exact zeros)
+    → (dxw, dw_gates, dw_cand, dh0)."""
+    dxw, dh0, rh = gru_bwd_blocked_reference(gates, hseq, h0, mask,
+                                             w_gates, w_cand, dy)
+    return (dxw, *gru_dw_blocked_reference(hseq, h0, rh, dxw, mask), dh0)
 
 
 # ------------------------------------------------------------------ wrappers
@@ -154,22 +216,39 @@ def _check_gates(name: str, x) -> Tuple[int, int, int]:
     return b, t, hd3 // 3
 
 
-def _tier_on_card(b: int, h: int, dev: torch.device) -> None:
-    """Raise unless the single-block kernels serve (b, h) on ``dev``."""
+def _tier_on_card(b: int, h: int, dev: torch.device, want: str) -> None:
+    """Raise unless ``fused_tier`` gives ``want`` for (b, h) on ``dev``."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count \
         if dev.type == "cuda" else SM_COUNT
-    tier = fused_tier(b, h, sms)
-    if tier == "fused_blocked":
+    if fused_tier(b, h, sms) != want:
         raise PaddleTpuError(
-            f"GRU hidden={h} > {MAX_HIDDEN} needs the hidden-blocked tier "
-            "(kernels 15-17: pallas_gru._fwd_kernel_blocked, "
-            "_bwd_kernel_blocked, _dw_kernel_blocked), which is not yet "
-            "ported; set --fused_rnn_hblock=false for the per-step scan")
-    if tier != "fused":
-        raise PaddleTpuError(
-            f"the fused GRU kernels do not serve batch={b} hidden={h} "
-            f"(hidden <= {MAX_HIDDEN}, ceil(hidden / {UNITS}) <= {sms} "
-            f"CTAs, shared memory <= {SMEM_BYTES} B)")
+            f"the {want!r} GRU kernels do not serve batch={b} hidden={h} "
+            f"(fused: hidden <= {MAX_HIDDEN}, ceil(hidden / {UNITS}) <= "
+            f"{sms} CTAs, shared memory <= {SMEM_BYTES} B; fused_blocked: "
+            f"{MAX_HIDDEN} < hidden <= {MAX_BLOCKED_HIDDEN} with "
+            "--fused_rnn_hblock on)")
+
+
+def _check_fwd(xw, mask, w_gates, w_cand, h0) -> Tuple[int, int, int]:
+    b, t, hd = _check_gates("xw", xw)
+    for name, x, shape in (("xw", xw, (b, t, 3 * hd)), ("mask", mask, (b, t)),
+                           ("w_gates", w_gates, (hd, 2 * hd)),
+                           ("w_cand", w_cand, (hd, hd)), ("h0", h0, (b, hd))):
+        _check(name, x, shape)
+    return b, t, hd
+
+
+def _check_bwd(gates, hseq, h0, mask, w_gates, w_cand, dy
+               ) -> Tuple[int, int, int]:
+    b, t, hd = _check_gates("gates", gates)
+    for name, x, shape in (("gates", gates, (b, t, 3 * hd)),
+                           ("hseq", hseq, (b, t, hd)), ("h0", h0, (b, hd)),
+                           ("mask", mask, (b, t)),
+                           ("w_gates", w_gates, (hd, 2 * hd)),
+                           ("w_cand", w_cand, (hd, hd)),
+                           ("dy", dy, (b, t, hd))):
+        _check(name, x, shape)
+    return b, t, hd
 
 
 def gru_fwd(xw, mask, w_gates, w_cand, h0
@@ -178,15 +257,11 @@ def gru_fwd(xw, mask, w_gates, w_cand, h0
     and bias applied), mask ``[B, T]`` float, w_gates ``[H, 2H]``,
     w_cand ``[H, H]``, h0 ``[B, H]`` → (H ``[B, T, H]`` kept states,
     gates ``[B, T, 3H]`` = u, r, c)."""
-    b, t, hd = _check_gates("xw", xw)
-    for name, x, shape in (("xw", xw, (b, t, 3 * hd)), ("mask", mask, (b, t)),
-                           ("w_gates", w_gates, (hd, 2 * hd)),
-                           ("w_cand", w_cand, (hd, hd)), ("h0", h0, (b, hd))):
-        _check(name, x, shape)
+    b, t, hd = _check_fwd(xw, mask, w_gates, w_cand, h0)
     args = (xw, mask, w_gates, w_cand, h0)
     if not _on_card(args):
         return gru_fwd_reference(*args)
-    _tier_on_card(b, hd, xw.device)
+    _tier_on_card(b, hd, xw.device, "fused")
     hseq = torch.empty((b, t, hd), dtype=torch.float32, device=xw.device)
     gates = torch.empty_like(xw)
     if xw.numel() == 0:
@@ -206,18 +281,11 @@ def gru_bwd(gates, hseq, h0, mask, w_gates, w_cand, dy):
     3H]``, H ``[B, T, H]``, h0, mask, w_gates, w_cand as in
     :func:`gru_fwd`, dy ``[B, T, H]`` the cotangent on H → (dxw ``[B,
     T, 3H]``, dw_gates ``[H, 2H]``, dw_cand ``[H, H]``, dh0 ``[B, H]``)."""
-    b, t, hd = _check_gates("gates", gates)
-    for name, x, shape in (("gates", gates, (b, t, 3 * hd)),
-                           ("hseq", hseq, (b, t, hd)), ("h0", h0, (b, hd)),
-                           ("mask", mask, (b, t)),
-                           ("w_gates", w_gates, (hd, 2 * hd)),
-                           ("w_cand", w_cand, (hd, hd)),
-                           ("dy", dy, (b, t, hd))):
-        _check(name, x, shape)
+    b, t, hd = _check_bwd(gates, hseq, h0, mask, w_gates, w_cand, dy)
     args = (gates, hseq, h0, mask, w_gates, w_cand, dy)
     if not _on_card(args):
         return gru_bwd_reference(*args)
-    _tier_on_card(b, hd, gates.device)
+    _tier_on_card(b, hd, gates.device, "fused")
     dxw = torch.empty_like(gates)
     dwg = torch.empty_like(w_gates)
     dwc = torch.empty_like(w_cand)
@@ -234,8 +302,106 @@ def gru_bwd(gates, hseq, h0, mask, w_gates, w_cand, dy):
 
 gru_bwd.launches = 0
 
+
+def gru_fwd_blocked(xw, mask, w_gates, w_cand, h0
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Blocked-tier forward (kernel 15), the contract of :func:`gru_fwd`
+    except that the residue of padded steps is 0; its plain version is
+    :func:`gru_fwd_blocked_reference`."""
+    b, t, hd = _check_fwd(xw, mask, w_gates, w_cand, h0)
+    args = (xw, mask, w_gates, w_cand, h0)
+    if not _on_card(args):
+        return gru_fwd_blocked_reference(*args)
+    _tier_on_card(b, hd, xw.device, "fused_blocked")
+    enforce(b * t < 2 ** 31, "the blocked GRU kernels count B*T in int32")
+    hseq = torch.empty((b, t, hd), dtype=torch.float32, device=xw.device)
+    gates = torch.empty_like(xw)
+    if xw.numel() == 0:
+        return hseq, gates
+    # the kernel reads the weights' columns as rows of their transposes
+    wg_t, wc_t = w_gates.t().contiguous(), w_cand.t().contiguous()
+    rh = torch.empty_like(h0)          # r * h_prev of the step
+    _launch("gru_fwd_blocked",
+            [x.data_ptr() for x in (xw, mask, wg_t, wc_t, h0, hseq, gates,
+                                    rh)], (b, t, hd), xw.device)
+    gru_fwd_blocked.launches += 1
+    return hseq, gates
+
+
+gru_fwd_blocked.launches = 0
+
+
+def gru_bwd_blocked(gates, hseq, h0, mask, w_gates, w_cand, dy
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Blocked-tier BPTT without dW (kernel 16): the inputs of
+    :func:`gru_bwd` → (dxw ``[B, T, 3H]``, dh0 ``[B, H]``, rh ``[B, T,
+    H]`` = r·h_prev of every step, for :func:`gru_dw_blocked`)."""
+    b, t, hd = _check_bwd(gates, hseq, h0, mask, w_gates, w_cand, dy)
+    args = (gates, hseq, h0, mask, w_gates, w_cand, dy)
+    if not _on_card(args):
+        return gru_bwd_blocked_reference(*args)
+    _tier_on_card(b, hd, gates.device, "fused_blocked")
+    enforce(b * t < 2 ** 31, "the blocked GRU kernels count B*T in int32")
+    dxw = torch.empty_like(gates)
+    dh0 = torch.empty_like(h0)
+    rh = torch.empty_like(hseq)
+    if gates.numel() == 0:
+        return dxw, dh0.zero_(), rh
+    # per-(row, unit) scratch: the local share of the carry, drh * r
+    dhl, drr = torch.empty_like(h0), torch.empty_like(h0)
+    _launch("gru_bwd_blocked",
+            [x.data_ptr() for x in args + (dxw, dh0, rh, dhl, drr)],
+            (b, t, hd), gates.device)
+    gru_bwd_blocked.launches += 1
+    return dxw, dh0, rh
+
+
+gru_bwd_blocked.launches = 0
+
+
+def gru_dw_blocked(hseq, h0, rh, dxw, mask
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Blocked-tier weight gradients (kernel 17): H ``[B, T, H]``, h0
+    ``[B, H]``, rh ``[B, T, H]``, dxw ``[B, T, 3H]`` and mask ``[B, T]``
+    → (dW_gates ``[H, 2H]`` = sum over the valid (b, t) of h_{t-1}^T dg,
+    dW_cand ``[H, H]`` = sum of rh^T dc_pre).  The backward writes exact
+    zeros into dxw at padded steps, so this is the sum over all (b, t)
+    there; the kernel skips those rows."""
+    b, t, hd = _check_gates("dxw", dxw)
+    for name, x, shape in (("hseq", hseq, (b, t, hd)), ("h0", h0, (b, hd)),
+                           ("rh", rh, (b, t, hd)),
+                           ("dxw", dxw, (b, t, 3 * hd)),
+                           ("mask", mask, (b, t))):
+        _check(name, x, shape)
+    args = (hseq, h0, rh, dxw, mask)
+    if not _on_card(args):
+        return gru_dw_blocked_reference(*args)
+    _tier_on_card(b, hd, dxw.device, "fused_blocked")
+    enforce(b * t < 2 ** 31, "the blocked GRU kernels count B*T in int32")
+    # both gradients in one buffer: dW_gates [H, 2H], then dW_cand [H, H]
+    dw = torch.empty(3 * hd * hd, dtype=torch.float32, device=dxw.device)
+    dwg, dwc = dw[:2 * hd * hd].view(hd, 2 * hd), dw[2 * hd * hd:].view(hd, hd)
+    if dxw.numel() == 0:
+        return dwg.zero_(), dwc.zero_()
+    # the valid rows' list (and its length), and one [H, 3H] sum per split
+    # of that list when the kernel splits it
+    n_split = _build.kernel("gru_dw_blocked_splits")(b, t, hd)
+    enforce(n_split > 0, "gru_dw_blocked: the occupancy query failed")
+    rows = torch.empty(b * t + 1, dtype=torch.int32, device=dxw.device)
+    part = torch.empty((n_split if n_split > 1 else 0) * 3 * hd * hd,
+                       dtype=torch.float32, device=dxw.device)
+    _launch("gru_dw_blocked",
+            [x.data_ptr() for x in args + (rows, part, dw)],
+            (b, t, hd, n_split), dxw.device)
+    gru_dw_blocked.launches += 1
+    return dwg, dwc
+
+
+gru_dw_blocked.launches = 0
+
 #: Every kernel wrapper of this module (for counters and reports).
-KERNEL_WRAPPERS = (gru_fwd, gru_bwd)
+KERNEL_WRAPPERS = (gru_fwd, gru_bwd, gru_fwd_blocked, gru_bwd_blocked,
+                   gru_dw_blocked)
 
 
 def reset_launch_counts() -> None:
@@ -263,17 +429,48 @@ class _GruCore(torch.autograd.Function):
         return dxw, None, dwg, dwc, dh0
 
 
+class _GruCoreBlocked(torch.autograd.Function):
+    """The blocked tier's core, the contract of :class:`_GruCore`: the
+    forward launches kernel 15; the backward launches kernel 16 (dxw,
+    dh0 and r·h_prev), then kernel 17 (dW_gates, dW_cand), as
+    ``pallas_gru._gru_core_blocked`` does."""
+
+    @staticmethod
+    def forward(ctx, xw, mask, w_gates, w_cand, h0):
+        hseq, gates = gru_fwd_blocked(xw, mask, w_gates, w_cand, h0)
+        ctx.save_for_backward(gates, hseq, h0, mask, w_gates, w_cand)
+        return hseq
+
+    @staticmethod
+    def backward(ctx, dh):
+        gates, hseq, h0, mask, w_gates, w_cand = ctx.saved_tensors
+        dxw, dh0, rh = gru_bwd_blocked(gates, hseq, h0, mask, w_gates,
+                                       w_cand, dh.contiguous())
+        dwg, dwc = gru_dw_blocked(hseq, h0, rh, dxw, mask)
+        return dxw, None, dwg, dwc, dh0
+
+
+def _fused_sequence(core, xw, mask, w_gates, w_cand, h0):
+    b, _, hd3 = xw.shape
+    f32 = torch.float32
+    h0 = torch.zeros((b, hd3 // 3), dtype=f32, device=xw.device) \
+        if h0 is None else h0.to(f32)
+    m = mask.to(f32)
+    hseq = core.apply(xw.to(f32), m, w_gates.to(f32).contiguous(),
+                      w_cand.to(f32).contiguous(), h0.contiguous())
+    return hseq * m[..., None], hseq[:, -1]
+
+
 def gru_fused_sequence(xw, mask, w_gates, w_cand, h0):
     """Batch-major contract of ``pallas_gru.gru_fused_sequence``: xw
     ``[B, T, 3H]`` pre-projected (+ bias), mask ``[B, T]``; returns (y
     ``[B, T, H]`` masked hidden outputs, final_h ``[B, H]`` the kept
     state after the last step) in fp32, whatever the inputs' float dtype
     (callers cast per their policy).  ``h0`` defaults to zeros."""
-    b, _, hd3 = xw.shape
-    f32 = torch.float32
-    h0 = torch.zeros((b, hd3 // 3), dtype=f32, device=xw.device) \
-        if h0 is None else h0.to(f32)
-    m = mask.to(f32)
-    hseq = _GruCore.apply(xw.to(f32), m, w_gates.to(f32).contiguous(),
-                          w_cand.to(f32).contiguous(), h0.contiguous())
-    return hseq * m[..., None], hseq[:, -1]
+    return _fused_sequence(_GruCore, xw, mask, w_gates, w_cand, h0)
+
+
+def gru_fused_sequence_blocked(xw, mask, w_gates, w_cand, h0):
+    """The blocked tier's entry, the contract of
+    :func:`gru_fused_sequence` (``pallas_gru.gru_fused_sequence_blocked``)."""
+    return _fused_sequence(_GruCoreBlocked, xw, mask, w_gates, w_cand, h0)

@@ -3,12 +3,19 @@
 
 The input projection for all timesteps is one product outside the time
 loop; the recurrence runs either in fused kernels (default activations:
-:mod:`paddle_tpu_torch.ops.lstm`, its single-block tier for H <= 512
-and its hidden-blocked tier above; :mod:`paddle_tpu_torch.ops.gru`) or
-in a per-step loop, :func:`lstm_scan` / :func:`gru_scan` (other
-activations, or ``--fused_rnn_hblock=false`` for H > 512).  Padding
+:mod:`paddle_tpu_torch.ops.lstm`, :mod:`paddle_tpu_torch.ops.gru`, each
+with a single-block tier for H <= 512 and a hidden-blocked tier above)
+or in a per-step loop, :func:`lstm_scan` / :func:`gru_scan`.  Padding
 keeps the state unchanged through masked steps.  Peephole ("check")
 weights follow the reference LSTM; the GRU's gate layout is (u, r, c).
+
+Which shapes take the fused kernels is the reference's rule
+(:func:`dispatch_tier`, a copy of ``pallas_lstm.fused_tier``): B % 8 == 0,
+H % 128 == 0, and above H = 512 the blocked tier's gate.  Every other
+shape, and every non-default activation, takes the scan, on the card as
+on the CPU, as the reference takes its ``lax.scan``.  Each decision is
+counted in :data:`rnn_dispatch_total` with the reference's labels, and a
+default-activation shape sent to the scan logs a one-time warning.
 
 Precision, as in the JAX package: the input projection and the gate
 bias are in the policy compute dtype; the fused kernels compute in fp32
@@ -18,6 +25,7 @@ output dtype.  The scan carries its state in the output dtype.
 
 from __future__ import annotations
 
+import collections
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -25,11 +33,98 @@ import torch
 from ..core.dtypes import current_policy
 from ..core.sequence import SequenceBatch
 from ..utils import FLAGS
+from ..utils.logger import get_logger, warn_once
 from . import gru
 from .activations import get_activation
-from .lstm import (MAX_HIDDEN, lstm_fused_sequence,
-                   lstm_fused_sequence_blocked)
+from .lstm import lstm_fused_sequence, lstm_fused_sequence_blocked
 from .math_ops import matmul
+
+_log = get_logger("ops.recurrent")
+
+# ------------------------------------------------------------- dispatch
+# The reference's rule (paddle_tpu/ops/pallas_lstm.py:48-110): which
+# function is computed at which shape.  Its numbers describe the TPU
+# kernels' VMEM, not Hopper's memory; they stay as they are so that both
+# packages send every shape the same way.  Which Hopper kernels can serve
+# a shape is ``lstm.fused_tier`` / ``gru.fused_tier``: where this rule
+# says fused and they cannot, the kernel wrappers raise on CUDA.
+
+#: Hidden-block width of the reference's blocked tier.
+HBLOCK = 128
+#: The reference's budget for its blocked kernels' VMEM residents.
+_BLOCKED_VMEM_CAP = 14 * 1024 * 1024
+
+
+def _blocked_vmem_bytes(b: int, h: int, n_gates: int) -> int:
+    """The reference's estimate of its blocked kernels' VMEM residents,
+    in bytes: five [B, H] f32 state scratches and the double-buffered
+    [H, n_gates * HBLOCK] f32 weight column block."""
+    return 5 * b * h * 4 + 2 * h * n_gates * HBLOCK * 4
+
+
+def dispatch_tier(b: int, h: int, n_gates: int = 4) -> Optional[str]:
+    """The reference's dispatch predicate (``pallas_lstm.fused_tier``;
+    the GRU passes ``n_gates=3``, as ``pallas_gru.fused_tier`` does):
+    ``"fused"`` for h <= 512, ``"fused_blocked"`` for 512 < h under
+    ``--fused_rnn_hblock`` within the VMEM estimate, ``None`` (the scan)
+    when b % 8 or h % 128 or otherwise.  It defines which function runs
+    at which shape; it says nothing about Hopper's memory."""
+    if b % 8 or h % 128:
+        return None
+    if h <= 512:
+        return "fused"
+    if not FLAGS.get("fused_rnn_hblock"):
+        return None
+    if h % HBLOCK or _blocked_vmem_bytes(b, h, n_gates) > _BLOCKED_VMEM_CAP:
+        return None
+    return "fused_blocked"
+
+
+#: RNN lowering decisions counted by ``(kind, path, reason)``, with the
+#: labels of the JAX package's ``rnn_dispatch_total`` counter (which
+#: counts once per traced call; this one once per call).
+rnn_dispatch_total: "collections.Counter" = collections.Counter()
+
+
+def _fallback_reason(b: int, h: int) -> str:
+    """Why a default-activation (B, H) shape is off the fused tiers (the
+    reference's label strings)."""
+    if b % 8:
+        return "batch not a multiple of 8 (sublane tiling)"
+    if h % 128:
+        return "hidden not a multiple of 128 (lane tiling)"
+    if h > 512 and not FLAGS.get("fused_rnn_hblock"):
+        return ("hidden>512 with the blocked tier disabled "
+                "(--fused_rnn_hblock=false)")
+    return ("hidden>512 and past even the blocked tier's "
+            "streamed-VMEM budget")
+
+
+def _warn_scan_fallback(kind: str, b: int, h: int) -> str:
+    """One-time warning per (kind, B, H) when a default-activation
+    sequence takes the scan; returns the reason label."""
+    reason = _fallback_reason(b, h)
+    warn_once(f"fused_{kind}_fallback:{b}x{h}",
+              "fused_%s_fallback: scan path taken for batch=%d hidden=%d "
+              "(%s)", kind, b, h, reason, logger=_log)
+    return reason
+
+
+def _dispatch(kind: str, b: int, h: int, default_acts: bool
+              ) -> Optional[str]:
+    """The path of one ``lstm_sequence`` / ``gru_sequence`` call: the
+    fused tier by :func:`dispatch_tier`, or ``None`` for the scan; the
+    decision is counted in :data:`rnn_dispatch_total`."""
+    if not default_acts:
+        rnn_dispatch_total[(kind, "scan", "non-default activations")] += 1
+        return None
+    tier = dispatch_tier(b, h, 3 if kind == "gru" else 4)
+    if tier is None:
+        rnn_dispatch_total[(kind, "scan",
+                            _warn_scan_fallback(kind, b, h))] += 1
+    else:
+        rnn_dispatch_total[(kind, tier, "")] += 1
+    return tier
 
 
 class LstmState(NamedTuple):
@@ -104,13 +199,13 @@ def lstm_sequence(seq: SequenceBatch, w_ih, w_hh, bias=None,
     [4H].  Returns (hidden SequenceBatch [B, T, H], final LstmState),
     plus the per-step cell SequenceBatch when ``return_cells``.
 
-    Default activations run the fused kernels (on the CPU their plain
-    versions): the single-block tier for H <= 512, the hidden-blocked
-    tier above.  On a CUDA tensor whose shape the tier does not serve
-    this raises (``ops.lstm.fused_tier``) — it never loops quietly on
-    the card.  Other activations take :func:`lstm_scan`, as the
-    reference takes its scan, and so does H > 512 under
-    ``--fused_rnn_hblock=false`` (the JAX package's kill switch).
+    The path is the reference's (:func:`dispatch_tier`): its fused
+    shapes run the fused kernels (on the CPU their plain versions), the
+    single-block tier for H <= 512 and the hidden-blocked tier above; on
+    a CUDA tensor whose shape the Hopper tier does not serve this raises
+    (``ops.lstm.fused_tier``) — it never loops quietly on the card.
+    Every other shape and every non-default activation takes
+    :func:`lstm_scan`, as the reference takes its scan.
     """
     b, t, _ = seq.data.shape
     hd = w_hh.shape[0]
@@ -125,12 +220,11 @@ def lstm_sequence(seq: SequenceBatch, w_ih, w_hh, bias=None,
     if reverse:
         xw = torch.flip(xw, (1,))
         mask = torch.flip(mask, (1,))
-    fused = gate_act == "sigmoid" and cell_act == "tanh" \
-        and out_act == "tanh" \
-        and (hd <= MAX_HIDDEN or FLAGS.get("fused_rnn_hblock"))
-    if fused:
-        fn = lstm_fused_sequence if hd <= MAX_HIDDEN \
-            else lstm_fused_sequence_blocked
+    tier = _dispatch("lstm", b, hd, gate_act == "sigmoid"
+                     and cell_act == "tanh" and out_act == "tanh")
+    if tier is not None:
+        fn = lstm_fused_sequence_blocked if tier == "fused_blocked" \
+            else lstm_fused_sequence
         y, cy, fh, fc = fn(xw.contiguous(), mask, w_hh, check_i, check_f,
                            check_o, h0, c0)
     else:
@@ -189,13 +283,14 @@ def gru_sequence(seq: SequenceBatch, w_ih, w_hh, bias=None, h0=None,
     w_cand ``[H, H]``, bias ``[3H]``.  Returns (hidden SequenceBatch
     ``[B, T, H]``, final state ``[B, H]``) in the policy output dtype.
 
-    Default activations run the fused kernels (on the CPU their plain
-    versions).  H > 512 under ``--fused_rnn_hblock`` (default on) is the
-    hidden-blocked tier, kernels 15-17, not yet ported: on a CUDA tensor
-    the kernel wrappers raise (``ops.gru.fused_tier``), on the CPU the
-    plain versions serve any H.  It never loops quietly on the card.
-    Other activations take :func:`gru_scan`, and so does H > 512 under
-    ``--fused_rnn_hblock=false``, as the JAX package takes its scan."""
+    The path is the reference's (:func:`dispatch_tier` with three
+    gates): its fused shapes run the fused kernels (on the CPU their
+    plain versions), the single-block tier (kernels 13-14) for H <= 512
+    and the hidden-blocked tier (kernels 15-17) above; on a CUDA tensor
+    whose shape the Hopper tier does not serve this raises
+    (``ops.gru.fused_tier``) — it never loops quietly on the card.
+    Every other shape and every non-default activation takes
+    :func:`gru_scan`, as the JAX package takes its scan."""
     b, t, _ = seq.data.shape
     hd = w_hh.shape[0]
     pol = current_policy()
@@ -210,10 +305,11 @@ def gru_sequence(seq: SequenceBatch, w_ih, w_hh, bias=None, h0=None,
         xw = torch.flip(xw, (1,))
         mask = torch.flip(mask, (1,))
     w_gates, w_cand = w_hh[:, :2 * hd], w_hh[:, 2 * hd:]
-    if gate_act == "sigmoid" and act == "tanh" \
-            and (hd <= gru.MAX_HIDDEN or FLAGS.get("fused_rnn_hblock")):
-        y, fh = gru.gru_fused_sequence(xw.contiguous(), mask, w_gates,
-                                       w_cand, h0)
+    tier = _dispatch("gru", b, hd, gate_act == "sigmoid" and act == "tanh")
+    if tier is not None:
+        fn = gru.gru_fused_sequence_blocked if tier == "fused_blocked" \
+            else gru.gru_fused_sequence
+        y, fh = fn(xw.contiguous(), mask, w_gates, w_cand, h0)
     else:
         y, fh = gru_scan(xw, mask, w_gates, w_cand, h0, gate_act, act)
     y = y.to(pol.output_dtype)

@@ -236,25 +236,23 @@ def test_gru_unit_matches_jax(flags):
 
 # ------------------------------------------------------------ dispatch
 def _spy(monkeypatch, name):
-    """Count the calls of ``recurrent_ops``'s ``name`` route."""
+    """Count the calls of ``recurrent_ops``'s ``name`` route: ``fused``
+    (kernels 13-14), ``blocked`` (kernels 15-17) or ``scan``."""
     calls = []
-    if name == "fused":
-        real = tg.gru_fused_sequence
-        monkeypatch.setattr(tg, "gru_fused_sequence",
-                            lambda *a: calls.append(1) or real(*a))
-    else:
-        real = tro.gru_scan
-        monkeypatch.setattr(tro, "gru_scan",
-                            lambda *a: calls.append(1) or real(*a))
+    mod, attr = {"fused": (tg, "gru_fused_sequence"),
+                 "blocked": (tg, "gru_fused_sequence_blocked"),
+                 "scan": (tro, "gru_scan")}[name]
+    real = getattr(mod, attr)
+    monkeypatch.setattr(mod, attr, lambda *a: calls.append(1) or real(*a))
     return calls
 
 
-def _run_seq(h, gate_act="sigmoid"):
+def _run_seq(h, gate_act="sigmoid", b=2):
     rng = np.random.RandomState(1)
-    xw = torch.from_numpy((rng.randn(2, 3, 3 * h) * 0.3).astype(np.float32))
+    xw = torch.from_numpy((rng.randn(b, 3, 3 * h) * 0.3).astype(np.float32))
     w = torch.from_numpy((rng.randn(h, 3 * h) * 0.05).astype(np.float32))
-    out, _ = tro.gru_sequence(TSeq(xw, torch.tensor([3, 1], dtype=torch.int32)),
-                              None, w, gate_act=gate_act)
+    lens = torch.tensor([3, 1] * (b // 2), dtype=torch.int32)
+    out, _ = tro.gru_sequence(TSeq(xw, lens), None, w, gate_act=gate_act)
     return out.data
 
 
@@ -276,51 +274,92 @@ def test_non_default_activations_take_the_scan(monkeypatch):
 
 
 def test_hidden_beyond_512_on_cpu_takes_the_plain_versions(monkeypatch):
-    """H > 512 under --fused_rnn_hblock (the blocked tier, kernels 15-17,
-    not ported) runs the fused contract's plain versions on CPU tensors,
-    and they agree with the scan."""
-    fused, scan = _spy(monkeypatch, "fused"), _spy(monkeypatch, "scan")
+    """H > 512 follows the reference's rule: H 520 (off the 128-lane
+    tiling) takes the scan in both packages; H 640 at B 8 under
+    --fused_rnn_hblock takes the blocked tier, whose plain versions run on
+    CPU tensors and agree with the scan."""
+    fused, blocked, scan = (_spy(monkeypatch, n)
+                            for n in ("fused", "blocked", "scan"))
     TFLAGS.set("fused_rnn_hblock", True)
-    got = _run_seq(520)
-    assert (len(fused), len(scan)) == (1, 0)
+    _run_seq(520, b=8)
+    assert (len(fused), len(blocked), len(scan)) == (0, 0, 1)
+    got = _run_seq(640, b=8)
+    assert (len(fused), len(blocked), len(scan)) == (0, 1, 1)
     TFLAGS.set("fused_rnn_hblock", False)
-    want = _run_seq(520)
-    assert (len(fused), len(scan)) == (1, 1)
+    want = _run_seq(640, b=8)
+    assert (len(fused), len(blocked), len(scan)) == (0, 1, 2)
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
                                atol=OUT_ATOL)
 
 
 def test_hblock_off_takes_the_scan(monkeypatch):
-    fused, scan = _spy(monkeypatch, "fused"), _spy(monkeypatch, "scan")
+    fused, blocked, scan = (_spy(monkeypatch, n)
+                            for n in ("fused", "blocked", "scan"))
     TFLAGS.set("fused_rnn_hblock", False)
-    _run_seq(16)
-    _run_seq(600)
-    assert (len(fused), len(scan)) == (1, 1)     # 16 fused, 600 the scan
+    _run_seq(128, b=8)
+    _run_seq(640, b=8)
+    # 128 fused, 640 the scan
+    assert (len(fused), len(blocked), len(scan)) == (1, 0, 1)
+
+
+def _fwd_inputs(b, t, h):
+    x = _kernel_inputs(b, t, h, (t,) * b, 0)
+    return [torch.from_numpy(x[k]) for k in ("xw", "mask", "wg", "wc", "h0")]
 
 
 def test_card_path_raises_for_the_blocked_tier(monkeypatch):
-    """On CUDA a GRU with H > 512 and --fused_rnn_hblock raises, naming
-    kernels 15-17, rather than looping on the card; a shape beyond the
-    single-block kernels' resources raises too.  The device test is
-    monkeypatched so the CPU reaches that branch."""
+    """On CUDA a kernel raises on a shape its tier does not serve, rather
+    than looping on the card: the single-block forward at H 520 and at a
+    batch past its shared memory, the blocked forward past its widest H
+    (lowered here to 600), through ``gru_sequence`` too.  The device test
+    is monkeypatched so the CPU reaches that branch."""
     monkeypatch.setattr(tg, "_on_card", lambda tensors: True)
     TFLAGS.set("fused_rnn_hblock", True)
-    with pytest.raises(PaddleTpuError, match="kernels 15-17"):
-        _run_seq(520)
-    x = _kernel_inputs(2, 2, 520, (2, 1), 0)
-    args = [torch.from_numpy(x[k]) for k in ("xw", "mask", "wg", "wc", "h0")]
-    with pytest.raises(PaddleTpuError, match="not yet ported"):
-        tg.gru_fwd(*args)
-    x = _kernel_inputs(4096, 1, 8, (1,) * 4096, 0)
-    args = [torch.from_numpy(x[k]) for k in ("xw", "mask", "wg", "wc", "h0")]
     with pytest.raises(PaddleTpuError, match="do not serve"):
-        tg.gru_fwd(*args)
+        tg.gru_fwd(*_fwd_inputs(2, 2, 520))
+    with pytest.raises(PaddleTpuError, match="do not serve"):
+        tg.gru_fwd(*_fwd_inputs(4096, 1, 8))
+    monkeypatch.setattr(tg, "MAX_BLOCKED_HIDDEN", 600)
+    with pytest.raises(PaddleTpuError, match="do not serve"):
+        tg.gru_fwd_blocked(*_fwd_inputs(2, 2, 640))
+    with pytest.raises(PaddleTpuError, match="do not serve"):
+        _run_seq(640, b=8)
+
+
+def test_card_path_launches_kernels_15_16_17_in_order(monkeypatch):
+    """A training step through ``gru_sequence`` at H 1024 on the card
+    launches the blocked forward, then the blocked BPTT, then the
+    blocked dW, once each (the launches are recorded, not run: the
+    device test, the launcher and the dW's split query, here 2, are
+    monkeypatched)."""
+    launched = []
+    monkeypatch.setattr(tg, "_on_card", lambda tensors: True)
+    monkeypatch.setattr(tg, "_launch",
+                        lambda symbol, ptrs, ints, dev:
+                        launched.append((symbol, ints)))
+    monkeypatch.setattr(tg._build, "kernel",
+                        lambda symbol: lambda *ints: 2)
+    TFLAGS.set("fused_rnn_hblock", True)
+    tg.reset_launch_counts()
+    h = 1024
+    xw = torch.zeros(8, 2, 3 * h, requires_grad=True)
+    w = torch.zeros(h, 3 * h, requires_grad=True)
+    out, final = tro.gru_sequence(TSeq(xw, torch.full((8,), 2, dtype=torch.
+                                                      int32)), None, w)
+    (out.data.sum() + final.sum()).backward()
+    assert launched == [("gru_fwd_blocked", (8, 2, h)),
+                        ("gru_bwd_blocked", (8, 2, h)),
+                        ("gru_dw_blocked", (8, 2, h, 2))]
+    assert [fn.launches for fn in tg.KERNEL_WRAPPERS] == [0, 0, 1, 1, 1]
+    tg.reset_launch_counts()
 
 
 def test_fused_tier_from_hopper_resources():
     assert tg.fused_tier(128, 512) == "fused"       # the bench row
     assert tg.fused_tier(3, 50) == "fused"          # no tiling gate
     assert tg.fused_tier(128, 513) == "fused_blocked"
+    assert tg.fused_tier(3, 1024) == "fused_blocked"  # kernels 15-17
+    assert tg.fused_tier(128, tg.MAX_BLOCKED_HIDDEN + 1) is None
     assert tg.fused_tier(4096, 8) is None           # shared memory
     assert tg.fused_tier(128, 512, sms=127) is None  # 128 CTAs
     TFLAGS.set("fused_rnn_hblock", False)

@@ -5,9 +5,9 @@ on the CPU.
 Inputs come from a numpy seed and go through both.  At B % 8 == 0 and
 H % 128 == 0 the JAX side runs its fused Pallas kernels (8 and 9) in
 interpret mode, as ``tests/test_pallas_lstm.py`` does; at the odd shape
-(B = 5, H = 96) it scans.  The port runs on CPU tensors, so its kernel
-wrappers take their plain versions (``lstm_fwd_reference`` /
-``lstm_bwd_reference``).  The loss reads y, the cells and both final
+(B = 5, H = 96) both packages scan (the reference's dispatch rule).  The
+port runs on CPU tensors, so its kernel wrappers take their plain
+versions (``lstm_fwd_reference`` / ``lstm_bwd_reference``).  The loss reads y, the cells and both final
 states, so every cotangent the backward takes is non-zero.
 
 Tolerances (fp32, different summation orders): atol 1e-5 on outputs;
@@ -26,6 +26,7 @@ from paddle_tpu.core.sequence import SequenceBatch as JSeq
 from paddle_tpu.ops import recurrent_ops as jro
 from paddle_tpu_torch.core.sequence import SequenceBatch as TSeq
 from paddle_tpu_torch.ops import recurrent_ops as tro
+from paddle_tpu_torch.ops import lstm as tl
 
 OUT_ATOL = 1e-5
 
@@ -83,19 +84,25 @@ def _jax_run(b, t, h, lens, seed, reverse, peep, boot, gate_act):
 
 
 def _torch_run(b, t, h, lens, seed, reverse, peep, boot, gate_act,
-               use_scan=False):
+               use_scan=False, use_fused=False):
     params, cot, ln = _inputs(b, t, h, lens, seed)
     names = _used(peep, boot)
     p = {n: torch.from_numpy(v).requires_grad_(n in names)
          for n, v in params.items()}
     ci, cf, co = _peep(p, peep)
     h0, c0 = (p["h0"], p["c0"]) if boot else (None, None)
-    if use_scan:
-        # the plain scan with the fused path's contract (no reversal)
+    if use_scan or use_fused:
+        # the plain scan, or the fused kernels' plain versions called
+        # directly (any shape), with the fused path's contract (no
+        # reversal)
         seq = TSeq(p["xw"], torch.from_numpy(ln))
-        y, cy, fh, fc = tro.lstm_scan(p["xw"] + p["bias"], seq.mask(),
-                                      p["w"], ci, cf, co, h0, c0,
-                                      gate_act=gate_act)
+        if use_fused:
+            y, cy, fh, fc = tl.lstm_fused_sequence(
+                p["xw"] + p["bias"], seq.mask(), p["w"], ci, cf, co, h0, c0)
+        else:
+            y, cy, fh, fc = tro.lstm_scan(p["xw"] + p["bias"], seq.mask(),
+                                          p["w"], ci, cf, co, h0, c0,
+                                          gate_act=gate_act)
     else:
         out, final, cells = tro.lstm_sequence(
             TSeq(p["xw"], torch.from_numpy(ln)), None, p["w"], p["bias"],
@@ -175,8 +182,10 @@ def test_fused_plain_versions_match_autograd_through_scan(peep):
     held against autograd through the per-step scan — the comparison
     chip_smoke.py makes for the CUDA kernels on the card."""
     b, t, h, lens = 6, 9, 40, (9, 0, 4, 9, 1, 7)
+    # an odd shape, off the reference's fused gate: the fused entry is
+    # called directly (lstm_sequence would take the scan there)
     got_out, got_g = _torch_run(b, t, h, lens, 2, False, peep, True,
-                                "sigmoid")
+                                "sigmoid", use_fused=True)
     ref_out, ref_g = _torch_run(b, t, h, lens, 2, False, peep, True,
                                 "sigmoid", use_scan=True)
     for g, w in zip(got_out, ref_out):

@@ -134,8 +134,9 @@ def test_blocked_sequence_matches_jax(case, hblock_flag):
 
 def test_blocked_reverse_through_lstm_sequence_matches_jax(hblock_flag):
     """``lstm_sequence(reverse=True)`` at H = 640 with a gate bias and
-    peepholes: both packages dispatch to their blocked tier."""
-    b, t, lens = 4, 5, (5, 1, 3, 0)
+    peepholes: both packages dispatch to their blocked tier (B 8: the
+    reference's rule sends B % 8 != 0 to the scan)."""
+    b, t, lens = 8, 5, (5, 1, 3, 0, 4, 5, 2, 1)
     params, cot, _ = _inputs(b, t, lens, 3)
     bias = np.random.RandomState(4).randn(4 * H).astype(np.float32) * 0.1
     ln = np.asarray(lens, np.int32)

@@ -157,10 +157,13 @@ def _lstm_bwd_args(b=3, t=4, h=8):
 
 
 def test_lstm_launch_counters_stay_zero_on_cpu():
+    """A fused-tier shape (the reference's rule: B % 8 == 0, H % 128 ==
+    0) runs the plain versions on CPU tensors: no count."""
     tl.reset_launch_counts()
-    xw = torch.randn(3, 5, 32, requires_grad=True)
-    seq = SequenceBatch(xw, torch.tensor([5, 0, 2], dtype=torch.int32))
-    out, final = tro.lstm_sequence(seq, None, torch.randn(8, 32) * 0.1)
+    xw = torch.randn(8, 5, 512, requires_grad=True)
+    seq = SequenceBatch(xw, torch.tensor([5, 0, 2, 5, 1, 3, 4, 5],
+                                         dtype=torch.int32))
+    out, final = tro.lstm_sequence(seq, None, torch.randn(128, 512) * 0.1)
     (out.data.sum() + final.c.sum()).backward()
     assert xw.grad is not None
     assert tl.lstm_fwd.launches == 0 and tl.lstm_bwd.launches == 0
@@ -168,9 +171,9 @@ def test_lstm_launch_counters_stay_zero_on_cpu():
 
 def test_blocked_lstm_launch_counters_stay_zero_on_cpu():
     tl.reset_launch_counts()
-    xw = torch.randn(2, 3, 4 * 520, requires_grad=True)
-    seq = SequenceBatch(xw, torch.tensor([3, 1], dtype=torch.int32))
-    out, final = tro.lstm_sequence(seq, None, torch.randn(520, 4 * 520) * 0.05)
+    xw = torch.randn(8, 3, 4 * 640, requires_grad=True)
+    seq = SequenceBatch(xw, torch.tensor([3, 1] * 4, dtype=torch.int32))
+    out, final = tro.lstm_sequence(seq, None, torch.randn(640, 4 * 640) * 0.05)
     (out.data.sum() + final.c.sum()).backward()
     assert xw.grad is not None
     assert all(fn.launches == 0 for fn in tl.KERNEL_WRAPPERS)
@@ -245,8 +248,8 @@ def test_card_path_rejects_hidden_beyond_the_fused_tier(monkeypatch):
     monkeypatch.setattr(tl, "MAX_BLOCKED_HIDDEN", 600)
     with pytest.raises(PaddleTpuError, match="do not serve"):
         tl.lstm_fwd_blocked(*_lstm_fwd_args(b=2, t=2, h=640))
-    seq = SequenceBatch(torch.zeros(2, 2, 4 * 640),
-                        torch.tensor([2, 1], dtype=torch.int32))
+    seq = SequenceBatch(torch.zeros(8, 2, 4 * 640),
+                        torch.tensor([2, 1] * 4, dtype=torch.int32))
     with pytest.raises(PaddleTpuError, match="do not serve"):
         tro.lstm_sequence(seq, None, torch.zeros(640, 4 * 640))
 
@@ -356,15 +359,16 @@ def test_scan_covers_the_seq2seq_slice():
     scanned = {str(f.relative_to(PORT)) for f in PORT.rglob("*.py")}
     assert {"ops/gru.py", "ops/sequence_ops.py", "layers/recurrent_group.py",
             "models/seq2seq.py", "layers/rnn.py", "layers/cost.py"} <= scanned
-    assert {"gru_fwd.cu", "gru_bwd.cu"} <= \
+    assert {"gru_fwd.cu", "gru_bwd.cu", "gru_fwd_blocked.cu",
+            "gru_bwd_blocked.cu", "gru_dw_blocked.cu"} <= \
         {f.name for f in (PORT / "csrc").iterdir()}
 
 
-def _s2s_feed():
+def _s2s_feed(b=3):
     rng = np.random.RandomState(0)
-    lens = torch.tensor([4, 2, 1], dtype=torch.int32)
+    lens = torch.tensor(([4, 2, 1, 3] * 2)[:b], dtype=torch.int32)
     return {name: SequenceBatch(torch.from_numpy(
-        rng.randint(2, 30, (3, 4)).astype(np.int32)), lens)
+        rng.randint(2, 30, (b, 4)).astype(np.int32)), lens)
         for name in ("source", "target", "target_next")}
 
 
@@ -378,14 +382,23 @@ def test_seq2seq_entry_points_raise_without_cuda(monkeypatch):
     assert tls.init_state(device="cpu").scale.device.type == "cpu"
 
 
-def test_gru_launch_counters_stay_zero_on_cpu():
-    """A seq2seq training step runs both GRU kernels' plain versions on
-    CPU tensors: no count."""
+def _gru_step_counts(hidden):
     tgru.reset_launch_counts()
-    tr = Trainer(NeuralNetwork(seq2seq_config(30, 8, 16)), seed=0,
+    tr = Trainer(NeuralNetwork(seq2seq_config(30, 8, hidden)), seed=0,
                  device="cpu")
-    assert np.isfinite(float(tr.train_one_batch(_s2s_feed())))
-    assert all(fn.launches == 0 for fn in tgru.KERNEL_WRAPPERS)
+    assert np.isfinite(float(tr.train_one_batch(_s2s_feed(8))))
+    return [fn.launches for fn in tgru.KERNEL_WRAPPERS]
+
+
+def test_gru_launch_counters_stay_zero_on_cpu():
+    """A seq2seq training step (B 8, H 128: the reference's fused gate)
+    runs both GRU kernels' plain versions on CPU tensors: no count."""
+    assert _gru_step_counts(128) == [0] * 5
+
+
+def test_blocked_gru_launch_counters_stay_zero_on_cpu():
+    """The same at H 640, the blocked tier (kernels 15-17)."""
+    assert _gru_step_counts(640) == [0] * 5
 
 
 def _gru_fwd_args(b=3, t=4, h=8):
@@ -411,6 +424,31 @@ def _gru_bwd_args(b=3, t=4, h=8):
 ], ids=["fwd_xw_bf16", "fwd_wgates_noncontig", "fwd_wcand_shape",
         "bwd_hseq_noncontig", "bwd_dy_bf16"])
 def test_gru_wrappers_reject_bad_inputs(wrapper, make, pos, bad):
+    args = make()
+    wrapper(*args)                       # the good inputs run
+    args[pos] = bad(args[pos])
+    with pytest.raises(PaddleTpuError):
+        wrapper(*args)
+
+
+def _gru_dw_blocked_args(b=3, t=4, h=8):
+    gates, hseq, h0, mask, *_ = _gru_bwd_args(b, t, h)
+    return [hseq, h0, gates[..., h:2 * h].contiguous(), gates, mask]
+
+
+@pytest.mark.parametrize("wrapper,make,pos,bad", [
+    (tgru.gru_fwd_blocked, _gru_fwd_args, 0, lambda t: t.to(torch.bfloat16)),
+    (tgru.gru_fwd_blocked, _gru_fwd_args, 3,
+     lambda t: t.t().contiguous().t()),
+    (tgru.gru_bwd_blocked, _gru_bwd_args, 0,
+     lambda t: t.transpose(0, 1).contiguous().transpose(0, 1)),
+    (tgru.gru_bwd_blocked, _gru_bwd_args, 6, lambda t: t.to(torch.bfloat16)),
+    (tgru.gru_dw_blocked, _gru_dw_blocked_args, 2, lambda t: t[:, :, :-1]),
+    (tgru.gru_dw_blocked, _gru_dw_blocked_args, 3,
+     lambda t: t.to(torch.bfloat16)),
+], ids=["fwd_xw_bf16", "fwd_wcand_noncontig", "bwd_gates_noncontig",
+        "bwd_dy_bf16", "dw_rh_shape", "dw_dxw_bf16"])
+def test_blocked_gru_wrappers_reject_bad_inputs(wrapper, make, pos, bad):
     args = make()
     wrapper(*args)                       # the good inputs run
     args[pos] = bad(args[pos])

@@ -54,6 +54,7 @@ from paddle_tpu_torch.layers.base import get_layer_class
 from paddle_tpu_torch.layers.network import NeuralNetwork as TNet
 from paddle_tpu_torch.layers.recurrent_group import RecurrentGroup
 from paddle_tpu_torch.models import seq2seq_config
+from paddle_tpu_torch.ops import gru as tgru
 from paddle_tpu_torch.trainer.trainer import Trainer as TTrainer
 from paddle_tpu_torch.utils import FLAGS as TFLAGS
 from paddle_tpu_torch.utils import PaddleTpuError
@@ -236,9 +237,9 @@ def _tfeed(src, trg, nxt):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_loss_and_grads(bf16):
+def _jax_loss_and_grads(bf16, hidden=H):
     _set_both(use_bf16=bf16, bf16_activations=bf16)
-    jnet = JNet(_jax_config(V, E, H))
+    jnet = JNet(_jax_config(V, E, hidden))
     jparams = jnet.init_params(seed=0)
     feed = _jfeed(*_feed_arrays())
     loss, grads = jax.value_and_grad(
@@ -247,9 +248,9 @@ def _jax_loss_and_grads(bf16):
             {n: np.asarray(g, np.float32) for n, g in grads.items()})
 
 
-def _torch_loss_and_grads(np_params, bf16):
+def _torch_loss_and_grads(np_params, bf16, hidden=H):
     _set_both(use_bf16=bf16, bf16_activations=bf16)
-    tnet = TNet(seq2seq_config(V, E, H))
+    tnet = TNet(seq2seq_config(V, E, hidden))
     params = network_params_from_jax(np_params, tnet, "cpu")
     params = {n: p.requires_grad_(True) for n, p in params.items()}
     loss, (values, _) = tnet.loss(params, _tfeed(*_feed_arrays()))
@@ -281,6 +282,29 @@ def test_loss_and_every_gradient_match_jax(flags):
                                rtol=1e-6)
     assert values["dec_prob"].data.dtype == \
         (torch.bfloat16 if bf16 else torch.float32)
+
+
+@pytest.mark.parametrize("flags", ["fp32", "bench_bf16"])
+def test_h640_loss_and_every_gradient_match_jax(flags, monkeypatch):
+    """The slice at H 640: both packages' encoder GRUs take their
+    hidden-blocked tier (kernels 15-17; in the port their plain versions
+    on the CPU), and the loss and every gradient agree within the
+    tolerances of ``test_loss_and_every_gradient_match_jax``."""
+    bf16 = flags == "bench_bf16"
+    np_params, want_loss, want_g = _jax_loss_and_grads(bf16, 640)
+    calls = []
+    real = tgru.gru_fused_sequence_blocked
+    monkeypatch.setattr(tgru, "gru_fused_sequence_blocked",
+                        lambda *a: calls.append(1) or real(*a))
+    loss, grads, _ = _torch_loss_and_grads(np_params, bf16, 640)
+    assert len(calls) == 2                # enc_fwd, enc_bwd
+    np.testing.assert_allclose(loss, want_loss, rtol=1e-3 if bf16 else 1e-5)
+    assert set(grads) == set(want_g) and len(grads) == 19
+    rtol, floor = (5e-2, 1e-6) if bf16 else (1e-5, 1e-9)
+    for name, w in want_g.items():
+        np.testing.assert_allclose(grads[name], w, rtol=0,
+                                   atol=rtol * np.abs(w).max() + floor,
+                                   err_msg=name)
 
 
 def test_hoisted_epilogue_matches_the_in_loop_run(monkeypatch):
