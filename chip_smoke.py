@@ -121,6 +121,32 @@ Phases (any failure exits nonzero, without the final ``ok`` line):
    the reference's (of max|ref| for a gradient), 2 launches each of
    kernels 13 and 14; 4u the same at H 640, 2 launches each of kernels
    15-17;
+3g. the flash kernels 1 (training form), 3 and 4 against their plain
+   versions on the card (f32 arithmetic on the same inputs), through
+   ``flash_attention`` / ``flash_attention_packed`` and autograd and
+   each wrapper alone: (16, 2048, 8, 64) bf16 non-causal and causal;
+   key lengths 0, 1, 64 and 1000; Tq 384 != Tk 1000; T 100; packed rows
+   of mixed lengths at slot 2048, and packed causal; fp32; D 32 and 128
+   — bf16 outputs within one bf16 ulp plus 1e-3 * max|ref|, fp32 within
+   2e-4 * max|ref| + 1e-6, lse within 1e-4, masked rows and keys exactly
+   0;
+4w. the transformer main path: ``bench.py``'s attention row
+   (``_attention_workload``: ``transformer_text_classifier`` V 30000, D
+   512, 8 heads, 4 layers, ffn 2048, blocks 512; B 16, T 2048, its feed;
+   Adam lr 1e-3 clip 25; ``use_bf16`` + ``bf16_activations``; the port's
+   own init, seed 0): 2 warm and 10 timed steps — finite losses,
+   exactly 4 launches each of kernels 1-train, 3 and 4 a step and no
+   other kernel, every ``attention_dispatch_total`` decision
+   ``block_sparse``, ms/step, tokens/s (``transformer_tokens_per_sec``),
+   host wall, peak memory; then a profile of 3 steps;
+4x. the row's ``padded_mixed`` reading (lengths in [T/4, T], seed 1),
+   padded and packed (``packed`` decisions), 3 timed steps each: valid
+   tokens/s, the same launch counts;
+4y. ``causal_t2048`` in block_skip mode, 3 timed steps;
+4z. the small transformer of the CPU tests, padded and packed, fp32 and
+   bench flags, card against the CPU plain path: loss and every
+   gradient (fp32: loss rtol 1e-5, gradients 1e-4 * max|ref|; bench
+   flags: 1e-3 and 5e-2), 2 launches each of kernels 1-train, 3 and 4;
 5. each kernel at its main path's shapes: its time, its plain version's,
    one PyTorch yardstick call's where one computes the same function
    (SDPA for attention; ``torch.matmul`` for the blocked dW; none for
@@ -131,14 +157,18 @@ Phases (any failure exits nonzero, without the final ``ok`` line):
    line with the launches of each path's timed run (serving continuous,
    serving sequential, training at H 512, training at H 1280, ResNet-50,
    ResNet-50 without the forward fusion, resnet_cifar10, seq2seq,
-   seq2seq at H 1024); kernels 13 and 14 at the seq2seq encoder's shape,
-   no library call (cuDNN's GRU applies the reset gate after the
-   recurrent product); kernels 15-17 at the H 1024 encoder's shape,
-   ``torch.matmul`` of the two dW products as 17's yardstick.
+   seq2seq at H 1024, the transformer's four runs); kernels 13 and 14
+   at the seq2seq encoder's shape, no library call (cuDNN's GRU applies
+   the reset gate after the recurrent product); kernels 15-17 at the
+   H 1024 encoder's shape,
+   ``torch.matmul`` of the two dW products as 17's yardstick; kernels
+   1-train, 3 and 4 at the transformer step's shape (q/k/v bf16 [16,
+   2048, 8, 64], views of one projection), SDPA's forward as 1's
+   yardstick and its backward, one call, as that of 3 and 4 together.
 
 Phases 3b-4f are PR 2's H 512 phases and run in fp32 (``use_bf16``
 off), so their readings stay comparable.  The order of the run: 1-3f,
-4-4k, 4l-4p, 4q-4r, 4t, 4v, 4s, 4u, 5.
+3g, 4-4k, 4l-4p, 4q-4r, 4t, 4v, 4s, 4u, 4w-4z, 5.
 
 Also printed, for information: a ``torch.profiler`` window over one
 continuous pass and one over 3 training steps (device time by kernel,
@@ -214,6 +244,28 @@ GRU_BLOCKED_KERNELS = ("gru_fwd_blocked", "gru_bwd_blocked",
 # GRU_ATOL, gradients within GRU_GRAD_ATOL + GRU_GRAD_RTOL * max|ref|
 # (the tolerances of tests/test_pallas_gru.py)
 GRU_ATOL, GRU_GRAD_ATOL, GRU_GRAD_RTOL = 2e-5, 3e-5, 3e-4
+# bench.py's attention row (_attention_workload / bench_attention,
+# bench.py:561-593, 705, 746): transformer_text_classifier(V 30000, D 512,
+# 8 heads, 4 layers, ffn 2048, 2 classes, max_len 2048, blocks 512), B 16,
+# T 2048, Adam lr 1e-3 clip 25 (_mk_trainer), under BENCH_FLAGS
+ATTN = dict(vocab_size=30000, model_dim=512, num_heads=8, num_layers=4,
+            ffn_dim=2048, num_classes=2, max_len=2048, block_q=512,
+            block_k=512)
+ATTN_B, ATTN_T = 16, 2048
+ATTN_OPT = dict(learning_method="adam", learning_rate=1e-3,
+                gradient_clipping_threshold=25.0)
+ATTN_WARM, ATTN_STEPS, ATTN_AB_STEPS = 2, 10, 3
+FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# kernels 1-train, 3 and 4 against their plain versions on the card (f32
+# arithmetic on the same inputs): a bf16 output within one bf16 ulp of the
+# larger of the two values plus FLASH_BF16_RTOL * max|ref| (the hi/lo
+# split keeps ~16 bits of p and ds, and the kernel sums in another
+# order); an fp32 output within FLASH_F32_RTOL * max|ref| + 1e-6 (q, k, v
+# held as hi + lo bf16: ~16 bits each); lse within FLASH_LSE_ATOL
+FLASH_BF16_RTOL, FLASH_F32_RTOL, FLASH_LSE_ATOL = 1e-3, 2e-4, 1e-4
+# the small transformer of the CPU tests, card vs CPU: loss rtol and
+# gradient tolerance (of max|ref|) in fp32 and under BENCH_FLAGS
+SMALL_ATTN_TOL = {"fp32": (1e-5, 1e-4), "bench": (1e-3, 5e-2)}
 # the small seq2seq net, card vs CPU (fp32; rounding order through the
 # GRU kernels and 5 decoder steps): loss and gradients relative to max|ref|
 S2S_RTOL = 1e-4
@@ -274,10 +326,11 @@ def read_counts():
     from paddle_tpu_torch.ops import conv as C
     from paddle_tpu_torch.ops import gru as G
     from paddle_tpu_torch.ops import lstm as L
-    counts = {"flash_packed_fwd": A.flash_attention_packed.launches,
+    counts = {"flash_packed_fwd": A.prefill_attention_packed.launches,
               "paged_decode": A.paged_decode_attention.launches}
     counts.update({fn.__name__: fn.launches for fn in
-                   L.KERNEL_WRAPPERS + C.KERNEL_WRAPPERS + G.KERNEL_WRAPPERS})
+                   A.KERNEL_WRAPPERS[2:] + L.KERNEL_WRAPPERS
+                   + C.KERNEL_WRAPPERS + G.KERNEL_WRAPPERS})
     return counts
 
 
@@ -436,8 +489,8 @@ def phase_check(dev):
              ([48, 0, 17], 48, False)]
     for lengths, slot, causal in cases:
         q, k, v, seg = packed_case(rng, lengths, slot, h, d, dev)
-        out, lse = A.flash_attention_packed(q, k, v, seg, causal=causal)
-        ref, ref_lse = A._dense_forward(q, k, v, causal, seg)
+        out, lse = A.prefill_attention_packed(q, k, v, seg, causal=causal)
+        ref, ref_lse = A._dense_forward(q, k, v, None, causal, seg)
         sync(dev)
         valid = (seg >= 0)[0]
         e = max((out - ref).abs().max().item(),
@@ -455,8 +508,8 @@ def phase_check(dev):
         sid += 1
     q, k, v, _ = packed_case(rng, [144], 144, h, d, dev)
     seg = torch.from_numpy(seg_np).to(dev)
-    out, lse = A.flash_attention_packed(q, k, v, seg, causal=True)
-    ref, ref_lse = A._dense_forward(q, k, v, True, seg)
+    out, lse = A.prefill_attention_packed(q, k, v, seg, causal=True)
+    ref, ref_lse = A._dense_forward(q, k, v, None, True, seg)
     sync(dev)
     e = (out - ref).abs().max().item()
     log(f"  prefill T=144 general segments ({sid} runs): max abs err {e:.3e}")
@@ -474,8 +527,8 @@ def phase_check(dev):
     # the other compiled head-dim variants (R = 2, 4, 8; D = 36 ragged)
     for d2 in (36, 64, 128, 256):
         q, k, v, seg = packed_case(rng, [20, 0, 9], 32, 2, d2, dev)
-        out, lse = A.flash_attention_packed(q, k, v, seg, causal=True)
-        ref, _ = A._dense_forward(q, k, v, True, seg)
+        out, lse = A.prefill_attention_packed(q, k, v, seg, causal=True)
+        ref, _ = A._dense_forward(q, k, v, None, True, seg)
         args = decode_case(rng, [1, 40, -1, 0], 2, 2, d2, 64, PAGE, 4, dev)
         e1 = (out - ref).abs().max().item()
         e2 = (A.paged_decode_attention(*args)
@@ -673,8 +726,8 @@ def phase_time(dev, launches, serve):
     lens = serve["prompt_lengths"][:MAX_BATCH]
     slot = -(-max(lens) // 16) * 16
     q, k, v, seg = packed_case(rng, lens, slot, h, d, dev)
-    out, lse = A.flash_attention_packed(q, k, v, seg, causal=True)
-    ref, _ = A._dense_forward(q, k, v, True, seg)
+    out, lse = A.prefill_attention_packed(q, k, v, seg, causal=True)
+    ref, _ = A._dense_forward(q, k, v, None, True, seg)
     err = (out - ref).abs().max().item()
     t = seg.shape[1]
     qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -682,9 +735,9 @@ def phase_time(dev, launches, serve):
     idx = torch.arange(t, device=dev)
     mask = ((s[:, None] == s[None, :]) & (s[:, None] >= 0)
             & (idx[:, None] >= idx[None, :]))[None, None]
-    ms = time_ms(lambda: A.flash_attention_packed(q, k, v, seg,
+    ms = time_ms(lambda: A.prefill_attention_packed(q, k, v, seg,
                                                   causal=True))
-    plain_ms = time_ms(lambda: A._dense_forward(q, k, v, True, seg))
+    plain_ms = time_ms(lambda: A._dense_forward(q, k, v, None, True, seg))
     lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
         qh, kh, vh, attn_mask=mask))
     nb, nf = prefill_work(seg.cpu().numpy(), h, d)
@@ -2066,6 +2119,379 @@ def phase_time_gru_blocked(dev, launches):
     return rows
 
 
+# ------------------------------------------------- transformer slice
+def flash_case(b, tq, tk, h, d, dtype, seed, dev):
+    """Random q [B, Tq, H, D], k and v [B, Tk, H, D] and a cotangent dO
+    in ``dtype`` (q . k / sqrt(D) ~ N(0, 1))."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(t):
+        return torch.randn(b, t, h, d, generator=g, device=dev).to(dtype)
+    return rnd(tq), rnd(tk), rnd(tk), rnd(tq)
+
+
+def flash_error(got, ref):
+    """(max abs error, worst error / tolerance) of a kernel output against
+    its plain version, with the tolerances of ``FLASH_BF16_RTOL`` /
+    ``FLASH_F32_RTOL``."""
+    import torch
+    if got.dtype != ref.dtype or got.shape != ref.shape:
+        fail(f"kernel output {got.dtype} {tuple(got.shape)} vs plain "
+             f"{ref.dtype} {tuple(ref.shape)}")
+    a, b = got.float(), ref.float()
+    e = (a - b).abs()
+    if got.dtype == torch.bfloat16:
+        top = torch.maximum(a.abs(), b.abs())
+        ulp = torch.ldexp(torch.ones_like(top), torch.frexp(top).exponent - 8)
+        tol = ulp + FLASH_BF16_RTOL * b.abs().max().item()
+    else:
+        tol = FLASH_F32_RTOL * b.abs().max().item() + 1e-6
+    return e.max().item(), (e / tol).max().item()
+
+
+def masked_zeros(out, dq, dk, dv, lengths, seg):
+    """True when what the masks leave nothing to is exactly 0: out and dq
+    of a row with key length 0, dk and dv of keys at or past their row's
+    length; packed, all four at padding tokens."""
+    import torch
+    if seg is not None:
+        pad = seg[0] < 0
+        return all(bool((x[0, pad] == 0).all()) for x in (out, dq, dk, dv))
+    if lengths is None:
+        return True
+    dead_key = (torch.arange(dk.shape[1], device=dk.device)[None, :]
+                >= lengths[:, None])
+    dead_row = lengths == 0
+    return all(bool((x[dead_key] == 0).all()) for x in (dk, dv)) and \
+        all(bool((x[dead_row] == 0).all()) for x in (out, dq))
+
+
+#: phase 3g cases: (label, B, Tq, Tk, H, D, dtype, causal, key lengths,
+#: packed rows' lengths (then B = 1 and T = slot * rows))
+def flash_cases():
+    import torch
+    bf, f32 = torch.bfloat16, torch.float32
+    mixed = [int(x) for x in np.random.RandomState(1).randint(
+        ATTN_T // 4, ATTN_T + 1, 4)] + [0]
+    return [("headline", 16, 2048, 2048, 8, 64, bf, False, None, None),
+            ("headline causal", 16, 2048, 2048, 8, 64, bf, True, None, None),
+            ("lengths", 4, 1024, 1024, 4, 64, bf, False, [0, 1, 64, 1000],
+             None),
+            ("lengths causal", 4, 1024, 1024, 4, 64, bf, True,
+             [0, 1, 64, 1000], None),
+            ("cross", 2, 384, 1000, 4, 64, bf, False, [1000, 517], None),
+            ("T 100", 3, 100, 100, 2, 64, bf, True, [100, 37, 0], None),
+            ("packed", 1, 5 * ATTN_T, 5 * ATTN_T, 8, 64, bf, False, None,
+             mixed),
+            ("packed causal", 1, 3 * 256, 3 * 256, 2, 64, bf, True, None,
+             [256, 0, 129]),
+            ("fp32", 2, 256, 256, 2, 64, f32, False, [256, 93], None),
+            ("fp32 causal", 2, 100, 100, 2, 64, f32, True, [100, 50], None),
+            ("D 32", 2, 300, 300, 4, 32, bf, True, [300, 129], None),
+            ("D 32 fp32", 2, 160, 160, 2, 32, f32, False, [160, 1], None),
+            ("D 128", 2, 300, 300, 4, 128, bf, False, [300, 129], None),
+            ("D 128 fp32", 2, 200, 200, 2, 128, f32, True, None, None)]
+
+
+def phase_flash_check(dev):
+    """Phase 3g: kernels 1-train, 3 and 4 against their plain versions
+    on the card (f32 arithmetic on the same inputs): through
+    ``flash_attention`` / ``flash_attention_packed`` and autograd (every
+    decision on the block-sparse path), and each wrapper alone on the
+    plain forward's lse and delta.  Returns the worst error per kernel."""
+    import torch
+    from paddle_tpu_torch.ops import attention as A
+    errs = dict.fromkeys(FLASH_KERNELS, 0.0)
+    for i, (label, b, tq, tk, h, d, dtype, causal, lengths, packed) in \
+            enumerate(flash_cases()):
+        q, k, v, do = flash_case(b, tq, tk, h, d, dtype, 10 + i, dev)
+        ln = seg = None
+        if lengths is not None:
+            ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        if packed is not None:
+            seg = A.segments_from_lengths(
+                torch.tensor(packed, dtype=torch.int32, device=dev),
+                len(packed), tq // len(packed)).contiguous()
+        A.attention_dispatch_total.clear()
+        qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
+        if seg is None:
+            out = A.flash_attention(qg, kg, vg, ln, causal)
+        else:
+            out = A.flash_attention_packed(qg, kg, vg, seg, causal,
+                                           slot=tq // len(packed))
+        grads = torch.autograd.grad(out, (qg, kg, vg), do)
+        if not masked_zeros(out, *grads, ln, seg):
+            fail(f"flash case {label}: a masked row or key is not exactly 0")
+        path = dict(A.attention_dispatch_total)
+        if path != {("packed" if seg is not None else "block_sparse", ""):
+                    1}:
+            fail(f"flash case {label}: dispatch {path}")
+        ref, ref_lse = A._dense_forward(q, k, v, ln, causal, seg)
+        delta = A._delta(ref, do)
+        ref_g = A._dense_grads(q, k, v, do, ref_lse, delta, ln, causal, seg)
+        e2e = max(flash_error(a, r)[1] for a, r in
+                  zip((out,) + grads, (ref,) + ref_g))
+        alone_out, alone_lse = A.flash_fwd(q, k, v, ln, seg, causal)
+        dq = A.flash_bwd_dq(q, k, v, do, ref_lse, delta, ln, seg, causal)
+        dk, dv = A.flash_bwd_dkv(q, k, v, do, ref_lse, delta, ln, seg,
+                                 causal)
+        sync(dev)
+        e_lse = (alone_lse - ref_lse).abs().max().item()
+        alone = {"flash_fwd": flash_error(alone_out, ref),
+                 "flash_bwd_dq": flash_error(dq, ref_g[0]),
+                 "flash_bwd_dkv": max(flash_error(dk, ref_g[1]),
+                                      flash_error(dv, ref_g[2]))}
+        log(f"  {label}: B {b} Tq {tq} Tk {tk} H {h} D {d} "
+            f"{str(dtype)[6:]} causal {causal} lengths {lengths} packed "
+            f"{packed}: through autograd {e2e:.3f} of tolerance; alone "
+            + ", ".join(f"{n} {e:.3e} ({r:.3f})" for n, (e, r) in
+                        alone.items()) + f", lse {e_lse:.3e}")
+        if not (e2e <= 1.0 and e_lse <= FLASH_LSE_ATOL
+                and all(r <= 1.0 for _, r in alone.values())):
+            fail(f"flash kernels disagree with their plain versions in "
+                 f"case {label}")
+        for n, (e, _) in alone.items():
+            errs[n] = max(errs[n], e)
+        del q, k, v, do, ref, ref_g, grads, out
+        torch.cuda.empty_cache()
+    return errs
+
+
+def flash_work(name, b, tq, tk, h, d, pairs, elem):
+    """(bytes, flops) of one call of a flash kernel: each input read once
+    and each output written once (q/k/v/dO/out/dq/dk/dv ``elem`` bytes an
+    element, lse and delta f32); 2*D flops per visible (query, key) pair
+    and head for each T x T x D product (kernel 1: S and PV; kernel 3: S,
+    dP, dQ; kernel 4: S, dV, dP, dK).  ``pairs``: visible pairs summed
+    over the batch."""
+    nq, nk = b * tq * h * d, b * tk * h * d
+    rows = 4 * b * h * tq
+    n_bytes, n_products = {
+        "flash_fwd": (elem * (2 * nq + 2 * nk) + rows, 2),
+        "flash_bwd_dq": (elem * (3 * nq + 2 * nk) + 2 * rows, 3),
+        "flash_bwd_dkv": (elem * (2 * nq + 4 * nk) + 2 * rows, 4)}[name]
+    return n_bytes, 2 * d * h * pairs * n_products
+
+
+def phase_time_flash(dev, launches):
+    """Kernels 1-train, 3 and 4 at the transformer step's shape (q, k, v
+    bf16 [16, 2048, 8, 64], views of one [16, 2048, 1536] projection, all
+    keys valid, non-causal): each against its plain version, then timed
+    with it and with SDPA (forward for kernel 1; its backward, one call,
+    for kernels 3 and 4 together)."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import attention as A
+    b, t, h = ATTN_B, ATTN_T, ATTN["num_heads"]
+    size = ATTN["model_dim"]
+    d = size // h
+    g = torch.Generator(device=dev).manual_seed(0)
+    qkv = torch.randn(b, t, 3 * size, generator=g, device=dev).to(
+        torch.bfloat16)
+    q, k, v = (x.reshape(b, t, h, d) for x in qkv.split(size, dim=-1))
+    do = torch.randn(b, t, h, d, generator=g, device=dev).to(torch.bfloat16)
+    win_q, win_k = A.tile_windows(None, None, b, t, t, dev)
+    out, lse = A.flash_fwd(q, k, v, None, None, False, win_q)
+    delta = A._delta(out, do)
+    calls = {
+        "flash_fwd": (lambda: A.flash_fwd(q, k, v, None, None, False, win_q),
+                      lambda: A._dense_forward(q, k, v, None, False)),
+        "flash_bwd_dq": (
+            lambda: A.flash_bwd_dq(q, k, v, do, lse, delta, None, None,
+                                   False, win_q),
+            lambda: A._dense_grads(q, k, v, do, lse, delta, None, False,
+                                   want="dq")),
+        "flash_bwd_dkv": (
+            lambda: A.flash_bwd_dkv(q, k, v, do, lse, delta, None, None,
+                                    False, win_k),
+            lambda: A._dense_grads(q, k, v, do, lse, delta, None, False,
+                                   want="dkv"))}
+    errs = {}
+    for name, (kern, plain) in calls.items():
+        got, want = kern(), plain()
+        res = [flash_error(a, r) for a, r in
+               zip(*((x,) if torch.is_tensor(x) else x for x in (got, want)))]
+        errs[name] = (max(e for e, _ in res), max(r for _, r in res))
+        del got, want
+    if any(r > 1.0 for _, r in errs.values()):
+        fail(f"flash kernels disagree at the main path's shape: {errs}")
+    torch.cuda.empty_cache()
+    qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+    qr, kr, vr = (x.detach().requires_grad_(True) for x in (qh, kh, vh))
+    o_lib = F.scaled_dot_product_attention(qr, kr, vr)
+    doh = do.transpose(1, 2)
+    lib = {"flash_fwd": time_events_ms(
+               lambda: F.scaled_dot_product_attention(qh, kh, vh), reps=10),
+           "backward": time_events_ms(
+               lambda: torch.autograd.grad(o_lib, (qr, kr, vr), doh,
+                                           retain_graph=True), reps=10)}
+    pairs = b * t * t
+    rows = []
+    for name, (kern, plain) in calls.items():
+        ms = time_ms(kern, reps=10, rounds=3)
+        plain_ms = time_events_ms(plain, reps=2)
+        torch.cuda.empty_cache()
+        b_ms, b_by = bound_ms(*flash_work(name, b, t, t, h, d, pairs, 2),
+                              BF16_FLOPS_PER_S)
+        line = {"flash_fwd": 255, "flash_bwd_dq": 664,
+                "flash_bwd_dkv": 701}[name]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"paddle_tpu_torch/csrc/{name}.cu",
+            "replaces": f"paddle_tpu/ops/pallas_attention.py:{line}",
+            "launches": sum(launches[name].values()),
+            "launches_by_path": launches[name],
+            "max_abs_err": errs[name][0], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib["flash_fwd" if name == "flash_fwd"
+                              else "backward"],
+            "library": "F.scaled_dot_product_attention forward"
+                       if name == "flash_fwd" else
+                       "F.scaled_dot_product_attention backward (one call "
+                       "for kernels 3 and 4 together)",
+            "shape": f"q/k/v bf16 [{b},{t},{h},{d}] (views of [{b},{t},"
+                     f"{3 * size}]), non-causal, all keys valid"})
+    for r in rows:
+        log(f"  {r['name']}: {r['ms'] * 1e3:.2f} us (plain "
+            f"{r['plain_ms'] * 1e3:.2f} us, {r['library']} "
+            f"{r['library_ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.3f}"
+            f" us by {r['bound_by']}; {r['bound_ms'] / r['ms'] * 100:.1f} % "
+            f"of the bound rate); {r['shape']}")
+    return rows
+
+
+def attention_feed(b, t, vocab, dev, mixed=False, seed=0):
+    """bench.py's attention feed (bench.py:581-588): with ``mixed``, valid
+    lengths in [T/4, T] first, then token ids in [0, V) and labels in {0,
+    1}, drawn in that order from ``RandomState(seed)``; also the count of
+    valid tokens."""
+    import torch
+    from paddle_tpu_torch.core.sequence import SequenceBatch
+    rng = np.random.RandomState(seed)
+    lengths = rng.randint(t // 4, t + 1, (b,)) if mixed else np.full((b,), t)
+    ids = rng.randint(0, vocab, (b, t)).astype(np.int32)
+    labels = rng.randint(0, 2, (b,)).astype(np.int32)
+    return ({"data": SequenceBatch(torch.from_numpy(ids), torch.from_numpy(
+                lengths.astype(np.int32))).to(dev),
+             "label": torch.from_numpy(labels).to(dev)},
+            int(lengths.sum()))
+
+
+def phase_transformer(dev, steps, warm, causal=False, packed=False,
+                      mixed=False, seed=0):
+    """Phases 4w-4y: the transformer classifier at bench.py's attention
+    row under its flags: warm steps, then the timed steps between CUDA
+    events with every launch count and the attention dispatch counter set
+    to 0 just before them — finite losses, exactly one launch each of
+    kernels 1-train, 3 and 4 per layer a step and no other kernel, every
+    decision on the block-sparse path (``packed`` when the layer packs),
+    ms/step, tokens/s (valid tokens), host wall, peak memory."""
+    from paddle_tpu_torch.config.model_config import OptimizationConfig
+    from paddle_tpu_torch.layers.network import NeuralNetwork
+    from paddle_tpu_torch.models import transformer_text_classifier
+    from paddle_tpu_torch.ops import attention as A
+    from paddle_tpu_torch.trainer.trainer import Trainer
+    net = NeuralNetwork(transformer_text_classifier(
+        **ATTN, causal=causal, packed=packed))
+    trainer = Trainer(net, OptimizationConfig(**ATTN_OPT), seed=0,
+                      device=dev)
+    feed, valid = attention_feed(ATTN_B, ATTN_T, ATTN["vocab_size"], dev,
+                                 mixed, seed)
+    t0 = time.perf_counter()
+    warm_losses = [float(trainer.train_one_batch(feed)) for _ in range(warm)]
+    warm_s = time.perf_counter() - t0
+    A.attention_dispatch_total.clear()
+    launches, losses, ms, wall_ms, peak = timed_steps(trainer, feed, steps)
+    decisions = dict(A.attention_dispatch_total)
+    per_step = ATTN["num_layers"] * steps
+    m = {"ms_per_step": ms, "tokens_per_s": valid * 1e3 / ms,
+         "valid_tokens": valid, "host_wall_ms_per_step": wall_ms,
+         "peak_mem_gb": peak, "warm_s": warm_s, "warm_losses": warm_losses,
+         "losses": losses, "causal": causal, "packed": packed,
+         "attention_dispatch": {"/".join(k): v for k, v in decisions.items()}}
+    log(f"  {steps} timed steps (B {ATTN_B}, T {ATTN_T}, {valid} valid "
+        f"tokens, causal {causal}, packed {packed}; use_bf16 + "
+        f"bf16_activations): {ms:.3f} ms/step (CUDA events), "
+        f"{m['tokens_per_s']:.1f} tokens/s, host wall {wall_ms:.3f} "
+        f"ms/step, peak memory {peak:.2f} GB, {warm} warm steps "
+        f"{warm_s:.1f} s; launches "
+        f"{ {k: v for k, v in launches.items() if v} }; "
+        f"attention_dispatch_total {decisions}")
+    log(f"  losses: warm {[round(x, 6) for x in warm_losses]}, timed "
+        f"{[round(x, 6) for x in losses]}")
+    if not all(np.isfinite(warm_losses + losses)):
+        fail("non-finite transformer training loss")
+    want_path = "packed" if packed else "block_sparse"
+    if decisions != {(want_path, ""): per_step}:
+        fail(f"attention decisions {decisions}, expected {per_step} "
+             f"{want_path}")
+    for name, n in launches.items():
+        want = per_step if name in FLASH_KERNELS else 0
+        if n != want:
+            fail(f"{name}: {n} launches in {steps} transformer steps, "
+                 f"expected {want}")
+    return launches, m, trainer, feed
+
+
+def phase_transformer_small(dev):
+    """Phase 4z: the small transformer of the CPU tests (V 50, D 64, 2
+    heads, 2 layers, ffn 128, blocks 128; B 2, T 256, lengths 256 and 93)
+    padded and packed, in fp32 and under bench.py's flags, on the CPU
+    (plain versions) and on the card from the same parameters: loss and
+    every gradient within SMALL_ATTN_TOL; the card launches each of
+    kernels 1-train, 3 and 4 once per layer."""
+    import torch
+    from paddle_tpu_torch.core.sequence import SequenceBatch
+    from paddle_tpu_torch.layers.network import NeuralNetwork
+    from paddle_tpu_torch.models import transformer_text_classifier
+    rng = np.random.RandomState(1)
+    ids = torch.from_numpy(rng.randint(0, 50, (2, 256)).astype(np.int32))
+    labels = torch.from_numpy(rng.randint(0, 2, (2,)).astype(np.int32))
+    lengths = torch.tensor([256, 93], dtype=torch.int32)
+    out = {}
+    for flags in ("fp32", "bench"):
+        set_flags(use_bf16=flags == "bench", bf16_activations=flags == "bench")
+        for packed in (False, True):
+            net = NeuralNetwork(transformer_text_classifier(
+                vocab_size=50, model_dim=64, num_heads=2, num_layers=2,
+                ffn_dim=128, max_len=256, block_q=128, block_k=128,
+                packed=packed))
+            cpu_params = net.init_params(seed=0, device="cpu")
+            res = {}
+            for where in ("cpu", dev):
+                params = {n: p.to(where).requires_grad_(True)
+                          for n, p in cpu_params.items()}
+                feed = {"data": SequenceBatch(ids, lengths).to(where),
+                        "label": labels.to(where)}
+                reset_counts()
+                loss, _ = net.loss(params, feed)
+                grads = torch.autograd.grad(loss, list(params.values()))
+                res[str(where)] = (float(loss.detach()),
+                                   {n: g.float().cpu()
+                                    for n, g in zip(params, grads)})
+            launched = {k: n for k, n in read_counts().items() if n}
+            (l_cpu, g_cpu), (l_dev, g_dev) = res["cpu"], res[str(dev)]
+            rtol, grtol = SMALL_ATTN_TOL[flags]
+            ratio = max(((g_dev[n] - w).abs().max().item()
+                         / (grtol * w.abs().max().item() + 1e-8))
+                        for n, w in g_cpu.items())
+            log(f"  {flags}, packed {packed}: loss {l_dev:.7f} (card) vs "
+                f"{l_cpu:.7f} (CPU); gradients {ratio:.3f} of tolerance; "
+                f"the card's launches {launched}")
+            out[f"{flags}{'_packed' if packed else ''}"] = {
+                "loss_rel_err": abs(l_dev - l_cpu) / abs(l_cpu),
+                "grad_ratio": ratio}
+            if not np.isfinite(l_dev) or abs(l_dev - l_cpu) > \
+                    rtol * abs(l_cpu) or ratio > 1.0:
+                fail(f"card and CPU reference disagree on the small "
+                     f"transformer ({flags}, packed {packed})")
+            if launched != dict.fromkeys(FLASH_KERNELS, 2):
+                fail(f"the small transformer on the card launched "
+                     f"{launched}, expected 2 each of {FLASH_KERNELS}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2109,6 +2535,9 @@ def main() -> int:
         log("== phase 3f: blocked GRU kernels 15-17 vs the plain scan and "
             "their plain versions (fp32)")
         phase_gru_blocked_check(dev)
+        log("== phase 3g: flash kernels 1-train, 3 and 4 vs their plain "
+            "versions (bf16 and fp32)")
+        phase_flash_check(dev)
         log("== phase 4: main path, full-width server")
         launches, serve, model, prompts = phase_serve(dev)
         log("== phase 4b: row invariance of the RMS mean")
@@ -2180,13 +2609,51 @@ def main() -> int:
         log("== phase 4u: small seq2seq net at H 640 (the blocked tier), "
             "card vs CPU plain path (fp32)")
         phase_seq2seq_small(dev, 640)
+        set_flags(**BENCH_FLAGS)
+        log("== phase 4w: transformer main path (bench.py's attention row: "
+            "B 16, T 2048, V 30000, D 512, 8 heads, 4 layers, ffn 2048, "
+            "use_bf16 + bf16_activations, Adam lr 1e-3 clip 25)")
+        attn_launches, transformer, trainer, feed = phase_transformer(
+            dev, ATTN_STEPS, ATTN_WARM)
+        for name in launches:
+            launches[name]["transformer"] = attn_launches[name]
+        log("  profile of 3 transformer steps")
+        phase_profile_train(trainer, feed)
+        del trainer, feed
+        torch.cuda.empty_cache()
+        log("== phase 4x: padded_mixed (lengths in [T/4, T], seed 1), "
+            "padded and packed")
+        attn_mixed = {}
+        for packed in (False, True):
+            tag = "packed" if packed else "padded"
+            mix_launches, attn_mixed[tag], trainer, feed = phase_transformer(
+                dev, ATTN_AB_STEPS, 1, packed=packed, mixed=True, seed=1)
+            for name in launches:
+                launches[name][f"transformer_{tag}_mixed"] = \
+                    mix_launches[name]
+            log(f"  profile of 3 {tag} steps")
+            phase_profile_train(trainer, feed)
+            del trainer, feed
+            torch.cuda.empty_cache()
+        log("== phase 4y: causal_t2048, block_skip mode")
+        causal_launches, causal, trainer, feed = phase_transformer(
+            dev, ATTN_AB_STEPS, 1, causal=True)
+        for name in launches:
+            launches[name]["transformer_causal"] = causal_launches[name]
+        del trainer, feed
+        torch.cuda.empty_cache()
+        log("== phase 4z: small transformer, card vs CPU plain path (fp32 "
+            "and bench.py's flags)")
+        small_attn = phase_transformer_small(dev)
+        set_flags(use_bf16=False, bf16_activations=False)
         log("== phase 5: kernel times at the main paths' shapes")
         rows = phase_time(dev, launches, serve) \
             + phase_time_lstm(dev, launches) \
             + phase_time_blocked(dev, launches) \
             + phase_time_conv(dev, launches) \
             + phase_time_gru(dev, launches) \
-            + phase_time_gru_blocked(dev, launches)
+            + phase_time_gru_blocked(dev, launches) \
+            + phase_time_flash(dev, launches)
     except SystemExit as e:
         print(e, file=sys.stderr)
         return 1
@@ -2200,7 +2667,11 @@ def main() -> int:
                       "training_h1280_mixed_bf16": mixed,
                       "training_h2048": wide, **resnet, "seq2seq": seq2seq,
                       "seq2seq_h1024": seq2seq_wide, "c1": c1,
-                      "card": card}))
+                      "transformer": transformer,
+                      "transformer_padded_mixed": attn_mixed["padded"],
+                      "transformer_packed_mixed": attn_mixed["packed"],
+                      "transformer_causal": causal,
+                      "transformer_small": small_attn, "card": card}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -35,7 +35,8 @@ from ..core.sequence import value_of
 from ..utils import FLAGS, PaddleTpuError, enforce
 from .base import (ForwardContext, Layer, cast_layer_output,
                    get_layer_class, init_parameter)
-from . import common, conv, cost, rnn, seq  # noqa: F401  (register layers)
+# register the layer types
+from . import attention, common, conv, cost, rnn, seq  # noqa: F401
 from .recurrent_group import RecurrentGroup, check_supported
 
 

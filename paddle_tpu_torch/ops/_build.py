@@ -41,12 +41,18 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _C = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 #: C signature of every kernel entry point: (library stem, symbol, argtypes).
 SIGNATURES = {
     "flash_packed_fwd": ("flash_packed_fwd",
                          [_C] * 6 + [_I] * 5 + [_F, _C]),
     "paged_decode_fwd": ("paged_decode",
                          [_C] * 6 + [_I] * 7 + [_F, _C]),
+    "flash_fwd": ("flash_fwd", [_C] * 9 + [_I] * 6 + [_L] * 6 + [_I, _F, _C]),
+    "flash_bwd_dq": ("flash_bwd_dq",
+                     [_C] * 11 + [_I] * 6 + [_L] * 8 + [_I, _F, _C]),
+    "flash_bwd_dkv": ("flash_bwd_dkv",
+                      [_C] * 12 + [_I] * 6 + [_L] * 8 + [_I, _F, _C]),
     "lstm_fwd": ("lstm_fwd", [_C] * 9 + [_I] * 4 + [_C]),
     "lstm_bwd": ("lstm_bwd", [_C] * 16 + [_I] * 4 + [_C]),
     "lstm_fwd_blocked": ("lstm_fwd_blocked", [_C] * 9 + [_I] * 3 + [_C]),

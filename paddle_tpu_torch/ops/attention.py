@@ -1,60 +1,146 @@
-"""Attention for the serving path (counterpart of
-``paddle_tpu/ops/pallas_attention.py``).
+"""Attention ops (counterpart of ``paddle_tpu/ops/pallas_attention.py``).
 
-Two kernels, each a hand-written CUDA C++ kernel for ``sm_90a`` with a
-plain PyTorch version beside it:
+Training: :func:`flash_attention` (padded rows with key lengths) and
+:func:`flash_attention_packed` (segment ids) take the reference's
+dispatch (:func:`_fa_forward`: the flags ``--flash_kernel`` and
+``--flash_block_sparse``, the Mosaic tiling gate) and its gradient rules
+(:class:`_FlashAttention`).  The block-sparse path runs three
+hand-written CUDA C++ kernels for ``sm_90a``, each with a plain PyTorch
+version beside it:
 
-- :func:`flash_attention_packed` — packed causal prefill
-  (``csrc/flash_packed_fwd.cu``; plain version :func:`_dense_forward`);
-- :func:`paged_decode_attention` — decode over the paged KV pool
-  (``csrc/paged_decode.cu``; plain version :func:`paged_decode_reference`).
+- :func:`flash_fwd` — kernel 1, training form (``csrc/flash_fwd.cu``;
+  plain version :func:`_dense_forward`);
+- :func:`flash_bwd_dq` — kernel 3 (``csrc/flash_bwd_dq.cu``);
+- :func:`flash_bwd_dkv` — kernel 4 (``csrc/flash_bwd_dkv.cu``; plain
+  version of both :func:`_dense_grads`).
 
-A wrapper checks device, dtype, shape and contiguity first.  A tensor on
-the CPU then takes the plain version; a CUDA tensor launches the kernel
-or raises — there is no fallback.  Each wrapper counts its kernel
-launches in a plain integer attribute (``flash_attention_packed.launches``,
-``paged_decode_attention.launches``), added to only where the kernel is
-launched.
+The dense path (flash off, an untileable shape, packed under
+``--flash_block_sparse=false``) is the plain composition on every
+device.  The legacy full grid (``--flash_block_sparse=false``, padded)
+runs the reference's kernels 2, 5 and 6, which are not ported yet: on
+CUDA it raises, on the CPU it takes the plain version.  Every decision is
+counted in :data:`attention_dispatch_total` with the reference's
+``(path, reason)`` labels.
 
-Layouts are the JAX package's: q, k, v ``[B, T, H, D]``; lse ``[B, H, T]``.
+Serving: :func:`prefill_attention_packed` — packed causal fp32 prefill
+(``csrc/flash_packed_fwd.cu``; plain version :func:`_dense_forward`) —
+and :func:`paged_decode_attention` — decode over the paged KV pool
+(``csrc/paged_decode.cu``; plain version :func:`paged_decode_reference`).
+
+A wrapper checks device, dtype, shape and layout first.  A tensor on the
+CPU then takes the plain version; a CUDA tensor launches the kernel or
+raises — there is no fallback.  Each wrapper counts its kernel launches
+in a plain integer attribute (``flash_fwd.launches`` and so on), added
+to only where the kernel is launched.
+
+Layouts are the JAX package's: q, k, v ``[B, T, H, D]``; lse and delta
+``[B, H, T]``.
 """
 
 from __future__ import annotations
 
+import collections
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
-from ..utils import enforce
+from ..utils import FLAGS, PaddleTpuError, enforce, get_logger, warn_once
 from . import _build
 
 NEG_INF = -1e30
+#: Rows of the training kernels' outer tile and the unit of their
+#: block-sparse windows (``kRows`` in ``csrc/flash_common.cuh``).
+KERNEL_TILE = 64
+#: Head dims the training kernels are compiled for.
+KERNEL_HEAD_DIMS = (32, 64, 128)
+
+_log = get_logger("ops.attention")
+
+#: ``(path, reason)`` → count: the labels of the JAX package's
+#: ``attention_dispatch_total`` counter (which counts once per traced
+#: call; this one once per call).
+attention_dispatch_total: "collections.Counter" = collections.Counter()
+
+
+def record_attention_dispatch(path: str, reason: str = "") -> None:
+    """Count one attention lowering decision; ``reason`` is set when a
+    flash-capable call took a fallback, with the same labels the
+    one-time fallback warnings use."""
+    attention_dispatch_total[(path, reason)] += 1
+
+
+def _warn_dense_fallback(reason: str, tq: int, tk: int, bq: int,
+                         bk: int) -> None:
+    warn_once(
+        f"flash_attention_dense_fallback:{reason}:{tq}x{tk}",
+        "flash_attention: dense fallback taken for Tq=%d Tk=%d (blocks "
+        "%d/%d): %s", tq, tk, bq, bk, reason, logger=_log)
+
+
+def _choose_block(t: int, want: int) -> int:
+    b = min(want, t)
+    while t % b:
+        b //= 2
+    return max(b, 1)
+
+
+def _tiling_ok(tq: int, tk: int, bq: int, bk: int) -> bool:
+    """The reference's block constraints (the lse block's last dim a
+    multiple of 128 or the whole Tq; the k/v block a multiple of 8 or
+    the whole Tk), held on every device so the port takes the
+    reference's path at every shape."""
+    ok_q = bq % 128 == 0 or bq == tq
+    ok_k = bk % 8 == 0 or bk == tk
+    return ok_q and ok_k
+
+
+def packed_tileable(t_total: int, block_q: int, block_k: int) -> bool:
+    """Would a packed (flattened, self-attention) layout of ``t_total``
+    tokens take the flash path?  The layer checks this first and reverts
+    an untileable flatten to the padded per-row lowering."""
+    bq = _choose_block(t_total, block_q)
+    bk = _choose_block(t_total, block_k)
+    return _tiling_ok(t_total, t_total, bq, bk)
 
 
 # ------------------------------------------------------------ plain versions
-def _mask_scores(s: torch.Tensor, causal: bool, segments: torch.Tensor
-                 ) -> torch.Tensor:
-    """Apply the causal and packed-segment masks to ``[B, H, Tq, Tk]``
-    scores: a query sees keys of its own segment id (``-1`` = padding
-    sees nothing), at or before its position when ``causal``."""
+def _mask_scores(s: torch.Tensor, causal: bool,
+                 lengths: Optional[torch.Tensor] = None,
+                 segments: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Apply the causal, key-length and packed-segment masks to
+    ``[B, H, Tq, Tk]`` scores: a query sees keys before its row's length,
+    at or before its position when ``causal``, and (packed) of its own
+    segment id (``-1`` = padding sees nothing)."""
     tq, tk = s.shape[-2], s.shape[-1]
+    dev = s.device
     if causal:
-        keep = (torch.arange(tq, device=s.device)[:, None]
-                >= torch.arange(tk, device=s.device)[None, :])
+        keep = (torch.arange(tq, device=dev)[:, None]
+                >= torch.arange(tk, device=dev)[None, :])
         s = s.masked_fill(~keep[None, None], NEG_INF)
-    sq = segments[:, None, :, None]
-    sk = segments[:, None, None, :]
-    return s.masked_fill(~((sq == sk) & (sq >= 0)), NEG_INF)
+    if lengths is not None:
+        valid = torch.arange(tk, device=dev)[None, :] < lengths[:, None]
+        s = s.masked_fill(~valid[:, None, None, :], NEG_INF)
+    if segments is not None:
+        sq = segments[:, None, :, None]
+        sk = segments[:, None, None, :]
+        s = s.masked_fill(~((sq == sk) & (sq >= 0)), NEG_INF)
+    return s
 
 
-def _dense_forward(q, k, v, causal, segments
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain masked attention with the kernel's ``(out, lse)`` contract;
-    a fully-masked query row emits zeros and lse ``NEG_INF / 2``."""
+def _scores(q, k, lengths, causal, segments) -> torch.Tensor:
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    s = _mask_scores(s, causal, segments)
+    return _mask_scores(s, causal, lengths, segments)
+
+
+def _dense_forward(q, k, v, lengths, causal, segments=None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain masked attention with the kernels' ``(out, lse)`` contract,
+    in f32 from the inputs' values: out in q's dtype, lse f32; a
+    fully-masked query row emits zeros and lse ``NEG_INF / 2``."""
+    s = _scores(q, k, lengths, causal, segments)
     m_safe = torch.clamp(s.amax(dim=-1), min=NEG_INF / 2)
     l = torch.exp(s - m_safe[..., None]).sum(dim=-1)
     l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
@@ -62,6 +148,95 @@ def _dense_forward(q, k, v, causal, segments
     p = torch.exp(s - lse[..., None])
     out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
     return out.to(q.dtype), lse
+
+
+def _delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """The softmax backward's row term ``Σ_d dO·O``, f32 ``[B, H, T]``
+    (the reference's ``_bwd_residual_streams``)."""
+    return torch.einsum("bqhd,bqhd->bhq", do.float(), out.float()) \
+        .contiguous()
+
+
+def _dense_grads(q, k, v, do, lse, delta, lengths, causal, segments=None,
+                 want: str = "all"):
+    """Plain version of the backward kernels: p rebuilt from ``lse`` with
+    the forward's masks, ds = p·(dO·vᵀ − delta); ``want`` "dq" gives dq,
+    "dkv" gives (dk, dv), "all" (dq, dk, dv), each in its input's dtype."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    dof = do.float()
+    p = torch.exp(_scores(q, k, lengths, causal, segments) - lse[..., None])
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", dof, v.float())
+              - delta[..., None])
+    out = []
+    if want in ("dq", "all"):
+        out.append((torch.einsum("bhqk,bkhd->bqhd", ds, k.float())
+                    * scale).to(q.dtype))
+    if want in ("dkv", "all"):
+        out.append((torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+                    * scale).to(k.dtype))
+        out.append(torch.einsum("bhqk,bqhd->bkhd", p, dof).to(v.dtype))
+    return out[0] if want == "dq" else tuple(out)
+
+
+def _dense_backward(q, k, v, lengths, out, lse, do, causal, segments=None):
+    """The dense path's backward (the reference's ``_dense_backward``):
+    the exact composition the kill switches and untileable shapes take."""
+    return _dense_grads(q, k, v, do, lse, _delta(out, do), lengths, causal,
+                        segments)
+
+
+# ------------------------------------------------------ block-sparse windows
+def _segment_windows(segments: torch.Tensor, tile: int = KERNEL_TILE
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(lo, hi)`` int32 ``[B, n]``: for each tile of ``tile`` tokens the
+    tiles ``[lo, hi)`` whose valid segment range meets its own (the
+    reference's ``_segment_windows``, exclusive hi; a tile with no valid
+    token gets an empty window).  The axis is padded with ``-1`` to whole
+    tiles.  The relation is symmetric, so one pair serves the q-major
+    and the k-major walks of packed self-attention."""
+    b, t = segments.shape
+    n = -(-t // tile)
+    seg = F.pad(segments, (0, n * tile - t), value=-1) \
+        .reshape(b, n, tile)
+    big = 2 ** 30
+    valid = seg >= 0
+    lo_id = torch.where(valid, seg, big).amin(dim=2)            # [B, n]
+    hi_id = torch.where(valid, seg, -big).amax(dim=2)
+    live = (hi_id[:, None, :] >= lo_id[:, :, None]) \
+        & (lo_id[:, None, :] <= hi_id[:, :, None])              # [B, n, n]
+    idx = torch.arange(n, dtype=torch.int32, device=segments.device)
+    lo = torch.where(live, idx, n).amin(dim=2)
+    hi = torch.where(live, idx, -1).amax(dim=2) + 1
+    return lo.to(torch.int32).contiguous(), hi.to(torch.int32).contiguous()
+
+
+def tile_windows(lengths: Optional[torch.Tensor],
+                 segments: Optional[torch.Tensor], b: int, tq: int, tk: int,
+                 device) -> Tuple[Tuple[torch.Tensor, torch.Tensor],
+                                  Tuple[torch.Tensor, torch.Tensor]]:
+    """The kernels' live windows, in units of :data:`KERNEL_TILE` rows:
+    ``((lo_q, hi_q), (lo_k, hi_k))`` int32, ``[B, ceil(Tq/64)]`` key
+    tiles per q tile (kernels 1 and 3) and ``[B, ceil(Tk/64)]`` q tiles
+    per key tile (kernel 4), exclusive hi.  Padded rows: key tiles below
+    the row's length, and every q tile for a key tile that starts below
+    it (the reference's ``_length_windows`` and its k-major liveness);
+    packed: :func:`_segment_windows`.  The causal diagonal is applied in
+    the kernels."""
+    if segments is not None:
+        win = _segment_windows(segments)
+        return win, win
+    n_q, n_k = -(-tq // KERNEL_TILE), -(-tk // KERNEL_TILE)
+    if lengths is None:
+        lens = torch.full((b,), tk, dtype=torch.int32, device=device)
+    else:
+        lens = lengths.to(torch.int32).clamp(0, tk)
+    hi_q = ((lens + KERNEL_TILE - 1) // KERNEL_TILE)[:, None] \
+        .expand(b, n_q).contiguous()
+    starts = torch.arange(n_k, dtype=torch.int32, device=device) \
+        * KERNEL_TILE
+    hi_k = (starts[None, :] < lens[:, None]).to(torch.int32) * n_q
+    return ((torch.zeros((b, n_q), dtype=torch.int32, device=device), hi_q),
+            (torch.zeros((b, n_k), dtype=torch.int32, device=device), hi_k))
 
 
 def segments_from_lengths(lengths: torch.Tensor, batch: int, t: int
@@ -206,15 +381,24 @@ def _check_int(name: str, t: torch.Tensor, shape) -> None:
     enforce(t.is_contiguous(), f"{name}: expected a contiguous tensor")
 
 
-def _kernel_ready(tensors, d: int) -> bool:
-    """True when the tensors are on CUDA (launch the kernel), False when
-    all lie on the CPU (plain version); raises on anything else."""
-    devs = {t.device for t in tensors}
+def _on_cuda(tensors) -> bool:
+    """True when the (non-None) tensors are on CUDA (launch the kernel),
+    False when all lie on the CPU (plain version); raises on anything
+    else."""
+    devs = {t.device for t in tensors if t is not None}
     enforce(len(devs) == 1, f"tensors on different devices: {devs}")
     dev = devs.pop()
     if dev.type == "cpu":
         return False
     enforce(dev.type == "cuda", f"unsupported device {dev}")
+    return True
+
+
+def _kernel_ready(tensors, d: int) -> bool:
+    """:func:`_on_cuda`, raising on CUDA for what the serving kernels do
+    not take."""
+    if not _on_cuda(tensors):
+        return False
     enforce(d % 4 == 0 and d <= 256,
             f"CUDA kernel needs head dim % 4 == 0 and <= 256, got {d}")
     enforce(all(t.data_ptr() % 16 == 0 for t in tensors),
@@ -222,11 +406,12 @@ def _kernel_ready(tensors, d: int) -> bool:
     return True
 
 
-def flash_attention_packed(q, k, v, segments, causal: bool = False,
-                           slot: int = 0
-                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Packed (ragged-batch) attention: tokens attend only within their
-    segment; returns ``(out [B, T, H, D], lse [B, H, T])`` in fp32.
+def prefill_attention_packed(q, k, v, segments, causal: bool = False,
+                             slot: int = 0
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Serving's packed (ragged-batch) fp32 prefill: tokens attend only
+    within their segment; returns ``(out [B, T, H, D], lse [B, H, T])``
+    in fp32.
 
     ``segments``: int32 ``[B, T]`` per-token segment ids, ``-1`` marking
     padding (which emits zeros).  ``causal`` applies along the packed
@@ -242,7 +427,7 @@ def flash_attention_packed(q, k, v, segments, causal: bool = False,
                 f"{name} shape {tuple(x.shape)} != q {tuple(q.shape)}")
     _check_int("segments", segments, (b, t))
     if not _kernel_ready((q, k, v, segments), d):
-        return _dense_forward(q, k, v, causal, segments)
+        return _dense_forward(q, k, v, None, causal, segments)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     if q.numel() == 0:
@@ -253,11 +438,11 @@ def flash_attention_packed(q, k, v, segments, causal: bool = False,
              1.0 / math.sqrt(d), torch.cuda.current_stream(q.device)
              .cuda_stream)
     enforce(err == 0, f"flash_packed_fwd launch failed (cudaError {err})")
-    flash_attention_packed.launches += 1
+    prefill_attention_packed.launches += 1
     return out, lse
 
 
-flash_attention_packed.launches = 0
+prefill_attention_packed.launches = 0
 
 
 def paged_decode_attention(q, k_pages, v_pages, page_indices, lengths
@@ -308,8 +493,342 @@ def paged_decode_attention(q, k_pages, v_pages, page_indices, lengths
 
 paged_decode_attention.launches = 0
 
+
+# ------------------------------------------------------- training wrappers
+_DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
+
+
+def _check_qkv(q, k, v) -> Tuple[int, int, int, int, int]:
+    """(B, Tq, Tk, H, D) of ``q [B, Tq, H, D]``, ``k``/``v [B, Tk, H, D]``,
+    all bf16 or all fp32 alike."""
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        enforce(isinstance(x, torch.Tensor) and x.dim() == 4,
+                f"{name}: expected [B, T, H, D], got "
+                f"{tuple(getattr(x, 'shape', ()))}")
+        enforce(x.dtype in _DTYPE_CODE,
+                f"{name}: expected bfloat16 or float32, got {x.dtype}")
+    enforce(k.dtype == q.dtype and v.dtype == q.dtype,
+            f"q/k/v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
+    b, tq, h, d = q.shape
+    enforce(k.shape == v.shape and k.shape[0] == b and k.shape[2:] == (h, d),
+            f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do not match q "
+            f"{tuple(q.shape)}")
+    return b, tq, k.shape[1], h, d
+
+
+def _check_rows(name: str, x, shape, dtype) -> None:
+    enforce(isinstance(x, torch.Tensor) and tuple(x.shape) == tuple(shape)
+            and x.dtype == dtype,
+            f"{name}: expected {dtype} {tuple(shape)}, got "
+            f"{getattr(x, 'dtype', type(x))} {tuple(getattr(x, 'shape', ()))}")
+
+
+def _on_card(tensors, d: int) -> bool:
+    """:func:`_on_cuda`, raising on CUDA for what the flash kernels do not
+    take (:func:`_check_card`)."""
+    if not _on_cuda(tensors):
+        return False
+    _check_card([x for x in tensors if x is not None], d)
+    return True
+
+
+def _check_card(tensors, d: int) -> None:
+    """Raise on what the flash kernels do not take: a head dim they are
+    not built for, or a tensor off 16-byte alignment."""
+    enforce(d in KERNEL_HEAD_DIMS,
+            f"the flash kernels take head dim {KERNEL_HEAD_DIMS}, got {d}")
+    enforce(all(x.data_ptr() % 16 == 0 for x in tensors),
+            "the flash kernels need 16-byte aligned tensors")
+
+
+def _strides(name: str, x: torch.Tensor) -> Tuple[int, int]:
+    """(batch, token) strides of a ``[B, T, H, D]`` operand whose heads'
+    D values are contiguous and D apart — the kernels read q/k/v views of
+    a packed projection in place — with rows at 16-byte multiples."""
+    b, t, h, d = x.shape
+    enforce(x.stride(3) == 1 and (h == 1 or x.stride(2) == d),
+            f"{name}: expected contiguous heads, strides {x.stride()}")
+    unit = 16 // x.element_size()
+    sb = x.stride(0) if b > 1 else 0
+    st = x.stride(1) if t > 1 else 0
+    enforce(sb % unit == 0 and st % unit == 0,
+            f"{name}: batch/token strides {sb}/{st} not 16-byte multiples")
+    return sb, st
+
+
+def _int_arg(name: str, x: Optional[torch.Tensor], shape) -> None:
+    if x is not None:
+        _check_int(name, x, shape)
+
+
+def _ptr(x: Optional[torch.Tensor]) -> Optional[int]:
+    return None if x is None else x.data_ptr()
+
+
+def _launch(symbol: str, device, *args) -> None:
+    """Launch ``symbol`` on the current stream of ``device``; raise if
+    the launch is refused."""
+    err = _build.kernel(symbol)(
+        *args, torch.cuda.current_stream(device).cuda_stream)
+    enforce(err == 0, f"{symbol} launch failed (cudaError {err})")
+
+
+def _is_cuda(x: torch.Tensor) -> bool:
+    return x.device.type == "cuda"
+
+
+def _windows(win, lengths, segments, b, tq, tk, device, which: int):
+    """The caller's window pair, or the call's own (:func:`tile_windows`)."""
+    if win is None:
+        win = tile_windows(lengths, segments, b, tq, tk, device)[which]
+    n = -(-(tq if which == 0 else tk) // KERNEL_TILE)
+    for name, x in zip(("win_lo", "win_hi"), win):
+        _check_int(name, x, (b, n))
+    return win
+
+
+def _common_args(q, k, v, lengths, segments, causal):
+    b, tq, tk, h, d = _check_qkv(q, k, v)
+    enforce(not causal or tq == tk,
+            f"causal attention needs Tq == Tk, got {tq}/{tk}")
+    enforce(segments is None or tq == tk,
+            f"packed attention needs Tq == Tk, got {tq}/{tk}")
+    _int_arg("lengths", lengths, (b,))
+    _int_arg("segments", segments, (b, tk))
+    return b, tq, tk, h, d
+
+
+def flash_fwd(q, k, v, lengths=None, segments=None, causal: bool = False,
+              windows=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 1, training form (``csrc/flash_fwd.cu``): ``(out [B, Tq, H,
+    D] in q's dtype, lse [B, H, Tq] f32)`` over the live key tiles.
+
+    ``lengths`` int32 ``[B]`` valid keys per row (None: all), or
+    ``segments`` int32 ``[B, T]`` packed segment ids (self-attention);
+    ``windows`` the q-major pair of :func:`tile_windows` (computed here
+    when None).  Plain version: :func:`_dense_forward`."""
+    b, tq, tk, h, d = _common_args(q, k, v, lengths, segments, causal)
+    if not _on_card((q, k, v, lengths, segments), d):
+        return _dense_forward(q, k, v, lengths, causal, segments)
+    lo, hi = _windows(windows, lengths, segments, b, tq, tk, q.device, 0)
+    out = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+    if out.numel() == 0:
+        return out, lse
+    _launch("flash_fwd", q.device, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(), lse.data_ptr(), _ptr(lengths),
+            _ptr(segments), lo.data_ptr(), hi.data_ptr(), b, tq, tk, h, d,
+            _DTYPE_CODE[q.dtype], *_strides("q", q), *_strides("k", k),
+            *_strides("v", v), int(bool(causal)), 1.0 / math.sqrt(d))
+    flash_fwd.launches += 1
+    return out, lse
+
+
+flash_fwd.launches = 0
+
+
+def _bwd_args(q, k, v, do, lse, delta, lengths, segments, causal):
+    b, tq, tk, h, d = _common_args(q, k, v, lengths, segments, causal)
+    _check_rows("do", do, (b, tq, h, d), q.dtype)
+    _check_rows("lse", lse, (b, h, tq), torch.float32)
+    _check_rows("delta", delta, (b, h, tq), torch.float32)
+    enforce(lse.is_contiguous() and delta.is_contiguous(),
+            "lse/delta: expected contiguous tensors")
+    return b, tq, tk, h, d
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, lengths=None, segments=None,
+                 causal: bool = False, windows=None) -> torch.Tensor:
+    """Kernel 3 (``csrc/flash_bwd_dq.cu``): dq ``[B, Tq, H, D]`` in q's
+    dtype from the forward's ``lse`` and ``delta`` (:func:`_delta`), over
+    the same live key tiles as :func:`flash_fwd`.  Plain version:
+    :func:`_dense_grads`."""
+    b, tq, tk, h, d = _bwd_args(q, k, v, do, lse, delta, lengths, segments,
+                                causal)
+    if not _on_card((q, k, v, do, lse, delta, lengths, segments), d):
+        return _dense_grads(q, k, v, do, lse, delta, lengths, causal,
+                            segments, want="dq")
+    lo, hi = _windows(windows, lengths, segments, b, tq, tk, q.device, 0)
+    dq = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
+    if dq.numel() == 0:
+        return dq
+    _launch("flash_bwd_dq", q.device, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), _ptr(lengths), _ptr(segments), lo.data_ptr(),
+            hi.data_ptr(), b, tq, tk, h, d, _DTYPE_CODE[q.dtype],
+            *_strides("q", q), *_strides("k", k), *_strides("v", v),
+            *_strides("do", do), int(bool(causal)), 1.0 / math.sqrt(d))
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_bwd_dq.launches = 0
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, lengths=None, segments=None,
+                  causal: bool = False, windows=None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 4 (``csrc/flash_bwd_dkv.cu``): ``(dk, dv) [B, Tk, H, D]`` in
+    k's and v's dtype over each key tile's live q tiles (``windows``: the
+    k-major pair of :func:`tile_windows`).  Plain version:
+    :func:`_dense_grads`."""
+    b, tq, tk, h, d = _bwd_args(q, k, v, do, lse, delta, lengths, segments,
+                                causal)
+    if not _on_card((q, k, v, do, lse, delta, lengths, segments), d):
+        return _dense_grads(q, k, v, do, lse, delta, lengths, causal,
+                            segments, want="dkv")
+    lo, hi = _windows(windows, lengths, segments, b, tq, tk, q.device, 1)
+    dk = torch.empty((b, tk, h, d), dtype=k.dtype, device=k.device)
+    dv = torch.empty((b, tk, h, d), dtype=v.dtype, device=v.device)
+    if dk.numel() == 0:
+        return dk, dv
+    _launch("flash_bwd_dkv", q.device, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), _ptr(lengths), _ptr(segments),
+            lo.data_ptr(), hi.data_ptr(), b, tq, tk, h, d,
+            _DTYPE_CODE[q.dtype], *_strides("q", q), *_strides("k", k),
+            *_strides("v", v), *_strides("do", do), int(bool(causal)),
+            1.0 / math.sqrt(d))
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv.launches = 0
+
+
+# ------------------------------------------------------ dispatch, autograd
+def _fa_forward(q, k, v, lengths, causal, block_q, block_k, segments=None,
+                slot=0):
+    """The reference's ``_fa_forward`` decision order → ``(out, lse,
+    path, windows)``: flash off → dense; an untileable shape → dense with
+    the one-time warning; block-sparse → kernel 1 (``block_sparse``, or
+    ``packed`` with the slot-hint warning); otherwise the legacy grid,
+    or dense for packed.  ``block_q``/``block_k`` matter only through
+    this gate: the kernels use their own tiles."""
+    b, tq, tk, h, d = _check_qkv(q, k, v)
+    enforce(not causal or tq == tk,
+            f"causal attention needs Tq == Tk, got {tq}/{tk}")
+    packed = segments is not None
+    enforce(not packed or tq == tk, "packed attention is self-attention: "
+            f"one segment table, Tq == Tk, got {tq}/{tk}")
+    bq = _choose_block(tq, block_q)
+    bk = _choose_block(tk, block_k)
+    if not FLAGS.get("flash_kernel"):
+        record_attention_dispatch("dense", "kill_switch:flash_kernel")
+        return (*_dense_forward(q, k, v, lengths, causal, segments),
+                "dense", None)
+    if not _tiling_ok(tq, tk, bq, bk):
+        reason = "untileable shape (lse/kv block constraints)"
+        record_attention_dispatch("dense", reason)
+        _warn_dense_fallback(reason, tq, tk, bq, bk)
+        return (*_dense_forward(q, k, v, lengths, causal, segments),
+                "dense", None)
+    if FLAGS.get("flash_block_sparse"):
+        reason = ""
+        if packed and slot and (slot % bq or slot % bk):
+            reason = "slot hint unusable (blocks straddle slots)"
+            warn_once(
+                f"flash_attention_packed_slot:{slot}:{bq}x{bk}",
+                "flash_attention_packed: slot hint %d unusable with blocks "
+                "%d/%d (not whole blocks per slot)", slot, bq, bk,
+                logger=_log)
+        record_attention_dispatch("packed" if packed else "block_sparse",
+                                  reason)
+        windows = tile_windows(lengths, segments, b, tq, tk, q.device) \
+            if _is_cuda(q) else (None, None)
+        return (*flash_fwd(q, k, v, lengths, segments, causal, windows[0]),
+                "sparse", windows)
+    if packed:
+        record_attention_dispatch(
+            "dense", "kill_switch:flash_block_sparse(packed)")
+        return (*_dense_forward(q, k, v, lengths, causal, segments),
+                "dense", None)
+    record_attention_dispatch("legacy_grid",
+                              "kill_switch:flash_block_sparse")
+    _refuse_legacy_on_card(q)
+    return (*_dense_forward(q, k, v, lengths, causal, segments), "legacy",
+            None)
+
+
+def _refuse_legacy_on_card(q: torch.Tensor) -> None:
+    if _is_cuda(q):
+        raise PaddleTpuError(
+            "--flash_block_sparse=false selects the legacy full grid: "
+            "kernels 2, 5, 6 not yet ported (ROADMAP A5b)")
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The reference's ``custom_vjp`` rules: the forward runs the
+    dispatch and saves ``(q, k, v, lengths | segments, out, lse)``; the
+    backward takes the forward's path — kernels 3 then 4 on the
+    block-sparse path, the plain dense backward on the dense path."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, lengths, segments, causal, block_q, block_k,
+                slot):
+        out, lse, path, windows = _fa_forward(
+            q, k, v, lengths, causal, block_q, block_k, segments, slot)
+        ctx.save_for_backward(q, k, v, lengths, segments, out, lse)
+        ctx.path, ctx.windows, ctx.causal = path, windows, causal
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, lengths, segments, out, lse = ctx.saved_tensors
+        if do.stride(-1) != 1 or do.stride(-2) != do.shape[-1]:
+            do = do.contiguous()
+        if ctx.path == "sparse":
+            delta = _delta(out, do)
+            dq = flash_bwd_dq(q, k, v, do, lse, delta, lengths, segments,
+                              ctx.causal, ctx.windows[0])
+            dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, lengths,
+                                   segments, ctx.causal, ctx.windows[1])
+        else:   # dense, or the legacy grid's plain version (CPU only)
+            dq, dk, dv = _dense_backward(q, k, v, lengths, out, lse, do,
+                                         ctx.causal, segments)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+def _as_index(x: Optional[torch.Tensor], device) -> Optional[torch.Tensor]:
+    if x is None:
+        return None
+    return x.to(device=device, dtype=torch.int32).contiguous()
+
+
+def flash_attention(q, k, v, lengths=None, causal: bool = False,
+                    block_q: int = 512, block_k: int = 512) -> torch.Tensor:
+    """softmax(q·kᵀ/√d)·v without a ``[T, T]`` score matrix in memory.
+
+    q ``[B, Tq, H, D]``, k and v ``[B, Tk, H, D]`` (bf16 or fp32 alike);
+    returns ``[B, Tq, H, D]`` in q's dtype.  ``lengths``: optional int
+    ``[B]`` valid key lengths — keys at or past the length are masked out
+    of the softmax, and (block-sparse path) key tiles wholly past it are
+    neither loaded nor visited."""
+    return _FlashAttention.apply(q, k, v, _as_index(lengths, q.device), None,
+                                 bool(causal), int(block_q), int(block_k), 0)
+
+
+def flash_attention_packed(q, k, v, segments, causal: bool = False,
+                           block_q: int = 512, block_k: int = 512,
+                           slot: int = 0) -> torch.Tensor:
+    """Packed (ragged-batch) attention: tokens attend only within their
+    segment.
+
+    q, k, v ``[B, T_total, H, D]``; ``segments`` int ``[B, T_total]``
+    per-token ids, non-decreasing over valid tokens with ``-1`` marking
+    padding (the packing contract).  Padding tokens give zero output and
+    zero gradients; ``causal`` applies along the packed axis.  ``slot``
+    (the reference's static slot width) enters only the dispatch labels:
+    the kernels' windows come from the segment ids themselves."""
+    return _FlashAttention.apply(q, k, v, None,
+                                 _as_index(segments, q.device),
+                                 bool(causal), int(block_q), int(block_k),
+                                 int(slot))
+
+
 #: Every kernel wrapper of this module (for counters and reports).
-KERNEL_WRAPPERS = (flash_attention_packed, paged_decode_attention)
+KERNEL_WRAPPERS = (prefill_attention_packed, paged_decode_attention,
+                   flash_fwd, flash_bwd_dq, flash_bwd_dkv)
 
 
 def reset_launch_counts() -> None:

@@ -2,7 +2,7 @@
 ``paddle_tpu/serving/model.py``).
 
 - :meth:`DecoderModel.prefill` runs a batch of mixed-length prompts with
-  ONE :func:`flash_attention_packed` launch per layer (``[B, T]`` rows
+  ONE :func:`prefill_attention_packed` launch per layer (``[B, T]`` rows
   flattened to one packed ``[1, B·T]`` row with
   :func:`segments_from_lengths`), writes every prompt token's K/V into
   the rows' pages (the :func:`paged_kv_write` scatter, its index built
@@ -39,8 +39,8 @@ from torch import nn
 
 from ..core.device import resolve_device
 from ..layers.beam_search import eos_frozen_logits
-from ..ops.attention import (flash_attention_packed, kv_write_index,
-                             paged_decode_attention, paged_kv_scatter,
+from ..ops.attention import (kv_write_index, paged_decode_attention,
+                             paged_kv_scatter, prefill_attention_packed,
                              segments_from_lengths)
 from ..utils import enforce
 from ..utils.jax_interop import decoder_param_shapes, params_from_jax
@@ -138,7 +138,7 @@ def _prefill_impl(p: Params, k_pool, v_pool, tokens, lengths, lengths_host,
         # the decode contract: K/V are in the pages before any later
         # step queries them — write the whole prompt now
         paged_kv_scatter(k_pool[i], v_pool[i], k, v, kv_index)
-        attn, _ = flash_attention_packed(
+        attn, _ = prefill_attention_packed(
             q.reshape(1, b * t, cfg.heads, dh),
             k.reshape(1, b * t, cfg.heads, dh),
             v.reshape(1, b * t, cfg.heads, dh),

@@ -10,7 +10,7 @@ Request lifecycle — admission → prefill → continuous-batch decode loop:
    shared :class:`~paddle_tpu_torch.serving.pagepool.PagePool`, so pool
    exhaustion is admission backpressure, never a mid-decode failure.
 2. **Prefill**: every request admitted in the same round runs in ONE
-   packed prefill (one ``flash_attention_packed`` launch per layer),
+   packed prefill (one ``prefill_attention_packed`` launch per layer),
    which writes the prompt K/V into the request's pages and yields the
    first generated token — the TTFT moment.
 3. **Decode loop**: one ``paged_decode_attention`` step per iteration

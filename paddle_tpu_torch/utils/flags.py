@@ -85,6 +85,23 @@ FLAGS.define("conv_bn_fuse_fwd", True,
              "reads its input (3x3 kernel / 1x1 GEMM prologue, ops/conv.py "
              "and ops/nn_ops.py) instead of materializing the normalized "
              "activation; off = the backward fusion alone")
+FLAGS.define("flash_kernel", True,
+             "run attention through the flash kernels (ops/attention.py); "
+             "off = the exact dense attention composition, for A/B traffic "
+             "measurement")
+FLAGS.define("flash_block_sparse", True,
+             "block-sparse flash attention: compact the KV walk per q-block "
+             "so blocks fully above the causal diagonal or past a row's "
+             "length are neither loaded nor visited (fwd + both backward "
+             "kernels); off = the legacy full (B*H, q_blocks, k_blocks) grid "
+             "that fetched every block and only skipped the compute, for "
+             "one-flag revert / A/B traffic measurement")
+FLAGS.define("attention_packing", True,
+             "sequence packing for attention layers with packed=True: "
+             "mixed-length rows share one [total_tokens] segment-id layout "
+             "where padding and cross-sequence blocks do zero work; off = "
+             "the layer ignores the packed attr and runs the exact padded "
+             "per-row lowering")
 FLAGS.define("fused_rnn_hblock", True,
              "the hidden-blocked LSTM tier for 512 < H (ops/lstm.py); off "
              "= such shapes take the per-step scan")

@@ -1,5 +1,7 @@
-"""The port's attention (``paddle_tpu_torch.ops.attention``) against the
-JAX package's (``paddle_tpu.ops.pallas_attention``) on the CPU.
+"""The port's serving attention (``paddle_tpu_torch.ops.attention``:
+``prefill_attention_packed``, ``paged_decode_attention``, the KV writes)
+against the JAX package's (``paddle_tpu.ops.pallas_attention``) on the
+CPU; the training entry points are held in test_torch_flash_train.py.
 
 Inputs come from a numpy seed and go through both.  The JAX side runs
 as its own tests run it here (Pallas kernels in interpret mode); the
@@ -49,7 +51,7 @@ def test_packed_attention_matches_jax(lengths, slot, causal):
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), seg_j,
         causal=causal, slot=slot))
     seg_t = ta.segments_from_lengths(torch.from_numpy(ln), len(ln), slot)
-    out, lse = ta.flash_attention_packed(
+    out, lse = ta.prefill_attention_packed(
         torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
         seg_t, causal=causal, slot=slot)
     np.testing.assert_allclose(out.numpy(), want, **TOL)
@@ -74,7 +76,7 @@ def test_packed_attention_general_segments():
     want, want_lse = jpa._dense_forward(jnp.asarray(q), jnp.asarray(k),
                                         jnp.asarray(v), None, True,
                                         jnp.asarray(seg))
-    out, lse = ta.flash_attention_packed(
+    out, lse = ta.prefill_attention_packed(
         *(torch.from_numpy(x) for x in (q, k, v)), torch.from_numpy(seg),
         causal=True)
     np.testing.assert_allclose(out.numpy(), np.asarray(want), **TOL)

@@ -62,13 +62,15 @@ def test_launch_counters_stay_zero_on_cpu():
         (1, 16, 2, 8)).astype(np.float32)) for _ in range(3))
     seg = ta.segments_from_lengths(torch.tensor([5, 8], dtype=torch.int32),
                                    2, 8)
-    ta.flash_attention_packed(q, k, v, seg, causal=True)
+    ta.prefill_attention_packed(q, k, v, seg, causal=True)
     kp = torch.zeros((4, 4, 2, 8))
     ta.paged_decode_attention(q[:, :2].reshape(2, 1, 2, 8).contiguous(),
                               kp, kp, torch.ones((2, 2), dtype=torch.int32),
                               torch.tensor([3, 1], dtype=torch.int32))
-    assert ta.flash_attention_packed.launches == 0
-    assert ta.paged_decode_attention.launches == 0
+    ta.flash_attention(q, k, v, torch.tensor([16], dtype=torch.int32),
+                       True).sum()
+    assert ta.prefill_attention_packed.launches == 0
+    assert all(fn.launches == 0 for fn in ta.KERNEL_WRAPPERS)
 
 
 def _packed_args():
@@ -84,11 +86,11 @@ def _decode_args():
 
 
 @pytest.mark.parametrize("wrapper,make,pos,bad", [
-    (ta.flash_attention_packed, _packed_args, 0,
+    (ta.prefill_attention_packed, _packed_args, 0,
      lambda t: t.to(torch.bfloat16)),
-    (ta.flash_attention_packed, _packed_args, 1,
+    (ta.prefill_attention_packed, _packed_args, 1,
      lambda t: t.transpose(1, 2).contiguous().transpose(1, 2)),
-    (ta.flash_attention_packed, _packed_args, 3,
+    (ta.prefill_attention_packed, _packed_args, 3,
      lambda t: t.to(torch.int64)),
     (ta.paged_decode_attention, _decode_args, 0,
      lambda t: t.to(torch.float16)),
@@ -122,6 +124,7 @@ from paddle_tpu_torch.trainer.trainer import Trainer  # noqa: E402
 def test_scan_covers_the_training_slice():
     scanned = {str(f.relative_to(PORT)) for f in PORT.rglob("*.py")}
     assert {"ops/lstm.py", "ops/recurrent_ops.py", "layers/network.py",
+            "ops/attention.py", "layers/attention.py", "models/text.py",
             "trainer/trainer.py", "optimizer/optimizers.py", "entry.py",
             "utils/jax_interop.py", "core/dtypes.py", "ops/math_ops.py",
             "optimizer/loss_scale.py"} <= scanned
