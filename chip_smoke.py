@@ -142,11 +142,34 @@ Phases (any failure exits nonzero, without the final ``ok`` line):
 4x. the row's ``padded_mixed`` reading (lengths in [T/4, T], seed 1),
    padded and packed (``packed`` decisions), 3 timed steps each: valid
    tokens/s, the same launch counts;
-4y. ``causal_t2048`` in block_skip mode, 3 timed steps;
+4y. ``causal_t2048`` in block_skip mode, 3 timed steps; then in legacy
+   mode (``--flash_block_sparse=false``), 3 timed steps: exactly 4
+   launches each of kernels 2, 5 and 6 a step, none of 1-train, 3 and
+   4, every decision ``legacy_grid``;
 4z. the small transformer of the CPU tests, padded and packed, fp32 and
    bench flags, card against the CPU plain path: loss and every
    gradient (fp32: loss rtol 1e-5, gradients 1e-4 * max|ref|; bench
    flags: 1e-3 and 5e-2), 2 launches each of kernels 1-train, 3 and 4;
+   then the same under ``--flash_block_sparse=false``: 2 launches each
+   of kernels 2, 5 and 6 (the layer does not pack under that flag);
+3h. kernels 2, 5 and 6 (the legacy grid) on 3g's unpacked cases and
+   inputs, through ``flash_attention`` and autograd and each wrapper
+   alone, against their plain versions and against kernels 1-train, 3
+   and 4 on the same inputs, with 3g's tolerances;
+3i. kernel 22 (the embedding row gather) against ``index_select`` of
+   the clamped rows, byte for byte: pads at the height and at -1,
+   duplicates, row V-1, one row, D 128 and 256, a 1e7 x 128 table;
+4-sparse. ``bench.py``'s sparse lane at bench scale (fp32): the lookup
+   composite (``unique_rows_sorted`` -> ``gather_rows`` ->
+   ``lookup_rows``) against ``index_select`` at 1e5, 1e6 and 1e7 x 128,
+   8192 ids, byte for byte, lookups/s; the CTR net's train A/B at V 1e7,
+   D 64, B 1024, T 16 with ``--sparse_grads`` on and off (ms/step,
+   samples/s, exchanged gradient bytes, peak memory; kernel 22 launched
+   0 times, its gate says ``unaligned``), the host syncs of one exchange
+   step (sync debug mode) and profiles of both; the same net at D 128
+   (one launch of kernel 22 a step); the kill-switch contracts
+   (``--embedding_kernel`` on and off byte-identical; ``--sparse_grads``
+   on and off within rtol 1e-4, atol 1e-6 after 3 steps at V 1024);
 5. each kernel at its main path's shapes: its time, its plain version's,
    one PyTorch yardstick call's where one computes the same function
    (SDPA for attention; ``torch.matmul`` for the blocked dW; none for
@@ -157,18 +180,23 @@ Phases (any failure exits nonzero, without the final ``ok`` line):
    line with the launches of each path's timed run (serving continuous,
    serving sequential, training at H 512, training at H 1280, ResNet-50,
    ResNet-50 without the forward fusion, resnet_cifar10, seq2seq,
-   seq2seq at H 1024, the transformer's four runs); kernels 13 and 14
+   seq2seq at H 1024, the transformer's five runs, the sparse
+   lane's lookups, A/B and D 128 step); kernels 13 and 14
    at the seq2seq encoder's shape, no library call (cuDNN's GRU applies
    the reset gate after the recurrent product); kernels 15-17 at the
    H 1024 encoder's shape,
    ``torch.matmul`` of the two dW products as 17's yardstick; kernels
    1-train, 3 and 4 at the transformer step's shape (q/k/v bf16 [16,
    2048, 8, 64], views of one projection), SDPA's forward as 1's
-   yardstick and its backward, one call, as that of 3 and 4 together.
+   yardstick and its backward, one call, as that of 3 and 4 together;
+   kernels 2, 5 and 6 at ``causal_t2048``'s (the same, causal), in turns
+   with kernels 1-train, 3 and 4 on the same inputs, SDPA causal as the
+   yardsticks; kernel 22 at the lane's 8192 rows of the 1e7 x 128
+   table, ``torch.index_select`` as its yardstick.
 
 Phases 3b-4f are PR 2's H 512 phases and run in fp32 (``use_bf16``
 off), so their readings stay comparable.  The order of the run: 1-3f,
-3g, 4-4k, 4l-4p, 4q-4r, 4t, 4v, 4s, 4u, 4w-4z, 5.
+3g-3i, 4-4k, 4l-4p, 4q-4r, 4t, 4v, 4s, 4u, 4w-4z, 4-sparse, 5.
 
 Also printed, for information: a ``torch.profiler`` window over one
 continuous pass and one over 3 training steps (device time by kernel,
@@ -263,9 +291,24 @@ FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # order); an fp32 output within FLASH_F32_RTOL * max|ref| + 1e-6 (q, k, v
 # held as hi + lo bf16: ~16 bits each); lse within FLASH_LSE_ATOL
 FLASH_BF16_RTOL, FLASH_F32_RTOL, FLASH_LSE_ATOL = 1e-3, 2e-4, 1e-4
+# the legacy full grid (--flash_block_sparse=false): kernels 2, 5, 6
+LEGACY_KERNELS = ("flash_fwd_legacy", "flash_bwd_dq_legacy",
+                  "flash_bwd_dkv_legacy")
+LEGACY_DECISION = ("legacy_grid", "kill_switch:flash_block_sparse")
 # the small transformer of the CPU tests, card vs CPU: loss rtol and
 # gradient tolerance (of max|ref|) in fp32 and under BENCH_FLAGS
 SMALL_ATTN_TOL = {"fp32": (1e-5, 1e-4), "bench": (1e-3, 5e-2)}
+# bench.py's sparse embedding lane at bench scale (_sparse_shapes,
+# bench.py:1427-1438; _sparse_trainer :1441-1476, its CTR net and
+# optimizer, models/ctr.py): lookup tables 1e5, 1e6, 1e7 x 128 fp32 over
+# 8192 ids; the train A/B at V 1e7, D 64, B 1024, T 16; fp32 (the lane
+# sets no bf16 flag, and kernel 22's gate takes fp32 tables only)
+SPARSE_SCAN, SPARSE_DIM, SPARSE_IDS = (10 ** 5, 10 ** 6, 10 ** 7), 128, 8192
+SPARSE_V, SPARSE_D, SPARSE_B, SPARSE_T = 10 ** 7, 64, 1024, 16
+SPARSE_WARM, SPARSE_STEPS = 2, 5
+# the --sparse_grads on/off contract (bench.py:1606-1622): V 1024, B 16,
+# seed 3, 3 steps, every parameter within rtol 1e-4 atol 1e-6
+SPARSE_EQ_RTOL, SPARSE_EQ_ATOL = 1e-4, 1e-6
 # the small seq2seq net, card vs CPU (fp32; rounding order through the
 # GRU kernels and 5 decoder steps): loss and gradients relative to max|ref|
 S2S_RTOL = 1e-4
@@ -313,24 +356,28 @@ def time_ms(fn, reps: int = 20, rounds: int = 5) -> float:
 def reset_counts() -> None:
     from paddle_tpu_torch.ops import attention as A
     from paddle_tpu_torch.ops import conv as C
+    from paddle_tpu_torch.ops import embedding as E
     from paddle_tpu_torch.ops import gru as G
     from paddle_tpu_torch.ops import lstm as L
     A.reset_launch_counts()
     L.reset_launch_counts()
     C.reset_launch_counts()
     G.reset_launch_counts()
+    E.reset_launch_counts()
 
 
 def read_counts():
     from paddle_tpu_torch.ops import attention as A
     from paddle_tpu_torch.ops import conv as C
+    from paddle_tpu_torch.ops import embedding as E
     from paddle_tpu_torch.ops import gru as G
     from paddle_tpu_torch.ops import lstm as L
     counts = {"flash_packed_fwd": A.prefill_attention_packed.launches,
               "paged_decode": A.paged_decode_attention.launches}
     counts.update({fn.__name__: fn.launches for fn in
                    A.KERNEL_WRAPPERS[2:] + L.KERNEL_WRAPPERS
-                   + C.KERNEL_WRAPPERS + G.KERNEL_WRAPPERS})
+                   + C.KERNEL_WRAPPERS + G.KERNEL_WRAPPERS
+                   + E.KERNEL_WRAPPERS})
     return counts
 
 
@@ -2379,14 +2426,16 @@ def attention_feed(b, t, vocab, dev, mixed=False, seed=0):
 
 
 def phase_transformer(dev, steps, warm, causal=False, packed=False,
-                      mixed=False, seed=0):
+                      mixed=False, seed=0, legacy=False):
     """Phases 4w-4y: the transformer classifier at bench.py's attention
     row under its flags: warm steps, then the timed steps between CUDA
     events with every launch count and the attention dispatch counter set
     to 0 just before them — finite losses, exactly one launch each of
-    kernels 1-train, 3 and 4 per layer a step and no other kernel, every
-    decision on the block-sparse path (``packed`` when the layer packs),
-    ms/step, tokens/s (valid tokens), host wall, peak memory."""
+    the path's three kernels per layer a step and no other kernel, every
+    decision on the path (``block_sparse``, ``packed`` when the layer
+    packs; with ``legacy``, ``--flash_block_sparse=false``: the legacy
+    grid, kernels 2, 5 and 6), ms/step, tokens/s (valid tokens), host
+    wall, peak memory."""
     from paddle_tpu_torch.config.model_config import OptimizationConfig
     from paddle_tpu_torch.layers.network import NeuralNetwork
     from paddle_tpu_torch.models import transformer_text_classifier
@@ -2398,21 +2447,28 @@ def phase_transformer(dev, steps, warm, causal=False, packed=False,
                       device=dev)
     feed, valid = attention_feed(ATTN_B, ATTN_T, ATTN["vocab_size"], dev,
                                  mixed, seed)
-    t0 = time.perf_counter()
-    warm_losses = [float(trainer.train_one_batch(feed)) for _ in range(warm)]
-    warm_s = time.perf_counter() - t0
-    A.attention_dispatch_total.clear()
-    launches, losses, ms, wall_ms, peak = timed_steps(trainer, feed, steps)
-    decisions = dict(A.attention_dispatch_total)
+    set_flags(flash_block_sparse=not legacy)
+    try:
+        t0 = time.perf_counter()
+        warm_losses = [float(trainer.train_one_batch(feed))
+                       for _ in range(warm)]
+        warm_s = time.perf_counter() - t0
+        A.attention_dispatch_total.clear()
+        launches, losses, ms, wall_ms, peak = timed_steps(trainer, feed,
+                                                          steps)
+        decisions = dict(A.attention_dispatch_total)
+    finally:
+        set_flags(flash_block_sparse=True)
     per_step = ATTN["num_layers"] * steps
     m = {"ms_per_step": ms, "tokens_per_s": valid * 1e3 / ms,
          "valid_tokens": valid, "host_wall_ms_per_step": wall_ms,
          "peak_mem_gb": peak, "warm_s": warm_s, "warm_losses": warm_losses,
          "losses": losses, "causal": causal, "packed": packed,
+         "legacy": legacy,
          "attention_dispatch": {"/".join(k): v for k, v in decisions.items()}}
     log(f"  {steps} timed steps (B {ATTN_B}, T {ATTN_T}, {valid} valid "
-        f"tokens, causal {causal}, packed {packed}; use_bf16 + "
-        f"bf16_activations): {ms:.3f} ms/step (CUDA events), "
+        f"tokens, causal {causal}, packed {packed}, legacy grid {legacy}; "
+        f"use_bf16 + bf16_activations): {ms:.3f} ms/step (CUDA events), "
         f"{m['tokens_per_s']:.1f} tokens/s, host wall {wall_ms:.3f} "
         f"ms/step, peak memory {peak:.2f} GB, {warm} warm steps "
         f"{warm_s:.1f} s; launches "
@@ -2422,74 +2478,596 @@ def phase_transformer(dev, steps, warm, causal=False, packed=False,
         f"{[round(x, 6) for x in losses]}")
     if not all(np.isfinite(warm_losses + losses)):
         fail("non-finite transformer training loss")
-    want_path = "packed" if packed else "block_sparse"
-    if decisions != {(want_path, ""): per_step}:
-        fail(f"attention decisions {decisions}, expected {per_step} "
-             f"{want_path}")
+    want = LEGACY_DECISION if legacy else \
+        ("packed" if packed else "block_sparse", "")
+    if decisions != {want: per_step}:
+        fail(f"attention decisions {decisions}, expected {per_step} {want}")
+    kernels = LEGACY_KERNELS if legacy else FLASH_KERNELS
     for name, n in launches.items():
-        want = per_step if name in FLASH_KERNELS else 0
-        if n != want:
+        want_n = per_step if name in kernels else 0
+        if n != want_n:
             fail(f"{name}: {n} launches in {steps} transformer steps, "
-                 f"expected {want}")
+                 f"expected {want_n}")
     return launches, m, trainer, feed
 
 
-def phase_transformer_small(dev):
+def phase_transformer_small(dev, legacy=False):
     """Phase 4z: the small transformer of the CPU tests (V 50, D 64, 2
     heads, 2 layers, ffn 128, blocks 128; B 2, T 256, lengths 256 and 93)
     padded and packed, in fp32 and under bench.py's flags, on the CPU
     (plain versions) and on the card from the same parameters: loss and
     every gradient within SMALL_ATTN_TOL; the card launches each of
-    kernels 1-train, 3 and 4 once per layer."""
+    kernels 1-train, 3 and 4 once per layer.  With ``legacy``
+    (``--flash_block_sparse=false``) kernels 2, 5 and 6 instead, packed
+    too: the layer does not pack under that flag (the reference's
+    ``unpacked`` decision)."""
     import torch
-    from paddle_tpu_torch.core.sequence import SequenceBatch
-    from paddle_tpu_torch.layers.network import NeuralNetwork
-    from paddle_tpu_torch.models import transformer_text_classifier
     rng = np.random.RandomState(1)
     ids = torch.from_numpy(rng.randint(0, 50, (2, 256)).astype(np.int32))
     labels = torch.from_numpy(rng.randint(0, 2, (2,)).astype(np.int32))
     lengths = torch.tensor([256, 93], dtype=torch.int32)
     out = {}
-    for flags in ("fp32", "bench"):
-        set_flags(use_bf16=flags == "bench", bf16_activations=flags == "bench")
-        for packed in (False, True):
-            net = NeuralNetwork(transformer_text_classifier(
-                vocab_size=50, model_dim=64, num_heads=2, num_layers=2,
-                ffn_dim=128, max_len=256, block_q=128, block_k=128,
-                packed=packed))
-            cpu_params = net.init_params(seed=0, device="cpu")
-            res = {}
-            for where in ("cpu", dev):
-                params = {n: p.to(where).requires_grad_(True)
-                          for n, p in cpu_params.items()}
-                feed = {"data": SequenceBatch(ids, lengths).to(where),
-                        "label": labels.to(where)}
-                reset_counts()
-                loss, _ = net.loss(params, feed)
-                grads = torch.autograd.grad(loss, list(params.values()))
-                res[str(where)] = (float(loss.detach()),
-                                   {n: g.float().cpu()
-                                    for n, g in zip(params, grads)})
-            launched = {k: n for k, n in read_counts().items() if n}
-            (l_cpu, g_cpu), (l_dev, g_dev) = res["cpu"], res[str(dev)]
-            rtol, grtol = SMALL_ATTN_TOL[flags]
-            ratio = max(((g_dev[n] - w).abs().max().item()
-                         / (grtol * w.abs().max().item() + 1e-8))
-                        for n, w in g_cpu.items())
-            log(f"  {flags}, packed {packed}: loss {l_dev:.7f} (card) vs "
-                f"{l_cpu:.7f} (CPU); gradients {ratio:.3f} of tolerance; "
-                f"the card's launches {launched}")
-            out[f"{flags}{'_packed' if packed else ''}"] = {
-                "loss_rel_err": abs(l_dev - l_cpu) / abs(l_cpu),
-                "grad_ratio": ratio}
-            if not np.isfinite(l_dev) or abs(l_dev - l_cpu) > \
-                    rtol * abs(l_cpu) or ratio > 1.0:
-                fail(f"card and CPU reference disagree on the small "
-                     f"transformer ({flags}, packed {packed})")
-            if launched != dict.fromkeys(FLASH_KERNELS, 2):
-                fail(f"the small transformer on the card launched "
-                     f"{launched}, expected 2 each of {FLASH_KERNELS}")
+    set_flags(flash_block_sparse=not legacy)
+    try:
+        for flags in ("fp32", "bench"):
+            set_flags(use_bf16=flags == "bench",
+                      bf16_activations=flags == "bench")
+            for packed in (False, True):
+                out[f"{flags}{'_packed' if packed else ''}"] = \
+                    _small_transformer_case(dev, ids, labels, lengths,
+                                            flags, packed, legacy)
+    finally:
+        set_flags(flash_block_sparse=True)
     return out
+
+
+def _small_transformer_case(dev, ids, labels, lengths, flags, packed,
+                            legacy):
+    import torch
+    from paddle_tpu_torch.core.sequence import SequenceBatch
+    from paddle_tpu_torch.layers.network import NeuralNetwork
+    from paddle_tpu_torch.models import transformer_text_classifier
+    net = NeuralNetwork(transformer_text_classifier(
+        vocab_size=50, model_dim=64, num_heads=2, num_layers=2,
+        ffn_dim=128, max_len=256, block_q=128, block_k=128, packed=packed))
+    cpu_params = net.init_params(seed=0, device="cpu")
+    res = {}
+    for where in ("cpu", dev):
+        params = {n: p.to(where).requires_grad_(True)
+                  for n, p in cpu_params.items()}
+        feed = {"data": SequenceBatch(ids, lengths).to(where),
+                "label": labels.to(where)}
+        reset_counts()
+        loss, _ = net.loss(params, feed)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        res[str(where)] = (float(loss.detach()),
+                           {n: g.float().cpu()
+                            for n, g in zip(params, grads)})
+    launched = {k: n for k, n in read_counts().items() if n}
+    (l_cpu, g_cpu), (l_dev, g_dev) = res["cpu"], res[str(dev)]
+    rtol, grtol = SMALL_ATTN_TOL[flags]
+    ratio = max(((g_dev[n] - w).abs().max().item()
+                 / (grtol * w.abs().max().item() + 1e-8))
+                for n, w in g_cpu.items())
+    log(f"  {flags}, packed {packed}, legacy grid {legacy}: loss "
+        f"{l_dev:.7f} (card) vs {l_cpu:.7f} (CPU); gradients {ratio:.3f} "
+        f"of tolerance; the card's launches {launched}")
+    if not np.isfinite(l_dev) or abs(l_dev - l_cpu) > \
+            rtol * abs(l_cpu) or ratio > 1.0:
+        fail(f"card and CPU reference disagree on the small transformer "
+             f"({flags}, packed {packed}, legacy grid {legacy})")
+    kernels = LEGACY_KERNELS if legacy else FLASH_KERNELS
+    if launched != dict.fromkeys(kernels, 2):
+        fail(f"the small transformer on the card launched {launched}, "
+             f"expected 2 each of {kernels}")
+    return {"loss_rel_err": abs(l_dev - l_cpu) / abs(l_cpu),
+            "grad_ratio": ratio}
+
+
+# ------------------------------------------------- legacy attention grid
+def phase_legacy_check(dev):
+    """Phase 3h: kernels 2, 5 and 6 (the legacy full grid) on 3g's
+    unpacked cases and inputs: through ``flash_attention`` and autograd
+    under ``--flash_block_sparse=false`` (every decision ``legacy_grid``)
+    and each wrapper alone, against their plain versions and against
+    kernels 1-train, 3 and 4 on the same inputs, with 3g's tolerances.
+    Returns the worst error per kernel against its plain version."""
+    import torch
+    from paddle_tpu_torch.ops import attention as A
+    errs = dict.fromkeys(LEGACY_KERNELS, 0.0)
+    for i, (label, b, tq, tk, h, d, dtype, causal, lengths, packed) in \
+            enumerate(flash_cases()):
+        if packed is not None:
+            continue               # packed input stays dense under the flag
+        q, k, v, do = flash_case(b, tq, tk, h, d, dtype, 10 + i, dev)
+        ln = None if lengths is None else torch.tensor(
+            lengths, dtype=torch.int32, device=dev)
+        A.attention_dispatch_total.clear()
+        qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
+        set_flags(flash_block_sparse=False)
+        try:
+            out = A.flash_attention(qg, kg, vg, ln, causal)
+            grads = torch.autograd.grad(out, (qg, kg, vg), do)
+        finally:
+            set_flags(flash_block_sparse=True)
+        if dict(A.attention_dispatch_total) != {LEGACY_DECISION: 1}:
+            fail(f"legacy case {label}: dispatch "
+                 f"{dict(A.attention_dispatch_total)}")
+        if not masked_zeros(out, *grads, ln, None):
+            fail(f"legacy case {label}: a masked row or key is not "
+                 "exactly 0")
+        ref, ref_lse = A._dense_forward(q, k, v, ln, causal)
+        delta = A._delta(ref, do)
+        ref_g = A._dense_grads(q, k, v, do, ref_lse, delta, ln, causal)
+        e2e = max(flash_error(a, r)[1] for a, r in
+                  zip((out,) + grads, (ref,) + ref_g))
+        legacy = (A.flash_fwd_legacy(q, k, v, ln, causal),
+                  A.flash_bwd_dq_legacy(q, k, v, do, ref_lse, delta, ln,
+                                        causal),
+                  A.flash_bwd_dkv_legacy(q, k, v, do, ref_lse, delta, ln,
+                                         causal))
+        sparse = (A.flash_fwd(q, k, v, ln, None, causal),
+                  A.flash_bwd_dq(q, k, v, do, ref_lse, delta, ln, None,
+                                 causal),
+                  A.flash_bwd_dkv(q, k, v, do, ref_lse, delta, ln, None,
+                                  causal))
+        sync(dev)
+        e_lse = (legacy[0][1] - ref_lse).abs().max().item()
+        alone = {"flash_fwd_legacy": flash_error(legacy[0][0], ref),
+                 "flash_bwd_dq_legacy": flash_error(legacy[1], ref_g[0]),
+                 "flash_bwd_dkv_legacy": max(
+                     flash_error(legacy[2][0], ref_g[1]),
+                     flash_error(legacy[2][1], ref_g[2]))}
+        pairs = [(legacy[0][0], sparse[0][0]), (legacy[1], sparse[1]),
+                 (legacy[2][0], sparse[2][0]), (legacy[2][1], sparse[2][1])]
+        vs_sparse = max(flash_error(a, r)[1] for a, r in pairs)
+        vs_abs = max((a.float() - r.float()).abs().max().item()
+                     for a, r in pairs + [(legacy[0][1], sparse[0][1])])
+        log(f"  {label}: B {b} Tq {tq} Tk {tk} H {h} D {d} "
+            f"{str(dtype)[6:]} causal {causal} lengths {lengths}: through "
+            f"autograd {e2e:.3f} of tolerance; alone "
+            + ", ".join(f"{n} {e:.3e} ({r:.3f})" for n, (e, r) in
+                        alone.items())
+            + f", lse {e_lse:.3e}; against kernels 1-train, 3, 4 "
+              f"{vs_sparse:.3f} of tolerance (max |diff| {vs_abs:.3e})")
+        if not (e2e <= 1.0 and e_lse <= FLASH_LSE_ATOL and vs_sparse <= 1.0
+                and all(r <= 1.0 for _, r in alone.values())):
+            fail(f"legacy kernels disagree in case {label}")
+        for n, (e, _) in alone.items():
+            errs[n] = max(errs[n], e)
+        del q, k, v, do, ref, ref_g, grads, out, legacy, sparse
+        torch.cuda.empty_cache()
+    return errs
+
+
+def causal_t2048_inputs(dev):
+    """q/k/v bf16 [16, 2048, 8, 64], views of one [16, 2048, 1536]
+    projection, and a cotangent: the causal_t2048 step's operands."""
+    import torch
+    b, t, h = ATTN_B, ATTN_T, ATTN["num_heads"]
+    size = ATTN["model_dim"]
+    g = torch.Generator(device=dev).manual_seed(0)
+    qkv = torch.randn(b, t, 3 * size, generator=g, device=dev).to(
+        torch.bfloat16)
+    q, k, v = (x.reshape(b, t, h, size // h) for x in qkv.split(size, -1))
+    do = torch.randn(b, t, h, size // h, generator=g, device=dev).to(
+        torch.bfloat16)
+    return q, k, v, do
+
+
+def phase_time_legacy(dev, launches):
+    """Kernels 2, 5 and 6 at the causal_t2048 step's shape (q/k/v bf16
+    [16, 2048, 8, 64], views of one projection, causal, all keys valid):
+    each against its plain version, then timed with it, with kernels
+    1-train, 3 and 4 on the same inputs, and with SDPA (causal forward
+    for kernel 2; its backward, one call, for kernels 5 and 6)."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import attention as A
+    q, k, v, do = causal_t2048_inputs(dev)
+    b, t, h, d = q.shape
+    out, lse = A.flash_fwd_legacy(q, k, v, None, True)
+    delta = A._delta(out, do)
+    win_q, win_k = A.tile_windows(None, None, b, t, t, dev)
+    calls = {
+        "flash_fwd_legacy": (
+            lambda: A.flash_fwd_legacy(q, k, v, None, True),
+            lambda: A._dense_forward(q, k, v, None, True),
+            lambda: A.flash_fwd(q, k, v, None, None, True, win_q)),
+        "flash_bwd_dq_legacy": (
+            lambda: A.flash_bwd_dq_legacy(q, k, v, do, lse, delta, None,
+                                          True),
+            lambda: A._dense_grads(q, k, v, do, lse, delta, None, True,
+                                   want="dq"),
+            lambda: A.flash_bwd_dq(q, k, v, do, lse, delta, None, None, True,
+                                   win_q)),
+        "flash_bwd_dkv_legacy": (
+            lambda: A.flash_bwd_dkv_legacy(q, k, v, do, lse, delta, None,
+                                           True),
+            lambda: A._dense_grads(q, k, v, do, lse, delta, None, True,
+                                   want="dkv"),
+            lambda: A.flash_bwd_dkv(q, k, v, do, lse, delta, None, None,
+                                    True, win_k))}
+    errs = {}
+    for name, (kern, plain, _) in calls.items():
+        got, want = kern(), plain()
+        res = [flash_error(a, r) for a, r in
+               zip(*((x,) if torch.is_tensor(x) else x for x in (got, want)))]
+        errs[name] = (max(e for e, _ in res), max(r for _, r in res))
+        del got, want
+    if any(r > 1.0 for _, r in errs.values()):
+        fail(f"legacy kernels disagree at the causal_t2048 shape: {errs}")
+    torch.cuda.empty_cache()
+    qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+    qr, kr, vr = (x.detach().requires_grad_(True) for x in (qh, kh, vh))
+    o_lib = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True)
+    doh = do.transpose(1, 2)
+    lib = {"fwd": time_events_ms(lambda: F.scaled_dot_product_attention(
+               qh, kh, vh, is_causal=True), reps=10),
+           "bwd": time_events_ms(
+               lambda: torch.autograd.grad(o_lib, (qr, kr, vr), doh,
+                                           retain_graph=True), reps=10)}
+    pairs = b * t * (t + 1) // 2                # visible (query, key) pairs
+    rows = []
+    for (name, (kern, plain, sparse)), base, line in zip(
+            calls.items(), FLASH_KERNELS, (467, 908, 936)):
+        # in turns: legacy, block-sparse, block-sparse, legacy
+        ms_a = time_ms(kern, reps=10, rounds=3)
+        sp_a = time_ms(sparse, reps=10, rounds=3)
+        sp_b = time_ms(sparse, reps=10, rounds=3)
+        ms_b = time_ms(kern, reps=10, rounds=3)
+        plain_ms = time_events_ms(plain, reps=2)
+        torch.cuda.empty_cache()
+        b_ms, b_by = bound_ms(*flash_work(base, b, t, t, h, d, pairs, 2),
+                              BF16_FLOPS_PER_S)
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"paddle_tpu_torch/csrc/{base}.cu",
+            "replaces": f"paddle_tpu/ops/pallas_attention.py:{line}",
+            "launches": sum(launches[name].values()),
+            "launches_by_path": launches[name],
+            "max_abs_err": errs[name][0], "ms": (ms_a + ms_b) / 2,
+            "ms_turns": [ms_a, ms_b], "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib["fwd" if name == "flash_fwd_legacy"
+                              else "bwd"],
+            "library": "F.scaled_dot_product_attention causal forward"
+                       if name == "flash_fwd_legacy" else
+                       "F.scaled_dot_product_attention causal backward (one "
+                       "call for kernels 5 and 6 together)",
+            "block_sparse_ms": (sp_a + sp_b) / 2,
+            "block_sparse_kernel": base,
+            "shape": f"q/k/v bf16 [{b},{t},{h},{d}] (views of one "
+                     f"projection), causal, all keys valid"})
+    for r in rows:
+        log(f"  {r['name']}: {r['ms'] * 1e3:.2f} us (turns "
+            f"{r['ms_turns'][0] * 1e3:.2f}, {r['ms_turns'][1] * 1e3:.2f}; "
+            f"{r['block_sparse_kernel']} on the same inputs "
+            f"{r['block_sparse_ms'] * 1e3:.2f} us; plain "
+            f"{r['plain_ms'] * 1e3:.2f} us, {r['library']} "
+            f"{r['library_ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.3f}"
+            f" us by {r['bound_by']}; {r['bound_ms'] / r['ms'] * 100:.1f} % "
+            f"of the bound rate); {r['shape']}")
+    return rows
+
+
+# ------------------------------------------------- sparse embedding lane
+def phase_gather_check(dev):
+    """Phase 3i: kernel 22 against ``index_select`` of the clamped rows,
+    byte for byte, directly and through ``gather_rows`` (every decision
+    ``kernel``): pads at the height and at -1, duplicates, row V-1, one
+    row, D 128 and 256, and the 1e7 x 128 table.  Returns the worst
+    absolute difference (0 when every case is byte-identical)."""
+    import torch
+    from paddle_tpu_torch.ops import embedding as E
+    g = torch.Generator(device=dev).manual_seed(3)
+    worst = 0.0
+    cases = [("pads, duplicates, row V-1", 1000, 128,
+              [5, 999, -1, 5, 1000, 0, 999, 1000]),
+             ("one row", 1000, 128, [999]),
+             ("D 256", 4096, 256, None),
+             ("1e7 x 128", 10 ** 7, 128, None)]
+    for label, vocab, d, rows in cases:
+        table = torch.randn(vocab, d, generator=g, device=dev)
+        if rows is None:
+            rows = torch.randint(-1, vocab + 1, (SPARSE_IDS,), generator=g,
+                                 device=dev, dtype=torch.int32)
+        else:
+            rows = torch.tensor(rows, dtype=torch.int32, device=dev)
+        want = table.index_select(0, rows.long().clamp(0, vocab - 1))
+        E.embedding_dispatch_total.clear()
+        got = E.embedding_gather(table, rows)
+        got2 = E.gather_rows(table, rows)
+        sync(dev)
+        diff = (got - want).abs().max().item()
+        same = torch.equal(got, want) and torch.equal(got2, want)
+        log(f"  {label}: table {vocab} x {d}, {rows.numel()} rows: "
+            f"byte-identical {same}, max |diff| {diff:.3e}; decisions "
+            f"{dict(E.embedding_dispatch_total)}")
+        if not same or dict(E.embedding_dispatch_total) != {("kernel", ""): 1}:
+            fail(f"kernel 22 disagrees with index_select ({label})")
+        worst = max(worst, diff)
+        del table
+    torch.cuda.empty_cache()
+    return worst
+
+
+def ctr_feed(vocab, b, t, dev, seed=0):
+    """bench.py's sparse feed (``_sparse_trainer``): ids in [0, V) then
+    labels in {0, 1} from ``RandomState(seed)``, full lengths."""
+    import torch
+    from paddle_tpu_torch.core.sequence import SequenceBatch
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, vocab, (b, t)).astype(np.int32)
+    labels = rng.randint(0, 2, (b,)).astype(np.int32)
+    return {"ids": SequenceBatch(torch.from_numpy(ids), torch.from_numpy(
+                np.full((b,), t, np.int32))).to(dev),
+            "label": torch.from_numpy(labels).to(dev)}
+
+
+def ctr_trainer(vocab, emb_dim, dev, sparse):
+    """The sparse lane's CTR trainer (``models/ctr.py``, Adam lr 1e-3 clip
+    25, the port's init, seed 0) with ``--sparse_grads`` set as asked
+    (the trainer reads it at its first step: train it before the flag
+    changes again)."""
+    from paddle_tpu_torch.config.model_config import OptimizationConfig
+    from paddle_tpu_torch.layers.network import NeuralNetwork
+    from paddle_tpu_torch.models import CTR_OPT, ctr_classifier
+    from paddle_tpu_torch.trainer.trainer import Trainer
+    set_flags(sparse_grads=sparse)
+    return Trainer(NeuralNetwork(ctr_classifier(vocab, emb_dim)),
+                   OptimizationConfig(**CTR_OPT), seed=0, device=dev)
+
+
+def _ctr_run(trainer, feed, steps, warm, kernel, label):
+    """Warm steps (the first reads ``--sparse_grads``), then ``steps``
+    timed ones: finite losses, the exchange plan as asked, kernel 22
+    launched once a step where ``kernel`` and never otherwise, every
+    embedding decision the gate's (``kernel``; ``dense/unaligned`` at
+    D 64) and only the path's kernel launched."""
+    from paddle_tpu_torch.ops import embedding as E
+    warm_losses = [float(trainer.train_one_batch(feed)) for _ in range(warm)]
+    plan = trainer._sparse_exchange_plan()
+    E.embedding_dispatch_total.clear()
+    launches, losses, ms, wall_ms, peak = timed_steps(trainer, feed, steps)
+    decisions = dict(E.embedding_dispatch_total)
+    b = feed["label"].shape[0]
+    m = {"ms_per_step": ms, "samples_per_s": b * 1e3 / ms,
+         "host_wall_ms_per_step": wall_ms, "peak_mem_gb": peak,
+         "warm_losses": warm_losses, "losses": losses,
+         "exchange_plan": plan,
+         "embedding_dispatch": {"/".join(k): v for k, v in decisions.items()},
+         "launches": {k: v for k, v in launches.items() if v}}
+    log(f"  {label}: {steps} timed steps {ms:.3f} ms/step (CUDA events), "
+        f"{m['samples_per_s']:.1f} samples/s, host wall {wall_ms:.3f} "
+        f"ms/step, peak memory {peak:.2f} GB; exchange plan {plan}; "
+        f"embedding_dispatch_total {decisions}; launches {m['launches']}; "
+        f"losses {[round(x, 6) for x in warm_losses + losses]}")
+    if not all(np.isfinite(warm_losses + losses)):
+        fail(f"non-finite CTR training loss ({label})")
+    d = trainer.params["_slot_emb.w"].shape[1]
+    want_dec = {} if not plan else \
+        {("kernel", "") if d % 128 == 0 else ("dense", "unaligned"): steps}
+    if decisions != want_dec:
+        fail(f"embedding decisions {decisions}, expected {want_dec} "
+             f"({label})")
+    for name, n in launches.items():
+        want = steps if kernel and name == "embedding_gather" else 0
+        if n != want:
+            fail(f"{name}: {n} launches in {steps} CTR steps, expected "
+                 f"{want} ({label})")
+    return launches, m
+
+
+def phase_sparse(dev):
+    """Phase 4-sparse: bench.py's sparse lane at bench scale, fp32.
+
+    - Lookup rows: tables 1e5, 1e6, 1e7 x 128 (random, on the card),
+      8192 ids from ``RandomState(V % 2**31)``: ``unique_rows_sorted`` ->
+      ``gather_rows`` (kernel 22) -> ``lookup_rows`` against
+      ``index_select`` of the raw ids, byte for byte; lookups/s of each.
+    - The train A/B: the CTR net at V 1e7, D 64, B 1024, T 16 with
+      ``--sparse_grads`` on, then off: ms/step, samples/s, exchanged
+      gradient bytes, peak memory; D 64 is ``unaligned``, so kernel 22
+      runs 0 times.  Whether one exchange step syncs the host
+      (``torch.cuda.set_sync_debug_mode("warn")``).
+    - Kernel 22 inside a step: the same net at D 128, sparse: one launch
+      a step.
+    - The kill-switch contracts: ``--embedding_kernel`` on and off give
+      byte-identical gathers (table 32 x 128, 8 rows, seed 7);
+      ``--sparse_grads`` on and off agree after 3 steps at V 1024, B 16,
+      T 16, seed 3 (every parameter within rtol 1e-4, atol 1e-6).
+
+    Returns (launches by path, readings)."""
+    import warnings
+
+    import torch
+    from paddle_tpu_torch.ops import embedding as E
+    from paddle_tpu_torch.parallel import sparse as P
+    out = {"lookup": {}}
+    lookup_launches = 0
+    for vocab in SPARSE_SCAN:
+        rng = np.random.RandomState(vocab % (2 ** 31))
+        ids = torch.from_numpy(rng.randint(0, vocab, (SPARSE_IDS,)).astype(
+            np.int32)).to(dev)
+        g = torch.Generator(device=dev).manual_seed(vocab % (2 ** 31))
+        table = torch.randn(vocab, SPARSE_DIM, generator=g, device=dev)
+
+        def sparse_lookup():
+            rows = P.unique_rows_sorted(ids, SPARSE_IDS, vocab)
+            return P.lookup_rows(rows, E.gather_rows(table, rows), ids)
+
+        def dense_lookup():
+            return table.index_select(0, ids.long())
+
+        E.embedding_dispatch_total.clear()
+        reset_counts()
+        same = torch.equal(sparse_lookup(), dense_lookup())
+        sp_ms = time_events_ms(sparse_lookup, reps=20)
+        d_ms = time_events_ms(dense_lookup, reps=20)
+        calls = E.embedding_gather.launches
+        lookup_launches += calls
+        decisions = dict(E.embedding_dispatch_total)
+        out["lookup"][f"v{vocab}"] = {
+            "sparse": {"lookups_per_s": SPARSE_IDS / sp_ms * 1e3,
+                       "call_ms": sp_ms},
+            "dense": {"lookups_per_s": SPARSE_IDS / d_ms * 1e3,
+                      "call_ms": d_ms}, "byte_identical": same}
+        log(f"  lookup V {vocab} x {SPARSE_DIM}, {SPARSE_IDS} ids: sparse "
+            f"composite {SPARSE_IDS / sp_ms * 1e3:.1f} lookups/s ({sp_ms:.4f}"
+            f" ms a call), index_select {SPARSE_IDS / d_ms * 1e3:.1f} "
+            f"lookups/s ({d_ms:.4f} ms); byte-identical {same}; decisions "
+            f"{decisions}, kernel 22 launches {calls}")
+        if not same or decisions != {("kernel", ""): calls} or calls == 0:
+            fail(f"sparse lookup at V {vocab}: equal {same}, decisions "
+                 f"{decisions}")
+        del table
+        torch.cuda.empty_cache()
+
+    # the train A/B at V 1e7, D 64 (bench.py's headline A/B)
+    feed = ctr_feed(SPARSE_V, SPARSE_B, SPARSE_T, dev)
+    ab = {}
+    ab_launches = {}
+    for sparse in (True, False):
+        tag = "sparse" if sparse else "dense"
+        trainer = ctr_trainer(SPARSE_V, SPARSE_D, dev, sparse)
+        ab_launches[tag], ab[tag] = _ctr_run(
+            trainer, feed, SPARSE_STEPS, SPARSE_WARM, False,
+            f"train A/B, --sparse_grads={str(sparse).lower()}, V "
+            f"{SPARSE_V} D {SPARSE_D} B {SPARSE_B} T {SPARSE_T}")
+        if bool(ab[tag]["exchange_plan"]) != sparse:
+            fail(f"exchange plan {ab[tag]['exchange_plan']} with "
+                 f"--sparse_grads={sparse}")
+        if sparse:
+            torch.cuda.synchronize()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    trainer.train_one_batch(feed)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                torch.cuda.synchronize()
+            # the mode's own notice ("a prototype feature ...") is no sync
+            syncs = [str(w.message).splitlines()[0] for w in caught
+                     if "called a synchronizing" in str(w.message)]
+            ab[tag]["host_syncs_in_one_step"] = len(syncs)
+            log(f"  host syncs in one exchange step (sync debug mode): "
+                f"{len(syncs)} {syncs[:3]}")
+        log(f"  profile of 3 {tag} steps")
+        phase_profile_train(trainer, feed)
+        del trainer
+        torch.cuda.empty_cache()
+    sp_bytes = P.exchange_payload_bytes(SPARSE_B * SPARSE_T, SPARSE_D)
+    d_bytes = SPARSE_V * SPARSE_D * 4
+    ab["sparse"]["exchanged_grad_bytes"] = sp_bytes
+    ab["dense"]["exchanged_grad_bytes"] = d_bytes
+    ab["exchange_traffic_win"] = d_bytes / sp_bytes
+    ab["loss_rel_diff"] = max(
+        abs(a - b) / abs(b) for a, b in zip(
+            ab["sparse"]["warm_losses"] + ab["sparse"]["losses"],
+            ab["dense"]["warm_losses"] + ab["dense"]["losses"]))
+    log(f"  exchanged gradient bytes a step: sparse {sp_bytes}, dense "
+        f"{d_bytes} ({d_bytes / sp_bytes:.1f}x); sparse step "
+        f"{ab['dense']['ms_per_step'] / ab['sparse']['ms_per_step']:.2f}x "
+        f"faster; losses of the two runs within "
+        f"{ab['loss_rel_diff']:.2e} relative")
+    out["train_ab"] = ab
+
+    # kernel 22 inside a step: the same net at D 128, sparse only
+    trainer = ctr_trainer(SPARSE_V, SPARSE_DIM, dev, True)
+    d128_launches, out["train_d128"] = _ctr_run(
+        trainer, feed, SPARSE_STEPS, SPARSE_WARM, True,
+        f"CTR step at D {SPARSE_DIM}, V {SPARSE_V}, --sparse_grads=true")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # the kill-switch contracts
+    rng = np.random.RandomState(7)
+    t_small = torch.from_numpy(rng.randn(32, 128).astype(np.float32)).to(dev)
+    r_small = torch.from_numpy(rng.randint(0, 32, (8,)).astype(
+        np.int32)).to(dev)
+    E.embedding_dispatch_total.clear()
+    a = E.gather_rows(t_small, r_small)
+    set_flags(embedding_kernel=False)
+    try:
+        b = E.gather_rows(t_small, r_small)
+    finally:
+        set_flags(embedding_kernel=True)
+    kill_equal = torch.equal(a, b)
+    log(f"  --embedding_kernel on/off gathers byte-identical: {kill_equal}"
+        f" (decisions {dict(E.embedding_dispatch_total)})")
+    if not kill_equal or dict(E.embedding_dispatch_total) != {
+            ("kernel", ""): 1, ("dense", "flag_off"): 1}:
+        fail("embedding kernel kill-switch contract violated")
+    eq_feed = ctr_feed(1024, 16, SPARSE_T, dev, seed=3)
+    eq = {}
+    for sparse in (True, False):
+        tr = ctr_trainer(1024, SPARSE_D, dev, sparse)
+        for _ in range(3):
+            tr.train_one_batch(eq_feed)
+        if bool(tr._sparse_exchange_plan()) != sparse:
+            fail("the --sparse_grads contract ran the wrong path")
+        eq[sparse] = {n: p.detach().cpu() for n, p in tr.params.items()}
+    worst = max(((eq[True][n] - p).abs() / (SPARSE_EQ_ATOL + SPARSE_EQ_RTOL
+                                            * p.abs())).max().item()
+                for n, p in eq[False].items())
+    log(f"  --sparse_grads on/off after 3 steps (V 1024, B 16, seed 3): "
+        f"worst parameter difference {worst:.3f} of atol 1e-6 + rtol 1e-4")
+    if worst > 1.0:
+        fail("sparse exchange equivalence violated: --sparse_grads on/off "
+             "diverged")
+    out["kill_switch_equal"] = kill_equal
+    out["sparse_dense_equiv_worst"] = worst
+    set_flags(sparse_grads=True)
+    launches = {name: {"sparse_lookup": lookup_launches
+                       if name == "embedding_gather" else 0,
+                       "ctr_train_ab_sparse": ab_launches["sparse"][name],
+                       "ctr_train_ab_dense": ab_launches["dense"][name],
+                       "ctr_d128": d128_launches[name]}
+                for name in d128_launches}
+    return launches, out
+
+
+def phase_time_gather(dev, launches):
+    """Kernel 22 at the lane's shape: 8192 sorted unique rows of the
+    1e7 x 128 fp32 table (the lookup's deduped ids), against its plain
+    version and ``torch.index_select`` of the same rows."""
+    import torch
+    from paddle_tpu_torch.ops import embedding as E
+    from paddle_tpu_torch.parallel import sparse as P
+    vocab = SPARSE_SCAN[-1]
+    g = torch.Generator(device=dev).manual_seed(0)
+    table = torch.randn(vocab, SPARSE_DIM, generator=g, device=dev)
+    rng = np.random.RandomState(vocab % (2 ** 31))
+    ids = torch.from_numpy(rng.randint(0, vocab, (SPARSE_IDS,)).astype(
+        np.int32)).to(dev)
+    rows = P.unique_rows_sorted(ids, SPARSE_IDS, vocab)
+    rows_l = rows.long().clamp(0, vocab - 1)
+    got = E.embedding_gather(table, rows)
+    err = (got - E.gather_rows_reference(table, rows)).abs().max().item()
+    ms = time_ms(lambda: E.embedding_gather(table, rows), reps=50)
+    plain_ms = time_ms(lambda: E.gather_rows_reference(table, rows), reps=50)
+    lib_ms = time_ms(lambda: torch.index_select(table, 0, rows_l), reps=50)
+    n_bytes = 2 * SPARSE_IDS * SPARSE_DIM * 4 + SPARSE_IDS * 4
+    b_ms, b_by = bound_ms(n_bytes, 0.0)
+    row = {"name": "embedding_gather", "route": "cuda",
+           "source": "paddle_tpu_torch/csrc/embedding_gather.cu",
+           "replaces": "paddle_tpu/ops/pallas_embedding.py:62",
+           "launches": sum(launches["embedding_gather"].values()),
+           "launches_by_path": launches["embedding_gather"],
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+           "library": "torch.index_select",
+           "shape": f"{SPARSE_IDS} rows (deduped, sorted, {vocab}-padded) "
+                    f"of a {vocab} x {SPARSE_DIM} fp32 table"}
+    log(f"  embedding_gather: {ms * 1e3:.2f} us (plain {plain_ms * 1e3:.2f}"
+        f" us, torch.index_select {lib_ms * 1e3:.2f} us, bound "
+        f"{b_ms * 1e3:.3f} us by {b_by}; {b_ms / ms * 100:.1f} % of the "
+        f"bound rate); {row['shape']}")
+    del table
+    torch.cuda.empty_cache()
+    return [row]
 
 
 def main() -> int:
@@ -2538,6 +3116,12 @@ def main() -> int:
         log("== phase 3g: flash kernels 1-train, 3 and 4 vs their plain "
             "versions (bf16 and fp32)")
         phase_flash_check(dev)
+        log("== phase 3h: legacy-grid kernels 2, 5 and 6 vs their plain "
+            "versions and kernels 1-train, 3, 4 (3g's unpacked cases)")
+        phase_legacy_check(dev)
+        log("== phase 3i: embedding gather kernel 22 vs index_select, byte "
+            "for byte")
+        phase_gather_check(dev)
         log("== phase 4: main path, full-width server")
         launches, serve, model, prompts = phase_serve(dev)
         log("== phase 4b: row invariance of the RMS mean")
@@ -2642,10 +3226,26 @@ def main() -> int:
             launches[name]["transformer_causal"] = causal_launches[name]
         del trainer, feed
         torch.cuda.empty_cache()
+        log("  causal_t2048, legacy mode (--flash_block_sparse=false)")
+        legacy_launches, causal_legacy, trainer, feed = phase_transformer(
+            dev, ATTN_AB_STEPS, 1, causal=True, legacy=True)
+        for name in launches:
+            launches[name]["transformer_causal_legacy"] = \
+                legacy_launches[name]
+        del trainer, feed
+        torch.cuda.empty_cache()
         log("== phase 4z: small transformer, card vs CPU plain path (fp32 "
             "and bench.py's flags)")
         small_attn = phase_transformer_small(dev)
+        log("  the same under --flash_block_sparse=false (the legacy grid)")
+        small_attn_legacy = phase_transformer_small(dev, legacy=True)
         set_flags(use_bf16=False, bf16_activations=False)
+        log("== phase 4-sparse: bench.py's sparse embedding lane (fp32): "
+            "lookups, the V 1e7 train A/B, kernel 22 in the D 128 step, the "
+            "kill-switch contracts")
+        sparse_launches, sparse = phase_sparse(dev)
+        for name in launches:
+            launches[name].update(sparse_launches[name])
         log("== phase 5: kernel times at the main paths' shapes")
         rows = phase_time(dev, launches, serve) \
             + phase_time_lstm(dev, launches) \
@@ -2653,7 +3253,9 @@ def main() -> int:
             + phase_time_conv(dev, launches) \
             + phase_time_gru(dev, launches) \
             + phase_time_gru_blocked(dev, launches) \
-            + phase_time_flash(dev, launches)
+            + phase_time_flash(dev, launches) \
+            + phase_time_legacy(dev, launches) \
+            + phase_time_gather(dev, launches)
     except SystemExit as e:
         print(e, file=sys.stderr)
         return 1
@@ -2671,7 +3273,10 @@ def main() -> int:
                       "transformer_padded_mixed": attn_mixed["padded"],
                       "transformer_packed_mixed": attn_mixed["packed"],
                       "transformer_causal": causal,
-                      "transformer_small": small_attn, "card": card}))
+                      "transformer_causal_legacy": causal_legacy,
+                      "transformer_small": small_attn,
+                      "transformer_small_legacy": small_attn_legacy,
+                      "sparse": sparse, "card": card}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

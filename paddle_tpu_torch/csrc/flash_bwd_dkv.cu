@@ -23,13 +23,20 @@
 // valid): four T x T x D products, 274.9 GFLOP, 277.9 us at 989 TFLOP/s
 // bf16; bytes (~271 MB) ~81 us: operations bound it.  The split makes
 // the kernel's own mma work 1.5x the contract's.
+//
+// Legacy full grid (`flash_bwd_dkv_legacy`).  Also replaces the TPU
+// kernel `_bwd_dkv_kernel` (`_fa_backward_pallas`), the legacy grid's dk
+// and dv: this main loop with FULL, which walks every q tile for the key
+// tile, issuing its loads, and computes only the live ones (`_bwd_live`:
+// the key tile below the row's length, the q tile not wholly above the
+// causal diagonal; the dead q tiles form a prefix).
 #include "flash_common.cuh"
 
 using namespace fa;
 
 namespace {
 
-template <int D, typename T>
+template <int D, typename T, bool FULL>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ dout,
@@ -66,10 +73,16 @@ __global__ void __launch_bounds__(kThreads)
   const int k0 = kt * kRows, nk = gridDim.x;
   const bool packed = seg != nullptr;
   const int kv_len = kv_lens ? min(max(kv_lens[b], 0), Tk) : Tk;
-  int q_begin = win_lo[b * nk + kt] * kRows;
-  const int q_end = k0 < kv_len ? min(win_hi[b * nk + kt] * kRows, Tq) : 0;
-  if (causal) q_begin = max(q_begin, k0);
-  const int n_tiles = q_end > q_begin ? (q_end - q_begin + BN - 1) / BN : 0;
+  // live queries [q_live, q_end); the sparse walk visits only their
+  // tiles, the full grid every q tile (computing the live ones)
+  int q_live = FULL ? 0 : win_lo[b * nk + kt] * kRows;
+  const int q_end =
+      k0 < kv_len ? (FULL ? Tq : min(win_hi[b * nk + kt] * kRows, Tq)) : 0;
+  if (causal) q_live = max(q_live, k0);
+  const int q_begin = FULL ? 0 : q_live;
+  const int n_tiles =
+      FULL ? (Tq + BN - 1) / BN
+           : (q_end > q_begin ? (q_end - q_begin + BN - 1) / BN : 0);
   const float scale_log2 = scale * kLog2e;   // p = 2^(s log2e - lse log2e)
 
   const T* qb = q + b * sqb + h * D;
@@ -109,6 +122,10 @@ __global__ void __launch_bounds__(kThreads)
     cp_wait<1>();
     __syncthreads();
     const int q0 = q_begin + i * BN;
+    if (FULL && (q0 >= q_end || q0 + BN <= q_live)) {   // dead q tile
+      __syncthreads();
+      continue;
+    }
     const float* sl = lse_s(s);
     const float* sd = delta_s(s);
     const int* sq = seg_s(s);
@@ -168,6 +185,42 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
+namespace {
+
+template <bool FULL>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v,
+                       const void* dout, const void* lse, const void* delta,
+                       void* dk, void* dv, const void* kv_lens,
+                       const void* seg, const void* win_lo,
+                       const void* win_hi, int B, int Tq, int Tk, int H,
+                       int D, int dtype, long long sqb, long long sqt,
+                       long long skb, long long skt, long long svb,
+                       long long svt, long long sdb, long long sdt,
+                       int causal, float scale, void* stream) {
+  const dim3 grid((Tk + kRows - 1) / kRows, H, B);
+  return dispatch(D, dtype, [&](auto dc, auto tv) {
+    constexpr int Dv = decltype(dc)::value;
+    using T = decltype(tv);
+    constexpr int BN = Tile<Dv>::BN;
+    const size_t smem = 2 * plane_bytes<Dv, T>(kRows) +
+                        4 * plane_bytes<Dv, T>(BN) + 6 * BN * sizeof(float);
+    auto kern = flash_bwd_dkv_kernel<Dv, T, FULL>;
+    cudaError_t err = allow_smem(kern, smem);
+    if (err != cudaSuccess) return err;
+    kern<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<T*>(dk), static_cast<T*>(dv),
+        static_cast<const int*>(kv_lens), static_cast<const int*>(seg),
+        static_cast<const int*>(win_lo), static_cast<const int*>(win_hi), Tq,
+        Tk, H, sqb, sqt, skb, skt, svb, svt, sdb, sdt, causal, scale);
+    return cudaGetLastError();
+  });
+}
+
+}  // namespace
+
 // Operands as flash_bwd_dq's; dk, dv [B, Tk, H, D] contiguous in k's
 // dtype.  win_lo / win_hi int32 [B, ceil(Tk/64)]: each key tile's live
 // query tiles [lo, hi) in units of 64 queries.
@@ -181,24 +234,25 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              long long skt, long long svb, long long svt,
                              long long sdb, long long sdt, int causal,
                              float scale, void* stream) {
-  const dim3 grid((Tk + kRows - 1) / kRows, H, B);
-  return static_cast<int>(dispatch(D, dtype, [&](auto dc, auto tv) {
-    constexpr int Dv = decltype(dc)::value;
-    using T = decltype(tv);
-    constexpr int BN = Tile<Dv>::BN;
-    const size_t smem = 2 * plane_bytes<Dv, T>(kRows) +
-                        4 * plane_bytes<Dv, T>(BN) + 6 * BN * sizeof(float);
-    auto kern = flash_bwd_dkv_kernel<Dv, T>;
-    cudaError_t err = allow_smem(kern, smem);
-    if (err != cudaSuccess) return err;
-    kern<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<T*>(dk), static_cast<T*>(dv),
-        static_cast<const int*>(kv_lens), static_cast<const int*>(seg),
-        static_cast<const int*>(win_lo), static_cast<const int*>(win_hi), Tq,
-        Tk, H, sqb, sqt, skb, skt, svb, svt, sdb, sdt, causal, scale);
-    return cudaGetLastError();
-  }));
+  return static_cast<int>(launch_dkv<false>(
+      q, k, v, dout, lse, delta, dk, dv, kv_lens, seg, win_lo, win_hi, B,
+      Tq, Tk, H, D, dtype, sqb, sqt, skb, skt, svb, svt, sdb, sdt, causal,
+      scale, stream));
+}
+
+// The legacy full grid (kernel 6): padded mode only, no windows.
+extern "C" int flash_bwd_dkv_legacy(const void* q, const void* k,
+                                    const void* v, const void* dout,
+                                    const void* lse, const void* delta,
+                                    void* dk, void* dv, const void* kv_lens,
+                                    int B, int Tq, int Tk, int H, int D,
+                                    int dtype, long long sqb, long long sqt,
+                                    long long skb, long long skt,
+                                    long long svb, long long svt,
+                                    long long sdb, long long sdt, int causal,
+                                    float scale, void* stream) {
+  return static_cast<int>(launch_dkv<true>(
+      q, k, v, dout, lse, delta, dk, dv, kv_lens, nullptr, nullptr, nullptr,
+      B, Tq, Tk, H, D, dtype, sqb, sqt, skb, skt, svb, svt, sdb, sdt, causal,
+      scale, stream));
 }

@@ -25,13 +25,19 @@
 // own mma work 1.33x the contract's.  Registers are capped for 4 CTAs an
 // SM (168 uncapped at bf16 D = 64; the cap measured ~3 % faster,
 // tools/flash_probe.py).
+//
+// Legacy full grid (`flash_bwd_dq_legacy`).  Also replaces the TPU
+// kernel `_bwd_dq_kernel` (`_fa_backward_pallas`), the legacy grid's dq:
+// this main loop with FULL, which walks every key tile of the row,
+// issuing its loads, and computes only the live ones (`_bwd_live`: below
+// the key length and not wholly above the causal diagonal).
 #include "flash_common.cuh"
 
 using namespace fa;
 
 namespace {
 
-template <int D, typename T>
+template <int D, typename T, bool FULL>
 __global__ void __launch_bounds__(kThreads, 4)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
@@ -61,10 +67,12 @@ __global__ void __launch_bounds__(kThreads, 4)
   const int q0 = qt * kRows, nq = gridDim.x;
   const bool packed = seg != nullptr;
   const int kv_len = kv_lens ? min(max(kv_lens[b], 0), Tk) : Tk;
-  const int k_begin = win_lo[b * nq + qt] * kRows;
-  int k_end = min(win_hi[b * nq + qt] * kRows, kv_len);
+  const int k_begin = FULL ? 0 : win_lo[b * nq + qt] * kRows;
+  int k_end = FULL ? kv_len : min(win_hi[b * nq + qt] * kRows, kv_len);
   if (causal) k_end = min(k_end, q0 + kRows);
-  const int n_tiles = k_end > k_begin ? (k_end - k_begin + BN - 1) / BN : 0;
+  const int n_tiles =
+      FULL ? (Tk + BN - 1) / BN
+           : (k_end > k_begin ? (k_end - k_begin + BN - 1) / BN : 0);
 
   const T* kb = k + b * skb + h * D;
   const T* vb = v + b * svb + h * D;
@@ -106,6 +114,10 @@ __global__ void __launch_bounds__(kThreads, 4)
     cp_wait<1>();
     __syncthreads();
     const int k0 = k_begin + i * BN;
+    if (FULL && k0 >= k_end) {         // dead tile: loaded, not computed
+      __syncthreads();
+      continue;
+    }
     float sc[BN / 8][4], dp[BN / 8][4];
     zero<BN>(sc);
     zero<BN>(dp);
@@ -148,6 +160,41 @@ __global__ void __launch_bounds__(kThreads, 4)
 
 }  // namespace
 
+namespace {
+
+template <bool FULL>
+cudaError_t launch_dq(const void* q, const void* k, const void* v,
+                      const void* dout, const void* lse, const void* delta,
+                      void* dq, const void* kv_lens, const void* seg,
+                      const void* win_lo, const void* win_hi, int B, int Tq,
+                      int Tk, int H, int D, int dtype, long long sqb,
+                      long long sqt, long long skb, long long skt,
+                      long long svb, long long svt, long long sdb,
+                      long long sdt, int causal, float scale, void* stream) {
+  const dim3 grid((Tq + kRows - 1) / kRows, H, B);
+  return dispatch(D, dtype, [&](auto dc, auto tv) {
+    constexpr int Dv = decltype(dc)::value;
+    using T = decltype(tv);
+    constexpr int BN = Tile<Dv>::BN;
+    const size_t smem = 2 * plane_bytes<Dv, T>(kRows) +
+                        4 * plane_bytes<Dv, T>(BN) + 2 * BN * sizeof(int);
+    auto kern = flash_bwd_dq_kernel<Dv, T, FULL>;
+    cudaError_t err = allow_smem(kern, smem);
+    if (err != cudaSuccess) return err;
+    kern<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<T*>(dq), static_cast<const int*>(kv_lens),
+        static_cast<const int*>(seg), static_cast<const int*>(win_lo),
+        static_cast<const int*>(win_hi), Tq, Tk, H, sqb, sqt, skb, skt, svb,
+        svt, sdb, sdt, causal, scale);
+    return cudaGetLastError();
+  });
+}
+
+}  // namespace
+
 // Operands as flash_fwd's, plus dout [B, Tq, H, D] (strides sdb, sdt) in
 // q's dtype, lse and delta [B, H, Tq] f32; dq [B, Tq, H, D] contiguous in
 // q's dtype.  The window arrays are the forward's.
@@ -160,24 +207,25 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             long long skb, long long skt, long long svb,
                             long long svt, long long sdb, long long sdt,
                             int causal, float scale, void* stream) {
-  const dim3 grid((Tq + kRows - 1) / kRows, H, B);
-  return static_cast<int>(dispatch(D, dtype, [&](auto dc, auto tv) {
-    constexpr int Dv = decltype(dc)::value;
-    using T = decltype(tv);
-    constexpr int BN = Tile<Dv>::BN;
-    const size_t smem = 2 * plane_bytes<Dv, T>(kRows) +
-                        4 * plane_bytes<Dv, T>(BN) + 2 * BN * sizeof(int);
-    auto kern = flash_bwd_dq_kernel<Dv, T>;
-    cudaError_t err = allow_smem(kern, smem);
-    if (err != cudaSuccess) return err;
-    kern<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<T*>(dq), static_cast<const int*>(kv_lens),
-        static_cast<const int*>(seg), static_cast<const int*>(win_lo),
-        static_cast<const int*>(win_hi), Tq, Tk, H, sqb, sqt, skb, skt, svb,
-        svt, sdb, sdt, causal, scale);
-    return cudaGetLastError();
-  }));
+  return static_cast<int>(launch_dq<false>(
+      q, k, v, dout, lse, delta, dq, kv_lens, seg, win_lo, win_hi, B, Tq,
+      Tk, H, D, dtype, sqb, sqt, skb, skt, svb, svt, sdb, sdt, causal, scale,
+      stream));
+}
+
+// The legacy full grid (kernel 5): padded mode only, no windows.
+extern "C" int flash_bwd_dq_legacy(const void* q, const void* k,
+                                   const void* v, const void* dout,
+                                   const void* lse, const void* delta,
+                                   void* dq, const void* kv_lens, int B,
+                                   int Tq, int Tk, int H, int D, int dtype,
+                                   long long sqb, long long sqt,
+                                   long long skb, long long skt,
+                                   long long svb, long long svt,
+                                   long long sdb, long long sdt, int causal,
+                                   float scale, void* stream) {
+  return static_cast<int>(launch_dq<true>(
+      q, k, v, dout, lse, delta, dq, kv_lens, nullptr, nullptr, nullptr, B,
+      Tq, Tk, H, D, dtype, sqb, sqt, skb, skt, svb, svt, sdb, sdt, causal,
+      scale, stream));
 }

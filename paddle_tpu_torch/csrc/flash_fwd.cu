@@ -30,13 +30,25 @@
 // hi/lo split of P makes the kernel's own mma work 1.5x the contract's.
 // Registers are capped for 4 CTAs an SM (the bf16 D = 64 kernel needs
 // 142 uncapped; the cap measured ~1 % faster, tools/flash_probe.py).
+//
+// Legacy full grid (`flash_fwd_legacy`).  Also replaces the TPU kernel
+// `_fa_kernel` (`_fa_forward_grid`), the (B*H, q blocks, k blocks) grid
+// behind --flash_block_sparse=false that DMAs every K/V block and skips
+// only the compute of a dead one (past the row's key length, or wholly
+// above the causal diagonal).  It is this main loop instantiated with
+// FULL: no windows; each CTA walks every key tile of the row and issues
+// its loads, and runs the products and the softmax only on live tiles.
+// The dead tiles form a suffix, so the result is the block-sparse one.
+// Its bound is the same work plus the dead tiles' loads (K and V of
+// every tile, once per q tile: at the causal T 2048 shape 2.1 GB of L2
+// traffic, not device-memory bytes).
 #include "flash_common.cuh"
 
 using namespace fa;
 
 namespace {
 
-template <int D, typename T>
+template <int D, typename T, bool FULL>
 __global__ void __launch_bounds__(kThreads, 4)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ out,
@@ -62,10 +74,14 @@ __global__ void __launch_bounds__(kThreads, 4)
   const int q0 = qt * kRows, nq = gridDim.x;
   const bool packed = seg != nullptr;
   const int kv_len = kv_lens ? min(max(kv_lens[b], 0), Tk) : Tk;
-  const int k_begin = win_lo[b * nq + qt] * kRows;
-  int k_end = min(win_hi[b * nq + qt] * kRows, kv_len);
+  // live keys [k_begin, k_end); the sparse walk visits only their
+  // tiles, the full grid every tile of the row (computing the live ones)
+  const int k_begin = FULL ? 0 : win_lo[b * nq + qt] * kRows;
+  int k_end = FULL ? kv_len : min(win_hi[b * nq + qt] * kRows, kv_len);
   if (causal) k_end = min(k_end, q0 + kRows);
-  const int n_tiles = k_end > k_begin ? (k_end - k_begin + BN - 1) / BN : 0;
+  const int n_tiles =
+      FULL ? (Tk + BN - 1) / BN
+           : (k_end > k_begin ? (k_end - k_begin + BN - 1) / BN : 0);
   const float scale_log2 = scale * kLog2e;   // scores in log2 units
 
   const T* qb = q + b * sqb + h * D;
@@ -101,6 +117,10 @@ __global__ void __launch_bounds__(kThreads, 4)
     cp_wait<1>();
     __syncthreads();
     const int k0 = k_begin + i * BN;
+    if (FULL && k0 >= k_end) {         // dead tile: loaded, not computed
+      __syncthreads();
+      continue;
+    }
     float sc[BN / 8][4];
     zero<BN>(sc);
     gemm_nt<D, BN, SPLIT>(sc, sQ + warp * 16 * LDS, QP, kv_plane(s, 0), KP);
@@ -185,6 +205,40 @@ __global__ void __launch_bounds__(kThreads, 4)
 
 }  // namespace
 
+namespace {
+
+template <bool FULL>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v,
+                       void* out, void* lse, const void* kv_lens,
+                       const void* seg, const void* win_lo,
+                       const void* win_hi, int B, int Tq, int Tk, int H,
+                       int D, int dtype, long long sqb, long long sqt,
+                       long long skb, long long skt, long long svb,
+                       long long svt, int causal, float scale,
+                       void* stream) {
+  const dim3 grid((Tq + kRows - 1) / kRows, H, B);
+  return dispatch(D, dtype, [&](auto dc, auto tv) {
+    constexpr int Dv = decltype(dc)::value;
+    using T = decltype(tv);
+    constexpr int BN = Tile<Dv>::BN;
+    const size_t smem = plane_bytes<Dv, T>(kRows) +
+                        4 * plane_bytes<Dv, T>(BN) + 2 * BN * sizeof(int);
+    auto kern = flash_fwd_kernel<Dv, T, FULL>;
+    cudaError_t err = allow_smem(kern, smem);
+    if (err != cudaSuccess) return err;
+    kern<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(out),
+        static_cast<float*>(lse), static_cast<const int*>(kv_lens),
+        static_cast<const int*>(seg), static_cast<const int*>(win_lo),
+        static_cast<const int*>(win_hi), Tq, Tk, H, sqb, sqt, skb, skt, svb,
+        svt, causal, scale);
+    return cudaGetLastError();
+  });
+}
+
+}  // namespace
+
 // q [B, Tq, H, D], k and v [B, Tk, H, D] (bf16 when dtype == 0, fp32
 // when 1), each with its own batch and token strides (elements; a head's
 // D values contiguous, heads D apart); out [B, Tq, H, D] contiguous in
@@ -201,23 +255,21 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          long long skb, long long skt, long long svb,
                          long long svt, int causal, float scale,
                          void* stream) {
-  const dim3 grid((Tq + kRows - 1) / kRows, H, B);
-  return static_cast<int>(dispatch(D, dtype, [&](auto dc, auto tv) {
-    constexpr int Dv = decltype(dc)::value;
-    using T = decltype(tv);
-    constexpr int BN = Tile<Dv>::BN;
-    const size_t smem = plane_bytes<Dv, T>(kRows) +
-                        4 * plane_bytes<Dv, T>(BN) + 2 * BN * sizeof(int);
-    auto kern = flash_fwd_kernel<Dv, T>;
-    cudaError_t err = allow_smem(kern, smem);
-    if (err != cudaSuccess) return err;
-    kern<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(out),
-        static_cast<float*>(lse), static_cast<const int*>(kv_lens),
-        static_cast<const int*>(seg), static_cast<const int*>(win_lo),
-        static_cast<const int*>(win_hi), Tq, Tk, H, sqb, sqt, skb, skt, svb,
-        svt, causal, scale);
-    return cudaGetLastError();
-  }));
+  return static_cast<int>(launch_fwd<false>(
+      q, k, v, out, lse, kv_lens, seg, win_lo, win_hi, B, Tq, Tk, H, D,
+      dtype, sqb, sqt, skb, skt, svb, svt, causal, scale, stream));
+}
+
+// The legacy full grid (kernel 2): operands as flash_fwd's, padded mode
+// only (no segment ids), no windows.
+extern "C" int flash_fwd_legacy(const void* q, const void* k, const void* v,
+                                void* out, void* lse, const void* kv_lens,
+                                int B, int Tq, int Tk, int H, int D,
+                                int dtype, long long sqb, long long sqt,
+                                long long skb, long long skt, long long svb,
+                                long long svt, int causal, float scale,
+                                void* stream) {
+  return static_cast<int>(launch_fwd<true>(
+      q, k, v, out, lse, kv_lens, nullptr, nullptr, nullptr, B, Tq, Tk, H,
+      D, dtype, sqb, sqt, skb, skt, svb, svt, causal, scale, stream));
 }

@@ -8,6 +8,7 @@ import torch
 
 from ..core.sequence import SequenceBatch, like, value_of
 from ..ops import embedding_ops, math_ops
+from ..parallel import sparse as psparse
 from ..utils import PaddleTpuError
 from .base import Layer, register_layer
 
@@ -80,7 +81,10 @@ class FullyConnectedLayer(Layer):
 
 @register_layer("embedding")
 class EmbeddingLayer(Layer):
-    """Table lookup ``[V, D]``."""
+    """Table lookup ``[V, D]``.  Under the trainer's sparse gradient
+    exchange the lookup goes through the batch's prefetched ``(rows,
+    block)`` pair (``parallel.sparse.exchange_entry``), so autograd
+    gives a ``[K, D]`` block gradient instead of the dense table's."""
 
     def param_specs(self):
         vocab = self.conf.attrs["vocab_size"]
@@ -89,8 +93,14 @@ class EmbeddingLayer(Layer):
             sharded=self.conf.attrs.get("sharded", False))]
 
     def forward(self, params, inputs, ctx):
-        out = embedding_ops.lookup_table(params[self.weight_name(0)],
-                                         value_of(inputs[0]))
+        name = self.weight_name(0)
+        ids = value_of(inputs[0])
+        entry = psparse.exchange_entry(name)
+        if entry is not None:
+            rows, block = entry
+            out = psparse.lookup_rows(rows, block, ids)
+        else:
+            out = embedding_ops.lookup_table(params[name], ids)
         return self.finalize(like(inputs[0], out))
 
 

@@ -53,6 +53,13 @@ SIGNATURES = {
                      [_C] * 11 + [_I] * 6 + [_L] * 8 + [_I, _F, _C]),
     "flash_bwd_dkv": ("flash_bwd_dkv",
                       [_C] * 12 + [_I] * 6 + [_L] * 8 + [_I, _F, _C]),
+    "flash_fwd_legacy": ("flash_fwd",
+                         [_C] * 6 + [_I] * 6 + [_L] * 6 + [_I, _F, _C]),
+    "flash_bwd_dq_legacy": ("flash_bwd_dq",
+                            [_C] * 8 + [_I] * 6 + [_L] * 8 + [_I, _F, _C]),
+    "flash_bwd_dkv_legacy": ("flash_bwd_dkv",
+                             [_C] * 9 + [_I] * 6 + [_L] * 8 + [_I, _F, _C]),
+    "embedding_gather": ("embedding_gather", [_C] * 3 + [_I] * 3 + [_C]),
     "lstm_fwd": ("lstm_fwd", [_C] * 9 + [_I] * 4 + [_C]),
     "lstm_bwd": ("lstm_bwd", [_C] * 16 + [_I] * 4 + [_C]),
     "lstm_fwd_blocked": ("lstm_fwd_blocked", [_C] * 9 + [_I] * 3 + [_C]),

@@ -14,13 +14,15 @@ version beside it:
 - :func:`flash_bwd_dkv` — kernel 4 (``csrc/flash_bwd_dkv.cu``; plain
   version of both :func:`_dense_grads`).
 
-The dense path (flash off, an untileable shape, packed under
-``--flash_block_sparse=false``) is the plain composition on every
-device.  The legacy full grid (``--flash_block_sparse=false``, padded)
-runs the reference's kernels 2, 5 and 6, which are not ported yet: on
-CUDA it raises, on the CPU it takes the plain version.  Every decision is
-counted in :data:`attention_dispatch_total` with the reference's
-``(path, reason)`` labels.
+The legacy full grid (``--flash_block_sparse=false``, padded rows) runs
+the same three main loops instantiated as the reference's full grid,
+which loads every key (or query) tile and computes only the live ones:
+:func:`flash_fwd_legacy` (kernel 2), :func:`flash_bwd_dq_legacy`
+(kernel 5) and :func:`flash_bwd_dkv_legacy` (kernel 6), with the same
+plain versions.  The dense path (flash off, an untileable shape, packed
+under ``--flash_block_sparse=false``) is the plain composition on every
+device.  Every decision is counted in :data:`attention_dispatch_total`
+with the reference's ``(path, reason)`` labels.
 
 Serving: :func:`prefill_attention_packed` — packed causal fp32 prefill
 (``csrc/flash_packed_fwd.cu``; plain version :func:`_dense_forward`) —
@@ -46,7 +48,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..utils import FLAGS, PaddleTpuError, enforce, get_logger, warn_once
+from ..utils import FLAGS, enforce, get_logger, warn_once
 from . import _build
 
 NEG_INF = -1e30
@@ -696,15 +698,93 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, lengths=None, segments=None,
 flash_bwd_dkv.launches = 0
 
 
+def flash_fwd_legacy(q, k, v, lengths=None, causal: bool = False
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 2, the legacy full grid (``flash_fwd_legacy`` in
+    ``csrc/flash_fwd.cu``): :func:`flash_fwd`'s result for padded rows,
+    every key tile loaded and only the live ones computed; no windows.
+    Plain version: :func:`_dense_forward`."""
+    b, tq, tk, h, d = _common_args(q, k, v, lengths, None, causal)
+    if not _on_card((q, k, v, lengths), d):
+        return _dense_forward(q, k, v, lengths, causal)
+    out = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+    if out.numel() == 0:
+        return out, lse
+    _launch("flash_fwd_legacy", q.device, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(), lse.data_ptr(), _ptr(lengths), b,
+            tq, tk, h, d, _DTYPE_CODE[q.dtype], *_strides("q", q),
+            *_strides("k", k), *_strides("v", v), int(bool(causal)),
+            1.0 / math.sqrt(d))
+    flash_fwd_legacy.launches += 1
+    return out, lse
+
+
+flash_fwd_legacy.launches = 0
+
+
+def flash_bwd_dq_legacy(q, k, v, do, lse, delta, lengths=None,
+                        causal: bool = False) -> torch.Tensor:
+    """Kernel 5, the legacy grid's dq (``flash_bwd_dq_legacy`` in
+    ``csrc/flash_bwd_dq.cu``).  Plain version: :func:`_dense_grads`."""
+    b, tq, tk, h, d = _bwd_args(q, k, v, do, lse, delta, lengths, None,
+                                causal)
+    if not _on_card((q, k, v, do, lse, delta, lengths), d):
+        return _dense_grads(q, k, v, do, lse, delta, lengths, causal,
+                            want="dq")
+    dq = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
+    if dq.numel() == 0:
+        return dq
+    _launch("flash_bwd_dq_legacy", q.device, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), _ptr(lengths), b, tq, tk, h, d,
+            _DTYPE_CODE[q.dtype], *_strides("q", q), *_strides("k", k),
+            *_strides("v", v), *_strides("do", do), int(bool(causal)),
+            1.0 / math.sqrt(d))
+    flash_bwd_dq_legacy.launches += 1
+    return dq
+
+
+flash_bwd_dq_legacy.launches = 0
+
+
+def flash_bwd_dkv_legacy(q, k, v, do, lse, delta, lengths=None,
+                         causal: bool = False
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 6, the legacy grid's dk and dv (``flash_bwd_dkv_legacy`` in
+    ``csrc/flash_bwd_dkv.cu``): every q tile loaded for each key tile,
+    the live ones computed.  Plain version: :func:`_dense_grads`."""
+    b, tq, tk, h, d = _bwd_args(q, k, v, do, lse, delta, lengths, None,
+                                causal)
+    if not _on_card((q, k, v, do, lse, delta, lengths), d):
+        return _dense_grads(q, k, v, do, lse, delta, lengths, causal,
+                            want="dkv")
+    dk = torch.empty((b, tk, h, d), dtype=k.dtype, device=k.device)
+    dv = torch.empty((b, tk, h, d), dtype=v.dtype, device=v.device)
+    if dk.numel() == 0:
+        return dk, dv
+    _launch("flash_bwd_dkv_legacy", q.device, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), _ptr(lengths), b, tq, tk, h, d,
+            _DTYPE_CODE[q.dtype], *_strides("q", q), *_strides("k", k),
+            *_strides("v", v), *_strides("do", do), int(bool(causal)),
+            1.0 / math.sqrt(d))
+    flash_bwd_dkv_legacy.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv_legacy.launches = 0
+
+
 # ------------------------------------------------------ dispatch, autograd
 def _fa_forward(q, k, v, lengths, causal, block_q, block_k, segments=None,
                 slot=0):
     """The reference's ``_fa_forward`` decision order → ``(out, lse,
     path, windows)``: flash off → dense; an untileable shape → dense with
     the one-time warning; block-sparse → kernel 1 (``block_sparse``, or
-    ``packed`` with the slot-hint warning); otherwise the legacy grid,
-    or dense for packed.  ``block_q``/``block_k`` matter only through
-    this gate: the kernels use their own tiles."""
+    ``packed`` with the slot-hint warning); otherwise the legacy grid
+    (kernel 2), or dense for packed.  ``block_q``/``block_k`` matter only
+    through this gate: the kernels use their own tiles."""
     b, tq, tk, h, d = _check_qkv(q, k, v)
     enforce(not causal or tq == tk,
             f"causal attention needs Tq == Tk, got {tq}/{tk}")
@@ -745,23 +825,15 @@ def _fa_forward(q, k, v, lengths, causal, block_q, block_k, segments=None,
                 "dense", None)
     record_attention_dispatch("legacy_grid",
                               "kill_switch:flash_block_sparse")
-    _refuse_legacy_on_card(q)
-    return (*_dense_forward(q, k, v, lengths, causal, segments), "legacy",
-            None)
-
-
-def _refuse_legacy_on_card(q: torch.Tensor) -> None:
-    if _is_cuda(q):
-        raise PaddleTpuError(
-            "--flash_block_sparse=false selects the legacy full grid: "
-            "kernels 2, 5, 6 not yet ported (ROADMAP A5b)")
+    return (*flash_fwd_legacy(q, k, v, lengths, causal), "legacy", None)
 
 
 class _FlashAttention(torch.autograd.Function):
     """The reference's ``custom_vjp`` rules: the forward runs the
     dispatch and saves ``(q, k, v, lengths | segments, out, lse)``; the
     backward takes the forward's path — kernels 3 then 4 on the
-    block-sparse path, the plain dense backward on the dense path."""
+    block-sparse path, 5 then 6 on the legacy grid, the plain dense
+    backward on the dense path."""
 
     @staticmethod
     def forward(ctx, q, k, v, lengths, segments, causal, block_q, block_k,
@@ -783,7 +855,13 @@ class _FlashAttention(torch.autograd.Function):
                               ctx.causal, ctx.windows[0])
             dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, lengths,
                                    segments, ctx.causal, ctx.windows[1])
-        else:   # dense, or the legacy grid's plain version (CPU only)
+        elif ctx.path == "legacy":
+            delta = _delta(out, do)
+            dq = flash_bwd_dq_legacy(q, k, v, do, lse, delta, lengths,
+                                     ctx.causal)
+            dk, dv = flash_bwd_dkv_legacy(q, k, v, do, lse, delta, lengths,
+                                          ctx.causal)
+        else:
             dq, dk, dv = _dense_backward(q, k, v, lengths, out, lse, do,
                                          ctx.causal, segments)
         return dq, dk, dv, None, None, None, None, None, None
@@ -828,7 +906,8 @@ def flash_attention_packed(q, k, v, segments, causal: bool = False,
 
 #: Every kernel wrapper of this module (for counters and reports).
 KERNEL_WRAPPERS = (prefill_attention_packed, paged_decode_attention,
-                   flash_fwd, flash_bwd_dq, flash_bwd_dkv)
+                   flash_fwd, flash_bwd_dq, flash_bwd_dkv, flash_fwd_legacy,
+                   flash_bwd_dq_legacy, flash_bwd_dkv_legacy)
 
 
 def reset_launch_counts() -> None:

@@ -105,3 +105,29 @@ FLAGS.define("attention_packing", True,
 FLAGS.define("fused_rnn_hblock", True,
              "the hidden-blocked LSTM tier for 512 < H (ops/lstm.py); off "
              "= such shapes take the per-step scan")
+# the sparse embedding lane (parallel/sparse.py, ops/embedding.py,
+# trainer/trainer.py).  The reference's --embedding_kernel_interpret
+# (its Pallas gather in interpret mode off the TPU) has no counterpart:
+# on CPU tensors ops/embedding.gather_rows takes its plain version.
+FLAGS.define("sparse_grads", True,
+             "sparse gradient exchange for ParamAttr(sparse_update="
+             "True) embedding tables (parallel/sparse.py): the train step "
+             "carries each table's gradient as a fixed-capacity (rows, "
+             "values) pair — batch ids deduped once, row cotangents "
+             "segment-summed by autograd — and applies it through "
+             "Optimizer.apply_rows, so the dense [V, D] gradient is never "
+             "materialized.  false is the kill switch: the legacy dense "
+             "gradient + lazy row masking")
+FLAGS.define("sparse_grad_rows", 0,
+             "fixed row capacity K of the sparse gradient exchange per "
+             "table: rows/values ship as [K]/[K, D] whatever the batch "
+             "touches.  0 (default) = auto — the batch's total id count, "
+             "which can never overflow.  A manual K below the unique-id "
+             "count of a batch drops the LARGEST ids from the update (the "
+             "smallest K are kept) — size it >= the worst-case unique ids "
+             "per batch")
+FLAGS.define("embedding_kernel", True,
+             "gather embedding rows through the row-gather kernel "
+             "(ops/embedding.py, kernel 22): only the touched rows are "
+             "read; false = the plain index_select gather, byte-for-byte, "
+             "for one-flag revert / A/B traffic measurement")

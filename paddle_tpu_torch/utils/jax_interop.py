@@ -1,4 +1,5 @@
-"""Take the JAX package's parameters (and network buffers) into the port.
+"""Take the JAX package's parameters (network buffers, optimizer state)
+into the port.
 
 The JAX side hands over a dict of numpy arrays (``np.asarray`` of its
 params, or ``init_decoder_params`` directly); this module does not
@@ -9,7 +10,7 @@ stay as they are: weight matrices are ``[in, out]`` and applied as
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Tuple, Union
+from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -100,3 +101,29 @@ def network_buffers_from_jax(np_buffers: Mapping[str, np.ndarray], net,
                 f"buffer {name}: shape {arr.shape} != expected {want[name]}")
         out[name] = torch.from_numpy(arr).to(dev)
     return out
+
+
+def opt_state_from_jax(count, np_slots: Mapping[str, Sequence[np.ndarray]],
+                       params: Mapping[str, torch.Tensor],
+                       device: Optional[Union[str, torch.device]] = None
+                       ) -> Tuple[torch.Tensor, Dict[str, tuple]]:
+    """The JAX trainer's optimizer state as the port's ``(count, slots by
+    name)`` on ``device`` (default CUDA, as above).  ``count`` is the JAX
+    step count; ``np_slots`` maps each parameter name to its slot tuple
+    (the JAX slot list is in the order of ``sorted(params)``), as numpy.
+    Names must equal ``params``' and a slot of several elements its
+    parameter's shape, else this raises."""
+    dev = resolve_device(device)
+    enforce(set(np_slots) == set(params),
+            f"slots do not match the params: missing "
+            f"{sorted(set(params) - set(np_slots))}, unexpected "
+            f"{sorted(set(np_slots) - set(params))}")
+    slots: Dict[str, tuple] = {}
+    for name in sorted(np_slots):
+        want = tuple(params[name].shape)
+        arrs = [np.array(x, dtype=np.float32) for x in np_slots[name]]
+        enforce(all(a.size == 1 or a.shape == want for a in arrs),
+                f"slots of {name}: shapes {[a.shape for a in arrs]} vs "
+                f"{want}")
+        slots[name] = tuple(torch.from_numpy(a).to(dev) for a in arrs)
+    return (torch.tensor(int(count), dtype=torch.int32, device=dev), slots)

@@ -395,7 +395,8 @@ def test_card_block_sparse_launches_kernels_1_3_4(monkeypatch):
                                         "flash_bwd_dkv"]
     assert launched[0][1][9:13] == (2, 128, 128, 2)       # B, Tq, Tk, H
     assert launched[0][1][15:21] == (128 * 384, 384) * 3    # q/k/v strides
-    assert [fn.launches for fn in ta.KERNEL_WRAPPERS] == [0, 0, 1, 1, 1]
+    assert [fn.launches for fn in ta.KERNEL_WRAPPERS] == [0, 0, 1, 1, 1, 0,
+                                                          0, 0]
     assert ta.attention_dispatch_total == {("block_sparse", ""): 1}
     ta.reset_launch_counts()
 
@@ -412,14 +413,24 @@ def test_card_packed_launches_kernels_1_3_4(monkeypatch):
     ta.reset_launch_counts()
 
 
-def test_card_legacy_grid_raises(monkeypatch):
+def test_card_legacy_grid_launches_kernels_2_5_6(monkeypatch):
+    """Under ``--flash_block_sparse=false`` a padded call on the card
+    launches kernel 2 forward, then kernels 5 and 6 in the backward,
+    once each, and none of the block-sparse kernels."""
     launched = _spy_card(monkeypatch)
     TFLAGS.set("flash_block_sparse", False)
-    _, q, k, v = _grad_inputs()
-    with pytest.raises(PaddleTpuError, match="kernels 2, 5, 6 not yet "
-                                             "ported"):
-        ta.flash_attention(q, k, v)
-    assert launched == []
+    qkv, q, k, v = _grad_inputs()
+    ta.flash_attention(q, k, v, torch.tensor([128, 60], dtype=torch.int32),
+                       True).sum().backward()
+    assert [s for s, _ in launched] == ["flash_fwd_legacy",
+                                        "flash_bwd_dq_legacy",
+                                        "flash_bwd_dkv_legacy"]
+    assert [fn.launches for fn in ta.KERNEL_WRAPPERS] == [0, 0, 0, 0, 0, 1,
+                                                          1, 1]
+    assert ta.attention_dispatch_total == {
+        ("legacy_grid", "kill_switch:flash_block_sparse"): 1}
+    assert qkv.grad is not None
+    ta.reset_launch_counts()
 
 
 def test_card_flash_off_runs_the_dense_path(monkeypatch):
