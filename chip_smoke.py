@@ -192,7 +192,10 @@ Phases (any failure exits nonzero, without the final ``ok`` line):
    kernels 2, 5 and 6 at ``causal_t2048``'s (the same, causal), in turns
    with kernels 1-train, 3 and 4 on the same inputs, SDPA causal as the
    yardsticks; kernel 22 at the lane's 8192 rows of the 1e7 x 128
-   table, ``torch.index_select`` as its yardstick.
+   table, ``torch.index_select`` as its yardstick.  The conv and flash
+   rows also carry the achieved TFLOP/s on the contract's flops and the
+   share of the bound rate; kernel 19's bound is its two bf16
+   tensor-core passes (the f32 operand as hi + lo, ``CONV_BOUND_BASIS``).
 
 Phases 3b-4f are PR 2's H 512 phases and run in fp32 (``use_bf16``
 off), so their readings stay comparable.  The order of the run: 1-3f,
@@ -1555,30 +1558,36 @@ def conv_work(name, n, h, w, cin, cout, elem):
     return n_bytes, 2 * m * 9 * cin * cout
 
 
-#: kernels whose product operands are their bf16 inputs as they are
-#: (kernel 20: dy and the flipped weights), so that a bf16 tensor-core
-#: product with f32 accumulation computes the same products; the others
-#: multiply an f32 operand formed on load (x = act(A·z + C), dz), which
-#: the fp32 rate bounds
-CONV_BF16_PRODUCTS = {"conv3x3_fwd_bwd"}
+#: the bound's basis for each kernel at the bf16 main path: (passes, rate)
+#: -- kernel 20 multiplies its bf16 inputs as they are (dy and the
+#: flipped weights), one bf16 tensor-core pass; kernel 19 multiplies the
+#: f32 operand x = act(A·z + C) carried as hi + lo bf16, two bf16 passes
+#: (its tensor-core loop, conv3x3_tc.cuh); kernels 18 and 21 multiply an
+#: f32 dz on the CUDA cores, the fp32 rate
+CONV_BOUND_BASIS = {"conv3x3_fwd": (2, BF16_FLOPS_PER_S),
+                    "conv3x3_fwd_bwd": (1, BF16_FLOPS_PER_S),
+                    "conv3x3_dx": (1, FP32_FLOPS_PER_S),
+                    "conv3x3_chain_bwd": (1, FP32_FLOPS_PER_S)}
 #: the ResNet-50 stage shapes of kernels 18-21 at the main path's B
 RESNET_STAGES = [(56, 64), (28, 128), (14, 256), (7, 512)]
 CONV_LINES = {"conv3x3_dx": 194, "conv3x3_fwd": 339, "conv3x3_fwd_bwd": 398,
               "conv3x3_chain_bwd": 509}
 
 
-def phase_time_conv(dev, launches):
-    """Kernels 18-21 at each ResNet-50 stage shape (B 128, bf16 as on the
-    main path): µs per call (CUDA-graph replay), the plain version's, and
-    a library yardstick for the conv's share only — ``F.conv2d`` (19) or
-    ``torch.nn.grad.conv2d_input`` (18, 20, 21) of the already-formed
-    operand, cuDNN with TF32 off."""
+def phase_time_conv(dev, launches, names=tuple(CONV_LINES)):
+    """Kernels 18-21 (or ``names``) at each ResNet-50 stage shape (B 128,
+    bf16 as on the main path): µs per call (CUDA-graph replay), the plain
+    version's, a library yardstick for the conv's share only —
+    ``F.conv2d`` (19) or ``torch.nn.grad.conv2d_input`` (18, 20, 21) of
+    the already-formed operand, cuDNN with TF32 off — the bound on the
+    basis of ``CONV_BOUND_BASIS``, and the achieved TFLOP/s on the
+    contract's flops (2 a multiply-add of the conv)."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import conv as C
     rows = []
     dt = torch.bfloat16
-    for name in CONV_LINES:
+    for name in names:
         stages = []
         for si, (hw, ch) in enumerate(RESNET_STAGES):
             case = conv_case(RESNET_B, hw, hw, ch, ch, dt, 60 + si, dev)
@@ -1597,18 +1606,22 @@ def phase_time_conv(dev, launches):
             ms = time_ms(kern, reps=3, rounds=3)
             plain_ms = time_ms(plain, reps=2, rounds=2)
             lib_ms = time_ms(lib, reps=3, rounds=3)
-            b_ms, b_by = bound_ms(
-                *conv_work(name, RESNET_B, hw, hw, ch, ch, 2),
-                BF16_FLOPS_PER_S if name in CONV_BF16_PRODUCTS
-                else FP32_FLOPS_PER_S)
+            n_bytes, n_flops = conv_work(name, RESNET_B, hw, hw, ch, ch, 2)
+            passes, rate = CONV_BOUND_BASIS[name]
+            b_ms, b_by = bound_ms(n_bytes, passes * n_flops, rate)
             stages.append({"shape": f"[{RESNET_B},{hw},{hw},{ch}] -> {ch}",
                            "ms": ms, "plain_ms": plain_ms,
                            "library_ms": lib_ms, "bound_ms": b_ms,
-                           "bound_by": b_by, "max_abs_err": e})
-            log(f"  {name} {stages[-1]['shape']} bf16: {ms * 1e3:.1f} us "
+                           "bound_by": b_by, "max_abs_err": e,
+                           "tflops": n_flops / ms * 1e-9,
+                           "bound_share": b_ms / ms})
+            log(f"  {name} {stages[-1]['shape']} bf16: {ms * 1e3:.2f} us "
                 f"(plain {plain_ms * 1e3:.1f} us, library conv share "
-                f"{lib_ms * 1e3:.1f} us, bound {b_ms * 1e3:.1f} us by "
-                f"{b_by}); err {e:.2e} ({ratio:.2f} of tolerance)")
+                f"{lib_ms * 1e3:.2f} us, bound {b_ms * 1e3:.1f} us by "
+                f"{b_by}, {passes} pass(es) at {rate * 1e-12:.0f} TFLOP/s; "
+                f"{n_flops / ms * 1e-9:.1f} TFLOP/s of the contract, "
+                f"{100 * b_ms / ms:.1f} % of the bound rate); err {e:.2e} "
+                f"({ratio:.2f} of tolerance)")
         first = stages[0]
         rows.append({"name": name, "route": "cuda",
                      "source": f"paddle_tpu_torch/csrc/{name}.cu",
@@ -1621,6 +1634,8 @@ def phase_time_conv(dev, launches):
                      "bound_ms": first["bound_ms"],
                      "bound_by": first["bound_by"],
                      "library_ms": first["library_ms"],
+                     "tflops": first["tflops"],
+                     "bound_share": first["bound_share"],
                      "shape": first["shape"] + " bf16 (row: stage 1; "
                                                "by_stage: all four)",
                      "by_stage": stages})
@@ -2379,8 +2394,8 @@ def phase_time_flash(dev, launches):
         ms = time_ms(kern, reps=10, rounds=3)
         plain_ms = time_events_ms(plain, reps=2)
         torch.cuda.empty_cache()
-        b_ms, b_by = bound_ms(*flash_work(name, b, t, t, h, d, pairs, 2),
-                              BF16_FLOPS_PER_S)
+        work = flash_work(name, b, t, t, h, d, pairs, 2)
+        b_ms, b_by = bound_ms(*work, BF16_FLOPS_PER_S)
         line = {"flash_fwd": 255, "flash_bwd_dq": 664,
                 "flash_bwd_dkv": 701}[name]
         rows.append({
@@ -2391,6 +2406,7 @@ def phase_time_flash(dev, launches):
             "launches_by_path": launches[name],
             "max_abs_err": errs[name][0], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by,
+            "tflops": work[1] / ms * 1e-9, "bound_share": b_ms / ms,
             "library_ms": lib["flash_fwd" if name == "flash_fwd"
                               else "backward"],
             "library": "F.scaled_dot_product_attention forward"
@@ -2403,8 +2419,9 @@ def phase_time_flash(dev, launches):
         log(f"  {r['name']}: {r['ms'] * 1e3:.2f} us (plain "
             f"{r['plain_ms'] * 1e3:.2f} us, {r['library']} "
             f"{r['library_ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.3f}"
-            f" us by {r['bound_by']}; {r['bound_ms'] / r['ms'] * 100:.1f} % "
-            f"of the bound rate); {r['shape']}")
+            f" us by {r['bound_by']}; {r['tflops']:.1f} TFLOP/s of the "
+            f"contract, {r['bound_share'] * 100:.1f} % of the bound rate); "
+            f"{r['shape']}")
     return rows
 
 
@@ -2718,17 +2735,19 @@ def phase_time_legacy(dev, launches):
         ms_b = time_ms(kern, reps=10, rounds=3)
         plain_ms = time_events_ms(plain, reps=2)
         torch.cuda.empty_cache()
-        b_ms, b_by = bound_ms(*flash_work(base, b, t, t, h, d, pairs, 2),
-                              BF16_FLOPS_PER_S)
+        work = flash_work(base, b, t, t, h, d, pairs, 2)
+        b_ms, b_by = bound_ms(*work, BF16_FLOPS_PER_S)
+        ms = (ms_a + ms_b) / 2
         rows.append({
             "name": name, "route": "cuda",
             "source": f"paddle_tpu_torch/csrc/{base}.cu",
             "replaces": f"paddle_tpu/ops/pallas_attention.py:{line}",
             "launches": sum(launches[name].values()),
             "launches_by_path": launches[name],
-            "max_abs_err": errs[name][0], "ms": (ms_a + ms_b) / 2,
+            "max_abs_err": errs[name][0], "ms": ms,
             "ms_turns": [ms_a, ms_b], "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by,
+            "tflops": work[1] / ms * 1e-9, "bound_share": b_ms / ms,
             "library_ms": lib["fwd" if name == "flash_fwd_legacy"
                               else "bwd"],
             "library": "F.scaled_dot_product_attention causal forward"
@@ -2746,8 +2765,9 @@ def phase_time_legacy(dev, launches):
             f"{r['block_sparse_ms'] * 1e3:.2f} us; plain "
             f"{r['plain_ms'] * 1e3:.2f} us, {r['library']} "
             f"{r['library_ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.3f}"
-            f" us by {r['bound_by']}; {r['bound_ms'] / r['ms'] * 100:.1f} % "
-            f"of the bound rate); {r['shape']}")
+            f" us by {r['bound_by']}; {r['tflops']:.1f} TFLOP/s of the "
+            f"contract, {r['bound_share'] * 100:.1f} % of the bound rate); "
+            f"{r['shape']}")
     return rows
 
 

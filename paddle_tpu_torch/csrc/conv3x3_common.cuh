@@ -1,14 +1,17 @@
-// The 3x3 stride-1 pad-1 NHWC convolution main loop shared by the fused
-// conv/BN-affine kernels 18-21 (conv3x3_dx.cu, conv3x3_fwd.cu,
-// conv3x3_fwd_bwd.cu, conv3x3_chain_bwd.cu), which replace the Pallas
-// kernels of paddle_tpu/ops/pallas_conv.py.
+// The 3x3 stride-1 pad-1 NHWC convolution main loop on the CUDA cores,
+// shared by the fused conv/BN-affine kernels 18, 20 and 21
+// (conv3x3_dx.cu, conv3x3_fwd_bwd.cu, conv3x3_chain_bwd.cu), which
+// replace Pallas kernels of paddle_tpu/ops/pallas_conv.py; kernel 19
+// (conv3x3_fwd.cu) runs on the tensor-core loop of conv3x3_tc.cuh, with
+// the same hooks and Params.
 //
 // An implicit GEMM: out[p, n] = sum over tap (a, b) and source channel k
 // of src'[p + (a-1, b-1), k] * wg[tap, k, n], with M = N*H*W pixels, the
 // GEMM's N = NC output channels (C_out forward, C_in backward-data) and
 // K = 9 * KC.  src' is the source tile as the LOAD HOOK forms it, in f32:
 //
-//   kLoadAffine  x = act(A*z + C)              (kernel 19's prologue)
+//   kLoadAffine  x = act(A*z + C)              (kernel 19's prologue,
+//                                              on conv3x3_tc.cuh)
 //   kLoadPlain   dy as it is                   (kernel 20)
 //   kLoadBnBwd   dz = A*dy + B*z + C, and dz written out once   (18, 21)
 //
@@ -17,7 +20,8 @@
 // the border is 0 in the TRANSFORMED space (not relu(C), not C).  The
 // EPILOGUE HOOK takes the f32 sums:
 //
-//   kEpiStore      out = t in the output dtype              (18, 19)
+//   kEpiStore      out = t in the output dtype              (18; 19 on
+//                                                            conv3x3_tc.cuh)
 //   kEpiAffineBwd  u = A1*z1 + C1, du = act'(u)*t, dz1 = A1*du,
 //                  x1 = act(u), and per-block partial sums of z1*du and
 //                  du per channel                           (20, 21)
@@ -31,15 +35,15 @@
 // accumulators (3 float4 shared loads per 32 FMAs), the next k-step's
 // operands fetched into registers while the current one is multiplied
 // (two shared buffers).  The products and both affines are f32 on CUDA
-// cores, as the Pallas kernels compute them.  Kernels 18, 19 and 21
-// multiply an operand formed in f32 (dz, x = act(A.z + C)), which a bf16
-// tensor-core product would round: their bound on this card is
-// operations, 2 * M * 9 * KC * NC flops at 67 TFLOP/s fp32 (29.6 GFLOP,
-// 0.442 ms at each ResNet-50 stage at B = 128).  Kernel 20 multiplies its
-// bf16 inputs as they are (dy and the weights): bf16 tensor-core products
-// with f32 accumulation would compute the same products, so its bound is
-// the larger of its bytes (206 MB at the first stage, 61 us) and 29.6
-// GFLOP at 989 TFLOP/s.
+// cores, as the Pallas kernels compute them.  Kernels 18 and 21 multiply
+// an operand formed in f32 (dz): their bound on this card, on this loop,
+// is operations, 2 * M * 9 * KC * NC flops at 67 TFLOP/s fp32 (29.6
+// GFLOP, 0.442 ms at each ResNet-50 stage at B = 128); on the
+// tensor-core loop (dz as hi + lo bf16, two passes) it would be 59.8 us,
+// kernel 19's.  Kernel 20 multiplies its bf16 inputs as they are (dy and
+// the weights): bf16 tensor-core products with f32 accumulation would
+// compute the same products, so its bound is the larger of its bytes
+// (206 MB at the first stage, 61 us) and 29.6 GFLOP at 989 TFLOP/s.
 //
 // kLoadBnBwd writes dz exactly once: the CTAs of the first channel block
 // (blockIdx.y == 0) store the dz they form at the centre tap, which maps
@@ -112,6 +116,8 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float v[4]) {
 template <typename T, int kLoad, int kEpi>
 __global__ void __launch_bounds__(kThreads)
 conv3x3_kernel(const Params p) {
+  static_assert(kLoad != kLoadAffine,
+                "kernel 19's hook runs on the tensor-core loop");
   __shared__ __align__(16) float As[2][kBK][kAS];
   __shared__ __align__(16) float Bs[2][kBK][kBN];
 
@@ -163,14 +169,7 @@ conv3x3_kernel(const Params p) {
       if (pin[i] && hh >= 0 && hh < p.h && ww >= 0 && ww < p.w) {
         const long off = (pix[i] + (long)dh * p.w + dw) * p.kc + k;
         load4(src + off, ra[i]);
-        if constexpr (kLoad == kLoadAffine) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const float x = __fadd_rn(__fmul_rn(p.in_aff[k + j], ra[i][j]),
-                                      p.in_aff[p.kc + k + j]);
-            ra[i][j] = p.relu_in ? fmaxf(x, 0.f) : x;
-          }
-        } else if constexpr (kLoad == kLoadBnBwd) {
+        if constexpr (kLoad == kLoadBnBwd) {
           float z[4];
           load4(src2 + off, z);
 #pragma unroll

@@ -1,48 +1,62 @@
-// Block-sparse flash attention forward, training form, for sm_90a.
+// Flash attention forward, training form, for sm_90a: kernel 1-train
+// (block-sparse windows) and kernel 2 (the legacy full grid).
 //
-// Replaces the TPU kernel `_fa_pair_kernel` (paddle_tpu/ops/
-// pallas_attention.py), launched by `_fa_forward_sparse` for
-// `flash_attention` (padded rows with key lengths) and
-// `flash_attention_packed` (segment ids): out = softmax(q k^T * scale) v
+// Replaces two TPU kernels of paddle_tpu/ops/pallas_attention.py:
+// `_fa_pair_kernel` (:255, launched by `_fa_forward_sparse` for
+// `flash_attention`, padded rows with key lengths, and
+// `flash_attention_packed`, segment ids), and `_fa_kernel` (:467, the
+// (B*H, q blocks, k blocks) grid of `_fa_forward_grid` behind
+// --flash_block_sparse=false, which DMAs every K/V block and skips only
+// the compute of a dead one).  Both compute out = softmax(q k^T * scale) v
 // with the reference's masks (key past its row's length; above the
-// diagonal when causal; packed, another segment or padding), and the
-// per-query log-sum-exp lse [B, H, Tq] the backward kernels rebuild p
-// from.  A row with no visible key emits zeros and lse = NEG_INF / 2.
-//
-// Design.  The TPU walks a (B*H, pairs) grid in order and carries the
-// online softmax in VMEM across one q block's pairs.  Here a CTA owns 64
-// query rows of one (batch row, head) (4 warps x 16 rows) and walks its
-// own live key tiles in a loop: the window [lo, hi) of 64-key tiles
-// computed outside the kernel (`ops/attention.py`: from the key lengths,
-// or from the segment ids' ranges), capped by the causal diagonal.  Dead
-// tiles are neither loaded nor visited.  K/V tiles of BN keys are
-// double-buffered with cp.async; S = Q K^T runs on mma.sync (bf16, f32
-// accumulators); the online softmax stays in registers (quad shuffles for
-// row max and sum), in log2 units (the scale times log2 e, exponentials
-// by ex2.approx), with the reference's max(m, NEG_INF / 2) clamp of the
-// exponent base; P is fed to P V straight from the S accumulators, split
-// into hi + lo bf16 in registers (V read with ldmatrix.trans).
+// diagonal when causal; packed, another segment or padding) and the
+// per-query log-sum-exp lse [B, H, Tq] that the backward kernels rebuild
+// p from.  A row with no visible key emits zeros and lse = NEG_INF / 2.
+// The TPU carries the online softmax in VMEM across a q block's grid
+// steps; here a CTA walks its key tiles in a loop.
 //
 // Bound on the H100 (the transformer step's shape: B 16, H 8, T 2048,
-// D 64, bf16, non-causal, all keys valid): 4 B H T^2 D = 137.4 GFLOP,
-// 139.0 us at 989 TFLOP/s bf16; its bytes (q, k, v read once, out and
-// lse written once, ~135 MB) take ~40 us, so operations bound it.  The
-// hi/lo split of P makes the kernel's own mma work 1.5x the contract's.
-// Registers are capped for 4 CTAs an SM (the bf16 D = 64 kernel needs
-// 142 uncapped; the cap measured ~1 % faster, tools/flash_probe.py).
+// D 64, bf16, all keys valid): 4 B H T^2 D = 137.4 GFLOP non-causal,
+// 139.0 us at 989 TFLOP/s bf16, and half of that causal (69.5 us); the
+// bytes (q, k, v read once, out and lse written once, ~135 MB) take ~40
+// us, so operations bound it.
 //
-// Legacy full grid (`flash_fwd_legacy`).  Also replaces the TPU kernel
-// `_fa_kernel` (`_fa_forward_grid`), the (B*H, q blocks, k blocks) grid
-// behind --flash_block_sparse=false that DMAs every K/V block and skips
-// only the compute of a dead one (past the row's key length, or wholly
-// above the causal diagonal).  It is this main loop instantiated with
-// FULL: no windows; each CTA walks every key tile of the row and issues
-// its loads, and runs the products and the softmax only on live tiles.
-// The dead tiles form a suffix, so the result is the block-sparse one.
-// Its bound is the same work plus the dead tiles' loads (K and V of
-// every tile, once per q tile: at the causal T 2048 shape 2.1 GB of L2
-// traffic, not device-memory bytes).
+// bf16 (every path of the transformer): the wgmma loop, two CTAs an SM.
+// A CTA owns 128 query rows of one (batch row, head) in two warpgroups of
+// 64.  Each warpgroup has its own live key range: its 64-row q tile's
+// window [lo, hi) of 64-key tiles (`ops/attention.py`, from the key
+// lengths or the segment ids' ranges) or, for the legacy grid (FULL), the
+// whole row; both capped by the key length and the causal diagonal.  The
+// CTA loads the union of the two ranges and nothing else -- a dead tile
+// is neither loaded nor visited, under FULL too (the dead tiles of the
+// TPU's grid are a suffix, so the result is the block-sparse one).  Q and
+// the 64-key K/V tiles come by TMA (tensor maps of the [B, T, H, D]
+// operands built on the host; one thread issues the copies, an mbarrier
+// a ring slot counts their bytes) into a 4-stage ring two tiles ahead,
+// in the 128-byte swizzled layout of wgmma.cuh (64 bytes at D 32); one
+// __syncthreads a tile frees the slot of tile i - 2.  S = Q K^T is one
+// wgmma m64n64k16 chain per warpgroup with both operands in shared memory
+// (K-major).  The online softmax runs on the accumulators (quad shuffles
+// for row max and sum, log2 units, one FFMA and one ex2.approx an
+// element, the reference's max(m, NEG_INF / 2) clamp; maxima and sums in
+// four independent chains a row, because few warps share a scheduler).
+// P is split into hi + lo bf16 in registers (the contract's P is f32; the
+// split makes the P V work 2x) and O += P V is two wgmma m64nDk16 chains
+// with P from registers and V read MN-major (transposed).  Per tile, S of
+// tile i and P V of tile i - 1 are issued back to back and the softmax of
+// tile i follows while P V runs; nothing is written between the two
+// groups and nothing stays in flight across the loop, or ptxas serializes
+// them.  (ptxas still retires P V a few dozen instructions into the
+// softmax of a tile without masked elements -- its SASS shows the wait
+// there -- so that overlap is partial.)
+// Causal CTAs are launched heaviest first (the last q tiles first).
+//
+// fp32 (the SPLIT numbers of flash_common.cuh: q, k, v as hi + lo bf16,
+// three products each) keeps the mma.sync loop: a CTA of 4 warps owns 64
+// query rows and double-buffers BN-key tiles by cp.async; under FULL it
+// too visits only the live tiles.
 #include "flash_common.cuh"
+#include "wgmma.cuh"
 
 using namespace fa;
 
@@ -74,14 +88,12 @@ __global__ void __launch_bounds__(kThreads, 4)
   const int q0 = qt * kRows, nq = gridDim.x;
   const bool packed = seg != nullptr;
   const int kv_len = kv_lens ? min(max(kv_lens[b], 0), Tk) : Tk;
-  // live keys [k_begin, k_end); the sparse walk visits only their
-  // tiles, the full grid every tile of the row (computing the live ones)
+  // live keys [k_begin, k_end): the window's, or under FULL the row's
+  // (its key length and the causal diagonal); only their tiles are visited
   const int k_begin = FULL ? 0 : win_lo[b * nq + qt] * kRows;
   int k_end = FULL ? kv_len : min(win_hi[b * nq + qt] * kRows, kv_len);
   if (causal) k_end = min(k_end, q0 + kRows);
-  const int n_tiles =
-      FULL ? (Tk + BN - 1) / BN
-           : (k_end > k_begin ? (k_end - k_begin + BN - 1) / BN : 0);
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + BN - 1) / BN : 0;
   const float scale_log2 = scale * kLog2e;   // scores in log2 units
 
   const T* qb = q + b * sqb + h * D;
@@ -117,10 +129,6 @@ __global__ void __launch_bounds__(kThreads, 4)
     cp_wait<1>();
     __syncthreads();
     const int k0 = k_begin + i * BN;
-    if (FULL && k0 >= k_end) {         // dead tile: loaded, not computed
-      __syncthreads();
-      continue;
-    }
     float sc[BN / 8][4];
     zero<BN>(sc);
     gemm_nt<D, BN, SPLIT>(sc, sQ + warp * 16 * LDS, QP, kv_plane(s, 0), KP);
@@ -203,6 +211,376 @@ __global__ void __launch_bounds__(kThreads, 4)
   }
 }
 
+// ------------------------------------------------ bf16: the wgmma loop
+constexpr int kWgThreads = 256;     // two warpgroups of 64 query rows
+constexpr int kCtaRows = 128;       // query rows a CTA
+constexpr int kKeys = 64;           // keys a K/V tile
+constexpr int kWgStages = 4;        // K/V ring: tiles i - 1 (V) .. i + 2
+constexpr int kAhead = 2;           // tiles loaded ahead of the walk
+
+template <int D>
+struct Wg {
+  static constexpr int SW = D >= 64 ? 128 : 64;    // swizzled row bytes
+  static constexpr int CB = SW / 2;                // bf16 a block row
+  static constexpr int QB = kCtaRows * D * 2;      // Q tile bytes
+  static constexpr int KVB = kKeys * D * 2;        // K or V tile bytes
+  static constexpr size_t smem =
+      1024 + QB + kWgStages * 2 * KVB + (1 + kWgStages) * sizeof(uint64_t);
+};
+
+// Rows [row0, row0 + R) of head h of batch row b of a [B, T, H, D]
+// operand into an R-row tile by TMA, one box a column block (rows past T
+// read as zeros), counted on `bar`.
+template <int D, int R>
+__device__ __forceinline__ void tma_tile(unsigned char* dst,
+                                         const CUtensorMap* map,
+                                         uint64_t* bar, int h, int row0,
+                                         int b) {
+#pragma unroll
+  for (int cb = 0; cb < D / Wg<D>::CB; ++cb)
+    wg::tma_load_4d(dst + cb * R * Wg<D>::SW, map, bar, cb * Wg<D>::CB, h,
+                    row0, b);
+}
+
+// Descriptor of rows [r0, r0 + 64) of a K-major R-row tile; k step kk
+// adds kmajor_step<D, R>(kk) (the start address is the descriptor's low
+// field, in 16-byte units, and shared addresses do not carry out of it).
+template <int D>
+__device__ __forceinline__ uint64_t kmajor(uint32_t base, int r0) {
+  constexpr int SW = Wg<D>::SW;
+  return wg::desc<SW>(base + r0 * SW, 16, 8 * SW);
+}
+template <int D, int R>
+__host__ __device__ constexpr uint64_t kmajor_step(int kk) {
+  return ((kk * 16 / Wg<D>::CB) * R * Wg<D>::SW +
+          (kk * 16 % Wg<D>::CB) * 2) >> 4;
+}
+
+// Descriptor of a V tile read MN-major; keys [16 kk, 16 kk + 16) add
+// vmajor_step<D>(kk).
+template <int D>
+__device__ __forceinline__ uint64_t vmajor(uint32_t base) {
+  constexpr int SW = Wg<D>::SW;
+  return wg::desc<SW>(base, kKeys * SW, 8 * SW);
+}
+template <int D>
+__host__ __device__ constexpr uint64_t vmajor_step(int kk) {
+  return (kk * 16 * Wg<D>::SW) >> 4;
+}
+
+// S = Q K^T for a warpgroup's 64 rows (from row r0 of the Q tile) and
+// the K tile at shared address kt into sc, as one wgmma group (both
+// operands K-major in shared memory).
+template <int D>
+__device__ __forceinline__ void issue_s(float (&sc)[32], uint32_t q_addr,
+                                        int r0, uint32_t kt) {
+  const uint64_t qd = kmajor<D>(q_addr, r0), kd = kmajor<D>(kt, 0);
+  wg::fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wg::mma_ss_n64<0>(sc, qd + kmajor_step<D, kCtaRows>(kk),
+                      kd + kmajor_step<D, kKeys>(kk), kk > 0);
+  wg::commit();
+}
+
+// The element masks of a thread's two rows (r0 and r0 + 8), gathered
+// when a tile needs them rather than held in registers across the loop.
+struct TileMask {
+  int r0, kv_len, sq0, sq1, tk;
+  bool causal, packed;
+  const int* segb;      // the row's segment ids (packed), read in place
+};
+
+// The raw scores s of one 64-key tile (accumulator layout) in place to
+// p = 2^(s * scale_log2 - base) under the masks (one FFMA and one ex2 an
+// element; a masked score is set to NEG_INF / scale_log2, so that it
+// scales to NEG_INF and the clamp below sees the reference's numbers);
+// the running row maxima m (log2 units) and sums l (this lane's share)
+// updated; al = the factors that rescale O.  MASK applies tm's masks,
+// which the caller gathers only for a tile that has masked elements, so
+// that they hold no registers across the loop (at the 128-register cap
+// every register held there pushed ptxas to spill or to retire P V
+// early).
+template <bool MASK>
+__device__ __forceinline__ void softmax_tile(float (&sc)[32],
+                                             float scale_log2, int k0,
+                                             const TileMask& tm, float& m0,
+                                             float& m1, float& l0, float& l1,
+                                             float& al0, float& al1) {
+  if constexpr (MASK) {
+    const int t = threadIdx.x & 3;
+    const float masked = kNegInf / scale_log2;
+#pragma unroll
+    for (int j = 0; j < kKeys / 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int col = j * 8 + 2 * t + (c & 1);
+        if (!valid(tm.r0 + (c < 2 ? 0 : 8), k0 + col, tm.kv_len, tm.causal,
+                   tm.packed, c < 2 ? tm.sq0 : tm.sq1,
+                   tm.packed && k0 + col < tm.tk ? __ldg(tm.segb + k0 + col)
+                                                 : 0))
+          sc[4 * j + c] = masked;
+      }
+  }
+  // row maxima and sums in four independent chains a row (short
+  // dependency chains: few warps share a scheduler here)
+  float mx[2][4], rs[2][4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    mx[0][q] = fmaxf(sc[8 * q], sc[8 * q + 1]);
+    mx[1][q] = fmaxf(sc[8 * q + 2], sc[8 * q + 3]);
+    mx[0][q] = fmaxf(mx[0][q], fmaxf(sc[8 * q + 4], sc[8 * q + 5]));
+    mx[1][q] = fmaxf(mx[1][q], fmaxf(sc[8 * q + 6], sc[8 * q + 7]));
+  }
+  const float mn0 = fmaxf(
+      m0, quad_max(fmaxf(fmaxf(mx[0][0], mx[0][1]), fmaxf(mx[0][2], mx[0][3])))
+              * scale_log2);
+  const float mn1 = fmaxf(
+      m1, quad_max(fmaxf(fmaxf(mx[1][0], mx[1][1]), fmaxf(mx[1][2], mx[1][3])))
+              * scale_log2);
+  // a row with no valid key so far keeps p = 0: exp(NEG_INF - NEG_INF/2)
+  const float base0 = fmaxf(mn0, 0.5f * kNegInf);
+  const float base1 = fmaxf(mn1, 0.5f * kNegInf);
+  al0 = exp2_approx(m0 - base0);
+  al1 = exp2_approx(m1 - base1);
+  m0 = mn0;
+  m1 = mn1;
+#pragma unroll
+  for (int j = 0; j < kKeys / 8; ++j) {
+    sc[4 * j] = exp2_approx(fmaf(sc[4 * j], scale_log2, -base0));
+    sc[4 * j + 1] = exp2_approx(fmaf(sc[4 * j + 1], scale_log2, -base0));
+    sc[4 * j + 2] = exp2_approx(fmaf(sc[4 * j + 2], scale_log2, -base1));
+    sc[4 * j + 3] = exp2_approx(fmaf(sc[4 * j + 3], scale_log2, -base1));
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    rs[0][q] = (sc[8 * q] + sc[8 * q + 1]) + (sc[8 * q + 4] + sc[8 * q + 5]);
+    rs[1][q] =
+        (sc[8 * q + 2] + sc[8 * q + 3]) + (sc[8 * q + 6] + sc[8 * q + 7]);
+  }
+  l0 = l0 * al0 + ((rs[0][0] + rs[0][1]) + (rs[0][2] + rs[0][3]));
+  l1 = l1 * al1 + ((rs[1][0] + rs[1][1]) + (rs[1][2] + rs[1][3]));
+}
+
+// P (accumulator layout, f32) as hi and lo bf16 A fragments: keys 16kk..
+// of the tile are accumulator blocks 2kk and 2kk + 1.
+__device__ __forceinline__ void split_p(const float (&p)[32],
+                                       uint32_t (&ph)[kKeys / 16][4],
+                                       uint32_t (&pl)[kKeys / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kKeys / 16; ++kk) {
+    const float* x = p + 8 * kk;
+    split2(x[0], x[1], &ph[kk][0], &pl[kk][0]);
+    split2(x[2], x[3], &ph[kk][1], &pl[kk][1]);
+    split2(x[4], x[5], &ph[kk][2], &pl[kk][2]);
+    split2(x[6], x[7], &ph[kk][3], &pl[kk][3]);
+  }
+}
+
+// O *= al by rows (O not in flight), pinned before the next wgmma issue:
+// a register write between two wgmma groups makes ptxas serialize them.
+template <int D>
+__device__ __forceinline__ void rescale_o(float (&o)[D / 2], float al0,
+                                          float al1) {
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    o[4 * j] *= al0;
+    o[4 * j + 1] *= al0;
+    o[4 * j + 2] *= al1;
+    o[4 * j + 3] *= al1;
+  }
+  wg::fence_acc<D / 2>(o);
+}
+
+// O += P V as one wgmma group (hi and lo products), V the tile at shared
+// address vt read MN-major.
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2],
+                                         const uint32_t (&ph)[kKeys / 16][4],
+                                         const uint32_t (&pl)[kKeys / 16][4],
+                                         uint32_t vt) {
+  const uint64_t vd = vmajor<D>(vt);
+  wg::fence();
+#pragma unroll
+  for (int kk = 0; kk < kKeys / 16; ++kk) {
+    wg::mma_rs<D, 1>(o, ph[kk], vd + vmajor_step<D>(kk), 1);
+    wg::mma_rs<D, 1>(o, pl[kk], vd + vmajor_step<D>(kk), 1);
+  }
+  wg::commit();
+}
+
+// Two CTAs an SM at D <= 64 (128 registers a thread); at D 128 the ring
+// takes one SM's shared memory, and O twice the registers.
+template <int D, bool FULL>
+__global__ void __launch_bounds__(kWgThreads, D <= 64 ? 2 : 1)
+    flash_fwd_wg_kernel(const __grid_constant__ CUtensorMap tmq,
+                        const __grid_constant__ CUtensorMap tmk,
+                        const __grid_constant__ CUtensorMap tmv,
+                        bf16* __restrict__ out, float* __restrict__ lse,
+                        const int* __restrict__ kv_lens,
+                        const int* __restrict__ seg,
+                        const int* __restrict__ win_lo,
+                        const int* __restrict__ win_hi, int Tq, int Tk, int H,
+                        int causal, float scale) {
+  constexpr int KVB = Wg<D>::KVB;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sQ = wg::align1024(smem_raw);
+  unsigned char* sKV = sQ + Wg<D>::QB;              // [stage][K, V]
+  uint64_t* q_bar = reinterpret_cast<uint64_t*>(sKV + kWgStages * 2 * KVB);
+  uint64_t* full = q_bar + 1;                        // [stage] landed
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int wgi = tid >> 7, wq = (tid >> 5) & 3;
+  const int g = lane >> 2, t = lane & 3;
+  const int h = blockIdx.x, b = blockIdx.y;
+  // causal: the last (heaviest) q tiles first
+  const int ct = causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
+  const int nq = (Tq + kRows - 1) / kRows;     // 64-row q tiles (windows)
+  const bool packed = seg != nullptr;
+  const int kv_len = kv_lens ? min(max(kv_lens[b], 0), Tk) : Tk;
+
+  // live keys [lo, hi) of q tile qt: its window, or under FULL the row;
+  // capped by the key length and the causal diagonal
+  auto live = [&](int qt, int& lo, int& hi) {
+    lo = hi = 0;
+    if (qt >= nq) return;
+    lo = FULL ? 0 : win_lo[b * nq + qt] * kRows;
+    hi = FULL ? kv_len : min(win_hi[b * nq + qt] * kRows, kv_len);
+    if (causal) hi = min(hi, qt * kRows + kRows);
+    if (hi <= lo) lo = hi = 0;
+  };
+  int lo0, hi0, lo1, hi1;
+  live(2 * ct, lo0, hi0);
+  live(2 * ct + 1, lo1, hi1);
+  // the CTA loads the union of its warpgroups' tiles; a warpgroup
+  // computes its own, [a, e) of the CTA's walk
+  const int t_lo = hi0 == 0 ? lo1 / kKeys
+                   : hi1 == 0 ? lo0 / kKeys : min(lo0, lo1) / kKeys;
+  const int n_tiles = max((max(hi0, hi1) + kKeys - 1) / kKeys - t_lo, 0);
+  const int my_lo = wgi ? lo1 : lo0, my_hi = wgi ? hi1 : hi0;
+  const int a = my_hi > 0 ? my_lo / kKeys - t_lo : 0;
+  const int e = my_hi > 0 ? (my_hi + kKeys - 1) / kKeys - t_lo : 0;
+
+  const int q0w = ct * kCtaRows + wgi * 64;    // this warpgroup's rows
+  const int r0 = q0w + wq * 16 + g, r1 = r0 + 8;
+  const float scale_log2 = scale * kLog2e;   // scores in log2 units
+  // tiles from first_mask on have masked elements: past the key length,
+  // on the causal diagonal, or (packed) any
+  const int first_mask =
+      packed ? 0
+             : min(kv_len / kKeys - t_lo,
+                   causal ? q0w / kKeys - t_lo : n_tiles);
+  auto tile_mask = [&]() {
+    TileMask tm;
+    tm.r0 = r0;
+    tm.kv_len = kv_len;
+    tm.tk = Tk;
+    tm.causal = causal != 0;
+    tm.packed = packed;
+    tm.segb = packed ? seg + (long long)b * Tk : nullptr;
+    tm.sq0 = packed && r0 < Tq ? tm.segb[r0] : -1;
+    tm.sq1 = packed && r1 < Tq ? tm.segb[r1] : -1;
+    return tm;
+  };
+  const uint32_t q_addr = wg::smem_u32(sQ), kv_addr = wg::smem_u32(sKV);
+  auto ktile = [&](int i) { return kv_addr + (i % kWgStages) * 2 * KVB; };
+  // tile i's K and V into ring slot i % kWgStages (thread 0)
+  auto load_kv = [&](int i) {
+    const int s = i % kWgStages, k0 = (t_lo + i) * kKeys;
+    unsigned char* kt = sKV + s * 2 * KVB;
+    wg::mbar_expect(full + s, 2 * KVB);
+    tma_tile<D, kKeys>(kt, &tmk, full + s, h, k0, b);
+    tma_tile<D, kKeys>(kt + KVB, &tmv, full + s, h, k0, b);
+  };
+
+  if (tid == 0) {
+    wg::mbar_init(q_bar, 1);
+    for (int s = 0; s < kWgStages; ++s) wg::mbar_init(full + s, 1);
+    wg::mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0 && n_tiles > 0) {
+    wg::mbar_expect(q_bar, Wg<D>::QB);
+    tma_tile<D, kCtaRows>(sQ, &tmq, q_bar, h, ct * kCtaRows, b);
+    for (int i = 0; i < min(kAhead, n_tiles); ++i) load_kv(i);
+  }
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f, al0 = 0.f, al1 = 0.f;
+  float sc[32];
+  uint32_t ph[kKeys / 16][4], pl[kKeys / 16][4];
+  // Per live tile i past the first: S of tile i and P V of tile i - 1
+  // are issued together, and the softmax of tile i follows while P V runs
+  // (partly overlapped: see the file's head).  Every branch retires what
+  // it issued (nothing in flight across the loop), so ptxas keeps the
+  // groups asynchronous.  Tiles i + 1 and i + 2 load
+  // meanwhile; the ring keeps tile i - 1's V until its P V is done.
+  for (int i = 0; i < n_tiles; ++i) {
+    __syncthreads();                     // tile i - 2's slot is free
+    if (tid == 0 && i + kAhead < n_tiles) load_kv(i + kAhead);
+    if (i < a || i >= e) continue;       // not a tile of this warpgroup
+    if (i == a) wg::mbar_wait(q_bar, 0);
+    wg::mbar_wait(full + i % kWgStages, (i / kWgStages) & 1);
+    const int k0 = (t_lo + i) * kKeys;
+    // tile i past the first, with or without masked elements
+    auto step = [&](auto mask) {
+      rescale_o<D>(o, al0, al1);
+      issue_s<D>(sc, q_addr, wgi * 64, ktile(i));
+      issue_pv<D>(o, ph, pl, ktile(i - 1) + KVB);
+      wg::wait<1>();                     // S of tile i is done
+      wg::fence_acc<32>(sc);
+      constexpr bool M = decltype(mask)::value;
+      softmax_tile<M>(sc, scale_log2, k0, M ? tile_mask() : TileMask{}, m0,
+                      m1, l0, l1, al0, al1);
+      wg::wait<0>();                     // P V of tile i - 1 is done
+      wg::fence_acc<D / 2>(o);
+      split_p(sc, ph, pl);
+    };
+    if (i == a) {
+      issue_s<D>(sc, q_addr, wgi * 64, ktile(i));
+      wg::wait<0>();
+      wg::fence_acc<32>(sc);
+      softmax_tile<true>(sc, scale_log2, k0, tile_mask(), m0, m1, l0, l1,
+                         al0, al1);
+      split_p(sc, ph, pl);
+    } else if (i >= first_mask) {
+      step(std::true_type{});
+    } else {
+      step(std::false_type{});
+    }
+    if (i == e - 1) {                    // P V of the last live tile
+      rescale_o<D>(o, al0, al1);
+      issue_pv<D>(o, ph, pl, ktile(i) + KVB);
+      wg::wait<0>();
+      wg::fence_acc<D / 2>(o);
+    }
+  }
+
+  // flush: out = acc / l (zeros for a row with no visible key)
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  const float ls0 = l0 == 0.f ? 1.f : l0, ls1 = l1 == 0.f ? 1.f : l1;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int d = j * 8 + 2 * t;
+    if (r0 < Tq)
+      store2(out + ((long long)(b * Tq + r0) * H + h) * D + d,
+             o[4 * j] / ls0, o[4 * j + 1] / ls0);
+    if (r1 < Tq)
+      store2(out + ((long long)(b * Tq + r1) * H + h) * D + d,
+             o[4 * j + 2] / ls1, o[4 * j + 3] / ls1);
+  }
+  if (t == 0) {
+    float* lrow = lse + (long long)(b * H + h) * Tq;
+    if (r0 < Tq)
+      lrow[r0] = l0 == 0.f ? 0.5f * kNegInf : m0 * kLn2 + logf(l0);
+    if (r1 < Tq)
+      lrow[r1] = l1 == 0.f ? 0.5f * kNegInf : m1 * kLn2 + logf(l1);
+  }
+}
+
 }  // namespace
 
 namespace {
@@ -216,25 +594,69 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        long long skb, long long skt, long long svb,
                        long long svt, int causal, float scale,
                        void* stream) {
-  const dim3 grid((Tq + kRows - 1) / kRows, H, B);
-  return dispatch(D, dtype, [&](auto dc, auto tv) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {                 // fp32: the mma.sync loop
+    const dim3 grid((Tq + kRows - 1) / kRows, H, B);
+    return dispatch(D, dtype, [&](auto dc, auto tv) {
+      constexpr int Dv = decltype(dc)::value;
+      using T = decltype(tv);
+      if constexpr (sizeof(T) == 2) {
+        return cudaErrorInvalidValue;
+      } else {
+        constexpr int BN = Tile<Dv>::BN;
+        const size_t smem = plane_bytes<Dv, T>(kRows) +
+                            4 * plane_bytes<Dv, T>(BN) +
+                            2 * BN * sizeof(int);
+        auto kern = flash_fwd_kernel<Dv, T, FULL>;
+        cudaError_t err = allow_smem(kern, smem);
+        if (err != cudaSuccess) return err;
+        kern<<<grid, kThreads, smem, st>>>(
+            static_cast<const T*>(q), static_cast<const T*>(k),
+            static_cast<const T*>(v), static_cast<T*>(out),
+            static_cast<float*>(lse), static_cast<const int*>(kv_lens),
+            static_cast<const int*>(seg), static_cast<const int*>(win_lo),
+            static_cast<const int*>(win_hi), Tq, Tk, H, sqb, sqt, skb, skt,
+            svb, svt, causal, scale);
+        return cudaGetLastError();
+      }
+    });
+  }
+  if (dtype != 0) return cudaErrorInvalidValue;
+  const dim3 grid(H, B, (Tq + kCtaRows - 1) / kCtaRows);
+  auto go = [&](auto dc) {
     constexpr int Dv = decltype(dc)::value;
-    using T = decltype(tv);
-    constexpr int BN = Tile<Dv>::BN;
-    const size_t smem = plane_bytes<Dv, T>(kRows) +
-                        4 * plane_bytes<Dv, T>(BN) + 2 * BN * sizeof(int);
-    auto kern = flash_fwd_kernel<Dv, T, FULL>;
-    cudaError_t err = allow_smem(kern, smem);
+    // [B, T, H, D] operands as 4-d tensor maps; a stride of a dimension of
+    // extent 1 may be given as 0, which a map does not take
+    auto map = [&](CUtensorMap* m, const void* base, int T, long long bs,
+                   long long ts, int rows) {
+      const long long st1 = ts ? ts : (long long)H * Dv;
+      const long long sb1 = bs ? bs : (long long)T * st1;
+      const uint64_t dims[4] = {(uint64_t)Dv, (uint64_t)H, (uint64_t)T,
+                                (uint64_t)B};
+      const uint64_t strides[3] = {(uint64_t)Dv * 2, (uint64_t)st1 * 2,
+                                   (uint64_t)sb1 * 2};
+      const uint32_t box[4] = {(uint32_t)Wg<Dv>::CB, 1, (uint32_t)rows, 1};
+      return wg::tma_map(m, base, 4, dims, strides, box, Wg<Dv>::SW);
+    };
+    CUtensorMap tmq, tmk, tmv;
+    if (!map(&tmq, q, Tq, sqb, sqt, kCtaRows) ||
+        !map(&tmk, k, Tk, skb, skt, kKeys) ||
+        !map(&tmv, v, Tk, svb, svt, kKeys))
+      return cudaErrorInvalidValue;
+    auto kern = flash_fwd_wg_kernel<Dv, FULL>;
+    cudaError_t err = allow_smem(kern, Wg<Dv>::smem);
     if (err != cudaSuccess) return err;
-    kern<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(out),
-        static_cast<float*>(lse), static_cast<const int*>(kv_lens),
-        static_cast<const int*>(seg), static_cast<const int*>(win_lo),
-        static_cast<const int*>(win_hi), Tq, Tk, H, sqb, sqt, skb, skt, svb,
-        svt, causal, scale);
+    kern<<<grid, kWgThreads, Wg<Dv>::smem, st>>>(
+        tmq, tmk, tmv, static_cast<bf16*>(out), static_cast<float*>(lse),
+        static_cast<const int*>(kv_lens), static_cast<const int*>(seg),
+        static_cast<const int*>(win_lo), static_cast<const int*>(win_hi), Tq,
+        Tk, H, causal, scale);
     return cudaGetLastError();
-  });
+  };
+  if (D == 32) return go(std::integral_constant<int, 32>{});
+  if (D == 64) return go(std::integral_constant<int, 64>{});
+  if (D == 128) return go(std::integral_constant<int, 128>{});
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace

@@ -15,8 +15,10 @@ version beside it:
   version of both :func:`_dense_grads`).
 
 The legacy full grid (``--flash_block_sparse=false``, padded rows) runs
-the same three main loops instantiated as the reference's full grid,
-which loads every key (or query) tile and computes only the live ones:
+the same three main loops instantiated as the reference's full grid
+without windows: the forward (kernel 2) bounds each q tile's keys in the
+kernel (key length, causal diagonal) and loads only those; the backward
+kernels load every key (or query) tile and compute only the live ones:
 :func:`flash_fwd_legacy` (kernel 2), :func:`flash_bwd_dq_legacy`
 (kernel 5) and :func:`flash_bwd_dkv_legacy` (kernel 6), with the same
 plain versions.  The dense path (flash off, an untileable shape, packed
@@ -701,9 +703,10 @@ flash_bwd_dkv.launches = 0
 def flash_fwd_legacy(q, k, v, lengths=None, causal: bool = False
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel 2, the legacy full grid (``flash_fwd_legacy`` in
-    ``csrc/flash_fwd.cu``): :func:`flash_fwd`'s result for padded rows,
-    every key tile loaded and only the live ones computed; no windows.
-    Plain version: :func:`_dense_forward`."""
+    ``csrc/flash_fwd.cu``): :func:`flash_fwd`'s result for padded rows;
+    no windows: each q tile's live keys (key length, causal diagonal) are
+    bounded in the kernel, and only those are loaded.  Plain version:
+    :func:`_dense_forward`."""
     b, tq, tk, h, d = _common_args(q, k, v, lengths, None, causal)
     if not _on_card((q, k, v, lengths), d):
         return _dense_forward(q, k, v, lengths, causal)

@@ -1,10 +1,12 @@
 """Fused conv/BatchNorm-affine 3×3 kernels (counterpart of
 ``paddle_tpu/ops/pallas_conv.py``).
 
-Hand-written CUDA C++ kernels for ``sm_90a``, one main loop
-(``csrc/conv3x3_common.cuh``: an implicit GEMM over the 9 shifted
-``[N·H·W, C] @ [C, C']`` products of a 3×3 stride-1 pad-1 NHWC conv)
-with a load hook that forms the operand tile and an epilogue hook:
+Hand-written CUDA C++ kernels for ``sm_90a``, implicit GEMMs over the 9
+shifted ``[N·H·W, C] @ [C, C']`` products of a 3×3 stride-1 pad-1 NHWC
+conv with a load hook that forms the operand tile and an epilogue hook,
+on two main loops: the tensor cores' (``csrc/conv3x3_tc.cuh``, wgmma,
+the f32 operand as hi + lo bf16; kernel 19) and the CUDA cores'
+(``csrc/conv3x3_common.cuh``, f32 FMAs; kernels 18, 20, 21):
 
 - kernel 18, :func:`conv3x3_dx` (``csrc/conv3x3_dx.cu``; plain version
   :func:`conv3x3_dx_reference`): the batch-norm backward's affine
@@ -227,6 +229,46 @@ def conv3x3_chain_bwd_reference(dy, z2, co, z1, ci, w, relu: bool,
     return dz2.to(z2.dtype), dz1, x1, dac
 
 
+#: Pixels a CTA of kernel 19's tensor-core loop owns (csrc/conv3x3_tc.cuh).
+TC_TILE = 128
+_TC_BAND = TC_TILE + 2        # pixels of one tap row's band
+
+
+def halo_gather_map(n: int, h: int, w: int, p0: int):
+    """Kernel 19's halo gather for the CTA of pixels ``[p0, p0 + 128)`` of
+    the flattened ``N·H·W`` range, as the kernel computes it
+    (``csrc/conv3x3_tc.cuh``), in plain index arithmetic:
+    ``(pix [R], rows [9, 128])``.  Halo row ``j`` holds x of pixel
+    ``pix[j]`` (-1: outside ``[0, N·H·W)``, left zero); the range is
+    ``[p0 - W - 1, p0 + 128 + W + 1)``, or for ``W > 130`` three bands of
+    130 pixels, one per tap row.  Output pixel ``p0 + r`` reads halo row
+    ``rows[3a + b, r]`` for tap ``(a, b)``, or ``R`` (the all-zero row)
+    where ``(h + a - 1, w + b - 1)`` leaves its image or the pixel is
+    past the range: so the border is 0 after the affine, and a tile that
+    spans two images never reads the neighbour image."""
+    m = n * h * w
+    contiguous = 2 * w + _TC_BAND <= 3 * _TC_BAND
+    n_rows = 2 * w + _TC_BAND if contiguous else 3 * _TC_BAND
+    step = w if contiguous else _TC_BAND
+    band = n_rows if contiguous else _TC_BAND
+    j = torch.arange(n_rows)
+    q = p0 - w - 1 + j + torch.div(j, band, rounding_mode="floor") \
+        * (w - band)
+    pix = torch.where((q >= 0) & (q < m), q, torch.full_like(q, -1))
+    r = torch.arange(TC_TILE)
+    p = p0 + r
+    ph = torch.remainder(p, h * w) // w
+    pw = torch.remainder(p, w)
+    rows = torch.full((9, TC_TILE), n_rows, dtype=torch.long)
+    for a in range(3):
+        for b in range(3):
+            inside = (p < m) & (ph + a - 1 >= 0) & (ph + a - 1 < h) \
+                & (pw + b - 1 >= 0) & (pw + b - 1 < w)
+            rows[3 * a + b] = torch.where(inside, a * step + r + b,
+                                          torch.full_like(r, n_rows))
+    return pix, rows
+
+
 # ------------------------------------------------------------------ wrappers
 def _check(name: str, x, shape, dtype) -> None:
     enforce(isinstance(x, torch.Tensor) and tuple(x.shape) == tuple(shape),
@@ -295,7 +337,8 @@ def _parts(n, h, w, cin, dev):
 def conv3x3_fwd(z, aff, w, relu: bool) -> torch.Tensor:
     """Kernel 19: conv3×3(act(A·z + C), w).  z ``[N, H, W, Cin]``, aff
     ``[2, Cin]`` f32 (rows A, C), w ``[3, 3, Cin, Cout]`` → ``[N, H, W,
-    Cout]`` in z's dtype."""
+    Cout]`` in z's dtype.  The kernel multiplies on the tensor cores; fp32
+    weights are handed to it as hi and lo bf16 planes."""
     n, h, ww, cin, cout, dt = _check_conv(z, w)
     _check("z", z, z.shape, dt)
     _check("aff", aff, (2, cin), torch.float32)
@@ -304,6 +347,9 @@ def conv3x3_fwd(z, aff, w, relu: bool) -> torch.Tensor:
     _served((z, aff, w), (cin, cout))
     out = torch.empty((n, h, ww, cout), dtype=dt, device=z.device)
     if out.numel():
+        if dt == torch.float32:   # the kernel multiplies w as hi + lo bf16
+            w_hi = w.to(torch.bfloat16)
+            w = torch.stack([w_hi, (w - w_hi.float()).to(torch.bfloat16)])
         _launch("conv3x3_fwd", [x.data_ptr() for x in (z, aff, w, out)],
                 (n, h, ww, cin, cout, int(relu), int(dt == torch.bfloat16)),
                 z.device)

@@ -37,7 +37,9 @@ KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
 #: name -> [(file, old text, new text)]
 PATCHES = {
-    # products with P / dS take hi only (the split's extra mma work)
+    # the mma.sync products with P / dS take hi only (the split's extra
+    # mma work) -- kernels 3 and 4, and the fp32 form of kernel 1; the
+    # bf16 forward splits P in flash_fwd.cu (tools/tc_probe.py)
     "no_split": [("flash_common.cuh",
                   "      mma(acc[2 * np], al, bh[0], bh[1]);\n"
                   "      mma(acc[2 * np + 1], al, bh[2], bh[3]);\n", "")],
@@ -45,7 +47,8 @@ PATCHES = {
     "no_exp": [("flash_common.cuh",
                 'asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));',
                 "y = x;")],
-    # kernels 1 and 3 without their register cap for 4 CTAs an SM
+    # kernel 3 and the fp32 form of kernel 1 without their register cap
+    # for 4 CTAs an SM
     "uncapped": [(f, "__global__ void __launch_bounds__(kThreads, 4)\n",
                   "__global__ void __launch_bounds__(kThreads)\n")
                  for f in ("flash_fwd.cu", "flash_bwd_dq.cu")],
