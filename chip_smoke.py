@@ -63,8 +63,9 @@ Phases (any failure exits nonzero, without the final ``ok`` line):
 3d. the fused conv/BN kernels 18-21 against their plain versions, fp32
    and bf16, ReLU and linear prologues: the four ResNet-50 stage shapes
    at N = 4, N = 1 with H != W and Cin != Cout both ways, a large C
-   offset (the zero border lies in the transformed space) and a pixel
-   count off the 128-pixel tile, against the plain versions with their
+   offset (the zero border lies in the transformed space), a pixel
+   count off the 128-pixel tile and W 140 (the tensor-core loop's band
+   mode), against the plain versions with their
    conv summed in float64: fp32 within 1e-5 * max|ref| + 1e-6, bf16
    within that plus 1 bf16 ulp;
 4l. the ResNet-50 main path: ``bench.py``'s row (B 128, 3x224x224, 1000
@@ -75,9 +76,10 @@ Phases (any failure exits nonzero, without the final ``ok`` line):
    of 18 and 21, ms/step, samples/s, host wall, peak memory;
 4m. a profile of 3 ResNet-50 steps;
 4n. ResNet-50 under ``--conv_bn_fuse_fwd=false``, 2 steps: 16 launches
-   of kernel 18 a step, none of 19-21;
+   of kernel 18 a step, none of 19-21; then a profile of 3 steps;
 4o. ``resnet_cifar10(20)`` at B 128, 3x32x32, 2 steps: 3 launches each
-   of kernels 19 and 21 a step (the 64-channel chain pairs);
+   of kernels 19 and 21 a step (the 64-channel chain pairs); then a
+   profile of 3 steps;
 4p. the small bottleneck net of the CPU tests in fp32 on the card and on
    the CPU (plain versions), same parameters and buffers: loss (rtol
    1e-5), every gradient (tolerances of 3b), the new buffers (1e-5);
@@ -194,8 +196,9 @@ Phases (any failure exits nonzero, without the final ``ok`` line):
    yardsticks; kernel 22 at the lane's 8192 rows of the 1e7 x 128
    table, ``torch.index_select`` as its yardstick.  The conv and flash
    rows also carry the achieved TFLOP/s on the contract's flops and the
-   share of the bound rate; kernel 19's bound is its two bf16
-   tensor-core passes (the f32 operand as hi + lo, ``CONV_BOUND_BASIS``).
+   share of the bound rate; kernels 18, 19 and 21 are bound by two bf16
+   tensor-core passes (the f32 operand as hi + lo, ``CONV_BOUND_BASIS``)
+   or by their bytes, whichever is larger.
 
 Phases 3b-4f are PR 2's H 512 phases and run in fp32 (``use_bf16``
 off), so their readings stay comparable.  The order of the run: 1-3f,
@@ -1390,11 +1393,13 @@ def conv_error(got, want, rtol=CONV_RTOL, ulps=CONV_BF16_ULPS):
 
 #: phase 3d: the four ResNet-50 stage shapes at N = 4, then edge cases —
 #: N = 1 with H != W and Cin != Cout both ways, a large C offset (the
-#: border test), 128 < N*H*W not a multiple of the 128-pixel tile
+#: border test), 128 < N*H*W not a multiple of the 128-pixel tile, and
+#: W 140 > 130, the tensor-core loop's band mode (a last partial tile)
 CONV_CASES = [(4, 56, 56, 64, 64, 0.0), (4, 28, 28, 128, 128, 0.0),
               (4, 14, 14, 256, 256, 0.0), (4, 7, 7, 512, 512, 0.0),
               (1, 9, 13, 64, 128, 0.0), (1, 13, 9, 128, 64, 0.0),
-              (2, 8, 8, 64, 64, 3.0), (3, 5, 7, 192, 64, -2.0)]
+              (2, 8, 8, 64, 64, 3.0), (3, 5, 7, 192, 64, -2.0),
+              (2, 3, 140, 64, 128, 1.0)]
 
 
 def phase_conv_check(dev):
@@ -1560,14 +1565,15 @@ def conv_work(name, n, h, w, cin, cout, elem):
 
 #: the bound's basis for each kernel at the bf16 main path: (passes, rate)
 #: -- kernel 20 multiplies its bf16 inputs as they are (dy and the
-#: flipped weights), one bf16 tensor-core pass; kernel 19 multiplies the
-#: f32 operand x = act(A·z + C) carried as hi + lo bf16, two bf16 passes
-#: (its tensor-core loop, conv3x3_tc.cuh); kernels 18 and 21 multiply an
-#: f32 dz on the CUDA cores, the fp32 rate
+#: flipped weights), one bf16 tensor-core pass; kernels 19, 18 and 21
+#: multiply an f32 operand formed on load (x = act(A·z + C), or
+#: dz = A·dy + B·z + C), which the contract cannot round to bf16 once:
+#: carried as hi + lo bf16, it takes two bf16 passes on the tensor-core
+#: loop (conv3x3_tc.cuh)
 CONV_BOUND_BASIS = {"conv3x3_fwd": (2, BF16_FLOPS_PER_S),
                     "conv3x3_fwd_bwd": (1, BF16_FLOPS_PER_S),
-                    "conv3x3_dx": (1, FP32_FLOPS_PER_S),
-                    "conv3x3_chain_bwd": (1, FP32_FLOPS_PER_S)}
+                    "conv3x3_dx": (2, BF16_FLOPS_PER_S),
+                    "conv3x3_chain_bwd": (2, BF16_FLOPS_PER_S)}
 #: the ResNet-50 stage shapes of kernels 18-21 at the main path's B
 RESNET_STAGES = [(56, 64), (28, 128), (14, 256), (7, 512)]
 CONV_LINES = {"conv3x3_dx": 194, "conv3x3_fwd": 339, "conv3x3_fwd_bwd": 398,
@@ -1644,9 +1650,10 @@ def phase_time_conv(dev, launches, names=tuple(CONV_LINES)):
 
 def phase_resnet(dev, launches):
     """Phases 4l-4p: the ResNet-50 main path under bench.py's flags, its
-    profile, the same net without the forward fusion, resnet_cifar10(20),
-    and the small net on the card against the CPU.  Adds each path's
-    launches to ``launches``; returns the readings by path."""
+    profile, the same net without the forward fusion, resnet_cifar10(20)
+    (each with a profile), and the small net on the card against the
+    CPU.  Adds each path's launches to ``launches``; returns the readings
+    by path."""
     import torch
     from paddle_tpu_torch.models import resnet, resnet_cifar10
     out = {}
@@ -1671,6 +1678,8 @@ def phase_resnet(dev, launches):
         RESNET_CLASSES, 2, 1,
         {"conv3x3_dx": 16, "conv3x3_fwd": 0, "conv3x3_fwd_bwd": 0,
          "conv3x3_chain_bwd": 0})
+    log("== phase 4n: profile of 3 steps without the forward fusion")
+    phase_profile_train(trainer, feed)
     set_flags(conv_bn_fuse_fwd=True)
     for name in launches:
         launches[name]["resnet50_fwd_fusion_off"] = got[name]
@@ -1683,6 +1692,8 @@ def phase_resnet(dev, launches):
          "conv3x3_fwd_bwd": 0})
     for name in launches:
         launches[name]["resnet_cifar10_20"] = got[name]
+    log("== phase 4o: profile of 3 resnet_cifar10(20) steps")
+    phase_profile_train(trainer, feed)
     del trainer, feed
     torch.cuda.empty_cache()
     set_flags(use_bf16=False, bf16_activations=False)

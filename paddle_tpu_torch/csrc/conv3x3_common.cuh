@@ -1,57 +1,50 @@
-// The 3x3 stride-1 pad-1 NHWC convolution main loop on the CUDA cores,
-// shared by the fused conv/BN-affine kernels 18, 20 and 21
-// (conv3x3_dx.cu, conv3x3_fwd_bwd.cu, conv3x3_chain_bwd.cu), which
-// replace Pallas kernels of paddle_tpu/ops/pallas_conv.py; kernel 19
-// (conv3x3_fwd.cu) runs on the tensor-core loop of conv3x3_tc.cuh, with
-// the same hooks and Params.
+// The 3x3 stride-1 pad-1 NHWC convolution kernels' shared parts (hooks,
+// Params, the channel-sum pass) and their main loop on the CUDA cores,
+// which serves kernel 20 alone (conv3x3_fwd_bwd.cu).  Kernels 18, 19 and
+// 21 (conv3x3_dx.cu, conv3x3_fwd.cu, conv3x3_chain_bwd.cu) run on the
+// tensor-core loop of conv3x3_tc.cuh, with the same hooks and Params.
+// All replace Pallas kernels of paddle_tpu/ops/pallas_conv.py.
 //
 // An implicit GEMM: out[p, n] = sum over tap (a, b) and source channel k
 // of src'[p + (a-1, b-1), k] * wg[tap, k, n], with M = N*H*W pixels, the
 // GEMM's N = NC output channels (C_out forward, C_in backward-data) and
 // K = 9 * KC.  src' is the source tile as the LOAD HOOK forms it, in f32:
 //
-//   kLoadAffine  x = act(A*z + C)              (kernel 19's prologue,
-//                                              on conv3x3_tc.cuh)
-//   kLoadPlain   dy as it is                   (kernel 20)
-//   kLoadBnBwd   dz = A*dy + B*z + C, and dz written out once   (18, 21)
+//   kLoadAffine  x = act(A*z + C)              (19, conv3x3_tc.cuh)
+//   kLoadPlain   dy as it is                   (20, this loop)
+//   kLoadBnBwd   dz = A*dy + B*z + C, and dz written out once
+//                                              (18, 21, conv3x3_tc.cuh)
 //
 // A pixel outside the image reads 0 whatever the hook: the Pallas kernels
 // write the transformed tile into a zero-initialised padded scratch, so
 // the border is 0 in the TRANSFORMED space (not relu(C), not C).  The
 // EPILOGUE HOOK takes the f32 sums:
 //
-//   kEpiStore      out = t in the output dtype              (18; 19 on
-//                                                            conv3x3_tc.cuh)
+//   kEpiStore      out = t in the output dtype  (18, 19, conv3x3_tc.cuh)
 //   kEpiAffineBwd  u = A1*z1 + C1, du = act'(u)*t, dz1 = A1*du,
 //                  x1 = act(u), and per-block partial sums of z1*du and
-//                  du per channel                           (20, 21)
+//                  du per channel              (20, this loop; 21,
+//                                               conv3x3_tc.cuh)
 //
 // The affines round each product and sum as the plain versions do
 // (__fmul_rn / __fadd_rn, no contraction into an FMA), so a ReLU mask
 // and a stored dz have the plain version's bits.
 //
-// Tiles: 128 pixels x 64 channels a CTA of 256 threads, 16 source
+// This loop: 128 pixels x 64 channels a CTA of 256 threads, 16 source
 // channels of one tap a k-step, each thread 8 pixels x 4 channels of f32
 // accumulators (3 float4 shared loads per 32 FMAs), the next k-step's
 // operands fetched into registers while the current one is multiplied
-// (two shared buffers).  The products and both affines are f32 on CUDA
-// cores, as the Pallas kernels compute them.  Kernels 18 and 21 multiply
-// an operand formed in f32 (dz): their bound on this card, on this loop,
-// is operations, 2 * M * 9 * KC * NC flops at 67 TFLOP/s fp32 (29.6
-// GFLOP, 0.442 ms at each ResNet-50 stage at B = 128); on the
-// tensor-core loop (dz as hi + lo bf16, two passes) it would be 59.8 us,
-// kernel 19's.  Kernel 20 multiplies its bf16 inputs as they are (dy and
-// the weights): bf16 tensor-core products with f32 accumulation would
-// compute the same products, so its bound is the larger of its bytes
-// (206 MB at the first stage, 61 us) and 29.6 GFLOP at 989 TFLOP/s.
+// (two shared buffers).  The products and the affine are f32 on CUDA
+// cores.  Kernel 20 multiplies its bf16 inputs as they are (dy and the
+// weights): bf16 tensor-core products with f32 accumulation would compute
+// the same products, so its bound is the larger of its bytes (206 MB at
+// the first ResNet-50 stage at B 128, 61 us) and 29.6 GFLOP at 989
+// TFLOP/s.
 //
-// kLoadBnBwd writes dz exactly once: the CTAs of the first channel block
-// (blockIdx.y == 0) store the dz they form at the centre tap, which maps
-// each of their own pixels to itself; no other CTA writes it.
-//
-// The channel sums dA/dC of kEpiAffineBwd are deterministic: each CTA
-// reduces its tile in a fixed order into part[2, NC, gridDim.x], and
-// reduce_parts_kernel sums each row of part in a fixed order (no atomics).
+// The channel sums dA/dC of kEpiAffineBwd are deterministic on both
+// loops: each CTA reduces its tile in a fixed order into
+// part[2, NC, gridDim.x], and reduce_parts_kernel sums each row of part
+// in a fixed order (no atomics).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -113,16 +106,14 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float v[4]) {
   *reinterpret_cast<uint2*>(p) = q;
 }
 
-template <typename T, int kLoad, int kEpi>
+// Kernel 20's loop: hooks kLoadPlain and kEpiAffineBwd.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 conv3x3_kernel(const Params p) {
-  static_assert(kLoad != kLoadAffine,
-                "kernel 19's hook runs on the tensor-core loop");
   __shared__ __align__(16) float As[2][kBK][kAS];
   __shared__ __align__(16) float Bs[2][kBK][kBN];
 
   const T* src = static_cast<const T*>(p.src);
-  const T* src2 = static_cast<const T*>(p.src2);
   const T* wg = static_cast<const T*>(p.wg);
   const int tid = threadIdx.x;
   const int hw = p.h * p.w;
@@ -131,7 +122,6 @@ conv3x3_kernel(const Params p) {
   const int n0 = blockIdx.y * kBN;
   const int kcs = p.kc / kBK;            // k-steps per tap
   const int ksteps = 9 * kcs;
-  const bool write_src = kLoad == kLoadBnBwd && blockIdx.y == 0;
 
   // operand loads: pixels ar and ar + 64 of the tile, channels ag..ag+3
   const int ar = tid >> 2, ag = (tid & 3) * 4;
@@ -167,20 +157,7 @@ conv3x3_kernel(const Params p) {
     for (int i = 0; i < 2; ++i) {
       const int hh = ph[i] + dh, ww = pw[i] + dw;
       if (pin[i] && hh >= 0 && hh < p.h && ww >= 0 && ww < p.w) {
-        const long off = (pix[i] + (long)dh * p.w + dw) * p.kc + k;
-        load4(src + off, ra[i]);
-        if constexpr (kLoad == kLoadBnBwd) {
-          float z[4];
-          load4(src2 + off, z);
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            ra[i][j] = __fadd_rn(
-                __fadd_rn(__fmul_rn(p.in_aff[k + j], ra[i][j]),
-                          __fmul_rn(p.in_aff[p.kc + k + j], z[j])),
-                p.in_aff[2 * p.kc + k + j]);
-          if (write_src && tap == 4)
-            store4(static_cast<T*>(p.out_src) + off, ra[i]);
-        }
+        load4(src + (pix[i] + (long)dh * p.w + dw) * p.kc + k, ra[i]);
       } else {
 #pragma unroll
         for (int j = 0; j < 4; ++j) ra[i][j] = 0.f;
@@ -221,52 +198,44 @@ conv3x3_kernel(const Params p) {
   }
 
   const int n = n0 + tx * 4;
-  if constexpr (kEpi == kEpiStore) {
+  float a1[4], c1[4], sz[4] = {0.f, 0.f, 0.f, 0.f},
+                      sd[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const long m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-      if (m < m_total) store4(static_cast<T*>(p.out) + m * p.nc + n, acc[i]);
-    }
-  } else {
-    float a1[4], c1[4], sz[4] = {0.f, 0.f, 0.f, 0.f},
-                        sd[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int j = 0; j < 4; ++j) {
+    a1[j] = p.ep_aff[n + j];
+    c1[j] = p.ep_aff[p.nc + n + j];
+  }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      a1[j] = p.ep_aff[n + j];
-      c1[j] = p.ep_aff[p.nc + n + j];
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const long m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-      if (m >= m_total) continue;
-      float z[4], dz[4], x[4];
-      load4(static_cast<const T*>(p.ez) + m * p.nc + n, z);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float u = __fadd_rn(__fmul_rn(a1[j], z[j]), c1[j]);
-        const float du = (!p.relu_ep || u > 0.f) ? acc[i][j] : 0.f;
-        dz[j] = __fmul_rn(a1[j], du);
-        x[j] = p.relu_ep ? fmaxf(u, 0.f) : u;
-        sz[j] += z[j] * du;
-        sd[j] += du;
-      }
-      store4(static_cast<T*>(p.edz) + m * p.nc + n, dz);
-      store4(static_cast<T*>(p.ex) + m * p.nc + n, x);
-    }
-    // the tile's channel sums, in a fixed order: rows ty, then the CTA
-    float* red = &As[0][0][0];            // [2][16][kBN] after the loop
+  for (int i = 0; i < 8; ++i) {
+    const long m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
+    if (m >= m_total) continue;
+    float z[4], dz[4], x[4];
+    load4(static_cast<const T*>(p.ez) + m * p.nc + n, z);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      red[ty * kBN + tx * 4 + j] = sz[j];
-      red[16 * kBN + ty * kBN + tx * 4 + j] = sd[j];
+      const float u = __fadd_rn(__fmul_rn(a1[j], z[j]), c1[j]);
+      const float du = (!p.relu_ep || u > 0.f) ? acc[i][j] : 0.f;
+      dz[j] = __fmul_rn(a1[j], du);
+      x[j] = p.relu_ep ? fmaxf(u, 0.f) : u;
+      sz[j] += z[j] * du;
+      sd[j] += du;
     }
-    __syncthreads();
-    if (tid < 2 * kBN) {
-      const int q = tid / kBN, c = tid % kBN;
-      float s = 0.f;
-      for (int r = 0; r < 16; ++r) s += red[q * 16 * kBN + r * kBN + c];
-      p.part[((long)q * p.nc + n0 + c) * gridDim.x + blockIdx.x] = s;
-    }
+    store4(static_cast<T*>(p.edz) + m * p.nc + n, dz);
+    store4(static_cast<T*>(p.ex) + m * p.nc + n, x);
+  }
+  // the tile's channel sums, in a fixed order: rows ty, then the CTA
+  float* red = &As[0][0][0];            // [2][16][kBN] after the loop
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    red[ty * kBN + tx * 4 + j] = sz[j];
+    red[16 * kBN + ty * kBN + tx * 4 + j] = sd[j];
+  }
+  __syncthreads();
+  if (tid < 2 * kBN) {
+    const int q = tid / kBN, c = tid % kBN;
+    float s = 0.f;
+    for (int r = 0; r < 16; ++r) s += red[q * 16 * kBN + r * kBN + c];
+    p.part[((long)q * p.nc + n0 + c) * gridDim.x + blockIdx.x] = s;
   }
 }
 
@@ -287,9 +256,9 @@ reduce_parts_kernel(const float* part, int n_parts, float* dac) {
   if (threadIdx.x == 0) dac[blockIdx.x] = s[0];
 }
 
-// Launch one conv3x3_kernel over (M, NC) tiles (and the channel-sum pass
-// for kEpiAffineBwd); returns the cudaError of the launch.
-template <typename T, int kLoad, int kEpi>
+// Launch one conv3x3_kernel over (M, NC) tiles and the channel-sum pass
+// into dac; returns the cudaError of the launch.
+template <typename T>
 int launch(const Params& p, float* dac, cudaStream_t stream) {
   const long m_total = (long)p.n * p.h * p.w;
   if (p.kc % kBK || p.nc % kBN || m_total <= 0)
@@ -297,10 +266,9 @@ int launch(const Params& p, float* dac, cudaStream_t stream) {
   const long grid_m = (m_total + kBM - 1) / kBM;
   if (grid_m > 0x7fffffffL) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)grid_m, p.nc / kBN);
-  conv3x3_kernel<T, kLoad, kEpi><<<grid, kThreads, 0, stream>>>(p);
-  if constexpr (kEpi == kEpiAffineBwd)
-    reduce_parts_kernel<<<2 * p.nc, kReduceThreads, 0, stream>>>(
-        p.part, (int)grid_m, dac);
+  conv3x3_kernel<T><<<grid, kThreads, 0, stream>>>(p);
+  reduce_parts_kernel<<<2 * p.nc, kReduceThreads, 0, stream>>>(
+      p.part, (int)grid_m, dac);
   return (int)cudaGetLastError();
 }
 

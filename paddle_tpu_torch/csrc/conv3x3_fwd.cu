@@ -27,6 +27,7 @@ extern "C" int conv3x3_fwd(const void* z, const float* aff, const void* w,
   p.n = N; p.h = H; p.w = W; p.kc = Cin; p.nc = Cout;
   p.relu_in = relu;
   return bf16 ? conv3x3_tc::launch<__nv_bfloat16, kLoadAffine, kEpiStore>(
-                    p, stream)
-              : conv3x3_tc::launch<float, kLoadAffine, kEpiStore>(p, stream);
+                    p, nullptr, stream)
+              : conv3x3_tc::launch<float, kLoadAffine, kEpiStore>(p, nullptr,
+                                                                  stream);
 }

@@ -11,6 +11,8 @@
 // dy [N, H, W, Cout], z [N, H, W, Cin], wt [3, 3, Cout, Cin] (wt[a, b] =
 // w[2-a, 2-b]^T) in T; aff [2, Cin] f32; part [2, Cin, ceil(N*H*W/128)]
 // f32 scratch; outputs dz, x [N, H, W, Cin] in T and dac [2, Cin] f32.
+// It runs on the CUDA-core loop of conv3x3_common.cuh (hooks kLoadPlain
+// and kEpiAffineBwd), f32 FMAs.
 #include "conv3x3_common.cuh"
 
 using namespace conv3x3;
@@ -30,7 +32,6 @@ extern "C" int conv3x3_fwd_bwd(const void* dy, const void* z,
   p.part = part;
   p.n = N; p.h = H; p.w = W; p.kc = Cout; p.nc = Cin;
   p.relu_ep = relu;
-  return bf16 ? launch<__nv_bfloat16, kLoadPlain, kEpiAffineBwd>(p, dac,
-                                                                 stream)
-              : launch<float, kLoadPlain, kEpiAffineBwd>(p, dac, stream);
+  return bf16 ? launch<__nv_bfloat16>(p, dac, stream)
+              : launch<float>(p, dac, stream);
 }

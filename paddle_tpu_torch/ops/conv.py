@@ -5,8 +5,8 @@ Hand-written CUDA C++ kernels for ``sm_90a``, implicit GEMMs over the 9
 shifted ``[N·H·W, C] @ [C, C']`` products of a 3×3 stride-1 pad-1 NHWC
 conv with a load hook that forms the operand tile and an epilogue hook,
 on two main loops: the tensor cores' (``csrc/conv3x3_tc.cuh``, wgmma,
-the f32 operand as hi + lo bf16; kernel 19) and the CUDA cores'
-(``csrc/conv3x3_common.cuh``, f32 FMAs; kernels 18, 20, 21):
+the f32 operand as hi + lo bf16; kernels 18, 19, 21) and the CUDA cores'
+(``csrc/conv3x3_common.cuh``, f32 FMAs; kernel 20):
 
 - kernel 18, :func:`conv3x3_dx` (``csrc/conv3x3_dx.cu``; plain version
   :func:`conv3x3_dx_reference`): the batch-norm backward's affine
@@ -36,10 +36,11 @@ package leaves them to XLA.
 A wrapper checks dtype (fp32 or bf16, one dtype for the activations and
 weights, fp32 affines), shape and contiguity.  CPU tensors then take the
 plain version; CUDA tensors launch the kernel or raise (channels must be
-multiples of 64, tensors 16-byte aligned).  Each wrapper counts its
-launches in ``.launches``.  The gates below are the JAX module's, copied
-as they are, so the port dispatches — and launches — where the JAX
-package does; their VMEM terms are a TPU budget.
+multiples of 64, tensors 16-byte aligned); the tensor-core kernels take
+fp32 weights as hi and lo bf16 planes (:func:`_tc_weights`).  Each
+wrapper counts its launches in ``.launches``.  The gates below are the
+JAX module's, copied as they are, so the port dispatches — and launches
+— where the JAX package does; their VMEM terms are a TPU budget.
 """
 
 from __future__ import annotations
@@ -229,14 +230,14 @@ def conv3x3_chain_bwd_reference(dy, z2, co, z1, ci, w, relu: bool,
     return dz2.to(z2.dtype), dz1, x1, dac
 
 
-#: Pixels a CTA of kernel 19's tensor-core loop owns (csrc/conv3x3_tc.cuh).
+#: Pixels a CTA of the tensor-core loop owns (csrc/conv3x3_tc.cuh).
 TC_TILE = 128
 _TC_BAND = TC_TILE + 2        # pixels of one tap row's band
 
 
 def halo_gather_map(n: int, h: int, w: int, p0: int):
-    """Kernel 19's halo gather for the CTA of pixels ``[p0, p0 + 128)`` of
-    the flattened ``N·H·W`` range, as the kernel computes it
+    """The tensor-core loop's halo gather for the CTA of pixels ``[p0, p0
+    + 128)`` of the flattened ``N·H·W`` range, as the kernel computes it
     (``csrc/conv3x3_tc.cuh``), in plain index arithmetic:
     ``(pix [R], rows [9, 128])``.  Halo row ``j`` holds x of pixel
     ``pix[j]`` (-1: outside ``[0, N·H·W)``, left zero); the range is
@@ -267,6 +268,16 @@ def halo_gather_map(n: int, h: int, w: int, p0: int):
             rows[3 * a + b] = torch.where(inside, a * step + r + b,
                                           torch.full_like(r, n_rows))
     return pix, rows
+
+
+def halo_dz_stores(n: int, h: int, w: int, p0: int) -> torch.Tensor:
+    """The halo rows whose dz the CTA of pixels ``[p0, p0 + 128)`` stores
+    under the load hook kLoadBnBwd (kernels 18 and 21, first channel
+    block), as the kernel decides it: row ``j`` of
+    :func:`halo_gather_map` when its pixel ``q`` is one of the CTA's own,
+    ``p0 <= q < p0 + 128`` and ``q < N·H·W``.  Returns those ``j``."""
+    pix, _ = halo_gather_map(n, h, w, p0)
+    return torch.nonzero((pix >= p0) & (pix < p0 + TC_TILE)).flatten()
 
 
 # ------------------------------------------------------------------ wrappers
@@ -327,6 +338,16 @@ def _flipped(w: torch.Tensor) -> torch.Tensor:
     return torch.flip(w, (0, 1)).permute(0, 1, 3, 2).contiguous()
 
 
+def _tc_weights(w: torch.Tensor) -> torch.Tensor:
+    """The weights as the tensor-core loop takes them: bf16 as they are,
+    fp32 as hi and lo bf16 planes ``[2, *w.shape]`` (hi = bf16(w), lo =
+    bf16(w - hi))."""
+    if w.dtype == torch.bfloat16:
+        return w
+    w_hi = w.to(torch.bfloat16)
+    return torch.stack([w_hi, (w - w_hi.float()).to(torch.bfloat16)])
+
+
 def _parts(n, h, w, cin, dev):
     """Scratch of the per-CTA channel sums (128-pixel tiles) and dac."""
     tiles = -(-(n * h * w) // 128)
@@ -337,8 +358,7 @@ def _parts(n, h, w, cin, dev):
 def conv3x3_fwd(z, aff, w, relu: bool) -> torch.Tensor:
     """Kernel 19: conv3×3(act(A·z + C), w).  z ``[N, H, W, Cin]``, aff
     ``[2, Cin]`` f32 (rows A, C), w ``[3, 3, Cin, Cout]`` → ``[N, H, W,
-    Cout]`` in z's dtype.  The kernel multiplies on the tensor cores; fp32
-    weights are handed to it as hi and lo bf16 planes."""
+    Cout]`` in z's dtype.  The kernel multiplies on the tensor cores."""
     n, h, ww, cin, cout, dt = _check_conv(z, w)
     _check("z", z, z.shape, dt)
     _check("aff", aff, (2, cin), torch.float32)
@@ -347,10 +367,8 @@ def conv3x3_fwd(z, aff, w, relu: bool) -> torch.Tensor:
     _served((z, aff, w), (cin, cout))
     out = torch.empty((n, h, ww, cout), dtype=dt, device=z.device)
     if out.numel():
-        if dt == torch.float32:   # the kernel multiplies w as hi + lo bf16
-            w_hi = w.to(torch.bfloat16)
-            w = torch.stack([w_hi, (w - w_hi.float()).to(torch.bfloat16)])
-        _launch("conv3x3_fwd", [x.data_ptr() for x in (z, aff, w, out)],
+        wt = _tc_weights(w)
+        _launch("conv3x3_fwd", [x.data_ptr() for x in (z, aff, wt, out)],
                 (n, h, ww, cin, cout, int(relu), int(dt == torch.bfloat16)),
                 z.device)
         conv3x3_fwd.launches += 1
@@ -393,7 +411,8 @@ conv3x3_fwd_bwd.launches = 0
 def conv3x3_dx(dy, z, coeffs, w) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel 18: dy, z ``[N, H, W, Cout]``, coeffs ``[3, Cout]`` f32
     (rows A, B, C), w ``[3, 3, Cin, Cout]`` the forward weights → (dx
-    ``[N, H, W, Cin]``, dz ``[N, H, W, Cout]``) in dy's dtype."""
+    ``[N, H, W, Cin]``, dz ``[N, H, W, Cout]``) in dy's dtype.  The kernel
+    multiplies on the tensor cores."""
     enforce(isinstance(dy, torch.Tensor) and dy.dim() == 4,
             "dy: expected [N, H, W, Cout]")
     n, h, ww, cout = dy.shape
@@ -417,8 +436,9 @@ def conv3x3_dx(dy, z, coeffs, w) -> Tuple[torch.Tensor, torch.Tensor]:
     dx = torch.empty((n, h, ww, cin), dtype=dt, device=dy.device)
     dz = torch.empty_like(z)
     if dy.numel():
+        wt = _tc_weights(_flipped(w))
         _launch("conv3x3_dx",
-                [t.data_ptr() for t in (dy, z, coeffs, _flipped(w), dx, dz)],
+                [t.data_ptr() for t in (dy, z, coeffs, wt, dx, dz)],
                 (n, h, ww, cin, cout, int(dt == torch.bfloat16)), dy.device)
         conv3x3_dx.launches += 1
     return dx, dz
@@ -431,7 +451,8 @@ def conv3x3_chain_bwd(dy, z2, co, z1, ci, w, relu: bool):
     """Kernel 21: dy, z2 ``[N, H, W, Cout]``, co ``[3, Cout]`` (the BN
     backward's A, B, C), z1 ``[N, H, W, Cin]``, ci ``[2, Cin]`` (the
     prologue's A, C), w ``[3, 3, Cin, Cout]`` → (dz2, dz1, x1 in the
-    activations' dtype, dac ``[2, Cin]`` f32 = (dA₁, dC₁))."""
+    activations' dtype, dac ``[2, Cin]`` f32 = (dA₁, dC₁)).  The kernel
+    multiplies on the tensor cores."""
     n, h, ww, cin, cout, dt = _check_conv(z1, w, ("z1", "w"))
     for name, x, shape, dtype in (("dy", dy, (n, h, ww, cout), dt),
                                   ("z2", z2, (n, h, ww, cout), dt),
@@ -447,9 +468,10 @@ def conv3x3_chain_bwd(dy, z2, co, z1, ci, w, relu: bool):
     part, dac = _parts(n, h, ww, cin, z1.device)
     if not z1.numel():
         return dz2, dz1, x1, dac.zero_()
+    wt = _tc_weights(_flipped(w))
     _launch("conv3x3_chain_bwd",
-            [t.data_ptr() for t in (dy, z2, co, z1, ci, _flipped(w), dz2,
-                                    dz1, x1, part, dac)],
+            [t.data_ptr() for t in (dy, z2, co, z1, ci, wt, dz2, dz1, x1,
+                                    part, dac)],
             (n, h, ww, cin, cout, int(relu), int(dt == torch.bfloat16)),
             z1.device)
     conv3x3_chain_bwd.launches += 1

@@ -1,21 +1,27 @@
-"""The numbers of kernel 19's tensor-core loop, modelled on the CPU.
+"""The numbers of the tensor-core conv loop (kernels 18, 19 and 21),
+modelled on the CPU.
 
-The kernel (``paddle_tpu_torch/csrc/conv3x3_tc.cuh``) multiplies the f32
-operand x = act(A·z + C) on bf16 tensor cores by carrying it as
-hi = bf16(x) and lo = bf16(x - hi): two passes, hi·w + lo·w, for bf16
-weights; fp32 weights are split the same way and the products are
-hi·hi + hi·lo + lo·hi.  Here the same split feeds convolutions summed in
-float64, so only the split's rounding is measured, against the plain
-version summed in float64 and with ``chip_smoke.py``'s phase-3d
-tolerance (``CONV_RTOL`` of max|ref| + 1e-6, plus ``CONV_BF16_ULPS`` bf16
-ulps for bf16 outputs).  The card adds the tensor cores' own f32
-accumulation, which phase 3d measures.  A single bf16 rounding of x must
-miss the tolerance: that is why the kernel takes two passes.
+The loop (``paddle_tpu_torch/csrc/conv3x3_tc.cuh``) multiplies an f32
+operand -- x = act(A·z + C) for kernel 19, dz = A·dy + B·z + C for
+kernels 18 and 21 (the backward-data conv, with the flipped weights) --
+on bf16 tensor cores by carrying it as hi = bf16(x) and lo = bf16(x -
+hi): two passes, hi·w + lo·w, for bf16 weights; fp32 weights are split
+the same way and the products are hi·hi + hi·lo + lo·hi.  Here the same
+split feeds convolutions summed in float64, so only the split's rounding
+is measured, against the plain version summed in float64 and with
+``chip_smoke.py``'s phase-3d tolerance (``CONV_RTOL`` of max|ref| + 1e-6,
+plus ``CONV_BF16_ULPS`` bf16 ulps for bf16 outputs), on every output
+(kernel 21's dz1, x1 and channel sums come from the modelled t).  The
+card adds the tensor cores' own f32 accumulation, which phase 3d
+measures.  A single bf16 rounding of the operand must miss the
+tolerance: that is why the loop takes two passes.
 
-The halo gather map the kernel uses (``ops.conv.halo_gather_map``, the
+The halo gather map the loop uses (``ops.conv.halo_gather_map``, the
 kernel's index arithmetic in plain torch) must reproduce ``F.conv2d``'s
 zero padding, also where a 128-pixel tile spans images and for images
-wider than 130 pixels (three bands).
+wider than 130 pixels (three bands); and the rows whose dz the
+kernels 18 and 21 store (``ops.conv.halo_dz_stores``) must write every
+pixel exactly once over the grid.
 """
 
 import numpy as np
@@ -48,6 +54,19 @@ def _case(n, h, w, cin, cout, c_off, dtype, seed):
             torch.from_numpy(wt.astype(np.float32)).to(dtype))
 
 
+def _bn_case(n, h, w, cout, c_off, dtype, seed):
+    """dy, z2 [N, H, W, Cout] and the BN backward's (A, B, C + c_off), as
+    phase 3d draws them, from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    co = np.stack([rng.standard_normal(cout) * 0.5 + 1.0,
+                   rng.standard_normal(cout) * 0.1,
+                   rng.standard_normal(cout) * 0.5 + c_off])
+    dy, z2 = (rng.standard_normal((n, h, w, cout)) for _ in range(2))
+    return (torch.from_numpy(dy.astype(np.float32)).to(dtype),
+            torch.from_numpy(z2.astype(np.float32)).to(dtype),
+            torch.from_numpy(co.astype(np.float32)))
+
+
 def _split(x):
     hi = x.to(torch.bfloat16).float()
     return hi, (x - hi).to(torch.bfloat16).float()
@@ -57,17 +76,39 @@ def _conv(x, w):
     return C._conv3x3(x.to(F64), w.to(F64))
 
 
-def _kernel_model(z, aff, w, relu, passes):
-    """The kernel's products summed exactly: x (and, for fp32 weights, w)
-    as hi + lo bf16; ``passes`` 1 is a single rounding of x."""
-    x = C._act(aff[0] * z.float() + aff[1], relu)   # f32, as the kernel
+def _passes(conv, x, w, passes):
+    """conv(x, w) as the loop's products, summed exactly in float64: x
+    (and, for fp32 weights, w) as hi + lo bf16; ``passes`` 1 is a single
+    rounding of x."""
     xh, xl = _split(x)
     if passes == 1:
-        return _conv(xh, w.float()).to(z.dtype)
+        return conv(xh, w.float())
     if w.dtype == torch.bfloat16:
-        return (_conv(xh, w) + _conv(xl, w)).to(z.dtype)
+        return conv(xh, w) + conv(xl, w)
     wh, wl = _split(w)
-    return (_conv(xh, wh) + _conv(xh, wl) + _conv(xl, wh)).to(z.dtype)
+    return conv(xh, wh) + conv(xh, wl) + conv(xl, wh)
+
+
+def _kernel_model(z, aff, w, relu, passes):
+    """Kernel 19: the products of x = act(A·z + C) (f32, as the kernel
+    forms it) in ``passes``."""
+    x = C._act(aff[0] * z.float() + aff[1], relu)
+    return _passes(_conv, x, w, passes).to(z.dtype)
+
+
+def _dgrad(x, w):
+    return C._conv3x3_dgrad(x.to(F64), w.to(F64))
+
+
+def _bn_bwd_model(kernel, dy, z2, co, z, aff, w, relu, passes):
+    """Kernels 18 (``"dx"``) and 21 (``"chain"``): dz = A·dy + B·z + C in
+    f32 as the load hook forms it, its backward-data conv in ``passes``,
+    then kernel 21's epilogue on that t → the kernel's outputs."""
+    dz = co[0] * dy.float() + co[1] * z2.float() + co[2]
+    t = _passes(_dgrad, dz, w, passes)
+    if kernel == "dx":
+        return t.to(dy.dtype), dz.to(dy.dtype)
+    return (dz.to(dy.dtype),) + C._affine_bwd(t, z, aff, relu)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
@@ -84,6 +125,36 @@ def test_split_meets_phase_3d_tolerance(case, dtype):
         assert ratio <= 0.75, (relu, ratio)
         _, once = conv_error(_kernel_model(z, aff, wt, relu, 1), ref)
         assert once > 10.0, (relu, once)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("case", CASES,
+                         ids=["x".join(map(str, c[:5])) + f"+{c[5]}"
+                              for c in CASES])
+@pytest.mark.parametrize("kernel", ["dx", "chain"])
+def test_bn_bwd_split_meets_phase_3d_tolerance(kernel, case, dtype):
+    """Kernels 18 and 21 multiply the f32 dz as hi + lo: every output
+    (dx; dz2, dz1, x1 and the channel sums) within 0.75 of phase 3d's
+    tolerance, and a single rounding of dz beyond 10 times it."""
+    n, h, w, cin, cout, c_off = case
+    seed = 60 + CASES.index(case)
+    z, aff, wt = _case(*case, dtype, seed=seed)
+    dy, z2, co = _bn_case(n, h, w, cout, c_off, dtype, seed=seed + 100)
+    for relu in (True, False):
+        if kernel == "dx":
+            ref = C.conv3x3_dx_reference(dy, z2, co, wt, F64)
+        else:
+            ref = C.conv3x3_chain_bwd_reference(dy, z2, co, z, aff, wt,
+                                                relu, F64)
+        got = _bn_bwd_model(kernel, dy, z2, co, z, aff, wt, relu, 2)
+        _, ratio = conv_error(got, ref)
+        assert ratio <= 0.75, (relu, ratio)
+        once = _bn_bwd_model(kernel, dy, z2, co, z, aff, wt, relu, 1)
+        _, ratio_once = conv_error(once, ref)
+        assert ratio_once > 10.0, (relu, ratio_once)
+        if kernel == "dx":
+            break          # kernel 18 has no activation
 
 
 def _gathered_conv(x, w):
@@ -137,3 +208,27 @@ def test_halo_gather_map_stays_inside_each_image():
         live = torch.arange(p0, p0 + C.TC_TILE) < m
         assert torch.equal(pix[rows[4][live]],
                            torch.arange(p0, p0 + C.TC_TILE)[live])
+
+
+@pytest.mark.parametrize("shape", [(3, 7, 7), (2, 9, 13), (1, 56, 56),
+                                   (2, 3, 140), (1, 2, 300), (2, 1, 5),
+                                   (5, 7, 7)],
+                         ids=["7x7-spans-images", "9x13", "56x56",
+                              "W140-bands-partial", "W300-bands", "1x5",
+                              "7x7-partial"])
+def test_halo_dz_stores_write_each_pixel_once(shape):
+    """kLoadBnBwd's dz stores (first channel block): over the grid's tiles
+    every pixel's dz is stored exactly once, from the halo row that holds
+    that pixel -- the row its centre tap reads -- in contiguous and band
+    mode, for tiles that span images and a last tile past N·H·W."""
+    n, h, w = shape
+    m = n * h * w
+    count = torch.zeros(m, dtype=torch.long)
+    for p0 in range(0, m, C.TC_TILE):
+        pix, rows = C.halo_gather_map(n, h, w, p0)
+        j = C.halo_dz_stores(n, h, w, p0)
+        q = pix[j]
+        assert ((q >= p0) & (q < min(p0 + C.TC_TILE, m))).all()
+        assert torch.equal(rows[4, q - p0], j)
+        count += torch.bincount(q, minlength=m)
+    assert torch.equal(count, torch.ones(m, dtype=torch.long))

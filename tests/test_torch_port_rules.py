@@ -352,6 +352,41 @@ def test_conv_card_path_rejects_channels_off_the_tile(monkeypatch):
         tconv.conv3x3_dx(*_conv_args("dx", cout=96))
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("name,pos", [("fwd", 2), ("dx", 3), ("chain", 5)])
+def test_conv_card_path_hands_tc_weights(monkeypatch, name, pos, dtype):
+    """Kernels 19, 18 and 21 run on the tensor-core loop: on CUDA their
+    wrappers hand it the weights -- the forward weights for 19, the
+    flipped, I/O-transposed ones for 18 and 21 -- as bf16, or for fp32
+    as hi and lo bf16 planes [2, 3, 3, K, N].  The device test and the
+    launch are monkeypatched so the CPU reaches the launch."""
+    monkeypatch.setattr(tconv, "_on_card", lambda tensors: True)
+    monkeypatch.setattr(_CONV[name], "launches", 0)
+    handed, launched = [], []
+    real = tconv._tc_weights
+    monkeypatch.setattr(tconv, "_tc_weights",
+                        lambda w: handed.append(real(w)) or handed[-1])
+    monkeypatch.setattr(tconv, "_launch", lambda sym, ptrs, ints, dev:
+                        launched.append((sym, ptrs)))
+    args = [a.to(dtype) if torch.is_tensor(a) and a.dim() == 4 else a
+            for a in _conv_args(name, cin=64, cout=128)]
+    _CONV[name](*args)
+    w = args[pos]
+    if name != "fwd":
+        w = torch.flip(w, (0, 1)).permute(0, 1, 3, 2)
+    (wt,) = handed
+    assert [sym for sym, _ in launched] == [_CONV[name].__name__]
+    assert wt.data_ptr() in launched[0][1]
+    assert wt.dtype == torch.bfloat16 and _CONV[name].launches == 1
+    if dtype == torch.bfloat16:
+        assert torch.equal(wt, w)
+    else:
+        assert wt.shape == (2,) + tuple(w.shape)
+        assert torch.equal(wt[0], w.to(torch.bfloat16))
+        assert torch.equal(wt[1], (w - wt[0].float()).to(torch.bfloat16))
+
+
 # ------------------------------------------------------------ seq2seq slice
 from paddle_tpu_torch.models import seq2seq_config  # noqa: E402
 from paddle_tpu_torch.ops import gru as tgru  # noqa: E402

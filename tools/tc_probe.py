@@ -1,23 +1,30 @@
 #!/usr/bin/env python3
 """Check and time the tensor-core kernels of the port on one GPU, alone:
-kernel 19 (``conv3x3_fwd``, bf16 on wgmma) and kernels 1-train and 2
-(``flash_fwd`` / ``flash_fwd_legacy``, bf16 on wgmma).
+kernels 18, 19 and 21 (``conv3x3_dx``, ``conv3x3_fwd``,
+``conv3x3_chain_bwd`` on the wgmma loop of ``csrc/conv3x3_tc.cuh``) and
+kernels 1-train and 2 (``flash_fwd`` / ``flash_fwd_legacy``, bf16 on
+wgmma).
 
     python3 tools/tc_probe.py [--only conv|flash] [--full] [--time]
+                              [--patch NAME ...]
 
 Builds the port's kernels (``paddle_tpu_torch.ops._build``) and prints
-what ptxas reports for the two sources, then holds each kernel against
-its plain version on a few small cases (every case reported, none
-stopping the run: a layout fault shows as a pattern of ratios).
-``--full`` adds ``chip_smoke.py``'s phases 3d, 3g and 3h (all cases,
-their tolerances); ``--time`` its phase-5 timings of these kernels at
-the main paths' shapes (kernel 19 at the four ResNet-50 stages beside
-``F.conv2d``; kernels 1-train and 2 beside SDPA).  ``--patch NAME``
-(repeatable) times a knock-out of the sources (``PATCHES``: a copy of
-``csrc`` with one part of the work removed, whose results are wrong by
-design and not checked) beside the unpatched kernels, in turns, at the
-same shapes.  Prints the card's name and power limit.  Exits 1 when a
-check fails.
+what ptxas reports for their sources, then holds each kernel against its
+plain version on a few small cases, bf16 and fp32 for the convs (every
+case reported, none stopping the run: a layout fault shows as a pattern
+of ratios; the cases include W 140, the conv loop's band mode, and
+pixel counts off the 128-pixel tile).  ``--full`` adds
+``chip_smoke.py``'s phases 3d, 3g and 3h (all cases, their tolerances);
+``--time`` its phase-5 timings of these kernels at the main paths'
+shapes (kernels 18, 19, 21 at the four ResNet-50 stages beside
+``F.conv2d`` / ``conv2d_input``; kernels 1-train and 2 beside SDPA).
+``--patch NAME`` (repeatable) times a knock-out of the sources
+(``PATCHES``: a copy of ``csrc`` with one part of the work removed,
+whose results are wrong by design and not checked) beside the unpatched
+kernels, in turns, at the same shapes: for the convs ``conv_no_halo``,
+``conv_no_lo``, ``conv_no_mma`` (18, 19, 21), ``conv_no_dz_store`` (18,
+21), ``conv_no_epi_sums`` and ``conv_no_epi`` (21).  Prints the card's
+name and power limit.  Exits 1 when a check fails.
 """
 
 from __future__ import annotations
@@ -33,53 +40,79 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 CONV_SMALL = [(1, 8, 8, 64, 64, 0.0), (2, 7, 7, 64, 64, 3.0),
               (1, 9, 13, 64, 128, 0.0), (2, 7, 7, 128, 64, 0.0),
-              (1, 3, 140, 64, 64, 1.0)]
+              (1, 3, 140, 64, 64, 1.0), (2, 3, 140, 64, 128, -1.0)]
 FLASH_SMALL = [(1, 128, 1, 64, False, None), (1, 128, 1, 64, True, None),
                (2, 200, 2, 64, True, [200, 77]), (1, 256, 2, 32, True, None),
                (1, 256, 2, 128, False, [256]), (2, 384, 2, 64, False,
                                                 [384, 65])]
 
 
-#: name -> (kernel stem, [(file, old text, new text)])
+_TC_CONV = ("conv3x3_fwd", "conv3x3_dx", "conv3x3_chain_bwd")
+#: name -> (kernel stems, [(file, old text, new text)])
 PATCHES = {
-    # kernel 19 without forming the halo (planes left as they are)
-    "conv_no_halo": ("conv3x3_fwd", [(
-        "conv3x3_tc.cuh", "i0 < rows * 8; i0 += 8 * kThreads)",
-        "i0 < 0; i0 += 8 * kThreads)")]),
-    # kernel 19 without the lo pass
-    "conv_no_lo": ("conv3x3_fwd", [(
+    # the conv loop without forming the halo (planes left as they are;
+    # both paths: registers, and bf16 kLoadBnBwd's cp.async)
+    "conv_no_halo": (_TC_CONV, [
+        ("conv3x3_tc.cuh", "i0 < rows * 8; i0 += C::kDepth * kThreads)",
+         "i0 < 0; i0 += C::kDepth * kThreads)"),
+        ("conv3x3_tc.cuh", "i < rows * 8; i += kThreads)",
+         "i < 0; i += kThreads)")]),
+    # the conv loop without the lo pass
+    "conv_no_lo": (_TC_CONV, [(
         "conv3x3_tc.cuh", "        wg::mma_rs_n64<1>(acc, fb[kk],",
         "        if (0) wg::mma_rs_n64<1>(acc, fb[kk],")]),
-    # kernel 19 without products
-    "conv_no_mma": ("conv3x3_fwd", [
+    # the conv loop without products
+    "conv_no_mma": (_TC_CONV, [
         ("conv3x3_tc.cuh", "        wg::mma_rs_n64<1>(acc, fb[kk],",
          "        if (0) wg::mma_rs_n64<1>(acc, fb[kk],"),
         ("conv3x3_tc.cuh", "        wg::mma_rs_n64<1>(acc, fa[kk],",
          "        if (0) wg::mma_rs_n64<1>(acc, fa[kk],")]),
+    # kernels 18 and 21 without the dz store
+    "conv_no_dz_store": (("conv3x3_dx", "conv3x3_chain_bwd"), [
+        ("conv3x3_tc.cuh", "if (own[e] >= 0) {", "if (0) {"),
+        ("conv3x3_tc.cuh", "if (write_dz && q >= p0 && q < p0 + kBM)",
+         "if (0)")]),
+    # kernel 21 without the epilogue's channel sums (shuffles, shared
+    # memory, the CTA's sum)
+    "conv_no_epi_sums": (("conv3x3_chain_bwd",), [
+        ("conv3x3_tc.cuh", "for (int k = 0; k < 4; ++k) {\n"
+         "      s[k] += __shfl_xor_sync", "for (int k = 0; k < 0; ++k) {\n"
+         "      s[k] += __shfl_xor_sync"),
+        ("conv3x3_tc.cuh", "    if (g == 0) {", "    if (0) {"),
+        ("conv3x3_tc.cuh", "  if (tid < 2 * kBN) {", "  if (0) {")]),
+    # kernel 21 without its epilogue (no z1 read, dz1 / x1 / sums
+    # written); the sums stay live through a store that never runs, or
+    # ptxas drops the products with them
+    "conv_no_epi": (("conv3x3_chain_bwd",), [(
+        "conv3x3_tc.cuh",
+        "    epi_affine_bwd<T>(p, tot, st, red, p0, n0, wgi);",
+        "    float x = 0.f;\n    for (int i = 0; i < 32; ++i) x += tot[i];\n"
+        "    if (x == 1.2345e-30f) p.part[tid] = x;")]),
     # flash forward without exponentials
-    "flash_no_exp": ("flash_fwd", [(
+    "flash_no_exp": (("flash_fwd",), [(
         "flash_common.cuh",
         'asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));',
         "y = x;")]),
     # flash forward without the lo half of P V
-    "flash_no_pv_lo": ("flash_fwd", [(
+    "flash_no_pv_lo": (("flash_fwd",), [(
         "flash_fwd.cu", "    wg::mma_rs<D, 1>(o, pl[kk],",
         "    if (0) wg::mma_rs<D, 1>(o, pl[kk],")]),
     # flash forward without the softmax (P = the raw scores)
-    "flash_no_softmax": ("flash_fwd", [(
+    "flash_no_softmax": (("flash_fwd",), [(
         "flash_fwd.cu",
-        "      softmax_tile(sc, rm, k0, m0, m1, l0, l1, al0, al1);",
+        "      softmax_tile<M>(sc, scale_log2, k0, M ? tile_mask() : "
+        "TileMask{}, m0,\n                      m1, l0, l1, al0, al1);",
         "      al0 = al1 = 1.f;")]),
 }
 
 
 def build_patch(name):
     """Build the knock-out ``name`` from a patched copy of csrc; returns
-    (kernel stem, {symbol: ctypes function})."""
+    (kernel stems, {symbol: ctypes function})."""
     import ctypes
     import shutil
     from paddle_tpu_torch.ops import _build
-    stem, edits = PATCHES[name]
+    stems, edits = PATCHES[name]
     d = os.path.join(ROOT, "build", "tc_probe", name)
     shutil.rmtree(d, ignore_errors=True)
     shutil.copytree(_build.CSRC_DIR, d)
@@ -91,28 +124,30 @@ def build_patch(name):
             raise SystemExit(f"patch {name}: text not found in {fname}")
         with open(path, "w") as f:
             f.write(text.replace(old, new))
-    so = os.path.join(d, f"{stem}.so")
-    out = subprocess.run([_build._nvcc()] + _build.NVCC_FLAGS
-                         + ["-o", so, os.path.join(d, f"{stem}.cu")],
-                         capture_output=True, text=True)
-    if out.returncode:
-        raise SystemExit(f"nvcc failed for {name}:\n{out.stdout}"
-                         f"{out.stderr}")
-    lib = ctypes.CDLL(so)
+    procs = {stem: subprocess.Popen(
+        [_build._nvcc()] + _build.NVCC_FLAGS
+        + ["-o", os.path.join(d, f"{stem}.so"), os.path.join(d, f"{stem}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for stem in stems}
     fns = {}
-    for sym, (lib_stem, argtypes) in _build.SIGNATURES.items():
-        if lib_stem == stem:
-            fn = getattr(lib, sym)
-            fn.argtypes, fn.restype = argtypes, ctypes.c_int
-            fns[sym] = fn
-    return stem, fns
+    for stem, proc in procs.items():
+        text, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"nvcc failed for {name} ({stem}):\n{text}")
+        lib = ctypes.CDLL(os.path.join(d, f"{stem}.so"))
+        for sym, (lib_stem, argtypes) in _build.SIGNATURES.items():
+            if lib_stem == stem:
+                fn = getattr(lib, sym)
+                fn.argtypes, fn.restype = argtypes, ctypes.c_int
+                fns[sym] = fn
+    return stems, fns
 
 
 def time_patches(dev, cs, names):
     """Each knock-out beside the unpatched kernel, in turns (repo, the
-    knock-outs, then in reverse): kernel 19 at the four ResNet-50 stages,
-    or kernels 1-train (non-causal) and 2 (causal) at the transformer's
-    shape."""
+    knock-outs, then in reverse): kernels 18, 19, 21 at the four
+    ResNet-50 stages (bf16), or kernels 1-train (non-causal) and 2
+    (causal) at the transformer's shape."""
     import torch
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import attention as A
@@ -120,25 +155,30 @@ def time_patches(dev, cs, names):
     with concurrent.futures.ThreadPoolExecutor(len(names)) as ex:
         built = dict(zip(names, ex.map(build_patch, names)))
     real = _build.kernel
+    stems = set().union(*(built[n][0] for n in names))
     calls = {}
     for si, (hw, ch) in enumerate(cs.RESNET_STAGES):
+        if not stems & set(_TC_CONV):
+            break
         case = cs.conv_case(cs.RESNET_B, hw, hw, ch, ch, torch.bfloat16,
                             60 + si, dev)
-        calls[("conv3x3_fwd", f"stage {hw}x{hw}x{ch}")] = (
-            lambda c=case: C.conv3x3_fwd(c["z"], c["aff"], c["w"], True))
-    q, k, v, _ = cs.causal_t2048_inputs(dev)
-    b, t = q.shape[:2]
-    win_q, _ = A.tile_windows(None, None, b, t, t, dev)
-    calls[("flash_fwd", "1-train non-causal")] = (
-        lambda: A.flash_fwd(q, k, v, None, None, False, win_q))
-    calls[("flash_fwd", "2 causal")] = (
-        lambda: A.flash_fwd_legacy(q, k, v, None, True))
+        for stem, (kern, _) in cs.conv_calls(case, True).items():
+            if stem in stems:
+                calls[(stem, f"stage {hw}x{hw}x{ch}")] = kern
+    if "flash_fwd" in stems:
+        q, k, v, _ = cs.causal_t2048_inputs(dev)
+        b, t = q.shape[:2]
+        win_q, _ = A.tile_windows(None, None, b, t, t, dev)
+        calls[("flash_fwd", "1-train non-causal")] = (
+            lambda: A.flash_fwd(q, k, v, None, None, False, win_q))
+        calls[("flash_fwd", "2 causal")] = (
+            lambda: A.flash_fwd_legacy(q, k, v, None, True))
     order = ["repo"] + list(names)
     for turn, variants in enumerate((order, order[::-1])):
         for var in variants:
-            stem, fns = built.get(var, (None, {}))
+            var_stems, fns = built.get(var, ((), {}))
             for (kstem, label), call in calls.items():
-                if var != "repo" and kstem != stem:
+                if var != "repo" and kstem not in var_stems:
                     continue
                 _build.kernel = (lambda sym, f=fns: f[sym] if sym in f
                                  else real(sym))
@@ -151,22 +191,30 @@ def time_patches(dev, cs, names):
 
 
 def conv_small(dev, cs):
+    """Kernels 18, 19 and 21 on the small cases, bf16 and fp32, ReLU and
+    linear prologues, against their plain versions summed in float64;
+    each output's ratio is reported."""
     import torch
-    from paddle_tpu_torch.ops import conv as C
     ok = True
     for i, (n, h, w, cin, cout, c_off) in enumerate(CONV_SMALL):
-        for relu in (True, False):
-            case = cs.conv_case(n, h, w, cin, cout, torch.bfloat16, 90 + i,
-                                dev, c_off)
-            got = C.conv3x3_fwd(case["z"], case["aff"], case["w"], relu)
-            want = C.conv3x3_fwd_reference(case["z"], case["aff"], case["w"],
-                                           relu, torch.float64)
-            cs.sync(dev)
-            e, ratio = cs.conv_error(got, want)
-            print(f"  conv3x3_fwd N={n} H={h} W={w} Cin={cin} Cout={cout} "
-                  f"C+{c_off} relu={relu}: max err {e:.3e}, {ratio:.3f} of "
-                  "tolerance", flush=True)
-            ok = ok and ratio <= 1.0
+        for dt in (torch.bfloat16, torch.float32):
+            case = cs.conv_case(n, h, w, cin, cout, dt, 90 + i, dev, c_off)
+            for relu in (True, False):
+                calls = cs.conv_calls(case, relu)
+                for name in _TC_CONV:
+                    kern, plain = calls[name]
+                    got, want = kern(), plain(torch.float64)
+                    cs.sync(dev)
+                    got = got if isinstance(got, tuple) else (got,)
+                    want = want if isinstance(want, tuple) else (want,)
+                    parts = [cs.conv_error(a, b) for a, b in zip(got, want)]
+                    ratio = max(r for _, r in parts)
+                    print(f"  {name} {str(dt)[6:]} N={n} H={h} W={w} "
+                          f"Cin={cin} Cout={cout} C+{c_off} relu={relu}: "
+                          "max err / ratio by output " + ", ".join(
+                              f"{e:.2e}/{r:.3f}" for e, r in parts),
+                          flush=True)
+                    ok = ok and ratio <= 1.0
     return ok
 
 
@@ -216,7 +264,7 @@ def main() -> int:
                          text=True)
     print(f"card: {smi.stdout.strip()}", flush=True)
     _build.build_all()
-    for stem in ("conv3x3_fwd", "flash_fwd"):
+    for stem in _TC_CONV + ("conv3x3_fwd_bwd", "flash_fwd"):
         info = _build.build_info.get(stem, {})
         print(f"build {stem}: {info.get('seconds', 0.0):.2f} s", flush=True)
         for ln in info.get("ptxas", "").splitlines():
@@ -241,7 +289,7 @@ def main() -> int:
     if args.time:
         launches = collections.defaultdict(dict)
         if conv:
-            cs.phase_time_conv(dev, launches, names=("conv3x3_fwd",))
+            cs.phase_time_conv(dev, launches, names=_TC_CONV)
         if flash:
             cs.phase_time_flash(dev, launches)
             cs.phase_time_legacy(dev, launches)
