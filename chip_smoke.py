@@ -28,9 +28,14 @@ Phases (any failure exits nonzero, without the final ``ok`` line):
    prompts in continuous and in sequential mode — identical tokens,
    every kernel launched in each mode's timed pass (counts set to 0
    just before it, read just after), req/s, TTFT p50/p99, tokens/s —
-   identical tokens again on a second prompt stream, plus the same
-   model on the CPU (plain versions) against the card on a small input;
-   then the RMS mean checked row-invariant across row counts;
+   identical tokens again on a second prompt stream, every prefill
+   decision one of the reference's default labels; then the continuous
+   server under ``--flash_kernel=false`` and under
+   ``--flash_block_sparse=false`` (fault C4): no launch of the prefill
+   kernel, the reference's kill-switch label for every prefill layer,
+   the default run's tokens; plus the same model on the CPU (plain
+   versions) against the card on a small input; then the RMS mean
+   checked row-invariant across row counts;
 4d. the training main path: the LSTM text classifier at the width of
    ``bench.py``'s first row (V 30000, E 128, H 512, 2 LSTMs; B 128,
    T 100, lengths in [50, 100]; Adam lr 2e-3, L2 8e-4, clip 25; the
@@ -537,6 +542,7 @@ def phase_check(dev):
     rng = np.random.default_rng(1)
     errs = {"flash_packed_fwd": 0.0, "paged_decode": 0.0}
     h, d = CFG["heads"], CFG["dim"] // CFG["heads"]
+    launched = A.prefill_attention_packed.launches
     mixed = [int(x) for x in rng.integers(T_LO, T_HI + 1, 7)] + [0]
     cases = [([11], 16, True), ([48, 0, 17], 48, True), (mixed, 96, True),
              ([48, 0, 17], 48, False)]
@@ -591,6 +597,10 @@ def phase_check(dev):
             f"{e2:.3e}")
         errs["flash_packed_fwd"] = max(errs["flash_packed_fwd"], e1)
         errs["paged_decode"] = max(errs["paged_decode"], e2)
+    # 4 + 1 + 4 prefill calls above, each at a shape the dispatch sends
+    # to the kernel
+    if A.prefill_attention_packed.launches - launched != 9:
+        fail("a prefill check did not launch flash_packed_fwd")
     for name, e in errs.items():
         if not e <= ATOL:
             fail(f"{name} disagrees with its plain version: {e} > {ATOL}")
@@ -643,14 +653,24 @@ def _check_equal(cont_tokens, seq_tokens, what):
 
 
 def phase_serve(dev):
+    from paddle_tpu_torch.ops import attention as A
     from paddle_tpu_torch.serving.model import (DecoderConfig, DecoderModel,
                                                 init_decoder_params)
     cfg = DecoderConfig(**CFG)
     params = init_decoder_params(cfg, seed=0)
     model = DecoderModel(params, cfg, device=dev)
     prompts = _prompts(0, N_REQ, cfg.vocab)
+    A.attention_dispatch_total.clear()
     cont_tokens, cont = _serve(model, prompts, continuous=True)
     seq_tokens, seq = _serve(model, prompts, continuous=False)
+    # the prefill's decisions (warm and timed passes of both modes): the
+    # reference's labels at these shapes -- kernel 1 in serving form, or
+    # dense where B*T packed tokens tile at no block the gate takes
+    decisions = dict(A.attention_dispatch_total)
+    log(f"  prefill decisions (defaults, both modes): {decisions}")
+    if not set(decisions) <= set(PREFILL_DEFAULT_LABELS) or not any(
+            path == "packed" for path, _ in decisions):
+        fail(f"prefill decisions under the defaults: {decisions}")
     for mode, m in (("continuous", cont), ("sequential", seq)):
         log(f"  {mode}: {m['req_per_s']:.3f} req/s, TTFT p50 "
             f"{m['ttft_p50_ms']:.3f} ms p99 {m['ttft_p99_ms']:.3f} ms, "
@@ -661,6 +681,7 @@ def phase_serve(dev):
             if m["launches"][name] <= 0:
                 fail(f"kernel {name} was not launched on the {mode} path")
     _check_equal(cont_tokens, seq_tokens, "prompt seed 0")
+    kill = phase_serve_kill_switches(model, prompts, cont_tokens, cfg)
     if not all(1 <= len(t) <= MAX_NEW and all(0 <= x < cfg.vocab for x in t)
                for t in cont_tokens):
         fail("generated tokens out of range")
@@ -709,7 +730,53 @@ def phase_serve(dev):
     for m in (cont, seq):
         del m["launches"]
     return launches, {"continuous": cont, "sequential": seq,
-                      "prompt_lengths": lens}, model, prompts
+                      "prompt_lengths": lens, "kill_switches": kill}, \
+        model, prompts
+
+
+#: the prefill's labels under the default flags: one block spans the
+#: slots (B > 1), a usable slot hint (B = 1), an untileable B*T
+PREFILL_DEFAULT_LABELS = (
+    ("packed", ""), ("packed", "slot hint unusable (blocks straddle slots)"),
+    ("dense", "untileable shape (lse/kv block constraints)"))
+#: flag switched off -> the reference's label for every prefill layer
+PREFILL_KILL_LABELS = {
+    "flash_kernel": ("dense", "kill_switch:flash_kernel"),
+    "flash_block_sparse": ("dense", "kill_switch:flash_block_sparse(packed)")}
+
+
+def phase_serve_kill_switches(model, prompts, want_tokens, cfg):
+    """The continuous server under each attention kill switch (one pass
+    each, set to 0 just before it): the prefill never launches kernel 1's
+    serving form, every prefill layer records the reference's label, and
+    the tokens are the default run's (fault C4)."""
+    from paddle_tpu_torch.ops import attention as A
+    rows = {}
+    for flag, label in PREFILL_KILL_LABELS.items():
+        set_flags(**{flag: False})
+        try:
+            A.attention_dispatch_total.clear()
+            tokens, m = _serve(model, prompts, continuous=True, warm=False)
+            decisions = dict(A.attention_dispatch_total)
+        finally:
+            set_flags(**{flag: True})
+        n = m["launches"]["flash_packed_fwd"]
+        log(f"  --{flag}=false: {m['req_per_s']:.3f} req/s, TTFT p50 "
+            f"{m['ttft_p50_ms']:.3f} ms; flash_packed_fwd launches {n}, "
+            f"paged_decode {m['launches']['paged_decode']}; prefill "
+            f"decisions {decisions}; tokens equal the default run's "
+            f"{tokens == want_tokens}")
+        if n != 0 or set(decisions) != {label} \
+                or decisions[label] % cfg.layers:
+            fail(f"--{flag}=false: the prefill launched kernel 1 {n} times "
+                 f"or took decisions {decisions}, not {label} a layer")
+        if tokens != want_tokens:
+            fail(f"--{flag}=false: tokens differ from the default run's")
+        rows[flag] = {"req_per_s": m["req_per_s"],
+                      "ttft_p50_ms": m["ttft_p50_ms"],
+                      "flash_packed_fwd_launches": n,
+                      "prefill_layers": decisions[label]}
+    return rows
 
 
 def phase_rms_invariance(dev):

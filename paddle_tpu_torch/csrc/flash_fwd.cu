@@ -55,8 +55,7 @@
 // three products each) keeps the mma.sync loop: a CTA of 4 warps owns 64
 // query rows and double-buffers BN-key tiles by cp.async; under FULL it
 // too visits only the live tiles.
-#include "flash_common.cuh"
-#include "wgmma.cuh"
+#include "flash_wg.cuh"
 
 using namespace fa;
 
@@ -212,84 +211,12 @@ __global__ void __launch_bounds__(kThreads, 4)
 }
 
 // ------------------------------------------------ bf16: the wgmma loop
-constexpr int kWgThreads = 256;     // two warpgroups of 64 query rows
-constexpr int kCtaRows = 128;       // query rows a CTA
-constexpr int kKeys = 64;           // keys a K/V tile
-constexpr int kWgStages = 4;        // K/V ring: tiles i - 1 (V) .. i + 2
-constexpr int kAhead = 2;           // tiles loaded ahead of the walk
-
+// (two warpgroups of 64 query rows; flash_wg.cuh)
 template <int D>
-struct Wg {
-  static constexpr int SW = D >= 64 ? 128 : 64;    // swizzled row bytes
-  static constexpr int CB = SW / 2;                // bf16 a block row
-  static constexpr int QB = kCtaRows * D * 2;      // Q tile bytes
-  static constexpr int KVB = kKeys * D * 2;        // K or V tile bytes
-  static constexpr size_t smem =
-      1024 + QB + kWgStages * 2 * KVB + (1 + kWgStages) * sizeof(uint64_t);
-};
-
-// Rows [row0, row0 + R) of head h of batch row b of a [B, T, H, D]
-// operand into an R-row tile by TMA, one box a column block (rows past T
-// read as zeros), counted on `bar`.
-template <int D, int R>
-__device__ __forceinline__ void tma_tile(unsigned char* dst,
-                                         const CUtensorMap* map,
-                                         uint64_t* bar, int h, int row0,
-                                         int b) {
-#pragma unroll
-  for (int cb = 0; cb < D / Wg<D>::CB; ++cb)
-    wg::tma_load_4d(dst + cb * R * Wg<D>::SW, map, bar, cb * Wg<D>::CB, h,
-                    row0, b);
+constexpr size_t fwd_smem() {
+  return 1024 + Wg<D>::QB + kWgStages * 2 * Wg<D>::KVB +
+         (1 + kWgStages) * sizeof(uint64_t);
 }
-
-// Descriptor of rows [r0, r0 + 64) of a K-major R-row tile; k step kk
-// adds kmajor_step<D, R>(kk) (the start address is the descriptor's low
-// field, in 16-byte units, and shared addresses do not carry out of it).
-template <int D>
-__device__ __forceinline__ uint64_t kmajor(uint32_t base, int r0) {
-  constexpr int SW = Wg<D>::SW;
-  return wg::desc<SW>(base + r0 * SW, 16, 8 * SW);
-}
-template <int D, int R>
-__host__ __device__ constexpr uint64_t kmajor_step(int kk) {
-  return ((kk * 16 / Wg<D>::CB) * R * Wg<D>::SW +
-          (kk * 16 % Wg<D>::CB) * 2) >> 4;
-}
-
-// Descriptor of a V tile read MN-major; keys [16 kk, 16 kk + 16) add
-// vmajor_step<D>(kk).
-template <int D>
-__device__ __forceinline__ uint64_t vmajor(uint32_t base) {
-  constexpr int SW = Wg<D>::SW;
-  return wg::desc<SW>(base, kKeys * SW, 8 * SW);
-}
-template <int D>
-__host__ __device__ constexpr uint64_t vmajor_step(int kk) {
-  return (kk * 16 * Wg<D>::SW) >> 4;
-}
-
-// S = Q K^T for a warpgroup's 64 rows (from row r0 of the Q tile) and
-// the K tile at shared address kt into sc, as one wgmma group (both
-// operands K-major in shared memory).
-template <int D>
-__device__ __forceinline__ void issue_s(float (&sc)[32], uint32_t q_addr,
-                                        int r0, uint32_t kt) {
-  const uint64_t qd = kmajor<D>(q_addr, r0), kd = kmajor<D>(kt, 0);
-  wg::fence();
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    wg::mma_ss_n64<0>(sc, qd + kmajor_step<D, kCtaRows>(kk),
-                      kd + kmajor_step<D, kKeys>(kk), kk > 0);
-  wg::commit();
-}
-
-// The element masks of a thread's two rows (r0 and r0 + 8), gathered
-// when a tile needs them rather than held in registers across the loop.
-struct TileMask {
-  int r0, kv_len, sq0, sq1, tk;
-  bool causal, packed;
-  const int* segb;      // the row's segment ids (packed), read in place
-};
 
 // The raw scores s of one 64-key tile (accumulator layout) in place to
 // p = 2^(s * scale_log2 - base) under the masks (one FFMA and one ex2 an
@@ -362,21 +289,6 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[32],
   l1 = l1 * al1 + ((rs[1][0] + rs[1][1]) + (rs[1][2] + rs[1][3]));
 }
 
-// P (accumulator layout, f32) as hi and lo bf16 A fragments: keys 16kk..
-// of the tile are accumulator blocks 2kk and 2kk + 1.
-__device__ __forceinline__ void split_p(const float (&p)[32],
-                                       uint32_t (&ph)[kKeys / 16][4],
-                                       uint32_t (&pl)[kKeys / 16][4]) {
-#pragma unroll
-  for (int kk = 0; kk < kKeys / 16; ++kk) {
-    const float* x = p + 8 * kk;
-    split2(x[0], x[1], &ph[kk][0], &pl[kk][0]);
-    split2(x[2], x[3], &ph[kk][1], &pl[kk][1]);
-    split2(x[4], x[5], &ph[kk][2], &pl[kk][2]);
-    split2(x[6], x[7], &ph[kk][3], &pl[kk][3]);
-  }
-}
-
 // O *= al by rows (O not in flight), pinned before the next wgmma issue:
 // a register write between two wgmma groups makes ptxas serialize them.
 template <int D>
@@ -390,23 +302,6 @@ __device__ __forceinline__ void rescale_o(float (&o)[D / 2], float al0,
     o[4 * j + 3] *= al1;
   }
   wg::fence_acc<D / 2>(o);
-}
-
-// O += P V as one wgmma group (hi and lo products), V the tile at shared
-// address vt read MN-major.
-template <int D>
-__device__ __forceinline__ void issue_pv(float (&o)[D / 2],
-                                         const uint32_t (&ph)[kKeys / 16][4],
-                                         const uint32_t (&pl)[kKeys / 16][4],
-                                         uint32_t vt) {
-  const uint64_t vd = vmajor<D>(vt);
-  wg::fence();
-#pragma unroll
-  for (int kk = 0; kk < kKeys / 16; ++kk) {
-    wg::mma_rs<D, 1>(o, ph[kk], vd + vmajor_step<D>(kk), 1);
-    wg::mma_rs<D, 1>(o, pl[kk], vd + vmajor_step<D>(kk), 1);
-  }
-  wg::commit();
 }
 
 // Two CTAs an SM at D <= 64 (128 registers a thread); at D 128 the ring
@@ -625,28 +520,15 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v,
   const dim3 grid(H, B, (Tq + kCtaRows - 1) / kCtaRows);
   auto go = [&](auto dc) {
     constexpr int Dv = decltype(dc)::value;
-    // [B, T, H, D] operands as 4-d tensor maps; a stride of a dimension of
-    // extent 1 may be given as 0, which a map does not take
-    auto map = [&](CUtensorMap* m, const void* base, int T, long long bs,
-                   long long ts, int rows) {
-      const long long st1 = ts ? ts : (long long)H * Dv;
-      const long long sb1 = bs ? bs : (long long)T * st1;
-      const uint64_t dims[4] = {(uint64_t)Dv, (uint64_t)H, (uint64_t)T,
-                                (uint64_t)B};
-      const uint64_t strides[3] = {(uint64_t)Dv * 2, (uint64_t)st1 * 2,
-                                   (uint64_t)sb1 * 2};
-      const uint32_t box[4] = {(uint32_t)Wg<Dv>::CB, 1, (uint32_t)rows, 1};
-      return wg::tma_map(m, base, 4, dims, strides, box, Wg<Dv>::SW);
-    };
     CUtensorMap tmq, tmk, tmv;
-    if (!map(&tmq, q, Tq, sqb, sqt, kCtaRows) ||
-        !map(&tmk, k, Tk, skb, skt, kKeys) ||
-        !map(&tmv, v, Tk, svb, svt, kKeys))
+    if (!operand_map<Dv>(&tmq, q, B, Tq, H, sqb, sqt, kCtaRows) ||
+        !operand_map<Dv>(&tmk, k, B, Tk, H, skb, skt, kKeys) ||
+        !operand_map<Dv>(&tmv, v, B, Tk, H, svb, svt, kKeys))
       return cudaErrorInvalidValue;
     auto kern = flash_fwd_wg_kernel<Dv, FULL>;
-    cudaError_t err = allow_smem(kern, Wg<Dv>::smem);
+    cudaError_t err = allow_smem(kern, fwd_smem<Dv>());
     if (err != cudaSuccess) return err;
-    kern<<<grid, kWgThreads, Wg<Dv>::smem, st>>>(
+    kern<<<grid, kWgThreads, fwd_smem<Dv>(), st>>>(
         tmq, tmk, tmv, static_cast<bf16*>(out), static_cast<float*>(lse),
         static_cast<const int*>(kv_lens), static_cast<const int*>(seg),
         static_cast<const int*>(win_lo), static_cast<const int*>(win_hi), Tq,

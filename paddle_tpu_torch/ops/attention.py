@@ -27,8 +27,9 @@ device.  Every decision is counted in :data:`attention_dispatch_total`
 with the reference's ``(path, reason)`` labels.
 
 Serving: :func:`prefill_attention_packed` — packed causal fp32 prefill
-(``csrc/flash_packed_fwd.cu``; plain version :func:`_dense_forward`) —
-and :func:`paged_decode_attention` — decode over the paged KV pool
+(``csrc/flash_packed_fwd.cu``; plain version :func:`_dense_forward`),
+behind the same decisions and labels (:func:`_fa_path`) — and
+:func:`paged_decode_attention` — decode over the paged KV pool
 (``csrc/paged_decode.cu``; plain version :func:`paged_decode_reference`).
 
 A wrapper checks device, dtype, shape and layout first.  A tensor on the
@@ -419,10 +420,11 @@ def prefill_attention_packed(q, k, v, segments, causal: bool = False,
 
     ``segments``: int32 ``[B, T]`` per-token segment ids, ``-1`` marking
     padding (which emits zeros).  ``causal`` applies along the packed
-    axis.  ``slot`` is accepted for the JAX signature; the result is
-    defined by segment equality plus the causal diagonal alone.
+    axis.  The call takes the reference's decision (:func:`_fa_path`:
+    the flags, the tiling gate at the reference's default blocks of 512,
+    the ``slot`` hint's label): the block-sparse decision runs kernel 1
+    in its serving form, every other the plain composition.
     """
-    del slot
     _check_float("q", q, 4)
     b, t, h, d = q.shape
     for name, x in (("k", k), ("v", v)):
@@ -430,18 +432,17 @@ def prefill_attention_packed(q, k, v, segments, causal: bool = False,
         enforce(x.shape == q.shape,
                 f"{name} shape {tuple(x.shape)} != q {tuple(q.shape)}")
     _check_int("segments", segments, (b, t))
-    if not _kernel_ready((q, k, v, segments), d):
+    if (_fa_path(t, t, True, 512, 512, slot) != "sparse"
+            or not _kernel_ready((q, k, v, segments), d)):
         return _dense_forward(q, k, v, None, causal, segments)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     if q.numel() == 0:
         return out, lse
-    fn = _build.kernel("flash_packed_fwd")
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), segments.data_ptr(),
-             out.data_ptr(), lse.data_ptr(), b, t, h, d, int(bool(causal)),
-             1.0 / math.sqrt(d), torch.cuda.current_stream(q.device)
-             .cuda_stream)
-    enforce(err == 0, f"flash_packed_fwd launch failed (cudaError {err})")
+    _launch("flash_packed_fwd", q.device, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), segments.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), b, t, h, d, int(bool(causal)),
+            1.0 / math.sqrt(d))
     prefill_attention_packed.launches += 1
     return out, lse
 
@@ -780,32 +781,25 @@ flash_bwd_dkv_legacy.launches = 0
 
 
 # ------------------------------------------------------ dispatch, autograd
-def _fa_forward(q, k, v, lengths, causal, block_q, block_k, segments=None,
-                slot=0):
-    """The reference's ``_fa_forward`` decision order → ``(out, lse,
-    path, windows)``: flash off → dense; an untileable shape → dense with
-    the one-time warning; block-sparse → kernel 1 (``block_sparse``, or
-    ``packed`` with the slot-hint warning); otherwise the legacy grid
-    (kernel 2), or dense for packed.  ``block_q``/``block_k`` matter only
-    through this gate: the kernels use their own tiles."""
-    b, tq, tk, h, d = _check_qkv(q, k, v)
-    enforce(not causal or tq == tk,
-            f"causal attention needs Tq == Tk, got {tq}/{tk}")
-    packed = segments is not None
-    enforce(not packed or tq == tk, "packed attention is self-attention: "
-            f"one segment table, Tq == Tk, got {tq}/{tk}")
+def _fa_path(tq: int, tk: int, packed: bool, block_q: int, block_k: int,
+             slot: int = 0) -> str:
+    """The reference's ``_fa_forward`` decision order, recorded in
+    :data:`attention_dispatch_total` with its label → ``"dense"`` (flash
+    off; an untileable shape, with the one-time warning; packed under
+    ``--flash_block_sparse=false``), ``"sparse"`` (``block_sparse``, or
+    ``packed`` with the slot-hint warning) or ``"legacy"`` (the full
+    grid).  ``block_q``/``block_k`` matter only through this gate: the
+    kernels use their own tiles."""
     bq = _choose_block(tq, block_q)
     bk = _choose_block(tk, block_k)
     if not FLAGS.get("flash_kernel"):
         record_attention_dispatch("dense", "kill_switch:flash_kernel")
-        return (*_dense_forward(q, k, v, lengths, causal, segments),
-                "dense", None)
+        return "dense"
     if not _tiling_ok(tq, tk, bq, bk):
         reason = "untileable shape (lse/kv block constraints)"
         record_attention_dispatch("dense", reason)
         _warn_dense_fallback(reason, tq, tk, bq, bk)
-        return (*_dense_forward(q, k, v, lengths, causal, segments),
-                "dense", None)
+        return "dense"
     if FLAGS.get("flash_block_sparse"):
         reason = ""
         if packed and slot and (slot % bq or slot % bk):
@@ -817,17 +811,36 @@ def _fa_forward(q, k, v, lengths, causal, block_q, block_k, segments=None,
                 logger=_log)
         record_attention_dispatch("packed" if packed else "block_sparse",
                                   reason)
+        return "sparse"
+    if packed:
+        record_attention_dispatch(
+            "dense", "kill_switch:flash_block_sparse(packed)")
+        return "dense"
+    record_attention_dispatch("legacy_grid",
+                              "kill_switch:flash_block_sparse")
+    return "legacy"
+
+
+def _fa_forward(q, k, v, lengths, causal, block_q, block_k, segments=None,
+                slot=0):
+    """:func:`_fa_path`'s decision run → ``(out, lse, path, windows)``:
+    dense → the plain composition; sparse → kernel 1; legacy → the
+    legacy grid (kernel 2)."""
+    b, tq, tk, h, d = _check_qkv(q, k, v)
+    enforce(not causal or tq == tk,
+            f"causal attention needs Tq == Tk, got {tq}/{tk}")
+    packed = segments is not None
+    enforce(not packed or tq == tk, "packed attention is self-attention: "
+            f"one segment table, Tq == Tk, got {tq}/{tk}")
+    path = _fa_path(tq, tk, packed, block_q, block_k, slot)
+    if path == "dense":
+        return (*_dense_forward(q, k, v, lengths, causal, segments),
+                "dense", None)
+    if path == "sparse":
         windows = tile_windows(lengths, segments, b, tq, tk, q.device) \
             if _is_cuda(q) else (None, None)
         return (*flash_fwd(q, k, v, lengths, segments, causal, windows[0]),
                 "sparse", windows)
-    if packed:
-        record_attention_dispatch(
-            "dense", "kill_switch:flash_block_sparse(packed)")
-        return (*_dense_forward(q, k, v, lengths, causal, segments),
-                "dense", None)
-    record_attention_dispatch("legacy_grid",
-                              "kill_switch:flash_block_sparse")
     return (*flash_fwd_legacy(q, k, v, lengths, causal), "legacy", None)
 
 

@@ -392,3 +392,116 @@ def test_server_restores_pool_snapshot(models, tmp_path):
                           snapshot_path=path)
     assert srv.pool.free_pages() == 16
     assert isinstance(srv._k_pool, torch.Tensor)
+
+
+# ------------------------------------------- prefill attention dispatch
+# The packed prefill takes the reference's `_fa_forward` decisions: the
+# two attention flags, the tiling gate at blocks of 512 over the B·T
+# packed tokens, and the slot hint's label.  The reference's prefill is
+# jitted, so its counter moves once per traced shape; its `_prefill_impl`
+# is run eagerly here, so that each call runs the dispatch once a layer.
+PREFILL_FLAGS = {"defaults": {},
+                 "flash_off": {"flash_kernel": False},
+                 "block_sparse_off": {"flash_block_sparse": False}}
+# (B, T): B > 1 at B·T <= 512 makes the slot hint unusable (one block
+# spans every slot); B = 1 keeps it usable; 10 x 60 = 600 tokens tile
+# at no block the gate takes (untileable)
+PREFILL_SHAPES = [(3, 16), (1, 16), (10, 60)]
+
+
+def _jax_dispatch_counts():
+    import re
+    from paddle_tpu import observe
+    pat = re.compile(r'attention_dispatch_total\{path="([^"]*)",'
+                     r'reason="([^"]*)"\}')
+    out = {}
+    for key, val in observe.REGISTRY.flat(kinds=("counter",)).items():
+        m = pat.fullmatch(key)
+        if m:
+            out[(m.group(1), m.group(2))] = val
+    return out
+
+
+@pytest.fixture
+def attention_flags():
+    from paddle_tpu.utils import FLAGS as JFLAGS
+    names = ("flash_kernel", "flash_block_sparse")
+    saved = [(f, {n: f.get(n) for n in names}) for f in (JFLAGS, FLAGS)]
+
+    def set_both(**kw):
+        for f, _ in saved:
+            for n in names:
+                f.set(n, kw.get(n, True))
+    yield set_both
+    for f, values in saved:
+        for n, v in values.items():
+            f.set(n, v)
+
+
+def _prefill_case(b, t, seed=4):
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(2, CFG["vocab"], (b, t)).astype(np.int32)
+    lengths = rng.integers(1, t + 1, b).astype(np.int32)
+    lengths[0] = t
+    per_row = -(-CFG["max_context"] // 8)
+    tables = (1 + np.arange(b * per_row, dtype=np.int32)).reshape(b, per_row)
+    return toks, lengths, tables, 1 + b * per_row
+
+
+@pytest.mark.parametrize("shape", PREFILL_SHAPES,
+                         ids=[f"{b}x{t}" for b, t in PREFILL_SHAPES])
+@pytest.mark.parametrize("flags", list(PREFILL_FLAGS))
+def test_prefill_dispatch_matches_jax(models, attention_flags, flags, shape):
+    """One eager prefill of each package under each flag setting: the
+    same ``attention_dispatch_total`` increments, label for label (one
+    decision a layer), the same next tokens, logits within ATOL."""
+    import jax.numpy as jnp
+    from paddle_tpu_torch.ops import attention as ta
+    mj, mt = models
+    attention_flags(**PREFILL_FLAGS[flags])
+    toks, lengths, tables, n_pages = _prefill_case(*shape)
+    kj, vj = mj.new_pools(n_pages, 8)
+    kt, vt = mt.new_pools(n_pages, 8)
+    before = _jax_dispatch_counts()
+    nj, lj, _, _ = jm._prefill_impl(
+        mj.params, kj, vj, jnp.asarray(toks), jnp.asarray(lengths),
+        jnp.asarray(tables), mj.cfg)
+    after = _jax_dispatch_counts()
+    want = {k: n - before.get(k, 0) for k, n in after.items()
+            if n != before.get(k, 0)}
+    ta.attention_dispatch_total.clear()
+    nt, lt, _, _ = mt.prefill(kt, vt, toks, lengths, tables)
+    assert dict(ta.attention_dispatch_total) == want
+    assert sum(want.values()) == CFG["layers"]
+    if flags == "defaults":
+        b, t = shape
+        label = ("dense", "untileable shape (lse/kv block constraints)") \
+            if b * t > 512 else \
+            ("packed", "slot hint unusable (blocks straddle slots)") \
+            if b > 1 else ("packed", "")
+        assert want == {label: CFG["layers"]}
+    np.testing.assert_array_equal(nt, np.asarray(nj))
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), atol=ATOL)
+
+
+@pytest.mark.parametrize("flags", list(PREFILL_FLAGS))
+def test_card_prefill_launches_follow_the_dispatch(models, attention_flags,
+                                                   monkeypatch, flags):
+    """On the card (device test and launcher spied), the prefill launches
+    kernel 1's serving form once a layer under the defaults and never
+    under either kill switch, where the plain composition runs."""
+    from paddle_tpu_torch.ops import attention as ta
+    _, mt = models
+    launched = []
+    monkeypatch.setattr(ta, "_kernel_ready", lambda tensors, d: True)
+    monkeypatch.setattr(ta, "_launch", lambda symbol, device, *args:
+                        launched.append(symbol))
+    ta.reset_launch_counts()
+    attention_flags(**PREFILL_FLAGS[flags])
+    toks, lengths, tables, n_pages = _prefill_case(3, 16)
+    kt, vt = mt.new_pools(n_pages, 8)
+    mt.prefill(kt, vt, toks, lengths, tables)
+    want = CFG["layers"] if flags == "defaults" else 0
+    assert launched == ["flash_packed_fwd"] * want
+    assert ta.prefill_attention_packed.launches == want
+    ta.reset_launch_counts()

@@ -4,106 +4,99 @@ the port) in several variants on one GPU, in one process, so their times
 compare.
 
     python3 tools/flash_probe.py [--csrc DIR ...] [--patch NAME ...]
-                                 [--causal] [--reps N]
+                                 [--causal] [--packed] [--reps N]
 
 A variant is a copy of a kernel source directory (the repository's
 ``paddle_tpu_torch/csrc`` by default; ``--csrc`` adds others, such as an
 older version unpacked with ``git archive``), optionally with a named
-text patch applied (``--patch``, see ``PATCHES``: knock-outs that remove
-one part of the work to show what it costs, whose results are wrong by
-design and are not checked (``KNOCKOUTS``), and tuning variants).  Every variant is built with the port's
-``nvcc`` flags into ``build/flash_probe/`` and loaded with ctypes; the
-wrappers of ``paddle_tpu_torch.ops.attention`` then launch it on the
-transformer step's shape (q/k/v bf16 [16, 2048, 8, 64], views of one
-projection; all keys valid).  Unpatched variants are held against the
-plain versions (``chip_smoke.flash_error``).  Each variant is timed in
-two turns (variants in order, then in reverse), CUDA-graph replay
-between CUDA events.  Prints one line per (variant, kernel, turn) and the
-card's name and power limit.
+knock-out applied (``--patch``, see ``PATCHES``: one part of the bf16
+wgmma loops' work removed to show what it costs; the results are wrong
+by design and are not checked).  Each knock-out keeps the products it
+does not remove live (ptxas drops products whose results nothing reads)
+and keeps the number of wgmma groups, so every wait still retires what
+it did.  Every variant is built with the port's ``nvcc`` flags into
+``build/flash_probe/`` (``tools/probe_build.py``), and the wrappers of
+``paddle_tpu_torch.ops.attention`` then launch it on the transformer
+step's shape (q/k/v bf16 [16, 2048, 8, 64], views of one projection; all
+keys valid; ``--packed``: the 16 rows, of lengths in [T/4, T], packed
+into one row of 32768 tokens with segment ids, as the row's
+``padded_mixed`` packed reading runs).  Unpatched variants are held
+against the plain versions (``chip_smoke.flash_error``; not with
+``--packed``, whose plain version does not fit on the card).  Each variant is timed in two turns
+(variants in order, then in reverse), CUDA-graph replay between CUDA
+events.  Prints each build's registers and spills, one line per
+(variant, kernel, turn), and the card's name and power limit.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
 import os
-import shutil
 import subprocess
 import sys
+
+import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(ROOT, "build", "flash_probe")
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
-#: name -> [(file, old text, new text)]
+# a product knocked out: its fragments folded into the accumulator's
+# lowest bit (so the split stays live) and an empty wgmma group in its
+# place (so the waits' counts hold)
+_NO_PRODUCT = """
+template <int D>
+__device__ __forceinline__ void no_product(
+    float (&acc)[D / 2], const uint32_t (&ph)[kKeys / 16][4],
+    const uint32_t (&pl)[kKeys / 16][4], uint32_t) {
+  uint32_t x = 0;
+#pragma unroll
+  for (int kk = 0; kk < kKeys / 16; ++kk)
+#pragma unroll
+    for (int w = 0; w < 4; ++w) x ^= ph[kk][w] ^ pl[kk][w];
+  acc[0] += __uint_as_float(x & 1u);
+  wg::fence();
+  wg::commit();
+}
+
+}  // namespace fa
+"""
+
+#: name -> [(file, old text, new text)]: knock-outs of the bf16 wgmma
+#: loops of kernels 3 and 4 (flash_wg.cuh's edits reach the forward too)
 PATCHES = {
-    # the mma.sync products with P / dS take hi only (the split's extra
-    # mma work) -- kernels 3 and 4, and the fp32 form of kernel 1; the
-    # bf16 forward splits P in flash_fwd.cu (tools/tc_probe.py)
-    "no_split": [("flash_common.cuh",
-                  "      mma(acc[2 * np], al, bh[0], bh[1]);\n"
-                  "      mma(acc[2 * np + 1], al, bh[2], bh[3]);\n", "")],
+    # the lo half of every F B product (dQ += dS K, dV += P^T dO, dK +=
+    # dS^T Q; the forward's P V)
+    "no_lo": [("flash_wg.cuh", "    wg::mma_rs<D, 1>(acc, pl[kk],",
+               "    if (0) wg::mma_rs<D, 1>(acc, pl[kk],")],
     # no exponentials (p = the scaled score's difference)
     "no_exp": [("flash_common.cuh",
                 'asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));',
                 "y = x;")],
-    # kernel 3 and the fp32 form of kernel 1 without their register cap
-    # for 4 CTAs an SM
-    "uncapped": [(f, "__global__ void __launch_bounds__(kThreads, 4)\n",
-                  "__global__ void __launch_bounds__(kThreads)\n")
-                 for f in ("flash_fwd.cu", "flash_bwd_dq.cu")],
-    # kernel 4 walks q tiles of 32 rows at every head dim
-    "dkv_bn32": [("flash_bwd_dkv.cu", "BN = Tile<D>::BN;", "BN = 32;"),
-                 ("flash_bwd_dkv.cu", "constexpr int BN = Tile<Dv>::BN;",
-                  "constexpr int BN = 32;")],
-    # the same with at least 3 CTAs an SM (registers capped at 168)
-    "dkv_bn32_minblocks3": [
-        ("flash_bwd_dkv.cu", "BN = Tile<D>::BN;", "BN = 32;"),
-        ("flash_bwd_dkv.cu", "constexpr int BN = Tile<Dv>::BN;",
-         "constexpr int BN = 32;"),
-        ("flash_bwd_dkv.cu", "__global__ void __launch_bounds__(kThreads)\n",
-         "__global__ void __launch_bounds__(kThreads, 3)\n")],
+    # no dS product: dQ += dS K (kernel 3) and dK += dS^T Q (kernel 4)
+    "no_ds_product": [
+        ("flash_wg.cuh", "}  // namespace fa\n", _NO_PRODUCT),
+        ("flash_bwd_dq.cu", "issue_pv<D>(acc, fh, fl,",
+         "no_product<D>(acc, fh, fl,"),
+        ("flash_bwd_dkv.cu", "issue_pv<D>(dka, sh, sl,",
+         "no_product<D>(dka, sh, sl,")],
+    # no wait on the ring's mbarriers (the inner tiles are read as they
+    # land; Q, dO / K, V still waited for once)
+    "no_ring_wait": [
+        (f, "    wg::mbar_wait(full + i % kWgStages, (i / kWgStages) & 1);\n",
+         "") for f in ("flash_bwd_dq.cu", "flash_bwd_dkv.cu")],
 }
-#: patches whose results are wrong by design
-KNOCKOUTS = {"no_split", "no_exp"}
 
 
 def build(name, src_dir, patch):
-    from paddle_tpu_torch.ops import _build
-    d = os.path.join(OUT, name)
-    shutil.rmtree(d, ignore_errors=True)
-    shutil.copytree(src_dir, d)
-    for fname, old, new in PATCHES.get(patch, []):
-        path = os.path.join(d, fname)
-        with open(path) as f:
-            text = f.read()
-        if old not in text:
-            raise SystemExit(f"patch {patch}: text not found in {fname}")
-        with open(path, "w") as f:
-            f.write(text.replace(old, new))
-    procs = {}
-    for k in KERNELS:
-        so = os.path.join(d, f"{k}.so")
-        procs[k] = (so, subprocess.Popen(
-            [_build._nvcc()] + _build.NVCC_FLAGS
-            + ["-Xptxas", "-v", "-o", so, os.path.join(d, f"{k}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    return d, procs
-
-
-def load(d, procs):
-    from paddle_tpu_torch.ops import _build
-    fns = {}
-    for k, (so, p) in procs.items():
-        out, _ = p.communicate()
-        if p.returncode:
-            raise SystemExit(f"nvcc failed for {d}/{k}.cu:\n{out}")
-        regs = [ln.split("Used")[1].strip() for ln in out.splitlines()
-                if "registers" in ln]
-        print(f"  built {os.path.basename(d)}/{k}: {regs}", flush=True)
-        fn = getattr(ctypes.CDLL(so), k)
-        fn.argtypes, fn.restype = _build.SIGNATURES[k][1], ctypes.c_int
-        fns[k] = fn
+    """The variant's entry points, and its ptxas lines printed."""
+    from probe_build import build_variant
+    fns, ptxas = build_variant(os.path.join(OUT, name), src_dir,
+                               PATCHES.get(patch, []), KERNELS)
+    for stem in KERNELS:
+        for ln in ptxas[stem].splitlines():
+            if any(s in ln for s in ("registers", "spill", "arning")):
+                print(f"  {name}/{stem}: {ln.strip()}", flush=True)
     return fns
 
 
@@ -115,6 +108,8 @@ def main() -> int:
                     choices=sorted(PATCHES),
                     help="a knock-out of the repository's sources")
     ap.add_argument("--causal", action="store_true")
+    ap.add_argument("--packed", action="store_true",
+                    help="the 16 rows packed into one, lengths in [T/4, T]")
     ap.add_argument("--reps", type=int, default=10)
     args = ap.parse_args()
     import torch
@@ -135,32 +130,46 @@ def main() -> int:
     variants = [("repo", repo, None)]
     variants += [(f"csrc{i}", d, None) for i, d in enumerate(args.csrc)]
     variants += [(p, repo, p) for p in args.patch]
-    built = [(n, p, build(n, d, p)) for n, d, p in variants]
-    fns = {n: (p, load(*b)) for n, p, b in built}
+    fns = {n: (p, build(n, d, p)) for n, d, p in variants}
 
     b, t, h, d = cs.ATTN_B, cs.ATTN_T, 8, 64
     g = torch.Generator(device=dev).manual_seed(0)
+    causal = args.causal
+    seg = None
+    if args.packed:
+        # padded_mixed's rows packed into one: lengths in [T/4, T]
+        lens = np.random.RandomState(1).randint(t // 4, t + 1, b)
+        seg = A.segments_from_lengths(torch.from_numpy(lens).to(dev), b, t)
+        pairs = int(sum(n * (n + 1) // 2 if causal else n * n for n in lens))
+        b, t = 1, b * t
+    else:
+        pairs = b * t * (t + 1) // 2 if causal else b * t * t
     qkv = torch.randn(b, t, 3 * h * d, generator=g, device=dev).to(
         torch.bfloat16)
     q, k, v = (x.reshape(b, t, h, d) for x in qkv.split(h * d, dim=-1))
     do = torch.randn(b, t, h, d, generator=g, device=dev).to(torch.bfloat16)
-    causal = args.causal
-    win_q, win_k = A.tile_windows(None, None, b, t, t, dev)
-    ref, lse = A._dense_forward(q, k, v, None, causal)
-    delta = A._delta(ref, do)
-    ref_dq = A._dense_grads(q, k, v, do, lse, delta, None, causal, want="dq")
-    ref_dkv = A._dense_grads(q, k, v, do, lse, delta, None, causal,
-                             want="dkv")
+    win_q, win_k = A.tile_windows(None, seg, b, t, t, dev)
+    refs = None
+    if args.packed:
+        # the plain version's [T, T] scores take 34 GB here: lse and delta
+        # come from the repository's forward kernel, nothing is checked
+        ref, lse = A.flash_fwd(q, k, v, None, seg, causal, win_q)
+        delta = A._delta(ref, do)
+    else:
+        ref, lse = A._dense_forward(q, k, v, None, causal)
+        delta = A._delta(ref, do)
+        refs = {"flash_fwd": (ref,),
+                "flash_bwd_dq": (A._dense_grads(q, k, v, do, lse, delta,
+                                                None, causal, want="dq"),),
+                "flash_bwd_dkv": A._dense_grads(q, k, v, do, lse, delta,
+                                                None, causal, want="dkv")}
     calls = {
-        "flash_fwd": lambda: A.flash_fwd(q, k, v, None, None, causal,
+        "flash_fwd": lambda: A.flash_fwd(q, k, v, None, seg, causal,
                                          win_q)[0],
         "flash_bwd_dq": lambda: A.flash_bwd_dq(q, k, v, do, lse, delta, None,
-                                               None, causal, win_q),
+                                               seg, causal, win_q),
         "flash_bwd_dkv": lambda: A.flash_bwd_dkv(q, k, v, do, lse, delta,
-                                                 None, None, causal, win_k)}
-    refs = {"flash_fwd": (ref,), "flash_bwd_dq": (ref_dq,),
-            "flash_bwd_dkv": ref_dkv}
-    pairs = b * t * (t + 1) // 2 if causal else b * t * t
+                                                 None, seg, causal, win_k)}
     real_kernel = _build.kernel
     order = list(fns)
     for turn, names in enumerate((order, order[::-1])):
@@ -169,7 +178,7 @@ def main() -> int:
             _build.kernel = lambda symbol, lib=lib: lib[symbol]
             for kname, call in calls.items():
                 err = ""
-                if patch not in KNOCKOUTS and turn == 0:
+                if patch is None and turn == 0 and refs:
                     got = call()
                     got = got if isinstance(got, tuple) else (got,)
                     res = [cs.flash_error(x, r) for x, r in
@@ -180,7 +189,8 @@ def main() -> int:
                 bound, _ = cs.bound_ms(*cs.flash_work(kname, b, t, t, h, d,
                                                       pairs, 2),
                                        cs.BF16_FLOPS_PER_S)
-                print(f"turn {turn} {name} {kname} (causal {causal}): "
+                print(f"turn {turn} {name} {kname} (causal {causal}, "
+                      f"packed {args.packed}): "
                       f"{ms * 1e3:.2f} us, {100 * bound / ms:.1f} % of the "
                       f"bound rate{err}", flush=True)
     _build.kernel = real_kernel

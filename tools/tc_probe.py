@@ -9,7 +9,8 @@ wgmma).
                               [--patch NAME ...]
 
 Builds the port's kernels (``paddle_tpu_torch.ops._build``) and prints
-what ptxas reports for their sources, then holds each kernel against its
+what ptxas reports for their sources (and for ``flash_bwd_dq`` and
+``flash_bwd_dkv``, kernels 3-6 on the same wgmma pieces), then holds each kernel against its
 plain version on a few small cases, bf16 and fp32 for the convs (every
 case reported, none stopping the run: a layout fault shows as a pattern
 of ratios; the cases include W 140, the conv loop's band mode, and
@@ -48,6 +49,7 @@ FLASH_SMALL = [(1, 128, 1, 64, False, None), (1, 128, 1, 64, True, None),
 
 
 _TC_CONV = ("conv3x3_fwd", "conv3x3_dx", "conv3x3_chain_bwd")
+_TC_FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 #: name -> (kernel stems, [(file, old text, new text)])
 PATCHES = {
     # the conv loop without forming the halo (planes left as they are;
@@ -95,8 +97,8 @@ PATCHES = {
         "y = x;")]),
     # flash forward without the lo half of P V
     "flash_no_pv_lo": (("flash_fwd",), [(
-        "flash_fwd.cu", "    wg::mma_rs<D, 1>(o, pl[kk],",
-        "    if (0) wg::mma_rs<D, 1>(o, pl[kk],")]),
+        "flash_wg.cuh", "    wg::mma_rs<D, 1>(acc, pl[kk],",
+        "    if (0) wg::mma_rs<D, 1>(acc, pl[kk],")]),
     # flash forward without the softmax (P = the raw scores)
     "flash_no_softmax": (("flash_fwd",), [(
         "flash_fwd.cu",
@@ -109,37 +111,11 @@ PATCHES = {
 def build_patch(name):
     """Build the knock-out ``name`` from a patched copy of csrc; returns
     (kernel stems, {symbol: ctypes function})."""
-    import ctypes
-    import shutil
     from paddle_tpu_torch.ops import _build
+    from probe_build import build_variant
     stems, edits = PATCHES[name]
-    d = os.path.join(ROOT, "build", "tc_probe", name)
-    shutil.rmtree(d, ignore_errors=True)
-    shutil.copytree(_build.CSRC_DIR, d)
-    for fname, old, new in edits:
-        path = os.path.join(d, fname)
-        with open(path) as f:
-            text = f.read()
-        if old not in text:
-            raise SystemExit(f"patch {name}: text not found in {fname}")
-        with open(path, "w") as f:
-            f.write(text.replace(old, new))
-    procs = {stem: subprocess.Popen(
-        [_build._nvcc()] + _build.NVCC_FLAGS
-        + ["-o", os.path.join(d, f"{stem}.so"), os.path.join(d, f"{stem}.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for stem in stems}
-    fns = {}
-    for stem, proc in procs.items():
-        text, _ = proc.communicate()
-        if proc.returncode:
-            raise SystemExit(f"nvcc failed for {name} ({stem}):\n{text}")
-        lib = ctypes.CDLL(os.path.join(d, f"{stem}.so"))
-        for sym, (lib_stem, argtypes) in _build.SIGNATURES.items():
-            if lib_stem == stem:
-                fn = getattr(lib, sym)
-                fn.argtypes, fn.restype = argtypes, ctypes.c_int
-                fns[sym] = fn
+    fns, _ = build_variant(os.path.join(ROOT, "build", "tc_probe", name),
+                           _build.CSRC_DIR, edits, stems)
     return stems, fns
 
 
@@ -264,7 +240,7 @@ def main() -> int:
                          text=True)
     print(f"card: {smi.stdout.strip()}", flush=True)
     _build.build_all()
-    for stem in _TC_CONV + ("conv3x3_fwd_bwd", "flash_fwd"):
+    for stem in _TC_CONV + ("conv3x3_fwd_bwd",) + _TC_FLASH:
         info = _build.build_info.get(stem, {})
         print(f"build {stem}: {info.get('seconds', 0.0):.2f} s", flush=True)
         for ln in info.get("ptxas", "").splitlines():
