@@ -101,7 +101,8 @@ Phases (any failure exits nonzero, without the final ``ok`` line):
    way, with the tolerances of 3e, at (B, T, H) = (128, 30, 1024) in
    both directions (the H 1024 encoder's shape); (8, 12, 640) with
    lengths 0, 1 and T, reversed; (3, 5, 640) without h0; (16, 7, 520),
-   H off the 128-lane tiling; (128, 4, 2048); and a bf16 xw;
+   H off the 128-lane tiling; (128, 4, 2048); (5, 6, 514) with lengths
+   0, 1 and T, H % 4 != 0 (the dW tile's scalar staging); and a bf16 xw;
 4q. the seq2seq main path: ``bench.py``'s row (``seq2seq_setup``: B 128,
    source and target length 30, V 30000, E 512, H 512, its feed, Adam lr
    5e-4 clip 25, under ``use_bf16`` and ``bf16_activations``; the port's
@@ -202,8 +203,10 @@ Phases (any failure exits nonzero, without the final ``ok`` line):
    table, ``torch.index_select`` as its yardstick.  The conv and flash
    rows also carry the achieved TFLOP/s on the contract's flops and the
    share of the bound rate; kernels 18, 19 and 21 are bound by two bf16
-   tensor-core passes (the f32 operand as hi + lo, ``CONV_BOUND_BASIS``)
-   or by their bytes, whichever is larger.
+   tensor-core passes (the f32 operand as hi + lo, ``CONV_BOUND_BASIS``),
+   kernel 20 by one (its bf16 dy as it is), or by their bytes, whichever
+   is larger; kernel 17 by three bf16 passes (hi*hi + hi*lo + lo*hi of
+   its f32 operands, ``GRU_BOUND_BASIS``).
 
 Phases 3b-4f are PR 2's H 512 phases and run in fp32 (``use_bf16``
 off), so their readings stay comparable.  The order of the run: 1-3f,
@@ -1123,9 +1126,15 @@ def phase_train_small(dev, hidden=128):
         fail("card and CPU reference disagree on the training step")
 
 
+#: substrings of the port's own kernels' symbols in a profile
+PORT_KERNEL_MARKS = ("conv3x3", "lstm", "gru_", "flash_", "paged_decode",
+                     "embedding_gather", "compact_rows", "reduce_splits")
+
+
 def phase_profile_train(trainer, feed):
-    """3 training steps under torch.profiler: device time by kernel and
-    the device's busy share."""
+    """3 training steps under torch.profiler: device time by kernel (the
+    14 largest, and the port's own kernels further down) and the device's
+    busy share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -1142,7 +1151,8 @@ def phase_profile_train(trainer, feed):
         f"{sum(r[2] for r in rows) / 3:.0f} device items (kernels and "
         "copies) a step")
     rows.sort(key=lambda r: -r[1])
-    for key, us, n in rows[:14]:
+    for key, us, n in rows[:14] + [
+            r for r in rows[14:] if any(m in r[0] for m in PORT_KERNEL_MARKS)]:
         log(f"    {us / 1e3:9.3f} ms  {n:6d} x  {key[:90]}")
 
 
@@ -1635,8 +1645,8 @@ def conv_work(name, n, h, w, cin, cout, elem):
 #: flipped weights), one bf16 tensor-core pass; kernels 19, 18 and 21
 #: multiply an f32 operand formed on load (x = act(A·z + C), or
 #: dz = A·dy + B·z + C), which the contract cannot round to bf16 once:
-#: carried as hi + lo bf16, it takes two bf16 passes on the tensor-core
-#: loop (conv3x3_tc.cuh)
+#: carried as hi + lo bf16, it takes two bf16 passes; all four on the
+#: tensor-core loop (conv3x3_tc.cuh)
 CONV_BOUND_BASIS = {"conv3x3_fwd": (2, BF16_FLOPS_PER_S),
                     "conv3x3_fwd_bwd": (1, BF16_FLOPS_PER_S),
                     "conv3x3_dx": (2, BF16_FLOPS_PER_S),
@@ -2102,6 +2112,7 @@ def phase_gru_blocked_check(dev):
              ((16, 7, 520), [7, 0, 1] + [1 + i % 7 for i in range(13)],
               False, None, True),                                 # H % 128
              ((b, 4, 2048), [4] * b, False, None, True),
+             ((5, 6, 514), [6, 0, 1, 6, 3], False, None, True),   # H % 4
              ((8, 12, 640), [12, 1, 7, 12, 3, 1, 9, 12], False,
               torch.bfloat16, True)]                              # bf16 xw
     errs = dict.fromkeys(GRU_BLOCKED_KERNELS, 0.0)
@@ -2174,6 +2185,15 @@ def phase_c1_card(dev):
             "out_err": e_out, "grad_err": e_grad}
 
 
+#: the bound's basis of the blocked GRU kernels: (passes, rate) -- 15 and
+#: 16 multiply f32 on the CUDA cores; 17 multiplies its f32 operands on
+#: the tensor cores as hi*hi + hi*lo + lo*hi, three bf16 passes
+#: (csrc/dw_wg.cuh)
+GRU_BOUND_BASIS = {"gru_fwd_blocked": (1, FP32_FLOPS_PER_S),
+                   "gru_bwd_blocked": (1, FP32_FLOPS_PER_S),
+                   "gru_dw_blocked": (3, BF16_FLOPS_PER_S)}
+
+
 def gru_blocked_work(name, b, t, h, n_valid):
     """(bytes, flops) of one call of a blocked GRU kernel: each input read
     once, each output written once; the products of the valid row-steps
@@ -2193,7 +2213,8 @@ def phase_time_gru_blocked(dev, launches):
     """Kernels 15-17 at the H 1024 main path's encoder shape (B 128, T 30,
     every step valid, h0 zero), each against its plain version, then
     timed with it; ``torch.matmul`` of the two dW products as kernel 17's
-    yardstick."""
+    yardstick; the bounds on the basis of ``GRU_BOUND_BASIS`` (17's at
+    the fp32 rate too, for comparison)."""
     import torch
     from paddle_tpu_torch.ops import gru as G
     b, t, h = S2S["B"], S2S["T"], S2S_WIDE_H
@@ -2241,7 +2262,9 @@ def phase_time_gru_blocked(dev, launches):
         ms = time_ms(lambda: fn(*args), reps=5, rounds=4)
         plain_ms = time_ms(lambda: plain(*args), reps=2, rounds=2)
         lib_ms = time_ms(lib, reps=5, rounds=4) if lib else None
-        b_ms, b_by = bound_ms(*gru_blocked_work(name, b, t, h, b * t))
+        n_bytes, n_flops = gru_blocked_work(name, b, t, h, b * t)
+        passes, rate = GRU_BOUND_BASIS[name]
+        b_ms, b_by = bound_ms(n_bytes, passes * n_flops, rate)
         rows.append({"name": name, "route": "cuda",
                      "source": f"paddle_tpu_torch/csrc/{name}.cu",
                      "replaces": f"paddle_tpu/ops/pallas_gru.py:{line}",
@@ -2253,9 +2276,13 @@ def phase_time_gru_blocked(dev, launches):
     for r in rows:
         lib = "" if r["library_ms"] is None else \
             f", torch.matmul {r['library_ms'] * 1e3:.2f} us"
+        passes, rate = GRU_BOUND_BASIS[r["name"]]
+        fp32_ms = bound_ms(*gru_blocked_work(r["name"], b, t, h, b * t))[0]
         log(f"  {r['name']}: {r['ms'] * 1e3:.2f} us (plain "
             f"{r['plain_ms'] * 1e3:.2f} us{lib}, bound "
-            f"{r['bound_ms'] * 1e3:.3f} us by {r['bound_by']}); {r['shape']}")
+            f"{r['bound_ms'] * 1e3:.3f} us by {r['bound_by']}, {passes} "
+            f"pass(es) at {rate * 1e-12:.0f} TFLOP/s; at the fp32 rate "
+            f"{fp32_ms * 1e3:.3f} us); {r['shape']}")
     return rows
 
 

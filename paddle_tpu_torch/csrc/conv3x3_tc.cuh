@@ -1,40 +1,41 @@
 // The tensor-core main loop of the 3x3 stride-1 pad-1 NHWC conv kernels
 // on Hopper's wgmma (wgmma.cuh), fp32 and bf16.  The hooks are those of
 // conv3x3_common.cuh (a LOAD hook forms the f32 operand, an EPILOGUE hook
-// takes the f32 sums); this loop has kLoadAffine and kLoadBnBwd, kEpiStore
-// and kEpiAffineBwd:
+// takes the f32 sums); every kernel of the family runs here:
 //
 //   kernel 18 (conv3x3_dx.cu)        kLoadBnBwd   kEpiStore
 //   kernel 19 (conv3x3_fwd.cu)       kLoadAffine  kEpiStore
+//   kernel 20 (conv3x3_fwd_bwd.cu)   kLoadPlain   kEpiAffineBwd
 //   kernel 21 (conv3x3_chain_bwd.cu) kLoadBnBwd   kEpiAffineBwd
 //
-// Kernel 20 stays on the CUDA-core loop of conv3x3_common.cuh (its hook
-// kLoadPlain is the piece this loop lacks).
-//
 // It replaces the TPU kernels paddle_tpu/ops/pallas_conv.py::_fwd_kernel,
-// _dx_kernel and _chain_bwd_kernel: per image, the operand formed in f32
-// into a zero-padded VMEM scratch, then nine shifted [H*W, KC] @ [KC, NC]
-// dot_generals of f32 operands with f32 sums.  A backward-data conv is
-// such a conv of dz with the flipped, I/O-transposed weights.
+// _dx_kernel, _fwd_bwd_kernel and _chain_bwd_kernel: per image, the
+// operand formed in f32 into a zero-padded VMEM scratch, then nine
+// shifted [H*W, KC] @ [KC, NC] dot_generals of f32 operands with f32
+// sums.  A backward-data conv is such a conv of its cotangent with the
+// flipped, I/O-transposed weights.
 //
 // Numbers.  The contract multiplies the f32 operand (x = act(A*z + C), or
-// dz = A*dy + B*z + C) by the weights and sums in f32.  Rounding it once
-// to bf16 (2^-9) would miss the checks' 1e-5 of max|out| by two orders,
-// so it is carried as hi = bf16(x) and lo = bf16(x - hi) (about 16
-// significant bits, the flash kernels' convention): each product is
+// dz = A*dy + B*z + C, or dy) by the weights and sums in f32.  Rounding
+// it once to bf16 (2^-9) would miss the checks' 1e-5 of max|out| by two
+// orders, so it is carried as hi = bf16(x) and lo = bf16(x - hi) (about
+// 16 significant bits, the flash kernels' convention): each product is
 // hi * w + lo * w, two bf16 tensor-core passes with f32 accumulators,
 // bf16 weights being exact.  fp32 weights come split the same way, and
-// the products are hi*hi + hi*lo + lo*hi.  The affines round each product
-// and sum (__fmul_rn, __fadd_rn), so a ReLU mask and a stored dz have the
-// plain version's bits.
+// the products are hi*hi + hi*lo + lo*hi.  kLoadPlain's bf16 operand (dy
+// as it is) is exact in bf16: lo is 0, so it takes one pass and has no
+// lo plane.  The affines round each product and sum (__fmul_rn,
+// __fadd_rn), so a ReLU mask and a stored dz have the plain version's
+// bits.
 //
 // Bound on the H100, a ResNet-50 stage at B 128 (56^2 x 64, 28^2 x 128,
 // 14^2 x 256, 7^2 x 512, Cin = Cout): 2 * M * 9 * KC * NC = 29.6 GFLOP of
-// the contract; its two bf16 passes at 989 TFLOP/s take 59.8 us.  Kernel
-// 19's bytes (z, out, w once each: 102.8 MB) take 30.7 us, so operations
-// bound it; kernel 18's (dy, z in, dx, dz out: 205.6 MB) 61.4 us and
-// kernel 21's (dy, z2, z1 in, dz2, dz1, x1 out: 308.4 MB) 92.1 us, so
-// bytes bound those two.
+// the contract; its two bf16 passes at 989 TFLOP/s take 59.8 us, one
+// pass 29.9 us.  Kernel 19's bytes (z, out, w once each: 102.8 MB) take
+// 30.7 us, so operations bound it; kernel 18's (dy, z in, dx, dz out:
+// 205.6 MB) 61.4 us, kernel 20's (dy, z in, dz, x out: 205.6 MB) 61.4 us
+// and kernel 21's (dy, z2, z1 in, dz2, dz1, x1 out: 308.4 MB) 92.1 us, so
+// bytes bound those three.
 //
 // Design.  A CTA owns 128 consecutive pixels of the flattened N*H*W range
 // (starting at p0) and 64 output channels: two warpgroups of 64 pixels,
@@ -43,8 +44,9 @@
 // halo -- the pixels [p0 - W - 1, p0 + 128 + W + 1) that the nine taps
 // reach, or, for W > 130, three bands of 130 pixels, one per tap row --
 // with 16-byte loads (8 or 4 in flight a thread; see Cfg), the affine in
-// f32, and the hi / lo split,
-// into two bf16 planes in shared memory (128-byte rows, 16-byte chunks
+// f32, and the hi / lo split, or by cp.async copies of the raw rows,
+// into two bf16 planes (one for kLoadPlain's bf16 dy) in shared memory
+// (128-byte rows, 16-byte chunks
 // XOR-swizzled by row so that ldmatrix is free of bank conflicts), plus
 // one all-zero row.  The nine taps are then gathered views of the planes:
 // output pixel p = (n, h, w) reads, for tap (a, b), the halo row of pixel
@@ -60,7 +62,9 @@
 // 128-byte swizzled layout that the wgmma descriptor reads.  A tap is two
 // product groups (hi, lo), and each warpgroup keeps two in flight: the lo
 // fragments are gathered while the hi products run, the next tap's hi
-// fragments while the lo products run.
+// fragments while the lo products run.  kLoadPlain's bf16 form has one
+// group a tap, and the nine taps, unrolled, alternate two fragment sets:
+// a tap's fragments are gathered while the previous tap's products run.
 //
 // kLoadBnBwd writes dz exactly once: a CTA of the first channel block
 // (blockIdx.y == 0) stores the dz of the halo rows that are its own 128
@@ -72,10 +76,14 @@
 // (no registers held for the loads in flight).  The products read the f32
 // dz (hi + lo), not the stored one, as the Pallas kernel does.
 //
+// kLoadPlain copies bf16 dy rows into the hi plane by cp.async (rows
+// outside [0, N*H*W) are stored as zeros); fp32 dy takes the register path
+// and the hi / lo split without an affine.
+//
 // Epilogues.  kEpiStore: bf16 results leave through a free ring slot as
 // 16-byte row stores; fp32 as 8-byte stores.  kEpiAffineBwd (after a CTA
 // barrier, when the ring and the planes are free): u = A1*z1 + C1,
-// du = act'(u)*t, dz1 = A1*du, x1 = act(u), rounded as the CUDA-core hook
+// du = act'(u)*t, dz1 = A1*du, x1 = act(u), rounded as the plain version
 // does; bf16 stages z1, dz1 and x1 through three ring slots a warpgroup
 // with 16-byte row accesses, fp32 reads and writes 8 bytes a lane in the
 // accumulator layout (32 contiguous bytes a quad).  The channel sums
@@ -103,15 +111,18 @@ constexpr int kBand = kBM + 2;       // pixels of one tap row's band
 constexpr int kMaxHalo = 3 * kBand;
 
 // Per input type and load hook: weight planes a (tap, chunk) slice (bf16
-// weights are exact; fp32 weights come as hi and lo bf16 planes), the
+// weights are exact; fp32 weights come as hi and lo bf16 planes), operand
+// planes (hi and lo, or hi alone for kLoadPlain's bf16 dy: one pass), the
 // ring (slices kAhead = kStages - 2 steps ahead), and the 16-byte loads in
 // flight a thread of each source in the halo loop's register path
-// (kLoadBnBwd's fp32 reads two sources: half as deep; its bf16 form
-// copies by cp.async instead).  kEpiAffineBwd's bf16 staging takes three
-// slots a warpgroup: all six.
-template <typename T, int kLoad = conv3x3::kLoadAffine>
+// (kLoadBnBwd's fp32 reads two sources: half as deep; the bf16 forms of
+// kLoadBnBwd and kLoadPlain copy by cp.async instead).  kEpiAffineBwd's
+// bf16 staging takes three slots a warpgroup: all six.
+template <typename T, int kLoad>
 struct Cfg {
   static constexpr bool kF32 = sizeof(T) == 4;
+  static constexpr bool kOnePass = !kF32 && kLoad == conv3x3::kLoadPlain;
+  static constexpr int kXPlanes = kOnePass ? 1 : 2;
   static constexpr int kWPlanes = kF32 ? 2 : 1;
   static constexpr int kSlice = kWPlanes * kPlane;
   static constexpr int kStages = kF32 ? 4 : 6;
@@ -131,11 +142,12 @@ __host__ __device__ inline int halo_step(int w) {
   return 2 * w + kBand <= kMaxHalo ? w : kBand;
 }
 
-template <typename T>
+template <typename T, int kLoad>
 inline size_t smem_bytes(int w) {
-  return 1024 + Cfg<T>::kStages * Cfg<T>::kSlice +
-         2 * (size_t)(halo_rows(w) + 1) * kRow +
-         Cfg<T>::kStages * sizeof(uint64_t);
+  using C = Cfg<T, kLoad>;
+  return 1024 + C::kStages * C::kSlice +
+         C::kXPlanes * (size_t)(halo_rows(w) + 1) * kRow +
+         C::kStages * sizeof(uint64_t);
 }
 
 __device__ __forceinline__ void ldsm4(uint32_t* r, const void* p) {
@@ -205,6 +217,24 @@ __device__ __forceinline__ void affine_split8(const Raw8<T>& z,
     const float2 hf = __bfloat1622float2(hb);
     h[i] = as_u32(hb);
     l[i] = as_u32(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
+  }
+  *hi = make_uint4(h[0], h[1], h[2], h[3]);
+  *lo = make_uint4(l[0], l[1], l[2], l[3]);
+}
+
+// The load hook kLoadPlain on 8 channels of fp32 dy: split into hi and lo
+// bf16 (4 b32 each).
+template <typename T>
+__device__ __forceinline__ void plain_split8(const Raw8<T>& d, uint4* hi,
+                                             uint4* lo) {
+  uint32_t h[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 x = pair(d, i);
+    const __nv_bfloat162 hb = __floats2bfloat162_rn(x.x, x.y);
+    const float2 hf = __bfloat1622float2(hb);
+    h[i] = as_u32(hb);
+    l[i] = as_u32(__floats2bfloat162_rn(x.x - hf.x, x.y - hf.y));
   }
   *hi = make_uint4(h[0], h[1], h[2], h[3]);
   *lo = make_uint4(l[0], l[1], l[2], l[3]);
@@ -365,19 +395,19 @@ __device__ __forceinline__ void epi_affine_bwd(const Params& p,
 }
 
 template <typename T, int kLoad, int kEpi>
-__global__ void __launch_bounds__(kThreads, Cfg<T>::kMinBlocks)
+__global__ void __launch_bounds__(kThreads, Cfg<T, kLoad>::kMinBlocks)
 conv3x3_tc_kernel(const Params p, const __grid_constant__ CUtensorMap tmw) {
-  static_assert(kLoad != conv3x3::kLoadPlain,
-                "kernel 20's hook runs on the CUDA-core loop");
   constexpr bool kBnBwd = kLoad == conv3x3::kLoadBnBwd;
+  constexpr bool kPlain = kLoad == conv3x3::kLoadPlain;
   using C = Cfg<T, kLoad>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = wg::align1024(smem_raw);
   const int rows = halo_rows(p.w), step = halo_step(p.w);
   const int band = step == p.w ? rows : kBand;
   unsigned char* hi = ring + C::kStages * C::kSlice;
-  unsigned char* lo = hi + (rows + 1) * kRow;
-  uint64_t* full = reinterpret_cast<uint64_t*>(lo + (rows + 1) * kRow);
+  unsigned char* lo = hi + (rows + 1) * kRow;       // absent when kOnePass
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(hi + C::kXPlanes * (rows + 1) * kRow);
 
   const T* src = static_cast<const T*>(p.src);    // z, or dy
   const T* src2 = static_cast<const T*>(p.src2);  // z of kLoadBnBwd
@@ -392,8 +422,8 @@ conv3x3_tc_kernel(const Params p, const __grid_constant__ CUtensorMap tmw) {
   const int n0 = blockIdx.y * kBN;
   const int n_chunks = p.kc / kKC, steps = 9 * n_chunks;
 
-  // the zero row of both planes
-  if (tid < 16)
+  // the zero row of each plane
+  if (tid < 8 * C::kXPlanes)
     *reinterpret_cast<uint4*>((tid < 8 ? hi : lo) + rows * kRow +
                               (tid & 7) * 16) = make_uint4(0, 0, 0, 0);
 
@@ -451,24 +481,53 @@ conv3x3_tc_kernel(const Params p, const __grid_constant__ CUtensorMap tmw) {
   const int hu = tid & 7;
   uint32_t fa[4][4], fb[4][4];
   int s = 0;                        // step (chunk, tap)
+  // The start of step s: slot s - 2 is read (kAhead = kStages - 2), so
+  // slice s + kAhead may load into it; slice s has arrived.  Gives the
+  // halo row this lane gathers for the tap (the zero row outside the
+  // image) and the slice's descriptor (w, or w_hi and w_lo kPlane
+  // further); 16 rows further (a k step) add 2048 bytes.
+  auto begin_step = [&](int tap, int* hrow) -> uint64_t {
+    __syncthreads();
+    if (tid == 0) load_w(s + C::kAhead);
+    wg::mbar_wait(full + s % C::kStages, (s / C::kStages) & 1);
+    const int a = tap / 3, b = tap - 3 * a;
+    *hrow = (taps >> tap) & 1 ? a * step + r + b : rows;
+    return wg::desc<128>(wg::smem_u32(ring + (s % C::kStages) * C::kSlice),
+                         kPlane, 8 * kRow);
+  };
+  constexpr uint64_t kLoPlane = kPlane >> 4, kStep = 16 * kRow >> 4;
   for (int c = 0; c < n_chunks; ++c) {
     // the load hook's rows of the chunk, 8 channels a thread: (A, C) of
-    // kLoadAffine, (A, B, C) of kLoadBnBwd
+    // kLoadAffine, (A, B, C) of kLoadBnBwd (none for kLoadPlain)
     float ca[8], cb[kBnBwd ? 8 : 1], cc[8];
+    if constexpr (!kPlain) {
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const float* row = p.in_aff + c * kKC + hu * 8 + e;
-      ca[e] = __ldg(row);
-      if constexpr (kBnBwd) cb[e] = __ldg(row + p.kc);
-      cc[e] = __ldg(row + (kBnBwd ? 2 : 1) * p.kc);
+      for (int e = 0; e < 8; ++e) {
+        const float* row = p.in_aff + c * kKC + hu * 8 + e;
+        ca[e] = __ldg(row);
+        if constexpr (kBnBwd) cb[e] = __ldg(row + p.kc);
+        cc[e] = __ldg(row + (kBnBwd ? 2 : 1) * p.kc);
+      }
     }
     __syncthreads();              // the planes of chunk c - 1 are read
     // the operand over the halo, once: row j is pixel p0 - W - 1 + j (+
-    // the band shift).  bf16 kLoadBnBwd: each thread copies its raw dy
-    // and z rows into the lo and hi planes by cp.async (all in flight, no
-    // registers held), then forms dz in place from its own copies.
-    // Otherwise kDepth loads of each source in flight a thread.
-    if constexpr (kBnBwd && !C::kF32) {
+    // the band shift).  bf16 kLoadPlain: each thread copies its dy rows
+    // into the hi plane by cp.async.  bf16 kLoadBnBwd: each thread copies
+    // its raw dy and z rows into the lo and hi planes by cp.async (all in
+    // flight, no registers held), then forms dz in place from its own
+    // copies.  Otherwise kDepth loads of each source in flight a thread.
+    if constexpr (C::kOnePass) {
+      for (int i = tid; i < rows * 8; i += kThreads) {
+        const int j = i >> 3;
+        const long q = p0 - p.w - 1 + j + (long)(j / band) * (p.w - band);
+        const uint32_t so = wg::swz<128>(j * kRow + hu * 16);
+        if (q >= 0 && q < m_total)
+          cp_async16(hi + so, src + q * p.kc + c * kKC + hu * 8);
+        else
+          *reinterpret_cast<uint4*>(hi + so) = make_uint4(0, 0, 0, 0);
+      }
+      cp_async_wait_all();
+    } else if constexpr (kBnBwd && !C::kF32) {
       for (int i = tid; i < rows * 8; i += kThreads) {
         const int j = i >> 3;
         const long q = p0 - p.w - 1 + j + (long)(j / band) * (p.w - band);
@@ -531,6 +590,8 @@ conv3x3_tc_kernel(const Params p, const __grid_constant__ CUtensorMap tmw) {
               reinterpret_cast<float4*>(d)[1] =
                   make_float4(x[4], x[5], x[6], x[7]);
             }
+          } else if constexpr (kPlain) {  // fp32 here
+            if (in[e]) plain_split8(v1[e], &h4, &l4);
           } else {
             if (in[e]) affine_split8(v1[e], ca, cc, p.relu_in, &h4, &l4);
           }
@@ -542,42 +603,59 @@ conv3x3_tc_kernel(const Params p, const __grid_constant__ CUtensorMap tmw) {
     }
     __syncthreads();
 
+    if constexpr (C::kOnePass) {
+      // one group a tap, the taps unrolled so that tap t gathers into fa
+      // or fb by its parity while tap t - 1's products run
+      auto one_tap = [&](int tap, uint32_t(&f)[4][4]) {
+        int hrow;
+        const uint64_t wd = begin_step(tap, &hrow);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          ldsm4(f[kk],
+                hi + wg::swz<128>(hrow * kRow + (2 * kk + khalf) * 16));
+        wg::fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wg::mma_rs_n64<1>(acc, f[kk], wd + kk * kStep, 1);
+        wg::commit();
+        wg::wait<1>();            // tap t - 1's products are done
+        ++s;
+      };
+#pragma unroll
+      for (int tap = 0; tap < 9; tap += 2) {
+        one_tap(tap, fa);
+        if (tap + 1 < 9) one_tap(tap + 1, fb);
+      }
+    } else {
 #pragma unroll 1
-    for (int tap = 0; tap < 9; ++tap, ++s) {
-      __syncthreads();            // slot s - 2 is read (kAhead = kStages - 2)
-      if (tid == 0) load_w(s + C::kAhead);
-      wg::mbar_wait(full + s % C::kStages, (s / C::kStages) & 1);
-      const int a = tap / 3, b = tap - 3 * a;
-      const int hrow = (taps >> tap) & 1 ? a * step + r + b : rows;
-      // the slice's descriptors (w, or w_hi and w_lo); 16 rows further
-      // (a k step) add 2048 bytes
-      const uint64_t wd = wg::desc<128>(
-          wg::smem_u32(ring + (s % C::kStages) * C::kSlice), kPlane,
-          8 * kRow);
-      constexpr uint64_t kLoPlane = kPlane >> 4, kStep = 16 * kRow >> 4;
-      uint32_t off[4];
+      for (int tap = 0; tap < 9; ++tap, ++s) {
+        int hrow;
+        const uint64_t wd = begin_step(tap, &hrow);
+        uint32_t off[4];
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        off[kk] = wg::swz<128>(hrow * kRow + (2 * kk + khalf) * 16);
-        ldsm4(fa[kk], hi + off[kk]);
+        for (int kk = 0; kk < 4; ++kk) {
+          off[kk] = wg::swz<128>(hrow * kRow + (2 * kk + khalf) * 16);
+          ldsm4(fa[kk], hi + off[kk]);
+        }
+        wg::fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          wg::mma_rs_n64<1>(acc, fa[kk], wd + kk * kStep, 1);
+          if (C::kF32)
+            wg::mma_rs_n64<1>(acc, fa[kk], wd + kLoPlane + kk * kStep,
+                              1);
+        }
+        wg::commit();
+        wg::wait<1>();  // the lo products of step s - 1 are done
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) ldsm4(fb[kk], lo + off[kk]);
+        wg::fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wg::mma_rs_n64<1>(acc, fb[kk], wd + kk * kStep, 1);
+        wg::commit();
+        wg::wait<1>();  // the hi products of step s are done
       }
-      wg::fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        wg::mma_rs_n64<1>(acc, fa[kk], wd + kk * kStep, 1);
-        if (C::kF32)
-          wg::mma_rs_n64<1>(acc, fa[kk], wd + kLoPlane + kk * kStep, 1);
-      }
-      wg::commit();
-      wg::wait<1>();              // the lo products of step s - 1 are done
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) ldsm4(fb[kk], lo + off[kk]);
-      wg::fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wg::mma_rs_n64<1>(acc, fb[kk], wd + kk * kStep, 1);
-      wg::commit();
-      wg::wait<1>();              // the hi products of step s are done
     }
     if constexpr (kTot) {
       wg::wait<0>();
@@ -651,8 +729,8 @@ conv3x3_tc_kernel(const Params p, const __grid_constant__ CUtensorMap tmw) {
 
 // Launch conv3x3_tc_kernel over (M / 128, NC / 64) tiles (and the
 // channel-sum pass for kEpiAffineBwd, into dac); returns the cudaError of
-// the launch.  w: bf16 [9 KC, NC], or for fp32 inputs its hi and lo bf16
-// planes [2, 9 KC, NC].
+// the launch.  p.wg: bf16 [9 KC, NC], or for fp32 inputs its hi and lo
+// bf16 planes [2, 9 KC, NC].
 template <typename T, int kLoad, int kEpi>
 int launch(const Params& p, float* dac, cudaStream_t stream) {
   const long m_total = (long)p.n * p.h * p.w;
@@ -663,12 +741,12 @@ int launch(const Params& p, float* dac, cudaStream_t stream) {
   // the weight planes as one tensor map of [64, 64] boxes
   CUtensorMap tmw;
   const uint64_t dims[2] = {(uint64_t)p.nc,
-                            9 * (uint64_t)p.kc * Cfg<T>::kWPlanes};
+                            9 * (uint64_t)p.kc * Cfg<T, kLoad>::kWPlanes};
   const uint64_t strides[1] = {(uint64_t)p.nc * 2};
   const uint32_t box[2] = {kBN, kKC};
   if (!wg::tma_map(&tmw, p.wg, 2, dims, strides, box, 128))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes<T>(p.w);
+  const size_t smem = smem_bytes<T, kLoad>(p.w);
   auto kern = conv3x3_tc_kernel<T, kLoad, kEpi>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

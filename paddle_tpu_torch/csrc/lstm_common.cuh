@@ -56,9 +56,11 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src,
 __device__ __forceinline__ void cp_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
+// Waits for all but the newest N groups of this thread's copies; a
+// compiler barrier too, so that no shared-memory read moves above it.
 template <int N>
 __device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Stage an [nr, nc] block into shared memory: dst[r * ds + c] =
@@ -519,9 +521,10 @@ __global__ void __launch_bounds__(kCompactThreads)
   if (tid == kCompactThreads - 1) rows[R] = counts[tid];
 }
 
-// The blocked tiers' dW products (lstm_dw_blocked.cu, gru_dw_blocked.cu):
+// The LSTM blocked tier's dW product (lstm_dw_blocked.cu) on CUDA cores:
 // dW[k, c] = sum over the listed valid rows j of arow(j)[k] * brow(j)[c],
 // one CTA of kThreads per (kGK x kGC output tile, split of the row list).
+// (The GRU's, gru_dw_blocked.cu, runs on the tensor cores: dw_wg.cuh.)
 namespace dwb {
 constexpr int kGR = 32;                  // rows per streamed chunk
 constexpr int kGK = 128, kGC = 128;      // output tile: kGK x kGC
@@ -616,12 +619,13 @@ __global__ void reduce_splits_kernel(const float* __restrict__ part,
 }
 
 // Splits of the row list for n_tiles output tiles of `kernel` (kThreads
-// threads, dwb::kSmemFloats of shared memory) on the current card: the
-// fewest that minimise rounds of the co-resident CTAs per unit of work;
-// 0 on a CUDA error.
+// threads, smem bytes of shared memory: dw_tile_blocked's by default) on
+// the current card: the fewest that minimise rounds of the co-resident
+// CTAs per unit of work; 0 on a CUDA error.
 template <typename K>
-__host__ inline int dw_blocked_splits(K kernel, long n_tiles) {
-  const size_t smem = (size_t)dwb::kSmemFloats * sizeof(float);
+__host__ inline int dw_blocked_splits(
+    K kernel, long n_tiles,
+    size_t smem = (size_t)dwb::kSmemFloats * sizeof(float)) {
   if (cudaFuncSetAttribute(kernel,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem) != cudaSuccess)

@@ -1,6 +1,7 @@
 // Hopper warpgroup matrix products (wgmma, sm_90a only) and the swizzled
 // shared-memory tiles they read, shared by the tensor-core main loops of
-// kernel 19 (conv3x3_tc.cuh) and kernels 1-train and 2 (flash_fwd.cu).
+// kernels 18-21 (conv3x3_tc.cuh), the flash kernels (flash_wg.cuh) and
+// kernel 17's dW tile (dw_wg.cuh).
 //
 // A warpgroup is 4 consecutive warps (128 threads, the first warp's index
 // a multiple of 4).  One wgmma adds a 64 x N product (N in {32, 64, 128}
@@ -23,8 +24,10 @@
 //   8-row groups SBO = 8 * SW bytes apart; a 16-deep step advances the
 //   start address by 32 bytes inside a column block.
 //   MN-major (the output dimension contiguous: V in O = P V, the conv
-//   weights [Cin, Cout]): rows run along the reduction, 8-row groups SBO
-//   = 8 * SW bytes apart, column blocks LBO bytes apart; transpose flag 1.
+//   weights [Cin, Cout]; also A in dW = X^T G from the rows of X):
+//   rows run along the reduction, 8-row groups SBO = 8 * SW bytes apart,
+//   column blocks LBO bytes apart; transpose flag 1 (an MN-major A, SS
+//   only, sets the A flag).
 #pragma once
 
 #include <cuda.h>
@@ -61,6 +64,13 @@ __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
 
 __device__ __forceinline__ void fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+// Orders this thread's generic-proxy writes to shared memory before later
+// reads by the async proxy (wgmma operands from shared memory); then a
+// barrier hands the tile to the warpgroups.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void commit() {
@@ -205,6 +215,27 @@ __device__ __forceinline__ void mma_ss_n64(float* d, uint64_t adesc,
       "%32, %33, p, 1, 1, 0, %35;\n}\n"
       : WG_D16(0), WG_D16(16)
       : "l"(adesc), "l"(bdesc), "r"(scale_d), "n"(TNSPB));
+}
+
+// d[64 x 128] (+)= A[64 x 16] * B[16 x 128], A and B from shared memory,
+// each K-major (flag 0) or MN-major (flag 1).
+template <int TNSPA, int TNSPB>
+__device__ __forceinline__ void mma_ss_n128(float* d, uint64_t adesc,
+                                            uint64_t bdesc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %68;\n}\n"
+      : WG_D16(0), WG_D16(16), WG_D16(32), WG_D16(48)
+      : "l"(adesc), "l"(bdesc), "r"(scale_d), "n"(TNSPA), "n"(TNSPB));
 }
 
 // d[64 x N] (+)= A[64 x 16] * B[16 x N], A in registers (a[4]).

@@ -4,9 +4,8 @@
 Hand-written CUDA C++ kernels for ``sm_90a``, implicit GEMMs over the 9
 shifted ``[N·H·W, C] @ [C, C']`` products of a 3×3 stride-1 pad-1 NHWC
 conv with a load hook that forms the operand tile and an epilogue hook,
-on two main loops: the tensor cores' (``csrc/conv3x3_tc.cuh``, wgmma,
-the f32 operand as hi + lo bf16; kernels 18, 19, 21) and the CUDA cores'
-(``csrc/conv3x3_common.cuh``, f32 FMAs; kernel 20):
+on one main loop on the tensor cores (``csrc/conv3x3_tc.cuh``, wgmma;
+an f32 operand as hi + lo bf16, kernel 20's bf16 dy as it is):
 
 - kernel 18, :func:`conv3x3_dx` (``csrc/conv3x3_dx.cu``; plain version
   :func:`conv3x3_dx_reference`): the batch-norm backward's affine
@@ -36,11 +35,11 @@ package leaves them to XLA.
 A wrapper checks dtype (fp32 or bf16, one dtype for the activations and
 weights, fp32 affines), shape and contiguity.  CPU tensors then take the
 plain version; CUDA tensors launch the kernel or raise (channels must be
-multiples of 64, tensors 16-byte aligned); the tensor-core kernels take
-fp32 weights as hi and lo bf16 planes (:func:`_tc_weights`).  Each
-wrapper counts its launches in ``.launches``.  The gates below are the
-JAX module's, copied as they are, so the port dispatches — and launches
-— where the JAX package does; their VMEM terms are a TPU budget.
+multiples of 64, tensors 16-byte aligned); the kernels take fp32 weights
+as hi and lo bf16 planes (:func:`_tc_weights`).  Each wrapper counts its
+launches in ``.launches``.  The gates below are the JAX module's, copied
+as they are, so the port dispatches — and launches — where the JAX
+package does; their VMEM terms are a TPU budget.
 """
 
 from __future__ import annotations
@@ -383,7 +382,7 @@ def conv3x3_fwd_bwd(dy, z, aff, w, relu: bool
     """Kernel 20, the backward of :func:`conv3x3_fwd`: dy ``[N, H, W,
     Cout]``, z ``[N, H, W, Cin]``, aff ``[2, Cin]``, w the forward
     weights → (dz, x ``[N, H, W, Cin]`` in z's dtype, dac ``[2, Cin]``
-    f32 = (dA, dC))."""
+    f32 = (dA, dC)).  The kernel multiplies on the tensor cores."""
     n, h, ww, cin, cout, dt = _check_conv(z, w)
     for name, x, shape, dtype in (("dy", dy, (n, h, ww, cout), dt),
                                   ("z", z, z.shape, dt),
@@ -396,9 +395,9 @@ def conv3x3_fwd_bwd(dy, z, aff, w, relu: bool
     part, dac = _parts(n, h, ww, cin, z.device)
     if not z.numel():
         return dz, x, dac.zero_()
+    wt = _tc_weights(_flipped(w))
     _launch("conv3x3_fwd_bwd",
-            [t.data_ptr() for t in (dy, z, aff, _flipped(w), dz, x, part,
-                                    dac)],
+            [t.data_ptr() for t in (dy, z, aff, wt, dz, x, part, dac)],
             (n, h, ww, cin, cout, int(relu), int(dt == torch.bfloat16)),
             z.device)
     conv3x3_fwd_bwd.launches += 1

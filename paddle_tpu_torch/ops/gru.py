@@ -23,7 +23,8 @@ one GRU direction in one persistent cooperative launch, except the last
   persistent cooperative grid, two grid barriers a step; their products
   take only the rows valid at each step (a padded step keeps h, its
   residue is written as 0 and its dxw is exact zeros), and so does the
-  dW product.
+  dW product, which runs on the tensor cores (``csrc/dw_wg.cuh``: the f32
+  operands as hi + lo bf16, three passes).
 
 Gate layout (u, r, c), w_gates ``[H, 2H]`` (u | r), w_cand ``[H, H]``;
 the reset gate applies before the candidate product: c = tanh(x_c +
@@ -45,7 +46,8 @@ raise — a shape the kernel's tier does not serve (:func:`fused_tier`)
 raises too, never falls back.  Each wrapper counts its launches in
 ``.launches``.
 
-Precision: the kernels compute in fp32, whatever the policy.  The
+Precision: the kernels compute in fp32, whatever the policy (kernel 17's
+products as three bf16 passes of the f32 operands' hi and lo parts).  The
 public functions cast xw to fp32 before the kernels (a bf16 xw converts
 exactly), so autograd returns dxw in xw's dtype, as ``_gru_core_bwd``
 and ``_gru_core_blocked_bwd`` cast dxw to xw's dtype
@@ -76,8 +78,9 @@ MAX_BLOCKED_HIDDEN = 26754
 # [128, 68] tiles and the k-group partial sums
 _TILE_FLOATS, _RED_FLOATS = 3 * 128 * 68, 8 * 128 * 4
 # blocked tier: 3 staging buffers of (128 rows + at most 32 columns) x 68
-# floats (forward and backward tiles, GruTile<16>), dW 3 x 32 x (132 + 132)
-_BLOCKED_FLOATS = (3 * 160 * 68, 3 * 32 * 264)
+# floats (forward and backward tiles, GruTile<16>); dW 1 KB of alignment
+# and 3 stages of four [64, 128] bf16 planes (csrc/dw_wg.cuh)
+_BLOCKED_FLOATS = (3 * 160 * 68, (1024 + 3 * 4 * 64 * 128 * 2) // 4)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -103,7 +106,7 @@ def fused_tier(b: int, h: int, sms: int = SM_COUNT) -> Optional[str]:
       ``--fused_rnn_hblock`` (default on).  The blocked kernels stride
       over their tiles with as many CTAs as are co-resident, so any B
       and any SM count serve; each kernel's shared memory (at most
-      131 KB) is within one block's limit;
+      193 KB) is within one block's limit;
     - ``None`` otherwise.  No tiling gate in either tier: which shapes
       reach the kernels from ``gru_sequence`` is the reference's rule
       (``recurrent_ops.dispatch_tier``)."""

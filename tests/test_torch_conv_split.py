@@ -1,20 +1,21 @@
-"""The numbers of the tensor-core conv loop (kernels 18, 19 and 21),
-modelled on the CPU.
+"""The numbers of the tensor-core conv loop (kernels 18-21), modelled on
+the CPU.
 
 The loop (``paddle_tpu_torch/csrc/conv3x3_tc.cuh``) multiplies an f32
 operand -- x = act(A·z + C) for kernel 19, dz = A·dy + B·z + C for
-kernels 18 and 21 (the backward-data conv, with the flipped weights) --
-on bf16 tensor cores by carrying it as hi = bf16(x) and lo = bf16(x -
-hi): two passes, hi·w + lo·w, for bf16 weights; fp32 weights are split
-the same way and the products are hi·hi + hi·lo + lo·hi.  Here the same
-split feeds convolutions summed in float64, so only the split's rounding
-is measured, against the plain version summed in float64 and with
-``chip_smoke.py``'s phase-3d tolerance (``CONV_RTOL`` of max|ref| + 1e-6,
-plus ``CONV_BF16_ULPS`` bf16 ulps for bf16 outputs), on every output
-(kernel 21's dz1, x1 and channel sums come from the modelled t).  The
-card adds the tensor cores' own f32 accumulation, which phase 3d
-measures.  A single bf16 rounding of the operand must miss the
-tolerance: that is why the loop takes two passes.
+kernels 18 and 21, dy for kernel 20 (the backward-data convs, with the
+flipped weights) -- on bf16 tensor cores by carrying it as hi = bf16(x)
+and lo = bf16(x - hi): two passes, hi·w + lo·w, for bf16 weights; fp32
+weights are split the same way and the products are hi·hi + hi·lo +
+lo·hi.  Kernel 20's bf16 dy is exact in bf16 (lo ≡ 0): one pass.  Here
+the same split feeds convolutions summed in float64, so only the split's
+rounding is measured, against the plain version summed in float64 and
+with ``chip_smoke.py``'s phase-3d tolerance (``CONV_RTOL`` of max|ref| +
+1e-6, plus ``CONV_BF16_ULPS`` bf16 ulps for bf16 outputs), on every
+output (kernel 20's and 21's dz, x and channel sums come from the
+modelled t).  The card adds the tensor cores' own f32 accumulation,
+which phase 3d measures.  A single bf16 rounding of an f32 operand must
+miss the tolerance: that is why the loop takes two passes.
 
 The halo gather map the loop uses (``ops.conv.halo_gather_map``, the
 kernel's index arithmetic in plain torch) must reproduce ``F.conv2d``'s
@@ -155,6 +156,41 @@ def test_bn_bwd_split_meets_phase_3d_tolerance(kernel, case, dtype):
         assert ratio_once > 10.0, (relu, ratio_once)
         if kernel == "dx":
             break          # kernel 18 has no activation
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("case", CASES,
+                         ids=["x".join(map(str, c[:5])) + f"+{c[5]}"
+                              for c in CASES])
+def test_fwd_bwd_split_meets_phase_3d_tolerance(case, dtype):
+    """Kernel 20 multiplies dy as it is.  bf16 dy has lo ≡ 0, so its one
+    pass is the exact product; fp32 dy as hi + lo with hi and lo weights
+    (three passes) keeps every output (dz, x, dA, dC) within 0.75 of
+    phase 3d's tolerance, and a single rounding of dy misses it by more
+    than 10 times."""
+    n, h, w, cin, cout, c_off = case
+    seed = 80 + CASES.index(case)
+    z, aff, wt = _case(*case, dtype, seed=seed)
+    dy, _, _ = _bn_case(n, h, w, cout, c_off, dtype, seed=seed + 100)
+    for relu in (True, False):
+        ref = C.conv3x3_fwd_bwd_reference(dy, z, aff, wt, relu, F64)
+
+        def model(passes):
+            t = _passes(_dgrad, dy.float(), wt, passes)
+            return C._affine_bwd(t, z, aff, relu)
+        if dtype == torch.bfloat16:
+            assert not _split(dy.float())[1].any()
+            one = model(1)
+            for a, b in zip(one, model(2)):
+                assert torch.equal(a, b)
+            _, ratio = conv_error(one, ref)
+            assert ratio <= 0.75, (relu, ratio)
+        else:
+            _, ratio = conv_error(model(2), ref)
+            assert ratio <= 0.75, (relu, ratio)
+            _, once = conv_error(model(1), ref)
+            assert once > 10.0, (relu, once)
 
 
 def _gathered_conv(x, w):

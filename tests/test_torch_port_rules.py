@@ -354,13 +354,14 @@ def test_conv_card_path_rejects_channels_off_the_tile(monkeypatch):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "fp32"])
-@pytest.mark.parametrize("name,pos", [("fwd", 2), ("dx", 3), ("chain", 5)])
+@pytest.mark.parametrize("name,pos", [("fwd", 2), ("dx", 3), ("chain", 5),
+                                      ("fwd_bwd", 3)])
 def test_conv_card_path_hands_tc_weights(monkeypatch, name, pos, dtype):
-    """Kernels 19, 18 and 21 run on the tensor-core loop: on CUDA their
-    wrappers hand it the weights -- the forward weights for 19, the
-    flipped, I/O-transposed ones for 18 and 21 -- as bf16, or for fp32
-    as hi and lo bf16 planes [2, 3, 3, K, N].  The device test and the
-    launch are monkeypatched so the CPU reaches the launch."""
+    """Kernels 19, 18, 21 and 20 run on the tensor-core loop: on CUDA
+    their wrappers hand it the weights -- the forward weights for 19, the
+    flipped, I/O-transposed ones for 18, 20 and 21 -- as bf16, or for
+    fp32 as hi and lo bf16 planes [2, 3, 3, K, N].  The device test and
+    the launch are monkeypatched so the CPU reaches the launch."""
     monkeypatch.setattr(tconv, "_on_card", lambda tensors: True)
     monkeypatch.setattr(_CONV[name], "launches", 0)
     handed, launched = [], []

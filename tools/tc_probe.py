@@ -1,30 +1,38 @@
 #!/usr/bin/env python3
 """Check and time the tensor-core kernels of the port on one GPU, alone:
-kernels 18, 19 and 21 (``conv3x3_dx``, ``conv3x3_fwd``,
-``conv3x3_chain_bwd`` on the wgmma loop of ``csrc/conv3x3_tc.cuh``) and
+kernels 18-21 (``conv3x3_dx``, ``conv3x3_fwd``, ``conv3x3_fwd_bwd``,
+``conv3x3_chain_bwd`` on the wgmma loop of ``csrc/conv3x3_tc.cuh``),
 kernels 1-train and 2 (``flash_fwd`` / ``flash_fwd_legacy``, bf16 on
-wgmma).
+wgmma) and kernel 17 (``gru_dw_blocked`` on the wgmma dW tile of
+``csrc/dw_wg.cuh``).
 
-    python3 tools/tc_probe.py [--only conv|flash] [--full] [--time]
-                              [--patch NAME ...]
+    python3 tools/tc_probe.py [--only conv|flash|gru_dw ...] [--full]
+                              [--time] [--patch NAME ...] [--csrc DIR ...]
 
 Builds the port's kernels (``paddle_tpu_torch.ops._build``) and prints
 what ptxas reports for their sources (and for ``flash_bwd_dq`` and
-``flash_bwd_dkv``, kernels 3-6 on the same wgmma pieces), then holds each kernel against its
-plain version on a few small cases, bf16 and fp32 for the convs (every
-case reported, none stopping the run: a layout fault shows as a pattern
-of ratios; the cases include W 140, the conv loop's band mode, and
-pixel counts off the 128-pixel tile).  ``--full`` adds
-``chip_smoke.py``'s phases 3d, 3g and 3h (all cases, their tolerances);
-``--time`` its phase-5 timings of these kernels at the main paths'
-shapes (kernels 18, 19, 21 at the four ResNet-50 stages beside
-``F.conv2d`` / ``conv2d_input``; kernels 1-train and 2 beside SDPA).
-``--patch NAME`` (repeatable) times a knock-out of the sources
-(``PATCHES``: a copy of ``csrc`` with one part of the work removed,
-whose results are wrong by design and not checked) beside the unpatched
-kernels, in turns, at the same shapes: for the convs ``conv_no_halo``,
-``conv_no_lo``, ``conv_no_mma`` (18, 19, 21), ``conv_no_dz_store`` (18,
-21), ``conv_no_epi_sums`` and ``conv_no_epi`` (21).  Prints the card's
+``flash_bwd_dkv``, kernels 3-6 on the same wgmma pieces), then holds
+each kernel against its plain version on a few small cases, bf16 and
+fp32 for the convs (every case and output reported, none stopping the
+run: a layout fault shows as a pattern of ratios; the cases include W
+140, the conv loop's band mode, and pixel counts off the 128-pixel
+tile; kernel 17's include partial tiles, H 520 and 640, and lengths 0,
+1 and T).  ``--full`` adds ``chip_smoke.py``'s phases 3d, 3g, 3h and 3f
+(all cases, their tolerances); ``--time`` its phase-5 timings of these
+kernels at the main paths' shapes (kernels 18-21 at the four ResNet-50
+stages beside ``F.conv2d`` / ``conv2d_input``; kernels 1-train and 2
+beside SDPA; kernels 15-17 at B 128, T 30, H 1024 beside
+``torch.matmul``).  ``--patch NAME`` (repeatable) times a knock-out of
+the sources (``PATCHES``: a copy of ``csrc`` with one part of the work
+removed, whose results are wrong by design and not checked) beside the
+unpatched kernels, in turns, at the same shapes: for the convs
+``conv_no_halo``, ``conv_no_lo``, ``conv_no_mma`` (18-21; 20's bf16 loop
+has no lo pass), ``conv_no_dz_store`` (18, 21), ``conv_no_epi_sums`` and
+``conv_no_epi`` (21); for kernel 17 ``gru_dw_no_lo`` (the hi*lo and
+lo*hi passes; the lo planes are still formed), ``gru_dw_no_split``,
+``gru_dw_no_mma``.  ``--csrc DIR`` (repeatable) times the kernels of
+another copy of ``csrc`` (an older version unpacked with ``git
+archive`` into a gitignored directory) the same way.  Prints the card's
 name and power limit.  Exits 1 when a check fails.
 """
 
@@ -42,13 +50,22 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONV_SMALL = [(1, 8, 8, 64, 64, 0.0), (2, 7, 7, 64, 64, 3.0),
               (1, 9, 13, 64, 128, 0.0), (2, 7, 7, 128, 64, 0.0),
               (1, 3, 140, 64, 64, 1.0), (2, 3, 140, 64, 128, -1.0)]
+#: kernel 17: (B, T, H, lengths) -- partial tiles at H 520 and 640,
+#: the scalar staging at H 514 (H % 4 != 0), lengths 0, 1 and T, every
+#: step valid at the main shape
+GRU_DW_SMALL = [(8, 12, 640, [12, 0, 1, 12, 5, 1, 9, 3]),
+                (16, 7, 520, [7, 0, 1] + [1 + i % 7 for i in range(13)]),
+                (3, 5, 640, [5, 1, 3]), (5, 6, 514, [6, 0, 1, 6, 3]),
+                (128, 30, 1024, [30] * 128)]
 FLASH_SMALL = [(1, 128, 1, 64, False, None), (1, 128, 1, 64, True, None),
                (2, 200, 2, 64, True, [200, 77]), (1, 256, 2, 32, True, None),
                (1, 256, 2, 128, False, [256]), (2, 384, 2, 64, False,
                                                 [384, 65])]
 
 
-_TC_CONV = ("conv3x3_fwd", "conv3x3_dx", "conv3x3_chain_bwd")
+_TC_CONV = ("conv3x3_fwd", "conv3x3_dx", "conv3x3_fwd_bwd",
+            "conv3x3_chain_bwd")
+_TC_GRU = ("gru_dw_blocked",)
 _TC_FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 #: name -> (kernel stems, [(file, old text, new text)])
 PATCHES = {
@@ -68,7 +85,9 @@ PATCHES = {
         ("conv3x3_tc.cuh", "        wg::mma_rs_n64<1>(acc, fb[kk],",
          "        if (0) wg::mma_rs_n64<1>(acc, fb[kk],"),
         ("conv3x3_tc.cuh", "        wg::mma_rs_n64<1>(acc, fa[kk],",
-         "        if (0) wg::mma_rs_n64<1>(acc, fa[kk],")]),
+         "        if (0) wg::mma_rs_n64<1>(acc, fa[kk],"),
+        ("conv3x3_tc.cuh", "          wg::mma_rs_n64<1>(acc, f[kk],",
+         "          if (0) wg::mma_rs_n64<1>(acc, f[kk],")]),
     # kernels 18 and 21 without the dz store
     "conv_no_dz_store": (("conv3x3_dx", "conv3x3_chain_bwd"), [
         ("conv3x3_tc.cuh", "if (own[e] >= 0) {", "if (0) {"),
@@ -90,6 +109,23 @@ PATCHES = {
         "    epi_affine_bwd<T>(p, tot, st, red, p0, n0, wgi);",
         "    float x = 0.f;\n    for (int i = 0; i < 32; ++i) x += tot[i];\n"
         "    if (x == 1.2345e-30f) p.part[tid] = x;")]),
+    # kernel 17 without the hi*lo and lo*hi passes
+    "gru_dw_no_lo": (_TC_GRU, [
+        ("dw_wg.cuh", "wg::mma_ss_n128<1, 1>(acc, a_hi + kk * kStep, b_lo",
+         "if (0) wg::mma_ss_n128<1, 1>(acc, a_hi + kk * kStep, b_lo"),
+        ("dw_wg.cuh", "      wg::mma_ss_n128<1, 1>(acc, a_lo",
+         "      if (0) wg::mma_ss_n128<1, 1>(acc, a_lo")]),
+    # kernel 17 without splitting its copies (the planes hold raw f32)
+    "gru_dw_no_split": (_TC_GRU, [
+        ("dw_wg.cuh", "if (kVec && ch", "if (0 && ch")]),
+    # kernel 17 without its copies (the planes keep what they hold)
+    "gru_dw_no_copy": (_TC_GRU, [
+        ("dw_wg.cuh", "    cp_async16_l1(h, ok0 ? src + c : any, ok0);\n"
+         "    cp_async16_l1(l, ok1 ? src + c + 4 : any, ok1);", "")]),
+    # kernel 17 without products (the copies, splits, sums and stores stay)
+    "gru_dw_no_mma": (_TC_GRU, [
+        ("dw_wg.cuh", "      wg::mma_ss_n128<1, 1>(acc,",
+         "      if (0) wg::mma_ss_n128<1, 1>(acc,")]),
     # flash forward without exponentials
     "flash_no_exp": (("flash_fwd",), [(
         "flash_common.cuh",
@@ -108,28 +144,33 @@ PATCHES = {
 }
 
 
-def build_patch(name):
-    """Build the knock-out ``name`` from a patched copy of csrc; returns
+def build_variant(variant):
+    """Build a variant, ``(name, csrc dir, edits, stems)``; returns
     (kernel stems, {symbol: ctypes function})."""
-    from paddle_tpu_torch.ops import _build
-    from probe_build import build_variant
-    stems, edits = PATCHES[name]
-    fns, _ = build_variant(os.path.join(ROOT, "build", "tc_probe", name),
-                           _build.CSRC_DIR, edits, stems)
+    from probe_build import build_variant as build
+    name, src, edits, stems = variant
+    fns, ptxas = build(os.path.join(ROOT, "build", "tc_probe", name), src,
+                       edits, stems)
+    for stem in stems:
+        regs = [ln.strip() for ln in ptxas[stem].splitlines()
+                if "registers" in ln or "arning" in ln]
+        print(f"  built {name}/{stem}: {regs}", flush=True)
     return stems, fns
 
 
-def time_patches(dev, cs, names):
-    """Each knock-out beside the unpatched kernel, in turns (repo, the
-    knock-outs, then in reverse): kernels 18, 19, 21 at the four
-    ResNet-50 stages (bf16), or kernels 1-train (non-causal) and 2
-    (causal) at the transformer's shape."""
+def time_variants(dev, cs, variants):
+    """Each variant (a knock-out or another csrc) beside the repository's
+    kernels, in turns (repo, the variants, then in reverse): kernels
+    18-21 at the four ResNet-50 stages (bf16), kernels 1-train
+    (non-causal) and 2 (causal) at the transformer's shape, kernel 17 at
+    B 128, T 30, H 1024 (every step valid)."""
     import torch
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import attention as A
-    from paddle_tpu_torch.ops import conv as C
-    with concurrent.futures.ThreadPoolExecutor(len(names)) as ex:
-        built = dict(zip(names, ex.map(build_patch, names)))
+    from paddle_tpu_torch.ops import gru as G
+    names = [v[0] for v in variants]
+    with concurrent.futures.ThreadPoolExecutor(len(variants)) as ex:
+        built = dict(zip(names, ex.map(build_variant, variants)))
     real = _build.kernel
     stems = set().union(*(built[n][0] for n in names))
     calls = {}
@@ -149,9 +190,24 @@ def time_patches(dev, cs, names):
             lambda: A.flash_fwd(q, k, v, None, None, False, win_q))
         calls[("flash_fwd", "2 causal")] = (
             lambda: A.flash_fwd_legacy(q, k, v, None, True))
+    if "gru_dw_blocked" in stems:
+        b, t, h = cs.S2S["B"], cs.S2S["T"], cs.S2S_WIDE_H
+        g = torch.Generator(device=dev).manual_seed(0)
+        args = (torch.randn(b, t, h, generator=g, device=dev),
+                torch.randn(b, h, generator=g, device=dev),
+                torch.randn(b, t, h, generator=g, device=dev),
+                torch.randn(b, t, 3 * h, generator=g, device=dev),
+                torch.ones((b, t), device=dev))
+        calls[("gru_dw_blocked", f"B {b} T {t} H {h}")] = (
+            lambda: G.gru_dw_blocked(*args))
+    def flat(out):
+        out = out if isinstance(out, tuple) else (out,)
+        return torch.cat([x.float().flatten() for x in out])
     order = ["repo"] + list(names)
-    for turn, variants in enumerate((order, order[::-1])):
-        for var in variants:
+    unpatched = {v[0] for v in variants if not v[2]}
+    want = {}
+    for turn, order_t in enumerate((order, order[::-1])):
+        for var in order_t:
             var_stems, fns = built.get(var, ((), {}))
             for (kstem, label), call in calls.items():
                 if var != "repo" and kstem not in var_stems:
@@ -160,16 +216,24 @@ def time_patches(dev, cs, names):
                                  else real(sym))
                 try:
                     ms = cs.time_ms(call, reps=5, rounds=3)
+                    out = flat(call()) if turn == 0 else None
                 finally:
                     _build.kernel = real
+                diff = ""
+                if var == "repo" and out is not None:
+                    want[(kstem, label)] = out
+                elif var in unpatched and out is not None:
+                    ref = want[(kstem, label)]
+                    diff = (f"; max |out - repo's| / max|repo's| "
+                            f"{((out - ref).abs().max() / ref.abs().max()).item():.2e}")
                 print(f"turn {turn} {var} {kstem} {label}: "
-                      f"{ms * 1e3:.2f} us", flush=True)
+                      f"{ms * 1e3:.2f} us{diff}", flush=True)
 
 
 def conv_small(dev, cs):
-    """Kernels 18, 19 and 21 on the small cases, bf16 and fp32, ReLU and
-    linear prologues, against their plain versions summed in float64;
-    each output's ratio is reported."""
+    """Kernels 18-21 on the small cases, bf16 and fp32, ReLU and linear
+    prologues, against their plain versions summed in float64; each
+    output's ratio is reported."""
     import torch
     ok = True
     for i, (n, h, w, cin, cout, c_off) in enumerate(CONV_SMALL):
@@ -191,6 +255,32 @@ def conv_small(dev, cs):
                               f"{e:.2e}/{r:.3f}" for e, r in parts),
                           flush=True)
                     ok = ok and ratio <= 1.0
+    return ok
+
+
+def gru_dw_small(dev, cs):
+    """Kernel 17 on ``GRU_DW_SMALL`` against its plain version, with
+    phase 3f's gradient tolerance; each gradient's ratio is reported."""
+    import torch
+    from paddle_tpu_torch.ops import gru as G
+    ok = True
+    for i, (b, t, h, lengths) in enumerate(GRU_DW_SMALL):
+        g = torch.Generator(device=dev).manual_seed(110 + i)
+        ln = torch.tensor(lengths, device=dev)
+        mask = (torch.arange(t, device=dev)[None, :] < ln[:, None]).float()
+        args = (torch.randn(b, t, h, generator=g, device=dev) * 0.5,
+                torch.randn(b, h, generator=g, device=dev) * 0.5,
+                torch.randn(b, t, h, generator=g, device=dev) * 0.5,
+                torch.randn(b, t, 3 * h, generator=g, device=dev)
+                * mask[..., None], mask)
+        got, want = G.gru_dw_blocked(*args), G.gru_dw_blocked_reference(*args)
+        cs.sync(dev)
+        parts = [cs.grad_errors({0: a}, {0: r}, cs.GRU_GRAD_ATOL,
+                                cs.GRU_GRAD_RTOL) for a, r in zip(got, want)]
+        print(f"  gru_dw_blocked B={b} T={t} H={h} lengths {min(lengths)}.."
+              f"{max(lengths)}: max err / ratio dW_gates, dW_cand "
+              + ", ".join(f"{e:.2e}/{r:.3f}" for e, r in parts), flush=True)
+        ok = ok and max(r for _, r in parts) <= 1.0
     return ok
 
 
@@ -220,11 +310,14 @@ def flash_small(dev, cs):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("conv", "flash"))
+    ap.add_argument("--only", action="append",
+                    choices=("conv", "flash", "gru_dw"))
     ap.add_argument("--full", action="store_true")
     ap.add_argument("--time", action="store_true")
     ap.add_argument("--patch", action="append", default=[],
                     choices=sorted(PATCHES))
+    ap.add_argument("--csrc", action="append", default=[],
+                    help="another kernel source directory to time")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -235,12 +328,14 @@ def main() -> int:
     from paddle_tpu_torch.core.device import resolve_device
     from paddle_tpu_torch.ops import _build
     dev = resolve_device("cuda")
+    cs.set_flags(use_bf16=False, bf16_activations=False, precision="fp32",
+                 fused_rnn_hblock=True)      # as chip_smoke.py's phases 3-3i
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True)
     print(f"card: {smi.stdout.strip()}", flush=True)
     _build.build_all()
-    for stem in _TC_CONV + ("conv3x3_fwd_bwd",) + _TC_FLASH:
+    for stem in _TC_CONV + _TC_FLASH + _TC_GRU:
         info = _build.build_info.get(stem, {})
         print(f"build {stem}: {info.get('seconds', 0.0):.2f} s", flush=True)
         for ln in info.get("ptxas", "").splitlines():
@@ -248,11 +343,14 @@ def main() -> int:
                                      "rror", "entry function")):
                 print(f"  {ln.strip()}", flush=True)
     ok = True
-    conv, flash = args.only in (None, "conv"), args.only in (None, "flash")
+    only = args.only or ("conv", "flash", "gru_dw")
+    conv, flash, gru = (m in only for m in ("conv", "flash", "gru_dw"))
     if conv:
         ok = conv_small(dev, cs) and ok
     if flash:
         ok = flash_small(dev, cs) and ok
+    if gru:
+        ok = gru_dw_small(dev, cs) and ok
     if not ok:
         print("tc_probe: a small case disagrees", flush=True)
         return 1
@@ -262,6 +360,8 @@ def main() -> int:
         if flash:
             cs.phase_flash_check(dev)
             cs.phase_legacy_check(dev)
+        if gru:
+            cs.phase_gru_blocked_check(dev)
     if args.time:
         launches = collections.defaultdict(dict)
         if conv:
@@ -269,8 +369,15 @@ def main() -> int:
         if flash:
             cs.phase_time_flash(dev, launches)
             cs.phase_time_legacy(dev, launches)
-    if args.patch:
-        time_patches(dev, cs, args.patch)
+        if gru:
+            cs.phase_time_gru_blocked(dev, launches)
+    stems = (_TC_CONV if conv else ()) + (_TC_FLASH[:1] if flash else ()) \
+        + (_TC_GRU if gru else ())
+    variants = [(name, _build.CSRC_DIR, PATCHES[name][1], PATCHES[name][0])
+                for name in args.patch]
+    variants += [(f"csrc{i}", d, [], stems) for i, d in enumerate(args.csrc)]
+    if variants:
+        time_variants(dev, cs, variants)
     print(f"card: {smi.stdout.strip()}", flush=True)
     return 0
 
