@@ -205,8 +205,9 @@ Phases (any failure exits nonzero, without the final ``ok`` line):
    share of the bound rate; kernels 18, 19 and 21 are bound by two bf16
    tensor-core passes (the f32 operand as hi + lo, ``CONV_BOUND_BASIS``),
    kernel 20 by one (its bf16 dy as it is), or by their bytes, whichever
-   is larger; kernel 17 by three bf16 passes (hi*hi + hi*lo + lo*hi of
-   its f32 operands, ``GRU_BOUND_BASIS``).
+   is larger; kernels 17, 11 and 12 by three bf16 passes (hi*hi + hi*lo
+   + lo*hi of their f32 operands, ``GRU_BOUND_BASIS``,
+   ``LSTM_BOUND_BASIS``).
 
 Phases 3b-4f are PR 2's H 512 phases and run in fp32 (``use_bf16``
 off), so their readings stay comparable.  The order of the run: 1-3f,
@@ -1153,7 +1154,8 @@ def phase_profile_train(trainer, feed):
     rows.sort(key=lambda r: -r[1])
     for key, us, n in rows[:14] + [
             r for r in rows[14:] if any(m in r[0] for m in PORT_KERNEL_MARKS)]:
-        log(f"    {us / 1e3:9.3f} ms  {n:6d} x  {key[:90]}")
+        log(f"    {us / 1e3:9.3f} ms ({us / 3e3:8.3f} a step)  {n:6d} x  "
+            f"{key[:90]}")
 
 
 def lstm_work(b, t, h, n_valid, backward):
@@ -1319,6 +1321,15 @@ def phase_blocked_check(dev):
     return errs
 
 
+#: the bound's basis of the blocked LSTM kernels: (passes, rate) -- 10
+#: multiplies f32 on the CUDA cores; 11 (the pull-back) and 12 multiply
+#: their f32 operands on the tensor cores as hi*hi + hi*lo + lo*hi, three
+#: bf16 passes (csrc/lstm_bwd_blocked.cu, csrc/dw_wg.cuh)
+LSTM_BOUND_BASIS = {"lstm_fwd_blocked": (1, FP32_FLOPS_PER_S),
+                    "lstm_bwd_blocked": (3, BF16_FLOPS_PER_S),
+                    "lstm_dw_blocked": (3, BF16_FLOPS_PER_S)}
+
+
 def blocked_work(name, b, t, h, n_valid):
     """(bytes, flops) of one call of a blocked kernel: each input read
     once, each output written once; the products of the valid row-steps
@@ -1339,7 +1350,9 @@ def blocked_work(name, b, t, h, n_valid):
 def phase_time_blocked(dev, launches):
     """Kernels 10-12 at the H 1280 main path's shapes (the bench feed's
     lengths), each against its plain version; torch.matmul of the dW
-    product as kernel 12's yardstick."""
+    product as kernel 12's yardstick; the bounds on the basis of
+    ``LSTM_BOUND_BASIS`` (11's and 12's at the fp32 rate too, in the
+    log only)."""
     import torch
     from paddle_tpu_torch.ops import lstm as L
     b, t, h = TRAIN_B, TRAIN_T, BLOCKED["hidden_size"]
@@ -1369,7 +1382,9 @@ def phase_time_blocked(dev, launches):
         ms = time_ms(lambda: fn(*args), reps=3, rounds=3)
         plain_ms = time_ms(lambda: plain(*args), reps=2, rounds=2)
         lib_ms = time_ms(lib, reps=3, rounds=3) if lib else None
-        b_ms, b_by = bound_ms(*blocked_work(name, b, t, h, n_valid))
+        n_bytes, n_flops = blocked_work(name, b, t, h, n_valid)
+        passes, rate = LSTM_BOUND_BASIS[name]
+        b_ms, b_by = bound_ms(n_bytes, passes * n_flops, rate)
         rows.append({"name": name, "route": "cuda",
                      "source": f"paddle_tpu_torch/csrc/{name}.cu",
                      "replaces": f"paddle_tpu/ops/pallas_lstm.py:{line}",
@@ -1381,9 +1396,13 @@ def phase_time_blocked(dev, launches):
     for r in rows:
         lib = "" if r["library_ms"] is None else \
             f", torch.matmul {r['library_ms'] * 1e3:.2f} us"
+        passes, rate = LSTM_BOUND_BASIS[r["name"]]
+        fp32_ms = bound_ms(*blocked_work(r["name"], b, t, h, n_valid))[0]
         log(f"  {r['name']}: {r['ms'] * 1e3:.2f} us (plain "
             f"{r['plain_ms'] * 1e3:.2f} us{lib}, bound "
-            f"{r['bound_ms'] * 1e3:.3f} us by {r['bound_by']}); {r['shape']}")
+            f"{r['bound_ms'] * 1e3:.3f} us by {r['bound_by']}, {passes} "
+            f"pass(es) at {rate * 1e-12:.0f} TFLOP/s; at the fp32 rate "
+            f"{fp32_ms * 1e3:.3f} us); {r['shape']}")
     return rows
 
 

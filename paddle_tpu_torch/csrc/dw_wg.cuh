@@ -1,8 +1,9 @@
 // The blocked tiers' dW product on Hopper's tensor cores (wgmma.cuh):
 // dW[k, c] = sum over the listed valid rows j of arow(j)[k] * brow(j)[c],
 // f32 in and out, one CTA of lstm::kThreads (two warpgroups) per (128 x 128
-// output tile, split of the row list).  Kernel 17 (gru_dw_blocked.cu) runs
-// on it; it takes the row accessors of dw_tile_blocked (lstm_common.cuh).
+// output tile, split of the row list).  Kernels 12 (lstm_dw_blocked.cu)
+// and 17 (gru_dw_blocked.cu) run on it, each with its own row accessors
+// (arow(j), brow(j): pointers to listed row j's K and C values).
 //
 // Numbers.  The contract sums f32 products in f32.  Each f32 operand is
 // carried as hi = bf16(x) and lo = bf16(x - hi), and a product as
@@ -54,7 +55,37 @@ constexpr int kStage = 4 * kPlane;         // A hi, A lo, B hi, B lo
 constexpr int kStages = 3;
 constexpr int kAhead = kStages - 1;        // chunks whose copies are in flight
 constexpr size_t kSmemBytes = 1024 + (size_t)kStages * kStage;
+constexpr int kMaxSplit = 4;               // splits of the row list
 }  // namespace dwg
+
+// Splits of the row list for n_tiles output tiles of `kernel` (a dW
+// kernel on dw_tile_wg: kThreads threads, dwg::kSmemBytes of shared
+// memory) on the current card: the fewest that minimise rounds of the
+// co-resident CTAs per unit of work; 0 on a CUDA error.
+template <typename K>
+__host__ inline int dw_blocked_splits(K kernel, long n_tiles) {
+  constexpr size_t smem = dwg::kSmemBytes;
+  if (cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess)
+    return 0;
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                    kThreads, smem) !=
+          cudaSuccess)
+    return 0;
+  const long slots = (long)per_sm * sms;
+  if (slots < 1) return 1;
+  int best = 1;
+  for (int s = 2; s <= dwg::kMaxSplit; ++s)  // rounds / s < rounds_best / best
+    if ((n_tiles * s + slots - 1) / slots * best <
+        (n_tiles * best + slots - 1) / slots * s)
+      best = s;
+  return best;
+}
 
 // 16 bytes from global to shared memory, asynchronously, through L1 (.ca:
 // the two halves of a group share 32-byte sectors, so the second copy

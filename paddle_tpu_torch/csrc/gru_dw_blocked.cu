@@ -83,7 +83,7 @@ __global__ void __launch_bounds__(kThreads, 1) gru_dw_blocked_kernel(
 extern "C" int gru_dw_blocked_splits(int B, int T, int H) {
   int n_g;
   return dw_blocked_splits(gru_dw_blocked_kernel<true>,
-                           gru_dw_tiles(H, &n_g), dwg::kSmemBytes);
+                           gru_dw_tiles(H, &n_g));
 }
 
 // dw: [H, 3H] floats, dW_gates [H, 2H] then dW_cand [H, H]; part: n_split
@@ -94,7 +94,7 @@ extern "C" int gru_dw_blocked(const float* hseq, const float* h0,
                               const float* mask, int* rows, float* part,
                               float* dw, int B, int T, int H, int n_split,
                               cudaStream_t stream) {
-  if (n_split < 1 || n_split > dwb::kMaxSplit)
+  if (n_split < 1 || n_split > dwg::kMaxSplit)
     return (int)cudaErrorInvalidValue;
   auto kernel = H % 4 == 0 ? gru_dw_blocked_kernel<true>
                            : gru_dw_blocked_kernel<false>;

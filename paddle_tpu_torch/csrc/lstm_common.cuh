@@ -16,11 +16,13 @@
 // the [.., 4H] arrays.  Units past H (the last CTA when H % U != 0) are
 // zero-filled and never written.
 //
-// The products run on CUDA cores in fp32 (no tensor cores: TF32 would
-// change the numbers).  Shared memory serves one 32-bit word per bank
-// per cycle, so a product is register-blocked: each thread keeps a 4 x 4
-// block of sums and reads its operands as float4, 2 shared loads per
-// 16 FMAs.
+// The products here run on CUDA cores in fp32 (TF32 would change the
+// numbers).  Shared memory serves one 32-bit word per bank per cycle, so
+// a product is register-blocked: each thread keeps a 4 x 4 block of sums
+// and reads its operands as float4, 2 shared loads per 16 FMAs.  The
+// blocked tiers' dW products (dw_wg.cuh) and the blocked LSTM backward's
+// pull-back (lstm_bwd_blocked.cu) run on the tensor cores instead, their
+// f32 operands as hi + lo bf16 in three passes.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -287,9 +289,11 @@ __device__ __forceinline__ void dw_tile(ARow arow, BRow brow, int R, int K,
 // tiles (kBRows batch rows x COLS columns) with a stride of the grid, so
 // any B and H run on any grid size, and a tile's result does not depend
 // on the grid.  Nothing stays resident: both operands of every product
-// stream from L2.  A CTA has kBThreads threads in KG k-groups; the
-// launcher picks, among the tile widths below, the one that spreads a
-// step's work most evenly over the co-resident CTAs (tile_cost).
+// stream from L2.  The CUDA-core tiles below serve the forwards (kernels
+// 10 and 15) and the GRU backward (16): a CTA has kBThreads threads in
+// KG k-groups; the launcher picks, among the tile widths below, the one
+// that spreads a step's work most evenly over the co-resident CTAs
+// (tile_cost).  The LSTM backward (11) has its own tensor-core tiles.
 constexpr int kBThreads = 512;   // threads of a blocked-tier CTA
 constexpr int kBRows = 128;      // batch rows of a blocked-tier tile
 constexpr int kBStages = 3;      // k tiles in flight: 2 loading, 1 in use
@@ -521,92 +525,6 @@ __global__ void __launch_bounds__(kCompactThreads)
   if (tid == kCompactThreads - 1) rows[R] = counts[tid];
 }
 
-// The LSTM blocked tier's dW product (lstm_dw_blocked.cu) on CUDA cores:
-// dW[k, c] = sum over the listed valid rows j of arow(j)[k] * brow(j)[c],
-// one CTA of kThreads per (kGK x kGC output tile, split of the row list).
-// (The GRU's, gru_dw_blocked.cu, runs on the tensor cores: dw_wg.cuh.)
-namespace dwb {
-constexpr int kGR = 32;                  // rows per streamed chunk
-constexpr int kGK = 128, kGC = 128;      // output tile: kGK x kGC
-constexpr int kGAS = kGK + 4, kGBS = kGC + 4;      // padded chunk rows
-constexpr int kGStage = kGR * (kGAS + kGBS);  // one A chunk + one B chunk
-constexpr long kSmemFloats = (long)kStages * kGStage;
-constexpr int kMaxSplit = 4;             // splits of the row list
-}  // namespace dwb
-
-// One tile of that product over split `split` of `n_split` of the n listed
-// rows: dW rows k0 .. k0 + kGK (k < K), columns col0 .. col0 + kGC (c <
-// C), written at dst[k * ldw + c].  The split's chunks of kGR rows stream
-// through a kStages-deep cp.async pipeline in gst (dwb::kSmemFloats
-// floats); thread (kb, cb) sums rows 4 kb .. + 3 and 64 + 4 kb .. + 3 by
-// columns 4 cb .. + 3 and 64 + 4 cb .. + 3 (4 float4 shared loads per 64
-// FMAs) over the split's rows in order, so the result has the same bits
-// on every run.
-template <class ARow, class BRow>
-__device__ __forceinline__ void dw_tile_blocked(ARow arow, BRow brow, int n,
-                                                int split, int n_split,
-                                                int K, int C, int k0,
-                                                int col0, float* dst,
-                                                long ldw, float* gst,
-                                                bool vec, const float* any) {
-  using dwb::kGR, dwb::kGK, dwb::kGC, dwb::kGAS, dwb::kGBS, dwb::kGStage;
-  const int tid = threadIdx.x;
-  const int nch = (n + kGR - 1) / kGR;
-  const int ch0 = (int)((long)nch * split / n_split);
-  const int ch1 = (int)((long)nch * (split + 1) / n_split);
-  const int kb = tid % 16, cb = tid / 16;
-  auto fetch_chunk = [&](int ch) {
-    float* st = gst + ((ch - ch0) % kStages) * kGStage;
-    const int j0 = ch * kGR;
-    auto a = [&](int r) -> const float* {
-      return j0 + r < n ? arow(j0 + r) : nullptr;
-    };
-    auto b = [&](int r) -> const float* {
-      return j0 + r < n ? brow(j0 + r) : nullptr;
-    };
-    stage(st, kGAS, a, kGR, kGK, k0, K, vec, any);
-    stage(st + kGR * kGAS, kGBS, b, kGR, kGC, col0, C, vec, any);
-  };
-  float acc[8][8] = {};
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (ch0 + s < ch1) fetch_chunk(ch0 + s);
-    cp_commit();
-  }
-  for (int ch = ch0; ch < ch1; ++ch) {
-    cp_wait<kStages - 2>();
-    __syncthreads();
-    if (ch + kStages - 1 < ch1) fetch_chunk(ch + kStages - 1);
-    cp_commit();
-    const float* ga = gst + ((ch - ch0) % kStages) * kGStage;
-    const float* gb = ga + kGR * kGAS;
-#pragma unroll 2
-    for (int r = 0; r < kGR; ++r) {
-      const float* ar = ga + r * kGAS;
-      const float* br = gb + r * kGBS;
-      const float4 a0 = *reinterpret_cast<const float4*>(ar + 4 * kb);
-      const float4 a1 = *reinterpret_cast<const float4*>(ar + 64 + 4 * kb);
-      const float4 v0 = *reinterpret_cast<const float4*>(br + 4 * cb);
-      const float4 v1 = *reinterpret_cast<const float4*>(br + 64 + 4 * cb);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) acc[i][c] += av[i] * bv[c];
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int k = k0 + (i < 4 ? 4 * kb + i : 64 + 4 * kb + i - 4);
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int col = col0 + (c < 4 ? 4 * cb + c : 64 + 4 * cb + c - 4);
-      if (k < K && col < C) dst[(long)k * ldw + col] = acc[i][c];
-    }
-  }
-}
-
 // dw[i] = part[0][i] + part[1][i] + ... (split order).
 __global__ void reduce_splits_kernel(const float* __restrict__ part,
                                      int n_split, long n, float* dw) {
@@ -618,41 +536,12 @@ __global__ void reduce_splits_kernel(const float* __restrict__ part,
   }
 }
 
-// Splits of the row list for n_tiles output tiles of `kernel` (kThreads
-// threads, smem bytes of shared memory: dw_tile_blocked's by default) on
-// the current card: the fewest that minimise rounds of the co-resident
-// CTAs per unit of work; 0 on a CUDA error.
-template <typename K>
-__host__ inline int dw_blocked_splits(
-    K kernel, long n_tiles,
-    size_t smem = (size_t)dwb::kSmemFloats * sizeof(float)) {
-  if (cudaFuncSetAttribute(kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem) != cudaSuccess)
-    return 0;
-  int dev = 0, sms = 0, per_sm = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                    kThreads, smem) !=
-          cudaSuccess)
-    return 0;
-  const long slots = (long)per_sm * sms;
-  if (slots < 1) return 1;
-  int best = 1;
-  for (int s = 2; s <= dwb::kMaxSplit; ++s)  // rounds / s < rounds_best / best
-    if ((n_tiles * s + slots - 1) / slots * best <
-        (n_tiles * best + slots - 1) / slots * s)
-      best = s;
-  return best;
-}
-
-// CTAs of `kernel` (kBThreads threads, smem_floats of shared memory) that
+// CTAs of `kernel` (`threads` threads, smem_floats of shared memory) that
 // can be co-resident on the current card; 0 when the card has no
 // cooperative launch, a cudaError_t as a negative number on failure.
 template <typename K>
-__host__ inline long resident_ctas(K kernel, long smem_floats) {
+__host__ inline long resident_ctas(K kernel, long smem_floats,
+                                   int threads = kBThreads) {
   const size_t smem = (size_t)smem_floats * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -662,7 +551,7 @@ __host__ inline long resident_ctas(K kernel, long smem_floats) {
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kBThreads, smem);
+                                                      threads, smem);
   if (err != cudaSuccess) return -(long)err;
   return coop ? (long)per_sm * sms : 0;
 }

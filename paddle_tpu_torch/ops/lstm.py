@@ -19,15 +19,18 @@ last (an ordinary product):
   :func:`lstm_dw_blocked` (``csrc/lstm_dw_blocked.cu``; plain
   :func:`lstm_dw_blocked_reference`); the peephole grads are plain
   reductions over dxw (:func:`peephole_grads`), as in the TPU tier.
-  Forward and backward walk tiles of 128 batch rows with a persistent
-  cooperative grid, one (forward) or two (backward) grid barriers a
-  step; the launcher picks the tile width that spreads a step over the
-  co-resident CTAs.  Their products take only the rows valid at each
-  step (a padded step keeps its state; its dgates are exact zeros, and
-  the forward writes its gates as 0).  The backward cuts the pull-back
-  dgates_t @ w_hh^T by gate and adds the four parts in gate order.  The
-  dW product skips the padded steps too and splits its rows when the
-  tiles would leave a round of CTAs mostly idle.
+  Forward and backward walk tiles with a persistent cooperative grid,
+  one (forward) or two (backward) grid barriers a step.  Their products
+  take only the rows valid at each step (a padded step keeps its state;
+  its dgates are exact zeros, and the forward writes its gates as 0).
+  The forward's tiles of 128 batch rows run on CUDA cores in fp32.  The
+  backward's pull-back dgates_t @ w_hh^T and the dW product run on the
+  tensor cores with their f32 operands as hi + lo bf16 (three passes,
+  each 64-deep chunk's sums added in f32): the backward over bf16 planes
+  it writes itself (w_hh's once, each step's dgates in compacted row
+  order), cut into K slices (:func:`bwd_blocked_slices`) summed in
+  order; the dW product over the listed valid rows, split when its tiles
+  would leave a round of CTAs mostly idle.
 
 :class:`_LstmCore` and :class:`_LstmCoreBlocked` (``torch.autograd.
 Function``) launch the forward kernel in their forward and the backward
@@ -45,8 +48,9 @@ take the plain version; CUDA tensors launch the kernel or raise — a
 shape the kernel's tier does not serve (:func:`fused_tier`) raises too,
 never falls back.  Each wrapper counts its launches in ``.launches``.
 
-Precision: the kernels compute in fp32, whatever the policy.  The
-public functions cast their inputs to fp32 before the kernels (a bf16
+Precision: the kernels compute in fp32, whatever the policy (kernels 11
+and 12's products as three bf16 passes of the f32 operands' hi and lo
+parts).  The public functions cast their inputs to fp32 before the kernels (a bf16
 xw converts exactly), so autograd returns dxw in xw's dtype, as the JAX
 kernels read xw in its dtype, compute the gates in f32 and cast dxw
 back (``pallas_lstm.py:422,677``).
@@ -75,9 +79,25 @@ MAX_HIDDEN = 512
 MAX_BLOCKED_HIDDEN = 23170
 # shared-memory pieces of csrc/lstm_common.cuh and the kernels, in floats
 _TILE_FLOATS, _RED_FLOATS, _DW_FLOATS = 3 * 128 * 68, 8 * 128 * 4, 3 * 32 * 200
-# blocked tier: 3 staging buffers of (128 rows + at most 64 columns) x 68
-# floats (forward and backward tiles), dW 3 x 32 x (132 + 132)
-_BLOCKED_FLOATS = (3 * 192 * 68, 3 * 32 * 264)
+# blocked tier, in bytes: the forward's 3 staging buffers of (128 rows +
+# at most 64 columns) x 68 floats; the backward's and the dW tile's rings
+# (csrc/lstm_bwd_blocked.cu, csrc/dw_wg.cuh), 3 stages of four 16 KB bf16
+# planes and 1 KB for their alignment
+_BLOCKED_BYTES = (4 * 3 * 192 * 68, 1024 + 3 * 4 * 16384)
+#: The blocked backward's pull-back: tiles of 128 compacted rows x 128
+#: units x one slice of K = 4H in chunks of 64 (csrc/lstm_bwd_blocked.cu).
+BWD_TILE_ROWS, BWD_TILE_UNITS, BWD_CHUNK = 128, 128, 64
+
+
+def bwd_blocked_slices(b: int, h: int, sms: int = SM_COUNT) -> int:
+    """K slices of the blocked backward's pull-back at (b, h): as many
+    as keep the tiles of all 128-row blocks within one CTA an SM, each
+    slice ceil(chunks / slices) chunks of 64, none empty (at B 128, H
+    1280 on 132 SMs: 10 unit blocks x 12 slices of 7 chunks)."""
+    chunks = -(-4 * h // BWD_CHUNK)
+    blocks = -(-b // BWD_TILE_ROWS) * -(-h // BWD_TILE_UNITS)
+    per = -(-chunks // max(1, min(chunks, sms // blocks)))
+    return -(-chunks // per)
 
 
 def units_per_cta(h: int, sms: int = SM_COUNT) -> Optional[int]:
@@ -106,7 +126,7 @@ def fused_tier(b: int, h: int, sms: int = SM_COUNT) -> Optional[str]:
       ``--fused_rnn_hblock`` (default on).  The blocked kernels stride
       over their tiles with as many CTAs as are co-resident, so any B
       and any SM count serve; each kernel's shared memory (at most
-      157 KB) is within one block's limit;
+      193 KB) is within one block's limit;
     - ``None`` otherwise.  No tiling gate in either tier."""
     if b < 1 or h < 1:
         return None
@@ -116,7 +136,7 @@ def fused_tier(b: int, h: int, sms: int = SM_COUNT) -> Optional[str]:
             return None
         return "fused"
     if not FLAGS.get("fused_rnn_hblock") or h > MAX_BLOCKED_HIDDEN \
-            or sms < 1 or 4 * max(_BLOCKED_FLOATS) > SMEM_BYTES:
+            or sms < 1 or max(_BLOCKED_BYTES) > SMEM_BYTES:
         return None
     return "fused_blocked"
 
@@ -251,11 +271,15 @@ def _on_card(tensors) -> bool:
     return True
 
 
+def _sms(dev: torch.device) -> int:
+    """SMs of ``dev`` (a card), or of the H100 the tiers assume."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count \
+        if dev.type == "cuda" else SM_COUNT
+
+
 def _tier_on_card(b: int, h: int, dev: torch.device, want: str) -> None:
     """Raise unless ``fused_tier`` gives ``want`` for (b, h) on ``dev``."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count \
-        if dev.type == "cuda" else SM_COUNT
-    if fused_tier(b, h, sms) != want:
+    if fused_tier(b, h, _sms(dev)) != want:
         raise PaddleTpuError(
             f"the {want!r} LSTM kernels do not serve batch={b} hidden={h} "
             f"(fused: hidden <= {MAX_HIDDEN}, shared memory <= "
@@ -410,14 +434,22 @@ def lstm_bwd_blocked(gates, cseq, c0, mask, w_hh, checks, dy, dyc
     dc0 = torch.empty_like(c0)
     if gates.numel() == 0:
         return dxw, dh0.zero_(), dc0.zero_()
-    # per-(row, unit) scratch: (1-m) dh_tot, the dc carry and the
-    # recurrent pull-back by gate
+    dev = gates.device
+    n_sl = bwd_blocked_slices(b, hd, _sms(dev))
+    kp = -(-4 * hd // BWD_CHUNK) * BWD_CHUNK
+    # scratch: (1-m) dh_tot and the dc carry per (row, unit); the
+    # pull-back's sums by K slice; each step's row ranks and counts;
+    # w_hh's and a step's dgates' hi and lo bf16 planes (pitch kp)
     dhp = torch.empty_like(c0)
     dcc = torch.empty_like(c0)
-    part = torch.empty((4, b, hd), dtype=torch.float32, device=gates.device)
+    part = torch.empty((n_sl, b, hd), dtype=torch.float32, device=dev)
+    rank = torch.empty(t * b + t, dtype=torch.int32, device=dev)
+    wpl = torch.empty((2, hd, kp), dtype=torch.bfloat16, device=dev)
+    apl = torch.empty((2, b, kp), dtype=torch.bfloat16, device=dev)
     _launch("lstm_bwd_blocked",
-            [x.data_ptr() for x in args + (dxw, dh0, dc0, dhp, dcc, part)],
-            (b, t, hd), gates.device)
+            [x.data_ptr() for x in args + (dxw, dh0, dc0, dhp, dcc, part,
+                                           rank, wpl, apl)],
+            (b, t, hd, n_sl), dev)
     lstm_bwd_blocked.launches += 1
     return dxw, dh0, dc0
 

@@ -211,6 +211,40 @@ def test_blocked_lstm_wrappers_reject_bad_inputs(wrapper, make, pos, bad):
         wrapper(*args)
 
 
+def test_blocked_lstm_bwd_card_path_hands_its_scratch(monkeypatch):
+    """On CUDA the blocked backward (kernel 11) hands its kernel the
+    scratch it writes: the pull-back's sums by K slice [S, B, H] f32 (S
+    from ``bwd_blocked_slices``), each step's row ranks and counts (T*B
+    + T int32), w_hh's and a step's dgates' hi and lo bf16 planes [2, H,
+    Kp] and [2, B, Kp] (Kp = 4H rounded up to 64).  The device test and
+    the launch are monkeypatched so the CPU reaches the launch; nothing
+    is launched, and the wrapper's input checks still run first."""
+    b, t, h = 3, 4, 9
+    args = _lstm_bwd_blocked_args(b, t, h)
+    monkeypatch.setattr(tl, "_on_card", lambda tensors: True)
+    monkeypatch.setattr(tl, "fused_tier", lambda *a: "fused_blocked")
+    launched, made = [], []
+    real_empty = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda *a, **k: made.append(
+        (tuple(a[0]) if a and isinstance(a[0], tuple) else a, k["dtype"]))
+        or real_empty(*a, **k))
+    monkeypatch.setattr(tl, "_launch", lambda sym, ptrs, ints, dev:
+                        launched.append((sym, len(ptrs), ints)))
+    monkeypatch.setattr(tl.lstm_bwd_blocked, "launches", 0)
+    tl.lstm_bwd_blocked(*args)
+    s = tl.bwd_blocked_slices(b, h)
+    assert launched == [("lstm_bwd_blocked", 17, (b, t, h, s))]
+    assert tl.lstm_bwd_blocked.launches == 1
+    assert made == [((s, b, h), torch.float32), ((t * b + t,), torch.int32),
+                    ((2, h, 64), torch.bfloat16),
+                    ((2, b, 64), torch.bfloat16)]
+    bad = list(args)
+    bad[6] = bad[6].to(torch.bfloat16)
+    with pytest.raises(PaddleTpuError):
+        tl.lstm_bwd_blocked(*bad)
+    assert len(launched) == 1
+
+
 @pytest.mark.parametrize("wrapper,make,pos,bad", [
     (tl.lstm_fwd, _lstm_fwd_args, 0, lambda t: t.to(torch.bfloat16)),
     (tl.lstm_fwd, _lstm_fwd_args, 2,
