@@ -18,8 +18,9 @@ Phases (any failure exits nonzero, without the final ``ok`` line):
    max|ref| (the recurrence compounds rounding over T), at (B, T, H) =
    (8, 12, 128) forward and reversed with peepholes, boot state, a cell
    cotangent and lengths 0 and T; (5, 7, 96); (6, 9, 200), reversed,
-   where a CTA owns 2 units; (200, 5, 50), two row chunks and rows of
-   50 floats; (3, 1, 64); and (128, 100, 512) — through ``lstm_sequence``
+   where a forward CTA owns 2 units; (200, 5, 50), two row blocks and
+   rows of 50 floats (H % 4 != 0: the dW tile's scalar staging); (3, 1,
+   64); and (128, 100, 512) — through ``lstm_sequence``
    where the reference's dispatch rule (``recurrent_ops.dispatch_tier``)
    sends the shape to the fused kernels, else through the tier's fused
    entry called directly (so in 3c, 3e and 3f too);
@@ -58,7 +59,7 @@ Phases (any failure exits nonzero, without the final ``ok`` line):
    counts set to 0 just before them — finite losses, exactly 2 launches
    of each blocked kernel a step and none of kernels 8-9, ms/step,
    samples/s, host wall, peak memory;
-4h. a profile of 3 H 1280 steps;
+4h. a profile of 3 H 1280 steps (kernels 10-12's device time a step);
 4i. 3 ``--precision=bf16`` steps (fp32 masters, dynamic loss scale) of
    the same model: finite losses, the scale;
 4j. 2 steps at H 2048 (``bench.py``'s scaling row);
@@ -205,9 +206,9 @@ Phases (any failure exits nonzero, without the final ``ok`` line):
    share of the bound rate; kernels 18, 19 and 21 are bound by two bf16
    tensor-core passes (the f32 operand as hi + lo, ``CONV_BOUND_BASIS``),
    kernel 20 by one (its bf16 dy as it is), or by their bytes, whichever
-   is larger; kernels 17, 11 and 12 by three bf16 passes (hi*hi + hi*lo
+   is larger; kernels 17 and 9-12 by three bf16 passes (hi*hi + hi*lo
    + lo*hi of their f32 operands, ``GRU_BOUND_BASIS``,
-   ``LSTM_BOUND_BASIS``).
+   ``LSTM_BOUND_BASIS``; kernel 8 at the fp32 rate).
 
 Phases 3b-4f are PR 2's H 512 phases and run in fp32 (``use_bf16``
 off), so their readings stay comparable.  The order of the run: 1-3f,
@@ -215,7 +216,8 @@ off), so their readings stay comparable.  The order of the run: 1-3f,
 
 Also printed, for information: a ``torch.profiler`` window over one
 continuous pass and one over 3 training steps (device time by kernel,
-the device's busy share), and ``torch.nn.LSTM(512, 512)`` forward +
+the device's busy share; the LSTM rows' kernels 8 and 9 (4f) and 10-12
+(4h) by name, a step), and ``torch.nn.LSTM(512, 512)`` forward +
 backward at B 128, T 100 on full-length rows (cuDNN; it also does the
 input product, and is no function of the port).
 
@@ -1132,10 +1134,19 @@ PORT_KERNEL_MARKS = ("conv3x3", "lstm", "gru_", "flash_", "paged_decode",
                      "embedding_gather", "compact_rows", "reduce_splits")
 
 
-def phase_profile_train(trainer, feed):
+#: the LSTM kernels by the marks of their symbols in a profile
+LSTM_PROFILE_MARKS = {"kernel 8": "lstm_fwd_kernel<",
+                      "kernel 9": "lstm_bwd_wg_kernel<256",
+                      "kernel 10": "lstm_fwd_blocked_kernel",
+                      "kernel 11": "lstm_bwd_wg_kernel<384",
+                      "kernel 12": "lstm_dw_blocked_kernel<"}
+
+
+def phase_profile_train(trainer, feed, named=()):
     """3 training steps under torch.profiler: device time by kernel (the
-    14 largest, and the port's own kernels further down) and the device's
-    busy share."""
+    14 largest, and the port's own kernels further down), the device's
+    busy share, and the device time a step of each kernel in ``named``
+    (keys of ``LSTM_PROFILE_MARKS``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -1156,6 +1167,12 @@ def phase_profile_train(trainer, feed):
             r for r in rows[14:] if any(m in r[0] for m in PORT_KERNEL_MARKS)]:
         log(f"    {us / 1e3:9.3f} ms ({us / 3e3:8.3f} a step)  {n:6d} x  "
             f"{key[:90]}")
+    for label in named:
+        mark = LSTM_PROFILE_MARKS[label]
+        us = sum(r[1] for r in rows if mark in r[0])
+        n = sum(r[2] for r in rows if mark in r[0])
+        log(f"  {label} ({mark}): {us / 3e3:.3f} ms a step, {n / 3:.0f} "
+            "launches a step")
 
 
 def lstm_work(b, t, h, n_valid, backward):
@@ -1208,7 +1225,9 @@ def phase_time_lstm(dev, launches):
              219)):
         ms = time_ms(lambda: fn(*args), reps=5, rounds=4)
         plain_ms = time_ms(lambda: plain(*args), reps=2, rounds=2)
-        b_ms, b_by = bound_ms(*lstm_work(b, t, h, n_valid, bwd))
+        n_bytes, n_flops = lstm_work(b, t, h, n_valid, bwd)
+        passes, rate = LSTM_BOUND_BASIS[name]
+        b_ms, b_by = bound_ms(n_bytes, passes * n_flops, rate)
         rows.append({"name": name, "route": "cuda",
                      "source": f"paddle_tpu_torch/csrc/{name}.cu",
                      "replaces": f"paddle_tpu/ops/pallas_lstm.py:{line}",
@@ -1219,9 +1238,14 @@ def phase_time_lstm(dev, launches):
                      "bound_by": b_by, "library_ms": None,
                      "shape": f"B {b}, T {t}, H {h}, {n_valid} valid steps"})
     for r in rows:
+        passes, rate = LSTM_BOUND_BASIS[r["name"]]
+        fp32_ms = bound_ms(*lstm_work(b, t, h, n_valid,
+                                      r["name"] == "lstm_bwd"))[0]
         log(f"  {r['name']}: {r['ms'] * 1e3:.2f} us (plain "
             f"{r['plain_ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.3f}"
-            f" us by {r['bound_by']}); {r['shape']}")
+            f" us by {r['bound_by']}, {passes} pass(es) at "
+            f"{rate * 1e-12:.0f} TFLOP/s; at the fp32 rate "
+            f"{fp32_ms * 1e3:.3f} us); {r['shape']}")
     # for information only: cuDNN's LSTM (no peepholes, no length mask,
     # and it also does the input product) forward + backward
     lstm = torch.nn.LSTM(h, h, batch_first=True).to(dev)
@@ -1321,11 +1345,13 @@ def phase_blocked_check(dev):
     return errs
 
 
-#: the bound's basis of the blocked LSTM kernels: (passes, rate) -- 10
-#: multiplies f32 on the CUDA cores; 11 (the pull-back) and 12 multiply
-#: their f32 operands on the tensor cores as hi*hi + hi*lo + lo*hi, three
-#: bf16 passes (csrc/lstm_bwd_blocked.cu, csrc/dw_wg.cuh)
-LSTM_BOUND_BASIS = {"lstm_fwd_blocked": (1, FP32_FLOPS_PER_S),
+#: the bound's basis of the LSTM kernels: (passes, rate) -- 8 multiplies
+#: f32 on the CUDA cores; 9, 10, 11 (the step products) and 9, 12 (dW)
+#: multiply their f32 operands on the tensor cores as hi*hi + hi*lo +
+#: lo*hi, three bf16 passes (csrc/lstm_wg.cuh, csrc/dw_wg.cuh)
+LSTM_BOUND_BASIS = {"lstm_fwd": (1, FP32_FLOPS_PER_S),
+                    "lstm_bwd": (3, BF16_FLOPS_PER_S),
+                    "lstm_fwd_blocked": (3, BF16_FLOPS_PER_S),
                     "lstm_bwd_blocked": (3, BF16_FLOPS_PER_S),
                     "lstm_dw_blocked": (3, BF16_FLOPS_PER_S)}
 
@@ -1351,8 +1377,7 @@ def phase_time_blocked(dev, launches):
     """Kernels 10-12 at the H 1280 main path's shapes (the bench feed's
     lengths), each against its plain version; torch.matmul of the dW
     product as kernel 12's yardstick; the bounds on the basis of
-    ``LSTM_BOUND_BASIS`` (11's and 12's at the fp32 rate too, in the
-    log only)."""
+    ``LSTM_BOUND_BASIS`` (at the fp32 rate too, in the log only)."""
     import torch
     from paddle_tpu_torch.ops import lstm as L
     b, t, h = TRAIN_B, TRAIN_T, BLOCKED["hidden_size"]
@@ -3279,7 +3304,7 @@ def main() -> int:
         log("== phase 4e: training step, card vs CPU plain path")
         phase_train_small(dev)
         log("== phase 4f: profile of 3 training steps")
-        phase_profile_train(trainer, feed)
+        phase_profile_train(trainer, feed, ("kernel 8", "kernel 9"))
         del trainer, feed
         log("== phase 4g: blocked main path, the classifier at H 1280 "
             "under bench.py's flags (use_bf16, bf16_activations)")
@@ -3290,7 +3315,8 @@ def main() -> int:
         for name in launches:
             launches[name]["training_h1280"] = blk_launches[name]
         log("== phase 4h: profile of 3 H 1280 training steps")
-        phase_profile_train(trainer, feed)
+        phase_profile_train(trainer, feed,
+                            ("kernel 10", "kernel 11", "kernel 12"))
         del trainer, feed
         log("== phase 4i: --precision=bf16 steps at H 1280")
         _, mixed, trainer, feed = phase_train(

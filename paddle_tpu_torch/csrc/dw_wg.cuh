@@ -1,9 +1,10 @@
 // The blocked tiers' dW product on Hopper's tensor cores (wgmma.cuh):
 // dW[k, c] = sum over the listed valid rows j of arow(j)[k] * brow(j)[c],
 // f32 in and out, one CTA of lstm::kThreads (two warpgroups) per (128 x 128
-// output tile, split of the row list).  Kernels 12 (lstm_dw_blocked.cu)
-// and 17 (gru_dw_blocked.cu) run on it, each with its own row accessors
-// (arow(j), brow(j): pointers to listed row j's K and C values).
+// output tile, split of the row list).  Kernels 12 (lstm_dw_blocked.cu),
+// 17 (gru_dw_blocked.cu) and 9 (after its time loop, lstm_wg.cuh) run on
+// it, each with its own row accessors (arow(j), brow(j): pointers to
+// listed row j's K and C values).
 //
 // Numbers.  The contract sums f32 products in f32.  Each f32 operand is
 // carried as hi = bf16(x) and lo = bf16(x - hi), and a product as

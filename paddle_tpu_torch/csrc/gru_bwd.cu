@@ -24,7 +24,7 @@
 // (r h_{t-1})[b]^T dc_pre_t[b] are [H x BT] x [BT x 2H] and [BT x H]
 // products; they run after the time loop, tiled 128 x 64 over all CTAs
 // with their rows streamed through a cp.async pipeline (dw_tile of
-// lstm_common.cuh, shared with lstm_bwd.cu), instead of inside the
+// lstm_common.cuh), instead of inside the
 // latency-bound step.  Each output tile belongs to one CTA and sums its
 // rows in a fixed order: no atomics, and two runs give the same bits.
 //

@@ -6,8 +6,9 @@
 // per step, H/128 gate blocks (u_j, r_j, staging r * h_prev) and then
 // H/128 candidate blocks, streaming w_gates and w_cand as column blocks
 // while the [B, H] state carries in VMEM.  On Hopper the step is spread
-// over a persistent cooperative grid instead (the design of
-// lstm_fwd_blocked.cu, whose pieces it shares through lstm_common.cuh):
+// over a persistent cooperative grid instead (the design of the LSTM's
+// blocked forward before its tensor-core step, on lstm_common.cuh's
+// CUDA-core tiles):
 //
 // - A step's output is cut into tiles of 128 batch rows x U hidden units,
 //   U in {8, 16}: the launcher takes the U whose tiles spread most evenly

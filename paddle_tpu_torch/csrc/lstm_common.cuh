@@ -1,7 +1,7 @@
 // Shared pieces of the fused LSTM and GRU kernels: the single-block tier
-// (lstm_fwd.cu, lstm_bwd.cu, gru_fwd.cu, gru_bwd.cu) and the
-// hidden-blocked tier (lstm_{fwd,bwd,dw}_blocked.cu and
-// gru_{fwd,bwd,dw}_blocked.cu; see the end of this file).
+// (lstm_fwd.cu, gru_fwd.cu, gru_bwd.cu) and the hidden-blocked tier
+// (gru_{fwd,bwd,dw}_blocked.cu; see the end of this file), and what the
+// tensor-core LSTM kernels (lstm_wg.cuh, dw_wg.cuh) build on.
 //
 // The single-block kernels are persistent cooperative launches: one CTA
 // per slice of U hidden units (U in {1, 2, 4}, a template constant), the
@@ -17,12 +17,14 @@
 // zero-filled and never written.
 //
 // The products here run on CUDA cores in fp32 (TF32 would change the
-// numbers).  Shared memory serves one 32-bit word per bank per cycle, so
-// a product is register-blocked: each thread keeps a 4 x 4 block of sums
+// numbers): the single-block LSTM forward (kernel 8) and the GRU kernels
+// 13-16.  Shared memory serves one 32-bit word per bank per cycle, so a
+// product is register-blocked: each thread keeps a 4 x 4 block of sums
 // and reads its operands as float4, 2 shared loads per 16 FMAs.  The
-// blocked tiers' dW products (dw_wg.cuh) and the blocked LSTM backward's
-// pull-back (lstm_bwd_blocked.cu) run on the tensor cores instead, their
-// f32 operands as hi + lo bf16 in three passes.
+// other LSTM kernels' products -- the step products of kernels 9-11
+// (lstm_wg.cuh) and the dW products of kernels 9, 12 and 17 (dw_wg.cuh)
+// -- run on the tensor cores instead, their f32 operands as hi + lo bf16
+// in three passes.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -205,9 +207,9 @@ __host__ inline int cooperative_launch(K kernel, int H, int U, long smem_floats,
 }
 
 // ------------------------------------- weight gradient of a time loop
-// The single-block backward kernels (lstm_bwd.cu, gru_bwd.cu) sum their
-// weight gradients over all (b, t) rows after the time loop, one
-// kGK x kGC output tile per CTA at a time (dw_tile).
+// The single-block GRU backward (gru_bwd.cu) sums its weight gradients
+// over all (b, t) rows after the time loop, one kGK x kGC output tile per
+// CTA at a time (dw_tile).
 namespace dwt {
 constexpr int kGR = 32;                  // rows per dW product chunk
 constexpr int kGK = 128, kGC = 64;       // dW output tile: kGK x kGC
@@ -289,11 +291,12 @@ __device__ __forceinline__ void dw_tile(ARow arow, BRow brow, int R, int K,
 // tiles (kBRows batch rows x COLS columns) with a stride of the grid, so
 // any B and H run on any grid size, and a tile's result does not depend
 // on the grid.  Nothing stays resident: both operands of every product
-// stream from L2.  The CUDA-core tiles below serve the forwards (kernels
-// 10 and 15) and the GRU backward (16): a CTA has kBThreads threads in
-// KG k-groups; the launcher picks, among the tile widths below, the one
-// that spreads a step's work most evenly over the co-resident CTAs
-// (tile_cost).  The LSTM backward (11) has its own tensor-core tiles.
+// stream from L2.  The CUDA-core tiles below serve the GRU's forward and
+// backward (kernels 15 and 16): a CTA has kBThreads threads in KG
+// k-groups; the launcher picks, among the tile widths below, the one that
+// spreads a step's work most evenly over the co-resident CTAs
+// (tile_cost).  The LSTM's (10, 11) run on lstm_wg.cuh's tensor-core
+// tiles.
 constexpr int kBThreads = 512;   // threads of a blocked-tier CTA
 constexpr int kBRows = 128;      // batch rows of a blocked-tier tile
 constexpr int kBStages = 3;      // k tiles in flight: 2 loading, 1 in use
@@ -314,9 +317,6 @@ struct NtTile {
   static_assert((long)KG * ROWS * COLS <= smem_floats,
                 "the k-group sums alias the stages");
 };
-// 20 sums a thread, 9 float4 shared loads per 80 FMAs; 32 sums, 12 / 128
-using Tile40 = NtTile<40, 4, 5>;
-using Tile64 = NtTile<64, 8, 4>;
 // The GRU's blocked kernels (gru_{fwd,bwd}_blocked.cu): a tile of U hidden
 // units sums 2U columns (the forward's u and r gates) or U columns (the
 // forward's candidate, both backward products), U in {8, 16}.

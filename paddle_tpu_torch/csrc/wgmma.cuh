@@ -1,7 +1,7 @@
 // Hopper warpgroup matrix products (wgmma, sm_90a only) and the swizzled
 // shared-memory tiles they read, shared by the tensor-core main loops of
-// kernels 18-21 (conv3x3_tc.cuh), the flash kernels (flash_wg.cuh) and
-// kernel 17's dW tile (dw_wg.cuh).
+// kernels 18-21 (conv3x3_tc.cuh), the flash kernels (flash_wg.cuh), the
+// LSTM's step products (lstm_wg.cuh) and the dW tile (dw_wg.cuh).
 //
 // A warpgroup is 4 consecutive warps (128 threads, the first warp's index
 // a multiple of 4).  One wgmma adds a 64 x N product (N in {32, 64, 128}

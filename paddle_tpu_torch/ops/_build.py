@@ -61,8 +61,8 @@ SIGNATURES = {
                              [_C] * 9 + [_I] * 6 + [_L] * 8 + [_I, _F, _C]),
     "embedding_gather": ("embedding_gather", [_C] * 3 + [_I] * 3 + [_C]),
     "lstm_fwd": ("lstm_fwd", [_C] * 9 + [_I] * 4 + [_C]),
-    "lstm_bwd": ("lstm_bwd", [_C] * 16 + [_I] * 4 + [_C]),
-    "lstm_fwd_blocked": ("lstm_fwd_blocked", [_C] * 9 + [_I] * 3 + [_C]),
+    "lstm_bwd": ("lstm_bwd", [_C] * 24 + [_I] * 5 + [_C]),
+    "lstm_fwd_blocked": ("lstm_fwd_blocked", [_C] * 13 + [_I] * 4 + [_C]),
     "lstm_bwd_blocked": ("lstm_bwd_blocked", [_C] * 17 + [_I] * 4 + [_C]),
     "lstm_dw_blocked": ("lstm_dw_blocked", [_C] * 7 + [_I] * 4 + [_C]),
     "lstm_dw_blocked_splits": ("lstm_dw_blocked", [_I] * 3),

@@ -8,9 +8,11 @@ last (an ordinary product):
 - single-block tier, H <= 512 (``"fused"``):
   :func:`lstm_fwd` (``csrc/lstm_fwd.cu``; plain version
   :func:`lstm_fwd_reference`) writes the kept state sequences H, C and
-  the activated gates; :func:`lstm_bwd` (``csrc/lstm_bwd.cu``; plain
+  the activated gates, on a grid of U hidden units a CTA and CUDA-core
+  products; :func:`lstm_bwd` (``csrc/lstm_bwd.cu``; plain
   :func:`lstm_bwd_reference`) gives dxw, dW_hh, the peephole grads,
-  dh0, dc0;
+  dh0, dc0 in one launch, on the blocked backward's tensor-core step loop
+  (``csrc/lstm_wg.cuh``) and, after it, the dW tile (``csrc/dw_wg.cuh``);
 - hidden-blocked tier, 512 < H (``"fused_blocked"``):
   :func:`lstm_fwd_blocked` (``csrc/lstm_fwd_blocked.cu``; plain
   :func:`lstm_fwd_blocked_reference`), :func:`lstm_bwd_blocked`
@@ -20,17 +22,19 @@ last (an ordinary product):
   :func:`lstm_dw_blocked_reference`); the peephole grads are plain
   reductions over dxw (:func:`peephole_grads`), as in the TPU tier.
   Forward and backward walk tiles with a persistent cooperative grid,
-  one (forward) or two (backward) grid barriers a step.  Their products
-  take only the rows valid at each step (a padded step keeps its state;
-  its dgates are exact zeros, and the forward writes its gates as 0).
-  The forward's tiles of 128 batch rows run on CUDA cores in fp32.  The
-  backward's pull-back dgates_t @ w_hh^T and the dW product run on the
-  tensor cores with their f32 operands as hi + lo bf16 (three passes,
-  each 64-deep chunk's sums added in f32): the backward over bf16 planes
-  it writes itself (w_hh's once, each step's dgates in compacted row
-  order), cut into K slices (:func:`bwd_blocked_slices`) summed in
-  order; the dW product over the listed valid rows, split when its tiles
-  would leave a round of CTAs mostly idle.
+  two grid barriers a step.  Their products take only the rows valid at
+  each step (a padded step keeps its state; its dgates are exact zeros,
+  and the forward writes its gates as 0).
+
+The step products of kernels 9-11 (the forward's h_{t-1} @ w_hh, the
+backward's pull-back dgates_t @ w_hh^T) and the dW products (9, 12) run
+on the tensor cores with their f32 operands as hi + lo bf16 (three
+passes, each 64-deep chunk's sums added in f32): the step products over
+bf16 planes the kernels write themselves (w_hh's once, each step's h or
+dgates in compacted row order), cut into K slices
+(:func:`fwd_blocked_slices`, :func:`bwd_blocked_slices`) summed in order;
+the dW products over the listed valid rows, split when their tiles would
+leave a round of CTAs mostly idle.
 
 :class:`_LstmCore` and :class:`_LstmCoreBlocked` (``torch.autograd.
 Function``) launch the forward kernel in their forward and the backward
@@ -42,14 +46,14 @@ Layouts are batch-major throughout (xw / gates ``[B, T, 4H]``, states
 ``[B, T, H]``, mask ``[B, T]``), so no time-major copy is made; checks
 are ``[3, H]`` (rows i, f, o); w_hh stays ``[H, 4H]`` gate-major (the
 JAX tier's block-gate permutation is not carried over; the blocked
-forward reads w_hh through a transpose it makes itself).  A wrapper
+forward orders its own planes of w_hh's transpose).  A wrapper
 checks dtype (fp32 only), shape and contiguity first.  CPU tensors then
 take the plain version; CUDA tensors launch the kernel or raise — a
 shape the kernel's tier does not serve (:func:`fused_tier`) raises too,
 never falls back.  Each wrapper counts its launches in ``.launches``.
 
-Precision: the kernels compute in fp32, whatever the policy (kernels 11
-and 12's products as three bf16 passes of the f32 operands' hi and lo
+Precision: the kernels compute in fp32, whatever the policy (the
+tensor-core products as three bf16 passes of the f32 operands' hi and lo
 parts).  The public functions cast their inputs to fp32 before the kernels (a bf16
 xw converts exactly), so autograd returns dxw in xw's dtype, as the JAX
 kernels read xw in its dtype, compute the gates in f32 and cast dxw
@@ -77,27 +81,54 @@ MAX_HIDDEN = 512
 #: Largest H of the blocked tier: the kernels count a row-step's 4H gate
 #: columns and w_hh's 4H^2 elements in 32-bit ints.
 MAX_BLOCKED_HIDDEN = 23170
-# shared-memory pieces of csrc/lstm_common.cuh and the kernels, in floats
-_TILE_FLOATS, _RED_FLOATS, _DW_FLOATS = 3 * 128 * 68, 8 * 128 * 4, 3 * 32 * 200
-# blocked tier, in bytes: the forward's 3 staging buffers of (128 rows +
-# at most 64 columns) x 68 floats; the backward's and the dW tile's rings
-# (csrc/lstm_bwd_blocked.cu, csrc/dw_wg.cuh), 3 stages of four 16 KB bf16
-# planes and 1 KB for their alignment
-_BLOCKED_BYTES = (4 * 3 * 192 * 68, 1024 + 3 * 4 * 16384)
-#: The blocked backward's pull-back: tiles of 128 compacted rows x 128
-#: units x one slice of K = 4H in chunks of 64 (csrc/lstm_bwd_blocked.cu).
-BWD_TILE_ROWS, BWD_TILE_UNITS, BWD_CHUNK = 128, 128, 64
+# the single-block forward's shared-memory pieces (csrc/lstm_common.cuh,
+# csrc/lstm_fwd.cu), in floats
+_TILE_FLOATS, _RED_FLOATS = 3 * 128 * 68, 8 * 128 * 4
+# the tensor-core kernels' ring (9-11: csrc/lstm_wg.cuh; 9's and 12's dW
+# tile, csrc/dw_wg.cuh, reuses it), in bytes: 3 stages of four 16 KB bf16
+# planes and 1 KB for their alignment, whatever B and H
+_RING_BYTES = 1024 + 3 * 4 * 16384
+#: The step products' tiles (csrc/lstm_wg.cuh): 128 compacted rows x 128
+#: columns x one slice of K in chunks of 64.  The forward's columns are
+#: 4 gates x 32 units a tile.
+TILE_ROWS, TILE_COLS, CHUNK = 128, 128, 64
+#: Splits of kernel 9's dW row list at most (csrc/dw_wg.cuh's kMaxSplit).
+MAX_DW_SPLIT = 4
+
+
+def _plane_slices(chunks: int, blocks: int, sms: int) -> int:
+    """K slices of a step product with ``blocks`` (row, column) blocks:
+    as many as keep all its tiles within one CTA an SM, each slice
+    ceil(chunks / slices) chunks of 64 but at least two where K has
+    them (a one-chunk slice's sums cost the pairs more than its tile
+    saves), none empty."""
+    per = -(-chunks // max(1, min(chunks, sms // blocks)))
+    return -(-chunks // max(per, min(2, chunks)))
 
 
 def bwd_blocked_slices(b: int, h: int, sms: int = SM_COUNT) -> int:
-    """K slices of the blocked backward's pull-back at (b, h): as many
-    as keep the tiles of all 128-row blocks within one CTA an SM, each
-    slice ceil(chunks / slices) chunks of 64, none empty (at B 128, H
-    1280 on 132 SMs: 10 unit blocks x 12 slices of 7 chunks)."""
-    chunks = -(-4 * h // BWD_CHUNK)
-    blocks = -(-b // BWD_TILE_ROWS) * -(-h // BWD_TILE_UNITS)
-    per = -(-chunks // max(1, min(chunks, sms // blocks)))
-    return -(-chunks // per)
+    """K slices of the backward's pull-back (kernels 9 and 11) at (b, h):
+    K = 4h, 128-unit column blocks (at B 128, H 1280 on 132 SMs: 10 unit
+    blocks x 12 slices of 7 chunks; at H 512, 4 x 16 of 2)."""
+    return _plane_slices(-(-4 * h // CHUNK),
+                         -(-b // TILE_ROWS) * -(-h // TILE_COLS), sms)
+
+
+def fwd_blocked_slices(b: int, h: int, sms: int = SM_COUNT) -> int:
+    """K slices of the blocked forward's step product (kernel 10) at (b,
+    h): K = h, column blocks of 32 units x 4 gates (at B 128, H 1280 on
+    132 SMs: 40 column blocks x 3 slices of 7 chunks; at H 2048, 64 x 2
+    of 16)."""
+    return _plane_slices(-(-h // CHUNK),
+                         -(-b // TILE_ROWS) * -(-h // (TILE_COLS // 4)), sms)
+
+
+def bwd_dw_splits(h: int, sms: int = SM_COUNT) -> int:
+    """Splits of kernel 9's dW row list: as many as keep its 128 x 128
+    output tiles of [h, 4h] times the splits within one CTA an SM, at
+    most MAX_DW_SPLIT (at H 512 on 132 SMs: 64 tiles x 2)."""
+    tiles = -(-h // 128) * -(-4 * h // 128)
+    return max(1, min(MAX_DW_SPLIT, sms // tiles))
 
 
 def units_per_cta(h: int, sms: int = SM_COUNT) -> Optional[int]:
@@ -110,11 +141,11 @@ def units_per_cta(h: int, sms: int = SM_COUNT) -> Optional[int]:
 
 def smem_bytes(b: int, h: int, u: int) -> Tuple[int, int]:
     """Dynamic shared memory of the single-block (forward, backward)
-    kernels, in bytes — the arithmetic of ``csrc/lstm_common.cuh``."""
+    kernels, in bytes — the arithmetic of ``csrc/lstm_fwd.cu`` (U units a
+    CTA) and of the backward's ring (``csrc/lstm_wg.cuh``, any b and h)."""
     n = 4 * u
     fwd = -(-h // 64) * 64 * n + _TILE_FLOATS + _RED_FLOATS + b * n + 2 * b * u
-    bwd = n * -(-h // 4) * 4 + n * -(-b // 8) * 8 + 8 * b * u + _DW_FLOATS
-    return 4 * fwd, 4 * bwd
+    return 4 * fwd, _RING_BYTES
 
 
 def fused_tier(b: int, h: int, sms: int = SM_COUNT) -> Optional[str]:
@@ -125,8 +156,8 @@ def fused_tier(b: int, h: int, sms: int = SM_COUNT) -> Optional[str]:
     - ``"fused_blocked"``: 512 < h <= MAX_BLOCKED_HIDDEN under
       ``--fused_rnn_hblock`` (default on).  The blocked kernels stride
       over their tiles with as many CTAs as are co-resident, so any B
-      and any SM count serve; each kernel's shared memory (at most
-      193 KB) is within one block's limit;
+      and any SM count serve; each kernel's shared memory (193 KB) is
+      within one block's limit;
     - ``None`` otherwise.  No tiling gate in either tier."""
     if b < 1 or h < 1:
         return None
@@ -136,7 +167,7 @@ def fused_tier(b: int, h: int, sms: int = SM_COUNT) -> Optional[str]:
             return None
         return "fused"
     if not FLAGS.get("fused_rnn_hblock") or h > MAX_BLOCKED_HIDDEN \
-            or sms < 1 or max(_BLOCKED_BYTES) > SMEM_BYTES:
+            or sms < 1 or _RING_BYTES > SMEM_BYTES:
         return None
     return "fused_blocked"
 
@@ -359,9 +390,9 @@ def lstm_bwd(gates, hseq, cseq, h0, c0, mask, w_hh, checks, dy, dyc):
     args = (gates, hseq, cseq, h0, c0, mask, w_hh, checks, dy, dyc)
     if not _on_card(args):
         return lstm_bwd_reference(*args)
-    _tier_on_card(b, hd, gates.device, "fused")
-    u = units_per_cta(hd, torch.cuda.get_device_properties(
-        gates.device).multi_processor_count)
+    dev = gates.device
+    _tier_on_card(b, hd, dev, "fused")
+    enforce(b * t < 2 ** 31, "the LSTM backward counts B*T in int32")
     dxw = torch.empty_like(gates)
     dw = torch.empty_like(w_hh)
     dck = torch.empty_like(checks)
@@ -369,12 +400,27 @@ def lstm_bwd(gates, hseq, cseq, h0, c0, mask, w_hh, checks, dy, dyc):
     dc0 = torch.empty_like(c0)
     if gates.numel() == 0:
         return dxw, dw.zero_(), dck.zero_(), dh0.zero_(), dc0.zero_()
-    # double-buffered per-CTA partials of the recurrent pull-back
-    pbuf = torch.empty(2 * -(-hd // u) * b * (-(-hd // 4) * 4),
-                       dtype=torch.float32, device=gates.device)
+    n_sl = bwd_blocked_slices(b, hd, _sms(dev))
+    n_split = bwd_dw_splits(hd, _sms(dev))
+    kp = -(-4 * hd // CHUNK) * CHUNK
+    # scratch: (1-m) dh_tot, the dc carry and the peephole products per
+    # (row, unit); the pull-back's sums by K slice; each step's row ranks
+    # and counts; the valid rows' list; w_hh's and a step's dgates' hi and
+    # lo bf16 planes (pitch kp); one [H, 4H] dW sum per split of the list
+    f32 = dict(dtype=torch.float32, device=dev)
+    dhp, dcc = torch.empty_like(c0), torch.empty_like(c0)
+    ckp = torch.empty((3, b, hd), **f32)
+    part = torch.empty((n_sl, b, hd), **f32)
+    rank = torch.empty(t * b + t, dtype=torch.int32, device=dev)
+    rows = torch.empty(b * t, dtype=torch.int32, device=dev)
+    wpl = torch.empty((2, hd, kp), dtype=torch.bfloat16, device=dev)
+    apl = torch.empty((2, b, kp), dtype=torch.bfloat16, device=dev)
+    dw_part = torch.empty((n_split if n_split > 1 else 0, hd, hd4), **f32)
     _launch("lstm_bwd",
-            [x.data_ptr() for x in args + (dxw, dw, dck, dh0, dc0, pbuf)],
-            (b, t, hd, u), gates.device)
+            [x.data_ptr() for x in args + (dxw, dw, dck, dh0, dc0, dhp, dcc,
+                                           ckp, part, rank, rows, wpl, apl,
+                                           dw_part)],
+            (b, t, hd, n_sl, n_split), dev)
     lstm_bwd.launches += 1
     return dxw, dw, dck, dh0, dc0
 
@@ -393,16 +439,25 @@ def lstm_fwd_blocked(xw, mask, w_hh, checks, h0, c0
         return lstm_fwd_blocked_reference(*args)
     _tier_on_card(b, hd, xw.device, "fused_blocked")
     enforce(b * t < 2 ** 31, "the blocked LSTM kernels count B*T in int32")
-    hseq = torch.empty((b, t, hd), dtype=torch.float32, device=xw.device)
+    dev = xw.device
+    hseq = torch.empty((b, t, hd), dtype=torch.float32, device=dev)
     cseq = torch.empty_like(hseq)
     gates = torch.empty_like(xw)
     if xw.numel() == 0:
         return hseq, cseq, gates
-    # the kernel reads w_hh's gate columns as rows of its transpose
-    w_t = w_hh.t().contiguous()
+    n_sl = fwd_blocked_slices(b, hd, _sms(dev))
+    kp = -(-hd // CHUNK) * CHUNK
+    n_cols = 4 * -(-hd // (TILE_COLS // 4)) * (TILE_COLS // 4)
+    # scratch: the step product's sums by K slice (n_cols columns, unit
+    # block x gate x unit); each step's row ranks and counts; the hi and
+    # lo bf16 planes (pitch kp) of w_hh's transpose and of a step's h
+    part = torch.empty((n_sl, b, n_cols), dtype=torch.float32, device=dev)
+    rank = torch.empty(t * b + t, dtype=torch.int32, device=dev)
+    wpl = torch.empty((2, n_cols, kp), dtype=torch.bfloat16, device=dev)
+    apl = torch.empty((2, b, kp), dtype=torch.bfloat16, device=dev)
     _launch("lstm_fwd_blocked",
-            [x.data_ptr() for x in (xw, mask, w_t, checks, h0, c0, hseq,
-                                    cseq, gates)], (b, t, hd), xw.device)
+            [x.data_ptr() for x in args + (hseq, cseq, gates, part, rank,
+                                           wpl, apl)], (b, t, hd, n_sl), dev)
     lstm_fwd_blocked.launches += 1
     return hseq, cseq, gates
 
@@ -436,7 +491,7 @@ def lstm_bwd_blocked(gates, cseq, c0, mask, w_hh, checks, dy, dyc
         return dxw, dh0.zero_(), dc0.zero_()
     dev = gates.device
     n_sl = bwd_blocked_slices(b, hd, _sms(dev))
-    kp = -(-4 * hd // BWD_CHUNK) * BWD_CHUNK
+    kp = -(-4 * hd // CHUNK) * CHUNK
     # scratch: (1-m) dh_tot and the dc carry per (row, unit); the
     # pull-back's sums by K slice; each step's row ranks and counts;
     # w_hh's and a step's dgates' hi and lo bf16 planes (pitch kp)

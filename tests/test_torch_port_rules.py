@@ -245,6 +245,81 @@ def test_blocked_lstm_bwd_card_path_hands_its_scratch(monkeypatch):
     assert len(launched) == 1
 
 
+def _spy_card_launch(monkeypatch, tier):
+    """Monkeypatch the device test, the tier and the launch so that the
+    CPU reaches a wrapper's launch: returns the lists of launches (symbol,
+    pointer count, ints) and of the scratch made with ``torch.empty``
+    (shape, dtype)."""
+    monkeypatch.setattr(tl, "_on_card", lambda tensors: True)
+    monkeypatch.setattr(tl, "fused_tier", lambda *a: tier)
+    launched, made = [], []
+    real_empty = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda *a, **k: made.append(
+        (tuple(a[0]) if a and isinstance(a[0], tuple) else a, k["dtype"]))
+        or real_empty(*a, **k))
+    monkeypatch.setattr(tl, "_launch", lambda sym, ptrs, ints, dev:
+                        launched.append((sym, len(ptrs), ints)))
+    return launched, made
+
+
+def test_lstm_bwd_card_path_hands_its_scratch(monkeypatch):
+    """On CUDA the single-block backward (kernel 9) hands its kernel the
+    scratch it writes: the peephole products [3, B, H] f32, the
+    pull-back's sums by K slice [S, B, H] (S from
+    ``bwd_blocked_slices``), each step's row ranks and counts (T*B + T
+    int32), the valid rows' list (B*T int32), w_hh's and a step's
+    dgates' hi and lo bf16 planes [2, H, Kp] and [2, B, Kp] (Kp = 4H
+    rounded up to 64), one dW sum a split [n_split, H, 4H] (none at one
+    split).  Nothing is launched, and the input checks still run
+    first."""
+    b, t, h = 3, 4, 9
+    args = _lstm_bwd_args(b, t, h)
+    launched, made = _spy_card_launch(monkeypatch, "fused")
+    monkeypatch.setattr(tl.lstm_bwd, "launches", 0)
+    tl.lstm_bwd(*args)
+    s, n_split = tl.bwd_blocked_slices(b, h), tl.bwd_dw_splits(h)
+    assert n_split == tl.MAX_DW_SPLIT
+    assert launched == [("lstm_bwd", 24, (b, t, h, s, n_split))]
+    assert tl.lstm_bwd.launches == 1
+    assert made == [((3, b, h), torch.float32), ((s, b, h), torch.float32),
+                    ((t * b + t,), torch.int32), ((b * t,), torch.int32),
+                    ((2, h, 64), torch.bfloat16),
+                    ((2, b, 64), torch.bfloat16),
+                    ((n_split, h, 4 * h), torch.float32)]
+    bad = list(args)
+    bad[8] = bad[8].to(torch.bfloat16)
+    with pytest.raises(PaddleTpuError):
+        tl.lstm_bwd(*bad)
+    assert len(launched) == 1
+
+
+def test_blocked_lstm_fwd_card_path_hands_its_scratch(monkeypatch):
+    """On CUDA the blocked forward (kernel 10) hands its kernel the
+    scratch it writes: the step product's sums by K slice [S, B, N] f32
+    (S from ``fwd_blocked_slices``, N = 4 x H rounded up to 32), each
+    step's row ranks and counts (T*B + T int32), the hi and lo bf16
+    planes of w_hh's transpose [2, N, Kp] and of a step's h [2, B, Kp]
+    (Kp = H rounded up to 64).  w_hh itself is not copied.  Nothing is
+    launched, and the input checks still run first."""
+    b, t, h = 3, 4, 9
+    args = _lstm_fwd_args(b, t, h)
+    launched, made = _spy_card_launch(monkeypatch, "fused_blocked")
+    monkeypatch.setattr(tl.lstm_fwd_blocked, "launches", 0)
+    tl.lstm_fwd_blocked(*args)
+    s = tl.fwd_blocked_slices(b, h)
+    assert launched == [("lstm_fwd_blocked", 13, (b, t, h, s))]
+    assert tl.lstm_fwd_blocked.launches == 1
+    assert made == [((b, t, h), torch.float32), ((s, b, 128), torch.float32),
+                    ((t * b + t,), torch.int32),
+                    ((2, 128, 64), torch.bfloat16),
+                    ((2, b, 64), torch.bfloat16)]
+    bad = list(args)
+    bad[0] = bad[0].to(torch.bfloat16)
+    with pytest.raises(PaddleTpuError):
+        tl.lstm_fwd_blocked(*bad)
+    assert len(launched) == 1
+
+
 @pytest.mark.parametrize("wrapper,make,pos,bad", [
     (tl.lstm_fwd, _lstm_fwd_args, 0, lambda t: t.to(torch.bfloat16)),
     (tl.lstm_fwd, _lstm_fwd_args, 2,

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Time the hidden-blocked LSTM kernels (kernels 10-12 of the port) in
-several variants on one GPU, in one process, so their times compare.
+"""Time the port's LSTM kernels (the blocked kernels 10-12 and the
+single-block kernels 8 and 9) in several variants on one GPU, in one
+process, so their times compare.
 
     python3 tools/lstm_blocked_probe.py [--csrc DIR ...] [--patch NAME ...]
                                         [--shape B,T,H ...] [--reps N]
+                                        [--slices N ...] [--only KERNEL ...]
 
 A variant is a copy of a kernel source directory (the repository's
 ``paddle_tpu_torch/csrc`` by default; ``--csrc`` adds others, such as an
@@ -14,18 +16,22 @@ live; their results are wrong by design and are not checked).  Every
 variant is built with the port's ``nvcc`` flags by
 ``tools/probe_build.py`` (its ptxas lines printed: registers, spills and
 the wgmma serialization warnings C7514-C7517), run at each shape on the
-bench feed's lengths, held against the plain versions in
-``paddle_tpu_torch.ops.lstm`` (unpatched variants only) and timed
-between CUDA events in two turns (the variants in order, then in
-reverse).  Sources from before the tensor-core backward (no step ranks
-in ``lstm_bwd_blocked.cu``) take that kernel's older arguments.  Prints
-one line per (turn, shape, variant, kernel) and the card's name and
-power limit.
+bench feed's lengths -- the blocked kernels 10-12 where H > 512, the
+single-block kernels 8 and 9 where H <= 512 -- held against the plain
+versions in ``paddle_tpu_torch.ops.lstm`` (unpatched variants only) and
+timed between CUDA events in two turns (the variants in order, then in
+reverse).  Sources from before the tensor-core forward and single-block
+backward (kernel 10 reading a transpose of w_hh, kernel 9 with per-CTA
+partials) take those kernels' older arguments.  ``--slices N`` also
+times the repository's kernels 9, 10 and 11 at N K slices where N is a
+valid slicing of their K.  Prints one line per (turn, shape, variant,
+kernel) and the card's name and power limit.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import os
 import subprocess
 import sys
@@ -34,83 +40,82 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(ROOT, "build", "probe")
-KERNELS = ("lstm_fwd_blocked", "lstm_bwd_blocked", "lstm_dw_blocked")
+BLOCKED = ("lstm_fwd_blocked", "lstm_bwd_blocked", "lstm_dw_blocked")
+SINGLE = ("lstm_fwd", "lstm_bwd")
+KERNELS = BLOCKED + SINGLE
+#: the kernels whose step product is cut into K slices, and their K
+SLICED = {"lstm_fwd_blocked": lambda h: h, "lstm_bwd_blocked":
+          lambda h: 4 * h, "lstm_bwd": lambda h: 4 * h}
 
-#: name -> [(file, old text, new text)]
+_WG, _FWD = "lstm_wg.cuh", "lstm_fwd_blocked.cu"
+_PAIRS = "    for (long p = first; p < BH; p += stride) {\n" \
+         "      const int b = (int)(p / H), unit = (int)(p % H);\n"
+#: name -> [(file, old text, new text)].  The step loop of kernels 9-11
+#: (Tiles, phase A, the backward's kernel) lives in lstm_wg.cuh, so a
+#: knock-out of it reaches all three; time the one in question (--only).
 PATCHES = {
-    # kernel 10: a quarter of the product's FMAs (all shared loads stay)
-    "quarter_fma": [("lstm_common.cuh",
-                     "          acc[i][d] += a[i].y * b[d].y;\n"
-                     "          acc[i][d] += a[i].z * b[d].z;\n"
-                     "          acc[i][d] += a[i].w * b[d].w;\n", "")],
-    # kernel 10: no L2 -> shared copies in the product (stale tiles)
-    "no_copy": [("lstm_common.cuh",
-                 "      cp_async16(dst + r * kTileStride + c, ok ? src + k0 + c"
-                 " : any, ok);\n", "")],
-    # kernel 10: a 4-deep k-tile pipeline
-    "stages4": [("lstm_common.cuh", "constexpr int kBStages = 3;",
-                 "constexpr int kBStages = 4;")],
-    # kernels 10 and 11: no grid barrier between the steps' phases (the
-    # prologue's barriers stay: the step ranks are read after them)
-    "no_barrier": [("lstm_fwd_blocked.cu", "grid.sync();", "(void)grid;"),
-                   ("lstm_bwd_blocked.cu", "grid.sync();  // step",
-                    "(void)grid;")],
-    # kernel 11: no tensor-core products (the loads, waits, drains and
-    # stores of the sums stay)
-    "no_products": [("lstm_bwd_blocked.cu",
+    # no grid barrier between the steps' phases (the prologue's barriers
+    # stay: the step ranks are read after them)
+    "no_barrier": [(_WG, "grid.sync();  // step", "(void)grid;"),
+                   (_FWD, "grid.sync();  // step", "(void)grid;")],
+    # no tensor-core products (the loads, waits, drains and stores of the
+    # sums stay)
+    "no_products": [(_WG,
                      "            wg::mma_ss_n128<0, 0>(acc, ah + 2 * kk, "
                      "bh + 2 * kk, kk > 0);\n"
                      "            wg::mma_ss_n128<0, 0>(acc, ah + 2 * kk, "
                      "bl + 2 * kk, 1);\n"
                      "            wg::mma_ss_n128<0, 0>(acc, al + 2 * kk, "
                      "bh + 2 * kk, 1);\n", "")],
-    # kernel 11: no TMA loads (each ring slot's barrier completes on its
-    # arrival; the products read stale tiles)
-    "no_loads": [("lstm_bwd_blocked.cu", "wg::mbar_expect(full + s, kStage);",
+    # no TMA loads, B's ahead of the barrier too (each ring slot's
+    # barrier completes on its arrival; the products read stale tiles)
+    "no_loads": [(_WG, "wg::mbar_expect(full + s, kStage);",
                   "wg::mbar_expect(full + s, 0);"),
-                 ("lstm_bwd_blocked.cu", "wg::tma_load_2d(",
-                  "if (0) wg::tma_load_2d(")],
-    # kernel 11: every tile loads w_hh's (or the dgates') planes at the
-    # same coordinates (one hot box in L2; the bytes stay)
-    "w_same": [("lstm_bwd_blocked.cu", "&tm_whi, full + s, k0, u0);",
-                "&tm_whi, full + s, 0, 0);"),
-               ("lstm_bwd_blocked.cu", "&tm_wlo, full + s, k0, u0);",
-                "&tm_wlo, full + s, 0, 0);")],
-    "a_same": [("lstm_bwd_blocked.cu", "&tm_ahi, full + s, k0, r0);",
-                "&tm_ahi, full + s, 0, 0);"),
-               ("lstm_bwd_blocked.cu", "&tm_alo, full + s, k0, r0);",
-                "&tm_alo, full + s, 0, 0);")],
-    # kernel 11: the tiles' skeleton (no TMA loads and no products)
+                 (_WG, "wg::tma_load_2d(", "if (0) wg::tma_load_2d(")],
+    # every tile loads B's (or A's) planes at the same coordinates (one
+    # hot box in L2; the bytes stay)
+    "w_same": [(_WG, "bhi, full + s, k0, c0);", "bhi, full + s, 0, 0);"),
+               (_WG, "blo, full + s, k0, c0);", "blo, full + s, 0, 0);")],
+    "a_same": [(_WG, "ahi, full + s, k0, r0);", "ahi, full + s, 0, 0);"),
+               (_WG, "alo, full + s, k0, r0);", "alo, full + s, 0, 0);")],
+    # the tiles' skeleton (no TMA loads and no products)
     "skeleton": "no_loads+no_products",
-    # kernel 11: no stores of the tiles' sums (kept live behind a test
-    # that never passes)
-    "no_epilogue": [("lstm_bwd_blocked.cu",
-                     "        if (row >= n || wgi >= 2) continue;",
-                     "        if (row >= n || wgi >= 2 || B > 0) continue;")],
-    # kernel 11: the pairs read no slice sums
-    "no_parts": [("lstm_bwd_blocked.cu", "      if (r >= 0)\n",
-                  "      if (r >= 0 && B < 0)\n")],
-    # kernel 11: the pairs run no phase A (their sums kept live in dhp)
-    "no_phase_a": [("lstm_bwd_blocked.cu",
-                    "        phase_a(a, t - 1, b, unit, dh, dc,\n"
-                    "                __ldcg(a.rank + (long)(t - 1) * B + b));",
+    # no stores of the tiles' sums (kept live behind a test that never
+    # passes)
+    "no_epilogue": [(_WG, "        if (row >= n || wgi >= 2) continue;",
+                     "        if (row >= n || wgi >= 2 || ldr > 0) "
+                     "continue;")],
+    # the pairs read no slice sums
+    "no_parts": [(_WG, "      if (r >= 0)\n        for (int sl",
+                  "      if (r >= 0 && B < 0)\n        for (int sl"),
+                 (_FWD, "for (int sl = 0; sl < n_slices; ++sl)",
+                  "for (int sl = 0; sl < n_slices && B < 0; ++sl)")],
+    # the backward's pairs run no phase A (their sums kept live in dhp)
+    "no_phase_a": [(_WG,
+                    "        phase_a<kDw>(a, d, t - 1, b, unit, dh, dc,\n"
+                    "                     __ldcg(a.rank + (long)(t - 1) * B"
+                    " + b), false, base);",
                     "        a.dhp[p] = dh + dc;")],
-    # kernel 11: no product tiles at all (phase A reads stale sums)
-    "no_tiles": [("lstm_bwd_blocked.cu", "      if (r0 >= n) continue;",
+    # no product tiles at all (the pairs read stale sums)
+    "no_tiles": [(_WG, "      if (r0 >= n) continue;",
                   "      if (r0 >= 0) continue;")],
-    # kernel 11: no pairs' work in the steps (the tiles read stale planes)
-    "no_pairs": [("lstm_bwd_blocked.cu",
-                  "    for (long p = first; p < BH; p += stride) {\n"
-                  "      const int b = (int)(p / H), unit = (int)(p % H);",
-                  "    for (long p = BH + first; p < BH; p += stride) {\n"
-                  "      const int b = (int)(p / H), unit = (int)(p % H);")],
-    # kernel 11: phase A writes no planes of dgates (the products read
-    # stale ones)
-    "no_plane_writes": [("lstm_bwd_blocked.cu",
+    # no pairs' work in the steps (the tiles read stale planes)
+    "no_pairs": [(_WG, _PAIRS + "      float dh",
+                  _PAIRS.replace("p = first", "p = BH + first")
+                  + "      float dh"),
+                 (_FWD, "for (long p = first; p < BH; p += 2 * stride)",
+                  "for (long p = BH + first; p < BH; p += 2 * stride)")],
+    # the pairs write no planes (the products read stale ones)
+    "no_plane_writes": [(_WG,
                          "    put_split(p, lo, di_pre);\n"
                          "    put_split(p + H, lo, df_pre);\n"
                          "    put_split(p + 2 * H, lo, dg_pre);\n"
-                         "    put_split(p + 3 * H, lo, do_pre);\n", "")],
+                         "    put_split(p + 3 * H, lo, do_pre);\n", ""),
+                        (_FWD, "  if (v.r1 >= 0)\n",
+                         "  if (v.r1 >= 0 && a.B < 0)\n")],
+    # kernel 9: no dW tiles after the loop (the splits' sum stays)
+    "no_dw": [(_WG, "task < n_dw * d.n_split;",
+               "task < n_dw * d.n_split && B < 0;")],
 }
 
 
@@ -123,6 +128,9 @@ def ptxas_lines(text):
 
 
 def build(name, src_dir, patch):
+    """Build one variant: its functions by symbol and which argument
+    forms its sources take ({"fwd_t": kernel 10 reads w_hh's transpose,
+    "bwd_u": kernel 9 takes U and per-CTA partials})."""
     from probe_build import build_variant
     edits = PATCHES.get(patch, [])
     if isinstance(edits, str):   # a combination of other knock-outs
@@ -131,13 +139,16 @@ def build(name, src_dir, patch):
                                KERNELS)
     print("\n".join(f"  {name}/{stem}: {ln}" for stem in KERNELS
                     for ln in ptxas_lines(ptxas[stem])), flush=True)
-    with open(os.path.join(src_dir, "lstm_bwd_blocked.cu")) as f:
-        ranks = "int* rank" in f.read()
-    if not ranks:   # the CUDA-core backward: 14 pointers, 3 ints
-        import ctypes
-        fns["lstm_bwd_blocked"].argtypes = \
-            [ctypes.c_void_p] * 14 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    return fns, ranks
+    read = lambda f: open(os.path.join(src_dir, f)).read()  # noqa: E731
+    old = {"fwd_t": "int* rank" not in read("lstm_fwd_blocked.cu"),
+           "bwd_u": "pbuf" in read("lstm_bwd.cu")}
+    if old["fwd_t"]:
+        fns["lstm_fwd_blocked"].argtypes = \
+            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    if old["bwd_u"]:
+        fns["lstm_bwd"].argtypes = \
+            [ctypes.c_void_p] * 16 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    return fns, old
 
 
 def time_ms(run, reps):
@@ -155,6 +166,11 @@ def time_ms(run, reps):
     return e0.elapsed_time(e1) / reps
 
 
+def valid_slices(n_sl, k):
+    chunks = -(-k // 64)
+    return 1 <= n_sl <= chunks and (n_sl - 1) * -(-chunks // n_sl) < chunks
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--csrc", action="append", default=[],
@@ -163,13 +179,14 @@ def main() -> int:
                     choices=sorted(PATCHES),
                     help="a knock-out of the repository's sources")
     ap.add_argument("--shape", action="append", default=[],
-                    help="B,T,H (default 128,100,1280 and 128,100,2048)")
+                    help="B,T,H (default 128,100,1280, 128,100,2048 and "
+                    "128,100,512)")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--slices", action="append", type=int, default=[],
-                    help="also time the repository's kernel 11 with this "
-                    "many K slices (its own plan otherwise)")
+                    help="also time the repository's kernels 9-11 with "
+                    "this many K slices (their own plans otherwise)")
     ap.add_argument("--only", action="append", default=[], choices=KERNELS,
-                    help="time only these kernels (all three by default)")
+                    help="time only these kernels (all by default)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -193,10 +210,13 @@ def main() -> int:
     for n_sl in args.slices:
         built[f"repo-s{n_sl}"] = (None, n_sl) + built["repo"][2:]
     shapes = [tuple(int(x) for x in s.split(",")) for s in args.shape] \
-        or [(128, 100, 1280), (128, 100, 2048)]
+        or [(128, 100, 1280), (128, 100, 2048), (128, 100, 512)]
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     s = torch.cuda.current_stream().cuda_stream
+    f32 = dict(device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    bf = dict(dtype=torch.bfloat16, device=dev)
     for b, t, h in shapes:
         rng = np.random.RandomState(0)          # the bench feed's lengths
         rng.randint(0, 30000, (b, t))
@@ -209,61 +229,111 @@ def main() -> int:
         xw, w = rnd(b, t, 4 * h, sc=0.3), rnd(h, 4 * h, sc=h ** -0.5)
         ck, h0, c0 = rnd(3, h, sc=0.1), rnd(b, h, sc=0.5), rnd(b, h, sc=0.5)
         dy, dyc = rnd(b, t, h), rnd(b, t, h)
+        blocked = h > 512
+        ref_f = (L.lstm_fwd_blocked_reference if blocked
+                 else L.lstm_fwd_reference)(xw, mask, w, ck, h0, c0)
+        hseq, cseq, gates = ref_f
+        if blocked:
+            ref_b = L.lstm_bwd_blocked_reference(gates, cseq, c0, mask, w,
+                                                 ck, dy, dyc)
+            ref_w = L.lstm_dw_blocked_reference(hseq, h0, ref_b[0], mask)
+        else:
+            ref_b = L.lstm_bwd_reference(gates, hseq, cseq, h0, c0, mask, w,
+                                         ck, dy, dyc)
+        plan = {k: (L.fwd_blocked_slices if k == "lstm_fwd_blocked"
+                    else L.bwd_blocked_slices)(b, h, sms) for k in SLICED}
+        n_split = L.bwd_dw_splits(h, sms)
+        kp4, kp1 = -(-4 * h // 64) * 64, -(-h // 64) * 64
+        n_cols = 4 * -(-h // 32) * 32
+        most = max([1] + list(plan.values()) + args.slices)
+        # scratch, sized for every variant and slicing
+        sc = {"part_b": torch.empty(most, b, h, **f32),
+              "part_f": torch.empty(most, b, n_cols, **f32),
+              "rank": torch.empty(t * b + t, **i32),
+              "rows": torch.empty(b * t + 1, **i32),
+              "wpl4": torch.empty(2, h, kp4, **bf),
+              "apl4": torch.empty(2, b, kp4, **bf),
+              "wplf": torch.empty(2, n_cols, kp1, **bf),
+              "aplf": torch.empty(2, b, kp1, **bf),
+              "state": [torch.empty(b, h, **f32) for _ in range(2)],
+              "ckp": torch.empty(3, b, h, **f32),
+              "dw_part": torch.empty(L.MAX_DW_SPLIT, h, 4 * h, **f32)}
         w_t = w.t().contiguous()
-        ref_f = L.lstm_fwd_blocked_reference(xw, mask, w, ck, h0, c0)
-        ref_b = L.lstm_bwd_blocked_reference(ref_f[2], ref_f[1], c0, mask, w,
-                                             ck, dy, dyc)
-        ref_w = L.lstm_dw_blocked_reference(ref_f[0], h0, ref_b[0], mask)
-        plan = L.bwd_blocked_slices(b, h, sms)
-        kp = -(-4 * h // 64) * 64
-        scratch_new = (torch.empty(max([plan] + args.slices), b, h,
-                                   device=dev),
-                       torch.empty(t * b + t, dtype=torch.int32, device=dev),
-                       torch.empty(2, h, kp, dtype=torch.bfloat16,
-                                   device=dev),
-                       torch.empty(2, b, kp, dtype=torch.bfloat16,
-                                   device=dev))
-        scratch_old = (torch.empty(4, b, h, device=dev),)
-        print(f"({b}, {t}, {h}): kernel 11 in {plan} K slices", flush=True)
+        u = L.units_per_cta(h, sms)
+        pbuf = torch.empty(2 * -(-h // (u or 1)) * b * (-(-h // 4) * 4),
+                           **f32) if not blocked else None
+        print(f"({b}, {t}, {h}): K slices {plan}, kernel 9's dW splits "
+              f"{n_split}", flush=True)
         for turn, order in enumerate((list(built), list(built)[::-1])):
             for name in order:
-                patch, n_sl, fn, ranks = built[name]
-                n_sl = n_sl or plan
+                patch, n_sl_opt, fn, old = built[name]
                 out_f = [torch.empty_like(x) for x in ref_f]
-                out_b = [torch.empty_like(ref_b[0])] + \
-                    [torch.empty_like(h0) for _ in range(4)]
+                out_b = [torch.empty_like(x) for x in ref_b]
                 dw = torch.empty_like(w)
-                n_split = fn["lstm_dw_blocked_splits"](b, t, h)
-                rows = torch.empty(b * t + 1, dtype=torch.int32, device=dev)
-                dw_part = torch.empty(n_split, h, 4 * h, device=dev)
-                scratch = scratch_new if ranks else scratch_old
-                bwd_ints = (b, t, h) + ((n_sl,) if ranks else ())
-                runs = {
-                    "lstm_fwd_blocked": lambda: fn["lstm_fwd_blocked"](
-                        *[x.data_ptr() for x in (xw, mask, w_t, ck, h0, c0,
-                                                 *out_f)], b, t, h, s),
-                    "lstm_bwd_blocked": lambda: fn["lstm_bwd_blocked"](
-                        *[x.data_ptr() for x in (ref_f[2], ref_f[1], c0,
-                                                 mask, w, ck, dy, dyc, *out_b,
-                                                 *scratch)], *bwd_ints, s),
-                    "lstm_dw_blocked": lambda: fn["lstm_dw_blocked"](
-                        *[x.data_ptr() for x in (ref_f[0], h0, ref_b[0], mask,
-                                                 rows, dw_part, dw)],
-                        b, t, h, n_split, s)}
+                runs = {}
+                n_sl = {k: n_sl_opt or plan[k] for k in SLICED}
+                if blocked:
+                    dw_split = fn["lstm_dw_blocked_splits"](b, t, h)
+                    if old["fwd_t"]:
+                        fwd_args = (xw, mask, w_t, ck, h0, c0, *out_f)
+                        fwd_ints = (b, t, h)
+                    else:
+                        fwd_args = (xw, mask, w, ck, h0, c0, *out_f,
+                                    sc["part_f"], sc["rank"], sc["wplf"],
+                                    sc["aplf"])
+                        fwd_ints = (b, t, h, n_sl["lstm_fwd_blocked"])
+                    runs["lstm_fwd_blocked"] = (lambda a=fwd_args, i=fwd_ints:
+                                                fn["lstm_fwd_blocked"](
+                        *[x.data_ptr() for x in a], *i, s))
+                    runs["lstm_bwd_blocked"] = lambda: fn["lstm_bwd_blocked"](
+                        *[x.data_ptr() for x in (gates, cseq, c0, mask, w,
+                                                 ck, dy, dyc, *out_b,
+                                                 *sc["state"], sc["part_b"],
+                                                 sc["rank"], sc["wpl4"],
+                                                 sc["apl4"])],
+                        b, t, h, n_sl["lstm_bwd_blocked"], s)
+                    runs["lstm_dw_blocked"] = lambda: fn["lstm_dw_blocked"](
+                        *[x.data_ptr() for x in (hseq, h0, ref_b[0], mask,
+                                                 sc["rows"], sc["dw_part"],
+                                                 dw)],
+                        b, t, h, dw_split, s)
+                else:
+                    runs["lstm_fwd"] = lambda: fn["lstm_fwd"](
+                        *[x.data_ptr() for x in (xw, mask, w, ck, h0, c0,
+                                                 *out_f)], b, t, h, u, s)
+                    bwd_in = (gates, hseq, cseq, h0, c0, mask, w, ck, dy,
+                              dyc, *out_b)
+                    if old["bwd_u"]:
+                        bwd_args, bwd_ints = bwd_in + (pbuf,), (b, t, h, u)
+                    else:
+                        bwd_args = bwd_in + (*sc["state"], sc["ckp"],
+                                             sc["part_b"], sc["rank"],
+                                             sc["rows"], sc["wpl4"],
+                                             sc["apl4"], sc["dw_part"])
+                        bwd_ints = (b, t, h, n_sl["lstm_bwd"], n_split)
+                    runs["lstm_bwd"] = (lambda a=bwd_args, i=bwd_ints:
+                                        fn["lstm_bwd"](
+                        *[x.data_ptr() for x in a], *i, s))
                 for k, run in runs.items():
                     if args.only and k not in args.only:
+                        continue
+                    if n_sl_opt and (k not in SLICED or not valid_slices(
+                            n_sl_opt, SLICED[k](h))):
                         continue
                     ms = time_ms(run, args.reps)
                     err = ""
                     if patch is None:
-                        got_f = out_f[:2] + [out_f[2] * mask[..., None]]
+                        got_f = out_f[:2] + [out_f[2] * mask[..., None]] \
+                            if blocked else out_f
                         got, want = {"lstm_fwd_blocked": (got_f, ref_f),
-                                     "lstm_bwd_blocked": (out_b[:3], ref_b),
+                                     "lstm_fwd": (got_f, ref_f),
+                                     "lstm_bwd_blocked": (out_b, ref_b),
+                                     "lstm_bwd": (out_b, ref_b),
                                      "lstm_dw_blocked": ([dw], [ref_w])}[k]
                         e = max(((x - y).abs().max() / y.abs().max()).item()
                                 for x, y in zip(got, want))
                         err = f", max err / max|ref| {e:.1e}"
-                    extra = f" ({n_split} splits)" \
+                    extra = f" ({dw_split} splits)" \
                         if k == "lstm_dw_blocked" else ""
                     print(f"turn {turn} ({b}, {t}, {h}) {name} {k}: "
                           f"{ms:.3f} ms{extra}{err}", flush=True)
