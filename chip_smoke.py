@@ -206,9 +206,9 @@ Phases (any failure exits nonzero, without the final ``ok`` line):
    share of the bound rate; kernels 18, 19 and 21 are bound by two bf16
    tensor-core passes (the f32 operand as hi + lo, ``CONV_BOUND_BASIS``),
    kernel 20 by one (its bf16 dy as it is), or by their bytes, whichever
-   is larger; kernels 17 and 9-12 by three bf16 passes (hi*hi + hi*lo
-   + lo*hi of their f32 operands, ``GRU_BOUND_BASIS``,
-   ``LSTM_BOUND_BASIS``; kernel 8 at the fp32 rate).
+   is larger; kernels 8-12, 16 and 17 by three bf16 passes (hi*hi +
+   hi*lo + lo*hi of their f32 operands, ``GRU_BOUND_BASIS``,
+   ``LSTM_BOUND_BASIS``; kernels 13-15 at the fp32 rate).
 
 Phases 3b-4f are PR 2's H 512 phases and run in fp32 (``use_bf16``
 off), so their readings stay comparable.  The order of the run: 1-3f,
@@ -1135,18 +1135,24 @@ PORT_KERNEL_MARKS = ("conv3x3", "lstm", "gru_", "flash_", "paged_decode",
 
 
 #: the LSTM kernels by the marks of their symbols in a profile
-LSTM_PROFILE_MARKS = {"kernel 8": "lstm_fwd_kernel<",
+LSTM_PROFILE_MARKS = {"kernel 8": "lstm_fwd_wg_kernel<",
                       "kernel 9": "lstm_bwd_wg_kernel<256",
                       "kernel 10": "lstm_fwd_blocked_kernel",
                       "kernel 11": "lstm_bwd_wg_kernel<384",
                       "kernel 12": "lstm_dw_blocked_kernel<"}
+#: the GRU kernels by the marks of their symbols in a profile
+GRU_PROFILE_MARKS = {"kernel 13": "gru_fwd_kernel",
+                     "kernel 14": "gru_bwd_kernel",
+                     "kernel 15": "gru_fwd_blocked_kernel",
+                     "kernel 16": "gru_bwd_blocked_kernel",
+                     "kernel 17": "gru_dw_blocked_kernel"}
 
 
 def phase_profile_train(trainer, feed, named=()):
     """3 training steps under torch.profiler: device time by kernel (the
     14 largest, and the port's own kernels further down), the device's
     busy share, and the device time a step of each kernel in ``named``
-    (keys of ``LSTM_PROFILE_MARKS``)."""
+    (keys of ``LSTM_PROFILE_MARKS`` or ``GRU_PROFILE_MARKS``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -1168,7 +1174,7 @@ def phase_profile_train(trainer, feed, named=()):
         log(f"    {us / 1e3:9.3f} ms ({us / 3e3:8.3f} a step)  {n:6d} x  "
             f"{key[:90]}")
     for label in named:
-        mark = LSTM_PROFILE_MARKS[label]
+        mark = {**LSTM_PROFILE_MARKS, **GRU_PROFILE_MARKS}[label]
         us = sum(r[1] for r in rows if mark in r[0])
         n = sum(r[2] for r in rows if mark in r[0])
         log(f"  {label} ({mark}): {us / 3e3:.3f} ms a step, {n / 3:.0f} "
@@ -1345,11 +1351,11 @@ def phase_blocked_check(dev):
     return errs
 
 
-#: the bound's basis of the LSTM kernels: (passes, rate) -- 8 multiplies
-#: f32 on the CUDA cores; 9, 10, 11 (the step products) and 9, 12 (dW)
-#: multiply their f32 operands on the tensor cores as hi*hi + hi*lo +
-#: lo*hi, three bf16 passes (csrc/lstm_wg.cuh, csrc/dw_wg.cuh)
-LSTM_BOUND_BASIS = {"lstm_fwd": (1, FP32_FLOPS_PER_S),
+#: the bound's basis of the LSTM kernels: (passes, rate) -- 8, 9, 10, 11
+#: (the step products) and 9, 12 (dW) multiply their f32 operands on the
+#: tensor cores as hi*hi + hi*lo + lo*hi, three bf16 passes
+#: (csrc/lstm_fwd.cu, csrc/lstm_wg.cuh, csrc/dw_wg.cuh)
+LSTM_BOUND_BASIS = {"lstm_fwd": (3, BF16_FLOPS_PER_S),
                     "lstm_bwd": (3, BF16_FLOPS_PER_S),
                     "lstm_fwd_blocked": (3, BF16_FLOPS_PER_S),
                     "lstm_bwd_blocked": (3, BF16_FLOPS_PER_S),
@@ -2229,12 +2235,12 @@ def phase_c1_card(dev):
             "out_err": e_out, "grad_err": e_grad}
 
 
-#: the bound's basis of the blocked GRU kernels: (passes, rate) -- 15 and
-#: 16 multiply f32 on the CUDA cores; 17 multiplies its f32 operands on
-#: the tensor cores as hi*hi + hi*lo + lo*hi, three bf16 passes
-#: (csrc/dw_wg.cuh)
+#: the bound's basis of the blocked GRU kernels: (passes, rate) -- 15
+#: multiplies f32 on the CUDA cores; 16 (its two step products) and 17
+#: multiply their f32 operands on the tensor cores as hi*hi + hi*lo +
+#: lo*hi, three bf16 passes (csrc/lstm_wg.cuh, csrc/dw_wg.cuh)
 GRU_BOUND_BASIS = {"gru_fwd_blocked": (1, FP32_FLOPS_PER_S),
-                   "gru_bwd_blocked": (1, FP32_FLOPS_PER_S),
+                   "gru_bwd_blocked": (3, BF16_FLOPS_PER_S),
                    "gru_dw_blocked": (3, BF16_FLOPS_PER_S)}
 
 
@@ -2257,8 +2263,8 @@ def phase_time_gru_blocked(dev, launches):
     """Kernels 15-17 at the H 1024 main path's encoder shape (B 128, T 30,
     every step valid, h0 zero), each against its plain version, then
     timed with it; ``torch.matmul`` of the two dW products as kernel 17's
-    yardstick; the bounds on the basis of ``GRU_BOUND_BASIS`` (17's at
-    the fp32 rate too, for comparison)."""
+    yardstick; the bounds on the basis of ``GRU_BOUND_BASIS`` (16's and
+    17's at the fp32 rate too, in the log only)."""
     import torch
     from paddle_tpu_torch.ops import gru as G
     b, t, h = S2S["B"], S2S["T"], S2S_WIDE_H
@@ -3341,7 +3347,7 @@ def main() -> int:
         for name in launches:
             launches[name]["seq2seq"] = s2s_launches[name]
         log("== phase 4r: profile of 3 seq2seq steps")
-        phase_profile_train(trainer, feed)
+        phase_profile_train(trainer, feed, ("kernel 13", "kernel 14"))
         del trainer, feed
         torch.cuda.empty_cache()
         log(f"== phase 4t: seq2seq at H {S2S_WIDE_H} (the row's model, feed, "
@@ -3351,7 +3357,8 @@ def main() -> int:
         for name in launches:
             launches[name]["seq2seq_h1024"] = wide_launches[name]
         log(f"  profile of 3 steps at H {S2S_WIDE_H}")
-        phase_profile_train(trainer, feed)
+        phase_profile_train(trainer, feed,
+                            ("kernel 15", "kernel 16", "kernel 17"))
         del trainer, feed
         torch.cuda.empty_cache()
         log("== phase 4v: C1 on the card: gru_sequence (6, 10, 128) under "

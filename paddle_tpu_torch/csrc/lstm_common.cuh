@@ -17,14 +17,13 @@
 // zero-filled and never written.
 //
 // The products here run on CUDA cores in fp32 (TF32 would change the
-// numbers): the single-block LSTM forward (kernel 8) and the GRU kernels
-// 13-16.  Shared memory serves one 32-bit word per bank per cycle, so a
-// product is register-blocked: each thread keeps a 4 x 4 block of sums
-// and reads its operands as float4, 2 shared loads per 16 FMAs.  The
-// other LSTM kernels' products -- the step products of kernels 9-11
-// (lstm_wg.cuh) and the dW products of kernels 9, 12 and 17 (dw_wg.cuh)
-// -- run on the tensor cores instead, their f32 operands as hi + lo bf16
-// in three passes.
+// numbers): the GRU kernels 13-15.  Shared memory serves one 32-bit word
+// per bank per cycle, so a product is register-blocked: each thread keeps
+// a 4 x 4 block of sums and reads its operands as float4, 2 shared loads
+// per 16 FMAs.  The other recurrent kernels' products -- the step
+// products of kernels 8-11 and 16 (lstm_fwd.cu, lstm_wg.cuh) and the dW
+// products of kernels 9, 12 and 17 (dw_wg.cuh) -- run on the tensor cores
+// instead, their f32 operands as hi + lo bf16 in three passes.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -291,12 +290,11 @@ __device__ __forceinline__ void dw_tile(ARow arow, BRow brow, int R, int K,
 // tiles (kBRows batch rows x COLS columns) with a stride of the grid, so
 // any B and H run on any grid size, and a tile's result does not depend
 // on the grid.  Nothing stays resident: both operands of every product
-// stream from L2.  The CUDA-core tiles below serve the GRU's forward and
-// backward (kernels 15 and 16): a CTA has kBThreads threads in KG
-// k-groups; the launcher picks, among the tile widths below, the one that
-// spreads a step's work most evenly over the co-resident CTAs
-// (tile_cost).  The LSTM's (10, 11) run on lstm_wg.cuh's tensor-core
-// tiles.
+// stream from L2.  The CUDA-core tiles below serve the GRU's forward
+// (kernel 15): a CTA has kBThreads threads in KG k-groups; the launcher
+// picks, among the tile widths below, the one that spreads a step's work
+// most evenly over the co-resident CTAs (tile_cost).  The LSTM's (10, 11)
+// and the GRU's backward (16) run on lstm_wg.cuh's tensor-core tiles.
 constexpr int kBThreads = 512;   // threads of a blocked-tier CTA
 constexpr int kBRows = 128;      // batch rows of a blocked-tier tile
 constexpr int kBStages = 3;      // k tiles in flight: 2 loading, 1 in use

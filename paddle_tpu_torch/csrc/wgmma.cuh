@@ -4,8 +4,8 @@
 // LSTM's step products (lstm_wg.cuh) and the dW tile (dw_wg.cuh).
 //
 // A warpgroup is 4 consecutive warps (128 threads, the first warp's index
-// a multiple of 4).  One wgmma adds a 64 x N product (N in {32, 64, 128}
-// here) of bf16 operands, 16 deep, into f32 accumulators.  Warp w of the
+// a multiple of 4).  One wgmma adds a 64 x N product (N in {16, 32, 64,
+// 128} here) of bf16 operands, 16 deep, into f32 accumulators.  Warp w of the
 // group owns rows 16w..16w+15 in mma.sync's m16n8 layout: thread (g =
 // lane / 4, t = lane % 4) holds, for each 8-column block j, d[4j + 0, 1]
 // = (row g, columns 8j + 2t, + 1) and d[4j + 2, 3] = (row g + 8, the same
@@ -200,6 +200,19 @@ inline bool tma_map(CUtensorMap* map, const void* base, int rank,
 
 #define WG_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
 #define WG_D16(i) WG_D4(i), WG_D4(i + 4), WG_D4(i + 8), WG_D4(i + 12)
+
+// d[64 x 16] (+)= A[64 x 16] * B[16 x 16], A and B from shared memory,
+// both K-major.
+__device__ __forceinline__ void mma_ss_n16(float* d, uint64_t adesc,
+                                           uint64_t bdesc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, 0, 0;\n}\n"
+      : WG_D4(0), WG_D4(4)
+      : "l"(adesc), "l"(bdesc), "r"(scale_d));
+}
 
 // d[64 x 64] (+)= A[64 x 16] * B[16 x 64], A and B from shared memory.
 template <int TNSPB>

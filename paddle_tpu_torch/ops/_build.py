@@ -60,7 +60,7 @@ SIGNATURES = {
     "flash_bwd_dkv_legacy": ("flash_bwd_dkv",
                              [_C] * 9 + [_I] * 6 + [_L] * 8 + [_I, _F, _C]),
     "embedding_gather": ("embedding_gather", [_C] * 3 + [_I] * 3 + [_C]),
-    "lstm_fwd": ("lstm_fwd", [_C] * 9 + [_I] * 4 + [_C]),
+    "lstm_fwd": ("lstm_fwd", [_C] * 10 + [_I] * 4 + [_C]),
     "lstm_bwd": ("lstm_bwd", [_C] * 24 + [_I] * 5 + [_C]),
     "lstm_fwd_blocked": ("lstm_fwd_blocked", [_C] * 13 + [_I] * 4 + [_C]),
     "lstm_bwd_blocked": ("lstm_bwd_blocked", [_C] * 17 + [_I] * 4 + [_C]),
@@ -73,7 +73,7 @@ SIGNATURES = {
     "gru_fwd": ("gru_fwd", [_C] * 8 + [_I] * 3 + [_C]),
     "gru_bwd": ("gru_bwd", [_C] * 12 + [_I] * 3 + [_C]),
     "gru_fwd_blocked": ("gru_fwd_blocked", [_C] * 8 + [_I] * 3 + [_C]),
-    "gru_bwd_blocked": ("gru_bwd_blocked", [_C] * 12 + [_I] * 3 + [_C]),
+    "gru_bwd_blocked": ("gru_bwd_blocked", [_C] * 18 + [_I] * 5 + [_C]),
     "gru_dw_blocked": ("gru_dw_blocked", [_C] * 8 + [_I] * 4 + [_C]),
     "gru_dw_blocked_splits": ("gru_dw_blocked", [_I] * 3),
 }

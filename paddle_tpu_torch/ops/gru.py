@@ -18,13 +18,19 @@ one GRU direction in one persistent cooperative launch, except the last
   (``csrc/gru_bwd_blocked.cu``, kernel 16; plain
   :func:`gru_bwd_blocked_reference`: dxw, dh0 and r·h_prev, no dW) and
   :func:`gru_dw_blocked` (``csrc/gru_dw_blocked.cu``, kernel 17; plain
-  :func:`gru_dw_blocked_reference`: dW_gates, dW_cand).  Forward and
-  backward walk tiles of 128 batch rows x U hidden units with a
-  persistent cooperative grid, two grid barriers a step; their products
-  take only the rows valid at each step (a padded step keeps h, its
-  residue is written as 0 and its dxw is exact zeros), and so does the
-  dW product, which runs on the tensor cores (``csrc/dw_wg.cuh``: the f32
-  operands as hi + lo bf16, three passes).
+  :func:`gru_dw_blocked_reference`: dW_gates, dW_cand).  The forward
+  walks tiles of 128 batch rows x U hidden units with a persistent
+  cooperative grid, two grid barriers a step; the backward runs its two
+  step products (drh = dc_pre_t @ w_candᵀ, the carry's dg_t @ w_gatesᵀ)
+  on the LSTM's tensor-core step loop (``csrc/lstm_wg.cuh``: bf16 hi/lo
+  planes it writes itself, each step's in compacted row order, K slices
+  from :func:`bwd_blocked_slices` summed in order), four grid barriers a
+  step.  Their products take only the rows valid at each step (a padded
+  step keeps h, its residue is written as 0 and its dxw is exact zeros),
+  and so does the dW product, which runs on the tensor cores
+  (``csrc/dw_wg.cuh``).  The tensor-core products take their f32
+  operands as hi + lo bf16, three passes, each 64-deep chunk's sums
+  added in f32.
 
 Gate layout (u, r, c), w_gates ``[H, 2H]`` (u | r), w_cand ``[H, H]``;
 the reset gate applies before the candidate product: c = tanh(x_c +
@@ -46,12 +52,12 @@ raise — a shape the kernel's tier does not serve (:func:`fused_tier`)
 raises too, never falls back.  Each wrapper counts its launches in
 ``.launches``.
 
-Precision: the kernels compute in fp32, whatever the policy (kernel 17's
-products as three bf16 passes of the f32 operands' hi and lo parts).  The
-public functions cast xw to fp32 before the kernels (a bf16 xw converts
-exactly), so autograd returns dxw in xw's dtype, as ``_gru_core_bwd``
-and ``_gru_core_blocked_bwd`` cast dxw to xw's dtype
-(``pallas_gru.py:213,524``).
+Precision: the kernels compute in fp32, whatever the policy (the
+products of kernels 16 and 17 as three bf16 passes of the f32 operands'
+hi and lo parts).  The public functions cast xw to fp32 before the
+kernels (a bf16 xw converts exactly), so autograd returns dxw in xw's
+dtype, as ``_gru_core_bwd`` and ``_gru_core_blocked_bwd`` cast dxw to
+xw's dtype (``pallas_gru.py:213,524``).
 """
 
 from __future__ import annotations
@@ -62,7 +68,8 @@ import torch
 
 from ..utils import FLAGS, PaddleTpuError, enforce
 from . import _build
-from .lstm import SM_COUNT, SMEM_BYTES, _check, _launch, _on_card, _shifted
+from .lstm import (CHUNK, SM_COUNT, SMEM_BYTES, TILE_COLS, TILE_ROWS, _check,
+                   _launch, _on_card, _plane_slices, _shifted, _sms)
 
 #: Hidden units per CTA of the single-block kernels (its 2U gate and U
 #: candidate columns feed the register-blocked products of
@@ -78,8 +85,9 @@ MAX_BLOCKED_HIDDEN = 26754
 # [128, 68] tiles and the k-group partial sums
 _TILE_FLOATS, _RED_FLOATS = 3 * 128 * 68, 8 * 128 * 4
 # blocked tier: 3 staging buffers of (128 rows + at most 32 columns) x 68
-# floats (forward and backward tiles, GruTile<16>); dW 1 KB of alignment
-# and 3 stages of four [64, 128] bf16 planes (csrc/dw_wg.cuh)
+# floats (the forward's tiles, GruTile<16>); the backward's ring
+# (csrc/lstm_wg.cuh) and the dW's (csrc/dw_wg.cuh), each 1 KB of
+# alignment and 3 stages of four 16 KB bf16 planes
 _BLOCKED_FLOATS = (3 * 160 * 68, (1024 + 3 * 4 * 64 * 128 * 2) // 4)
 
 
@@ -95,6 +103,18 @@ def smem_bytes(b: int, h: int) -> Tuple[int, int]:
     bwd = (_round_up(h, 64) + _round_up(2 * h, 64)) * u + _TILE_FLOATS \
         + _RED_FLOATS + 3 * b * u
     return 4 * fwd, 4 * bwd
+
+
+def bwd_blocked_slices(b: int, h: int, sms: int = SM_COUNT
+                       ) -> Tuple[int, int]:
+    """K slices of kernel 16's two step products at (b, h), on
+    ``lstm._plane_slices``' rule: drh (K = h) and the carry's pull-back
+    (K = 2h), both in 128-unit column blocks (at B 128, H 1024 on 132
+    SMs: 8 unit blocks x 8 slices of 2 chunks, 64 tiles, and 8 x 16
+    slices of 2, 128 tiles)."""
+    blocks = -(-b // TILE_ROWS) * -(-h // TILE_COLS)
+    return (_plane_slices(-(-h // CHUNK), blocks, sms),
+            _plane_slices(-(-2 * h // CHUNK), blocks, sms))
 
 
 def fused_tier(b: int, h: int, sms: int = SM_COUNT) -> Optional[str]:
@@ -350,11 +370,26 @@ def gru_bwd_blocked(gates, hseq, h0, mask, w_gates, w_cand, dy
     rh = torch.empty_like(hseq)
     if gates.numel() == 0:
         return dxw, dh0.zero_(), rh
-    # per-(row, unit) scratch: the local share of the carry, drh * r
+    dev = gates.device
+    n_c, n_g = bwd_blocked_slices(b, hd, _sms(dev))
+    kc, kg = _round_up(hd, CHUNK), _round_up(2 * hd, CHUNK)
+    # scratch: the local share of the carry and drh * r per (row, unit);
+    # a product's sums by K slice; each step's row ranks and counts; the
+    # hi and lo bf16 planes of w_cand, w_gates (pitch kc, kg) and of a
+    # step's dc_pre and dg = (du_pre | dr_pre)
     dhl, drr = torch.empty_like(h0), torch.empty_like(h0)
+    f32, bf16 = dict(dtype=torch.float32, device=dev), \
+        dict(dtype=torch.bfloat16, device=dev)
+    part = torch.empty((max(n_c, n_g), b, hd), **f32)
+    rank = torch.empty(t * b + t, dtype=torch.int32, device=dev)
+    wcpl = torch.empty((2, hd, kc), **bf16)
+    wgpl = torch.empty((2, hd, kg), **bf16)
+    cpl = torch.empty((2, b, kc), **bf16)
+    gpl = torch.empty((2, b, kg), **bf16)
     _launch("gru_bwd_blocked",
-            [x.data_ptr() for x in args + (dxw, dh0, rh, dhl, drr)],
-            (b, t, hd), gates.device)
+            [x.data_ptr() for x in args + (dxw, dh0, rh, dhl, drr, part,
+                                           rank, wcpl, wgpl, cpl, gpl)],
+            (b, t, hd, n_c, n_g), dev)
     gru_bwd_blocked.launches += 1
     return dxw, dh0, rh
 

@@ -8,8 +8,9 @@ last (an ordinary product):
 - single-block tier, H <= 512 (``"fused"``):
   :func:`lstm_fwd` (``csrc/lstm_fwd.cu``; plain version
   :func:`lstm_fwd_reference`) writes the kept state sequences H, C and
-  the activated gates, on a grid of U hidden units a CTA and CUDA-core
-  products; :func:`lstm_bwd` (``csrc/lstm_bwd.cu``; plain
+  the activated gates, on a grid of U hidden units a CTA, each holding
+  its gate columns of w_hh in shared memory, one grid barrier a step;
+  :func:`lstm_bwd` (``csrc/lstm_bwd.cu``; plain
   :func:`lstm_bwd_reference`) gives dxw, dW_hh, the peephole grads,
   dh0, dc0 in one launch, on the blocked backward's tensor-core step loop
   (``csrc/lstm_wg.cuh``) and, after it, the dW tile (``csrc/dw_wg.cuh``);
@@ -26,15 +27,16 @@ last (an ordinary product):
   each step (a padded step keeps its state; its dgates are exact zeros,
   and the forward writes its gates as 0).
 
-The step products of kernels 9-11 (the forward's h_{t-1} @ w_hh, the
-backward's pull-back dgates_t @ w_hh^T) and the dW products (9, 12) run
+The step products of kernels 8-11 (the forwards' h_{t-1} @ w_hh, the
+backwards' pull-back dgates_t @ w_hh^T) and the dW products (9, 12) run
 on the tensor cores with their f32 operands as hi + lo bf16 (three
 passes, each 64-deep chunk's sums added in f32): the step products over
 bf16 planes the kernels write themselves (w_hh's once, each step's h or
-dgates in compacted row order), cut into K slices
-(:func:`fwd_blocked_slices`, :func:`bwd_blocked_slices`) summed in order;
-the dW products over the listed valid rows, split when their tiles would
-leave a round of CTAs mostly idle.
+dgates), for 9-11 in compacted row order, cut into K slices
+(:func:`fwd_blocked_slices`, :func:`bwd_blocked_slices`) summed in
+order, for 8 whole K per CTA against its own columns of w_hh held in
+shared memory; the dW products over the listed valid rows, split when
+their tiles would leave a round of CTAs mostly idle.
 
 :class:`_LstmCore` and :class:`_LstmCoreBlocked` (``torch.autograd.
 Function``) launch the forward kernel in their forward and the backward
@@ -73,17 +75,20 @@ from . import _build
 #: shared memory one block may use.
 SM_COUNT = 132
 SMEM_BYTES = 232448
-#: Hidden units per CTA the single-block kernels are built for (4U gate
-#: columns must divide the 256-thread block).
+#: Hidden units per CTA the single-block forward is built for (its 4U
+#: gate columns are rows of one 16-wide wgmma tile).
 UNITS = (1, 2, 4)
 #: Largest H the single-block kernels take; above it, the blocked tier.
 MAX_HIDDEN = 512
 #: Largest H of the blocked tier: the kernels count a row-step's 4H gate
 #: columns and w_hh's 4H^2 elements in 32-bit ints.
 MAX_BLOCKED_HIDDEN = 23170
-# the single-block forward's shared-memory pieces (csrc/lstm_common.cuh,
-# csrc/lstm_fwd.cu), in floats
-_TILE_FLOATS, _RED_FLOATS = 3 * 128 * 68, 8 * 128 * 4
+# the single-block forward's shared memory (csrc/lstm_fwd.cu), in bytes:
+# 1 KB of alignment, w_hh's 16 gate columns as hi and lo planes of at
+# most 8 chunks (2 KB each), a ring of 4 stages of A's hi and lo planes
+# (16 KB each) and the sums of 128 rows x 17 floats; then the h and c
+# carries, 2 x B x U floats
+_FWD_FIXED_BYTES = 1024 + 2 * 8 * 2048 + 4 * 2 * 16384 + 4 * 128 * 17
 # the tensor-core kernels' ring (9-11: csrc/lstm_wg.cuh; 9's and 12's dW
 # tile, csrc/dw_wg.cuh, reuses it), in bytes: 3 stages of four 16 KB bf16
 # planes and 1 KB for their alignment, whatever B and H
@@ -142,10 +147,9 @@ def units_per_cta(h: int, sms: int = SM_COUNT) -> Optional[int]:
 def smem_bytes(b: int, h: int, u: int) -> Tuple[int, int]:
     """Dynamic shared memory of the single-block (forward, backward)
     kernels, in bytes — the arithmetic of ``csrc/lstm_fwd.cu`` (U units a
-    CTA) and of the backward's ring (``csrc/lstm_wg.cuh``, any b and h)."""
-    n = 4 * u
-    fwd = -(-h // 64) * 64 * n + _TILE_FLOATS + _RED_FLOATS + b * n + 2 * b * u
-    return 4 * fwd, _RING_BYTES
+    CTA, their h and c carries for every row) and of the backward's ring
+    (``csrc/lstm_wg.cuh``, any b and h)."""
+    return _FWD_FIXED_BYTES + 8 * b * u, _RING_BYTES
 
 
 def fused_tier(b: int, h: int, sms: int = SM_COUNT) -> Optional[str]:
@@ -357,15 +361,20 @@ def lstm_fwd(xw, mask, w_hh, checks, h0, c0
     if not _on_card(args):
         return lstm_fwd_reference(*args)
     _tier_on_card(b, hd, xw.device, "fused")
-    u = units_per_cta(hd, torch.cuda.get_device_properties(
-        xw.device).multi_processor_count)
-    hseq = torch.empty((b, t, hd), dtype=torch.float32, device=xw.device)
+    dev = xw.device
+    u = units_per_cta(hd, _sms(dev))
+    hseq = torch.empty((b, t, hd), dtype=torch.float32, device=dev)
     cseq = torch.empty_like(hseq)
     gates = torch.empty_like(xw)
     if xw.numel() == 0:
         return hseq, cseq, gates
-    _launch("lstm_fwd", [x.data_ptr() for x in args + (hseq, cseq, gates)],
-            (b, t, hd, u), xw.device)
+    # scratch: h's hi and lo bf16 planes (pitch kp), two buffers by step
+    # parity
+    kp = -(-hd // CHUNK) * CHUNK
+    apl = torch.empty((2, 2, b, kp), dtype=torch.bfloat16, device=dev)
+    _launch("lstm_fwd",
+            [x.data_ptr() for x in args + (hseq, cseq, gates, apl)],
+            (b, t, hd, u), dev)
     lstm_fwd.launches += 1
     return hseq, cseq, gates
 

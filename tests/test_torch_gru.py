@@ -329,9 +329,9 @@ def test_card_path_raises_for_the_blocked_tier(monkeypatch):
 def test_card_path_launches_kernels_15_16_17_in_order(monkeypatch):
     """A training step through ``gru_sequence`` at H 1024 on the card
     launches the blocked forward, then the blocked BPTT, then the
-    blocked dW, once each (the launches are recorded, not run: the
-    device test, the launcher and the dW's split query, here 2, are
-    monkeypatched)."""
+    blocked dW, once each, the BPTT with its two products' K slices (the
+    launches are recorded, not run: the device test, the launcher and
+    the dW's split query, here 2, are monkeypatched)."""
     launched = []
     monkeypatch.setattr(tg, "_on_card", lambda tensors: True)
     monkeypatch.setattr(tg, "_launch",
@@ -348,7 +348,8 @@ def test_card_path_launches_kernels_15_16_17_in_order(monkeypatch):
                                                       int32)), None, w)
     (out.data.sum() + final.sum()).backward()
     assert launched == [("gru_fwd_blocked", (8, 2, h)),
-                        ("gru_bwd_blocked", (8, 2, h)),
+                        ("gru_bwd_blocked",
+                         (8, 2, h) + tg.bwd_blocked_slices(8, h)),
                         ("gru_dw_blocked", (8, 2, h, 2))]
     assert [fn.launches for fn in tg.KERNEL_WRAPPERS] == [0, 0, 1, 1, 1]
     tg.reset_launch_counts()

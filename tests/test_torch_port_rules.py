@@ -320,6 +320,64 @@ def test_blocked_lstm_fwd_card_path_hands_its_scratch(monkeypatch):
     assert len(launched) == 1
 
 
+def test_lstm_fwd_card_path_hands_its_planes(monkeypatch):
+    """On CUDA the single-block forward (kernel 8) hands its kernel the
+    scratch it writes: h's hi and lo bf16 planes in two buffers by step
+    parity [2, 2, B, Kp] (Kp = H rounded up to 64; every row, no ranks),
+    with U from ``units_per_cta``.  w_hh is not copied: each CTA writes
+    its own columns' planes into shared memory.  Nothing is launched,
+    and the input checks still run first."""
+    b, t, h = 3, 4, 70
+    args = _lstm_fwd_args(b, t, h)
+    launched, made = _spy_card_launch(monkeypatch, "fused")
+    monkeypatch.setattr(tl.lstm_fwd, "launches", 0)
+    tl.lstm_fwd(*args)
+    assert launched == [("lstm_fwd", 10, (b, t, h, tl.units_per_cta(h)))]
+    assert tl.lstm_fwd.launches == 1
+    assert made == [((b, t, h), torch.float32),
+                    ((2, 2, b, 128), torch.bfloat16)]
+    bad = list(args)
+    bad[5] = bad[5].to(torch.bfloat16)
+    with pytest.raises(PaddleTpuError):
+        tl.lstm_fwd(*bad)
+    assert len(launched) == 1
+
+
+#: (b, h, sms) -> the tier the LSTM and GRU tests assert, before and after
+#: kernels 8 and 16 moved onto the tensor cores
+_LSTM_TIERS = {(128, 512, 132): "fused", (5, 96, 132): "fused",
+               (8, 128, 132): "fused", (6, 200, 132): "fused",
+               (200, 50, 132): "fused", (3, 64, 132): "fused",
+               (128, 513, 132): "fused_blocked",
+               (128, 640, 132): "fused_blocked",
+               (128, 1280, 132): "fused_blocked",
+               (128, 2048, 132): "fused_blocked",
+               (7, 700, 132): "fused_blocked",
+               (8192, 512, 132): None, (128, 512, 114): None}
+_GRU_TIERS = {(128, 512, 132): "fused", (3, 50, 132): "fused",
+              (128, 513, 132): "fused_blocked",
+              (3, 1024, 132): "fused_blocked",
+              (16, 520, 132): "fused_blocked",
+              (5, 514, 132): "fused_blocked",
+              (4096, 8, 132): None, (128, 512, 127): None}
+
+
+@pytest.mark.parametrize("kind", ["lstm", "gru"])
+def test_fused_tier_answers_as_before(kind):
+    """``fused_tier`` gives the same label at every shape the LSTM and GRU
+    tests assert, now that kernel 8's shared memory is its resident
+    planes, ring and carries (at B 8192, H 512 the carries of U = 4 units
+    leave no room: no tier, as before) and kernel 16 runs on the blocked
+    tier's 193 KB ring."""
+    mod, tiers = (tl, _LSTM_TIERS) if kind == "lstm" else (tgru, _GRU_TIERS)
+    for (b, h, sms), want in tiers.items():
+        assert mod.fused_tier(b, h, sms) == want, (b, h, sms)
+    assert mod.fused_tier(128, mod.MAX_BLOCKED_HIDDEN + 1) is None
+    if kind == "lstm":
+        assert tl.units_per_cta(512) == 4 and tl.units_per_cta(128) == 1
+        assert max(tl.smem_bytes(128, 512, 4)) <= tl.SMEM_BYTES
+
+
 @pytest.mark.parametrize("wrapper,make,pos,bad", [
     (tl.lstm_fwd, _lstm_fwd_args, 0, lambda t: t.to(torch.bfloat16)),
     (tl.lstm_fwd, _lstm_fwd_args, 2,
@@ -602,3 +660,42 @@ def test_blocked_gru_wrappers_reject_bad_inputs(wrapper, make, pos, bad):
     args[pos] = bad(args[pos])
     with pytest.raises(PaddleTpuError):
         wrapper(*args)
+
+
+def test_blocked_gru_bwd_card_path_hands_its_scratch(monkeypatch):
+    """On CUDA the blocked BPTT (kernel 16) hands its kernel the scratch
+    it writes: the two products' sums by K slice [max(Sc, Sg), B, H] f32
+    (Sc, Sg from ``bwd_blocked_slices``), each step's row ranks and
+    counts (T*B + T int32), and the hi and lo bf16 planes of w_cand [2,
+    H, Kc], w_gates [2, H, Kg], a step's dc_pre [2, B, Kc] and dg [2, B,
+    Kg] (Kc, Kg = H, 2H rounded up to 64).  The device test and the
+    launch are monkeypatched so the CPU reaches the launch; nothing is
+    launched, and the input checks still run first."""
+    b, t, h = 3, 4, 40
+    args = _gru_bwd_args(b, t, h)
+    monkeypatch.setattr(tgru, "_on_card", lambda tensors: True)
+    monkeypatch.setattr(tgru, "fused_tier", lambda *a: "fused_blocked")
+    launched, made = [], []
+    real_empty = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda *a, **k: made.append(
+        (tuple(a[0]) if a and isinstance(a[0], tuple) else a, k["dtype"]))
+        or real_empty(*a, **k))
+    monkeypatch.setattr(tgru, "_launch", lambda sym, ptrs, ints, dev:
+                        launched.append((sym, len(ptrs), ints)))
+    monkeypatch.setattr(tgru.gru_bwd_blocked, "launches", 0)
+    tgru.gru_bwd_blocked(*args)
+    s_c, s_g = tgru.bwd_blocked_slices(b, h)
+    assert (s_c, s_g) == (1, 1)
+    assert launched == [("gru_bwd_blocked", 18, (b, t, h, s_c, s_g))]
+    assert tgru.gru_bwd_blocked.launches == 1
+    assert made == [((max(s_c, s_g), b, h), torch.float32),
+                    ((t * b + t,), torch.int32),
+                    ((2, h, 64), torch.bfloat16),
+                    ((2, h, 128), torch.bfloat16),
+                    ((2, b, 64), torch.bfloat16),
+                    ((2, b, 128), torch.bfloat16)]
+    bad = list(args)
+    bad[6] = bad[6].to(torch.bfloat16)
+    with pytest.raises(PaddleTpuError):
+        tgru.gru_bwd_blocked(*bad)
+    assert len(launched) == 1

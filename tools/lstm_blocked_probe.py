@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Time the port's LSTM kernels (the blocked kernels 10-12 and the
-single-block kernels 8 and 9) in several variants on one GPU, in one
+single-block kernels 8 and 9) and the blocked GRU BPTT (kernel 16, on the
+same tensor-core step loop) in several variants on one GPU, in one
 process, so their times compare.
 
     python3 tools/lstm_blocked_probe.py [--csrc DIR ...] [--patch NAME ...]
                                         [--shape B,T,H ...] [--reps N]
+                                        [--gru_shape B,T,H ...]
                                         [--slices N ...] [--only KERNEL ...]
 
 A variant is a copy of a kernel source directory (the repository's
@@ -17,15 +19,18 @@ variant is built with the port's ``nvcc`` flags by
 ``tools/probe_build.py`` (its ptxas lines printed: registers, spills and
 the wgmma serialization warnings C7514-C7517), run at each shape on the
 bench feed's lengths -- the blocked kernels 10-12 where H > 512, the
-single-block kernels 8 and 9 where H <= 512 -- held against the plain
-versions in ``paddle_tpu_torch.ops.lstm`` (unpatched variants only) and
-timed between CUDA events in two turns (the variants in order, then in
-reverse).  Sources from before the tensor-core forward and single-block
-backward (kernel 10 reading a transpose of w_hh, kernel 9 with per-CTA
-partials) take those kernels' older arguments.  ``--slices N`` also
-times the repository's kernels 9, 10 and 11 at N K slices where N is a
-valid slicing of their K.  Prints one line per (turn, shape, variant,
-kernel) and the card's name and power limit.
+single-block kernels 8 and 9 where H <= 512, and kernel 10 at every H
+(at H <= 512 it is the other design of kernel 8's step loop) -- and
+kernel 16 at each ``--gru_shape`` (default phase 5's, B 128, T 30, H
+1024, every step valid), held against the plain versions in
+``paddle_tpu_torch.ops.lstm`` / ``ops.gru`` (unpatched variants only)
+and timed between CUDA events in two turns (the variants in order, then
+in reverse).  Sources from before the tensor-core kernels (kernel 10
+reading a transpose of w_hh, kernel 9 with per-CTA partials, kernels 8
+and 16 on CUDA cores) take those kernels' older arguments.  ``--slices
+N`` also times the repository's kernels 9, 10 and 11 at N K slices where
+N is a valid slicing of their K.  Prints one line per (turn, shape,
+variant, kernel) and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -42,22 +47,27 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(ROOT, "build", "probe")
 BLOCKED = ("lstm_fwd_blocked", "lstm_bwd_blocked", "lstm_dw_blocked")
 SINGLE = ("lstm_fwd", "lstm_bwd")
-KERNELS = BLOCKED + SINGLE
+GRU = ("gru_bwd_blocked",)
+KERNELS = BLOCKED + SINGLE + GRU
 #: the kernels whose step product is cut into K slices, and their K
 SLICED = {"lstm_fwd_blocked": lambda h: h, "lstm_bwd_blocked":
           lambda h: 4 * h, "lstm_bwd": lambda h: 4 * h}
 
 _WG, _FWD = "lstm_wg.cuh", "lstm_fwd_blocked.cu"
+_F8, _G16 = "lstm_fwd.cu", "gru_bwd_blocked.cu"
 _PAIRS = "    for (long p = first; p < BH; p += stride) {\n" \
          "      const int b = (int)(p / H), unit = (int)(p % H);\n"
 #: name -> [(file, old text, new text)].  The step loop of kernels 9-11
 #: (Tiles, phase A, the backward's kernel) lives in lstm_wg.cuh, so a
-#: knock-out of it reaches all three; time the one in question (--only).
+#: knock-out of it reaches all three and kernel 16 (Tiles); time the one
+#: in question (--only).
 PATCHES = {
     # no grid barrier between the steps' phases (the prologue's barriers
     # stay: the step ranks are read after them)
     "no_barrier": [(_WG, "grid.sync();  // step", "(void)grid;"),
-                   (_FWD, "grid.sync();  // step", "(void)grid;")],
+                   (_FWD, "grid.sync();  // step", "(void)grid;"),
+                   (_F8, "grid.sync();  // step", "(void)grid;"),
+                   (_G16, "grid.sync();  // step", "(void)grid;")],
     # no tensor-core products (the loads, waits, drains and stores of the
     # sums stay)
     "no_products": [(_WG,
@@ -96,15 +106,24 @@ PATCHES = {
                     "                     __ldcg(a.rank + (long)(t - 1) * B"
                     " + b), false, base);",
                     "        a.dhp[p] = dh + dc;")],
-    # no product tiles at all (the pairs read stale sums)
+    # no product tiles at all (the pairs read stale sums; kernel 8: no
+    # loads, products or sums of h_{t-1}'s planes)
     "no_tiles": [(_WG, "      if (r0 >= n) continue;",
-                  "      if (r0 >= 0) continue;")],
+                  "      if (r0 >= 0) continue;"),
+                 (_F8, "i < kAAhead && i < nch; ++i) load(i);",
+                  "i < kAAhead && i < nch && B < 0; ++i) load(i);"),
+                 (_F8, "for (int i = 0; i < nch; ++i) {",
+                  "for (int i = 0; i < nch && B < 0; ++i) {")],
     # no pairs' work in the steps (the tiles read stale planes)
     "no_pairs": [(_WG, _PAIRS + "      float dh",
                   _PAIRS.replace("p = first", "p = BH + first")
                   + "      float dh"),
                  (_FWD, "for (long p = first; p < BH; p += 2 * stride)",
-                  "for (long p = BH + first; p < BH; p += 2 * stride)")],
+                  "for (long p = BH + first; p < BH; p += 2 * stride)"),
+                 (_F8, "if (idx >= lwg::kRows * U ||",
+                  "if (idx >= 0 || idx >= lwg::kRows * U ||"),
+                 (_G16, "for (long p = first; p < BH; p += stride) {  //",
+                  "for (long p = BH + first; p < BH; p += stride) {  //")],
     # the pairs write no planes (the products read stale ones)
     "no_plane_writes": [(_WG,
                          "    put_split(p, lo, di_pre);\n"
@@ -112,7 +131,13 @@ PATCHES = {
                          "    put_split(p + 2 * H, lo, dg_pre);\n"
                          "    put_split(p + 3 * H, lo, do_pre);\n", ""),
                         (_FWD, "  if (v.r1 >= 0)\n",
-                         "  if (v.r1 >= 0 && a.B < 0)\n")],
+                         "  if (v.r1 >= 0 && a.B < 0)\n"),
+                        (_F8, "if (t + 1 < T) put_split(",
+                         "if (t + 1 < T && B < 0) put_split("),
+                        (_G16, "  if (r >= 0) {\n    put_split(",
+                         "  if (r >= 0 && a.B < 0) {\n    put_split("),
+                        (_G16, "      if (r >= 0)\n        put_split(",
+                         "      if (r >= 0 && B < 0)\n        put_split(")],
     # kernel 9: no dW tiles after the loop (the splits' sum stays)
     "no_dw": [(_WG, "task < n_dw * d.n_split;",
                "task < n_dw * d.n_split && B < 0;")],
@@ -130,7 +155,9 @@ def ptxas_lines(text):
 def build(name, src_dir, patch):
     """Build one variant: its functions by symbol and which argument
     forms its sources take ({"fwd_t": kernel 10 reads w_hh's transpose,
-    "bwd_u": kernel 9 takes U and per-CTA partials})."""
+    "bwd_u": kernel 9 takes U and per-CTA partials, "fwd8": kernel 8
+    takes no planes, "gru16": kernel 16 takes no planes, ranks or
+    slices})."""
     from probe_build import build_variant
     edits = PATCHES.get(patch, [])
     if isinstance(edits, str):   # a combination of other knock-outs
@@ -141,13 +168,21 @@ def build(name, src_dir, patch):
                     for ln in ptxas_lines(ptxas[stem])), flush=True)
     read = lambda f: open(os.path.join(src_dir, f)).read()  # noqa: E731
     old = {"fwd_t": "int* rank" not in read("lstm_fwd_blocked.cu"),
-           "bwd_u": "pbuf" in read("lstm_bwd.cu")}
+           "bwd_u": "pbuf" in read("lstm_bwd.cu"),
+           "fwd8": "void* apl" not in read("lstm_fwd.cu"),
+           "gru16": "int* rank" not in read("gru_bwd_blocked.cu")}
     if old["fwd_t"]:
         fns["lstm_fwd_blocked"].argtypes = \
             [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     if old["bwd_u"]:
         fns["lstm_bwd"].argtypes = \
             [ctypes.c_void_p] * 16 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    if old["fwd8"]:
+        fns["lstm_fwd"].argtypes = \
+            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    if old["gru16"]:
+        fns["gru_bwd_blocked"].argtypes = \
+            [ctypes.c_void_p] * 12 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     return fns, old
 
 
@@ -182,6 +217,9 @@ def main() -> int:
                     help="B,T,H (default 128,100,1280, 128,100,2048 and "
                     "128,100,512)")
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--gru_shape", action="append", default=[],
+                    help="B,T,H of kernel 16, every step valid (default "
+                    "128,30,1024)")
     ap.add_argument("--slices", action="append", type=int, default=[],
                     help="also time the repository's kernels 9-11 with "
                     "this many K slices (their own plans otherwise)")
@@ -233,6 +271,9 @@ def main() -> int:
         ref_f = (L.lstm_fwd_blocked_reference if blocked
                  else L.lstm_fwd_reference)(xw, mask, w, ck, h0, c0)
         hseq, cseq, gates = ref_f
+        keep = (mask != 0).float()[..., None]
+        ref_fb = (hseq, cseq, gates * keep)   # kernel 10's contract
+        ref_w = None
         if blocked:
             ref_b = L.lstm_bwd_blocked_reference(gates, cseq, c0, mask, w,
                                                  ck, dy, dyc)
@@ -257,7 +298,8 @@ def main() -> int:
               "aplf": torch.empty(2, b, kp1, **bf),
               "state": [torch.empty(b, h, **f32) for _ in range(2)],
               "ckp": torch.empty(3, b, h, **f32),
-              "dw_part": torch.empty(L.MAX_DW_SPLIT, h, 4 * h, **f32)}
+              "dw_part": torch.empty(L.MAX_DW_SPLIT, h, 4 * h, **f32),
+              "apl8": torch.empty(2, 2, b, kp1, **bf)}
         w_t = w.t().contiguous()
         u = L.units_per_cta(h, sms)
         pbuf = torch.empty(2 * -(-h // (u or 1)) * b * (-(-h // 4) * 4),
@@ -272,19 +314,21 @@ def main() -> int:
                 dw = torch.empty_like(w)
                 runs = {}
                 n_sl = {k: n_sl_opt or plan[k] for k in SLICED}
+                # kernel 10 at every H (at H <= 512 the other design of
+                # kernel 8's step loop)
+                if old["fwd_t"]:
+                    fwd_args = (xw, mask, w_t, ck, h0, c0, *out_f)
+                    fwd_ints = (b, t, h)
+                else:
+                    fwd_args = (xw, mask, w, ck, h0, c0, *out_f,
+                                sc["part_f"], sc["rank"], sc["wplf"],
+                                sc["aplf"])
+                    fwd_ints = (b, t, h, n_sl["lstm_fwd_blocked"])
+                runs["lstm_fwd_blocked"] = (lambda a=fwd_args, i=fwd_ints:
+                                            fn["lstm_fwd_blocked"](
+                    *[x.data_ptr() for x in a], *i, s))
                 if blocked:
                     dw_split = fn["lstm_dw_blocked_splits"](b, t, h)
-                    if old["fwd_t"]:
-                        fwd_args = (xw, mask, w_t, ck, h0, c0, *out_f)
-                        fwd_ints = (b, t, h)
-                    else:
-                        fwd_args = (xw, mask, w, ck, h0, c0, *out_f,
-                                    sc["part_f"], sc["rank"], sc["wplf"],
-                                    sc["aplf"])
-                        fwd_ints = (b, t, h, n_sl["lstm_fwd_blocked"])
-                    runs["lstm_fwd_blocked"] = (lambda a=fwd_args, i=fwd_ints:
-                                                fn["lstm_fwd_blocked"](
-                        *[x.data_ptr() for x in a], *i, s))
                     runs["lstm_bwd_blocked"] = lambda: fn["lstm_bwd_blocked"](
                         *[x.data_ptr() for x in (gates, cseq, c0, mask, w,
                                                  ck, dy, dyc, *out_b,
@@ -298,9 +342,10 @@ def main() -> int:
                                                  dw)],
                         b, t, h, dw_split, s)
                 else:
-                    runs["lstm_fwd"] = lambda: fn["lstm_fwd"](
-                        *[x.data_ptr() for x in (xw, mask, w, ck, h0, c0,
-                                                 *out_f)], b, t, h, u, s)
+                    fwd8 = (xw, mask, w, ck, h0, c0, *out_f) + \
+                        (() if old["fwd8"] else (sc["apl8"],))
+                    runs["lstm_fwd"] = lambda a=fwd8: fn["lstm_fwd"](
+                        *[x.data_ptr() for x in a], b, t, h, u, s)
                     bwd_in = (gates, hseq, cseq, h0, c0, mask, w, ck, dy,
                               dyc, *out_b)
                     if old["bwd_u"]:
@@ -323,10 +368,9 @@ def main() -> int:
                     ms = time_ms(run, args.reps)
                     err = ""
                     if patch is None:
-                        got_f = out_f[:2] + [out_f[2] * mask[..., None]] \
-                            if blocked else out_f
-                        got, want = {"lstm_fwd_blocked": (got_f, ref_f),
-                                     "lstm_fwd": (got_f, ref_f),
+                        got_fb = out_f[:2] + [out_f[2] * keep]
+                        got, want = {"lstm_fwd_blocked": (got_fb, ref_fb),
+                                     "lstm_fwd": (out_f, ref_f),
                                      "lstm_bwd_blocked": (out_b, ref_b),
                                      "lstm_bwd": (out_b, ref_b),
                                      "lstm_dw_blocked": ([dw], [ref_w])}[k]
@@ -337,7 +381,61 @@ def main() -> int:
                         if k == "lstm_dw_blocked" else ""
                     print(f"turn {turn} ({b}, {t}, {h}) {name} {k}: "
                           f"{ms:.3f} ms{extra}{err}", flush=True)
+    if not args.only or "gru_bwd_blocked" in args.only:
+        for shape in args.gru_shape or ["128,30,1024"]:
+            time_gru(built, tuple(int(x) for x in shape.split(",")), sms,
+                     args.reps)
     return 0
+
+
+def time_gru(built, shape, sms, reps):
+    """Kernel 16 at (B, T, H), every step valid, h0 zero (phase 5's
+    feed), each variant in two turns; unpatched variants held against
+    ``gru_bwd_blocked_reference``."""
+    import torch
+    from paddle_tpu_torch.ops import gru as G
+    b, t, h = shape
+    dev = torch.device("cuda")
+    s = torch.cuda.current_stream().cuda_stream
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def rnd(*shp, sc=1.0):
+        return torch.randn(*shp, generator=g, device=dev) * sc
+    mask = torch.ones((b, t), device=dev)
+    xw, wg = rnd(b, t, 3 * h, sc=0.5), rnd(h, 2 * h, sc=h ** -0.5)
+    wc, h0 = rnd(h, h, sc=h ** -0.5), torch.zeros((b, h), device=dev)
+    hseq, gates = G.gru_fwd_blocked_reference(xw, mask, wg, wc, h0)
+    dy = rnd(b, t, h)
+    ins = (gates, hseq, h0, mask, wg, wc, dy)
+    ref = G.gru_bwd_blocked_reference(*ins)
+    n_c, n_g = G.bwd_blocked_slices(b, h, sms)
+    kc, kg = -(-h // 64) * 64, -(-2 * h // 64) * 64
+    bf = dict(dtype=torch.bfloat16, device=dev)
+    sc = [torch.empty(b, h, device=dev), torch.empty(b, h, device=dev),
+          torch.empty(max(n_c, n_g), b, h, device=dev),
+          torch.empty(t * b + t, dtype=torch.int32, device=dev),
+          torch.empty(2, h, kc, **bf), torch.empty(2, h, kg, **bf),
+          torch.empty(2, b, kc, **bf), torch.empty(2, b, kg, **bf)]
+    print(f"gru ({b}, {t}, {h}): K slices drh {n_c}, carry {n_g}",
+          flush=True)
+    for turn, order in enumerate((list(built), list(built)[::-1])):
+        for name in order:
+            patch, n_sl_opt, fn, old = built[name]
+            if n_sl_opt:
+                continue
+            out = [torch.empty_like(x) for x in ref]
+            ptrs = ins + tuple(out) + tuple(sc[:2]) + \
+                (() if old["gru16"] else tuple(sc[2:]))
+            ints = (b, t, h) + (() if old["gru16"] else (n_c, n_g))
+            ms = time_ms(lambda: fn["gru_bwd_blocked"](
+                *[x.data_ptr() for x in ptrs], *ints, s), reps)
+            err = ""
+            if patch is None:
+                e = max(((x - y).abs().max() / y.abs().max()).item()
+                        for x, y in zip(out, ref))
+                err = f", max err / max|ref| {e:.1e}"
+            print(f"turn {turn} gru ({b}, {t}, {h}) {name} gru_bwd_blocked: "
+                  f"{ms:.3f} ms{err}", flush=True)
 
 
 if __name__ == "__main__":
