@@ -206,9 +206,9 @@ Phases (any failure exits nonzero, without the final ``ok`` line):
    share of the bound rate; kernels 18, 19 and 21 are bound by two bf16
    tensor-core passes (the f32 operand as hi + lo, ``CONV_BOUND_BASIS``),
    kernel 20 by one (its bf16 dy as it is), or by their bytes, whichever
-   is larger; kernels 8-12, 16 and 17 by three bf16 passes (hi*hi +
+   is larger; kernels 8-12 and 14-17 by three bf16 passes (hi*hi +
    hi*lo + lo*hi of their f32 operands, ``GRU_BOUND_BASIS``,
-   ``LSTM_BOUND_BASIS``; kernels 13-15 at the fp32 rate).
+   ``LSTM_BOUND_BASIS``; kernel 13 at the fp32 rate).
 
 Phases 3b-4f are PR 2's H 512 phases and run in fp32 (``use_bf16``
 off), so their readings stay comparable.  The order of the run: 1-3f,
@@ -1141,10 +1141,12 @@ LSTM_PROFILE_MARKS = {"kernel 8": "lstm_fwd_wg_kernel<",
                       "kernel 11": "lstm_bwd_wg_kernel<384",
                       "kernel 12": "lstm_dw_blocked_kernel<"}
 #: the GRU kernels by the marks of their symbols in a profile
+#: (kernels 14 and 16 are one template, gru_bwd_wg_kernel, told apart
+#: by its CTA: 256 threads for 14, 384 for 16)
 GRU_PROFILE_MARKS = {"kernel 13": "gru_fwd_kernel",
-                     "kernel 14": "gru_bwd_kernel",
+                     "kernel 14": "gru_bwd_wg_kernel<256",
                      "kernel 15": "gru_fwd_blocked_kernel",
-                     "kernel 16": "gru_bwd_blocked_kernel",
+                     "kernel 16": "gru_bwd_wg_kernel<384",
                      "kernel 17": "gru_dw_blocked_kernel"}
 
 
@@ -2073,7 +2075,8 @@ def gru_work(b, t, h, n_valid, backward):
 def phase_time_gru(dev, launches):
     """Kernels 13 and 14 at the seq2seq row's encoder shape (B 128, T 30,
     H 512, every step valid, h0 zero): against their plain versions, then
-    timed with both."""
+    timed with both; the bounds on the basis of ``GRU_BOUND_BASIS`` (14's
+    at the fp32 rate too, in the log only)."""
     import torch
     from paddle_tpu_torch.ops import gru as G
     b, t, h = S2S["B"], S2S["T"], S2S["H"]
@@ -2102,7 +2105,9 @@ def phase_time_gru(dev, launches):
              115)):
         ms = time_ms(lambda: fn(*args), reps=10, rounds=4)
         plain_ms = time_ms(lambda: plain(*args), reps=2, rounds=2)
-        b_ms, b_by = bound_ms(*gru_work(b, t, h, b * t, bwd))
+        n_bytes, n_flops = gru_work(b, t, h, b * t, bwd)
+        passes, rate = GRU_BOUND_BASIS[name]
+        b_ms, b_by = bound_ms(n_bytes, passes * n_flops, rate)
         rows.append({"name": name, "route": "cuda",
                      "source": f"paddle_tpu_torch/csrc/{name}.cu",
                      "replaces": f"paddle_tpu/ops/pallas_gru.py:{line}",
@@ -2113,9 +2118,14 @@ def phase_time_gru(dev, launches):
                      "bound_by": b_by, "library_ms": None,
                      "shape": f"B {b}, T {t}, H {h}, all steps valid"})
     for r in rows:
+        passes, rate = GRU_BOUND_BASIS[r["name"]]
+        fp32_ms = bound_ms(*gru_work(b, t, h, b * t,
+                                     r["name"] == "gru_bwd"))[0]
         log(f"  {r['name']}: {r['ms'] * 1e3:.2f} us (plain "
             f"{r['plain_ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.3f}"
-            f" us by {r['bound_by']}); {r['shape']}")
+            f" us by {r['bound_by']}, {passes} pass(es) at "
+            f"{rate * 1e-12:.0f} TFLOP/s; at the fp32 rate "
+            f"{fp32_ms * 1e3:.3f} us); {r['shape']}")
     return rows
 
 
@@ -2235,11 +2245,14 @@ def phase_c1_card(dev):
             "out_err": e_out, "grad_err": e_grad}
 
 
-#: the bound's basis of the blocked GRU kernels: (passes, rate) -- 15
-#: multiplies f32 on the CUDA cores; 16 (its two step products) and 17
-#: multiply their f32 operands on the tensor cores as hi*hi + hi*lo +
-#: lo*hi, three bf16 passes (csrc/lstm_wg.cuh, csrc/dw_wg.cuh)
-GRU_BOUND_BASIS = {"gru_fwd_blocked": (1, FP32_FLOPS_PER_S),
+#: the bound's basis of the GRU kernels: (passes, rate) -- 13 multiplies
+#: f32 on the CUDA cores; 14, 15 and 16 (their two step products, and
+#: 14's dW) and 17 multiply their f32 operands on the tensor cores as
+#: hi*hi + hi*lo + lo*hi, three bf16 passes (csrc/lstm_wg.cuh,
+#: csrc/dw_wg.cuh)
+GRU_BOUND_BASIS = {"gru_fwd": (1, FP32_FLOPS_PER_S),
+                   "gru_bwd": (3, BF16_FLOPS_PER_S),
+                   "gru_fwd_blocked": (3, BF16_FLOPS_PER_S),
                    "gru_bwd_blocked": (3, BF16_FLOPS_PER_S),
                    "gru_dw_blocked": (3, BF16_FLOPS_PER_S)}
 
@@ -2263,8 +2276,8 @@ def phase_time_gru_blocked(dev, launches):
     """Kernels 15-17 at the H 1024 main path's encoder shape (B 128, T 30,
     every step valid, h0 zero), each against its plain version, then
     timed with it; ``torch.matmul`` of the two dW products as kernel 17's
-    yardstick; the bounds on the basis of ``GRU_BOUND_BASIS`` (16's and
-    17's at the fp32 rate too, in the log only)."""
+    yardstick; the bounds on the basis of ``GRU_BOUND_BASIS`` (at the
+    fp32 rate too, in the log only)."""
     import torch
     from paddle_tpu_torch.ops import gru as G
     b, t, h = S2S["B"], S2S["T"], S2S_WIDE_H

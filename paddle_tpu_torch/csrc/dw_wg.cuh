@@ -2,8 +2,8 @@
 // dW[k, c] = sum over the listed valid rows j of arow(j)[k] * brow(j)[c],
 // f32 in and out, one CTA of lstm::kThreads (two warpgroups) per (128 x 128
 // output tile, split of the row list).  Kernels 12 (lstm_dw_blocked.cu),
-// 17 (gru_dw_blocked.cu) and 9 (after its time loop, lstm_wg.cuh) run on
-// it, each with its own row accessors (arow(j), brow(j): pointers to
+// 17 (gru_dw_blocked.cu), 9 and 14 (after their time loops, lstm_wg.cuh,
+// gru_wg.cuh) run on it, each with its own row accessors (arow(j), brow(j): pointers to
 // listed row j's K and C values).
 //
 // Numbers.  The contract sums f32 products in f32.  Each f32 operand is

@@ -1,170 +1,69 @@
-// Fused GRU backward (BPTT): the whole reversed time loop in one launch.
+// Fused GRU backward (BPTT), for H <= 512: the whole reversed time loop
+// and both weight gradients in one launch.
 //
 // Replaces paddle_tpu/ops/pallas_gru.py::_bwd_kernel (_bwd_call): the dh
 // carry on chip, dW_gates and dW_cand accumulated over T, dxw per step,
-// dh0 at the end.  Same persistent cooperative grid as gru_fwd.cu: CTA x
-// owns hidden units [x*U, x*U + U), and keeps its own ROWS of the two
-// recurrent weights (w_cand[own, :], w_gates[own, :]; 24 KB at H = 512)
-// in shared memory, laid out as the [K, U] operand of row_product.  Per
-// step t (descending):
+// dh0 at the end.  The kernel is gru_wg.cuh's BPTT on the tensor-core
+// step loop (gru_bwd_wg_kernel<256, true, kVec>, shared with kernel 16,
+// the blocked tier's BPTT), with its kDw part:
 //
-// - Phase A, local to the CTA's units: dy joins the carry before the
-//   masked split; du_pre and dc_pre (written into dxw_t), the local
-//   share of dh_prev ((1 - m) dh_tot + dh' u), and r * h_{t-1} into the
-//   scratch rh [B, T, H] for dW_cand.  Grid barrier.
-// - Phase B: drh[b, own] = dc_pre_t @ w_cand[own, :]^T (row_product over
-//   dxw_t's c block, all CTAs' units, from L2); dr_pre = drh h r (1 - r)
-//   into dxw_t.  Grid barrier: dh_prev needs all of dg = (du, dr).
-// - Phase C: dh_prev[b, own] = local share + drh r + dg_t @
-//   w_gates[own, :]^T (row_product over dxw_t's u, r blocks).  No
-//   barrier: the next step's phase A writes dxw_{t-1} and reads only the
-//   CTA's own carry.
+// - The step products drh = dc_pre_t @ w_cand^T (K = H) and the carry's
+//   dg_t @ w_gates^T (K = 2H) run on lstm_wg.cuh's tiles: the weights'
+//   bf16 hi/lo planes written in a prologue, each step's dc_pre and dg
+//   planes written by the pairs in compacted row order, tiles of 128
+//   compacted rows x 128 units x one K slice (ops.gru.bwd_slices: at B
+//   128, H 512 on 132 SMs, drh 4 unit blocks x 8 slices of one chunk, 32
+//   tiles, the carry 4 x 16, 64 tiles), their sums added by slice in order
+//   by the (row, unit) pairs.  Four grid barriers a step.
+// - dW_gates = sum over the valid (b, t) of h_{t-1}[b]^T dg_t[b] and
+//   dW_cand = sum of (r h_{t-1})[b]^T dc_pre_t[b] run after the loop's
+//   last barrier on dw_wg.cuh's tensor-core tile (kernels 9, 12 and 17's),
+//   over the valid rows that phase A lists (a padded step's dg and dc_pre
+//   are exact zeros), their 128 x 128 output tiles x n_split splits of the
+//   list spread over the grid; with n_split > 1 the splits are added in
+//   split order after one more barrier.
 //
-// dW_gates = sum over (b, t) of h_{t-1}[b]^T dg_t[b] and dW_cand = sum of
-// (r h_{t-1})[b]^T dc_pre_t[b] are [H x BT] x [BT x 2H] and [BT x H]
-// products; they run after the time loop, tiled 128 x 64 over all CTAs
-// with their rows streamed through a cp.async pipeline (dw_tile of
-// lstm_common.cuh), instead of inside the
-// latency-bound step.  Each output tile belongs to one CTA and sums its
-// rows in a fixed order: no atomics, and two runs give the same bits.
+// A persistent cooperative grid of one CTA an SM, two warpgroups (the dW
+// tile's). Every sum runs in a fixed order: two runs give the same bits.
+// The products are three bf16 passes of the f32 operands' hi and lo
+// parts, each 64-deep chunk drained into f32.
 //
-// Bound on this card: operations.  Four products of 2*B*T*H*H each in
-// units of H columns (dc @ w_cand^T: H, dg @ w_gates^T: 2H, dW_gates: 2H,
-// dW_cand: H), 12*B*T*H^2 = 12.1 GFLOP fp32 at B = 128, T = 30, H = 512:
-// ~180 us at 67 TFLOP/s.
-#include "lstm_common.cuh"
+// Bound on this card: operations.  Four products of 2 * (valid
+// row-steps) * H * H flops in units of H columns (drh: H, the carry: 2H,
+// dW_gates: 2H, dW_cand: H), 12 * B * T * H^2 = 12.08 GFLOP at B 128,
+// T 30, H 512 with every step valid: three bf16 passes at 989 TFLOP/s,
+// 36.6 us (180.3 us at the fp32 rate).
+#include "gru_wg.cuh"
 
-namespace cg = cooperative_groups;
 using namespace lstm;
 
-constexpr int U = 4;                     // hidden units per CTA
-static_assert(dwt::kStageFloats <= kStages * kTileFloats,
-              "the dW chunks alias the step's staging tiles");
-
-__global__ void __launch_bounds__(kThreads) gru_bwd_kernel(
-    const float* __restrict__ gates, const float* __restrict__ hseq,
-    const float* __restrict__ h0, const float* __restrict__ mask,
-    const float* __restrict__ w_gates, const float* __restrict__ w_cand,
-    const float* __restrict__ dy, float* dxw, float* dwg, float* dwc,
-    float* dh0, float* rh, int B, int T, int H) {
-  cg::grid_group grid = cg::this_grid();
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int tid = threadIdx.x, u0 = blockIdx.x * U, G = gridDim.x;
-  const int Hc = round_up(H, kKT), Hg = round_up(2 * H, kKT);
-  const bool vec = H % 4 == 0;
-  float* wcT = smem;                     // [Hc, U]  w_cand[own, :]^T
-  float* wgT = wcT + Hc * U;             // [Hg, U]  w_gates[own, :]^T
-  float* tiles = wgT + Hg * U;           // staging tiles, then dW chunks
-  float* red = tiles + kStages * kTileFloats;  // [KG, kTileRows, U]
-  float* dhc = red + kRedFloats;         // [B, U]   dh carry
-  float* dhl = dhc + B * U;              // [B, U]   (1-m) dh_tot + dh' u
-  float* drr = dhl + B * U;              // [B, U]   drh * r
-
-  for (int idx = tid; idx < Hc * U; idx += kThreads) {
-    const int j = idx / U, unit = u0 + idx % U;
-    wcT[idx] = (j < H && unit < H) ? w_cand[(long)unit * H + j] : 0.f;
-  }
-  for (int idx = tid; idx < Hg * U; idx += kThreads) {
-    const int j = idx / U, unit = u0 + idx % U;
-    wgT[idx] = (j < 2 * H && unit < H) ? w_gates[(long)unit * 2 * H + j] : 0.f;
-  }
-  for (int idx = tid; idx < B * U; idx += kThreads) dhc[idx] = 0.f;
-
-  const long TH = (long)T * H, T3H = 3 * TH;
-  for (int t = T - 1; t >= 0; --t) {
-    // ---- phase A: own units
-    __syncthreads();   // the last phase C's carries are written
-    for (int idx = tid; idx < B * U; idx += kThreads) {
-      const int b = idx / U, unit = u0 + idx % U;
-      if (unit >= H) continue;
-      const long o_s = (long)b * TH + (long)t * H + unit;
-      const long o_g = (long)b * T3H + (long)t * 3 * H + unit;
-      const float uu = gates[o_g], rr = gates[o_g + H];
-      const float cc = gates[o_g + 2 * H];
-      const float h_prev = t > 0 ? hseq[o_s - H] : h0[(long)b * H + unit];
-      const float m = mask[(long)b * T + t];
-      const float dh_tot = dy[o_s] + dhc[idx];
-      const float dh_new = m * dh_tot;
-      dxw[o_g] = dh_new * (h_prev - cc) * uu * (1.f - uu);
-      dxw[o_g + 2 * H] = dh_new * (1.f - uu) * (1.f - cc * cc);
-      rh[o_s] = rr * h_prev;
-      dhl[idx] = (1.f - m) * dh_tot + dh_new * uu;
-    }
-    grid.sync();
-    // ---- phase B: drh = dc_pre_t (all units) @ w_cand[own, :]^T
-    const float* dxt = dxw + (long)t * 3 * H;
-    for (int r0 = 0; r0 < B; r0 += kTileRows) {
-      row_product<U>(dxt + 2 * H, T3H, B, H, wcT, r0, tiles, red, vec);
-      __syncthreads();
-#pragma unroll
-      for (int p = 0; p < kTileRows * U / kThreads; ++p) {
-        const int idx = tid + p * kThreads;
-        const int b = r0 + idx / U, u = idx % U, unit = u0 + u;
-        if (b >= B || unit >= H) continue;
-        const float drh = red_sum<U>(red, idx);
-        const long o_g = (long)b * T3H + (long)t * 3 * H + unit;
-        const float rr = gates[o_g + H];
-        const float h_prev =
-            t > 0 ? hseq[(long)b * TH + (long)(t - 1) * H + unit]
-                  : h0[(long)b * H + unit];
-        dxw[o_g + H] = drh * h_prev * rr * (1.f - rr);
-        drr[b * U + u] = drh * rr;
-      }
-    }
-    grid.sync();
-    // ---- phase C: dh_prev[b, own] from dg_t = (du, dr) of all units
-    for (int r0 = 0; r0 < B; r0 += kTileRows) {
-      row_product<U>(dxt, T3H, B, 2 * H, wgT, r0, tiles, red, vec);
-      __syncthreads();
-#pragma unroll
-      for (int p = 0; p < kTileRows * U / kThreads; ++p) {
-        const int idx = tid + p * kThreads;
-        const int b = r0 + idx / U, u = idx % U;
-        if (b >= B || u0 + u >= H) continue;
-        const int i = b * U + u;
-        dhc[i] = dhl[i] + (drr[i] + red_sum<U>(red, idx));
-      }
-    }
-  }
-  __syncthreads();
-  for (int idx = tid; idx < B * U; idx += kThreads) {
-    const int unit = u0 + idx % U;
-    if (unit < H) dh0[(long)(idx / U) * H + unit] = dhc[idx];
-  }
-
-  // ---- dW: every dxw and rh row was written before the last grid
-  // barrier (phase C writes neither)
-  const int R = B * T, nkt = (H + dwt::kGK - 1) / dwt::kGK;
-  const int n_g = nkt * ((2 * H + dwt::kGC - 1) / dwt::kGC);
-  const int n_tiles = n_g + nkt * ((H + dwt::kGC - 1) / dwt::kGC);
-  auto hrow = [&](int row) -> const float* {   // h_{t-1} of row (b, t)
-    return row % T ? hseq + (long)(row - 1) * H : h0 + (long)(row / T) * H;
-  };
-  auto rhrow = [&](int row) -> const float* { return rh + (long)row * H; };
-  auto grow = [&](int row) -> const float* { return dxw + (long)row * 3 * H; };
-  auto crow = [&](int row) -> const float* {
-    return dxw + (long)row * 3 * H + 2 * H;
-  };
-  for (int tile = blockIdx.x; tile < n_tiles; tile += G) {
-    if (tile < n_g)
-      dw_tile(hrow, grow, R, H, 2 * H, (tile % nkt) * dwt::kGK,
-              (tile / nkt) * dwt::kGC, dwg, 2 * H, tiles, vec, h0);
-    else
-      dw_tile(rhrow, crow, R, H, H, ((tile - n_g) % nkt) * dwt::kGK,
-              ((tile - n_g) / nkt) * dwt::kGC, dwc, H, tiles, vec, h0);
-  }
-}
-
+// Scratch: rh [B, T, H]; dhl, drr [B, H]; part [max(s_cand, s_gates), B,
+// H]; rank T*B + T ints; rows B*T ints; wcpl [2, H, Kc] and cpl [2, B, Kc]
+// bf16 (Kc = H rounded up to 64); wgpl [2, H, Kg] and gpl [2, B, Kg] (Kg
+// = 2H rounded up to 64); dw_part [n_split, H, 3H] (unused when n_split
+// is 1).  s_cand and s_gates cut the chunks of K = H and K = 2H into
+// slices of ceil(chunks / slices), none empty; n_split in 1 ..
+// dwg::kMaxSplit.  0, a cudaError_t, or -1 (launch_resident).
 extern "C" int gru_bwd(const float* gates, const float* hseq,
                        const float* h0, const float* mask,
                        const float* w_gates, const float* w_cand,
-                       const float* dy, float* dxw, float* dwg, float* dwc,
-                       float* dh0, float* rh, int B, int T, int H,
-                       cudaStream_t stream) {
-  void* args[] = {&gates, &hseq, &h0,  &mask, &w_gates, &w_cand, &dy, &dxw,
-                  &dwg,   &dwc,  &dh0, &rh,   &B,       &T,      &H};
-  const long smem = (long)(round_up(H, kKT) + round_up(2 * H, kKT)) * U +
-                    kStages * kTileFloats + kRedFloats + 3L * B * U;
-  return cooperative_launch(gru_bwd_kernel, H, U, smem, args, stream);
+                       const float* dy, float* dxw, float* dw_gates,
+                       float* dw_cand,
+                       float* dh0, float* rh, float* dhl, float* drr,
+                       float* part, int* rank, int* rows, void* wcpl,
+                       void* wgpl, void* cpl, void* gpl, float* dw_part,
+                       int B, int T, int H, int s_cand, int s_gates,
+                       int n_split, cudaStream_t stream) {
+  if (n_split < 1 || n_split > dwg::kMaxSplit)
+    return (int)cudaErrorInvalidValue;
+  const GruBwdArgs a{gates, hseq, h0,   mask, dy, dxw, rh, dhl, drr, part,
+                     rank,  static_cast<__nv_bfloat16*>(cpl),
+                     static_cast<__nv_bfloat16*>(gpl),
+                     B,     T,    H,    round_up(H, lwg::kChunk),
+                     round_up(2 * H, lwg::kChunk)};
+  const GruDwArgs d{dw_gates, dw_cand, rows, dw_part, n_split};
+  // two warpgroups: the dW tile's CTA
+  return launch_gru_bwd<kThreads, true>(
+      a, w_gates, w_cand, static_cast<__nv_bfloat16*>(wcpl),
+      static_cast<__nv_bfloat16*>(wgpl), dh0, s_cand, s_gates, d, stream);
 }

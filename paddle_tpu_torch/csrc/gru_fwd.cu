@@ -3,8 +3,8 @@
 // Replaces paddle_tpu/ops/pallas_gru.py::_fwd_kernel (_fwd_call), which
 // runs a sequential grid over T on one TPU core with h carried in VMEM
 // and both recurrent weights resident.  On Hopper the time loop is a
-// loop inside a persistent cooperative grid (the design of lstm_fwd.cu,
-// whose pieces it shares through lstm_common.cuh):
+// loop inside a persistent cooperative grid, on lstm_common.cuh's
+// CUDA-core row product:
 //
 // - CTA x owns hidden units [x*U, x*U + U), U = 4: its 2U gate columns
 //   of w_gates (u | r) and U columns of w_cand stay in shared memory for

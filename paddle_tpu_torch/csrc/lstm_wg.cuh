@@ -1,10 +1,10 @@
 // The tensor-core step loop of the recurrences: kernels 9 (the
 // single-block LSTM BPTT, lstm_bwd.cu), 10 (the blocked LSTM forward,
-// lstm_fwd_blocked.cu), 11 (the blocked LSTM BPTT, lstm_bwd_blocked.cu)
-// and 16 (the blocked GRU BPTT, gru_bwd_blocked.cu: two step products
-// over one ring); kernel 8 (the single-block LSTM forward, lstm_fwd.cu)
-// takes its planes, numbers and launch helpers with a step product of its
-// own.
+// lstm_fwd_blocked.cu), 11 (the blocked LSTM BPTT, lstm_bwd_blocked.cu),
+// 15 (the blocked GRU forward, gru_fwd_blocked.cu) and 14 and 16 (the GRU
+// BPTT, gru_wg.cuh) -- the GRU's with two step products over one ring;
+// kernel 8 (the single-block LSTM forward, lstm_fwd.cu) takes its planes,
+// numbers and launch helpers with a step product of its own.
 //
 // Each step of a recurrence needs one product across the hidden units,
 // C[rows, cols] = A[rows, K] B[cols, K]^T (a TN GEMM, both operands

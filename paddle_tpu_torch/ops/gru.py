@@ -3,34 +3,39 @@ its single-block tier and its hidden-blocked tier).
 
 Hand-written CUDA C++ kernels for ``sm_90a``, each a whole time loop of
 one GRU direction in one persistent cooperative launch, except the last
-(an ordinary product), sharing the pieces of the LSTM's kernels
-(``csrc/lstm_common.cuh``):
+(an ordinary product):
 
 - single-block tier, H <= 512 (``"fused"``): :func:`gru_fwd`
   (``csrc/gru_fwd.cu``, kernel 13; plain version
   :func:`gru_fwd_reference`) writes the kept state sequence H and the
-  gate residue (u, r, c); :func:`gru_bwd` (``csrc/gru_bwd.cu``, kernel
-  14; plain version :func:`gru_bwd_reference`) gives dxw, dW_gates,
-  dW_cand and dh0;
+  gate residue (u, r, c), its products fp32 on CUDA cores
+  (``csrc/lstm_common.cuh``); :func:`gru_bwd` (``csrc/gru_bwd.cu``,
+  kernel 14; plain version :func:`gru_bwd_reference`) gives dxw,
+  dW_gates, dW_cand and dh0;
 - hidden-blocked tier, 512 < H (``"fused_blocked"``):
   :func:`gru_fwd_blocked` (``csrc/gru_fwd_blocked.cu``, kernel 15;
   plain :func:`gru_fwd_blocked_reference`), :func:`gru_bwd_blocked`
   (``csrc/gru_bwd_blocked.cu``, kernel 16; plain
   :func:`gru_bwd_blocked_reference`: dxw, dh0 and r·h_prev, no dW) and
   :func:`gru_dw_blocked` (``csrc/gru_dw_blocked.cu``, kernel 17; plain
-  :func:`gru_dw_blocked_reference`: dW_gates, dW_cand).  The forward
-  walks tiles of 128 batch rows x U hidden units with a persistent
-  cooperative grid, two grid barriers a step; the backward runs its two
-  step products (drh = dc_pre_t @ w_candᵀ, the carry's dg_t @ w_gatesᵀ)
-  on the LSTM's tensor-core step loop (``csrc/lstm_wg.cuh``: bf16 hi/lo
-  planes it writes itself, each step's in compacted row order, K slices
-  from :func:`bwd_blocked_slices` summed in order), four grid barriers a
-  step.  Their products take only the rows valid at each step (a padded
-  step keeps h, its residue is written as 0 and its dxw is exact zeros),
-  and so does the dW product, which runs on the tensor cores
-  (``csrc/dw_wg.cuh``).  The tensor-core products take their f32
-  operands as hi + lo bf16, three passes, each 64-deep chunk's sums
-  added in f32.
+  :func:`gru_dw_blocked_reference`: dW_gates, dW_cand).
+
+Kernels 14-16 run their two step products on the LSTM's tensor-core
+step loop (``csrc/lstm_wg.cuh``: bf16 hi/lo planes they write
+themselves, each step's in compacted row order, tiles of 128 rows x 128
+columns x one K slice summed in order by the (row, unit) pairs, four
+grid barriers a step): the forward's gates = h_{t-1} @ w_gates and
+candidate (r·h_{t-1}) @ w_cand (K slices from :func:`fwd_blocked_slices`),
+the backward's drh = dc_pre_t @ w_candᵀ and the carry's dg_t @ w_gatesᵀ
+(:func:`bwd_slices`, :func:`bwd_blocked_slices`).  Kernels 14 and 16 are
+one kernel template (``csrc/gru_wg.cuh``); kernel 14 adds dW_gates and
+dW_cand after its time loop, and kernel 17 computes them for the blocked
+tier, both on the tensor-core dW tile (``csrc/dw_wg.cuh``).  Their
+products take only the
+rows valid at each step (a padded step keeps h, the blocked forward
+writes its residue as 0, and its dxw is exact zeros).  The tensor-core
+products take their f32 operands as hi + lo bf16, three passes, each
+64-deep chunk's sums added in f32.
 
 Gate layout (u, r, c), w_gates ``[H, 2H]`` (u | r), w_cand ``[H, H]``;
 the reset gate applies before the candidate product: c = tanh(x_c +
@@ -53,11 +58,11 @@ raises too, never falls back.  Each wrapper counts its launches in
 ``.launches``.
 
 Precision: the kernels compute in fp32, whatever the policy (the
-products of kernels 16 and 17 as three bf16 passes of the f32 operands'
-hi and lo parts).  The public functions cast xw to fp32 before the
-kernels (a bf16 xw converts exactly), so autograd returns dxw in xw's
-dtype, as ``_gru_core_bwd`` and ``_gru_core_blocked_bwd`` cast dxw to
-xw's dtype (``pallas_gru.py:213,524``).
+products of kernels 14-17 as three bf16 passes of the f32 operands' hi
+and lo parts).  The public functions cast xw to fp32 before the kernels
+(a bf16 xw converts exactly), so autograd returns dxw in xw's dtype, as
+``_gru_core_bwd`` and ``_gru_core_blocked_bwd`` cast dxw to xw's dtype
+(``pallas_gru.py:213,524``).
 """
 
 from __future__ import annotations
@@ -68,11 +73,12 @@ import torch
 
 from ..utils import FLAGS, PaddleTpuError, enforce
 from . import _build
-from .lstm import (CHUNK, SM_COUNT, SMEM_BYTES, TILE_COLS, TILE_ROWS, _check,
-                   _launch, _on_card, _plane_slices, _shifted, _sms)
+from .lstm import (CHUNK, MAX_DW_SPLIT, SM_COUNT, SMEM_BYTES, TILE_COLS,
+                   TILE_ROWS, _RING_BYTES, _check, _launch, _on_card,
+                   _plane_slices, _shifted, _sms)
 
-#: Hidden units per CTA of the single-block kernels (its 2U gate and U
-#: candidate columns feed the register-blocked products of
+#: Hidden units per CTA of the single-block forward (kernel 13: its 2U
+#: gate and U candidate columns feed the register-blocked products of
 #: ``csrc/lstm_common.cuh``, which take a multiple of 4 columns).
 UNITS = 4
 #: Largest H the single-block kernels take; above it, the blocked tier
@@ -81,14 +87,14 @@ MAX_HIDDEN = 512
 #: Largest H of the blocked tier: the kernels count a row-step's 3H gate
 #: columns and w_hh's 3H^2 elements in 32-bit ints.
 MAX_BLOCKED_HIDDEN = 26754
-# shared-memory pieces of csrc/lstm_common.cuh, in floats: three staged
-# [128, 68] tiles and the k-group partial sums
+# kernel 13's shared-memory pieces (csrc/lstm_common.cuh), in floats:
+# three staged [128, 68] tiles and the k-group partial sums
 _TILE_FLOATS, _RED_FLOATS = 3 * 128 * 68, 8 * 128 * 4
-# blocked tier: 3 staging buffers of (128 rows + at most 32 columns) x 68
-# floats (the forward's tiles, GruTile<16>); the backward's ring
-# (csrc/lstm_wg.cuh) and the dW's (csrc/dw_wg.cuh), each 1 KB of
-# alignment and 3 stages of four 16 KB bf16 planes
-_BLOCKED_FLOATS = (3 * 160 * 68, (1024 + 3 * 4 * 64 * 128 * 2) // 4)
+# the blocked tier's shared memory, in floats: kernels 15 and 16 run on
+# the tensor-core step loop's ring (csrc/lstm_wg.cuh), kernel 17 on the
+# dW tile's (csrc/dw_wg.cuh), each 1 KB of alignment and 3 stages of four
+# 16 KB bf16 planes, whatever B and H
+_BLOCKED_FLOATS = (_RING_BYTES // 4, (1024 + 3 * 4 * 64 * 128 * 2) // 4)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -96,13 +102,26 @@ def _round_up(x: int, m: int) -> int:
 
 
 def smem_bytes(b: int, h: int) -> Tuple[int, int]:
-    """Dynamic shared memory of the (forward, backward) kernels, in
-    bytes — the arithmetic of ``csrc/gru_fwd.cu`` / ``gru_bwd.cu``."""
+    """Dynamic shared memory of the single-block (forward, backward)
+    kernels, in bytes: kernel 13's arithmetic (``csrc/gru_fwd.cu``: its
+    units' weight columns, the staging tiles and partial sums, the gates
+    and carry of every row) and kernel 14's ring (``csrc/gru_wg.cuh`` on
+    ``csrc/lstm_wg.cuh``, any b and h)."""
     u = UNITS
     fwd = _round_up(h, 64) * 3 * u + _TILE_FLOATS + _RED_FLOATS + 3 * b * u
-    bwd = (_round_up(h, 64) + _round_up(2 * h, 64)) * u + _TILE_FLOATS \
-        + _RED_FLOATS + 3 * b * u
-    return 4 * fwd, 4 * bwd
+    return 4 * fwd, _RING_BYTES
+
+
+def fwd_blocked_slices(b: int, h: int, sms: int = SM_COUNT
+                       ) -> Tuple[int, int]:
+    """K slices of kernel 15's two step products at (b, h), on
+    ``lstm._plane_slices``' rule: the gates (K = h, 128-column blocks of
+    64 units' u and r) and the candidate (K = h, 128-unit blocks) (at B
+    128, H 1024 on 132 SMs: 16 column blocks x 8 slices of 2 chunks, 128
+    tiles, and 8 x 8 slices of 2, 64 tiles)."""
+    rows, chunks = -(-b // TILE_ROWS), -(-h // CHUNK)
+    return (_plane_slices(chunks, rows * -(-h // (TILE_COLS // 2)), sms),
+            _plane_slices(chunks, rows * -(-h // TILE_COLS), sms))
 
 
 def bwd_blocked_slices(b: int, h: int, sms: int = SM_COUNT
@@ -117,11 +136,32 @@ def bwd_blocked_slices(b: int, h: int, sms: int = SM_COUNT
             _plane_slices(-(-2 * h // CHUNK), blocks, sms))
 
 
+def bwd_slices(b: int, h: int, sms: int = SM_COUNT) -> Tuple[int, int]:
+    """K slices of kernel 14's two step products at (b, h): the rule of
+    :func:`bwd_blocked_slices` down to one chunk a slice -- at h <= 512
+    the products have few 128-unit column blocks (4 at H 512), and
+    one-chunk slices keep more SMs on the tiles (at B 128, H 512 on 132
+    SMs: drh 4 unit blocks x 8 slices of 1 chunk, 32 tiles, and the carry
+    4 x 16, 64 tiles)."""
+    blocks = -(-b // TILE_ROWS) * -(-h // TILE_COLS)
+    return (_plane_slices(-(-h // CHUNK), blocks, sms, 1),
+            _plane_slices(-(-2 * h // CHUNK), blocks, sms, 1))
+
+
+def bwd_dw_splits(h: int, sms: int = SM_COUNT) -> int:
+    """Splits of kernel 14's dW row list: as many as keep its 128 x 128
+    output tiles of [h, 2h] and [h, h] times the splits within one CTA an
+    SM, at most MAX_DW_SPLIT (at H 512 on 132 SMs: 48 tiles x 2)."""
+    tiles = -(-h // 128) * (-(-2 * h // 128) + -(-h // 128))
+    return max(1, min(MAX_DW_SPLIT, sms // tiles))
+
+
 def fused_tier(b: int, h: int, sms: int = SM_COUNT) -> Optional[str]:
     """Which kernels serve (b, h) on a card with ``sms`` SMs:
 
-    - ``"fused"``: 1 <= h <= 512, a grid of ceil(h / 4) CTAs at most one
-      per SM, both kernels' shared memory within one block's limit;
+    - ``"fused"``: 1 <= h <= 512, kernel 13's grid of ceil(h / 4) CTAs
+      at most one per SM (kernel 14 takes one CTA an SM, any h), both
+      kernels' shared memory within one block's limit;
     - ``"fused_blocked"``: 512 < h <= MAX_BLOCKED_HIDDEN under
       ``--fused_rnn_hblock`` (default on).  The blocked kernels stride
       over their tiles with as many CTAs as are co-resident, so any B
@@ -299,6 +339,23 @@ def gru_fwd(xw, mask, w_gates, w_cand, h0
 gru_fwd.launches = 0
 
 
+def _bwd_scratch(h0, t, n_c, n_g):
+    """Scratch of the BPTT kernels 14 and 16 at h0's batch and width: the
+    local share of the carry and drh·r per (row, unit); a product's sums
+    by K slice; each step's row ranks and counts; the hi and lo bf16
+    planes of w_cand, w_gates (pitch kc, kg = H, 2H rounded up to 64)
+    and of a step's dc_pre and dg = (du_pre | dr_pre)."""
+    (b, hd), dev = h0.shape, h0.device
+    kc, kg = _round_up(hd, CHUNK), _round_up(2 * hd, CHUNK)
+    bf16 = dict(dtype=torch.bfloat16, device=dev)
+    return (torch.empty_like(h0), torch.empty_like(h0),
+            torch.empty((max(n_c, n_g), b, hd), dtype=torch.float32,
+                        device=dev),
+            torch.empty(t * b + t, dtype=torch.int32, device=dev),
+            torch.empty((2, hd, kc), **bf16), torch.empty((2, hd, kg), **bf16),
+            torch.empty((2, b, kc), **bf16), torch.empty((2, b, kg), **bf16))
+
+
 def gru_bwd(gates, hseq, h0, mask, w_gates, w_cand, dy):
     """BPTT over the forward's residuals (kernel 14): gates ``[B, T,
     3H]``, H ``[B, T, H]``, h0, mask, w_gates, w_cand as in
@@ -308,17 +365,30 @@ def gru_bwd(gates, hseq, h0, mask, w_gates, w_cand, dy):
     args = (gates, hseq, h0, mask, w_gates, w_cand, dy)
     if not _on_card(args):
         return gru_bwd_reference(*args)
-    _tier_on_card(b, hd, gates.device, "fused")
+    dev = gates.device
+    _tier_on_card(b, hd, dev, "fused")
+    enforce(b * t < 2 ** 31, "the GRU backward counts B*T in int32")
     dxw = torch.empty_like(gates)
     dwg = torch.empty_like(w_gates)
     dwc = torch.empty_like(w_cand)
     dh0 = torch.empty_like(h0)
     if gates.numel() == 0:
         return dxw, dwg.zero_(), dwc.zero_(), dh0.zero_()
-    rh = torch.empty_like(hseq)        # r * h_prev of every step, for dW
+    n_c, n_g = bwd_slices(b, hd, _sms(dev))
+    n_split = bwd_dw_splits(hd, _sms(dev))
+    # scratch: r * h_prev of every step (dW_cand's rows) and kernel 16's
+    # (_bwd_scratch); the valid rows' list; one [H, 3H] dW sum per split
+    # of the list
+    rh = torch.empty_like(hseq)
+    dhl, drr, part, rank, *planes = _bwd_scratch(h0, t, n_c, n_g)
+    rows = torch.empty(b * t, dtype=torch.int32, device=dev)
+    dw_part = torch.empty((n_split if n_split > 1 else 0, hd, 3 * hd),
+                          dtype=torch.float32, device=dev)
     _launch("gru_bwd",
-            [x.data_ptr() for x in args + (dxw, dwg, dwc, dh0, rh)],
-            (b, t, hd), gates.device)
+            [x.data_ptr() for x in args + (dxw, dwg, dwc, dh0, rh, dhl, drr,
+                                           part, rank, rows, *planes,
+                                           dw_part)],
+            (b, t, hd, n_c, n_g, n_split), dev)
     gru_bwd.launches += 1
     return dxw, dwg, dwc, dh0
 
@@ -341,12 +411,25 @@ def gru_fwd_blocked(xw, mask, w_gates, w_cand, h0
     gates = torch.empty_like(xw)
     if xw.numel() == 0:
         return hseq, gates
-    # the kernel reads the weights' columns as rows of their transposes
-    wg_t, wc_t = w_gates.t().contiguous(), w_cand.t().contiguous()
-    rh = torch.empty_like(h0)          # r * h_prev of the step
+    dev = xw.device
+    s_g, s_c = fwd_blocked_slices(b, hd, _sms(dev))
+    kp, n_g = _round_up(hd, CHUNK), 2 * _round_up(hd, TILE_COLS // 2)
+    # scratch: a product's sums by K slice (the gates' n_g columns, unit
+    # block x gate x unit, or the candidate's hd); each step's row ranks
+    # and counts; the hi and lo bf16 planes (pitch kp) of w_gates' and
+    # w_cand's transposes and of a step's h_prev and r * h_prev
+    bf16 = dict(dtype=torch.bfloat16, device=dev)
+    part = torch.empty(max(s_g * n_g, s_c * hd) * b, dtype=torch.float32,
+                       device=dev)
+    rank = torch.empty(t * b + t, dtype=torch.int32, device=dev)
+    wgpl = torch.empty((2, n_g, kp), **bf16)
+    wcpl = torch.empty((2, hd, kp), **bf16)
+    hpl = torch.empty((2, b, kp), **bf16)
+    rpl = torch.empty((2, b, kp), **bf16)
     _launch("gru_fwd_blocked",
-            [x.data_ptr() for x in (xw, mask, wg_t, wc_t, h0, hseq, gates,
-                                    rh)], (b, t, hd), xw.device)
+            [x.data_ptr() for x in args + (hseq, gates, part, rank, wgpl,
+                                           wcpl, hpl, rpl)],
+            (b, t, hd, s_g, s_c), dev)
     gru_fwd_blocked.launches += 1
     return hseq, gates
 
@@ -372,23 +455,9 @@ def gru_bwd_blocked(gates, hseq, h0, mask, w_gates, w_cand, dy
         return dxw, dh0.zero_(), rh
     dev = gates.device
     n_c, n_g = bwd_blocked_slices(b, hd, _sms(dev))
-    kc, kg = _round_up(hd, CHUNK), _round_up(2 * hd, CHUNK)
-    # scratch: the local share of the carry and drh * r per (row, unit);
-    # a product's sums by K slice; each step's row ranks and counts; the
-    # hi and lo bf16 planes of w_cand, w_gates (pitch kc, kg) and of a
-    # step's dc_pre and dg = (du_pre | dr_pre)
-    dhl, drr = torch.empty_like(h0), torch.empty_like(h0)
-    f32, bf16 = dict(dtype=torch.float32, device=dev), \
-        dict(dtype=torch.bfloat16, device=dev)
-    part = torch.empty((max(n_c, n_g), b, hd), **f32)
-    rank = torch.empty(t * b + t, dtype=torch.int32, device=dev)
-    wcpl = torch.empty((2, hd, kc), **bf16)
-    wgpl = torch.empty((2, hd, kg), **bf16)
-    cpl = torch.empty((2, b, kc), **bf16)
-    gpl = torch.empty((2, b, kg), **bf16)
+    scratch = _bwd_scratch(h0, t, n_c, n_g)
     _launch("gru_bwd_blocked",
-            [x.data_ptr() for x in args + (dxw, dh0, rh, dhl, drr, part,
-                                           rank, wcpl, wgpl, cpl, gpl)],
+            [x.data_ptr() for x in args + (dxw, dh0, rh) + scratch],
             (b, t, hd, n_c, n_g), dev)
     gru_bwd_blocked.launches += 1
     return dxw, dh0, rh

@@ -101,14 +101,15 @@ TILE_ROWS, TILE_COLS, CHUNK = 128, 128, 64
 MAX_DW_SPLIT = 4
 
 
-def _plane_slices(chunks: int, blocks: int, sms: int) -> int:
+def _plane_slices(chunks: int, blocks: int, sms: int, least: int = 2) -> int:
     """K slices of a step product with ``blocks`` (row, column) blocks:
     as many as keep all its tiles within one CTA an SM, each slice
-    ceil(chunks / slices) chunks of 64 but at least two where K has
-    them (a one-chunk slice's sums cost the pairs more than its tile
-    saves), none empty."""
+    ceil(chunks / slices) chunks of 64 but at least ``least`` where K
+    has them (two by default: a one-chunk slice's sums cost the pairs
+    more than its tile saves, where the tiles already fill the card),
+    none empty."""
     per = -(-chunks // max(1, min(chunks, sms // blocks)))
-    return -(-chunks // max(per, min(2, chunks)))
+    return -(-chunks // max(per, min(least, chunks)))
 
 
 def bwd_blocked_slices(b: int, h: int, sms: int = SM_COUNT) -> int:

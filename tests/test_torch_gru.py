@@ -329,7 +329,8 @@ def test_card_path_raises_for_the_blocked_tier(monkeypatch):
 def test_card_path_launches_kernels_15_16_17_in_order(monkeypatch):
     """A training step through ``gru_sequence`` at H 1024 on the card
     launches the blocked forward, then the blocked BPTT, then the
-    blocked dW, once each, the BPTT with its two products' K slices (the
+    blocked dW, once each, the forward and the BPTT each with its two
+    products' K slices (the
     launches are recorded, not run: the device test, the launcher and
     the dW's split query, here 2, are monkeypatched)."""
     launched = []
@@ -347,7 +348,8 @@ def test_card_path_launches_kernels_15_16_17_in_order(monkeypatch):
     out, final = tro.gru_sequence(TSeq(xw, torch.full((8,), 2, dtype=torch.
                                                       int32)), None, w)
     (out.data.sum() + final.sum()).backward()
-    assert launched == [("gru_fwd_blocked", (8, 2, h)),
+    assert launched == [("gru_fwd_blocked",
+                         (8, 2, h) + tg.fwd_blocked_slices(8, h)),
                         ("gru_bwd_blocked",
                          (8, 2, h) + tg.bwd_blocked_slices(8, h)),
                         ("gru_dw_blocked", (8, 2, h, 2))]
@@ -365,5 +367,10 @@ def test_fused_tier_from_hopper_resources():
     assert tg.fused_tier(128, 512, sms=127) is None  # 128 CTAs
     TFLAGS.set("fused_rnn_hblock", False)
     assert tg.fused_tier(128, 513) is None
+    # kernel 13: its units' weight columns, staging tiles, partial sums,
+    # gates and carry; kernel 14: the tensor-core ring, 3 stages of four
+    # 16 KB bf16 planes and 1 KB of alignment, whatever B and H
     fwd, bwd = tg.smem_bytes(128, 512)
-    assert fwd == bwd == 4 * (512 * 12 + 3 * 128 * 68 + 4096 + 12 * 128)
+    assert fwd == 4 * (512 * 12 + 3 * 128 * 68 + 4096 + 12 * 128)
+    assert bwd == tg.smem_bytes(1024, 8)[1] == 1024 + 3 * 4 * 16384
+    assert max(tg.smem_bytes(1024, 512)) <= tg.SMEM_BYTES

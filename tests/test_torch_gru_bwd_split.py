@@ -1,4 +1,5 @@
-"""The numbers of kernel 16's tensor-core products, modelled on the CPU.
+"""The numbers of kernels 16's and 14's tensor-core products, modelled on
+the CPU (kernel 14, the same kernel template with dW, at the end).
 
 Kernel 16 (``paddle_tpu_torch/csrc/gru_bwd_blocked.cu``, the blocked
 GRU's BPTT, on the step loop of ``csrc/lstm_wg.cuh``) multiplies each
@@ -48,10 +49,11 @@ CASES = {"T30": (30, (30, 0, 1, 30, 17, 30, 7, 23), False),
          "T30-reversed": (30, (30, 0, 1, 30, 17, 30, 7, 23), True)}
 
 
-def _inputs(t, lens, reverse, seed):
+def _inputs(t, lens, reverse, seed, h=H, fwd=G.gru_fwd_blocked_reference):
     """The backward's inputs as torch f32 tensors: the residue (gates, H)
-    of the port's plain blocked forward on random xw, w_gates, w_cand,
-    h0, and a random cotangent dy."""
+    of the port's plain blocked forward (or ``fwd``) on random xw,
+    w_gates, w_cand, h0, and a random cotangent dy."""
+    H = h  # noqa: N806
     rng = np.random.RandomState(seed)
     f = lambda *s, sc=1.0: torch.from_numpy(  # noqa: E731
         (rng.randn(*s) * sc).astype(np.float32))
@@ -62,7 +64,7 @@ def _inputs(t, lens, reverse, seed):
     mask = torch.from_numpy(mask)
     xw, wg = f(B, t, 3 * H, sc=0.5), f(H, 2 * H, sc=H ** -0.5)
     wc, h0 = f(H, H, sc=H ** -0.5), f(B, H, sc=0.5)
-    hseq, gates = G.gru_fwd_blocked_reference(xw, mask, wg, wc, h0)
+    hseq, gates = fwd(xw, mask, wg, wc, h0)
     return {"gates": gates, "hseq": hseq, "h0": h0, "mask": mask,
             "w_gates": wg, "w_cand": wc, "dy": f(B, t, H)}
 
@@ -95,13 +97,13 @@ def _pullback(a, w, passes, n_slices):
     return parts
 
 
-def _model(x, passes):
+def _model(x, passes, plan=G.bwd_blocked_slices):
     """``gru_bwd_blocked_reference``'s loop with the kernel's products and
-    sums.  Returns (dxw, dh0, rh)."""
+    sums, K slices from ``plan``.  Returns (dxw, dh0, rh)."""
     gates, hseq, h0, mask, dy = (x[k] for k in ("gates", "hseq", "h0",
                                                 "mask", "dy"))
-    t = gates.shape[1]
-    s_cand, s_gates = G.bwd_blocked_slices(B, H)
+    t, H = gates.shape[1], h0.shape[1]  # noqa: N806
+    s_cand, s_gates = plan(B, H)
     h_prev_seq = torch.cat([h0[:, None], hseq[:, :-1]], 1)
     dh_c = torch.zeros_like(h0)
     dxw = torch.empty_like(gates)
@@ -212,3 +214,129 @@ def test_bwd_slices_at_the_bench_shape():
             assert 1 <= s <= chunks and (s - 1) * per < chunks
             assert per >= min(2, chunks)
             assert blocks * s <= max(132, blocks)
+
+
+# -------------------------------------------------------------- kernel 14
+# Kernel 14 (``csrc/gru_bwd.cu``, the single-block BPTT for H <= 512) is
+# kernel 16's kernel template with dW: the same recurrence and products
+# (K slices from ``bwd_slices``: one chunk each), then dW_gates =
+# Σ h_prevᵀ·dg and dW_cand = Σ (r·h_prev)ᵀ·dc_pre on the dW tile over
+# the valid rows phase A lists (by descending t, then ascending b): each
+# chunk of 64 listed rows summed in float64 and rounded to f32 (the
+# accumulator, drained), the chunks added in f32 within each of
+# ``bwd_dw_splits`` splits of the list, the splits in split order.  Its inputs are kernel 13's residue (every
+# step's, padded ones too).  Its model is held against the port's
+# ``gru_bwd_reference`` and the reference's ``pallas_gru._bwd_call``
+# (interpret mode) at B 8, H 128 and 200 with the lengths above and a
+# reversed mask, within 0.1 of phase 3e's gradient tolerance (the same
+# ``GRU_GRAD_ATOL`` + ``GRU_GRAD_RTOL`` of max|ref|; it reads 0.028-0.046);
+# a single rounding must miss it (11.6-15.4 times).
+SINGLE = {"H128-T30": (128, "T30"), "H128-T12": (128, "T12"),
+          "H128-T1": (128, "T1"), "H200-T30-reversed": (200, "T30-reversed")}
+
+
+def _single_inputs(case, seed):
+    h, lens_case = SINGLE[case]
+    t, lens, reverse = CASES[lens_case]
+    return _inputs(t, lens, reverse, seed, h, G.gru_fwd_reference)
+
+
+def _dw(a, g, passes, n_split):
+    """Σ over the listed rows of aᵀ·g (a [n, K], g [n, C] f32) as the dW
+    tile sums it, by split of the list, chunk and pass."""
+    ah, al = _split(a)
+    gh, gl = _split(g)
+    nch = -(-a.shape[0] // 64)
+    out = None
+    for sp in range(n_split):
+        tot = torch.zeros(a.shape[1], g.shape[1])
+        for ch in range(nch * sp // n_split, nch * (sp + 1) // n_split):
+            rs = slice(64 * ch, 64 * ch + 64)
+            p = ah[rs].t() @ gh[rs]
+            if passes == 3:
+                p = p + ah[rs].t() @ gl[rs] + al[rs].t() @ gh[rs]
+            tot = tot + p.float()
+        out = tot if out is None else out + tot
+    return out
+
+
+def _single_model(x, passes):
+    """Kernel 14: kernel 16's recurrence, then both dW sums over the
+    listed rows.  Returns (dxw, dW_gates, dW_cand, dh0)."""
+    dxw, dh0, rh = _model(x, passes, G.bwd_slices)
+    h = x["h0"].shape[1]
+    mask, t = x["mask"], dxw.shape[1]
+    listed = [(b, s) for s in range(t - 1, -1, -1) for b in range(B)
+              if mask[b, s] != 0]
+    bs, ss = [b for b, _ in listed], [s for _, s in listed]
+    h_prev = torch.cat([x["h0"][:, None], x["hseq"][:, :-1]], 1)
+    d = dxw[bs, ss]
+    n_split = G.bwd_dw_splits(h)
+    return (dxw, _dw(h_prev[bs, ss], d[:, :2 * h], passes, n_split),
+            _dw(rh[bs, ss], d[:, 2 * h:], passes, n_split), dh0)
+
+
+def _jax_single(x):
+    """``pallas_gru._bwd_call`` (interpret mode on the CPU), time-major:
+    (dxw, dW_gates, dW_cand, dh0)."""
+    tm = lambda a: jnp.moveaxis(jnp.asarray(a.numpy()), 1, 0)  # noqa
+    h_prev = torch.cat([x["h0"][:, None], x["hseq"][:, :-1]], 1)
+    dxw, dwg, dwc, dh0 = pallas_gru._bwd_call(
+        tm(x["gates"]), tm(h_prev),
+        jnp.asarray(x["mask"].numpy().T[:, None, :]),
+        jnp.asarray(x["w_gates"].numpy()), jnp.asarray(x["w_cand"].numpy()),
+        tm(x["dy"]))
+    return (torch.from_numpy(np.array(jnp.moveaxis(dxw, 0, 1))),
+            *(torch.from_numpy(np.array(a)) for a in (dwg, dwc, dh0)))
+
+
+@pytest.mark.parametrize("case", sorted(SINGLE))
+def test_single_block_bwd_meets_phase_3e_tolerance(case):
+    x = _single_inputs(case, seed=60 + sorted(SINGLE).index(case))
+    port = G.gru_bwd_reference(
+        *(x[k] for k in ("gates", "hseq", "h0", "mask", "w_gates",
+                         "w_cand", "dy")))
+    three = dict(enumerate(_single_model(x, 3)))
+    once = dict(enumerate(_single_model(x, 1)))
+    for name, ref in (("port", port), ("pallas", _jax_single(x))):
+        want = dict(enumerate(ref))
+        ratio = grad_errors(three, want, GRU_GRAD_ATOL, GRU_GRAD_RTOL)[1]
+        ratio_once = grad_errors(once, want, GRU_GRAD_ATOL,
+                                 GRU_GRAD_RTOL)[1]
+        assert ratio <= 0.1, (name, ratio)
+        assert ratio_once > 1.0, (name, ratio_once)
+
+
+def test_single_block_bwd_lists_each_valid_row_once():
+    """Kernel 14's dW takes each valid (b, t) row once and no padded row:
+    the reversed case's listed rows are the mask's valid ones; a padded
+    step's dxw is exact zeros (so its h_prev and rh would add nothing),
+    and with a huge junk rh at the padded steps the model's dW_cand does
+    not move."""
+    case = "H200-T30-reversed"
+    x = _single_inputs(case, seed=9)
+    dxw, dwg, dwc, _ = _single_model(x, 3)
+    pad = x["mask"] == 0
+    assert pad.any() and not dxw[pad].any()
+    h = x["h0"].shape[1]
+    junk = dict(x, gates=x["gates"].clone())
+    junk["gates"][..., h:2 * h][pad] = 1e30   # r at padded steps: rh junk
+    _, dwg_j, dwc_j, _ = _single_model(junk, 3)
+    assert torch.equal(dwg, dwg_j) and torch.equal(dwc, dwc_j)
+
+
+def test_single_block_bwd_plan_at_the_bench_shape():
+    """Kernel 14 at B 128, H 512 on 132 SMs: drh 4 unit blocks x 8 slices
+    of 1 chunk (32 tiles), the carry 4 x 16 of 1 (64 tiles), the dW's 48
+    output tiles ([512, 1024] and [512, 512] in 128 x 128) x 2 splits of
+    the row list; every slice non-empty, the tiles within one CTA an
+    SM."""
+    assert G.bwd_slices(128, 512, 132) == (8, 16)
+    for b, h in ((8, 128), (8, 200), (128, 512), (1024, 512), (3, 50)):
+        blocks = -(-b // 128) * -(-h // 128)
+        for s, k in zip(G.bwd_slices(b, h, 132), (h, 2 * h)):
+            chunks = -(-k // 64)
+            assert 1 <= s <= chunks and (s - 1) * -(-chunks // s) < chunks
+            assert blocks * s <= max(132, blocks)
+    assert G.bwd_dw_splits(512, 132) == 2
+    assert G.bwd_dw_splits(128, 132) == G.MAX_DW_SPLIT

@@ -699,3 +699,117 @@ def test_blocked_gru_bwd_card_path_hands_its_scratch(monkeypatch):
     with pytest.raises(PaddleTpuError):
         tgru.gru_bwd_blocked(*bad)
     assert len(launched) == 1
+
+
+def _spy_gru_card_launch(monkeypatch, tier):
+    """``_spy_card_launch`` for the GRU wrappers: returns the lists of
+    launches (symbol, pointer count, ints) and of the scratch made with
+    ``torch.empty`` (shape, dtype)."""
+    monkeypatch.setattr(tgru, "_on_card", lambda tensors: True)
+    monkeypatch.setattr(tgru, "fused_tier", lambda *a: tier)
+    launched, made = [], []
+    real_empty = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda *a, **k: made.append(
+        (tuple(a[0]) if a and isinstance(a[0], tuple) else a, k["dtype"]))
+        or real_empty(*a, **k))
+    monkeypatch.setattr(tgru, "_launch", lambda sym, ptrs, ints, dev:
+                        launched.append((sym, len(ptrs), ints)))
+    return launched, made
+
+
+def test_gru_bwd_card_path_hands_its_scratch(monkeypatch):
+    """On CUDA the single-block BPTT (kernel 14, kernel 16's template
+    with dW) hands its kernel kernel 16's scratch -- the two products'
+    sums by K slice [max(Sc, Sg), B, H] f32 (Sc, Sg from ``bwd_slices``:
+    one chunk a slice), each step's row ranks and
+    counts (T*B + T int32), the hi and lo bf16 planes of w_cand [2, H,
+    Kc], w_gates [2, H, Kg], a step's dc_pre [2, B, Kc] and dg [2, B,
+    Kg] -- and its own: the valid rows' list (B*T int32) and one [H, 3H]
+    dW sum a split of it [n_split, H, 3H] (none at one split).  The
+    weights are not copied.  Nothing is launched, and the input checks
+    still run first."""
+    b, t, h = 3, 4, 40
+    args = _gru_bwd_args(b, t, h)
+    launched, made = _spy_gru_card_launch(monkeypatch, "fused")
+    monkeypatch.setattr(tgru.gru_bwd, "launches", 0)
+    tgru.gru_bwd(*args)
+    s_c, s_g = tgru.bwd_slices(b, h)
+    n_split = tgru.bwd_dw_splits(h)
+    assert (s_c, s_g, n_split) == (1, 2, tgru.MAX_DW_SPLIT)
+    assert launched == [("gru_bwd", 22, (b, t, h, s_c, s_g, n_split))]
+    assert tgru.gru_bwd.launches == 1
+    assert made == [((max(s_c, s_g), b, h), torch.float32),
+                    ((t * b + t,), torch.int32),
+                    ((2, h, 64), torch.bfloat16),
+                    ((2, h, 128), torch.bfloat16),
+                    ((2, b, 64), torch.bfloat16),
+                    ((2, b, 128), torch.bfloat16),
+                    ((b * t,), torch.int32),
+                    ((n_split, h, 3 * h), torch.float32)]
+    bad = list(args)
+    bad[6] = bad[6].to(torch.bfloat16)
+    with pytest.raises(PaddleTpuError):
+        tgru.gru_bwd(*bad)
+    assert len(launched) == 1
+
+
+def test_blocked_gru_fwd_card_path_hands_its_scratch(monkeypatch):
+    """On CUDA the blocked forward (kernel 15) hands its kernel the
+    scratch it writes: a product's sums by K slice (max(Sg Ng, Sc H) x B
+    f32, Sg and Sc from ``fwd_blocked_slices``, Ng = 2 x H rounded up to
+    64), each step's row ranks and counts (T*B + T int32), the hi and lo
+    bf16 planes of w_gates' transpose [2, Ng, Kp], of w_cand's [2, H,
+    Kp], of a step's h_prev and r h_prev [2, B, Kp] (Kp = H rounded up to
+    64).  The weights are not copied (no transposes).  Nothing is
+    launched, and the input checks still run first."""
+    b, t, h = 3, 4, 40
+    args = _gru_fwd_args(b, t, h)
+    launched, made = _spy_gru_card_launch(monkeypatch, "fused_blocked")
+    monkeypatch.setattr(tgru.gru_fwd_blocked, "launches", 0)
+    tgru.gru_fwd_blocked(*args)
+    s_g, s_c = tgru.fwd_blocked_slices(b, h)
+    assert (s_g, s_c) == (1, 1)
+    assert launched == [("gru_fwd_blocked", 13, (b, t, h, s_g, s_c))]
+    assert tgru.gru_fwd_blocked.launches == 1
+    assert made == [((b, t, h), torch.float32),
+                    ((max(s_g * 128, s_c * h) * b,), torch.float32),
+                    ((t * b + t,), torch.int32),
+                    ((2, 128, 64), torch.bfloat16),
+                    ((2, h, 64), torch.bfloat16),
+                    ((2, b, 64), torch.bfloat16),
+                    ((2, b, 64), torch.bfloat16)]
+    bad = list(args)
+    bad[4] = bad[4].to(torch.bfloat16)
+    with pytest.raises(PaddleTpuError):
+        tgru.gru_fwd_blocked(*bad)
+    assert len(launched) == 1
+
+
+def _gru_tier_before(b, h, sms=132):
+    """``gru.fused_tier``'s arithmetic before kernels 14 and 15 moved onto
+    the tensor cores (``--fused_rnn_hblock`` on): the single-block
+    kernels' shared memory was kernel 13's and kernel 14's fp32 weight
+    rows, staging tiles, partial sums and per-row state; the blocked
+    kernels' at most 193 KB."""
+    if h > 512:
+        return "fused_blocked" if h <= tgru.MAX_BLOCKED_HIDDEN else None
+    fixed = 3 * 128 * 68 + 8 * 128 * 4 + 3 * b * 4
+    hr, h2r = -(-h // 64) * 64, -(-2 * h // 64) * 64
+    smem = 4 * max(hr * 12 + fixed, (hr + h2r) * 4 + fixed)
+    return "fused" if -(-h // 4) <= sms and smem <= 232448 else None
+
+
+def test_gru_fused_tier_answers_as_before_at_every_dispatched_shape():
+    """Wherever the reference's rule (``recurrent_ops.dispatch_tier``)
+    sends a GRU to a fused tier, B <= 1024 in steps of 8 and H <= 4096 in
+    steps of 128, ``fused_tier`` gives the label it gave before kernels
+    14 and 15 took the tensor-core ring (kernel 13 still sets the
+    single-block tier's bounds)."""
+    n = 0
+    for b in range(8, 1025, 8):
+        for h in range(128, 4097, 128):
+            if tro.dispatch_tier(b, h, 3) is None:
+                continue
+            n += 1
+            assert tgru.fused_tier(b, h) == _gru_tier_before(b, h), (b, h)
+    assert n >= 128 * 4

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Time the port's LSTM kernels (the blocked kernels 10-12 and the
-single-block kernels 8 and 9) and the blocked GRU BPTT (kernel 16, on the
-same tensor-core step loop) in several variants on one GPU, in one
-process, so their times compare.
+single-block kernels 8 and 9) and the GRU kernels on the same
+tensor-core step loop (the blocked forward 15 and the BPTT 14 and 16) in
+several variants on one GPU, in one process, so their times compare.
 
     python3 tools/lstm_blocked_probe.py [--csrc DIR ...] [--patch NAME ...]
                                         [--shape B,T,H ...] [--reps N]
                                         [--gru_shape B,T,H ...]
+                                        [--gru14_shape B,T,H ...]
+                                        [--gru_slices S1,S2 ...]
                                         [--slices N ...] [--only KERNEL ...]
 
 A variant is a copy of a kernel source directory (the repository's
@@ -20,16 +22,20 @@ variant is built with the port's ``nvcc`` flags by
 the wgmma serialization warnings C7514-C7517), run at each shape on the
 bench feed's lengths -- the blocked kernels 10-12 where H > 512, the
 single-block kernels 8 and 9 where H <= 512, and kernel 10 at every H
-(at H <= 512 it is the other design of kernel 8's step loop) -- and
-kernel 16 at each ``--gru_shape`` (default phase 5's, B 128, T 30, H
-1024, every step valid), held against the plain versions in
-``paddle_tpu_torch.ops.lstm`` / ``ops.gru`` (unpatched variants only)
-and timed between CUDA events in two turns (the variants in order, then
-in reverse).  Sources from before the tensor-core kernels (kernel 10
-reading a transpose of w_hh, kernel 9 with per-CTA partials, kernels 8
-and 16 on CUDA cores) take those kernels' older arguments.  ``--slices
-N`` also times the repository's kernels 9, 10 and 11 at N K slices where
-N is a valid slicing of their K.  Prints one line per (turn, shape,
+(at H <= 512 it is the other design of kernel 8's step loop) -- and the
+GRU's kernels 15 and 16 at each ``--gru_shape`` (default phase 5's, B
+128, T 30, H 1024) and kernel 14 at each ``--gru14_shape`` (default
+phase 5's, B 128, T 30, H 512), every step valid, h0 zero; each held
+against the plain versions in ``paddle_tpu_torch.ops.lstm`` /
+``ops.gru`` (unpatched variants only) and timed between CUDA events in
+two turns (the variants in order, then in reverse).  Sources from before
+the tensor-core kernels (kernel 10 reading a transpose of w_hh, kernel 9
+with per-CTA partials, kernels 8, 14, 15 and 16 on CUDA cores) take
+those kernels' older arguments (kernel 15's transposes of the weights
+made once, outside the timing).  ``--slices N`` also times the
+repository's kernels 9, 10 and 11 at N K slices where N is a valid
+slicing of their K, and ``--gru_slices S1,S2`` kernels 14 and 15 with S1
+and S2 slices of their two products.  Prints one line per (turn, shape,
 variant, kernel) and the card's name and power limit.
 """
 
@@ -47,27 +53,28 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(ROOT, "build", "probe")
 BLOCKED = ("lstm_fwd_blocked", "lstm_bwd_blocked", "lstm_dw_blocked")
 SINGLE = ("lstm_fwd", "lstm_bwd")
-GRU = ("gru_bwd_blocked",)
+GRU = ("gru_bwd_blocked", "gru_fwd_blocked", "gru_bwd")
 KERNELS = BLOCKED + SINGLE + GRU
 #: the kernels whose step product is cut into K slices, and their K
 SLICED = {"lstm_fwd_blocked": lambda h: h, "lstm_bwd_blocked":
           lambda h: 4 * h, "lstm_bwd": lambda h: 4 * h}
 
 _WG, _FWD = "lstm_wg.cuh", "lstm_fwd_blocked.cu"
-_F8, _G16 = "lstm_fwd.cu", "gru_bwd_blocked.cu"
+_F8, _GWG, _G15 = "lstm_fwd.cu", "gru_wg.cuh", "gru_fwd_blocked.cu"
 _PAIRS = "    for (long p = first; p < BH; p += stride) {\n" \
          "      const int b = (int)(p / H), unit = (int)(p % H);\n"
 #: name -> [(file, old text, new text)].  The step loop of kernels 9-11
 #: (Tiles, phase A, the backward's kernel) lives in lstm_wg.cuh, so a
-#: knock-out of it reaches all three and kernel 16 (Tiles); time the one
-#: in question (--only).
+#: knock-out of it reaches all three and kernels 14-16 (Tiles); kernels
+#: 14 and 16 share gru_wg.cuh; time the one in question (--only).
 PATCHES = {
     # no grid barrier between the steps' phases (the prologue's barriers
     # stay: the step ranks are read after them)
     "no_barrier": [(_WG, "grid.sync();  // step", "(void)grid;"),
                    (_FWD, "grid.sync();  // step", "(void)grid;"),
                    (_F8, "grid.sync();  // step", "(void)grid;"),
-                   (_G16, "grid.sync();  // step", "(void)grid;")],
+                   (_GWG, "grid.sync();  // step", "(void)grid;"),
+                   (_G15, "grid.sync();  // step", "(void)grid;")],
     # no tensor-core products (the loads, waits, drains and stores of the
     # sums stay)
     "no_products": [(_WG,
@@ -122,8 +129,10 @@ PATCHES = {
                   "for (long p = BH + first; p < BH; p += 2 * stride)"),
                  (_F8, "if (idx >= lwg::kRows * U ||",
                   "if (idx >= 0 || idx >= lwg::kRows * U ||"),
-                 (_G16, "for (long p = first; p < BH; p += stride) {  //",
-                  "for (long p = BH + first; p < BH; p += stride) {  //")],
+                 (_GWG, "for (long p = first; p < BH; p += stride) {  //",
+                  "for (long p = BH + first; p < BH; p += stride) {  //"),
+                 (_G15, "for (long p = first; p < BH; p += 2 * stride) {",
+                  "for (long p = BH + first; p < BH; p += 2 * stride) {")],
     # the pairs write no planes (the products read stale ones)
     "no_plane_writes": [(_WG,
                          "    put_split(p, lo, di_pre);\n"
@@ -134,12 +143,18 @@ PATCHES = {
                          "  if (v.r1 >= 0 && a.B < 0)\n"),
                         (_F8, "if (t + 1 < T) put_split(",
                          "if (t + 1 < T && B < 0) put_split("),
-                        (_G16, "  if (r >= 0) {\n    put_split(",
+                        (_GWG, "  if (r >= 0) {\n    put_split(",
                          "  if (r >= 0 && a.B < 0) {\n    put_split("),
-                        (_G16, "      if (r >= 0)\n        put_split(",
-                         "      if (r >= 0 && B < 0)\n        put_split(")],
-    # kernel 9: no dW tiles after the loop (the splits' sum stays)
+                        (_GWG, "      if (r >= 0)\n        put_split(",
+                         "      if (r >= 0 && B < 0)\n        put_split("),
+                        (_G15, "  put_split(a.rpl",
+                         "  if (a.B < 0) put_split(a.rpl"),
+                        (_G15, "  if (v.r1 >= 0)\n",
+                         "  if (v.r1 >= 0 && a.B < 0)\n")],
+    # kernels 9 and 14: no dW tiles after the loop (the splits' sum stays)
     "no_dw": [(_WG, "task < n_dw * d.n_split;",
+               "task < n_dw * d.n_split && B < 0;"),
+              (_GWG, "task < n_dw * d.n_split;",
                "task < n_dw * d.n_split && B < 0;")],
 }
 
@@ -152,36 +167,45 @@ def ptxas_lines(text):
             if any(k in ln for k in keep)]
 
 
-def build(name, src_dir, patch):
+def build(name, src_dir, patch, stems=KERNELS):
     """Build one variant: its functions by symbol and which argument
     forms its sources take ({"fwd_t": kernel 10 reads w_hh's transpose,
     "bwd_u": kernel 9 takes U and per-CTA partials, "fwd8": kernel 8
     takes no planes, "gru16": kernel 16 takes no planes, ranks or
-    slices})."""
+    slices, "gru15": kernel 15 reads the weights' transposes and an
+    f32 r h scratch, "gru14": kernel 14 takes only an rh scratch})."""
     from probe_build import build_variant
     edits = PATCHES.get(patch, [])
     if isinstance(edits, str):   # a combination of other knock-outs
         edits = [e for part in edits.split("+") for e in PATCHES[part]]
     fns, ptxas = build_variant(os.path.join(OUT, name), src_dir, edits,
-                               KERNELS)
-    print("\n".join(f"  {name}/{stem}: {ln}" for stem in KERNELS
+                               stems)
+    print("\n".join(f"  {name}/{stem}: {ln}" for stem in stems
                     for ln in ptxas_lines(ptxas[stem])), flush=True)
     read = lambda f: open(os.path.join(src_dir, f)).read()  # noqa: E731
     old = {"fwd_t": "int* rank" not in read("lstm_fwd_blocked.cu"),
            "bwd_u": "pbuf" in read("lstm_bwd.cu"),
            "fwd8": "void* apl" not in read("lstm_fwd.cu"),
-           "gru16": "int* rank" not in read("gru_bwd_blocked.cu")}
-    if old["fwd_t"]:
+           "gru16": "int* rank" not in read("gru_bwd_blocked.cu"),
+           "gru15": "int* rank" not in read("gru_fwd_blocked.cu"),
+           "gru14": "int* rows" not in read("gru_bwd.cu")}
+    if old["fwd_t"] and "lstm_fwd_blocked" in fns:
         fns["lstm_fwd_blocked"].argtypes = \
             [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    if old["bwd_u"]:
+    if old["bwd_u"] and "lstm_bwd" in fns:
         fns["lstm_bwd"].argtypes = \
             [ctypes.c_void_p] * 16 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    if old["fwd8"]:
+    if old["fwd8"] and "lstm_fwd" in fns:
         fns["lstm_fwd"].argtypes = \
             [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    if old["gru16"]:
+    if old["gru16"] and "gru_bwd_blocked" in fns:
         fns["gru_bwd_blocked"].argtypes = \
+            [ctypes.c_void_p] * 12 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    if old["gru15"] and "gru_fwd_blocked" in fns:
+        fns["gru_fwd_blocked"].argtypes = \
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    if old["gru14"] and "gru_bwd" in fns:
+        fns["gru_bwd"].argtypes = \
             [ctypes.c_void_p] * 12 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     return fns, old
 
@@ -218,8 +242,15 @@ def main() -> int:
                     "128,100,512)")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--gru_shape", action="append", default=[],
-                    help="B,T,H of kernel 16, every step valid (default "
-                    "128,30,1024)")
+                    help="B,T,H of kernels 15 and 16, every step valid "
+                    "(default 128,30,1024)")
+    ap.add_argument("--gru14_shape", action="append", default=[],
+                    help="B,T,H of kernel 14, every step valid (default "
+                    "128,30,512)")
+    ap.add_argument("--gru_slices", action="append", default=[],
+                    help="S1,S2: also time the repository's kernels 14 and "
+                    "15 with S1 and S2 K slices of their two products "
+                    "(14: drh, carry; 15: gates, candidate)")
     ap.add_argument("--slices", action="append", type=int, default=[],
                     help="also time the repository's kernels 9-11 with "
                     "this many K slices (their own plans otherwise)")
@@ -241,9 +272,14 @@ def main() -> int:
     variants = [("repo", repo, None)]
     variants += [(f"csrc{i}", d, None) for i, d in enumerate(args.csrc)]
     variants += [(p, repo, p) for p in args.patch]
+    want = lambda k: not args.only or k in args.only  # noqa: E731
+    # the LSTM's kernels all together (their loop runs them by shape), the
+    # GRU's as asked
+    stems = [k for k in KERNELS if want(k)
+             or (k not in GRU and any(want(j) for j in BLOCKED + SINGLE))]
     from concurrent.futures import ThreadPoolExecutor
     with ThreadPoolExecutor(3) as pool:   # three variants' nvcc at a time
-        done = list(pool.map(lambda v: build(*v), variants))
+        done = list(pool.map(lambda v: build(*v, stems), variants))
     built = {n: (p, None) + b for (n, _, p), b in zip(variants, done)}
     for n_sl in args.slices:
         built[f"repo-s{n_sl}"] = (None, n_sl) + built["repo"][2:]
@@ -255,6 +291,8 @@ def main() -> int:
     f32 = dict(device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
     bf = dict(dtype=torch.bfloat16, device=dev)
+    if not any(want(k) for k in BLOCKED + SINGLE):
+        shapes = []
     for b, t, h in shapes:
         rng = np.random.RandomState(0)          # the bench feed's lengths
         rng.randint(0, 30000, (b, t))
@@ -381,17 +419,27 @@ def main() -> int:
                         if k == "lstm_dw_blocked" else ""
                     print(f"turn {turn} ({b}, {t}, {h}) {name} {k}: "
                           f"{ms:.3f} ms{extra}{err}", flush=True)
-    if not args.only or "gru_bwd_blocked" in args.only:
-        for shape in args.gru_shape or ["128,30,1024"]:
-            time_gru(built, tuple(int(x) for x in shape.split(",")), sms,
-                     args.reps)
+    extra = [tuple(int(x) for x in c.split(",")) for c in args.gru_slices]
+    for shape in args.gru_shape or ["128,30,1024"]:
+        shape = tuple(int(x) for x in shape.split(","))
+        for k in ("gru_fwd_blocked", "gru_bwd_blocked"):
+            if want(k):
+                time_gru(built, k, shape, sms, args.reps,
+                         extra if k == "gru_fwd_blocked" else ())
+    if want("gru_bwd"):
+        for shape in args.gru14_shape or ["128,30,512"]:
+            time_gru(built, "gru_bwd", tuple(int(x) for x in
+                                             shape.split(",")), sms,
+                     args.reps, extra)
     return 0
 
 
-def time_gru(built, shape, sms, reps):
-    """Kernel 16 at (B, T, H), every step valid, h0 zero (phase 5's
-    feed), each variant in two turns; unpatched variants held against
-    ``gru_bwd_blocked_reference``."""
+def time_gru(built, kernel, shape, sms, reps, extra_slices=()):
+    """GRU kernel 15, 16 or 14 (``kernel``) at (B, T, H), every step
+    valid, h0 zero (phase 5's feed), each variant in two turns (and each
+    unpatched variant that takes slices at each slicing of
+    ``extra_slices`` that cuts its K); unpatched variants held against
+    the plain versions."""
     import torch
     from paddle_tpu_torch.ops import gru as G
     b, t, h = shape
@@ -404,37 +452,87 @@ def time_gru(built, shape, sms, reps):
     mask = torch.ones((b, t), device=dev)
     xw, wg = rnd(b, t, 3 * h, sc=0.5), rnd(h, 2 * h, sc=h ** -0.5)
     wc, h0 = rnd(h, h, sc=h ** -0.5), torch.zeros((b, h), device=dev)
-    hseq, gates = G.gru_fwd_blocked_reference(xw, mask, wg, wc, h0)
     dy = rnd(b, t, h)
-    ins = (gates, hseq, h0, mask, wg, wc, dy)
-    ref = G.gru_bwd_blocked_reference(*ins)
-    n_c, n_g = G.bwd_blocked_slices(b, h, sms)
-    kc, kg = -(-h // 64) * 64, -(-2 * h // 64) * 64
+    f32 = dict(device=dev)
     bf = dict(dtype=torch.bfloat16, device=dev)
-    sc = [torch.empty(b, h, device=dev), torch.empty(b, h, device=dev),
-          torch.empty(max(n_c, n_g), b, h, device=dev),
-          torch.empty(t * b + t, dtype=torch.int32, device=dev),
-          torch.empty(2, h, kc, **bf), torch.empty(2, h, kg, **bf),
-          torch.empty(2, b, kc, **bf), torch.empty(2, b, kg, **bf)]
-    print(f"gru ({b}, {t}, {h}): K slices drh {n_c}, carry {n_g}",
-          flush=True)
-    for turn, order in enumerate((list(built), list(built)[::-1])):
-        for name in order:
+    kp, kg = -(-h // 64) * 64, -(-2 * h // 64) * 64
+    n_gcols = 2 * -(-h // 64) * 64
+    if kernel == "gru_fwd_blocked":
+        ins = (xw, mask, wg, wc, h0)
+        ref = G.gru_fwd_blocked_reference(*ins)
+        plan = G.fwd_blocked_slices(b, h, sms)
+        ks = (h, h)
+        most = max(max(c[0] * n_gcols, c[1] * h)
+                   for c in [plan, *extra_slices]) * b
+        new_sc = (torch.empty(most, **f32),
+                  torch.empty(t * b + t, dtype=torch.int32, device=dev),
+                  torch.empty(2, n_gcols, kp, **bf),
+                  torch.empty(2, h, kp, **bf), torch.empty(2, b, kp, **bf),
+                  torch.empty(2, b, kp, **bf))
+        old_ins = (xw, mask, wg.t().contiguous(), wc.t().contiguous(), h0)
+        old_sc = (torch.empty(b, h, **f32),)
+    else:
+        fwd = G.gru_fwd_blocked_reference if kernel == "gru_bwd_blocked" \
+            else G.gru_fwd_reference
+        hseq, gates = fwd(xw, mask, wg, wc, h0)
+        ins = old_ins = (gates, hseq, h0, mask, wg, wc, dy)
+        plan = (G.bwd_blocked_slices if kernel == "gru_bwd_blocked"
+                else G.bwd_slices)(b, h, sms)
+        ks = (h, 2 * h)
+        most = max([*plan] + [max(c) for c in extra_slices])
+        # kernel 14's row list starts as zeros: a knock-out that skips
+        # phase A leaves it listing row 0, not garbage
+        common = (torch.empty(b, h, **f32), torch.empty(b, h, **f32),
+                  torch.empty(most, b, h, **f32),
+                  torch.empty(t * b + t, dtype=torch.int32, device=dev))
+        planes = (torch.empty(2, h, kp, **bf), torch.empty(2, h, kg, **bf),
+                  torch.empty(2, b, kp, **bf), torch.empty(2, b, kg, **bf))
+        if kernel == "gru_bwd_blocked":
+            ref = G.gru_bwd_blocked_reference(*ins)
+            new_sc = common + planes
+            old_sc = common[:2]
+        else:
+            ref = G.gru_bwd_reference(*ins)
+            n_split = G.bwd_dw_splits(h, sms)
+            rh = torch.empty(b, t, h, **f32)
+            new_sc = (rh,) + common + (
+                torch.zeros(b * t, dtype=torch.int32, device=dev),) + \
+                planes + (torch.empty(G.MAX_DW_SPLIT, h, 3 * h, **f32),)
+            old_sc = (rh,)
+    tag = {"gru_fwd_blocked": "15", "gru_bwd_blocked": "16",
+           "gru_bwd": "14"}[kernel]
+    print(f"gru ({b}, {t}, {h}) kernel {tag}: K slices {plan}", flush=True)
+    flag = {"gru_fwd_blocked": "gru15", "gru_bwd_blocked": "gru16",
+            "gru_bwd": "gru14"}[kernel]
+    # the extra slicings for every unpatched variant that takes slices
+    runs = [(name, None) for name in built] + \
+        [(name, c) for c in extra_slices for name, v in built.items()
+         if v[0] is None and not v[1] and not v[3][flag]
+         and all(valid_slices(n, k) for n, k in zip(c, ks))]
+    for turn, order in enumerate((runs, runs[::-1])):
+        for name, slices in order:
             patch, n_sl_opt, fn, old = built[name]
             if n_sl_opt:
                 continue
             out = [torch.empty_like(x) for x in ref]
-            ptrs = ins + tuple(out) + tuple(sc[:2]) + \
-                (() if old["gru16"] else tuple(sc[2:]))
-            ints = (b, t, h) + (() if old["gru16"] else (n_c, n_g))
-            ms = time_ms(lambda: fn["gru_bwd_blocked"](
+            if old[flag]:
+                ptrs, ints = old_ins + tuple(out) + old_sc, (b, t, h)
+            else:
+                ints = (b, t, h) + (slices or plan)
+                if kernel == "gru_bwd":
+                    ints += (n_split,)
+                # kernel 16 returns dxw, dh0, rh and takes rh as an output
+                ptrs = ins + tuple(out) + new_sc
+            ms = time_ms(lambda: fn[kernel](
                 *[x.data_ptr() for x in ptrs], *ints, s), reps)
             err = ""
             if patch is None:
                 e = max(((x - y).abs().max() / y.abs().max()).item()
                         for x, y in zip(out, ref))
                 err = f", max err / max|ref| {e:.1e}"
-            print(f"turn {turn} gru ({b}, {t}, {h}) {name} gru_bwd_blocked: "
+            label = name if slices is None else \
+                f"{name}-s{slices[0]},{slices[1]}"
+            print(f"turn {turn} gru ({b}, {t}, {h}) {label} {kernel}: "
                   f"{ms:.3f} ms{err}", flush=True)
 
 
