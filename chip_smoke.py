@@ -96,8 +96,9 @@ Phases (any failure exits nonzero, without the final ``ok`` line):
    ``tests/test_pallas_gru.py``; a bf16 gradient also within one bf16
    ulp), at the seq2seq row's encoder shape (B 128, T 30, H 512) in
    both directions; rows of length 0, 1 and T with a nonzero h0; B = 3
-   without h0; H 384; B 200 (two row chunks); H 50 (scalar staging, a
-   part-filled CTA); and a bf16 xw;
+   without h0; H 384; B 200 (seven of kernel 13's clusters of 32 rows,
+   the last part-filled); H 50 (scalar loads, a part-filled CTA); and a
+   bf16 xw;
 3f. the hidden-blocked GRU kernels 15-17 (forward, BPTT, dW) the same
    way, with the tolerances of 3e, at (B, T, H) = (128, 30, 1024) in
    both directions (the H 1024 encoder's shape); (8, 12, 640) with
@@ -206,9 +207,8 @@ Phases (any failure exits nonzero, without the final ``ok`` line):
    share of the bound rate; kernels 18, 19 and 21 are bound by two bf16
    tensor-core passes (the f32 operand as hi + lo, ``CONV_BOUND_BASIS``),
    kernel 20 by one (its bf16 dy as it is), or by their bytes, whichever
-   is larger; kernels 8-12 and 14-17 by three bf16 passes (hi*hi +
-   hi*lo + lo*hi of their f32 operands, ``GRU_BOUND_BASIS``,
-   ``LSTM_BOUND_BASIS``; kernel 13 at the fp32 rate).
+   is larger; kernels 8-17 by three bf16 passes (hi*hi + hi*lo + lo*hi
+   of their f32 operands, ``GRU_BOUND_BASIS``, ``LSTM_BOUND_BASIS``).
 
 Phases 3b-4f are PR 2's H 512 phases and run in fp32 (``use_bf16``
 off), so their readings stay comparable.  The order of the run: 1-3f,
@@ -1143,7 +1143,7 @@ LSTM_PROFILE_MARKS = {"kernel 8": "lstm_fwd_wg_kernel<",
 #: the GRU kernels by the marks of their symbols in a profile
 #: (kernels 14 and 16 are one template, gru_bwd_wg_kernel, told apart
 #: by its CTA: 256 threads for 14, 384 for 16)
-GRU_PROFILE_MARKS = {"kernel 13": "gru_fwd_kernel",
+GRU_PROFILE_MARKS = {"kernel 13": "gru_fwd_cluster_kernel",
                      "kernel 14": "gru_bwd_wg_kernel<256",
                      "kernel 15": "gru_fwd_blocked_kernel",
                      "kernel 16": "gru_bwd_wg_kernel<384",
@@ -1914,7 +1914,8 @@ def phase_gru_check(dev):
              ((3, 5, 128), [5, 1, 3], False, None, False),        # B = 3
              ((16, 7, 384), [7, 0, 1] + [1 + i % 7 for i in range(13)],
               False, None, True),
-             # two row chunks; H % 4 != 0 (scalar staging, a part CTA)
+             # kernel 13: seven clusters of 32 rows, the last part-filled;
+             # H % 4 != 0 (scalar loads), a part-filled CTA
              ((200, 4, 256), [4, 0] + [1 + i % 4 for i in range(198)], True,
               None, True),
              ((5, 6, 50), [6, 1, 0, 6, 3], False, None, True),
@@ -2075,9 +2076,11 @@ def gru_work(b, t, h, n_valid, backward):
 def phase_time_gru(dev, launches):
     """Kernels 13 and 14 at the seq2seq row's encoder shape (B 128, T 30,
     H 512, every step valid, h0 zero): against their plain versions, then
-    timed with both; the bounds on the basis of ``GRU_BOUND_BASIS`` (14's
-    at the fp32 rate too, in the log only)."""
+    timed with both; the bounds on the basis of ``GRU_BOUND_BASIS`` (at
+    the fp32 rate too, in the log only), and how many of kernel 13's
+    clusters the card holds at once."""
     import torch
+    from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import gru as G
     b, t, h = S2S["B"], S2S["T"], S2S["H"]
     g = torch.Generator(device=dev).manual_seed(0)
@@ -2117,6 +2120,9 @@ def phase_time_gru(dev, launches):
                      "plain_ms": plain_ms, "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": None,
                      "shape": f"B {b}, T {t}, H {h}, all steps valid"})
+    log(f"  gru_fwd: {_build.kernel('gru_fwd_clusters')(h)} clusters of "
+        f"{-(-h // G.UNITS)} CTAs at once on this card, "
+        f"{-(-b // G.CLUSTER_ROWS)} in the launch")
     for r in rows:
         passes, rate = GRU_BOUND_BASIS[r["name"]]
         fp32_ms = bound_ms(*gru_work(b, t, h, b * t,
@@ -2245,12 +2251,12 @@ def phase_c1_card(dev):
             "out_err": e_out, "grad_err": e_grad}
 
 
-#: the bound's basis of the GRU kernels: (passes, rate) -- 13 multiplies
-#: f32 on the CUDA cores; 14, 15 and 16 (their two step products, and
-#: 14's dW) and 17 multiply their f32 operands on the tensor cores as
-#: hi*hi + hi*lo + lo*hi, three bf16 passes (csrc/lstm_wg.cuh,
-#: csrc/dw_wg.cuh)
-GRU_BOUND_BASIS = {"gru_fwd": (1, FP32_FLOPS_PER_S),
+#: the bound's basis of the GRU kernels: (passes, rate) -- all five
+#: multiply their f32 operands on the tensor cores as hi*hi + hi*lo +
+#: lo*hi, three bf16 passes: 13 (csrc/gru_fwd.cu), 14, 15 and 16 (their
+#: two step products, and 14's dW; csrc/lstm_wg.cuh) and 17
+#: (csrc/dw_wg.cuh)
+GRU_BOUND_BASIS = {"gru_fwd": (3, BF16_FLOPS_PER_S),
                    "gru_bwd": (3, BF16_FLOPS_PER_S),
                    "gru_fwd_blocked": (3, BF16_FLOPS_PER_S),
                    "gru_bwd_blocked": (3, BF16_FLOPS_PER_S),

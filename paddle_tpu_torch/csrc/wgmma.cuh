@@ -1,7 +1,8 @@
 // Hopper warpgroup matrix products (wgmma, sm_90a only) and the swizzled
 // shared-memory tiles they read, shared by the tensor-core main loops of
 // kernels 18-21 (conv3x3_tc.cuh), the flash kernels (flash_wg.cuh), the
-// LSTM's step products (lstm_wg.cuh) and the dW tile (dw_wg.cuh).
+// recurrences' step products (lstm_wg.cuh, lstm_fwd.cu, gru_fwd.cu) and
+// the dW tile (dw_wg.cuh).
 //
 // A warpgroup is 4 consecutive warps (128 threads, the first warp's index
 // a multiple of 4).  One wgmma adds a 64 x N product (N in {16, 32, 64,
@@ -211,6 +212,20 @@ __device__ __forceinline__ void mma_ss_n16(float* d, uint64_t adesc,
       "%0, %1, %2, %3, %4, %5, %6, %7}, "
       "%8, %9, p, 1, 1, 0, 0;\n}\n"
       : WG_D4(0), WG_D4(4)
+      : "l"(adesc), "l"(bdesc), "r"(scale_d));
+}
+
+// d[64 x 32] (+)= A[64 x 16] * B[16 x 32], A and B from shared memory,
+// both K-major.
+__device__ __forceinline__ void mma_ss_n32(float* d, uint64_t adesc,
+                                           uint64_t bdesc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : WG_D16(0)
       : "l"(adesc), "l"(bdesc), "r"(scale_d));
 }
 

@@ -70,7 +70,8 @@ SIGNATURES = {
     "conv3x3_fwd": ("conv3x3_fwd", [_C] * 4 + [_I] * 7 + [_C]),
     "conv3x3_fwd_bwd": ("conv3x3_fwd_bwd", [_C] * 8 + [_I] * 7 + [_C]),
     "conv3x3_chain_bwd": ("conv3x3_chain_bwd", [_C] * 11 + [_I] * 7 + [_C]),
-    "gru_fwd": ("gru_fwd", [_C] * 8 + [_I] * 3 + [_C]),
+    "gru_fwd": ("gru_fwd", [_C] * 7 + [_I] * 3 + [_C]),
+    "gru_fwd_clusters": ("gru_fwd", [_I]),
     "gru_bwd": ("gru_bwd", [_C] * 22 + [_I] * 6 + [_C]),
     "gru_fwd_blocked": ("gru_fwd_blocked", [_C] * 13 + [_I] * 5 + [_C]),
     "gru_bwd_blocked": ("gru_bwd_blocked", [_C] * 18 + [_I] * 5 + [_C]),

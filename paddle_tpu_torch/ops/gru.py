@@ -2,16 +2,14 @@
 its single-block tier and its hidden-blocked tier).
 
 Hand-written CUDA C++ kernels for ``sm_90a``, each a whole time loop of
-one GRU direction in one persistent cooperative launch, except the last
-(an ordinary product):
+one GRU direction in one launch, except the last (an ordinary product):
 
 - single-block tier, H <= 512 (``"fused"``): :func:`gru_fwd`
   (``csrc/gru_fwd.cu``, kernel 13; plain version
   :func:`gru_fwd_reference`) writes the kept state sequence H and the
-  gate residue (u, r, c), its products fp32 on CUDA cores
-  (``csrc/lstm_common.cuh``); :func:`gru_bwd` (``csrc/gru_bwd.cu``,
-  kernel 14; plain version :func:`gru_bwd_reference`) gives dxw,
-  dW_gates, dW_cand and dh0;
+  gate residue (u, r, c); :func:`gru_bwd` (``csrc/gru_bwd.cu``, kernel
+  14; plain version :func:`gru_bwd_reference`) gives dxw, dW_gates,
+  dW_cand and dh0;
 - hidden-blocked tier, 512 < H (``"fused_blocked"``):
   :func:`gru_fwd_blocked` (``csrc/gru_fwd_blocked.cu``, kernel 15;
   plain :func:`gru_fwd_blocked_reference`), :func:`gru_bwd_blocked`
@@ -20,22 +18,29 @@ one GRU direction in one persistent cooperative launch, except the last
   :func:`gru_dw_blocked` (``csrc/gru_dw_blocked.cu``, kernel 17; plain
   :func:`gru_dw_blocked_reference`: dW_gates, dW_cand).
 
-Kernels 14-16 run their two step products on the LSTM's tensor-core
-step loop (``csrc/lstm_wg.cuh``: bf16 hi/lo planes they write
-themselves, each step's in compacted row order, tiles of 128 rows x 128
-columns x one K slice summed in order by the (row, unit) pairs, four
-grid barriers a step): the forward's gates = h_{t-1} @ w_gates and
-candidate (r·h_{t-1}) @ w_cand (K slices from :func:`fwd_blocked_slices`),
-the backward's drh = dc_pre_t @ w_candᵀ and the carry's dg_t @ w_gatesᵀ
-(:func:`bwd_slices`, :func:`bwd_blocked_slices`).  Kernels 14 and 16 are
-one kernel template (``csrc/gru_wg.cuh``); kernel 14 adds dW_gates and
-dW_cand after its time loop, and kernel 17 computes them for the blocked
-tier, both on the tensor-core dW tile (``csrc/dw_wg.cuh``).  Their
-products take only the
-rows valid at each step (a padded step keeps h, the blocked forward
-writes its residue as 0, and its dxw is exact zeros).  The tensor-core
-products take their f32 operands as hi + lo bf16, three passes, each
-64-deep chunk's sums added in f32.
+Kernel 13 runs each group of :data:`CLUSTER_ROWS` batch rows in one
+thread-block cluster of ceil(H / :data:`UNITS`) CTAs (no grid barrier):
+each CTA keeps its units' columns of both weights resident as bf16
+hi/lo planes and takes the whole K of both step products on wgmma, the
+group's h_{t-1} and r·h_{t-1} handed between the cluster's CTAs through
+distributed shared memory; every row enters every step's products (the
+residue of a padded step is computed from the kept state).  Kernels
+14-16 are persistent cooperative launches that run their two step
+products on the LSTM's tensor-core step loop (``csrc/lstm_wg.cuh``:
+bf16 hi/lo planes they write themselves, each step's in compacted row
+order, tiles of 128 rows x 128 columns x one K slice summed in order by
+the (row, unit) pairs, four grid barriers a step): the forward's gates
+= h_{t-1} @ w_gates and candidate (r·h_{t-1}) @ w_cand (K slices from
+:func:`fwd_blocked_slices`), the backward's drh = dc_pre_t @ w_candᵀ and
+the carry's dg_t @ w_gatesᵀ (:func:`bwd_slices`,
+:func:`bwd_blocked_slices`).  Kernels 14 and 16 are one kernel template
+(``csrc/gru_wg.cuh``); kernel 14 adds dW_gates and dW_cand after its
+time loop, and kernel 17 computes them for the blocked tier, both on
+the tensor-core dW tile (``csrc/dw_wg.cuh``).  Their products take only
+the rows valid at each step (a padded step keeps h, the blocked forward
+writes its residue as 0, and its dxw is exact zeros).  Every
+tensor-core product takes its f32 operands as hi + lo bf16, three
+passes, each 64-deep chunk's sums added in f32.
 
 Gate layout (u, r, c), w_gates ``[H, 2H]`` (u | r), w_cand ``[H, H]``;
 the reset gate applies before the candidate product: c = tanh(x_c +
@@ -58,7 +63,7 @@ raises too, never falls back.  Each wrapper counts its launches in
 ``.launches``.
 
 Precision: the kernels compute in fp32, whatever the policy (the
-products of kernels 14-17 as three bf16 passes of the f32 operands' hi
+products of kernels 13-17 as three bf16 passes of the f32 operands' hi
 and lo parts).  The public functions cast xw to fp32 before the kernels
 (a bf16 xw converts exactly), so autograd returns dxw in xw's dtype, as
 ``_gru_core_bwd`` and ``_gru_core_blocked_bwd`` cast dxw to xw's dtype
@@ -77,19 +82,21 @@ from .lstm import (CHUNK, MAX_DW_SPLIT, SM_COUNT, SMEM_BYTES, TILE_COLS,
                    TILE_ROWS, _RING_BYTES, _check, _launch, _on_card,
                    _plane_slices, _shifted, _sms)
 
-#: Hidden units per CTA of the single-block forward (kernel 13: its 2U
-#: gate and U candidate columns feed the register-blocked products of
-#: ``csrc/lstm_common.cuh``, which take a multiple of 4 columns).
-UNITS = 4
+#: Hidden units per CTA of the single-block forward (kernel 13: the 2U
+#: gate columns are the 64 rows of one wgmma tile), and batch rows per
+#: cluster (the tile's 16 columns).
+UNITS, CLUSTER_ROWS = 32, 32
 #: Largest H the single-block kernels take; above it, the blocked tier
 #: (kernels 15-17).
 MAX_HIDDEN = 512
 #: Largest H of the blocked tier: the kernels count a row-step's 3H gate
 #: columns and w_hh's 3H^2 elements in 32-bit ints.
 MAX_BLOCKED_HIDDEN = 26754
-# kernel 13's shared-memory pieces (csrc/lstm_common.cuh), in floats:
-# three staged [128, 68] tiles and the k-group partial sums
-_TILE_FLOATS, _RED_FLOATS = 3 * 128 * 68, 8 * 128 * 4
+# kernel 13's shared memory per 64-wide chunk of K, in bytes: its units'
+# gate planes (hi, lo: 64 rows x 128 bytes each) and the cluster's buffer
+# (32 rows, hi and lo); and per two chunks, its candidate hi planes (32
+# rows each)
+_FWD_CHUNK_BYTES, _FWD_CAND_BYTES = 2 * 8192 + 2 * 4096, 8192
 # the blocked tier's shared memory, in floats: kernels 15 and 16 run on
 # the tensor-core step loop's ring (csrc/lstm_wg.cuh), kernel 17 on the
 # dW tile's (csrc/dw_wg.cuh), each 1 KB of alignment and 3 stages of four
@@ -103,13 +110,14 @@ def _round_up(x: int, m: int) -> int:
 
 def smem_bytes(b: int, h: int) -> Tuple[int, int]:
     """Dynamic shared memory of the single-block (forward, backward)
-    kernels, in bytes: kernel 13's arithmetic (``csrc/gru_fwd.cu``: its
-    units' weight columns, the staging tiles and partial sums, the gates
-    and carry of every row) and kernel 14's ring (``csrc/gru_wg.cuh`` on
-    ``csrc/lstm_wg.cuh``, any b and h)."""
-    u = UNITS
-    fwd = _round_up(h, 64) * 3 * u + _TILE_FLOATS + _RED_FLOATS + 3 * b * u
-    return 4 * fwd, _RING_BYTES
+    kernels, in bytes: kernel 13's arithmetic (``csrc/gru_fwd.cu``: 1 KB
+    of alignment, then per 64-wide chunk of K its units' gate planes and
+    the cluster's buffer, per two chunks its candidate hi planes, any b)
+    and kernel 14's ring (``csrc/gru_wg.cuh`` on ``csrc/lstm_wg.cuh``, any
+    b and h)."""
+    nch = -(-h // CHUNK)
+    return (1024 + nch * _FWD_CHUNK_BYTES + -(-nch // 2) * _FWD_CAND_BYTES,
+            _RING_BYTES)
 
 
 def fwd_blocked_slices(b: int, h: int, sms: int = SM_COUNT
@@ -159,9 +167,10 @@ def bwd_dw_splits(h: int, sms: int = SM_COUNT) -> int:
 def fused_tier(b: int, h: int, sms: int = SM_COUNT) -> Optional[str]:
     """Which kernels serve (b, h) on a card with ``sms`` SMs:
 
-    - ``"fused"``: 1 <= h <= 512, kernel 13's grid of ceil(h / 4) CTAs
-      at most one per SM (kernel 14 takes one CTA an SM, any h), both
-      kernels' shared memory within one block's limit;
+    - ``"fused"``: 1 <= h <= 512, both kernels' shared memory within one
+      block's limit (kernel 13's clusters of ceil(h / 32) <= 16 CTAs run
+      in waves when the card holds fewer at once; kernel 14 takes one
+      CTA an SM; any b and any SM count);
     - ``"fused_blocked"``: 512 < h <= MAX_BLOCKED_HIDDEN under
       ``--fused_rnn_hblock`` (default on).  The blocked kernels stride
       over their tiles with as many CTAs as are co-resident, so any B
@@ -173,9 +182,7 @@ def fused_tier(b: int, h: int, sms: int = SM_COUNT) -> Optional[str]:
     if b < 1 or h < 1:
         return None
     if h <= MAX_HIDDEN:
-        if -(-h // UNITS) > sms or max(smem_bytes(b, h)) > SMEM_BYTES:
-            return None
-        return "fused"
+        return "fused" if max(smem_bytes(b, h)) <= SMEM_BYTES else None
     if not FLAGS.get("fused_rnn_hblock") or h > MAX_BLOCKED_HIDDEN \
             or sms < 1 or 4 * max(_BLOCKED_FLOATS) > SMEM_BYTES:
         return None
@@ -286,8 +293,8 @@ def _tier_on_card(b: int, h: int, dev: torch.device, want: str) -> None:
     if fused_tier(b, h, sms) != want:
         raise PaddleTpuError(
             f"the {want!r} GRU kernels do not serve batch={b} hidden={h} "
-            f"(fused: hidden <= {MAX_HIDDEN}, ceil(hidden / {UNITS}) <= "
-            f"{sms} CTAs, shared memory <= {SMEM_BYTES} B; fused_blocked: "
+            f"(fused: hidden <= {MAX_HIDDEN}, shared memory <= "
+            f"{SMEM_BYTES} B; fused_blocked: "
             f"{MAX_HIDDEN} < hidden <= {MAX_BLOCKED_HIDDEN} with "
             "--fused_rnn_hblock on)")
 
@@ -329,8 +336,7 @@ def gru_fwd(xw, mask, w_gates, w_cand, h0
     gates = torch.empty_like(xw)
     if xw.numel() == 0:
         return hseq, gates
-    rh = torch.empty_like(h0)          # r * h_prev of the step
-    _launch("gru_fwd", [x.data_ptr() for x in args + (hseq, gates, rh)],
+    _launch("gru_fwd", [x.data_ptr() for x in args + (hseq, gates)],
             (b, t, hd), xw.device)
     gru_fwd.launches += 1
     return hseq, gates

@@ -309,21 +309,27 @@ def _fwd_inputs(b, t, h):
 
 def test_card_path_raises_for_the_blocked_tier(monkeypatch):
     """On CUDA a kernel raises on a shape its tier does not serve, rather
-    than looping on the card: the single-block forward at H 520 and at a
-    batch past its shared memory, the blocked forward past its widest H
-    (lowered here to 600), through ``gru_sequence`` too.  The device test
-    is monkeypatched so the CPU reaches that branch."""
+    than looping on the card: the single-block forward at H 520, the
+    blocked forward past its widest H (lowered here to 600), through
+    ``gru_sequence`` too.  Any batch reaches the single-block forward
+    (kernel 13's clusters of 16 rows run in waves): B 4096 at H 8
+    launches it.  The device test is monkeypatched so the CPU reaches
+    that branch."""
     monkeypatch.setattr(tg, "_on_card", lambda tensors: True)
     TFLAGS.set("fused_rnn_hblock", True)
     with pytest.raises(PaddleTpuError, match="do not serve"):
         tg.gru_fwd(*_fwd_inputs(2, 2, 520))
-    with pytest.raises(PaddleTpuError, match="do not serve"):
-        tg.gru_fwd(*_fwd_inputs(4096, 1, 8))
+    launched = []
+    monkeypatch.setattr(tg, "_launch", lambda sym, ptrs, ints, dev:
+                        launched.append((sym, len(ptrs), ints)))
+    tg.gru_fwd(*_fwd_inputs(4096, 1, 8))
+    assert launched == [("gru_fwd", 7, (4096, 1, 8))]
     monkeypatch.setattr(tg, "MAX_BLOCKED_HIDDEN", 600)
     with pytest.raises(PaddleTpuError, match="do not serve"):
         tg.gru_fwd_blocked(*_fwd_inputs(2, 2, 640))
     with pytest.raises(PaddleTpuError, match="do not serve"):
         _run_seq(640, b=8)
+    assert len(launched) == 1
 
 
 def test_card_path_launches_kernels_15_16_17_in_order(monkeypatch):
@@ -357,20 +363,39 @@ def test_card_path_launches_kernels_15_16_17_in_order(monkeypatch):
     tg.reset_launch_counts()
 
 
-def test_fused_tier_from_hopper_resources():
+@pytest.mark.parametrize("case", ["labels", "reference_sweep"])
+def test_fused_tier_from_hopper_resources(case):
+    """``fused_tier``'s labels on Hopper's resources; the sweep holds them
+    to the reference's rule (``recurrent_ops.dispatch_tier``) at every
+    fused shape B <= 1024 in steps of 8, H in {128, 256, 384, 512}."""
+    if case == "reference_sweep":
+        n = 0
+        for b in range(8, 1025, 8):
+            for h in (128, 256, 384, 512):
+                want = tro.dispatch_tier(b, h, 3)
+                assert want == "fused", (b, h, want)
+                assert tg.fused_tier(b, h) == want, (b, h)
+                n += 1
+        assert n == 128 * 4
+        return
     assert tg.fused_tier(128, 512) == "fused"       # the bench row
     assert tg.fused_tier(3, 50) == "fused"          # no tiling gate
     assert tg.fused_tier(128, 513) == "fused_blocked"
     assert tg.fused_tier(3, 1024) == "fused_blocked"  # kernels 15-17
     assert tg.fused_tier(128, tg.MAX_BLOCKED_HIDDEN + 1) is None
-    assert tg.fused_tier(4096, 8) is None           # shared memory
-    assert tg.fused_tier(128, 512, sms=127) is None  # 128 CTAs
+    # kernel 13 serves any batch (its clusters of 16 rows run in waves)
+    # on any number of SMs; kernel 14 strides over its tiles
+    assert tg.fused_tier(4096, 8) == "fused"
+    assert tg.fused_tier(128, 512, sms=127) == "fused"
     TFLAGS.set("fused_rnn_hblock", False)
     assert tg.fused_tier(128, 513) is None
-    # kernel 13: its units' weight columns, staging tiles, partial sums,
-    # gates and carry; kernel 14: the tensor-core ring, 3 stages of four
-    # 16 KB bf16 planes and 1 KB of alignment, whatever B and H
+    # kernel 13: 1 KB of alignment, then per 64-wide chunk of K its units'
+    # gate planes (2 x 8 KB) and the cluster's buffer (2 x 4 KB), per two
+    # chunks its candidate hi planes (8 KB), whatever B; kernel 14: the
+    # tensor-core ring, 3 stages of four 16 KB bf16 planes and 1 KB of
+    # alignment, whatever B and H
     fwd, bwd = tg.smem_bytes(128, 512)
-    assert fwd == 4 * (512 * 12 + 3 * 128 * 68 + 4096 + 12 * 128)
+    assert fwd == tg.smem_bytes(8192, 512)[0] == 1024 + 8 * 24576 + 4 * 8192
+    assert tg.smem_bytes(3, 50)[0] == 1024 + 24576 + 8192
     assert bwd == tg.smem_bytes(1024, 8)[1] == 1024 + 3 * 4 * 16384
     assert max(tg.smem_bytes(1024, 512)) <= tg.SMEM_BYTES

@@ -1,4 +1,5 @@
-"""The numbers of kernel 15's tensor-core products, modelled on the CPU.
+"""The numbers of kernels 15 and 13's tensor-core products, modelled on
+the CPU.
 
 Kernel 15 (``paddle_tpu_torch/csrc/gru_fwd_blocked.cu``, the blocked
 GRU's forward, on the step loop of ``csrc/lstm_wg.cuh``) multiplies each
@@ -30,6 +31,16 @@ one case with the mask reversed in time (the padded steps first, as
 ``gru_sequence(reverse=True)`` hands the kernel a flipped mask), where a
 row starts valid after padded steps and its kept h0 must reach the
 products.
+
+Kernel 13 (``csrc/gru_fwd.cu``, the single-block forward for H <= 512)
+runs the same three-pass products with the whole of K in one CTA of a
+cluster (each chunk drained in order, one slice), for every row at every
+step: a padded step's residue u, r, c is computed from the kept state,
+as ``pallas_gru._fwd_kernel`` computes it.  Its model is held against
+``gru_fwd_reference`` and ``pallas_gru._fwd_call`` (interpret mode) over
+the whole residue, padded steps included, at B 8, H 256 and 512 with the
+same lengths and the reversed mask, within 0.3 of ``GRU_ATOL``; a single
+rounding must miss it by more than ten times.
 """
 
 import jax.numpy as jnp
@@ -50,7 +61,7 @@ CASES = {"T30": (30, (30, 0, 1, 30, 17, 30, 7, 23), False),
          "T30-reversed": (30, (30, 0, 1, 30, 17, 30, 7, 23), True)}
 
 
-def _inputs(t, lens, reverse, seed):
+def _inputs(t, lens, reverse, seed, h=H):
     """xw, mask, w_gates, w_cand, h0 as torch f32 tensors."""
     rng = np.random.RandomState(seed)
     f = lambda *s, sc=1.0: torch.from_numpy(  # noqa: E731
@@ -59,9 +70,9 @@ def _inputs(t, lens, reverse, seed):
         np.float32)
     if reverse:
         mask = mask[:, ::-1].copy()
-    return {"xw": f(B, t, 3 * H, sc=0.5), "mask": torch.from_numpy(mask),
-            "w_gates": f(H, 2 * H, sc=H ** -0.5),
-            "w_cand": f(H, H, sc=H ** -0.5), "h0": f(B, H, sc=0.5)}
+    return {"xw": f(B, t, 3 * h, sc=0.5), "mask": torch.from_numpy(mask),
+            "w_gates": f(h, 2 * h, sc=h ** -0.5),
+            "w_cand": f(h, h, sc=h ** -0.5), "h0": f(B, h, sc=0.5)}
 
 
 def _split(x):
@@ -192,3 +203,61 @@ def test_fwd_slices_at_the_bench_shape():
             assert 1 <= s <= chunks and (s - 1) * per < chunks
             assert per >= min(2, chunks)
             assert rows * cb * s <= max(132, rows * cb)
+
+
+# ------------------------------------------------------------- kernel 13
+K13_CASES = {f"H{h}-{name}": (h,) + case for h in (256, 512)
+             for name, case in CASES.items()}
+
+
+def _model13(x, passes):
+    """``gru_fwd_reference``'s loop with kernel 13's products: every row
+    at every step, x plus the whole K's sum (one slice, chunks drained in
+    order), then the gate math and the masked keep.  Returns (H,
+    gates)."""
+    xw, mask, h_prev = x["xw"], x["mask"], x["h0"]
+    h = h_prev.shape[1]
+    hs, gs = [], []
+    for s in range(xw.shape[1]):
+        xs = xw[:, s]
+        g = _product(h_prev, x["w_gates"], passes, 1)
+        u = torch.sigmoid(xs[:, :h] + g[:, :h])
+        r = torch.sigmoid(xs[:, h:2 * h] + g[:, h:])
+        c = torch.tanh(xs[:, 2 * h:]
+                       + _product(r * h_prev, x["w_cand"], passes, 1))
+        h_new = u * h_prev + (1.0 - u) * c
+        m = mask[:, s, None]
+        h_prev = m * h_new + (1.0 - m) * h_prev
+        hs.append(h_prev)
+        gs.append(torch.cat([u, r, c], dim=-1))
+    return torch.stack(hs, 1), torch.stack(gs, 1)
+
+
+def _jax_fwd13(x):
+    """``pallas_gru._fwd_call`` (interpret mode on the CPU), time-major:
+    the residue of every step."""
+    tm = lambda a: jnp.moveaxis(jnp.asarray(a.numpy()), 1, 0)  # noqa
+    j_h, j_g = pallas_gru._fwd_call(
+        tm(x["xw"]), jnp.asarray(x["mask"].numpy().T[:, None, :]),
+        jnp.asarray(x["w_gates"].numpy()), jnp.asarray(x["w_cand"].numpy()),
+        jnp.asarray(x["h0"].numpy()))
+    back = lambda a: torch.from_numpy(  # noqa: E731
+        np.array(jnp.moveaxis(a, 0, 1)))
+    return back(j_h), back(j_g)
+
+
+@pytest.mark.parametrize("case", sorted(K13_CASES))
+def test_kernel13_split_meets_phase_3e_tolerance(case):
+    h, t, lens, reverse = K13_CASES[case]
+    x = _inputs(t, lens, reverse, seed=70 + sorted(K13_CASES).index(case),
+                h=h)
+    port = G.gru_fwd_reference(
+        *(x[k] for k in ("xw", "mask", "w_gates", "w_cand", "h0")))
+    three, once = _model13(x, 3), _model13(x, 1)
+    pad = x["mask"] == 0
+    for name, ref in (("port", port), ("pallas", _jax_fwd13(x))):
+        assert _err(three, ref) <= 0.3 * GRU_ATOL, (name, _err(three, ref))
+        assert _err(once, ref) > 10 * GRU_ATOL, (name, _err(once, ref))
+        if pad.any():   # the residue of a padded step: the kept state's
+            e = (three[1][pad] - ref[1][pad]).abs().max().item()
+            assert e <= 0.3 * GRU_ATOL and ref[1][pad].abs().min() > 0

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Time the training flash-attention kernels (kernels 1-train, 3 and 4 of
-the port) in several variants on one GPU, in one process, so their times
-compare.
+the port), or the serving decode kernel (kernel 7, ``--decode``), in
+several variants on one GPU, in one process, so their times compare.
 
     python3 tools/flash_probe.py [--csrc DIR ...] [--patch NAME ...]
                                  [--causal] [--packed] [--reps N]
+                                 [--decode]
 
 A variant is a copy of a kernel source directory (the repository's
 ``paddle_tpu_torch/csrc`` by default; ``--csrc`` adds others, such as an
@@ -26,6 +27,15 @@ against the plain versions (``chip_smoke.flash_error``; not with
 (variants in order, then in reverse), CUDA-graph replay between CUDA
 events.  Prints each build's registers and spills, one line per
 (variant, kernel, turn), and the card's name and power limit.
+
+``--decode`` times ``paged_decode_attention`` (``csrc/paged_decode.cu``)
+instead, at phase 5's serving shape (``chip_smoke.phase_time``: 8 rows
+mid-generation, q [8, 1, 8, 32] over the 512-page pool, the same inputs
+from the same seed); its patch ``decode_w8`` splits the keys over eight
+warps a block instead of four.  Every variant, patched or not, is held
+against the plain version within
+``chip_smoke.ATOL``, and each row's output alone (B 1) against its
+output in the batch of 8, bit for bit.
 """
 
 from __future__ import annotations
@@ -40,6 +50,10 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(ROOT, "build", "flash_probe")
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+#: the decode kernel's variants (--decode): eight warps a block
+DECODE_PATCHES = {"decode_w8": [("paged_decode.cu",
+                                 "constexpr int kWarps = 4;",
+                                 "constexpr int kWarps = 8;")]}
 
 # a product knocked out: its fragments folded into the accumulator's
 # lowest bit (so the split stays live) and an empty wgmma group in its
@@ -88,12 +102,13 @@ PATCHES = {
 }
 
 
-def build(name, src_dir, patch):
+def build(name, src_dir, patch, stems=KERNELS):
     """The variant's entry points, and its ptxas lines printed."""
     from probe_build import build_variant
     fns, ptxas = build_variant(os.path.join(OUT, name), src_dir,
-                               PATCHES.get(patch, []), KERNELS)
-    for stem in KERNELS:
+                               {**PATCHES, **DECODE_PATCHES}.get(patch, []),
+                               stems)
+    for stem in stems:
         for ln in ptxas[stem].splitlines():
             if any(s in ln for s in ("registers", "spill", "arning")):
                 print(f"  {name}/{stem}: {ln.strip()}", flush=True)
@@ -105,12 +120,15 @@ def main() -> int:
     ap.add_argument("--csrc", action="append", default=[],
                     help="another kernel source directory to time")
     ap.add_argument("--patch", action="append", default=[],
-                    choices=sorted(PATCHES),
-                    help="a knock-out of the repository's sources")
+                    choices=sorted({**PATCHES, **DECODE_PATCHES}),
+                    help="a knock-out of the repository's sources (with "
+                    "--decode: a variant of the decode kernel)")
     ap.add_argument("--causal", action="store_true")
     ap.add_argument("--packed", action="store_true",
                     help="the 16 rows packed into one, lengths in [T/4, T]")
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--decode", action="store_true",
+                    help="time kernel 7 (paged decode) at phase 5's shape")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -130,6 +148,8 @@ def main() -> int:
     variants = [("repo", repo, None)]
     variants += [(f"csrc{i}", d, None) for i, d in enumerate(args.csrc)]
     variants += [(p, repo, p) for p in args.patch]
+    if args.decode:
+        return decode(dev, variants, args.reps)
     fns = {n: (p, build(n, d, p)) for n, d, p in variants}
 
     b, t, h, d = cs.ATTN_B, cs.ATTN_T, 8, 64
@@ -193,6 +213,54 @@ def main() -> int:
                       f"packed {args.packed}): "
                       f"{ms * 1e3:.2f} us, {100 * bound / ms:.1f} % of the "
                       f"bound rate{err}", flush=True)
+    _build.kernel = real_kernel
+    return 0
+
+
+def decode(dev, variants, reps):
+    """Kernel 7 in each variant at phase 5's decode shape, two turns."""
+    import torch
+    import chip_smoke as cs
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import attention as A
+    fns = {n: build(n, d, p, ("paged_decode",)) for n, d, p in variants}
+    h, d = cs.CFG["heads"], cs.CFG["dim"] // cs.CFG["heads"]
+    lens = [len(p) for p in cs._prompts(0, cs.N_REQ, cs.CFG["vocab"])]
+    lens = lens[:cs.MAX_BATCH]
+    rng = np.random.default_rng(2)   # phase_time's stream: prefill first
+    cs.packed_case(rng, lens, -(-max(lens) // 16) * 16, h, d, dev)
+    dl = [ln + cs.MAX_NEW // 2 for ln in lens]
+    max_pages = -(-cs.CFG["max_context"] // cs.PAGE)
+    args = cs.decode_case(rng, dl, 1, h, d, cs.POOL_PAGES, cs.PAGE,
+                          max_pages, dev)
+    ref = A.paged_decode_reference(*args)
+    n_bytes, n_flops = cs.decode_work(np.array(dl), 1, h, d, max_pages)
+    bound, _ = cs.bound_ms(n_bytes, n_flops)
+    print(f"decode lengths {dl}: bound {bound * 1e3:.3f} us", flush=True)
+    real_kernel = _build.kernel
+    order = list(fns)
+    for turn, names in enumerate((order, order[::-1])):
+        for name in names:
+            lib = fns[name]
+            _build.kernel = lambda symbol, lib=lib: lib[symbol]
+            err = ""
+            if turn == 0:
+                out = A.paged_decode_attention(*args)
+                e = (out - ref).abs().max().item()
+                q, kp, vp, tables, lengths = args
+                alone = all(torch.equal(
+                    A.paged_decode_attention(q[i:i + 1].clone(), kp, vp,
+                                             tables[i:i + 1].clone(),
+                                             lengths[i:i + 1].clone())[0],
+                    out[i]) for i in range(len(dl)))
+                if not e <= cs.ATOL:
+                    raise SystemExit(f"{name}: decode error {e} > {cs.ATOL}")
+                err = f", max abs err {e:.3e}, rows alone == in the batch " \
+                      f"{alone}"
+            ms = cs.time_ms(lambda: A.paged_decode_attention(*args),
+                            reps=reps * 10, rounds=5)
+            print(f"turn {turn} {name} paged_decode: {ms * 1e3:.2f} us, "
+                  f"{100 * bound / ms:.1f} % of the bound{err}", flush=True)
     _build.kernel = real_kernel
     return 0
 

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Time the port's LSTM kernels (the blocked kernels 10-12 and the
-single-block kernels 8 and 9) and the GRU kernels on the same
-tensor-core step loop (the blocked forward 15 and the BPTT 14 and 16) in
-several variants on one GPU, in one process, so their times compare.
+single-block kernels 8 and 9), the GRU kernels on the same tensor-core
+step loop (the blocked forward 15 and the BPTT 14 and 16) and the GRU's
+single-block forward 13 in several variants on one GPU, in one process,
+so their times compare.
 
     python3 tools/lstm_blocked_probe.py [--csrc DIR ...] [--patch NAME ...]
                                         [--shape B,T,H ...] [--reps N]
                                         [--gru_shape B,T,H ...]
                                         [--gru14_shape B,T,H ...]
+                                        [--gru13_shape B,T,H ...]
                                         [--gru_slices S1,S2 ...]
                                         [--slices N ...] [--only KERNEL ...]
 
@@ -24,13 +26,15 @@ bench feed's lengths -- the blocked kernels 10-12 where H > 512, the
 single-block kernels 8 and 9 where H <= 512, and kernel 10 at every H
 (at H <= 512 it is the other design of kernel 8's step loop) -- and the
 GRU's kernels 15 and 16 at each ``--gru_shape`` (default phase 5's, B
-128, T 30, H 1024) and kernel 14 at each ``--gru14_shape`` (default
-phase 5's, B 128, T 30, H 512), every step valid, h0 zero; each held
+128, T 30, H 1024) and kernels 14 and 13 at each ``--gru14_shape`` /
+``--gru13_shape`` (default phase 5's, B 128, T 30, H 512), every step
+valid, h0 zero (kernel 13 also prints how many of its clusters the card
+holds at once); each held
 against the plain versions in ``paddle_tpu_torch.ops.lstm`` /
 ``ops.gru`` (unpatched variants only) and timed between CUDA events in
 two turns (the variants in order, then in reverse).  Sources from before
 the tensor-core kernels (kernel 10 reading a transpose of w_hh, kernel 9
-with per-CTA partials, kernels 8, 14, 15 and 16 on CUDA cores) take
+with per-CTA partials, kernels 8, 13, 14, 15 and 16 on CUDA cores) take
 those kernels' older arguments (kernel 15's transposes of the weights
 made once, outside the timing).  ``--slices N`` also times the
 repository's kernels 9, 10 and 11 at N K slices where N is a valid
@@ -53,7 +57,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(ROOT, "build", "probe")
 BLOCKED = ("lstm_fwd_blocked", "lstm_bwd_blocked", "lstm_dw_blocked")
 SINGLE = ("lstm_fwd", "lstm_bwd")
-GRU = ("gru_bwd_blocked", "gru_fwd_blocked", "gru_bwd")
+GRU = ("gru_bwd_blocked", "gru_fwd_blocked", "gru_bwd", "gru_fwd")
 KERNELS = BLOCKED + SINGLE + GRU
 #: the kernels whose step product is cut into K slices, and their K
 SLICED = {"lstm_fwd_blocked": lambda h: h, "lstm_bwd_blocked":
@@ -61,6 +65,15 @@ SLICED = {"lstm_fwd_blocked": lambda h: h, "lstm_bwd_blocked":
 
 _WG, _FWD = "lstm_wg.cuh", "lstm_fwd_blocked.cu"
 _F8, _GWG, _G15 = "lstm_fwd.cu", "gru_wg.cuh", "gru_fwd_blocked.cu"
+_G13 = "gru_fwd.cu"
+_CLUSTER_SYNC = ('  asm volatile("barrier.cluster.arrive.aligned;\\n"\n'
+                 '               "barrier.cluster.wait.aligned;\\n" '
+                 '::: "memory");\n')
+# kernel 13: no bulk copies to the peers (and none expected)
+_NO_COPIES = [(_G13, "if (tid < C && tid != rank) {",
+               "if (tid < C && tid != rank && B < 0) {"),
+              (_G13, "wg::mbar_expect(inbox + c, n * kRegion);",
+               "wg::mbar_expect(inbox + c, B < 0 ? n * kRegion : 0);")]
 _PAIRS = "    for (long p = first; p < BH; p += stride) {\n" \
          "      const int b = (int)(p / H), unit = (int)(p % H);\n"
 #: name -> [(file, old text, new text)].  The step loop of kernels 9-11
@@ -74,7 +87,23 @@ PATCHES = {
                    (_FWD, "grid.sync();  // step", "(void)grid;"),
                    (_F8, "grid.sync();  // step", "(void)grid;"),
                    (_GWG, "grid.sync();  // step", "(void)grid;"),
-                   (_G15, "grid.sync();  // step", "(void)grid;")],
+                   (_G15, "grid.sync();  // step", "(void)grid;"),
+                   # kernel 13: no cluster barrier in the steps (one after
+                   # the prologue and one at the end stay: every CTA of a
+                   # cluster is alive, its mbarriers made, while its peers
+                   # copy); a phase's copies may land in the next phase,
+                   # whose bytes its mbarriers count the same
+                   (_G13, 'asm volatile("barrier.cluster.arrive.relaxed.'
+                    'aligned;\\n" ::: "memory");', ""),
+                   (_G13, 'asm volatile("barrier.cluster.wait.acquire.'
+                    'aligned;\\n" ::: "memory");', ""),
+                   (_G13, "  wg::fence_proxy_async();   // the planes: "
+                    "generic writes, then wgmma\n  __syncthreads();\n",
+                    "  wg::fence_proxy_async();\n  __syncthreads();\n"
+                    + _CLUSTER_SYNC),
+                   (_G13, "  // every copy has landed before any CTA leaves\n"
+                    "  cluster_arrive();\n  cluster_wait();\n",
+                    _CLUSTER_SYNC)],
     # no tensor-core products (the loads, waits, drains and stores of the
     # sums stay)
     "no_products": [(_WG,
@@ -83,7 +112,15 @@ PATCHES = {
                      "            wg::mma_ss_n128<0, 0>(acc, ah + 2 * kk, "
                      "bl + 2 * kk, 1);\n"
                      "            wg::mma_ss_n128<0, 0>(acc, al + 2 * kk, "
-                     "bh + 2 * kk, 1);\n", "")],
+                     "bh + 2 * kk, 1);\n", ""),
+                    (_G13,
+                     "      wg::mma_ss_n32(acc, ah + 2 * kk, bh, kk > 0);\n"
+                     "      wg::mma_ss_n32(acc, ah + 2 * kk, bl, 1);\n",
+                     "      acc[kk] = (float)(ah + bl + kk);\n"),
+                    (_G13, "      wg::mma_ss_n32(acc, al + 2 * kk, bh, 1);\n",
+                     ""),
+                    (_G13, "      wg::mma_rs_n32<0>(acc, a, bh, 1);\n",
+                     "      acc[kk + 4] += (float)a[0];\n")],
     # no TMA loads, B's ahead of the barrier too (each ring slot's
     # barrier completes on its arrival; the products read stale tiles)
     "no_loads": [(_WG, "wg::mbar_expect(full + s, kStage);",
@@ -150,7 +187,29 @@ PATCHES = {
                         (_G15, "  put_split(a.rpl",
                          "  if (a.B < 0) put_split(a.rpl"),
                         (_G15, "  if (v.r1 >= 0)\n",
-                         "  if (v.r1 >= 0 && a.B < 0)\n")],
+                         "  if (v.r1 >= 0 && a.B < 0)\n"),
+                        (_G13, "for (int q = 0; q < 8; ++q) put_buf(",
+                         "for (int q = 0; q < 8 && B < 0; ++q) put_buf(")]
+    + _NO_COPIES,
+    # kernel 13: no copies to the peers (each CTA's buffer keeps the
+    # peers' units of h0)
+    "no_copies": _NO_COPIES,
+    # kernel 13: no global stores in the steps (H and the residue)
+    "no_stores": [(_G13, "if (b < B && unit_ok) {",
+                   "if (b < B && unit_ok && T < 0) {")],
+    # kernel 13: no loads of xw in the steps (read as zeros)
+    "no_xw": [(_G13, "const bool ok = b < B && unit_ok;",
+               "const bool ok = b < B && unit_ok && T < 0;"),
+              (_G13, "xc[q] = b < B && unit_ok\n",
+               "xc[q] = b < B && unit_ok && T < 0\n")],
+    # kernel 13: no gate nonlinearities (u, r and c taken as their sums)
+    "no_math": [(_G13, "uu[q] = sigm(xu[q] + g[e]);",
+                 "uu[q] = xu[q] + g[e];"),
+                (_G13, "const float rr = sigm(xr[q] + g[e + 2]);",
+                 "const float rr = xr[q] + g[e + 2];"),
+                (_G13, "const float c = tanhf(xc[q] + s[4 * (q >> 1) + "
+                 "(q & 1)]);",
+                 "const float c = xc[q] + s[4 * (q >> 1) + (q & 1)];")],
     # kernels 9 and 14: no dW tiles after the loop (the splits' sum stays)
     "no_dw": [(_WG, "task < n_dw * d.n_split;",
                "task < n_dw * d.n_split && B < 0;"),
@@ -188,7 +247,8 @@ def build(name, src_dir, patch, stems=KERNELS):
            "fwd8": "void* apl" not in read("lstm_fwd.cu"),
            "gru16": "int* rank" not in read("gru_bwd_blocked.cu"),
            "gru15": "int* rank" not in read("gru_fwd_blocked.cu"),
-           "gru14": "int* rows" not in read("gru_bwd.cu")}
+           "gru14": "int* rows" not in read("gru_bwd.cu"),
+           "gru13": "float* rh" in read("gru_fwd.cu")}
     if old["fwd_t"] and "lstm_fwd_blocked" in fns:
         fns["lstm_fwd_blocked"].argtypes = \
             [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
@@ -207,6 +267,9 @@ def build(name, src_dir, patch, stems=KERNELS):
     if old["gru14"] and "gru_bwd" in fns:
         fns["gru_bwd"].argtypes = \
             [ctypes.c_void_p] * 12 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    if old["gru13"] and "gru_fwd" in fns:
+        fns["gru_fwd"].argtypes = \
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     return fns, old
 
 
@@ -246,6 +309,9 @@ def main() -> int:
                     "(default 128,30,1024)")
     ap.add_argument("--gru14_shape", action="append", default=[],
                     help="B,T,H of kernel 14, every step valid (default "
+                    "128,30,512)")
+    ap.add_argument("--gru13_shape", action="append", default=[],
+                    help="B,T,H of kernel 13, every step valid (default "
                     "128,30,512)")
     ap.add_argument("--gru_slices", action="append", default=[],
                     help="S1,S2: also time the repository's kernels 14 and "
@@ -431,6 +497,11 @@ def main() -> int:
             time_gru(built, "gru_bwd", tuple(int(x) for x in
                                              shape.split(",")), sms,
                      args.reps, extra)
+    if want("gru_fwd"):
+        for shape in args.gru13_shape or ["128,30,512"]:
+            time_gru(built, "gru_fwd", tuple(int(x) for x in
+                                             shape.split(",")), sms,
+                     args.reps)
     return 0
 
 
@@ -457,7 +528,16 @@ def time_gru(built, kernel, shape, sms, reps, extra_slices=()):
     bf = dict(dtype=torch.bfloat16, device=dev)
     kp, kg = -(-h // 64) * 64, -(-2 * h // 64) * 64
     n_gcols = 2 * -(-h // 64) * 64
-    if kernel == "gru_fwd_blocked":
+    if kernel == "gru_fwd":
+        ins = old_ins = (xw, mask, wg, wc, h0)
+        ref = G.gru_fwd_reference(*ins)
+        plan, old_sc = (), (torch.empty(b, h, **f32),)
+        for name, v in built.items():
+            if "gru_fwd_clusters" in v[2]:
+                print(f"gru ({b}, {t}, {h}) kernel 13 ({name}): "
+                      f"{v[2]['gru_fwd_clusters'](h)} clusters of "
+                      f"{-(-h // G.UNITS)} CTAs at once", flush=True)
+    elif kernel == "gru_fwd_blocked":
         ins = (xw, mask, wg, wc, h0)
         ref = G.gru_fwd_blocked_reference(*ins)
         plan = G.fwd_blocked_slices(b, h, sms)
@@ -500,10 +580,11 @@ def time_gru(built, kernel, shape, sms, reps, extra_slices=()):
                 planes + (torch.empty(G.MAX_DW_SPLIT, h, 3 * h, **f32),)
             old_sc = (rh,)
     tag = {"gru_fwd_blocked": "15", "gru_bwd_blocked": "16",
-           "gru_bwd": "14"}[kernel]
-    print(f"gru ({b}, {t}, {h}) kernel {tag}: K slices {plan}", flush=True)
+           "gru_bwd": "14", "gru_fwd": "13"}[kernel]
+    print(f"gru ({b}, {t}, {h}) kernel {tag}"
+          + (f": K slices {plan}" if plan else ""), flush=True)
     flag = {"gru_fwd_blocked": "gru15", "gru_bwd_blocked": "gru16",
-            "gru_bwd": "gru14"}[kernel]
+            "gru_bwd": "gru14", "gru_fwd": "gru13"}[kernel]
     # the extra slicings for every unpatched variant that takes slices
     runs = [(name, None) for name in built] + \
         [(name, c) for c in extra_slices for name, v in built.items()
@@ -517,6 +598,8 @@ def time_gru(built, kernel, shape, sms, reps, extra_slices=()):
             out = [torch.empty_like(x) for x in ref]
             if old[flag]:
                 ptrs, ints = old_ins + tuple(out) + old_sc, (b, t, h)
+            elif kernel == "gru_fwd":
+                ptrs, ints = ins + tuple(out), (b, t, h)
             else:
                 ints = (b, t, h) + (slices or plan)
                 if kernel == "gru_bwd":

@@ -8,8 +8,9 @@ copies ``src_dir`` (``paddle_tpu_torch/csrc`` or another copy of it) to
 occurrence; a missing text stops the probe), compiles each ``<stem>.cu``
 with the port's ``nvcc`` flags and ``-Xptxas -v``, one process a source,
 all at once, and loads the libraries with ctypes.  Returns the entry
-points of those stems (``{symbol: ctypes function}``, typed from
-``_build.SIGNATURES``) and what ptxas said for each stem.
+points of those stems that the variant defines (``{symbol: ctypes
+function}``, typed from ``_build.SIGNATURES``) and what ptxas said for
+each stem.
 """
 
 from __future__ import annotations
@@ -46,8 +47,8 @@ def build_variant(dest, src_dir, edits, stems):
         ptxas[stem] = text
         lib = ctypes.CDLL(os.path.join(dest, f"{stem}.so"))
         for sym, (lib_stem, argtypes) in _build.SIGNATURES.items():
-            if lib_stem == stem:
-                fn = getattr(lib, sym)
+            if lib_stem == stem and hasattr(lib, sym):  # older sources
+                fn = getattr(lib, sym)                  # lack newer ones
                 fn.argtypes, fn.restype = argtypes, ctypes.c_int
                 fns[sym] = fn
     return fns, ptxas
