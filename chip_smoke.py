@@ -9,8 +9,11 @@ Phases (any failure exits nonzero, without the final ``ok`` line):
 2. build every kernel from ``paddle_tpu_torch/csrc`` with ``nvcc``;
 3. hold each kernel against its plain PyTorch version on the card
    (fp32, atol 2e-5): packed causal prefill at T_total in {16, 48*3,
-   96*8} with a zero-length row and general segments; paged decode at
-   Tq in {1, 4} with rows shorter than Tq and inactive slots;
+   96*8} with a zero-length row and general segments, windows longer
+   than one chunk of staged rows (D 256), and each prompt of the 96*8
+   pack alone at its own bucket bit for bit against its rows in the
+   pack (out and lse); paged decode at Tq in {1, 4} with rows shorter
+   than Tq and inactive slots;
 3b. the fused LSTM kernels (forward and BPTT, through their
    ``autograd.Function``) against autograd through the plain per-step
    scan on the same CUDA tensors: outputs within atol 1e-4, every
@@ -202,7 +205,8 @@ Phases (any failure exits nonzero, without the final ``ok`` line):
    kernels 2, 5 and 6 at ``causal_t2048``'s (the same, causal), in turns
    with kernels 1-train, 3 and 4 on the same inputs, SDPA causal as the
    yardsticks; kernel 22 at the lane's 8192 rows of the 1e7 x 128
-   table, ``torch.index_select`` as its yardstick.  The conv and flash
+   table, ``torch.index_select`` as its yardstick; beside them, an empty
+   kernel timed the same way (the launch floor).  The conv and flash
    rows also carry the achieved TFLOP/s on the contract's flops and the
    share of the bound rate; kernels 18, 19 and 21 are bound by two bf16
    tensor-core passes (the f32 operand as hi + lo, ``CONV_BOUND_BASIS``),
@@ -563,6 +567,8 @@ def phase_check(dev):
         log(f"  prefill T={seg.shape[1]} lengths={lengths} causal={causal}:"
             f" max abs err {e:.3e}")
         errs["flash_packed_fwd"] = max(errs["flash_packed_fwd"], e)
+        if lengths is mixed:
+            prefill_alone_check(A, q, k, v, out, lse, lengths, slot, dev)
     # general segments: irregular runs, padding between, not slot-aligned
     seg_np = np.full((1, 144), -1, np.int32)
     pos, sid = 3, 0
@@ -603,14 +609,52 @@ def phase_check(dev):
             f"{e2:.3e}")
         errs["flash_packed_fwd"] = max(errs["flash_packed_fwd"], e1)
         errs["paged_decode"] = max(errs["paged_decode"], e2)
-    # 4 + 1 + 4 prefill calls above, each at a shape the dispatch sends
-    # to the kernel
-    if A.prefill_attention_packed.launches - launched != 9:
+    # windows longer than one chunk of staged rows (35 rows at D 256), so
+    # the kernel stages and walks them in three chunks
+    for causal in (True, False):
+        q, k, v, seg = packed_case(rng, [100, 37], 112, 2, 256, dev)
+        out, lse = A.prefill_attention_packed(q, k, v, seg, causal=causal)
+        ref, ref_lse = A._dense_forward(q, k, v, None, causal, seg)
+        sync(dev)
+        valid = (seg >= 0)[0]
+        e = max((out - ref).abs().max().item(),
+                (lse - ref_lse)[:, :, valid].abs().max().item())
+        log(f"  prefill T=224 head dim 256 lengths=[100, 37] causal={causal}"
+            f" (chunked rows): max abs err {e:.3e}")
+        errs["flash_packed_fwd"] = max(errs["flash_packed_fwd"], e)
+    # 4 + 1 + 4 + 2 prefill calls above and one alone for each prompt of
+    # the mixed case, each at a shape the dispatch sends to the kernel
+    if A.prefill_attention_packed.launches - launched \
+            != 11 + sum(n > 0 for n in mixed):
         fail("a prefill check did not launch flash_packed_fwd")
     for name, e in errs.items():
         if not e <= ATOL:
             fail(f"{name} disagrees with its plain version: {e} > {ATOL}")
     return errs
+
+
+def prefill_alone_check(A, q, k, v, out, lse, lengths, slot, dev):
+    """Each prompt of a pack alone (B 1 at its own bucket of 16 tokens)
+    must give the same bits as its rows in the pack, out and lse: the
+    serving prefill is batch invariant."""
+    import torch
+    for i, n in enumerate(lengths):
+        if n == 0:
+            continue
+        bucket = -(-n // 16) * 16
+        rows = slice(i * slot, i * slot + bucket)
+        seg = A.segments_from_lengths(
+            torch.tensor([n], dtype=torch.int32, device=dev), 1, bucket)
+        o, l = A.prefill_attention_packed(
+            *(x[:, rows].contiguous() for x in (q, k, v)),
+            seg.contiguous(), causal=True)
+        mine = slice(i * slot, i * slot + n)
+        if not (torch.equal(o[:, :n], out[:, mine])
+                and torch.equal(l[:, :, :n], lse[:, :, mine])):
+            fail(f"prefill: prompt {i} (length {n}) alone differs from its "
+                 "rows in the pack")
+    log(f"  prefill: each of the {sum(n > 0 for n in lengths)} prompts alone "
+        "(at its bucket) == its rows in the pack, bit for bit")
 
 
 def _serve(model, prompts, continuous, warm=True):
@@ -810,6 +854,11 @@ def device_rows(prof):
             and e.self_device_time_total > 0]
 
 
+#: the serving kernels' device-side names in a profile
+SERVING_PROFILE_MARKS = {"kernel 1": "flash_packed_fwd_kernel",
+                         "kernel 7": "paged_decode_kernel"}
+
+
 def phase_profile(model, prompts):
     """One continuous pass under torch.profiler: device time by
     kernel and the device's busy share of the pass's wall time."""
@@ -838,6 +887,10 @@ def phase_profile(model, prompts):
     # the largest items, and every copy (host-to-device traffic per step)
     for key, us, n in rows[:14] + [r for r in rows[14:] if "Memcpy" in r[0]]:
         log(f"    {us / 1e3:9.3f} ms  {n:6d} x  {key[:90]}")
+    for label, mark in SERVING_PROFILE_MARKS.items():
+        us = sum(r[1] for r in rows if mark in r[0])
+        n = sum(r[2] for r in rows if mark in r[0])
+        log(f"  {label} ({mark}): {us / 1e3:.3f} ms over {n} launches")
 
 
 def phase_time(dev, launches, serve):
@@ -910,6 +963,11 @@ def phase_time(dev, launches, serve):
                  "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
                  "shape": f"q [8,1,{h},{d}], pool [{POOL_PAGES},{PAGE},{h},"
                           f"{d}], {max_pages} pages/row, lengths {dl}"})
+    from paddle_tpu_torch.ops import _build
+    floor = _build.kernel("launch_floor")
+    floor_ms = time_ms(lambda: floor(torch.cuda.current_stream().cuda_stream))
+    log(f"  launch floor (an empty kernel, the same graph replay): "
+        f"{floor_ms * 1e3:.2f} us")
     for r in rows:
         if not r["max_abs_err"] <= ATOL:
             fail(f"{r['name']} disagrees at the main path's shapes")

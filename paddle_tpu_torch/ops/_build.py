@@ -46,6 +46,7 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "flash_packed_fwd": ("flash_packed_fwd",
                          [_C] * 6 + [_I] * 5 + [_F, _C]),
+    "launch_floor": ("flash_packed_fwd", [_C]),
     "paged_decode_fwd": ("paged_decode",
                          [_C] * 6 + [_I] * 7 + [_F, _C]),
     "flash_fwd": ("flash_fwd", [_C] * 9 + [_I] * 6 + [_L] * 6 + [_I, _F, _C]),

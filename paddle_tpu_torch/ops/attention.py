@@ -27,7 +27,9 @@ device.  Every decision is counted in :data:`attention_dispatch_total`
 with the reference's ``(path, reason)`` labels.
 
 Serving: :func:`prefill_attention_packed` — packed causal fp32 prefill
-(``csrc/flash_packed_fwd.cu``; plain version :func:`_dense_forward`),
+(``csrc/flash_packed_fwd.cu``: a CTA a tile of 16 queries and a head,
+its keys' K and V rows staged once in shared memory, each query's keys
+split over the CTA's 8 warps; plain version :func:`_dense_forward`),
 behind the same decisions and labels (:func:`_fa_path`) — and
 :func:`paged_decode_attention` — decode over the paged KV pool
 (``csrc/paged_decode.cu``; plain version :func:`paged_decode_reference`).
@@ -424,6 +426,16 @@ def prefill_attention_packed(q, k, v, segments, causal: bool = False,
     the flags, the tiling gate at the reference's default blocks of 512,
     the ``slot`` hint's label): the block-sparse decision runs kernel 1
     in its serving form, every other the plain composition.
+
+    The kernel gives each tile of 16 queries and each head one CTA: it
+    scans the row's ids once for the tile's windows (a query's keys are
+    those of its segment id from the id's first token, up to the query
+    when causal), stages the windows' K and V rows in shared memory, and
+    splits each query's keys over its 8 warps (key ``lo + w + 8 i`` to
+    warp ``w``, ``lo`` the window's first key), 4 lanes of 8 dims a
+    query at D 32, with an online softmax a key at a time; the warps'
+    states meet in warp order.  A query's arithmetic depends only on its
+    own keys, so a prompt gives the same bits alone as in a pack.
     """
     _check_float("q", q, 4)
     b, t, h, d = q.shape

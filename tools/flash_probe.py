@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Time the training flash-attention kernels (kernels 1-train, 3 and 4 of
-the port), or the serving decode kernel (kernel 7, ``--decode``), in
-several variants on one GPU, in one process, so their times compare.
+the port), or a serving kernel (kernel 7, ``--decode``; kernel 1's
+serving form, ``--prefill``), in several variants on one GPU, in one
+process, so their times compare.
 
     python3 tools/flash_probe.py [--csrc DIR ...] [--patch NAME ...]
                                  [--causal] [--packed] [--reps N]
-                                 [--decode]
+                                 [--decode] [--prefill]
 
 A variant is a copy of a kernel source directory (the repository's
 ``paddle_tpu_torch/csrc`` by default; ``--csrc`` adds others, such as an
@@ -27,6 +28,20 @@ against the plain versions (``chip_smoke.flash_error``; not with
 (variants in order, then in reverse), CUDA-graph replay between CUDA
 events.  Prints each build's registers and spills, one line per
 (variant, kernel, turn), and the card's name and power limit.
+
+``--prefill`` times ``prefill_attention_packed`` (kernel 1's serving
+form, ``csrc/flash_packed_fwd.cu``) at phase 5's shape (the first
+admission round: 8 prompts packed at their bucket of 96, q [1, 768, 8,
+32], causal, the same inputs from the same seed), then an empty kernel
+(the launch floor).  Its knock-outs: ``prefill_no_stage`` (K and V read
+from global memory, not staged), ``prefill_no_scan`` (no scan of the
+row's ids, each window taken from the slot of 96, which these inputs
+follow), ``prefill_no_math`` (no products and no exponentials, K and V
+summed) and ``prefill_no_keys`` (no key visited: the launch, setup,
+staging, combine and stores alone).  Patches combine as ``a+b``.
+Every variant whose knock-out keeps the results is held against the
+plain version within ``chip_smoke.ATOL``, and each prompt alone (B 1 at
+its own bucket) against its rows in the pack, bit for bit.
 
 ``--decode`` times ``paged_decode_attention`` (``csrc/paged_decode.cu``)
 instead, at phase 5's serving shape (``chip_smoke.phase_time``: 8 rows
@@ -54,6 +69,35 @@ KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 DECODE_PATCHES = {"decode_w8": [("paged_decode.cu",
                                  "constexpr int kWarps = 4;",
                                  "constexpr int kWarps = 8;")]}
+
+#: kernel 1's serving form (--prefill): knock-outs; the scan's takes
+#: each window from the slot of 96
+_PF = "flash_packed_fwd.cu"
+PREFILL_SLOT = 96
+PREFILL_PATCHES = {
+    "prefill_no_stage": [
+        (_PF, "    stage_kv(kg, vg, k_s, v_s, c0, n, D, sk, tok, tid);\n", "")]
+    + [(_PF, f"load_row({x}_s + rr * sk, d0, Dl, {x}{x}[u]);",
+        f"load_row({x}g + (size_t)(c0 + rr) * tok, d0, Dl, {x}{x}[u]);")
+       for x in "kv"],
+    "prefill_no_math": [
+        (_PF, 'asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));',
+         "y = x;"),
+        (_PF, "float x = q[0] * k[0];", "float x = k[0];"),
+        (_PF, "x = fmaf(q[d], k[d], x);", "x += k[d];"),
+        (_PF, "acc[d] = fmaf(p, v[d], acc[d]);", "acc[d] += v[d];")],
+    "prefill_no_scan": [
+        (_PF, "  scan_row(segb, scan_end, idv, heads, my_sid, run_lo, run_hi, "
+              "causal, tid,\n           lane);\n",
+         "  if (tid < kQT)\n"
+         f"    run_lo[tid] = (q0 + tid) / {PREFILL_SLOT} * {PREFILL_SLOT};\n")],
+    "prefill_no_keys": [
+        (_PF, "const int wcnt = __reduce_max_sync(ptt::kFull, cnt);",
+         "const int wcnt = 0 * __reduce_max_sync(ptt::kFull, cnt);")],
+}
+
+#: knock-outs whose results are wrong by design (not held to ATOL)
+PREFILL_UNCHECKED = ("prefill_no_math", "prefill_no_keys")
 
 # a product knocked out: its fragments folded into the accumulator's
 # lowest bit (so the split stays live) and an empty wgmma group in its
@@ -102,11 +146,15 @@ PATCHES = {
 }
 
 
+ALL_PATCHES = {**PATCHES, **DECODE_PATCHES, **PREFILL_PATCHES}
+
+
 def build(name, src_dir, patch, stems=KERNELS):
     """The variant's entry points, and its ptxas lines printed."""
     from probe_build import build_variant
-    fns, ptxas = build_variant(os.path.join(OUT, name), src_dir,
-                               {**PATCHES, **DECODE_PATCHES}.get(patch, []),
+    edits = [e for p in (patch or "").split("+") if p
+             for e in ALL_PATCHES[p]]
+    fns, ptxas = build_variant(os.path.join(OUT, name), src_dir, edits,
                                stems)
     for stem in stems:
         for ln in ptxas[stem].splitlines():
@@ -120,16 +168,23 @@ def main() -> int:
     ap.add_argument("--csrc", action="append", default=[],
                     help="another kernel source directory to time")
     ap.add_argument("--patch", action="append", default=[],
-                    choices=sorted({**PATCHES, **DECODE_PATCHES}),
                     help="a knock-out of the repository's sources (with "
-                    "--decode: a variant of the decode kernel)")
+                    "--decode or --prefill: a variant of that kernel); "
+                    "a+b applies both; one of " + ", ".join(sorted(
+                        ALL_PATCHES)))
     ap.add_argument("--causal", action="store_true")
     ap.add_argument("--packed", action="store_true",
                     help="the 16 rows packed into one, lengths in [T/4, T]")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--decode", action="store_true",
                     help="time kernel 7 (paged decode) at phase 5's shape")
+    ap.add_argument("--prefill", action="store_true",
+                    help="time kernel 1's serving form at phase 5's shape")
     args = ap.parse_args()
+    for p in args.patch:
+        for x in p.split("+"):
+            if x not in ALL_PATCHES:
+                ap.error(f"unknown patch {x}")
     import torch
     if not torch.cuda.is_available():
         print("flash_probe: no CUDA device", file=sys.stderr)
@@ -150,6 +205,8 @@ def main() -> int:
     variants += [(p, repo, p) for p in args.patch]
     if args.decode:
         return decode(dev, variants, args.reps)
+    if args.prefill:
+        return prefill(dev, variants, args.reps)
     fns = {n: (p, build(n, d, p)) for n, d, p in variants}
 
     b, t, h, d = cs.ATTN_B, cs.ATTN_T, 8, 64
@@ -262,6 +319,73 @@ def decode(dev, variants, reps):
             print(f"turn {turn} {name} paged_decode: {ms * 1e3:.2f} us, "
                   f"{100 * bound / ms:.1f} % of the bound{err}", flush=True)
     _build.kernel = real_kernel
+    return 0
+
+
+def prefill(dev, variants, reps):
+    """Kernel 1's serving form in each variant at phase 5's prefill shape,
+    two turns, then the launch floor."""
+    import torch
+    import chip_smoke as cs
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import attention as A
+    fns = {n: (p, build(n, d, p, ("flash_packed_fwd",)))
+           for n, d, p in variants}
+    h, d = cs.CFG["heads"], cs.CFG["dim"] // cs.CFG["heads"]
+    lens = [len(p) for p in cs._prompts(0, cs.N_REQ, cs.CFG["vocab"])]
+    lens = lens[:cs.MAX_BATCH]
+    slot = -(-max(lens) // 16) * 16
+    assert slot == PREFILL_SLOT, slot        # prefill_no_scan's windows
+    rng = np.random.default_rng(2)           # phase_time's stream
+    q, k, v, seg = cs.packed_case(rng, lens, slot, h, d, dev)
+    ref, ref_lse = A._dense_forward(q, k, v, None, True, seg)
+    valid = (seg >= 0)[0]
+    n_bytes, n_flops = cs.prefill_work(seg.cpu().numpy(), h, d)
+    bound, _ = cs.bound_ms(n_bytes, n_flops)
+    print(f"prefill lengths {lens} at slot {slot}: bound "
+          f"{bound * 1e3:.3f} us", flush=True)
+
+    def call():
+        return A.prefill_attention_packed(q, k, v, seg, causal=True)
+
+    real_kernel = _build.kernel
+    order = list(fns)
+    for turn, names in enumerate((order, order[::-1])):
+        for name in names:
+            patch, lib = fns[name]
+            _build.kernel = lambda symbol, lib=lib: lib[symbol]
+            err = ""
+            if turn == 0:
+                out, lse = call()
+                e = max((out - ref).abs().max().item(),
+                        (lse - ref_lse)[:, :, valid].abs().max().item())
+                alone = True
+                for i, n in enumerate(lens):
+                    bucket = -(-n // 16) * 16
+                    rows = slice(i * slot, i * slot + bucket)
+                    s1 = A.segments_from_lengths(torch.tensor(
+                        [n], dtype=torch.int32, device=dev), 1, bucket)
+                    o1, l1 = A.prefill_attention_packed(
+                        *(x[:, rows].contiguous() for x in (q, k, v)),
+                        s1.contiguous(), causal=True)
+                    mine = slice(i * slot, i * slot + n)
+                    alone &= torch.equal(o1[:, :n], out[:, mine]) and \
+                        torch.equal(l1[:, :, :n], lse[:, :, mine])
+                checked = not set((patch or "").split("+")) & set(
+                    PREFILL_UNCHECKED)
+                if checked and not e <= cs.ATOL:
+                    raise SystemExit(f"{name}: prefill error {e} > {cs.ATOL}")
+                err = f", max abs err {e:.3e}, prompts alone == in the " \
+                      f"pack {alone}"
+            ms = cs.time_ms(call, reps=reps * 10, rounds=5)
+            print(f"turn {turn} {name} flash_packed_fwd: {ms * 1e3:.2f} us, "
+                  f"{100 * bound / ms:.1f} % of the bound{err}", flush=True)
+    _build.kernel = real_kernel
+    floor = real_kernel("launch_floor")
+    floor_ms = cs.time_ms(lambda: floor(
+        torch.cuda.current_stream().cuda_stream), reps=reps * 10, rounds=5)
+    print(f"launch floor (an empty kernel): {floor_ms * 1e3:.2f} us",
+          flush=True)
     return 0
 
 
