@@ -49,6 +49,25 @@ Phases (any failure exits nonzero, without the final ``ok`` line):
    ms/step and samples/s; the same model on the CPU (plain versions)
    and the card at (B, T, H) = (8, 12, 128): loss and every gradient
    within the tolerances of 3b;
+4z-loop. the training loop around that step, at its width, flags and
+   optimizer: ``Trainer.train`` over a reader of 2048 raw samples (ids
+   in [0, 30000), lengths 50-100, labels 0/1; numpy seed 0) in batches
+   of 128 through ``DataFeeder`` (T padded to a multiple of 8), a test
+   reader of 512 and the config's ``classification_error`` evaluator
+   on ``__fc_3__``, 2 passes, ``--save_dir=""``; at ``--prefetch_depth``
+   0 and 2, each at ``--log_period`` 1 and at the default 100, from
+   the same parameters: the events in the reference's order, finite
+   costs, bit-identical between the depths, exactly 2 x (32 + 8)
+   launches of kernel 8 and 2 x 32 of kernel 9 a run, samples/s of
+   each pass's training and of its test, the pass's wall; then
+   ``time_job`` (warmup 3, 20 batches: 2 x 23 launches of each) beside
+   4d's ms/step, and ``check_gradients`` on one batch at the
+   reference's rtol 5e-2 and ``--checkgrad_eps``: True, its worst
+   |auto - fd| as a share of the tolerance, exact launch counts;
+4z-small. the same loop at B 8, T 12, H 128, 2 passes x 3 batches
+   and 2 test batches on the CPU (plain versions) and on the card from
+   the same parameters: every cost and ``test_cost`` within 4e's loss
+   tolerance, ``classification_error`` equal;
 3c. the hidden-blocked LSTM kernels 10-12 (forward, BPTT, dW): through
    their ``autograd.Function`` against autograd through the plain scan,
    and each wrapper against its plain version, at (B, T, H) = (8, 5,
@@ -215,8 +234,9 @@ Phases (any failure exits nonzero, without the final ``ok`` line):
    of their f32 operands, ``GRU_BOUND_BASIS``, ``LSTM_BOUND_BASIS``).
 
 Phases 3b-4f are PR 2's H 512 phases and run in fp32 (``use_bf16``
-off), so their readings stay comparable.  The order of the run: 1-3f,
-3g-3i, 4-4k, 4l-4p, 4q-4r, 4t, 4v, 4s, 4u, 4w-4z, 4-sparse, 5.
+off), so their readings stay comparable, as do 4z-loop and 4z-small.
+The order of the run: 1-3f, 3g-3i, 4-4f, 4z-loop, 4z-small, 4g-4k,
+4l-4p, 4q-4r, 4t, 4v, 4s, 4u, 4w-4z, 4-sparse, 5.
 
 Also printed, for information: a ``torch.profiler`` window over one
 continuous pass and one over 3 training steps (device time by kernel,
@@ -1239,6 +1259,329 @@ def phase_profile_train(trainer, feed, named=()):
         n = sum(r[2] for r in rows if mark in r[0])
         log(f"  {label} ({mark}): {us / 3e3:.3f} ms a step, {n / 3:.0f} "
             "launches a step")
+
+
+# ------------------------------------------------ the training loop
+#: phase 4z-loop: the 4d model, flags and optimizer around Trainer.train:
+#: a reader of LOOP_SAMPLES raw (ids, label) samples (ids in [0, V),
+#: lengths in LOOP_LENGTHS, labels 0/1, from a numpy seed) in batches of
+#: TRAIN_B, a test reader of LOOP_TEST_SAMPLES, LOOP_PASSES passes;
+#: phase 4z-small: the same loop at B 8, lengths 6-12 (padded to 12), H
+#: 128, 3 batches a pass and 2 test batches, card vs CPU
+LOOP_SAMPLES, LOOP_TEST_SAMPLES, LOOP_PASSES = 2048, 512, 2
+LOOP_LENGTHS = (50, 100)
+LOOP_EVALUATOR = {"type": "classification_error",
+                  "name": "__classification_error_evaluator_0__",
+                  "input_layer_name": "__fc_3__", "label_layer_name": "label"}
+TIME_JOB_WARM, TIME_JOB_BATCHES = 3, 20
+CHECKGRAD_RTOL = 5e-2          # the reference's default rtol
+SMALL_LOOP = dict(b=8, lengths=(6, 12), bucket=12, hidden=128, batches=3,
+                  test_batches=2)
+
+
+def loop_samples(n, vocab, lengths, seed):
+    """``n`` raw samples ``(ids list, label)``, drawn from
+    ``RandomState(seed)``."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        t = int(rng.randint(lengths[0], lengths[1] + 1))
+        out.append((rng.randint(0, vocab, t).tolist(),
+                    int(rng.randint(0, 2))))
+    return out
+
+
+def loop_setup(dims, dev, b, samples, test_samples, bucket=None):
+    """A trainer of the classifier with the loop's evaluator entry (the
+    port's own init, seed 0), the feeder and both batch readers."""
+    from paddle_tpu_torch.config.model_config import OptimizationConfig
+    from paddle_tpu_torch.data import (DataFeeder, integer_value,
+                                       integer_value_sequence, reader)
+    from paddle_tpu_torch.layers.network import NeuralNetwork
+    from paddle_tpu_torch.models import lstm_text_classifier
+    from paddle_tpu_torch.trainer.trainer import Trainer
+    cfg = lstm_text_classifier(**dims)
+    cfg.evaluators.append(dict(LOOP_EVALUATOR))
+    trainer = Trainer(NeuralNetwork(cfg), OptimizationConfig(**TRAIN_OPT),
+                      seed=0, device=dev)
+    feeder = DataFeeder([("data", integer_value_sequence(dims["vocab_size"])),
+                         ("label", integer_value(2))],
+                        buckets=[bucket] if bucket else None)
+    return (trainer, feeder, reader.batch(reader.np_array(samples), b),
+            reader.batch(reader.np_array(test_samples), b))
+
+
+def expected_events(n_batches, passes, log_period):
+    """The reference's (event, pass, batch) sequence of ``train``."""
+    out = []
+    for p in range(passes):
+        out.append(("BeginPass", p, None))
+        for i in range(n_batches):
+            out.append(("BeginIteration", p, i))
+            if (i + 1) % log_period == 0:
+                out.append(("EndIteration", p, i))
+        out.append(("EndPass", p, None))
+    return out
+
+
+def loop_run(trainer, feeder, train_reader, test_reader, depth,
+             log_period, passes=LOOP_PASSES):
+    """``trainer.train`` once at ``--prefetch_depth`` ``depth`` and
+    ``--log_period`` ``log_period`` (``--save_dir=""``), every launch
+    count set to 0 just before it: (events as (kind, pass, batch,
+    payload), each pass's (train wall, test wall, pass wall) in s,
+    launches).  A pass's train wall ends where its ``test`` starts,
+    after a device sync."""
+    import torch
+    set_flags(prefetch_depth=depth, log_period=log_period, save_dir="")
+    events, stamps, tests = [], [], []
+
+    def handle(e):
+        kind = type(e).__name__
+        payload = e.cost if kind == "EndIteration" else \
+            dict(getattr(e, "metrics", {}))
+        events.append((kind, e.pass_id, getattr(e, "batch_id", None),
+                       payload))
+        stamps.append(time.perf_counter())
+
+    run_test = trainer.test
+
+    def timed_test(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run_test(*args, **kw)
+        tests.append((t0, time.perf_counter()))
+        return out
+
+    trainer.test = timed_test
+    torch.cuda.synchronize()
+    reset_counts()
+    try:
+        trainer.train(train_reader, passes, handle, feeder, test_reader)
+    finally:
+        del trainer.test
+    launches = read_counts()
+    begins = [t for t, e in zip(stamps, events) if e[0] == "BeginPass"]
+    ends = [t for t, e in zip(stamps, events) if e[0] == "EndPass"]
+    walls = [(t0 - b, t1 - t0, e - b)
+             for b, (t0, t1), e in zip(begins, tests, ends)]
+    return events, walls, launches
+
+
+def check_launches(launches, want, what):
+    """Exactly ``want[name]`` launches of each kernel named, none of any
+    other."""
+    for name, count in launches.items():
+        if count != want.get(name, 0):
+            fail(f"{what}: {name} launched {count} times, expected "
+                 f"{want.get(name, 0)}")
+
+
+def phase_loop(dev, step):
+    """Phase 4z-loop: ``Trainer.train`` at 4d's width at
+    ``--prefetch_depth`` 0 and 2 (each at ``--log_period`` 1 for the
+    events and every step's cost, and at the default 100 for the
+    timing), then ``time_job`` and ``check_gradients``; ``step`` is
+    phase 4d's metrics (``train_one_batch`` on the same model)."""
+    import logging
+    from paddle_tpu_torch.core.sequence import bucket_length
+    from paddle_tpu_torch.data import reader
+    from paddle_tpu_torch.utils import FLAGS
+    v = TRAIN["vocab_size"]
+    samples = loop_samples(LOOP_SAMPLES, v, LOOP_LENGTHS, 0)
+    test_samples = loop_samples(LOOP_TEST_SAMPLES, v, LOOP_LENGTHS, 1)
+    n_batches = LOOP_SAMPLES // TRAIN_B
+    n_test = LOOP_TEST_SAMPLES // TRAIN_B
+    ts = [bucket_length(max(len(s[0]) for s in samples[i:i + TRAIN_B]))
+          for i in range(0, LOOP_SAMPLES, TRAIN_B)]
+    log(f"  {LOOP_SAMPLES} samples in {n_batches} batches of {TRAIN_B} a "
+        f"pass, lengths {LOOP_LENGTHS[0]}-{LOOP_LENGTHS[1]}: padded T "
+        f"{ts}; "
+        f"{LOOP_TEST_SAMPLES} test samples, {LOOP_PASSES} passes")
+    want = {"lstm_fwd": 2 * LOOP_PASSES * (n_batches + n_test),
+            "lstm_bwd": 2 * LOOP_PASSES * n_batches}
+    old = {k: FLAGS.get(k) for k in ("prefetch_depth", "log_period",
+                                     "save_dir")}
+    runs, m, counts = {}, {"padded_T": ts}, {}
+    try:
+        for log_period in (1, 100):
+            for depth in (0, 2):
+                trainer, feeder, train_r, test_r = loop_setup(
+                    TRAIN, dev, TRAIN_B, samples, test_samples)
+                events, walls, launches = loop_run(
+                    trainer, feeder, train_r, test_r, depth, log_period)
+                del trainer
+                tag = f"depth {depth}, log_period {log_period}"
+                if [e[:3] for e in events] != expected_events(
+                        n_batches, LOOP_PASSES, log_period):
+                    fail(f"train ({tag}): events out of the reference's "
+                         f"order: {[e[:3] for e in events][:8]}")
+                check_launches(launches, want, f"train ({tag})")
+                costs = [e[3] for e in events if e[0] == "EndIteration"]
+                passes = [e[3] for e in events if e[0] == "EndPass"]
+                if not all(np.isfinite(costs + [p[k] for p in passes
+                                                for k in p])):
+                    fail(f"train ({tag}): a non-finite cost or metric")
+                runs[(depth, log_period)] = events
+                for name, n in launches.items():
+                    counts[name] = counts.get(name, 0) + n
+                log(f"  train, {tag}: passes "
+                    + "; ".join(
+                        f"{LOOP_SAMPLES / tr:.1f} samples/s (train "
+                        f"{tr * 1e3:.1f} ms, test {te * 1e3:.1f} ms = "
+                        f"{LOOP_TEST_SAMPLES / te:.1f} samples/s, pass "
+                        f"{pw * 1e3:.1f} ms)" for tr, te, pw in walls)
+                    + f"; EndPass {passes}")
+                if log_period == 1:
+                    log(f"    costs {[round(c, 6) for c in costs]}")
+                m[f"depth{depth}_log{log_period}"] = {
+                    "train_samples_per_s": [LOOP_SAMPLES / w[0]
+                                            for w in walls],
+                    "test_samples_per_s": [LOOP_TEST_SAMPLES / w[1]
+                                           for w in walls],
+                    "train_wall_ms": [w[0] * 1e3 for w in walls],
+                    "pass_wall_ms": [w[2] * 1e3 for w in walls],
+                    "end_pass": passes}
+        for log_period in (1, 100):
+            if runs[(0, log_period)] != runs[(2, log_period)]:
+                fail(f"train at log_period {log_period}: costs or metrics "
+                     "differ between --prefetch_depth 0 and 2")
+        log("  --prefetch_depth 0 and 2: events, every cost and the "
+            "EndPass metrics bit-identical")
+
+        log(f"== phase 4z-loop: time_job (warmup {TIME_JOB_WARM}, "
+            f"{TIME_JOB_BATCHES} batches)")
+        trainer, feeder, train_r, _ = loop_setup(
+            TRAIN, dev, TRAIN_B, samples, test_samples)
+        reset_counts()
+        tj = trainer.time_job(reader.chain(train_r, train_r), feeder,
+                              TIME_JOB_WARM, TIME_JOB_BATCHES)
+        n = TIME_JOB_WARM + TIME_JOB_BATCHES
+        tj_launches = read_counts()
+        check_launches(tj_launches, {"lstm_fwd": 2 * n, "lstm_bwd": 2 * n},
+                       "time_job")
+        log(f"  time_job: {tj['ms_per_batch']:.3f} ms/batch, "
+            f"{tj['samples_per_sec']:.1f} samples/s over {tj['batches']} "
+            f"batches (T "
+            f"{[ts[i % n_batches] for i in range(TIME_JOB_WARM, n)]}); "
+            f"4d's train_one_batch {step['ms_per_step']:.3f} ms/step, "
+            f"{step['samples_per_s']:.1f} samples/s (T {TRAIN_T}, CUDA "
+            "events)")
+        m["time_job"] = tj
+
+        log("== phase 4z-loop: check_gradients on one full-width batch "
+            f"(rtol {CHECKGRAD_RTOL}, eps {FLAGS.get('checkgrad_eps')})")
+        feed = feeder.convert(samples[:TRAIN_B])
+        lines = []
+
+        class Lines(logging.Handler):
+            def emit(self, record):
+                lines.append(record.getMessage())
+
+        handler = Lines(logging.WARNING)
+        logger = logging.getLogger("paddle_tpu_torch.trainer")
+        logger.addHandler(handler)
+        try:
+            reset_counts()
+            trainer.check_gradients(feed, rtol=-1)    # logs every check
+            every = read_counts()
+            checks = [ln.split("checkgrad FAIL ")[1] for ln in lines]
+            lines.clear()
+            reset_counts()
+            ok = trainer.check_gradients(feed)
+            cg_launches = read_counts()
+        finally:
+            logger.removeHandler(handler)
+        n_checks = sum(min(4, p.numel()) for p in trainer.params.values())
+        want_cg = {"lstm_fwd": 2 * (1 + 2 * n_checks), "lstm_bwd": 2}
+        check_launches(every, want_cg, "check_gradients (every check)")
+        check_launches(cg_launches, want_cg, "check_gradients")
+        if len(checks) != n_checks:
+            fail(f"check_gradients at rtol -1 logged {len(checks)} checks, "
+                 f"expected {n_checks}")
+        shares = []
+        for c in checks:
+            auto = float(c.split("auto=")[1].split()[0])
+            fd = float(c.split("fd=")[1])
+            shares.append((abs(auto - fd)
+                           / (CHECKGRAD_RTOL * max(abs(fd), 1e-3)), c))
+        shares.sort(reverse=True)
+        log(f"  T {feed['data'].max_len}; {n_checks} checks; worst "
+            "|auto - fd| as a share of the tolerance: "
+            + "; ".join(f"{sh:.4f} ({c})" for sh, c in shares[:5]))
+        m["check_gradients"] = {"ok": ok, "checks": n_checks,
+                                "worst_share": shares[0][0],
+                                "worst": shares[0][1]}
+        if not ok:
+            fail(f"check_gradients returned False: {lines}")
+        del trainer
+    finally:
+        set_flags(**old)
+    m["launches"] = {"loop": counts, "time_job": tj_launches,
+                     "check_gradients": {k: every[k] + cg_launches[k]
+                                         for k in every}}
+    log(f"  launches: loop {want} a run, time_job "
+        f"{ {k: v for k, v in tj_launches.items() if v} }, check_gradients "
+        f"{want_cg} a call")
+    return m
+
+
+def phase_loop_small(dev):
+    """Phase 4z-small: the loop on the CPU (plain versions) and on the
+    card from the same parameters: each pass's cost, every step's cost,
+    ``test_cost`` within phase 4e's loss tolerance, and
+    ``classification_error`` equal."""
+    from paddle_tpu_torch.utils import FLAGS
+    s = SMALL_LOOP
+    dims = dict(TRAIN, hidden_size=s["hidden"])
+    samples = loop_samples(s["b"] * s["batches"], TRAIN["vocab_size"],
+                           s["lengths"], 2)
+    test_samples = loop_samples(s["b"] * s["test_batches"],
+                                TRAIN["vocab_size"], s["lengths"], 3)
+    old = {k: FLAGS.get(k) for k in ("prefetch_depth", "log_period",
+                                     "save_dir")}
+    res = {}
+    try:
+        for where in ("cpu", dev):
+            trainer, feeder, train_r, test_r = loop_setup(
+                dims, where, s["b"], samples, test_samples, s["bucket"])
+            events, _, launches = loop_run(trainer, feeder, train_r,
+                                           test_r, 2, 1)
+            if [e[:3] for e in events] != expected_events(
+                    s["batches"], LOOP_PASSES, 1):
+                fail(f"small loop on {where}: events out of order")
+            res[str(where)] = (events, launches)
+    finally:
+        set_flags(**old)
+    (ev_cpu, l_cpu), (ev_dev, l_dev) = res["cpu"], res[str(dev)]
+    if any(l_cpu.values()):
+        fail("the CPU loop launched a kernel")
+    check_launches(l_dev, {
+        "lstm_fwd": 2 * LOOP_PASSES * (s["batches"] + s["test_batches"]),
+        "lstm_bwd": 2 * LOOP_PASSES * s["batches"]}, "small loop on the card")
+    worst = 0.0
+    for (kind, p, b, got), (_, _, _, want) in zip(ev_dev, ev_cpu):
+        pairs = [(got, want)] if kind == "EndIteration" else \
+            [(got[k], want[k]) for k in ("cost", "test_cost")] \
+            if kind == "EndPass" else []
+        for g, w in pairs:
+            tol = LSTM_GRAD_ATOL + LSTM_GRAD_RTOL * abs(w)
+            worst = max(worst, abs(g - w) / tol)
+        if kind == "EndPass" and got["classification_error"] != \
+                want["classification_error"]:
+            fail(f"small loop pass {p}: classification_error "
+                 f"{got['classification_error']} on the card, "
+                 f"{want['classification_error']} on the CPU")
+    passes = [(e[3], c[3]) for e, c in zip(ev_dev, ev_cpu)
+              if e[0] == "EndPass"]
+    log(f"  B {s['b']}, T {s['bucket']}, H {s['hidden']}, "
+        f"{LOOP_PASSES} passes x {s['batches']} batches: EndPass card "
+        f"{[p[0] for p in passes]}, CPU {[p[1] for p in passes]}; worst "
+        f"cost error {worst:.3f} of the tolerance")
+    if worst > 1.0:
+        fail("the loop on the card and on the CPU disagree")
+    return {"end_pass_card": [p[0] for p in passes],
+            "end_pass_cpu": [p[1] for p in passes], "worst_share": worst}
 
 
 def lstm_work(b, t, h, n_valid, backward):
@@ -3389,6 +3732,16 @@ def main() -> int:
         log("== phase 4f: profile of 3 training steps")
         phase_profile_train(trainer, feed, ("kernel 8", "kernel 9"))
         del trainer, feed
+        log("== phase 4z-loop: the training loop around the step at 4d's "
+            "width (Trainer.train with a test reader and the config's "
+            "classification_error evaluator, --prefetch_depth 0 and 2)")
+        loop = phase_loop(dev, train)
+        for name in launches:
+            for path, counts in loop["launches"].items():
+                launches[name][f"training_{path}"] = counts[name]
+        log("== phase 4z-small: the loop at B 8, T 12, H 128, card vs CPU "
+            "plain path (fp32)")
+        loop["small"] = phase_loop_small(dev)
         log("== phase 4g: blocked main path, the classifier at H 1280 "
             "under bench.py's flags (use_bf16, bf16_activations)")
         set_flags(**BENCH_FLAGS)
@@ -3519,7 +3872,8 @@ def main() -> int:
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"serving": {k: v for k, v in serve.items()
                                   if k != "prompt_lengths"},
-                      "training": train, "training_h1280": blocked,
+                      "training": train, "training_loop": loop,
+                      "training_h1280": blocked,
                       "training_h1280_mixed_bf16": mixed,
                       "training_h2048": wide, **resnet, "seq2seq": seq2seq,
                       "seq2seq_h1024": seq2seq_wide, "c1": c1,

@@ -1,15 +1,18 @@
 """Variable-length sequences as a padded batch (counterpart of
-``paddle_tpu/core/sequence.py``; level 1 only).
+``paddle_tpu/core/sequence.py``; level 1 only: the nested batch and
+``pad_nested_batch`` wait for queue A4c).
 
 A :class:`SequenceBatch` is ``data[B, T, ...]`` plus int ``length[B]``;
-masks are derived from the lengths.
+masks are derived from the lengths.  :func:`pad_batch` builds one on
+the host (CPU tensors) from ragged numpy rows.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Union
+from typing import Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 
@@ -62,3 +65,36 @@ def like(template, data: torch.Tensor):
     if isinstance(template, SequenceBatch):
         return SequenceBatch(data=data, length=template.length)
     return data
+
+
+# ---------------------------------------------------------------- host side
+
+def bucket_length(n: int, buckets: Optional[Sequence[int]] = None,
+                  multiple: int = 8) -> int:
+    """Round a max-length up to a bucket (the first of ``buckets`` that
+    holds it, else their largest), or to a multiple of ``multiple``."""
+    if buckets:
+        for b in sorted(buckets):
+            if n <= b:
+                return b
+        return max(buckets)
+    return max(multiple, ((n + multiple - 1) // multiple) * multiple)
+
+
+def pad_batch(seqs: Sequence[np.ndarray], max_len: Optional[int] = None,
+              dtype=None, pad_value: float = 0,
+              buckets: Optional[Sequence[int]] = None) -> SequenceBatch:
+    """Pad a ragged list of [t_i, ...] arrays into a SequenceBatch of CPU
+    tensors: T is ``max_len``, else :func:`bucket_length` of the longest
+    row; longer rows are cut to T."""
+    seqs = [np.asarray(s) for s in seqs]
+    lengths = np.array([s.shape[0] for s in seqs], dtype=np.int32)
+    t = max_len or bucket_length(int(lengths.max(initial=1)), buckets)
+    trailing = seqs[0].shape[1:] if seqs else ()
+    dtype = dtype or (seqs[0].dtype if seqs else np.float32)
+    out = np.full((len(seqs), t) + trailing, pad_value, dtype=dtype)
+    for i, s in enumerate(seqs):
+        n = min(s.shape[0], t)
+        out[i, :n] = s[:n]
+    return SequenceBatch(data=torch.from_numpy(out),
+                         length=torch.from_numpy(np.minimum(lengths, t)))

@@ -247,3 +247,7 @@ class NeuralNetwork:
             c = torch.sum(v) / v.shape[0]
             total = c if total is None else total + c
         return total, (values, new_buffers)
+
+    def outputs(self, values: Dict[str, Any]) -> Dict[str, Any]:
+        """The declared output layers' values, by name."""
+        return {n: values[n] for n in self.output_names if n in values}

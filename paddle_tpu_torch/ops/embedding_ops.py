@@ -6,6 +6,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 
 def lookup_table(table: torch.Tensor, ids: torch.Tensor,
@@ -14,11 +15,15 @@ def lookup_table(table: torch.Tensor, ids: torch.Tensor,
 
     ``padding_idx`` rows read as zeros (and pass no gradient to the
     table).  Ids outside [0, V) read as zeros too, as the reference's
-    fill-mode gather does, rather than faulting on the card."""
+    fill-mode gather does, rather than faulting on the card.
+
+    The gather is ``F.embedding``, whose table gradient on the card sums
+    each row's duplicates in a fixed order, so a step's result does not
+    vary from run to run (``index_select``'s backward adds them with
+    atomics, in whatever order they land)."""
     ids = ids.to(torch.int64)
     valid = (ids >= 0) & (ids < table.shape[0])
     if padding_idx is not None:
         valid &= ids != padding_idx
-    out = table.index_select(0, torch.where(valid, ids, 0).reshape(-1))
-    out = out.reshape(*ids.shape, table.shape[1])
+    out = F.embedding(torch.where(valid, ids, 0), table)
     return out * valid[..., None].to(out.dtype)

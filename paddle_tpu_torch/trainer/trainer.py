@@ -32,24 +32,43 @@ so no dense ``[V, D]`` gradient is formed — and the rows updated in
 place by ``Optimizer.apply_rows``.  The other ``sparse_update`` tables,
 and all of them under ``--sparse_grads=false``, take the dense gradient
 and the ``touched_row_mask`` masked update.
+
+Around the step, the reference's loop and jobs (``Trainer.train``,
+``test``, ``time_job``, ``check_gradients``): the events of
+``trainer/events.py`` in the reference's order, the model config's
+evaluators, and the feeding path — ``DataFeeder.convert`` on the step's
+thread, or with ``--prefetch_depth`` > 0 the async pipeline
+(``data/pipeline.py``), whose workers convert each batch and issue its
+host-to-device copy (:meth:`Trainer._place_feed`).  A feed is copied
+from pinned memory without blocking, on the device's current stream:
+the step's kernels are queued behind it on the same stream, so no event
+or ``record_stream`` is needed.  What the loop reaches and the port
+lacks refuses by name before a step runs: the checkpoint save (the
+default ``--save_dir`` with ``--saving_period``; queue A2b),
+``--show_parameter_stats_period`` and ``--roofline_dump`` (A10).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple, Union
+import contextlib
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from ..config.model_config import OptimizationConfig
 from ..core.device import resolve_device
-from ..core.dtypes import policy_for, policy_scope, resolve_precision
+from ..core.dtypes import (full_precision, policy_for, policy_scope,
+                           resolve_precision)
 from ..core.sequence import SequenceBatch, value_of
 from ..layers.network import NeuralNetwork
 from ..ops.embedding import gather_rows
 from ..optimizer import loss_scale as ls
 from ..optimizer.optimizers import Optimizer, create_optimizer
 from ..parallel import sparse as psparse
-from ..utils import FLAGS, enforce, get_logger, warn_once
+from ..utils import FLAGS, PaddleTpuError, enforce, get_logger, warn_once
+from . import events as ev
 
 _log = get_logger("trainer")
 
@@ -74,11 +93,27 @@ def optimizer_from_config(oc: OptimizationConfig) -> Tuple[Optimizer, Any]:
 
 def _to_device(v, dev: torch.device):
     """A feed value (tensor, numpy array or SequenceBatch of either) as
-    tensors on ``dev``."""
+    tensors on ``dev``.  A host tensor goes to the card through a pinned
+    copy queued on the current stream without blocking the host (from
+    pageable memory the copy would wait for every kernel queued before
+    it)."""
     if isinstance(v, SequenceBatch):
-        return SequenceBatch(torch.as_tensor(v.data).to(dev),
-                             torch.as_tensor(v.length).to(dev))
-    return torch.as_tensor(v).to(dev)
+        return SequenceBatch(_to_device(v.data, dev),
+                             _to_device(v.length, dev))
+    t = torch.as_tensor(v)
+    if dev.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t.to(dev)
+
+
+def _to_host(v):
+    """A value (tensor or SequenceBatch, on any device) with its tensors
+    on the CPU."""
+    if isinstance(v, SequenceBatch):
+        return SequenceBatch(v.data.detach().cpu(), v.length.cpu())
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu()
+    return v
 
 
 class Trainer:
@@ -106,6 +141,7 @@ class Trainer:
         self._ls_state = ls.init_state(device=self.device) \
             if self.precision == "bf16" else None
         self._sparse_plan: Optional[Dict[str, List[str]]] = None
+        self._eval_step: Optional[Callable] = None
 
     # ------------------------------------------------- sparse tables
     def _sparse_exchange_plan(self) -> Dict[str, List[str]]:
@@ -197,10 +233,19 @@ class Trainer:
         return new_slots
 
     # ---------------------------------------------------------- the step
-    def train_one_batch(self, feed: Dict[str, Any]) -> torch.Tensor:
+    def _place_feed(self, feed: Dict[str, Any]) -> Dict[str, Any]:
+        """The feed's tensors on the trainer's device, placed on the
+        calling thread (the input pipeline's workers call it, so the
+        copy is issued while the step runs)."""
+        return {k: _to_device(v, self.device) for k, v in feed.items()}
+
+    def train_one_batch(self, feed: Dict[str, Any],
+                        placed: bool = False) -> torch.Tensor:
         """One step; returns the loss as a 0-d tensor on the device (read
-        it with ``float()`` when the host needs it)."""
-        feed = {k: _to_device(v, self.device) for k, v in feed.items()}
+        it with ``float()`` when the host needs it).  ``placed=True``
+        marks a feed already on the device (:meth:`_place_feed`)."""
+        if not placed:
+            feed = self._place_feed(feed)
         lr = self.schedule(self.samples_seen)
         ex_plan = self._sparse_exchange_plan()
         ex_rows, ex_blocks = self._exchange_prefetch(ex_plan, feed)
@@ -276,3 +321,338 @@ class Trainer:
         self.params = {n: new_params.get(n, p)
                        for n, p in self.params.items()}
         self.opt_state = (new_opt[0], new_slots)
+
+    # ------------------------------------------------------ eval step
+    def _eval_output_names(self) -> List[str]:
+        """Layers whose values evaluators should see: a declared output
+        that is a cost layer stands in for its first input (the
+        prediction), as the reference wires evaluators."""
+        names: List[str] = []
+        for n in self.network.output_names:
+            lyr = self.network.layers.get(n)
+            if lyr is not None and getattr(lyr, "is_cost", False) \
+                    and lyr.conf.inputs:
+                names.append(lyr.conf.inputs[0].input_layer_name)
+            else:
+                names.append(n)
+        return names
+
+    def _build_eval_step(self) -> Callable:
+        """The forward of ``test``: ``is_training=False`` under
+        ``torch.no_grad()`` (and the bf16 policy under
+        ``--precision=bf16``) → (loss, the declared outputs plus the
+        evaluators' input layers)."""
+        net = self.network
+        eval_names = list(self._eval_output_names())
+        # config-declared evaluators read their own input layers
+        eval_names += [e["input_layer_name"]
+                       for e in net.config.evaluators
+                       if e.get("input_layer_name")]
+        pol = policy_for("bf16") if self.precision == "bf16" else None
+
+        def step(params, buffers, feed):
+            scope = policy_scope(pol) if pol is not None \
+                else contextlib.nullcontext()
+            with torch.no_grad(), scope:
+                loss, (values, _) = net.loss(params, feed, buffers,
+                                             is_training=False)
+            outs = dict(net.outputs(values))
+            for n in eval_names:
+                if n in values:
+                    outs[n] = values[n]
+            return loss, outs
+
+        return step
+
+    def _config_evaluators(self) -> list:
+        """The model config's EvaluatorConfig entries, instantiated
+        (reference: ``Evaluator::create`` from ``ModelConfig``)."""
+        from ..evaluators import create_evaluator
+
+        out = []
+        for e in self.network.config.evaluators:
+            extra = {k: v for k, v in e.items()
+                     if k not in ("type", "name", "input_layer_name",
+                                  "label_layer_name",
+                                  "weight_layer_name")}
+            evaluator = create_evaluator(e["type"], **extra)
+            evaluator._config_entry = e
+            out.append(evaluator)
+        return out
+
+    # ---------------------------------------------------- feed source
+    def _pipeline_or_sync(self, reader, feeder):
+        """This pass's batch source: an :class:`AsyncPipeline` (convert
+        and device placement on worker threads) when
+        ``--prefetch_depth`` > 0, else the raw reader iterator.  Returns
+        ``(iterable, pipe)``; ``pipe`` is None on the synchronous path
+        and must be ``close()``d otherwise."""
+        depth = max(0, int(FLAGS.get("prefetch_depth")))
+        if depth == 0:
+            return iter(reader()), None
+        from ..data.pipeline import AsyncPipeline
+        pipe = AsyncPipeline(
+            reader(),
+            convert_fn=feeder.convert if feeder else None,
+            place_fn=self._place_feed,
+            depth=depth, workers=int(FLAGS.get("reader_workers")))
+        return pipe, pipe
+
+    def _refuse_unported(self, num_passes: int) -> None:
+        """Refuse, before any step, what ``train`` would reach and the
+        port lacks."""
+        start = int(FLAGS.get("start_pass"))
+        period = int(FLAGS.get("saving_period"))
+        if FLAGS.get("save_dir") and period and any(
+                (p + 1) % period == 0
+                for p in range(start, start + num_passes)):
+            raise PaddleTpuError(
+                f"Trainer.train would save a checkpoint to "
+                f"--save_dir={FLAGS.get('save_dir')!r} every "
+                f"--saving_period={period} passes; checkpoints are not "
+                "ported yet (queue A2b): pass --save_dir=\"\" to train "
+                "without saving")
+        if FLAGS.get("show_parameter_stats_period"):
+            raise PaddleTpuError(
+                "--show_parameter_stats_period is not ported yet "
+                "(utils/profiler.parameter_stats, queue A10); set it to 0")
+        if FLAGS.get("roofline_dump"):
+            raise PaddleTpuError(
+                "--roofline_dump is not ported yet (the cost attribution "
+                "of observe/costmodel.py, queue A10); leave it empty")
+
+    # ------------------------------------------------------ the loops
+    def train(self, reader, num_passes: int = 1,
+              event_handler: Optional[Callable] = None,
+              feeder=None, test_reader=None,
+              evaluators: Sequence = ()) -> None:
+        """Passes over ``reader`` (raw minibatches, converted by
+        ``feeder``): ``BeginPass``, then a ``BeginIteration`` and a step
+        a batch (an ``EndIteration`` with the loss every
+        ``--log_period`` batches), ``test`` on ``test_reader`` and
+        ``EndPass`` with the pass's last cost and the test metrics."""
+        event_handler = event_handler or _default_event_handler
+        self._refuse_unported(num_passes)
+        start = int(FLAGS.get("start_pass"))
+        for pass_id in range(start, start + num_passes):
+            event_handler(ev.BeginPass(pass_id))
+            last_loss = None
+            batch_id = 0
+            src, pipe = self._pipeline_or_sync(reader, feeder)
+            try:
+                for batch in src:
+                    event_handler(ev.BeginIteration(pass_id, batch_id))
+                    if pipe is not None:    # converted+placed upstream
+                        feed = batch
+                    else:
+                        feed = feeder.convert(batch) if feeder else batch
+                    loss = self.train_one_batch(feed,
+                                                placed=pipe is not None)
+                    last_loss = loss
+                    log_period = FLAGS.get("log_period")
+                    if log_period and (batch_id + 1) % log_period == 0:
+                        event_handler(ev.EndIteration(
+                            pass_id=pass_id, batch_id=batch_id,
+                            cost=float(loss)))
+                    batch_id += 1
+            finally:
+                if pipe is not None:
+                    pipe.close()
+            metrics = {}
+            if test_reader is not None:
+                metrics.update(self.test(test_reader, feeder, evaluators))
+            event_handler(ev.EndPass(
+                pass_id=pass_id,
+                metrics={"cost": float(last_loss) if last_loss is not None
+                         else float("nan"), **metrics}))
+
+    def test(self, reader, feeder=None, evaluators: Sequence = (),
+             label_name: str = "label") -> Dict[str, float]:
+        """``Tester::test``: the eval step over ``reader``, ``test_cost``
+        (the per-sample mean loss) and the evaluators' metrics; with no
+        explicit ``evaluators``, the model config's.  Each batch's
+        evaluator inputs are moved to the host once and shared."""
+        if self._eval_step is None:
+            self._eval_step = self._build_eval_step()
+        if not evaluators:
+            evaluators = self._config_evaluators()
+        total, n = 0.0, 0
+        eval_names = self._eval_output_names() if evaluators else []
+        for e in evaluators:
+            e.start()
+        src, pipe = self._pipeline_or_sync(reader, feeder)
+        try:
+            for batch in src:
+                if pipe is not None:    # converted+placed upstream
+                    feed = batch
+                else:
+                    feed = feeder.convert(batch) if feeder else batch
+                    feed = self._place_feed(feed)
+                loss, outputs = self._eval_step(self.params, self.buffers,
+                                                feed)
+                b = _batch_size(feed)
+                total += float(loss) * b
+                n += b
+                if evaluators:
+                    self._eval_batch(evaluators, eval_names, outputs, feed,
+                                     label_name)
+        finally:
+            if pipe is not None:
+                pipe.close()
+        metrics = {"test_cost": total / max(n, 1)}
+        for e in evaluators:
+            vals = e.finish()
+            entry = getattr(e, "_config_entry", None)
+            ename = (entry or {}).get("name", "")
+            if ename and not ename.startswith("__"):
+                # explicit evaluator names always prefix their metrics
+                vals = {f"{ename}.{k}": v for k, v in vals.items()}
+            else:
+                # auto-named evaluators prefix only on collision
+                vals = {(k if k not in metrics
+                         else f"{ename.strip('_')}.{k}"): v
+                        for k, v in vals.items()}
+            metrics.update(vals)
+        return metrics
+
+    @staticmethod
+    def _eval_batch(evaluators, eval_names, outputs, feed,
+                    label_name) -> None:
+        """One batch into every evaluator: a config evaluator reads its
+        entry's layers, the others the prediction (the first of
+        ``eval_names`` present) and ``feed[label_name]``."""
+        hosted: Dict[int, Any] = {}
+
+        def host(v):
+            if v is None:
+                return None
+            if id(v) not in hosted:
+                hosted[id(v)] = _to_host(v)
+            return hosted[id(v)]
+
+        out0 = outputs.get(eval_names[0]) if eval_names else None
+        if out0 is None:
+            out0 = next(iter(outputs.values()))
+        for e in evaluators:
+            entry = getattr(e, "_config_entry", None)
+            if not entry:
+                e.eval_batch(host(out0), host(feed.get(label_name)))
+                continue
+            ein = outputs.get(entry["input_layer_name"])
+            if ein is None:
+                _log.warning("evaluator %s: input layer %r not in eval "
+                             "outputs; skipping", entry.get("name"),
+                             entry["input_layer_name"])
+                continue
+            elab = feed.get(entry.get("label_layer_name", label_name))
+            w = feed.get(entry["weight_layer_name"]) \
+                if entry.get("weight_layer_name") else None
+            if w is not None and \
+                    "weight" in e.eval_batch.__code__.co_varnames:
+                e.eval_batch(host(ein), host(elab), weight=host(w))
+            else:
+                e.eval_batch(host(ein), host(elab))
+
+    def time_job(self, reader, feeder=None, warmup: int = 3,
+                 batches: int = 20) -> Dict[str, float]:
+        """``--job=time`` (``TrainerBenchmark.cpp``): steady-state
+        ms/batch and samples/s after ``warmup`` steps.  Every feed is on
+        the device before the clock starts."""
+        it = iter(reader())
+        feeds = []
+        for _ in range(warmup + batches):
+            try:
+                batch = next(it)
+            except StopIteration:
+                break
+            feeds.append(self._place_feed(
+                feeder.convert(batch) if feeder else batch))
+        enforce(len(feeds) > warmup, "not enough batches to time")
+        loss = None
+        for f in feeds[:warmup]:
+            loss = self.train_one_batch(f, placed=True)
+        if loss is not None:
+            float(loss)
+        elif self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        samples = 0
+        for f in feeds[warmup:]:
+            loss = self.train_one_batch(f, placed=True)
+            samples += _batch_size(f)
+        float(loss)
+        dt = time.perf_counter() - t0
+        timed = len(feeds) - warmup
+        return {
+            "ms_per_batch": dt / timed * 1e3,
+            "samples_per_sec": samples / dt,
+            "batches": timed,
+        }
+
+    def check_gradients(self, feed: Dict[str, Any],
+                        eps: Optional[float] = None,
+                        max_checks_per_param: int = 4,
+                        rtol: float = 5e-2) -> bool:
+        """``--job=checkgrad`` (``Trainer::checkGradient``): every
+        parameter's autograd gradient at up to ``max_checks_per_param``
+        elements (drawn by ``np.random.RandomState(5)``, as the reference
+        draws them) against central differences of step ``eps``
+        (``--checkgrad_eps``) on one batch, in fp32 with
+        ``is_training=False``.  Each miss logs a warning."""
+        eps = eps or FLAGS.get("checkgrad_eps")
+        feed = self._place_feed(feed)
+        ok = True
+        with full_precision():
+            def loss_fn(p):
+                return self.network.loss(p, feed, self.buffers,
+                                         is_training=False)[0]
+
+            params = {n: p.detach().requires_grad_(True)
+                      for n, p in self.params.items()}
+            grads = dict(zip(params, torch.autograd.grad(
+                loss_fn(params), list(params.values()),
+                allow_unused=True)))
+            with torch.no_grad():
+                # sorted: the order of the reference's gradient dict
+                for name in sorted(grads):
+                    p, g = self.params[name], grads[name]
+                    idxs = np.random.RandomState(5).choice(
+                        p.numel(), size=min(max_checks_per_param,
+                                            p.numel()), replace=False)
+                    auto = (torch.zeros(len(idxs)) if g is None else
+                            g.reshape(-1)[torch.as_tensor(
+                                idxs, device=g.device)].cpu())
+                    for j, idx in enumerate(idxs):
+                        lp = float(loss_fn({**self.params,
+                                            name: _bump(p, idx, eps)}))
+                        lm = float(loss_fn({**self.params,
+                                            name: _bump(p, idx, -eps)}))
+                        fd = (lp - lm) / (2 * eps)
+                        ag = float(auto[j])
+                        if abs(ag - fd) > rtol * max(abs(fd), 1e-3):
+                            _log.warning(
+                                "checkgrad FAIL %s[%d]: auto=%g fd=%g",
+                                name, idx, ag, fd)
+                            ok = False
+        return ok
+
+
+def _bump(p: torch.Tensor, idx: int, delta: float) -> torch.Tensor:
+    """``p`` with ``delta`` added to its ``idx``-th element (flat)."""
+    q = p.detach().clone()
+    q.view(-1)[int(idx)] += delta
+    return q
+
+
+def _batch_size(feed: Dict[str, Any]) -> int:
+    for v in feed.values():
+        return value_of(v).shape[0]
+    return 0
+
+
+def _default_event_handler(event) -> None:
+    if isinstance(event, ev.EndIteration):
+        _log.info("pass %d batch %d cost=%.6f",
+                  event.pass_id, event.batch_id, event.cost)
+    elif isinstance(event, ev.EndPass):
+        _log.info("pass %d done: %s", event.pass_id, event.metrics)

@@ -131,3 +131,27 @@ FLAGS.define("embedding_kernel", True,
              "(ops/embedding.py, kernel 22): only the touched rows are "
              "read; false = the plain index_select gather, byte-for-byte, "
              "for one-flag revert / A/B traffic measurement")
+# the training loop (trainer/trainer.py: train, test, time_job,
+# check_gradients) and its input pipeline (data/pipeline.py)
+FLAGS.define("log_period", 100, "log every N batches")
+FLAGS.define("show_parameter_stats_period", 0,
+             "dump param stats every N batches")
+FLAGS.define("checkgrad_eps", 1e-2,
+             "finite-difference step for --job=checkgrad")
+FLAGS.define("saving_period", 1, "checkpoint every N passes")
+FLAGS.define("start_pass", 0, "first pass number (resume)")
+FLAGS.define("save_dir", "./output", "checkpoint output dir")
+FLAGS.define("roofline_dump", "",
+             "write the attributed per-region roofline/cost report of the "
+             "train step to this JSON path at the end of the first "
+             "training pass; empty = off")
+FLAGS.define("prefetch_depth", 2,
+             "async input pipeline depth (data/pipeline.py): max batches "
+             "in flight between the reader and the train step — reader "
+             "IO, DataFeeder.convert, and the host->device transfer run "
+             "on worker threads and overlap the running step; 0 restores "
+             "the fully synchronous loop (read -> convert -> step)")
+FLAGS.define("reader_workers", 2,
+             "reader/convert worker threads per async input pipeline "
+             "(clamped to prefetch_depth; reading from the source is "
+             "serialized, convert+transfer parallelize)")
