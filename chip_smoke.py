@@ -68,6 +68,27 @@ Phases (any failure exits nonzero, without the final ``ok`` line):
    and 2 test batches on the CPU (plain versions) and on the card from
    the same parameters: every cost and ``test_cost`` within 4e's loss
    tolerance, ``classification_error`` equal;
+4z-ckpt. checkpoints around that loop (4d's model, flags and Adam, the
+   loop's samples and test reader, ``--saving_period`` 1 into a
+   directory under ``build/``): (a) 2 passes saving each (A); (b) a
+   fresh trainer of another seed loads A's pass-00000 through
+   ``--init_model_path`` and trains pass 1 at ``--start_pass=1`` (B):
+   B's pass-00001 ``.npz`` digests, ``samples_seen`` and events equal
+   A's; (c) (a) and (b) again under ``--precision=bf16``, the
+   ``loss_scale`` fields equal too; (e) A's pass-00001 loaded on the CPU
+   plain path: one step there and on the card within 4e's loss
+   tolerance; (d) a flipped byte of A's pass-00001: ``resume`` loads
+   pass-00000 and quarantines ``.corrupt-pass-00001``; exact launches of
+   kernels 8 and 9 in each run; readings: a checkpoint's bytes, ms a
+   save and ms a load beside 4d's ms/step;
+4z-opt. at 4z-small's width, 3 steps of each of the ten registered
+   optimizers (L1 on momentum) and of each of the seven schedules on
+   SGD, then of a net with a pruning hook (3/4 of ``_lstm0_transform.w0``
+   pruned, Momentum), on the CPU (plain versions) and on the card from
+   one checkpoint: every cost within 4e's loss tolerance, each
+   parameter's change within 1e-2 of the CPU's in norm, the pruned
+   elements exactly 0 on the card; exactly 2 launches each of kernels 8
+   and 9 a step on the card;
 3c. the hidden-blocked LSTM kernels 10-12 (forward, BPTT, dW): through
    their ``autograd.Function`` against autograd through the plain scan,
    and each wrapper against its plain version, at (B, T, H) = (8, 5,
@@ -235,7 +256,8 @@ Phases (any failure exits nonzero, without the final ``ok`` line):
 
 Phases 3b-4f are PR 2's H 512 phases and run in fp32 (``use_bf16``
 off), so their readings stay comparable, as do 4z-loop and 4z-small.
-The order of the run: 1-3f, 3g-3i, 4-4f, 4z-loop, 4z-small, 4g-4k,
+The order of the run: 1-3f, 3g-3i, 4-4f, 4z-loop, 4z-small, 4z-ckpt,
+4z-opt, 4g-4k,
 4l-4p, 4q-4r, 4t, 4v, 4s, 4u, 4w-4z, 4-sparse, 5.
 
 Also printed, for information: a ``torch.profiler`` window over one
@@ -1291,9 +1313,11 @@ def loop_samples(n, vocab, lengths, seed):
     return out
 
 
-def loop_setup(dims, dev, b, samples, test_samples, bucket=None):
+def loop_setup(dims, dev, b, samples, test_samples, bucket=None, seed=0,
+               opt=TRAIN_OPT):
     """A trainer of the classifier with the loop's evaluator entry (the
-    port's own init, seed 0), the feeder and both batch readers."""
+    port's own init, ``seed``; ``OptimizationConfig(**opt)``), the
+    feeder and both batch readers."""
     from paddle_tpu_torch.config.model_config import OptimizationConfig
     from paddle_tpu_torch.data import (DataFeeder, integer_value,
                                        integer_value_sequence, reader)
@@ -1302,8 +1326,8 @@ def loop_setup(dims, dev, b, samples, test_samples, bucket=None):
     from paddle_tpu_torch.trainer.trainer import Trainer
     cfg = lstm_text_classifier(**dims)
     cfg.evaluators.append(dict(LOOP_EVALUATOR))
-    trainer = Trainer(NeuralNetwork(cfg), OptimizationConfig(**TRAIN_OPT),
-                      seed=0, device=dev)
+    trainer = Trainer(NeuralNetwork(cfg), OptimizationConfig(**opt),
+                      seed=seed, device=dev)
     feeder = DataFeeder([("data", integer_value_sequence(dims["vocab_size"])),
                          ("label", integer_value(2))],
                         buckets=[bucket] if bucket else None)
@@ -1325,15 +1349,16 @@ def expected_events(n_batches, passes, log_period):
 
 
 def loop_run(trainer, feeder, train_reader, test_reader, depth,
-             log_period, passes=LOOP_PASSES):
-    """``trainer.train`` once at ``--prefetch_depth`` ``depth`` and
-    ``--log_period`` ``log_period`` (``--save_dir=""``), every launch
-    count set to 0 just before it: (events as (kind, pass, batch,
-    payload), each pass's (train wall, test wall, pass wall) in s,
-    launches).  A pass's train wall ends where its ``test`` starts,
-    after a device sync."""
+             log_period, passes=LOOP_PASSES, save_dir=""):
+    """``trainer.train`` once at ``--prefetch_depth`` ``depth``,
+    ``--log_period`` ``log_period`` and ``--save_dir`` ``save_dir``
+    (a checkpoint every pass when set), every launch count set to 0
+    just before it: (events as (kind, pass, batch, payload), each pass's
+    (train wall, test wall, pass wall) in s, launches).  A pass's train
+    wall ends where its ``test`` starts, after a device sync."""
     import torch
-    set_flags(prefetch_depth=depth, log_period=log_period, save_dir="")
+    set_flags(prefetch_depth=depth, log_period=log_period,
+              save_dir=save_dir, saving_period=1)
     events, stamps, tests = [], [], []
 
     def handle(e):
@@ -1582,6 +1607,331 @@ def phase_loop_small(dev):
         fail("the loop on the card and on the CPU disagree")
     return {"end_pass_card": [p[0] for p in passes],
             "end_pass_cpu": [p[1] for p in passes], "worst_share": worst}
+
+
+# ------------------------------------------- checkpoints, optimizers
+#: phase 4z-ckpt: 4d's model, flags and Adam around ``Trainer.train`` (the
+#: loop's samples, batches of TRAIN_B, its test reader and evaluator),
+#: a checkpoint a pass into a directory under the checkout's build/
+CKPT_DIR = os.path.join("build", "chip_smoke_ckpt")
+CKPT_FILES = ("params.npz", "opt_state.npz")
+CKPT_READS = 3                 # timed saves and loads, each
+#: phase 4z-opt: 4z-small's width (B 8, T 12, H 128), 3 steps of each
+#: case on the CPU (plain versions) and on the card from the same
+#: parameters and feeds: the ten registered rules with their config
+#: fields (L1 on momentum), then each schedule on SGD, then a net whose
+#: first fc weight carries a pruning hook (3/4 pruned) under Momentum
+OPT_STEPS, OPT_B, OPT_T = 3, 8, 12
+OPT_CASES = (
+    ("sgd", dict(learning_rate=0.1)),
+    ("momentum+l1", dict(learning_method="momentum", momentum=0.9,
+                         learning_rate=0.05, l1_weight_decay=1e-3)),
+    ("adagrad", dict(learning_method="adagrad", learning_rate=0.05)),
+    ("adadelta", dict(learning_method="adadelta", learning_rate=1.0)),
+    ("rmsprop", dict(learning_method="rmsprop", learning_rate=1e-3)),
+    ("decayed_adagrad", dict(learning_method="decayed_adagrad",
+                             learning_rate=1e-2)),
+    ("adam", dict(learning_method="adam", learning_rate=2e-3)),
+    ("adamax", dict(learning_method="adamax", learning_rate=2e-3)),
+    ("proximal_gd", dict(learning_method="proximal_gd", learning_rate=0.1)),
+    ("proximal_adagrad", dict(learning_method="proximal_adagrad",
+                              learning_rate=0.05)),
+    *((f"sgd/{name}", dict(learning_rate=0.1, learning_rate_schedule=name,
+                           **kw)) for name, kw in (
+        ("constant", {}),
+        ("poly", dict(learning_rate_decay_a=0.1, learning_rate_decay_b=0.5)),
+        ("caffe_poly", dict(learning_rate_decay_a=64.0,
+                            learning_rate_decay_b=1.0)),
+        ("exp", dict(learning_rate_decay_a=0.5, learning_rate_decay_b=16.0)),
+        ("discexp", dict(learning_rate_decay_a=0.5,
+                         learning_rate_decay_b=16.0)),
+        ("linear", dict(learning_rate_decay_a=1e-3,
+                        learning_rate_decay_b=0.01)),
+        ("manual", dict(learning_rate_args="8:1.0,16:0.5,1000:0.25")))))
+#: every case with 4d's L2 and clipping (gradients stay off zero)
+OPT_COMMON = dict(l2_weight_decay=8e-4, gradient_clipping_threshold=25.0)
+#: parameters, card against CPU: the change over the 3 steps agrees in
+#: norm, ||d_card - d_cpu|| <= OPT_PARAM_RTOL * ||d_cpu|| for every
+#: parameter (an Adam-like rule turns a gradient that rounding noise can
+#: flip into a whole +-lr step, so an elementwise bound would be lr)
+OPT_PARAM_RTOL = 1e-2
+PRUNED_PARAM, PRUNE_RATIO = "_lstm0_transform.w0", 0.75
+OPT_DIR = os.path.join("build", "chip_smoke_opt")
+
+
+def npz_digests(ckpt):
+    """The manifest's SHA-256 of each ``.npz`` of a checkpoint dir."""
+    from paddle_tpu_torch.trainer.checkpoint import load_manifest
+    return {f: v["sha256"] for f, v in load_manifest(ckpt)["files"].items()}
+
+
+def flip_byte(path):
+    """XOR one byte in the middle of ``path`` (silent media damage)."""
+    size = os.path.getsize(path)
+    with open(path, "r+b") as f:
+        f.seek(size // 2)
+        b = f.read(1)
+        f.seek(size // 2)
+        f.write(bytes([b[0] ^ 0xFF]))
+
+
+def phase_ckpt(dev, step):
+    """Phase 4z-ckpt: (a) ``train`` two passes saving each (A); (b) a
+    fresh trainer with another seed loads A's pass-00000 through
+    ``--init_model_path`` and trains pass 1 at ``--start_pass=1`` (B):
+    B's pass-00001 equal to A's (the three ``.npz`` digests,
+    ``samples_seen``, the events), fp32 and ``--precision=bf16`` (the
+    loss-scale fields too); (e) A's pass-00001 loaded on the CPU plain
+    path: one step there and on the card within 4e's loss tolerance; (d)
+    a flipped byte of A's pass-00001: ``resume`` lands on pass-00000 and
+    quarantines it; readings: bytes, ms a save and ms a load beside
+    4d's ms/step."""
+    import shutil
+    import torch
+    from paddle_tpu_torch.ops import recurrent_ops
+    from paddle_tpu_torch.trainer.checkpoint import (load_manifest,
+                                                     verify_checkpoint)
+    from paddle_tpu_torch.utils import FLAGS
+    v = TRAIN["vocab_size"]
+    samples = loop_samples(LOOP_SAMPLES, v, LOOP_LENGTHS, 0)
+    test_samples = loop_samples(LOOP_TEST_SAMPLES, v, LOOP_LENGTHS, 1)
+    n_batches = LOOP_SAMPLES // TRAIN_B
+    n_test = LOOP_TEST_SAMPLES // TRAIN_B
+    names = ("prefetch_depth", "log_period", "save_dir", "saving_period",
+             "start_pass", "init_model_path", "precision")
+    old = {k: FLAGS.get(k) for k in names}
+    root = os.path.abspath(CKPT_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    m, counts = {}, {}
+    try:
+        for precision in ("fp32", "bf16"):
+            set_flags(precision=precision, start_pass=0)
+            a_dir = os.path.join(root, f"A_{precision}")
+            b_dir = os.path.join(root, f"B_{precision}")
+            trainer, feeder, train_r, test_r = loop_setup(
+                TRAIN, dev, TRAIN_B, samples, test_samples)
+            recurrent_ops.rnn_dispatch_total.clear()
+            ev_a, _, la = loop_run(trainer, feeder, train_r, test_r, 2, 1,
+                                   save_dir=a_dir)
+            decisions = dict(recurrent_ops.rnn_dispatch_total)
+            if [e[:3] for e in ev_a] != expected_events(
+                    n_batches, LOOP_PASSES, 1):
+                fail(f"ckpt A ({precision}): events out of order")
+            check_launches(la, {
+                "lstm_fwd": 2 * LOOP_PASSES * (n_batches + n_test),
+                "lstm_bwd": 2 * LOOP_PASSES * n_batches},
+                f"ckpt A ({precision})")
+            if sorted(os.listdir(a_dir)) != ["pass-00000", "pass-00001"]:
+                fail(f"ckpt A ({precision}): saved {os.listdir(a_dir)}")
+            set_flags(init_model_path=os.path.join(a_dir, "pass-00000"),
+                      start_pass=1)
+            trainer_b, feeder, train_r, test_r = loop_setup(
+                TRAIN, dev, TRAIN_B, samples, test_samples, seed=7)
+            set_flags(init_model_path="")
+            ev_b, _, lb = loop_run(trainer_b, feeder, train_r, test_r, 2, 1,
+                                   passes=1, save_dir=b_dir)
+            check_launches(lb, {"lstm_fwd": 2 * (n_batches + n_test),
+                                "lstm_bwd": 2 * n_batches},
+                           f"ckpt B ({precision})")
+            for name in set(la) | set(lb):
+                counts[name] = counts.get(name, 0) + la[name] + lb[name]
+            pa, pb = (os.path.join(d, "pass-00001") for d in (a_dir, b_dir))
+            da, db = npz_digests(pa), npz_digests(pb)
+            ma, mb = load_manifest(pa), load_manifest(pb)
+            if da != db:
+                fail(f"ckpt ({precision}): B's pass-00001 digests {db} != "
+                     f"A's {da}")
+            keys = ["samples_seen"] + (["loss_scale"]
+                                       if precision == "bf16" else [])
+            for k in keys:
+                if ma[k] != mb[k]:
+                    fail(f"ckpt ({precision}): {k} {mb[k]} != {ma[k]}")
+            if ev_b != [e for e in ev_a if e[1] == 1]:
+                fail(f"ckpt ({precision}): B's events differ from A's pass 1")
+            log(f"  {precision}: A 2 passes, B pass 1 from A's pass-00000 "
+                f"(seed 7): pass-00001 digests equal "
+                f"({ {f: d[:12] for f, d in da.items()} }), samples_seen "
+                f"{mb['samples_seen']}"
+                + (f", loss_scale {mb['loss_scale']}"
+                   if precision == "bf16" else "")
+                + f"; events and costs equal; launches A "
+                f"{ {k: n for k, n in la.items() if n} }, B "
+                f"{ {k: n for k, n in lb.items() if n} }; RNN decisions "
+                f"{decisions}")
+            rec = {"digests_equal": True, "samples_seen": mb["samples_seen"],
+                   "launches_a": {k: n for k, n in la.items() if n},
+                   "launches_b": {k: n for k, n in lb.items() if n},
+                   "rnn_decisions": {"/".join(k): n
+                                     for k, n in decisions.items()}}
+            if precision == "bf16":
+                rec["loss_scale"] = mb["loss_scale"]
+            m[precision] = rec
+            if precision != "fp32":
+                continue
+            # readings: a save and a load beside 4d's step
+            nbytes = sum(os.path.getsize(os.path.join(pa, f))
+                         for f in os.listdir(pa))
+            scratch = os.path.join(root, "timed")
+            torch.cuda.synchronize()
+            saves, loads = [], []
+            for i in range(CKPT_READS):
+                t0 = time.perf_counter()
+                trainer.save(scratch, i)
+                saves.append((time.perf_counter() - t0) * 1e3)
+            for _ in range(CKPT_READS):
+                t0 = time.perf_counter()
+                trainer.load(pa)
+                torch.cuda.synchronize()
+                loads.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            if not verify_checkpoint(pa):
+                fail("ckpt: A's pass-00001 does not verify")
+            verify_ms = (time.perf_counter() - t0) * 1e3
+            log(f"  a checkpoint: {nbytes} bytes ("
+                + ", ".join(f"{f} {os.path.getsize(os.path.join(pa, f))}"
+                            for f in sorted(os.listdir(pa)))
+                + f"); save {[round(x, 3) for x in saves]} ms, load "
+                f"{[round(x, 3) for x in loads]} ms (of which the digest "
+                f"check {verify_ms:.3f} ms; host clock, warm page cache); "
+                f"4d's step {step['ms_per_step']:.3f} ms")
+            m["bytes"] = nbytes
+            m["save_ms"], m["load_ms"] = saves, loads
+            m["verify_ms"] = verify_ms
+            m["step_ms"] = step["ms_per_step"]
+            # (e) A's pass-00001 on the CPU plain path, one step each side
+            cpu, _, _, _ = loop_setup(TRAIN, "cpu", TRAIN_B, samples,
+                                      test_samples, seed=3)
+            cpu.load(pa)
+            feed = feeder.convert(samples[:TRAIN_B])
+            l_cpu = float(cpu.train_one_batch(feed))
+            l_dev = float(trainer.train_one_batch(feed))
+            tol = LSTM_GRAD_ATOL + LSTM_GRAD_RTOL * abs(l_cpu)
+            log(f"  A's pass-00001 on the CPU plain path and on the card, "
+                f"one step: loss {l_cpu:.7f} vs {l_dev:.7f} "
+                f"({abs(l_dev - l_cpu) / tol:.3f} of 4e's tolerance)")
+            if not abs(l_dev - l_cpu) <= tol:
+                fail("ckpt: the loaded checkpoint's step on the card and on "
+                     "the CPU disagree")
+            m["cpu_step_share"] = abs(l_dev - l_cpu) / tol
+            del cpu
+            # (d) a flipped byte: resume falls back and quarantines
+            flip_byte(os.path.join(pa, "params.npz"))
+            trainer_d, _, _, _ = loop_setup(TRAIN, dev, TRAIN_B, samples,
+                                            test_samples, seed=11)
+            if not trainer_d.resume(a_dir):
+                fail("ckpt: resume found no valid checkpoint")
+            left = sorted(os.listdir(a_dir))
+            want_seen = load_manifest(os.path.join(
+                a_dir, "pass-00000"))["samples_seen"]
+            if left != [".corrupt-pass-00001", "pass-00000"] \
+                    or trainer_d.samples_seen != want_seen:
+                fail(f"ckpt: after a flipped byte resume left {left}, "
+                     f"samples_seen {trainer_d.samples_seen}")
+            log(f"  a flipped byte in A's pass-00001: resume loaded "
+                f"pass-00000 (samples_seen {want_seen}), dir now {left}")
+            del trainer, trainer_b, trainer_d
+    finally:
+        set_flags(**old)
+        shutil.rmtree(root, ignore_errors=True)
+    m["launches"] = counts
+    return m
+
+
+def opt_feed(seed, where):
+    return train_feed(seed, OPT_B, OPT_T, TRAIN["vocab_size"], where)
+
+
+def phase_opt(dev):
+    """Phase 4z-opt: each case of ``OPT_CASES`` and the pruned net, 3
+    steps on the CPU plain path and on the card from the same
+    parameters: every cost within 4e's loss tolerance, every
+    parameter's change within ``OPT_PARAM_RTOL``; the pruned elements
+    exactly 0 on the card.  Counts set to 0 at the start, read at the
+    end (the CPU runs launch nothing)."""
+    import dataclasses
+    import shutil
+    from paddle_tpu_torch.config.model_config import OptimizationConfig
+    from paddle_tpu_torch.layers.network import NeuralNetwork
+    from paddle_tpu_torch.models import lstm_text_classifier
+    from paddle_tpu_torch.trainer.checkpoint import save_checkpoint
+    from paddle_tpu_torch.trainer.trainer import Trainer
+    dims = dict(TRAIN, hidden_size=SMALL_LOOP["hidden"])
+    cfg = lstm_text_classifier(**dims)
+    pruned_cfg = lstm_text_classifier(**dims)
+    spec = NeuralNetwork(pruned_cfg).param_specs[PRUNED_PARAM]
+    pruned_cfg.parameters.append(dataclasses.replace(
+        spec, update_hooks=[{"type": "pruning",
+                             "sparsity_ratio": PRUNE_RATIO}]))
+    cases = [(label, cfg, dict(kw, **OPT_COMMON)) for label, kw in OPT_CASES]
+    cases.append(("pruned/momentum", pruned_cfg,
+                  dict(learning_method="momentum", momentum=0.9,
+                       learning_rate=0.05, **OPT_COMMON)))
+    # every trainer starts from one checkpoint (--init_model_path): the
+    # same values on both sides, and the pruning masks made from them
+    root = os.path.abspath(OPT_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    start = save_checkpoint(root, 0, NeuralNetwork(cfg).init_params(
+        seed=0, device="cpu"))
+    reset_counts()
+    rows, worst_cost, worst_param = [], 0.0, 0.0
+    for label, c, kw in cases:
+        res = {}
+        for where in ("cpu", dev):
+            set_flags(init_model_path=start)
+            try:
+                tr = Trainer(NeuralNetwork(c), OptimizationConfig(**kw),
+                             seed=0, device=where)
+            finally:
+                set_flags(init_model_path="")
+            p0 = {n: p.detach().cpu().clone() for n, p in tr.params.items()}
+            losses = [float(tr.train_one_batch(opt_feed(30 + i, where)))
+                      for i in range(OPT_STEPS)]
+            res[str(where)] = (losses, p0, {n: p.detach().cpu()
+                                            for n, p in tr.params.items()},
+                               tr)
+        (lc, p0, pc, _), (ld, _, pd, tr_dev) = res["cpu"], res[str(dev)]
+        if not all(np.isfinite(lc + ld)):
+            fail(f"opt {label}: a non-finite cost")
+        share = max(abs(a - b) / (LSTM_GRAD_ATOL + LSTM_GRAD_RTOL * abs(b))
+                    for a, b in zip(ld, lc))
+        perr = 0.0
+        for n in pc:
+            d_cpu, d_dev = pc[n] - p0[n], pd[n] - p0[n]
+            den = float(d_cpu.norm())
+            perr = max(perr, float((d_dev - d_cpu).norm()) / max(den, 1e-30))
+        worst_cost, worst_param = max(worst_cost, share), max(worst_param,
+                                                              perr)
+        rows.append({"case": label, "costs_card": ld, "costs_cpu": lc,
+                     "cost_share": share, "param_rel_err": perr})
+        log(f"  {label:18s} costs card {[round(x, 6) for x in ld]} CPU "
+            f"{[round(x, 6) for x in lc]} ({share:.3f} of the tolerance); "
+            f"parameter change rel err {perr:.2e}")
+        if share > 1.0 or perr > OPT_PARAM_RTOL:
+            fail(f"opt {label}: card and CPU disagree")
+        if label.startswith("pruned"):
+            mask = tr_dev._prune_masks[PRUNED_PARAM].cpu()
+            w = pd[PRUNED_PARAM]
+            kept = int(mask.sum())
+            if kept != int(mask.numel() * (1 - PRUNE_RATIO)) \
+                    or bool((w[mask == 0] != 0).any()) \
+                    or not bool((w != p0[PRUNED_PARAM])[mask != 0].any()):
+                fail(f"opt {label}: the pruned elements of {PRUNED_PARAM} "
+                     "are not all 0, or the kept ones did not move")
+            log(f"  {PRUNED_PARAM}: {kept} of {mask.numel()} kept, the "
+                f"other {mask.numel() - kept} exactly 0 on the card after "
+                f"{OPT_STEPS} steps")
+        del res, tr_dev
+    launches = read_counts()
+    shutil.rmtree(root, ignore_errors=True)
+    n = 2 * OPT_STEPS * len(cases)
+    check_launches(launches, {"lstm_fwd": n, "lstm_bwd": n}, "opt")
+    log(f"  {len(cases)} cases: worst cost {worst_cost:.3f} of 4e's "
+        f"tolerance, worst parameter-change rel err {worst_param:.2e} "
+        f"(limit {OPT_PARAM_RTOL}); launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    return {"cases": rows, "worst_cost_share": worst_cost,
+            "worst_param_rel_err": worst_param,
+            "launches": {k: v for k, v in launches.items() if v}}
 
 
 def lstm_work(b, t, h, n_valid, backward):
@@ -3742,6 +4092,17 @@ def main() -> int:
         log("== phase 4z-small: the loop at B 8, T 12, H 128, card vs CPU "
             "plain path (fp32)")
         loop["small"] = phase_loop_small(dev)
+        log("== phase 4z-ckpt: checkpoints around Trainer.train at 4d's "
+            "width (save a pass, resume at --start_pass=1 from "
+            "--init_model_path, fp32 and --precision=bf16)")
+        ckpt = phase_ckpt(dev, train)
+        log("== phase 4z-opt: the ten optimizers, L1, the seven schedules "
+            "and a pruning hook at B 8, T 12, H 128, card vs CPU plain "
+            "path (fp32)")
+        opt = phase_opt(dev)
+        for name in launches:
+            launches[name]["training_ckpt"] = ckpt["launches"].get(name, 0)
+            launches[name]["training_opt"] = opt["launches"].get(name, 0)
         log("== phase 4g: blocked main path, the classifier at H 1280 "
             "under bench.py's flags (use_bf16, bf16_activations)")
         set_flags(**BENCH_FLAGS)
@@ -3873,6 +4234,7 @@ def main() -> int:
     print(json.dumps({"serving": {k: v for k, v in serve.items()
                                   if k != "prompt_lengths"},
                       "training": train, "training_loop": loop,
+                      "training_ckpt": ckpt, "training_opt": opt,
                       "training_h1280": blocked,
                       "training_h1280_mixed_bf16": mixed,
                       "training_h2048": wide, **resnet, "seq2seq": seq2seq,

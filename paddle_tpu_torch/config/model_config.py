@@ -4,9 +4,10 @@ reference proto's field vocabulary, serialisable to JSON.
 
 The port keeps its own copy, with the same field names and defaults, so
 a config built here dumps to the same JSON as one built by the JAX
-package.  Recurrent-group sub-models (:class:`SubModelConfig`) are
-ported; projections and evaluators have no layer yet, and their list
-fields stay, empty, for that equality.
+package, and :meth:`ModelConfig.from_json` reads what either wrote.
+Recurrent-group sub-models (:class:`SubModelConfig`) are ported;
+projections have no layer yet, and their field stays, empty, for that
+equality.
 """
 
 from __future__ import annotations
@@ -117,20 +118,66 @@ class ModelConfig:
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), indent=1)
 
+    @staticmethod
+    def from_json(text: str) -> "ModelConfig":
+        """The config :meth:`to_json` (of either package) wrote.  An
+        input with a projection refuses by name: ``ProjConfig`` and the
+        mixed layer are not ported (queues A12, A13)."""
+        raw = json.loads(text)
+
+        def mk_input(d):
+            if d.get("proj"):
+                raise PaddleTpuError(
+                    f"input {d.get('input_layer_name')!r} carries a "
+                    "projection; ProjConfig and the mixed layer are not "
+                    "ported yet (queues A12, A13)")
+            return LayerInput(
+                input_layer_name=d.get("input_layer_name", ""),
+                input_parameter_name=d.get("input_parameter_name", ""),
+                attrs=d.get("attrs", {}))
+
+        return ModelConfig(
+            layers=[
+                LayerConfig(**{**l, "inputs": [mk_input(i) for i in
+                                               l.get("inputs", [])]})
+                for l in raw.get("layers", [])],
+            parameters=[ParameterConfig(**p)
+                        for p in raw.get("parameters", [])],
+            input_layer_names=raw.get("input_layer_names", []),
+            output_layer_names=raw.get("output_layer_names", []),
+            sub_models=[SubModelConfig(**m)
+                        for m in raw.get("sub_models", [])],
+            evaluators=raw.get("evaluators", []))
+
 
 @dataclass
 class OptimizationConfig:
-    """Mirror of ``proto/TrainerConfig.proto`` OptimizationConfig: the
-    fields this slice's trainer reads, with the JAX package's names and
-    defaults (momentum, L1, other schedules and bf16 are not ported, so
-    they cannot be asked for)."""
+    """Mirror of ``proto/TrainerConfig.proto`` OptimizationConfig +
+    ``OptimizerConfig.proto``: the JAX package's fields, names, defaults
+    and order.  ``local_sgd_steps`` > 0 and ``num_batches_per_*`` != 1
+    (the parameter-server and local-SGD schedules) are refused by
+    ``trainer.optimizer_from_config`` (queue A9)."""
 
+    batch_size: int = 32
     learning_rate: float = 0.01
     learning_method: str = "sgd"
     learning_rate_schedule: str = "constant"
+    learning_rate_decay_a: float = 0.0
+    learning_rate_decay_b: float = 0.0
+    learning_rate_args: str = ""
+    momentum: float = 0.0
     adam_beta1: float = 0.9
     adam_beta2: float = 0.999
     adam_epsilon: float = 1e-8
+    ada_epsilon: float = 1e-6
+    ada_rou: float = 0.95
+    l1_weight_decay: float = 0.0
     l2_weight_decay: float = 0.0
     gradient_clipping_threshold: float = 0.0
+    average_window: float = 0.0
+    max_average_window: int = 0
+    num_batches_per_send_parameter: int = 1
+    num_batches_per_get_parameter: int = 1
+    # "fp32" | "bf16" | "" (inherit --precision)
     precision: str = ""
+    local_sgd_steps: int = 0

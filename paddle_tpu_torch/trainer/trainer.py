@@ -2,11 +2,29 @@
 its fp32 step and its ``--precision=bf16`` mixed step).
 
 ``Trainer.train_one_batch(feed)`` runs forward, autograd backward and
-the optimizer update: the JAX package's jitted step without its FSDP,
-health and pruning branches.  The schedule is the constant one.
-The step carries the network's buffers (batch-norm running statistics):
-it starts from ``network.init_buffers()`` and keeps the buffers each
-step returns.
+the optimizer update: the JAX package's jitted step without its FSDP
+and health branches.  The optimizer and the learning-rate schedule come
+from ``optimizer_from_config`` (the ten rules of the reference's
+registry, L1 and L2, clipping, the seven schedules, evaluated on the
+host on ``samples_seen``), or an ``optimizer=`` given with the constant
+schedule.  The step carries the network's buffers (batch-norm running
+statistics): it starts from ``network.init_buffers()`` and keeps the
+buffers each step returns, in sorted-name order as the JAX step returns
+them.
+
+Static pruning hooks (``ParameterConfig.update_hooks`` of type
+``"pruning"``, ``optimizer/hooks.py``): the masks are made from the
+initial value (or the one ``--init_model_path`` loads) and applied to
+it, every gradient of both steps is masked before the update, a pruned
+table stays out of the sparse exchange, and ``load`` makes the masks
+anew from the loaded values, as the reference does.
+
+Checkpoints (``trainer/checkpoint.py``, format 2): ``save`` writes the
+parameters, buffers, optimizer state, ``samples_seen`` and, under
+``--precision=bf16``, the loss-scale state, in files the JAX package
+reads and writes alike; ``load`` places them on the trainer's device;
+``resume`` loads the newest valid one.  ``train`` saves every
+``--saving_period`` passes into ``--save_dir``.
 
 The precision is ``resolve_precision(opt_config)``.  fp32 (the default)
 runs the step under ``current_policy()``, so the legacy ``--use_bf16`` /
@@ -43,8 +61,7 @@ host-to-device copy (:meth:`Trainer._place_feed`).  A feed is copied
 from pinned memory without blocking, on the device's current stream:
 the step's kernels are queued behind it on the same stream, so no event
 or ``record_stream`` is needed.  What the loop reaches and the port
-lacks refuses by name before a step runs: the checkpoint save (the
-default ``--save_dir`` with ``--saving_period``; queue A2b),
+lacks refuses by name before a step runs:
 ``--show_parameter_stats_period`` and ``--roofline_dump`` (A10).
 """
 
@@ -65,30 +82,58 @@ from ..core.sequence import SequenceBatch, value_of
 from ..layers.network import NeuralNetwork
 from ..ops.embedding import gather_rows
 from ..optimizer import loss_scale as ls
+from ..optimizer.hooks import (apply_prune_grads, apply_prune_init,
+                               build_prune_masks)
 from ..optimizer.optimizers import Optimizer, create_optimizer
+from ..optimizer.schedules import make_schedule
 from ..parallel import sparse as psparse
 from ..utils import FLAGS, PaddleTpuError, enforce, get_logger, warn_once
 from . import events as ev
+from .checkpoint import (latest_checkpoint, latest_valid_checkpoint,
+                         load_buffers, load_manifest, load_opt_state,
+                         load_params, save_checkpoint, verify_checkpoint)
 
 _log = get_logger("trainer")
 
 
-def optimizer_from_config(oc: OptimizationConfig) -> Tuple[Optimizer, Any]:
-    """OptimizationConfig → (optimizer, lr schedule)."""
-    enforce((oc.learning_rate_schedule or "constant") == "constant",
-            f"learning_rate_schedule {oc.learning_rate_schedule!r} is not "
-            "ported; only 'constant'")
+def optimizer_from_config(oc: OptimizationConfig
+                          ) -> Tuple[Optimizer, Callable[[float], float]]:
+    """OptimizationConfig → (optimizer, lr schedule), as the reference
+    merges them (``TrainerConfigHelper``): sgd with a momentum is the
+    momentum rule.  Local SGD and the parameter server's send/get
+    periods refuse by name (queue A9)."""
+    if oc.local_sgd_steps > 0:
+        raise PaddleTpuError(
+            f"local_sgd_steps={oc.local_sgd_steps}: local SGD averages "
+            "parameters across data-parallel replicas; the port trains "
+            "on one card (queue A9)")
+    for field in ("num_batches_per_send_parameter",
+                  "num_batches_per_get_parameter"):
+        if getattr(oc, field) != 1:
+            raise PaddleTpuError(
+                f"{field}={getattr(oc, field)}: the parameter server's "
+                "exchange periods are not ported (queue A9)")
     kw: Dict[str, Any] = dict(
         learning_rate=oc.learning_rate,
         weight_decay=oc.l2_weight_decay,
+        l1_decay=oc.l1_weight_decay,
         gradient_clipping_threshold=oc.gradient_clipping_threshold,
     )
     name = oc.learning_method or "sgd"
-    if name == "adam":
+    if name in ("momentum", "sgd") and oc.momentum:
+        name = "momentum"
+        kw["momentum"] = oc.momentum
+    if name in ("adam", "adamax"):
         kw.update(beta1=oc.adam_beta1, beta2=oc.adam_beta2,
                   epsilon=oc.adam_epsilon)
-    lr = oc.learning_rate
-    return create_optimizer(name, **kw), (lambda progress: lr)
+    if name in ("adadelta", "rmsprop", "decayed_adagrad"):
+        kw.update(rho=oc.ada_rou, epsilon=oc.ada_epsilon)
+    if name == "adagrad":
+        kw.update(epsilon=oc.ada_epsilon)
+    sched = make_schedule(oc.learning_rate_schedule, oc.learning_rate,
+                          oc.learning_rate_decay_a, oc.learning_rate_decay_b,
+                          oc.learning_rate_args)
+    return create_optimizer(name, **kw), sched
 
 
 def _to_device(v, dev: torch.device):
@@ -119,19 +164,27 @@ def _to_host(v):
 class Trainer:
     """Owns the parameters and optimizer state of one network on one
     device (default CUDA; raises when CUDA is absent and the CPU was not
-    asked for).  Parameters are drawn by ``network.init_params(seed)``;
-    assign ``trainer.params`` (same names and shapes) to start from
-    others."""
+    asked for).  Parameters are drawn by ``network.init_params(seed)``,
+    or loaded from ``--init_model_path``; assign ``trainer.params``
+    (same names and shapes) to start from others.  ``optimizer``, when
+    given, replaces the one ``opt_config`` describes (with the constant
+    schedule at its learning rate, as the reference does)."""
 
     def __init__(self, network: NeuralNetwork,
                  opt_config: Optional[OptimizationConfig] = None,
                  seed: int = 1,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 optimizer: Optional[Optimizer] = None):
         self.network = network
         self.device = resolve_device(device)
-        oc = opt_config or OptimizationConfig()
-        self.optimizer, self.schedule = optimizer_from_config(oc)
-        self.precision = resolve_precision(oc)
+        if optimizer is None:
+            optimizer, self.schedule = optimizer_from_config(
+                opt_config or OptimizationConfig())
+        else:
+            self.schedule = make_schedule("constant",
+                                          optimizer.learning_rate)
+        self.optimizer = optimizer
+        self.precision = resolve_precision(opt_config)
         self.params = network.init_params(seed, self.device)
         self.buffers = network.init_buffers(self.device)
         self.opt_state = self.optimizer.init_state(self.params)
@@ -142,6 +195,15 @@ class Trainer:
             if self.precision == "bf16" else None
         self._sparse_plan: Optional[Dict[str, List[str]]] = None
         self._eval_step: Optional[Callable] = None
+        self._prune_masks: Optional[Dict[str, torch.Tensor]] = None
+        if FLAGS.get("init_model_path"):
+            self.load(FLAGS.get("init_model_path"))
+        # static pruning hooks (ParameterUpdaterHook.cpp:39): masks from
+        # the initial or loaded values, applied to the values now and to
+        # every gradient in the step
+        self._prune_masks = build_prune_masks(network.param_specs,
+                                              self.params)
+        self.params = apply_prune_init(self.params, self._prune_masks)
 
     # ------------------------------------------------- sparse tables
     def _sparse_exchange_plan(self) -> Dict[str, List[str]]:
@@ -150,12 +212,11 @@ class Trainer:
         the feed keys (data layers) whose ids touch it.
 
         A ``sparse_update`` table is eligible when it is a 2-D table, not
-        static, used outside recurrent groups, and only by embedding
-        layers fed directly by a data layer.  An ineligible table keeps
-        the masked update, with a one-time notice.  The reference's
-        other vetoes (pruned tables, ``--health_interval``) have no
-        counterpart: the port has neither pruning nor health
-        telemetry."""
+        static, not pruned, used outside recurrent groups, and only by
+        embedding layers fed directly by a data layer.  An ineligible
+        table keeps the masked update, with a one-time notice.  The
+        reference's other veto, ``--health_interval``, has no
+        counterpart: the port has no health telemetry."""
         if self._sparse_plan is None:
             self._sparse_plan = self._build_sparse_exchange_plan()
         return self._sparse_plan
@@ -176,7 +237,8 @@ class Trainer:
             uses = [lyr for lyr in net.layers.values()
                     if any(spec.name == name for spec in lyr.param_specs())]
             eligible = (
-                name not in group_specs
+                name not in (self._prune_masks or {})
+                and name not in group_specs
                 and self.params[name].dim() == 2
                 and bool(uses)
                 and all(lyr.conf.type == "embedding" and lyr.conf.inputs
@@ -186,9 +248,9 @@ class Trainer:
                 warn_once(
                     f"trainer.sparse_exchange:ineligible:{name}",
                     "sparse_update parameter %r is not exchange-eligible "
-                    "(used outside a directly-fed embedding layer, or not "
-                    "a plain [V, D] table) — taking the lazy dense-masked "
-                    "update", name, logger=_log)
+                    "(used outside a directly-fed embedding layer, pruned, "
+                    "or not a plain [V, D] table) — taking the lazy "
+                    "dense-masked update", name, logger=_log)
                 continue
             plan[name] = sorted({lyr.conf.inputs[0].input_layer_name
                                  for lyr in uses})
@@ -286,8 +348,10 @@ class Trainer:
             block_grads = ls.unscale(block_grads, state.scale)
             finite = ls.all_finite({**grads, **{
                 f"{n}/block": g for n, g in block_grads.items()}})
+        grads = apply_prune_grads(grads, self._prune_masks)
         self._apply(dense, grads, ex_plan, ex_rows, block_grads, lr, finite)
-        new_buffers = {n: b.detach() for n, b in buffers.items()}
+        # sorted, as the reference's jitted step returns its buffers
+        new_buffers = {n: buffers[n].detach() for n in sorted(buffers)}
         if state is None:
             self.buffers = new_buffers
         else:
@@ -398,20 +462,10 @@ class Trainer:
             depth=depth, workers=int(FLAGS.get("reader_workers")))
         return pipe, pipe
 
-    def _refuse_unported(self, num_passes: int) -> None:
+    @staticmethod
+    def _refuse_unported() -> None:
         """Refuse, before any step, what ``train`` would reach and the
         port lacks."""
-        start = int(FLAGS.get("start_pass"))
-        period = int(FLAGS.get("saving_period"))
-        if FLAGS.get("save_dir") and period and any(
-                (p + 1) % period == 0
-                for p in range(start, start + num_passes)):
-            raise PaddleTpuError(
-                f"Trainer.train would save a checkpoint to "
-                f"--save_dir={FLAGS.get('save_dir')!r} every "
-                f"--saving_period={period} passes; checkpoints are not "
-                "ported yet (queue A2b): pass --save_dir=\"\" to train "
-                "without saving")
         if FLAGS.get("show_parameter_stats_period"):
             raise PaddleTpuError(
                 "--show_parameter_stats_period is not ported yet "
@@ -429,10 +483,12 @@ class Trainer:
         """Passes over ``reader`` (raw minibatches, converted by
         ``feeder``): ``BeginPass``, then a ``BeginIteration`` and a step
         a batch (an ``EndIteration`` with the loss every
-        ``--log_period`` batches), ``test`` on ``test_reader`` and
-        ``EndPass`` with the pass's last cost and the test metrics."""
+        ``--log_period`` batches), ``test`` on ``test_reader``, a
+        checkpoint into ``--save_dir`` every ``--saving_period`` passes,
+        and ``EndPass`` with the pass's last cost and the test
+        metrics."""
         event_handler = event_handler or _default_event_handler
-        self._refuse_unported(num_passes)
+        self._refuse_unported()
         start = int(FLAGS.get("start_pass"))
         for pass_id in range(start, start + num_passes):
             event_handler(ev.BeginPass(pass_id))
@@ -461,6 +517,10 @@ class Trainer:
             metrics = {}
             if test_reader is not None:
                 metrics.update(self.test(test_reader, feeder, evaluators))
+            save_dir, period = FLAGS.get("save_dir"), \
+                FLAGS.get("saving_period")
+            if save_dir and period and (pass_id + 1) % period == 0:
+                self.save(save_dir, pass_id)
             event_handler(ev.EndPass(
                 pass_id=pass_id,
                 metrics={"cost": float(last_loss) if last_loss is not None
@@ -635,6 +695,99 @@ class Trainer:
                                 name, idx, ag, fd)
                             ok = False
         return ok
+
+    # ---------------------------------------------------- persistence
+    def save(self, save_dir: str, pass_id: int) -> str:
+        """Write ``<save_dir>/pass-%05d`` (``checkpoint.save_checkpoint``)
+        with ``samples_seen`` and, under ``--precision=bf16``, the loss
+        scale's state in the manifest; returns the dir.  Reads the
+        state back from the device."""
+        meta: Dict[str, Any] = {"samples_seen": self.samples_seen}
+        if self._ls_state is not None:
+            meta["loss_scale"] = {
+                "scale": float(self._ls_state.scale),
+                "growth_count": int(self._ls_state.growth_count),
+                "skipped_total": int(self._ls_state.skipped_total),
+            }
+        return save_checkpoint(save_dir, pass_id, self.params,
+                               self.opt_state, self.buffers, meta=meta)
+
+    def load(self, ckpt_dir: str, _verified: bool = False) -> None:
+        """Load a checkpoint dir (of either package) onto the trainer's
+        device: the parameters (one the dir lacks raises unless
+        ``--load_missing_parameter_strategy`` is not ``fail``, and then
+        keeps its value), the buffers, the optimizer state, and from the
+        manifest ``samples_seen`` and the loss scale.  Under
+        ``--ckpt_verify`` the digests are checked first (``_verified``:
+        ``resume`` has checked them).  Pruning masks are made anew from
+        the loaded values."""
+        if FLAGS.get("ckpt_verify") and not _verified \
+                and not verify_checkpoint(ckpt_dir):
+            raise PaddleTpuError(
+                f"checkpoint {ckpt_dir!r} failed integrity verification "
+                "(manifest digest mismatch or torn files); pass "
+                "--ckpt_verify=false to force the legacy blind load")
+        loaded = load_params(ckpt_dir)
+        missing = set(self.params) - set(loaded)
+        if missing:
+            strategy = FLAGS.get("load_missing_parameter_strategy")
+            if strategy == "fail":
+                raise KeyError(f"checkpoint missing parameters: {missing}")
+            _log.warning("checkpoint missing %s (strategy=%s)", missing,
+                         strategy)
+        self.params = {k: self._placed(loaded[k]) if k in loaded else v
+                       for k, v in self.params.items()}
+        bufs = load_buffers(ckpt_dir)
+        if bufs:
+            self.buffers = {k: self._placed(v) for k, v in bufs.items()}
+        opt = load_opt_state(ckpt_dir, self.opt_state)
+        if opt is not None:
+            count, slots = opt
+            self.opt_state = (self._placed(count), {
+                n: tuple(self._placed(x) for x in s)
+                for n, s in slots.items()})
+        try:
+            man = load_manifest(ckpt_dir)
+        except FileNotFoundError:
+            man = None
+        if man is not None:
+            self.samples_seen = man.get("samples_seen", 0)
+            if self._ls_state is not None and "loss_scale" in man:
+                m = man["loss_scale"]
+                dev = self.device
+                self._ls_state = ls.LossScaleState(
+                    scale=torch.tensor(float(m["scale"]),
+                                       dtype=torch.float32, device=dev),
+                    growth_count=torch.tensor(
+                        int(m.get("growth_count", 0)), dtype=torch.int32,
+                        device=dev),
+                    skipped_total=torch.tensor(
+                        int(m.get("skipped_total", 0)), dtype=torch.int32,
+                        device=dev))
+        if self._prune_masks:
+            # masks from the LOADED values (the reference's hook inits
+            # after any --init_model_path load)
+            self._prune_masks = build_prune_masks(
+                self.network.param_specs, self.params)
+            self.params = apply_prune_init(self.params, self._prune_masks)
+
+    def _placed(self, arr: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.require(arr, requirements="C")).to(
+            self.device)
+
+    def resume(self, save_dir: str) -> bool:
+        """Load the newest checkpoint under ``save_dir`` that passes
+        digest verification, scanning back past (and quarantining)
+        corrupt dirs; ``--ckpt_verify=false`` loads the newest blindly.
+        False when there is none."""
+        if FLAGS.get("ckpt_verify"):
+            ckpt = latest_valid_checkpoint(save_dir)
+        else:
+            ckpt = latest_checkpoint(save_dir)
+        if ckpt is None:
+            return False
+        self.load(ckpt, _verified=FLAGS.get("ckpt_verify"))
+        return True
 
 
 def _bump(p: torch.Tensor, idx: int, delta: float) -> torch.Tensor:

@@ -5,7 +5,7 @@ code (``FLAGS.set``) or the environment (``PADDLE_TPU_<NAME>``)."""
 from __future__ import annotations
 
 import os
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Tuple
 
 
 def _parse_bool(s: str) -> bool:
@@ -16,6 +16,8 @@ class FlagRegistry:
     def __init__(self) -> None:
         self._parsers: Dict[str, Callable[[str], Any]] = {}
         self._values: Dict[str, Any] = {}
+        #: name -> (default, help text)
+        self.specs: Dict[str, Tuple[Any, str]] = {}
 
     def define(self, name: str, default: Any, help: str = "") -> None:
         if name in self._parsers:
@@ -27,6 +29,7 @@ class FlagRegistry:
         else:
             parser = str
         self._parsers[name] = parser
+        self.specs[name] = (default, help)
         env = os.environ.get("PADDLE_TPU_" + name.upper())
         self._values[name] = parser(env) if env is not None else default
 
@@ -141,6 +144,24 @@ FLAGS.define("checkgrad_eps", 1e-2,
 FLAGS.define("saving_period", 1, "checkpoint every N passes")
 FLAGS.define("start_pass", 0, "first pass number (resume)")
 FLAGS.define("save_dir", "./output", "checkpoint output dir")
+# checkpoints (trainer/checkpoint.py, Trainer.save / load / resume)
+FLAGS.define("load_missing_parameter_strategy", "fail", "fail|rand|zero")
+FLAGS.define("init_model_path", "", "checkpoint dir to warm-start from")
+FLAGS.define("ckpt_keep", 5,
+             "checkpoint retention: keep the newest N pass-* dirs after "
+             "each save and delete older ones; 0 disables the sweep "
+             "(keep everything, the legacy behavior)")
+FLAGS.define("ckpt_verify", True,
+             "verify per-file SHA-256 digests from the checkpoint "
+             "manifest on load, and make resume scan backward past "
+             "corrupt checkpoints (quarantined as .corrupt-*); off = "
+             "the legacy blind latest-checkpoint load")
+FLAGS.define("ckpt_export_lease_s", 600.0,
+             "stale-mtime expiry for .exporting-<pid> checkpoint pin "
+             "markers (trainer/checkpoint.py): the retention sweep "
+             "honors a fresher marker (never reaps a checkpoint "
+             "mid-export) and ignores older ones — a SIGKILLed "
+             "exporter cannot pin a checkpoint forever")
 FLAGS.define("roofline_dump", "",
              "write the attributed per-region roofline/cost report of the "
              "train step to this JSON path at the end of the first "

@@ -25,6 +25,7 @@ forwards take a minute); the function computed is the same.
 """
 
 import logging
+import os
 import re
 
 import jax
@@ -336,7 +337,6 @@ def test_check_gradients_matches_jax():
 
 
 @pytest.mark.parametrize("flag, value, match", [
-    ("save_dir", "./output", r"A2b.*--save_dir=\"\""),
     ("show_parameter_stats_period", 1, "show_parameter_stats_period.*A10"),
     ("roofline_dump", "/dev/null", "roofline_dump.*A10")])
 def test_train_refuses_unported_pieces_before_any_step(flag, value, match):
@@ -355,23 +355,69 @@ def test_train_refuses_unported_pieces_before_any_step(flag, value, match):
     assert events == [] and ttr.samples_seen == 0
 
 
-def test_save_refusal_follows_the_saving_period(loop_flags):
-    """A save is refused only when some pass would save: the default
-    "./output" every pass refuses, a period past the last pass trains."""
+def test_train_saves_at_the_default_save_dir(loop_runs, loop_flags,
+                                             tmp_path, monkeypatch):
+    """At the reference's default ``--save_dir="./output"`` and
+    ``--saving_period`` 1, ``train`` writes a verified ``pass-%05d`` a
+    pass after the pass's ``test`` and before its ``EndPass``; the events
+    and costs are the JAX loop's, bit for bit those of the port's loop
+    without saving."""
+    from paddle_tpu.trainer import checkpoint as jck
+    from paddle_tpu_torch.trainer import checkpoint as tck
+    monkeypatch.chdir(tmp_path)
+    assert TFLAGS.get("save_dir") == "./output"     # the reference default
+    assert TFLAGS.get("saving_period") == 1
+    TFLAGS.set("log_period", 1)
+    TFLAGS.set("prefetch_depth", 0)
+    _, ttr = _pair()
+    _, tf = _feeders()
+    out = tmp_path / "output"
+    seen = []
+    run_test = ttr.test
+
+    def test(*a, **k):
+        seen.append(("test", sorted(os.listdir(out)) if out.exists()
+                     else []))
+        return run_test(*a, **k)
+
+    ttr.test = test
+    events = []
+    record = _record(events)
+
+    def handle(e):
+        record(e)
+        if type(e).__name__ == "EndPass":
+            seen.append(("EndPass", sorted(os.listdir(out))))
+
+    ttr.train(_reader(TRAIN), 2, handle, tf, test_reader=_reader(TEST))
+    assert seen == [("test", []), ("EndPass", ["pass-00000"]),
+                    ("test", ["pass-00000"]),
+                    ("EndPass", ["pass-00000", "pass-00001"])]
+    assert _kinds(events) == _kinds(loop_runs["jax"])
+    assert events == loop_runs[("torch", 0)]
+    for p, n in (("pass-00000", 3 * B), ("pass-00001", 6 * B)):
+        d = str(out / p)
+        assert tck.verify_checkpoint(d) and jck.verify_checkpoint(d)
+        man = jck.load_manifest(d)
+        assert man["format"] == 2 and man["samples_seen"] == n
+    for name, v in jck.load_params(str(out / "pass-00001")).items():
+        np.testing.assert_array_equal(v, ttr.params[name].numpy())
+
+
+def test_saving_period_past_the_last_pass_writes_none(loop_flags, tmp_path,
+                                                      monkeypatch):
+    monkeypatch.chdir(tmp_path)
     _, ttr = _pair(())
     _, tf = _feeders()
-    assert TFLAGS.get("save_dir") == "./output"   # the reference default
-    assert TFLAGS.get("saving_period") == 1
-    with pytest.raises(PaddleTpuError, match="A2b"):
-        ttr.train(_reader(TRAIN), 1, lambda e: None, tf)
     TFLAGS.set("saving_period", 3)
     TFLAGS.set("prefetch_depth", 0)
     try:
         events = []
         ttr.train(_reader(TRAIN), 2, _record(events), tf)
-        assert events[-1][0] == "EndPass" and ttr.samples_seen == 2 * 3 * B
     finally:
         TFLAGS.set("saving_period", 1)
+    assert events[-1][0] == "EndPass" and ttr.samples_seen == 2 * 3 * B
+    assert os.listdir(tmp_path) == []
 
 
 def test_other_unported_pieces_refuse_by_name():
@@ -384,9 +430,9 @@ def test_other_unported_pieces_refuse_by_name():
         tfeed.DataFeeder([("s", tfeed.integer_value_sub_sequence(5))])
     with pytest.raises(PaddleTpuError, match="A4c"):
         tfeed.DataFeeder([("s", tfeed.dense_vector_sub_sequence(5))])
-    with pytest.raises(PaddleTpuError, match="constant"):
+    with pytest.raises(PaddleTpuError, match="local_sgd_steps.*A9"):
         TTrainer(TNet(t_classifier(V, E, H, 2, C)),
-                 TOpt(learning_rate_schedule="poly"), device="cpu")
+                 TOpt(local_sgd_steps=2), device="cpu")
 
 
 def test_events_are_the_reference_dataclasses():
