@@ -89,6 +89,20 @@ Phases (any failure exits nonzero, without the final ``ok`` line):
    parameter's change within 1e-2 of the CPU's in norm, the pruned
    elements exactly 0 on the card; exactly 2 launches each of kernels 8
    and 9 a step on the card;
+4z-cli. the same model from a config file, the way a user starts it:
+   ``paddle_tpu_torch.cli.main`` in process on ``configs/rnn.py`` (its
+   defaults: V 30000, E 128, H 512, 2 LSTMs, B 128, Adam lr 2e-3, L2
+   8e-4, clip 25; ``configs/provider.py``'s 2048 samples of 100 ids,
+   ``RandomState(0)``; fp32): ``dump_config --whole`` equal to
+   ``lstm_text_classifier(30000, 128, 512, 2, 2)`` and those settings;
+   ``train --job time`` (20 batches after 3 warm-up ones) beside 4d's
+   ms/step and 4z-loop's ``time_job``; ``train --num_passes 1
+   --save_dir`` (16 steps) whose pass-00000 ``params.npz`` is bit for
+   bit that of ``Trainer(seed=1).train`` in process on the same samples;
+   ``train --job test --init_model_path`` that checkpoint, its
+   ``test_cost`` equal to ``Trainer.test``'s; ``train --job checkgrad``
+   at H 128, B 16: ``failed`` 0; exact launches of kernels 8 and 9 in
+   each job;
 3c. the hidden-blocked LSTM kernels 10-12 (forward, BPTT, dW): through
    their ``autograd.Function`` against autograd through the plain scan,
    and each wrapper against its plain version, at (B, T, H) = (8, 5,
@@ -257,7 +271,7 @@ Phases (any failure exits nonzero, without the final ``ok`` line):
 Phases 3b-4f are PR 2's H 512 phases and run in fp32 (``use_bf16``
 off), so their readings stay comparable, as do 4z-loop and 4z-small.
 The order of the run: 1-3f, 3g-3i, 4-4f, 4z-loop, 4z-small, 4z-ckpt,
-4z-opt, 4g-4k,
+4z-opt, 4z-cli, 4g-4k,
 4l-4p, 4q-4r, 4t, 4v, 4s, 4u, 4w-4z, 4-sparse, 5.
 
 Also printed, for information: a ``torch.profiler`` window over one
@@ -1657,6 +1671,19 @@ OPT_COMMON = dict(l2_weight_decay=8e-4, gradient_clipping_threshold=25.0)
 OPT_PARAM_RTOL = 1e-2
 PRUNED_PARAM, PRUNE_RATIO = "_lstm0_transform.w0", 0.75
 OPT_DIR = os.path.join("build", "chip_smoke_opt")
+#: phase 4z-cli: the config file, its settings (OptimizationConfig
+#: fields), the samples its provider yields by default, the time job's
+#: samples (3 warm-up and 20 timed batches of 128), checkgrad's
+#: --config_args, and the checkpoint directory under the checkout's build/
+CLI_CONFIG = os.path.join("paddle_tpu_torch", "configs", "rnn.py")
+CLI_OPT = dict(batch_size=TRAIN_B, learning_method="adam",
+               learning_rate=2e-3, l2_weight_decay=8e-4,
+               gradient_clipping_threshold=25)
+CLI_SAMPLES, CLI_T = 2048, 100
+CLI_TIME_SAMPLES = (TIME_JOB_WARM + TIME_JOB_BATCHES) * TRAIN_B
+CLI_CHECKGRAD_ARGS, CLI_CHECKGRAD_DIMS = \
+    "hidden_size=128,batch_size=16", dict(TRAIN, hidden_size=128)
+CLI_DIR = os.path.join("build", "chip_smoke_cli")
 
 
 def npz_digests(ckpt):
@@ -1932,6 +1959,164 @@ def phase_opt(dev):
     return {"cases": rows, "worst_cost_share": worst_cost,
             "worst_param_rel_err": worst_param,
             "launches": {k: v for k, v in launches.items() if v}}
+
+
+def run_cli(argv, want, what):
+    """``cli.main(argv)`` in process with every launch count set to 0
+    just before it: its standard output (the job's JSON line), after
+    checking the exit code 0 and exactly ``want`` launches."""
+    import contextlib
+    import io
+    import torch
+    from paddle_tpu_torch import cli
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    reset_counts()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    if rc != 0:
+        fail(f"{what}: exit code {rc}: {out.getvalue()[-2000:]}")
+    check_launches(launches, want, what)
+    return out.getvalue(), launches
+
+
+def phase_cli(dev, step, time_job):
+    """Phase 4z-cli: the jobs of ``python -m paddle_tpu_torch`` on
+    ``configs/rnn.py`` at 4d's width, in process; ``step`` is phase 4d's
+    metrics and ``time_job`` 4z-loop's."""
+    import dataclasses
+    import importlib.util
+    import shutil
+    from paddle_tpu_torch.config.model_config import OptimizationConfig
+    from paddle_tpu_torch.data import (DataFeeder, integer_value,
+                                       integer_value_sequence, reader)
+    from paddle_tpu_torch.layers.network import NeuralNetwork
+    from paddle_tpu_torch.models import lstm_text_classifier
+    from paddle_tpu_torch.trainer.trainer import Trainer
+    from paddle_tpu_torch.utils import FLAGS
+    config = os.path.abspath(CLI_CONFIG)
+    root = os.path.abspath(CLI_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    names = ("save_dir", "saving_period", "start_pass", "init_model_path",
+             "log_period")
+    old = {k: FLAGS.get(k) for k in names}
+    n_batches = CLI_SAMPLES // TRAIN_B
+    m, counts = {}, {}
+
+    def add(launches):
+        for name, n in launches.items():
+            counts[name] = counts.get(name, 0) + n
+
+    try:
+        set_flags(saving_period=1, start_pass=0, init_model_path="")
+        log("  dump_config --whole")
+        out, launches = run_cli(["dump_config", "--whole", config], {},
+                                "dump_config")
+        whole = json.loads(out)
+        want_model = json.loads(lstm_text_classifier(**TRAIN).to_json())
+        if whole["model"] != want_model:
+            fail("dump_config: the model differs from "
+                 "lstm_text_classifier(30000, 128, 512, 2, 2)")
+        if whole["opt"] != dataclasses.asdict(OptimizationConfig(**CLI_OPT)):
+            fail(f"dump_config: the optimization section {whole['opt']} "
+                 f"is not {CLI_OPT}")
+        log(f"  model ({len(want_model['layers'])} layers) and optimization "
+            f"equal; data {whole['data']}")
+
+        n = TIME_JOB_WARM + TIME_JOB_BATCHES
+        log(f"  train --job time ({TIME_JOB_WARM} warm-up and "
+            f"{TIME_JOB_BATCHES} timed batches of {TRAIN_B})")
+        out, launches = run_cli(
+            ["train", "--job", "time", "--config", config, "--config_args",
+             f"num_samples={CLI_TIME_SAMPLES}"],
+            {"lstm_fwd": 2 * n, "lstm_bwd": 2 * n}, "train --job time")
+        tj = json.loads(out.strip().splitlines()[-1])
+        add(launches)
+        m["time"] = tj
+        log(f"  --job time: {tj['samples_per_sec']} samples/s, "
+            f"{tj['ms_per_batch']} ms/batch (T {CLI_T}, padded to "
+            f"{-(-CLI_T // 8) * 8}); 4z-loop's time_job "
+            f"{time_job['samples_per_sec']:.1f} samples/s, "
+            f"{time_job['ms_per_batch']:.3f} ms/batch; 4d's "
+            f"train_one_batch {step['samples_per_s']:.1f} samples/s, "
+            f"{step['ms_per_step']:.3f} ms/step")
+
+        log(f"  train --num_passes 1 --save_dir ({n_batches} steps)")
+        cli_dir = os.path.join(root, "cli")
+        _, launches = run_cli(
+            ["train", "--config", config, "--num_passes", "1",
+             "--save_dir", cli_dir],
+            {"lstm_fwd": 2 * n_batches, "lstm_bwd": 2 * n_batches},
+            "train --num_passes 1")
+        add(launches)
+        # the same config, samples and seed through Trainer.train
+        spec = importlib.util.spec_from_file_location(
+            "chip_smoke_provider",
+            os.path.join(os.path.dirname(config), "provider.py"))
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        provider = module.process_rnn
+        trainer = Trainer(NeuralNetwork(lstm_text_classifier(**TRAIN)),
+                          OptimizationConfig(**CLI_OPT), seed=1, device=dev)
+        feeder = DataFeeder([
+            ("data", integer_value_sequence(TRAIN["vocab_size"])),
+            ("label", integer_value(2))])
+
+        def samples():
+            return reader.batch(provider.reader(
+                vocab_size=TRAIN["vocab_size"], maxlen=CLI_T,
+                num_samples=CLI_SAMPLES), TRAIN_B)
+
+        own_dir = os.path.join(root, "in_process")
+        set_flags(save_dir=own_dir)
+        trainer.train(samples(), 1, lambda e: None, feeder)
+        got, want = (npz_digests(os.path.join(d, "pass-00000"))["params.npz"]
+                     for d in (cli_dir, own_dir))
+        if got != want:
+            fail(f"the CLI's pass-00000 params.npz ({got[:16]}) is not the "
+                 f"in-process Trainer.train's ({want[:16]})")
+        log(f"  pass-00000 params.npz bit-identical to Trainer.train in "
+            f"process (sha256 {got[:16]})")
+        m["params_sha256"] = got
+
+        log("  train --job test --init_model_path pass-00000")
+        out, launches = run_cli(
+            ["train", "--job", "test", "--config", config,
+             "--init_model_path", os.path.join(cli_dir, "pass-00000")],
+            {"lstm_fwd": 2 * n_batches}, "train --job test")
+        add(launches)
+        test = json.loads(out.strip().splitlines()[-1])
+        own = trainer.test(samples(), feeder)
+        if test["test_cost"] != own["test_cost"]:
+            fail(f"--job test: test_cost {test['test_cost']!r}, "
+                 f"Trainer.test {own['test_cost']!r}")
+        log(f"  test_cost {test['test_cost']!r} equal to Trainer.test's")
+        m["test"] = test
+        del trainer
+
+        net = NeuralNetwork(lstm_text_classifier(**CLI_CHECKGRAD_DIMS))
+        n_checks = sum(min(4, p.numel())
+                       for p in net.init_params(1, "cpu").values())
+        want_cg = {"lstm_fwd": 2 * (1 + 2 * n_checks), "lstm_bwd": 2}
+        log(f"  train --job checkgrad --config_args {CLI_CHECKGRAD_ARGS} "
+            f"({n_checks} checks)")
+        out, launches = run_cli(
+            ["train", "--job", "checkgrad", "--config", config,
+             "--config_args", CLI_CHECKGRAD_ARGS], want_cg,
+            "train --job checkgrad")
+        add(launches)
+        cg = json.loads(out.strip().splitlines()[-1])
+        if cg["failed"] != 0:
+            fail(f"--job checkgrad: {cg}")
+        log(f"  --job checkgrad: {cg}")
+        m["checkgrad"] = cg
+    finally:
+        set_flags(**old)
+    m["launches"] = {k: v for k, v in counts.items() if v}
+    log(f"  launches: {m['launches']}")
+    return m
 
 
 def lstm_work(b, t, h, n_valid, backward):
@@ -4100,9 +4285,14 @@ def main() -> int:
             "and a pruning hook at B 8, T 12, H 128, card vs CPU plain "
             "path (fp32)")
         opt = phase_opt(dev)
+        log("== phase 4z-cli: configs/rnn.py through python -m "
+            "paddle_tpu_torch (dump_config, train --job time / train / "
+            "test / checkgrad) at 4d's width")
+        cli = phase_cli(dev, train, loop["time_job"])
         for name in launches:
             launches[name]["training_ckpt"] = ckpt["launches"].get(name, 0)
             launches[name]["training_opt"] = opt["launches"].get(name, 0)
+            launches[name]["cli"] = cli["launches"].get(name, 0)
         log("== phase 4g: blocked main path, the classifier at H 1280 "
             "under bench.py's flags (use_bf16, bf16_activations)")
         set_flags(**BENCH_FLAGS)
@@ -4235,6 +4425,7 @@ def main() -> int:
                                   if k != "prompt_lengths"},
                       "training": train, "training_loop": loop,
                       "training_ckpt": ckpt, "training_opt": opt,
+                      "cli": cli,
                       "training_h1280": blocked,
                       "training_h1280_mixed_bf16": mixed,
                       "training_h2048": wide, **resnet, "seq2seq": seq2seq,

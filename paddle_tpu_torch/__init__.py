@@ -28,6 +28,15 @@ dispatch, and the block-sparse path runs the tensor-core flash forward
 and its two backward kernels (``ops/attention.py``,
 ``csrc/flash_fwd.cu``, ``csrc/flash_bwd_dq.cu``, ``csrc/flash_bwd_dkv.cu``).
 
-Entry points run on CUDA unless the caller passes ``device="cpu"``; with
-no CUDA device they raise instead of moving to the CPU.
+The config front end (``config/dsl.py``, ``config/config_parser.py``,
+``compat/``, ``v2/networks.py``) runs reference-style config files, and
+the ``paddle train`` CLI (``cli.py``; ``python -m paddle_tpu_torch
+train --config ...``) drives the jobs of ``trainer/trainer.py`` from
+them.
+
+Entry points run on CUDA unless the caller passes ``device="cpu"`` (the
+CLI: ``--device cpu``); with no CUDA device they raise instead of moving
+to the CPU.
 """
+
+__version__ = "0.1.0"

@@ -4,10 +4,12 @@ reference proto's field vocabulary, serialisable to JSON.
 
 The port keeps its own copy, with the same field names and defaults, so
 a config built here dumps to the same JSON as one built by the JAX
-package, and :meth:`ModelConfig.from_json` reads what either wrote.
-Recurrent-group sub-models (:class:`SubModelConfig`) are ported;
-projections have no layer yet, and their field stays, empty, for that
-equality.
+package, and :meth:`ModelConfig.from_json` reads what either wrote,
+projections (:class:`ProjConfig`) and recurrent-group sub-models
+(:class:`SubModelConfig`) included.  The config DSL (:mod:`.dsl`) and
+the config-file parser (:mod:`.config_parser`) build these records; a
+layer the port cannot run yet refuses when ``NeuralNetwork`` builds it,
+not here.
 """
 
 from __future__ import annotations
@@ -15,9 +17,9 @@ from __future__ import annotations
 import dataclasses
 import json
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
-from ..utils import PaddleTpuError
+from ..utils import ConfigError
 
 
 @dataclass
@@ -39,7 +41,40 @@ class ParameterConfig:
     is_sparse: bool = False
     sparse_update: bool = False
     sharded: bool = False
+    # ParameterUpdaterHookConfig list, e.g.
+    # [{"type": "pruning", "sparsity_ratio": 0.6}]
     update_hooks: List[Dict[str, Any]] = field(default_factory=list)
+
+
+@dataclass
+class ProjConfig:
+    """Projection/operator inside a mixed layer (``ProjectionConfig``)."""
+
+    type: str = "fc"                    # fc|identity|dot_mul|scaling|table|context|slice
+    input_size: int = 0
+    output_size: int = 0
+    context_start: int = 0
+    context_length: int = 0
+    trainable_padding: bool = False
+    slice_begin: int = 0
+    slice_end: int = 0
+    # multi-slice form (SliceProjection concatenates selected ranges)
+    slices: Optional[List[Tuple[int, int]]] = None
+
+    def resolved_output_size(self) -> int:
+        """Projection output width, derived from the type when
+        ``output_size`` is unset; 0 when underdetermined (an unsized
+        fc/trans_fc/table)."""
+        if self.output_size:
+            return self.output_size
+        if self.type == "context":
+            return self.context_length * self.input_size
+        if self.type == "slice":
+            slices = self.slices or [(self.slice_begin, self.slice_end)]
+            return sum(e - b for b, e in slices)
+        if self.type in ("identity", "dot_mul", "scaling"):
+            return self.input_size
+        return 0
 
 
 @dataclass
@@ -48,7 +83,7 @@ class LayerInput:
 
     input_layer_name: str = ""
     input_parameter_name: str = ""
-    proj: Optional[Any] = None
+    proj: Optional[ProjConfig] = None
     attrs: Dict[str, Any] = field(default_factory=dict)
 
 
@@ -113,28 +148,34 @@ class ModelConfig:
                             mem["layer_name"] + "@pre"):
                     return mem.get("size", 0) or \
                         self.find_size(mem["layer_name"])
-        raise PaddleTpuError(f"no layer or memory link named {name!r}")
+        raise ConfigError(f"no layer or memory link named {name!r}")
 
     def to_json(self) -> str:
-        return json.dumps(dataclasses.asdict(self), indent=1)
+        # a beam-search candidate hook (or any other callable a config
+        # carries) is code, not configuration: it is written as a marker
+        def scrub(v):
+            if callable(v):
+                return f"<callable {getattr(v, '__name__', 'fn')}>"
+            if isinstance(v, dict):
+                return {k: scrub(x) for k, x in v.items()}
+            if isinstance(v, (list, tuple)):
+                return [scrub(x) for x in v]
+            return v
+
+        return json.dumps(scrub(dataclasses.asdict(self)), indent=1)
 
     @staticmethod
     def from_json(text: str) -> "ModelConfig":
-        """The config :meth:`to_json` (of either package) wrote.  An
-        input with a projection refuses by name: ``ProjConfig`` and the
-        mixed layer are not ported (queues A12, A13)."""
+        """The config :meth:`to_json` (of either package) wrote,
+        projections included."""
         raw = json.loads(text)
 
         def mk_input(d):
-            if d.get("proj"):
-                raise PaddleTpuError(
-                    f"input {d.get('input_layer_name')!r} carries a "
-                    "projection; ProjConfig and the mixed layer are not "
-                    "ported yet (queues A12, A13)")
+            proj = ProjConfig(**d["proj"]) if d.get("proj") else None
             return LayerInput(
                 input_layer_name=d.get("input_layer_name", ""),
                 input_parameter_name=d.get("input_parameter_name", ""),
-                attrs=d.get("attrs", {}))
+                proj=proj, attrs=d.get("attrs", {}))
 
         return ModelConfig(
             layers=[
@@ -181,3 +222,4 @@ class OptimizationConfig:
     # "fp32" | "bf16" | "" (inherit --precision)
     precision: str = ""
     local_sgd_steps: int = 0
+

@@ -25,9 +25,12 @@ from ..utils import PaddleTpuError
 from .base import Layer, register_layer
 
 
-def conv_out_size(img: int, filt: int, pad: int, stride: int) -> int:
-    """``cnn_output_size`` (paddle/math/MathUtil), caffe mode (floor)."""
-    return (img + 2 * pad - filt) // stride + 1
+def conv_out_size(img: int, filt: int, pad: int, stride: int,
+                  caffe_mode: bool = True) -> int:
+    """``cnn_output_size`` (paddle/math/MathUtil): floor (caffe) or ceil."""
+    if caffe_mode:
+        return (img + 2 * pad - filt) // stride + 1
+    return (img + 2 * pad - filt + stride - 1) // stride + 1
 
 
 def to_nhwc(v: torch.Tensor, channels: int, height: int,

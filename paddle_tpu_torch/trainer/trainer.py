@@ -164,7 +164,8 @@ def _to_host(v):
 class Trainer:
     """Owns the parameters and optimizer state of one network on one
     device (default CUDA; raises when CUDA is absent and the CPU was not
-    asked for).  Parameters are drawn by ``network.init_params(seed)``,
+    asked for).  Parameters are drawn by ``network.init_params(seed)``
+    (``--seed`` when ``seed`` is None),
     or loaded from ``--init_model_path``; assign ``trainer.params``
     (same names and shapes) to start from others.  ``optimizer``, when
     given, replaces the one ``opt_config`` describes (with the constant
@@ -172,10 +173,11 @@ class Trainer:
 
     def __init__(self, network: NeuralNetwork,
                  opt_config: Optional[OptimizationConfig] = None,
-                 seed: int = 1,
+                 seed: Optional[int] = None,
                  device: Optional[Union[str, torch.device]] = None,
                  optimizer: Optional[Optimizer] = None):
         self.network = network
+        self.seed = FLAGS.get("seed") if seed is None else seed
         self.device = resolve_device(device)
         if optimizer is None:
             optimizer, self.schedule = optimizer_from_config(
@@ -185,7 +187,7 @@ class Trainer:
                                           optimizer.learning_rate)
         self.optimizer = optimizer
         self.precision = resolve_precision(opt_config)
-        self.params = network.init_params(seed, self.device)
+        self.params = network.init_params(self.seed, self.device)
         self.buffers = network.init_buffers(self.device)
         self.opt_state = self.optimizer.init_state(self.params)
         self._lr_scales = network.lr_scales(self.params)
@@ -653,15 +655,25 @@ class Trainer:
                         eps: Optional[float] = None,
                         max_checks_per_param: int = 4,
                         rtol: float = 5e-2) -> bool:
-        """``--job=checkgrad`` (``Trainer::checkGradient``): every
-        parameter's autograd gradient at up to ``max_checks_per_param``
-        elements (drawn by ``np.random.RandomState(5)``, as the reference
-        draws them) against central differences of step ``eps``
+        """``--job=checkgrad`` (``Trainer::checkGradient``): True when no
+        check of :meth:`gradient_misses` misses."""
+        return not any(self.gradient_misses(
+            feed, eps, max_checks_per_param, rtol).values())
+
+    def gradient_misses(self, feed: Dict[str, Any],
+                        eps: Optional[float] = None,
+                        max_checks_per_param: int = 4,
+                        rtol: float = 5e-2) -> Dict[str, int]:
+        """Every parameter's autograd gradient at up to
+        ``max_checks_per_param`` elements (drawn by
+        ``np.random.RandomState(5)``, as the reference draws them)
+        against central differences of step ``eps``
         (``--checkgrad_eps``) on one batch, in fp32 with
-        ``is_training=False``.  Each miss logs a warning."""
+        ``is_training=False``: each parameter's number of misses, by
+        sorted name.  Each miss logs a warning."""
         eps = eps or FLAGS.get("checkgrad_eps")
         feed = self._place_feed(feed)
-        ok = True
+        misses: Dict[str, int] = {}
         with full_precision():
             def loss_fn(p):
                 return self.network.loss(p, feed, self.buffers,
@@ -682,6 +694,7 @@ class Trainer:
                     auto = (torch.zeros(len(idxs)) if g is None else
                             g.reshape(-1)[torch.as_tensor(
                                 idxs, device=g.device)].cpu())
+                    misses[name] = 0
                     for j, idx in enumerate(idxs):
                         lp = float(loss_fn({**self.params,
                                             name: _bump(p, idx, eps)}))
@@ -693,8 +706,8 @@ class Trainer:
                             _log.warning(
                                 "checkgrad FAIL %s[%d]: auto=%g fd=%g",
                                 name, idx, ag, fd)
-                            ok = False
-        return ok
+                            misses[name] += 1
+        return misses
 
     # ---------------------------------------------------- persistence
     def save(self, save_dir: str, pass_id: int) -> str:

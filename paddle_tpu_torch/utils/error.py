@@ -1,4 +1,4 @@
-"""Error type and the ``enforce`` check (counterpart of
+"""Error types and the ``enforce`` check (counterpart of
 ``paddle_tpu/utils/error.py``)."""
 
 from __future__ import annotations
@@ -8,6 +8,10 @@ from typing import Any
 
 class PaddleTpuError(RuntimeError):
     """Base error for the framework."""
+
+
+class ConfigError(PaddleTpuError):
+    """Bad model/trainer configuration (the config DSL raises it)."""
 
 
 def enforce(cond: Any, msg: str = "", *args: Any) -> None:

@@ -135,8 +135,17 @@ FLAGS.define("embedding_kernel", True,
              "read; false = the plain index_select gather, byte-for-byte, "
              "for one-flag revert / A/B traffic measurement")
 # the training loop (trainer/trainer.py: train, test, time_job,
-# check_gradients) and its input pipeline (data/pipeline.py)
+# check_gradients), its input pipeline (data/pipeline.py) and the CLI
+# (cli.py, config/config_parser.py)
 FLAGS.define("log_period", 100, "log every N batches")
+FLAGS.define("test_period", 0, "test every N batches (0: per pass)")
+FLAGS.define("seed", 1, "global RNG seed (0: nondeterministic)")
+FLAGS.define("config_args", "", "comma-sep k=v pairs visible to configs")
+FLAGS.define("log_level", "",
+             "framework log level: debug|info|warning|error|fatal "
+             "(empty = PADDLE_TPU_LOG_LEVEL env var, else INFO); "
+             "applied by the entry points after flag parsing via "
+             "utils.logger.set_log_level")
 FLAGS.define("show_parameter_stats_period", 0,
              "dump param stats every N batches")
 FLAGS.define("checkgrad_eps", 1e-2,

@@ -189,11 +189,17 @@ def test_model_config_from_json_round_trips_and_refuses_projections():
                  lstm_text_classifier(50, 8, 16, 2, 2)):
         text = jcfg.to_json()
         assert TModelConfig.from_json(text).to_json() == text
+    # a projection round-trips since the config front end came (its
+    # mixed layer is refused when NeuralNetwork builds it, not here)
     proj = ModelConfig(layers=[LayerConfig(
         name="m", type="mixed", size=4,
-        inputs=[LayerInput(input_layer_name="x", proj=ProjConfig())])])
-    with pytest.raises(PaddleTpuError, match="projection.*A12"):
-        TModelConfig.from_json(proj.to_json())
+        inputs=[LayerInput(input_layer_name="x", proj=ProjConfig(
+            type="slice", input_size=8, slices=[(0, 2), (4, 6)]))])])
+    text = proj.to_json()
+    back = TModelConfig.from_json(text)
+    assert back.to_json() == text
+    assert type(back.layers[0].inputs[0].proj).__name__ == "ProjConfig"
+    assert back.layers[0].inputs[0].proj.resolved_output_size() == 4
 
 
 def test_checkpoint_flags_are_the_reference_flags():

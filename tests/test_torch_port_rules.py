@@ -816,3 +816,46 @@ def test_gru_fused_tier_answers_as_before_at_every_dispatched_shape():
             n += 1
             assert tgru.fused_tier(b, h) == _gru_tier_before(b, h), (b, h)
     assert n >= 128 * 4
+
+
+# ------------------------------------------------------ config front end
+from paddle_tpu_torch import cli as tcli  # noqa: E402
+from paddle_tpu_torch import compat as tcompat  # noqa: E402
+from paddle_tpu_torch.utils import ConfigError  # noqa: E402
+
+from test_torch_config_parser import RNN, paddle_aliases  # noqa: E402,F401
+
+
+def test_scan_covers_the_config_front_end():
+    scanned = {str(f.relative_to(PORT)) for f in PORT.rglob("*.py")}
+    assert {"config/dsl.py", "config/config_parser.py",
+            "config/layer_math.py", "config/recurrent_units.py",
+            "compat/__init__.py", "v2/__init__.py", "v2/networks.py",
+            "utils/model_diagram.py", "cli.py", "__main__.py",
+            "configs/rnn.py", "configs/provider.py", "ops/detection_ops.py",
+            "layers/image3d.py"} <= scanned
+    # the configs import only the paddle.* aliases and numpy
+    for name in ("rnn.py", "provider.py"):
+        roots = set(_imported_roots(PORT / "configs" / name))
+        assert roots <= {"paddle", "numpy"}, (name, roots)
+    assert not (PORT / "configs" / "__init__.py").exists()
+
+
+def test_cli_train_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for argv in (["train", "--config", RNN],
+                 ["train", "--config", RNN, "--device", "cuda",
+                  "--job", "test"]):
+        with pytest.raises(PaddleTpuError, match="no CUDA device"):
+            tcli.main(argv)
+
+
+def test_compat_install_refuses_a_foreign_paddle(paddle_aliases):  # noqa: F811
+    import sys
+    import types
+    with paddle_aliases():
+        foreign = types.ModuleType("paddle")
+        sys.modules["paddle"] = foreign
+        with pytest.raises(ConfigError, match="did not make"):
+            tcompat.install()
+        assert sys.modules["paddle"] is foreign
