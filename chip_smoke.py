@@ -103,6 +103,27 @@ Phases (any failure exits nonzero, without the final ``ok`` line):
    ``test_cost`` equal to ``Trainer.test``'s; ``train --job checkgrad``
    at H 128, B 16: ``failed`` 0; exact launches of kernels 8 and 9 in
    each job;
+4z-dense. the dense layers, costs, activations, dropout and the error
+   clip, fp32 with TF32 off: (a) every layer type, projection, operator
+   and cost the dense slice ported (46 one-layer nets at the sizes of
+   the JAX package's layer sweep) and the 28 activations forward and
+   backward on the card against the same code on the CPU, within rtol
+   1e-4, atol 1e-5 * max(1, max|CPU|); (b) dropout at p 0.5 over
+   [256, 4096]: the kept share within 5 sigma of the binomial, kept
+   values exactly x / keep and the gradient mask / keep, the identity in
+   eval, one seed one mask, two seeds or layers two, through a trainer
+   at lr 0 the same losses twice at seed 0 and a new mask each step; the
+   error clip's gradient clamp(dy, -t, t); (c) ``configs/vae.py`` (the
+   VAE demo: x 784, hidden 128, z 100, B 32, Adam lr 1e-3) through
+   ``parse_config`` -> ``NeuralNetwork`` -> ``Trainer(seed=0)`` as
+   ``demo/vae/train.py`` runs it: 5 steps on the card against the CPU
+   from the same parameters (losses rtol 1e-5, every weight within
+   2e-4, all but 1 in 10^3 within 2e-5), 300 batches of binarised
+   784-vectors and N(0, 1) noise from ``RandomState(0)`` (the loss
+   falls; ms/batch, pass wall; every parameter, Adam moment and layer
+   value on the card; no launch of the 22 kernels), then 16 samples of
+   the ``is_generating=1`` topology on the trained parameters, finite
+   and in [0, 1];
 3c. the hidden-blocked LSTM kernels 10-12 (forward, BPTT, dW): through
    their ``autograd.Function`` against autograd through the plain scan,
    and each wrapper against its plain version, at (B, T, H) = (8, 5,
@@ -271,7 +292,7 @@ Phases (any failure exits nonzero, without the final ``ok`` line):
 Phases 3b-4f are PR 2's H 512 phases and run in fp32 (``use_bf16``
 off), so their readings stay comparable, as do 4z-loop and 4z-small.
 The order of the run: 1-3f, 3g-3i, 4-4f, 4z-loop, 4z-small, 4z-ckpt,
-4z-opt, 4z-cli, 4g-4k,
+4z-opt, 4z-cli, 4z-dense, 4g-4k,
 4l-4p, 4q-4r, 4t, 4v, 4s, 4u, 4w-4z, 4-sparse, 5.
 
 Also printed, for information: a ``torch.profiler`` window over one
@@ -2116,6 +2137,519 @@ def phase_cli(dev, step, time_job):
         set_flags(**old)
     m["launches"] = {k: v for k, v in counts.items() if v}
     log(f"  launches: {m['launches']}")
+    return m
+
+
+# ------------------------------------------------ phase 4z-dense
+#: phase 4z-dense (a): card against CPU on the same port code, fp32 with
+#: TF32 off; another device sums in another order and has its own
+#: transcendentals: every output and gradient within DENSE_RTOL and
+#: DENSE_ATOL * max(1, max|CPU|)
+DENSE_RTOL, DENSE_ATOL = 1e-4, 1e-5
+#: (b): dropout at p 0.5 over [256, 4096]; the error clip at t
+DROP_SHAPE, DROP_P, CLIP_T = (256, 4096), 0.5, 0.25
+#: (c): the VAE demo (demo/vae/train.py:36-71) at its published widths
+#: (x 784, hidden 128, z 100; B 32, Adam lr 1e-3), 300 batches of
+#: binarised 784-vectors and N(0, 1) noise from RandomState(0); the first
+#: 5 steps on the card against the port's own CPU run from the same
+#: parameters: losses within rtol VAE_LOSS_RTOL, every weight within
+#: VAE_W_ATOL (a fifth of one Adam step: Adam turns a rounding difference
+#: in a gradient near 0 into a share of a step) and all but 1 in 10^3
+#: within 2e-5
+VAE_CONFIG = os.path.join("paddle_tpu_torch", "configs", "vae.py")
+VAE_B, VAE_X, VAE_Z, VAE_BATCHES, VAE_CHECK = 32, 784, 100, 300, 5
+VAE_LOSS_RTOL, VAE_W_ATOL = 1e-5, 2e-4
+
+
+def _proj(typ, **kw):
+    from paddle_tpu_torch.config.model_config import ProjConfig
+    return ProjConfig(type=typ, **kw)
+
+
+def _dense_cases():
+    """(name, layer type, size, input sizes, feed makers, options) at
+    the sizes of the JAX package's layer sweep
+    (``tests/test_layer_grad_sweep.py::CASES``) and of the port's CPU
+    parity cases (``tests/test_torch_dense_layers.py``,
+    ``tests/test_torch_costs_ops.py``).  A feed maker takes a
+    ``RandomState`` and gives numpy arrays, or (data, lengths) pairs for
+    sequences."""
+    def d(b, n, lo=-1.0, hi=1.0):
+        return lambda r: r.uniform(lo, hi, (b, n)).astype(np.float32)
+
+    def seq(lens, n, lo=-1.0, hi=1.0):
+        def make(r):
+            data = np.zeros((len(lens), max(lens), n), np.float32)
+            for i, m in enumerate(lens):
+                data[i, :m] = r.uniform(lo, hi, (m, n))
+            return data, np.array(lens, np.int32)
+        return make
+
+    def iseq(lens, hi):
+        def make(r):
+            data = np.zeros((len(lens), max(lens)), np.int32)
+            for i, m in enumerate(lens):
+                data[i, :m] = r.randint(0, hi, m)
+            return data, np.array(lens, np.int32)
+        return make
+
+    def probs(b, n):
+        def make(r):
+            e = np.exp(r.randn(b, n))
+            return (e / e.sum(-1, keepdims=True)).astype(np.float32)
+        return make
+
+    def binary(b, n):
+        return lambda r: (r.rand(b, n) > 0.5).astype(np.float32)
+
+    def ints(vals):
+        return lambda r: np.array(vals, np.int32)
+
+    conv_op = {"type": "conv", "input_indices": (0, 1), "channels": 2,
+               "img_size": 5, "img_size_y": 4, "filter_size": 3,
+               "filter_size_y": 2, "num_filters": 3, "stride": 1,
+               "stride_y": 2, "padding": 1, "padding_y": 0}
+    cases = [
+        ("fc", "fc", 5, [4], [d(3, 4)], dict(act="tanh", bias=True)),
+        ("mkldnn_fc", "mkldnn_fc", 5, [4], [d(3, 4)],
+         dict(act="softmax", bias=True)),
+        ("addto_bias", "addto", 4, [4, 4], [d(3, 4), d(3, 4)],
+         dict(act="tanh", bias=True)),
+        ("concat_bias", "concat", 7, [3, 4], [d(3, 3), d(3, 4)],
+         dict(act="relu", bias=True)),
+        ("proj_fc", "mixed", 5, [4], [seq([3, 2], 4)],
+         dict(act="sigmoid", bias=True,
+              projs=[_proj("fc", input_size=4, output_size=5)])),
+        ("proj_trans_fc", "mixed", 5, [4], [d(3, 4)],
+         dict(projs=[_proj("trans_fc", input_size=4, output_size=5)])),
+        ("proj_identity", "mixed", 4, [4], [d(3, 4)],
+         dict(act="tanh",
+              projs=[_proj("identity", input_size=4, output_size=4)])),
+        ("proj_dot_mul", "mixed", 4, [4], [d(3, 4)],
+         dict(projs=[_proj("dot_mul", input_size=4, output_size=4)])),
+        ("proj_scaling", "mixed", 4, [4], [d(3, 4)],
+         dict(projs=[_proj("scaling", input_size=4, output_size=4)])),
+        ("proj_table", "mixed", 5, [9], [iseq([4, 2], 9)],
+         dict(projs=[_proj("table", input_size=9, output_size=5)])),
+        ("proj_context", "mixed", 12, [4], [seq([4, 2, 3], 4)],
+         dict(projs=[_proj("context", input_size=4, context_start=-1,
+                           context_length=3)])),
+        ("proj_context_padding", "mixed", 16, [4], [seq([5, 1, 3], 4)],
+         dict(bias=True,
+              projs=[_proj("context", input_size=4, context_start=-2,
+                           context_length=4, trainable_padding=True)])),
+        ("proj_slices", "mixed", 3, [5], [d(3, 5)],
+         dict(act="relu", projs=[_proj("slice", input_size=5,
+                                       slices=[(0, 2), (3, 4)])])),
+        ("operator_dot_mul", "mixed", 4, [4, 4], [d(3, 4), d(3, 4)],
+         dict(act="exp", attrs={"operators": [
+             {"type": "dot_mul", "scale": 0.5, "input_indices": (0, 1)}]})),
+        ("operator_conv", "mixed", 30, [40, 36], [d(3, 40), d(3, 36)],
+         dict(bias=True, attrs={"operators": [conv_op]})),
+        ("concat2", "concat2", 7, [3, 4], [d(3, 3), d(3, 4)],
+         dict(projs=[_proj("fc", input_size=3, output_size=3),
+                     _proj("identity", input_size=4, output_size=4)])),
+        ("interpolation", "interpolation", 4, [1, 4, 4],
+         [d(3, 1, 0.1, 0.9), d(3, 4), d(3, 4)], {}),
+        ("out_prod", "out_prod", 12, [3, 4], [d(2, 3), d(2, 4)], {}),
+        ("power", "power", 4, [1, 4], [d(2, 1, 0.5, 2.0),
+                                       d(2, 4, 0.5, 2.0)], {}),
+        ("scaling", "scaling", 4, [1, 4], [d(3, 1), d(3, 4)], {}),
+        ("slope_intercept", "slope_intercept", 4, [4], [d(3, 4)],
+         dict(attrs={"slope": 1.5, "intercept": -0.2})),
+        ("convex_comb", "convex_comb", 4, [3, 12], [d(2, 3), d(2, 12)], {}),
+        ("cos", "cos", 1, [4, 4], [d(3, 4), d(3, 4)], {}),
+        ("cos_vm", "cos_vm", 3, [4, 12], [d(2, 4), d(2, 12)], {}),
+        ("sum_to_one_norm", "sum_to_one_norm", 4, [4], [d(3, 4, 0.2, 2.0)],
+         {}),
+        ("row_l2_norm", "row_l2_norm", 4, [4], [d(3, 4, 0.3, 2.0)], {}),
+        ("trans", "trans", 3, [4], [d(3, 4)], {}),
+        ("resize", "resize", 6, [12], [d(2, 12)], {}),
+        ("clip", "clip", 4, [4], [d(3, 4)],
+         dict(attrs={"min": -0.5, "max": 0.5})),
+        ("multiplex", "multiplex", 4, [1, 4, 4],
+         [ints([[0], [1], [0]]), d(3, 4), d(3, 4)], {}),
+        ("dot_prod", "dot_prod", 1, [4, 4], [d(3, 4), d(3, 4)], {}),
+        ("featmap_expand", "featmap_expand", 12, [4], [d(3, 4)],
+         dict(attrs={"num_filters": 3})),
+        ("conv_shift", "conv_shift", 6, [6, 3], [d(2, 6), d(2, 3)], {}),
+        # costs: the sweep's feeds, a weight and coeff where taken
+        ("multi-class-cross-entropy", "multi-class-cross-entropy", 1,
+         [5, 1, 1], [probs(3, 5), ints([0, 2, 4]), d(3, 1, 0.2, 2.0)],
+         dict(attrs={"coeff": 0.7})),
+        ("ce_selfnorm", "multi_class_cross_entropy_with_selfnorm", 1,
+         [5, 1], [probs(3, 5), ints([1, 0, 3])], {}),
+        ("soft_binary", "soft_binary_class_cross_entropy", 1, [4, 4, 1],
+         [d(3, 4, 0.2, 0.8), d(3, 4, 0.0, 1.0), d(3, 1, 0.2, 2.0)], {}),
+        ("square_error_seq", "square_error", 1, [4, 4],
+         [seq([3, 1, 2], 4), seq([3, 1, 2], 4)], {}),
+        ("mse", "mse", 1, [4, 4], [d(3, 4), d(3, 4)],
+         dict(attrs={"coeff": 2.5})),
+        ("regression_cost", "regression_cost", 1, [4, 4],
+         [d(3, 4), d(3, 4)], {}),
+        ("rank-cost", "rank-cost", 1, [1, 1, 1],
+         [d(3, 1), d(3, 1), lambda r: np.array([[1.0], [0.0], [1.0]],
+                                               np.float32)],
+         dict(attrs={"coeff": 0.3})),
+        ("lambda_cost", "lambda_cost", 1, [1, 1],
+         [seq([4, 3], 1), seq([4, 3], 1, 0.0, 3.0)],
+         dict(attrs={"NDCG_num": 2})),
+        ("multi_binary_ce", "multi_binary_label_cross_entropy", 1,
+         [4, 4, 1], [d(3, 4, 0.2, 0.8), binary(3, 4), d(3, 1, 0.2, 2.0)],
+         dict(attrs={"coeff": 0.7})),
+        ("huber_regression", "huber_regression", 1, [1, 1],
+         [d(3, 1, 1.0, 2.0), d(3, 1, -2.0, -1.0)],
+         dict(attrs={"delta": 0.6})),
+        ("huber_classification", "huber_classification", 1, [1, 1],
+         [d(3, 1, 0.2, 0.6), lambda r: np.array([[1.0], [0.0], [1.0]],
+                                                np.float32)], {}),
+        ("smooth_l1", "smooth_l1", 1, [4, 4],
+         [d(3, 4, 1.5, 2.5), d(3, 4, -0.5, 0.5)], {}),
+        ("sum_cost", "sum_cost", 1, [4], [d(3, 4)], {}),
+    ]
+    return cases
+
+
+def dense_net(ltype, size, in_sizes, act="", bias=False, attrs=None,
+              projs=None):
+    """A one-layer net ``test`` over data layers ``in0``, ``in1``, …"""
+    from paddle_tpu_torch.config.model_config import (LayerConfig,
+                                                      LayerInput,
+                                                      ModelConfig)
+    from paddle_tpu_torch.layers.network import NeuralNetwork
+    layers = [LayerConfig(name=f"in{i}", type="data", size=s)
+              for i, s in enumerate(in_sizes)]
+    layers.append(LayerConfig(
+        name="test", type=ltype, size=size, active_type=act, with_bias=bias,
+        attrs=attrs or {},
+        inputs=[LayerInput(input_layer_name=f"in{i}",
+                           proj=projs[i] if projs and i < len(projs)
+                           else None) for i in range(len(in_sizes))]))
+    return NeuralNetwork(ModelConfig(
+        layers=layers, input_layer_names=[f"in{i}" for i in
+                                          range(len(in_sizes))],
+        output_layer_names=["test"]))
+
+
+def _dense_run(net, params, feed, where):
+    """The layer's output and the gradients of its objective (the cost
+    for a cost layer, else the output against a cosine ramp) in every
+    parameter and float feed, computed on ``where``."""
+    import torch
+    from paddle_tpu_torch.core.sequence import SequenceBatch, value_of
+    p = {k: v.to(where).requires_grad_(True) for k, v in params.items()}
+    leaves, tfeed = dict(p), {}
+    for k, v in feed.items():
+        data = torch.from_numpy(v[0] if isinstance(v, tuple) else v) \
+            .to(where)
+        if data.is_floating_point():
+            data.requires_grad_(True)
+            leaves[f"feed:{k}"] = data
+        tfeed[k] = SequenceBatch(data, torch.from_numpy(v[1]).to(where)) \
+            if isinstance(v, tuple) else data
+    if getattr(net.layers["test"], "is_cost", False):
+        obj, (values, _) = net.loss(p, tfeed, is_training=False)
+    else:
+        values, _ = net.forward(p, tfeed, is_training=False)
+        val = values["test"]
+        out = value_of(val)
+        if isinstance(val, SequenceBatch):
+            m = val.mask(out.dtype)
+            out = out * m.reshape(tuple(m.shape) + (1,) * (out.dim() - 2))
+        ramp = torch.cos(0.1 * torch.arange(out.numel(), device=out.device,
+                                            dtype=out.dtype))
+        obj = torch.sum(out * ramp.reshape(out.shape))
+    grads = torch.autograd.grad(obj, list(leaves.values()),
+                                allow_unused=True)
+    res = {"output": value_of(values["test"]).detach(), "objective":
+           obj.detach()}
+    res.update({f"grad {k}": torch.zeros_like(v) if g is None else g
+                for (k, v), g in zip(leaves.items(), grads)})
+    return {k: v.cpu() for k, v in res.items()}
+
+
+def _dense_worst(got, want, what):
+    """The worst share of the card-vs-CPU tolerance over ``want``'s
+    tensors; fails past 1."""
+    worst = 0.0
+    for k, w in want.items():
+        g = got[k].double()
+        w = w.double()
+        if g.shape != w.shape or not bool(g.isfinite().all()):
+            fail(f"4z-dense {what}: {k} shape {tuple(g.shape)} vs "
+                 f"{tuple(w.shape)} or not finite")
+        scale = max(1.0, float(w.abs().max()) if w.numel() else 1.0)
+        tol = DENSE_ATOL * scale + DENSE_RTOL * w.abs()
+        share = float(((g - w).abs() / tol).max()) if w.numel() else 0.0
+        if share > 1.0:
+            fail(f"4z-dense {what}: {k} card vs CPU off by "
+                 f"{float((g - w).abs().max()):.3e} ({share:.2f} of the "
+                 "tolerance)")
+        worst = max(worst, share)
+    return worst
+
+
+def phase_dense_types(dev):
+    """Phase 4z-dense (a): every newly ported layer type, projection,
+    operator, cost and activation forward and backward on the card
+    against the same code on the CPU."""
+    import torch
+    from paddle_tpu_torch.ops import activations as acts
+    worst, n = {}, 0
+    for name, ltype, size, in_sizes, makers, opt in _dense_cases():
+        net = dense_net(ltype, size, in_sizes, **opt)
+        r = np.random.RandomState(n)
+        feed = {f"in{i}": mk(r) for i, mk in enumerate(makers)}
+        params = {k: v + 0.01 * torch.from_numpy(
+            np.random.RandomState(1).randn(*v.shape).astype(np.float32))
+            for k, v in net.init_params(3, "cpu").items()}
+        want = _dense_run(net, params, feed, "cpu")
+        got = _dense_run(net, params, feed, dev)
+        worst[name] = _dense_worst(got, want, name)
+        n += 1
+    for name in acts.ACTIVATIONS.names():
+        r = np.random.RandomState(100 + n)
+        lo = 0.3 if name in ("sqrt", "log", "reciprocal", "pow") else -8.0
+        x = r.uniform(lo, 8.0, (64, 128)).astype(np.float32)
+        cot = torch.from_numpy(r.randn(64, 128).astype(np.float32))
+        res = {}
+        for where in ("cpu", dev):
+            xt = torch.from_numpy(x).to(where).requires_grad_(True)
+            y = acts.get_activation(name)(xt)
+            g, = torch.autograd.grad(torch.sum(y * cot.to(where)), [xt])
+            res[str(where)] = {"output": y.detach().cpu(), "grad": g.cpu()}
+        worst[f"act:{name}"] = _dense_worst(res[str(dev)], res["cpu"],
+                                            f"activation {name}")
+        n += 1
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:3]
+    log(f"  (a) {n} cases (layer types, projections, operators, costs, 28 "
+        f"activations) card vs CPU within rtol {DENSE_RTOL}, atol "
+        f"{DENSE_ATOL} x max(1, max|CPU|); worst shares {top}")
+    return {"cases": n, "worst_share": max(worst.values()),
+            "worst": dict(top)}
+
+
+def phase_dropout(dev):
+    """Phase 4z-dense (b): dropout and the error clip on the card."""
+    import torch
+    from paddle_tpu_torch.layers.base import ForwardContext, _ClipError
+    from paddle_tpu_torch.ops import nn_ops
+    m = {}
+    keep = 1.0 - DROP_P
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn(DROP_SHAPE, generator=gen, device=dev) \
+        .requires_grad_(True)
+    out = nn_ops.dropout(x, ForwardContext(rng=torch.Generator(
+        device=dev).manual_seed(11)).layer_rng("fc/drop"), DROP_P)
+    g, = torch.autograd.grad(out.sum(), [x])
+    if out.device != x.device:
+        fail(f"dropout's output on {out.device}")
+    kept = out != 0
+    n = kept.numel()
+    k = int(kept.sum())
+    sigma = (n * keep * (1 - keep)) ** 0.5
+    z = (k - n * keep) / sigma
+    if abs(z) > 5:
+        fail(f"dropout kept {k} of {n}: {z:.2f} sigma from the binomial")
+    if not torch.equal(out[kept], (x / keep)[kept]) or \
+            bool((out[~kept] != 0).any()):
+        fail("dropout: kept values are not exactly x / keep")
+    if not torch.equal(g, kept.float() / keep):
+        fail("dropout: the gradient is not mask / keep")
+    if nn_ops.dropout(x, gen, DROP_P, is_training=False) is not x:
+        fail("dropout in eval is not the identity")
+
+    def mask(seed, name="fc/drop"):
+        lg = ForwardContext(rng=torch.Generator(device=dev).manual_seed(
+            seed)).layer_rng(name)
+        return nn_ops.dropout(torch.ones(DROP_SHAPE, device=dev), lg,
+                              DROP_P) != 0
+
+    if not torch.equal(mask(11), kept) or not torch.equal(mask(11),
+                                                          mask(11)):
+        fail("dropout: two runs at one seed drew different masks")
+    if torch.equal(mask(11), mask(12)) or torch.equal(mask(11),
+                                                      mask(11, "h/drop")):
+        fail("dropout: two seeds (or two layers) drew the same mask")
+    # the error clip: identity forward, the gradient clamped to ±t
+    cot = 10.0 * torch.randn(DROP_SHAPE, generator=gen, device=dev)
+    xc = x.detach().requires_grad_(True)
+    y = _ClipError.apply(xc, CLIP_T)
+    gc, = torch.autograd.grad(torch.sum(y * cot), [xc])
+    if not torch.equal(y, xc) or not torch.equal(
+            gc, torch.clamp(cot, -CLIP_T, CLIP_T)) or \
+            float(gc.abs().max()) > CLIP_T:
+        fail("the error clip's gradient is not clamp(dy, -t, t)")
+    # through the trainer: an fc at drop_rate 0.5 with lr 0, so only the
+    # masks move a loss; the step seeds are seed * 1000003 + samples_seen
+    step_losses = [_dropout_trainer_losses(dev, seed) for seed in (0, 0, 1)]
+    if step_losses[0] != step_losses[1] or \
+            len(set(step_losses[0])) != len(step_losses[0]) or \
+            step_losses[0] == step_losses[2]:
+        fail(f"dropout through the trainer: losses {step_losses} (seeds 0, "
+             "0, 1)")
+    m.update(kept=k, of=n, sigma_from_binomial=z,
+             trainer_losses=step_losses)
+    log(f"  (b) dropout p {DROP_P} over {list(DROP_SHAPE)}: kept {k} of "
+        f"{n} ({z:+.2f} sigma); kept values x / keep and gradient mask / "
+        f"keep exact; eval the identity; one seed one mask, two seeds and "
+        f"two layers two; through the trainer (lr 0) losses "
+        f"{step_losses[0]} at seed 0 twice, {step_losses[2]} at seed 1; "
+        f"the clip at t {CLIP_T}: max |dx| {float(gc.abs().max())}")
+    return m
+
+
+def _dropout_trainer_losses(dev, seed, steps=3):
+    """``steps`` losses of x (64) → fc relu 256 at drop_rate 0.5 → fc 8
+    → square_error at lr 0 on one feed, on the card."""
+    import torch
+    from paddle_tpu_torch.config.model_config import (LayerConfig,
+                                                      LayerInput,
+                                                      ModelConfig,
+                                                      OptimizationConfig)
+    from paddle_tpu_torch.layers.network import NeuralNetwork
+    from paddle_tpu_torch.trainer.trainer import Trainer
+    cfg = ModelConfig(layers=[
+        LayerConfig(name="x", type="data", size=64),
+        LayerConfig(name="t", type="data", size=8),
+        LayerConfig(name="h", type="fc", size=256, active_type="relu",
+                    drop_rate=0.5, inputs=[LayerInput(input_layer_name="x")]),
+        LayerConfig(name="y", type="fc", size=8,
+                    inputs=[LayerInput(input_layer_name="h")]),
+        LayerConfig(name="cost", type="square_error", size=1,
+                    inputs=[LayerInput(input_layer_name="y"),
+                            LayerInput(input_layer_name="t")])],
+        input_layer_names=["x", "t"], output_layer_names=["cost"])
+    r = np.random.RandomState(4)
+    feed = {"x": torch.from_numpy(r.randn(VAE_B, 64).astype(np.float32)),
+            "t": torch.from_numpy(r.randn(VAE_B, 8).astype(np.float32))}
+    tr = Trainer(NeuralNetwork(cfg), OptimizationConfig(
+        learning_method="momentum", learning_rate=0.0), seed=seed,
+        device=dev)
+    return [float(tr.train_one_batch(feed)) for _ in range(steps)]
+
+
+def _vae_feeds(n, b=VAE_B, seed=0):
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        x = (rng.rand(b, VAE_X) > 0.5).astype(np.float32)
+        out.append((x, rng.randn(b, VAE_Z).astype(np.float32)))
+    return out
+
+
+def phase_vae(dev, card):
+    """Phase 4z-dense (c): ``demo/vae/train.py``'s loop through the port
+    at full width, then 16 samples from the generating topology."""
+    import torch
+    from paddle_tpu_torch.config.config_parser import parse_config
+    from paddle_tpu_torch.core.sequence import value_of
+    from paddle_tpu_torch.layers.network import NeuralNetwork
+    from paddle_tpu_torch.trainer.trainer import Trainer
+    model, opt, _ = parse_config(VAE_CONFIG, "")
+    gen_model, _, _ = parse_config(VAE_CONFIG, "is_generating=1")
+    feeds = _vae_feeds(VAE_BATCHES)
+    m = {}
+    # the first steps on the card against the CPU from the same params
+    runs = {}
+    for where in ("cpu", dev):
+        tr = Trainer(NeuralNetwork(model), opt, seed=0, device=where)
+        losses = [float(tr.train_one_batch({
+            "x_batch": torch.from_numpy(x), "noise": torch.from_numpy(e)}))
+            for x, e in feeds[:VAE_CHECK]]
+        runs[str(where)] = (losses, {k: v.detach().cpu()
+                                     for k, v in tr.params.items()})
+        del tr
+    (lc, pc), (lg, pg) = runs["cpu"], runs[str(dev)]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
+    if loss_err > VAE_LOSS_RTOL:
+        fail(f"VAE: card losses {lg} vs CPU {lc} (rtol {loss_err:.2e})")
+    w_max, w_share = 0.0, 0.0
+    for k, v in pc.items():
+        diff = (pg[k] - v).abs()
+        w_max = max(w_max, float(diff.max()))
+        w_share = max(w_share, float((diff > 2e-5).float().mean()))
+    if w_max > VAE_W_ATOL or w_share > 1e-3:
+        fail(f"VAE: after {VAE_CHECK} steps a weight {w_max:.2e} from the "
+             f"CPU's ({w_share:.2e} of a tensor past 2e-5)")
+    log(f"  (c) VAE: {VAE_CHECK} steps card vs CPU: losses within rtol "
+        f"{loss_err:.2e}, weights within {w_max:.2e} ({w_share:.2e} of a "
+        f"tensor past 2e-5)")
+    m["card_vs_cpu"] = {"loss_rtol": loss_err, "weight_max": w_max,
+                        "weight_share_past_2e-5": w_share}
+
+    # the demo's loop: 300 batches, then 16 samples
+    trainer = Trainer(NeuralNetwork(model), opt, seed=0, device=dev)
+    placed = [{"x_batch": torch.from_numpy(x), "noise": torch.from_numpy(e)}
+              for x, e in feeds]
+    torch.cuda.synchronize()
+    reset_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    losses = [float(trainer.train_one_batch(f)) for f in placed]
+    end.record()
+    end.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in read_counts().items() if v}
+    if launches:
+        fail(f"VAE: the dense path launched kernels {launches}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"VAE: the loss did not fall ({losses[0]} -> {losses[-1]})")
+    net = trainer.network
+    values, _ = net.forward(trainer.params, {
+        k: v.to(dev) for k, v in placed[-1].items()}, is_training=False)
+    count, slots = trainer.opt_state
+    tensors = [*trainer.params.values(), count,
+               *(s for ss in slots.values() for s in ss
+                 if isinstance(s, torch.Tensor)),
+               *(value_of(v) for v in values.values())]
+    off = [t.device for t in tensors if t.device.type != "cuda"]
+    if off:
+        fail(f"VAE: {len(off)} parameters, moments or values off the card")
+    gen_net = NeuralNetwork(gen_model)
+    gen_params = {n: trainer.params[n] for n in gen_net.param_specs}
+    z = torch.from_numpy(np.random.RandomState(1).randn(
+        16, VAE_Z).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        gv, _ = gen_net.forward(gen_params, {"noise": z}, is_training=False)
+    samples = value_of(gv[gen_net.output_names[0]])
+    if tuple(samples.shape) != (16, VAE_X) or samples.device.type != \
+            "cuda" or not bool(samples.isfinite().all()) or \
+            float(samples.min()) < 0 or float(samples.max()) > 1:
+        fail(f"VAE: samples {tuple(samples.shape)} on {samples.device}, "
+             f"range [{float(samples.min())}, {float(samples.max())}]")
+    ms = wall * 1e3 / VAE_BATCHES
+    dev_ms = start.elapsed_time(end) / VAE_BATCHES
+    m.update(loss_first=losses[0], loss_last=losses[-1],
+             ms_per_batch=ms, device_ms_per_batch=dev_ms, pass_wall_s=wall,
+             samples_per_s=VAE_B / ms * 1e3, batches=VAE_BATCHES,
+             sample_mean=float(samples.mean()), tensors_on_card=len(tensors),
+             launches=launches, card=card)
+    log(f"  (c) VAE {VAE_BATCHES} batches of {VAE_B} (x {VAE_X}, z "
+        f"{VAE_Z}): loss {losses[0]:.3f} -> {losses[-1]:.3f}; "
+        f"{ms:.3f} ms/batch (host clock, float(loss) each batch as the "
+        f"demo), {dev_ms:.3f} between CUDA events, pass wall {wall:.3f} s, "
+        f"{m['samples_per_s']:.1f} samples/s; {len(tensors)} tensors on "
+        f"the card; 16 samples in [{float(samples.min()):.4f}, "
+        f"{float(samples.max()):.4f}], mean {m['sample_mean']:.4f}; no "
+        f"kernel launched; {card}")
+    return m
+
+
+def phase_dense(dev, card):
+    """Phase 4z-dense: (a) the new types card vs CPU, (b) dropout and the
+    error clip, (c) the VAE demo's loop at full width."""
+    import torch
+    t0 = time.perf_counter()
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        fail("TF32 is on")
+    m = {"types": phase_dense_types(dev), "dropout": phase_dropout(dev),
+         "vae": phase_vae(dev, card)}
+    m["seconds"] = time.perf_counter() - t0
+    log(f"  4z-dense took {m['seconds']:.1f} s")
     return m
 
 
@@ -4289,6 +4823,10 @@ def main() -> int:
             "paddle_tpu_torch (dump_config, train --job time / train / "
             "test / checkgrad) at 4d's width")
         cli = phase_cli(dev, train, loop["time_job"])
+        log("== phase 4z-dense: the dense layers, costs and activations "
+            "card vs CPU, dropout and the error clip, the VAE demo's config "
+            "at full width (fp32)")
+        dense = phase_dense(dev, card)
         for name in launches:
             launches[name]["training_ckpt"] = ckpt["launches"].get(name, 0)
             launches[name]["training_opt"] = opt["launches"].get(name, 0)
@@ -4425,7 +4963,7 @@ def main() -> int:
                                   if k != "prompt_lengths"},
                       "training": train, "training_loop": loop,
                       "training_ckpt": ckpt, "training_opt": opt,
-                      "cli": cli,
+                      "cli": cli, "dense": dense,
                       "training_h1280": blocked,
                       "training_h1280_mixed_bf16": mixed,
                       "training_h2048": wide, **resnet, "seq2seq": seq2seq,

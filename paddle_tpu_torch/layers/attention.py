@@ -136,7 +136,7 @@ class MultiHeadAttentionLayer(Layer):
             .to(pol.output_dtype)
         if self.conf.with_bias:
             out = out + params[self.bias_name()].to(out.dtype)
-        return self.finalize(like(inputs[0], out))
+        return self.finalize(like(inputs[0], out), ctx)
 
 
 @register_layer("layer_norm")
@@ -158,7 +158,7 @@ class LayerNormLayer(Layer):
         y = F.layer_norm(x.float(), (x.shape[-1],),
                          params[self.weight_name(0)], bias,
                          self.conf.attrs.get("epsilon", 1e-5))
-        return self.finalize(like(inputs[0], y.to(x.dtype)))
+        return self.finalize(like(inputs[0], y.to(x.dtype)), ctx)
 
 
 @register_layer("position_embedding")
@@ -177,4 +177,5 @@ class PositionEmbeddingLayer(Layer):
         enforce(t <= table.shape[0],
                 f"sequence length {t} exceeds position_embedding max_len "
                 f"{table.shape[0]}")
-        return self.finalize(like(inputs[0], x + table[:t][None].to(x.dtype)))
+        return self.finalize(
+            like(inputs[0], x + table[:t][None].to(x.dtype)), ctx)

@@ -6,14 +6,23 @@ computes ``forward(params, inputs, ctx)`` on tensors; autograd through
 the whole network's forward gives the backward.  Batch-norm running
 statistics live in a separate ``buffers`` dict threaded through the
 :class:`ForwardContext` (a layer reads ``ctx.buffers`` and writes
-``ctx.new_buffers``).  Dropout and error clipping have no layer in this
-slice: a config that asks for them is refused when the network is built.
+``ctx.new_buffers``).
+
+:meth:`Layer.finalize` is ``Layer::forwardActivation``'s order: the
+activation, then dropout (``drop_rate``), then the backward error clip
+(``error_clipping_threshold``).  Dropout draws from a generator of the
+layer's own: :meth:`ForwardContext.layer_rng` seeds it from the call's
+generator and a stable hash (CRC-32) of the layer's name, so a step's
+masks are the same in every process.  The JAX package folds in Python's
+``hash`` of the name, which is salted per process; its masks are not
+reproduced, only their law.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Sequence
+import zlib
+from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -22,6 +31,7 @@ from ..config.model_config import LayerConfig, ModelConfig, ParameterConfig
 from ..core.dtypes import current_policy
 from ..core.sequence import SequenceBatch, like, value_of
 from ..ops.activations import get_activation
+from ..ops.nn_ops import dropout as dropout_op
 from ..utils import PaddleTpuError, enforce
 
 LAYERS: Dict[str, type] = {}
@@ -32,8 +42,23 @@ class ForwardContext:
     """Per-call context threaded through layer forwards."""
 
     is_training: bool = True
+    #: the call's generator (the trainer seeds one a step); None draws
+    #: from seed 0, as the JAX package's ``PRNGKey(0)``
+    rng: Optional[torch.Generator] = None
     buffers: Dict[str, Any] = dataclasses.field(default_factory=dict)
     new_buffers: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    def layer_rng(self, name: str,
+                  device: Optional[Union[str, torch.device]] = None
+                  ) -> torch.Generator:
+        """A generator of its own for ``name`` on ``device`` (default the
+        call generator's): seeded from the call's seed and the CRC-32 of
+        the name, so the same call and name draw the same numbers."""
+        base = 0 if self.rng is None else self.rng.initial_seed()
+        dev = device if device is not None else (
+            "cpu" if self.rng is None else self.rng.device)
+        seed = (base * 1000003 + zlib.crc32(name.encode())) % (2 ** 63)
+        return torch.Generator(device=dev).manual_seed(seed)
 
 
 def register_layer(*names: str):
@@ -60,9 +85,6 @@ class Layer:
     layer_type = ""
 
     def __init__(self, conf: LayerConfig, model: ModelConfig):
-        enforce(conf.drop_rate == 0 and conf.error_clipping_threshold == 0,
-                f"layer {conf.name!r}: dropout and error clipping are not "
-                "ported")
         self.conf = conf
         self.name = conf.name
         self.model = model
@@ -95,15 +117,54 @@ class Layer:
                 ctx: ForwardContext) -> Any:
         raise NotImplementedError
 
-    def finalize(self, out: Any) -> Any:
-        """The layer's activation (``Layer::forwardActivation``); a
-        sequence softmax of a sequence takes its length mask."""
+    def apply_activation(self, out: Any) -> Any:
+        """The layer's activation; a sequence softmax of a sequence takes
+        its length mask."""
         act = get_activation(self.conf.active_type or None)
         if isinstance(out, SequenceBatch):
             if self.conf.active_type == "sequence_softmax":
                 return out.with_data(act(out.data, mask=out.mask()))
             return out.with_data(act(out.data))
         return act(out)
+
+    def apply_dropout(self, out: Any, ctx: ForwardContext) -> Any:
+        if self.conf.drop_rate > 0:
+            data = value_of(out)
+            data = dropout_op(
+                data, ctx.layer_rng(self.name + "/drop", data.device),
+                rate=self.conf.drop_rate, is_training=ctx.is_training)
+            return like(out, data)
+        return out
+
+    def apply_extras(self, out: Any, ctx: ForwardContext) -> Any:
+        """Dropout and the backward error clip without the activation:
+        for layers whose activation happens inside their own op
+        (``gru_step``)."""
+        out = self.apply_dropout(out, ctx)
+        t = self.conf.error_clipping_threshold
+        if t > 0:
+            out = like(out, _ClipError.apply(value_of(out), t))
+        return out
+
+    def finalize(self, out: Any, ctx: ForwardContext) -> Any:
+        """Activation, then dropout, then the error clip
+        (``Layer::forwardActivation``'s order)."""
+        return self.apply_extras(self.apply_activation(out), ctx)
+
+
+class _ClipError(torch.autograd.Function):
+    """The identity whose backward clamps the output gradient to ±t: the
+    reference's per-layer error clipping (``Layer.cpp``
+    backwardActivation, ``ExtraLayerAttribute.error_clipping_threshold``)."""
+
+    @staticmethod
+    def forward(ctx, x, t):
+        ctx.t = t
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return torch.clamp(dy, -ctx.t, ctx.t), None
 
 
 def cast_layer_output(layer: Layer, out: Any) -> Any:

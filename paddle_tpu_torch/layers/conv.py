@@ -118,7 +118,7 @@ class ConvLayer(_ImgLayer):
                                 padding=padding, groups=groups)
         if self.conf.with_bias:
             out = out + params[self.bias_name()]
-        return self.finalize(like(inputs[0], out))
+        return self.finalize(like(inputs[0], out), ctx)
 
 
 @register_layer("pool")
@@ -135,7 +135,7 @@ class PoolLayer(_ImgLayer):
         pad = (a.get("padding_y", a.get("padding", 0)), a.get("padding", 0))
         out = nn_ops.pool2d(x, kind, window=window, stride=stride,
                             padding=list(pad))
-        return self.finalize(like(inputs[0], out))
+        return self.finalize(like(inputs[0], out), ctx)
 
 
 @register_layer("batch_norm", "cudnn_batch_norm")
@@ -194,7 +194,7 @@ class BatchNormLayer(_ImgLayer):
                                         momentum=momentum,
                                         is_training=training)
         self._publish(ctx, nrm, nrv)
-        return self.finalize(like(inputs[0], y))
+        return self.finalize(like(inputs[0], y), ctx)
 
     def forward_deferred(self, params, inputs, ctx):
         """Publish the folded affine instead of applying it (this BN's
@@ -231,4 +231,4 @@ class BatchNormLayer(_ImgLayer):
             padding=[(pad[0], pad[0]), (pad[1], pad[1])], groups=groups,
             in_affine=in_affine)
         self._publish(ctx, nrm, nrv)
-        return self.finalize(like(conv_inputs[0], y))
+        return self.finalize(like(conv_inputs[0], y), ctx)

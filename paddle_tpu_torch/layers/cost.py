@@ -1,12 +1,21 @@
-"""Cost layers the ported slices use (counterpart of
-``paddle_tpu/layers/cost.py``): ``multi-class-cross-entropy``.
+"""Dense cost layers (counterpart of ``paddle_tpu/layers/cost.py``; type
+strings kept: ``multi-class-cross-entropy``,
+``multi_class_cross_entropy_with_selfnorm``,
+``soft_binary_class_cross_entropy``, ``square_error`` / ``mse`` /
+``regression_cost``, ``rank-cost``, ``lambda_cost``,
+``multi_binary_label_cross_entropy``, ``huber_regression``,
+``huber_classification``, ``smooth_l1``, ``sum_cost``).  ``crf``,
+``crf_decoding``, ``ctc`` / ``warp_ctc`` and ``cross_entropy_over_beam``
+are not ported.
 
 A cost layer outputs the per-example cost ``[N, 1]``: N = B for a
 per-sequence or dense label, N = B·T for a sequence of predictions, with
 the padded steps' cost 0 and the rows keeping the sequence's lengths
-(``_per_example`` → ``core.sequence.like``).  The network sums a cost
-layer's output and divides by N, so the objective of a sequence cost is
-the sum over valid tokens divided by B·T, as in the JAX package.
+(``_per_example`` → ``core.sequence.like``).  Where the JAX layer takes
+them (``_CostBase.weighted``), an optional third input weighs each
+example and ``coeff`` scales the cost.  The network sums a cost layer's
+output and divides by N, so the objective of a sequence cost is the sum
+over valid tokens divided by B·T, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -17,6 +26,20 @@ from ..core.sequence import SequenceBatch, like, value_of
 from ..ops import loss_ops
 from ..utils import enforce
 from .base import Layer, register_layer
+
+
+def _per_example(out, template):
+    return like(template, out.reshape(-1, 1))
+
+
+class _CostBase(Layer):
+    is_cost = True
+
+    def weighted(self, cost, inputs):
+        """The optional per-example weight (third input) and ``coeff``."""
+        if len(inputs) > 2 and inputs[2] is not None:
+            cost = cost * value_of(inputs[2]).reshape(-1)
+        return cost * self.conf.attrs.get("coeff", 1.0)
 
 
 def _masked_flatten_seq(x, label):
@@ -34,21 +57,17 @@ def _masked_flatten_seq(x, label):
 
 
 @register_layer("multi-class-cross-entropy")
-class CrossEntropyCost(Layer):
+class CrossEntropyCost(_CostBase):
     """CE of a softmax fc's logits (the fused path, when the network hands
     the producer's ``.logits`` sub-output over) or of its probabilities;
-    a sequence of predictions is masked by its lengths.  Per-example
-    weights are not ported."""
+    a sequence of predictions is masked by its lengths."""
 
-    is_cost = True
     #: set by the network just before ``forward`` from the producer's
     #: '.logits' sub-output (None: the probability path)
     logits_value = None
 
     def forward(self, params, inputs, ctx):
         logits, self.logits_value = self.logits_value, None
-        enforce(len(inputs) == 2,
-                f"layer {self.name!r}: a weighted cost is not ported")
         if logits is not None:
             # fused logits path on the native [B(, T), V] layout
             z = value_of(logits)
@@ -61,5 +80,111 @@ class CrossEntropyCost(Layer):
             cost = loss_ops.cross_entropy(x, label.reshape(-1))
         if mask is not None:
             cost = cost * mask
-        cost = cost * self.conf.attrs.get("coeff", 1.0)
-        return like(inputs[0], cost.reshape(-1, 1))
+        return _per_example(self.weighted(cost, inputs), inputs[0])
+
+
+@register_layer("multi_class_cross_entropy_with_selfnorm")
+class CrossEntropySelfNormCost(_CostBase):
+    """CE + alpha · log(Z)² self-normalisation (``CostLayer.cpp``)."""
+
+    def forward(self, params, inputs, ctx):
+        x, label, mask = _masked_flatten_seq(inputs[0], inputs[1])
+        logz = torch.log(torch.sum(x, dim=-1) + 1e-8)
+        cost = loss_ops.cross_entropy(x, label.reshape(-1)) + \
+            self.conf.attrs.get("softmax_selfnorm_alpha", 0.1) \
+            * torch.square(logz)
+        if mask is not None:
+            cost = cost * mask
+        return _per_example(self.weighted(cost, inputs), inputs[0])
+
+
+@register_layer("soft_binary_class_cross_entropy")
+class SoftBinaryCrossEntropyCost(_CostBase):
+    def forward(self, params, inputs, ctx):
+        label = value_of(inputs[1])
+        p = torch.clamp(value_of(inputs[0]), 1e-8, 1 - 1e-8)
+        cost = -torch.sum(label * torch.log(p)
+                          + (1 - label) * torch.log1p(-p), dim=-1)
+        return _per_example(self.weighted(cost, inputs), inputs[0])
+
+
+@register_layer("square_error", "mse", "regression_cost")
+class SquareErrorCost(_CostBase):
+    def forward(self, params, inputs, ctx):
+        x, label, mask = _masked_flatten_seq(inputs[0], inputs[1])
+        cost = loss_ops.square_error(x, label)
+        if mask is not None:
+            cost = cost * mask
+        return _per_example(self.weighted(cost, inputs), inputs[0])
+
+
+@register_layer("rank-cost")
+class RankingCost(_CostBase):
+    """Its third input is the label, so ``coeff`` alone scales it."""
+
+    def forward(self, params, inputs, ctx):
+        cost = loss_ops.rank_loss(value_of(inputs[0]), value_of(inputs[1]),
+                                  value_of(inputs[2]))
+        return _per_example(cost * self.conf.attrs.get("coeff", 1.0),
+                            inputs[0])
+
+
+@register_layer("lambda_cost")
+class LambdaCost(_CostBase):
+    """LambdaRank over each sequence (a query's list); neither weight nor
+    ``coeff``, as the JAX layer."""
+
+    def forward(self, params, inputs, ctx):
+        scores = inputs[0]
+        enforce(isinstance(scores, SequenceBatch),
+                "lambda_cost needs sequences")
+        s = scores.data
+        g = value_of(inputs[1])
+        cost = loss_ops.lambda_cost(
+            s[..., 0] if s.dim() == 3 else s,
+            g[..., 0] if g.dim() == 3 else g,
+            scores.mask(), self.conf.attrs.get("NDCG_num", 5))
+        return _per_example(cost, inputs[0])
+
+
+@register_layer("multi_binary_label_cross_entropy")
+class MultiBinaryLabelCrossEntropyCost(_CostBase):
+    def forward(self, params, inputs, ctx):
+        cost = loss_ops.multi_binary_label_cross_entropy(
+            value_of(inputs[0]), value_of(inputs[1]))
+        return _per_example(self.weighted(cost, inputs), inputs[0])
+
+
+@register_layer("huber_regression")
+class HuberRegressionCost(_CostBase):
+    def forward(self, params, inputs, ctx):
+        cost = loss_ops.huber_loss(value_of(inputs[0]), value_of(inputs[1]),
+                                   self.conf.attrs.get("delta", 1.0))
+        return _per_example(self.weighted(cost, inputs), inputs[0])
+
+
+@register_layer("huber_classification")
+class HuberClassificationCost(_CostBase):
+    def forward(self, params, inputs, ctx):
+        cost = loss_ops.huber_classification_cost(
+            value_of(inputs[0]), value_of(inputs[1]))
+        return _per_example(self.weighted(cost, inputs), inputs[0])
+
+
+@register_layer("smooth_l1")
+class SmoothL1Cost(_CostBase):
+    def forward(self, params, inputs, ctx):
+        cost = loss_ops.smooth_l1_loss(value_of(inputs[0]),
+                                       value_of(inputs[1]))
+        return _per_example(self.weighted(cost, inputs), inputs[0])
+
+
+@register_layer("sum_cost")
+class SumCost(_CostBase):
+    """The sum of each row; neither weight nor ``coeff``, as the JAX
+    layer."""
+
+    def forward(self, params, inputs, ctx):
+        x = value_of(inputs[0])
+        return _per_example(torch.sum(x.reshape(x.shape[0], -1), dim=-1),
+                            inputs[0])

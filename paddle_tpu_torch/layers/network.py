@@ -76,7 +76,8 @@ class NeuralNetwork:
                             if getattr(self.layers[n], "is_cost", False)]
         self.output_names = config.output_layer_names or self.order[-1:]
         # classification-cost logits peephole: a multi-class CE reading a
-        # softmax fc gets the fc's '.logits' sub-output (fused CE path)
+        # softmax fc gets the fc's '.logits' sub-output (fused CE path),
+        # unless dropout or an error clip stands between the two
         lmap = config.layer_map()
         self._cost_logit_alias: Dict[str, str] = {}
         for cname in self.cost_layers:
@@ -85,8 +86,11 @@ class NeuralNetwork:
                 continue
             pname = conf.inputs[0].input_layer_name
             pconf = lmap.get(pname)
-            if pconf is not None and pconf.type == "fc" \
-                    and pconf.active_type == "softmax":
+            if pconf is not None \
+                    and pconf.type in ("fc", "mkldnn_fc") \
+                    and pconf.active_type == "softmax" \
+                    and pconf.drop_rate == 0 \
+                    and pconf.error_clipping_threshold == 0:
                 self._cost_logit_alias[cname] = pname + ".logits"
 
         # conv/BN fusion peepholes: bn -> the conv it runs (backward
@@ -156,11 +160,14 @@ class NeuralNetwork:
     # ------------------------------------------------------------ forward
     def forward(self, params: Dict[str, torch.Tensor], feed: Dict[str, Any],
                 buffers: Optional[Dict[str, torch.Tensor]] = None,
-                is_training: bool = True
+                is_training: bool = True,
+                rng: Optional[torch.Generator] = None
                 ) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
         """Run all layers; returns (every output by name, sub-outputs as
-        ``name.key``; the buffers with this call's updates)."""
-        ctx = ForwardContext(is_training=is_training,
+        ``name.key``; the buffers with this call's updates).  Dropout
+        draws from ``rng`` (each layer from a generator of its own,
+        :meth:`ForwardContext.layer_rng`; None: seed 0)."""
+        ctx = ForwardContext(is_training=is_training, rng=rng,
                              buffers=dict(buffers or {}))
         values: Dict[str, Any] = {}
         done_groups: Set[str] = set()
@@ -231,15 +238,19 @@ class NeuralNetwork:
 
     def loss(self, params: Dict[str, torch.Tensor], feed: Dict[str, Any],
              buffers: Optional[Dict[str, torch.Tensor]] = None,
-             is_training: bool = True
+             is_training: bool = True,
+             rng: Optional[torch.Generator] = None
              ) -> Tuple[torch.Tensor, Tuple[Dict[str, Any],
                                             Dict[str, torch.Tensor]]]:
         """Scalar objective = mean per-example total cost
         (``Argument::sum`` / rows: B, or B·T for the per-token cost of
         a sequence, as the JAX package divides) → (loss, (values,
-        buffers))."""
+        buffers)).  Only the cost layers enter it, as in the JAX
+        package: a layer that combines costs downstream (the VAE's
+        ``mixed`` sum of its two costs, the 0.5 its KL term takes on
+        the way) is an output, not the objective."""
         values, new_buffers = self.forward(params, feed, buffers,
-                                           is_training)
+                                           is_training, rng)
         enforce(self.cost_layers, "network has no cost layer")
         total = None
         for cname in self.cost_layers:

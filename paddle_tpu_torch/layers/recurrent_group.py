@@ -87,7 +87,9 @@ class RecurrentGroup:
     # stacked [B, T, ...] SequenceBatch equals running them per step:
     # the JAX package's set, restricted to the layer types the port has.
     # Sequence-aware types (pooling, expand, ...) must NOT be hoisted.
-    POINTWISE_TYPES = frozenset({"fc", "addto", "scaling"})
+    POINTWISE_TYPES = frozenset({
+        "fc", "mkldnn_fc", "mixed", "addto", "scaling", "clip",
+        "slope_intercept", "power", "dot_prod", "interpolation"})
 
     def __init__(self, sub: SubModelConfig, model: ModelConfig):
         self.sub = sub
@@ -114,6 +116,15 @@ class RecurrentGroup:
         head = iname.split(".", 1)[0]
         return head if "." in iname and head in self.layers else None
 
+    def _is_pointwise(self, conf) -> bool:
+        """A pointwise type; a mixed layer only without a context
+        projection, which looks across the time axis."""
+        if conf.type not in self.POINTWISE_TYPES:
+            return False
+        return conf.type != "mixed" or not any(
+            inp.proj is not None and inp.proj.type == "context"
+            for inp in conf.inputs)
+
     def _split_scan_epilogue(self) -> Tuple[Set[str], List[str]]:
         """Split the step layers into (loop set, hoisted suffix): a layer
         runs inside the loop iff a memory depends on it (transitively) or
@@ -128,7 +139,7 @@ class RecurrentGroup:
                     f"{m['layer_name']!r} is not produced by the group")
             need.add(p)
         need |= {n for n in self.order
-                 if self.layers[n].conf.type not in self.POINTWISE_TYPES}
+                 if not self._is_pointwise(self.layers[n].conf)}
         stack = list(need)
         while stack:
             for iname in self.layers[stack.pop()].conf.input_names():

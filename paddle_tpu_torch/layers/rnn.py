@@ -3,7 +3,9 @@
 (``grumemory``) and ``gru_step``.
 
 Like the reference, ``lstmemory`` and ``gated_recurrent`` take their
-input already projected (to 4H, 3H) by an upstream fc layer.
+input already projected (to 4H, 3H) by an upstream fc layer.  Like the
+JAX layers, they return their sequence without ``finalize``: a
+``drop_rate`` or ``error_clipping_threshold`` on them has no effect.
 """
 
 from __future__ import annotations
@@ -82,7 +84,8 @@ class GruStepLayer(Layer):
     """One GRU step inside a recurrent group: inputs [0] the projected
     input ``[B, 3H]``, [1] the previous state ``[B, H]`` (a memory);
     weight ``[H, 3H]``, bias ``[3H]`` added to the input.  The
-    activations happen inside the step (no ``finalize``)."""
+    activations happen inside the step, so it takes dropout and the
+    error clip alone (``apply_extras``), as the JAX layer."""
 
     def param_specs(self):
         h = self.conf.size
@@ -99,4 +102,4 @@ class GruStepLayer(Layer):
             x, value_of(inputs[1]), params[self.weight_name(0)],
             gate_act=self.conf.attrs.get("active_gate_type", "sigmoid"),
             act=self.conf.active_type or "tanh")
-        return like(inputs[0], out)
+        return self.apply_extras(like(inputs[0], out), ctx)

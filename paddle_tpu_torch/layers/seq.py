@@ -26,7 +26,7 @@ class SequenceLastInstanceLayer(Layer):
         seq = _as_seq(self, inputs[0])
         enforce(self.conf.attrs.get("stride", -1) <= 0,
                 f"layer {self.name!r}: strided seqlastins is not ported")
-        return self.finalize(seq.last_valid())
+        return self.finalize(seq.last_valid(), ctx)
 
 
 @register_layer("average")
@@ -42,7 +42,8 @@ class AverageLayer(Layer):
         enforce(strategy in ("average", "sum"),
                 f"layer {self.name!r}: average_strategy {strategy!r} is not "
                 "ported")
-        return self.finalize(sequence_ops.sequence_pool(seq, strategy))
+        return self.finalize(sequence_ops.sequence_pool(seq, strategy),
+                             ctx)
 
 
 @register_layer("expand")

@@ -1,6 +1,7 @@
 """Convolution, pooling and batch-norm ops of the image slice
 (counterpart of ``paddle_tpu/ops/nn_ops.py``: ``conv2d``, ``pool2d``,
-``batch_norm`` and the fused conv/BN family).
+``batch_norm`` and the fused conv/BN family), and the ``dropout`` and
+``feature_map_expand`` of the dense layers.
 
 Layouts are the JAX package's: NHWC activations, HWIO weights.  The
 general conv is a library conv (``F.conv2d`` on channels-last views), as
@@ -388,3 +389,27 @@ def conv2d_bn(x, w, conv_bias, scale, bias, running_mean, running_var,
                                       scale, bias, eps)
     return y.to(pol.output_dtype), _running(running_mean, m, momentum), \
         _running(running_var, v, momentum)
+
+
+def dropout(x: torch.Tensor, gen: torch.Generator, rate: float = 0.5,
+            is_training: bool = True) -> torch.Tensor:
+    """Inverted dropout: each element kept with probability 1 − rate
+    (a uniform draw from ``gen`` below it) and scaled to ``x / keep``,
+    the rest 0; the identity in eval or at rate 0.  The gradient is
+    ``mask / keep``."""
+    if not is_training or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0).to(x.dtype)
+
+
+def feature_map_expand(x: torch.Tensor, num_filters: int,
+                       as_row: bool = True) -> torch.Tensor:
+    """Tile ``[B, D]`` into ``[B, num_filters * D]``
+    (``FeatureMapExpandLayer``): the whole row repeated, or each element
+    repeated in place (``as_row`` False)."""
+    b = x.shape[0]
+    if as_row:
+        return x[:, None, :].expand(b, num_filters, x.shape[1]).reshape(b, -1)
+    return x[:, :, None].expand(b, x.shape[1], num_filters).reshape(b, -1)

@@ -320,12 +320,15 @@ class Trainer:
         # layers read their blocks
         tables = {n: self.params[n] for n in ex_plan}
         inputs = [*dense.values(), *blocks.values()]
+        # the step's dropout seed, as the JAX trainer derives its key
+        rng = torch.Generator(device=self.device).manual_seed(
+            (self.seed * 1000003 + self.samples_seen) % (2 ** 31))
         state = self._ls_state
         if state is None:
             with psparse.exchange_scope(
                     {n: (ex_rows[n], blocks[n]) for n in ex_plan}):
                 loss, (_, buffers) = self.network.loss(
-                    {**dense, **tables}, feed, self.buffers)
+                    {**dense, **tables}, feed, self.buffers, rng=rng)
             raw = torch.autograd.grad(loss, inputs)
         else:
             # the ``--precision=bf16`` step (``_build_mixed_train_step``);
@@ -339,7 +342,7 @@ class Trainer:
                         {n: (ex_rows[n], b.to(pol.compute_dtype))
                          for n, b in blocks.items()}):
                     loss, (_, buffers) = self.network.loss(
-                        {**cparams, **tables}, feed, self.buffers)
+                        {**cparams, **tables}, feed, self.buffers, rng=rng)
                 scaled = loss * state.scale.to(loss.dtype)
             raw = torch.autograd.grad(scaled, inputs)
         grads = dict(zip(dense, raw[:len(dense)]))

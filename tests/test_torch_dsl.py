@@ -473,10 +473,11 @@ def test_is_layer_type_differs_exactly_on_the_unported_types():
               != tdsl.LayerType.is_layer_type(t)}
     assert differ == jtypes - set(T)
     assert all(jdsl.LayerType.is_layer_type(t) for t in jtypes)
-    # 110 types in the reference's registry, 25 ported (queues A13, A4c,
-    # A14 port the rest)
-    assert (len(jtypes), len(T), len(differ)) == (110, 25, 85)
-    assert not tdsl.LayerType.is_layer_type("mixed")
+    # 110 types in the reference's registry, 56 ported (queues A13b,
+    # A4c, A14 port the rest)
+    assert (len(jtypes), len(T), len(differ)) == (110, 56, 54)
+    assert tdsl.LayerType.is_layer_type("mixed")
+    assert not tdsl.LayerType.is_layer_type("tensor")
     assert tdsl.LayerType.is_layer_type(tdsl.LayerType.LSTMEMORY)
 
 
