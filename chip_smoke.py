@@ -124,6 +124,32 @@ Phases (any failure exits nonzero, without the final ``ok`` line):
    value on the card; no launch of the 22 kernels), then 16 samples of
    the ``is_generating=1`` topology on the trained parameters, finite
    and in [0, 1];
+4z-gen. the sequence layers, nested batches, the sampled layers and
+   beam-search generation, fp32 with TF32 off: (a) the 15 types of
+   ``layers/seq.py`` the slice ported, strided and nested pooling of
+   every pool type, the ten new sequence ops and six pool types, the
+   eight types of ``layers/common.py`` (tensor, selective_fc, prelu,
+   scale_shift, data_norm, hsigmoid, nce, print: it writes its input),
+   ``hierarchical_sigmoid``, ``nce_loss`` and ``selective_fc`` forward
+   and backward on the card against the same code on the CPU (rtol
+   1e-4, atol 1e-5 * max(1, max|CPU|), ids exact, planted ties in
+   lax.top_k's order); ``nce`` against the CPU op on the card's
+   negatives, ``sampling_id`` against the CPU's Gumbel-max on the card's
+   uniforms (2^16 draws a row, frequencies within 5 sigma of p); (b) the
+   seqToseq demo's reversal task (V 32, E 16, H 48; 600 Adam steps at lr
+   0.01, clip 5, seed 1) trained on the card, then beam 4: at least 3 of
+   4 exact reversals, and the CPU's decode from the card's weights equal
+   (ids, lengths; scores rtol 1e-4); (c) the main path of the slice: the
+   seq2seq row's model translating through ``NeuralNetwork.forward`` of
+   ``seq2seq_generator_config()`` (B 128 sources of 10-30 ids, beam 3,
+   max length 250): ids [128, 3, 250] in [0, 30000), lengths in [1, 250],
+   scores descending, beam 0 finite; rows 0-7 at max length 30 card
+   against CPU (ids and lengths equal, scores rtol 1e-4; a divergence
+   only where the CPU's K-th and (K+1)-th candidates lie within 1e-4,
+   printed); exactly 2 launches of kernel 13 (the encoder's two GRUs)
+   and none of any other kernel a call; every parameter, memory and step
+   value on the card; ms per decode step, the call's wall and generated
+   tokens/s beside the card's name and power limit;
 3c. the hidden-blocked LSTM kernels 10-12 (forward, BPTT, dW): through
    their ``autograd.Function`` against autograd through the plain scan,
    and each wrapper against its plain version, at (B, T, H) = (8, 5,
@@ -292,7 +318,7 @@ Phases (any failure exits nonzero, without the final ``ok`` line):
 Phases 3b-4f are PR 2's H 512 phases and run in fp32 (``use_bf16``
 off), so their readings stay comparable, as do 4z-loop and 4z-small.
 The order of the run: 1-3f, 3g-3i, 4-4f, 4z-loop, 4z-small, 4z-ckpt,
-4z-opt, 4z-cli, 4z-dense, 4g-4k,
+4z-opt, 4z-cli, 4z-dense, 4z-gen, 4g-4k,
 4l-4p, 4q-4r, 4t, 4v, 4s, 4u, 4w-4z, 4-sparse, 5.
 
 Also printed, for information: a ``torch.profiler`` window over one
@@ -2653,6 +2679,624 @@ def phase_dense(dev, card):
     return m
 
 
+# ------------------------------------------------ phase 4z-gen
+#: phase 4z-gen (a): card against CPU on the same port code (fp32, TF32
+#: off) for the sequence layers, nested batches, the sampled layers and
+#: their ops: every float output and gradient within DENSE_RTOL and
+#: DENSE_ATOL * max(1, max|CPU|), every id exact; sampling_id's
+#: frequencies over 2^16 draws a row within 5 sigma of p
+GEN_DRAWS = 2 ** 16
+#: (b): the seqToseq demo's reversal task at its widths
+#: (demo/seqToseq/train.py:32-34, :97-127): V 32, E 16, H 48, sources of
+#: 6 ids in [2, 32), B 16, 600 Adam steps at lr 0.01, clip 5, trainer
+#: seed 1, batches from RandomState(0); then beam 4, max length 8 on 4
+#: new sources: at least 3 exact reversals (:151)
+DEMO = dict(V=32, E=16, H=48, S=6, B=16, STEPS=600, BEAM=4)
+DEMO_OPT = dict(learning_method="adam", learning_rate=0.01,
+                gradient_clipping_threshold=5.0)
+#: (c): the seq2seq row's model translating: B 128 sources from
+#: RandomState(0), ids in [2, 30000), lengths in [10, 30]; beam 3, max
+#: length 250 (the generator's defaults); rows 0-7 at max length 30 card
+#: against CPU: ids and lengths equal, scores within GEN_SCORE_RTOL (fp32
+#: sums of 30 log-probabilities in other orders, the encoder through
+#: kernel 13's split products), a divergence accepted only at a step
+#: where the CPU's K-th and (K+1)-th candidate scores lie within
+#: GEN_TIE_GAP
+GEN_B, GEN_LEN, GEN_CHECK_ROWS, GEN_CHECK_LEN = 128, (10, 30), 8, 30
+GEN_SCORE_RTOL, GEN_TIE_GAP = 1e-4, 1e-4
+
+
+def _gen_run(fn, arrays, where, ints=()):
+    """``fn`` of tensors on ``where`` (numpy ``arrays``; float ones
+    require grad unless named in ``ints``) → its output and, for a float
+    output, the gradients of its finite values against a cosine ramp,
+    every tensor on the CPU."""
+    import torch
+    ts = {k: torch.from_numpy(np.array(v)).to(where)
+          for k, v in arrays.items()}
+    leaves = {k: t.requires_grad_(True) for k, t in ts.items()
+              if t.is_floating_point() and k not in ints}
+    out = fn(**ts)
+    res = {"output": out.detach()}
+    if out.is_floating_point() and leaves:
+        ramp = torch.cos(0.1 * torch.arange(out.numel(), device=out.device,
+                                            dtype=out.dtype))
+        obj = torch.sum(torch.where(out.isfinite(), out, 0.0)
+                        * ramp.reshape(out.shape))
+        grads = torch.autograd.grad(obj, list(leaves.values()),
+                                    allow_unused=True)
+        res.update({f"grad {k}": torch.zeros_like(v) if g is None else g
+                    for (k, v), g in zip(leaves.items(), grads)})
+    return {k: v.cpu() for k, v in res.items()}
+
+
+def _gen_layer(ltype, size, in_sizes, act="", bias=False, attrs=None):
+    """(net, params on the CPU) of a one-layer net, params nudged off
+    their init as the CPU tests do."""
+    import torch
+    net = dense_net(ltype, size, in_sizes, act=act, bias=bias, attrs=attrs)
+    params = {k: v + 0.01 * torch.from_numpy(np.random.RandomState(1).randn(
+        *v.shape).astype(np.float32))
+        for k, v in net.init_params(3, "cpu").items()}
+    return net, params
+
+
+def _layer_fn(net, seqs=(), nested=()):
+    """A function of (params as ``p:name``, feeds ``in*``; a sequence as
+    ``in*`` + ``in*_len``, a nested one as ``in*``, ``in*_n``,
+    ``in*_sub``) → the layer's value, masked where it is a sequence."""
+    import torch
+    from paddle_tpu_torch.core.sequence import (NestedSequenceBatch,
+                                                SequenceBatch, value_of)
+
+    def fn(**t):
+        params = {k[2:]: v for k, v in t.items() if k.startswith("p:")}
+        feed = {}
+        for k, v in t.items():
+            if k.startswith("p:") or "_" in k:
+                continue
+            if k in seqs:
+                feed[k] = SequenceBatch(v, t[k + "_len"])
+            elif k in nested:
+                feed[k] = NestedSequenceBatch(v, t[k + "_n"], t[k + "_sub"])
+            else:
+                feed[k] = v
+        val = net.forward(params, feed, is_training=False)[0]["test"]
+        out = value_of(val)
+        if isinstance(val, SequenceBatch):
+            m = val.bool_mask()
+            m = m.reshape(tuple(m.shape) + (1,) * (out.dim() - 2))
+            out = torch.where(m, out, torch.zeros((), dtype=out.dtype,
+                                                  device=out.device))
+        return out
+    return fn
+
+
+def _gen_cases():
+    """(name, fn, arrays, ints) of phase 4z-gen (a) at the sizes of the
+    JAX package's layer sweep and of the CPU parity tests."""
+    from paddle_tpu_torch.core.sequence import SequenceBatch
+    from paddle_tpu_torch.ops import embedding_ops as E
+    from paddle_tpu_torch.ops import sequence_ops as S
+    r = np.random.RandomState(0)
+
+    def seq(lens, n, name="in0"):
+        data = np.zeros((len(lens), max(max(lens), 1), n), np.float32)
+        for i, m in enumerate(lens):
+            data[i, :m] = r.uniform(-1, 1, (m, n))
+        return {name: data, name + "_len": np.array(lens, np.int32)}
+
+    def d(b, n, name="in0"):
+        return {name: r.uniform(-1, 1, (b, n)).astype(np.float32)}
+
+    def params(p):
+        return {f"p:{k}": v.numpy() for k, v in p.items()}
+
+    cases = []
+
+    def layer(name, ltype, size, in_sizes, feeds, seqs=(), ints=(),
+              nested=(), **kw):
+        net, p = _gen_layer(ltype, size, in_sizes, **kw)
+        arrays = dict(params(p))
+        for f in feeds:
+            arrays.update(f)
+        cases.append((name, _layer_fn(net, seqs, nested), arrays,
+                      tuple(ints) + tuple(k for k in arrays if "_" in k
+                                          and not k.startswith("p:"))))
+
+    # layers of seq.py at the sweep's sizes
+    for ltype, attrs in (("max", {}), ("seqfirstins", {}),
+                         ("average", {"average_strategy": "squarerootn"})):
+        layer(ltype + str(attrs), ltype, 4, [4], [seq([3, 2, 0], 4)],
+              seqs=("in0",), act="tanh", attrs=attrs)
+    for ltype, attrs in (("average", {}),
+                         ("average", {"average_strategy": "sum"}),
+                         ("average", {"average_strategy": "squarerootn"}),
+                         ("max", {}), ("seqlastins", {}),
+                         ("seqfirstins", {})):
+        layer(f"strided {ltype}{attrs}", ltype, 4, [4],
+              [seq([5, 3, 7, 1], 4)], seqs=("in0",), act="tanh",
+              attrs=dict(attrs, stride=3))
+        nd = r.uniform(-1, 1, (3, 3, 4, 4)).astype(np.float32)
+        layer(f"nested {ltype}{attrs}", ltype, 4, [4],
+              [{"in0": nd, "in0_n": np.array([3, 1, 2], np.int32),
+                "in0_sub": np.array([[2, 4, 1], [3, 0, 0], [1, 2, 0]],
+                                    np.int32)}],
+              nested=("in0",), act="tanh", attrs=attrs)
+    layer("seqconcat", "seqconcat", 4, [4, 4],
+          [seq([3, 2, 0], 4), seq([2, 2, 3], 4, "in1")], seqs=("in0", "in1"))
+    layer("seqreshape", "seqreshape", 8, [4], [seq([4, 2], 4)],
+          seqs=("in0",))
+    for ltype in ("seq_slice", "subseq"):
+        layer(ltype, ltype, 4, [4, 1, 1],
+              [seq([4, 3, 5], 4), {"in1": np.array([[1], [0], [2]],
+                                                   np.int32),
+                                   "in2": np.array([[2], [2], [3]],
+                                                   np.int32)}],
+              seqs=("in0",))
+    layer("row_conv", "row_conv", 4, [4], [seq([4, 2, 0], 4)],
+          seqs=("in0",), attrs={"context_length": 3})
+    for ltype in ("get_output", "gather_agent", "scatter_agent", "print"):
+        layer(ltype, ltype, 4, [4], [d(2, 4)])
+    sc = seq([4, 3, 0], 1)
+    sc["in0"][0, :, 0] = [0.5, 0.9, 0.9, 0.1]       # a planted tie
+    layer("kmax_seq_score", "kmax_seq_score", 2, [1], [sc], seqs=("in0",),
+          attrs={"beam_size": 2})
+    for k in (1, 3):
+        x = r.randint(0, 3, (5, 7)).astype(np.float32)    # ties
+        layer(f"maxid beam {k}", "maxid", 1, [7], [{"in0": x}],
+              attrs={"beam_size": k})
+    layer("eos_id", "eos_id", 1, [1],
+          [{"in0": np.array([[2], [1], [2]], np.int32)}],
+          attrs={"eos_id": 2})
+    layer("sub_nested_seq", "sub_nested_seq", 3, [3, 2],
+          [{"in0": r.randn(2, 3, 4, 3).astype(np.float32),
+            "in0_n": np.array([3, 2], np.int32),
+            "in0_sub": np.array([[4, 3, 2], [2, 4, 0]], np.int32),
+            "in1": np.array([[1, 0], [0, -1]], np.int32)}],
+          nested=("in0",))
+    # the sampled and parameter-owning types of common.py
+    layer("tensor", "tensor", 3, [3, 4], [d(2, 3), d(2, 4, "in1")],
+          bias=True, act="tanh")
+    layer("selective_fc", "selective_fc", 6, [4], [d(3, 4)], bias=True)
+    layer("selective_fc ids", "selective_fc", 6, [4, 2],
+          [d(3, 4), {"in1": np.array([[0, 5], [2, 2], [4, 1]], np.int32)}],
+          bias=True, act="softmax")
+    layer("prelu", "prelu", 6, [6], [d(4, 6)], attrs={"partial_sum": 2})
+    layer("scale_shift", "scale_shift", 4, [4], [d(3, 4)], bias=True)
+    for strategy, attrs in (("z-score", {"mean": 0.5, "std": 2.0}),
+                            ("min-max", {"min": -1.0, "max": 3.0}),
+                            ("decimal-scaling", {"a": 10.0})):
+        layer(f"data_norm {strategy}", "data_norm", 4, [4], [d(3, 4)],
+              attrs=dict(attrs, data_norm_strategy=strategy))
+    for n in (8, 13):
+        layer(f"hsigmoid {n}", "hsigmoid", 1, [4, 1],
+              [d(n, 4), {"in1": np.arange(n, dtype=np.int32)}],
+              bias=True, attrs={"num_classes": n})
+    # the ops: the ten sequence ops, the six pool types, the three
+    # embedding ops
+    a = seq([5, 0, 3, 7], 3, "a")
+    b2 = seq([2, 3, 0, 1], 3, "b")
+    sb = {"a": a["a"], "a_len": a["a_len"], "b": b2["b"],
+          "b_len": b2["b_len"]}
+
+    def sq(t, n):
+        return SequenceBatch(t[n], t[n + "_len"])
+    for pool in ("average", "sum", "sqrt", "max", "last", "first"):
+        cases.append((f"sequence_pool {pool}",
+                      lambda pool=pool, **t: S.sequence_pool(sq(t, "a"),
+                                                             pool),
+                      sb, ("a_len", "b_len")))
+    ops = {
+        "sequence_concat": lambda **t: S.sequence_concat(
+            sq(t, "a"), sq(t, "b")).data,
+        "sequence_slice": lambda **t: S.sequence_slice(
+            sq(t, "a"), t["off"], t["size"]).data,
+        "sub_seq": lambda **t: S.sub_seq(sq(t, "a"), t["off"],
+                                         t["size"]).data,
+        "sequence_reshape": lambda **t: S.sequence_reshape(
+            sq(t, "b"), 1).data,
+        "sequence_conv": lambda **t: S.sequence_conv(
+            sq(t, "a"), t["w"], -1, 3).data,
+        "row_conv (op)": lambda **t: S.row_conv(sq(t, "a"), t["wr"]).data,
+        "sequence_last_instance": lambda **t: S.sequence_last_instance(
+            sq(t, "a")),
+        "sequence_first_instance": lambda **t: S.sequence_first_instance(
+            sq(t, "a")),
+        "kmax_seq_score (op)": lambda **t: S.kmax_seq_score(
+            sq(t, "a"), 2),
+        "max_id (op)": lambda **t: S.max_id(t["x"], 4),
+    }
+    extra = {"off": np.array([1, 0, 2, 3], np.int32),
+             "size": np.array([3, 1, 4, 2], np.int32),
+             "w": r.randn(9, 5).astype(np.float32),
+             "wr": r.randn(3, 3).astype(np.float32),
+             "x": r.randint(0, 4, (6, 9)).astype(np.float32)}
+    for name, fn in ops.items():
+        cases.append((name, fn, dict(sb, **extra),
+                      ("a_len", "b_len", "off", "size", "x")))
+    emb = {"x": r.uniform(-1, 1, (6, 5)).astype(np.float32),
+           "labels": np.array([0, 4, 9, 3, 12, 7], np.int32),
+           "w": r.randn(12, 5).astype(np.float32) * 0.3,
+           "bias": r.randn(12).astype(np.float32) * 0.1,
+           "wf": r.randn(5, 13).astype(np.float32) * 0.3,
+           "bf": r.randn(13).astype(np.float32) * 0.1,
+           "sel": r.randint(0, 13, (6, 4)).astype(np.int32)}
+    cases.append(("hierarchical_sigmoid", lambda **t: E.hierarchical_sigmoid(
+        t["x"], t["labels"], t["w"], t["bias"], 13), emb, ("labels", "sel")))
+    cases.append(("selective_fc (op)", lambda **t: E.selective_fc(
+        t["x"], t["wf"], t["bf"], t["sel"], act="softmax"), emb,
+        ("labels", "sel")))
+    return cases
+
+
+def phase_gen_types(dev):
+    """Phase 4z-gen (a): every new layer type, op and pool type forward
+    and backward on the card against the same code on the CPU; nce and
+    sampling_id given the card's draws."""
+    import torch
+    from paddle_tpu_torch.layers.base import ForwardContext
+    from paddle_tpu_torch.ops import embedding_ops as E
+    worst, n = {}, 0
+    for name, fn, arrays, ints in _gen_cases():
+        want = _gen_run(fn, arrays, "cpu", ints)
+        got = _gen_run(fn, arrays, dev, ints)
+        if not want["output"].is_floating_point():
+            if not torch.equal(got["output"], want["output"]):
+                fail(f"4z-gen {name}: card ids {got['output'].tolist()} vs "
+                     f"CPU {want['output'].tolist()}")
+            worst[name] = 0.0
+        else:
+            worst[name] = _dense_worst(got, want, name)
+        n += 1
+    # nce: the layer on the card, its negatives re-drawn from the same
+    # card generator, the op on the CPU given them
+    r = np.random.RandomState(7)
+    net, p = _gen_layer("nce", 1, [4, 1], bias=True,
+                        attrs={"num_classes": 7, "num_neg_samples": 3})
+    x = r.uniform(-1, 1, (3, 4)).astype(np.float32)
+    labels = np.array([1, 3, 6], np.int32)
+    got = _gen_run(_layer_fn(net), {"in0": x, "in1": labels, **{
+        f"p:{k}": v.numpy() for k, v in p.items()}}, dev, ("in1",))
+    ids = torch.randint(0, 7, (3, 3), generator=ForwardContext().layer_rng(
+        "test", dev), device=dev).cpu()
+    want = _gen_run(lambda **t: E.nce_loss(
+        t["x"], t["labels"], t["w"], t["b"], ids,
+        torch.full((3, 3), 1 / 7.0)).reshape(-1, 1),
+        {"x": x, "labels": labels, "w": p["_test.w0"].numpy(),
+         "b": p["_test.wbias"].numpy()}, "cpu", ("labels",))
+    want = {"output": want["output"], "grad in0": want["grad x"],
+            "grad p:_test.w0": want["grad w"],
+            "grad p:_test.wbias": want["grad b"]}
+    worst["nce"] = _dense_worst(got, want, "nce")
+    n += 1
+    # sampling_id: one-hot rows exact through the layer; the card's ids
+    # equal the CPU's Gumbel-max on the card's uniforms; frequencies
+    net, _ = _gen_layer("sampling_id", 1, [5])
+    onehot = np.eye(5, dtype=np.float32)[[3, 0, 4, 1, 1, 2]]
+    ids = net.forward({}, {"in0": torch.from_numpy(onehot).to(dev)},
+                      is_training=False)[0]["test"].cpu()
+    if ids.tolist() != [3, 0, 4, 1, 1, 2]:
+        fail(f"4z-gen sampling_id on one-hot rows: {ids.tolist()}")
+    p = torch.tensor([0.05, 0.4, 0.0, 0.25, 0.3])
+    probs = p.to(dev).repeat(GEN_DRAWS, 1)
+    draws = E.sampling_id(torch.Generator(device=dev).manual_seed(5), probs)
+    u = torch.rand(probs.shape, generator=torch.Generator(
+        device=dev).manual_seed(5), device=dev).cpu()
+    perturbed = torch.log(torch.clamp(p, 1e-20, 1.0)) - torch.log(
+        -torch.log(torch.clamp(u, min=torch.finfo(torch.float32).tiny)))
+    top2 = torch.topk(perturbed, 2, -1)[0]
+    # rows whose two best perturbed logits lie within 1e-5 may round the
+    # other way on the other device
+    clear = (top2[:, 0] - top2[:, 1]) > 1e-5
+    same = float((draws.cpu().long() == torch.argmax(perturbed, -1))[
+        clear].double().mean())
+    freq = np.bincount(draws.cpu().numpy(), minlength=5) / GEN_DRAWS
+    sig = np.sqrt(p.numpy() * (1 - p.numpy()) / GEN_DRAWS)
+    z = np.abs(freq - p.numpy()) / np.maximum(sig, 1e-12)
+    if same < 1.0 or freq[2] != 0 or (z[sig > 0] > 5).any():
+        fail(f"4z-gen sampling_id: {same:.6f} of the card's ids equal the "
+             f"CPU's on its draws; frequencies {freq.tolist()} vs "
+             f"{p.tolist()} ({z.max():.2f} sigma)")
+    n += 1
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:3]
+    log(f"  (a) {n} cases (15 seq.py types, strided and nested pools, the "
+        f"ten sequence ops, six pool types, the eight types of common.py, "
+        f"hierarchical_sigmoid, nce_loss, selective_fc, sampling_id) card "
+        f"vs CPU within rtol {DENSE_RTOL}, atol {DENSE_ATOL} x max(1, "
+        f"max|CPU|), ids exact; worst shares {top}; sampling_id over "
+        f"{GEN_DRAWS} draws: the CPU's ids on the card's uniforms "
+        f"(but {int((~clear).sum())} rows within 1e-5), "
+        f"{z[sig > 0].max():.2f} sigma at worst")
+    return {"cases": n, "worst_share": max(worst.values()),
+            "worst": dict(top), "sampling_sigma": float(z[sig > 0].max())}
+
+
+def _demo_feed(rng, dev, b=DEMO["B"]):
+    """One batch of the demo's reversal task (demo/seqToseq/train.py:
+    97-111) with the seq2seq row's feed names."""
+    import torch
+    from paddle_tpu_torch.core.sequence import SequenceBatch
+    s = DEMO["S"]
+    src = rng.randint(2, DEMO["V"], (b, s)).astype(np.int32)
+    trg = src[:, ::-1]
+    tin = np.concatenate([np.zeros((b, 1), np.int32), trg], 1)
+    tlb = np.concatenate([trg, np.ones((b, 1), np.int32)], 1)
+
+    def sq(x):
+        return SequenceBatch(torch.from_numpy(np.ascontiguousarray(x)),
+                             torch.full((b,), x.shape[1],
+                                        dtype=torch.int32)).to(dev)
+    return {"source": sq(src), "target": sq(tin), "target_next": sq(tlb)}
+
+
+def _generate(net, params, feed, rows=None):
+    """``net.forward`` of a generator under no_grad → (ids, scores,
+    lengths) on the CPU."""
+    import torch
+    with torch.no_grad():
+        values, _ = net.forward(params, feed, is_training=False)
+    name = net.output_names[0]
+    return tuple(values[name + s].cpu()
+                 for s in ("", ".scores", ".lengths"))
+
+
+def phase_gen_demo(dev):
+    """Phase 4z-gen (b): the demo's reversal task trained on the card,
+    then beam 4 on 4 new sources: at least 3 exact reversals, and the
+    CPU's generation from the card's weights equal."""
+    import torch
+    from paddle_tpu_torch.config.model_config import OptimizationConfig
+    from paddle_tpu_torch.core.sequence import SequenceBatch
+    from paddle_tpu_torch.layers.network import NeuralNetwork
+    from paddle_tpu_torch.models import (seq2seq_config,
+                                         seq2seq_generator_config)
+    from paddle_tpu_torch.trainer.trainer import Trainer
+    V, E_, H, S = DEMO["V"], DEMO["E"], DEMO["H"], DEMO["S"]
+    rng = np.random.RandomState(0)
+    trainer = Trainer(NeuralNetwork(seq2seq_config(V, E_, H)),
+                      opt_config=OptimizationConfig(**DEMO_OPT), seed=1,
+                      device=dev)
+    t0 = time.perf_counter()
+    losses = [float(trainer.train_one_batch(_demo_feed(rng, dev)))
+              for _ in range(DEMO["STEPS"])]
+    train_s = time.perf_counter() - t0
+    gnet = NeuralNetwork(seq2seq_generator_config(
+        V, E_, H, beam_size=DEMO["BEAM"], max_length=S + 2))
+    missing = set(gnet.param_specs) - set(trainer.params)
+    if missing:
+        fail(f"4z-gen (b): generator parameters {sorted(missing)} are not "
+             "the training net's")
+    shared = {k: trainer.params[k].detach() for k in gnet.param_specs}
+    src = rng.randint(2, V, (4, S)).astype(np.int32)
+    feed = SequenceBatch(torch.from_numpy(src),
+                         torch.full((4,), S, dtype=torch.int32))
+    ids, scores, lengths = _generate(gnet, shared, {"source": feed.to(dev)})
+    cids, cscores, clengths = _generate(
+        gnet, {k: v.cpu() for k, v in shared.items()}, {"source": feed})
+    correct = sum(ids[b, 0, :int(lengths[b, 0])].tolist()
+                  == list(src[b, ::-1]) + [1] for b in range(4))
+    rel = float(((scores - cscores).abs() / cscores.abs().clamp(
+        min=1e-6)).max())
+    log(f"  (b) demo reversal: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+        f"over {DEMO['STEPS']} steps ({train_s:.1f} s, "
+        f"{train_s / DEMO['STEPS'] * 1e3:.2f} ms/step); beam "
+        f"{DEMO['BEAM']}: {correct}/4 exact reversals; CPU from the card's "
+        f"weights: ids equal {torch.equal(ids, cids)}, lengths equal "
+        f"{torch.equal(lengths, clengths)}, scores within rtol {rel:.2e}")
+    if correct < 3:
+        fail(f"4z-gen (b): {correct}/4 exact reversals (the demo needs 3)")
+    if not (torch.equal(ids, cids) and torch.equal(lengths, clengths)
+            and rel <= GEN_SCORE_RTOL):
+        fail("4z-gen (b): the CPU's generation from the card's weights "
+             f"differs (scores rtol {rel:.2e})")
+    return {"loss_first": losses[0], "loss_last": losses[-1],
+            "train_s": train_s, "correct": correct, "score_rtol": rel}
+
+
+def _gen_source(dev=None):
+    """The full-width feed of (c): B 128 sources from RandomState(0),
+    ids in [2, 30000), lengths in [10, 30]."""
+    import torch
+    from paddle_tpu_torch.core.sequence import SequenceBatch
+    rng = np.random.RandomState(0)
+    lo, hi = GEN_LEN
+    ids = rng.randint(2, S2S["V"], (GEN_B, hi)).astype(np.int32)
+    lengths = rng.randint(lo, hi + 1, GEN_B).astype(np.int32)
+    feed = SequenceBatch(torch.from_numpy(ids), torch.from_numpy(lengths))
+    return feed if dev is None else feed.to(dev)
+
+
+class _TopKTrace:
+    """Records, at every beam step, the K+1 best candidate scores and the
+    K chosen flat indices of each row (wraps the decoder's ``top_k``)."""
+
+    def __init__(self):
+        self.steps = []
+
+    def __enter__(self):
+        from paddle_tpu_torch.layers import beam_search
+        from paddle_tpu_torch.ops.math_ops import top_k
+        self._mod, self._orig = beam_search, beam_search.top_k
+
+        def traced(x, k):
+            vals, idx = top_k(x, k + 1)
+            self.steps.append((vals.cpu(), idx[:, :k].cpu()))
+            return vals[:, :k], idx[:, :k]
+        beam_search.top_k = traced
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.top_k = self._orig
+
+
+def phase_gen_full(dev, card):
+    """Phase 4z-gen (c): the seq2seq row's model translating on the card
+    through ``NeuralNetwork.forward`` of ``seq2seq_generator_config()``."""
+    import torch
+    from paddle_tpu_torch.layers.network import NeuralNetwork
+    from paddle_tpu_torch.models import (seq2seq_config,
+                                         seq2seq_generator_config)
+    from paddle_tpu_torch.ops import gru as G
+    V, E_, H = S2S["V"], S2S["E"], S2S["H"]
+    params = NeuralNetwork(seq2seq_config(V, E_, H)).init_params(
+        seed=0, device=dev)
+    net = NeuralNetwork(seq2seq_generator_config(V, E_, H))
+    gen = net.decoders[net.config.sub_models[-1].name]
+    k, max_len = int(gen.gen["beam_size"]), int(gen.gen["max_length"])
+    shared = {n: params[n] for n in net.param_specs}
+    del params
+    feed = _gen_source()
+
+    # rows 0-7 at max length 30: card against CPU, with each step's K-th
+    # and (K+1)-th candidate scores traced
+    short = NeuralNetwork(seq2seq_generator_config(
+        V, E_, H, max_length=GEN_CHECK_LEN))
+    rows = GEN_CHECK_ROWS
+    sub = type(feed)(feed.data[:rows], feed.length[:rows])
+    with _TopKTrace() as card_trace:
+        on_card = _generate(short, shared, {"source": sub.to(dev)})
+    cpu_params = {n: v.cpu() for n, v in shared.items()}
+    t0 = time.perf_counter()
+    with _TopKTrace() as cpu_trace:
+        cpu = _generate(short, cpu_params, {"source": sub})
+    cpu_s = time.perf_counter() - t0
+    del cpu_params
+    diverged, worst_rel = [], 0.0
+    for b in range(rows):
+        first = next((t for t, (c, g) in enumerate(
+            zip(cpu_trace.steps, card_trace.steps))
+            if not torch.equal(c[1][b], g[1][b])), None)
+        if first is not None:
+            vals = cpu_trace.steps[first][0][b]
+            gap = float(vals[k - 1] - vals[k])
+            log(f"  (c) row {b} diverges at step {first}: the CPU's K-th "
+                f"and (K+1)-th candidate scores {float(vals[k - 1]):.6f}, "
+                f"{float(vals[k]):.6f} (gap {gap:.2e})")
+            if gap > GEN_TIE_GAP:
+                fail(f"4z-gen (c): row {b} diverges at step {first} with a "
+                     f"gap of {gap:.2e} > {GEN_TIE_GAP}")
+            diverged.append((b, first, gap))
+            continue
+        if not (torch.equal(on_card[0][b], cpu[0][b])
+                and torch.equal(on_card[2][b], cpu[2][b])):
+            fail(f"4z-gen (c): row {b}: ids or lengths differ card vs CPU")
+        rel = float(((on_card[1][b] - cpu[1][b]).abs()
+                     / cpu[1][b].abs().clamp(min=1e-6)).max())
+        if rel > GEN_SCORE_RTOL:
+            fail(f"4z-gen (c): row {b}: scores off by rtol {rel:.2e}")
+        worst_rel = max(worst_rel, rel)
+    log(f"  (c) rows 0-{rows - 1} at max length {GEN_CHECK_LEN}: card vs "
+        f"CPU ids and lengths equal, scores within rtol {worst_rel:.2e} "
+        f"(limit {GEN_SCORE_RTOL}); {len(diverged)} rows diverged at a "
+        f"tie; the CPU run {cpu_s:.1f} s")
+
+    # the full call: every memory and step value on the card
+    seen = {"steps": 0, "off": 0}
+    step = gen.group.step
+
+    def checked_step(params, frame, mems, outer, ctx, order=None):
+        new, values = step(params, frame, mems, outer, ctx, order)
+        seen["steps"] += 1
+        for v in [*mems, *new, *values.values()]:
+            data = getattr(v, "data", v)
+            if isinstance(data, torch.Tensor) and data.device.type != "cuda":
+                seen["off"] += 1
+        return new, values
+    gen.group.step = checked_step
+    src = feed.to(dev)
+    try:
+        _generate(net, shared, {"source": src})          # warm
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        seen.update(steps=0, off=0)
+        reset_counts()
+        t0 = time.perf_counter()
+        start.record()
+        ids, scores, lengths = _generate(net, shared, {"source": src})
+        end.record()
+        end.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+    finally:
+        gen.group.step = step
+    device_ms = start.elapsed_time(end)
+    if any(v.device.type != "cuda" for v in shared.values()) \
+            or seen["off"] or seen["steps"] != max_len:
+        fail(f"4z-gen (c): {seen['off']} step values off the card over "
+             f"{seen['steps']} steps")
+    if launches["gru_fwd"] != 2 or any(
+            launches[n] for n in launches if n != "gru_fwd"):
+        fail(f"4z-gen (c): launches {launches}; want 2 of gru_fwd (the "
+             "encoder's two grumemory layers) and no other")
+    if tuple(ids.shape) != (GEN_B, k, max_len) or int(ids.min()) < 0 \
+            or int(ids.max()) >= V or int(lengths.min()) < 1 \
+            or int(lengths.max()) > max_len \
+            or not bool((scores[:, 1:] <= scores[:, :-1]).all()) \
+            or not bool(scores[:, 0].isfinite().all()):
+        fail(f"4z-gen (c): ids {tuple(ids.shape)} in [{int(ids.min())}, "
+             f"{int(ids.max())}], lengths in [{int(lengths.min())}, "
+             f"{int(lengths.max())}], scores not descending or not finite")
+    busy = _profile_generate(net, shared, src, max_len)
+    best = int(lengths[:, 0].sum())
+    m = {"ms_per_step": wall * 1e3 / max_len, "wall_s": wall,
+         "busy_share": busy,
+         "device_ms": device_ms,
+         "tokens_per_s": GEN_B * k * max_len / wall,
+         "best_tokens_per_s": best / wall,
+         "launches": launches, "diverged": diverged,
+         "score_rtol": worst_rel, "cpu_rows_s": cpu_s,
+         "best_lengths_mean": best / GEN_B}
+    log(f"  (c) translation B {GEN_B}, beam {k}, max length {max_len}: "
+        f"{m['ms_per_step']:.3f} ms per decode step, call wall "
+        f"{wall:.3f} s (device {device_ms:.1f} ms between events), "
+        f"{m['tokens_per_s']:.1f} generated tokens/s over every beam "
+        f"({m['best_tokens_per_s']:.1f} in the best beams, mean length "
+        f"{m['best_lengths_mean']:.1f}); gru_fwd launched "
+        f"{launches['gru_fwd']} times; card: {card}")
+    return m
+
+
+def _profile_generate(net, params, src, steps):
+    """One translation call under torch.profiler: the device's busy
+    share, its device items a decode step and the 8 largest by device
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _generate(net, params, {"source": src})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = sorted(device_rows(prof), key=lambda r: -r[1])
+    busy_us = sum(r[1] for r in rows)
+    log(f"  (c) profiled call: wall {wall * 1e3:.1f} ms, device busy "
+        f"{busy_us / 1e3:.1f} ms ({100 * busy_us / (wall * 1e6):.1f} %), "
+        f"{sum(r[2] for r in rows) / steps:.0f} device items a decode step")
+    for key, us, n in rows[:8]:
+        log(f"    {us / 1e3:9.3f} ms ({us / steps:8.2f} us a step)  {n:6d} x"
+            f"  {key[:90]}")
+    return busy_us / (wall * 1e6)
+
+
+def phase_gen(dev, card):
+    """Phase 4z-gen: (a) the new types card vs CPU, (b) the demo's
+    reversal task trained and decoded on the card, (c) the seq2seq row's
+    model translating at full width."""
+    import torch
+    t0 = time.perf_counter()
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        fail("TF32 is on")
+    m = {"types": phase_gen_types(dev), "demo": phase_gen_demo(dev),
+         "translate": phase_gen_full(dev, card)}
+    m["seconds"] = time.perf_counter() - t0
+    log(f"  4z-gen took {m['seconds']:.1f} s")
+    return m
+
+
 def lstm_work(b, t, h, n_valid, backward):
     """(bytes, flops) of one LSTM kernel call: every input read once and
     every output written once; the recurrent products of the valid
@@ -4827,10 +5471,16 @@ def main() -> int:
             "card vs CPU, dropout and the error clip, the VAE demo's config "
             "at full width (fp32)")
         dense = phase_dense(dev, card)
+        log("== phase 4z-gen: the sequence layers, nested batches and the "
+            "sampled layers card vs CPU, the seqToseq demo trained and "
+            "decoded, the seq2seq row's model translating at full width "
+            "(fp32)")
+        gen = phase_gen(dev, card)
         for name in launches:
             launches[name]["training_ckpt"] = ckpt["launches"].get(name, 0)
             launches[name]["training_opt"] = opt["launches"].get(name, 0)
             launches[name]["cli"] = cli["launches"].get(name, 0)
+            launches[name]["gen"] = gen["translate"]["launches"].get(name, 0)
         log("== phase 4g: blocked main path, the classifier at H 1280 "
             "under bench.py's flags (use_bf16, bf16_activations)")
         set_flags(**BENCH_FLAGS)
@@ -4963,7 +5613,7 @@ def main() -> int:
                                   if k != "prompt_lengths"},
                       "training": train, "training_loop": loop,
                       "training_ckpt": ckpt, "training_opt": opt,
-                      "cli": cli, "dense": dense,
+                      "cli": cli, "dense": dense, "gen": gen,
                       "training_h1280": blocked,
                       "training_h1280_mixed_bf16": mixed,
                       "training_h2048": wide, **resnet, "seq2seq": seq2seq,

@@ -100,8 +100,8 @@ class DataFeeder:
             if t.seq_level >= 2:
                 raise PaddleTpuError(
                     f"DataFeeder: input {name!r} is a sub-sequence "
-                    "(seq_level 2); the nested sequence batch is not "
-                    "ported yet (queue A4c)")
+                    "(seq_level 2); sub-sequence feeds are not ported "
+                    "yet (queue A4c part 2)")
 
     @staticmethod
     def _densify(row, dim: int, kind: str, dt: np.dtype) -> np.ndarray:

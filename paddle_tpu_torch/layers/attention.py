@@ -9,7 +9,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config.model_config import ParameterConfig
-from ..core.dtypes import current_policy
+from ..core.dtypes import current_policy, record_op_precision
 from ..core.sequence import SequenceBatch, like, value_of
 from ..ops.attention import (flash_attention, flash_attention_packed,
                              packed_tileable, record_attention_dispatch,
@@ -102,6 +102,7 @@ class MultiHeadAttentionLayer(Layer):
         heads = self.conf.attrs.get("num_heads", 1)
         dh = size // heads
         pol = current_policy()
+        record_op_precision("attention")
         cd = pol.compute_dtype
         if len(inputs) == 1:
             x, q_len = _seq_parts(inputs[0])

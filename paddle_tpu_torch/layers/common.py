@@ -3,15 +3,17 @@ data, fc (``mkldnn_fc``), embedding, addto, concat, ``mixed`` with its
 eight projections and two operators, ``concat2``, and the parameter-free
 dense types (interpolation, out_prod, power, scaling, slope_intercept,
 convex_comb, cos, cos_vm, sum_to_one_norm, row_l2_norm, trans, resize,
-clip, multiplex, dot_prod, featmap_expand, conv_shift).  Layer type
-strings match the reference's registered names.
+clip, multiplex, dot_prod, featmap_expand, conv_shift), and the types
+that own parameters or sample: tensor, selective_fc, prelu,
+scale_shift, data_norm, hsigmoid, nce, print.  Layer type strings match
+the reference's registered names.
 
 Each layer reaches :meth:`~paddle_tpu_torch.layers.base.Layer.finalize`
 (activation, dropout, error clip) exactly where its JAX counterpart
 does: cos, cos_vm, sum_to_one_norm, row_l2_norm, trans, resize, clip,
-multiplex, dot_prod and featmap_expand return their value as it is, as
-there.  ``tensor``, ``selective_fc``, ``prelu``, ``scale_shift``,
-``data_norm``, ``hsigmoid``, ``nce`` and ``print`` are not ported.
+multiplex, dot_prod, featmap_expand, selective_fc (its activation
+inside the op), prelu, data_norm, hsigmoid and nce return their value
+as it is, as there.
 """
 
 from __future__ import annotations
@@ -492,3 +494,180 @@ class ConvShiftLayer(Layer):
     def forward(self, params, inputs, ctx):
         out = math_ops.conv_shift(value_of(inputs[0]), value_of(inputs[1]))
         return self.finalize(like(inputs[0], out), ctx)
+
+
+@register_layer("selective_fc")
+class SelectiveFcLayer(Layer):
+    """``SelectiveFullyConnectedLayer``: with a second input of ids ``[B,
+    K]``, only those output columns (``[B, K]``); else a plain fc.  The
+    activation is applied inside the op, and no dropout or error clip,
+    as in the JAX layer."""
+
+    def param_specs(self):
+        in_size = self.model.find_size(self.conf.inputs[0].input_layer_name)
+        specs = [self._weight_spec(0, (in_size, self.conf.size),
+                                   initial_smart=True)]
+        if self.conf.with_bias:
+            specs.append(self._bias_spec((self.conf.size,)))
+        return specs
+
+    def forward(self, params, inputs, ctx):
+        sel = value_of(inputs[1]).to(torch.int32) if len(inputs) > 1 \
+            else None
+        out = embedding_ops.selective_fc(
+            value_of(inputs[0]), params[self.weight_name(0)],
+            params[self.bias_name()] if self.conf.with_bias else None,
+            sel, act=self.conf.active_type or "linear")
+        return like(inputs[0], out)
+
+
+@register_layer("scale_shift")
+class ScaleShiftLayer(Layer):
+    """x · w + b with one learned scalar each (w starts at 1)."""
+
+    def param_specs(self):
+        specs = [self._weight_spec(0, (1,), initial_mean=1.0,
+                                   initial_std=0.0)]
+        if self.conf.with_bias:
+            specs.append(self._bias_spec((1,)))
+        return specs
+
+    def forward(self, params, inputs, ctx):
+        out = value_of(inputs[0]) * params[self.weight_name(0)][0]
+        if self.conf.with_bias:
+            out = out + params[self.bias_name()][0]
+        return self.finalize(like(inputs[0], out), ctx)
+
+
+@register_layer("prelu")
+class ParameterReluLayer(Layer):
+    """Parametric ReLU: one learned slope (starting at 0.25) for each
+    ``partial_sum`` neighbouring features; no activation, as in the JAX
+    layer."""
+
+    def param_specs(self):
+        n = self.conf.size // self.conf.attrs.get("partial_sum", 1)
+        return [self._weight_spec(0, (n,), initial_mean=0.25,
+                                  initial_std=0.0)]
+
+    def forward(self, params, inputs, ctx):
+        v = value_of(inputs[0])
+        a = torch.repeat_interleave(params[self.weight_name(0)],
+                                    self.conf.attrs.get("partial_sum", 1)
+                                    )[:v.shape[-1]]
+        return like(inputs[0], torch.where(v >= 0, v, a * v))
+
+
+@register_layer("tensor")
+class TensorLayer(Layer):
+    """``TensorLayer``: out_k = x1 W_k x2ᵀ for each output unit k, W
+    ``[size, d1, d2]``, through ``math_ops.einsum``."""
+
+    def param_specs(self):
+        d1 = self.model.find_size(self.conf.inputs[0].input_layer_name)
+        d2 = self.model.find_size(self.conf.inputs[1].input_layer_name)
+        specs = [self._weight_spec(0, (self.conf.size, d1, d2),
+                                   initial_smart=True)]
+        if self.conf.with_bias:
+            specs.append(self._bias_spec((self.conf.size,)))
+        return specs
+
+    def forward(self, params, inputs, ctx):
+        out = math_ops.einsum("bi,kij,bj->bk", value_of(inputs[0]),
+                              params[self.weight_name(0)],
+                              value_of(inputs[1]))
+        if self.conf.with_bias:
+            out = out + params[self.bias_name()]
+        return self.finalize(like(inputs[0], out), ctx)
+
+
+@register_layer("nce")
+class NCELayer(Layer):
+    """Noise-contrastive estimation cost ``[B, 1]`` (``NCELayer``) with
+    ``num_neg_samples`` negatives a row drawn uniformly over the classes
+    from the layer's own generator (:meth:`ForwardContext.layer_rng`)."""
+
+    def param_specs(self):
+        d = self.model.find_size(self.conf.inputs[0].input_layer_name)
+        num_classes = self.conf.attrs["num_classes"]
+        specs = [self._weight_spec(0, (num_classes, d), initial_smart=True)]
+        if self.conf.with_bias:
+            specs.append(self._bias_spec((num_classes,)))
+        return specs
+
+    def forward(self, params, inputs, ctx):
+        x = value_of(inputs[0])
+        labels = value_of(inputs[1]).reshape(-1)
+        num_classes = self.conf.attrs["num_classes"]
+        num_neg = self.conf.attrs.get("num_neg_samples", 10)
+        sample_ids = torch.randint(
+            0, num_classes, (x.shape[0], num_neg),
+            generator=ctx.layer_rng(self.name, x.device), device=x.device)
+        probs = torch.full((x.shape[0], num_neg), 1.0 / num_classes,
+                           device=x.device)
+        b = params[self.bias_name()] if self.conf.with_bias else \
+            torch.zeros(num_classes, dtype=x.dtype, device=x.device)
+        cost = embedding_ops.nce_loss(x, labels, params[self.weight_name(0)],
+                                      b, sample_ids, probs)
+        return like(inputs[0], cost.reshape(-1, 1))
+
+
+@register_layer("hsigmoid")
+class HierarchicalSigmoidLayer(Layer):
+    """Hierarchical sigmoid cost ``[B, 1]`` over ``num_classes - 1``
+    inner nodes."""
+
+    def param_specs(self):
+        d = self.model.find_size(self.conf.inputs[0].input_layer_name)
+        n = self.conf.attrs["num_classes"] - 1
+        specs = [self._weight_spec(0, (n, d), initial_smart=True)]
+        if self.conf.with_bias:
+            specs.append(self._bias_spec((n,)))
+        return specs
+
+    def forward(self, params, inputs, ctx):
+        x = value_of(inputs[0])
+        num_classes = self.conf.attrs["num_classes"]
+        b = params[self.bias_name()] if self.conf.with_bias else \
+            torch.zeros(num_classes - 1, dtype=x.dtype, device=x.device)
+        cost = embedding_ops.hierarchical_sigmoid(
+            x, value_of(inputs[1]).reshape(-1), params[self.weight_name(0)],
+            b, num_classes)
+        return like(inputs[0], cost.reshape(-1, 1))
+
+
+@register_layer("data_norm")
+class DataNormLayer(Layer):
+    """Normalisation with fixed statistics from ``attrs``
+    (``DataNormLayer``): ``z-score`` (mean, std), ``min-max`` (min, max)
+    or decimal scaling (a)."""
+
+    def forward(self, params, inputs, ctx):
+        v = value_of(inputs[0])
+        attrs = self.conf.attrs
+
+        def stat(key, default):
+            return torch.as_tensor(attrs.get(key, default), dtype=v.dtype,
+                                   device=v.device)
+
+        strategy = attrs.get("data_norm_strategy", "z-score")
+        if strategy == "z-score":
+            out = (v - stat("mean", 0.0)) / torch.clamp(stat("std", 1.0),
+                                                        min=1e-8)
+        elif strategy == "min-max":
+            mn = stat("min", 0.0)
+            out = (v - mn) / torch.clamp(stat("max", 1.0) - mn, min=1e-8)
+        else:                                       # decimal-scaling
+            out = v / stat("a", 1.0)
+        return like(inputs[0], out)
+
+
+@register_layer("print")
+class PrintLayer(Layer):
+    """Writes ``name: value`` to stdout from the host (``PrintLayer``);
+    its output is its input."""
+
+    def forward(self, params, inputs, ctx):
+        print(f"{self.name}: {value_of(inputs[0]).detach().cpu().numpy()}",
+              flush=True)
+        return inputs[0]

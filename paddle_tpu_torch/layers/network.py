@@ -18,8 +18,10 @@ on shapes and fall back to the exact unfused composition.
 Recurrent-group sub-models run through
 :class:`~paddle_tpu_torch.layers.recurrent_group.RecurrentGroup`: a
 group runs when one of its out-links is first needed, reading the outer
-values it needs as static inputs.  Generating groups (beam search) and
-nested groups are refused at build time.
+values it needs as static inputs.  A generating group is decoded there
+by its :class:`~paddle_tpu_torch.layers.beam_search.BeamSearchDecoder`
+(built with the network), whose bundle the ``beam_gen`` layer exposes.
+Nested groups are refused at build time.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from .base import (ForwardContext, Layer, cast_layer_output,
                    get_layer_class, init_parameter)
 # register the layer types
 from . import attention, common, conv, cost, rnn, seq  # noqa: F401
+from .beam_search import BeamSearchDecoder
 from .recurrent_group import RecurrentGroup, check_supported
 
 
@@ -49,11 +52,15 @@ class NeuralNetwork:
         # recurrent groups: their step layers run inside the group
         self.group_of: Dict[str, str] = {}
         self.groups: Dict[str, RecurrentGroup] = {}
+        self.decoders: Dict[str, BeamSearchDecoder] = {}
         for sm in config.sub_models:
             if sm.name == "root":
                 continue
             self.group_of.update({ln: sm.name for ln in sm.layer_names})
-            self.groups[sm.name] = RecurrentGroup(sm, config)
+            if sm.is_generating:
+                self.decoders[sm.name] = BeamSearchDecoder(sm, config)
+            else:
+                self.groups[sm.name] = RecurrentGroup(sm, config)
         self.layers: Dict[str, Layer] = {}
         self.order: List[str] = []
         for lconf in config.layers:
@@ -66,10 +73,8 @@ class NeuralNetwork:
         # parameter specs: layer-declared, merged with config-declared
         declared = {p.name: p for p in config.parameters}
         self.param_specs: Dict[str, ParameterConfig] = {}
-        for layers in [self.layers] + [g.layers for g in
-                                       self.groups.values()]:
-            for layer in layers.values():
-                self._collect_specs(layer, declared)
+        for layer in self._all_layers():
+            self._collect_specs(layer, declared)
         self.static_params = {n for n, s in self.param_specs.items()
                               if s.is_static}
         self.cost_layers = [n for n in self.order
@@ -108,6 +113,13 @@ class NeuralNetwork:
             "bwd_3x3": len(self._conv_bn_fuse), "fwd_3x3": fwd3,
             "fwd_1x1": len(self._bn_conv_fuse) - fwd3}
 
+    def _all_layers(self) -> List[Layer]:
+        """The root's layers, then each group's and each decoder's."""
+        groups = [*self.groups.values(),
+                  *(d.group for d in self.decoders.values())]
+        return [*self.layers.values(),
+                *(lyr for g in groups for lyr in g.layers.values())]
+
     def _collect_specs(self, layer: Layer,
                        declared: Dict[str, ParameterConfig]) -> None:
         for spec in layer.param_specs():
@@ -144,9 +156,7 @@ class NeuralNetwork:
         f32) on ``device`` (default CUDA, as :meth:`init_params`)."""
         dev = resolve_device(device)
         buffers: Dict[str, torch.Tensor] = {}
-        for layer in [*self.layers.values(),
-                      *(lyr for g in self.groups.values()
-                        for lyr in g.layers.values())]:
+        for layer in self._all_layers():
             if hasattr(layer, "buffer_specs"):
                 buffers.update({k: v.to(dev) for k, v in
                                 layer.buffer_specs().items()})
@@ -221,19 +231,28 @@ class NeuralNetwork:
             gname = self.group_of.get(name)
             if name not in values and gname is not None \
                     and gname not in done_groups \
-                    and name in self.groups[gname].out_links:
+                    and name in self._out_links(gname):
                 self._run_group(name, params, values, ctx, done_groups)
         ctx.buffers.update(ctx.new_buffers)
         return values, ctx.buffers
 
+    def _out_links(self, gname: str) -> List[str]:
+        group = self.groups.get(gname) or self.decoders[gname].group
+        return group.out_links
+
     def _run_group(self, name: str, params, values, ctx,
                    done_groups: Set[str]) -> None:
         """Produce ``name``, an out-link of a recurrent group not yet run,
-        by running its group."""
+        by running its group (a generating group: decoding it, each
+        out-link then holding the generation bundle)."""
         gname = self.group_of.get(name)
         if gname is None or gname in done_groups:
             raise PaddleTpuError(f"layer input {name!r} has no producer")
-        self.groups[gname].run(params, values, ctx)
+        if gname in self.decoders:
+            bundle = self.decoders[gname].generate(params, values, ctx)
+            values.update(dict.fromkeys(self._out_links(gname), bundle))
+        else:
+            self.groups[gname].run(params, values, ctx)
         done_groups.add(gname)
 
     def loss(self, params: Dict[str, torch.Tensor], feed: Dict[str, Any],

@@ -7,11 +7,12 @@ The JAX package traces the step once and drives it with ``lax.scan``;
 here the time loop is a Python loop over steps on tensors, and autograd
 through it is the backward.  Memories are the loop's carries (a memory
 reads a layer's previous-step output through its link name, booted from
-a boot layer cast to the policy output dtype, or zeros); in-links are
-sliced per step; out-links are stacked.  A padded step keeps every
-carry, ``m·new + (1−m)·old``, and its out-link rows are 0.  Outer values
-a step reads that are neither in-links nor memories (the encoder
-sequence of an attention decoder) are static inputs.
+a boot layer cast to the policy output dtype, or zeros plus the memory's
+``boot_bias``); in-links are sliced per step; out-links are stacked.  A
+padded step keeps every carry, ``m·new + (1−m)·old``, and its out-link
+rows are 0.  Outer values a step reads that are neither in-links nor
+memories (the encoder sequence of an attention decoder) are static
+inputs.
 
 Epilogue hoisting (:meth:`RecurrentGroup._split_scan_epilogue`, on by
 default through the class attribute ``HOIST``): step layers that no
@@ -21,9 +22,10 @@ projection becomes one ``[B·T, H] × [H, V]`` product instead of T.  The
 hoisted out-link producer's ``.logits`` sub-output is exposed, so a
 classification cost takes the fused logits path.
 
-Nested groups (nested-sequence in-links), generating groups and beam
-search are not ported; :func:`check_supported` refuses them when the
-network is built.
+:meth:`RecurrentGroup.step` runs one timestep; the beam-search decoder
+of a generating group (``layers/beam_search.py``) drives the group with
+it.  Nested groups (nested-sequence in-links) are not ported;
+:func:`check_supported` refuses them when the network is built.
 """
 
 from __future__ import annotations
@@ -40,10 +42,10 @@ from .base import ForwardContext, cast_layer_output, get_layer_class
 
 
 def check_supported(config: ModelConfig) -> None:
-    """Refuse, at build time, the groups this slice does not run:
-    generating groups (beam search) and nested groups — a group stepping
-    over subsequences, i.e. an in-link that depends on a nested-sequence
-    (``seq_level`` 2) data layer."""
+    """Refuse, at build time, the groups the port does not run: nested
+    groups — a group stepping over subsequences, i.e. an in-link that
+    depends on a nested-sequence (``seq_level`` 2) data layer — and a
+    group flagged generating whose config carries no generator."""
     lmap = config.layer_map()
 
     def nested_source(name: str, seen: Set[str]) -> Optional[str]:
@@ -62,10 +64,10 @@ def check_supported(config: ModelConfig) -> None:
     for sm in config.sub_models:
         if sm.name == "root":
             continue
-        if sm.is_generating:
+        if sm.is_generating and not sm.generator:
             raise PaddleTpuError(
-                f"recurrent group {sm.name!r} is a generating group (beam "
-                "search), which is not ported")
+                f"recurrent group {sm.name!r} is flagged as a generating "
+                "group but has no generator (beam_search settings)")
         for link in sm.in_links:
             src = nested_source(link, set())
             if src:
@@ -85,11 +87,12 @@ class RecurrentGroup:
     # Layer types whose forward is pointwise over leading axes (they act
     # on the trailing feature dim only), so running them once on a
     # stacked [B, T, ...] SequenceBatch equals running them per step:
-    # the JAX package's set, restricted to the layer types the port has.
-    # Sequence-aware types (pooling, expand, ...) must NOT be hoisted.
+    # the JAX package's set.  Sequence-aware types (pooling, expand, ...)
+    # must NOT be hoisted.
     POINTWISE_TYPES = frozenset({
         "fc", "mkldnn_fc", "mixed", "addto", "scaling", "clip",
-        "slope_intercept", "power", "dot_prod", "interpolation"})
+        "slope_intercept", "power", "get_output", "maxid", "print",
+        "dot_prod", "interpolation"})
 
     def __init__(self, sub: SubModelConfig, model: ModelConfig):
         self.sub = sub
@@ -157,7 +160,11 @@ class RecurrentGroup:
             return value_of(values[boot]).to(dtype)
         size = mem.get("size", 0) or \
             self.model.find_size(mem["layer_name"].split(".", 1)[0])
-        return torch.zeros((batch, size), dtype=dtype, device=device)
+        init = torch.zeros((batch, size), dtype=dtype, device=device)
+        bias = mem.get("boot_bias")
+        if bias is not None:
+            init = init + torch.as_tensor(bias, dtype=dtype, device=device)
+        return init
 
     def _forward_layers(self, names: List[str], values: Dict[str, Any],
                         outer: Dict[str, Any], params: Dict[str, Any],
@@ -184,6 +191,21 @@ class RecurrentGroup:
 
     def _link(self, mem: Dict[str, Any]) -> str:
         return mem.get("link_name", mem["layer_name"] + "@pre")
+
+    def step(self, params: Dict[str, Any], frame: Dict[str, Any],
+             mems: List[torch.Tensor], outer: Dict[str, Any],
+             ctx: ForwardContext, order: Optional[List[str]] = None
+             ) -> Tuple[List[torch.Tensor], Dict[str, Any]]:
+        """One timestep: the frame's values and each memory's previous
+        value in, every step layer (or ``order``'s) run → (the memories'
+        new values, every value of the step)."""
+        values: Dict[str, Any] = dict(frame)
+        for mem, mval in zip(self.memories, mems):
+            values[self._link(mem)] = mval
+        self._forward_layers(self.order if order is None else order,
+                             values, outer, params, ctx)
+        return [value_of(values[m["layer_name"]]) for m in self.memories], \
+            values
 
     def run(self, params: Dict[str, Any], values: Dict[str, Any],
             ctx: ForwardContext) -> None:
@@ -213,9 +235,10 @@ class RecurrentGroup:
         hoist_set = set(hoisted)
         hoist_outs = [o for o in self.out_links
                       if (self._producer_of(o) or o) in hoist_set]
-        # hoisted layers feeding a hoisted out-link; the rest are dead
-        # past the loop
+        # hoisted layers feeding a hoisted out-link, and print layers (a
+        # side effect); the rest are dead past the loop
         live = {self._producer_of(o) or o for o in hoist_outs}
+        live |= {n for n in hoisted if self.layers[n].conf.type == "print"}
         for n in reversed(hoisted):
             if n in live:
                 for iname in self.layers[n].conf.input_names():
@@ -243,14 +266,13 @@ class RecurrentGroup:
         bvals: Dict[str, List[Any]] = {n: [None] * t for n in boundary}
         steps = range(t - 1, -1, -1) if self.sub.reversed else range(t)
         for s in steps:
-            step_vals: Dict[str, Any] = {
-                link: seq.data[:, s] for link, seq in zip(self.in_links, seqs)}
-            for mem, mval in zip(self.memories, mems):
-                step_vals[self._link(mem)] = mval
-            self._forward_layers(loop_order, step_vals, values, params, ctx)
+            new_mems, step_vals = self.step(
+                params, {link: seq.data[:, s]
+                         for link, seq in zip(self.in_links, seqs)},
+                mems, values, ctx, order=loop_order)
             m = mask[:, s, None]
-            mems = [m * value_of(step_vals[mem["layer_name"]]) + (1 - m) * old
-                    for mem, old in zip(self.memories, mems)]
+            mems = [m * new + (1 - m) * old
+                    for new, old in zip(new_mems, mems)]
             valid = mask[:, s] > 0
             for o in loop_outs:
                 d = value_of(step_vals[o])

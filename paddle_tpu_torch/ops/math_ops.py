@@ -17,7 +17,7 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 
 from ..core.device import resolve_device
-from ..core.dtypes import current_policy
+from ..core.dtypes import current_policy, record_op_precision
 from ..utils import enforce
 from .registry import register_op
 
@@ -40,6 +40,7 @@ def matmul(x: torch.Tensor, y: torch.Tensor, transpose_x: bool = False,
     pol = current_policy()
     floating = x.is_floating_point()
     if floating:
+        record_op_precision("matmul")
         x = x.to(pol.compute_dtype)
         y = y.to(pol.compute_dtype)
     if transpose_x:
@@ -64,6 +65,7 @@ def einsum(subscripts: str, *operands: torch.Tensor) -> torch.Tensor:
     if not any(x.is_floating_point() for x in operands):
         return torch.einsum(subscripts, *operands)
     pol = current_policy()
+    record_op_precision("einsum")
     operands = tuple(x.to(pol.compute_dtype) if x.is_floating_point()
                      else x for x in operands)
     if pol.compute_dtype != pol.output_dtype:
@@ -279,9 +281,26 @@ def scatter(ref, index, updates, overwrite: bool = True):
 @register_op("top_k", n_outputs=2)
 def top_k(x, k: int):
     """Values and int32 indices of the k largest along the last dim, in
-    descending order (``lax.top_k``)."""
-    values, indices = torch.topk(x, k, dim=-1, largest=True, sorted=True)
-    return values, indices.to(torch.int32)
+    descending order, the lower index first among equal values, as
+    ``lax.top_k`` orders them (``torch.topk`` promises no order, nor
+    which of the tied values it takes at the k-th place).
+
+    ``torch.topk`` gives the k-th value; a second ``topk`` over a key
+    takes every value above it (key n) and, of those equal to it, the
+    lowest positions (key −position), as many as are left.  The k taken
+    positions, in ascending order, are then sorted stably by value."""
+    kth = torch.topk(x, k, dim=-1, largest=True, sorted=True)[0][..., -1:]
+    n = x.shape[-1]
+    # float32 holds every position below 2^24 exactly
+    kd = torch.float32 if n < 2 ** 24 else torch.float64
+    pos = torch.arange(n, device=x.device, dtype=kd)
+    key = torch.where(x > kth, float(n),
+                      torch.where(x == kth, -pos, -float(n) - 1))
+    chosen = torch.sort(torch.topk(key, k, dim=-1)[1], dim=-1)[0]
+    values = torch.gather(x, -1, chosen)
+    order = torch.sort(values, dim=-1, descending=True, stable=True)[1]
+    return torch.gather(values, -1, order), \
+        torch.gather(chosen, -1, order).to(torch.int32)
 
 
 @register_op("multiplex")

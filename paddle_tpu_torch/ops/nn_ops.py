@@ -29,7 +29,7 @@ from typing import Tuple, Union
 import torch
 import torch.nn.functional as F
 
-from ..core.dtypes import current_policy
+from ..core.dtypes import current_policy, record_op_precision
 from ..utils import enforce
 from .activations import get_activation
 
@@ -73,6 +73,7 @@ def conv2d(x, w, stride: IntOr2 = 1, padding="SAME", dilation: IntOr2 = 1,
     Cout]``, in the policy compute dtype, result in the output dtype."""
     enforce(data_format == "NHWC", "only NHWC convolutions are ported")
     pol = current_policy()
+    record_op_precision("conv2d")
     x = x.to(pol.compute_dtype)
     w = w.to(pol.compute_dtype)
     stride, dilation = _pair(stride), _pair(dilation)
@@ -301,6 +302,7 @@ def affine_act_conv2d(z, a, c, w, conv_bias=None, act: str = "relu",
     from . import conv as fused
 
     pol = current_policy()
+    record_op_precision("affine_act_conv2d")
     relu = act == "relu"
     zs, ws = tuple(z.shape), tuple(w.shape)
     fusable_act = act in ("relu", "", "linear")
@@ -346,6 +348,7 @@ def conv2d_bn(x, w, conv_bias, scale, bias, running_mean, running_var,
     from . import conv as fused
 
     pol = current_policy()
+    record_op_precision("conv2d_bn")
     if in_affine is not None:
         a1, c1, act1 = in_affine
         xs, ws = tuple(x.shape), tuple(w.shape)

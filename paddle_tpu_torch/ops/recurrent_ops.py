@@ -30,7 +30,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from ..core.dtypes import current_policy
+from ..core.dtypes import current_policy, record_op_precision
 from ..core.sequence import SequenceBatch
 from ..utils import FLAGS
 from ..utils.logger import get_logger, warn_once
@@ -210,6 +210,7 @@ def lstm_sequence(seq: SequenceBatch, w_ih, w_hh, bias=None,
     b, t, _ = seq.data.shape
     hd = w_hh.shape[0]
     pol = current_policy()
+    record_op_precision("lstm")
     cd = pol.compute_dtype
     xw = seq.data.to(cd) if w_ih is None else \
         (seq.data.reshape(b * t, -1).to(cd) @ w_ih.to(cd)).reshape(
@@ -294,6 +295,7 @@ def gru_sequence(seq: SequenceBatch, w_ih, w_hh, bias=None, h0=None,
     b, t, _ = seq.data.shape
     hd = w_hh.shape[0]
     pol = current_policy()
+    record_op_precision("gru")
     cd = pol.compute_dtype
     xw = seq.data.to(cd) if w_ih is None else \
         (seq.data.reshape(b * t, -1).to(cd) @ w_ih.to(cd)).reshape(

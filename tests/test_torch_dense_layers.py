@@ -18,8 +18,10 @@ Tolerance (fp32, different summation orders): every output and
 gradient within rtol 1e-5 and atol 1e-6 · max(1, max|ref|).
 
 The closure test holds every layer type the port registers to a parity
-case (here, in ``test_torch_mixed.py``, ``test_torch_costs_ops.py`` or
-``test_torch_layer_sweep.py``), an alias of one, or a stated reason.
+case (here, in ``test_torch_mixed.py``, ``test_torch_costs_ops.py``,
+``test_torch_layer_sweep.py``, ``test_torch_seq_layers.py``,
+``test_torch_sampled_layers.py`` or ``test_torch_beam_search.py``), an
+alias of one, or a stated reason.
 """
 
 import jax
@@ -190,15 +192,20 @@ def test_sweep_case_matches_jax(name):
 
 # ---------------------------------------------------------- closure
 #: a registered type with no parity case, and why
-NO_CASE = {"data": "fed, not computed (DataLayer raises)"}
+NO_CASE = {"data": "fed, not computed (DataLayer raises)",
+           "beam_gen": "exposes a generating group's bundle: whole decodes "
+                       "in test_torch_beam_search.py"}
 
 
 def test_every_registered_type_has_a_parity_case():
     import test_torch_costs_ops as costs
     import test_torch_layer_sweep as earlier
     import test_torch_mixed as mixed
+    import test_torch_sampled_layers as sampled
+    import test_torch_seq_layers as seq
     covered = set(SWEEP_TYPES) | {t for t, _, _ in mixed.EXTRA.values()} \
-        | set(costs.COST_TYPES) | set(earlier.EARLIER_TYPES) | set(NO_CASE)
+        | set(costs.COST_TYPES) | set(earlier.EARLIER_TYPES) | set(NO_CASE) \
+        | set(seq.SEQ_TYPES) | set(sampled.SAMPLED_TYPES)
     missing = []
     for name, cls in TLAYERS.items():
         if name in covered or cls.layer_type in covered:
@@ -208,13 +215,13 @@ def test_every_registered_type_has_a_parity_case():
     assert {"mse", "regression_cost", "mkldnn_fc", "grumemory",
             "cudnn_conv", "conv", "cudnn_batch_norm",
             "multi_head_attention"} <= set(TLAYERS)
-    # the reference's 110 names less the 54 still to port (test_torch_dsl)
-    assert len(TLAYERS) == 56
+    # the reference's 110 names less the 30 still to port (test_torch_dsl)
+    assert len(TLAYERS) == 80
 
 
 @pytest.mark.parametrize("name", [
-    "tensor", "selective_fc", "prelu", "scale_shift", "data_norm",
-    "hsigmoid", "nce", "print", "crf", "crf_decoding", "ctc", "warp_ctc",
+    "lstm_step", "recurrent", "mdlstmemory", "norm", "maxout", "spp",
+    "blockexpand", "pad", "crf", "crf_decoding", "ctc", "warp_ctc",
     "cross_entropy_over_beam"])
 def test_unported_types_refuse_by_name(name):
     from paddle_tpu.layers import LAYERS as JLAYERS

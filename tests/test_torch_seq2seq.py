@@ -349,7 +349,9 @@ def test_adam_trajectory_matches_jax():
 
 # ------------------------------------------------------------ refusals
 def test_generating_groups_are_refused():
-    """A beam-search (generating) group is refused at build time."""
+    """A group flagged as generating without a generator (the beam
+    search's settings) is refused at build time; generating groups with
+    one are decoded (test_torch_beam_search.py)."""
     cfg = seq2seq_config(V, E, H)
     cfg.sub_models[1].is_generating = True
     with pytest.raises(PaddleTpuError, match="generating group"):
