@@ -150,6 +150,37 @@ Phases (any failure exits nonzero, without the final ``ok`` line):
    and none of any other kernel a call; every parameter, memory and step
    value on the card; ms per decode step, the call's wall and generated
    tokens/s beside the card's name and power limit;
+4z-tag. the recurrent types, the sequence costs and nested groups, fp32
+   with TF32 off: (a) ``recurrent`` (reversed too), ``lstm_step`` (its
+   value and ``.state``), ``mdlstmemory`` in its four directions on a
+   2x3 grid, ``simple_rnn``, ``lstm_unit``, ``crf`` (weighted too),
+   ``crf_decoding`` with and without tags, ``ctc`` with an impossible
+   alignment, ``warp_ctc`` (blank 3, norm_by_times),
+   ``cross_entropy_over_beam`` (gold kept, dropped at the first and at
+   the second expansion) and a nested group with an empty subsequence
+   and a slot no row fills, forward and backward on the card against
+   the same code on the CPU (4z-gen (a)'s tolerance, paths exact), and
+   kernels 8 and 9 at B 64, H 512 against the plain scan on rows of
+   length 0 and on a batch of them only (3b's tolerances); (b)
+   ``configs/tagging.py`` at the CRF demo's widths (V 50, 5 tags, E 16,
+   H 32, B 16) trained 250 Adam steps at lr 0.02 as
+   ``demo/sequence_tagging/train.py`` trains it, then Viterbi over 32
+   new rows: accuracy above 0.9 (the demo's gate), the CPU's paths from
+   the card's weights equal, no kernel launched (the scan at H 32); (c)
+   the same config at the seq2seq row's encoder width (B 128, V 30000,
+   E 512, H 512, 23 tags, lengths 10-30 through ``DataFeeder``): the
+   first step's loss and every gradient card against CPU (4s's
+   tolerance), 50 timed steps (finite, falling NLL; ms/step, tokens/s,
+   the busy share of a profiled step; exactly 2 launches each of
+   kernels 13 and 14 a step and no other), then one timed Viterbi
+   decode with 2 launches of kernel 13; (d) a nested group at the LSTM
+   row's width: B 64 paragraphs of 2-8 sentences of 5-25 ids through
+   ``DataFeeder``'s ``integer_value_sub_sequence``, emb 512 -> a group
+   over sentences (fc 4H -> lstmemory H 512 -> last_seq, a memory
+   summing sentence states) -> last_seq -> fc softmax -> CE: the
+   sentence states and their gradients equal the flat net's over B*S
+   rows on the card (``lstm.fused_tier`` serves both), card against CPU,
+   3 Adam steps with exactly S launches each of kernels 8 and 9 a step;
 3c. the hidden-blocked LSTM kernels 10-12 (forward, BPTT, dW): through
    their ``autograd.Function`` against autograd through the plain scan,
    and each wrapper against its plain version, at (B, T, H) = (8, 5,
@@ -318,7 +349,7 @@ Phases (any failure exits nonzero, without the final ``ok`` line):
 Phases 3b-4f are PR 2's H 512 phases and run in fp32 (``use_bf16``
 off), so their readings stay comparable, as do 4z-loop and 4z-small.
 The order of the run: 1-3f, 3g-3i, 4-4f, 4z-loop, 4z-small, 4z-ckpt,
-4z-opt, 4z-cli, 4z-dense, 4z-gen, 4g-4k,
+4z-opt, 4z-cli, 4z-dense, 4z-gen, 4z-tag, 4g-4k,
 4l-4p, 4q-4r, 4t, 4v, 4s, 4u, 4w-4z, 4-sparse, 5.
 
 Also printed, for information: a ``torch.profiler`` window over one
@@ -2396,14 +2427,19 @@ def _dense_run(net, params, feed, where):
 
 def _dense_worst(got, want, what):
     """The worst share of the card-vs-CPU tolerance over ``want``'s
-    tensors; fails past 1."""
+    tensors; fails past 1.  An infinity must stand on both sides with
+    the same sign (an empty max pool's -inf); NaN always fails."""
     worst = 0.0
     for k, w in want.items():
         g = got[k].double()
         w = w.double()
-        if g.shape != w.shape or not bool(g.isfinite().all()):
+        if g.shape != w.shape or not bool(
+                ((g.isfinite() & w.isfinite()) | (g == w)).all()):
             fail(f"4z-dense {what}: {k} shape {tuple(g.shape)} vs "
-                 f"{tuple(w.shape)} or not finite")
+                 f"{tuple(w.shape)}, or not finite where the CPU is, or "
+                 "not its infinity")
+        fin = w.isfinite()
+        g, w = g[fin], w[fin]
         scale = max(1.0, float(w.abs().max()) if w.numel() else 1.0)
         tol = DENSE_ATOL * scale + DENSE_RTOL * w.abs()
         share = float(((g - w).abs() / tol).max()) if w.numel() else 0.0
@@ -2709,8 +2745,8 @@ GEN_SCORE_RTOL, GEN_TIE_GAP = 1e-4, 1e-4
 def _gen_run(fn, arrays, where, ints=()):
     """``fn`` of tensors on ``where`` (numpy ``arrays``; float ones
     require grad unless named in ``ints``) → its output and, for a float
-    output, the gradients of its finite values against a cosine ramp,
-    every tensor on the CPU."""
+    output with a gradient, the gradients of its finite values against a
+    cosine ramp, every tensor on the CPU."""
     import torch
     ts = {k: torch.from_numpy(np.array(v)).to(where)
           for k, v in arrays.items()}
@@ -2718,7 +2754,7 @@ def _gen_run(fn, arrays, where, ints=()):
               if t.is_floating_point() and k not in ints}
     out = fn(**ts)
     res = {"output": out.detach()}
-    if out.is_floating_point() and leaves:
+    if out.is_floating_point() and leaves and out.requires_grad:
         ramp = torch.cos(0.1 * torch.arange(out.numel(), device=out.device,
                                             dtype=out.dtype))
         obj = torch.sum(torch.where(out.isfinite(), out, 0.0)
@@ -2741,10 +2777,11 @@ def _gen_layer(ltype, size, in_sizes, act="", bias=False, attrs=None):
     return net, params
 
 
-def _layer_fn(net, seqs=(), nested=()):
+def _layer_fn(net, seqs=(), nested=(), key="test"):
     """A function of (params as ``p:name``, feeds ``in*``; a sequence as
     ``in*`` + ``in*_len``, a nested one as ``in*``, ``in*_n``,
-    ``in*_sub``) → the layer's value, masked where it is a sequence."""
+    ``in*_sub``) → the value ``key`` of the net, masked where it is a
+    sequence."""
     import torch
     from paddle_tpu_torch.core.sequence import (NestedSequenceBatch,
                                                 SequenceBatch, value_of)
@@ -2761,7 +2798,7 @@ def _layer_fn(net, seqs=(), nested=()):
                 feed[k] = NestedSequenceBatch(v, t[k + "_n"], t[k + "_sub"])
             else:
                 feed[k] = v
-        val = net.forward(params, feed, is_training=False)[0]["test"]
+        val = net.forward(params, feed, is_training=False)[0][key]
         out = value_of(val)
         if isinstance(val, SequenceBatch):
             m = val.bool_mask()
@@ -2770,6 +2807,21 @@ def _layer_fn(net, seqs=(), nested=()):
                                                   device=out.device))
         return out
     return fn
+
+
+def _layer_case(name, ltype, size, in_sizes, feeds, seqs=(), ints=(),
+                nested=(), key="test", **kw):
+    """(name, fn, arrays, ints) of a one-layer net's case: its params
+    (nudged off their init) and ``feeds`` as the arrays, every array
+    named with a ``_`` (lengths) or in ``ints`` left without a
+    gradient."""
+    net, p = _gen_layer(ltype, size, in_sizes, **kw)
+    arrays = {f"p:{k}": v.numpy() for k, v in p.items()}
+    for f in feeds:
+        arrays.update(f)
+    return (name, _layer_fn(net, seqs, nested, key), arrays,
+            tuple(ints) + tuple(k for k in arrays if "_" in k
+                                and not k.startswith("p:")))
 
 
 def _gen_cases():
@@ -2789,20 +2841,10 @@ def _gen_cases():
     def d(b, n, name="in0"):
         return {name: r.uniform(-1, 1, (b, n)).astype(np.float32)}
 
-    def params(p):
-        return {f"p:{k}": v.numpy() for k, v in p.items()}
-
     cases = []
 
-    def layer(name, ltype, size, in_sizes, feeds, seqs=(), ints=(),
-              nested=(), **kw):
-        net, p = _gen_layer(ltype, size, in_sizes, **kw)
-        arrays = dict(params(p))
-        for f in feeds:
-            arrays.update(f)
-        cases.append((name, _layer_fn(net, seqs, nested), arrays,
-                      tuple(ints) + tuple(k for k in arrays if "_" in k
-                                          and not k.startswith("p:"))))
+    def layer(*args, **kw):
+        cases.append(_layer_case(*args, **kw))
 
     # layers of seq.py at the sweep's sizes
     for ltype, attrs in (("max", {}), ("seqfirstins", {}),
@@ -3294,6 +3336,599 @@ def phase_gen(dev, card):
          "translate": phase_gen_full(dev, card)}
     m["seconds"] = time.perf_counter() - t0
     log(f"  4z-gen took {m['seconds']:.1f} s")
+    return m
+
+
+# ------------------------------------------------ phase 4z-tag
+#: phase 4z-tag (a): card against CPU on the same port code (fp32, TF32
+#: off) for the recurrent types and ops, the sequence costs and nested
+#: groups, as 4z-gen (a): every float output and gradient within
+#: DENSE_RTOL and DENSE_ATOL * max(1, max|CPU|), decoded paths exact;
+#: kernels 8 and 9 against the plain scan on a nested step's batches
+#: (rows of length 0, and rows of length 0 only) within 3b's tolerances
+TAGGING_CONFIG = os.path.join("paddle_tpu_torch", "configs", "tagging.py")
+#: (b): the sequence-tagging demo at its widths
+#: (demo/sequence_tagging/train.py): V 50, 5 tags, E 16, H 32, T 12,
+#: B 16, 250 Adam steps at lr 0.02 (the config's), trainer seed 3,
+#: batches from RandomState(0), then Viterbi over 32 new rows: tagging
+#: accuracy above 0.9 (the demo's exit gate)
+TAG_DEMO = dict(V=50, N=5, T=12, B=16, STEPS=250, EVAL_B=32, ACC=0.9)
+#: (c): the same config at the seq2seq row's encoder width
+#: (bench.py:455-545): B 128, V 30000, E 512, H 512, lengths 10-30 and
+#: ids from RandomState(0), 23 tags, fp32; the first step card vs CPU
+#: (loss within S2S_RTOL, every gradient within S2S_RTOL * max|ref| +
+#: 1e-8), then STEPS timed steps after WARM, then one Viterbi decode
+TAG_FULL = dict(V=30000, N=23, E=512, H=512, B=128, LEN=(10, 30), WARM=3,
+                STEPS=50)
+#: (d): a nested group at the LSTM row's width (the shape of the
+#: reference's sequence_nest_rnn.conf): B 64 paragraphs of 2-8
+#: sentences of 5-25 ids in [0, 30000) from RandomState(0) through
+#: DataFeeder; emb 512 -> a group over the sentences (fc 4H ->
+#: lstmemory H 512 -> last_seq, a memory summing the sentence states) ->
+#: last_seq -> fc softmax over 2 classes -> CE; Adam lr 1e-3
+NEST = dict(V=30000, E=512, H=512, B=64, SENT=(2, 8), WORDS=(5, 25), C=2,
+            STEPS=3)
+
+
+def _nest_net(v, e, h, classes=2, flat=False, dense=None):
+    """A nested net through the port's DSL: ids (or a dense input of
+    width ``dense``) -> [emb] -> a group over subsequences whose step is
+    fc 4H -> lstmemory -> last_seq ``sent``, with the memory ``para``
+    summing the ``sent`` states -> last_seq -> fc softmax -> CE.
+    ``flat``: the step's layers alone over a flat batch of the
+    subsequences, ``sent`` its output."""
+    from paddle_tpu_torch.config import dsl as d
+    from paddle_tpu_torch.data import feeder as f
+    from paddle_tpu_torch.layers.network import NeuralNetwork
+    with d.config_scope():
+        if dense:
+            x = d.data("words", f.dense_vector(dense))
+        else:
+            x = d.data("words", f.integer_value_sequence(v) if flat
+                       else f.integer_value_sub_sequence(v))
+            x = d.embedding(x, size=e, name="emb")
+
+        def sentence(frame):
+            proj = d.fc(frame, size=4 * h, act=d.LinearActivation(),
+                        bias_attr=False, name="proj")
+            return d.last_seq(d.lstmemory(proj, name="lstm"), name="sent")
+        if flat:
+            return NeuralNetwork(d.topology(sentence(x)))
+
+        def step(frame):
+            mem = d.memory(name="para", size=h)
+            sent = sentence(frame)
+            return [sent, d.addto([sent, mem.out], name="para")]
+        _, para = d.recurrent_group(step, [d.StepInput(x)],
+                                    name="sentences")
+        pred = d.fc(d.last_seq(para), size=classes,
+                    act=d.SoftmaxActivation(), name="pred")
+        label = d.data("label", f.integer_value(classes))
+        return NeuralNetwork(d.topology(d.classification_cost(pred,
+                                                              label)))
+
+
+def _tag_cases():
+    """(name, fn, arrays, ints) of phase 4z-tag (a) at the sizes of the
+    JAX package's layer sweep and of the CPU parity tests."""
+    import torch
+    from paddle_tpu_torch.core.sequence import SequenceBatch
+    from paddle_tpu_torch.ops import recurrent_ops as R
+    r = np.random.RandomState(0)
+
+    def seq(lens, n, name="in0", ids=0):
+        """A float sequence of width n, or (``ids`` > 0) one of ids."""
+        t = max(max(lens), 1)
+        data = np.zeros((len(lens), t) if ids else (len(lens), t, n),
+                        np.int32 if ids else np.float32)
+        for i, m in enumerate(lens):
+            data[i, :m] = r.randint(0, ids, m) if ids else \
+                r.uniform(-1, 1, (m, n))
+        return {name: data, name + "_len": np.array(lens, np.int32)}
+
+    def d(b, n, name="in0"):
+        return {name: r.uniform(-1, 1, (b, n)).astype(np.float32)}
+
+    def ids(rows, name):
+        lens = [len(x) for x in rows]
+        data = np.zeros((len(rows), max(lens)), np.int32)
+        for i, x in enumerate(rows):
+            data[i, :len(x)] = x
+        return {name: data, name + "_len": np.array(lens, np.int32)}
+
+    cases = []
+
+    def layer(*args, **kw):
+        cases.append(_layer_case(*args, **kw))
+
+    # the recurrent types at the sweep's sizes
+    layer("recurrent", "recurrent", 4, [4], [seq([3, 2], 4)], seqs=("in0",),
+          bias=True)
+    layer("recurrent reversed relu", "recurrent", 4, [4],
+          [seq([5, 0, 3, 6], 4)], seqs=("in0",), bias=True, act="relu",
+          attrs={"reversed": True})
+    for key in ("test", "test.state"):
+        layer(f"lstm_step {key}", "lstm_step", 3, [12, 3],
+              [d(2, 12), d(2, 3, "in1")], bias=True, key=key)
+    for dirs in ([True, True], [False, True], [True, False],
+                 [False, False]):
+        layer(f"mdlstmemory 2x3 {dirs}", "mdlstmemory", 2, [60],
+              [{"in0": r.uniform(-0.5, 0.5, (3, 60)).astype(np.float32)}],
+              bias=True, attrs={"height": 2, "width": 3,
+                                "directions": dirs})
+    # the sequence costs
+    layer("crf", "crf", 3, [3, 1], [seq([4, 2, 1], 3),
+                                    seq([4, 2, 1], 0, "in1", ids=3)],
+          seqs=("in0", "in1"))
+    layer("crf weighted", "crf", 3, [3, 1, 1],
+          [seq([4, 2, 3], 3), seq([4, 2, 3], 0, "in1", ids=3),
+           {"in2": np.array([[1.0], [0.25], [2.0]], np.float32)}],
+          seqs=("in0", "in1"), attrs={"coeff": 0.5})
+    layer("crf_decoding", "crf_decoding", 3, [3], [seq([5, 1, 3, 0], 3)],
+          seqs=("in0",))
+    layer("crf_decoding with label", "crf_decoding", 3, [3, 1],
+          [seq([5, 1, 3], 3), seq([5, 1, 3], 0, "in1", ids=3)],
+          seqs=("in0", "in1"))
+    layer("ctc", "ctc", 4, [4, 1], [seq([6, 5], 4),
+                                    ids([[1, 2], [3, 3]], "in1")],
+          seqs=("in0", "in1"))
+    # row 0's three repeats need 5 frames and have 3: optax's finite
+    # log-epsilon loss and its gradient
+    layer("ctc impossible", "ctc", 4, [4, 1],
+          [seq([3, 5], 4), ids([[1, 1, 1], [2]], "in1")],
+          seqs=("in0", "in1"))
+    layer("warp_ctc blank 3 norm_by_times", "warp_ctc", 4, [4, 1],
+          [seq([6, 4], 4), ids([[0, 1], [2, 2]], "in1")],
+          seqs=("in0", "in1"), attrs={"blank": 3, "norm_by_times": True})
+    # gold kept (row 0), dropped at the first (row 1) and at the second
+    # expansion (row 2)
+    beam = {}
+    for e, (cand, gold) in enumerate((
+            ([[0, 1, 2], [3, 4, 5], [6, 7, 8]], [1, 9, 7]),
+            ([[1, 2, 0], [5, 4, 3], [7, 1, 3]], [2, 4, 6]),
+            ([[2, 0, 1], [4, 3, 5], [1, 2, 0]], [0, 3, 1]))):
+        beam.update({f"in{3 * e}": r.randn(3, 3).astype(np.float32),
+                     f"in{3 * e + 1}": np.array(cand, np.int32),
+                     f"in{3 * e + 2}": np.array(gold, np.int32)})
+    layer("cross_entropy_over_beam", "cross_entropy_over_beam", 1,
+          [3, 3, 1] * 3, [beam])
+    # the ops
+    x = seq([4, 1, 0], 3, "x")
+    ops = {"x": x["x"], "x_len": x["x_len"],
+           "w": r.randn(3, 3).astype(np.float32) * 0.5,
+           "b": r.randn(3).astype(np.float32) * 0.1,
+           "h0": r.randn(3, 3).astype(np.float32),
+           "xp": r.randn(3, 8).astype(np.float32),
+           "c": r.randn(3, 2).astype(np.float32)}
+
+    def rnn(reverse, **t):
+        out, final = R.simple_rnn(SequenceBatch(t["x"], t["x_len"]), t["w"],
+                                  t["b"], t["h0"], reverse=reverse)
+        return torch.cat([out.data.reshape(3, -1), final], 1)
+    for reverse in (False, True):
+        cases.append((f"simple_rnn reverse {reverse}",
+                      lambda reverse=reverse, **t: rnn(reverse, **t), ops,
+                      ("x_len",)))
+    cases.append(("lstm_unit", lambda **t: torch.cat(R.lstm_unit(
+        t["xp"], t["c"], forget_bias=0.7), 1), ops, ("x_len",)))
+    # nested groups: an empty subsequence, and a slot no row fills
+    nd = r.randn(3, 5, 6, 5).astype(np.float32)
+    nested = {"words": nd, "words_n": np.array([4, 1, 3], np.int32),
+              "words_sub": np.array([[6, 0, 2, 5, 1], [3, 4, 1, 2, 2],
+                                     [1, 6, 0, 4, 3]], np.int32),
+              "label": np.array([0, 1, 1], np.int32)}
+    net = _nest_net(0, 0, 7, dense=5)
+    p = {f"p:{k}": v.numpy() + 0.05 * np.random.RandomState(1).randn(
+        *v.shape).astype(np.float32)
+        for k, v in net.init_params(4, "cpu").items()}
+    for key in ("sent", "para"):
+        cases.append((f"nested group {key}",
+                      _layer_fn(net, nested=("words",), key=key),
+                      dict(p, **nested), ("words_n", "words_sub", "label")))
+    return cases
+
+
+def _tag_lstm_kernels(dev):
+    """Kernels 8 and 9 through ``lstm_sequence`` at a nested step's
+    shape (B 64, H 512) against the plain scan: rows of length 0 among
+    others, and a batch of length-0 rows only (a slot no paragraph
+    fills)."""
+    rng = np.random.RandomState(5)
+    errs = []
+    for i, lengths in enumerate((
+            [0 if j % 5 == 0 else int(rng.randint(1, 26))
+             for j in range(NEST["B"])], [0] * NEST["B"])):
+        p, cot, ln = lstm_case(NEST["B"], 32, NEST["H"], lengths, 40 + i,
+                               dev)
+        reset_counts()
+        got_o, got_g = lstm_run(p, cot, ln, False, "sequence")
+        launches = read_counts()
+        want_o, want_g = lstm_run(p, cot, ln, False, "scan")
+        sync(dev)
+        e_out = max((g - w).abs().max().item()
+                    for g, w in zip(got_o, want_o))
+        e_grad, ratio = grad_errors(got_g, want_g)
+        if launches["lstm_fwd"] != 1 or launches["lstm_bwd"] != 1:
+            fail(f"4z-tag (a): lstm_sequence at B {NEST['B']} H "
+                 f"{NEST['H']} launched {launches}")
+        if not (e_out <= LSTM_ATOL and ratio <= 1.0):
+            fail(f"4z-tag (a): kernels 8/9 on lengths {lengths}: outputs "
+                 f"{e_out:.3e}, gradients {ratio:.3f} of tolerance")
+        errs.append((e_out, ratio))
+    return errs
+
+
+def phase_tag_types(dev):
+    """Phase 4z-tag (a): every new type and op forward and backward on
+    the card against the same code on the CPU; kernels 8 and 9 on a
+    nested step's batches."""
+    import torch
+    worst, n = {}, 0
+    for name, fn, arrays, ints in _tag_cases():
+        want = _gen_run(fn, arrays, "cpu", ints)
+        got = _gen_run(fn, arrays, dev, ints)
+        if not want["output"].is_floating_point():
+            if not torch.equal(got["output"], want["output"]):
+                fail(f"4z-tag {name}: card {got['output'].tolist()} vs "
+                     f"CPU {want['output'].tolist()}")
+            worst[name] = 0.0
+        else:
+            worst[name] = _dense_worst(got, want, name)
+        n += 1
+    kern = _tag_lstm_kernels(dev)
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:3]
+    log(f"  (a) {n} cases (recurrent, lstm_step, mdlstmemory in four "
+        f"directions, simple_rnn, lstm_unit, crf, crf_decoding, ctc with "
+        f"an impossible alignment, warp_ctc, cross_entropy_over_beam's "
+        f"three regimes, a nested group with an empty slot) card vs CPU "
+        f"within rtol {DENSE_RTOL}, atol {DENSE_ATOL} x max(1, max|CPU|), "
+        f"paths exact; worst shares {top}; kernels 8/9 at B {NEST['B']} "
+        f"H {NEST['H']} with rows of length 0 and a batch of them only: "
+        f"outputs {max(e for e, _ in kern):.3e}, gradients "
+        f"{max(r for _, r in kern):.3f} of 3b's tolerance")
+    return {"cases": n, "worst_share": max(worst.values()),
+            "worst": dict(top), "lstm_kernels": kern}
+
+
+def _tag_samples(rng, b, t_range, vocab, tags):
+    """``b`` samples (words, tags) of the demo's task: lengths in
+    ``t_range``, a tag its word's class (id mod ``tags``) moved on by one
+    where the previous word's class is the same."""
+    out = []
+    for _ in range(b):
+        n = int(rng.randint(t_range[0], t_range[1] + 1))
+        words = rng.randint(0, vocab, n)
+        cls = words % tags
+        tag = cls.copy()
+        tag[1:] = (cls[1:] + (cls[:-1] == cls[1:])) % tags
+        out.append((words.tolist(), tag.tolist()))
+    return out
+
+
+def _demo_tag_batch(rng, dev, bs):
+    """``demo/sequence_tagging/train.py``'s ``sample_batch``: (feed on
+    ``dev``, tags, lengths)."""
+    import torch
+    from paddle_tpu_torch.core.sequence import SequenceBatch
+    V, N, T = TAG_DEMO["V"], TAG_DEMO["N"], TAG_DEMO["T"]
+    words = rng.randint(0, V, (bs, T)).astype(np.int32)
+    cls = words % N
+    tags = np.zeros_like(cls)
+    tags[:, 0] = cls[:, 0]
+    for t in range(1, T):
+        tags[:, t] = (cls[:, t] + (cls[:, t - 1] == cls[:, t])) % N
+    lens = rng.randint(T // 2, T + 1, (bs,)).astype(np.int32)
+    ln = torch.from_numpy(lens)
+    feed = {"word": SequenceBatch(torch.from_numpy(words), ln).to(dev),
+            "target": SequenceBatch(torch.from_numpy(tags.astype(np.int32)),
+                                    ln).to(dev)}
+    return feed, tags, lens
+
+
+def phase_tag_demo(dev):
+    """Phase 4z-tag (b): ``configs/tagging.py`` at the demo's widths
+    trained on the card as the demo trains it, then Viterbi decoding:
+    accuracy above the demo's 0.9, the CPU's paths from the card's
+    weights equal."""
+    import torch
+    from paddle_tpu_torch.config.config_parser import parse_config
+    from paddle_tpu_torch.layers.network import NeuralNetwork
+    from paddle_tpu_torch.trainer.trainer import Trainer
+    model, opt, _ = parse_config(TAGGING_CONFIG, "")
+    dmodel, _, _ = parse_config(TAGGING_CONFIG, "is_decoding=1")
+    trainer = Trainer(NeuralNetwork(model), opt, seed=3, device=dev)
+    rng = np.random.RandomState(0)
+    reset_counts()
+    t0 = time.perf_counter()
+    losses = [float(trainer.train_one_batch(
+        _demo_tag_batch(rng, dev, TAG_DEMO["B"])[0], placed=True))
+        for _ in range(TAG_DEMO["STEPS"])]
+    train_s = time.perf_counter() - t0
+    launches = {k: v for k, v in read_counts().items() if v}
+    dnet = NeuralNetwork(dmodel)
+    params = {k: trainer.params[k].detach() for k in dnet.param_specs}
+    feed, tags, lens = _demo_tag_batch(rng, dev, TAG_DEMO["EVAL_B"])
+    name = dnet.output_names[0]
+    with torch.no_grad():
+        pred = dnet.forward(params, {"word": feed["word"]},
+                            is_training=False)[0][name].data.cpu()
+        cpu = dnet.forward({k: v.cpu() for k, v in params.items()},
+                           {"word": feed["word"].to("cpu")},
+                           is_training=False)[0][name].data
+    mask = np.arange(TAG_DEMO["T"])[None, :] < lens[:, None]
+    acc = float(((pred.numpy() == tags) & mask).sum() / mask.sum())
+    log(f"  (b) demo tagging (V {TAG_DEMO['V']}, {TAG_DEMO['N']} tags, E 16, "
+        f"H 32, B {TAG_DEMO['B']}): CRF NLL {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} over {TAG_DEMO['STEPS']} steps ({train_s:.1f} s, "
+        f"{train_s / TAG_DEMO['STEPS'] * 1e3:.2f} ms/step); Viterbi "
+        f"accuracy {acc:.4f} over {TAG_DEMO['EVAL_B']} rows; CPU paths "
+        f"from the card's weights equal {torch.equal(pred, cpu)}; launches "
+        f"{launches or 'none'} (H 32 takes the scan in both packages)")
+    if not acc > TAG_DEMO["ACC"]:
+        fail(f"4z-tag (b): tagging accuracy {acc:.4f} <= {TAG_DEMO['ACC']}")
+    if not torch.equal(pred, cpu):
+        fail("4z-tag (b): the CPU's Viterbi paths from the card's weights "
+             "differ")
+    if launches:
+        fail(f"4z-tag (b): launches {launches} at H 32 (the reference's "
+             "dispatch takes the scan)")
+    return {"loss_first": losses[0], "loss_last": losses[-1],
+            "train_s": train_s, "accuracy": acc}
+
+
+def _tag_full_config(decoding=False):
+    from paddle_tpu_torch.config.config_parser import parse_config
+    args = (f"vocab_size={TAG_FULL['V']},num_tags={TAG_FULL['N']},"
+            f"emb_size={TAG_FULL['E']},hidden_size={TAG_FULL['H']},"
+            f"batch_size={TAG_FULL['B']}")
+    return parse_config(TAGGING_CONFIG, args + (",is_decoding=1"
+                                                if decoding else ""))
+
+
+def _card_vs_cpu_step(net, cpu_params, feed, dev, what):
+    """The loss and every parameter's gradient of one ``net.loss`` on the
+    CPU and on the card from the same parameters: (CPU loss, card loss,
+    worst gradient error as a share of S2S_RTOL * max|ref| + 1e-8)."""
+    import torch
+    res = {}
+    for where in ("cpu", dev):
+        params = {n: p.to(where).requires_grad_(True)
+                  for n, p in cpu_params.items()}
+        f = {k: v.to(where) for k, v in feed.items()}
+        loss, _ = net.loss(params, f)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        res[str(where)] = (float(loss.detach()),
+                           {n: g.cpu() for n, g in zip(params, grads)})
+    (l_cpu, g_cpu), (l_dev, g_dev) = res["cpu"], res[str(dev)]
+    ratio = max(((g_dev[n] - w).abs().max().item()
+                 / (S2S_RTOL * w.abs().max().item() + 1e-8))
+                for n, w in g_cpu.items())
+    if not np.isfinite(l_dev) or abs(l_dev - l_cpu) > S2S_RTOL * abs(l_cpu) \
+            or ratio > 1.0:
+        fail(f"4z-tag {what}: card loss {l_dev} vs CPU {l_cpu}, gradients "
+             f"{ratio:.3f} of tolerance")
+    return l_cpu, l_dev, ratio
+
+
+def _profile_busy(fn):
+    """``fn()`` once under torch.profiler: (the device's busy share, its
+    device items)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = device_rows(prof)
+    return sum(r[1] for r in rows) / (wall * 1e6), sum(r[2] for r in rows)
+
+
+def phase_tag_full(dev, card):
+    """Phase 4z-tag (c): ``configs/tagging.py`` at the seq2seq row's
+    encoder width on the card: the first step against the CPU, timed
+    steps with exact launches of kernels 13 and 14, a Viterbi decode."""
+    import torch
+    from paddle_tpu_torch.data.feeder import (DataFeeder,
+                                              integer_value_sequence)
+    from paddle_tpu_torch.layers.network import NeuralNetwork
+    from paddle_tpu_torch.trainer.trainer import Trainer
+    model, opt, _ = _tag_full_config()
+    dmodel, _, _ = _tag_full_config(decoding=True)
+    V, N, B = TAG_FULL["V"], TAG_FULL["N"], TAG_FULL["B"]
+    feeder = DataFeeder([("word", integer_value_sequence(V)),
+                         ("target", integer_value_sequence(N))])
+    feed = feeder.convert(_tag_samples(np.random.RandomState(0), B,
+                                       TAG_FULL["LEN"], V, N))
+    net = NeuralNetwork(model)
+    cpu_params = net.init_params(seed=0, device="cpu")
+    t0 = time.perf_counter()
+    l_cpu, l_dev, ratio = _card_vs_cpu_step(net, cpu_params, feed, dev,
+                                            "(c)")
+    check_s = time.perf_counter() - t0
+    trainer = Trainer(net, opt, seed=0, device=dev)
+    trainer.params = {n: p.to(dev) for n, p in cpu_params.items()}
+    placed = trainer._place_feed(feed)
+    for _ in range(TAG_FULL["WARM"]):
+        trainer.train_one_batch(placed, placed=True)
+    steps = TAG_FULL["STEPS"]
+    launches, losses, dev_ms, wall_ms, peak = timed_steps(trainer, placed,
+                                                          steps)
+    check_launches(launches, {"gru_fwd": 2 * steps, "gru_bwd": 2 * steps},
+                   "4z-tag (c) timed steps")
+    if not (all(np.isfinite(losses))
+            and np.mean(losses[-5:]) < losses[0]):
+        fail(f"4z-tag (c): NLL {losses[0]} -> {losses[-5:]} not finite "
+             "and falling")
+    busy, items = _profile_busy(
+        lambda: trainer.train_one_batch(placed, placed=True))
+    # one Viterbi decode of the batch through the decoding topology
+    dnet = NeuralNetwork(dmodel)
+    params = {n: trainer.params[n].detach() for n in dnet.param_specs}
+    name = dnet.output_names[0]
+    word = {"word": placed["word"]}
+    with torch.no_grad():
+        dnet.forward(params, word, is_training=False)          # warm
+        torch.cuda.synchronize()
+        reset_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        paths = dnet.forward(params, word, is_training=False)[0][name]
+        end.record()
+        end.synchronize()
+        dec_wall = (time.perf_counter() - t0) * 1e3
+    dec_launches = read_counts()
+    check_launches(dec_launches, {"gru_fwd": 2}, "4z-tag (c) decode")
+    lens = paths.length.cpu().numpy()
+    p = paths.data.cpu().numpy()
+    if p.shape[0] != B or p.min() < 0 or p.max() >= N:
+        fail(f"4z-tag (c): paths {p.shape} in [{p.min()}, {p.max()}]")
+    tags = feed["target"].data.numpy()
+    mask = np.arange(p.shape[1])[None, :] < lens[:, None]
+    acc = float(((p == tags) & mask).sum() / mask.sum())
+    m = {"loss_cpu": l_cpu, "loss_card": l_dev, "grad_share": ratio,
+         "ms_per_step": dev_ms, "wall_ms_per_step": wall_ms,
+         "tokens_per_s": float(feed["word"].length.sum()) / (wall_ms / 1e3),
+         "peak_gb": peak, "busy_share": busy, "device_items": items,
+         "loss_first": losses[0], "loss_last": losses[-1],
+         "decode_ms": start.elapsed_time(end), "decode_wall_ms": dec_wall,
+         "decode_accuracy": acc, "check_s": check_s,
+         "launches": {k: v for k, v in launches.items() if v}}
+    log(f"  (c) tagging at B {B}, V {V}, E {TAG_FULL['E']}, H "
+        f"{TAG_FULL['H']}, {N} tags, T {feed['word'].max_len}: first step "
+        f"card vs CPU loss {l_dev:.6f} vs {l_cpu:.6f}, gradients "
+        f"{ratio:.3f} of tolerance ({check_s:.1f} s); {steps} steps "
+        f"{dev_ms:.3f} ms/step between events (wall {wall_ms:.3f}, "
+        f"{m['tokens_per_s']:.1f} tokens/s), NLL {losses[0]:.3f} -> "
+        f"{losses[-1]:.3f}, busy {100 * busy:.1f} % of a profiled step "
+        f"({items} device items), peak {peak:.2f} GB; launches "
+        f"{m['launches']}; Viterbi decode {m['decode_ms']:.3f} ms (wall "
+        f"{dec_wall:.3f}), gru_fwd {dec_launches['gru_fwd']}, accuracy "
+        f"{acc:.4f}; card: {card}")
+    return m
+
+
+def _nest_samples(rng, b):
+    """``b`` samples (paragraph, label): 2-8 sentences of 5-25 ids."""
+    out = []
+    for _ in range(b):
+        k = int(rng.randint(NEST["SENT"][0], NEST["SENT"][1] + 1))
+        para = [rng.randint(0, NEST["V"], int(rng.randint(
+            NEST["WORDS"][0], NEST["WORDS"][1] + 1))).tolist()
+            for _ in range(k)]
+        out.append((para, int(rng.randint(NEST["C"]))))
+    return out
+
+
+def phase_tag_nested(dev):
+    """Phase 4z-tag (d): the nested group at the LSTM row's width fed by
+    ``DataFeeder``: nested equal to flat on the card (the reference's
+    defining test), card against CPU, training steps with S launches
+    each of kernels 8 and 9 a step."""
+    import torch
+    from paddle_tpu_torch.config.model_config import OptimizationConfig
+    from paddle_tpu_torch.data.feeder import (DataFeeder, integer_value,
+                                              integer_value_sub_sequence)
+    from paddle_tpu_torch.ops import lstm as L
+    from paddle_tpu_torch.trainer.trainer import Trainer
+    V, E, H, B = NEST["V"], NEST["E"], NEST["H"], NEST["B"]
+    feeder = DataFeeder([("words", integer_value_sub_sequence(V)),
+                         ("label", integer_value(NEST["C"]))])
+    feed = feeder.convert(_nest_samples(np.random.RandomState(0), B))
+    words = feed["words"]
+    S = int(words.data.shape[1])
+    tiers = (L.fused_tier(B, H), L.fused_tier(B * S, H))
+    if tiers != ("fused", "fused"):
+        fail(f"4z-tag (d): lstm.fused_tier at B {B} and {B * S}: {tiers}")
+    net = _nest_net(V, E, H, NEST["C"])
+    flat = _nest_net(V, E, H, flat=True)
+    cpu_params = net.init_params(seed=0, device="cpu")
+    # nested = flat on the card: the sentence states and the gradients
+    # of a ramp readout over the valid slots
+    params = {n: p.to(dev).requires_grad_(True)
+              for n, p in cpu_params.items()}
+    shared = {n: params[n] for n in flat.param_specs}
+    valid = words.subseq_mask().to(dev)                  # [B, S]
+    ramp = torch.cos(0.1 * torch.arange(B * S * H, device=dev,
+                                        dtype=torch.float32)
+                     ).reshape(B, S, H) * valid[..., None]
+    reset_counts()
+    sent = net.forward(params, {"words": words.to(dev),
+                                "label": feed["label"].to(dev)},
+                       is_training=False)[0]["sent"].data * valid[..., None]
+    g_nest = torch.autograd.grad(torch.sum(sent * ramp),
+                                 list(shared.values()))
+    nested_launches = read_counts()
+    reset_counts()
+    fsent = flat.forward(shared, {"words": words.flatten_to_subseq().to(
+        dev)}, is_training=False)[0]["sent"].reshape(B, S, H) \
+        * valid[..., None]
+    g_flat = torch.autograd.grad(torch.sum(fsent * ramp),
+                                 list(shared.values()))
+    flat_launches = read_counts()
+    out_err = float((sent - fsent).detach().abs().max())
+    g_ratio = max(float((a - b).abs().max()
+                        / (S2S_RTOL * b.abs().max() + 1e-8))
+                  for a, b in zip(g_nest, g_flat))
+    check_launches(nested_launches, {"lstm_fwd": S, "lstm_bwd": S},
+                   "4z-tag (d) nested")
+    check_launches(flat_launches, {"lstm_fwd": 1, "lstm_bwd": 1},
+                   "4z-tag (d) flat")
+    if out_err > LSTM_ATOL or g_ratio > 1.0:
+        fail(f"4z-tag (d): nested vs flat on the card: outputs {out_err:.3e}"
+             f", gradients {g_ratio:.3f} of tolerance")
+    del params, shared, g_nest, g_flat
+    # card against CPU, then training steps
+    l_cpu, l_dev, ratio = _card_vs_cpu_step(net, cpu_params, feed, dev,
+                                            "(d)")
+    trainer = Trainer(net, OptimizationConfig(learning_method="adam",
+                                              learning_rate=1e-3),
+                      seed=0, device=dev)
+    trainer.params = {n: p.to(dev) for n, p in cpu_params.items()}
+    placed = trainer._place_feed(feed)
+    trainer.train_one_batch(placed, placed=True)
+    steps = NEST["STEPS"]
+    launches, losses, dev_ms, wall_ms, _ = timed_steps(trainer, placed,
+                                                       steps)
+    check_launches(launches, {"lstm_fwd": S * steps, "lstm_bwd": S * steps},
+                   "4z-tag (d) steps")
+    if not all(np.isfinite(losses)):
+        fail(f"4z-tag (d): losses {losses}")
+    m = {"S": S, "nested_vs_flat_out": out_err,
+         "nested_vs_flat_grad_share": g_ratio, "loss_cpu": l_cpu,
+         "loss_card": l_dev, "grad_share": ratio, "ms_per_step": dev_ms,
+         "wall_ms_per_step": wall_ms, "losses": losses,
+         "launches": {k: v for k, v in launches.items() if v}}
+    log(f"  (d) nested group B {B}, S {S} sentences (T "
+        f"{words.data.shape[2]}), V {V}, E {E}, H {H}: nested vs flat "
+        f"(B*S {B * S} rows) on the card: outputs {out_err:.3e}, "
+        f"gradients {g_ratio:.3f} of tolerance; launches nested "
+        f"{ {k: v for k, v in nested_launches.items() if v} }, flat "
+        f"{ {k: v for k, v in flat_launches.items() if v} }; card vs CPU "
+        f"loss {l_dev:.6f} vs {l_cpu:.6f}, gradients {ratio:.3f} of "
+        f"tolerance; {steps} Adam steps {dev_ms:.3f} ms/step (wall "
+        f"{wall_ms:.3f}), losses {[round(x, 5) for x in losses]}, launches "
+        f"{m['launches']}")
+    return m
+
+
+def phase_tag(dev, card):
+    """Phase 4z-tag: (a) the new types card vs CPU, (b) the tagging demo
+    trained and decoded, (c) the tagging config at the seq2seq row's
+    encoder width, (d) a nested group at the LSTM row's width."""
+    import torch
+    t0 = time.perf_counter()
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        fail("TF32 is on")
+    m = {"types": phase_tag_types(dev), "demo": phase_tag_demo(dev),
+         "full": phase_tag_full(dev, card),
+         "nested": phase_tag_nested(dev)}
+    m["seconds"] = time.perf_counter() - t0
+    log(f"  4z-tag took {m['seconds']:.1f} s")
     return m
 
 
@@ -5476,11 +6111,18 @@ def main() -> int:
             "decoded, the seq2seq row's model translating at full width "
             "(fp32)")
         gen = phase_gen(dev, card)
+        log("== phase 4z-tag: the recurrent types, the sequence costs and "
+            "nested groups card vs CPU, the tagging demo trained and "
+            "decoded, its config at the seq2seq row's encoder width, a "
+            "nested group at the LSTM row's width (fp32)")
+        tag = phase_tag(dev, card)
         for name in launches:
             launches[name]["training_ckpt"] = ckpt["launches"].get(name, 0)
             launches[name]["training_opt"] = opt["launches"].get(name, 0)
             launches[name]["cli"] = cli["launches"].get(name, 0)
             launches[name]["gen"] = gen["translate"]["launches"].get(name, 0)
+            launches[name]["tag"] = tag["full"]["launches"].get(name, 0)
+            launches[name]["nest"] = tag["nested"]["launches"].get(name, 0)
         log("== phase 4g: blocked main path, the classifier at H 1280 "
             "under bench.py's flags (use_bf16, bf16_activations)")
         set_flags(**BENCH_FLAGS)
@@ -5613,7 +6255,7 @@ def main() -> int:
                                   if k != "prompt_lengths"},
                       "training": train, "training_loop": loop,
                       "training_ckpt": ckpt, "training_opt": opt,
-                      "cli": cli, "dense": dense, "gen": gen,
+                      "cli": cli, "dense": dense, "gen": gen, "tag": tag,
                       "training_h1280": blocked,
                       "training_h1280_mixed_bf16": mixed,
                       "training_h2048": wide, **resnet, "seq2seq": seq2seq,

@@ -29,3 +29,30 @@ def process_rnn(settings, _file):
     for _ in range(n):
         yield (rng.randint(0, vocab, maxlen).astype(np.int64).tolist(),
                int(rng.randint(2)))
+
+
+def _tagging_types(settings, **kwargs):
+    settings.input_types = [
+        integer_value_sequence(kwargs.get("vocab_size", 50)),
+        integer_value_sequence(kwargs.get("num_tags", 5))]
+    settings.kw = kwargs
+
+
+@provider(init_hook=_tagging_types, should_shuffle=False)
+def process_tagging(settings, _file):
+    """The sequence-tagging demo's synthetic task (``tagging.py`` beside
+    this file): ``num_samples`` samples ``(words, tags)`` of a length in
+    ``[seq_len // 2, seq_len]``, each tag its word's class (id mod
+    ``num_tags``) moved on by one where the previous word's class is the
+    same, from ``RandomState(0)``."""
+    kw = settings.kw
+    vocab, tags = kw.get("vocab_size", 50), kw.get("num_tags", 5)
+    t = kw.get("seq_len", 12)
+    rng = np.random.RandomState(0)
+    for _ in range(kw.get("num_samples", 1024)):
+        words = rng.randint(0, vocab, t)
+        cls = words % tags
+        tag = cls.copy()
+        tag[1:] = (cls[1:] + (cls[:-1] == cls[1:])) % tags
+        n = int(rng.randint(t // 2, t + 1))
+        yield words[:n].tolist(), tag[:n].tolist()

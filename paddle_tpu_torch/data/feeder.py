@@ -6,7 +6,9 @@ The reference's data-type vocabulary (``dense_vector``,
 their ``_sequence`` and ``_sub_sequence`` variants) and the v2
 ``DataFeeder`` that turns a minibatch of sample tuples into a feed
 dict.  Sequences become a padded :class:`SequenceBatch` (lengths
-bucketed by ``buckets``, else to a multiple of 8); sparse vectors are
+bucketed by ``buckets``, else to a multiple of 8), sub-sequences
+(``seq_level`` 2) a :class:`NestedSequenceBatch` (``pad_nested_batch``:
+S the most subsequences of a row, T a multiple of 8); sparse vectors are
 densified.
 
 The feed holds CPU tensors: placing it on the device is the trainer's
@@ -14,9 +16,6 @@ job (``Trainer._place_feed``), on the step's thread or on the input
 pipeline's workers.  A ``"bfloat16"`` dense input is densified in
 float32 and cast once at the end (numpy has no bfloat16 here), which
 matches the reference's direct cast for float32 rows.
-
-The sub-sequence kinds (``seq_level`` 2) need the nested batch, which
-waits for queue A4c: :class:`DataFeeder` refuses them when it is built.
 """
 
 from __future__ import annotations
@@ -27,8 +26,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..core.sequence import pad_batch
-from ..utils import PaddleTpuError
+from ..core.sequence import pad_batch, pad_nested_batch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,12 +94,6 @@ class DataFeeder:
                  buckets: Optional[Sequence[int]] = None):
         self.feeding = [(name, t) for name, t in feeding]
         self.buckets = buckets
-        for name, t in self.feeding:
-            if t.seq_level >= 2:
-                raise PaddleTpuError(
-                    f"DataFeeder: input {name!r} is a sub-sequence "
-                    "(seq_level 2); sub-sequence feeds are not ported "
-                    "yet (queue A4c part 2)")
 
     @staticmethod
     def _densify(row, dim: int, kind: str, dt: np.dtype) -> np.ndarray:
@@ -130,7 +122,7 @@ class DataFeeder:
     def convert(self, batch: List[Sequence]) -> Dict[str, Any]:
         """minibatch (list of sample tuples OR dicts keyed by data-layer
         name) → feed dict of CPU tensors (a SequenceBatch for a
-        sequence)."""
+        sequence, a NestedSequenceBatch for a sub-sequence)."""
         feed: Dict[str, Any] = {}
         for slot, (name, itype) in enumerate(self.feeding):
             col = [self._materialize(sample[name]
@@ -146,6 +138,19 @@ class DataFeeder:
                             for r in col]
                     feed[name] = torch.from_numpy(
                         np.stack(rows)).to(torch_dt)
+            elif itype.seq_level >= 2:
+                if itype.kind == "index":
+                    nested = [[np.asarray(x, np.int32) for x in r]
+                              for r in col]
+                    feed[name] = pad_nested_batch(nested, dtype=np.int32)
+                else:
+                    nested = [[np.stack([self._densify(v, itype.dim,
+                                                       itype.kind, np_dt)
+                                         for v in x]) for x in r]
+                              for r in col]
+                    nb = pad_nested_batch(nested)
+                    feed[name] = dataclasses.replace(
+                        nb, data=nb.data.to(torch_dt))
             elif itype.kind == "index":
                 seqs = [np.asarray(r, np.int32) for r in col]
                 feed[name] = pad_batch(seqs, buckets=self.buckets,

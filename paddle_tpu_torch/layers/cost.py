@@ -1,12 +1,13 @@
-"""Dense cost layers (counterpart of ``paddle_tpu/layers/cost.py``; type
+"""Cost layers (counterpart of ``paddle_tpu/layers/cost.py``; type
 strings kept: ``multi-class-cross-entropy``,
 ``multi_class_cross_entropy_with_selfnorm``,
 ``soft_binary_class_cross_entropy``, ``square_error`` / ``mse`` /
 ``regression_cost``, ``rank-cost``, ``lambda_cost``,
 ``multi_binary_label_cross_entropy``, ``huber_regression``,
-``huber_classification``, ``smooth_l1``, ``sum_cost``).  ``crf``,
-``crf_decoding``, ``ctc`` / ``warp_ctc`` and ``cross_entropy_over_beam``
-are not ported.
+``huber_classification``, ``smooth_l1``, ``sum_cost``; the sequence
+costs ``crf``, ``ctc`` / ``warp_ctc``; ``crf_decoding`` and
+``cross_entropy_over_beam``, which the JAX package does not mark as
+costs either).
 
 A cost layer outputs the per-example cost ``[N, 1]``: N = B for a
 per-sequence or dense label, N = B·T for a sequence of predictions, with
@@ -23,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from ..core.sequence import SequenceBatch, like, value_of
-from ..ops import loss_ops
+from ..ops import crf_ops, loss_ops
 from ..utils import enforce
 from .base import Layer, register_layer
 
@@ -188,3 +189,97 @@ class SumCost(_CostBase):
         x = value_of(inputs[0])
         return _per_example(torch.sum(x.reshape(x.shape[0], -1), dim=-1),
                             inputs[0])
+
+
+@register_layer("crf")
+class CRFCost(_CostBase):
+    """Linear-chain CRF negative log-likelihood (``CRFLayer``): inputs
+    the emissions (a sequence), the tags (a sequence, or an array with
+    the emissions' lengths) and an optional per-sequence weight; weight
+    ``[N+2, N]``.  One cost a sequence, with the emissions' lengths."""
+
+    def param_specs(self):
+        n = self.conf.size
+        return [self._weight_spec(0, (n + 2, n), initial_std=0.01)]
+
+    def forward(self, params, inputs, ctx):
+        emissions, labels = inputs[0], inputs[1]
+        enforce(isinstance(emissions, SequenceBatch), "crf needs sequences")
+        lab = labels if isinstance(labels, SequenceBatch) else \
+            SequenceBatch(data=value_of(labels), length=emissions.length)
+        cost = crf_ops.crf_nll(emissions, lab, params[self.weight_name(0)])
+        return _per_example(self.weighted(cost, inputs), emissions)
+
+
+@register_layer("crf_decoding")
+class CRFDecodingLayer(Layer):
+    """Viterbi decoding (``CRFDecodingLayer``): the best tags, int32
+    ``[B, T]``; given the tags as a second input, 1.0 where the decoded
+    tag differs from them (0 past each length) instead."""
+
+    def param_specs(self):
+        n = self.conf.size
+        return [self._weight_spec(0, (n + 2, n), initial_std=0.01)]
+
+    def forward(self, params, inputs, ctx):
+        decoded = crf_ops.crf_decode(inputs[0], params[self.weight_name(0)])
+        if len(inputs) > 1:
+            lab = value_of(inputs[1])
+            err = (decoded.data != lab[..., :decoded.data.shape[1]]).to(
+                torch.float32)
+            return SequenceBatch(data=err * decoded.mask(),
+                                 length=decoded.length)
+        return decoded
+
+
+@register_layer("ctc", "warp_ctc")
+class CTCCost(_CostBase):
+    """CTC (``CTCLayer`` / ``WarpCTCLayer``) of sequence logits against a
+    label sequence; ``blank`` and ``norm_by_times`` attributes.  Neither
+    weight nor ``coeff``, as the JAX layer."""
+
+    def forward(self, params, inputs, ctx):
+        logits, labels = inputs[0], inputs[1]
+        enforce(isinstance(logits, SequenceBatch)
+                and isinstance(labels, SequenceBatch),
+                "ctc needs sequence logits and labels")
+        cost = crf_ops.ctc_loss(
+            logits, labels, blank=self.conf.attrs.get("blank", 0),
+            norm_by_times=self.conf.attrs.get("norm_by_times", False))
+        return _per_example(cost, logits)
+
+
+@register_layer("cross_entropy_over_beam")
+class CrossEntropyOverBeamCost(Layer):
+    """Globally normalised beam cross-entropy (``CrossEntropyOverBeam``):
+    inputs in triples, one an expansion — accumulated path scores ``[B,
+    K]``, candidate ids ``[B, K]``, the gold id ``[B]``.  Following the
+    gold id through the expansions: at the first where it leaves the
+    beam, the cost is −log softmax at gold over that beam with the gold
+    path appended as an extra path (its score the last one it had in the
+    beam), frozen there; a gold that survives to the last expansion costs
+    −log softmax at its slot of the final beam.  ``[B, 1]``.  Not a cost
+    layer in the JAX package's sense (``is_cost``), nor here."""
+
+    def forward(self, params, inputs, ctx):
+        enforce(len(inputs) % 3 == 0,
+                "cross_entropy_over_beam takes (scores, ids, gold) triples")
+        triples = [(value_of(inputs[i]).to(torch.float32),
+                    value_of(inputs[i + 1]), value_of(inputs[i + 2]))
+                   for i in range(0, len(inputs), 3)]
+        scores = triples[0][0]
+        b = scores.shape[0]
+        alive = torch.ones((b,), dtype=torch.bool, device=scores.device)
+        frozen = scores.new_zeros((b,))
+        gold_score = scores.new_zeros((b,))
+        for scores, ids, gold in triples:
+            hit = ids == gold.reshape(b).to(ids.dtype)[:, None]
+            in_beam = torch.any(hit, dim=1)
+            here = torch.sum(torch.where(hit, scores, 0.0), dim=1)
+            gold_score = torch.where(alive & in_beam, here, gold_score)
+            ext = torch.cat([scores, gold_score[:, None]], 1)
+            drop = -(gold_score - torch.logsumexp(ext, dim=1))
+            frozen = torch.where(alive & ~in_beam, drop, frozen)
+            alive = alive & in_beam
+        final = -(gold_score - torch.logsumexp(scores, dim=1))
+        return torch.where(alive, final, frozen)[:, None]

@@ -21,7 +21,7 @@ group runs when one of its out-links is first needed, reading the outer
 values it needs as static inputs.  A generating group is decoded there
 by its :class:`~paddle_tpu_torch.layers.beam_search.BeamSearchDecoder`
 (built with the network), whose bundle the ``beam_gen`` layer exposes.
-Nested groups are refused at build time.
+A nested group steps over its in-links' subsequence slots.
 """
 
 from __future__ import annotations

@@ -24,8 +24,17 @@ classification cost takes the fused logits path.
 
 :meth:`RecurrentGroup.step` runs one timestep; the beam-search decoder
 of a generating group (``layers/beam_search.py``) drives the group with
-it.  Nested groups (nested-sequence in-links) are not ported;
-:func:`check_supported` refuses them when the network is built.
+it.
+
+A nested group (its in-links are nested sequences,
+:class:`NestedSequenceBatch`, LoD level 2) steps over subsequence slots
+instead (:meth:`RecurrentGroup._run_nested`, the JAX ``_run_nested``):
+each step's frame is a whole ``SequenceBatch`` of one slot, which the
+step's sequence layers (pools, ``last_seq``, ``lstmemory``,
+``recurrent``, …) consume; memories carry ``[B, size]`` state from slot
+to slot, kept by the outer mask.  Every one of the S slots runs, an
+empty one too, as the JAX scan runs them; the step's layers are not
+hoisted.
 """
 
 from __future__ import annotations
@@ -36,45 +45,19 @@ import torch
 
 from ..config.model_config import ModelConfig, SubModelConfig
 from ..core.dtypes import current_policy
-from ..core.sequence import SequenceBatch, value_of
+from ..core.sequence import NestedSequenceBatch, SequenceBatch, value_of
 from ..utils import PaddleTpuError, enforce
 from .base import ForwardContext, cast_layer_output, get_layer_class
 
 
 def check_supported(config: ModelConfig) -> None:
-    """Refuse, at build time, the groups the port does not run: nested
-    groups — a group stepping over subsequences, i.e. an in-link that
-    depends on a nested-sequence (``seq_level`` 2) data layer — and a
-    group flagged generating whose config carries no generator."""
-    lmap = config.layer_map()
-
-    def nested_source(name: str, seen: Set[str]) -> Optional[str]:
-        conf = lmap.get(name)
-        if conf is None or name in seen:
-            return None
-        seen.add(name)
-        if conf.type == "data":
-            return name if conf.attrs.get("seq_level", 0) >= 2 else None
-        for iname in conf.input_names():
-            hit = nested_source(iname, seen)
-            if hit:
-                return hit
-        return None
-
+    """Refuse, at build time, a group flagged generating whose config
+    carries no generator (the beam-search settings)."""
     for sm in config.sub_models:
-        if sm.name == "root":
-            continue
-        if sm.is_generating and not sm.generator:
+        if sm.name != "root" and sm.is_generating and not sm.generator:
             raise PaddleTpuError(
                 f"recurrent group {sm.name!r} is flagged as a generating "
                 "group but has no generator (beam_search settings)")
-        for link in sm.in_links:
-            src = nested_source(link, set())
-            if src:
-                raise PaddleTpuError(
-                    f"recurrent group {sm.name!r} is a nested group: its "
-                    f"in-link {link!r} reads the nested-sequence data layer "
-                    f"{src!r}; nested groups are not ported")
 
 
 class RecurrentGroup:
@@ -213,6 +196,8 @@ class RecurrentGroup:
         sequences (and the hoisted producers' sub-outputs) into
         ``values``."""
         enforce(self.in_links, f"group {self.sub.name} has no in_links")
+        if isinstance(values[self.in_links[0]], NestedSequenceBatch):
+            return self._run_nested(params, values, ctx)
         seqs = []
         for link in self.in_links:
             s = values[link]
@@ -311,3 +296,57 @@ class RecurrentGroup:
             if "." in k and k.split(".", 1)[0] in producers \
                     and k not in values:
                 values[k] = v
+
+    def _run_nested(self, params: Dict[str, Any], values: Dict[str, Any],
+                    ctx: ForwardContext) -> None:
+        """Nested in-links: one step per subsequence slot (the
+        reference's ``RecurrentGradientMachine`` over
+        ``subSequenceStartPositions``; ``sequence_nest_rnn.conf``).  A
+        step's frame is the slot's ``SequenceBatch`` (an invalid slot's
+        rows of length 0); a sequence out-link comes back as a
+        ``NestedSequenceBatch``, any other as a ``SequenceBatch`` over
+        the slots."""
+        seqs = []
+        for link in self.in_links:
+            s = values[link]
+            enforce(isinstance(s, NestedSequenceBatch),
+                    f"group {self.sub.name}: in_link {link!r}: all in-links "
+                    "of a nested group must be nested sequences")
+            seqs.append(s)
+        b, n_sub = seqs[0].data.shape[:2]
+        num_subseq = seqs[0].num_subseq
+        fdt = current_policy().output_dtype
+        outer = seqs[0].subseq_mask(fdt)                  # [B, S]
+        valid = outer > 0
+        mems = [self._memory_init(m, values, b, fdt, seqs[0].data.device)
+                for m in self.memories]
+        lengths = [s.sub_length * s.subseq_mask(s.sub_length.dtype)
+                   for s in seqs]
+        outs: Dict[str, List[Any]] = {o: [None] * n_sub
+                                      for o in self.out_links}
+        slots = range(n_sub - 1, -1, -1) if self.sub.reversed \
+            else range(n_sub)
+        for j in slots:
+            frame = {link: SequenceBatch(data=s.data[:, j], length=ln[:, j])
+                     for link, s, ln in zip(self.in_links, seqs, lengths)}
+            new_mems, step_vals = self.step(params, frame, mems, values, ctx)
+            m = outer[:, j, None]
+            mems = [m * new + (1 - m) * old
+                    for new, old in zip(new_mems, mems)]
+            for o in self.out_links:
+                v = step_vals[o]
+                d = value_of(v)
+                mb = valid[:, j].reshape((b,) + (1,) * (d.dim() - 1))
+                d = torch.where(mb, d, torch.zeros((), dtype=d.dtype,
+                                                   device=d.device))
+                outs[o][j] = (d, v.length * valid[:, j].to(v.length.dtype)) \
+                    if isinstance(v, SequenceBatch) else d
+        for o in self.out_links:
+            if isinstance(outs[o][0], tuple):
+                values[o] = NestedSequenceBatch(
+                    data=torch.stack([d for d, _ in outs[o]], 1),
+                    num_subseq=num_subseq,
+                    sub_length=torch.stack([ln for _, ln in outs[o]], 1))
+            else:
+                values[o] = SequenceBatch(data=torch.stack(outs[o], 1),
+                                          length=num_subseq)

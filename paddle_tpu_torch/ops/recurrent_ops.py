@@ -1,5 +1,7 @@
-"""LSTM and GRU over padded sequences (counterpart of
-``paddle_tpu/ops/recurrent_ops.py``, its LSTM and GRU parts).
+"""LSTM, GRU and the plain recurrence over padded sequences
+(counterpart of ``paddle_tpu/ops/recurrent_ops.py``), registered under
+the JAX names ``lstm``, ``gru``, ``recurrent``, ``lstm_unit`` and
+``gru_unit``.
 
 The input projection for all timesteps is one product outside the time
 loop; the recurrence runs either in fused kernels (default activations:
@@ -8,6 +10,9 @@ with a single-block tier for H <= 512 and a hidden-blocked tier above)
 or in a per-step loop, :func:`lstm_scan` / :func:`gru_scan`.  Padding
 keeps the state unchanged through masked steps.  Peephole ("check")
 weights follow the reference LSTM; the GRU's gate layout is (u, r, c).
+The plain recurrence (:func:`simple_rnn`) and the cell functions
+(:func:`lstm_unit`, :func:`gru_unit`) have no kernel in either package:
+they are per-step loops of library ops.
 
 Which shapes take the fused kernels is the reference's rule
 (:func:`dispatch_tier`, a copy of ``pallas_lstm.fused_tier``): B % 8 == 0,
@@ -35,9 +40,10 @@ from ..core.sequence import SequenceBatch
 from ..utils import FLAGS
 from ..utils.logger import get_logger, warn_once
 from . import gru
-from .activations import get_activation
+from .activations import get_activation, sigmoid
 from .lstm import lstm_fused_sequence, lstm_fused_sequence_blocked
 from .math_ops import matmul
+from .registry import register_op
 
 _log = get_logger("ops.recurrent")
 
@@ -141,9 +147,14 @@ def lstm_gate_step(xw: torch.Tensor, state: LstmState,
                    out_act: str = "tanh") -> Tuple[LstmState, torch.Tensor]:
     """One LSTM step.  xw: [B, 4H] pre-projected input (gate order i, f,
     c, o); returns (new_state, h).  The recurrent product runs in the
-    policy compute dtype and is cast to xw's dtype."""
-    cd = current_policy().compute_dtype
-    gates = xw + (state.h.to(cd) @ w_hh.to(cd)).to(xw.dtype)
+    policy compute dtype and is cast to xw's dtype; ``w_hh=None`` skips
+    it (``LstmStepLayer``: the input already holds every
+    contribution)."""
+    if w_hh is None:
+        gates = xw
+    else:
+        cd = current_policy().compute_dtype
+        gates = xw + (state.h.to(cd) @ w_hh.to(cd)).to(xw.dtype)
     i, f, c_in, o = torch.chunk(gates, 4, dim=-1)
     ga = get_activation(gate_act)
     ca = get_activation(cell_act)
@@ -187,6 +198,7 @@ def lstm_scan(xw, mask, w_hh, check_i=None, check_f=None, check_o=None,
     return torch.stack(ys, 1), torch.stack(cys, 1), state.h, state.c
 
 
+@register_op("lstm")
 def lstm_sequence(seq: SequenceBatch, w_ih, w_hh, bias=None,
                   check_i=None, check_f=None, check_o=None,
                   h0=None, c0=None, reverse: bool = False,
@@ -275,6 +287,7 @@ def gru_scan(xw, mask, w_gates, w_cand, h0=None, gate_act: str = "sigmoid",
     return torch.stack(ys, 1), h
 
 
+@register_op("gru")
 def gru_sequence(seq: SequenceBatch, w_ih, w_hh, bias=None, h0=None,
                  reverse: bool = False, gate_act: str = "sigmoid",
                  act: str = "tanh") -> Tuple[SequenceBatch, torch.Tensor]:
@@ -320,6 +333,54 @@ def gru_sequence(seq: SequenceBatch, w_ih, w_hh, bias=None, h0=None,
     return SequenceBatch(data=y, length=seq.length), fh.to(pol.output_dtype)
 
 
+@register_op("recurrent")
+def simple_rnn(seq: SequenceBatch, w_hh, bias=None, h0=None,
+               reverse: bool = False, act: str = "tanh"
+               ) -> Tuple[SequenceBatch, torch.Tensor]:
+    """The plain recurrent layer's op (``RecurrentLayer``): the input is
+    already projected; h_t = act(x_t + h_{t-1} W + b) over ``[B, T, H]``
+    with the length mask (a padded step keeps the carry, its output row
+    is 0).  The input and the product in the policy compute dtype, the
+    carry and the sum in the output dtype.  Returns (hidden
+    SequenceBatch, final state ``[B, H]``)."""
+    b, t, hd = seq.data.shape
+    pol = current_policy()
+    record_op_precision("recurrent")
+    cd, carry = pol.compute_dtype, pol.output_dtype
+    x = seq.data.to(cd)
+    if bias is not None:
+        x = x + bias.to(cd)
+    mask = seq.mask(x.dtype)
+    if reverse:
+        x = torch.flip(x, (1,))
+        mask = torch.flip(mask, (1,))
+    a = get_activation(act)
+    w = w_hh.to(cd)
+    h = x.new_zeros((b, hd), dtype=carry) if h0 is None else h0.to(carry)
+    ys = []
+    for s in range(t):
+        h_new = a(x[:, s].to(carry) + (h.to(cd) @ w).to(carry))
+        m = mask[:, s, None]
+        h = m * h_new + (1 - m) * h
+        ys.append(m * h_new)
+    hs = torch.stack(ys, 1).to(pol.output_dtype) if t else \
+        x.new_zeros((b, 0, hd), dtype=pol.output_dtype)
+    if reverse:
+        hs = torch.flip(hs, (1,))
+    return SequenceBatch(data=hs, length=seq.length), h.to(pol.output_dtype)
+
+
+@register_op("lstm_unit", n_outputs=2)
+def lstm_unit(x_proj, c_prev, forget_bias: float = 0.0):
+    """Stateless LSTM cell math (``lstm_unit_op.cc``): ``x_proj`` ``[B,
+    4H]`` already holds W x + W h, **gate order (i, f, o, j)** (not
+    :func:`lstm_gate_step`'s (i, f, c, o)); returns (c, h)."""
+    i, f, o, j = torch.chunk(x_proj, 4, dim=-1)
+    c = sigmoid(f + forget_bias) * c_prev + sigmoid(i) * torch.tanh(j)
+    return c, sigmoid(o) * torch.tanh(c)
+
+
+@register_op("gru_unit", n_outputs=1)
 def gru_unit(x_proj, h_prev, w_hh, gate_act: str = "sigmoid",
              act: str = "tanh") -> torch.Tensor:
     """Single GRU step given the pre-projected input ``[B, 3H]``

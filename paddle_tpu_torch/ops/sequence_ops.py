@@ -35,8 +35,9 @@ def sequence_pool(seq: SequenceBatch, pool_type: str = "average"
                   ) -> torch.Tensor:
     """Pool ``[B, T, D]`` over the valid timesteps → ``[B, D]``:
     ``average`` (the sum over max(length, 1)), ``sum``, ``sqrt`` (the sum
-    over sqrt(max(length, 1))), ``max`` (0 for an empty sequence),
-    ``last`` and ``first`` (step 0 for an empty sequence)."""
+    over sqrt(max(length, 1))), ``max`` (−inf for an empty sequence, as
+    the JAX op gives), ``last`` and ``first`` (step 0 for an empty
+    sequence)."""
     x = seq.data
     mask = seq.mask(x.dtype)
     mask = mask.reshape(mask.shape + (1,) * (x.dim() - 2))
@@ -49,10 +50,10 @@ def sequence_pool(seq: SequenceBatch, pool_type: str = "average"
     if pool_type == "sqrt":
         return torch.sum(x * mask, dim=1) / torch.sqrt(denom)
     if pool_type == "max":
-        pooled = torch.amax(torch.where(mask > 0, x, torch.full_like(
+        # an empty sequence pools to -inf, as the JAX op does: its
+        # where(denom > 0, ...) tests max(length, 1), which is never 0
+        return torch.amax(torch.where(mask > 0, x, torch.full_like(
             x, float("-inf"))), dim=1)
-        empty = (seq.length <= 0).reshape((-1,) + (1,) * (x.dim() - 2))
-        return torch.where(empty, torch.zeros_like(pooled), pooled)
     if pool_type == "last":
         return seq.last_valid()
     if pool_type == "first":

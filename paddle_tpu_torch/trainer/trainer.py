@@ -78,7 +78,7 @@ from ..config.model_config import OptimizationConfig
 from ..core.device import resolve_device
 from ..core.dtypes import (full_precision, policy_for, policy_scope,
                            resolve_precision)
-from ..core.sequence import SequenceBatch, value_of
+from ..core.sequence import NestedSequenceBatch, SequenceBatch, value_of
 from ..layers.network import NeuralNetwork
 from ..ops.embedding import gather_rows
 from ..optimizer import loss_scale as ls
@@ -137,14 +137,18 @@ def optimizer_from_config(oc: OptimizationConfig
 
 
 def _to_device(v, dev: torch.device):
-    """A feed value (tensor, numpy array or SequenceBatch of either) as
-    tensors on ``dev``.  A host tensor goes to the card through a pinned
-    copy queued on the current stream without blocking the host (from
-    pageable memory the copy would wait for every kernel queued before
-    it)."""
+    """A feed value (tensor, numpy array, or a SequenceBatch or
+    NestedSequenceBatch of either) as tensors on ``dev``.  A host tensor
+    goes to the card through a pinned copy queued on the current stream
+    without blocking the host (from pageable memory the copy would wait
+    for every kernel queued before it)."""
     if isinstance(v, SequenceBatch):
         return SequenceBatch(_to_device(v.data, dev),
                              _to_device(v.length, dev))
+    if isinstance(v, NestedSequenceBatch):
+        return NestedSequenceBatch(_to_device(v.data, dev),
+                                   _to_device(v.num_subseq, dev),
+                                   _to_device(v.sub_length, dev))
     t = torch.as_tensor(v)
     if dev.type == "cuda" and t.device.type == "cpu":
         return t.pin_memory().to(dev, non_blocking=True)

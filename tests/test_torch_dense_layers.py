@@ -20,8 +20,9 @@ gradient within rtol 1e-5 and atol 1e-6 · max(1, max|ref|).
 The closure test holds every layer type the port registers to a parity
 case (here, in ``test_torch_mixed.py``, ``test_torch_costs_ops.py``,
 ``test_torch_layer_sweep.py``, ``test_torch_seq_layers.py``,
-``test_torch_sampled_layers.py`` or ``test_torch_beam_search.py``), an
-alias of one, or a stated reason.
+``test_torch_sampled_layers.py``, ``test_torch_beam_search.py``,
+``test_torch_rnn_types.py`` or ``test_torch_crf_ctc.py``), an alias of
+one, or a stated reason.
 """
 
 import jax
@@ -118,10 +119,12 @@ def port_net(jnet):
     return TNet(TModel.from_json(jnet.config.to_json()))
 
 
-def check_parity(jnet, np_feed, objective="readout"):
+def check_parity(jnet, np_feed, objective="readout", jit=False):
     """Forward output of ``test`` and the gradients of the objective
     (``readout``: the sweep's ``scalar_loss``; ``loss``: the network's
-    cost) in every parameter and float input, JAX against the port."""
+    cost) in every parameter and float input, JAX against the port
+    (``jit``: the JAX side compiled whole, which is quicker for nets
+    with a time loop)."""
     tnet = port_net(jnet)
     jparams, tparams = carried_params(jnet, tnet)
     fnames = [k for k, v in np_feed.items() if _floating(v)]
@@ -135,8 +138,10 @@ def check_parity(jnet, np_feed, objective="readout"):
     jdatas = {k: jax_feed(np_feed)[k] for k in fnames}
     jdatas = {k: v.data if isinstance(v, JSeq) else v
               for k, v in jdatas.items()}
-    jval, (jgp, jgd) = jax.value_and_grad(jobj, argnums=(0, 1))(
-        jparams, jdatas)
+    value_and_grad = jax.value_and_grad(jobj, argnums=(0, 1))
+    if jit:
+        value_and_grad = jax.jit(value_and_grad)
+    jval, (jgp, jgd) = value_and_grad(jparams, jdatas)
 
     tp = {k: v.requires_grad_(True) for k, v in tparams.items()}
     tdatas = {k: torch.from_numpy(np.array(
@@ -160,10 +165,13 @@ def check_parity(jnet, np_feed, objective="readout"):
               f"gradient of {name}")
 
     # the forward value itself
-    jv, _ = jnet.forward(jparams, jax_feed(np_feed), is_training=False)
+    def jforward(params, feed):
+        return jnet.forward(params, feed, is_training=False)[0]["test"]
+    want_out = (jax.jit(jforward) if jit else jforward)(jparams,
+                                                        jax_feed(np_feed))
     with torch.no_grad():
         tv, _ = tnet.forward(tparams, torch_feed(np_feed), is_training=False)
-    want_out, got_out = jv["test"], tv["test"]
+    got_out = tv["test"]
     assert isinstance(got_out, TSeq) == isinstance(want_out, JSeq)
     if isinstance(want_out, JSeq):
         np.testing.assert_array_equal(got_out.length.numpy(),
@@ -199,13 +207,16 @@ NO_CASE = {"data": "fed, not computed (DataLayer raises)",
 
 def test_every_registered_type_has_a_parity_case():
     import test_torch_costs_ops as costs
+    import test_torch_crf_ctc as crf
     import test_torch_layer_sweep as earlier
     import test_torch_mixed as mixed
+    import test_torch_rnn_types as rnn
     import test_torch_sampled_layers as sampled
     import test_torch_seq_layers as seq
     covered = set(SWEEP_TYPES) | {t for t, _, _ in mixed.EXTRA.values()} \
         | set(costs.COST_TYPES) | set(earlier.EARLIER_TYPES) | set(NO_CASE) \
-        | set(seq.SEQ_TYPES) | set(sampled.SAMPLED_TYPES)
+        | set(seq.SEQ_TYPES) | set(sampled.SAMPLED_TYPES) \
+        | set(rnn.RNN_TYPES) | set(crf.COST_SEQ_TYPES)
     missing = []
     for name, cls in TLAYERS.items():
         if name in covered or cls.layer_type in covered:
@@ -215,14 +226,14 @@ def test_every_registered_type_has_a_parity_case():
     assert {"mse", "regression_cost", "mkldnn_fc", "grumemory",
             "cudnn_conv", "conv", "cudnn_batch_norm",
             "multi_head_attention"} <= set(TLAYERS)
-    # the reference's 110 names less the 30 still to port (test_torch_dsl)
-    assert len(TLAYERS) == 80
+    # the reference's 110 names less the 22 still to port (test_torch_dsl)
+    assert len(TLAYERS) == 88
 
 
 @pytest.mark.parametrize("name", [
-    "lstm_step", "recurrent", "mdlstmemory", "norm", "maxout", "spp",
-    "blockexpand", "pad", "crf", "crf_decoding", "ctc", "warp_ctc",
-    "cross_entropy_over_beam"])
+    "norm", "maxout", "spp", "blockexpand", "pad", "crop", "rotate",
+    "switch_order", "bilinear_interp", "cross-channel-norm", "pool3d",
+    "priorbox", "multibox_loss"])
 def test_unported_types_refuse_by_name(name):
     from paddle_tpu.layers import LAYERS as JLAYERS
     from paddle_tpu_torch.config.model_config import (LayerConfig,

@@ -409,7 +409,8 @@ def b_layer_math(d, f, lm, **_):
     b = d.data("b", f.dense_vector(4))
     one = d.data("one", f.dense_vector(1))
     # (a * one, a size-1 operand, raises IndexError in both packages:
-    # layer_math.mul calls scaling_layer(input=, weight=); ROADMAP C7)
+    # layer_math.mul calls scaling_layer(input=, weight=); ROADMAP queue
+    # C)
     return [a + b, a - b, 2.0 * a, a * 0.5, 1.0 - a, a + one, one + a,
             a + 3.0, lm.exp(a), lm.log(b), lm.tanh(a), lm.sigmoid(a),
             lm.relu(a), lm.sqrt(b), lm.square(a), lm.abs(a),
@@ -473,12 +474,13 @@ def test_is_layer_type_differs_exactly_on_the_unported_types():
               != tdsl.LayerType.is_layer_type(t)}
     assert differ == jtypes - set(T)
     assert all(jdsl.LayerType.is_layer_type(t) for t in jtypes)
-    # 110 types in the reference's registry, 80 ported (queues A4c part
-    # 2 and A14 port the rest)
-    assert (len(jtypes), len(T), len(differ)) == (110, 80, 30)
+    # 110 types in the reference's registry, 88 ported (queue A14's
+    # image, 3-D and detection types are the rest)
+    assert (len(jtypes), len(T), len(differ)) == (110, 88, 22)
     assert tdsl.LayerType.is_layer_type("mixed")
     assert tdsl.LayerType.is_layer_type("tensor")
-    assert not tdsl.LayerType.is_layer_type("crf")
+    assert tdsl.LayerType.is_layer_type("crf")
+    assert not tdsl.LayerType.is_layer_type("norm")
     assert tdsl.LayerType.is_layer_type(tdsl.LayerType.LSTMEMORY)
 
 

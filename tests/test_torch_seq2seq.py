@@ -359,9 +359,12 @@ def test_generating_groups_are_refused():
 
 
 def test_nested_groups_are_refused():
-    """A group whose in-link reads a nested-sequence data layer steps
-    over subsequences (``_run_nested``): refused at build time."""
+    """No longer refused: a group whose in-link reads a nested-sequence
+    data layer builds, and steps over subsequences when it is fed a
+    nested batch (``_run_nested``; tests/test_torch_nested_groups.py);
+    a flat feed still takes the time loop."""
     cfg = seq2seq_config(V, E, H)
     cfg.layer_map()["target"].attrs["seq_level"] = 2
-    with pytest.raises(PaddleTpuError, match="nested group"):
-        TNet(cfg)
+    net = TNet(cfg)
+    assert set(net.groups) == {sm.name for sm in cfg.sub_models
+                               if sm.name != "root"}

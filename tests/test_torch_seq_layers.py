@@ -13,8 +13,9 @@ strided and over nested sequences for every pool type.
 Pinned where the port copies the JAX package rather than the reference
 (ROADMAP queue C): the strided and nested pooling paths return without
 the layer's activation; an unknown ``average_strategy`` reads as
-``average``.  Pinned where the port differs: an empty sequence
-max-pools to 0 (the JAX op's own comment; it returns −inf there).
+``average``; an empty sequence max-pools to −inf (the JAX op's
+``where(denom > 0, …)`` never fires: its comment says 0), on the flat,
+strided and nested paths alike (fault C7).
 """
 
 import jax
@@ -70,6 +71,16 @@ def _same_seq(t, j, what, exact=False):
                                       err_msg=what)
     else:
         close(_np(t.data), np.asarray(j.data), what)
+
+
+def close_inf(got, want, what):
+    """``close`` on the finite values; the infinities at the same places
+    with the same sign."""
+    got, want = np.asarray(got), np.asarray(want)
+    for test in (np.isneginf, np.isposinf, np.isnan):
+        np.testing.assert_array_equal(test(got), test(want), err_msg=what)
+    fin = np.isfinite(want)
+    close(got[fin], want[fin], what)
 
 
 def _forward_both(jnet, np_feed):
@@ -167,7 +178,7 @@ def test_strided_pooling_matches_jax_without_activation(ltype, attrs):
     jnet = _pool_net(ltype, dict(attrs, stride=3))
     feed = numpy_feed({"in0": jseq.pad_batch(rows)})
     _valid_step_parity(jnet, feed)
-    got, _ = _forward_both(jnet, feed)
+    got, want = _forward_both(jnet, feed)
     plain = tops.sequence_pool(
         tseq.pad_batch([r[3:6] for r in rows], max_len=3),
         {"average": {"sum": "sum", "squarerootn": "sqrt"}.get(
@@ -176,6 +187,8 @@ def test_strided_pooling_matches_jax_without_activation(ltype, attrs):
     valid = np.asarray([len(r) > 3 for r in rows])
     close(_np(got.data)[valid, 1], _np(plain)[valid], "window 1, no tanh")
     np.testing.assert_array_equal(_np(got.length), [2, 1, 3, 1])
+    # every window, those past the end too (the max pool's -inf, C7)
+    close_inf(_np(got.data), np.asarray(want.data), "every window")
 
 
 @pytest.mark.parametrize("ltype,attrs", POOLS)
@@ -194,9 +207,9 @@ def test_nested_pooling_matches_jax_without_activation(ltype, attrs):
     mask = _np(tn.subseq_mask()) > 0
     np.testing.assert_array_equal(_np(got["test"].length),
                                   np.asarray(want["test"].length))
-    # an empty subsequence slot max-pools to 0 here, -inf in JAX
-    close(_np(got["test"].data)[mask], np.asarray(want["test"].data)[mask],
-          ltype)
+    # every slot, the empty ones too: a max pool gives -inf there in
+    # both packages (C7)
+    close_inf(_np(got["test"].data), np.asarray(want["test"].data), ltype)
     flat = tops.sequence_pool(tn.flatten_to_subseq(), tnet.layers[
         "test"].pool_type).reshape(3, 3, 3)
     close(_np(got["test"].data)[mask], _np(flat)[mask], "no tanh")
@@ -248,12 +261,10 @@ def test_sequence_pool_matches_jax(pool):
     got = _np(tops.sequence_pool(t, pool))
     nonempty = np.asarray(LENS) > 0
     close(got[nonempty], want[nonempty], pool)
+    # the empty sequence: equal to the JAX op, -inf for max (C7)
+    close_inf(got[~nonempty], want[~nonempty], pool + " (empty)")
     if pool == "max":
-        # the empty sequence pools to 0 here; the JAX op returns -inf
-        assert (got[~nonempty] == 0).all()
-        assert np.isneginf(want[~nonempty]).all()
-    else:
-        close(got[~nonempty], want[~nonempty], pool + " (empty)")
+        assert np.isneginf(got[~nonempty]).all()
 
 
 def test_sequence_concat_slice_reshape_match_jax():

@@ -426,10 +426,10 @@ def test_other_unported_pieces_refuse_by_name():
         treader.recordio(["x"])
     with pytest.raises(PaddleTpuError, match="A9"):
         treader.cloud_reader(["x"], master=None)
-    with pytest.raises(PaddleTpuError, match="A4c"):
-        tfeed.DataFeeder([("s", tfeed.integer_value_sub_sequence(5))])
-    with pytest.raises(PaddleTpuError, match="A4c"):
-        tfeed.DataFeeder([("s", tfeed.dense_vector_sub_sequence(5))])
+    # sub-sequence feeds are ported (tests/test_torch_nested_groups.py)
+    nested = tfeed.DataFeeder([("s", tfeed.integer_value_sub_sequence(5))]
+                              ).convert([([[1, 2], [3]],)])["s"]
+    assert tuple(nested.sub_length.tolist()) == ([2, 1],)
     with pytest.raises(PaddleTpuError, match="local_sgd_steps.*A9"):
         TTrainer(TNet(t_classifier(V, E, H, 2, C)),
                  TOpt(local_sgd_steps=2), device="cpu")
