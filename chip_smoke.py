@@ -2425,10 +2425,10 @@ def _dense_run(net, params, feed, where):
     return {k: v.cpu() for k, v in res.items()}
 
 
-def _dense_worst(got, want, what):
+def _dense_worst(got, want, what, limit=1.0):
     """The worst share of the card-vs-CPU tolerance over ``want``'s
-    tensors; fails past 1.  An infinity must stand on both sides with
-    the same sign (an empty max pool's -inf); NaN always fails."""
+    tensors; fails past ``limit``.  An infinity must stand on both sides
+    with the same sign (an empty max pool's -inf); NaN always fails."""
     worst = 0.0
     for k, w in want.items():
         g = got[k].double()
@@ -2443,7 +2443,7 @@ def _dense_worst(got, want, what):
         scale = max(1.0, float(w.abs().max()) if w.numel() else 1.0)
         tol = DENSE_ATOL * scale + DENSE_RTOL * w.abs()
         share = float(((g - w).abs() / tol).max()) if w.numel() else 0.0
-        if share > 1.0:
+        if share > limit:
             fail(f"4z-dense {what}: {k} card vs CPU off by "
                  f"{float((g - w).abs().max()):.3e} ({share:.2f} of the "
                  "tolerance)")
@@ -3929,6 +3929,648 @@ def phase_tag(dev, card):
          "nested": phase_tag_nested(dev)}
     m["seconds"] = time.perf_counter() - t0
     log(f"  4z-tag took {m['seconds']:.1f} s")
+    return m
+
+
+# ------------------------------------------------ phase 4z-image
+#: phase 4z-image (a): card against CPU on the same port code (fp32, TF32
+#: off) for the image, 3-D and detection types at the JAX package's
+#: sweep sizes (tests/test_layer_grad_sweep.py::CASES) and the nn_ops at
+#: larger shapes (a C3D block: B 4, 64 -> 128 channels, 8x28x28, 3^3,
+#: pad 1), as 4z-gen (a): every float output and gradient within
+#: DENSE_RTOL and DENSE_ATOL * max(1, max|CPU|), indices exact; and the
+#: port's NHWC stride-1 3x3 conv (B 4, 28x28, 64 -> 64) in fp32 against
+#: the same code in float64 on the CPU within IMAGE_CONV_F64_LIMIT of
+#: that tolerance: cuDNN's fp32 weight gradient reads 0.83-1.21 of it
+#: from float64, the CPU's 0.02-0.08 (tools/image_probe.py)
+IMAGE_C3D = dict(B=4, C=64, F=128, D=8, HW=28)
+IMAGE_CONV_F64_LIMIT = 2.0
+#: (b): SSD300's prior layout (PaddlePaddle/models ssd, VOC config): six
+#: heads over 300x300 at 38, 19, 10, 5, 3, 1 cells with these min / max
+#: sizes and aspect ratios (8732 priors), 21 classes, B 32, 1-10
+#: ground-truth boxes an image, heads and boxes from RandomState(0); the
+#: decode at nms_top_k 400, keep_top_k 200, thresholds 0.01 and 0.45
+SSD = dict(IMG=300, CELLS=(38, 19, 10, 5, 3, 1),
+           MIN=(30, 60, 111, 162, 213, 264),
+           MAX=(60, 111, 162, 213, 264, 315),
+           AR=([2.0], [2.0, 3.0], [2.0, 3.0], [2.0, 3.0], [2.0], [2.0]),
+           VAR=[0.1, 0.1, 0.2, 0.2], CLASSES=21, B=32, GT=(1, 10),
+           PRIORS=8732, TOP_K=400, KEEP=200, CONF_T=0.01, NMS_T=0.45)
+#: (c): configs/image.py's nets through `python -m paddle_tpu_torch train
+#: --job time` at the config's B 64 (3 warm-up batches, then this many
+#: timed ones; num_samples cut to those), after one step at B 4 card vs
+#: CPU from the same parameters (dropout off: each device draws its own
+#: masks): the loss within rtol VAE_LOSS_RTOL; every parameter's
+#: gradient within IMAGE_GRAD_REL of the CPU's in norm,
+#: ||g_card - g_cpu|| / ||g_cpu|| (ReLU and max-pool flips move a norm a
+#: little, a wrong backward by O(1): on an H100 a 1e-7 nudge of the
+#: weights moves it by up to 7.8e-3 on the CPU alone (alexnet), the card
+#: reads up to 8.8e-3 (googlenet, cuDNN off), C8's average pool put back
+#: 1.28 (smallnet); tools/image_probe.py); and every weight after one
+#: step of the config's optimizer within VAE_W_ATOL, all but 1 in 10^3 of
+#: a tensor within 2e-5
+IMAGE_CONFIG = os.path.join("paddle_tpu_torch", "configs", "image.py")
+IMAGE_NETS = dict(smallnet=20, alexnet=10, googlenet=5, vgg=5)
+IMAGE_B, IMAGE_CHECK_B = 64, 4
+IMAGE_GRAD_REL = 0.1
+#: (d): model=resnet at 4l's B under 4l's flags, 3 warm-up and this many
+#: timed batches: 4l's launches of kernels 19 and 20 a step
+IMAGE_R50_TIMED = 5
+
+
+def _image_cases():
+    """(name, fn, arrays, ints) of phase 4z-image (a): the 22 types at the
+    sweep's sizes, then the ops at larger shapes."""
+    from paddle_tpu_torch.ops import nn_ops as N
+    r = np.random.RandomState(77)
+    f32 = np.float32
+
+    def d(*shape, lo=-1.0, hi=1.0):
+        return r.uniform(lo, hi, shape).astype(f32)
+
+    def img(c, h, **kw):
+        return dict(channels=c, img_size=h, img_size_y=h, **kw)
+
+    def vol(c, z, h, **kw):
+        return dict(img(c, h), img_size_z=z, **kw)
+
+    def boxes(n):
+        return np.sort(r.rand(n, 2, 2), axis=1).reshape(n, 4).astype(f32)
+
+    cases = []
+
+    def layer(name, size, in_sizes, feeds=None, ltype=None, **kw):
+        feeds = feeds or [{f"in{i}": d(2, s)
+                           for i, s in enumerate(in_sizes)}]
+        cases.append(_layer_case(name, ltype or name, size, in_sizes, feeds,
+                                 **kw))
+
+    for t in ("exconvt", "cudnn_convt"):
+        layer(t, 0, [32], attrs=img(2, 4, filter_size=3, num_filters=3,
+                                    stride=2, padding=1))
+    layer("mkldnn_conv", 0, [75], bias=True,
+          attrs=img(3, 5, filter_size=3, num_filters=4, stride=1,
+                    padding=1))
+    for t in ("cudnn_pool", "mkldnn_pool"):
+        layer(t, 0, [32], attrs=img(2, 4, pool_size=2, stride=2,
+                                    pool_type="avg-projection"))
+    layer("mkldnn_batch_norm", 6, [6], [{"in0": d(8, 6)}], bias=True,
+          attrs={"channels": 6})
+    layer("norm", 32, [32], attrs=img(2, 4, norm_size=3, scale=0.01,
+                                      pow=0.75))
+    layer("maxout", 18, [36], attrs=img(4, 3, groups=2))
+    layer("blockexpand", 8, [32], attrs=img(2, 4, block_x=2, block_y=2,
+                                            stride_x=2, stride_y=2))
+    layer("spp", 0, [32], attrs=img(2, 4, pyramid_height=2,
+                                    pool_type="avg"))
+    layer("pad", 0, [18], attrs=img(2, 3, pad_c=[0, 0], pad_h=[1, 1],
+                                    pad_w=[1, 1]))
+    layer("crop", 0, [32], attrs=img(2, 4, crop_offsets=[1, 1],
+                                     crop_shape=[2, 2]))
+    layer("rotate", 12, [12], attrs={"height": 3, "width": 4})
+    layer("switch_order", 0, [24],
+          [{"in0": r.randn(2, 3, 4, 2).astype(f32)}],
+          attrs={"reshape_axis": 3})
+    layer("bilinear_interp", 0, [18], attrs=img(2, 3, out_size_x=5,
+                                                out_size_y=5))
+    layer("cross-channel-norm", 12, [12], [{"in0": d(2, 12, lo=0.3)}],
+          attrs={"channels": 3})
+    layer("conv3d", 54, [96], bias=True,
+          attrs=vol(2, 3, 4, filter_size=2, num_filters=3, stride=1,
+                    padding=0))
+    layer("deconv3d", 0, [36], attrs=vol(2, 2, 3, filter_size=2,
+                                         num_filters=2, stride=1,
+                                         padding=0))
+    layer("pool3d", 16, [128], attrs=vol(2, 4, 4, pool_size=2, stride=2,
+                                         padding=0, pool_type="avg"))
+    priors = np.concatenate([boxes(4), np.tile([0.1, 0.1, 0.2, 0.2],
+                                               (4, 1)).astype(f32)], 1)
+    layer("priorbox", 0, [18], [{"in0": d(1, 18)}],
+          attrs={"layer_width": 3, "layer_height": 3, "image_width": 12,
+                 "image_height": 12, "min_size": [4], "max_size": [],
+                 "aspect_ratio": [2.0], "variance": [0.1, 0.1, 0.2, 0.2]})
+    gt = np.concatenate([np.ones((2, 1, 1), f32), boxes(2)[:, None],
+                         np.zeros((2, 1, 1), f32)], 2)
+    layer("multibox_loss", 1, [32, 6, 16, 12],
+          [{"in0": np.tile(priors.reshape(1, -1), (2, 1)), "in1": gt,
+            "in1_len": np.ones(2, np.int32), "in2": 0.1 * d(2, 16),
+            "in3": d(2, 12)}], seqs=("in1",),
+          attrs={"num_classes": 3, "input_num": 1,
+                 "overlap_threshold": 0.3})
+    layer("detection_output", 0, [32, 16, 12],
+          [{"in0": priors.reshape(1, -1), "in1": 0.1 * d(1, 16),
+            "in2": d(1, 12)}], attrs={"num_classes": 3, "input_num": 1})
+
+    def w(*shape):
+        return (r.randn(*shape) / np.sqrt(np.prod(shape[:-1]))).astype(f32)
+
+    c3 = IMAGE_C3D
+    x3 = d(c3["B"], c3["D"], c3["HW"], c3["HW"], c3["C"])
+    ties = r.randint(0, 4, (4, 28, 28, 32)).astype(f32)
+    ones = np.ones(64, f32)
+    ops = [
+        ("conv2d NCHW s2 SAME",
+         lambda x, w: N.conv2d(x, w, 2, "SAME", data_format="NCHW"),
+         {"x": d(4, 64, 28, 28), "w": w(3, 3, 64, 32)}, ()),
+        ("conv2d_transpose s2 64->32 at 28x28",
+         lambda x, w: N.conv2d_transpose(x, w, 2, 1),
+         {"x": d(4, 28, 28, 64), "w": w(3, 3, 32, 64)}, ()),
+        ("conv3d C3D", lambda x, w: N.conv3d(x, w, 1, 1),
+         {"x": x3, "w": w(3, 3, 3, c3["C"], c3["F"])}, ()),
+        ("conv3d_transpose C3D", lambda x, w: N.conv3d_transpose(x, w, 1, 1),
+         {"x": x3, "w": w(3, 3, 3, c3["F"], c3["C"])}, ()),
+        ("pool3d max C3D", lambda x: N.pool3d(x, "max", 2, 2, 0),
+         {"x": x3}, ()),
+        ("pool3d avg C3D pad 1", lambda x: N.pool3d(x, "avg", 3, 2, 1),
+         {"x": x3}, ()),
+        ("pool2d NCHW max asymmetric pads",
+         lambda x: N.pool2d(x, "max", 3, 2, [(0, 1), (1, 0)], "NCHW"),
+         {"x": d(4, 64, 27, 27)}, ()),
+        ("pool2d avg SAME", lambda x: N.pool2d(x, "avg", 3, 2, "SAME"),
+         {"x": d(4, 27, 27, 64)}, ()),
+        ("pool2d global avg",
+         lambda x: N.pool2d(x, "avg", global_pooling=True),
+         {"x": d(4, 7, 7, 512)}, ()),
+        ("max_pool2d_with_index values",
+         lambda x: N.max_pool2d_with_index(x, 3, 2, 1)[0], {"x": ties},
+         ()),
+        ("max_pool2d_with_index indices",
+         lambda x: N.max_pool2d_with_index(x, 3, 2, 1)[1], {"x": ties},
+         ("x",)),
+        ("spp 13x17 max", lambda x: N.spatial_pyramid_pool(x, 3, "max"),
+         {"x": d(4, 13, 17, 256)}, ()),
+        ("spp 13x17 avg", lambda x: N.spatial_pyramid_pool(x, 3, "avg"),
+         {"x": d(4, 13, 17, 256)}, ()),
+        ("batch_norm", lambda x, s, b, m, v: N.batch_norm(x, s, b, m, v)[0],
+         {"x": d(8, 28, 28, 64), "s": d(64), "b": d(64),
+          "m": 0 * ones, "v": ones}, ("m", "v")),
+        ("affine_act_conv2d 1x1",
+         lambda z, a, c, w: N.affine_act_conv2d(z, a, c, w),
+         {"z": d(4, 28, 28, 64), "a": d(64), "c": d(64),
+          "w": w(1, 1, 64, 128)}, ()),
+        ("conv2d_bn s2",
+         lambda x, w, s, b, m, v: N.conv2d_bn(x, w, None, s, b, m, v,
+                                              stride=2, padding=1)[0],
+         {"x": d(4, 28, 28, 64), "w": w(3, 3, 64, 64), "s": d(64),
+          "b": d(64), "m": 0 * ones, "v": ones}, ("m", "v")),
+        ("lrn 96 channels at 55x55",
+         lambda x: N.lrn(x, 5, 1.0, 1e-4 / 5, 0.75),
+         {"x": d(4, 55, 55, 96)}, ()),
+        ("maxout NHWC", lambda x: N.maxout(x, 2), {"x": d(4, 28, 28, 64)},
+         ()),
+        ("maxout NCHW", lambda x: N.maxout(x, 4, "NCHW"),
+         {"x": d(4, 64, 28, 28)}, ()),
+        ("prelu", lambda x, a: N.prelu(x, a),
+         {"x": d(64, 1024), "a": d(1024)}, ()),
+        ("bilinear_interp up", lambda x: N.bilinear_interp(x, 47, 47),
+         {"x": d(4, 32, 32, 16)}, ()),
+        ("bilinear_interp down", lambda x: N.bilinear_interp(x, 20, 13),
+         {"x": d(4, 32, 32, 16)}, ()),
+        ("feature_map_expand",
+         lambda x: N.feature_map_expand(x, 8, False), {"x": d(64, 256)},
+         ()),
+        ("block_expand padded",
+         lambda x: N.block_expand(x, 3, 3, 2, 2, 1, 1),
+         {"x": d(4, 28, 28, 32)}, ()),
+        ("rotate", lambda x: N.rotate(x, 28, 32),
+         {"x": d(64, 28 * 32 * 8)}, ()),
+        ("switch_order", lambda x: N.switch_order(x, "NCHW"),
+         {"x": d(4, 28, 28, 64)}, ())]
+    cases += [(f"op {n}", fn, arrays, ints) for n, fn, arrays, ints in ops]
+    return cases
+
+
+def phase_image_types(dev):
+    """Phase 4z-image (a): the 22 types and the nn_ops forward and
+    backward on the card against the same code on the CPU, and the NHWC
+    stride-1 conv against float64."""
+    import torch
+    from paddle_tpu_torch.core.dtypes import Policy, policy_scope
+    from paddle_tpu_torch.ops import nn_ops as N
+    worst, n = {}, 0
+    for name, fn, arrays, ints in _image_cases():
+        want = _gen_run(fn, arrays, "cpu", ints)
+        got = _gen_run(fn, arrays, dev, ints)
+        if not want["output"].is_floating_point():
+            if not torch.equal(got["output"], want["output"]):
+                fail(f"4z-image {name}: card indices differ from the CPU's")
+            worst[name] = 0.0
+        else:
+            worst[name] = _dense_worst(got, want, name)
+        n += 1
+    r = np.random.RandomState(78)
+    arrays = {"x": r.uniform(-1, 1, (4, 28, 28, 64)),
+              "w": r.randn(3, 3, 64, 64) / 24}
+
+    def conv(x, w):
+        return N.conv2d(x, w, 1, "SAME")
+    # float64 compute, the output rounded to fp32 so that the readout's
+    # ramp is the card's
+    f64 = torch.float64
+    with policy_scope(Policy(f64, f64, torch.float32)):
+        want = _gen_run(conv, arrays, "cpu")
+    got = _gen_run(conv, {k: v.astype(np.float32)
+                          for k, v in arrays.items()}, dev)
+    f64_share = _dense_worst(got, want, "op conv2d NHWC s1 against float64",
+                             IMAGE_CONV_F64_LIMIT)
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:3]
+    log(f"  (a) {n} cases (the 22 image, 3-D and detection types at the "
+        f"sweep's sizes, the nn_ops at larger shapes: a stride-2 exconvt "
+        f"64->32 at 28x28, lrn over 96 channels at 55x55, spp at 13x17, "
+        f"bilinear up and down, max_pool2d_with_index with ties and "
+        f"padding, conv3d / deconv3d / pool3d on a C3D block) card vs CPU "
+        f"within rtol {DENSE_RTOL}, atol {DENSE_ATOL} x max(1, max|CPU|), "
+        f"indices exact; worst shares {top}; the NHWC stride-1 3x3 conv at "
+        f"[4, 28, 28, 64] -> 64 in fp32 on the card against float64 on the "
+        f"CPU {f64_share:.3f} of that tolerance (limit "
+        f"{IMAGE_CONV_F64_LIMIT})")
+    return {"cases": n + 1, "worst_share": max(worst.values()),
+            "worst": dict(top), "conv2d_vs_f64_share": f64_share}
+
+
+def _ssd_config():
+    """SSD300's detection layers over data: six priorbox layers over the
+    feature maps' grids (concatenated), the loc and conf heads fed as
+    data, the multibox loss and the detection output."""
+    from paddle_tpu_torch.config import dsl
+    from paddle_tpu_torch.data.feeder import (dense_vector,
+                                              dense_vector_sequence)
+    from paddle_tpu_torch.ops.detection_ops import num_priors_per_cell
+    s = SSD
+    with dsl.config_scope():
+        image = dsl.data("image", dense_vector(3 * s["IMG"] ** 2),
+                         height=s["IMG"], width=s["IMG"])
+        label = dsl.data("label", dense_vector_sequence(6))
+        boxes, locs, confs = [], [], []
+        for i, (cell, mn, mx, ar) in enumerate(zip(
+                s["CELLS"], s["MIN"], s["MAX"], s["AR"])):
+            feat = dsl.data(f"feat{i}", dense_vector(cell * cell),
+                            height=cell, width=cell)
+            boxes.append(dsl.priorbox_layer(feat, image, ar, s["VAR"], [mn],
+                                            [mx], name=f"priorbox{i}"))
+            k = cell * cell * num_priors_per_cell([mn], [mx], ar)
+            locs.append(dsl.data(f"loc{i}", dense_vector(4 * k)))
+            confs.append(dsl.data(f"conf{i}",
+                                  dense_vector(s["CLASSES"] * k)))
+        priors = dsl.concat(boxes, name="priors")
+        loss = dsl.multibox_loss_layer(locs, confs, priors, label,
+                                       s["CLASSES"], name="loss")
+        det = dsl.detection_output_layer(
+            locs, confs, priors, s["CLASSES"], nms_threshold=s["NMS_T"],
+            nms_top_k=s["TOP_K"], keep_top_k=s["KEEP"],
+            confidence_threshold=s["CONF_T"], name="det")
+        return dsl.topology([loss, det])
+
+
+def _ssd_feed(net):
+    """The heads and the ground truth from RandomState(0): the boxes
+    through DataFeeder as a sequence of (class, xmin, ymin, xmax, ymax,
+    difficult) rows an image; N(0, 1) conf logits and 0.1 N(0, 1) loc
+    offsets, except at the priors the ground truth matches, whose class
+    logit is raised by 6 and whose offsets are their box's encoding plus
+    0.1 N(0, 1) noise, so that the decode finds real detections."""
+    import torch
+    from paddle_tpu_torch.data import DataFeeder
+    from paddle_tpu_torch.data.feeder import dense_vector_sequence
+    from paddle_tpu_torch.ops import detection_ops as D
+    s, rng = SSD, np.random.RandomState(0)
+    b, c = s["B"], s["CLASSES"]
+    rows = []
+    for n in rng.randint(s["GT"][0], s["GT"][1] + 1, b):
+        xy = np.sort(rng.rand(n, 2, 2), axis=1).reshape(n, 4)
+        rows.append((np.concatenate([rng.randint(1, c, (n, 1)), xy,
+                                     np.zeros((n, 1))], 1)
+                     .astype(np.float32).tolist(),))
+    feed = DataFeeder([("label", dense_vector_sequence(6))]).convert(rows)
+    priors = torch.from_numpy(np.concatenate([
+        D.prior_boxes(cell, cell, s["IMG"], s["IMG"], [mn], [mx], ar,
+                      s["VAR"])
+        for cell, mn, mx, ar in zip(s["CELLS"], s["MIN"], s["MAX"],
+                                    s["AR"])]))
+    gt = feed["label"]
+    valid = torch.arange(gt.data.shape[1])[None, :] < gt.length[:, None]
+    match, _ = D.match_priors(priors[:, :4], gt.data[..., 1:5], valid, 0.5)
+    pos = match >= 0
+    safe = match.clamp(min=0).long()
+    conf = torch.from_numpy(rng.randn(b, s["PRIORS"], c).astype(np.float32))
+    loc = torch.from_numpy(0.1 * rng.randn(b, s["PRIORS"], 4)
+                           .astype(np.float32))
+    cls = torch.gather(gt.data[..., 0].long(), 1, safe)
+    conf.scatter_add_(2, cls[..., None], 6.0 * pos[..., None].float())
+    target = D.encode_boxes(priors[None, :, :4], priors[None, :, 4:],
+                            torch.gather(gt.data[..., 1:5], 1, safe[..., None]
+                                         .expand(b, s["PRIORS"], 4)))
+    loc = torch.where(pos[..., None], target + loc, loc)
+    feed["image"] = torch.zeros(b, 3 * s["IMG"] ** 2)
+    start = 0
+    for i, cell in enumerate(s["CELLS"]):
+        k = cell * cell * D.num_priors_per_cell([s["MIN"][i]],
+                                                [s["MAX"][i]], s["AR"][i])
+        feed[f"feat{i}"] = torch.zeros(b, cell * cell)
+        feed[f"loc{i}"] = loc[:, start:start + k].reshape(b, -1).clone()
+        feed[f"conf{i}"] = conf[:, start:start + k].reshape(b, -1).clone()
+        start += k
+    assert start == s["PRIORS"] and set(feed) == {
+        lc.name for lc in net.config.layers if lc.type == "data"}
+    return feed
+
+
+def phase_image_detection(dev, card):
+    """Phase 4z-image (b): SSD300's priors, the multibox loss and its
+    gradients, the mined negatives, the decode and the detection_map
+    evaluator over it, card against CPU; ms of the loss forward +
+    backward and of the decode."""
+    import torch
+    from paddle_tpu_torch.evaluators import create_evaluator
+    from paddle_tpu_torch.layers.network import NeuralNetwork
+    from paddle_tpu_torch.layers.detection import _as_conf, _as_loc
+    from paddle_tpu_torch.ops import detection_ops as D
+    s = SSD
+    net = NeuralNetwork(_ssd_config())
+    cpu_feed = _ssd_feed(net)
+    heads = [k for k in cpu_feed if k.startswith(("loc", "conf"))]
+    res = {}
+    for where in ("cpu", dev):
+        feed = {k: v.to(where) for k, v in cpu_feed.items()}
+        for k in heads:
+            feed[k].requires_grad_(True)
+        values, _ = net.forward({}, feed, is_training=False)
+        rows = values["loss"]
+        loss = torch.sum(rows) / rows.shape[0]
+        grads = torch.autograd.grad(loss, [feed[k] for k in heads])
+        priors = values["priors"].detach()
+        conf = torch.cat([_as_conf(feed[f"conf{i}"].detach(), s["CLASSES"])
+                          for i in range(6)], 1)
+        label = feed["label"]
+        _, pos, neg = D.mine(conf, priors.reshape(-1, 8), label.data,
+                             label.length)
+        ev = create_evaluator("detection_map")
+        ev.eval_batch(values["det"].detach(), label)
+        res[str(where)] = {
+            "priors": priors.cpu(), "loss": loss.detach().cpu(),
+            "grads": {f"grad {k}": g.cpu() for k, g in zip(heads, grads)},
+            "pos": pos.cpu(), "neg": neg.cpu(),
+            "det": values["det"].detach().cpu(), "map": ev.finish()}
+    want, got = res["cpu"], res[str(dev)]
+    if tuple(got["priors"].shape) != (1, 8 * s["PRIORS"]) or \
+            not torch.equal(got["priors"], want["priors"]):
+        fail(f"4z-image (b): priors {tuple(got['priors'].shape)} differ from "
+             "the CPU's or are not SSD300's 8732")
+    l_dev, l_cpu = float(got["loss"]), float(want["loss"])
+    if not np.isfinite(l_dev) or abs(l_dev - l_cpu) > \
+            VAE_LOSS_RTOL * abs(l_cpu):
+        fail(f"4z-image (b): multibox loss card {l_dev} vs CPU {l_cpu}")
+    g_share = _dense_worst(got["grads"], want["grads"], "multibox loss")
+    if not (torch.equal(got["pos"], want["pos"])
+            and torch.equal(got["neg"], want["neg"])):
+        fail("4z-image (b): the matched priors or the mined negatives "
+             "differ card vs CPU")
+    det_g, det_w = got["det"], want["det"]
+    if not torch.equal(det_g[..., :2], det_w[..., :2]):
+        fail("4z-image (b): the kept (image, class) rows differ card vs CPU")
+    d_share = _dense_worst({"rows": det_g}, {"rows": det_w}, "decode")
+    if got["map"] != want["map"]:
+        fail(f"4z-image (b): detection_map card {got['map']} vs CPU "
+             f"{want['map']}")
+    # times on the card: the loss forward + backward, the decode
+    feed = {k: v.to(dev) for k, v in cpu_feed.items()}
+    p8 = got["priors"].to(dev).reshape(-1, 8)
+    loc = torch.cat([_as_loc(feed[f"loc{i}"]) for i in range(6)], 1)
+    conf = torch.cat([_as_conf(feed[f"conf{i}"], s["CLASSES"])
+                      for i in range(6)], 1).requires_grad_(True)
+    loc.requires_grad_(True)
+    lab = feed["label"]
+
+    def loss_step():
+        val = D.multibox_loss(conf, loc, p8, lab.data, lab.length,
+                              s["CLASSES"])
+        torch.autograd.grad(val, [conf, loc])
+
+    def decode():
+        with torch.no_grad():
+            D.detection_output(conf, loc, p8, s["CLASSES"],
+                               conf_threshold=s["CONF_T"],
+                               nms_top_k=s["TOP_K"],
+                               nms_threshold=s["NMS_T"],
+                               keep_top_k=s["KEEP"])
+    m = {"priors": s["PRIORS"], "loss": l_dev, "loss_cpu": l_cpu,
+         "grad_share": g_share, "decode_share": d_share,
+         "positives": int(got["pos"].sum()),
+         "negatives": int(got["neg"].sum()),
+         "kept": int((det_g[..., 0] >= 0).sum()),
+         "detection_map": got["map"]["detection_map"]}
+    m["loss_ms"] = time_events_ms(loss_step, reps=5)
+    m["decode_ms"] = time_events_ms(decode, reps=3)
+    m["loss_busy"], m["loss_items"] = _profile_busy(loss_step)
+    m["decode_busy"], m["decode_items"] = _profile_busy(decode)
+    log(f"  (b) SSD300 heads (B {s['B']}, {s['PRIORS']} priors, "
+        f"{s['CLASSES']} classes, {m['positives']} matched priors, "
+        f"{m['negatives']} mined negatives): priors equal, loss card "
+        f"{l_dev:.6f} vs CPU {l_cpu:.6f}, gradients {g_share:.3f} of the "
+        f"tolerance, mined negatives equal; decode (nms_top_k "
+        f"{s['TOP_K']}, keep_top_k {s['KEEP']}): {m['kept']} rows kept, "
+        f"(image, class) equal, scores and boxes {d_share:.3f} of the "
+        f"tolerance, detection_map {m['detection_map']} equal; loss "
+        f"forward + "
+        f"backward {m['loss_ms']:.3f} ms ({m['loss_items']} device items, "
+        f"busy {100 * m['loss_busy']:.1f} %), decode {m['decode_ms']:.3f} "
+        f"ms ({m['decode_items']} device items, busy "
+        f"{100 * m['decode_busy']:.1f} %) on {card}")
+    return m
+
+
+def _grad_rel(got, want):
+    """||got - want|| / ||want|| in float64 (0 where both are 0)."""
+    import torch
+    norm = torch.linalg.vector_norm
+    diff = float(norm(got.double() - want.double()))
+    return diff / float(norm(want.double())) if diff else 0.0
+
+
+def _image_provider(config):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_image_provider",
+        os.path.join(os.path.dirname(config), "provider.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.process
+
+
+def image_step(model, dev):
+    """One step of configs/image.py's ``model`` at B IMAGE_CHECK_B on the
+    CPU and on ``dev`` from the same parameters: the two losses, each
+    parameter's gradient against the CPU's in norm (``_grad_rel``), and
+    the weights after one step of the config's optimizer."""
+    import itertools
+    import torch
+    from paddle_tpu_torch.config.config_parser import parse_config
+    from paddle_tpu_torch.data import DataFeeder
+    from paddle_tpu_torch.layers.network import NeuralNetwork
+    from paddle_tpu_torch.trainer.trainer import optimizer_from_config
+    config = os.path.abspath(IMAGE_CONFIG)
+    cfg, opt, ds = parse_config(config, f"model={model},batch_size="
+                                        f"{IMAGE_CHECK_B}")
+    net = NeuralNetwork(cfg)
+    provider = _image_provider(config)
+    samples = list(itertools.islice(provider.reader(**ds.args)(),
+                                    IMAGE_CHECK_B))
+    feeder = DataFeeder(list(zip(("data", "label"),
+                                 provider.settings.input_types)))
+    cpu_feed = feeder.convert(samples)
+    cpu_params = net.init_params(seed=1, device="cpu")
+    res = {}
+    for where in ("cpu", dev):
+        params = {n: p.to(where).requires_grad_(True)
+                  for n, p in cpu_params.items()}
+        loss, _ = net.loss(params, {k: v.to(where)
+                                    for k, v in cpu_feed.items()},
+                           is_training=False)
+        grads = dict(zip(params, torch.autograd.grad(
+            loss, list(params.values()))))
+        rule = optimizer_from_config(opt)[0]
+        stepped, _ = rule.apply(params, grads, rule.init_state(params))
+        res[str(where)] = (float(loss.detach()),
+                           {n: g.cpu() for n, g in grads.items()},
+                           {n: v.detach().cpu() for n, v in stepped.items()})
+    (l_cpu, g_cpu, w_cpu), (l_dev, g_dev, w_dev) = res["cpu"], res[str(dev)]
+    rel = {k: _grad_rel(g_dev[k], v) for k, v in g_cpu.items()}
+    w_max, w_share = 0.0, 0.0
+    for k, v in w_cpu.items():
+        diff = (w_dev[k] - v).abs()
+        w_max = max(w_max, float(diff.max()))
+        w_share = max(w_share, float((diff > 2e-5).float().mean()))
+    worst = max(rel, key=rel.get)
+    return {"loss": l_dev, "loss_cpu": l_cpu, "grad_rel": rel[worst],
+            "grad_rel_param": worst, "weight_max": w_max,
+            "weight_share_past_2e-5": w_share, "params": len(cpu_params),
+            "lr": opt.learning_rate, "method": opt.learning_method}
+
+
+def image_step_faults(m):
+    """What of ``image_step``'s readings ``m`` breaks (c)'s gate."""
+    out = []
+    if not np.isfinite(m["loss"]) or abs(m["loss"] - m["loss_cpu"]) > \
+            VAE_LOSS_RTOL * abs(m["loss_cpu"]):
+        out.append(f"loss card {m['loss']} vs CPU {m['loss_cpu']}")
+    if not m["grad_rel"] <= IMAGE_GRAD_REL:
+        out.append(f"the gradient of {m['grad_rel_param']} "
+                   f"{m['grad_rel']:.3e} of its norm from the CPU's (limit "
+                   f"{IMAGE_GRAD_REL:g})")
+    if m["weight_max"] > VAE_W_ATOL or m["weight_share_past_2e-5"] > 1e-3:
+        out.append(f"after one {m['method']} step a weight "
+                   f"{m['weight_max']:.2e} from the CPU's "
+                   f"({m['weight_share_past_2e-5']:.2e} of a tensor past "
+                   "2e-5)")
+    return out
+
+
+def phase_image_nets(dev, card):
+    """Phase 4z-image (c): configs/image.py's smallnet, alexnet,
+    googlenet and VGG-19: one step at B 4 card vs CPU, then `--job
+    time` at the config's B 64 through the CLI, no kernel launched."""
+    config = os.path.abspath(IMAGE_CONFIG)
+    out = {}
+    for model, timed in IMAGE_NETS.items():
+        m = image_step(model, dev)
+        faults = image_step_faults(m)
+        if faults:
+            fail(f"4z-image (c) {model}: " + "; ".join(faults))
+        n = 3 + timed
+        text, launches = run_cli(
+            ["train", "--job", "time", "--config", config, "--config_args",
+             f"model={model},num_samples={n * IMAGE_B}", "--test_period",
+             str(timed)], {}, f"4z-image (c) {model}")
+        tj = json.loads(text.strip().splitlines()[-1])
+        m.update({"ms_per_batch": tj["ms_per_batch"],
+                  "samples_per_s": tj["samples_per_sec"],
+                  "batches": tj["batches"],
+                  "launches": sum(launches.values())})
+        out[model] = m
+        log(f"  (c) {model}: B {IMAGE_CHECK_B} step loss card "
+            f"{m['loss']:.6f} vs CPU {m['loss_cpu']:.6f}; the "
+            f"{m['params']} gradients within {m['grad_rel']:.3e} of their "
+            f"norms ({m['grad_rel_param']}; limit {IMAGE_GRAD_REL:g}); "
+            f"after one {m['method']} step (lr {m['lr']:g}) the weights "
+            f"within {m['weight_max']:.2e} "
+            f"({m['weight_share_past_2e-5']:.2e} of a tensor past 2e-5); "
+            f"--job time B {IMAGE_B}: {tj['ms_per_batch']} ms/batch, "
+            f"{tj['samples_per_sec']} samples/s over {tj['batches']} "
+            f"batches (fp32, TF32 off, {card}); the {len(launches)} launch "
+            f"counters of the 22 kernels all {sum(launches.values())}")
+    return out
+
+
+def phase_image(dev, card):
+    """Phase 4z-image: (a) the new types and ops card vs CPU, (b) SSD300's
+    detection layers, (c) configs/image.py's nets through the CLI."""
+    import torch
+    t0 = time.perf_counter()
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        fail("TF32 is on")
+    m = {"types": phase_image_types(dev),
+         "detection": phase_image_detection(dev, card),
+         "nets": phase_image_nets(dev, card)}
+    m["seconds"] = time.perf_counter() - t0
+    log(f"  4z-image (a)-(c) took {m['seconds']:.1f} s")
+    return m
+
+
+def _same_net(a, b, rename):
+    """ModelConfig ``a`` equals ``b`` with ``b``'s layer names mapped by
+    ``rename``, in any order of the layers."""
+    def norm(cfg, names):
+        d = json.loads(cfg.to_json())
+        for lc in d["layers"]:
+            lc["name"] = names.get(lc["name"], lc["name"])
+            for inp in lc.get("inputs", []):
+                inp["input_layer_name"] = names.get(
+                    inp["input_layer_name"], inp["input_layer_name"])
+        d["layers"] = {lc["name"]: lc for lc in d["layers"]}
+        for k in ("input_layer_names", "output_layer_names"):
+            d[k] = sorted(names.get(n, n) for n in d.get(k, []))
+        return d
+    return norm(a, {}) == norm(b, rename)
+
+
+def phase_image_resnet(dev, r50, launches):
+    """Phase 4z-image (d): configs/image.py model=resnet at 4l's B under
+    4l's flags through `--job time`: its ModelConfig is 4l's (the data
+    layer named ``data``, not ``image``), and it launches kernels 19 and
+    20 as often a step as 4l."""
+    from paddle_tpu_torch.config.config_parser import parse_config
+    from paddle_tpu_torch.models import resnet
+    config = os.path.abspath(IMAGE_CONFIG)
+    set_flags(**BENCH_FLAGS)
+    try:
+        cfg, _, _ = parse_config(config, f"model=resnet,batch_size={RESNET_B}")
+        if not _same_net(cfg, resnet(50, RESNET_CLASSES, RESNET_IMG),
+                         {"image": "data"}):
+            fail("4z-image (d): configs/image.py model=resnet is not 4l's "
+                 "ResNet-50")
+        n = 3 + IMAGE_R50_TIMED
+        per_step = {"conv3x3_fwd": 16, "conv3x3_fwd_bwd": 16}
+        text, got = run_cli(
+            ["train", "--job", "time", "--config", config, "--config_args",
+             f"model=resnet,batch_size={RESNET_B},num_samples="
+             f"{n * RESNET_B}", "--test_period", str(IMAGE_R50_TIMED)],
+            {k: v * n for k, v in per_step.items()}, "4z-image (d)")
+    finally:
+        set_flags(use_bf16=False, bf16_activations=False)
+    tj = json.loads(text.strip().splitlines()[-1])
+    for name in launches:
+        launches[name]["img_r50"] = got.get(name, 0)
+    m = {"ms_per_batch": tj["ms_per_batch"],
+         "samples_per_s": tj["samples_per_sec"], "batches": tj["batches"],
+         "launches": {k: v for k, v in got.items() if v},
+         "resnet50_ms_per_step": r50["ms_per_step"]}
+    log(f"  (d) model=resnet, B {RESNET_B}, {BENCH_FLAGS}: ModelConfig "
+        f"equal to 4l's; {tj['ms_per_batch']} ms/batch, "
+        f"{tj['samples_per_sec']} samples/s over {tj['batches']} batches "
+        f"(--job time, momentum); 4l {r50['ms_per_step']:.3f} ms/step "
+        f"(Adam, CUDA events); launches {m['launches']} in {n} steps "
+        f"(16 + 16 a step, as 4l)")
     return m
 
 
@@ -6116,6 +6758,11 @@ def main() -> int:
             "decoded, its config at the seq2seq row's encoder width, a "
             "nested group at the LSTM row's width (fp32)")
         tag = phase_tag(dev, card)
+        log("== phase 4z-image: the image, 3-D and detection types and ops "
+            "card vs CPU, SSD300's loss and decode, configs/image.py's "
+            "nets through python -m paddle_tpu_torch train --job time "
+            "(fp32)")
+        image = phase_image(dev, card)
         for name in launches:
             launches[name]["training_ckpt"] = ckpt["launches"].get(name, 0)
             launches[name]["training_opt"] = opt["launches"].get(name, 0)
@@ -6150,6 +6797,10 @@ def main() -> int:
             "(fp32)")
         phase_train_small(dev, hidden=640)
         resnet = phase_resnet(dev, launches)
+        log("== phase 4z-image (d): configs/image.py model=resnet through "
+            "--job time under 4l's flags")
+        image["resnet"] = phase_image_resnet(dev, resnet["resnet50"],
+                                             launches)
         set_flags(**BENCH_FLAGS)
         log("== phase 4q: seq2seq main path (bench.py's row: B 128, S 30, "
             "T 30, V 30000, E 512, H 512, use_bf16 + bf16_activations, "
@@ -6256,6 +6907,7 @@ def main() -> int:
                       "training": train, "training_loop": loop,
                       "training_ckpt": ckpt, "training_opt": opt,
                       "cli": cli, "dense": dense, "gen": gen, "tag": tag,
+                      "image": image,
                       "training_h1280": blocked,
                       "training_h1280_mixed_bf16": mixed,
                       "training_h2048": wide, **resnet, "seq2seq": seq2seq,

@@ -1,7 +1,13 @@
-"""Synthetic data provider of ``rnn.py`` beside it (stands in for
-``benchmark/paddle/rnn/provider.py``, which loads IMDB), in the
-reference's provider idiom: it imports only
-``paddle.trainer.PyDataProvider2`` and numpy.
+"""Synthetic data providers of the configs beside them (stand-ins for
+``benchmark/paddle/rnn/provider.py``, which loads IMDB, and
+``benchmark/paddle/image/provider.py``), in the reference's provider
+idiom: they import only ``paddle.trainer.PyDataProvider2`` and numpy.
+
+``process`` (``image.py``) yields ``num_samples`` samples ``(pixels,
+label)``: ``3·height·width`` floats uniform in [−1, 1) (``height·width``
+without ``color``) and a label below ``num_class``, drawn from
+``RandomState(0)`` in that order, sample by sample, never shuffled, as
+``benchmark/provider.py`` draws them.
 
 ``process_rnn`` yields ``num_samples`` samples ``(ids, label)``: 100 ids
 in ``[0, vocab_size)`` and a label in {0, 1}, drawn from
@@ -10,6 +16,27 @@ in ``[0, vocab_size)`` and a label in {0, 1}, drawn from
 
 import numpy as np
 from paddle.trainer.PyDataProvider2 import *  # noqa: F401,F403
+
+
+def _image_types(settings, **kwargs):
+    h = kwargs.get("height", 32)
+    w = kwargs.get("width", 32)
+    c = 3 if kwargs.get("color", True) else 1
+    settings.input_types = [dense_vector(h * w * c),
+                            integer_value(kwargs.get("num_class", 10))]
+    settings.kw = kwargs
+
+
+@provider(init_hook=_image_types, should_shuffle=False)
+def process(settings, _file):
+    kw = settings.kw
+    h, w = kw.get("height", 32), kw.get("width", 32)
+    c = 3 if kw.get("color", True) else 1
+    nc = kw.get("num_class", 10)
+    rng = np.random.RandomState(0)
+    for _ in range(kw.get("num_samples", 2048)):
+        yield (rng.uniform(-1, 1, h * w * c).astype(np.float32),
+               int(rng.randint(nc)))
 
 
 def _rnn_types(settings, **kwargs):

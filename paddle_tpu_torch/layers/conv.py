@@ -1,6 +1,18 @@
-"""Image layers of the ResNet slice (counterpart of
-``paddle_tpu/layers/conv.py``): ``exconv`` / ``cudnn_conv`` / ``conv``,
-``pool`` and ``batch_norm`` with its running-stat buffers.
+"""Image layers (counterpart of ``paddle_tpu/layers/conv.py``): ``exconv``
+(``cudnn_conv``, ``conv``, ``mkldnn_conv``), ``exconvt``
+(``cudnn_convt``), ``pool`` (``cudnn_pool``, ``mkldnn_pool``), ``norm``,
+``batch_norm`` (``cudnn_batch_norm``, ``mkldnn_batch_norm``) with its
+running-stat buffers, ``maxout``, ``blockexpand``, ``spp``, ``pad``,
+``crop``, ``rotate``, ``switch_order``, ``bilinear_interp`` and
+``cross-channel-norm``.
+
+As in the JAX package, ``pad``, ``crop``, ``rotate``, ``switch_order``,
+``bilinear_interp`` and ``blockexpand`` return without
+:meth:`~paddle_tpu_torch.layers.base.Layer.finalize` (no activation,
+dropout or error clip); ``blockexpand`` returns a ``SequenceBatch`` of
+full lengths.  ``cross-channel-norm`` reads its input as ``(B, C, −1)``
+whatever its layout: right for a flat CHW row, but a conv's NHWC output
+is read as if it were CHW, as the JAX package reads it.
 
 Geometry attrs are the reference's ``ConvConfig``/``PoolConfig`` names
 (channels, filter_size, stride, padding, num_filters, img_size(_y),
@@ -18,8 +30,9 @@ A batch norm takes part in the network's fusion peepholes
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
-from ..core.sequence import like, value_of
+from ..core.sequence import SequenceBatch, like, value_of
 from ..ops import nn_ops
 from ..utils import PaddleTpuError
 from .base import Layer, register_layer
@@ -58,6 +71,11 @@ class _ImgLayer(Layer):
         return (self.geo("img_size_y", self.conf.attrs.get("img_size")),
                 self.geo("img_size"))
 
+    def nhwc_input(self, inputs) -> torch.Tensor:
+        """The first input as NHWC at the layer's channels and size."""
+        h, w = self.img_hw()
+        return to_nhwc(value_of(inputs[0]), self.geo("channels"), h, w)
+
 
 class DeferredBN:
     """The value a batch norm publishes when its normalize+activation is
@@ -76,7 +94,7 @@ class DeferredBN:
         self.training = training
 
 
-@register_layer("exconv", "cudnn_conv", "conv")
+@register_layer("exconv", "cudnn_conv", "conv", "mkldnn_conv")
 class ConvLayer(_ImgLayer):
     def param_specs(self):
         c = self.geo("channels")
@@ -121,12 +139,38 @@ class ConvLayer(_ImgLayer):
         return self.finalize(like(inputs[0], out), ctx)
 
 
-@register_layer("pool")
+@register_layer("exconvt", "cudnn_convt")
+class ConvTransLayer(_ImgLayer):
+    """Transposed conv, weight ``[fy, f, nf, c]``; the stride and padding
+    of the x direction serve both directions, as in the JAX package."""
+
+    def param_specs(self):
+        f = self.geo("filter_size")
+        fy = self.conf.attrs.get("filter_size_y", f)
+        specs = [self._weight_spec(0, (fy, f, self.geo("num_filters"),
+                                       self.geo("channels")),
+                                   initial_smart=True)]
+        if self.conf.with_bias:
+            specs.append(self._bias_spec((self.geo("num_filters"),)))
+        return specs
+
+    def forward(self, params, inputs, ctx):
+        x = self.nhwc_input(inputs)
+        pad = self.conf.attrs.get("padding", 0)
+        out = nn_ops.conv2d_transpose(
+            x, params[self.weight_name(0)],
+            stride=self.conf.attrs.get("stride", 1),
+            padding=[(pad, pad), (pad, pad)])
+        if self.conf.with_bias:
+            out = out + params[self.bias_name()]
+        return self.finalize(like(inputs[0], out), ctx)
+
+
+@register_layer("pool", "cudnn_pool", "mkldnn_pool")
 class PoolLayer(_ImgLayer):
     def forward(self, params, inputs, ctx):
         a = self.conf.attrs
-        h, w = self.img_hw()
-        x = to_nhwc(value_of(inputs[0]), self.geo("channels"), h, w)
+        x = self.nhwc_input(inputs)
         kind = "max" if "max" in self.geo("pool_type", "max-projection") \
             else "avg"
         window = (a.get("size_y", a.get("pool_size", 2)),
@@ -138,7 +182,20 @@ class PoolLayer(_ImgLayer):
         return self.finalize(like(inputs[0], out), ctx)
 
 
-@register_layer("batch_norm", "cudnn_batch_norm")
+@register_layer("norm")
+class NormLayer(_ImgLayer):
+    """cmrnorm-projection (cross-map LRN): k 1 and α the config's
+    ``scale``, which the DSL has already divided by the window."""
+
+    def forward(self, params, inputs, ctx):
+        x = self.nhwc_input(inputs)
+        a = self.conf.attrs
+        out = nn_ops.lrn(x, n=a.get("norm_size", 5), k=1.0,
+                         alpha=a.get("scale", 1e-4), beta=a.get("pow", 0.75))
+        return self.finalize(like(inputs[0], out), ctx)
+
+
+@register_layer("batch_norm", "cudnn_batch_norm", "mkldnn_batch_norm")
 class BatchNormLayer(_ImgLayer):
     """Batch normalization with running-stat buffers ``<name>.mean`` and
     ``<name>.var`` (the reference keeps them as non-learnable
@@ -232,3 +289,96 @@ class BatchNormLayer(_ImgLayer):
             in_affine=in_affine)
         self._publish(ctx, nrm, nrv)
         return self.finalize(like(conv_inputs[0], y), ctx)
+
+
+@register_layer("maxout")
+class MaxOutLayer(_ImgLayer):
+    def forward(self, params, inputs, ctx):
+        x = self.nhwc_input(inputs)
+        return self.finalize(
+            like(inputs[0], nn_ops.maxout(x, self.geo("groups"))), ctx)
+
+
+@register_layer("blockexpand")
+class BlockExpandLayer(_ImgLayer):
+    def forward(self, params, inputs, ctx):
+        x = self.nhwc_input(inputs)
+        a = self.conf.attrs
+        out = nn_ops.block_expand(
+            x, self.geo("block_y"), self.geo("block_x"), self.geo("stride_y"),
+            self.geo("stride_x"), a.get("padding_y", 0), a.get("padding_x", 0))
+        b, s, _ = out.shape
+        return SequenceBatch(data=out, length=torch.full(
+            (b,), s, dtype=torch.int32, device=out.device))
+
+
+@register_layer("spp")
+class SppLayer(_ImgLayer):
+    def forward(self, params, inputs, ctx):
+        x = self.nhwc_input(inputs)
+        kind = "max" if "max" in self.conf.attrs.get("pool_type", "max") \
+            else "avg"
+        out = nn_ops.spatial_pyramid_pool(x, self.geo("pyramid_height"),
+                                          kind)
+        return self.finalize(like(inputs[0], out), ctx)
+
+
+@register_layer("pad")
+class PadLayer(_ImgLayer):
+    def forward(self, params, inputs, ctx):
+        x = self.nhwc_input(inputs)
+        a = self.conf.attrs
+        pc, ph, pw = (a.get(k, [0, 0]) for k in ("pad_c", "pad_h", "pad_w"))
+        return like(inputs[0], F.pad(x, (pc[0], pc[1], pw[0], pw[1],
+                                         ph[0], ph[1])))
+
+
+@register_layer("crop")
+class CropLayer(_ImgLayer):
+    def forward(self, params, inputs, ctx):
+        x = self.nhwc_input(inputs)
+        offs = self.conf.attrs.get("crop_offsets", [0, 0])
+        shape = self.conf.attrs["crop_shape"]          # [H, W]
+        return like(inputs[0], x[:, offs[0]:offs[0] + shape[0],
+                                 offs[1]:offs[1] + shape[1], :])
+
+
+@register_layer("rotate")
+class RotateLayer(_ImgLayer):
+    def forward(self, params, inputs, ctx):
+        return like(inputs[0], nn_ops.rotate(
+            value_of(inputs[0]), self.geo("height"), self.geo("width")))
+
+
+@register_layer("switch_order")
+class SwitchOrderLayer(_ImgLayer):
+    def forward(self, params, inputs, ctx):
+        return like(inputs[0], nn_ops.switch_order(
+            value_of(inputs[0]), self.conf.attrs.get("to", "NHWC")))
+
+
+@register_layer("bilinear_interp")
+class BilinearInterpLayer(_ImgLayer):
+    def forward(self, params, inputs, ctx):
+        x = self.nhwc_input(inputs)
+        return like(inputs[0], nn_ops.bilinear_interp(
+            x, self.geo("out_size_y"), self.geo("out_size_x")))
+
+
+@register_layer("cross-channel-norm")
+class CrossChannelNormLayer(_ImgLayer):
+    """Per-position L2 normalization across channels with a learned
+    per-channel scale (``CrossChannelNormLayer.cpp``, SSD's conv4_3
+    norm): ``out[c, s] = scale[c] · x[c, s] / sqrt(Σ_c x[c, s]² + 1e-6)``
+    over the input read as ``(B, C, −1)``."""
+
+    def param_specs(self):
+        return [self._weight_spec(0, (self.geo("channels"),),
+                                  initial_mean=1.0, initial_std=0.0)]
+
+    def forward(self, params, inputs, ctx):
+        v = value_of(inputs[0])
+        x = v.reshape(v.shape[0], self.geo("channels"), -1)
+        norm = torch.sqrt(torch.sum(x * x, dim=1, keepdim=True) + 1e-6)
+        out = x / norm * params[self.weight_name(0)][None, :, None]
+        return self.finalize(like(inputs[0], out.reshape(v.shape)), ctx)

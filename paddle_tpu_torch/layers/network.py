@@ -38,7 +38,8 @@ from ..utils import FLAGS, PaddleTpuError, enforce
 from .base import (ForwardContext, Layer, cast_layer_output,
                    get_layer_class, init_parameter)
 # register the layer types
-from . import attention, common, conv, cost, rnn, seq  # noqa: F401
+from . import (attention, common, conv, cost, detection,  # noqa: F401
+               image3d, rnn, seq)
 from .beam_search import BeamSearchDecoder
 from .recurrent_group import RecurrentGroup, check_supported
 

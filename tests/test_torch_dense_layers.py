@@ -11,8 +11,8 @@ both.  The layer's output and the gradient of the sweep's readout
 (``scalar_loss``: the output against a cosine ramp) with respect to
 every parameter and every float input must agree.  One case per
 projection and operator of ``mixed``, ``mkldnn_fc`` and a bias on
-``addto`` / ``concat`` are in ``test_torch_mixed.py``; the unported
-types refuse by name.
+``addto`` / ``concat`` are in ``test_torch_mixed.py``; a type neither
+package registers refuses by name.
 
 Tolerance (fp32, different summation orders): every output and
 gradient within rtol 1e-5 and atol 1e-6 · max(1, max|ref|).
@@ -21,8 +21,9 @@ The closure test holds every layer type the port registers to a parity
 case (here, in ``test_torch_mixed.py``, ``test_torch_costs_ops.py``,
 ``test_torch_layer_sweep.py``, ``test_torch_seq_layers.py``,
 ``test_torch_sampled_layers.py``, ``test_torch_beam_search.py``,
-``test_torch_rnn_types.py`` or ``test_torch_crf_ctc.py``), an alias of
-one, or a stated reason.
+``test_torch_rnn_types.py``, ``test_torch_crf_ctc.py``,
+``test_torch_image_layers.py`` or ``test_torch_detection.py``), an alias
+of one, or a stated reason.
 """
 
 import jax
@@ -208,6 +209,8 @@ NO_CASE = {"data": "fed, not computed (DataLayer raises)",
 def test_every_registered_type_has_a_parity_case():
     import test_torch_costs_ops as costs
     import test_torch_crf_ctc as crf
+    import test_torch_detection as detection
+    import test_torch_image_layers as image
     import test_torch_layer_sweep as earlier
     import test_torch_mixed as mixed
     import test_torch_rnn_types as rnn
@@ -216,7 +219,9 @@ def test_every_registered_type_has_a_parity_case():
     covered = set(SWEEP_TYPES) | {t for t, _, _ in mixed.EXTRA.values()} \
         | set(costs.COST_TYPES) | set(earlier.EARLIER_TYPES) | set(NO_CASE) \
         | set(seq.SEQ_TYPES) | set(sampled.SAMPLED_TYPES) \
-        | set(rnn.RNN_TYPES) | set(crf.COST_SEQ_TYPES)
+        | set(rnn.RNN_TYPES) | set(crf.COST_SEQ_TYPES) \
+        | set(image.IMAGE_TYPES) | set(image.ALIASES) \
+        | set(detection.DETECTION_TYPES)
     missing = []
     for name, cls in TLAYERS.items():
         if name in covered or cls.layer_type in covered:
@@ -226,8 +231,8 @@ def test_every_registered_type_has_a_parity_case():
     assert {"mse", "regression_cost", "mkldnn_fc", "grumemory",
             "cudnn_conv", "conv", "cudnn_batch_norm",
             "multi_head_attention"} <= set(TLAYERS)
-    # the reference's 110 names less the 22 still to port (test_torch_dsl)
-    assert len(TLAYERS) == 88
+    # the reference's 110 names, all ported (test_torch_dsl)
+    assert len(TLAYERS) == 110
 
 
 @pytest.mark.parametrize("name", [
@@ -235,16 +240,22 @@ def test_every_registered_type_has_a_parity_case():
     "switch_order", "bilinear_interp", "cross-channel-norm", "pool3d",
     "priorbox", "multibox_loss"])
 def test_unported_types_refuse_by_name(name):
+    """These types were refused until the image, 3-D and detection slice
+    ported them: each now builds as the JAX package's type, and a type
+    neither package registers still refuses by name."""
     from paddle_tpu.layers import LAYERS as JLAYERS
     from paddle_tpu_torch.config.model_config import (LayerConfig,
                                                       LayerInput)
+    from paddle_tpu_torch.layers.base import get_layer_class
     from paddle_tpu_torch.utils import PaddleTpuError
     assert name in JLAYERS
+    assert get_layer_class(name).layer_type == name
+    unknown = name + "_unknown"
     cfg = TModel(layers=[
         LayerConfig(name="x", type="data", size=4),
-        LayerConfig(name="test", type=name, size=1,
+        LayerConfig(name="test", type=unknown, size=1,
                     inputs=[LayerInput(input_layer_name="x")])],
         input_layer_names=["x"], output_layer_names=["test"])
-    with pytest.raises(PaddleTpuError, match=f"layer type '{name}' is not "
-                                             "ported"):
+    with pytest.raises(PaddleTpuError, match=f"layer type '{unknown}' is "
+                                             "not ported"):
         TNet(cfg)

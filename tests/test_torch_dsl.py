@@ -7,7 +7,7 @@ modules; the two ``topology(...).to_json()`` texts must be equal — a
 config is data, so also the layers the port cannot run yet (projections
 and ``mixed``, generating groups, detection, 3-D, CRF, CTC) build the
 same config.  ``LayerType.is_layer_type`` answers against each
-package's layer registry and differs exactly on the unported types.
+package's layer registry; with all 110 types ported the two agree.
 """
 
 import json
@@ -474,13 +474,13 @@ def test_is_layer_type_differs_exactly_on_the_unported_types():
               != tdsl.LayerType.is_layer_type(t)}
     assert differ == jtypes - set(T)
     assert all(jdsl.LayerType.is_layer_type(t) for t in jtypes)
-    # 110 types in the reference's registry, 88 ported (queue A14's
-    # image, 3-D and detection types are the rest)
-    assert (len(jtypes), len(T), len(differ)) == (110, 88, 22)
+    # 110 types in the reference's registry, all 110 ported
+    assert (len(jtypes), len(T), len(differ)) == (110, 110, 0)
     assert tdsl.LayerType.is_layer_type("mixed")
     assert tdsl.LayerType.is_layer_type("tensor")
     assert tdsl.LayerType.is_layer_type("crf")
-    assert not tdsl.LayerType.is_layer_type("norm")
+    assert tdsl.LayerType.is_layer_type("norm")
+    assert not tdsl.LayerType.is_layer_type("norm_unknown")
     assert tdsl.LayerType.is_layer_type(tdsl.LayerType.LSTMEMORY)
 
 

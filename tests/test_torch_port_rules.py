@@ -833,9 +833,10 @@ def test_scan_covers_the_config_front_end():
             "compat/__init__.py", "v2/__init__.py", "v2/networks.py",
             "utils/model_diagram.py", "cli.py", "__main__.py",
             "configs/rnn.py", "configs/provider.py", "ops/detection_ops.py",
-            "layers/image3d.py"} <= scanned
+            "layers/image3d.py", "layers/detection.py",
+            "configs/image.py"} <= scanned
     # the configs import only the paddle.* aliases and numpy
-    for name in ("rnn.py", "provider.py"):
+    for name in ("rnn.py", "provider.py", "image.py"):
         roots = set(_imported_roots(PORT / "configs" / name))
         assert roots <= {"paddle", "numpy"}, (name, roots)
     assert not (PORT / "configs" / "__init__.py").exists()
@@ -859,3 +860,14 @@ def test_compat_install_refuses_a_foreign_paddle(paddle_aliases):  # noqa: F811
         with pytest.raises(ConfigError, match="did not make"):
             tcompat.install()
         assert sys.modules["paddle"] is foreign
+
+
+def test_port_registers_every_jax_layer_type():
+    """Every layer type name the JAX package registers (entries and
+    aliases, 110) is registered in the port, and no other."""
+    from paddle_tpu.layers import LAYERS as JLAYERS
+    from paddle_tpu_torch.layers import network  # noqa: F401
+    from paddle_tpu_torch.layers.base import LAYERS as TLAYERS
+    jtypes = set(JLAYERS._entries) | set(JLAYERS._aliases)
+    assert set(TLAYERS) == jtypes
+    assert len(jtypes) == 110
