@@ -181,6 +181,35 @@ Phases (any failure exits nonzero, without the final ``ok`` line):
    sentence states and their gradients equal the flat net's over B*S
    rows on the card (``lstm.fused_tier`` serves both), card against CPU,
    3 Adam steps with exactly S launches each of kernels 8 and 9 a step;
+4z-image. the image, 3-D and detection types and ops card vs CPU,
+   SSD300's multibox loss and decode, ``configs/image.py``'s nets
+   through ``python -m paddle_tpu_torch train --job time`` (fp32), and
+   (d) ``model=resnet`` under 4l's flags after 4l;
+4z-v2. the v2 API, fp32 with TF32 off: (a) the LSTM row's net (4d's
+   widths) built through ``paddle_tpu_torch.v2`` in
+   ``lstm_text_classifier``'s order — its ``ModelConfig`` equal to that
+   function's, ``v2.optimizer.Adam(2e-3, L2Regularization(8e-4), clip
+   25)``'s ``OptimizationConfig`` equal to 4d's; 4z-loop's 2048 samples
+   written by ``download.convert`` into record files of 512 and read
+   back in its order; one pass of ``v2.trainer.SGD.train`` over
+   ``v2.reader.batch(reader.recordio(shards), 128)`` against
+   ``Trainer.train`` over the same samples in memory in the same order,
+   from the same parameters (set through ``Parameters``): every batch's
+   cost bit-identical, exactly 2 x 16 launches each of kernels 8 and 9
+   in the v2 pass, samples/s of both; ``SGD.test`` with
+   ``v2.evaluator.classification_error()`` on 512 test samples equal to
+   ``Trainer.test``'s metrics; ``v2.infer`` on 128 of them equal to
+   ``NeuralNetwork.forward`` in eval mode bit for bit (2 launches of
+   kernel 8); ``Parameters.to_tar`` -> ``from_tar`` ->
+   ``v2.model.save_model`` -> ``load_model`` into another trainer:
+   every array byte-equal; (b) the sentiment demo's net through
+   ``paddle.v2`` after ``compat.install()`` (emb 64,
+   ``stacked_lstm_net(hid_dim=64, stacked_num=3)``, B 32, Adam 2e-3, the
+   imdb loader's surrogate, which it logs): card and CPU SGDs from the
+   same parameters, the first 4 batches' costs and ``infer`` on one
+   batch within 4z-small's tolerance, no launch of any kernel (H 64:
+   the reference's scan), then a whole pass on the card (ms/batch) and
+   one profiled batch (busy share);
 3c. the hidden-blocked LSTM kernels 10-12 (forward, BPTT, dW): through
    their ``autograd.Function`` against autograd through the plain scan,
    and each wrapper against its plain version, at (B, T, H) = (8, 5,
@@ -349,8 +378,11 @@ Phases (any failure exits nonzero, without the final ``ok`` line):
 Phases 3b-4f are PR 2's H 512 phases and run in fp32 (``use_bf16``
 off), so their readings stay comparable, as do 4z-loop and 4z-small.
 The order of the run: 1-3f, 3g-3i, 4-4f, 4z-loop, 4z-small, 4z-ckpt,
-4z-opt, 4z-cli, 4z-dense, 4z-gen, 4z-tag, 4g-4k,
-4l-4p, 4q-4r, 4t, 4v, 4s, 4u, 4w-4z, 4-sparse, 5.
+4z-opt, 4z-cli, 4z-dense, 4z-gen, 4z-tag, 4z-image, 4z-v2, 4g-4k,
+4l-4p, 4z-image (d), 4q-4r, 4t, 4v, 4s, 4u, 4w-4z, 4-sparse, 5.  Each
+phase's wall seconds (keyed by the id of its ``== phase`` line; a phase
+logged again adds to its entry) and the total are printed as one
+``{"phase_seconds": {...}}`` line before the results.
 
 Also printed, for information: a ``torch.profiler`` window over one
 continuous pass and one over 3 training steps (device time by kernel,
@@ -469,7 +501,25 @@ SPARSE_EQ_RTOL, SPARSE_EQ_ATOL = 1e-4, 1e-6
 S2S_RTOL = 1e-4
 
 
+#: each phase's wall seconds, keyed by the id of its "== phase <id>" log
+#: line (a phase logged again later adds to its entry); "current" is the
+#: phase running and "t0" when it started
+PHASES = {"current": None, "t0": 0.0, "seconds": {}}
+
+
+def mark_phase(name) -> None:
+    """Close the running phase's time and start ``name``'s (None: stop)."""
+    now = time.perf_counter()
+    if PHASES["current"] is not None:
+        secs = PHASES["seconds"]
+        secs[PHASES["current"]] = secs.get(PHASES["current"], 0.0) \
+            + now - PHASES["t0"]
+    PHASES["current"], PHASES["t0"] = name, now
+
+
 def log(msg: str) -> None:
+    if msg.startswith("== phase "):
+        mark_phase(msg[len("== phase "):].split(":")[0].split(" ")[0])
     print(msg, flush=True)
 
 
@@ -4517,6 +4567,360 @@ def phase_image(dev, card):
     return m
 
 
+# ------------------------------------------------------------ phase 4z-v2
+#: the sentiment demo's net (demo/sentiment/train.py): emb 64,
+#: stacked_lstm_net(hid_dim=64, stacked_num=3), B 32, Adam lr 2e-3; the
+#: first V2_SENT_CHECK batches card against the CPU
+V2_SENT = dict(emb=64, hid=64, stacked=3, b=32, lr=2e-3)
+V2_SENT_CHECK = 4
+#: record-file shards of the v2 pass: samples a shard
+V2_SHARD = 512
+
+
+def _v2_lstm_net(v2):
+    """The LSTM row's net (``models/text.py::lstm_text_classifier``'s calls,
+    in its order) through ``v2``, inside an open config scope:
+    (cost, probs)."""
+    data = v2.layer.data("data", v2.data_type.integer_value_sequence(
+        TRAIN["vocab_size"]))
+    net = v2.layer.embedding(data, size=TRAIN["embed_dim"])
+    for i in range(TRAIN["lstm_num"]):
+        net = v2.networks.simple_lstm(net, size=TRAIN["hidden_size"],
+                                      name=f"lstm{i}")
+    net = v2.layer.last_seq(net)
+    probs = v2.layer.fc(net, size=TRAIN["num_classes"],
+                        act=v2.activation.Softmax())
+    label = v2.layer.data("label", v2.data_type.integer_value(
+        TRAIN["num_classes"]))
+    return v2.layer.classification_cost(probs, label), probs
+
+
+def _cost_log(costs):
+    def handle(e):
+        if type(e).__name__ == "EndIteration":
+            costs.append(e.cost)
+    return handle
+
+
+def _shard_order(samples, shard, seed=0):
+    """The order ``download.convert`` writes ``samples`` in: each shard's
+    buffer shuffled by one ``random.Random(seed)``."""
+    import random
+    rand, order = random.Random(seed), []
+    for i in range(0, len(samples), shard):
+        buf = list(samples[i:i + shard])
+        rand.shuffle(buf)
+        order += buf
+    return order
+
+
+def _timed(fn, dev):
+    """(``fn()``, its wall in s between device syncs)."""
+    sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(dev)
+    return out, time.perf_counter() - t0
+
+
+def phase_v2_full(dev):
+    """Phase 4z-v2 (a): the LSTM row's net built and trained through
+    ``paddle_tpu_torch.v2`` from record files, against ``Trainer.train``
+    over the same samples in memory from the same parameters."""
+    import dataclasses
+    import io
+    import tempfile
+
+    import torch
+    from paddle_tpu_torch import v2
+    from paddle_tpu_torch.config.dsl import config_scope
+    from paddle_tpu_torch.config.model_config import OptimizationConfig
+    from paddle_tpu_torch.core.sequence import value_of
+    from paddle_tpu_torch.data import (DataFeeder, integer_value,
+                                       integer_value_sequence, reader)
+    from paddle_tpu_torch.data.download import convert
+    from paddle_tpu_torch.evaluators import create_evaluator
+    from paddle_tpu_torch.layers.network import NeuralNetwork
+    from paddle_tpu_torch.models import lstm_text_classifier
+    from paddle_tpu_torch.trainer.trainer import Trainer
+    from paddle_tpu_torch.utils import FLAGS
+    m = {}
+    n_batches = LOOP_SAMPLES // TRAIN_B
+    feeding = {"data": 0, "label": 1}
+    with config_scope():
+        cost, probs = _v2_lstm_net(v2)
+        opt = v2.optimizer.Adam(
+            learning_rate=TRAIN_OPT["learning_rate"],
+            regularization=v2.optimizer.L2Regularization(
+                TRAIN_OPT["l2_weight_decay"]),
+            gradient_clipping_threshold=TRAIN_OPT[
+                "gradient_clipping_threshold"])
+        sgd = v2.trainer.SGD(cost, update_equation=opt, device=dev)
+        want_cfg = lstm_text_classifier(**TRAIN)
+        if sgd.model_config.to_json() != want_cfg.to_json():
+            fail("4z-v2: the v2 net's ModelConfig differs from "
+                 "lstm_text_classifier's")
+        if dataclasses.asdict(opt.conf) != dataclasses.asdict(
+                OptimizationConfig(**TRAIN_OPT)):
+            fail(f"4z-v2: v2.optimizer.Adam gives {opt.conf}, not 4d's "
+                 "OptimizationConfig")
+        log("  the v2 net's ModelConfig is lstm_text_classifier's, "
+            "v2.optimizer.Adam's OptimizationConfig is 4d's")
+        if any(p.device != dev for p in sgd.core.params.values()):
+            fail("4z-v2: a parameter of SGD is off the card")
+
+        samples = loop_samples(LOOP_SAMPLES, TRAIN["vocab_size"],
+                               LOOP_LENGTHS, 0)
+        test_samples = loop_samples(LOOP_TEST_SAMPLES, TRAIN["vocab_size"],
+                                    LOOP_LENGTHS, 1)
+        order = _shard_order(samples, V2_SHARD)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_v2_") as tmp:
+            shards, conv_s = _timed(lambda: convert(
+                tmp, lambda: iter(samples), V2_SHARD, "lstm"), dev)
+            rec = reader.recordio(shards)
+            if list(rec()) != order:
+                fail("4z-v2: reader.recordio does not give convert's order")
+            ref = Trainer(NeuralNetwork(want_cfg),
+                          OptimizationConfig(**TRAIN_OPT),
+                          seed=sgd.core.seed, device=dev)
+            params = sgd.parameters
+            for name in params.names():
+                params.set(name, ref.params[name])
+            if any(p.device != dev or p.dtype != torch.float32
+                   for p in sgd.core.params.values()):
+                fail("4z-v2: Parameters.set moved a parameter off the "
+                     "card or out of float32")
+            feeder = DataFeeder([
+                ("data", integer_value_sequence(TRAIN["vocab_size"])),
+                ("label", integer_value(TRAIN["num_classes"]))])
+            # a throwaway step first, so neither timed pass pays the
+            # first launches
+            Trainer(NeuralNetwork(want_cfg), OptimizationConfig(**TRAIN_OPT),
+                    seed=1, device=dev).train_one_batch(
+                        feeder.convert(order[:TRAIN_B]))
+            old = {k: FLAGS.get(k) for k in ("log_period", "save_dir")}
+            set_flags(log_period=1, save_dir="")
+            try:
+                want = []
+                _, ref_s = _timed(lambda: ref.train(
+                    reader.batch(reader.np_array(order), TRAIN_B), 1,
+                    _cost_log(want), feeder), dev)
+                got = []
+                reset_counts()
+                _, v2_s = _timed(lambda: sgd.train(
+                    v2.reader.batch(rec, TRAIN_B), num_passes=1,
+                    event_handler=_cost_log(got), feeding=feeding), dev)
+                launches = read_counts()
+            finally:
+                set_flags(**old)
+        check_launches(launches, {"lstm_fwd": 2 * n_batches,
+                                  "lstm_bwd": 2 * n_batches},
+                       "4z-v2 SGD.train")
+        if len(got) != n_batches or got != want:
+            fail(f"4z-v2: SGD.train's costs from record files differ from "
+                 f"Trainer.train's in memory: {got[:4]} vs {want[:4]}")
+        if not all(np.isfinite(got)):
+            fail("4z-v2: a non-finite cost")
+        log(f"  convert: {LOOP_SAMPLES} samples into {len(shards)} record "
+            f"files in {conv_s * 1e3:.1f} ms; SGD.train from them: "
+            f"{n_batches} costs bit-identical to Trainer.train's in memory "
+            f"({got[0]:.6f} ... {got[-1]:.6f}); launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        log(f"  samples/s: v2 from record files {LOOP_SAMPLES / v2_s:.1f} "
+            f"({v2_s * 1e3:.1f} ms), Trainer.train in memory "
+            f"{LOOP_SAMPLES / ref_s:.1f} ({ref_s * 1e3:.1f} ms)")
+        m.update(costs=got, launches=launches, convert_ms=conv_s * 1e3,
+                 v2_samples_per_s=LOOP_SAMPLES / v2_s,
+                 trainer_samples_per_s=LOOP_SAMPLES / ref_s)
+
+        test_r = {k: reader.batch(reader.np_array(test_samples), TRAIN_B)
+                  for k in ("v2", "ref")}
+        got_t = sgd.test(test_r["v2"], feeding=feeding,
+                         evaluators=[v2.evaluator.classification_error()])
+        want_t = ref.test(test_r["ref"], feeder,
+                          [create_evaluator("classification_error")])
+        if got_t != want_t:
+            fail(f"4z-v2: SGD.test {got_t} != Trainer.test {want_t}")
+        batch = test_samples[:TRAIN_B]
+        reset_counts()
+        out = v2.infer(output_layer=probs, parameters=sgd.parameters,
+                       input=[batch], feeding={"data": 0}, device=dev)
+        inf_launches = read_counts()
+        check_launches(inf_launches, {"lstm_fwd": 2}, "4z-v2 infer")
+        with torch.no_grad():
+            values, _ = sgd.network.forward(
+                sgd.core.params, ref._place_feed(feeder.convert(batch)),
+                sgd.core.buffers, is_training=False)
+        plain = value_of(values[probs.name]).cpu().numpy()
+        if out.shape != plain.shape or not np.array_equal(out, plain):
+            fail("4z-v2: v2.infer differs from NeuralNetwork.forward in "
+                 "eval mode")
+        log(f"  SGD.test = Trainer.test ({got_t}); v2.infer = "
+            f"NeuralNetwork.forward (eval) bit for bit, {out.shape}")
+        m["test"] = got_t
+
+        buf = io.BytesIO()
+        sgd.parameters.to_tar(buf)
+        buf.seek(0)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_v2_") as tmp:
+            path = v2.model.save_model(v2.Parameters.from_tar(buf),
+                                       os.path.join(tmp, "model.tar"))
+            other = Trainer(NeuralNetwork(want_cfg),
+                            OptimizationConfig(**TRAIN_OPT), seed=1,
+                            device=dev)
+            loaded = v2.Parameters()
+            loaded.attach(other)
+            v2.model.load_model(loaded, path)
+            size = os.path.getsize(path)
+        for name, p in sgd.core.params.items():
+            q = other.params[name]
+            if q.device != dev or q.dtype != p.dtype or \
+                    not torch.equal(p, q):
+                fail(f"4z-v2: {name} after to_tar -> from_tar -> "
+                     "save_model -> load_model differs")
+        log(f"  to_tar -> from_tar -> save_model -> load_model: "
+            f"{len(sgd.core.params)} arrays byte-equal ({size} bytes)")
+    return m
+
+
+def phase_v2_sentiment(dev):
+    """Phase 4z-v2 (b): the sentiment demo's net through ``paddle.v2``
+    (the port's aliases) on the imdb surrogate, card against CPU, then a
+    whole pass on the card."""
+    import importlib
+    import logging
+    from paddle_tpu_torch import compat
+    from paddle_tpu_torch.config.dsl import config_scope
+    from paddle_tpu_torch.utils import FLAGS
+    s = V2_SENT
+    lines = []
+
+    class Lines(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    handler = Lines(logging.WARNING)
+    logger = logging.getLogger("paddle_tpu_torch.dataset")
+    logger.addHandler(handler)
+    m = {}
+    try:
+        with compat.swapped():
+            compat.install()
+            paddle = importlib.import_module("paddle.v2")
+            word_dict = paddle.dataset.imdb.word_dict()
+            with config_scope():
+                data = paddle.layer.data(
+                    "word", paddle.data_type.integer_value_sequence(
+                        len(word_dict)))
+                label = paddle.layer.data(
+                    "label", paddle.data_type.integer_value(2))
+                emb = paddle.layer.embedding(data, size=s["emb"])
+                lstm_last = paddle.layer.last_seq(
+                    paddle.networks.stacked_lstm_net(
+                        emb, hid_dim=s["hid"], stacked_num=s["stacked"]))
+                probs = paddle.layer.fc(lstm_last, size=2,
+                                        act=paddle.activation.Softmax())
+                cost = paddle.layer.classification_cost(probs, label)
+                sgds = {where: paddle.trainer.SGD(
+                    cost, update_equation=paddle.optimizer.Adam(
+                        learning_rate=s["lr"]), device=where)
+                    for where in (dev, "cpu")}
+                card, cpu = sgds[dev], sgds["cpu"]
+                for name in card.parameters.names():
+                    cpu.parameters.set(name, card.parameters.get(name))
+                feeding = {"word": 0, "label": 1}
+
+                def batches(n=None):
+                    r = paddle.reader.batch(paddle.reader.shuffle(
+                        paddle.dataset.imdb.train(word_dict), 2048, seed=0),
+                        s["b"], drop_last=True)
+                    return paddle.reader.firstn(r, n) if n else r
+
+                first = next(iter(batches(1)()))
+                reset_counts()
+                outs = {w: paddle.infer(output_layer=probs,
+                                        parameters=card.parameters,
+                                        input=[first], feeding={"word": 0},
+                                        device=w) for w in (dev, "cpu")}
+                costs, check_s = {}, {}
+                old = {k: FLAGS.get(k) for k in ("log_period", "save_dir")}
+                set_flags(log_period=1, save_dir="")
+                try:
+                    for where, sgd in sgds.items():
+                        costs[str(where)] = []
+                        _, check_s[str(where)] = _timed(lambda: sgd.train(
+                            batches(V2_SENT_CHECK), num_passes=1,
+                            event_handler=_cost_log(costs[str(where)]),
+                            feeding=feeding), dev)
+                    check = read_counts()
+                    reset_counts()
+                    n_pass = []
+                    _, pass_s = _timed(lambda: card.train(
+                        batches(), num_passes=1,
+                        event_handler=_cost_log(n_pass), feeding=feeding),
+                        dev)
+                    pass_launches = read_counts()
+                    (busy, items), prof_s = _timed(
+                        lambda: _profile_busy(lambda: card.train(
+                            batches(1), num_passes=1,
+                            event_handler=lambda e: None,
+                            feeding=feeding)), dev)
+                finally:
+                    set_flags(**old)
+    finally:
+        logger.removeHandler(handler)
+    if not any("imdb unavailable" in ln and "synthetic surrogate" in ln
+               for ln in lines):
+        fail(f"4z-v2 (b): the imdb loader did not log its surrogate: "
+             f"{lines[:3]}")
+    for what, counts in (("card vs CPU", check), ("the pass", pass_launches)):
+        check_launches(counts, {}, f"4z-v2 (b) {what} (H {s['hid']}: the "
+                       "reference's scan)")
+    got, want = costs[str(dev)], costs["cpu"]
+    worst = max(abs(g - w) / (LSTM_GRAD_ATOL + LSTM_GRAD_RTOL * abs(w))
+                for g, w in zip(got, want))
+    o_dev, o_cpu = outs[dev], outs["cpu"]
+    inf_worst = float(np.max(np.abs(o_dev - o_cpu) / (
+        LSTM_GRAD_ATOL + LSTM_GRAD_RTOL * np.abs(o_cpu))))
+    log(f"  sentiment (V {len(word_dict)}, E {s['emb']}, "
+        f"stacked_lstm_net H {s['hid']} x {s['stacked']}, B {s['b']}): the "
+        f"imdb loader took its surrogate; first {V2_SENT_CHECK} costs card "
+        f"{[round(c, 6) for c in got]}, CPU {[round(c, 6) for c in want]}: "
+        f"worst {worst:.3f} of the tolerance; infer worst {inf_worst:.3f}; "
+        "no launch of kernels 8 and 9")
+    if len(got) != V2_SENT_CHECK or worst > 1.0 or inf_worst > 1.0:
+        fail("4z-v2 (b): the card and the CPU disagree")
+    if not all(np.isfinite(n_pass)):
+        fail("4z-v2 (b): a non-finite cost in the pass")
+    ms = pass_s * 1e3 / len(n_pass)
+    log(f"  a whole pass on the card: {len(n_pass)} batches, "
+        f"{ms:.3f} ms/batch ({pass_s:.2f} s); one profiled batch: busy "
+        f"{busy * 100:.1f} %, {items} device items ({prof_s:.2f} s with "
+        f"the profiler); the first {V2_SENT_CHECK} batches took "
+        f"{check_s[str(dev)]:.2f} s on the card, {check_s['cpu']:.2f} s on "
+        "the CPU")
+    m.update(costs_card=got, costs_cpu=want, worst=worst,
+             infer_worst=inf_worst, batches=len(n_pass), ms_per_batch=ms,
+             busy=busy, device_items=items)
+    return m
+
+
+def phase_v2(dev):
+    """Phase 4z-v2: (a) and (b), fp32 with TF32 off."""
+    import torch
+    t0 = time.perf_counter()
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        fail("TF32 is on")
+    m = {"full": phase_v2_full(dev)}
+    t1 = time.perf_counter()
+    m["sentiment"] = phase_v2_sentiment(dev)
+    m["seconds"] = time.perf_counter() - t0
+    log(f"  4z-v2 (a) took {t1 - t0:.1f} s, (b) "
+        f"{m['seconds'] - (t1 - t0):.1f} s")
+    return m
+
+
 def _same_net(a, b, rename):
     """ModelConfig ``a`` equals ``b`` with ``b``'s layer names mapped by
     ``rename``, in any order of the layers."""
@@ -6763,7 +7167,13 @@ def main() -> int:
             "nets through python -m paddle_tpu_torch train --job time "
             "(fp32)")
         image = phase_image(dev, card)
+        log("== phase 4z-v2: the LSTM row's net through paddle_tpu_torch.v2 "
+            "trained from record files against Trainer.train in memory, "
+            "SGD.test, infer, Parameters tars; the sentiment demo's net "
+            "through paddle.v2 card vs CPU and a pass (fp32)")
+        v2res = phase_v2(dev)
         for name in launches:
+            launches[name]["v2"] = v2res["full"]["launches"].get(name, 0)
             launches[name]["training_ckpt"] = ckpt["launches"].get(name, 0)
             launches[name]["training_opt"] = opt["launches"].get(name, 0)
             launches[name]["cli"] = cli["launches"].get(name, 0)
@@ -6901,13 +7311,16 @@ def main() -> int:
     except Exception:  # noqa: BLE001 - any phase failing fails the run
         traceback.print_exc()
         return 1
+    mark_phase(None)
     log(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"phase_seconds": dict(
+        PHASES["seconds"], total=time.perf_counter() - t_start)}))
     print(json.dumps({"serving": {k: v for k, v in serve.items()
                                   if k != "prompt_lengths"},
                       "training": train, "training_loop": loop,
                       "training_ckpt": ckpt, "training_opt": opt,
                       "cli": cli, "dense": dense, "gen": gen, "tag": tag,
-                      "image": image,
+                      "image": image, "v2": v2res,
                       "training_h1280": blocked,
                       "training_h1280_mixed_bf16": mixed,
                       "training_h2048": wide, **resnet, "seq2seq": seq2seq,

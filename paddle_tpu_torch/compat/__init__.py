@@ -12,10 +12,12 @@ the port's config DSL and provider protocol:
   (``config_parser.config_namespace``);
 - ``paddle.trainer.PyDataProvider2``: ``provider``, ``CacheType`` and the
   input types;
-- ``paddle.trainer.config_parser``: ``parse_config``.
-
-``paddle.v2`` refuses by name: the port's ``v2/`` holds only
-``networks`` until queue A8 ports the rest.
+- ``paddle.trainer.config_parser``: ``parse_config``;
+- ``paddle.v2``: the port's :mod:`paddle_tpu_torch.v2`, with every
+  submodule aliased (``paddle.v2.layer``, ``paddle.v2.networks``, ...)
+  and each corpus of ``paddle.v2.dataset`` too
+  (``import paddle.v2.dataset.mnist``), so the era's v2 scripts and
+  their deep imports run against the port.
 
 Both packages claim ``sys.modules['paddle']``.  The port marks its own
 aliases with :data:`MARK` (the JAX package marks its own with another
@@ -34,7 +36,6 @@ from __future__ import annotations
 
 import builtins
 import contextlib
-import importlib.abc
 import pickle
 import sys
 import types
@@ -44,12 +45,6 @@ from ..utils import ConfigError
 
 #: the attribute that marks the port's ``paddle`` alias module
 MARK = "_paddle_tpu_torch_compat"
-
-_V2_REFUSAL = ("paddle.v2 is not ported yet: the port's v2/ holds only "
-               "networks (paddle_tpu_torch.v2.networks); the trainer, "
-               "inference, parameters, datasets and the rest of v2 come "
-               "with queue A8")
-
 
 def _mk_module(name: str, attrs: dict) -> types.ModuleType:
     mod = types.ModuleType(name)
@@ -64,21 +59,10 @@ def _ours(mod) -> bool:
     return bool(getattr(mod, MARK, False))
 
 
-class _RefuseV2(importlib.abc.MetaPathFinder):
-    """Refuses ``import paddle.v2`` (and its submodules) by name while
-    the ``paddle`` module is the port's alias."""
-
-    def find_spec(self, fullname, path=None, target=None):
-        if (fullname == "paddle.v2" or fullname.startswith("paddle.v2.")) \
-                and _ours(sys.modules.get("paddle")):
-            raise ImportError(_V2_REFUSAL, name=fullname)
-        return None
-
-
 def install() -> None:
     """Register the ``paddle``, ``paddle.trainer_config_helpers``,
-    ``paddle.trainer.PyDataProvider2`` and ``paddle.trainer.
-    config_parser`` aliases and the py2 shims.  Idempotent while the
+    ``paddle.trainer.PyDataProvider2``, ``paddle.trainer.config_parser``
+    and ``paddle.v2`` aliases and the py2 shims.  Idempotent while the
     aliases are in ``sys.modules``; raises :class:`ConfigError` when a
     ``paddle`` module the port did not make is already imported."""
     present = sys.modules.get("paddle")
@@ -101,7 +85,7 @@ def install() -> None:
 
     paddle = _mk_module("paddle", {})
     setattr(paddle, MARK, True)
-    paddle.__path__ = []        # a package: 'import paddle.v2' asks finders
+    paddle.__path__ = []        # a package
     trainer = _mk_module("paddle.trainer", {})
     trainer.__path__ = []
     _mk_module("paddle.trainer_config_helpers",
@@ -121,9 +105,26 @@ def install() -> None:
         "paddle.trainer_config_helpers"]
     trainer.PyDataProvider2 = sys.modules["paddle.trainer.PyDataProvider2"]
     trainer.config_parser = sys.modules["paddle.trainer.config_parser"]
-    if not any(isinstance(f, _RefuseV2) for f in sys.meta_path):
-        sys.meta_path.insert(0, _RefuseV2())
+    _install_v2(paddle)
     _install_py2_shims()
+
+
+def _install_v2(paddle: types.ModuleType) -> None:
+    """``paddle.v2`` → the port's ``v2``; every submodule of it as
+    ``paddle.v2.<sub>``, and each corpus class of ``v2.dataset`` as
+    ``paddle.v2.dataset.<corpus>`` (the import system takes an entry of
+    ``sys.modules`` as it is)."""
+    from .. import v2
+
+    sys.modules["paddle.v2"] = v2
+    paddle.v2 = v2
+    for sub, mod in vars(v2).items():
+        if isinstance(mod, types.ModuleType) \
+                and mod.__name__.startswith(v2.__name__ + "."):
+            sys.modules[f"paddle.v2.{sub}"] = mod
+    for name, corpus in vars(v2.dataset).items():
+        if isinstance(corpus, type) and not name.startswith("_"):
+            sys.modules[f"paddle.v2.dataset.{name}"] = corpus
 
 
 def _alias_names(extra: Sequence[str]) -> list:

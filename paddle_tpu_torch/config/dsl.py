@@ -15,13 +15,14 @@ Naming parity: each function matches the reference DSL name (fc_layer is
 ``fc``, img_conv_layer is ``img_conv``, etc. — the v2 names, which drop the
 ``_layer`` suffix; v1 aliases are exported too).
 
-A config is data: every layer-building function is here, also those
-whose layer the port cannot build yet (projections and ``mixed``,
-generating groups and ``beam_search``, detection, 3-D, CRF, CTC).  Such
-a layer refuses by name when ``NeuralNetwork`` builds it
+A config is data: every layer-building function is here, and the
+port's ``NeuralNetwork`` builds every one of the reference's 110 layer
+types (projections and ``mixed``, generating groups and
+``beam_search``, detection, 3-D, CRF and CTC included).  A type name no
+package registers refuses by name when ``NeuralNetwork`` builds it
 (``layers/base.get_layer_class``).  :meth:`LayerType.is_layer_type`
-answers against the port's layer registry, so it says False for the
-layer types that are not ported yet, where the reference says True.
+answers against the port's layer registry, which holds the same names
+as the reference's.
 """
 
 from __future__ import annotations
@@ -1122,9 +1123,9 @@ def beam_search(step: Callable, input, bos_id: int, eos_id: int,
                 candidate_adjust: Optional[Callable] = None,
                 candidate_drop: Optional[Callable] = None) -> LayerOutput:
     """Build a generating recurrent group decoded by beam search
-    (``beam_search`` in ``trainer_config_helpers/layers.py``).  The
-    port builds the config; its decode (a generating group) refuses at
-    ``NeuralNetwork`` build time until it is ported.
+    (``beam_search`` in ``trainer_config_helpers/layers.py``).
+    ``NeuralNetwork`` builds the decode with the net
+    (``layers/beam_search.BeamSearchDecoder``).
 
     User candidate hooks — the ``beamSearchCandidateAdjust`` / drop
     callbacks of ``RecurrentGradientMachine.h:73-112``, re-designed as

@@ -8,8 +8,8 @@ package, and :meth:`ModelConfig.from_json` reads what either wrote,
 projections (:class:`ProjConfig`) and recurrent-group sub-models
 (:class:`SubModelConfig`) included.  The config DSL (:mod:`.dsl`) and
 the config-file parser (:mod:`.config_parser`) build these records; a
-layer the port cannot run yet refuses when ``NeuralNetwork`` builds it,
-not here.
+layer type no package registers refuses when ``NeuralNetwork`` builds
+it, not here.
 """
 
 from __future__ import annotations

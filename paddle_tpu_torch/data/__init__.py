@@ -1,8 +1,10 @@
 """Feeding (counterpart of ``paddle_tpu/data``): input types and the
-feeder, the reader decorators, ``@provider`` and the async input
-pipeline.  The datasets and the record-file format wait for queue A8."""
+feeder, the reader decorators, ``@provider``, the async input pipeline,
+the record-file format (:mod:`.recordio`), the dataset cache and shard
+tools (:mod:`.download`, which never downloads) and the corpora's
+parsers, loaders and synthetic surrogates (:mod:`.datasets`)."""
 
-from . import pipeline, reader
+from . import datasets, pipeline, reader, recordio
 from .feeder import (
     DataFeeder,
     InputType,
@@ -25,6 +27,7 @@ __all__ = [
     "CacheType",
     "DataFeeder",
     "InputType",
+    "datasets",
     "dense_vector",
     "dense_vector_sequence",
     "dense_vector_sub_sequence",
@@ -35,6 +38,7 @@ __all__ = [
     "prefetch_reader",
     "provider",
     "reader",
+    "recordio",
     "sparse_binary_vector",
     "sparse_binary_vector_sequence",
     "sparse_float_vector",

@@ -9,8 +9,9 @@ iterable of samples, so user reader code carries over unchanged.
 ``shuffle`` draws from ``random.Random(seed)`` as the reference does, so
 one seed gives both packages the same order.
 
-``recordio`` and ``cloud_reader`` refuse by name: the record-file format
-waits for queue A8, the master-leased reader for A9.
+``recordio`` reads the record files of :mod:`.recordio` (pickled
+samples, as :func:`.download.convert` writes them); ``cloud_reader``
+refuses by name: the master-leased reader waits for queue A9.
 """
 
 from __future__ import annotations
@@ -334,11 +335,20 @@ def batch(reader: Reader, batch_size: int, drop_last: bool = True) -> Reader:
 # ------------------------------------------------- recordio-backed creators
 
 def recordio(paths, buf_size: int = 100) -> Reader:
-    """Not ported: the record-file format (``data/recordio.py``) waits
-    for queue A8."""
-    raise PaddleTpuError(
-        "data.reader.recordio is not ported yet: the record-file format "
-        "waits for queue A8")
+    """Reader over chunked record files written by
+    :func:`.download.convert` / :class:`.recordio.Writer`
+    (``creator.py:60``): ``paths`` a comma-separated string or a list,
+    globs expanded in sorted order; each record a pickled sample, the
+    reference's convention for these framework-written caches."""
+    import pickle
+
+    from . import recordio as rio
+
+    def reader():
+        for rec in rio.reader(paths):
+            yield pickle.loads(rec)
+
+    return buffered(reader, buf_size)
 
 
 def cloud_reader(paths, master, buf_size: int = 64,

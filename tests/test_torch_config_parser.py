@@ -137,12 +137,22 @@ def test_install_refuses_the_jax_package_aliases(paddle_aliases):
 
 
 def test_paddle_v2_refuses_by_name(paddle_aliases):
+    """``paddle.v2`` through the port's aliases is the port's ``v2``
+    (deep imports too); the master it cannot build yet refuses by
+    name."""
+    from paddle_tpu_torch import v2 as tv2
+    from paddle_tpu_torch.utils import PaddleTpuError
     with paddle_aliases():
         tcompat.install()
-        with pytest.raises(ImportError, match="A8"):
-            importlib.import_module("paddle.v2")
-        with pytest.raises(ImportError, match="A8"):
-            exec("from paddle import v2", {})
+        assert importlib.import_module("paddle.v2") is tv2
+        ns = {}
+        exec("from paddle import v2", ns)
+        assert ns["v2"] is tv2
+        assert importlib.import_module("paddle.v2.layer") is tv2.layer
+        assert importlib.import_module("paddle.v2.dataset.imdb") is \
+            tv2.dataset.imdb
+        with pytest.raises(PaddleTpuError, match="A9"):
+            importlib.import_module("paddle.v2.master").client()
         helpers = importlib.import_module("paddle.trainer_config_helpers")
         assert helpers.fc_layer is tdsl.fc
         assert helpers.simple_lstm.__module__ == \

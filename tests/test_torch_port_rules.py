@@ -842,6 +842,46 @@ def test_scan_covers_the_config_front_end():
     assert not (PORT / "configs" / "__init__.py").exists()
 
 
+def test_scan_covers_the_v2_api_and_data_formats():
+    scanned = {str(f.relative_to(PORT)) for f in PORT.rglob("*.py")}
+    v2 = {f"v2/{m}.py" for m in (
+        "activation", "attr", "data_type", "dataset", "evaluator", "event",
+        "image", "inference", "layer", "master", "model", "optimizer",
+        "parameters", "plot", "pooling", "reader", "topology", "trainer")}
+    assert v2 | {"data/recordio.py", "data/download.py",
+                 "data/datasets.py"} <= scanned
+    # PIL, scipy and matplotlib stay out of the module level
+    for name in ("data/datasets.py", "v2/image.py", "v2/plot.py"):
+        tree = ast.parse((PORT / name).read_text())
+        top = {a.name.split(".")[0] for n in tree.body
+               if isinstance(n, ast.Import) for a in n.names} | \
+            {n.module.split(".")[0] for n in tree.body
+             if isinstance(n, ast.ImportFrom) and n.level == 0}
+        assert not top & {"PIL", "scipy", "matplotlib"}, (name, top)
+
+
+def test_v2_entry_points_raise_without_cuda(monkeypatch):
+    from paddle_tpu_torch import v2
+    from paddle_tpu_torch.config.dsl import config_scope
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with config_scope():
+        x = v2.layer.data("x", v2.data_type.dense_vector(4))
+        y = v2.layer.data("y", v2.data_type.dense_vector(1))
+        pred = v2.layer.fc(x, size=1)
+        cost = v2.layer.square_error_cost(pred, y)
+        for device in (None, "cuda"):
+            with pytest.raises(PaddleTpuError, match="no CUDA device"):
+                v2.trainer.SGD(cost, device=device)
+            with pytest.raises(PaddleTpuError, match="no CUDA device"):
+                v2.infer(output_layer=pred, input=[], device=device)
+        sgd = v2.trainer.SGD(cost, device="cpu")
+        assert all(p.device.type == "cpu" for p in sgd.core.params.values())
+        feed = {"x": np.ones((2, 4), np.float32)}
+        out = v2.infer(output_layer=pred, parameters=sgd.parameters,
+                       input=[feed], device="cpu")
+        assert out.shape == (2, 1)
+
+
 def test_cli_train_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for argv in (["train", "--config", RNN],
