@@ -210,6 +210,30 @@ Phases (any failure exits nonzero, without the final ``ok`` line):
    batch within 4z-small's tolerance, no launch of any kernel (H 64:
    the reference's scan), then a whole pass on the card (ms/batch) and
    one profiled batch (busy share);
+4z-fw. the ``framework`` package (Program IR, the op registry, the eager
+   Executor, backward, Adam, io), fp32 with TF32 off: (a) the LSTM row's
+   net as a Fluid program (``data("words", [100], int64, lod_level=1)``
+   -> ``embedding([30000, 128])`` -> ``sequence_conv(2048,
+   filter_size=1)`` -> ``lstm(512)`` -> ``sequence_conv(2048, 1)`` ->
+   ``lstm(512)`` -> ``sequence_pool("LAST")`` -> ``fc(2, "softmax")`` ->
+   ``cross_entropy`` -> ``mean`` -> ``AdamOptimizer(2e-3)``; 4d's feed):
+   ``Executor(place=cuda)`` runs the startup and main programs on the
+   card; 2 Adam steps, each exactly 2 launches each of kernels 8 and 9,
+   against the same program on the CPU plain path from the card's
+   startup values (costs within 4e's loss tolerance, every parameter's
+   change within 4z-opt's 1e-2 in norm); an ``is_test`` run of the
+   pruned program (2 launches of kernel 8, none of 9);
+   ``save_inference_model`` -> ``load_inference_model`` on the card bit
+   for bit; 3 warm and 20 timed steps between CUDA events (exactly 40 +
+   40 launches; the memory held after each step and the peak flat
+   within 16 MiB of one step's), ms/step and samples/s beside 4d's, one
+   profiled step's busy share; (b) ``tests/test_framework.py``'s book
+   programs, 3 runs each card against CPU from the card's startup
+   values (fit a line; the MNIST MLP 784-128-64-10 with momentum and
+   the conv net of two 5x5 conv-pools (20, 50) with Adam, both at
+   28x28, B 64; a StaticRNN trained through; a ``cond`` both ways):
+   every fetch within 4e's loss tolerance, every parameter's change
+   within 1e-2 in norm, no launch of the port's kernels;
 3c. the hidden-blocked LSTM kernels 10-12 (forward, BPTT, dW): through
    their ``autograd.Function`` against autograd through the plain scan,
    and each wrapper against its plain version, at (B, T, H) = (8, 5,
@@ -378,7 +402,7 @@ Phases (any failure exits nonzero, without the final ``ok`` line):
 Phases 3b-4f are PR 2's H 512 phases and run in fp32 (``use_bf16``
 off), so their readings stay comparable, as do 4z-loop and 4z-small.
 The order of the run: 1-3f, 3g-3i, 4-4f, 4z-loop, 4z-small, 4z-ckpt,
-4z-opt, 4z-cli, 4z-dense, 4z-gen, 4z-tag, 4z-image, 4z-v2, 4g-4k,
+4z-opt, 4z-cli, 4z-dense, 4z-gen, 4z-tag, 4z-image, 4z-v2, 4z-fw, 4g-4k,
 4l-4p, 4z-image (d), 4q-4r, 4t, 4v, 4s, 4u, 4w-4z, 4-sparse, 5.  Each
 phase's wall seconds (keyed by the id of its ``== phase`` line; a phase
 logged again adds to its entry) and the total are printed as one
@@ -4921,6 +4945,391 @@ def phase_v2(dev):
     return m
 
 
+# ------------------------------------------------------------ phase 4z-fw
+#: the book programs of phase 4z-fw (b): steps card against CPU
+FW_BOOK_STEPS = 3
+#: MNIST's images and the book's batch
+FW_MNIST_B, FW_MNIST_SIDE = 64, 28
+
+
+def _fw_lstm_row(fw, layers, opt):
+    """The LSTM row's net as a Fluid program (ids -> embedding ->
+    sequence_conv(4H, 1) -> lstm twice -> last step -> fc softmax ->
+    cross entropy -> mean; Adam 2e-3): (cost, probs).  The ``fc`` 4H
+    projection of the row is ``sequence_conv`` with filter size 1
+    (context start 0, length 1, a bias): ``fc`` drops the LoD that
+    ``lstm`` needs, in both packages."""
+    h = TRAIN["hidden_size"]
+    net = layers.embedding(layers.data("words", [TRAIN_T], "int64",
+                                       lod_level=1),
+                           [TRAIN["vocab_size"], TRAIN["embed_dim"]])
+    for _ in range(TRAIN["lstm_num"]):
+        net, _ = layers.lstm(layers.sequence_conv(net, 4 * h,
+                                                  filter_size=1), h)
+    probs = layers.fc(layers.sequence_pool(net, "LAST"),
+                      TRAIN["num_classes"], act="softmax")
+    cost = layers.mean(layers.cross_entropy(
+        probs, layers.data("label", [1], "int64")))
+    opt.AdamOptimizer(learning_rate=TRAIN_OPT["learning_rate"]).minimize(
+        cost)
+    return cost, probs
+
+
+def _fw_scope_copy(scope, where):
+    """A new framework scope with ``scope``'s values on ``where``."""
+    from paddle_tpu_torch.framework import Scope
+    out = Scope()
+    for name, v in scope.vars.items():
+        out.set(name, v.to(where))
+    return out
+
+
+def _fw_changes(main, p0, pd, pc):
+    """The worst ||d_card - d_cpu|| / ||d_cpu|| over the program's
+    parameters, d the change from ``p0``."""
+    worst = 0.0
+    for p in main.parameters():
+        d_cpu = pc[p.name] - p0[p.name]
+        d_dev = pd[p.name] - p0[p.name]
+        worst = max(worst, float((d_dev - d_cpu).norm())
+                    / max(float(d_cpu.norm()), 1e-30))
+    return worst
+
+
+def _fw_card_vs_cpu(main, startup, feeds, fetch, dev, what, steps):
+    """``startup`` on the card, its values carried to a CPU scope, then
+    ``steps`` runs of ``main`` on both from ``feeds(i, where)``: (worst
+    fetch share of 4e's loss tolerance, worst parameter-change rel err,
+    the card's fetches).  Counts set to 0 before, checked after: none
+    of the port's kernels runs."""
+    from paddle_tpu_torch.framework import Executor, Scope
+    exe = {"card": Executor(place=dev), "cpu": Executor(place="cpu")}
+    scopes = {"card": Scope()}
+    reset_counts()
+    exe["card"].run(startup, scope=scopes["card"])
+    scopes["cpu"] = _fw_scope_copy(scopes["card"], "cpu")
+    p0 = {n: v.cpu().clone() for n, v in scopes["cpu"].vars.items()}
+    got = {k: [exe[k].run(main, feed=feeds(i, dev if k == "card" else
+                                           "cpu"),
+                          fetch_list=fetch, scope=scopes[k])
+               for i in range(steps)] for k in ("card", "cpu")}
+    check_launches(read_counts(), {}, f"4z-fw (b) {what}")
+    share = 0.0
+    for a, b in zip(got["card"], got["cpu"]):
+        for x, y in zip(a, b):
+            if not np.all(np.isfinite(x)) or x.shape != y.shape:
+                fail(f"4z-fw (b) {what}: a non-finite or misshapen fetch")
+            share = max(share, float(np.max(np.abs(x - y) / (
+                LSTM_GRAD_ATOL + LSTM_GRAD_RTOL * np.abs(y)))))
+    perr = _fw_changes(main, p0, {n: v.cpu() for n, v in
+                                  scopes["card"].vars.items()},
+                       scopes["cpu"].vars) if main.parameters() else 0.0
+    return share, perr, got["card"]
+
+
+def _fw_book(dev):
+    """Phase 4z-fw (b): the book programs of ``tests/test_framework.py``
+    card against CPU from the card's startup values."""
+    from paddle_tpu_torch import framework as fw
+    from paddle_tpu_torch.framework import layers, nets
+    from paddle_tpu_torch.framework import optimizer as opt
+    rng = np.random.RandomState(0)
+    res = {}
+
+    def build(fn):
+        main, startup = fw.Program(), fw.Program()
+        with fw.program_guard(main, startup):
+            out = fn()
+        return main, startup, out
+
+    def fit_a_line():
+        x, y = layers.data("x", [13]), layers.data("y", [1])
+        cost = layers.mean(layers.square_error_cost(layers.fc(x, 1), y))
+        opt.SGDOptimizer(learning_rate=0.01).minimize(cost)
+        return [cost]
+
+    def mnist_mlp():
+        img = layers.data("img", [FW_MNIST_SIDE * FW_MNIST_SIDE])
+        label = layers.data("label", [1], "int64")
+        h = layers.fc(layers.fc(img, 128, act="relu"), 64, act="relu")
+        probs = layers.fc(h, 10, act="softmax")
+        cost = layers.mean(layers.cross_entropy(probs, label))
+        acc = layers.accuracy(probs, label)
+        opt.MomentumOptimizer(learning_rate=0.001, momentum=0.9).minimize(
+            cost)
+        return [cost, acc]
+
+    def mnist_conv():
+        img = layers.data("img", [1, FW_MNIST_SIDE, FW_MNIST_SIDE])
+        label = layers.data("label", [1], "int64")
+        net = img
+        for filters in (20, 50):
+            net = nets.simple_img_conv_pool(net, num_filters=filters,
+                                            filter_size=5, pool_size=2,
+                                            pool_stride=2, act="relu")
+        probs = layers.fc(net, 10, act="softmax")
+        cost = layers.mean(layers.cross_entropy(probs, label))
+        acc = layers.accuracy(probs, label)
+        opt.AdamOptimizer(learning_rate=0.01).minimize(cost)
+        return [cost, acc]
+
+    def static_rnn():
+        seq, tgt = layers.data("seq", [4, 2]), layers.data("tgt", [3])
+        rnn = layers.StaticRNN()
+        with rnn.step():
+            xt = rnn.step_input(seq)
+            mem = rnn.memory(batch_ref=seq, shape=(-1, 3), init_value=0.0)
+            nxt = layers.fc([xt, mem], size=3, act="tanh")
+            rnn.update_memory(mem, nxt)
+            rnn.output(nxt)
+        pred = layers.fc(layers.reshape(rnn(), [-1, 12]), size=3)
+        cost = layers.mean(layers.square_error_cost(pred, tgt))
+        opt.SGDOptimizer(learning_rate=0.1).minimize(cost)
+        return [cost]
+
+    def cond():
+        x, pred = layers.data("x", [3]), layers.data("pred", [1])
+        main = fw.default_main_program()
+        idx = []
+        for scale in (2.0, -1.0):
+            blk = main.create_block()
+            with main.block_guard(blk):
+                out = blk.create_var(name="cond_out", shape=(-1, 3))
+                tmp = blk.create_var(shape=(-1, 3))
+                blk.append_op("scale", inputs={"X": [x]},
+                              outputs={"Out": [tmp]},
+                              attrs={"scale": scale})
+                blk.append_op("elementwise_add",
+                              inputs={"X": [tmp], "Y": [x]},
+                              outputs={"Out": [out]})
+            idx.append(blk.idx)
+        out = main.global_block.create_var(name="cond_out", shape=(-1, 3))
+        main.global_block.append_op(
+            "cond", inputs={"Cond": [pred]}, outputs={"Out": [out]},
+            attrs={"true_block": idx[0], "false_block": idx[1]})
+        return [out]
+
+    w_line = rng.randn(13, 1).astype(np.float32)
+    protos = rng.randn(10, FW_MNIST_SIDE * FW_MNIST_SIDE).astype(np.float32)
+
+    def on(where, **arrays):
+        import torch
+        return {k: torch.from_numpy(v).to(where) for k, v in arrays.items()}
+
+    def line_feed(i, where):
+        r = np.random.RandomState(100 + i)
+        x = r.randn(32, 13).astype(np.float32)
+        return on(where, x=x, y=x @ w_line)
+
+    def mnist_feed(i, where, flat=True):
+        r = np.random.RandomState(200 + i)
+        lab = r.randint(0, 10, (FW_MNIST_B, 1))
+        img = np.tanh(protos[lab[:, 0]] + r.randn(
+            FW_MNIST_B, FW_MNIST_SIDE * FW_MNIST_SIDE)).astype(np.float32)
+        if not flat:
+            img = img.reshape(FW_MNIST_B, 1, FW_MNIST_SIDE, FW_MNIST_SIDE)
+        return on(where, img=img, label=lab.astype(np.int64))
+
+    def rnn_feed(i, where):
+        r = np.random.RandomState(300 + i)
+        x = r.randn(8, 4, 2).astype(np.float32)
+        return on(where, seq=x, tgt=np.tanh(x.sum(1))[:, :1].repeat(
+            3, 1).astype(np.float32))
+
+    def cond_feed(i, where):
+        x = np.arange(6, dtype=np.float32).reshape(2, 3) + i
+        return on(where, x=x, pred=np.full((2, 1), 1.0 if i % 2 == 0
+                                           else -1.0, np.float32))
+
+    for name, fn, feeds in (
+            ("fit_a_line", fit_a_line, line_feed),
+            ("mnist_mlp", mnist_mlp, mnist_feed),
+            ("mnist_conv", mnist_conv,
+             lambda i, w: mnist_feed(i, w, flat=False)),
+            ("static_rnn", static_rnn, rnn_feed),
+            ("cond", cond, cond_feed)):
+        main, startup, fetch = build(fn)
+        share, perr, card = _fw_card_vs_cpu(main, startup, feeds, fetch, dev,
+                                            name, FW_BOOK_STEPS)
+        log(f"  (b) {name}: {FW_BOOK_STEPS} runs card vs CPU, fetches "
+            f"{[round(float(np.ravel(f)[0]), 6) for f in card[-1]]}, worst "
+            f"{share:.3f} of 4e's loss tolerance; parameter-change rel "
+            f"err {perr:.2e} (limit {OPT_PARAM_RTOL})")
+        if share > 1.0 or perr > OPT_PARAM_RTOL:
+            fail(f"4z-fw (b) {name}: the card and the CPU disagree")
+        if name == "cond":
+            x = cond_feed(1, "cpu")["x"].numpy()
+            if not np.array_equal(card[1][0], 0 * x) or not np.array_equal(
+                    card[0][0], 3 * cond_feed(0, "cpu")["x"].numpy()):
+                fail("4z-fw (b) cond: a branch gave the wrong output")
+        res[name] = {"fetch_share": share, "param_rel_err": perr}
+    return res
+
+
+def phase_fw_row(dev, step_ms):
+    """Phase 4z-fw (a): the LSTM row's net as a Fluid program on the
+    card: startup and main on the card; 2 Adam steps against the CPU
+    plain path from the card's startup values, each step exactly 2
+    launches each of kernels 8 and 9; an ``is_test`` run of the pruned
+    program 2 of kernel 8 and none of 9; ``save_inference_model`` ->
+    ``load_inference_model`` bit for bit; then 3 warm and
+    ``TIMED_STEPS`` timed steps (CUDA events; memory flat), one profiled
+    step."""
+    import tempfile
+
+    import torch
+    from paddle_tpu_torch import framework as fw
+    from paddle_tpu_torch.framework import io as fio
+    from paddle_tpu_torch.framework import layers
+    from paddle_tpu_torch.framework import optimizer as opt
+    m = {}
+    main, startup = fw.Program(), fw.Program()
+    with fw.program_guard(main, startup):
+        cost, probs = _fw_lstm_row(fw, layers, opt)
+    infer = main.prune([probs.name])
+    exe, scope = fw.Executor(place=dev), fw.Scope()
+    if exe.place != dev:
+        fail(f"4z-fw: Executor(place={dev}) runs on {exe.place}")
+    exe.run(startup, scope=scope)
+    if sorted(scope.vars) != sorted(p.name for p in main.parameters()) \
+            or any(v.device != dev for v in scope.vars.values()):
+        fail("4z-fw: the startup program's values are not all on the card")
+    raw = train_feed(0, TRAIN_B, TRAIN_T, TRAIN["vocab_size"], dev)
+    feed = {"words": raw["data"], "label": raw["label"]}
+    cpu_feed = {"words": raw["data"].to("cpu"), "label": raw["label"].cpu()}
+    cpu_scope = _fw_scope_copy(scope, "cpu")
+    p0 = {n: v.cpu().clone() for n, v in scope.vars.items()}
+
+    # 2 Adam steps on the card, each exactly 2 + 2 launches, and on the
+    # CPU plain path from the same startup values
+    card_costs = []
+    for i in range(2):
+        reset_counts()
+        card_costs += exe.run(main, feed=feed, fetch_list=[cost],
+                              scope=scope)
+        check_launches(read_counts(), {"lstm_fwd": 2, "lstm_bwd": 2},
+                       f"4z-fw training step {i}")
+    exe_cpu = fw.Executor(place="cpu")
+    cpu_costs, cpu_s = _timed(lambda: [
+        exe_cpu.run(main, feed=cpu_feed, fetch_list=[cost],
+                    scope=cpu_scope)[0] for _ in range(2)], dev)
+    card_costs = [float(c) for c in card_costs]
+    cpu_costs = [float(c) for c in cpu_costs]
+    share = max(abs(a - b) / (LSTM_GRAD_ATOL + LSTM_GRAD_RTOL * abs(b))
+                for a, b in zip(card_costs, cpu_costs))
+    perr = _fw_changes(main, p0, {n: v.cpu() for n, v in scope.vars.items()},
+                       cpu_scope.vars)
+    log(f"  (a) 2 Adam steps card vs CPU plain path: costs card "
+        f"{[round(c, 7) for c in card_costs]}, CPU "
+        f"{[round(c, 7) for c in cpu_costs]} ({share:.3f} of 4e's loss "
+        f"tolerance); parameter-change rel err {perr:.2e} (limit "
+        f"{OPT_PARAM_RTOL}); the CPU's 2 steps {cpu_s:.1f} s; exactly 2 + 2 "
+        "launches of kernels 8 and 9 each card step")
+    if not all(np.isfinite(card_costs)) or share > 1.0 \
+            or perr > OPT_PARAM_RTOL:
+        fail("4z-fw (a): the card and the CPU plain path disagree")
+    m.update(costs_card=card_costs, costs_cpu=cpu_costs, cost_share=share,
+             param_rel_err=perr, cpu_two_steps_s=cpu_s)
+    del cpu_scope
+
+    # the pruned program in eval mode, and the inference model's round trip
+    reset_counts()
+    want, = exe.run(infer, feed=feed, fetch_list=[probs], scope=scope,
+                    is_test=True)
+    check_launches(read_counts(), {"lstm_fwd": 2}, "4z-fw is_test run")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fw_") as tmp:
+        fio.save_inference_model(tmp, ["words"], [probs], exe,
+                                 main_program=main, scope=scope)
+        loaded = fw.Scope()
+        prog, feeds, fetches = fio.load_inference_model(tmp, exe, loaded)
+        got, = exe.run(prog, feed={"words": feed["words"]},
+                       fetch_list=fetches, scope=loaded, is_test=True)
+        size = sum(os.path.getsize(os.path.join(tmp, f))
+                   for f in os.listdir(tmp))
+    if feeds != ["words"] or any(v.device != dev
+                                 for v in loaded.vars.values()) \
+            or got.shape != (TRAIN_B, TRAIN["num_classes"]) \
+            or not np.array_equal(got, want):
+        fail("4z-fw: save_inference_model -> load_inference_model does not "
+             "give the same output on the card bit for bit")
+    log(f"  is_test run of the pruned program: 2 launches of kernel 8, "
+        f"none of 9; save_inference_model -> load_inference_model ({size} "
+        f"bytes) gives its {got.shape} output bit for bit")
+
+    # the timed steps
+    for _ in range(WARM_STEPS):
+        exe.run(main, feed=feed, fetch_list=[cost], scope=scope,
+                return_numpy=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    exe.run(main, feed=feed, fetch_list=[cost], scope=scope,
+            return_numpy=False)
+    torch.cuda.synchronize()
+    peak_one = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    start.record()
+    losses, held = [], []
+    for _ in range(TIMED_STEPS):
+        losses += exe.run(main, feed=feed, fetch_list=[cost], scope=scope,
+                          return_numpy=False)
+        held.append(torch.cuda.memory_allocated())
+    end.record()
+    end.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    ms = start.elapsed_time(end) / TIMED_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    check_launches(launches, {"lstm_fwd": 2 * TIMED_STEPS,
+                              "lstm_bwd": 2 * TIMED_STEPS},
+                   "4z-fw timed steps")
+    if not all(np.isfinite(losses)):
+        fail("4z-fw: a non-finite cost in the timed steps")
+    slack = 16 * 2 ** 20
+    if max(held) - min(held) > slack or peak > peak_one + slack:
+        fail(f"4z-fw: device memory grows across the timed steps (held "
+             f"{min(held)}..{max(held)} bytes, peak {peak} against one "
+             f"step's {peak_one}): a run keeps an earlier run's graph")
+    busy, items = _profile_busy(lambda: exe.run(
+        main, feed=feed, fetch_list=[cost], scope=scope, return_numpy=False))
+    log(f"  (a) {TIMED_STEPS} timed steps: {ms:.3f} ms/step (CUDA events), "
+        f"{TRAIN_B * 1e3 / ms:.1f} samples/s, host wall "
+        f"{wall * 1e3 / TIMED_STEPS:.3f} ms/step, beside 4d's "
+        f"{step_ms:.3f} ms/step in this call; memory held after each step "
+        f"{min(held) / 1e9:.3f}-{max(held) / 1e9:.3f} GB, peak "
+        f"{peak / 1e9:.3f} GB (one step alone {peak_one / 1e9:.3f}); one "
+        f"profiled step busy {busy * 100:.1f} %, {items} device items; "
+        f"launches { {k: v for k, v in launches.items() if v} }; costs "
+        f"{losses[0]:.6f} ... {losses[-1]:.6f}")
+    m.update(ms_per_step=ms, samples_per_s=TRAIN_B * 1e3 / ms,
+             host_wall_ms_per_step=wall * 1e3 / TIMED_STEPS,
+             step_ms_4d=step_ms, held_bytes=[min(held), max(held)],
+             peak_bytes=peak, peak_one_step_bytes=peak_one, busy=busy,
+             device_items=items, losses=losses,
+             launches={k: v for k, v in launches.items() if v})
+    return m
+
+
+def phase_fw(dev, step_ms):
+    """Phase 4z-fw: (a) and (b), fp32 with TF32 off."""
+    import torch
+    t0 = time.perf_counter()
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        fail("TF32 is on")
+    m = {"row": phase_fw_row(dev, step_ms)}
+    t1 = time.perf_counter()
+    m["book"] = _fw_book(dev)
+    m["seconds"] = time.perf_counter() - t0
+    log(f"  4z-fw (a) took {t1 - t0:.1f} s, (b) "
+        f"{m['seconds'] - (t1 - t0):.1f} s")
+    return m
+
+
 def _same_net(a, b, rename):
     """ModelConfig ``a`` equals ``b`` with ``b``'s layer names mapped by
     ``rename``, in any order of the layers."""
@@ -7180,6 +7589,13 @@ def main() -> int:
             launches[name]["gen"] = gen["translate"]["launches"].get(name, 0)
             launches[name]["tag"] = tag["full"]["launches"].get(name, 0)
             launches[name]["nest"] = tag["nested"]["launches"].get(name, 0)
+        log("== phase 4z-fw: the LSTM row's net as a Fluid program "
+            "(paddle_tpu_torch.framework: Program, Executor, backward, "
+            "Adam) on the card, card vs CPU, the inference model's round "
+            "trip, timed beside 4d; the book programs card vs CPU (fp32)")
+        fwres = phase_fw(dev, train["ms_per_step"])
+        for name in launches:
+            launches[name]["fw"] = fwres["row"]["launches"].get(name, 0)
         log("== phase 4g: blocked main path, the classifier at H 1280 "
             "under bench.py's flags (use_bf16, bf16_activations)")
         set_flags(**BENCH_FLAGS)
@@ -7320,7 +7736,7 @@ def main() -> int:
                       "training": train, "training_loop": loop,
                       "training_ckpt": ckpt, "training_opt": opt,
                       "cli": cli, "dense": dense, "gen": gen, "tag": tag,
-                      "image": image, "v2": v2res,
+                      "image": image, "v2": v2res, "fw": fwres,
                       "training_h1280": blocked,
                       "training_h1280_mixed_bf16": mixed,
                       "training_h2048": wide, **resnet, "seq2seq": seq2seq,

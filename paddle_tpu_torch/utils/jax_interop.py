@@ -127,3 +127,35 @@ def opt_state_from_jax(count, np_slots: Mapping[str, Sequence[np.ndarray]],
                 f"{want}")
         slots[name] = tuple(torch.from_numpy(a).to(dev) for a in arrs)
     return (torch.tensor(int(count), dtype=torch.int32, device=dev), slots)
+
+
+def framework_scope_from_jax(np_values: Mapping[str, np.ndarray],
+                             jax_program, torch_program,
+                             device: Optional[Union[str, torch.device]] = None):
+    """A port ``framework`` :class:`~paddle_tpu_torch.framework.executor.Scope`
+    holding the JAX package's framework values for ``torch_program``.
+
+    ``np_values`` maps the JAX program's parameter names to numpy arrays
+    (its scope after the startup program, or a later step's).  Each
+    package names variables from its own ``unique_name`` counter, so the
+    parameters pair by :meth:`Program.parameters` order (both programs
+    built by the same calls); a different count, a missing value or a
+    shape other than the port parameter's declared shape raises.  Values
+    land on ``device`` (default CUDA; raises when CUDA is absent and the
+    CPU was not asked for), in their numpy dtype."""
+    from ..framework.executor import Scope
+    dev = resolve_device(device)
+    jparams, tparams = jax_program.parameters(), torch_program.parameters()
+    enforce(len(jparams) == len(tparams),
+            f"the programs hold {len(jparams)} and {len(tparams)} "
+            "parameters")
+    scope = Scope()
+    for jp, tp in zip(jparams, tparams):
+        enforce(jp.name in np_values, f"no value for JAX parameter "
+                f"{jp.name!r}")
+        arr = np.array(np_values[jp.name])     # a copy
+        enforce(arr.shape == tuple(tp.shape),
+                f"parameter {tp.name} (JAX {jp.name}): shape {arr.shape} "
+                f"!= declared {tuple(tp.shape)}")
+        scope.set(tp.name, torch.from_numpy(arr).to(dev))
+    return scope
