@@ -234,6 +234,31 @@ Phases (any failure exits nonzero, without the final ``ok`` line):
    28x28, B 64; a StaticRNN trained through; a ``cond`` both ways):
    every fetch within 4e's loss tolerance, every parameter's change
    within 1e-2 in norm, no launch of the port's kernels;
+4z-obs. the telemetry core (``observe/``, ``utils/stat.py``,
+   ``utils/profiler.py``) around the LSTM row at 4d's width, fp32: (a)
+   one ``Trainer.train`` pass over 1024 raw samples (8 batches, lengths
+   50-100, ``--prefetch_depth`` 2) of a fresh seed-0 trainer with no
+   telemetry, then of another with ``--metrics_jsonl``,
+   ``--trace_jsonl`` and ``--metrics_port`` (loopback) on: every step's
+   cost bit-identical, exactly 2 + 2 launches of kernels 8 and 9 a step
+   in both, ``train_device_blocked_seconds`` empty off and one entry a
+   step on, the last JSONL line's ``train_steps`` the pass's batches,
+   the trace file a Chrome trace with one ``train_pass`` over the 8
+   ``train_step`` spans (each the parent of ``feed``,
+   ``step_dispatch``, ``fence``) and the ``input_wait`` and pipeline
+   spans, ``GET /metrics`` with ``rnn_dispatch_total`` path ``fused``
+   16 times and ``hbm_in_use_bytes`` equal to
+   ``torch.cuda.memory_allocated()`` at a sample, ``/healthz`` ok, the
+   debug dump's two files (called directly); (b) the host-synchronizing
+   CUDA runtime calls of one profiled step (4d's feed), telemetry off,
+   then with a sink on: exactly one more on, the fence's
+   ``cudaEventSynchronize``, and off equal to the parent tree's count
+   (``PARENT_STEP_SYNCS``, counted by ``tools/step_syncs.py``); (c) 20
+   steps off and 20 with every sink on beside 4d's, and the cost of a
+   span off and into the ring (readings); (d) ``utils.profiler.trace``
+   around 2 steps: 2 ``train_step`` ranges with the 4 + 4 launches of
+   kernels 8 and 9 inside them; (e) ``global_stat.timer(...,
+   block_on=...)`` around a step reads at least its CUDA-event span;
 3c. the hidden-blocked LSTM kernels 10-12 (forward, BPTT, dW): through
    their ``autograd.Function`` against autograd through the plain scan,
    and each wrapper against its plain version, at (B, T, H) = (8, 5,
@@ -402,9 +427,9 @@ Phases (any failure exits nonzero, without the final ``ok`` line):
 Phases 3b-4f are PR 2's H 512 phases and run in fp32 (``use_bf16``
 off), so their readings stay comparable, as do 4z-loop and 4z-small.
 The order of the run: 1-3f, 3g-3i, 4-4f, 4z-loop, 4z-small, 4z-ckpt,
-4z-opt, 4z-cli, 4z-dense, 4z-gen, 4z-tag, 4z-image, 4z-v2, 4z-fw, 4g-4k,
-4l-4p, 4z-image (d), 4q-4r, 4t, 4v, 4s, 4u, 4w-4z, 4-sparse, 5.  Each
-phase's wall seconds (keyed by the id of its ``== phase`` line; a phase
+4z-opt, 4z-cli, 4z-dense, 4z-gen, 4z-tag, 4z-image, 4z-v2, 4z-fw,
+4z-obs, 4g-4k, 4l-4p, 4z-image (d), 4q-4r, 4t, 4v, 4s, 4u, 4w-4z,
+4-sparse, 5.  Each phase's wall seconds (keyed by the id of its ``== phase`` line; a phase
 logged again adds to its entry) and the total are printed as one
 ``{"phase_seconds": {...}}`` line before the results.
 
@@ -5330,6 +5355,412 @@ def phase_fw(dev, step_ms):
     return m
 
 
+# ----------------------------------------------------------- phase 4z-obs
+#: phase 4z-obs: one pass of Trainer.train over OBS_SAMPLES raw samples
+#: (4z-loop's reader: lengths LOOP_LENGTHS, seed 0) at 4d's width, with
+#: the telemetry off and then with every sink on; OBS_TIMED steps each
+#: way for the speed reading
+OBS_SAMPLES, OBS_TIMED = 1024, 20
+#: the CUDA runtime calls that make the host wait for the device
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize", "cudaMemcpy", "cudaMemcpy2D",
+              "cudaMemcpy3D", "cudaMemcpyFromSymbol", "cudaMemcpyToSymbol")
+#: host-synchronizing CUDA runtime calls in one step of the LSTM row
+#: (4d's trainer and feed, telemetry off) on the parent tree, counted by
+#: tools/step_syncs.py beside this tree's on the same card (PERF.md)
+PARENT_STEP_SYNCS = 0
+
+
+def step_sync_calls(trainer, feed):
+    """The host-synchronizing CUDA runtime calls (``SYNC_CALLS``) made
+    inside one ``trainer.train_one_batch(feed)``, by name, from a
+    ``torch.profiler`` trace of the step, and the kernel launch calls
+    traced in it (to show the runtime's calls were traced at all)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("ptpu_counted_step"):
+            trainer.train_one_batch(feed)
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    (rng,) = [e for e in evs if e.name == "ptpu_counted_step"]
+    t0, t1 = rng.time_range.start, rng.time_range.end
+    inside = [e for e in evs if t0 <= e.time_range.start <= t1]
+    syncs = sorted(e.name for e in inside if e.name in SYNC_CALLS)
+    launches = sum(1 for e in inside if "LaunchKernel" in e.name)
+    return syncs, launches
+
+
+def _obs_free_port():
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def _obs_get(port, path):
+    import urllib.request
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=10) as r:
+        return r.status, r.read().decode()
+
+
+def _obs_prom_value(text, series):
+    """The value of one exact series line of a Prometheus text."""
+    for line in text.splitlines():
+        if line.startswith(series + " "):
+            return float(line.split(" ")[-1])
+    fail(f"4z-obs: /metrics has no series {series}")
+
+
+def _obs_pass(dev, samples, costs_of):
+    """One ``Trainer.train`` pass of a fresh 4d trainer (seed 0) over
+    ``samples`` at the flags set; every launch count set to 0 just
+    before it: (trainer, launches, pass wall s); each step's cost is
+    appended to ``costs_of`` as one list."""
+    import torch
+    trainer, feeder, train_r, _ = loop_setup(TRAIN, dev, TRAIN_B, samples,
+                                             samples[:TRAIN_B])
+    costs = []
+
+    def handle(e):
+        if type(e).__name__ == "EndIteration":
+            costs.append(e.cost)
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer.train(train_r, 1, handle, feeder)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    costs_of.append(costs)
+    return trainer, read_counts(), wall
+
+
+def _obs_spans(path, n_batches):
+    """Phase 4z-obs (a)'s trace gates on the Chrome trace file: one
+    ``train_pass``; under it ``n_batches`` ``train_step`` spans, each the
+    parent of one ``feed``, one ``step_dispatch`` and one ``fence``; the
+    ``input_wait`` spans and the pipeline's ``pipeline_read`` /
+    ``pipeline_convert`` spans under the pass too.  Returns span counts
+    by name."""
+    with open(path) as f:
+        events = json.load(f)
+    if not all(e.get("ph") == "X" and {"ts", "dur", "pid", "tid", "name"}
+               <= set(e) for e in events):
+        fail("4z-obs (a): the trace file is not a Chrome trace of complete "
+             "events")
+    by = {}
+    for e in events:
+        by.setdefault(e["name"], []).append(e)
+    passes = by.get("train_pass", [])
+    if len(passes) != 1:
+        fail(f"4z-obs (a): {len(passes)} train_pass spans, expected 1")
+    pass_id = passes[0]["args"]["span_id"]
+    steps = by.get("train_step", [])
+    if len(steps) != n_batches or any(
+            s["args"].get("parent_id") != pass_id for s in steps):
+        fail(f"4z-obs (a): {len(steps)} train_step spans, expected "
+             f"{n_batches} under the pass")
+    for s in steps:
+        kids = sorted(e["name"] for e in events
+                      if e["args"].get("parent_id") == s["args"]["span_id"])
+        if kids != ["feed", "fence", "step_dispatch"]:
+            fail(f"4z-obs (a): a train_step's children are {kids}")
+    for name in ("pipeline_read", "pipeline_convert", "input_wait"):
+        got = by.get(name, [])
+        if len(got) < n_batches or any(
+                e["args"].get("parent_id") != pass_id for e in got):
+            fail(f"4z-obs (a): {len(got)} {name} spans, not all under the "
+                 "pass")
+    return {k: len(v) for k, v in sorted(by.items())}
+
+
+def phase_obs_sinks(dev, tmp):
+    """Phase 4z-obs (a): one pass with the telemetry off, one with
+    --metrics_jsonl, --trace_jsonl and --metrics_port (loopback) on."""
+    import torch
+    from paddle_tpu_torch import observe
+    from paddle_tpu_torch.observe import dump, trace
+    from paddle_tpu_torch.observe import memory as omem
+    from paddle_tpu_torch.utils import FLAGS
+    from paddle_tpu_torch.utils.stat import global_stat
+    samples = loop_samples(OBS_SAMPLES, TRAIN["vocab_size"], LOOP_LENGTHS, 0)
+    n = OBS_SAMPLES // TRAIN_B
+    keys = ("prefetch_depth", "log_period", "save_dir", "metrics_jsonl",
+            "trace_jsonl", "metrics_port", "metrics_interval_s")
+    old = {k: FLAGS.get(k) for k in keys}
+    m, costs = {}, []
+    try:
+        set_flags(prefetch_depth=2, log_period=1, save_dir="")
+        observe.REGISTRY.reset()
+        global_stat.reset()
+        if observe.active() or trace.enabled():
+            fail("4z-obs (a): telemetry is on before the off pass")
+        tr_off, l_off, w_off = _obs_pass(dev, samples, costs)
+        del tr_off
+        blocked = observe.REGISTRY.histogram("train_device_blocked_seconds")
+        m["off"] = {"pass_s": w_off, "blocked_count": blocked.count()}
+        if blocked.count() != 0:
+            fail(f"4z-obs (a) off: {blocked.count()} fenced steps")
+        observe.REGISTRY.reset()
+        global_stat.reset()
+        port = _obs_free_port()
+        sink, tr_path = (os.path.join(tmp, "metrics.jsonl"),
+                         os.path.join(tmp, "trace.json"))
+        set_flags(metrics_jsonl=sink, trace_jsonl=tr_path, metrics_port=port,
+                  metrics_interval_s=3600.0)
+        trainer, l_on, w_on = _obs_pass(dev, samples, costs)
+        blocked = observe.REGISTRY.histogram("train_device_blocked_seconds")
+        m["on"] = {"pass_s": w_on, "blocked_count": blocked.count(),
+                   "blocked_p50_ms": 1e3 * blocked.sample_quantile(0.5),
+                   "step_p50_ms": 1e3 * observe.REGISTRY.histogram(
+                       "train_step_seconds").sample_quantile(0.5)}
+        if blocked.count() != n:
+            fail(f"4z-obs (a) on: {blocked.count()} fenced steps, expected "
+                 f"{n}")
+        if costs[0] != costs[1] or len(costs[0]) != n:
+            fail(f"4z-obs (a): costs differ off and on: {costs}")
+        want = {"lstm_fwd": 2 * n, "lstm_bwd": 2 * n}
+        check_launches(l_off, want, "4z-obs (a) off")
+        check_launches(l_on, want, "4z-obs (a) on")
+        # the endpoint: the dispatch decisions, the HBM gauge at a sample
+        snap = omem.sample(trainer)
+        allocated = torch.cuda.memory_allocated()
+        code, text = _obs_get(port, "/metrics")
+        rnn = _obs_prom_value(
+            text, 'rnn_dispatch_total{kind="lstm",path="fused",reason=""}')
+        hbm = _obs_prom_value(text, "hbm_in_use_bytes")
+        if code != 200 or rnn != 2 * n or int(hbm) != allocated \
+                or snap["in_use_bytes"] != allocated:
+            fail(f"4z-obs (a) /metrics: code {code}, rnn_dispatch_total "
+                 f"fused {rnn} (expected {2 * n}), hbm_in_use_bytes {hbm} "
+                 f"against torch.cuda.memory_allocated() {allocated}")
+        code, body = _obs_get(port, "/healthz")
+        if code != 200 or json.loads(body)["status"] != "ok":
+            fail(f"4z-obs (a) /healthz: {code} {body[:200]}")
+        prom, dumped = dump.debug_dump(os.path.join(tmp, "dump"))
+        with open(prom) as f:
+            prom_text = f.read()
+        with open(dumped) as f:
+            ring = json.load(f)
+        if "\ntrain_steps " not in prom_text or not any(
+                e["name"] == "train_step" for e in ring):
+            fail("4z-obs (a): the debug dump lacks the steps")
+        observe.stop_global()       # final JSONL line, closes the trace
+        with open(sink) as f:
+            lines = f.read().splitlines()
+        last = json.loads(lines[-1])
+        steps = [s["value"] for mm in last["metrics"]
+                 if mm["name"] == "train_steps" for s in mm["samples"]]
+        if steps != [n]:
+            fail(f"4z-obs (a): the last JSONL line's train_steps {steps}, "
+                 f"expected [{n}]")
+        spans = _obs_spans(tr_path, n)
+        m["launches"] = l_on
+        m["on"].update(spans=spans, hbm_in_use_bytes=allocated,
+                       hbm_peak_bytes=snap["peak_bytes"],
+                       categories=snap["categories"],
+                       jsonl_lines=len(lines),
+                       trace_bytes=os.path.getsize(tr_path),
+                       dump_events=len(ring))
+        log(f"  (a) {n} batches a pass: costs bit-identical off and on "
+            f"({[round(c, 6) for c in costs[0][:4]]}...), launches "
+            f"{want} each pass; fenced steps off 0, on {n} (p50 blocked "
+            f"{m['on']['blocked_p50_ms']:.3f} ms of a "
+            f"{m['on']['step_p50_ms']:.3f} ms step); pass wall off "
+            f"{w_off:.3f} s, on {w_on:.3f} s")
+        log(f"  (a) JSONL {len(lines)} lines, the last's train_steps {n}; "
+            f"trace {m['on']['trace_bytes']} bytes, spans {spans}; "
+            f"/metrics rnn_dispatch_total fused {int(rnn)}, "
+            f"hbm_in_use_bytes {int(hbm)} = memory_allocated, categories "
+            f"{snap['categories']}; /healthz ok; dump {len(ring)} events")
+        return m, trainer
+    finally:
+        observe.stop_global()
+        set_flags(**old)
+
+
+def phase_obs_syncs(trainer, feed, tmp):
+    """Phase 4z-obs (b): host-synchronizing runtime calls of one step
+    with the telemetry off, then with a metrics sink on."""
+    from paddle_tpu_torch import observe
+    for _ in range(2):
+        trainer.train_one_batch(feed)
+    off, off_launches = step_sync_calls(trainer, feed)
+    observe.attach(os.path.join(tmp, "syncs.jsonl"), interval_s=3600.0)
+    try:
+        on, on_launches = step_sync_calls(trainer, feed)
+    finally:
+        observe.stop_global()
+    log(f"  (b) one step's synchronizing runtime calls: off {len(off)} "
+        f"{off}, on {len(on)} {on}; launch calls traced off "
+        f"{off_launches}, on {on_launches}; the parent tree's "
+        f"{PARENT_STEP_SYNCS}")
+    if not off_launches or not on_launches:
+        fail("4z-obs (b): the profile traced no launch call")
+    extra = list(on)
+    for name in off:
+        if name in extra:
+            extra.remove(name)
+    if len(on) != len(off) + 1 or extra != ["cudaEventSynchronize"]:
+        fail(f"4z-obs (b): telemetry on makes {len(on)} syncs against "
+             f"{len(off)} off; expected exactly one more, the fence's "
+             "cudaEventSynchronize")
+    if PARENT_STEP_SYNCS is not None and len(off) != PARENT_STEP_SYNCS:
+        fail(f"4z-obs (b): {len(off)} syncs a step off, the parent's "
+             f"{PARENT_STEP_SYNCS}")
+    return {"off": off, "on": on, "parent": PARENT_STEP_SYNCS}
+
+
+def phase_obs_speed(trainer, feed, step, tmp):
+    """Phase 4z-obs (c): OBS_TIMED steps with the telemetry off, then
+    with the metrics sink, the trace file and the endpoint on; and the
+    cost of a span off and into the ring (readings, not gates)."""
+    from paddle_tpu_torch import observe
+    from paddle_tpu_torch.observe import http as ohttp
+    from paddle_tpu_torch.observe import trace
+    _, _, ms_off, wall_off, _ = timed_steps(trainer, feed, OBS_TIMED)
+    observe.attach(os.path.join(tmp, "speed.jsonl"), interval_s=3600.0)
+    trace.enable(jsonl_path=os.path.join(tmp, "speed.trace.json"))
+    srv = ohttp.ObservabilityServer(port=0).start()
+    try:
+        launches, _, ms_on, wall_on, _ = timed_steps(trainer, feed,
+                                                     OBS_TIMED)
+    finally:
+        srv.stop()
+        observe.stop_global()
+    check_launches(launches, {"lstm_fwd": 2 * OBS_TIMED,
+                              "lstm_bwd": 2 * OBS_TIMED}, "4z-obs (c) on")
+    n_off, n_on = 200000, 20000
+    t0 = time.perf_counter()
+    for _ in range(n_off):
+        with trace.span("x"):
+            pass
+    span_off_ns = (time.perf_counter() - t0) / n_off * 1e9
+    trace.enable(ring_size=4096)
+    t0 = time.perf_counter()
+    for _ in range(n_on):
+        with trace.span("x"):
+            pass
+    span_on_ns = (time.perf_counter() - t0) / n_on * 1e9
+    trace.disable()
+    m = {"off_ms_per_step": ms_off, "on_ms_per_step": ms_on,
+         "off_host_wall_ms": wall_off, "on_host_wall_ms": wall_on,
+         "step_4d_ms": step["ms_per_step"],
+         "span_off_ns": span_off_ns, "span_ring_ns": span_on_ns}
+    log(f"  (c) {OBS_TIMED} steps: off {ms_off:.3f} ms/step (host wall "
+        f"{wall_off:.3f}), on {ms_on:.3f} ms/step (host wall "
+        f"{wall_on:.3f}), {100 * (ms_on / ms_off - 1):+.1f} %; 4d "
+        f"{step['ms_per_step']:.3f}; a span off {span_off_ns:.0f} ns, into "
+        f"the ring {span_on_ns:.0f} ns")
+    return m
+
+
+def phase_obs_profile(trainer, feed, tmp):
+    """Phase 4z-obs (d): ``utils.profiler.trace`` around 2 steps with
+    the spans on: the exported Chrome trace holds 2 ``train_step``
+    ranges and the 2 + 2 launches of kernels 8 and 9 a step inside
+    them."""
+    import torch
+    from paddle_tpu_torch.observe import trace
+    from paddle_tpu_torch.utils import profiler
+    trace.enable(ring_size=4096, fences=False)
+    try:
+        torch.cuda.synchronize()
+        with profiler.trace(os.path.join(tmp, "prof")) as path:
+            for _ in range(2):
+                trainer.train_one_batch(feed)
+            torch.cuda.synchronize()
+    finally:
+        trace.disable()
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    cpu_steps = [e for e in events if e.get("name") == "train_step"
+                 and e.get("cat") == "user_annotation"]
+    gpu_steps = [e for e in events if e.get("name") == "train_step"
+                 and e.get("cat") == "gpu_user_annotation"]
+    runtime = {e["args"].get("correlation"): e for e in events
+               if e.get("cat") == "cuda_runtime" and "args" in e}
+    found = {}
+    for label in ("kernel 8", "kernel 9"):
+        mark = LSTM_PROFILE_MARKS[label]
+        kern = [e for e in events if e.get("cat") == "kernel"
+                and mark in e.get("name", "")]
+        inside = 0
+        for k in kern:
+            launch = runtime.get(k.get("args", {}).get("correlation"))
+            if launch is not None:
+                ok = any(s["ts"] <= launch["ts"] <= s["ts"] + s["dur"]
+                         for s in cpu_steps)
+            else:
+                ok = any(s["ts"] <= k["ts"] and k["ts"] + k["dur"]
+                         <= s["ts"] + s["dur"] for s in gpu_steps)
+            inside += ok
+        found[label] = (len(kern), inside)
+    cats = sorted({e.get("cat", "") for e in events})
+    log(f"  (d) {os.path.getsize(path)} bytes, train_step ranges: host "
+        f"{len(cpu_steps)}, device {len(gpu_steps)}; kernels 8 and 9 "
+        f"(launched, inside a train_step): {found}; categories {cats}")
+    if len(cpu_steps) != 2:
+        fail(f"4z-obs (d): {len(cpu_steps)} train_step ranges, expected 2")
+    for label, (k, inside) in found.items():
+        if k != 4 or inside != 4:
+            fail(f"4z-obs (d): {label}: {k} launches, {inside} inside a "
+                 "train_step range; expected 4 and 4")
+    return {"train_step_ranges": len(cpu_steps),
+            "device_ranges": len(gpu_steps), "kernels": found,
+            "trace_bytes": os.path.getsize(path)}
+
+
+def phase_obs_timer(trainer, feed):
+    """Phase 4z-obs (e): ``global_stat.timer(..., block_on=...)`` around
+    one step reads at least the step's CUDA-event span."""
+    import torch
+    from paddle_tpu_torch.utils.stat import global_stat
+    global_stat.reset()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    out = {}
+    with global_stat.timer("obs_step", block_on=out):
+        start.record()
+        out["loss"] = trainer.train_one_batch(feed)
+        end.record()
+    timer_ms = global_stat.item("obs_step").total * 1e3
+    end.synchronize()
+    ev_ms = start.elapsed_time(end)
+    log(f"  (e) the timer with block_on reads {timer_ms:.3f} ms, the "
+        f"step's CUDA events {ev_ms:.3f} ms")
+    if not timer_ms >= ev_ms:
+        fail(f"4z-obs (e): the timer read {timer_ms:.3f} ms, under the "
+             f"event-timed {ev_ms:.3f} ms")
+    return {"timer_ms": timer_ms, "event_ms": ev_ms}
+
+
+def phase_obs(dev, step):
+    """Phase 4z-obs: the telemetry core around the LSTM row at 4d's
+    width (fp32): (a) sinks off and on, (b) synchronizations a step, (c)
+    speed, (d) a profiler window, (e) the blocking timer; ``step`` is
+    4d's metrics."""
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        m, trainer = phase_obs_sinks(dev, tmp)
+        feed = train_feed(0, TRAIN_B, TRAIN_T, TRAIN["vocab_size"], dev)
+        m["syncs"] = phase_obs_syncs(trainer, feed, tmp)
+        m["speed"] = phase_obs_speed(trainer, feed, step, tmp)
+        m["profile"] = phase_obs_profile(trainer, feed, tmp)
+        m["timer"] = phase_obs_timer(trainer, feed)
+        del trainer
+    m["seconds"] = time.perf_counter() - t0
+    log(f"  4z-obs took {m['seconds']:.1f} s")
+    return m
+
+
 def _same_net(a, b, rename):
     """ModelConfig ``a`` equals ``b`` with ``b``'s layer names mapped by
     ``rename``, in any order of the layers."""
@@ -7596,6 +8027,13 @@ def main() -> int:
         fwres = phase_fw(dev, train["ms_per_step"])
         for name in launches:
             launches[name]["fw"] = fwres["row"]["launches"].get(name, 0)
+        log("== phase 4z-obs: the telemetry core around the LSTM row at "
+            "4d's width: Trainer.train off and with --metrics_jsonl, "
+            "--trace_jsonl and --metrics_port on, the step's syncs, 20 "
+            "steps each way, a profiler window, the blocking timer (fp32)")
+        obs = phase_obs(dev, train)
+        for name in launches:
+            launches[name]["obs"] = obs["launches"].get(name, 0)
         log("== phase 4g: blocked main path, the classifier at H 1280 "
             "under bench.py's flags (use_bf16, bf16_activations)")
         set_flags(**BENCH_FLAGS)
@@ -7737,6 +8175,7 @@ def main() -> int:
                       "training_ckpt": ckpt, "training_opt": opt,
                       "cli": cli, "dense": dense, "gen": gen, "tag": tag,
                       "image": image, "v2": v2res, "fw": fwres,
+                      "obs": obs,
                       "training_h1280": blocked,
                       "training_h1280_mixed_bf16": mixed,
                       "training_h2048": wide, **resnet, "seq2seq": seq2seq,

@@ -13,13 +13,18 @@ Usage:
 
 ``train`` runs on CUDA; ``--device cpu`` asks for the plain PyTorch
 versions on the CPU.  With no CUDA device and no ``--device cpu`` it
-raises.  What the port lacks refuses by name before a job runs: the
-cluster options (``--distributed``, ``--mesh_shape``,
-``PADDLE_COORDINATOR``, the ``master`` subcommand; queue A9) and the
-observability options (``--metrics_*``, ``--trace_jsonl``, ``--fleet_*``,
-``--debug_dump_signal``, ``--health_interval``; queue A10), and a test
-every ``--test_period`` batches of ``--job train`` (queue A8): the job
-tests once a pass when the config's data source has a ``test_list``.
+raises.  The telemetry options ``--metrics_jsonl``,
+``--metrics_interval_s``, ``--trace_jsonl``, ``--metrics_port``,
+``--metrics_bind`` and ``--debug_dump_signal`` set their flags, and
+``observe.start_from_flags`` starts what they configure before the job
+runs, as the reference's CLI does.  What the port lacks refuses by name
+before a job runs: the cluster options (``--distributed``,
+``--mesh_shape``, ``PADDLE_COORDINATOR``, the ``master`` subcommand;
+queue A9), the fleet and health options (``--fleet_addr``,
+``--fleet_port``, ``--fleet_id``, ``--health_interval``; queue A10b),
+and a test every ``--test_period`` batches of ``--job train`` (queue
+A8): the job tests once a pass when the config's data source has a
+``test_list``.
 """
 
 from __future__ import annotations
@@ -36,11 +41,12 @@ from .utils import FLAGS, PaddleTpuError, get_logger
 
 log = get_logger("cli")
 
-#: train options of the observability layer, refused when set (A10)
+#: train options of the fleet and health telemetry, refused when set
+#: (A10b)
+_FLEET_OPTIONS = ("fleet_addr", "fleet_port", "fleet_id", "health_interval")
+#: train options of the telemetry core that set the flag of their name
 _OBSERVE_OPTIONS = ("metrics_jsonl", "metrics_interval_s", "trace_jsonl",
-                    "metrics_port", "metrics_bind", "fleet_addr",
-                    "fleet_port", "fleet_id", "debug_dump_signal",
-                    "health_interval")
+                    "metrics_port", "metrics_bind", "debug_dump_signal")
 
 
 def _build_reader(ds, opt, test: bool = False):
@@ -87,11 +93,12 @@ def _refuse_unported(args) -> None:
             "--test_period > 0 for --job train (a test every N batches) is "
             "not ported yet (queue A8); --test_period 0 tests once a pass "
             "when the config's data source has a test_list")
-    for name in _OBSERVE_OPTIONS:
+    for name in _FLEET_OPTIONS:
         if getattr(args, name) not in (None, "", False):
             raise PaddleTpuError(
-                f"--{name} is not ported yet (the observability layer, "
-                "observe/, queue A10); leave it unset")
+                f"--{name} is not ported yet (the fleet and health "
+                "telemetry, observe/fleet.py and observe/health.py, queue "
+                "A10b); leave it unset")
 
 
 def _train_device(args):
@@ -260,7 +267,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     tp.add_argument("--log_level", default="",
                     help="framework log level "
                          "(debug|info|warning|error|fatal)")
-    # the observability layer's options (not ported: A10)
+    # the telemetry core's options, and the fleet and health options
+    # (not ported: A10b)
     for name in ("metrics_jsonl", "trace_jsonl", "metrics_bind",
                  "fleet_addr", "fleet_id"):
         tp.add_argument(f"--{name}", default=None)
@@ -316,6 +324,15 @@ def main(argv: Optional[List[str]] = None) -> int:
         if getattr(args, "log_level", ""):
             FLAGS.set("log_level", args.log_level)
         set_log_level(FLAGS.get("log_level"))
+    for name in _OBSERVE_OPTIONS:
+        value = getattr(args, name, None)
+        if value not in (None, "", False):
+            FLAGS.set(name, value)
+    # umbrella: --metrics_jsonl reporter, --trace_jsonl span sink,
+    # --metrics_port endpoint, --debug_dump_signal handler — each a
+    # no-op when its flag is unset (no thread starts)
+    from . import observe
+    observe.start_from_flags()
     return args.fn(args)
 
 

@@ -128,10 +128,19 @@ precision_dispatch_total: "collections.Counter" = collections.Counter()
 
 
 def record_op_precision(op: str) -> None:
-    """Tick :data:`precision_dispatch_total` for ``op`` under the active
+    """Tick :data:`precision_dispatch_total` and the registry's
+    ``precision_dispatch_total{op,dtype}`` for ``op`` under the active
     policy's compute dtype."""
-    precision_dispatch_total[(op, dtype_name(
-        current_policy().compute_dtype))] += 1
+    from ..observe import counter  # lazy: keeps core import-light
+
+    dtype = dtype_name(current_policy().compute_dtype)
+    precision_dispatch_total[(op, dtype)] += 1
+    counter(
+        "precision_dispatch_total",
+        "op dispatches by resolved compute dtype (trace-time: one tick "
+        "per compiled program per shape, labels op + policy compute "
+        "dtype)",
+    ).inc(op=op, dtype=dtype)
 
 
 def dispatch_dtypes(opt_config=None) -> Dict[str, str]:

@@ -15,7 +15,8 @@ The feed holds CPU tensors: placing it on the device is the trainer's
 job (``Trainer._place_feed``), on the step's thread or on the input
 pipeline's workers.  A ``"bfloat16"`` dense input is densified in
 float32 and cast once at the end (numpy has no bfloat16 here), which
-matches the reference's direct cast for float32 rows.
+matches the reference's direct cast for float32 rows.  ``convert`` is
+timed into ``data_feed_convert_seconds`` (``observe/``).
 """
 
 from __future__ import annotations
@@ -122,7 +123,17 @@ class DataFeeder:
     def convert(self, batch: List[Sequence]) -> Dict[str, Any]:
         """minibatch (list of sample tuples OR dicts keyed by data-layer
         name) → feed dict of CPU tensors (a SequenceBatch for a
-        sequence, a NestedSequenceBatch for a sub-sequence)."""
+        sequence, a NestedSequenceBatch for a sub-sequence).  Timed into
+        the ``data_feed_convert_seconds`` histogram."""
+        from ..observe import histogram
+
+        with histogram(
+                "data_feed_convert_seconds",
+                "host time densifying/padding a minibatch into device "
+                "arrays (DataFeeder.convert)").time():
+            return self._convert(batch)
+
+    def _convert(self, batch: List[Sequence]) -> Dict[str, Any]:
         feed: Dict[str, Any] = {}
         for slot, (name, itype) in enumerate(self.feeding):
             col = [self._materialize(sample[name]

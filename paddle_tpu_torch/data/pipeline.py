@@ -24,17 +24,31 @@ Contract (the reference's, pinned by the tests):
   consumer abandons iteration) stops and joins every worker and closes
   the source iterator.
 
-Locks are plain ``threading`` ones: the reference's lock-order checker
-(``analysis.lockorder``) waits for queue A10, as do its telemetry (queue
-depth, prefetch hits and stalls, convert time) and trace spans.  No
-port flag asks for any of them.
+Telemetry (``paddle_tpu_torch/observe``): ``pipeline_queue_depth``
+gauge (ready batches), ``pipeline_prefetch_hits_total`` /
+``pipeline_prefetch_stalls_total`` counters (was the next batch ready
+when the consumer asked?), and the ``pipeline_worker_convert_seconds``
+histogram (per-batch convert+place time on the worker threads).
+
+Tracing (:mod:`paddle_tpu_torch.observe.trace`): worker threads adopt
+the trace context active when the pipeline was constructed (the
+trainer's ``train_pass`` span), so each ``pipeline_read`` (source pull)
+and ``pipeline_convert`` (convert + host-to-device copy, indexed by
+batch) span lands in the consuming pass's trace, one lane per worker
+thread in Perfetto.  The locks are named (``pipeline.source``,
+``pipeline.queue``) for the lock-order checker
+(``analysis/lockorder.py``).
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from typing import Any, Callable, Iterable, Iterator, Optional
 
+from .. import observe
+from ..analysis.lockorder import named_condition, named_lock
+from ..observe import trace
 from ..utils import get_logger
 
 log = get_logger("pipeline")
@@ -88,8 +102,13 @@ class AsyncPipeline:
         self.workers = max(1, min(int(workers), depth))
         self.name = name
 
-        self._src_lock = threading.Lock()     # serializes next(_src)
-        self._cond = threading.Condition()    # guards the state below
+        # worker threads adopt the CREATING thread's trace context
+        # (thread-locals don't inherit), so reader/convert/place spans
+        # land in the trace of the pass that consumes them
+        self._trace_ctx = trace.current_context()
+
+        self._src_lock = named_lock("pipeline.source")  # serializes next(_src)
+        self._cond = named_condition("pipeline.queue")  # guards the state below
         self._ready: dict = {}              # index -> (feed, exc|None)
         self._seq = 0                       # next index to read from src
         self._next_out = 0                  # next index the consumer wants
@@ -98,6 +117,22 @@ class AsyncPipeline:
         # at most `depth` batches between src and consumer: a worker
         # must hold a credit to pull a batch; the consumer returns it
         self._credits = threading.Semaphore(depth)
+
+        self._depth_gauge = observe.gauge(
+            "pipeline_queue_depth",
+            "converted+placed batches ready in the async input "
+            "pipeline's reorder queue")
+        self._hits = observe.counter(
+            "pipeline_prefetch_hits_total",
+            "consumer asked for a batch and it was already prefetched")
+        self._stalls = observe.counter(
+            "pipeline_prefetch_stalls_total",
+            "consumer asked for a batch and had to wait on the "
+            "pipeline (input-bound step)")
+        self._convert_hist = observe.histogram(
+            "pipeline_worker_convert_seconds",
+            "per-batch convert+device-place time on pipeline worker "
+            "threads (overlapped with the running step)")
 
         self._threads = [
             threading.Thread(target=self._worker, daemon=True,
@@ -117,7 +152,8 @@ class AsyncPipeline:
                     return None
                 i = self._seq
             try:
-                raw = next(self._src)
+                with trace.span("pipeline_read"):
+                    raw = next(self._src)
             except StopIteration:
                 with self._cond:
                     if self._end_at is None:
@@ -135,6 +171,10 @@ class AsyncPipeline:
             return i, raw
 
     def _worker(self) -> None:
+        with trace.context_scope(self._trace_ctx):
+            self._worker_loop()
+
+    def _worker_loop(self) -> None:
         while True:
             # a credit bounds in-flight batches; poll so close() is
             # never stuck behind a full queue
@@ -148,17 +188,21 @@ class AsyncPipeline:
                 self._credits.release()
                 return
             i, raw = item
+            t0 = time.perf_counter()
             try:
-                feed = self._convert(raw) if self._convert else raw
-                if self._place is not None:
-                    feed = self._place(feed)
+                with trace.span("pipeline_convert", index=i):
+                    feed = self._convert(raw) if self._convert else raw
+                    if self._place is not None:
+                        feed = self._place(feed)
                 out = (feed, None)
             except BaseException as exc:  # convert fault: deliver at i
                 out = (None, exc)
+            self._convert_hist.observe(time.perf_counter() - t0)
             with self._cond:
                 if self._closed:
                     return
                 self._ready[i] = out
+                self._depth_gauge.set(len(self._ready))
                 self._cond.notify_all()
 
     # ----------------------------------------------------------- consumer
@@ -177,15 +221,21 @@ class AsyncPipeline:
         re-raises reader/convert faults at their position."""
         with self._cond:
             i = self._next_out
+            waited = False
             while i not in self._ready:
                 if self._end_at is not None and i >= self._end_at:
                     raise StopIteration
                 if self._closed:
                     raise PipelineClosed(
                         f"pipeline {self.name!r} is closed")
+                waited = True
                 self._cond.wait(_POLL_S)
+            # hit/stall census only counts delivered batches (the
+            # end-of-pass probe that raises StopIteration is not a stall)
+            (self._stalls if waited else self._hits).inc()
             feed, exc = self._ready.pop(i)
             self._next_out = i + 1
+            self._depth_gauge.set(len(self._ready))
         self._credits.release()
         if exc is not None:
             raise exc
@@ -201,6 +251,7 @@ class AsyncPipeline:
                 return
             self._closed = True
             self._ready.clear()   # buffered batches die with the pass
+            self._depth_gauge.set(0)
             self._cond.notify_all()
         for t in self._threads:
             t.join(timeout=_JOIN_TIMEOUT_S)

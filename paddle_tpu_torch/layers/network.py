@@ -113,6 +113,23 @@ class NeuralNetwork:
         self.fused_pair_census = {
             "bwd_3x3": len(self._conv_bn_fuse), "fwd_3x3": fwd3,
             "fwd_1x1": len(self._bn_conv_fuse) - fwd3}
+        # the same census in the registry (gauges reflect the most
+        # recently built network), and the build-time precision census
+        from ..core.dtypes import current_policy, dtype_name
+        from ..observe import counter, gauge
+        pairs = gauge("network_conv_bn_fused_pairs",
+                      "conv/BN pairs resolved by the build-time fusion "
+                      "peepholes of the last-built network")
+        pairs.set(len(self._conv_bn_fuse), direction="bwd", kernel="3x3")
+        pairs.set(fwd3, direction="fwd", kernel="3x3")
+        pairs.set(len(self._bn_conv_fuse) - fwd3,
+                  direction="fwd", kernel="1x1")
+        pol = current_policy()
+        counter("network_builds_total",
+                "networks built, labeled by the op-policy dtypes "
+                "resolved at build time").inc(
+            compute=dtype_name(pol.compute_dtype),
+            output=dtype_name(pol.output_dtype))
 
     def _all_layers(self) -> List[Layer]:
         """The root's layers, then each group's and each decoder's."""

@@ -53,6 +53,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..observe import counter
 from ..utils import FLAGS, enforce, get_logger, warn_once
 from . import _build
 
@@ -74,8 +75,14 @@ attention_dispatch_total: "collections.Counter" = collections.Counter()
 def record_attention_dispatch(path: str, reason: str = "") -> None:
     """Count one attention lowering decision; ``reason`` is set when a
     flash-capable call took a fallback, with the same labels the
-    one-time fallback warnings use."""
+    one-time fallback warnings use; also ticks the registry's
+    ``attention_dispatch_total{path,reason}``."""
     attention_dispatch_total[(path, reason)] += 1
+    counter(
+        "attention_dispatch_total",
+        "attention lowering decisions by path (trace-time; reason "
+        "labels match the one-time fallback warnings)",
+    ).inc(path=path, reason=reason)
 
 
 def _warn_dense_fallback(reason: str, tq: int, tk: int, bq: int,

@@ -28,6 +28,7 @@ import collections
 
 import torch
 
+from ..observe import counter
 from ..utils import FLAGS, enforce, get_logger, warn_once
 from . import _build
 
@@ -42,8 +43,14 @@ embedding_dispatch_total: "collections.Counter" = collections.Counter()
 def record_embedding_dispatch(path: str, reason: str = "") -> None:
     """Count one embedding-gather decision; ``reason`` is set when a
     kernel-capable call took the plain gather, with the labels the
-    one-time fallback warning uses."""
+    one-time fallback warning uses; also ticks the registry's
+    ``embedding_dispatch_total{path,reason}``."""
     embedding_dispatch_total[(path, reason)] += 1
+    counter(
+        "embedding_dispatch_total",
+        "embedding row-gather lowering decisions by path (trace-time; "
+        "reason labels match the one-time fallback warnings)",
+    ).inc(path=path, reason=reason)
 
 
 def gather_rows_reference(table: torch.Tensor, rows: torch.Tensor

@@ -50,6 +50,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.dtypes import current_policy, record_op_precision
+from ..observe import counter
 from ..utils import enforce
 from .activations import get_activation
 from .registry import register_op
@@ -63,7 +64,14 @@ conv_dispatch: "collections.Counter" = collections.Counter()
 
 
 def _record_conv_dispatch(op: str, path: str, reason: str = "") -> None:
+    """Count one decision here and in the registry's
+    ``conv_dispatch_total{op,path,reason}``."""
     conv_dispatch[(op, path, reason)] += 1
+    counter(
+        "conv_dispatch_total",
+        "conv+BN lowering decisions by tier (trace-time; reason set "
+        "when a fusable-looking call took the unfused composition)",
+    ).inc(op=op, path=path, reason=reason)
 
 
 def _pair(v: IntOr2) -> Tuple[int, int]:

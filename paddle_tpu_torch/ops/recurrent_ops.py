@@ -19,8 +19,10 @@ Which shapes take the fused kernels is the reference's rule
 H % 128 == 0, and above H = 512 the blocked tier's gate.  Every other
 shape, and every non-default activation, takes the scan, on the card as
 on the CPU, as the reference takes its ``lax.scan``.  Each decision is
-counted in :data:`rnn_dispatch_total` with the reference's labels, and a
-default-activation shape sent to the scan logs a one-time warning.
+counted in :data:`rnn_dispatch_total` and in the registry's
+``rnn_dispatch_total`` counter (``observe/``) with the reference's
+labels, once per call, and a default-activation shape sent to the scan
+logs a one-time warning.
 
 Precision, as in the JAX package: the input projection and the gate
 bias are in the policy compute dtype; the fused kernels compute in fp32
@@ -37,6 +39,7 @@ import torch
 
 from ..core.dtypes import current_policy, record_op_precision
 from ..core.sequence import SequenceBatch
+from ..observe import counter
 from ..utils import FLAGS
 from ..utils.logger import get_logger, warn_once
 from . import gru
@@ -92,6 +95,17 @@ def dispatch_tier(b: int, h: int, n_gates: int = 4) -> Optional[str]:
 rnn_dispatch_total: "collections.Counter" = collections.Counter()
 
 
+def _record_dispatch(kind: str, path: str, reason: str = "") -> None:
+    """Count one lowering decision here and in the registry's
+    ``rnn_dispatch_total{kind,path,reason}``."""
+    rnn_dispatch_total[(kind, path, reason)] += 1
+    counter(
+        "rnn_dispatch_total",
+        "RNN lowering decisions by tier (trace-time; reason labels "
+        "match the one-time fallback warnings)",
+    ).inc(kind=kind, path=path, reason=reason)
+
+
 def _fallback_reason(b: int, h: int) -> str:
     """Why a default-activation (B, H) shape is off the fused tiers (the
     reference's label strings)."""
@@ -122,14 +136,13 @@ def _dispatch(kind: str, b: int, h: int, default_acts: bool
     fused tier by :func:`dispatch_tier`, or ``None`` for the scan; the
     decision is counted in :data:`rnn_dispatch_total`."""
     if not default_acts:
-        rnn_dispatch_total[(kind, "scan", "non-default activations")] += 1
+        _record_dispatch(kind, "scan", "non-default activations")
         return None
     tier = dispatch_tier(b, h, 3 if kind == "gru" else 4)
     if tier is None:
-        rnn_dispatch_total[(kind, "scan",
-                            _warn_scan_fallback(kind, b, h))] += 1
+        _record_dispatch(kind, "scan", _warn_scan_fallback(kind, b, h))
     else:
-        rnn_dispatch_total[(kind, tier, "")] += 1
+        _record_dispatch(kind, tier)
     return tier
 
 

@@ -1,6 +1,7 @@
 """Page-pool allocator for the serving KV cache (a copy of
-``paddle_tpu/serving/pagepool.py`` with a plain ``threading.Lock`` and
-without the telemetry gauges).
+``paddle_tpu/serving/pagepool.py``: every mutation under
+``named_lock("serve.pagepool")``, the census in the
+``serve_page_pool_pages{state}`` gauge).
 
 One shared physical pool of ``n_pages`` uniform pages (the
 ``k_pages`` / ``v_pages`` axis of
@@ -37,9 +38,10 @@ import hashlib
 import json
 import os
 import tempfile
-import threading
 from typing import Dict, List
 
+from ..analysis.lockorder import named_lock
+from ..observe import gauge
 from ..utils import enforce
 
 SNAPSHOT_VERSION = 1
@@ -64,7 +66,8 @@ class PagePool:
     """Fixed-size physical page allocator with per-owner page tables.
 
     Thread-safe: admission and the decode loop share it, so every
-    mutation runs under one lock.
+    mutation runs under ``named_lock("serve.pagepool")`` (one graph
+    node for the lock-order checker regardless of pool instances).
     """
 
     def __init__(self, n_pages: int, page_size: int):
@@ -74,7 +77,7 @@ class PagePool:
         enforce(page_size >= 1, f"page_size must be >= 1, got {page_size}")
         self.n_pages = int(n_pages)
         self.page_size = int(page_size)
-        self._lock = threading.Lock()
+        self._lock = named_lock("serve.pagepool")
         # LIFO free list: the hottest (most recently released) pages are
         # reissued first — deliberate, it maximizes stale-data reuse and
         # keeps the kernel's stale-page immunity under permanent test
@@ -82,6 +85,7 @@ class PagePool:
                                            -1))
         self._tables: Dict[str, List[int]] = {}
         self._lengths: Dict[str, int] = {}
+        self._publish()
 
     # ------------------------------------------------------------ queries
     @property
@@ -137,6 +141,7 @@ class PagePool:
             pages = [self._free.pop() for _ in range(need)]
             self._tables[owner] = pages
             self._lengths[owner] = int(n_tokens)
+            self._publish_locked()
             return list(pages)
 
     def extend(self, owner: str, n_tokens: int) -> List[int]:
@@ -158,6 +163,7 @@ class PagePool:
             for _ in range(grow):
                 self._tables[owner].append(self._free.pop())
             self._lengths[owner] = int(n_tokens)
+            self._publish_locked()
             return list(self._tables[owner])
 
     def release(self, owner: str) -> int:
@@ -170,6 +176,7 @@ class PagePool:
             if pages is None:
                 return 0
             self._free.extend(reversed(pages))
+            self._publish_locked()
             return len(pages)
 
     # -------------------------------------------------------- invariants
@@ -278,4 +285,16 @@ class PagePool:
             pool.verify()
         except (KeyError, TypeError, ValueError) as e:
             raise TornSnapshot(f"{path}: invalid snapshot state ({e})")
+        pool._publish()
         return pool
+
+    # --------------------------------------------------------- telemetry
+    def _publish(self) -> None:
+        with self._lock:
+            self._publish_locked()
+
+    def _publish_locked(self) -> None:
+        g = gauge("serve_page_pool_pages",
+                  "serving KV page pool census, labeled by state")
+        g.set(len(self._free), state="free")
+        g.set(self.capacity - len(self._free), state="used")

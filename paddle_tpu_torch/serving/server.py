@@ -22,7 +22,19 @@ Request lifecycle — admission → prefill → continuous-batch decode loop:
 single-request serving (admit one, run to completion, batch width 1);
 both modes generate byte-identical tokens.
 
-Not ported yet: hot-swap rollout, SLO reporting and telemetry.  The
+Telemetry (``observe/``, the JAX server's names): the spans
+``serve_admit``, ``serve_prefill`` and ``serve_decode_step``; the
+histograms ``serve_ttft_seconds``, ``serve_request_seconds`` and
+``serve_request_failures`` (failed requests as unit events); the
+counters ``serve_requests`` and ``serve_tokens_generated``; the gauges
+``serve_batch_size``, ``serve_queue_depth`` and (``pagepool.py``)
+``serve_page_pool_pages``.  The admission condition is
+``named_condition("serve.admission")`` for the lock-order checker, and
+the front end is built by ``observe.http.make_threading_server`` on
+``resolve_bind_host("serve_bind")``.
+
+Not ported yet: hot-swap rollout and its ``rollout_*`` metrics, SLO
+reporting (queue A6), and the fleet's serving info (queue A10b).  The
 decode and HTTP threads are named ``ptpu-serve-torch-*``.
 """
 
@@ -38,7 +50,10 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from ..utils import FLAGS, enforce, get_logger, warn_once
+from ..analysis.lockorder import named_condition
+from ..observe import counter, gauge, histogram, trace
+from ..observe.http import make_threading_server, resolve_bind_host
+from ..utils import FLAGS, enforce, get_logger
 from .model import DecoderModel
 from .pagepool import PagePool, PagePoolExhausted, SCRATCH_PAGE, TornSnapshot
 
@@ -49,7 +64,6 @@ DECODE_THREAD_NAME = "ptpu-serve-torch-decode"
 #: HTTP front-end thread name.
 HTTP_THREAD_NAME = "ptpu-serve-torch-http"
 
-_LOOPBACK_HOSTS = ("", "127.0.0.1", "localhost", "::1")
 _REQ_IDS = itertools.count()
 
 
@@ -114,7 +128,7 @@ class InferenceServer:
         # a max_context-long sequence (or the whole pool if smaller)
         self.max_pages = min(self.pool.capacity,
                              self.pool.pages_needed(model.cfg.max_context))
-        self._cond = threading.Condition()
+        self._cond = named_condition("serve.admission")
         self._queue: collections.deque = collections.deque()
         self._active: List[Request] = []
         self._stop = False
@@ -209,6 +223,7 @@ class InferenceServer:
         with self._cond:
             enforce(not self._stop, "server is stopped")
             self._queue.append(r)
+            self._publish_queue_locked()
             self._cond.notify_all()
         return r
 
@@ -250,9 +265,12 @@ class InferenceServer:
             try:
                 changed = bool(admitted)
                 if admitted:
-                    self._prefill(admitted)
+                    with trace.span("serve_prefill", n=len(admitted)):
+                        self._prefill(admitted)
                 if self._active:
-                    self._decode_step()
+                    with trace.span("serve_decode_step",
+                                    batch=len(self._active)):
+                        self._decode_step()
                     changed = True
             except Exception as e:  # noqa: BLE001 - one bad batch must
                 # not kill the serve loop: fail its requests, recycle
@@ -266,6 +284,11 @@ class InferenceServer:
                     r.state = "failed"
                     r.error = f"{type(e).__name__}: {e}"
                     r.done.set()
+                    # unit events: window_rate = failures/s
+                    histogram("serve_request_failures",
+                              "failed requests as unit events "
+                              "(windowed rate = failures/sec)"
+                              ).observe(1.0)
                 changed = True
             if changed and self.snapshot_path:
                 self.pool.snapshot(self.snapshot_path)
@@ -276,16 +299,20 @@ class InferenceServer:
         the batch is empty — single-request serving."""
         cap = self.max_batch if self.continuous else 1
         admitted: List[Request] = []
-        while self._queue and len(self._active) + len(admitted) < cap:
-            r = self._queue[0]
-            try:
-                self.pool.alloc(r.id, len(r.prompt) + r.max_new_tokens)
-            except PagePoolExhausted:
-                break            # backpressure: retry after retires
-            self._queue.popleft()
-            r.state = "active"
-            self._active.append(r)
-            admitted.append(r)
+        with trace.span("serve_admit", queued=len(self._queue)):
+            while self._queue and len(self._active) + len(admitted) < cap:
+                r = self._queue[0]
+                try:
+                    self.pool.alloc(r.id,
+                                    len(r.prompt) + r.max_new_tokens)
+                except PagePoolExhausted:
+                    break            # backpressure: retry after retires
+                self._queue.popleft()
+                r.state = "active"
+                self._active.append(r)
+                admitted.append(r)
+        if admitted:
+            self._publish_queue_locked()
         return admitted
 
     def _table_row(self, r: Request) -> List[int]:
@@ -313,6 +340,9 @@ class InferenceServer:
         for i, r in enumerate(admitted):
             r.length = len(r.prompt)
             r.t_first = now
+            histogram("serve_ttft_seconds",
+                      "submit-to-first-token latency").observe(
+                now - r.t_submit)
             self._emit_token(r, int(nxt[i]))
 
     def _decode_step(self) -> None:
@@ -331,6 +361,9 @@ class InferenceServer:
             lengths[i] = r.length + 1    # feeding one new token
             active[i] = True
             tables[i] = self._table_row(r)
+        gauge("serve_batch_size",
+              "requests in the most recent inference launch").set(
+            len(slots))
         nxt, _, self._k_pool, self._v_pool = self.model.decode(
             self._k_pool, self._v_pool, tokens, tables, lengths, active)
         for i, r in enumerate(slots):
@@ -343,6 +376,8 @@ class InferenceServer:
         r.tokens.append(token)
         r.next_token = token
         self.generated_tokens += 1
+        counter("serve_tokens_generated",
+                "tokens generated across requests").inc()
         if token == self.model.cfg.eos_id \
                 or len(r.tokens) >= r.max_new_tokens:
             self._finish(r)
@@ -356,24 +391,25 @@ class InferenceServer:
                 self._active.remove(r)
             self._cond.notify_all()
         self.served += 1
+        histogram("serve_request_seconds",
+                  "submit-to-last-token latency").observe(r.latency_s)
+        counter("serve_requests", "requests served").inc()
         r.done.set()
+
+    def _publish_queue_locked(self) -> None:
+        gauge("serve_queue_depth",
+              "requests waiting for admission").set(len(self._queue))
 
     # --------------------------------------------------------- HTTP front
     def start_http(self, port: Optional[int] = None) -> int:
         """Serve ``POST /v1/generate`` + ``GET /healthz`` on
-        ``--serve_bind`` (loopback unless explicitly set).  Returns the
-        bound port."""
+        ``--serve_bind`` (loopback unless explicitly opted out, the
+        trust rule of ``--metrics_bind``).  Returns the bound port."""
         if self._httpd is not None:
             return self._httpd.server_address[1]
         port = int(FLAGS.get("serve_port")) if port is None else int(port)
-        host = str(FLAGS.get("serve_bind")).strip()
-        if host in _LOOPBACK_HOSTS:
-            host = host or "127.0.0.1"
-        else:
-            warn_once(f"nonloopback_bind:{host}",
-                      "--serve_bind=%s serves beyond loopback: no auth, "
-                      "no TLS", host, logger=log)
-        self._httpd = ThreadingHTTPServer((host, port), _make_handler(self))
+        host = resolve_bind_host("serve_bind")
+        self._httpd = make_threading_server(host, port, _make_handler(self))
         self._httpd.daemon_threads = True
         self._http_thread = threading.Thread(
             target=self._httpd.serve_forever,

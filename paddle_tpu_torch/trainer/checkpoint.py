@@ -31,9 +31,11 @@ checkpoint (the JAX package's ``--fsdp`` layout, the manifest's
 ``shards``) is read by reassembling its shard files, so it loads on one
 card; writing one (``shard=True``) refuses (queue A9).
 
-The save's span, counter and histogram (``ckpt_save``, ``ckpt_saves``,
-``ckpt_save_seconds``) and the other checkpoint telemetry of the JAX
-package wait for the port's telemetry (queue A10).
+Telemetry (``observe/``, the JAX package's names): the spans
+``ckpt_save``, ``ckpt_verify``, ``ckpt_quarantine`` and
+``ckpt_retention``; the counters ``ckpt_saves``, ``ckpt_quarantined``,
+``ckpt_retention_pinned`` and ``ckpt_retention_removed``; the
+histograms ``ckpt_save_seconds`` and ``ckpt_verify_seconds``.
 """
 
 from __future__ import annotations
@@ -49,6 +51,7 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from ..observe import counter, histogram, trace
 from ..utils import FLAGS, PaddleTpuError, get_logger
 
 log = get_logger("checkpoint")
@@ -176,35 +179,44 @@ def save_checkpoint(save_dir: str, pass_id: int, params: Dict[str, Any],
             "sharded checkpoints of the JAX package load")
     final = os.path.join(save_dir, f"pass-{pass_id:05d}")
     os.makedirs(save_dir, exist_ok=True)
-    tmp = tempfile.mkdtemp(dir=save_dir, prefix=".tmp-ckpt-")
-    try:
-        manifest = {"pass_id": pass_id, "format": 2, **(meta or {})}
-        np.savez(os.path.join(tmp, "params.npz"),
-                 **{k: _host(v) for k, v in params.items()})
-        if buffers:
-            np.savez(os.path.join(tmp, "buffers.npz"),
-                     **{k: _host(v) for k, v in buffers.items()})
-        if opt_state is not None:
-            leaves, treedef = flatten_opt_state(opt_state)
-            np.savez(os.path.join(tmp, "opt_state.npz"),
-                     **{f"leaf_{i}": _host(leaf)
-                        for i, leaf in enumerate(leaves)})
-            manifest["opt_treedef"] = treedef
-        # the manifest is written last: its presence certifies the .npz
-        # files were flushed; --ckpt_verify=false skips the hashing
-        if FLAGS.get("ckpt_verify"):
-            manifest["files"] = {
-                fname: {"sha256": _sha256_file(os.path.join(tmp, fname)),
-                        "bytes": os.path.getsize(os.path.join(tmp, fname))}
-                for fname in sorted(os.listdir(tmp))}
-        with open(os.path.join(tmp, "manifest.json"), "w") as f:
-            json.dump(manifest, f, indent=1)
-        if os.path.exists(final):
-            shutil.rmtree(final)
-        os.replace(tmp, final)
-    except Exception:
-        shutil.rmtree(tmp, ignore_errors=True)
-        raise
+    t0 = time.perf_counter()
+    with trace.span("ckpt_save", pass_id=pass_id):
+        tmp = tempfile.mkdtemp(dir=save_dir, prefix=".tmp-ckpt-")
+        try:
+            manifest = {"pass_id": pass_id, "format": 2, **(meta or {})}
+            np.savez(os.path.join(tmp, "params.npz"),
+                     **{k: _host(v) for k, v in params.items()})
+            if buffers:
+                np.savez(os.path.join(tmp, "buffers.npz"),
+                         **{k: _host(v) for k, v in buffers.items()})
+            if opt_state is not None:
+                leaves, treedef = flatten_opt_state(opt_state)
+                np.savez(os.path.join(tmp, "opt_state.npz"),
+                         **{f"leaf_{i}": _host(leaf)
+                            for i, leaf in enumerate(leaves)})
+                manifest["opt_treedef"] = treedef
+            # the manifest is written last: its presence certifies the
+            # .npz files were flushed; --ckpt_verify=false skips the
+            # hashing
+            if FLAGS.get("ckpt_verify"):
+                manifest["files"] = {
+                    fname: {"sha256": _sha256_file(
+                                os.path.join(tmp, fname)),
+                            "bytes": os.path.getsize(
+                                os.path.join(tmp, fname))}
+                    for fname in sorted(os.listdir(tmp))}
+            with open(os.path.join(tmp, "manifest.json"), "w") as f:
+                json.dump(manifest, f, indent=1)
+            if os.path.exists(final):
+                shutil.rmtree(final)
+            os.replace(tmp, final)
+        except Exception:
+            shutil.rmtree(tmp, ignore_errors=True)
+            raise
+    histogram("ckpt_save_seconds",
+              "wall time of one atomic checkpoint save (serialize + "
+              "digest + rename)").observe(time.perf_counter() - t0)
+    counter("ckpt_saves", "checkpoints saved").inc()
     log.info("saved checkpoint %s", final)
     sweep_retention(save_dir, keep)
     return final
@@ -307,7 +319,12 @@ def verify_checkpoint(ckpt_dir: str) -> bool:
     """True iff ``ckpt_dir`` passes its integrity checks: every file the
     manifest lists at its recorded size and SHA-256, or, with no digests
     recorded, the archives open as zips."""
-    return _verify_result(ckpt_dir) == "ok"
+    with trace.span("ckpt_verify", dir=ckpt_dir), \
+            histogram("ckpt_verify_seconds",
+                      "wall time of one checkpoint integrity "
+                      "verification (digest re-hash or structural "
+                      "check)").time():
+        return _verify_result(ckpt_dir) == "ok"
 
 
 def _pass_dirs(save_dir: str) -> List[str]:
@@ -331,10 +348,13 @@ def quarantine_checkpoint(ckpt_dir: str) -> Optional[str]:
         n += 1
         target = os.path.join(parent, f".corrupt-{name}-{n}")
     try:
-        os.rename(ckpt_dir, target)
+        with trace.span("ckpt_quarantine", dir=ckpt_dir):
+            os.rename(ckpt_dir, target)
     except OSError as e:
         log.warning("could not quarantine %s (%s)", ckpt_dir, e)
         return None
+    counter("ckpt_quarantined",
+            "corrupt checkpoint dirs renamed to .corrupt-*").inc()
     log.warning("quarantined corrupt checkpoint %s -> %s", ckpt_dir, target)
     return target
 
@@ -447,23 +467,30 @@ def sweep_retention(save_dir: str, keep: Optional[int] = None) -> List[str]:
     if keep is None or keep <= 0 or not os.path.isdir(save_dir):
         return []
     removed = []
-    corrupt = sorted(d for d in os.listdir(save_dir)
-                     if d.startswith(".corrupt-"))
-    for name in _pass_dirs(save_dir)[:-keep] + corrupt[:-keep] \
-            + _stale_tmp_dirs(save_dir):
-        path = os.path.join(save_dir, name)
-        if export_pinned(path):
-            log.info("retention sweep: %s pinned by export lease, "
-                     "skipping", name)
-            continue
-        try:
-            shutil.rmtree(path)
-        except OSError as e:
-            log.warning("retention sweep could not remove %s (%s)",
-                        path, e)
-            continue
-        removed.append(path)
+    with trace.span("ckpt_retention", keep=keep):
+        corrupt = sorted(d for d in os.listdir(save_dir)
+                         if d.startswith(".corrupt-"))
+        for name in _pass_dirs(save_dir)[:-keep] + corrupt[:-keep] \
+                + _stale_tmp_dirs(save_dir):
+            path = os.path.join(save_dir, name)
+            if export_pinned(path):
+                counter("ckpt_retention_pinned",
+                        "retention-eligible checkpoint dirs skipped "
+                        "because a live export lease pins them").inc()
+                log.info("retention sweep: %s pinned by export lease, "
+                         "skipping", name)
+                continue
+            try:
+                shutil.rmtree(path)
+            except OSError as e:
+                log.warning("retention sweep could not remove %s (%s)",
+                            path, e)
+                continue
+            removed.append(path)
     if removed:
+        counter("ckpt_retention_removed",
+                "checkpoint/quarantine/orphan dirs reaped by the "
+                "retention sweep").inc(len(removed))
         log.info("retention sweep (keep=%d): removed %s", keep,
                  [os.path.basename(p) for p in removed])
     return removed

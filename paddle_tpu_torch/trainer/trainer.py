@@ -60,9 +60,28 @@ thread, or with ``--prefetch_depth`` > 0 the async pipeline
 host-to-device copy (:meth:`Trainer._place_feed`).  A feed is copied
 from pinned memory without blocking, on the device's current stream:
 the step's kernels are queued behind it on the same stream, so no event
-or ``record_stream`` is needed.  What the loop reaches and the port
-lacks refuses by name before a step runs:
-``--show_parameter_stats_period`` and ``--roofline_dump`` (A10).
+or ``record_stream`` is needed.
+
+Telemetry (``observe/``, the JAX trainer's wiring): the step runs under
+a ``train_step`` span with ``feed``, ``step_dispatch`` and ``fence``
+children and records ``train_host_feed_seconds``, ``train_step_seconds``,
+``train_steps`` and ``train_samples``; the dispatch is timed under the
+``train_batch`` timer of ``utils/stat.global_stat``.  Only when someone
+is listening — a metrics sink (``observe.active()``) or an explicitly
+opened trace (``trace.fences_steps()``) — the step waits for its loss
+(an event recorded on the current stream) and records
+``train_device_blocked_seconds`` and ``train_samples_per_sec``; with
+neither, the step adds no synchronization and no device-to-host copy.
+``train`` starts the flag-configured surfaces
+(``observe.start_from_flags``), runs each pass under a ``train_pass``
+span with an ``input_wait`` span a batch, records
+``data_reader_wait_seconds`` and ``input_bound_ratio``, samples the HBM
+gauges at pass boundaries while a sink or the endpoint is live, and logs
+``utils/profiler.parameter_stats`` every
+``--show_parameter_stats_period`` batches; ``test`` runs under a
+``test_pass`` span.  The JAX trainer's ``jit_recompiles`` counter has no
+counterpart in an eager step.  What the loop reaches and the port lacks
+refuses by name before a step runs: ``--roofline_dump`` (A10b).
 """
 
 from __future__ import annotations
@@ -86,14 +105,21 @@ from ..optimizer.hooks import (apply_prune_grads, apply_prune_init,
                                build_prune_masks)
 from ..optimizer.optimizers import Optimizer, create_optimizer
 from ..optimizer.schedules import make_schedule
+from .. import observe
+from ..observe import trace
 from ..parallel import sparse as psparse
 from ..utils import FLAGS, PaddleTpuError, enforce, get_logger, warn_once
+from ..utils.stat import block_until_ready, global_stat
 from . import events as ev
 from .checkpoint import (latest_checkpoint, latest_valid_checkpoint,
                          load_buffers, load_manifest, load_opt_state,
                          load_params, save_checkpoint, verify_checkpoint)
 
 _log = get_logger("trainer")
+
+#: end-of-pass sentinel of the loop's reader iterator (so the last wait
+#: is not an error span)
+_PASS_END = object()
 
 
 def optimizer_from_config(oc: OptimizationConfig
@@ -199,6 +225,7 @@ class Trainer:
         # the dynamic loss scale of the bf16 step (None under fp32)
         self._ls_state = ls.init_state(device=self.device) \
             if self.precision == "bf16" else None
+        self._skipped_reported = 0
         self._sparse_plan: Optional[Dict[str, List[str]]] = None
         self._eval_step: Optional[Callable] = None
         self._prune_masks: Optional[Dict[str, torch.Tensor]] = None
@@ -221,8 +248,8 @@ class Trainer:
         static, not pruned, used outside recurrent groups, and only by
         embedding layers fed directly by a data layer.  An ineligible
         table keeps the masked update, with a one-time notice.  The
-        reference's other veto, ``--health_interval``, has no
-        counterpart: the port has no health telemetry."""
+        reference's other veto, ``--health_interval``, comes with the
+        health telemetry (queue A10b)."""
         if self._sparse_plan is None:
             self._sparse_plan = self._build_sparse_exchange_plan()
         return self._sparse_plan
@@ -311,9 +338,87 @@ class Trainer:
                         placed: bool = False) -> torch.Tensor:
         """One step; returns the loss as a 0-d tensor on the device (read
         it with ``float()`` when the host needs it).  ``placed=True``
-        marks a feed already on the device (:meth:`_place_feed`)."""
-        if not placed:
-            feed = self._place_feed(feed)
+        marks a feed already on the device (:meth:`_place_feed`).
+
+        Telemetry: the ``train_step`` span and the histograms and
+        counters of the module docstring; the step waits for its loss
+        only while a metrics sink or an opened trace listens."""
+        with trace.span("train_step", samples_seen=self.samples_seen):
+            t0, t_feed, t_done, batch, loss = \
+                self._traced_step_body(feed, placed)
+        observe.histogram(
+            "train_host_feed_seconds",
+            "host time sharding/placing the feed per step"
+        ).observe(t_feed - t0)
+        observe.histogram(
+            "train_step_seconds",
+            "end-to-end train_one_batch latency (unfenced = dispatch "
+            "time unless a sink is attached)").observe(t_done - t0)
+        observe.counter("train_steps", "train steps executed").inc()
+        observe.counter("train_samples", "samples trained").inc(batch)
+        self.samples_seen += batch
+        return loss
+
+    def _traced_step_body(self, feed: Dict[str, Any], placed: bool):
+        """The span-covered phases of one step: feed -> dispatch ->
+        fence.  The fence waits for an event recorded on the current
+        stream after the step's launches, and runs only while a metrics
+        sink (``observe.active()``) or an explicitly opened trace
+        (``trace.fences_steps()``; not the ring a ``/trace`` scrape
+        opens) listens."""
+        t0 = time.perf_counter()
+        with trace.span("feed", placed=placed):
+            if not placed:
+                feed = self._place_feed(feed)
+            batch = _batch_size(feed)
+        t_feed = time.perf_counter()
+        with trace.span("step_dispatch"), global_stat.timer("train_batch"):
+            loss = self._step(feed)
+        t_dispatch = time.perf_counter()
+        if observe.active() or trace.fences_steps():
+            with trace.span("fence"):
+                block_until_ready(loss)
+            t_done = time.perf_counter()
+            self._sync_precision_metrics()   # fenced anyway: keep fresh
+            observe.histogram(
+                "train_device_blocked_seconds",
+                "time blocked on the device per step (fenced; only "
+                "recorded while a metrics sink or trace is attached)"
+            ).observe(t_done - t_dispatch)
+            if t_done > t0:
+                observe.gauge(
+                    "train_samples_per_sec",
+                    "fenced per-step training throughput"
+                ).set(batch / (t_done - t0))
+        else:
+            t_done = t_dispatch
+        return t0, t_feed, t_done, batch, loss
+
+    def _sync_precision_metrics(self) -> None:
+        """The loss-scale state into observe: the ``loss_scale`` gauge
+        and the ``loss_scale_skipped_steps_total`` counter delta.  Reads
+        the device, so the loop calls it at pass boundaries and on
+        fenced steps only; no-op under ``--precision=fp32``."""
+        if self._ls_state is None:
+            return
+        observe.gauge(
+            "loss_scale",
+            "current dynamic loss scale (--precision=bf16; grows 2x "
+            "per overflow-free growth interval, halves on inf/nan "
+            "gradients)").set(float(self._ls_state.scale))
+        skipped = int(self._ls_state.skipped_total)
+        delta = skipped - self._skipped_reported
+        if delta > 0:
+            observe.counter(
+                "loss_scale_skipped_steps_total",
+                "train steps skipped on non-finite gradients "
+                "(parameters and optimizer state left untouched)"
+            ).inc(delta)
+            self._skipped_reported = skipped
+
+    def _step(self, feed: Dict[str, Any]) -> torch.Tensor:
+        """Forward, backward and update on a placed feed; returns the
+        loss (``samples_seen`` is advanced by the caller)."""
         lr = self.schedule(self.samples_seen)
         ex_plan = self._sparse_exchange_plan()
         ex_rows, ex_blocks = self._exchange_prefetch(ex_plan, feed)
@@ -366,7 +471,6 @@ class Trainer:
         else:
             self.buffers = ls.select(finite, new_buffers, self.buffers)
             self._ls_state = ls.update(state, finite)
-        self.samples_seen += value_of(next(iter(feed.values()))).shape[0]
         return loss.detach()
 
     def _apply(self, dense, grads, ex_plan, ex_rows, block_grads, lr,
@@ -475,14 +579,20 @@ class Trainer:
     def _refuse_unported() -> None:
         """Refuse, before any step, what ``train`` would reach and the
         port lacks."""
-        if FLAGS.get("show_parameter_stats_period"):
-            raise PaddleTpuError(
-                "--show_parameter_stats_period is not ported yet "
-                "(utils/profiler.parameter_stats, queue A10); set it to 0")
         if FLAGS.get("roofline_dump"):
             raise PaddleTpuError(
                 "--roofline_dump is not ported yet (the cost attribution "
-                "of observe/costmodel.py, queue A10); leave it empty")
+                "of observe/costmodel.py, queue A10b); leave it empty")
+
+    def _pass_boundary_observability(self) -> None:
+        """Once-per-pass telemetry kept off the step: the HBM gauges
+        (``observe/memory.sample``), sampled only when a metrics sink or
+        the ``/metrics`` endpoint is live."""
+        from ..observe import http as ohttp
+        from ..observe import memory as omem
+
+        if observe.active() or ohttp.serving():
+            omem.sample(self)
 
     # ------------------------------------------------------ the loops
     def train(self, reader, num_passes: int = 1,
@@ -498,31 +608,73 @@ class Trainer:
         metrics."""
         event_handler = event_handler or _default_event_handler
         self._refuse_unported()
+        observe.start_from_flags()
+        wait_hist = observe.histogram(
+            "data_reader_wait_seconds",
+            "host time blocked on input per batch: the raw reader on "
+            "the synchronous path, the prefetch queue when the async "
+            "pipeline is on (--prefetch_depth > 0) — an input-pipeline "
+            "stall either way")
         start = int(FLAGS.get("start_pass"))
         for pass_id in range(start, start + num_passes):
             event_handler(ev.BeginPass(pass_id))
             last_loss = None
             batch_id = 0
-            src, pipe = self._pipeline_or_sync(reader, feeder)
-            try:
-                for batch in src:
-                    event_handler(ev.BeginIteration(pass_id, batch_id))
-                    if pipe is not None:    # converted+placed upstream
-                        feed = batch
-                    else:
-                        feed = feeder.convert(batch) if feeder else batch
-                    loss = self.train_one_batch(feed,
-                                                placed=pipe is not None)
-                    last_loss = loss
-                    log_period = FLAGS.get("log_period")
-                    if log_period and (batch_id + 1) % log_period == 0:
-                        event_handler(ev.EndIteration(
-                            pass_id=pass_id, batch_id=batch_id,
-                            cost=float(loss)))
-                    batch_id += 1
-            finally:
-                if pipe is not None:
-                    pipe.close()
+            # input wait vs train time per pass: the input-bound ratio
+            wait_s, busy_s = 0.0, 0.0
+            # the pass span is the trace root of the pass: the step spans
+            # nest under it, and the pipeline's workers (created inside
+            # it) adopt its context
+            with trace.span("train_pass", pass_id=pass_id):
+                src, pipe = self._pipeline_or_sync(reader, feeder)
+                batches = iter(src)
+                try:
+                    while True:
+                        t0 = time.perf_counter()
+                        with trace.span("input_wait"):
+                            batch = next(batches, _PASS_END)
+                        if batch is _PASS_END:
+                            break
+                        dt = time.perf_counter() - t0
+                        wait_s += dt
+                        wait_hist.observe(dt)
+                        event_handler(ev.BeginIteration(pass_id, batch_id))
+                        t1 = time.perf_counter()
+                        if pipe is not None:    # converted+placed upstream
+                            feed = batch
+                        else:
+                            feed = feeder.convert(batch) if feeder \
+                                else batch
+                        loss = self.train_one_batch(feed,
+                                                    placed=pipe is not None)
+                        busy_s += time.perf_counter() - t1
+                        last_loss = loss
+                        log_period = FLAGS.get("log_period")
+                        if log_period and (batch_id + 1) % log_period == 0:
+                            event_handler(ev.EndIteration(
+                                pass_id=pass_id, batch_id=batch_id,
+                                cost=float(loss)))
+                        stats_period = FLAGS.get(
+                            "show_parameter_stats_period")
+                        if stats_period and \
+                                (batch_id + 1) % stats_period == 0:
+                            from ..utils.profiler import parameter_stats
+                            _log.info("parameter stats:\n%s",
+                                      parameter_stats(self.params))
+                        batch_id += 1
+                finally:
+                    if pipe is not None:
+                        pipe.close()
+            self._sync_precision_metrics()   # pass boundary: one sync
+            self._pass_boundary_observability()
+            if wait_s + busy_s > 0:
+                observe.gauge(
+                    "input_bound_ratio",
+                    "input wait / (input wait + train time) of the "
+                    "last completed pass — reader wait on the sync "
+                    "path, prefetch-queue wait with the async "
+                    "pipeline; ~0 compute-bound, →1 input-bound"
+                ).set(wait_s / (wait_s + busy_s))
             metrics = {}
             if test_reader is not None:
                 metrics.update(self.test(test_reader, feeder, evaluators))
@@ -549,25 +701,26 @@ class Trainer:
         eval_names = self._eval_output_names() if evaluators else []
         for e in evaluators:
             e.start()
-        src, pipe = self._pipeline_or_sync(reader, feeder)
-        try:
-            for batch in src:
-                if pipe is not None:    # converted+placed upstream
-                    feed = batch
-                else:
-                    feed = feeder.convert(batch) if feeder else batch
-                    feed = self._place_feed(feed)
-                loss, outputs = self._eval_step(self.params, self.buffers,
-                                                feed)
-                b = _batch_size(feed)
-                total += float(loss) * b
-                n += b
-                if evaluators:
-                    self._eval_batch(evaluators, eval_names, outputs, feed,
-                                     label_name)
-        finally:
-            if pipe is not None:
-                pipe.close()
+        with trace.span("test_pass"):
+            src, pipe = self._pipeline_or_sync(reader, feeder)
+            try:
+                for batch in src:
+                    if pipe is not None:    # converted+placed upstream
+                        feed = batch
+                    else:
+                        feed = feeder.convert(batch) if feeder else batch
+                        feed = self._place_feed(feed)
+                    loss, outputs = self._eval_step(self.params,
+                                                    self.buffers, feed)
+                    b = _batch_size(feed)
+                    total += float(loss) * b
+                    n += b
+                    if evaluators:
+                        self._eval_batch(evaluators, eval_names, outputs,
+                                         feed, label_name)
+            finally:
+                if pipe is not None:
+                    pipe.close()
         metrics = {"test_cost": total / max(n, 1)}
         for e in evaluators:
             vals = e.finish()

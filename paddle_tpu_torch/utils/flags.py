@@ -185,3 +185,57 @@ FLAGS.define("reader_workers", 2,
              "reader/convert worker threads per async input pipeline "
              "(clamped to prefetch_depth; reading from the source is "
              "serialized, convert+transfer parallelize)")
+# the telemetry core (observe/, utils/stat.py, utils/profiler.py)
+FLAGS.define("metrics_jsonl", "",
+             "telemetry JSONL sink path: when set, a background "
+             "reporter appends one self-describing snapshot line "
+             "(typed metrics + StatSet timer table) every "
+             "--metrics_interval_s seconds (observe/report.py); "
+             "empty = no sink, instrumentation stays near-zero cost "
+             "and the trainer skips its step-fencing time split")
+FLAGS.define("metrics_interval_s", 10.0,
+             "flush interval for the --metrics_jsonl reporter")
+FLAGS.define("trace_jsonl", "",
+             "span-trace sink path (observe/trace.py): when set, every "
+             "span (trainer step phases, pipeline workers, checkpoint "
+             "ops, serving requests) streams to this file as Chrome "
+             "trace-event JSON — load it directly in Perfetto / "
+             "chrome://tracing; empty = no stream, span() is a shared "
+             "no-op")
+FLAGS.define("trace_ring_size", 4096,
+             "flight-recorder capacity: the last N spans of a live run "
+             "kept in a bounded in-memory ring, served by the "
+             "--metrics_port /trace endpoint and the SIGUSR2 debug "
+             "dump")
+FLAGS.define("metrics_port", 0,
+             "live observability endpoint (observe/http.py): serve GET "
+             "/metrics (Prometheus text), /healthz (liveness JSON) and "
+             "/trace (flight-recorder dump as Chrome trace-event JSON) "
+             "on this loopback port; 0 (the default) starts no server "
+             "thread")
+FLAGS.define("metrics_bind", "",
+             "bind address for the --metrics_port observability "
+             "endpoint (empty = 127.0.0.1).  Non-loopback is an "
+             "EXPLICIT opt-in for same-host-only/container scraping "
+             "and logs a loud structured warning: the endpoint is "
+             "diagnostics, NOT an external API — no auth, no TLS, "
+             "never expose it past a trusted network boundary")
+FLAGS.define("debug_dump_signal", False,
+             "install a SIGUSR2 handler that dumps Prometheus text + "
+             "the flight-recorder trace of the LIVE run to timestamped "
+             "files under --debug_dump_dir (kill -USR2 <pid>) — "
+             "post-mortem for wedged runs without a debugger")
+FLAGS.define("debug_dump_dir", "",
+             "output directory for --debug_dump_signal dumps (empty = "
+             "the process's temp directory, $TMPDIR)")
+FLAGS.define("sigterm_flush", True,
+             "install a chaining SIGTERM hook when any telemetry "
+             "surface is configured (observe/shutdown.py): the final "
+             "metrics interval is flushed and the --trace_jsonl array "
+             "is finalized before the previous handler (or the default "
+             "die-by-signal disposition) runs; off = the atexit-only "
+             "flush, which a SIGTERM-then-SIGKILL orchestrator window "
+             "can lose")
+FLAGS.define("enable_timers", True,
+             "collect named wall timers (utils/stat.py, the Stat.h "
+             "equivalent); false makes every StatSet.timer a no-op")

@@ -2,7 +2,8 @@
 
 Level: ``PADDLE_TPU_LOG_LEVEL`` in the environment at import, else INFO.
 :func:`set_log_level` (``--log_level``) changes it; :func:`warn_once` logs
-each distinct situation once per process.
+each distinct situation once per process; :func:`reset_warn_once`
+re-arms it.
 """
 
 from __future__ import annotations
@@ -10,8 +11,9 @@ from __future__ import annotations
 import logging
 import os
 import sys
-import threading
 from typing import Optional, Set, Union
+
+from ..analysis.lockorder import named_lock
 
 _FMT = "%(levelname).1s %(asctime)s.%(msecs)03d %(name)s] %(message)s"
 _DATEFMT = "%m%d %H:%M:%S"
@@ -48,7 +50,7 @@ def set_log_level(level: Union[str, int]) -> None:
 
 
 _warned: Set[str] = set()
-_warned_lock = threading.Lock()
+_warned_lock = named_lock("logger.warn_once")
 
 
 def warn_once(key: str, msg: str, *args,
@@ -61,3 +63,15 @@ def warn_once(key: str, msg: str, *args,
         _warned.add(key)
     (logger or _root).warning(msg, *args)
     return True
+
+
+def reset_warn_once(key: Optional[str] = None) -> None:
+    """Forget every warn_once key (tests) — or, with ``key``, re-arm
+    just that one: a sink that RECOVERED from degradation wants its
+    failure warning to fire again on the next incident, not stay
+    silenced for the process lifetime."""
+    with _warned_lock:
+        if key is None:
+            _warned.clear()
+        else:
+            _warned.discard(key)

@@ -12,8 +12,9 @@
   ``Trainer(seed=1).train`` writes in process.
 - ``--job test`` / ``time`` / ``checkgrad`` print the reference CLI's
   JSON keys; ``diagram`` and ``merge_model`` write what the reference's
-  helpers write; every flag and subcommand the port lacks refuses by
-  name (queues A9, A10).
+  helpers write; the six telemetry options set their flags and start
+  their surfaces; every flag and subcommand the port lacks refuses by
+  name (queues A9, A10b).
 
 The port's CLI runs in process inside the :func:`paddle_aliases`
 block (its ``paddle`` aliases and the config's ``provider`` module are
@@ -22,8 +23,11 @@ moved aside and restored), and with ``--device cpu``.
 
 import json
 import os
+import signal
+import socket
 import subprocess
 import sys
+import urllib.request
 
 import numpy as np
 import pytest
@@ -280,17 +284,107 @@ def test_version_names_torch(capsys):
 
 @pytest.mark.parametrize("extra,queue", [
     (["--distributed"], "A9"), (["--mesh_shape", "data=2"], "A9"),
-    (["--metrics_jsonl", "m.jsonl"], "A10"),
-    (["--metrics_interval_s", "1"], "A10"),
-    (["--trace_jsonl", "t.jsonl"], "A10"), (["--metrics_port", "9"], "A10"),
-    (["--metrics_bind", "0.0.0.0"], "A10"),
-    (["--fleet_addr", "h:1"], "A10"), (["--fleet_port", "9"], "A10"),
-    (["--fleet_id", "trainer-0"], "A10"),
-    (["--debug_dump_signal"], "A10"), (["--health_interval", "5"], "A10"),
+    (["--fleet_addr", "h:1"], "A10b"), (["--fleet_port", "9"], "A10b"),
+    (["--fleet_id", "trainer-0"], "A10b"),
+    (["--health_interval", "5"], "A10b"),
     (["--test_period", "2"], "A8")])
 def test_unported_train_options_refuse_by_name(extra, queue):
     with pytest.raises(PaddleTpuError, match=queue):
         cli.main(["train", "--config", RNN, "--device", "cpu", *extra])
+
+
+def _free_port():
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def _get(port, path):
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=5) as r:
+        return r.status, r.read().decode()
+
+
+@pytest.fixture
+def observe_state():
+    """The telemetry flags and the process-wide surfaces put back after
+    the test (the reporter, trace sink, endpoint, SIGUSR2 handler and
+    SIGTERM hook the CLI starts)."""
+    from paddle_tpu_torch import observe
+    from paddle_tpu_torch.observe import dump
+    from paddle_tpu_torch.utils.logger import reset_warn_once
+    names = ("metrics_jsonl", "metrics_interval_s", "trace_jsonl",
+             "metrics_port", "metrics_bind", "debug_dump_signal")
+    old = {k: FLAGS.get(k) for k in names}
+    old_usr2 = signal.getsignal(signal.SIGUSR2)
+    yield
+    observe.stop_global()
+    signal.signal(signal.SIGUSR2, old_usr2)
+    dump._installed = False
+    for k, v in old.items():
+        FLAGS.set(k, v)
+    observe.REGISTRY.reset()
+    reset_warn_once()
+
+
+@pytest.mark.parametrize("option", [
+    "metrics_jsonl", "metrics_interval_s", "trace_jsonl", "metrics_port",
+    "metrics_bind", "debug_dump_signal"])
+def test_ported_observability_options_take_effect(option, tmp_path,
+                                                  monkeypatch,
+                                                  observe_state):
+    """Each of the six telemetry options of ``train`` sets its flag and
+    starts what it configures before the job runs (the job is stubbed
+    here; ``Trainer.train``'s own wiring is tested in
+    test_torch_observe.py)."""
+    from paddle_tpu_torch import observe
+    from paddle_tpu_torch.observe import dump, http as ohttp, report, trace
+    sink, tr_path, port = (str(tmp_path / "m.jsonl"),
+                           str(tmp_path / "t.json"), _free_port())
+    argv = {"metrics_jsonl": ["--metrics_jsonl", sink],
+            "metrics_interval_s": ["--metrics_jsonl", sink,
+                                   "--metrics_interval_s", "0.25"],
+            "trace_jsonl": ["--trace_jsonl", tr_path],
+            "metrics_port": ["--metrics_port", str(port)],
+            "metrics_bind": ["--metrics_port", str(port),
+                             "--metrics_bind", "localhost"],
+            "debug_dump_signal": ["--debug_dump_signal"]}[option]
+    seen = {}
+
+    def job(args):
+        seen.update(active=observe.active(), tracing=trace.enabled(),
+                    fences=trace.fences_steps(), serving=ohttp.serving(),
+                    dump=dump._installed,
+                    usr2=signal.getsignal(signal.SIGUSR2),
+                    reporter=report._global)
+        if seen["serving"]:
+            seen["healthz"] = _get(port, "/healthz")
+        return 0
+
+    monkeypatch.setattr(cli, "cmd_train", job)
+    assert cli.main(["train", "--config", RNN, "--device", "cpu",
+                     *argv]) == 0
+    want = {"metrics_jsonl": sink, "metrics_interval_s": 0.25,
+            "trace_jsonl": tr_path, "metrics_port": port,
+            "metrics_bind": "localhost", "debug_dump_signal": True}[option]
+    assert FLAGS.get(option) == want
+    if option in ("metrics_jsonl", "metrics_interval_s"):
+        assert seen["active"]
+        assert seen["reporter"].interval_s == FLAGS.get("metrics_interval_s")
+        with open(sink) as f:                 # the start-up probe's line
+            assert "metrics" in json.loads(f.readline())
+    elif option == "trace_jsonl":
+        assert seen["tracing"] and seen["fences"]
+        observe.stop_global()
+        with open(tr_path) as f:
+            assert json.load(f) == []
+    elif option in ("metrics_port", "metrics_bind"):
+        assert seen["serving"] and not seen["tracing"]
+        code, body = seen["healthz"]
+        assert code == 200 and json.loads(body)["status"] == "ok"
+    else:
+        assert seen["dump"] and seen["usr2"] is dump._handler
+        assert not seen["active"] and not seen["serving"]
 
 
 def test_coordinator_and_master_refuse_by_name(monkeypatch):

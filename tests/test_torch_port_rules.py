@@ -1,6 +1,7 @@
 """Rules the port (``paddle_tpu_torch``) keeps.
 
-- It imports neither JAX nor anything of the JAX package.
+- It imports neither JAX nor anything of the JAX package, and importing
+  its telemetry core (``observe``) loads no torch.
 - Its entry points run on CUDA unless asked for the CPU, and raise when
   CUDA is absent instead of moving to the CPU.
 - Its kernel wrappers count launches only where a kernel is launched
@@ -42,6 +43,37 @@ def test_port_imports_no_jax_nor_jax_package():
     bad = {str(f.relative_to(PORT.parent)): sorted(
         set(_imported_roots(f)) & FORBIDDEN) for f in files}
     assert {k: v for k, v in bad.items() if v} == {}
+
+
+#: queue A10a, the telemetry core: the JAX package's files and the port's
+#: counterparts at the same paths
+A10A_FILES = ("analysis/lockorder.py", "utils/stat.py", "utils/profiler.py",
+              "observe/__init__.py", "observe/metrics.py", "observe/report.py",
+              "observe/trace.py", "observe/http.py", "observe/dump.py",
+              "observe/shutdown.py", "observe/memory.py")
+
+
+def test_telemetry_core_files_are_ported_and_scanned():
+    jax_pkg = PORT.parent / "paddle_tpu"
+    scanned = {str(f.relative_to(PORT)) for f in PORT.rglob("*.py")}
+    for rel in A10A_FILES:
+        assert (jax_pkg / rel).is_file()
+        assert rel in scanned
+
+
+def test_importing_observe_loads_no_torch():
+    """The port's counterpart of the JAX package's import-time rule for
+    ``observe``: importing it (and recording a counter and a span) loads
+    no torch."""
+    import subprocess
+    import sys
+    code = ("import sys, paddle_tpu_torch.observe as o; "
+            "o.counter('x').inc(); o.trace.enable(); "
+            "o.trace.span('s').__enter__(); "
+            "sys.exit(3 if 'torch' in sys.modules else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(PORT.parent),
+                          timeout=120)
+    assert proc.returncode == 0
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):

@@ -337,22 +337,42 @@ def test_check_gradients_matches_jax():
 
 
 @pytest.mark.parametrize("flag, value, match", [
-    ("show_parameter_stats_period", 1, "show_parameter_stats_period.*A10"),
-    ("roofline_dump", "/dev/null", "roofline_dump.*A10")])
+    ("show_parameter_stats_period", 3, None),
+    ("roofline_dump", "/dev/null", "roofline_dump.*A10b")])
 def test_train_refuses_unported_pieces_before_any_step(flag, value, match):
+    """``--roofline_dump`` refuses by name before any step (A10b).
+    ``--show_parameter_stats_period`` is ported: at 3 (a pass of 3
+    batches) ``train`` logs the stats once, after the third step, and
+    the lines are the JAX package's ``parameter_stats`` of the same
+    parameters."""
+    from paddle_tpu.utils.profiler import parameter_stats as j_stats
     _, ttr = _pair()
     _, tf = _feeders()
     old = {k: TFLAGS.get(k) for k in ("save_dir", flag)}
     TFLAGS.set("save_dir", "")
     TFLAGS.set(flag, value)
     events = []
+    h = _Lines()
+    h.setLevel(logging.INFO)
+    logger = logging.getLogger("paddle_tpu_torch.trainer")
+    logger.addHandler(h)
     try:
-        with pytest.raises(PaddleTpuError, match=match):
+        if match is not None:
+            with pytest.raises(PaddleTpuError, match=match):
+                ttr.train(_reader(TRAIN), 1, _record(events), tf)
+        else:
             ttr.train(_reader(TRAIN), 1, _record(events), tf)
     finally:
+        logger.removeHandler(h)
         for k, v in old.items():
             TFLAGS.set(k, v)
-    assert events == [] and ttr.samples_seen == 0
+    stats = [ln for ln in h.lines if ln.startswith("parameter stats:")]
+    if match is not None:
+        assert events == [] and ttr.samples_seen == 0 and stats == []
+        return
+    assert ttr.samples_seen == len(TRAIN)
+    want = j_stats({n: jnp.asarray(p.numpy()) for n, p in ttr.params.items()})
+    assert stats == ["parameter stats:\n" + want]
 
 
 def test_train_saves_at_the_default_save_dir(loop_runs, loop_flags,
