@@ -259,6 +259,37 @@ Phases (any failure exits nonzero, without the final ``ok`` line):
    around 2 steps: 2 ``train_step`` ranges with the 4 + 4 launches of
    kernels 8 and 9 inside them; (e) ``global_stat.timer(...,
    block_on=...)`` around a step reads at least its CUDA-event span;
+4z-roll. the train->serve pipeline at phase 4's serving config: (a) the
+   seed-0 and seed-1 decoders saved as checkpoints, ``CheckpointWatcher.
+   poll_once`` exports each once as int8 artifacts A and B (a second poll
+   exports nothing); each model alone gives the reference tokens of
+   phase 4's 48 prompts and of 24 more (seed 1); a server on A serves a
+   steady window of the 48, then the 48 again with
+   ``swap_from_artifact(B, inflight="drain")`` on another thread after 8
+   finished, then the 24 (96 new tokens each) with ``reprefill`` back to
+   A after 1: every
+   request's tokens are exactly one model's (drain: A before the flip, B
+   after, in admission order; reprefill: the re-prefilled requests A's,
+   B's only for those done before the flip), no request fails, kernels
+   1 and 7 launch after each flip (counts set to 0 before each window);
+   a bit-flipped copy of B rolls back (``/healthz`` rolled_back with the
+   verify error, A's tokens still served); ``POST /v1/swap`` B, then
+   ``unchanged`` on the re-POST; ``--rollout=false`` keeps the
+   pre-rollout ``stats()`` keys.  Readings: build and flip-pause seconds,
+   TTFT p50/p99 and req/s of each window, peak memory of each window;
+   (b) the canary: with traffic on A, a seed-2 artifact carrying
+   ``debug_prefill_delay_ms`` 150 rolls back to A after a 3 s bake
+   (windowed p99 TTFT past 2x the baseline's), a normal seed-3 artifact
+   is promoted, no request fails; (c) ``ServedModel`` in a fresh process
+   that imports no ``layers``, ``config``, ``trainer`` or ``framework``,
+   on the card: bench.py's serving_int8 row (the MLP 784 -> 3136 -> 3136
+   -> 10, B 128, 30 calls, exported fp32 and int8 with the bf16 dequant;
+   fp32 within 1e-6 of the in-process forward on the card, batch 64 of
+   the polymorphic artifact; ms/call, top1_delta, loss_delta,
+   size_ratio) and the LSTM row's classifier (B 128, T 100, H 512, fp32,
+   a SequenceBatch feed: within ``LSTM_ATOL`` of the in-process forward,
+   kernel 8 launched twice a call, the same ``model.pt2`` on the CPU
+   within ``LSTM_ATOL``);
 3c. the hidden-blocked LSTM kernels 10-12 (forward, BPTT, dW): through
    their ``autograd.Function`` against autograd through the plain scan,
    and each wrapper against its plain version, at (B, T, H) = (8, 5,
@@ -428,10 +459,11 @@ Phases 3b-4f are PR 2's H 512 phases and run in fp32 (``use_bf16``
 off), so their readings stay comparable, as do 4z-loop and 4z-small.
 The order of the run: 1-3f, 3g-3i, 4-4f, 4z-loop, 4z-small, 4z-ckpt,
 4z-opt, 4z-cli, 4z-dense, 4z-gen, 4z-tag, 4z-image, 4z-v2, 4z-fw,
-4z-obs, 4g-4k, 4l-4p, 4z-image (d), 4q-4r, 4t, 4v, 4s, 4u, 4w-4z,
-4-sparse, 5.  Each phase's wall seconds (keyed by the id of its ``== phase`` line; a phase
-logged again adds to its entry) and the total are printed as one
-``{"phase_seconds": {...}}`` line before the results.
+4z-obs, 4z-roll, 4g-4k, 4l-4p, 4z-image (d), 4q-4r, 4t, 4v, 4s, 4u,
+4w-4z, 4-sparse, 5.  Each phase's wall seconds (keyed by the id of its
+``== phase`` line; a phase logged again adds to its entry) and the
+total are printed as one ``{"phase_seconds": {...}}`` line before the
+results.
 
 Also printed, for information: a ``torch.profiler`` window over one
 continuous pass and one over 3 training steps (device time by kernel,
@@ -5672,6 +5704,12 @@ def phase_obs_profile(trainer, feed, tmp):
     try:
         torch.cuda.synchronize()
         with profiler.trace(os.path.join(tmp, "prof")) as path:
+            # one small kernel, waited for, before the steps, so that the
+            # window's device tracing is live before the first step's
+            # launches (an unprimed window once held 3 of kernel 8's 4
+            # records)
+            torch.ones(1, device=feed["label"].device).add_(1)
+            torch.cuda.synchronize()
             for _ in range(2):
                 trainer.train_one_batch(feed)
             torch.cuda.synchronize()
@@ -7899,6 +7937,568 @@ def phase_time_gather(dev, launches):
     return [row]
 
 
+# ------------------------------------------------------------ 4z-roll
+#: the canary's seeded-slow artifact (manifest debug_prefill_delay_ms) and
+#: its bake; a breach is a windowed p99 TTFT past ROLL_FACTOR x baseline
+ROLL_SLOW_MS, ROLL_BAKE_S, ROLL_FACTOR = 150, 3.0, 2.0
+#: the reprefill window's prompts (a second stream, seed 1) and their new
+#: tokens: long enough that requests are in flight when the flip lands
+ROLL_REPREFILL_N, ROLL_REPREFILL_NEW = 24, 96
+#: stats() keys of the server before rollout (--rollout=false keeps them)
+PRE_ROLLOUT_STATS = {"queue_depth", "active", "free_pages", "used_pages",
+                     "served", "generated_tokens", "continuous",
+                     "max_batch"}
+#: bench.py's serving_int8 row (_precision_serving_row, bench.py:1970):
+#: an MLP 784 -> 3136 -> 3136 -> 10 (seed 7), B 128, 3 warm and 30 timed
+#: calls, x and labels from RandomState(0)
+SERVED_DIM, SERVED_CLASSES, SERVED_B = 784, 10, 128
+SERVED_WARM, SERVED_CALLS = 3, 30
+#: the second batch size of a batch-polymorphic artifact
+SERVED_B2 = 64
+#: the LSTM row's classifier in the subprocess: warm and timed calls
+SERVED_LSTM_WARM, SERVED_LSTM_CALLS = 2, 10
+
+
+def _roll_server(model, version, **kw):
+    from paddle_tpu_torch.serving.server import InferenceServer
+    return InferenceServer(model, max_batch=MAX_BATCH, n_pages=POOL_PAGES,
+                           page_size=PAGE, continuous=True,
+                           model_version=version, **kw)
+
+
+def _roll_ref(model, prompts, max_new=None):
+    """Each prompt's tokens (``max_new`` new ones, default ``MAX_NEW``)
+    from ``model`` alone, through a fresh server."""
+    srv = _roll_server(model, "ref").start()
+    try:
+        reqs = [srv.submit(p, max_new or MAX_NEW) for p in prompts]
+        return [srv.result(r, timeout=600.0) for r in reqs]
+    finally:
+        srv.stop()
+
+
+def _roll_window(srv, prompts, swap=None, after=MAX_BATCH, max_new=None):
+    """Submit ``prompts`` to the running ``srv`` and wait for them all.
+    With ``swap`` (a function returning a swap report), another thread
+    calls it once ``after`` of them have finished — mid-stream — and
+    reads the launch counts just after the flip.  Returns (requests,
+    metrics, {"report", "t_flip", "counts"})."""
+    import threading
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = srv.served
+    out = {}
+
+    def run():
+        while srv.served - base < after:
+            time.sleep(0.0005)
+        out["report"] = swap()
+        out["t_flip"] = time.perf_counter()
+        out["counts"] = read_counts()
+
+    t0 = time.perf_counter()
+    reqs = [srv.submit(p, max_new or MAX_NEW) for p in prompts]
+    th = None
+    if swap is not None:
+        th = threading.Thread(target=run, name="chip-smoke-swap")
+        th.start()
+    for r in reqs:
+        r.done.wait(600.0)
+    if th is not None:
+        th.join(600.0)
+    wall = time.perf_counter() - t0
+    ttft = np.array([r.ttft_s for r in reqs
+                     if r.ttft_s is not None]) * 1e3
+    m = {"req_per_s": len(prompts) / wall,
+         "ttft_p50_ms": float(np.percentile(ttft, 50)),
+         "ttft_p99_ms": float(np.percentile(ttft, 99)),
+         "wall_s": wall,
+         "failed": sum(r.state != "done" for r in reqs),
+         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    return reqs, m, out
+
+
+def _one_model(reqs, ref_old, ref_new, what):
+    """Each request's tokens are exactly one model's reference: labels
+    ``old``, ``new`` or ``both`` (the two references agree)."""
+    labels = []
+    for i, r in enumerate(reqs):
+        old, new = r.tokens == ref_old[i], r.tokens == ref_new[i]
+        if not (old or new):
+            fail(f"4z-roll {what}: request {i} ({r.id}) has tokens of "
+                 f"neither model")
+        labels.append("both" if old and new else "old" if old else "new")
+    return labels
+
+
+def _roll_post(port, body):
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v1/swap", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _flip_launches(end, at_flip):
+    return {k: end[k] - at_flip[k] for k in SERVING_KERNELS}
+
+
+def phase_roll_swap(dev, tmp):
+    """4z-roll (a): the watcher exports two checkpoints, then hot swaps
+    under load at phase 4's config (drain, then reprefill back), a torn
+    artifact, ``POST /v1/swap`` and the kill switch."""
+    import shutil
+    import torch
+    from paddle_tpu_torch.observe import REGISTRY
+    from paddle_tpu_torch.serving.loader import artifact_digest, \
+        read_manifest
+    from paddle_tpu_torch.serving.model import (DecoderConfig, DecoderModel,
+                                                init_decoder_params)
+    from paddle_tpu_torch.serving.rollout import (CheckpointWatcher,
+                                                  swap_from_artifact)
+    from paddle_tpu_torch.testing import fault
+    from paddle_tpu_torch.trainer.checkpoint import save_checkpoint
+    cfg = DecoderConfig(**CFG)
+    save_dir, export_dir = os.path.join(tmp, "ckpt"), \
+        os.path.join(tmp, "export")
+    for i in (0, 1):
+        save_checkpoint(save_dir, i, init_decoder_params(cfg, seed=i))
+    watcher = CheckpointWatcher(save_dir, cfg, export_dir=export_dir,
+                                quantize="int8")
+    t0 = time.perf_counter()
+    arts = watcher.poll_once()
+    export_s = time.perf_counter() - t0
+    again = watcher.poll_once()
+    if len(arts) != 2 or again:
+        fail(f"4z-roll: the watcher exported {arts} then {again}; expected "
+             "two artifacts exactly once")
+    art_a, art_b = arts
+    ver = {d: artifact_digest(read_manifest(d)) for d in arts}
+    log(f"  watcher: 2 checkpoints -> {[os.path.basename(d) for d in arts]}"
+        f" (int8) in {export_s:.2f} s; a second poll exported nothing")
+    m_a = DecoderModel.from_artifact(art_a, device=dev)
+    m_b = DecoderModel.from_artifact(art_b, device=dev)
+    p0 = _prompts(0, N_REQ, cfg.vocab)
+    p1 = _prompts(1, ROLL_REPREFILL_N, cfg.vocab)
+    ref = {"a0": _roll_ref(m_a, p0), "b0": _roll_ref(m_b, p0),
+           "a1": _roll_ref(m_a, p1, ROLL_REPREFILL_NEW),
+           "b1": _roll_ref(m_b, p1, ROLL_REPREFILL_NEW)}
+    differ = sum(x != y for x, y in zip(ref["a0"], ref["b0"]))
+    if differ < N_REQ // 2:
+        fail(f"4z-roll: models A and B agree on {N_REQ - differ} of "
+             f"{N_REQ} prompts; the exactly-one-model gate needs them apart")
+    del m_b
+    REGISTRY.reset()
+    res = {"export_s": export_s}
+    srv = _roll_server(m_a, ver[art_a]).start()
+    try:
+        _roll_window(srv, p0[:MAX_BATCH])                      # warm
+        reqs0, steady, _ = _roll_window(srv, p0)
+        if [r.tokens for r in reqs0] != ref["a0"]:
+            fail("4z-roll: the steady window's tokens are not model A's")
+        reset_counts()
+        reqs, swap_m, sw = _roll_window(
+            srv, p0, lambda: swap_from_artifact(srv, art_b,
+                                                inflight="drain"))
+        end = read_counts()
+        rep = sw["report"]
+        labels = _one_model(reqs, ref["a0"], ref["b0"], "drain")
+        seen = [x for x in labels if x != "both"]
+        if rep.get("result") != "ok" or "new" not in seen or \
+                "old" not in seen or \
+                "old" in seen[seen.index("new"):]:
+            fail(f"4z-roll drain: report {rep}, labels {labels}")
+        drain_flip = _flip_launches(end, sw["counts"])
+        log(f"  drain swap A -> B under load: build {rep['build_s']:.3f} s "
+            f"(verify + load + probe), flip pause "
+            f"{rep['pause_s'] * 1e3:.3f} ms; {seen.count('old')} requests "
+            f"on A (admitted before the flip), {seen.count('new')} on B, "
+            f"{labels.count('both')} where A and B agree; launches after "
+            f"the flip {drain_flip}")
+        roll_counts = dict(end)
+        reset_counts()
+        reqs1, rep_m, sw1 = _roll_window(
+            srv, p1, lambda: swap_from_artifact(srv, art_a,
+                                                inflight="reprefill"),
+            after=1, max_new=ROLL_REPREFILL_NEW)
+        end = read_counts()
+        rep1 = sw1["report"]
+        labels1 = _one_model(reqs1, ref["b1"], ref["a1"], "reprefill")
+        again_ids = set(rep1.get("reprefilled", []))
+        for r, lab in zip(reqs1, labels1):
+            if r.id in again_ids and lab == "old":
+                fail(f"4z-roll reprefill: {r.id} re-prefilled but kept "
+                     "model B's tokens")
+            if lab == "old" and r.t_done > sw1["t_flip"]:
+                fail(f"4z-roll reprefill: {r.id} finished after the flip "
+                     "on model B")
+        if rep1.get("result") != "ok" or not again_ids:
+            fail(f"4z-roll reprefill: report {rep1}")
+        reprefill_flip = _flip_launches(end, sw1["counts"])
+        log(f"  reprefill swap B -> A under load: build "
+            f"{rep1['build_s']:.3f} s, flip pause "
+            f"{rep1['pause_s'] * 1e3:.3f} ms; {len(again_ids)} requests "
+            f"re-prefilled on A, {labels1.count('old')} finished on B "
+            f"before the flip; launches after the flip {reprefill_flip}")
+        for name, counts in (("drain", drain_flip),
+                             ("reprefill", reprefill_flip)):
+            if min(counts.values()) <= 0:
+                fail(f"4z-roll {name}: kernels 1 and 7 not both launched "
+                     f"after the flip: {counts}")
+        roll_counts = {k: roll_counts[k] + end[k] for k in end}
+        failed = steady["failed"] + swap_m["failed"] + rep_m["failed"]
+        errs = REGISTRY.find("serve_request_failures")
+        if failed or (errs is not None and errs.count()):
+            fail(f"4z-roll: {failed} failed requests")
+
+        # a torn copy of B rolls back; A keeps serving its tokens
+        torn = os.path.join(tmp, "torn")
+        shutil.copytree(art_b, torn)
+        fault.corrupt_artifact(torn, mode="bitflip")
+        port = srv.start_http(0)
+        bad = swap_from_artifact(srv, torn)
+        _, health = _obs_get(port, "/healthz")
+        health = json.loads(health)
+        toks = [srv.generate(p, MAX_NEW, timeout=600.0) for p in p0[:4]]
+        if bad.get("result") != "rolled_back" or \
+                health.get("rollout_state") != "rolled_back" or \
+                not str(health.get("last_swap_error")).startswith(
+                    "verify:") or \
+                health.get("model_version") != ver[art_a] or \
+                toks != ref["a0"][:4]:
+            fail(f"4z-roll torn artifact: report {bad}, /healthz {health}")
+        log(f"  torn artifact rolled back: /healthz rollout_state "
+            f"{health['rollout_state']}, last_swap_error "
+            f"{health['last_swap_error'][:60]}...; A still serves its "
+            "reference tokens")
+        code, post = _roll_post(port, {"artifact": art_b})
+        code2, post2 = _roll_post(port, {"artifact": art_b})
+        if code != 200 or post.get("result") != "ok" or code2 != 200 or \
+                post2.get("result") != "unchanged" or \
+                srv.model_version != ver[art_b]:
+            fail(f"4z-roll POST /v1/swap: {code} {post}; {code2} {post2}")
+        log(f"  POST /v1/swap -> {post['result']} (pause "
+            f"{post['pause_s'] * 1e3:.3f} ms), re-POST -> "
+            f"{post2['result']}")
+    finally:
+        srv.stop()
+    kill = _roll_server(m_a, ver[art_a], rollout=False)
+    if set(kill.stats()) != PRE_ROLLOUT_STATS:
+        fail(f"4z-roll --rollout=false: stats() keys {sorted(kill.stats())}")
+    log("  --rollout=false: stats() has the pre-rollout keys")
+    del kill, m_a
+    for name, m in (("steady", steady), ("with a drain swap", swap_m),
+                    ("with a reprefill swap", rep_m)):
+        log(f"  window {name}: {m['req_per_s']:.3f} req/s, TTFT p50 "
+            f"{m['ttft_p50_ms']:.3f} ms p99 {m['ttft_p99_ms']:.3f} ms, "
+            f"peak memory {m['peak_mem_gb']:.4f} GB")
+    res.update(steady=steady, drain=dict(swap_m, **{
+        k: rep[k] for k in ("build_s", "pause_s", "swap_s")},
+        launches_after_flip=drain_flip, on_old=seen.count("old"),
+        on_new=seen.count("new")),
+        reprefill=dict(rep_m, **{k: rep1[k] for k in
+                                 ("build_s", "pause_s", "swap_s")},
+                       launches_after_flip=reprefill_flip,
+                       reprefilled=len(again_ids)),
+        post_pause_s=post["pause_s"])
+    return res, roll_counts, export_dir, ver[art_a]
+
+
+def phase_roll_canary(dev, export_dir, base_art):
+    """4z-roll (b): a seeded-slow artifact rolls back to its predecessor
+    after a bake under traffic; a normal one is promoted."""
+    import threading
+    from paddle_tpu_torch.observe import REGISTRY, counter
+    from paddle_tpu_torch.serving.loader import artifact_digest, \
+        read_manifest
+    from paddle_tpu_torch.serving.model import (DecoderConfig, DecoderModel,
+                                                export_decoder,
+                                                init_decoder_params)
+    from paddle_tpu_torch.serving.rollout import ARTIFACT_PREFIX, \
+        swap_from_artifact
+    cfg = DecoderConfig(**CFG)
+
+    def publish(seed, **extra):
+        stage = os.path.join(export_dir, f".stage-{seed}")
+        export_decoder(init_decoder_params(cfg, seed=seed), cfg, stage,
+                       **extra)
+        digest = artifact_digest(read_manifest(stage))
+        final = os.path.join(export_dir, ARTIFACT_PREFIX + digest[:12])
+        os.rename(stage, final)
+        return final, digest
+
+    base = os.path.join(export_dir, ARTIFACT_PREFIX + base_art[:12])
+    slow, _ = publish(2, extra_meta={"debug_prefill_delay_ms": ROLL_SLOW_MS})
+    good, good_ver = publish(3)
+    REGISTRY.reset()
+    srv = _roll_server(DecoderModel.from_artifact(base, device=dev),
+                       base_art).start()
+    stop, errors, served = threading.Event(), [], [0]
+
+    def traffic():
+        i = 0
+        while not stop.is_set():
+            try:
+                srv.generate([2 + i % 60] * 3, 2, timeout=600.0)
+                served[0] += 1
+            except Exception as e:  # noqa: BLE001 - the failure ledger
+                errors.append(repr(e))
+            i += 1
+
+    th = threading.Thread(target=traffic, name="chip-smoke-traffic")
+    try:
+        th.start()
+        deadline = time.monotonic() + 60.0
+        while True:
+            h = REGISTRY.find("serve_ttft_seconds")
+            if h is not None and h.window_count(60.0) >= 100:
+                break
+            if time.monotonic() > deadline:
+                fail("4z-roll canary: the baseline never warmed")
+            time.sleep(0.05)
+        rep = swap_from_artifact(srv, slow, canary=True, bake_s=ROLL_BAKE_S,
+                                 canary_factor=ROLL_FACTOR)
+        back = srv.model_version
+        rep2 = swap_from_artifact(srv, good, canary=True,
+                                  bake_s=ROLL_BAKE_S,
+                                  canary_factor=ROLL_FACTOR)
+    finally:
+        stop.set()
+        th.join(600.0)
+        srv.stop()
+    can, can2 = rep.get("canary", {}), rep2.get("canary", {})
+    if rep.get("result") != "rolled_back" or can.get("rollback") != "ok" \
+            or back != base_art or rep2.get("result") != "ok" \
+            or can2.get("result") != "promoted" \
+            or srv.model_version != good_ver or errors:
+        fail(f"4z-roll canary: slow {rep}; normal {rep2}; errors {errors}")
+    counts = {r: counter("rollout_canary_total", "").value(result=r)
+              for r in ("rolled_back", "promoted")}
+    log(f"  canary: the {ROLL_SLOW_MS} ms-slow artifact rolled back after "
+        f"a {ROLL_BAKE_S} s bake (p99 TTFT {can['p99_s'] * 1e3:.3f} ms "
+        f"against baseline {can['baseline_p99_s'] * 1e3:.3f} ms); a normal "
+        f"one promoted (p99 {can2['p99_s'] * 1e3:.3f} ms); {served[0]} "
+        f"requests, 0 failed; rollout_canary_total {counts}")
+    return {"slow": can, "normal": can2, "requests": served[0]}
+
+
+_SERVED_CHILD = r"""
+import json, sys, time
+import numpy as np
+import torch
+from paddle_tpu_torch.serving.loader import ServedModel
+from paddle_tpu_torch.ops import attention as A, lstm as L
+jobs = json.loads(sys.argv[1])
+out = {}
+for job in jobs:
+    name, d, feeds, calls, warm = (job[k] for k in
+                                   ("name", "dir", "feeds", "calls", "warm"))
+    feed = dict(np.load(feeds))
+    m = ServedModel.load(d)
+    for _ in range(warm):
+        m(**feed)
+    L.lstm_fwd.launches = 0
+    A.flash_fwd.launches = A.flash_fwd_legacy.launches = 0
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        res = m(**feed)
+        times.append((time.perf_counter() - t0) * 1e3)
+    rec = {"ms": times, "launches": {
+        "lstm_fwd": L.lstm_fwd.launches, "flash_fwd": A.flash_fwd.launches,
+        "flash_fwd_legacy": A.flash_fwd_legacy.launches},
+        "batch_polymorphic": m.manifest["batch_polymorphic"]}
+    np.savez(d + "-card.npz", **res)
+    if job.get("cpu"):
+        cpu = ServedModel.load(d, device="cpu")(**feed)
+        np.savez(d + "-cpu.npz", **cpu)
+    if job.get("b2") and m.manifest["batch_polymorphic"]:
+        part = {k: v[:job["b2"]] for k, v in feed.items()}
+        np.savez(d + "-b2.npz", **m(**part))
+    out[name] = rec
+banned = sorted(m for m in sys.modules if m.startswith(tuple(
+    "paddle_tpu_torch." + p for p in ("layers", "config", "trainer",
+                                      "framework"))) or m == "jax"
+    or m.startswith("paddle_tpu."))
+print("SERVED " + json.dumps({"jobs": out, "banned": banned,
+                              "device": torch.cuda.get_device_name(0)}))
+"""
+
+
+def _artifact_bytes(d):
+    return sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+
+
+def phase_roll_served(dev, tmp):
+    """4z-roll (c): ``ServedModel`` in a fresh process on the card —
+    bench.py's serving_int8 row (fp32 and int8 with the default bf16
+    dequant) and the LSTM row's classifier (fp32, a SequenceBatch
+    feed)."""
+    import torch
+    from paddle_tpu_torch.config import dsl
+    from paddle_tpu_torch.core.sequence import value_of
+    from paddle_tpu_torch.data.feeder import dense_vector, integer_value
+    from paddle_tpu_torch.layers.network import NeuralNetwork
+    from paddle_tpu_torch.models import lstm_text_classifier
+    from paddle_tpu_torch.serving import export_network
+
+    def card_forward(net, params, feed, name):
+        p = {k: v.to(dev) for k, v in params.items()}
+        with torch.no_grad():
+            vals, _ = net.forward(p, {k: v.to(dev) for k, v in feed.items()},
+                                  net.init_buffers(dev), is_training=False,
+                                  only=[name])
+        return value_of(vals[name]).float().cpu().numpy()
+
+    with dsl.config_scope():
+        img = dsl.data_layer("img", dense_vector(SERVED_DIM))
+        lbl = dsl.data_layer("label", integer_value(SERVED_CLASSES))
+        h = dsl.fc_layer(img, size=4 * SERVED_DIM, act=dsl.ReluActivation())
+        h = dsl.fc_layer(h, size=4 * SERVED_DIM, act=dsl.ReluActivation())
+        pred = dsl.fc_layer(h, size=SERVED_CLASSES,
+                            act=dsl.SoftmaxActivation(), name="prediction")
+        mlp = NeuralNetwork(dsl.topology(dsl.classification_cost(pred, lbl)))
+    mp = mlp.init_params(7, device="cpu")
+    rng = np.random.RandomState(0)
+    x = rng.randn(SERVED_B, SERVED_DIM).astype(np.float32)
+    labels = rng.randint(0, SERVED_CLASSES, (SERVED_B,))
+    d32, d8 = os.path.join(tmp, "mlp_fp32"), os.path.join(tmp, "mlp_int8")
+    t0 = time.perf_counter()
+    export_network(mlp, mp, {"img": x}, d32)
+    export_network(mlp, mp, {"img": x}, d8, quantize="int8")
+    np.savez(os.path.join(tmp, "mlp_feed.npz"), img=x)
+    ref_mlp = card_forward(mlp, mp, {"img": torch.from_numpy(x)},
+                           "prediction")
+
+    lnet = NeuralNetwork(lstm_text_classifier(**TRAIN))
+    lp = lnet.init_params(0, device="cpu")
+    feed = train_feed(0, TRAIN_B, TRAIN_T, TRAIN["vocab_size"], "cpu")
+    dl = os.path.join(tmp, "lstm_fp32")
+    export_network(lnet, lp, {"data": feed["data"]}, dl)
+    export_s = time.perf_counter() - t0
+    fetch = json.load(open(os.path.join(dl, "manifest.json")))["fetches"][0]
+    np.savez(os.path.join(tmp, "lstm_feed.npz"),
+             data=feed["data"].data.numpy(),
+             data_len=feed["data"].length.numpy())
+    from paddle_tpu_torch.ops import lstm as L
+    L.lstm_fwd.launches = 0
+    ref_lstm = card_forward(lnet, lp, {"data": feed["data"]}, fetch)
+    if L.lstm_fwd.launches != TRAIN["lstm_num"]:
+        fail(f"4z-roll served: the in-process forward launched kernel 8 "
+             f"{L.lstm_fwd.launches} times")
+    log(f"  exported the MLP (fp32, int8) and the LSTM row's classifier on "
+        f"the CPU in {export_s:.2f} s")
+    jobs = [{"name": "mlp_fp32", "dir": d32, "calls": SERVED_CALLS,
+             "warm": SERVED_WARM, "b2": SERVED_B2,
+             "feeds": os.path.join(tmp, "mlp_feed.npz")},
+            {"name": "mlp_int8", "dir": d8, "calls": SERVED_CALLS,
+             "warm": SERVED_WARM, "feeds": os.path.join(tmp, "mlp_feed.npz")},
+            {"name": "lstm", "dir": dl, "calls": SERVED_LSTM_CALLS,
+             "warm": SERVED_LSTM_WARM, "cpu": True, "b2": SERVED_B2,
+             "feeds": os.path.join(tmp, "lstm_feed.npz")}]
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(
+        os.path.abspath(__file__)) + os.pathsep
+        + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _SERVED_CHILD,
+                           json.dumps(jobs)], capture_output=True, text=True,
+                          timeout=600, env=env)
+    child_s = time.perf_counter() - t0
+    line = [ln for ln in proc.stdout.splitlines() if ln.startswith("SERVED ")]
+    if proc.returncode != 0 or not line:
+        fail(f"4z-roll served: the subprocess failed ({proc.returncode}): "
+             f"{proc.stderr[-3000:]}")
+    child = json.loads(line[0][len("SERVED "):])
+    if child["banned"]:
+        fail(f"4z-roll served: the loader imported {child['banned']}")
+    res = {"child_s": child_s, "export_s": export_s}
+    load = lambda d, tag: np.load(f"{d}-{tag}.npz")  # noqa: E731
+    p32 = load(d32, "card")["prediction"]
+    p8 = load(d8, "card")["prediction"]
+    err32 = float(np.abs(p32 - ref_mlp).max())
+    if not (np.isfinite(p32).all() and err32 <= 1e-6):
+        fail(f"4z-roll served: the fp32 MLP differs from the in-process "
+             f"forward by {err32}")
+    if not np.isfinite(p8).all() or float(np.abs(p8 - p32).max()) >= 0.05:
+        fail(f"4z-roll served: int8 MLP outputs {np.abs(p8 - p32).max()} "
+             "from fp32 (test_precision's 0.05)")
+    b2 = load(d32, "b2")["prediction"]
+    b2_err = float(np.abs(b2 - ref_mlp[:SERVED_B2]).max())
+    if b2.shape != (SERVED_B2, SERVED_CLASSES) or b2_err > 1e-5:
+        fail(f"4z-roll served: batch {SERVED_B2} gave {b2.shape}, "
+             f"{b2_err}")
+
+    def ce(p):
+        return float(np.mean(-np.log(np.maximum(
+            p[np.arange(SERVED_B), labels], 1e-9))))
+    row = {"fp32": {"ms_per_call": float(np.median(
+               child["jobs"]["mlp_fp32"]["ms"])), "loss": ce(p32),
+               "artifact_bytes": _artifact_bytes(d32)},
+           "int8": {"ms_per_call": float(np.median(
+               child["jobs"]["mlp_int8"]["ms"])), "loss": ce(p8),
+               "artifact_bytes": _artifact_bytes(d8)}}
+    row.update(latency_ratio=row["int8"]["ms_per_call"]
+               / row["fp32"]["ms_per_call"],
+               top1_delta=float((p32.argmax(1) != p8.argmax(1)).mean()),
+               loss_delta=abs(row["fp32"]["loss"] - row["int8"]["loss"]),
+               size_ratio=row["int8"]["artifact_bytes"]
+               / row["fp32"]["artifact_bytes"],
+               max_abs_vs_forward=err32, bit_equal=bool(err32 == 0.0),
+               batch2_max_abs=b2_err)
+    log(f"  serving_int8 row (B {SERVED_B}, {SERVED_CALLS} calls): fp32 "
+        f"{row['fp32']['ms_per_call']:.3f} ms/call, int8 (bf16 dequant) "
+        f"{row['int8']['ms_per_call']:.3f} ms/call; top1_delta "
+        f"{row['top1_delta']}, loss_delta {row['loss_delta']:.6f}, "
+        f"size_ratio {row['size_ratio']:.4f}; fp32 vs the in-process "
+        f"forward {err32:.3e} (bit-equal {row['bit_equal']}); batch "
+        f"{SERVED_B2} of the polymorphic artifact {b2_err:.3e}")
+    lj = child["jobs"]["lstm"]
+    out_card = load(dl, "card")[fetch]
+    out_cpu = load(dl, "cpu")[fetch]
+    e_card = float(np.abs(out_card - ref_lstm).max())
+    e_cpu = float(np.abs(out_cpu - ref_lstm).max())
+    per_call = lj["launches"]["lstm_fwd"] / SERVED_LSTM_CALLS
+    if not (np.isfinite(out_card).all() and e_card <= LSTM_ATOL
+            and e_cpu <= LSTM_ATOL and per_call >= 1):
+        fail(f"4z-roll served LSTM: card {e_card}, CPU {e_cpu}, kernel 8 "
+             f"{per_call} launches a call")
+    lstm = {"ms_per_call": float(np.median(lj["ms"])),
+            "max_abs_vs_forward": e_card, "cpu_max_abs_vs_forward": e_cpu,
+            "kernel8_launches_per_call": per_call,
+            "batch_polymorphic": lj["batch_polymorphic"]}
+    log(f"  LSTM row's classifier (B {TRAIN_B}, T {TRAIN_T}, H "
+        f"{TRAIN['hidden_size']}) in a fresh process: "
+        f"{lstm['ms_per_call']:.3f} ms/call, kernel 8 {per_call:.0f} "
+        f"launches a call, vs the in-process forward {e_card:.3e}; the same "
+        f"model.pt2 on the CPU (plain version) {e_cpu:.3e} (tolerance "
+        f"{LSTM_ATOL}); batch-polymorphic {lj['batch_polymorphic']}; the "
+        f"subprocess took {child_s:.1f} s")
+    res.update(serving_int8=row, lstm=lstm)
+    counts = {"lstm_fwd": lj["launches"]["lstm_fwd"]}
+    return res, counts
+
+
+def phase_roll(dev):
+    """Phase 4z-roll: the hot swap under load, the canary, and
+    ``ServedModel`` in a fresh process (fp32)."""
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        swap, roll_counts, export_dir, base = phase_roll_swap(dev, tmp)
+        canary = phase_roll_canary(dev, export_dir, base)
+        served, served_counts = phase_roll_served(dev, tmp)
+    res = {"swap": swap, "canary": canary, "served": served,
+           "seconds": time.perf_counter() - t0}
+    log(f"  4z-roll took {res['seconds']:.1f} s")
+    return res, roll_counts, served_counts
+
+
 def main() -> int:
     try:
         import torch
@@ -8034,6 +8634,15 @@ def main() -> int:
         obs = phase_obs(dev, train)
         for name in launches:
             launches[name]["obs"] = obs["launches"].get(name, 0)
+        log("== phase 4z-roll: hot swap under load at phase 4's config "
+            "(the watcher's int8 exports, drain and reprefill flips, a "
+            "torn artifact, POST /v1/swap, --rollout=false), the canary "
+            "bake, ServedModel in a fresh process (the serving_int8 row "
+            "and the LSTM row's classifier, fp32)")
+        roll, roll_counts, served_counts = phase_roll(dev)
+        for name in launches:
+            launches[name]["roll"] = roll_counts.get(name, 0)
+            launches[name]["served"] = served_counts.get(name, 0)
         log("== phase 4g: blocked main path, the classifier at H 1280 "
             "under bench.py's flags (use_bf16, bf16_activations)")
         set_flags(**BENCH_FLAGS)
@@ -8175,7 +8784,7 @@ def main() -> int:
                       "training_ckpt": ckpt, "training_opt": opt,
                       "cli": cli, "dense": dense, "gen": gen, "tag": tag,
                       "image": image, "v2": v2res, "fw": fwres,
-                      "obs": obs,
+                      "obs": obs, "roll": roll,
                       "training_h1280": blocked,
                       "training_h1280_mixed_bf16": mixed,
                       "training_h2048": wide, **resnet, "seq2seq": seq2seq,

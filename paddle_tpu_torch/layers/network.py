@@ -26,7 +26,7 @@ A nested group steps over its in-links' subsequence slots.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Set, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Set, Tuple, Union
 
 import torch
 
@@ -186,19 +186,65 @@ class NeuralNetwork:
                 else self.param_specs[n].learning_rate for n in params}
 
     # ------------------------------------------------------------ forward
+    def _ancestors(self, targets) -> Set[str]:
+        """Main-graph layers (transitively) needed to produce ``targets``
+        (the reference's inference pruning).  A group out-link pulls in
+        the whole group: its in-links, memory boot layers, and every
+        outer value its step layers read."""
+        needed: Set[str] = set()
+        stack = list(targets)
+        seen: Set[str] = set()
+        while stack:
+            v = stack.pop()
+            if v in seen:
+                continue
+            seen.add(v)
+            base = v.split(".", 1)[0]
+            if base not in self.layers:
+                base = v
+            if base in self.layers:
+                needed.add(base)
+                stack.extend(self.layers[base].conf.input_names())
+                continue
+            gname = self.group_of.get(v)
+            if gname is None:
+                continue
+            grp = self.groups.get(gname) or self.decoders[gname].group
+            sub = grp.sub
+            stack.extend(sub.in_links)
+            stack.extend((sub.generator or {}).get("static_inputs", ()))
+            inner = set(grp.layers) | set(sub.layer_names)
+            mem_links = set()
+            for m in sub.memories:
+                mem_links.add(m.get("link_name", m["layer_name"] + "@pre"))
+                if m.get("boot_layer_name"):
+                    stack.append(m["boot_layer_name"])
+            for lyr in grp.layers.values():
+                for iname in lyr.conf.input_names():
+                    head = iname.split(".", 1)[0]
+                    if head not in inner and iname not in mem_links \
+                            and iname not in sub.in_links:
+                        stack.append(iname)
+        return needed
+
     def forward(self, params: Dict[str, torch.Tensor], feed: Dict[str, Any],
                 buffers: Optional[Dict[str, torch.Tensor]] = None,
                 is_training: bool = True,
-                rng: Optional[torch.Generator] = None
+                rng: Optional[torch.Generator] = None,
+                only: Optional[Sequence[str]] = None
                 ) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
         """Run all layers; returns (every output by name, sub-outputs as
         ``name.key``; the buffers with this call's updates).  Dropout
         draws from ``rng`` (each layer from a generator of its own,
-        :meth:`ForwardContext.layer_rng`; None: seed 0)."""
+        :meth:`ForwardContext.layer_rng`; None: seed 0).  ``only``:
+        restrict execution to the ancestors of these value names, so
+        data layers outside them need no feed (inference on a training
+        config, the serving export)."""
         ctx = ForwardContext(is_training=is_training, rng=rng,
                              buffers=dict(buffers or {}))
         values: Dict[str, Any] = {}
         done_groups: Set[str] = set()
+        needed = self._ancestors(only) if only is not None else None
 
         def gather(names):
             """Input values, running a group when an out-link is first
@@ -211,6 +257,8 @@ class NeuralNetwork:
         fused_convs = set(self._conv_bn_fuse.values())
         defer = set(self._bn_conv_fuse.values())
         for name in self.order:
+            if needed is not None and name not in needed:
+                continue
             if name in fused_convs:
                 continue            # produced inside its batch-norm partner
             layer = self.layers[name]
@@ -245,7 +293,7 @@ class NeuralNetwork:
             else:
                 values[name] = out
         # declared outputs that are group out-links no layer consumes
-        for name in self.output_names:
+        for name in (self.output_names if only is None else only):
             gname = self.group_of.get(name)
             if name not in values and gname is not None \
                     and gname not in done_groups \

@@ -29,7 +29,11 @@ package's metric names and label keys):
   (``trainer/checkpoint.py``);
 - serving: TTFT, request latency and counts, batch size, queue depth,
   page-pool census and the admit/prefill/decode spans
-  (``serving/server.py``, ``serving/pagepool.py``).
+  (``serving/server.py``, ``serving/pagepool.py``); ``ServedModel``'s
+  per-request latency (``serving/loader.py``); the hot swap's
+  ``rollout_*`` family (``serving/rollout.py``);
+- SLOs: ``--slo`` objectives evaluated on the reporter's interval
+  (``observe/slo.py``), on ``/slo`` and ``/healthz``.
 
 Overhead contract: with no sink attached every instrument is a dict
 lookup + lock + add; anything more expensive (the step's fence) is
@@ -37,8 +41,10 @@ gated on :func:`active` or :func:`trace.fences_steps`.  Importing this
 package imports no torch.
 
 Not ported yet, and refused by name when reached through this package:
-``fleet``, ``health``, ``benchgate`` and ``costmodel`` (queue A10b),
-``slo`` (queue A6).
+``fleet``, ``health``, ``benchgate`` and ``costmodel`` (queue A10b).
+``slo`` is a submodule imported on first use (``from
+paddle_tpu_torch.observe import slo``, or ``--slo`` through
+:func:`start_from_flags`), as in the reference.
 """
 
 from ..utils.error import PaddleTpuError
@@ -67,7 +73,7 @@ from . import dump, http, memory, shutdown, trace  # noqa: F401
 #: modules of the reference's observe/ that the port lacks, and the queue
 #: that ports them
 _UNPORTED = {"fleet": "A10b", "health": "A10b", "benchgate": "A10b",
-             "costmodel": "A10b", "slo": "A6"}
+             "costmodel": "A10b"}
 
 
 def __getattr__(name: str):

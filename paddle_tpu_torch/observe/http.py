@@ -12,13 +12,19 @@ A stdlib ``http.server`` thread (name ``ptpu-metrics-http``) behind
 - ``GET /trace``    — the flight recorder as a Chrome trace-event JSON
   array, loadable directly in Perfetto — "what were the last N spans of
   this live run" without attaching a debugger;
-- ``GET /roofline``, ``/health`` and ``/slo`` — the reference's reports
-  of its cost model, training-health observatory and SLO engine.  The
-  handler resolves their modules through ``sys.modules`` at request
-  time, as the reference does; the port's come with queues A10b and A6,
-  so these paths answer 404 with the reference's text — exactly what a
-  JAX process that never loaded those modules answers — and
-  ``/healthz`` carries no ``health`` or ``slo`` field.
+- ``GET /slo`` — the SLO engine's fresh evaluation
+  (:mod:`paddle_tpu_torch.observe.slo`), and with an engine ``/healthz``
+  carries its ``slo`` digest (a standing breach reads ``degraded``);
+  without ``--slo`` ``/slo`` answers 404 and ``/healthz`` has no ``slo``
+  field;
+- ``GET /roofline`` and ``/health`` — the reference's reports of its
+  cost model and training-health observatory, which come with queue
+  A10b: they answer 404 with the reference's text — exactly what a JAX
+  process that never loaded those modules answers — and ``/healthz``
+  carries no ``health`` field.
+
+The handler resolves the engine and the observatories through
+``sys.modules`` at request time, as the reference does.
 
 Nothing here imports torch.  Starting the server does NOT enable
 tracing: the first ``/trace`` request flips on ring-only recording

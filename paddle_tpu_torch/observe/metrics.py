@@ -217,8 +217,12 @@ class Histogram(_Metric):
                                      is None else window_cap))
         self._now = time.monotonic if clock is None else clock
         # reservoir replacement draws need no crypto strength; a
-        # name-derived seed keeps runs reproducible
+        # name-derived seed keeps runs reproducible.  The window ring
+        # draws from its own stream: how many draws it makes depends on
+        # how many bucket boundaries the observations cross (the
+        # clock), which must not move the lifetime reservoir's samples
         self._rng = random.Random(name)
+        self._window_rng = random.Random(name + "@window")
         # per label set: [per-bucket counts + overflow, sum, count,
         #                 bounded sample reservoir, window ring] where
         # the ring is a bounded deque of [bucket_id, count, sum,
@@ -273,7 +277,7 @@ class Histogram(_Metric):
                 if len(ws) < self.window_cap:
                     ws.append(value)
                 else:
-                    j = self._rng.randrange(b[1])
+                    j = self._window_rng.randrange(b[1])
                     if j < self.window_cap:
                         ws[j] = value
 

@@ -23,10 +23,11 @@ time split needs.
 
 The fleet push client (``fleet_addr``, ``observe/fleet.py``) comes with
 queue A10b: a reporter asked for one refuses by name, and
-:func:`start_from_flags` reads no ``--fleet_addr``.  The SLO engine
-(``observe/slo.py``, queue A6) is probed through ``sys.modules`` as the
-reference probes it, and is never found, so the probe is a no-op — as
-in a JAX process that never set ``--slo``.
+:func:`start_from_flags` reads no ``--fleet_addr``.  ``--slo`` alone
+starts the reporter (the SLO engine, ``observe/slo.py``, evaluates on
+its interval thread); each interval the reporter finds the engine
+through ``sys.modules`` as the reference does, so a process without
+``--slo`` pays one dict lookup.
 """
 
 from __future__ import annotations
@@ -154,9 +155,8 @@ class MetricsReporter:
 
     def _evaluate_slo(self) -> None:
         """One SLO evaluation pass before the flush, through the
-        reference's ``sys.modules`` probe: the port's SLO engine comes
-        with queue A6, so the probe finds nothing and this is one dict
-        lookup."""
+        reference's ``sys.modules`` probe: without ``--slo`` the engine
+        module is never imported and this is one dict lookup."""
         import sys
 
         smod = sys.modules.get("paddle_tpu_torch.observe.slo")
@@ -193,28 +193,40 @@ _global_lock = named_lock("observe.reporter.global")
 
 def start_from_flags() -> Optional[MetricsReporter]:
     """Start the process-wide reporter from ``--metrics_jsonl`` /
-    ``--metrics_interval_s``.  Idempotent; returns the reporter (None
-    when no sink is configured — no thread starts, no work happens).
-    Every long-running entry point calls this once (``Trainer.train``,
-    the CLI)."""
+    ``--metrics_interval_s`` / ``--slo``.  Idempotent; returns the
+    reporter (None when no sink or SLO engine is configured — no thread
+    starts, no work happens).  ``--slo`` alone starts the reporter too:
+    the engine needs the interval thread to evaluate on.  Every
+    long-running entry point calls this once (``Trainer.train``, the
+    CLI)."""
     global _global
     from ..utils import FLAGS
 
     path = FLAGS.get("metrics_jsonl")
-    if not path:
+    slo_spec = str(FLAGS.get("slo") or "").strip()
+    if not path and not slo_spec:
         return _global
+    if slo_spec:
+        # import (not a sys.modules probe): --slo set is the opt-in that
+        # brings the engine into the process; every later surface
+        # probes sys.modules and now finds it
+        from . import slo as _slo
+
+        _slo.configure_from_flags()
     with _global_lock:
         if _global is None:
             _global = MetricsReporter(
-                path=path, interval_s=FLAGS.get("metrics_interval_s"))
+                path=path or None,
+                interval_s=FLAGS.get("metrics_interval_s"))
             _global.start()
             atexit.register(stop_global)
             # probe the sink NOW: a typo'd path warns at startup, not
             # after a multi-hour run produced zero telemetry
-            try:
-                _global.flush()
-            except Exception as e:  # noqa: BLE001
-                _global._warn_flush_failure(e)
+            if path:
+                try:
+                    _global.flush()
+                except Exception as e:  # noqa: BLE001
+                    _global._warn_flush_failure(e)
     return _global
 
 

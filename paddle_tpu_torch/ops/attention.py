@@ -34,6 +34,12 @@ behind the same decisions and labels (:func:`_fa_path`) — and
 :func:`paged_decode_attention` — decode over the paged KV pool
 (``csrc/paged_decode.cu``; plain version :func:`paged_decode_reference`).
 
+Without a gradient to record, :func:`flash_attention` and
+:func:`flash_attention_packed` take the same decision and run kernels
+1-train and 2 as the custom ops ``ptpu::flash_fwd`` and
+``ptpu::flash_fwd_legacy`` (``ops/export_ops.py``), which an exported
+program carries; the serving kernels refuse inside an export.
+
 A wrapper checks device, dtype, shape and layout first.  A tensor on the
 CPU then takes the plain version; a CUDA tensor launches the kernel or
 raises — there is no fallback.  Each wrapper counts its kernel launches
@@ -55,7 +61,7 @@ import torch.nn.functional as F
 
 from ..observe import counter
 from ..utils import FLAGS, enforce, get_logger, warn_once
-from . import _build
+from . import _build, export_ops
 
 NEG_INF = -1e30
 #: Rows of the training kernels' outer tile and the unit of their
@@ -444,6 +450,8 @@ def prefill_attention_packed(q, k, v, segments, causal: bool = False,
     states meet in warp order.  A query's arithmetic depends only on its
     own keys, so a prompt gives the same bits alone as in a pack.
     """
+    export_ops.refuse_export("kernel 1, serving form "
+                             "(prefill_attention_packed)")
     _check_float("q", q, 4)
     b, t, h, d = q.shape
     for name, x in (("k", k), ("v", v)):
@@ -482,6 +490,7 @@ def paged_decode_attention(q, k_pages, v_pages, page_indices, lengths
 
     Returns ``[B, Tq, H, D]``; a query with no visible key gives zeros.
     """
+    export_ops.refuse_export("kernel 7 (paged_decode_attention)")
     _check_float("q", q, 4)
     b, t_q, h, d = q.shape
     enforce(t_q >= 1, "paged_decode_attention needs Tq >= 1")
@@ -902,6 +911,27 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None, None
 
 
+def _fa_inference(q, k, v, lengths, segments, causal, block_q, block_k,
+                  slot):
+    """The forward of :func:`_fa_forward` without a gradient to record:
+    the same decision, with kernels 1-train and 2 as the custom ops
+    ``ptpu::flash_fwd`` / ``ptpu::flash_fwd_legacy`` (an exported
+    program carries them, ``ops/export_ops.py``)."""
+    b, tq, tk, h, d = _check_qkv(q, k, v)
+    enforce(not causal or tq == tk,
+            f"causal attention needs Tq == Tk, got {tq}/{tk}")
+    packed = segments is not None
+    enforce(not packed or tq == tk, "packed attention is self-attention: "
+            f"one segment table, Tq == Tk, got {tq}/{tk}")
+    path = _fa_path(tq, tk, packed, block_q, block_k, slot)
+    if path == "dense":
+        return _dense_forward(q, k, v, lengths, causal, segments)[0]
+    if path == "sparse":
+        return torch.ops.ptpu.flash_fwd(q, k, v, lengths, segments,
+                                        causal)[0]
+    return torch.ops.ptpu.flash_fwd_legacy(q, k, v, lengths, causal)[0]
+
+
 def _as_index(x: Optional[torch.Tensor], device) -> Optional[torch.Tensor]:
     if x is None:
         return None
@@ -917,8 +947,11 @@ def flash_attention(q, k, v, lengths=None, causal: bool = False,
     ``[B]`` valid key lengths — keys at or past the length are masked out
     of the softmax, and (block-sparse path) key tiles wholly past it are
     neither loaded nor visited."""
-    return _FlashAttention.apply(q, k, v, _as_index(lengths, q.device), None,
-                                 bool(causal), int(block_q), int(block_k), 0)
+    args = (q, k, v, _as_index(lengths, q.device), None, bool(causal),
+            int(block_q), int(block_k), 0)
+    if not export_ops.needs_grad(q, k, v):
+        return _fa_inference(*args)
+    return _FlashAttention.apply(*args)
 
 
 def flash_attention_packed(q, k, v, segments, causal: bool = False,
@@ -933,10 +966,11 @@ def flash_attention_packed(q, k, v, segments, causal: bool = False,
     zero gradients; ``causal`` applies along the packed axis.  ``slot``
     (the reference's static slot width) enters only the dispatch labels:
     the kernels' windows come from the segment ids themselves."""
-    return _FlashAttention.apply(q, k, v, None,
-                                 _as_index(segments, q.device),
-                                 bool(causal), int(block_q), int(block_k),
-                                 int(slot))
+    args = (q, k, v, None, _as_index(segments, q.device), bool(causal),
+            int(block_q), int(block_k), int(slot))
+    if not export_ops.needs_grad(q, k, v):
+        return _fa_inference(*args)
+    return _FlashAttention.apply(*args)
 
 
 #: Every kernel wrapper of this module (for counters and reports).

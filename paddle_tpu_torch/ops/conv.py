@@ -50,7 +50,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils import enforce
-from . import _build
+from . import _build, export_ops
 from .nn_ops import _bn_apply, _bn_stats, _pair
 
 # VMEM budget of the JAX gates (a TPU's 16 MB scoped VMEM with headroom)
@@ -358,6 +358,8 @@ def conv3x3_fwd(z, aff, w, relu: bool) -> torch.Tensor:
     """Kernel 19: conv3×3(act(A·z + C), w).  z ``[N, H, W, Cin]``, aff
     ``[2, Cin]`` f32 (rows A, C), w ``[3, 3, Cin, Cout]`` → ``[N, H, W,
     Cout]`` in z's dtype.  The kernel multiplies on the tensor cores."""
+    export_ops.refuse_export("kernel 19 (conv3x3_fwd, the conv/BN "
+                             "forward fusion)")
     n, h, ww, cin, cout, dt = _check_conv(z, w)
     _check("z", z, z.shape, dt)
     _check("aff", aff, (2, cin), torch.float32)

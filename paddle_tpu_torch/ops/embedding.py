@@ -30,7 +30,7 @@ import torch
 
 from ..observe import counter
 from ..utils import FLAGS, enforce, get_logger, warn_once
-from . import _build
+from . import _build, export_ops
 
 _log = get_logger("ops.embedding")
 
@@ -82,6 +82,7 @@ def embedding_gather(table: torch.Tensor, rows: torch.Tensor
     """Kernel 22 (``csrc/embedding_gather.cu``): ``table[rows]`` for an
     fp32 ``[V, D]`` table with D a multiple of 128 and int32 ``[K]``
     rows, pads clamped.  Plain version: :func:`gather_rows_reference`."""
+    export_ops.refuse_export("kernel 22 (embedding_gather)")
     enforce(isinstance(table, torch.Tensor) and table.dim() == 2
             and table.dtype == torch.float32 and table.is_contiguous(),
             f"table: expected a contiguous float32 [V, D] tensor, got "

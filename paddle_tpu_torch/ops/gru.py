@@ -77,7 +77,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..utils import FLAGS, PaddleTpuError, enforce
-from . import _build
+from . import _build, export_ops
 from .lstm import (CHUNK, MAX_DW_SPLIT, SM_COUNT, SMEM_BYTES, TILE_COLS,
                    TILE_ROWS, _RING_BYTES, _check, _launch, _on_card,
                    _plane_slices, _shifted, _sms)
@@ -327,6 +327,7 @@ def gru_fwd(xw, mask, w_gates, w_cand, h0
     and bias applied), mask ``[B, T]`` float, w_gates ``[H, 2H]``,
     w_cand ``[H, H]``, h0 ``[B, H]`` → (H ``[B, T, H]`` kept states,
     gates ``[B, T, 3H]`` = u, r, c)."""
+    export_ops.refuse_export("kernel 13 (gru_fwd)")
     b, t, hd = _check_fwd(xw, mask, w_gates, w_cand, h0)
     args = (xw, mask, w_gates, w_cand, h0)
     if not _on_card(args):
@@ -407,6 +408,7 @@ def gru_fwd_blocked(xw, mask, w_gates, w_cand, h0
     """Blocked-tier forward (kernel 15), the contract of :func:`gru_fwd`
     except that the residue of padded steps is 0; its plain version is
     :func:`gru_fwd_blocked_reference`."""
+    export_ops.refuse_export("kernel 15 (gru_fwd_blocked)")
     b, t, hd = _check_fwd(xw, mask, w_gates, w_cand, h0)
     args = (xw, mask, w_gates, w_cand, h0)
     if not _on_card(args):

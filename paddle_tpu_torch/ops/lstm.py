@@ -53,6 +53,9 @@ checks dtype (fp32 only), shape and contiguity first.  CPU tensors then
 take the plain version; CUDA tensors launch the kernel or raise — a
 shape the kernel's tier does not serve (:func:`fused_tier`) raises too,
 never falls back.  Each wrapper counts its launches in ``.launches``.
+Without a gradient to record, :func:`lstm_fused_sequence` runs kernel 8
+as the custom op ``ptpu::lstm_fwd`` (``ops/export_ops.py``), which an
+exported program carries; the blocked forward refuses inside an export.
 
 Precision: the kernels compute in fp32, whatever the policy (the
 tensor-core products as three bf16 passes of the f32 operands' hi and lo
@@ -69,7 +72,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..utils import FLAGS, PaddleTpuError, enforce
-from . import _build
+from . import _build, export_ops
 
 #: Hopper resources the tiers are computed from (H100 SXM): SMs, and the
 #: shared memory one block may use.
@@ -443,6 +446,7 @@ def lstm_fwd_blocked(xw, mask, w_hh, checks, h0, c0
     """Blocked-tier forward (kernel 10), the contract of
     :func:`lstm_fwd` except that the gates of padded steps are 0; its
     plain version is :func:`lstm_fwd_blocked_reference`."""
+    export_ops.refuse_export("kernel 10 (lstm_fwd_blocked)")
     b, t, hd = _check_fwd(xw, mask, w_hh, checks, h0, c0)
     args = (xw, mask, w_hh, checks, h0, c0)
     if not _on_card(args):
@@ -626,7 +630,13 @@ def _fused_sequence(core, xw, mask, w_hh, check_i, check_f, check_o, h0, c0):
     c0 = torch.zeros((b, hd), dtype=f32, device=xw.device) if c0 is None \
         else c0.to(f32)
     m = mask.to(f32)
-    hseq, cseq = core.apply(xw.to(f32), m, w_hh.to(f32), checks, h0, c0)
+    args = (xw.to(f32), m, w_hh.to(f32), checks, h0, c0)
+    if core is _LstmCore and not export_ops.needs_grad(*args):
+        # inference: kernel 8 as the custom op, so that an exported
+        # program carries the kernel (ops/export_ops.py)
+        hseq, cseq, _ = torch.ops.ptpu.lstm_fwd(*args)
+    else:
+        hseq, cseq = core.apply(*args)
     y = hseq * m[..., None]
     cy = cseq * m[..., None]
     return y, cy, hseq[:, -1], cseq[:, -1]

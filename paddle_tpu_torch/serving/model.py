@@ -22,8 +22,11 @@ segment or row.
 The KV pools are updated in place (the JAX version threads new pools
 through a jitted function); prefill and decode still return them.
 Artifacts: :func:`export_decoder` writes the JAX package's version-2
-weights layout with ``"kind": "decoder"``; artifacts move between the
-two packages in both directions.
+weights layout with ``"kind": "decoder"`` (int8 dequantized to fp32 by
+default, or to bf16, whose weights stay bf16 and are upcast at each
+product); artifacts move between the two packages in both directions.
+The rollout pipeline (``serving/rollout.py``) records provenance in
+``extra_meta``.
 """
 
 from __future__ import annotations
@@ -96,10 +99,24 @@ def _rms(x, g, eps=1e-6):
     return x * torch.rsqrt(x.square().mean(dim=-1, keepdim=True) + eps) * g
 
 
+def _mm(x, w):
+    """``x @ w`` with a bf16 weight (an int8 artifact dequantized to
+    bf16) upcast to the activations' dtype at the op: the JAX package's
+    promotion of bf16 against f32, whose matmul is an f32 one over the
+    exactly widened weight (``torch.matmul`` refuses mixed dtypes).  The
+    embedding tables are upcast where they are read, so the activations
+    stay f32; the JAX package instead carries the bf16 sum of the two
+    embeddings into its first RMS norm (rounded there, unrounded in the
+    residual, as XLA's excess precision fuses it), a difference of one
+    bf16 rounding of the input embedding."""
+    return x @ w.to(x.dtype)
+
+
 def _ffn(x, p: Params, i: int):
     # jax.nn.gelu defaults to the tanh approximation
-    h = F.gelu(_rms(x, p[f"l{i}.ln2"]) @ p[f"l{i}.w1"], approximate="tanh")
-    return x + h @ p[f"l{i}.w2"]
+    h = F.gelu(_mm(_rms(x, p[f"l{i}.ln2"]), p[f"l{i}.w1"]),
+               approximate="tanh")
+    return x + _mm(h, p[f"l{i}.w2"])
 
 
 def _qkv(xn, p: Params, i: int, heads: int):
@@ -107,7 +124,7 @@ def _qkv(xn, p: Params, i: int, heads: int):
     dh = d // heads
 
     def proj(w):
-        return (xn @ p[f"l{i}.{w}"]).reshape(b, t, heads, dh)
+        return _mm(xn, p[f"l{i}.{w}"]).reshape(b, t, heads, dh)
     return proj("wq"), proj("wk"), proj("wv")
 
 
@@ -127,7 +144,8 @@ def _prefill_impl(p: Params, k_pool, v_pool, tokens, lengths, lengths_host,
     b, t = tokens.shape
     dev = tokens.device
     pos = torch.arange(t, device=dev).clamp(0, cfg.max_context - 1)
-    x = p["embed"][tokens] + p["pos_embed"][pos][None]
+    # .float(): a bf16 table is upcast where it is read (see _mm)
+    x = p["embed"][tokens].float() + p["pos_embed"][pos][None].float()
     segments = segments_from_lengths(lengths, b, t)
     kv_index = _kv_index(k_pool, tables_host,
                          torch.zeros((b,), dtype=torch.int32), lengths_host,
@@ -143,11 +161,11 @@ def _prefill_impl(p: Params, k_pool, v_pool, tokens, lengths, lengths_host,
             k.reshape(1, b * t, cfg.heads, dh),
             v.reshape(1, b * t, cfg.heads, dh),
             segments, causal=True, slot=t)
-        x = x + attn.reshape(b, t, cfg.dim) @ p[f"l{i}.wo"]
+        x = x + _mm(attn.reshape(b, t, cfg.dim), p[f"l{i}.wo"])
         x = _ffn(x, p, i)
     idx = (lengths.long() - 1).clamp(0, t - 1)
     last = x[torch.arange(b, device=dev), idx]
-    logits = _rms(last, p["ln_f"]) @ p["lm_head"]
+    logits = _mm(_rms(last, p["ln_f"]), p["lm_head"])
     nxt = torch.argmax(eos_frozen_logits(logits, lengths > 0, cfg.eos_id),
                        dim=-1)
     return nxt, logits
@@ -162,7 +180,8 @@ def _decode_impl(p: Params, k_pool, v_pool, tokens, tables, lengths, active,
     pool state."""
     b = tokens.shape[0]
     pos = (lengths.long() - 1).clamp(0, cfg.max_context - 1)
-    x = (p["embed"][tokens] + p["pos_embed"][pos])[:, None, :]
+    x = (p["embed"][tokens].float()
+         + p["pos_embed"][pos].float())[:, None, :]
     kv_index = _kv_index(k_pool, tables_host, lengths_host - 1,
                          active_host.to(torch.int32), 1, tokens.device)
     klen = torch.where(active, lengths, torch.ones_like(lengths))
@@ -170,9 +189,9 @@ def _decode_impl(p: Params, k_pool, v_pool, tokens, tables, lengths, active,
         q, k, v = _qkv(_rms(x, p[f"l{i}.ln1"]), p, i, cfg.heads)
         paged_kv_scatter(k_pool[i], v_pool[i], k, v, kv_index)
         attn = paged_decode_attention(q, k_pool[i], v_pool[i], tables, klen)
-        x = x + attn.reshape(b, 1, cfg.dim) @ p[f"l{i}.wo"]
+        x = x + _mm(attn.reshape(b, 1, cfg.dim), p[f"l{i}.wo"])
         x = _ffn(x, p, i)
-    logits = _rms(x[:, 0], p["ln_f"]) @ p["lm_head"]
+    logits = _mm(_rms(x[:, 0], p["ln_f"]), p["lm_head"])
     nxt = torch.argmax(eos_frozen_logits(logits, active, cfg.eos_id), dim=-1)
     return nxt, logits
 
@@ -185,7 +204,15 @@ class DecoderModel(nn.Module):
     """A decoder's weights on one device, with its prefill and decode
     steps.  Pools are owned by the caller (the server) and passed to
     every call; the model holds no KV state, so one model serves any
-    number of pools."""
+    number of pools.
+
+    Weights are fp32, except that bf16 tensors (an int8 artifact
+    dequantized to bf16) stay bf16 and are upcast at each product
+    (:func:`_mm`).  ``debug_prefill_delay_s`` (0 unless an artifact's
+    manifest sets ``debug_prefill_delay_ms``) is a testing knob the
+    server sleeps inside every prefill's TTFT."""
+
+    debug_prefill_delay_s = 0.0
 
     def __init__(self, params: Mapping[str, Any], cfg: DecoderConfig,
                  device: Optional[Union[str, torch.device]] = None):
@@ -194,9 +221,14 @@ class DecoderModel(nn.Module):
                 f"dim {cfg.dim} not divisible by heads {cfg.heads}")
         self.cfg = cfg
         self.device = resolve_device(device)
+        bf16 = {n for n, w in params.items()
+                if isinstance(w, torch.Tensor) and w.dtype == torch.bfloat16}
         tensors = params_from_jax(
-            {n: (w.detach().cpu().numpy() if isinstance(w, torch.Tensor)
-                 else w) for n, w in params.items()}, cfg, self.device)
+            {n: (w.detach().float().cpu().numpy()
+                 if isinstance(w, torch.Tensor) else w)
+             for n, w in params.items()}, cfg, self.device)
+        for name in bf16:       # exact: the values came from bf16
+            tensors[name] = tensors[name].to(torch.bfloat16)
         # buffer names may not hold '.', so "l0.wq" is kept as "l0__wq"
         for name, t in tensors.items():
             self.register_buffer(name.replace(".", "__"), t)
@@ -257,27 +289,44 @@ class DecoderModel(nn.Module):
                       device: Optional[Union[str, torch.device]] = None
                       ) -> "DecoderModel":
         """Load an exported decoder artifact (int8 entries dequantized
-        once at load); ``verify`` re-hashes the payload first, so a torn
-        artifact raises :class:`loader.TornArtifact`."""
+        once at load, to the manifest's dtype); ``verify`` re-hashes the
+        payload first, so a torn artifact raises
+        :class:`loader.TornArtifact`."""
         manifest = _loader.read_manifest(dirname)
         if verify:
             _loader.verify_artifact(dirname, manifest)
         enforce(manifest.get("kind") == "decoder",
                 f"{dirname}: not a decoder artifact "
-                f"(kind={manifest.get('kind')!r})")
+                f"(kind={manifest.get('kind')!r}); ServedModel.load "
+                "handles module artifacts")
         cfg = DecoderConfig(**manifest["decoder"])
         wsec = manifest["weights"]
-        weights = _loader.load_weight_entries(dirname, wsec)
+        weights = _loader.load_weight_tensors(dirname, wsec)
         params = {e["name"]: w for e, w in zip(wsec["entries"], weights)}
-        return cls(params, cfg, device=device)
+        model = cls(params, cfg, device=device)
+        # testing/bench knob (export_decoder extra_meta): a seeded-slow
+        # artifact carries debug_prefill_delay_ms; the server sleeps it
+        # inside the TTFT stamp, so a canary bake has a deterministic
+        # latency regression to detect
+        delay_ms = manifest.get("debug_prefill_delay_ms")
+        if delay_ms:
+            model.debug_prefill_delay_s = float(delay_ms) / 1e3
+        return model
 
 
 def export_decoder(params: Mapping[str, Any], cfg: DecoderConfig,
-                   dirname: str, quantize: Optional[str] = "int8") -> str:
+                   dirname: str, quantize: Optional[str] = "int8",
+                   dequant_dtype: str = "float32",
+                   extra_meta: Optional[Dict[str, Any]] = None) -> str:
     """Write a decoder artifact: the version-2 weights layout (int8
     per-channel for >=2-D floats when ``quantize="int8"``, dequantized
-    to float32; raw otherwise) plus ``"kind": "decoder"`` and the config
-    in the manifest.  ``params`` may be numpy arrays or tensors."""
+    to ``dequant_dtype`` at load; raw otherwise) plus ``"kind":
+    "decoder"`` and the config in the manifest.  ``params`` may be numpy
+    arrays or tensors.
+
+    ``extra_meta`` lands verbatim in the manifest (a key that collides
+    with a manifest field raises): the rollout pipeline records
+    provenance there (``source_ckpt_digest``, ``source_ckpt``)."""
     params = {n: (w.detach().cpu().numpy() if isinstance(w, torch.Tensor)
                   else np.asarray(w)) for n, w in params.items()}
     if quantize is None:
@@ -293,7 +342,8 @@ def export_decoder(params: Mapping[str, Any], cfg: DecoderConfig,
     else:
         enforce(quantize == "int8",
                 f"export_decoder: unknown quantize scheme {quantize!r}")
-        store, entries = _export.quantize_weight_store(params)
+        store, entries = _export.quantize_weight_store(params,
+                                                       dequant_dtype)
         scheme = _export.QUANT_SCHEME
     os.makedirs(dirname, exist_ok=True)
     np.savez(os.path.join(dirname, _export.WEIGHTS_FILE), **store)
@@ -305,10 +355,15 @@ def export_decoder(params: Mapping[str, Any], cfg: DecoderConfig,
         "weights": {
             "file": _export.WEIGHTS_FILE,
             "scheme": scheme,
-            "dequant_dtype": _export.DEQUANT_DTYPE,
+            "dequant_dtype": dequant_dtype,
             "entries": entries,
         },
     }
+    for k, v in (extra_meta or {}).items():
+        enforce(k not in manifest,
+                f"export_decoder: extra_meta key {k!r} collides with a "
+                "manifest field")
+        manifest[k] = v
     _export.stamp_manifest(manifest, dirname, [_export.WEIGHTS_FILE])
     with open(os.path.join(dirname, "manifest.json"), "w") as f:
         json.dump(manifest, f, indent=2)

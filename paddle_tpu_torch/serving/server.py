@@ -33,9 +33,25 @@ counters ``serve_requests`` and ``serve_tokens_generated``; the gauges
 the front end is built by ``observe.http.make_threading_server`` on
 ``resolve_bind_host("serve_bind")``.
 
-Not ported yet: hot-swap rollout and its ``rollout_*`` metrics, SLO
-reporting (queue A6), and the fleet's serving info (queue A10b).  The
-decode and HTTP threads are named ``ptpu-serve-torch-*``.
+Hot swap (``--rollout``, default on; ``serving/rollout.py`` is the
+pipeline around it): :meth:`InferenceServer.request_swap` parks a built
+replacement model as a :class:`SwapTicket`, and the decode loop applies
+it at a step boundary — ``drain`` pauses admission and flips once the
+in-flight requests finished on the old model, ``reprefill`` flips at
+once and restarts them from the prompt on the new one — so every
+response's tokens come from exactly one model.  The flip stands up the
+new model's pools and rolls back if that fails; it sets
+``rollout_swap_total``, ``rollout_swap_pause_seconds`` and
+``rollout_model_version``.  ``model_version``, ``rollout_state`` and
+``last_swap_error`` join :meth:`InferenceServer.stats` and ``/healthz``,
+and ``POST /v1/swap`` runs the whole pipeline (500 with the rolled-back
+report).  ``--rollout=false`` is the kill switch: no swap surface, and
+``stats()``, ``/healthz`` and the 404 body keep their pre-rollout bytes.
+``--serve_slo_ms`` > 0 adds the windowed ``ttft_p99_ms`` and
+``slo_met``.  The fleet's serving info (``_publish_serving_info``) comes
+with queue A10b and is a no-op until then, as in a JAX process without
+``observe.fleet``.  The decode and HTTP threads are named
+``ptpu-serve-torch-*``.
 """
 
 from __future__ import annotations
@@ -51,7 +67,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from ..analysis.lockorder import named_condition
-from ..observe import counter, gauge, histogram, trace
+from ..observe import REGISTRY, counter, gauge, histogram, trace
 from ..observe.http import make_threading_server, resolve_bind_host
 from ..utils import FLAGS, enforce, get_logger
 from .model import DecoderModel
@@ -99,17 +115,48 @@ class Request:
         return None if self.t_done is None else self.t_done - self.t_submit
 
 
+class SwapTicket:
+    """A pending hot swap: the fully built replacement model plus the
+    handshake back to the requester.  ``event`` fires once the decode
+    loop has applied (or rolled back) the swap; ``report`` then holds
+    the outcome — ``result`` (``ok``/``rolled_back``), the flip's
+    ``pause_s``, and which in-flight requests were re-prefilled."""
+
+    __slots__ = ("model", "version", "inflight", "exported_at",
+                 "event", "report")
+
+    def __init__(self, model: DecoderModel, version: str, inflight: str,
+                 exported_at: Optional[float]):
+        self.model = model
+        self.version = version
+        self.inflight = inflight
+        self.exported_at = exported_at
+        self.event = threading.Event()
+        self.report: Dict = {"result": "pending", "version": version,
+                             "inflight": inflight}
+
+    def wait(self, timeout: Optional[float] = None) -> Dict:
+        if not self.event.wait(timeout):
+            raise TimeoutError(f"swap to {self.version[:12]} not applied "
+                               f"within {timeout}s")
+        return dict(self.report)
+
+
 class InferenceServer:
     """The continuous-batching decode loop around a
     :class:`~paddle_tpu_torch.serving.model.DecoderModel` and a
-    :class:`~paddle_tpu_torch.serving.pagepool.PagePool`."""
+    :class:`~paddle_tpu_torch.serving.pagepool.PagePool`, with the hot
+    swap of the module docstring."""
 
     def __init__(self, model: DecoderModel,
                  max_batch: Optional[int] = None,
                  n_pages: Optional[int] = None,
                  page_size: Optional[int] = None,
                  continuous: Optional[bool] = None,
-                 snapshot_path: Optional[str] = None):
+                 snapshot_path: Optional[str] = None,
+                 rollout: Optional[bool] = None,
+                 model_version: str = "unversioned",
+                 model_exported_at: Optional[float] = None):
         self.model = model
         self.max_batch = int(FLAGS.get("serve_max_batch")
                              if max_batch is None else max_batch)
@@ -137,6 +184,13 @@ class InferenceServer:
         self._http_thread: Optional[threading.Thread] = None
         self.served = 0
         self.generated_tokens = 0
+        self.rollout_enabled = bool(FLAGS.get("rollout")
+                                    if rollout is None else rollout)
+        self.model_version = model_version
+        self.model_exported_at = model_exported_at
+        self.rollout_state = "serving"     # serving|swapping|rolled_back
+        self.last_swap_error: Optional[str] = None
+        self._pending_swap: Optional[SwapTicket] = None
 
     @staticmethod
     def _make_pool(n_pages: int, page_size: int,
@@ -172,6 +226,7 @@ class InferenceServer:
             self._thread = threading.Thread(
                 target=self._loop, name=DECODE_THREAD_NAME, daemon=True)
             self._thread.start()
+            self._publish_serving_info()
         return self
 
     def stop(self) -> None:
@@ -187,11 +242,15 @@ class InferenceServer:
             pending = list(self._queue) + list(self._active)
             self._queue.clear()
             self._active = []
+            swap, self._pending_swap = self._pending_swap, None
         for r in pending:
             self.pool.release(r.id)
             r.state = "failed"
             r.error = "server stopped"
             r.done.set()
+        if swap is not None:       # a parked swap never applies now
+            swap.report.update(result="rolled_back", error="server stopped")
+            swap.event.set()
 
     def __enter__(self) -> "InferenceServer":
         return self.start()
@@ -244,29 +303,186 @@ class InferenceServer:
     def stats(self) -> Dict[str, int]:
         with self._cond:
             q, a = len(self._queue), len(self._active)
-        return {"queue_depth": q, "active": a,
-                "free_pages": self.pool.free_pages(),
-                "used_pages": self.pool.used_pages(),
-                "served": self.served,
-                "generated_tokens": self.generated_tokens,
-                "continuous": int(self.continuous),
-                "max_batch": self.max_batch}
+            rollout = None
+            if self.rollout_enabled:
+                rollout = {"model_version": self.model_version,
+                           "model_exported_at": self.model_exported_at,
+                           "rollout_state": self.rollout_state,
+                           "last_swap_error": self.last_swap_error}
+        out = {"queue_depth": q, "active": a,
+               "free_pages": self.pool.free_pages(),
+               "used_pages": self.pool.used_pages(),
+               "served": self.served,
+               "generated_tokens": self.generated_tokens,
+               "continuous": int(self.continuous),
+               "max_batch": self.max_batch}
+        if rollout is not None:
+            # gated on the kill switch: --rollout=false keeps stats()
+            # (and with it /healthz) byte-identical to the pre-rollout
+            # server
+            out.update(rollout)
+        slo_ms = float(FLAGS.get("serve_slo_ms") or 0.0)
+        if slo_ms > 0:
+            # the WINDOWED p99 (last 60 s), not the lifetime reservoir:
+            # a recovered server stops advertising a stale bad p99
+            h = REGISTRY.find("serve_ttft_seconds")
+            p99 = h.window_quantile(0.99, 60.0) \
+                if h is not None and hasattr(h, "window_quantile") \
+                else None
+            out["ttft_p99_ms"] = None if p99 is None \
+                else round(p99 * 1e3, 3)
+            out["slo_met"] = int(p99 is None or p99 * 1e3 <= slo_ms)
+        return out
+
+    # ------------------------------------------------------------ hot swap
+    def request_swap(self, model: DecoderModel,
+                     version: str = "unversioned",
+                     inflight: Optional[str] = None,
+                     exported_at: Optional[float] = None) -> SwapTicket:
+        """Park a fully built replacement model for the decode loop to
+        apply at its next step boundary; returns the
+        :class:`SwapTicket` to ``wait()`` on.  The model must already be
+        built, verified and probed — this method does no loading
+        (``rollout.swap_from_artifact`` is the whole pipeline)."""
+        enforce(self.rollout_enabled,
+                "rollout disabled (--rollout=false): request_swap refused")
+        inflight = str(FLAGS.get("rollout_inflight")
+                       if inflight is None else inflight)
+        enforce(inflight in ("drain", "reprefill"),
+                f"unknown in-flight policy {inflight!r} "
+                "(expected 'drain' or 'reprefill')")
+        # the same architecture is the contract (continuous training
+        # swaps weights, not shapes): pools and page tables carry over
+        # only because the config is identical
+        enforce(model.cfg == self.model.cfg,
+                f"swap model config {model.cfg} != serving config "
+                f"{self.model.cfg}")
+        ticket = SwapTicket(model, version, inflight, exported_at)
+        with self._cond:
+            enforce(not self._stop, "server is stopped")
+            enforce(self._pending_swap is None,
+                    "a swap is already in progress")
+            self._pending_swap = ticket
+            self.rollout_state = "swapping"
+            ticket.report["inflight_at_request"] = len(self._active)
+            self._cond.notify_all()
+        self._publish_serving_info()
+        return ticket
+
+    def record_swap_failure(self, reason: str) -> None:
+        """Record a swap that failed before a ticket was parked (the
+        artifact's verify, load or probe, on the caller's thread).  The
+        old model keeps serving; ``/healthz`` carries the reason."""
+        with self._cond:
+            self.rollout_state = "rolled_back"
+            self.last_swap_error = reason
+        self._publish_serving_info()
+
+    def _apply_swap_locked(self, ticket: SwapTicket) -> List[Request]:
+        """Apply a parked swap at the decode loop's step boundary
+        (``_cond`` held).  Returns the in-flight requests to re-prefill
+        on the new model (``reprefill``; empty under ``drain``, which
+        only gets here with no actives).  Failing to stand up the new
+        pools rolls back: the old model and pools were never
+        unhooked."""
+        t0 = time.perf_counter()
+        old_version = self.model_version
+        try:
+            k_pool, v_pool = ticket.model.new_pools(self.pool.n_pages,
+                                                    self.pool.page_size)
+        except Exception as e:  # noqa: BLE001 - roll back, keep serving
+            self._pending_swap = None
+            self.rollout_state = "rolled_back"
+            self.last_swap_error = f"pool standup: {type(e).__name__}: {e}"
+            ticket.report.update(result="rolled_back",
+                                 error=self.last_swap_error)
+            counter("rollout_swap_total",
+                    "hot-swap attempts by outcome").inc(
+                result="rolled_back")
+            log.error("swap to %s rolled back (%s)", ticket.version[:12],
+                      self.last_swap_error)
+            ticket.event.set()
+            return []
+        reprefill: List[Request] = []
+        if ticket.inflight == "reprefill" and self._active:
+            # restart in-flight generation from the prompt on the NEW
+            # model: drop every old-model token (exactly-one-model),
+            # keep the page tables — the fresh pools get the prompt
+            # K/V from the re-prefill
+            for r in self._active:
+                r.tokens.clear()
+                r.length = 0
+                r.next_token = -1
+                r.t_first = None
+            reprefill = list(self._active)
+            ticket.report["reprefilled"] = [r.id for r in reprefill]
+        self.model = ticket.model
+        self._k_pool, self._v_pool = k_pool, v_pool
+        self.model_version = ticket.version
+        self.model_exported_at = ticket.exported_at
+        self.rollout_state = "serving"
+        self.last_swap_error = None
+        self._pending_swap = None
+        pause_s = time.perf_counter() - t0
+        ticket.report.update(result="ok", pause_s=pause_s)
+        counter("rollout_swap_total",
+                "hot-swap attempts by outcome").inc(result="ok")
+        histogram("rollout_swap_pause_seconds",
+                  "decode-loop pause for the atomic pointer flip "
+                  "(pool standup + in-flight bookkeeping; the model "
+                  "build/verify/probe ran off-thread)").observe(pause_s)
+        g = gauge("rollout_model_version",
+                  "1 for the live artifact digest, 0 for retired ones "
+                  "(info gauge keyed by digest label)")
+        if old_version:
+            g.set(0.0, digest=old_version)
+        g.set(1.0, digest=ticket.version)
+        log.info("hot-swapped model %s -> %s (pause %.1f ms, %d "
+                 "re-prefilled)", old_version[:12], ticket.version[:12],
+                 pause_s * 1e3, len(reprefill))
+        ticket.event.set()
+        return reprefill
+
+    def _publish_serving_info(self) -> None:
+        """The model version and rollout state for the fleet identity:
+        the fleet push client (``observe/fleet.py``) comes with queue
+        A10b, so this is a no-op, as in a JAX process without
+        ``observe.fleet``."""
 
     # ---------------------------------------------------------- decode loop
     def _loop(self) -> None:
         while True:
+            swapped = False
             with self._cond:
                 while not self._stop and not self._queue \
-                        and not self._active:
+                        and not self._active \
+                        and self._pending_swap is None:
                     self._cond.wait(0.05)
                 if self._stop:
                     return
-                admitted = self._admit_locked()
+                reprefill: List[Request] = []
+                pending = self._pending_swap
+                if pending is not None and (pending.inflight == "reprefill"
+                                            or not self._active):
+                    # the pointer flip, at the step boundary: drain
+                    # flips once the actives emptied, reprefill flips now
+                    # and restarts them below
+                    reprefill = self._apply_swap_locked(pending)
+                    pending = None
+                    swapped = True
+                # a pending drain swap pauses admission: new requests
+                # first-run on the NEW model, and the flip waits for the
+                # actives to finish on the old one
+                admitted = [] if pending is not None \
+                    else self._admit_locked()
+            if swapped:
+                self._publish_serving_info()
             try:
-                changed = bool(admitted)
-                if admitted:
-                    with trace.span("serve_prefill", n=len(admitted)):
-                        self._prefill(admitted)
+                batch = reprefill + admitted
+                changed = bool(batch)
+                if batch:
+                    with trace.span("serve_prefill", n=len(batch)):
+                        self._prefill(batch)
                 if self._active:
                     with trace.span("serve_decode_step",
                                     batch=len(self._active)):
@@ -334,6 +550,13 @@ class InferenceServer:
             tokens[i, :len(r.prompt)] = r.prompt
             lengths[i] = len(r.prompt)
             tables[i] = self._table_row(r)
+        # testing knob: a seeded-slow artifact (manifest
+        # debug_prefill_delay_ms) inflates TTFT here, inside the stamp,
+        # so a canary bake has a latency regression to detect; the swap
+        # probe calls model.prefill directly and never pays it
+        delay = self.model.debug_prefill_delay_s
+        if delay:
+            time.sleep(delay)
         nxt, _, self._k_pool, self._v_pool = self.model.prefill(
             self._k_pool, self._v_pool, tokens, lengths, tables)
         now = time.perf_counter()
@@ -447,11 +670,43 @@ def _make_handler(server: InferenceServer):
             if self.path.split("?", 1)[0].rstrip("/") == "/healthz":
                 self._send(200, dict(server.stats(), status="ok"))
             else:
-                self._send(404, {"error": "unknown path",
-                                 "paths": ["/v1/generate", "/healthz"]})
+                # /v1/swap exists only with rollout on: the kill switch
+                # keeps this body byte-identical to pre-rollout
+                paths = ["/v1/generate", "/healthz"]
+                if server.rollout_enabled:
+                    paths.append("/v1/swap")
+                self._send(404, {"error": "unknown path", "paths": paths})
+
+        def _do_swap(self) -> None:
+            """POST /v1/swap {"artifact": dir[, "inflight": policy]
+            [, "reason": text]}: the whole pipeline (verify → load →
+            probe → flip) on this handler thread; 500 carries a
+            rolled-back report."""
+            try:
+                n = int(self.headers.get("Content-Length", 0))
+                body = json.loads(self.rfile.read(n) or b"{}")
+                from . import rollout as _rollout
+                report = _rollout.swap_from_artifact(
+                    server, body["artifact"],
+                    inflight=body.get("inflight"))
+                ok = report.get("result") in ("ok", "unchanged")
+                if ok and body.get("reason"):
+                    # a coordinator-driven rollback swap succeeded; its
+                    # reason (a failed canary bake) lands on /healthz
+                    server.record_swap_failure(str(body["reason"]))
+                    report = dict(report, reason=str(body["reason"]))
+                self._send(200 if ok else 500, report)
+            except BrokenPipeError:
+                pass
+            except Exception as e:  # noqa: BLE001 - a bad request must
+                self._send(400, {"error": str(e)})  # never kill serving
 
         def do_POST(self) -> None:  # noqa: N802 - stdlib API
-            if self.path.split("?", 1)[0].rstrip("/") != "/v1/generate":
+            path = self.path.split("?", 1)[0].rstrip("/")
+            if path == "/v1/swap" and server.rollout_enabled:
+                self._do_swap()
+                return
+            if path != "/v1/generate":
                 self._send(404, {"error": "unknown path"})
                 return
             try:

@@ -59,6 +59,47 @@ FLAGS.define("serve_continuous", True,
 FLAGS.define("kv_pool_pages", 128,
              "physical pages in the shared serving KV pool")
 FLAGS.define("kv_page_size", 16, "tokens per KV page")
+FLAGS.define("serve_slo_ms", 0.0,
+             "optional p99 TTFT SLO in milliseconds: when > 0 the "
+             "server's stats() and /healthz report ttft_p99_ms and "
+             "slo_met from the serve_ttft_seconds windowed p99 (last "
+             "60 s); 0 leaves /healthz byte-identical")
+FLAGS.define("slo", "",
+             "declarative serving SLOs evaluated on the reporter thread "
+             "(observe/slo.py): objectives joined with ',' or ';' in "
+             "metric:statOPthreshold:window grammar, e.g. "
+             "'serve_ttft_seconds:p99<0.5:60s' (stat pNN or rate, OP < "
+             "or >, window Ns or Nm); empty = no engine")
+FLAGS.define("rollout", True,
+             "the train->serve pipeline (serving/rollout.py): checkpoint "
+             "watcher and hot swap of exported artifacts into the live "
+             "InferenceServer between decode steps, with rollback on a "
+             "failed verify/load/probe; false is the kill switch "
+             "(request_swap refuses, POST /v1/swap is an unknown path, "
+             "/healthz keeps its pre-rollout body)")
+FLAGS.define("rollout_poll_s", 5.0,
+             "checkpoint-watcher poll interval in seconds")
+FLAGS.define("rollout_inflight", "drain",
+             "in-flight requests at the swap's flip: 'drain' finishes "
+             "them on the old model first (admissions pause), "
+             "'reprefill' flips at once and restarts them from the "
+             "prompt on the new model")
+FLAGS.define("rollout_quantize", "int8",
+             "serving-artifact quantization of the watcher's export "
+             "(int8 per-channel weights, or 'none')")
+FLAGS.define("rollout_export_dir", "",
+             "where the checkpoint watcher writes model-<digest> "
+             "artifacts; empty = <save_dir>/export")
+FLAGS.define("rollout_canary", False,
+             "bake a swapped-in model for --rollout_bake_s and roll "
+             "back to its predecessor when its windowed p99 TTFT or "
+             "error rate exceeds --rollout_canary_factor x the "
+             "pre-swap baseline")
+FLAGS.define("rollout_bake_s", 0.0,
+             "canary bake duration in seconds (--rollout_canary)")
+FLAGS.define("rollout_canary_factor", 2.0,
+             "canary breach threshold: factor x baseline p99 TTFT or "
+             "error rate (any errors breach an error-free baseline)")
 # precision policy (core/dtypes.py) and the mixed-precision train step
 FLAGS.define("use_bf16", True, "run matmul compute in bfloat16")
 FLAGS.define("bf16_activations", False,

@@ -16,9 +16,10 @@
   counterpart of — and the same span names and parentage.
 - The port's own pieces: the step's fence (``block_until_ready``), the
   timers' ``--enable_timers``, the memory gauges on the CPU, the SIGTERM
-  flush, ``enable_fp_exceptions``, the refusals of A10b and A6
-  (``tests/test_torch_port_rules.py`` holds that importing
-  ``paddle_tpu_torch.observe`` loads no torch).
+  flush, ``enable_fp_exceptions``, the refusals of A10b, the SLO
+  engine found on ``/slo`` and ``/healthz`` (``tests/test_torch_slo.py``
+  holds the engine itself; ``tests/test_torch_port_rules.py`` holds
+  that importing ``paddle_tpu_torch.observe`` loads no torch).
 
 Each test resets the port's registry, trace, reporter, endpoint and
 handlers in a fixture of this file (``tests/conftest.py`` resets the JAX
@@ -495,6 +496,24 @@ def test_histogram_reservoir_bounded_over_a_million_observations():
     assert h.quantile(0.99) == 1.0
 
 
+def test_histogram_reservoir_does_not_depend_on_the_clock():
+    """The lifetime reservoir's draws come from their own stream: how
+    many window buckets the observations span (the clock) does not move
+    its samples, so the sampled quantiles are the same however slowly a
+    loaded machine observes."""
+    def samples(step):
+        t = [0.0]
+
+        def clock():
+            t[0] += step
+            return t[0]
+        h = Histogram("step_seconds", sample_cap=64, clock=clock)
+        for v in np.random.RandomState(7).uniform(0.0, 100.0, size=20_000):
+            h.observe(float(v))
+        return [h.sample_quantile(q) for q in (0.1, 0.5, 0.99)]
+    assert samples(0.0) == samples(1e-3) == samples(7.0)
+
+
 def test_histogram_reservoir_exact_under_cap():
     h = Histogram("lat", sample_cap=64)
     for v in [1.0, 2.0, 3.0, 4.0, 5.0]:
@@ -774,8 +793,7 @@ def test_enable_fp_exceptions_traps_at_the_op():
 
 def test_unported_observe_modules_refuse_by_name():
     for name, queue in (("fleet", "A10b"), ("benchgate", "A10b"),
-                        ("health", "A10b"), ("costmodel", "A10b"),
-                        ("slo", "A6")):
+                        ("health", "A10b"), ("costmodel", "A10b")):
         with pytest.raises(PaddleTpuError, match=f"{name}.*{queue}"):
             getattr(observe, name)
     with pytest.raises(PaddleTpuError, match="A10b"):
@@ -784,3 +802,35 @@ def test_unported_observe_modules_refuse_by_name():
         MetricsReporter(fleet_addr="h:1")
     with pytest.raises(AttributeError):
         observe.no_such_thing
+
+
+def test_slo_engine_found_on_slo_and_healthz():
+    """The SLO engine (no longer refused): ``--slo`` through
+    :func:`observe.start_from_flags` brings it in, and the endpoint's
+    ``sys.modules`` probe finds it on ``/slo`` and ``/healthz``, as in a
+    JAX process with ``--slo`` set."""
+    import json
+    import urllib.request
+    from paddle_tpu_torch.observe import slo
+    from paddle_tpu_torch.observe.http import ObservabilityServer
+    saved = FLAGS.get("slo")
+    FLAGS.set("slo", "serve_ttft_seconds:p99<0.5:60s")
+    try:
+        assert observe.start_from_flags() is not None   # --slo alone
+        eng = slo.active_engine()
+        assert eng is not None
+        for _ in range(50):
+            observe.histogram("serve_ttft_seconds", "ttft").observe(2.0)
+        with ObservabilityServer(port=0) as srv:
+            base = f"http://127.0.0.1:{srv.port}"
+            with urllib.request.urlopen(base + "/slo", timeout=30) as r:
+                doc = json.loads(r.read())
+            with urllib.request.urlopen(base + "/healthz",
+                                        timeout=30) as r:
+                health = json.loads(r.read())
+        assert doc["breached"] == ["serve_ttft_seconds:p99<0.5:60s"]
+        assert health["slo"]["status"] == "breach"
+        assert health["status"] == "degraded"
+    finally:
+        FLAGS.set("slo", saved)
+        slo.reset()

@@ -3,7 +3,8 @@
 - It imports neither JAX nor anything of the JAX package, and importing
   its telemetry core (``observe``) loads no torch.
 - Its entry points run on CUDA unless asked for the CPU, and raise when
-  CUDA is absent instead of moving to the CPU.
+  CUDA is absent instead of moving to the CPU; importing the serving
+  loader loads no layer engine.
 - Its kernel wrappers count launches only where a kernel is launched
   (never on CPU tensors), and check dtype and contiguity first.
 """
@@ -59,6 +60,81 @@ def test_telemetry_core_files_are_ported_and_scanned():
     for rel in A10A_FILES:
         assert (jax_pkg / rel).is_file()
         assert rel in scanned
+
+
+#: queue A6's remainder: the JAX package's files and the port's
+#: counterparts at the same paths
+A6_FILES = ("serving/rollout.py", "observe/slo.py", "testing/__init__.py",
+            "testing/fault.py")
+
+
+def test_rollout_slo_and_testing_files_are_ported_and_scanned():
+    jax_pkg = PORT.parent / "paddle_tpu"
+    scanned = {str(f.relative_to(PORT)) for f in PORT.rglob("*.py")}
+    for rel in A6_FILES:
+        assert (jax_pkg / rel).is_file()
+        assert rel in scanned
+        assert not set(_imported_roots(PORT / rel)) & FORBIDDEN
+
+
+def test_importing_the_loader_loads_no_layer_engine():
+    """A process that only loads artifacts imports no ``layers``,
+    ``config``, ``trainer`` or ``framework`` (the reference's capi
+    boundary); the kernel-op module is imported at ``ServedModel.load``."""
+    import subprocess
+    import sys
+    code = ("import sys, paddle_tpu_torch.serving.loader; "
+            "bad = [m for m in sys.modules if m.startswith(tuple("
+            "'paddle_tpu_torch.' + p for p in ('layers', 'config', "
+            "'trainer', 'framework')))]; "
+            "sys.exit(3 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(PORT.parent),
+                          timeout=120)
+    assert proc.returncode == 0
+
+
+def test_serving_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """``ServedModel.load`` and the hot swap's model build run on the
+    card unless the CPU is asked for (the swap builds on the serving
+    model's device)."""
+    from paddle_tpu_torch.serving import ServedModel, export_inference_fn
+    from paddle_tpu_torch.serving.rollout import swap_from_artifact
+    from paddle_tpu_torch.serving.server import InferenceServer
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    d = str(tmp_path / "fn")
+    export_inference_fn(lambda feed: {"y": feed["x"] * 2},
+                        {"x": np.ones((2, 3), np.float32)}, d, ["y"])
+    for device in (None, "cuda"):
+        with pytest.raises(PaddleTpuError, match="no CUDA device"):
+            ServedModel.load(d, device=device)
+    assert ServedModel.load(d, device="cpu")(
+        x=np.ones((2, 3), np.float32))["y"].tolist() == [[2.0] * 3] * 2
+    art = str(tmp_path / "dec")
+    tm.export_decoder(tm.init_decoder_params(CFG, seed=1), CFG, art)
+    with pytest.raises(PaddleTpuError, match="no CUDA device"):
+        tm.DecoderModel.from_artifact(art)
+    srv = InferenceServer(tm.DecoderModel(tm.init_decoder_params(CFG), CFG,
+                                          device="cpu"),
+                          max_batch=2, n_pages=17, page_size=8)
+    with srv:
+        assert swap_from_artifact(srv, art)["result"] == "ok"
+        assert all(t.device.type == "cpu"
+                   for t in srv.model.params.values())
+
+
+def test_unported_rollout_pieces_refuse_by_name():
+    from paddle_tpu_torch.serving.rollout import RollingCoordinator
+    from paddle_tpu_torch.testing import fault
+    with pytest.raises(PaddleTpuError, match="A10b"):
+        RollingCoordinator("127.0.0.1:1", [])
+    with pytest.raises(PaddleTpuError, match="A10b"):
+        fault.FleetPusherProcess("127.0.0.1:1", "x")
+    with pytest.raises(PaddleTpuError, match="fleet_addr.*A10b"):
+        fault.TrainerLoopProcess("/nonexistent", fleet_addr="h:1")
+    with pytest.raises(PaddleTpuError, match="A9"):
+        fault.MasterServerProcess("/nonexistent")
+    with pytest.raises(PaddleTpuError, match="A9"):
+        fault.drop_master_connection(object())
 
 
 def test_importing_observe_loads_no_torch():

@@ -272,8 +272,8 @@ def test_endpoints_metrics_healthz_trace():
         with pytest.raises(urllib.error.HTTPError) as ei:
             _get(srv.port, "/nope")
         assert ei.value.code == 404
-        # the reports of queues A10b and A6 answer as a JAX process that
-        # never loaded their modules
+        # the reports of queue A10b, and /slo with no --slo engine,
+        # answer as a JAX process that never loaded their modules
         for path in ("/roofline", "/health", "/slo"):
             with pytest.raises(urllib.error.HTTPError) as ei:
                 _get(srv.port, path)
