@@ -297,6 +297,36 @@ Phases (any failure exits nonzero, without the final ``ok`` line):
    multiple of 128, reversed; (3, 1, 642), one step and H % 4 != 0;
    (128, 100, 1280) and (128, 100, 2048) with the bench feed's lengths;
    tolerances of 3b;
+4z-dist. the multi-device slice at 4d's width (the LSTM row: B 128
+   global, T 100, H 512, fp32, kernels 8 and 9), its child processes
+   started together at the phase's start, each with a deadline: (a)
+   world 1 over NCCL in this process (``initialize_cluster`` on the
+   card, one all-reduce): ``--fsdp`` on and off under the ``{data: 1}``
+   mesh, 3 steps each, bit-identical parameters, 3 x 2 launches each of
+   kernels 8 and 9 each way; (b) two ranks sharing the card over gloo
+   (``backend="gloo"``; PyTorch's gloo carries every collective the port
+   uses on CUDA tensors but point-to-point sends, so ring attention is
+   left to the CPU tests): 4 data-parallel steps of global B 128 (64 a
+   rank) against one rank's run of the same 4 batches on the card —
+   each rank's parameters within ``DIST_PARAM_RTOL`` of the one rank's
+   (||d|| / ||update||, set between the honest reading and a planted
+   fault's, rank 1 keeping its own gradient, which must exceed it), the
+   losses within ``DIST_LOSS_RTOL``; the same under ``--fsdp`` with
+   ``lstm_fsdp_rules``: params + opt_state bytes per rank <= 0.55 x the
+   replicated run's, a sharded checkpoint whose parameters load into one
+   rank bit for bit; 4 x 2 launches each of kernels 8 and 9 a rank and
+   run; (c) ``python -m paddle_tpu_torch master`` with a snapshot file,
+   the LSTM row's samples as a record file of 12 chunks of 128; a
+   trainer child reads them through ``cloud_reader`` (checkpointing
+   after each chunk) and is SIGKILLed after 4 chunks; a fresh child
+   resumes under ``ElasticTrainer`` (True, samples_seen > 0) and drains
+   the pass; the master ends with pending 0, no chunk failed, the epoch
+   reset (12 to do, epoch 1); kernels 8 and 9 launched in both
+   children.  Readings: ms/step of one rank alone and of two ranks
+   sharing the card (no scaling figure: they share the SMs), the gloo
+   all-reduce's ms a step, a pass of ``Trainer.train`` fed by the master
+   through ``cloud_reader`` beside one over the same chunks in memory in
+   the same child (samples/s), a lease RPC's us, the resume's seconds;
 4g. the blocked main path: the classifier at H 1280 (``bench.py``'s
    ``bench_lstm_1280`` row: its feed, its optimizer) under its flags
    ``use_bf16`` and ``bf16_activations``: 3 warm and 10 timed steps,
@@ -459,7 +489,7 @@ Phases 3b-4f are PR 2's H 512 phases and run in fp32 (``use_bf16``
 off), so their readings stay comparable, as do 4z-loop and 4z-small.
 The order of the run: 1-3f, 3g-3i, 4-4f, 4z-loop, 4z-small, 4z-ckpt,
 4z-opt, 4z-cli, 4z-dense, 4z-gen, 4z-tag, 4z-image, 4z-v2, 4z-fw,
-4z-obs, 4z-roll, 4g-4k, 4l-4p, 4z-image (d), 4q-4r, 4t, 4v, 4s, 4u,
+4z-obs, 4z-roll, 4z-dist, 4g-4k, 4l-4p, 4z-image (d), 4q-4r, 4t, 4v, 4s, 4u,
 4w-4z, 4-sparse, 5.  Each phase's wall seconds (keyed by the id of its
 ``== phase`` line; a phase logged again adds to its entry) and the
 total are printed as one ``{"phase_seconds": {...}}`` line before the
@@ -8499,6 +8529,651 @@ def phase_roll(dev):
     return res, roll_counts, served_counts
 
 
+# ------------------------------------------------- 4z-dist: multi-device
+#: 4z-dist's gate on the 2-rank data-parallel parameters: each rank's
+#: ||p - p_one|| / ||p_one - p_0||, max over parameters, against the one
+#: rank's run of the same 4 global batches.  Set between the honest
+#: reading, 4.53e-4 for DP and FSDP alike, and the planted fault's (rank
+#: 1 keeping its own gradient), 5.50 (the phase's first run on the H100)
+DIST_PARAM_RTOL = 1e-2
+#: the losses (the ranks' reduced mean against the one rank's)
+DIST_LOSS_RTOL = 1e-4
+DIST_STEPS, DIST_KILL_AFTER, DIST_CHUNKS = 4, 4, 12
+DIST_DEADLINE_S, DIST_TASK_TIMEOUT_S = 120.0, 5.0
+
+#: a 4z-dist child process runs :func:`_dist_child` with its kind, its
+#: spec (JSON) and its rank or mode as arguments
+_DIST_CHILD = "import chip_smoke; chip_smoke._dist_child()"
+
+
+def _dist_child() -> None:
+    """Entry of a 4z-dist child: ``python -c "$_DIST_CHILD" rank|elastic
+    <spec JSON> <rank|first|resume>``."""
+    kind, spec, arg = sys.argv[1], json.loads(sys.argv[2]), sys.argv[3]
+    {"rank": _dist_rank, "elastic": _dist_elastic}[kind](spec, arg)
+
+
+def _dist_prepare(spec):
+    """The children's common start: the script's flags, the card, and a
+    builder of the LSTM row's trainer → (device, builder)."""
+    import torch
+    from paddle_tpu_torch.utils import FLAGS
+    for k, v in spec["flags"].items():
+        FLAGS.set(k, v)
+    dev = torch.device(spec["device"])
+    from paddle_tpu_torch.config.model_config import OptimizationConfig
+    from paddle_tpu_torch.layers.network import NeuralNetwork
+    from paddle_tpu_torch.models import lstm_text_classifier
+    from paddle_tpu_torch.trainer.trainer import Trainer
+
+    def trainer(**kw):
+        return Trainer(NeuralNetwork(lstm_text_classifier(**spec["dims"])),
+                       OptimizationConfig(**spec["opt"]), seed=0,
+                       device=dev, **kw)
+    return dev, trainer
+
+
+def _dist_launches() -> dict:
+    from paddle_tpu_torch.ops import lstm as L
+    return {"lstm_fwd": L.lstm_fwd.launches, "lstm_bwd": L.lstm_bwd.launches}
+
+
+def _dist_wait_go() -> None:
+    """Report the imports and the model built, then wait for "GO" on
+    stdin (the parent starts the children early and releases them in
+    turn, so the card runs one phase at a time)."""
+    print("READY", flush=True)
+    if sys.stdin.readline().strip() != "GO":
+        sys.exit(3)
+
+
+def _dist_rank(spec, rank) -> None:
+    """(b) one rank of the 2-rank job on the card over gloo: DP, the
+    planted fault, FSDP (with a sharded save); each rank writes its
+    parameters."""
+    dev, trainer = _dist_prepare(spec)
+    from paddle_tpu_torch.core.device import build_mesh
+    from paddle_tpu_torch.distributed import launch
+    from paddle_tpu_torch.observe import memory
+    from paddle_tpu_torch.ops import lstm as L
+    from paddle_tpu_torch.parallel import lstm_fsdp_rules
+    from paddle_tpu_torch.parallel.sharding import full_tensor
+    rank = int(rank)
+    launch.initialize_cluster(spec["addr"], 2, rank, device=dev,
+                              backend="gloo", timeout_s=60.0)
+    mesh = build_mesh({"data": 2})
+    # the global batches: each rank takes its rows of them
+    feeds = [train_feed(seed, spec["b"], spec["t"],
+                        spec["dims"]["vocab_size"], dev)
+             for seed in range(spec["steps"])]
+    runs = {"dp": dict(),
+            "fsdp": dict(fsdp=True, fsdp_rules=lstm_fsdp_rules()),
+            "planted": dict()}
+    built = {name: trainer(mesh=mesh, **kw) for name, kw in runs.items()}
+    _dist_wait_go()
+    out = {}
+    for name, tr in built.items():
+        reduce_s = []
+        if name != "fsdp":
+            orig = tr._reduce_grads
+
+            def timed(grads, orig=orig, name=name, reduce_s=reduce_s):
+                sync(dev)
+                t0 = time.perf_counter()
+                red = orig(grads)
+                sync(dev)
+                reduce_s.append(time.perf_counter() - t0)
+                if name == "planted" and rank == 1:
+                    return grads        # the fault: rank 1 keeps its own
+                return red
+            tr._reduce_grads = timed
+        L.reset_launch_counts()
+        losses, step_s = [], []
+        for f in feeds:
+            sync(dev)
+            t0 = time.perf_counter()
+            losses.append(float(tr.train_one_batch(f)))
+            sync(dev)
+            step_s.append(time.perf_counter() - t0)
+        count, slots = tr.opt_state
+        # the first step of a run pays its warm-up (the child's first use
+        # of the kernels and the collectives): the time is the later
+        # steps'
+        res = {"losses": losses,
+               "ms_per_step": 1e3 * sum(step_s[1:]) / (len(step_s) - 1),
+               "reduce_ms_per_step": 1e3 * sum(reduce_s[1:])
+               / max(len(reduce_s) - 1, 1),
+               "launches": _dist_launches(),
+               "param_bytes": sum(memory.per_chip_bytes(p)
+                                  for p in tr.params.values()),
+               "opt_bytes": sum(memory.per_chip_bytes(x)
+                                for s in slots.values() for x in s)}
+        params = {n: full_tensor(p).cpu().numpy()
+                  for n, p in tr.params.items()}
+        np.savez(os.path.join(spec["tmp"], f"{name}-rank{rank}.npz"),
+                 **params)
+        if name == "fsdp":
+            res["ckpt"] = tr.save(os.path.join(spec["tmp"], "fsdp_ckpt"), 0)
+        out[name] = res
+    launch.shutdown_cluster()
+    print("DIST " + json.dumps(out), flush=True)
+
+
+def _dist_elastic(spec, mode) -> None:
+    """(c) a trainer fed by the master: "first" reads through
+    cloud_reader, checkpoints after every chunk and stops after
+    spec["kill_after"] (the parent SIGKILLs it there); "resume" resumes
+    under ElasticTrainer and drains the pass (the master's counts then),
+    then times a whole pass of Trainer.train through cloud_reader and one
+    over the same chunks in memory."""
+    import pickle
+    dev, trainer = _dist_prepare(spec)
+    from paddle_tpu_torch.data import recordio as rio
+    from paddle_tpu_torch.data.feeder import (DataFeeder, integer_value,
+                                              integer_value_sequence)
+    from paddle_tpu_torch.data.reader import batch, cloud_reader
+    from paddle_tpu_torch.distributed import ElasticTrainer, MasterClient
+    from paddle_tpu_torch.ops import lstm as L
+    from paddle_tpu_torch.utils import FLAGS
+    v = spec["dims"]["vocab_size"]
+    feeder = DataFeeder([("data", integer_value_sequence(v)),
+                         ("label", integer_value(2))], buckets=[spec["t"]])
+
+    def load_chunk(payload):
+        path, off = payload.rsplit("\t", 1)
+        return [pickle.loads(r) for r in rio.read_chunk(path, int(off))]
+
+    tr = trainer()
+    client = MasterClient(spec["master"], retry_max=5)
+    et = ElasticTrainer(tr, client, load_chunk, spec["save_dir"],
+                        trainer_id=f"trainer-{mode}", checkpoint_every_s=1e9)
+    _dist_wait_go()
+    L.reset_launch_counts()
+    if mode == "first":
+        reader = batch(cloud_reader(spec["path"], client, read_ahead=1),
+                       spec["b"])
+        for i, samples in enumerate(reader()):
+            tr.train_one_batch(feeder.convert(samples))
+            et._maybe_checkpoint(0, force=True)
+            print("CHUNK " + json.dumps({"chunk": i + 1,
+                                         **_dist_launches()}), flush=True)
+            if i + 1 == spec["kill_after"]:
+                time.sleep(600)          # the parent kills it here
+        sys.exit(4)
+    t0 = time.perf_counter()
+    ok = et.resume()
+    resume_s = time.perf_counter() - t0
+    seen = tr.samples_seen
+    sync(dev)
+    t0 = time.perf_counter()
+    et.train(feeder, batch_size=spec["b"], num_epochs=1)
+    sync(dev)
+    drain_s = time.perf_counter() - t0
+    res = {"resumed": ok, "samples_seen_at_resume": seen,
+           "resume_s": resume_s, "drained_samples": tr.samples_seen - seen,
+           "drain_s": drain_s, "launches": _dist_launches(),
+           "counts": client.counts(), "epoch": client.current_epoch()}
+    # a whole pass of Trainer.train fed by the master, then one over the
+    # same chunks in memory, on the same trainer
+    FLAGS.set("save_dir", "")
+    chunks = [load_chunk(p) for p in rio.chunk_payloads(spec["path"])]
+    for name, reader in (
+            ("master", batch(cloud_reader(spec["path"], client,
+                                          read_ahead=1), spec["b"])),
+            ("memory", lambda: iter(chunks))):
+        n0 = tr.samples_seen
+        sync(dev)
+        t0 = time.perf_counter()
+        tr.train(reader, num_passes=1, feeder=feeder)
+        sync(dev)
+        res[f"{name}_s"] = time.perf_counter() - t0
+        res[f"{name}_samples"] = tr.samples_seen - n0
+    print("ELASTIC " + json.dumps(res), flush=True)
+
+
+class _DistChild:
+    """A 4z-dist child process: started early, released with ``go()``;
+    threads drain its stdout (into a queue) and its stderr; killed at its
+    deadline (the phase then fails)."""
+
+    def __init__(self, kind, args, env, name):
+        import queue
+        import threading
+        self.name = name
+        self.deadline = time.monotonic() + DIST_DEADLINE_S
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", _DIST_CHILD, kind, *args], env=env,
+            text=True,
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE)
+        self.out, self.err = queue.Queue(), []
+
+        def pump(stream, sink):
+            for ln in stream:
+                sink(ln)
+            if sink == self.out.put:
+                self.out.put(None)
+        for stream, sink in ((self.proc.stdout, self.out.put),
+                             (self.proc.stderr, self.err.append)):
+            threading.Thread(target=pump, args=(stream, sink),
+                             daemon=True).start()
+
+    def line(self, prefix):
+        """The next stdout line starting with ``prefix`` (fails at the
+        deadline or when the child ends first)."""
+        import queue
+        while True:
+            left = self.deadline - time.monotonic()
+            if left <= 0:
+                self.kill()
+                fail(f"4z-dist: {self.name} passed its "
+                     f"{DIST_DEADLINE_S:.0f} s deadline: "
+                     f"{''.join(self.err)[-2000:]}")
+            try:
+                ln = self.out.get(timeout=min(left, 1.0))
+            except queue.Empty:
+                continue
+            if ln is None:
+                fail(f"4z-dist: {self.name} ended ({self.proc.wait()}) "
+                     f"before {prefix!r}: {''.join(self.err)[-3000:]}")
+            if ln.startswith(prefix):
+                return ln[len(prefix):].strip()
+
+    def go(self):
+        self.proc.stdin.write("GO\n")
+        self.proc.stdin.flush()
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+
+    def wait(self):
+        left = max(self.deadline - time.monotonic(), 0.1)
+        try:
+            rc = self.proc.wait(timeout=left)
+        except subprocess.TimeoutExpired:
+            self.kill()
+            fail(f"4z-dist: {self.name} passed its deadline")
+        if rc != 0:
+            fail(f"4z-dist: {self.name} exited {rc}: "
+                 f"{''.join(self.err)[-3000:]}")
+
+
+def _dist_rel(got, want, start):
+    """max over parameters of ||got - want|| / ||want - start||."""
+    worst = 0.0
+    for n, w in want.items():
+        step = float(np.linalg.norm(w - start[n]))
+        worst = max(worst, float(np.linalg.norm(got[n] - w))
+                    / max(step, 1e-30))
+    return worst
+
+
+def phase_dist_nccl(dev):
+    """4z-dist (a): world 1 over NCCL in this process: ``--fsdp`` on and
+    off under the ``{data: 1}`` mesh, 3 steps each at the LSTM row's
+    width, bit-identical parameters, kernels 8 and 9 launched on both."""
+    import torch
+    import torch.distributed as dist
+    from paddle_tpu_torch.config.model_config import OptimizationConfig
+    from paddle_tpu_torch.core.device import get_mesh
+    from paddle_tpu_torch.distributed import launch
+    from paddle_tpu_torch.layers.network import NeuralNetwork
+    from paddle_tpu_torch.models import lstm_text_classifier
+    from paddle_tpu_torch.trainer.trainer import Trainer
+    launch.initialize_cluster(f"127.0.0.1:{_obs_free_port()}", 1, 0,
+                              device=dev, timeout_s=60.0)
+    try:
+        if dist.get_backend() != "nccl":
+            fail(f"4z-dist (a): backend {dist.get_backend()}, not nccl")
+        probe = torch.ones(4, device=dev)
+        dist.all_reduce(probe)
+        mesh = get_mesh(refresh=True)
+        if mesh.shape != {"data": 1}:
+            fail(f"4z-dist (a): mesh {mesh.shape}")
+        feed = train_feed(0, TRAIN_B, TRAIN_T, TRAIN["vocab_size"], dev)
+        params, counts = {}, {}
+        for fsdp in (True, False):
+            tr = Trainer(NeuralNetwork(lstm_text_classifier(**TRAIN)),
+                         OptimizationConfig(**TRAIN_OPT), seed=0,
+                         device=dev, mesh=mesh, fsdp=fsdp)
+            if tr._resolve_specs() is not None:
+                fail("4z-dist (a): --fsdp placed parameters on a {data: 1} "
+                     "mesh")
+            launches, losses, ms, _, _ = timed_steps(tr, feed, 3)
+            counts[fsdp] = {k: launches[k] for k in TRAINING_KERNELS}
+            params[fsdp] = {n: p.detach().clone()
+                            for n, p in tr.params.items()}
+            del tr
+    finally:
+        launch.shutdown_cluster()
+    same = all(torch.equal(params[True][n], params[False][n])
+               for n in params[False])
+    want = 3 * TRAIN["lstm_num"]
+    if not same or any(c[k] != want for c in counts.values()
+                       for k in TRAINING_KERNELS):
+        fail(f"4z-dist (a): fsdp on/off bit-identical {same}, launches "
+             f"{counts} (want {want} each)")
+    log(f"  (a) NCCL world 1: --fsdp on and off bit-identical after 3 "
+        f"steps; kernels 8 and 9 {counts[True]} each way")
+    cli = phase_dist_cli()
+    return {"bit_identical": same, "launches": counts[True],
+            "launches_off": counts[False], "cli": cli}
+
+
+def phase_dist_cli():
+    """4z-dist (a), the entry point: ``python -m paddle_tpu_torch train
+    --distributed --fsdp`` (in process) as rank 0 of a one-process job
+    from the ``PADDLE_*`` environment, 2 steps of the LSTM row: the CLI
+    joins an NCCL group on the card and trains through kernels 8 and 9."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from paddle_tpu_torch.distributed import launch
+    from paddle_tpu_torch.utils import FLAGS
+    env = {"PADDLE_COORDINATOR": f"127.0.0.1:{_obs_free_port()}",
+           "PADDLE_NUM_NODES": "1", "PADDLE_NODE_ID": "0"}
+    old_env = {k: os.environ.get(k) for k in env}
+    old_fsdp = FLAGS.get("fsdp")
+    joined = {}
+    real_init = dist.init_process_group
+
+    def init(*a, **kw):
+        real_init(*a, **kw)
+        joined.update(backend=dist.get_backend(),
+                      card=torch.cuda.current_device())
+    steps = 2
+    os.environ.update(env)
+    dist.init_process_group = init
+    try:
+        with tempfile.TemporaryDirectory() as save_dir:
+            _, launches = run_cli(
+                ["train", "--config", os.path.abspath(CLI_CONFIG),
+                 "--config_args", f"num_samples={steps * TRAIN_B}",
+                 "--num_passes", "1", "--save_dir", save_dir,
+                 "--distributed", "--fsdp"],
+                {"lstm_fwd": 2 * steps, "lstm_bwd": 2 * steps},
+                "train --distributed --fsdp")
+        launches = {k: launches[k] for k in TRAINING_KERNELS}
+    finally:
+        dist.init_process_group = real_init
+        launch.shutdown_cluster()
+        FLAGS.set("fsdp", old_fsdp)
+        for k, v in old_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if joined != {"backend": "nccl", "card": 0}:
+        fail(f"4z-dist (a): train --distributed joined {joined}, not NCCL "
+             f"on card 0")
+    log(f"  (a) train --distributed --fsdp from PADDLE_*: NCCL world 1 on "
+        f"card 0, {steps} steps, kernels 8 and 9 {launches}")
+    return launches
+
+
+def phase_dist(dev, dims=TRAIN):
+    """Phase 4z-dist: the multi-device slice on one card (``dims``: the
+    LSTM row's; a CPU rehearsal passes smaller ones and skips (a))."""
+    import pickle
+    import tempfile
+
+    from paddle_tpu_torch.config.model_config import OptimizationConfig
+    from paddle_tpu_torch.data import recordio as rio
+    from paddle_tpu_torch.layers.network import NeuralNetwork
+    from paddle_tpu_torch.models import lstm_text_classifier
+    from paddle_tpu_torch.trainer.trainer import Trainer
+    from paddle_tpu_torch.utils import FLAGS
+    t_phase = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(
+        os.path.abspath(__file__)) + os.pathsep
+        + os.environ.get("PYTHONPATH", ""))
+    flags = {k: FLAGS.get(k) for k in ("use_bf16", "bf16_activations",
+                                       "precision", "fused_rnn_hblock")}
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        base = {"flags": flags, "dims": dims, "opt": TRAIN_OPT,
+                "b": TRAIN_B, "t": TRAIN_T, "tmp": tmp,
+                "device": str(dev)}
+        # (c)'s data: the LSTM row's samples as record files, 12 chunks
+        rng = np.random.RandomState(7)
+        path = os.path.join(tmp, "lstm-00000.rec")
+        with rio.Writer(path, max_records_per_chunk=TRAIN_B) as w:
+            for _ in range(DIST_CHUNKS * TRAIN_B):
+                t = int(rng.randint(TRAIN_T // 2, TRAIN_T + 1))
+                w.write(pickle.dumps((
+                    rng.randint(0, dims["vocab_size"], t).tolist(),
+                    int(rng.randint(0, 2)))))
+        master_log = open(os.path.join(tmp, "master.log"), "w")
+        master = subprocess.Popen(
+            [sys.executable, "-m", "paddle_tpu_torch", "master", "--port",
+             "0", "--local_only", "--snapshot", os.path.join(tmp, "snap"),
+             "--task_timeout", str(DIST_TASK_TIMEOUT_S)], env=env,
+            text=True, stdout=subprocess.PIPE, stderr=master_log)
+        children = []
+        try:
+            addr = f"127.0.0.1:{_obs_free_port()}"
+            ranks = [_DistChild("rank", [json.dumps(
+                {**base, "addr": addr, "steps": DIST_STEPS}), str(r)],
+                env, f"rank {r}") for r in range(2)]
+            children += ranks
+            line = master.stdout.readline()
+            if "master serving on :" not in line:
+                master_log.flush()
+                fail(f"4z-dist: the master did not start: {line!r} "
+                     f"{open(master_log.name).read()[-2000:]}")
+            maddr = f"127.0.0.1:{int(line.rsplit(':', 1)[1])}"
+            el = {**base, "master": maddr, "path": path,
+                  "save_dir": os.path.join(tmp, "elastic"),
+                  "kill_after": DIST_KILL_AFTER}
+            first = _DistChild("elastic", [json.dumps(el), "first"],
+                               env, "elastic first")
+            second = _DistChild("elastic", [json.dumps(el), "resume"],
+                                env, "elastic resume")
+            children += [first, second]
+            log("  (a) NCCL world 1 in this process")
+            res["nccl"] = phase_dist_nccl(dev) if dev.type == "cuda" \
+                else {"launches": dict.fromkeys(TRAINING_KERNELS, 0),
+                      "launches_off": dict.fromkeys(TRAINING_KERNELS, 0),
+                      "cli": dict.fromkeys(TRAINING_KERNELS, 0)}
+            # (b): the one rank's run of the same 4 global batches
+            feeds = [train_feed(s, TRAIN_B, TRAIN_T, dims["vocab_size"],
+                                dev) for s in range(DIST_STEPS)]
+            one = Trainer(NeuralNetwork(lstm_text_classifier(**dims)),
+                          OptimizationConfig(**TRAIN_OPT), seed=0,
+                          device=dev)
+            start = {n: p.detach().cpu().numpy()
+                     for n, p in one.params.items()}
+            sync(dev)
+            t0 = time.perf_counter()
+            one_losses = [float(one.train_one_batch(f)) for f in feeds]
+            sync(dev)
+            one_ms = (time.perf_counter() - t0) * 1e3 / DIST_STEPS
+            want = {n: p.detach().cpu().numpy()
+                    for n, p in one.params.items()}
+            del one, feeds
+            for r in ranks:
+                r.line("READY")
+            for r in ranks:
+                r.go()
+            out = [json.loads(r.line("DIST ")) for r in ranks]
+            for r in ranks:
+                r.wait()
+            res["gloo"] = _dist_gloo_gates(dev, dims, tmp, out, start,
+                                           want, one_losses, one_ms)
+            # (c): the master feeds the elastic trainers
+            if master.poll() is not None:
+                master_log.flush()
+                fail(f"4z-dist: the master exited ({master.returncode}) "
+                     f"before (c): {open(master_log.name).read()[-3000:]}")
+            try:
+                res["master"] = _dist_master(first, second, maddr,
+                                             dev.type == "cuda")
+            except SystemExit:
+                master_log.flush()
+                log(f"  the master: {master.poll()}, its log: "
+                    f"{open(master_log.name).read()[-3000:]}")
+                raise
+        finally:
+            for c in children:
+                c.kill()
+            master.terminate()
+            try:
+                master.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                master.kill()
+                master.wait()
+            master_log.close()
+    res["seconds"] = time.perf_counter() - t_phase
+    counts = {k: res["nccl"]["launches"][k] + res["nccl"]["launches_off"][k]
+              + res["nccl"]["cli"][k]
+              + res["gloo"]["launches"][k] + res["master"]["launches"][k]
+              for k in TRAINING_KERNELS}
+    log(f"  4z-dist took {res['seconds']:.1f} s; kernels 8 and 9 launched "
+        f"{counts} times across its processes")
+    return res, counts
+
+
+def _dist_gloo_gates(dev, dims, tmp, out, start, want, one_losses,
+                     one_ms):
+    """4z-dist (b)'s gates on the two ranks' results."""
+    rel = {}
+    for name in ("dp", "fsdp", "planted"):
+        rel[name] = max(_dist_rel(dict(np.load(os.path.join(
+            tmp, f"{name}-rank{r}.npz"))), want, start) for r in range(2))
+    loss_err = max(abs(a - b) / abs(b) for r in out for name in ("dp",
+                   "fsdp") for a, b in zip(r[name]["losses"], one_losses))
+    log(f"  (b) 2 ranks over gloo on one card, {DIST_STEPS} steps of global "
+        f"B {TRAIN_B}: parameters vs one rank (||d|| / ||update||, worst "
+        f"parameter and rank) DP {rel['dp']:.3e}, FSDP {rel['fsdp']:.3e}, "
+        f"planted fault (rank 1 keeps its own gradient) "
+        f"{rel['planted']:.3e}; gate {DIST_PARAM_RTOL}; losses within "
+        f"{loss_err:.3e} (gate {DIST_LOSS_RTOL})")
+    if not (rel["dp"] <= DIST_PARAM_RTOL and rel["fsdp"] <= DIST_PARAM_RTOL
+            and rel["planted"] > DIST_PARAM_RTOL
+            and loss_err <= DIST_LOSS_RTOL):
+        fail(f"4z-dist (b): DP {rel['dp']}, FSDP {rel['fsdp']}, planted "
+             f"{rel['planted']} against {DIST_PARAM_RTOL}; losses "
+             f"{loss_err}")
+    want_k = DIST_STEPS * dims["lstm_num"] if dev.type == "cuda" else 0
+    for r, o in enumerate(out):
+        for name in ("dp", "fsdp"):
+            if any(o[name]["launches"][k] != want_k
+                   for k in TRAINING_KERNELS):
+                fail(f"4z-dist (b): rank {r} {name} launches "
+                     f"{o[name]['launches']} (want {want_k} each)")
+        ratio = (o["fsdp"]["param_bytes"] + o["fsdp"]["opt_bytes"]) \
+            / (o["dp"]["param_bytes"] + o["dp"]["opt_bytes"])
+        if ratio > 0.55:
+            fail(f"4z-dist (b): rank {r}'s FSDP params + opt_state are "
+                 f"{ratio:.3f} of the replicated bytes")
+    ckpt = out[0]["fsdp"]["ckpt"]
+    loaded = _dist_load_one(dev, dims, ckpt)
+    fsdp_params = dict(np.load(os.path.join(tmp, "fsdp-rank0.npz")))
+    if any(not np.array_equal(loaded[n], fsdp_params[n]) for n in loaded):
+        fail("4z-dist (b): the sharded checkpoint loads into one rank "
+             "with other parameters")
+    ratio = max((o["fsdp"]["param_bytes"] + o["fsdp"]["opt_bytes"])
+                / (o["dp"]["param_bytes"] + o["dp"]["opt_bytes"])
+                for o in out)
+    m = {"param_rel_dp": rel["dp"], "param_rel_fsdp": rel["fsdp"],
+         "param_rel_planted": rel["planted"], "loss_rel": loss_err,
+         "fsdp_bytes_ratio": ratio,
+         "one_rank_ms_per_step": one_ms,
+         "two_rank_ms_per_step": max(o["dp"]["ms_per_step"] for o in out),
+         "two_rank_fsdp_ms_per_step": max(o["fsdp"]["ms_per_step"]
+                                          for o in out),
+         "gloo_reduce_ms_per_step": max(o["dp"]["reduce_ms_per_step"]
+                                        for o in out),
+         "shard_files": sorted(f for f in os.listdir(ckpt)
+                               if ".shard-" in f),
+         "launches": {k: sum(o[name]["launches"][k] for o in out
+                             for name in ("dp", "fsdp", "planted"))
+                      for k in TRAINING_KERNELS}}
+    log(f"  (b) FSDP params + opt_state per rank {ratio:.3f} of the "
+        f"replicated bytes; sharded checkpoint {m['shard_files']} loads "
+        f"into one rank bit for bit; ms/step one rank alone {one_ms:.2f}, "
+        f"two ranks sharing the card {m['two_rank_ms_per_step']:.2f} (DP) "
+        f"and {m['two_rank_fsdp_ms_per_step']:.2f} (FSDP) -- the ranks "
+        f"share the SMs, so this is no scaling figure; the gloo "
+        f"all-reduce {m['gloo_reduce_ms_per_step']:.2f} ms a step")
+    return m
+
+
+def _dist_load_one(dev, dims, ckpt):
+    """A one-rank trainer on the card loading ``ckpt``: its parameters
+    on the host."""
+    from paddle_tpu_torch.config.model_config import OptimizationConfig
+    from paddle_tpu_torch.layers.network import NeuralNetwork
+    from paddle_tpu_torch.models import lstm_text_classifier
+    from paddle_tpu_torch.trainer.trainer import Trainer
+    tr = Trainer(NeuralNetwork(lstm_text_classifier(**dims)),
+                 OptimizationConfig(**TRAIN_OPT), seed=5, device=dev)
+    tr.load(ckpt)
+    return {n: p.detach().cpu().numpy() for n, p in tr.params.items()}
+
+
+def _dist_master(first, second, maddr, on_card):
+    """4z-dist (c): the first trainer through 4 chunks, SIGKILLed; the
+    second resumes and drains the pass; the master's counts after."""
+    from paddle_tpu_torch.distributed import MasterClient
+    first.line("READY")
+    second.line("READY")
+    first.go()
+    chunk = None
+    for _ in range(DIST_KILL_AFTER):
+        chunk = json.loads(first.line("CHUNK "))
+    first.kill()
+    t_kill = time.perf_counter()
+    second.go()
+    res = json.loads(second.line("ELASTIC "))
+    second.wait()
+    res["kill_to_done_s"] = time.perf_counter() - t_kill
+    counts, epoch = res["counts"], res["epoch"]
+    with MasterClient(maddr, retry_max=2) as c:
+        c.reset_epoch(c.current_epoch() + 1)
+        c.ping()
+        t0 = time.perf_counter()
+        n = 0
+        while True:                # the next epoch's leases, timed
+            tid, payload = c.get_task()
+            if payload is None:
+                break
+            c.task_finished(tid)
+            n += 1
+        rpc_us = (time.perf_counter() - t0) * 1e6 / max(2 * n, 1)
+    first_launches = {k: chunk[k] for k in TRAINING_KERNELS}
+    ok = (res["resumed"] and res["samples_seen_at_resume"] > 0
+          and counts["pending"] == 0 and counts["failed"] == 0
+          and counts["todo"] == DIST_CHUNKS and epoch == 1
+          and all((first_launches[k] > 0 and res["launches"][k] > 0)
+                  == on_card for k in TRAINING_KERNELS))
+    log(f"  (c) master-fed: killed the first trainer after "
+        f"{chunk['chunk']} chunks (kernels 8/9 {first_launches}); the "
+        f"resume returned {res['resumed']} at samples_seen "
+        f"{res['samples_seen_at_resume']} in {res['resume_s']:.2f} s and "
+        f"drained {res['drained_samples']} samples in "
+        f"{res['drain_s']:.2f} s (the killed trainer's leases wait out the "
+        f"{DIST_TASK_TIMEOUT_S:.0f} s task timeout), kernels 8/9 "
+        f"{res['launches']}; master counts {counts}, epoch {epoch}; a "
+        f"pass of Trainer.train fed by the master "
+        f"{res['master_samples'] / res['master_s']:.1f} samples/s, in "
+        f"memory {res['memory_samples'] / res['memory_s']:.1f} samples/s; "
+        f"a lease or finish RPC {rpc_us:.1f} us")
+    if not ok:
+        fail(f"4z-dist (c): resume {res}, counts {counts}, epoch {epoch}, "
+             f"launches {first_launches}")
+    res.update(counts=counts, epoch=epoch, rpc_us=rpc_us,
+               first_launches=first_launches,
+               master_samples_per_s=res["master_samples"] / res["master_s"],
+               memory_samples_per_s=res["memory_samples"] / res["memory_s"],
+               launches={k: first_launches[k] + res["launches"][k]
+                         for k in TRAINING_KERNELS})
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -8643,6 +9318,14 @@ def main() -> int:
         for name in launches:
             launches[name]["roll"] = roll_counts.get(name, 0)
             launches[name]["served"] = served_counts.get(name, 0)
+        log("== phase 4z-dist: the multi-device slice on one card at the "
+            "LSTM row's width: (a) NCCL world 1, --fsdp on and off; (b) 2 "
+            "ranks over gloo, DP and FSDP against one rank, a sharded "
+            "checkpoint; (c) the master feeding an elastic trainer "
+            "through a SIGKILL and a resume (fp32)")
+        dist_res, dist_counts = phase_dist(dev)
+        for name in launches:
+            launches[name]["dist"] = dist_counts.get(name, 0)
         log("== phase 4g: blocked main path, the classifier at H 1280 "
             "under bench.py's flags (use_bf16, bf16_activations)")
         set_flags(**BENCH_FLAGS)
@@ -8784,7 +9467,7 @@ def main() -> int:
                       "training_ckpt": ckpt, "training_opt": opt,
                       "cli": cli, "dense": dense, "gen": gen, "tag": tag,
                       "image": image, "v2": v2res, "fw": fwres,
-                      "obs": obs, "roll": roll,
+                      "obs": obs, "roll": roll, "dist": dist_res,
                       "training_h1280": blocked,
                       "training_h1280_mixed_bf16": mixed,
                       "training_h2048": wide, **resnet, "seq2seq": seq2seq,

@@ -3,12 +3,15 @@
 :func:`fusion_plan` resolves, from the static config, which batch norms
 run fused with the 3×3 conv that produces them and which defer their
 apply pass into the conv that consumes them; :func:`fused_pair_census`
-counts the pairs.
+counts the pairs.  The sharding verifier (:func:`check_sharding`,
+:func:`errors`, :class:`Issue`) is the JAX module's too: what
+``parallel.sharding.verify_rules_or_raise`` reads.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence, Set, Tuple
+import dataclasses
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Set, Tuple
 
 #: conv/BN layer-type families (the ``register_layer`` names of the conv
 #: and batch-norm layers).
@@ -154,3 +157,136 @@ def fused_pair_census(config: Any, fuse_bwd: bool = True,
                if lmap[cv].attrs.get("filter_size") == 3)
     return {"bwd_3x3": len(bwd), "fwd_3x3": fwd3,
             "fwd_1x1": len(fwd) - fwd3}
+
+
+# ------------------------------------------------ the sharding verifier
+@dataclasses.dataclass(frozen=True)
+class Issue:
+    """One verifier finding.  ``path`` is the layer-path provenance:
+    the producer chain that feeds the offending layer (innermost
+    last), prefixed with the sub-model name for group layers."""
+
+    kind: str                # "shape" | "dtype" | "shard"
+    severity: str            # "error" | "warn"
+    where: str               # layer name or rule/param identity
+    message: str
+    path: Tuple[str, ...] = ()
+
+    def render(self) -> str:
+        prov = " -> ".join(self.path)
+        loc = f"{self.where}" + (f" (via {prov})" if prov else "")
+        return f"[{self.kind}/{self.severity}] {loc}: {self.message}"
+
+
+def _spec_axes(spec: Any) -> List[List[str]]:
+    """PartitionSpec-like → per-dim list of mesh-axis names (a dim may
+    carry one axis, a tuple of axes, or None = replicated)."""
+    dims: List[List[str]] = []
+    for entry in tuple(spec):
+        if entry is None:
+            dims.append([])
+        elif isinstance(entry, (tuple, list)):
+            dims.append([str(a) for a in entry])
+        else:
+            dims.append([str(entry)])
+    return dims
+
+
+def check_sharding(rules: Any, param_dims: Dict[str, Sequence[int]],
+                   mesh_axes: Dict[str, int],
+                   strict: bool = False) -> List[Issue]:
+    """Verify a ShardingRules table against a model's parameter tree.
+
+    ``rules``: a ``ShardingRules`` (duck-typed: ``.rules`` list of
+    ``(compiled_pattern, PartitionSpec)``) or the list itself.
+    ``param_dims``: parameter name → dims.  ``mesh_axes``: axis name →
+    size for ONE topology; call once per topology.
+
+    Errors (preflight-fatal): a resolved spec names an unknown mesh
+    axis, or a sharded dim is not divisible by the product of its mesh
+    axes; in ``strict`` mode an unmatched parameter too.  Warnings:
+    unmatched parameters (silently replicated — the table has no
+    opinion), rules that match nothing in this model, higher-priority
+    matches excluded by rank, and multi-matches that first-match-wins
+    resolves (ambiguity worth an explicit pattern).
+    """
+    table = list(getattr(rules, "rules", rules))
+    issues: List[Issue] = []
+    matched_any = [False] * len(table)
+
+    for pname in sorted(param_dims):
+        dims = [int(d) for d in param_dims[pname]]
+        ndim = len(dims)
+        matching = [(i, pat, spec) for i, (pat, spec) in enumerate(table)
+                    if pat.search(pname)]
+        applicable = [(i, pat, spec) for i, pat, spec in matching
+                      if len(tuple(spec)) <= ndim]
+        for i, _, _ in matching:
+            matched_any[i] = True
+        if not matching:
+            issues.append(Issue(
+                "shard", "error" if strict else "warn", pname,
+                f"parameter matches NO sharding rule — silently "
+                f"replicated over the {dict(mesh_axes)} mesh"))
+            continue
+        if not applicable:
+            issues.append(Issue(
+                "shard", "error", pname,
+                f"every matching rule's spec rank exceeds the "
+                f"parameter rank {ndim} (dims {dims}) — the table "
+                "cannot place this parameter (rank-excluded rules: "
+                + ", ".join(f"#{i} {pat.pattern!r}"
+                            for i, pat, _ in matching) + ")"))
+            continue
+        first_i, first_pat, spec = applicable[0]
+        if matching[0][0] != first_i:
+            i, pat, s = matching[0]
+            issues.append(Issue(
+                "shard", "warn", pname,
+                f"highest-priority match #{i} {pat.pattern!r} is "
+                f"rank-excluded (spec rank {len(tuple(s))} > param "
+                f"rank {ndim}); rule #{first_i} {first_pat.pattern!r} "
+                "applies instead — tighten the pattern if unintended"))
+        distinct = {tuple(s) for _, _, s in applicable}
+        if len(distinct) > 1:
+            issues.append(Issue(
+                "shard", "warn", pname,
+                "ambiguous coverage: rules "
+                + ", ".join(f"#{i} {p.pattern!r}→{tuple(s)}"
+                            for i, p, s in applicable)
+                + f" all match; first-match-wins resolves to "
+                  f"#{first_i} {first_pat.pattern!r}"))
+        # divisibility + axis existence of the RESOLVED spec
+        for d, axes in enumerate(_spec_axes(spec)):
+            shard = 1
+            for ax in axes:
+                if ax not in mesh_axes:
+                    issues.append(Issue(
+                        "shard", "error", pname,
+                        f"rule #{first_i} {first_pat.pattern!r} "
+                        f"shards dim {d} over mesh axis {ax!r} which "
+                        f"does not exist in {dict(mesh_axes)}"))
+                    shard = 0
+                    break
+                shard *= int(mesh_axes[ax])
+            if shard > 1 and dims[d] % shard:
+                issues.append(Issue(
+                    "shard", "error", pname,
+                    f"dim {d} of size {dims[d]} is not divisible by "
+                    f"the {'×'.join(axes)} mesh extent {shard} "
+                    f"(rule #{first_i} {first_pat.pattern!r}, dims "
+                    f"{dims}) — this table cannot compile on "
+                    f"{dict(mesh_axes)}"))
+    for i, hit in enumerate(matched_any):
+        if not hit and param_dims:
+            pat, spec = table[i]
+            issues.append(Issue(
+                "shard", "warn", f"rule #{i}",
+                f"pattern {pat.pattern!r} matches no parameter of "
+                "this model — dead rule (or a typo shadowing a real "
+                "one)"))
+    return issues
+
+
+def errors(issues: Iterable[Issue]) -> List[Issue]:
+    return [i for i in issues if i.severity == "error"]

@@ -4,7 +4,8 @@ counterpart of ``paddle_tpu/cli.py``).
 
 Jobs: train / test / time / checkgrad (``--job=``, ``Trainer.cpp:299``,
 ``TrainerBenchmark.cpp``), plus ``merge_model``, ``dump_config``,
-``diagram`` and ``version``.  Config files use the v1 protocol (see
+``diagram``, ``master`` (the standalone data-task master) and
+``version``.  Config files use the v1 protocol (see
 :mod:`paddle_tpu_torch.config.config_parser`).
 
 Usage:
@@ -13,14 +14,18 @@ Usage:
 
 ``train`` runs on CUDA; ``--device cpu`` asks for the plain PyTorch
 versions on the CPU.  With no CUDA device and no ``--device cpu`` it
-raises.  The telemetry options ``--metrics_jsonl``,
+raises.  A data-parallel job is one process a device, each running the
+same command with ``PADDLE_COORDINATOR`` / ``PADDLE_NUM_NODES`` /
+``PADDLE_NODE_ID`` set (``distributed.launch``); ``--mesh_shape`` names
+the mesh over them (default every process on ``data``), ``--fsdp``
+shards parameters and optimizer state over ``data``, and
+``local_sgd_steps`` in the config selects local SGD
+(``parallel.local_sgd.make_trainer``).  The telemetry options ``--metrics_jsonl``,
 ``--metrics_interval_s``, ``--trace_jsonl``, ``--metrics_port``,
 ``--metrics_bind`` and ``--debug_dump_signal`` set their flags, and
 ``observe.start_from_flags`` starts what they configure before the job
 runs, as the reference's CLI does.  What the port lacks refuses by name
-before a job runs: the cluster options (``--distributed``,
-``--mesh_shape``, ``PADDLE_COORDINATOR``, the ``master`` subcommand;
-queue A9), the fleet and health options (``--fleet_addr``,
+before a job runs: the fleet and health options (``--fleet_addr``,
 ``--fleet_port``, ``--fleet_id``, ``--health_interval``; queue A10b),
 and a test every ``--test_period`` batches of ``--job train`` (queue
 A8): the job tests once a pass when the config's data source has a
@@ -80,14 +85,16 @@ def _feeder_for(provider, model):
 
 def _refuse_unported(args) -> None:
     """Refuse, by name and before a job runs, what the port lacks."""
+    if args.command == "master":
+        for name in ("fleet_port", "fleet_bind"):
+            if getattr(args, name) not in (None, ""):
+                raise PaddleTpuError(
+                    f"master --{name} is not ported yet (the fleet "
+                    "aggregator, observe/fleet.py, queue A10b); leave it "
+                    "unset")
+        return
     if args.command != "train":
         return
-    if os.environ.get("PADDLE_COORDINATOR") or args.distributed \
-            or args.mesh_shape:
-        raise PaddleTpuError(
-            "multi-host and mesh training (--distributed, --mesh_shape, "
-            "PADDLE_COORDINATOR) is not ported yet; the port trains on "
-            "one card (queue A9)")
     if args.job == "train" and args.test_period:
         raise PaddleTpuError(
             "--test_period > 0 for --job train (a test every N batches) is "
@@ -101,23 +108,36 @@ def _refuse_unported(args) -> None:
                 "A10b); leave it unset")
 
 
-def _train_device(args):
+def _require_cuda(args) -> None:
     import torch
-
-    from .core.device import resolve_device
     if args.device == "cuda" and not torch.cuda.is_available():
         raise PaddleTpuError(
             "no CUDA device available; pass --device cpu to run the plain "
             "PyTorch versions on the CPU")
-    return resolve_device(args.device)
 
 
 def cmd_train(args) -> int:
     from .config.config_parser import parse_config
+    from .core.device import get_mesh, resolve_device
+    from .distributed.launch import cluster_env, initialize_cluster
     from .layers.network import NeuralNetwork
-    from .trainer.trainer import Trainer
+    from .parallel.local_sgd import make_trainer
 
-    dev = _train_device(args)
+    _require_cuda(args)
+    if cluster_env() or args.distributed:
+        # PADDLE_COORDINATOR set (or --distributed): join the job's
+        # process group, one process a device
+        env = cluster_env()
+        if env and env["coordinator_address"] and not (
+                env["num_processes"] and env["process_id"] is not None):
+            log.error("PADDLE_COORDINATOR requires PADDLE_NUM_NODES "
+                      "and PADDLE_NODE_ID")
+            return 2
+        # a device with no index: the process takes card
+        # PADDLE_NODE_ID mod the host's card count
+        initialize_cluster(device=args.device)
+    # after initialize_cluster, ``cuda`` resolves to this process's card
+    dev = resolve_device(args.device)
     model, opt, ds = parse_config(args.config, args.config_args)
     log.info("config parsed: %d layers, batch_size=%d, method=%s",
              len(model.layers), opt.batch_size, opt.learning_method)
@@ -127,8 +147,10 @@ def cmd_train(args) -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(args.config)))
     try:
         net = NeuralNetwork(model)
-        # optimizer_from_config refuses local SGD by name (queue A9)
-        trainer = Trainer(net, opt_config=opt, device=dev)
+        # honors OptimizationConfig.local_sgd_steps (local-SGD mode), on
+        # the mesh of this job's processes (--mesh_shape)
+        trainer = make_trainer(net, opt, device=dev,
+                               mesh=get_mesh(refresh=True))
         # restore parameters BEFORE any job runs (test must see them)
         if args.init_model_path:
             trainer.load(args.init_model_path)
@@ -227,6 +249,39 @@ def cmd_diagram(args) -> int:
     return 0
 
 
+def cmd_master(args) -> int:
+    """Standalone data-task master (the reference's standalone
+    coordinator binaries: ``paddle pserver`` / ``go/cmd/master``) — serve
+    the C++ task-lease service over TCP for remote trainers."""
+    import signal
+    import time
+
+    from .data import recordio as rio
+    from .distributed import Master
+
+    m = Master(timeout_s=args.task_timeout, failure_max=args.failure_max,
+               snapshot_path=args.snapshot or "")
+    if args.dataset:
+        payloads = rio.chunk_payloads(args.dataset) if args.chunked \
+            else rio.expand_paths(args.dataset)
+        m.set_dataset(payloads)
+        print(f"dataset: {len(payloads)} task(s)")
+    port = m.serve(args.port, bind_any=not args.local_only)
+    print(f"master serving on :{port}", flush=True)
+    stop = []
+    signal.signal(signal.SIGTERM, lambda *_: stop.append(1))
+    signal.signal(signal.SIGINT, lambda *_: stop.append(1))
+    last_snap = time.time()
+    while not stop:
+        time.sleep(0.5)
+        if args.snapshot and time.time() - last_snap >= args.snapshot_period:
+            m.snapshot()
+            last_snap = time.time()
+    if args.snapshot:
+        m.snapshot()
+    return 0
+
+
 def cmd_version(_args) -> int:
     import torch
 
@@ -261,9 +316,14 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="run on the CUDA card (default) or, asked for, "
                          "the plain PyTorch versions on the CPU")
     tp.add_argument("--distributed", action="store_true",
-                    help="join a multi-host cluster (not ported: A9)")
+                    help="join the job's process group from the "
+                         "PADDLE_* environment (one process a device)")
     tp.add_argument("--mesh_shape", default="",
-                    help="e.g. data=4,model=2 (not ported: A9)")
+                    help="e.g. data=4,model=2 over the job's processes "
+                         "(replaces --trainer_count)")
+    tp.add_argument("--fsdp", action="store_true", default=None,
+                    help="shard parameters and optimizer state over the "
+                         "'data' axis (sets the --fsdp flag)")
     tp.add_argument("--log_level", default="",
                     help="framework log level "
                          "(debug|info|warning|error|fatal)")
@@ -306,19 +366,40 @@ def main(argv: Optional[List[str]] = None) -> int:
                     default=FLAGS.get("config_args"))
     gp.set_defaults(fn=cmd_diagram)
 
-    sub.add_parser("master", help="the standalone data-task master (not "
-                                  "ported: A9)")
+    sp = sub.add_parser(
+        "master",
+        help="serve the standalone data-task master (pserver-era "
+             "coordinator)")
+    sp.add_argument("--port", type=int, default=0,
+                    help="TCP port (0 = ephemeral, printed on start)")
+    sp.add_argument("--dataset", nargs="*", default=[],
+                    help="task payloads: file paths / globs")
+    sp.add_argument("--chunked", action="store_true",
+                    help="expand record files into per-chunk tasks")
+    sp.add_argument("--task_timeout", type=float, default=60.0)
+    sp.add_argument("--failure_max", type=int, default=3)
+    sp.add_argument("--snapshot", default="",
+                    help="snapshot/recover state file (written every "
+                         "--snapshot_period seconds and on shutdown)")
+    sp.add_argument("--snapshot_period", type=float, default=30.0)
+    sp.add_argument("--local_only", action="store_true",
+                    help="bind loopback instead of all interfaces")
+    sp.add_argument("--fleet_port", type=int, default=None,
+                    help="the fleet telemetry aggregator (not ported: "
+                         "A10b)")
+    sp.add_argument("--fleet_bind", default=None,
+                    help="aggregator bind address (not ported: A10b)")
+    sp.set_defaults(fn=cmd_master)
 
     vp = sub.add_parser("version", help="print build info")
     vp.set_defaults(fn=cmd_version)
 
-    argv = sys.argv[1:] if argv is None else list(argv)
-    if argv[:1] == ["master"]:   # refused whatever its options
-        raise PaddleTpuError(
-            "the master subcommand (the standalone data-task master of "
-            "distributed/) is not ported yet (queue A9)")
     args = parser.parse_args(argv)
     _refuse_unported(args)
+    if getattr(args, "mesh_shape", ""):
+        FLAGS.set("mesh_shape", args.mesh_shape)
+    if getattr(args, "fsdp", None) is not None:
+        FLAGS.set("fsdp", bool(args.fsdp))
     if getattr(args, "log_level", "") or FLAGS.get("log_level"):
         from .utils import set_log_level
         if getattr(args, "log_level", ""):

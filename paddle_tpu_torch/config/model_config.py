@@ -195,9 +195,10 @@ class ModelConfig:
 class OptimizationConfig:
     """Mirror of ``proto/TrainerConfig.proto`` OptimizationConfig +
     ``OptimizerConfig.proto``: the JAX package's fields, names, defaults
-    and order.  ``local_sgd_steps`` > 0 and ``num_batches_per_*`` != 1
-    (the parameter-server and local-SGD schedules) are refused by
-    ``trainer.optimizer_from_config`` (queue A9)."""
+    and order.  ``local_sgd_steps`` > 0 selects
+    ``parallel.local_sgd.LocalSGDTrainer`` (``make_trainer``); the
+    parameter server's ``num_batches_per_*`` periods are kept and
+    unused, as in the JAX package."""
 
     batch_size: int = 32
     learning_rate: float = 0.01

@@ -11,7 +11,8 @@ one seed gives both packages the same order.
 
 ``recordio`` reads the record files of :mod:`.recordio` (pickled
 samples, as :func:`.download.convert` writes them); ``cloud_reader``
-refuses by name: the master-leased reader waits for queue A9.
+reads them chunk by chunk as a master (``distributed.master``) leases
+the chunks.
 """
 
 from __future__ import annotations
@@ -353,11 +354,60 @@ def recordio(paths, buf_size: int = 100) -> Reader:
 
 def cloud_reader(paths, master, buf_size: int = 64,
                  read_ahead: int = 2) -> Reader:
-    """Not ported: the master-coordinated reader (``distributed/``)
-    waits for queue A9."""
-    raise PaddleTpuError(
-        "data.reader.cloud_reader is not ported yet: the master-leased "
-        "distributed reader waits for queue A9")
+    """Master-coordinated distributed reader (``creator.py:91``): the
+    master leases recordio *chunks* to trainers so each record is
+    consumed once per pass cluster-wide, with failed leases re-queued.
+
+    :param master: a :class:`paddle_tpu_torch.distributed.Master` /
+        ``MasterClient`` (replaces the reference's etcd endpoint — no
+        external coordinator).
+    :param read_ahead: chunks the lease/fetch thread keeps ahead of
+        training, so the next chunk's disk read + unpickle overlaps the
+        current chunk's steps (``master_reader(read_ahead=...)``); 0
+        restores the fetch-on-demand path.  Leases still FAIL on
+        abandonment — including prefetched-but-unconsumed chunks.
+    """
+    import pickle
+
+    from . import recordio as rio
+
+    from ..distributed.master import master_reader
+
+    # every trainer calls set_dataset; the master honors only the FIRST
+    # call (initDone guard, go/master/service.go:287) so a trainer
+    # joining mid-pass cannot wipe the shared queue
+    master.set_dataset(rio.chunk_payloads(paths))
+
+    def load_chunk(payload):
+        path, off = payload.rsplit("\t", 1)
+        for rec in rio.read_chunk(path, int(off)):
+            yield pickle.loads(rec)
+
+    # the shared client outlives each pass's generator: don't let
+    # master_reader's teardown close it between passes
+    inner = master_reader(master, load_chunk, close_client=False,
+                          read_ahead=read_ahead)
+    # offset the local pass counter by the master's epoch so a trainer
+    # (re)joining a long-lived or snapshot-recovered master doesn't send
+    # reset requests the master has already performed
+    epoch_base = master.current_epoch()
+    pass_num = [0]
+
+    def reader():
+        # the trainer re-invokes reader() once per pass; request the
+        # next epoch for passes 2..N, carrying the pass number (the
+        # reference's start_get_records(pass_num) handshake). The master
+        # resets exactly once per epoch no matter how N trainers'
+        # requests interleave — duplicates for an already-performed
+        # reset are no-ops, and a request made while peers still hold
+        # leases is armed and performed when the queue drains, so an
+        # early-finishing trainer never sees a zero-sample next pass.
+        if pass_num[0]:
+            master.reset_epoch(epoch_base + pass_num[0])
+        pass_num[0] += 1
+        yield from inner()
+
+    return buffered(reader, buf_size)
 
 
 def mix_readers(readers, ratios=None, main: int = 0) -> Reader:

@@ -159,7 +159,7 @@ def reader(paths: Union[str, Sequence[str]]) -> Iterator[bytes]:
 
 def chunk_payloads(paths: Union[str, Sequence[str]]) -> List[str]:
     """Master task payloads addressing individual chunks
-    (``"path\\toffset"``, the format the master-leased reader parses;
-    that reader waits for queue A9)."""
+    (``"path\\toffset"``, the format the master-leased reader,
+    ``data.reader.cloud_reader``, parses)."""
     return [f"{p}\t{off}" for p in expand_paths(paths)
             for off, _n in load_index(p)]

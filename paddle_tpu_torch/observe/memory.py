@@ -17,9 +17,10 @@ through PyTorch's caching allocator:
   identity), and ``other`` is what is left of the in-use figure
   (activations held by queued work, the autograd graph, workspaces).
 
-On one card a tensor's bytes on the card are its ``nbytes``
-(:func:`per_chip_bytes`), and :func:`shard_categories` reports one
-device.  On the CPU (``device="cpu"`` trainers) there is no allocator to
+A tensor's bytes on this process's device are its ``nbytes``, a
+sharded parameter's (a DTensor) its local shard's
+(:func:`per_chip_bytes`), and :func:`shard_categories` reports this
+process's device (one process drives one device).  On the CPU (``device="cpu"`` trainers) there is no allocator to
 ask: the in-use figure is the sum of the categories, the peak a running
 maximum of the samples, and ``source`` says ``"tensors"``.
 
@@ -94,9 +95,12 @@ def tree_bytes(tree) -> int:
 
 
 def per_chip_bytes(leaf) -> int:
-    """Bytes of ``leaf`` resident on ONE card: the port trains on one
-    card, so a tensor's ``nbytes`` (the reference reads a sharded
-    array's per-device shard here)."""
+    """Bytes of ``leaf`` resident on this process's device: a tensor's
+    ``nbytes``, or for a sharded parameter or slot (a DTensor) its local
+    shard's — one process drives one device, as the reference reads a
+    sharded array's per-device shard here."""
+    if hasattr(leaf, "to_local") and hasattr(leaf, "placements"):
+        leaf = leaf.to_local()
     return int(getattr(leaf, "nbytes", 0) or 0)
 
 

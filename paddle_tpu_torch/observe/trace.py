@@ -25,7 +25,7 @@ Trace context propagates three ways:
 - **across processes** — :func:`parent_header` renders the active
   context as an opaque ``<trace_id>/<span_id>`` token an RPC can carry
   and :func:`record_span` records the peer's echoed span (the data
-  master's RPC that uses them comes with queue A9).
+  master's RPC, ``distributed/master.py``, uses them).
 
 Device-timeline correlation: while a ``torch.profiler`` window opened
 by :func:`paddle_tpu_torch.utils.profiler.trace` is open, every span

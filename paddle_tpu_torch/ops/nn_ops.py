@@ -49,9 +49,10 @@ from typing import Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from ..core.device import data_shard
 from ..core.dtypes import current_policy, record_op_precision
 from ..observe import counter
-from ..utils import enforce
+from ..utils import PaddleTpuError, enforce
 from .activations import get_activation
 from .registry import register_op
 
@@ -368,8 +369,20 @@ def _bn_apply(x, scale, bias, m, inv, c_ax):
 
 def _bn_stats(x, axes):
     """Per-channel (mean, biased variance) in f32; x is squared in f32
-    (a bf16 x·x loses the low bits when |mean| >> std)."""
+    (a bf16 x·x loses the low bits when |mean| >> std).  Inside a
+    data-parallel step (``core.device.data_shard``) the statistics are
+    the global batch's: the per-channel sums of x and x² are summed over
+    the data axis (a differentiable all-reduce), as the JAX package's
+    mean over a sharded batch dim is."""
     xf = x.float()
+    sh = data_shard()
+    if sh is not None:
+        from ..parallel.collectives import all_reduce_autograd
+        n = float(math.prod(x.shape[i] for i in axes)) * sh.size
+        sums = all_reduce_autograd(
+            torch.stack([xf.sum(axes), xf.square().sum(axes)]), sh.group)
+        m = sums[0] / n
+        return m, torch.clamp_min(sums[1] / n - m * m, 0.0)
     m = xf.mean(axes)
     v = torch.clamp_min(xf.square().mean(axes) - m * m, 0.0)
     return m, v
@@ -387,7 +400,7 @@ class _BnTrain(torch.autograd.Function):
         m, v = _bn_stats(x, axes)
         inv = torch.rsqrt(v + eps)
         y = _bn_apply(x, scale, bias, m, inv, c_ax)
-        ctx.axes, ctx.c_ax = axes, c_ax
+        ctx.axes, ctx.c_ax, ctx.shard = axes, c_ax, data_shard()
         ctx.save_for_backward(x, scale, m, inv)
         ctx.mark_non_differentiable(m, v)
         return y, m, v
@@ -401,9 +414,18 @@ class _BnTrain(torch.autograd.Function):
         dy_f = dy.float()
         dbias = dy_f.sum(axes)
         dscale = (dy_f * xhat).sum(axes)
+        gbias, gscale = dbias, dscale
+        if ctx.shard is not None:
+            # the statistics span every shard: dx takes the global sums
+            # (each rank's dy through them); the parameters' gradients
+            # stay this rank's, the trainer reduces them
+            from ..parallel.collectives import all_reduce_sum
+            gbias, gscale = all_reduce_sum([dbias, dscale],
+                                           ctx.shard.group)
+            n *= ctx.shard.size
         coeff = (scale * inv).float().reshape(shape)
-        dx = coeff * (dy_f - (dbias / n).reshape(shape)
-                      - xhat * (dscale / n).reshape(shape))
+        dx = coeff * (dy_f - (gbias / n).reshape(shape)
+                      - xhat * (gscale / n).reshape(shape))
         return (dx.to(x.dtype), dscale.to(scale.dtype),
                 dbias.to(scale.dtype), None, None, None)
 
@@ -573,6 +595,12 @@ def conv2d_bn(x, w, conv_bias, scale, bias, running_mean, running_var,
     new_running_mean, new_running_var)."""
     from . import conv as fused
 
+    if is_training and data_shard() is not None:
+        raise PaddleTpuError(
+            "conv2d_bn: the fused conv->batch-norm pair sums its "
+            "backward's channel statistics on one rank; a data-parallel "
+            "step needs them over every rank -- build the network with "
+            "--conv_bn_fuse=false and --conv_bn_fuse_fwd=false")
     pol = current_policy()
     record_op_precision("conv2d_bn")
     if in_affine is not None:
@@ -630,7 +658,16 @@ def dropout(x: torch.Tensor, gen: torch.Generator, rate: float = 0.5,
     if not is_training or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    sh = data_shard()
+    if sh is not None and x.dim() >= 1:
+        # a data-parallel step: this rank's rows of the global batch's
+        # mask (one draw of the global shape), as GSPMD's sharded draw
+        b = x.shape[0]
+        mask = torch.rand((b * sh.size,) + tuple(x.shape[1:]),
+                          generator=gen, device=x.device)[
+            sh.index * b:(sh.index + 1) * b] < keep
+    else:
+        mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
     return torch.where(mask, x / keep, 0.0).to(x.dtype)
 
 

@@ -25,11 +25,16 @@ reproducible:
   :class:`~paddle_tpu_torch.serving.rollout.CheckpointWatcher`, and a
   serving replica that hot-swaps every new artifact while serving.
 
+- :func:`drop_master_connection` — sever a ``MasterClient``'s TCP socket
+  before (request lost) or after (response lost → granted-but-unheard
+  lease) every Nth call.
+- :class:`MasterServerProcess` — the TCP master in a child process that
+  can be SIGKILLed and restarted from its snapshot on the same port.
+
 The children run the port's modules on ``device`` (``None``: the card;
 the CPU tests pass ``"cpu"``).  Not ported yet, and refused by name:
-:func:`drop_master_connection` and :class:`MasterServerProcess` (the
-TCP master, queue A9), :class:`FleetPusherProcess` and any
-``fleet_addr=`` (the fleet observatory, queue A10b).
+:class:`FleetPusherProcess` and any ``fleet_addr=`` (the fleet
+observatory, queue A10b).
 
 Everything is loopback/local-fs only; no network is touched.
 """
@@ -39,6 +44,7 @@ from __future__ import annotations
 import contextlib
 import errno
 import os
+import socket
 import subprocess
 import sys
 import time
@@ -60,24 +66,148 @@ def _no_fleet(fleet_addr: str) -> None:
                 "observe/fleet.py")
 
 
-# --------------------------------------------------- refused by name
-def drop_master_connection(client, every: int = 3,
-                           limit: Optional[int] = None,
+# --------------------------------------------------------- TCP faults
+def _kill_socket(sock: Optional[socket.socket]) -> None:
+    """Hard-sever a socket: subsequent send/recv on it raise OSError."""
+    if sock is None:
+        return
+    try:
+        sock.shutdown(socket.SHUT_RDWR)
+    except OSError:
+        pass
+    try:
+        sock.close()
+    except OSError:
+        pass
+
+
+@contextlib.contextmanager
+def drop_master_connection(client, every: int = 3, limit: Optional[int] = None,
                            when: str = "request"):
-    """Sever a ``MasterClient``'s TCP connection — the master comes
-    with queue A9."""
-    _refuse("drop_master_connection", "A9", "the TCP master, "
-            "distributed/master.py")
+    """Sever ``client``'s TCP connection around every ``every``-th call.
+
+    ``when="request"`` kills the socket *before* the request is sent (the
+    request is lost; replay is trivially safe).  ``when="response"``
+    first pushes the request bytes to the master, then kills the socket
+    (the master processes it but the response is lost — for GET this
+    manufactures a granted-but-unheard lease that must time out and
+    re-queue server-side).  ``limit`` bounds the number of injected
+    drops.  Yields a stats dict: ``{"calls": n, "dropped": n}``.
+    """
+    orig = client._call
+    stats = {"calls": 0, "dropped": 0}
+
+    def faulty_call(line: str, **kw) -> str:
+        stats["calls"] += 1
+        if stats["calls"] % every == 0 and \
+                (limit is None or stats["dropped"] < limit):
+            stats["dropped"] += 1
+            if when == "response" and client._sock is not None:
+                try:
+                    client._sock.sendall(line.encode() + b"\n")
+                except OSError:
+                    pass
+            _kill_socket(client._sock)
+            log.info("injected connection drop #%d (%s) before %r",
+                     stats["dropped"], when, line.split("\t", 1)[0])
+        return orig(line, **kw)
+
+    client._call = faulty_call
+    try:
+        yield stats
+    finally:
+        client._call = orig
+
+
+# --------------------------------------------------- master processes
+# The child runs the C++ service via ctypes directly — no package
+# import, so spawn is fast and a SIGKILL cannot corrupt anything but the
+# master's own snapshot (which is what we are testing).
+_SERVER_SCRIPT = r"""
+import ctypes, sys, time
+so, snap, port, timeout_s, failure_max = sys.argv[1:6]
+lib = ctypes.CDLL(so)
+lib.ptpu_master_create.restype = ctypes.c_void_p
+lib.ptpu_master_create.argtypes = [
+    ctypes.c_double, ctypes.c_int, ctypes.c_char_p]
+lib.ptpu_master_serve.restype = ctypes.c_int
+lib.ptpu_master_serve.argtypes = [
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+h = lib.ptpu_master_create(float(timeout_s), int(failure_max),
+                           snap.encode() if snap else None)
+p = lib.ptpu_master_serve(h, int(port), 0)
+print(p, flush=True)
+while True:
+    time.sleep(3600)
+"""
 
 
 class MasterServerProcess:
-    """The TCP master in a child process — queue A9."""
+    """A TCP master service in a SIGKILL-able child process.
 
-    def __init__(self, *args, **kwargs):
-        _refuse("MasterServerProcess", "A9", "the TCP master, "
-                "distributed/master.py")
+    ``start()`` binds (remembering the port so a restart reuses it, which
+    keeps the client's address stable across kills), ``kill()`` sends
+    SIGKILL — no shutdown hooks run, exactly like a preempted VM — and a
+    later ``start()`` recovers from the snapshot path.
+    """
+
+    def __init__(self, snapshot_path: str, timeout_s: float = 5.0,
+                 failure_max: int = 3, port: int = 0):
+        from ..distributed.master import _SO, _load_lib
+        _load_lib()  # ensure the .so is built before the child needs it
+        self._so = _SO
+        self.snapshot_path = snapshot_path
+        self.timeout_s = timeout_s
+        self.failure_max = failure_max
+        self.port = port
+        self.proc: Optional[subprocess.Popen] = None
+
+    @property
+    def addr(self) -> str:
+        return f"127.0.0.1:{self.port}"
+
+    def start(self, wait_ready_s: float = 10.0) -> "MasterServerProcess":
+        assert self.proc is None or self.proc.poll() is not None, \
+            "master process already running"
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", _SERVER_SCRIPT, self._so,
+             self.snapshot_path, str(self.port), str(self.timeout_s),
+             str(self.failure_max)],
+            stdout=subprocess.PIPE, text=True)
+        port = int(self.proc.stdout.readline())
+        assert port > 0, "master serve failed in child"
+        self.port = port
+        self._wait_ready(wait_ready_s)
+        return self
+
+    def _wait_ready(self, budget_s: float) -> None:
+        deadline = time.monotonic() + budget_s
+        while time.monotonic() < deadline:
+            try:
+                with socket.create_connection(("127.0.0.1", self.port),
+                                              timeout=1.0) as s:
+                    s.sendall(b"PING\n")
+                    if s.recv(64).startswith(b"PONG"):
+                        return
+            except OSError:
+                time.sleep(0.02)
+        raise TimeoutError("master child never answered PING")
+
+    def kill(self) -> None:
+        """SIGKILL — the preemption model: no cleanup code runs."""
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.proc = None
+
+    def __enter__(self) -> "MasterServerProcess":
+        return self.start()
+
+    def __exit__(self, *exc) -> None:
+        self.kill()
 
 
+# --------------------------------------------------- refused by name
 class FleetPusherProcess:
     """A fleet-pushing child process — queue A10b."""
 

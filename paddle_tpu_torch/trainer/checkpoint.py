@@ -27,9 +27,9 @@ package writes loads in the other.
 (renaming them ``.corrupt-*``), :func:`sweep_retention` keeps the newest
 ``--ckpt_keep`` dirs after each save (never one an export lease pins),
 and ``--ckpt_verify=false`` restores the blind load.  A sharded
-checkpoint (the JAX package's ``--fsdp`` layout, the manifest's
-``shards``) is read by reassembling its shard files, so it loads on one
-card; writing one (``shard=True``) refuses (queue A9).
+checkpoint (the ``--fsdp`` layout, the manifest's ``shards``) is written
+by the ranks of a mesh together, each its own shard files, and read by
+reassembling them, on any mesh shape and in either package.
 
 Telemetry (``observe/``, the JAX package's names): the spans
 ``ckpt_save``, ``ckpt_verify``, ``ckpt_quarantine`` and
@@ -159,11 +159,57 @@ def _sha256_file(path: str) -> str:
     return h.hexdigest()
 
 
+def _shard_layout(x, mesh) -> Optional[Tuple[int, int, int, bool]]:
+    """``(dim, shards, index, writer)`` when ``x`` is a DTensor sharded
+    over the ``data`` axis of ``mesh`` (the FSDP placement): its dim, the
+    axis size, this rank's shard index, and whether this rank writes that
+    index (the one whose other mesh coordinates are all 0).  None
+    otherwise."""
+    from ..core.device import DATA_AXIS
+    from ..parallel.sharding import shard_dims
+
+    if DATA_AXIS not in mesh.axis_names:
+        return None
+    mdim = mesh.axis_names.index(DATA_AXIS)
+    for m, d in shard_dims(x):
+        if m == mdim:
+            writer = all(mesh.coordinate(a) == 0 for a in mesh.axis_names
+                         if a != DATA_AXIS)
+            return d, mesh.shape[DATA_AXIS], mesh.coordinate(DATA_AXIS), \
+                writer
+    return None
+
+
+def _split_sharded(arrays: Dict[str, Any], mesh, shard: bool
+                   ) -> Tuple[Dict[str, Any], Dict[str, Dict[str, int]],
+                              Dict[int, Dict[str, np.ndarray]]]:
+    """Split ``arrays`` (name → tensor, DTensors among them) into the
+    base archive's whole host arrays (every other placed tensor gathered
+    — a collective every rank runs in the same order), the manifest's
+    layout of the data-sharded ones (under ``shard``), and the shard
+    files this rank writes: shard count → {name: this rank's shard}."""
+    from ..parallel.sharding import full_tensor
+
+    base: Dict[str, Any] = {}
+    layout: Dict[str, Dict[str, int]] = {}
+    own: Dict[int, Dict[str, np.ndarray]] = {}
+    for key, x in arrays.items():
+        info = _shard_layout(x, mesh) if shard else None
+        if info is None:
+            base[key] = _host(full_tensor(x))
+            continue
+        d, n, _i, writer = info
+        layout[key] = {"dim": int(d), "shards": int(n)}
+        if writer:
+            own.setdefault(n, {})[key] = _host(x.to_local())
+    return base, layout, own
+
+
 def save_checkpoint(save_dir: str, pass_id: int, params: Dict[str, Any],
                     opt_state: Any = None, buffers: Optional[Dict] = None,
                     meta: Optional[Dict] = None,
                     keep: Optional[int] = None,
-                    shard: bool = False) -> str:
+                    shard: bool = False, mesh=None) -> str:
     """Write ``<save_dir>/pass-%05d`` atomically; returns its path.
 
     ``params`` / ``buffers``: name → tensor or array, written in their
@@ -171,54 +217,106 @@ def save_checkpoint(save_dir: str, pass_id: int, params: Dict[str, Any],
     carries per-file SHA-256 digests (``files``) under
     ``--ckpt_verify``; a save then sweeps retention (the newest ``keep``
     dirs, default ``--ckpt_keep``).  A failed save raises and leaves no
-    dir.  ``shard=True`` (the JAX package's FSDP layout) refuses."""
-    if shard:
-        raise PaddleTpuError(
-            "sharded checkpoints (shard=True, the --fsdp layout) are not "
-            "written by the port: it trains on one card (queue A9); "
-            "sharded checkpoints of the JAX package load")
+    dir.
+
+    On a ``mesh`` of more than one process every rank calls this with
+    its state (DTensors for placed tensors).  ``shard=True`` (the trainer
+    passes it under ``--fsdp``) writes the JAX package's **sharded
+    checkpoint**: each leaf sharded over ``data`` lands in per-index
+    files (``params.shard-i-of-n.npz`` / ``opt_state.shard-i-of-n.npz``,
+    each rank writing its own index) while the rest, gathered whole,
+    stays in the base archives; after a barrier rank 0 writes the base
+    archives and the manifest (the layout under ``"shards"``, the
+    digests over the shard files too) and moves the dir into place.  A
+    loader reassembles whole arrays from the layout, so a load onto any
+    mesh shape, in either package, re-places cleanly."""
+    multi = mesh is not None and mesh.size > 1
+    if multi:
+        import torch.distributed as dist
+        rank = dist.get_rank()
+    else:
+        dist, rank = None, 0
     final = os.path.join(save_dir, f"pass-{pass_id:05d}")
-    os.makedirs(save_dir, exist_ok=True)
     t0 = time.perf_counter()
     with trace.span("ckpt_save", pass_id=pass_id):
-        tmp = tempfile.mkdtemp(dir=save_dir, prefix=".tmp-ckpt-")
+        tmp = None
+        if rank == 0:
+            os.makedirs(save_dir, exist_ok=True)
+            tmp = tempfile.mkdtemp(dir=save_dir, prefix=".tmp-ckpt-")
         try:
+            if multi:
+                box = [tmp]
+                dist.broadcast_object_list(box, src=0)
+                tmp = box[0]
             manifest = {"pass_id": pass_id, "format": 2, **(meta or {})}
-            np.savez(os.path.join(tmp, "params.npz"),
-                     **{k: _host(v) for k, v in params.items()})
-            if buffers:
-                np.savez(os.path.join(tmp, "buffers.npz"),
-                         **{k: _host(v) for k, v in buffers.items()})
+            shards: Dict[str, Dict] = {}
+            owned: List[Tuple[str, Dict[int, Dict[str, np.ndarray]]]] = []
+            if multi:
+                p_base, layout, own = _split_sharded(params, mesh, shard)
+            else:
+                p_base, layout, own = \
+                    {k: _host(v) for k, v in params.items()}, {}, {}
+            if layout:
+                shards["params"] = layout
+            owned.append(("params", own))
+            o_base = None
             if opt_state is not None:
                 leaves, treedef = flatten_opt_state(opt_state)
-                np.savez(os.path.join(tmp, "opt_state.npz"),
-                         **{f"leaf_{i}": _host(leaf)
-                            for i, leaf in enumerate(leaves)})
+                o_arrays = {f"leaf_{i}": leaf
+                            for i, leaf in enumerate(leaves)}
+                if multi:
+                    o_base, layout, own = _split_sharded(o_arrays, mesh,
+                                                         shard)
+                else:
+                    o_base, layout, own = \
+                        {k: _host(v) for k, v in o_arrays.items()}, {}, {}
+                if layout:
+                    shards["opt_state"] = layout
+                owned.append(("opt_state", own))
                 manifest["opt_treedef"] = treedef
-            # the manifest is written last: its presence certifies the
-            # .npz files were flushed; --ckpt_verify=false skips the
-            # hashing
-            if FLAGS.get("ckpt_verify"):
-                manifest["files"] = {
-                    fname: {"sha256": _sha256_file(
-                                os.path.join(tmp, fname)),
-                            "bytes": os.path.getsize(
-                                os.path.join(tmp, fname))}
-                    for fname in sorted(os.listdir(tmp))}
-            with open(os.path.join(tmp, "manifest.json"), "w") as f:
-                json.dump(manifest, f, indent=1)
-            if os.path.exists(final):
-                shutil.rmtree(final)
-            os.replace(tmp, final)
+            for kind, own in owned:
+                for n, chunk in own.items():
+                    np.savez(os.path.join(tmp, _shard_file(
+                        kind, mesh.coordinate("data"), n)), **chunk)
+            if multi:
+                dist.barrier()
+            if rank == 0:
+                np.savez(os.path.join(tmp, "params.npz"), **p_base)
+                if buffers:
+                    np.savez(os.path.join(tmp, "buffers.npz"),
+                             **{k: _host(v) for k, v in buffers.items()})
+                if o_base is not None:
+                    np.savez(os.path.join(tmp, "opt_state.npz"), **o_base)
+                if shards:
+                    manifest["shards"] = shards
+                # the manifest is written last: its presence certifies
+                # the .npz files were flushed; --ckpt_verify=false skips
+                # the hashing
+                if FLAGS.get("ckpt_verify"):
+                    manifest["files"] = {
+                        fname: {"sha256": _sha256_file(
+                                    os.path.join(tmp, fname)),
+                                "bytes": os.path.getsize(
+                                    os.path.join(tmp, fname))}
+                        for fname in sorted(os.listdir(tmp))}
+                with open(os.path.join(tmp, "manifest.json"), "w") as f:
+                    json.dump(manifest, f, indent=1)
+                if os.path.exists(final):
+                    shutil.rmtree(final)
+                os.replace(tmp, final)
         except Exception:
-            shutil.rmtree(tmp, ignore_errors=True)
+            if tmp is not None and rank == 0:
+                shutil.rmtree(tmp, ignore_errors=True)
             raise
+        if multi:
+            dist.barrier()
     histogram("ckpt_save_seconds",
               "wall time of one atomic checkpoint save (serialize + "
               "digest + rename)").observe(time.perf_counter() - t0)
     counter("ckpt_saves", "checkpoints saved").inc()
-    log.info("saved checkpoint %s", final)
-    sweep_retention(save_dir, keep)
+    if rank == 0:
+        log.info("saved checkpoint %s", final)
+        sweep_retention(save_dir, keep)
     return final
 
 

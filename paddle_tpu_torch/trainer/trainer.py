@@ -1,9 +1,31 @@
-"""Single-device trainer (counterpart of ``paddle_tpu/trainer/trainer.py``,
-its fp32 step and its ``--precision=bf16`` mixed step).
+"""The trainer (counterpart of ``paddle_tpu/trainer/trainer.py``, its
+fp32 step, its ``--precision=bf16`` mixed step and its mesh).
 
 ``Trainer.train_one_batch(feed)`` runs forward, autograd backward and
-the optimizer update: the JAX package's jitted step without its FSDP
-and health branches.  The optimizer and the learning-rate schedule come
+the optimizer update: the JAX package's jitted step without its health
+branch.
+
+On a mesh (``mesh=``, default ``core.device.get_mesh()``: one process a
+device, ``{data: 1}`` without a process group) every rank is given the
+global batch and takes its rows of each feed leaf whose batch dim
+divides over ``data`` (:meth:`Trainer._shard_feed`); when a leaf was
+split the forward runs in ``data_parallel_scope`` (batch-norm statistics
+and dropout masks of the global batch), else it is the one-device
+forward on every rank; the gradients of the global batch are summed over
+``data`` and divided by its size, in each parameter's layout
+(:meth:`Trainer._reduce_grads`), before the finite check's global flag,
+clipping, the lazy rows' masks (the union of the ranks' rows) and the
+update; the reported loss is the ranks' mean.  Under FSDP (``fsdp`` /
+``--fsdp`` on a data axis of more than one member, placed by
+``fsdp_rules`` or ``parallel.sharding.fsdp_spec``) or ``sharding_rules``
+(tensor parallel) parameters and their param-shaped slots rest as
+DTensors holding this rank's shard: each is gathered whole before the
+forward (a kernel's operands are always whole), its gradient
+reduce-scattered (``data``) or cut to this rank's chunk (``model``), and
+each rank updates its own shard.  ``test`` evaluates the whole batch on
+every rank with the whole parameters.  With nothing placed and one
+member on ``data`` every collective is skipped: the one-device step,
+byte for byte.  The optimizer and the learning-rate schedule come
 from ``optimizer_from_config`` (the ten rules of the reference's
 registry, L1 and L2, clipping, the seven schedules, evaluated on the
 host on ``samples_seen``), or an ``optimizer=`` given with the constant
@@ -94,7 +116,8 @@ import numpy as np
 import torch
 
 from ..config.model_config import OptimizationConfig
-from ..core.device import resolve_device
+from ..core.device import (DATA_AXIS, Mesh, P, data_parallel_scope,
+                           get_mesh, resolve_device)
 from ..core.dtypes import (full_precision, policy_for, policy_scope,
                            resolve_precision)
 from ..core.sequence import NestedSequenceBatch, SequenceBatch, value_of
@@ -107,7 +130,11 @@ from ..optimizer.optimizers import Optimizer, create_optimizer
 from ..optimizer.schedules import make_schedule
 from .. import observe
 from ..observe import trace
+from ..parallel import collectives as coll
 from ..parallel import sparse as psparse
+from ..parallel.sharding import (full_tensor, like_placed, local_tensor,
+                                 shard_tensor)
+from ..parallel.sharding import shard_dims as _shard_dims
 from ..utils import FLAGS, PaddleTpuError, enforce, get_logger, warn_once
 from ..utils.stat import block_until_ready, global_stat
 from . import events as ev
@@ -126,19 +153,11 @@ def optimizer_from_config(oc: OptimizationConfig
                           ) -> Tuple[Optimizer, Callable[[float], float]]:
     """OptimizationConfig → (optimizer, lr schedule), as the reference
     merges them (``TrainerConfigHelper``): sgd with a momentum is the
-    momentum rule.  Local SGD and the parameter server's send/get
-    periods refuse by name (queue A9)."""
-    if oc.local_sgd_steps > 0:
-        raise PaddleTpuError(
-            f"local_sgd_steps={oc.local_sgd_steps}: local SGD averages "
-            "parameters across data-parallel replicas; the port trains "
-            "on one card (queue A9)")
-    for field in ("num_batches_per_send_parameter",
-                  "num_batches_per_get_parameter"):
-        if getattr(oc, field) != 1:
-            raise PaddleTpuError(
-                f"{field}={getattr(oc, field)}: the parameter server's "
-                "exchange periods are not ported (queue A9)")
+    momentum rule.  ``local_sgd_steps`` is read by
+    ``parallel.local_sgd.make_trainer``; the parameter server's
+    exchange periods (``num_batches_per_send_parameter`` /
+    ``num_batches_per_get_parameter``) are accepted and unused, as in
+    the JAX package."""
     kw: Dict[str, Any] = dict(
         learning_rate=oc.learning_rate,
         weight_decay=oc.l2_weight_decay,
@@ -205,10 +224,20 @@ class Trainer:
                  opt_config: Optional[OptimizationConfig] = None,
                  seed: Optional[int] = None,
                  device: Optional[Union[str, torch.device]] = None,
-                 optimizer: Optional[Optimizer] = None):
+                 optimizer: Optional[Optimizer] = None,
+                 mesh: Optional[Mesh] = None, sharding_rules=None,
+                 fsdp: Optional[bool] = None, fsdp_rules=None):
         self.network = network
         self.seed = FLAGS.get("seed") if seed is None else seed
         self.device = resolve_device(device)
+        self.mesh = mesh or get_mesh()
+        self.sharding_rules = sharding_rules
+        # FSDP over the data axis (--fsdp): parameters AND optimizer
+        # slots sharded per _resolve_specs(); inert on a one-member data
+        # axis (the replicated path, byte-for-byte)
+        self.fsdp = bool(FLAGS.get("fsdp")) if fsdp is None else bool(fsdp)
+        self.fsdp_rules = fsdp_rules
+        self._specs: Optional[Dict[str, Any]] = None
         if optimizer is None:
             optimizer, self.schedule = optimizer_from_config(
                 opt_config or OptimizationConfig())
@@ -228,6 +257,8 @@ class Trainer:
         self._skipped_reported = 0
         self._sparse_plan: Optional[Dict[str, List[str]]] = None
         self._eval_step: Optional[Callable] = None
+        # reduce gradients over the data axis (local SGD turns it off)
+        self._sync_grads = True
         self._prune_masks: Optional[Dict[str, torch.Tensor]] = None
         if FLAGS.get("init_model_path"):
             self.load(FLAGS.get("init_model_path"))
@@ -237,6 +268,138 @@ class Trainer:
         self._prune_masks = build_prune_masks(network.param_specs,
                                               self.params)
         self.params = apply_prune_init(self.params, self._prune_masks)
+        self._place_state()
+
+    # ------------------------------------------------------- the mesh
+    @property
+    def _data_n(self) -> int:
+        return self.mesh.shape.get(DATA_AXIS, 1)
+
+    def _resolve_specs(self) -> Optional[Dict[str, Any]]:
+        """Each parameter's PartitionSpec, resolved once: under FSDP
+        (``fsdp`` on a data axis of more than one member) from
+        ``fsdp_rules`` else the largest-divisible-dim heuristic
+        (``parallel.sharding.fsdp_spec``, ``--fsdp_min_size``), an
+        indivisible table entry replicated with a warning; else from
+        ``sharding_rules`` on a mesh of more than one member (tensor
+        parallel).  None when nothing is placed — every call site then
+        takes the one-device path."""
+        if self._specs is None:
+            from ..parallel.sharding import fsdp_spec, spec_shard_info
+            specs: Dict[str, Any] = {}
+            n = self._data_n
+            if self.fsdp and n > 1:
+                min_size = int(FLAGS.get("fsdp_min_size"))
+                for name, value in self.params.items():
+                    shape = tuple(value.shape)
+                    if self.fsdp_rules is not None:
+                        spec = self.fsdp_rules.spec_for(name, len(shape))
+                        info = spec_shard_info(spec, self.mesh)
+                        if info is not None and shape[info[0]] % info[1]:
+                            warn_once(
+                                f"trainer.fsdp_indivisible:{name}",
+                                "FSDP rule spec %s for %r does not divide "
+                                "shape %s on a %d-way data axis — "
+                                "replicating this parameter",
+                                tuple(spec), name, shape, n, logger=_log)
+                            spec = P()
+                    else:
+                        spec = fsdp_spec(shape, n, min_size=min_size)
+                    specs[name] = spec
+            elif self.sharding_rules is not None and self.mesh.size > 1:
+                specs = {name: self.sharding_rules.spec_for(name, v.dim())
+                         for name, v in self.params.items()}
+            self._specs = specs if any(tuple(sp) for sp in specs.values()) \
+                else {}
+        return self._specs or None
+
+    def _place_state(self) -> None:
+        """Parameters and their param-shaped optimizer slots at rest in
+        their spec's layout (DTensors holding this rank's shard); the
+        rest stays whole."""
+        specs = self._resolve_specs()
+        if specs is None:
+            return
+        self.params = {n: shard_tensor(full_tensor(p), specs[n], self.mesh)
+                       for n, p in self.params.items()}
+        count, slots = self.opt_state
+        self.opt_state = (count, {
+            n: tuple(shard_tensor(full_tensor(x), specs[n], self.mesh)
+                     if tuple(x.shape) == tuple(self.params[n].shape)
+                     else x for x in slot)
+            for n, slot in slots.items()})
+
+    def _full_params(self) -> Dict[str, torch.Tensor]:
+        """Every parameter whole (placed ones gathered)."""
+        return {n: full_tensor(p) for n, p in self.params.items()}
+
+    def _shard_feed(self, feed: Dict[str, Any]
+                    ) -> Tuple[Dict[str, Any], bool]:
+        """This rank's rows of every feed leaf whose batch dim divides
+        over the data axis; other leaves whole (the JAX package's
+        per-leaf rule).  The flag says whether any leaf was split: a
+        feed left whole on every rank (a last partial batch) runs the
+        one-device forward, one dropout mask and local statistics."""
+        n = self._data_n
+        if n <= 1:
+            return feed, False
+        i = self.mesh.coordinate(DATA_AXIS)
+        split = []
+
+        def take(x):
+            if isinstance(x, SequenceBatch):
+                return SequenceBatch(take(x.data), take(x.length))
+            if isinstance(x, NestedSequenceBatch):
+                return NestedSequenceBatch(take(x.data), take(x.num_subseq),
+                                           take(x.sub_length))
+            if isinstance(x, torch.Tensor) and x.dim() >= 1 \
+                    and x.shape[0] % n == 0:
+                split.append(True)
+                return coll.local_chunk(x, 0, i, n)
+            return x
+
+        out = {k: take(v) for k, v in feed.items()}
+        return out, bool(split)
+
+    def _reduce_grads(self, grads: Dict[str, torch.Tensor]
+                      ) -> Dict[str, torch.Tensor]:
+        """The global batch's gradients, each in its parameter's layout:
+        summed over the data axis and divided by its size (each rank's
+        loss is its rows' mean, the global one their mean) — a
+        reduce-scatter for a parameter sharded over ``data``, one
+        all-reduce for the rest — then cut to this rank's chunk along
+        any other sharded axis."""
+        n = self._data_n
+        group = self.mesh.group(DATA_AXIS)
+        out: Dict[str, torch.Tensor] = {}
+        rest = []
+        for name, g in grads.items():
+            ref = self.params[name]
+            dims = [(self.mesh.axis_names[m], d)
+                    for m, d in _shard_dims(ref)]
+            data_dim = [d for a, d in dims if a == DATA_AXIS]
+            if n > 1 and data_dim:
+                g = coll.reduce_scatter_dim(g, data_dim[0], group) / n
+            elif n > 1:
+                rest.append(name)
+            for a, d in dims:
+                if a != DATA_AXIS:
+                    g = coll.local_chunk(g, d, self.mesh.coordinate(a),
+                                         self.mesh.shape[a])
+            out[name] = g
+        if rest:
+            for name, s in zip(rest, coll.all_reduce_sum(
+                    [out[k] for k in rest], group)):
+                out[name] = s / n
+        return out
+
+    def _reduce_mean(self, x: torch.Tensor) -> torch.Tensor:
+        """A per-rank scalar's mean over the data axis."""
+        n = self._data_n
+        if n <= 1:
+            return x
+        return coll.all_reduce_sum([x.detach()],
+                                   self.mesh.group(DATA_AXIS))[0] / n
 
     # ------------------------------------------------- sparse tables
     def _sparse_exchange_plan(self) -> Dict[str, List[str]]:
@@ -297,9 +460,13 @@ class Trainer:
         cap_flag = int(FLAGS.get("sparse_grad_rows"))
         ex_rows, ex_blocks = {}, {}
         for name, keys in ex_plan.items():
-            table = self.params[name]
+            table = full_tensor(self.params[name])
             ids = torch.cat([value_of(feed[k]).to(torch.int32).reshape(-1)
                              for k in keys])
+            if self._data_n > 1:
+                # the union of every rank's rows: one row set for all
+                ids = coll.all_gather_dim(ids, 0,
+                                          self.mesh.group(DATA_AXIS))
             cap = cap_flag if cap_flag > 0 else ids.numel()
             rows = psparse.unique_rows_sorted(ids, cap, table.shape[0])
             ex_rows[name] = rows
@@ -318,13 +485,29 @@ class Trainer:
         _, slots = self.opt_state
         new_slots = {}
         for name in ex_plan:
-            table = self.params[name]
+            ref = self.params[name]
+            table = local_tensor(ref)
             row_g = block_grads[name].to(table.dtype)
             touched = (row_g != 0).flatten(1).any(dim=1)
-            rows_eff = torch.where(touched, ex_rows[name], table.shape[0])
-            _, (_, new_slots[name]) = self.optimizer.apply_rows(
-                table, rows_eff, row_g, (count, slots[name]),
+            rows = ex_rows[name]
+            dims = _shard_dims(ref)
+            if dims:
+                # a row-sharded table: this rank updates its own rows
+                enforce([d for _, d in dims] == [0],
+                        f"sparse exchange of {name!r}: the table must be "
+                        "sharded on its rows only")
+                axis = self.mesh.axis_names[dims[0][0]]
+                off = self.mesh.coordinate(axis) * table.shape[0]
+                rows = rows - off
+                touched = touched & (rows >= 0) & (rows < table.shape[0])
+            rows_eff = torch.where(touched, rows, table.shape[0])
+            slot = tuple(local_tensor(x) for x in slots[name])
+            table, (_, new_slot) = self.optimizer.apply_rows(
+                table, rows_eff, row_g, (count, slot),
                 lr * self._lr_scales[name], keep=keep)
+            self.params[name] = like_placed(table, ref)
+            new_slots[name] = tuple(like_placed(x, r) for x, r in
+                                    zip(new_slot, slots[name]))
         return new_slots
 
     # ---------------------------------------------------------- the step
@@ -420,30 +603,34 @@ class Trainer:
         """Forward, backward and update on a placed feed; returns the
         loss (``samples_seen`` is advanced by the caller)."""
         lr = self.schedule(self.samples_seen)
+        # a data-parallel step: this rank's rows, the parameters whole
+        feed, split = self._shard_feed(feed)
         ex_plan = self._sparse_exchange_plan()
         ex_rows, ex_blocks = self._exchange_prefetch(ex_plan, feed)
-        dense = {n: p.detach().requires_grad_(True)
+        dense = {n: full_tensor(p).detach().requires_grad_(True)
                  for n, p in self.params.items() if n not in ex_plan}
         blocks = {n: b.requires_grad_(True) for n, b in ex_blocks.items()}
         # the exchanged tables enter the forward without a gradient: the
         # layers read their blocks
-        tables = {n: self.params[n] for n in ex_plan}
+        tables = {n: full_tensor(self.params[n]) for n in ex_plan}
         inputs = [*dense.values(), *blocks.values()]
         # the step's dropout seed, as the JAX trainer derives its key
         rng = torch.Generator(device=self.device).manual_seed(
             (self.seed * 1000003 + self.samples_seen) % (2 ** 31))
         state = self._ls_state
+        scope = data_parallel_scope(self.mesh) \
+            if split and self._sync_grads else contextlib.nullcontext()
         if state is None:
             with psparse.exchange_scope(
-                    {n: (ex_rows[n], blocks[n]) for n in ex_plan}):
+                    {n: (ex_rows[n], blocks[n]) for n in ex_plan}), scope:
                 loss, (_, buffers) = self.network.loss(
                     {**dense, **tables}, feed, self.buffers, rng=rng)
-            raw = torch.autograd.grad(loss, inputs)
+                raw = torch.autograd.grad(loss, inputs)
         else:
             # the ``--precision=bf16`` step (``_build_mixed_train_step``);
             # the blocks are cast inside, so their gradients come back f32
             pol = policy_for("bf16")
-            with policy_scope(pol):
+            with policy_scope(pol), scope:
                 cparams = {n: p.to(pol.compute_dtype)
                            if p.is_floating_point() else p
                            for n, p in dense.items()}
@@ -453,7 +640,7 @@ class Trainer:
                     loss, (_, buffers) = self.network.loss(
                         {**cparams, **tables}, feed, self.buffers, rng=rng)
                 scaled = loss * state.scale.to(loss.dtype)
-            raw = torch.autograd.grad(scaled, inputs)
+                raw = torch.autograd.grad(scaled, inputs)
         grads = dict(zip(dense, raw[:len(dense)]))
         block_grads = dict(zip(blocks, raw[len(dense):]))
         finite = None
@@ -462,7 +649,20 @@ class Trainer:
             block_grads = ls.unscale(block_grads, state.scale)
             finite = ls.all_finite({**grads, **{
                 f"{n}/block": g for n, g in block_grads.items()}})
+            if self.mesh.size > 1 and self._sync_grads:
+                # one rank's Inf skips every rank's step
+                finite = coll.all_reduce_flag(finite, None)
         grads = apply_prune_grads(grads, self._prune_masks)
+        if self._sync_grads:
+            # the global batch's gradients (clipping, the lazy rows'
+            # masks and the update all read these)
+            grads = self._reduce_grads(grads)
+            if block_grads and self._data_n > 1:
+                block_grads = dict(zip(block_grads, (
+                    g / self._data_n for g in coll.all_reduce_sum(
+                        list(block_grads.values()),
+                        self.mesh.group(DATA_AXIS)))))
+            loss = self._reduce_mean(loss)
         self._apply(dense, grads, ex_plan, ex_rows, block_grads, lr, finite)
         # sorted, as the reference's jitted step returns its buffers
         new_buffers = {n: buffers[n].detach() for n in sorted(buffers)}
@@ -482,9 +682,12 @@ class Trainer:
         masks = {n: psparse.touched_row_mask(grads[n])
                  for n, s in self.network.param_specs.items()
                  if s.sparse_update and n in grads}
-        old = {n: p.detach() for n, p in dense.items()}
+        # the update runs on each parameter's resting layout: this
+        # rank's shard of a placed one (its gradient reduce-scattered)
+        old = {n: local_tensor(self.params[n]).detach() for n in dense}
         count, slots = self.opt_state
-        old_opt = (count, {n: slots[n] for n in old})
+        old_opt = (count, {n: tuple(local_tensor(x) for x in slots[n])
+                           for n in old})
         new_params, new_opt = self.optimizer.apply(
             old, grads, old_opt, lr, self._lr_scales,
             sparse_masks=masks or None)
@@ -492,11 +695,13 @@ class Trainer:
             new_params = ls.select(finite, new_params, old)
             new_opt = ls.select(finite, new_opt, old_opt)
         new_slots = dict(slots)
-        new_slots.update(new_opt[1])
+        new_slots.update({n: tuple(like_placed(x, r) for x, r in
+                                   zip(slot, slots[n]))
+                          for n, slot in new_opt[1].items()})
         new_slots.update(self._exchange_apply(ex_plan, ex_rows, block_grads,
                                               count, lr, keep=finite))
-        self.params = {n: new_params.get(n, p)
-                       for n, p in self.params.items()}
+        self.params = {n: like_placed(new_params[n], p) if n in new_params
+                       else p for n, p in self.params.items()}
         self.opt_state = (new_opt[0], new_slots)
 
     # ------------------------------------------------------ eval step
@@ -660,7 +865,7 @@ class Trainer:
                                 (batch_id + 1) % stats_period == 0:
                             from ..utils.profiler import parameter_stats
                             _log.info("parameter stats:\n%s",
-                                      parameter_stats(self.params))
+                                      parameter_stats(self._full_params()))
                         batch_id += 1
                 finally:
                     if pipe is not None:
@@ -701,6 +906,9 @@ class Trainer:
         eval_names = self._eval_output_names() if evaluators else []
         for e in evaluators:
             e.start()
+        # every rank evaluates the whole batch with the whole parameters:
+        # the loss and the evaluators see the global batch
+        params = self._full_params()
         with trace.span("test_pass"):
             src, pipe = self._pipeline_or_sync(reader, feeder)
             try:
@@ -710,8 +918,8 @@ class Trainer:
                     else:
                         feed = feeder.convert(batch) if feeder else batch
                         feed = self._place_feed(feed)
-                    loss, outputs = self._eval_step(self.params,
-                                                    self.buffers, feed)
+                    loss, outputs = self._eval_step(params, self.buffers,
+                                                    feed)
                     b = _batch_size(feed)
                     total += float(loss) * b
                     n += b
@@ -834,20 +1042,21 @@ class Trainer:
         eps = eps or FLAGS.get("checkgrad_eps")
         feed = self._place_feed(feed)
         misses: Dict[str, int] = {}
+        whole = self._full_params()
         with full_precision():
             def loss_fn(p):
                 return self.network.loss(p, feed, self.buffers,
                                          is_training=False)[0]
 
             params = {n: p.detach().requires_grad_(True)
-                      for n, p in self.params.items()}
+                      for n, p in whole.items()}
             grads = dict(zip(params, torch.autograd.grad(
                 loss_fn(params), list(params.values()),
                 allow_unused=True)))
             with torch.no_grad():
                 # sorted: the order of the reference's gradient dict
                 for name in sorted(grads):
-                    p, g = self.params[name], grads[name]
+                    p, g = whole[name], grads[name]
                     idxs = np.random.RandomState(5).choice(
                         p.numel(), size=min(max_checks_per_param,
                                             p.numel()), replace=False)
@@ -856,9 +1065,9 @@ class Trainer:
                                 idxs, device=g.device)].cpu())
                     misses[name] = 0
                     for j, idx in enumerate(idxs):
-                        lp = float(loss_fn({**self.params,
+                        lp = float(loss_fn({**whole,
                                             name: _bump(p, idx, eps)}))
-                        lm = float(loss_fn({**self.params,
+                        lm = float(loss_fn({**whole,
                                             name: _bump(p, idx, -eps)}))
                         fd = (lp - lm) / (2 * eps)
                         ag = float(auto[j])
@@ -883,7 +1092,9 @@ class Trainer:
                 "skipped_total": int(self._ls_state.skipped_total),
             }
         return save_checkpoint(save_dir, pass_id, self.params,
-                               self.opt_state, self.buffers, meta=meta)
+                               self.opt_state, self.buffers, meta=meta,
+                               shard=self.fsdp and self._data_n > 1,
+                               mesh=self.mesh)
 
     def load(self, ckpt_dir: str, _verified: bool = False) -> None:
         """Load a checkpoint dir (of either package) onto the trainer's
@@ -943,6 +1154,8 @@ class Trainer:
             self._prune_masks = build_prune_masks(
                 self.network.param_specs, self.params)
             self.params = apply_prune_init(self.params, self._prune_masks)
+        if self._specs is not None:   # constructed: back at rest
+            self._place_state()
 
     def _placed(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.require(arr, requirements="C")).to(
@@ -953,14 +1166,27 @@ class Trainer:
         digest verification, scanning back past (and quarantining)
         corrupt dirs; ``--ckpt_verify=false`` loads the newest blindly.
         False when there is none."""
-        if FLAGS.get("ckpt_verify"):
-            ckpt = latest_valid_checkpoint(save_dir)
+        if self.mesh.size > 1:
+            # one rank scans (and quarantines) the directory, every rank
+            # loads what it found
+            import torch.distributed as dist
+            found = [self._latest(save_dir) if dist.get_rank() == 0
+                     else None]
+            dist.broadcast_object_list(found, src=0)
+            ckpt = found[0]
         else:
-            ckpt = latest_checkpoint(save_dir)
+            ckpt = self._latest(save_dir)
         if ckpt is None:
             return False
         self.load(ckpt, _verified=FLAGS.get("ckpt_verify"))
         return True
+
+
+    @staticmethod
+    def _latest(save_dir: str) -> Optional[str]:
+        if FLAGS.get("ckpt_verify"):
+            return latest_valid_checkpoint(save_dir)
+        return latest_checkpoint(save_dir)
 
 
 def _bump(p: torch.Tensor, idx: int, delta: float) -> torch.Tensor:

@@ -280,3 +280,38 @@ FLAGS.define("sigterm_flush", True,
 FLAGS.define("enable_timers", True,
              "collect named wall timers (utils/stat.py, the Stat.h "
              "equivalent); false makes every StatSet.timer a no-op")
+# the multi-device flags: the JAX package's names and
+# defaults.  One process drives one device, so ``mesh_shape`` names the
+# axes over the processes of the job (``PADDLE_NUM_NODES`` of them).
+FLAGS.define("trainer_count", 1,
+             "data-parallel replicas (mesh 'data' axis size)")
+FLAGS.define("trainer_id", 0, "index of this host in a multi-host job")
+FLAGS.define("num_hosts", 1, "number of hosts in the job")
+FLAGS.define("master_retry_max", 5,
+             "reconnect attempts per master RPC: on connection loss the "
+             "TCP MasterClient re-dials with exponential backoff + jitter "
+             "and replays the request up to this many times; 0 restores "
+             "the legacy fail-fast behavior (first drop raises "
+             "PaddleTpuError)")
+FLAGS.define("mesh_shape", "",
+             "mesh as 'data=8' or 'data=4,model=2' over the job's "
+             "processes, one device each (auto if empty: every process "
+             "on 'data')")
+FLAGS.define("fsdp", False,
+             "shard parameters AND optimizer slots over the 'data' mesh "
+             "axis (FSDP): each rank holds 1/N of them, gathers each "
+             "parameter before use and reduce-scatters its gradient; "
+             "placement comes from the trainer's fsdp_rules table "
+             "(parallel/rule_tables.py for zoo models) else the "
+             "largest-divisible-dim heuristic.  --fsdp=false is the kill "
+             "switch: the replicated path, byte-for-byte")
+FLAGS.define("fsdp_min_size", 1024,
+             "parameters below this many elements stay replicated under "
+             "the FSDP auto heuristic (norm gains, biases); rule-table "
+             "entries are exempt")
+FLAGS.define("parallel_nn", False,
+             "per-layer device placement (sharding annotations)")
+FLAGS.define("port", 7164, "data-task coordinator service port")
+FLAGS.define("ports_num", 1, "kept for config compatibility; unused")
+FLAGS.define("num_gradient_servers", 1, "kept for config compatibility")
+FLAGS.define("rdma_tcp", "tcp", "kept for config compatibility; unused")

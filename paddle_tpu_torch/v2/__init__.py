@@ -9,9 +9,11 @@ surrogates; never a download), ``reader``, ``networks``, ``evaluator``,
 ``inference`` (``infer``), ``parameters`` (``Parameters``, npz tars the
 JAX package reads too), ``model``, ``topology``, ``image``, ``plot`` and
 ``master``.  ``SGD`` and ``infer`` run on CUDA unless given
-``device="cpu"``.  What waits for queue A9 refuses by name:
-``master.client()``, ``init(trainer_count > 1)``, ``SGD(is_local=False)``
-and ``reader.cloud_reader``.
+``device="cpu"``.  ``master.client()`` is the master's client,
+``init(trainer_count=N)`` sets the ``trainer_count`` flag and
+``SGD(is_local=False)`` is accepted, as in the JAX package (the
+data-parallel job itself is the ``Trainer`` on a mesh:
+``distributed.launch``).
 """
 
 from . import activation, attr, data_type, dataset, evaluator, event
@@ -31,13 +33,12 @@ __all__ = [
 
 
 def init(use_gpu: bool = False, trainer_count: int = 1, **kwargs) -> None:
-    """v2 ``paddle.init``: the port runs on one card, chosen by each
-    entry point's ``device`` (``use_gpu`` and the other keywords are
-    accepted and unused); ``trainer_count`` > 1 refuses by name, the
-    multi-trainer flag waits for queue A9."""
-    from ..utils import PaddleTpuError
+    """v2 ``paddle.init``: each entry point's ``device`` picks the
+    device (``use_gpu`` and the other keywords are accepted and unused);
+    ``trainer_count`` sets its flag, as the JAX package's ``init`` does
+    (one process a device: a job of N trainers is N processes,
+    ``distributed.launch``)."""
+    from ..utils import FLAGS
 
-    if trainer_count and trainer_count > 1:
-        raise PaddleTpuError(
-            f"v2.init(trainer_count={trainer_count}): more than one "
-            "trainer is not ported yet (queue A9)")
+    if trainer_count:
+        FLAGS.set("trainer_count", trainer_count)

@@ -7,7 +7,7 @@ master which trainer should checkpoint (save-model election,
 ``load_model`` is the inverse.  The Kubernetes/etcd discovery is
 replaced by an explicit master handle: any object with
 ``request_save_model(trainer_id, interval_s)`` (the JAX package's
-``Master``; the port's master waits for queue A9).
+``Master`` or ``MasterClient`` of either package).
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """``paddle.v2.reader`` (counterpart of ``paddle_tpu/v2/reader.py``): the
 reader creators and decorators; ``creator.recordio`` reads record files,
-``creator.cloud_reader`` refuses by name (queue A9)."""
+``creator.cloud_reader`` reads them as a master leases their chunks."""
 
 from ..data.pipeline import prefetch_reader  # noqa: F401
 from ..data.reader import (  # noqa: F401

@@ -6,8 +6,10 @@ update_equation).train(reader, num_passes, event_handler, feeding)``.
 A thin layer over the port's ``trainer.Trainer``: ``device`` (default
 CUDA; raises when CUDA is absent and the CPU was not asked for) goes to
 it, and ``feeding`` becomes a ``DataFeeder`` built from the data layers'
-sizes and input-type attrs, as in the JAX package.  ``is_local=False``
-(the parameter server's remote updater) refuses by name (queue A9).
+sizes and input-type attrs, as in the JAX package.  ``is_local`` is
+accepted and unused, as in the JAX package: a data-parallel job
+all-reduces its gradients in the step (the ``Trainer`` on a mesh), with
+no parameter server to update remotely.
 """
 
 from __future__ import annotations
@@ -28,10 +30,6 @@ class SGD:
     def __init__(self, cost, parameters=None, update_equation: Optimizer = None,
                  extra_layers=None, is_local: bool = True,
                  device: Optional[Union[str, torch.device]] = None):
-        if not is_local:
-            raise PaddleTpuError(
-                "v2.trainer.SGD(is_local=False): the remote (parameter "
-                "server) updater is not ported yet (queue A9)")
         self.model_config = topology(cost, extra_layers)
         self.network = NeuralNetwork(self.model_config)
         opt_conf = update_equation.conf if update_equation else None

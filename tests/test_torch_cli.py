@@ -13,8 +13,14 @@
 - ``--job test`` / ``time`` / ``checkgrad`` print the reference CLI's
   JSON keys; ``diagram`` and ``merge_model`` write what the reference's
   helpers write; the six telemetry options set their flags and start
-  their surfaces; every flag and subcommand the port lacks refuses by
-  name (queues A9, A10b).
+  their surfaces; every flag the port lacks refuses by name (queue
+  A10b).
+- The cluster options: ``--distributed`` with no ``PADDLE_COORDINATOR``
+  trains in the one process, ``--mesh_shape`` names a mesh that must
+  match the process count (the JAX package's check), a coordinator
+  without ``PADDLE_NUM_NODES`` / ``PADDLE_NODE_ID`` is exit code 2, the
+  ``master`` subcommand serves a record file's chunks over TCP, and a
+  config's ``local_sgd_steps`` selects ``LocalSGDTrainer``.
 
 The port's CLI runs in process inside the :func:`paddle_aliases`
 block (its ``paddle`` aliases and the config's ``provider`` module are
@@ -23,6 +29,7 @@ moved aside and restored), and with ``--device cpu``.
 
 import json
 import os
+import shutil
 import signal
 import socket
 import subprocess
@@ -283,14 +290,38 @@ def test_version_names_torch(capsys):
 
 
 @pytest.mark.parametrize("extra,queue", [
-    (["--distributed"], "A9"), (["--mesh_shape", "data=2"], "A9"),
-    (["--fleet_addr", "h:1"], "A10b"), (["--fleet_port", "9"], "A10b"),
-    (["--fleet_id", "trainer-0"], "A10b"),
-    (["--health_interval", "5"], "A10b"),
-    (["--test_period", "2"], "A8")])
+    pytest.param(["--fleet_addr", "h:1"], "A10b", id="extra2-A10b"),
+    pytest.param(["--fleet_port", "9"], "A10b", id="extra3-A10b"),
+    pytest.param(["--fleet_id", "trainer-0"], "A10b", id="extra4-A10b"),
+    pytest.param(["--health_interval", "5"], "A10b", id="extra5-A10b"),
+    pytest.param(["--test_period", "2"], "A8", id="extra6-A8")])
 def test_unported_train_options_refuse_by_name(extra, queue):
     with pytest.raises(PaddleTpuError, match=queue):
         cli.main(["train", "--config", RNN, "--device", "cpu", *extra])
+
+
+@pytest.mark.parametrize("extra", [["--distributed"],
+                                   ["--mesh_shape", "data=2"]])
+def test_cluster_train_options(port_cli, tmp_path, extra):
+    """``--distributed`` without ``PADDLE_COORDINATOR`` joins nothing
+    and trains in this process; ``--mesh_shape data=2`` in a one-process
+    job fails the mesh's device count, as the JAX package's does."""
+    from paddle_tpu_torch.core import device
+    saved = FLAGS.get("mesh_shape")
+    argv = ("train", "--config", RNN, "--config_args", TINY, "--device",
+            "cpu", "--num_passes", "1", "--save_dir", str(tmp_path / "out"),
+            *extra)
+    try:
+        if extra[0] == "--distributed":
+            assert port_cli(*argv)[0] == 0
+        else:
+            with pytest.raises(PaddleTpuError,
+                               match=r"mesh \{'data': 2\} needs 2 devices, "
+                                     r"have 1"):
+                port_cli(*argv)
+    finally:
+        FLAGS.set("mesh_shape", saved)
+        device.set_mesh(None)
 
 
 def _free_port():
@@ -387,20 +418,99 @@ def test_ported_observability_options_take_effect(option, tmp_path,
         assert not seen["active"] and not seen["serving"]
 
 
-def test_coordinator_and_master_refuse_by_name(monkeypatch):
-    with pytest.raises(PaddleTpuError, match="master.*A9"):
-        cli.main(["master", "--port", "0"])
+def test_coordinator_and_master_refuse_by_name(monkeypatch, tmp_path):
+    """``master --chunked`` serves a record file's chunks as tasks over
+    TCP (the JAX package's client leases them) and snapshots on SIGTERM;
+    ``PADDLE_COORDINATOR`` without ``PADDLE_NUM_NODES`` /
+    ``PADDLE_NODE_ID`` is exit code 2 before any step, as in the JAX
+    CLI.  The master's fleet options refuse by name (A10b)."""
+    from paddle_tpu.distributed.master import MasterClient as JClient
+    from paddle_tpu_torch.data import recordio as rio
+    rec = str(tmp_path / "d.rec")
+    with rio.Writer(rec, max_records_per_chunk=2) as w:
+        for i in range(5):
+            w.write(str(i).encode())
+    snap = str(tmp_path / "snap")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch", "master", "--port", "0",
+         "--dataset", rec, "--chunked", "--local_only", "--snapshot", snap],
+        cwd=REPO, stdout=subprocess.PIPE, text=True)
+    try:
+        assert proc.stdout.readline().strip() == "dataset: 3 task(s)"
+        port = int(proc.stdout.readline().strip().rsplit(":", 1)[1])
+        with JClient(f"127.0.0.1:{port}", retry_max=0) as c:
+            tid, payload = c.get_task()
+            assert payload == f"{rec}\t{rio.load_index(rec)[0][0]}"
+            assert c.counts() == {"todo": 2, "pending": 1, "done": 0,
+                                  "failed": 0}
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=30) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    assert os.path.exists(snap)
+    with pytest.raises(PaddleTpuError, match="fleet_port.*A10b"):
+        cli.main(["master", "--fleet_port", "9"])
     monkeypatch.setenv("PADDLE_COORDINATOR", "localhost:1")
-    with pytest.raises(PaddleTpuError, match="PADDLE_COORDINATOR.*A9"):
-        cli.main(["train", "--config", RNN, "--device", "cpu"])
+    monkeypatch.delenv("PADDLE_NUM_NODES", raising=False)
+    assert cli.main(["train", "--config", RNN, "--device", "cpu"]) == 2
 
 
-def test_local_sgd_setting_refuses_by_name(port_cli, tmp_path):
-    path = tmp_path / "local_sgd.py"
-    path.write_text(
-        "from paddle.trainer_config_helpers import *\n"
-        "settings(batch_size=4, local_sgd_steps=2)\n"
-        "x = data_layer('x', size=3)\n"
-        "outputs(fc_layer(x, size=2))\n")
-    with pytest.raises(PaddleTpuError, match="local_sgd_steps.*A9"):
-        port_cli("train", "--config", str(path), "--device", "cpu")
+@pytest.mark.parametrize("rank", [0, 1, 5])
+def test_distributed_train_puts_each_rank_on_its_card(monkeypatch, rank):
+    """``train --distributed`` on CUDA: rank r of the job joins the
+    process group on card ``r mod <card count>`` (one process a device),
+    not on the current card.  The card and the process group are stubbed:
+    the job stops at ``init_process_group``."""
+    import torch
+    import torch.distributed as dist
+
+    class Joined(Exception):
+        pass
+
+    seen = {}
+
+    def init_process_group(**kw):
+        seen.update(kw)
+        raise Joined
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(torch.cuda, "set_device",
+                        lambda d: seen.setdefault("card", torch.device(d)))
+    monkeypatch.setattr(dist, "init_process_group", init_process_group)
+    monkeypatch.setenv("PADDLE_COORDINATOR", "localhost:1")
+    monkeypatch.setenv("PADDLE_NUM_NODES", "6")
+    monkeypatch.setenv("PADDLE_NODE_ID", str(rank))
+    with pytest.raises(Joined):
+        cli.main(["train", "--config", RNN, "--distributed"])
+    assert seen["card"] == torch.device("cuda", rank % 4)
+    assert seen["backend"] == "nccl" and seen["rank"] == rank
+    assert seen["world_size"] == 6
+
+
+def test_local_sgd_setting_refuses_by_name(port_cli, monkeypatch, tmp_path):
+    """A config's ``local_sgd_steps`` selects ``LocalSGDTrainer`` (the
+    JAX CLI's ``make_trainer``); on one process it trains as the plain
+    trainer does."""
+    from paddle_tpu_torch.parallel import local_sgd
+    made = []
+    real = local_sgd.make_trainer
+
+    def spy(net, opt, **kw):
+        made.append(real(net, opt, **kw))
+        return made[-1]
+
+    monkeypatch.setattr(local_sgd, "make_trainer", spy)
+    cfg_dir = os.path.dirname(RNN)
+    with open(RNN) as f:
+        text = f.read().replace("settings(", "settings(local_sgd_steps=2, ")
+    path = tmp_path / "rnn_local_sgd.py"
+    path.write_text(text)
+    shutil.copy(os.path.join(cfg_dir, "provider.py"), tmp_path)
+    rc, _ = port_cli("train", "--config", str(path), "--device", "cpu",
+                     "--config_args", TINY, "--save_dir",
+                     str(tmp_path / "out"))
+    assert rc == 0
+    assert type(made[0]).__name__ == "LocalSGDTrainer"
+    assert made[0].local_steps == 2 and made[0]._step_count == 4

@@ -138,8 +138,8 @@ def test_install_refuses_the_jax_package_aliases(paddle_aliases):
 
 def test_paddle_v2_refuses_by_name(paddle_aliases):
     """``paddle.v2`` through the port's aliases is the port's ``v2``
-    (deep imports too); the master it cannot build yet refuses by
-    name."""
+    (deep imports too), whose ``master.client()`` is the port's
+    in-process master."""
     from paddle_tpu_torch import v2 as tv2
     from paddle_tpu_torch.utils import PaddleTpuError
     with paddle_aliases():
@@ -151,8 +151,11 @@ def test_paddle_v2_refuses_by_name(paddle_aliases):
         assert importlib.import_module("paddle.v2.layer") is tv2.layer
         assert importlib.import_module("paddle.v2.dataset.imdb") is \
             tv2.dataset.imdb
-        with pytest.raises(PaddleTpuError, match="A9"):
-            importlib.import_module("paddle.v2.master").client()
+        master = importlib.import_module("paddle.v2.master").client()
+        assert type(master).__module__ == \
+            "paddle_tpu_torch.distributed.master"
+        master.set_dataset(["a"])
+        assert master.get_task() == (0, "a")
         helpers = importlib.import_module("paddle.trainer_config_helpers")
         assert helpers.fc_layer is tdsl.fc
         assert helpers.simple_lstm.__module__ == \

@@ -332,13 +332,17 @@ def test_optimizer_from_config_matches_jax():
     assert [f.name for f in dataclasses.fields(TOpt)] == \
         [f.name for f in dataclasses.fields(JOpt)]
     assert dataclasses.asdict(TOpt()) == dataclasses.asdict(JOpt())
-    for kw, match in ((dict(local_sgd_steps=2), "local_sgd_steps.*A9"),
-                      (dict(num_batches_per_send_parameter=2),
-                       "num_batches_per_send_parameter.*A9"),
-                      (dict(num_batches_per_get_parameter=3),
-                       "num_batches_per_get_parameter.*A9")):
-        with pytest.raises(PaddleTpuError, match=match):
-            optimizer_from_config(TOpt(**kw))
+    # the local-SGD period and the parameter server's exchange periods
+    # are accepted and leave the rule and its schedule as they are, as
+    # in the JAX package (which never reads the two periods)
+    base_o, base_s = optimizer_from_config(TOpt())
+    for kw in (dict(local_sgd_steps=2), dict(num_batches_per_send_parameter=2),
+               dict(num_batches_per_get_parameter=3)):
+        (jo, js), (to, ts) = j_ofc(JOpt(**kw)), optimizer_from_config(
+            TOpt(**kw))
+        assert dataclasses.asdict(to) == dataclasses.asdict(jo) \
+            == dataclasses.asdict(base_o)
+        assert ts(40) == float(js(jnp.float32(40))) == base_s(40)
 
 
 # ------------------------------------------------------ the trainer

@@ -77,6 +77,35 @@ def test_rollout_slo_and_testing_files_are_ported_and_scanned():
         assert not set(_imported_roots(PORT / rel)) & FORBIDDEN
 
 
+#: queue A9, multi-device: the JAX package's files and the port's
+#: counterparts at the same paths (core/device.py holds the mesh half)
+A9_FILES = ("parallel/sharding.py", "parallel/rule_tables.py",
+            "parallel/local_sgd.py", "parallel/ring_attention.py",
+            "distributed/__init__.py", "distributed/master.py",
+            "distributed/launch.py", "distributed/elastic.py",
+            "core/device.py")
+
+
+def test_multi_device_files_are_ported_and_scanned():
+    """The eight A9 files and the mesh half of ``core/device.py`` exist
+    at the JAX package's paths, the AST scan covers them, none imports
+    JAX or the JAX package, and no port file refuses anything by the
+    queue's name any more."""
+    jax_pkg = PORT.parent / "paddle_tpu"
+    scanned = {str(f.relative_to(PORT)) for f in PORT.rglob("*.py")}
+    for rel in A9_FILES:
+        assert (jax_pkg / rel).is_file()
+        assert rel in scanned
+        assert not set(_imported_roots(PORT / rel)) & FORBIDDEN
+    from paddle_tpu_torch.core import device
+    for name in ("parse_mesh_shape", "build_mesh", "get_mesh", "set_mesh",
+                 "data_sharding", "replicated", "num_data_shards",
+                 "DATA_AXIS", "MODEL_AXIS"):
+        assert hasattr(device, name), name
+    assert not [str(f) for f in PORT.rglob("*.py") if "queue A9" in
+                f.read_text()]
+
+
 def test_importing_the_loader_loads_no_layer_engine():
     """A process that only loads artifacts imports no ``layers``,
     ``config``, ``trainer`` or ``framework`` (the reference's capi
@@ -122,7 +151,7 @@ def test_serving_entry_points_raise_without_cuda(monkeypatch, tmp_path):
                    for t in srv.model.params.values())
 
 
-def test_unported_rollout_pieces_refuse_by_name():
+def test_unported_rollout_pieces_refuse_by_name(tmp_path):
     from paddle_tpu_torch.serving.rollout import RollingCoordinator
     from paddle_tpu_torch.testing import fault
     with pytest.raises(PaddleTpuError, match="A10b"):
@@ -131,10 +160,15 @@ def test_unported_rollout_pieces_refuse_by_name():
         fault.FleetPusherProcess("127.0.0.1:1", "x")
     with pytest.raises(PaddleTpuError, match="fleet_addr.*A10b"):
         fault.TrainerLoopProcess("/nonexistent", fleet_addr="h:1")
-    with pytest.raises(PaddleTpuError, match="A9"):
-        fault.MasterServerProcess("/nonexistent")
-    with pytest.raises(PaddleTpuError, match="A9"):
-        fault.drop_master_connection(object())
+    # the master's injectors are ported: a served child master, and a
+    # client whose dropped connections are replayed
+    from paddle_tpu_torch.distributed import MasterClient
+    with fault.MasterServerProcess(str(tmp_path / "snap")) as srv:
+        with MasterClient(srv.addr, retry_max=3) as c:
+            c.set_dataset(["a", "b"])
+            with fault.drop_master_connection(c, every=2) as stats:
+                assert [c.get_task()[1] for _ in range(2)] == ["a", "b"]
+            assert stats["dropped"] == 1
 
 
 def test_importing_observe_loads_no_torch():

@@ -1,8 +1,9 @@
 """The port's tracing and live endpoint (``paddle_tpu_torch/observe/
 trace.py``, ``http.py``, ``dump.py``, ``utils/profiler.py``) on the cases
-of ``tests/test_trace.py`` (less its three master RPC cases, queue A9):
-span identity and nesting, the flight recorder's bound, the Chrome
+of ``tests/test_trace.py``: span identity and nesting, the flight recorder's bound, the Chrome
 trace-event schema, cross-thread parenting through the async pipeline,
+the master RPC's context echo across a child master process (and the
+fallback for a master without it, and the protocol without tracing),
 the ``/metrics`` + ``/healthz`` + ``/trace`` endpoints, the degraded
 reporter, profiler re-entrancy, the debug dump, the trainer's step and
 pass spans and the checkpoint spans — all on the CPU.
@@ -601,3 +602,109 @@ def test_checkpoint_retention_span(tmp_path):
     (ret_e,) = _by_name(trace.events(), "ckpt_retention")
     assert _args(ret_e)["keep"] == 1
     assert REGISTRY.counter("ckpt_retention_removed").value() == 2
+
+
+# --------------------------------------------- cross-process: master RPC
+def test_master_rpc_context_echo_child_process(tmp_path):
+    """The acceptance pin for 'same trace id across the client/server
+    boundary': a GET against the C++ master in a SIGKILL-able child
+    process (testing/fault.py) yields a client `master_rpc` span AND a
+    `master.handle` span carrying the CHILD's pid, both in the trace of
+    the surrounding pass span."""
+    from paddle_tpu_torch.distributed.master import MasterClient
+    from paddle_tpu_torch.testing import fault
+
+    trace.enable(ring_size=256)
+    srv = fault.MasterServerProcess(str(tmp_path / "snap"), timeout_s=5)
+    with srv:
+        with trace.span("train_pass") as outer:
+            c = MasterClient(srv.addr, retry_max=2)
+            c.set_dataset(["shard-a", "shard-b"])
+            tid, payload = c.get_task()
+            assert payload in ("shard-a", "shard-b")
+            c.task_finished(tid)
+            c.close()
+        evs = trace.events()
+        rpcs = _by_name(evs, "master_rpc")
+        handles = _by_name(evs, "master.handle")
+        assert {_args(e)["op"] for e in rpcs} == {"SET", "GET", "FIN"}
+        assert len(handles) == len(rpcs) == 3
+        rpc_by_id = {_args(e)["span_id"]: e for e in rpcs}
+        for h in handles:
+            a = _args(h)
+            assert a["trace_id"] == outer.context.trace_id
+            parent = rpc_by_id[a["parent_id"]]       # nests under its RPC
+            assert a["op"] == _args(parent)["op"]
+            assert h["pid"] == srv.proc.pid           # the CHILD's pid
+            assert h["pid"] != os.getpid()
+            # server handling fits inside the client-observed round trip
+            assert h["ts"] >= parent["ts"]
+            assert h["ts"] + h["dur"] <= parent["ts"] + parent["dur"] + 1
+
+
+def test_tracing_client_falls_back_on_pre_ctx_master():
+    """A master binary that predates CTX framing answers the frame with
+    a bare ERR; the client must detect it, stop framing, and replay the
+    request bare — tracing never breaks the RPCs it observes
+    (version-skew deploys)."""
+    import socket as sk
+
+    from paddle_tpu_torch.distributed.master import MasterClient
+
+    srv = sk.socket()
+    srv.bind(("127.0.0.1", 0))
+    srv.listen(1)
+    port = srv.getsockname()[1]
+
+    def old_master():   # speaks the pre-CTX dialect: CTX is unknown
+        conn, _ = srv.accept()
+        buf = b""
+        while True:
+            chunk = conn.recv(4096)
+            if not chunk:
+                break
+            buf += chunk
+            while b"\n" in buf:
+                line, buf = buf.split(b"\n", 1)
+                cmd = line.split(b"\t", 1)[0]
+                if cmd == b"GET":
+                    conn.sendall(b"OK\t0\tonly\n")
+                elif cmd == b"FIN":
+                    conn.sendall(b"OK\n")
+                else:
+                    conn.sendall(b"ERR\tunknown command\n")
+        conn.close()
+
+    t = threading.Thread(target=old_master, daemon=True)
+    t.start()
+    trace.enable(ring_size=64)
+    c = MasterClient(f"127.0.0.1:{port}", retry_max=0)
+    with trace.span("pass"):
+        tid, payload = c.get_task()   # framed → ERR → bare replay
+        assert (tid, payload) == (0, "only")
+        assert c._ctx_frames is False
+        c.task_finished(tid)          # later calls go bare directly
+    c.close()
+    srv.close()
+    t.join(timeout=5)
+    evs = trace.events()
+    assert {_args(e)["op"] for e in _by_name(evs, "master_rpc")} \
+        == {"GET", "FIN"}
+    assert not _by_name(evs, "master.handle")   # no echo, no fake span
+
+
+def test_master_protocol_unchanged_without_tracing(tmp_path):
+    """Tracing off ⇒ no CTX frames on the wire and byte-identical
+    protocol behavior (the GET/FIN cycle completes, counts move)."""
+    from paddle_tpu_torch.distributed.master import Master, MasterClient
+
+    assert not trace.enabled()
+    m = Master(timeout_s=5, failure_max=3)
+    m.set_dataset(["only"])
+    port = m.serve(0)
+    with MasterClient(f"127.0.0.1:{port}") as c:
+        tid, payload = c.get_task()
+        assert payload == "only"
+        c.task_finished(tid)
+        assert c.counts()["done"] == 1
+    assert trace.events() == []

@@ -447,15 +447,23 @@ def test_other_unported_pieces_refuse_by_name(tmp_path):
     convert(str(tmp_path), lambda: iter(TRAIN), 10, "train")
     assert sorted(treader.recordio(str(tmp_path / "train-*"))()) == \
         sorted(TRAIN)
-    with pytest.raises(PaddleTpuError, match="A9"):
-        treader.cloud_reader(["x"], master=None)
+    # the master-leased reader over the same record files
+    from paddle_tpu_torch.distributed import Master
+    cloud = treader.cloud_reader(str(tmp_path / "train-*"),
+                                 Master(timeout_s=30.0), read_ahead=1)
+    assert sorted(cloud()) == sorted(TRAIN)
     # sub-sequence feeds are ported (tests/test_torch_nested_groups.py)
     nested = tfeed.DataFeeder([("s", tfeed.integer_value_sub_sequence(5))]
                               ).convert([([[1, 2], [3]],)])["s"]
     assert tuple(nested.sub_length.tolist()) == ([2, 1],)
-    with pytest.raises(PaddleTpuError, match="local_sgd_steps.*A9"):
-        TTrainer(TNet(t_classifier(V, E, H, 2, C)),
-                 TOpt(local_sgd_steps=2), device="cpu")
+    # local_sgd_steps: the plain trainer takes the config as the JAX one
+    # does, make_trainer picks local SGD
+    from paddle_tpu_torch.parallel.local_sgd import make_trainer
+    net = TNet(t_classifier(V, E, H, 2, C))
+    assert type(TTrainer(net, TOpt(local_sgd_steps=2), device="cpu")) \
+        is TTrainer
+    assert type(make_trainer(net, TOpt(local_sgd_steps=2),
+                             device="cpu")).__name__ == "LocalSGDTrainer"
 
 
 def test_events_are_the_reference_dataclasses():

@@ -19,13 +19,14 @@ both packages on the CPU.
 - ``Topology.proto()`` equal; config-declared evaluators through
   ``Trainer.test``; the namespace over the reference's ``__all__``; the
   ``paddle.v2`` alias with its deep imports; ``master.client()`` and
-  ``init(trainer_count=2)`` refusing with "A9".
+  ``init(trainer_count=2)`` setting its flag, as the JAX ``v2`` does.
 """
 
 import importlib
 import importlib.util
 import io
 import os
+import pickle
 import types
 
 import numpy as np
@@ -321,11 +322,9 @@ def test_config_declared_evaluators_run_in_test_job():
 
 
 #: names that differ between the packages' v2 modules on purpose: the
-#: helpers each imports, and the JAX master's classes (the port's master
-#: waits for queue A9)
+#: helpers each imports
 HELPERS = {"Optional", "Sequence", "Union", "SequenceBatch", "LayerOutput",
-           "resolve_device", "enforce", "PaddleTpuError", "InputType",
-           "Master", "MasterClient"}
+           "resolve_device", "enforce", "PaddleTpuError", "InputType"}
 
 
 def test_v2_namespace_parity():
@@ -403,20 +402,40 @@ def test_v2_model_save_load_with_election(tmp_path):
     np.testing.assert_array_equal(loaded["w"], params["w"])
 
 
-def test_v2_master_client_and_trainer_count_refuse():
-    with pytest.raises(PaddleTpuError, match="A9"):
-        tv2.master.client()
-    with pytest.raises(PaddleTpuError, match="A9"):
-        tv2.master.client("127.0.0.1:1", timeout_sec=5.0)
-    with pytest.raises(PaddleTpuError, match="A9"):
+def test_v2_master_client_and_trainer_count_refuse(tmp_path):
+    """What the JAX ``v2`` does: ``master.client()`` an in-process
+    master, ``client(addr)`` a TCP client of a served one (the JAX
+    package's master here), ``init(trainer_count=N)`` the flag,
+    ``reader.cloud_reader`` the master-leased reader, ``SGD(is_local=
+    False)`` accepted."""
+    from paddle_tpu.distributed.master import Master as JMaster
+    from paddle_tpu_torch.data import recordio as rio
+    from paddle_tpu_torch.utils import FLAGS as TFLAGS
+    local = tv2.master.client()
+    local.set_dataset(["p"])
+    assert local.get_task() == (0, "p")
+    served = JMaster(timeout_s=30.0)
+    served.set_dataset(["q"])
+    with tv2.master.client(f"127.0.0.1:{served.serve(0)}",
+                           timeout_sec=5.0) as remote:
+        assert remote.get_task() == (0, "q")
+    old = TFLAGS.get("trainer_count")
+    try:
         tv2.init(use_gpu=True, trainer_count=2)
+        assert TFLAGS.get("trainer_count") == 2
+    finally:
+        TFLAGS.set("trainer_count", old)
     tv2.init(use_gpu=True, trainer_count=1)
-    with pytest.raises(PaddleTpuError, match="A9"):
-        tv2.reader.cloud_reader(["x"], master=None)
+    rec = str(tmp_path / "s.rec")
+    with rio.Writer(rec, max_records_per_chunk=2) as w:
+        for i in range(5):
+            w.write(pickle.dumps((i,)))
+    cloud = tv2.reader.cloud_reader(rec, tv2.master.client(), read_ahead=0)
+    assert sorted(cloud()) == [(i,) for i in range(5)]
     with tdsl.config_scope():
         cost, _ = _mnist_net(tv2)
-        with pytest.raises(PaddleTpuError, match="A9"):
-            tv2.trainer.SGD(cost, is_local=False, device="cpu")
+        sgd = tv2.trainer.SGD(cost, is_local=False, device="cpu")
+        assert sgd.core.device.type == "cpu"
 
 
 def test_compat_paddle_v2_alias(paddle_aliases):  # noqa: F811
