@@ -259,6 +259,20 @@ Phases (any failure exits nonzero, without the final ``ok`` line):
    around 2 steps: 2 ``train_step`` ranges with the 4 + 4 launches of
    kernels 8 and 9 inside them; (e) ``global_stat.timer(...,
    block_on=...)`` around a step reads at least its CUDA-event span;
+   (f) the training health (``--health_interval 4``): (i) 16 steps, 4
+   drains, 2 + 2 launches of kernels 8 and 9 a step, each drained
+   per-layer gradient, parameter and update norm within
+   ``HEALTH_NORM_RTOL`` of a float64 recompute from the drained step's
+   own tensors (the state one step stale must miss it); (ii) a NaN
+   planted in one parameter's gradient at step 7 of 8: that layer alone
+   non-finite, once, at step 7, ``health_alerts_total{kind="nonfinite"}``
+   1 for it and no other alert, ``/healthz`` 200 ``degraded``, ``/health``
+   200 with the report; (iii) ``--precision=bf16`` with an inf planted in
+   the unscaled gradient: one loss-scale skip, one benign non-finite step,
+   no pathological one, no alert, status ok; (iv) one step's host syncs
+   with health on equal (b)'s off, exactly one more at a drain, and the
+   launch calls health adds a step; (v) 20 steps off, on, off again
+   (readings);
 4z-roll. the train->serve pipeline at phase 4's serving config: (a) the
    seed-0 and seed-1 decoders saved as checkpoints, ``CheckpointWatcher.
    poll_once`` exports each once as int8 artifacts A and B (a second poll
@@ -275,7 +289,10 @@ Phases (any failure exits nonzero, without the final ``ok`` line):
    a bit-flipped copy of B rolls back (``/healthz`` rolled_back with the
    verify error, A's tokens still served); ``POST /v1/swap`` B, then
    ``unchanged`` on the re-POST; ``--rollout=false`` keeps the
-   pre-rollout ``stats()`` keys.  Readings: build and flip-pause seconds,
+   pre-rollout ``stats()`` keys; the serving process pushes to a
+   loopback aggregator as ``role=serving``: ``/fleet/topology`` shows A's
+   version at boot and B's after the POST swap.  Readings: build and
+   flip-pause seconds,
    TTFT p50/p99 and req/s of each window, peak memory of each window;
    (b) the canary: with traffic on A, a seed-2 artifact carrying
    ``debug_prefill_delay_ms`` 150 rolls back to A after a 3 s bake
@@ -322,7 +339,12 @@ Phases (any failure exits nonzero, without the final ``ok`` line):
    resumes under ``ElasticTrainer`` (True, samples_seen > 0) and drains
    the pass; the master ends with pending 0, no chunk failed, the epoch
    reset (12 to do, epoch 1); kernels 8 and 9 launched in both
-   children.  Readings: ms/step of one rank alone and of two ranks
+   children; both push to a loopback ``FleetAggregator`` the script
+   hosts as one logical id (``--health_interval 4``): ``ok`` with the
+   first child's pid, ``missing`` on ``/fleet/healthz`` after its
+   SIGKILL, ``ok`` again with the resumed child's pid (restarts >= 1),
+   ``down`` after its goodbye frame, the frames carrying the health
+   digest.  Readings: ms/step of one rank alone and of two ranks
    sharing the card (no scaling figure: they share the SMs), the gloo
    all-reduce's ms a step, a pass of ``Trainer.train`` fed by the master
    through ``cloud_reader`` beside one over the same chunks in memory in
@@ -5675,7 +5697,8 @@ def phase_obs_syncs(trainer, feed, tmp):
     if PARENT_STEP_SYNCS is not None and len(off) != PARENT_STEP_SYNCS:
         fail(f"4z-obs (b): {len(off)} syncs a step off, the parent's "
              f"{PARENT_STEP_SYNCS}")
-    return {"off": off, "on": on, "parent": PARENT_STEP_SYNCS}
+    return {"off": off, "on": on, "parent": PARENT_STEP_SYNCS,
+            "off_launches": off_launches}
 
 
 def phase_obs_speed(trainer, feed, step, tmp):
@@ -5809,11 +5832,272 @@ def phase_obs_timer(trainer, feed):
     return {"timer_ms": timer_ms, "event_ms": ev_ms}
 
 
+#: phase 4z-obs (f): the training-health telemetry at --health_interval
+#: HEALTH_INTERVAL over HEALTH_STEPS steps of the LSTM row (4d's width,
+#: fp32); (i) the drained per-layer gradient, parameter and update norms
+#: against a float64 recompute from the drained step's own tensors, each
+#: within HEALTH_NORM_RTOL (relative) — above the honest reading (fp32
+#: sums: ~1e-6) and below a planted fault's (the state one step stale)
+HEALTH_INTERVAL, HEALTH_STEPS, HEALTH_TIMED = 4, 16, 20
+HEALTH_NORM_RTOL = 1e-4
+
+
+def _health_trainer(dev, dims, precision="fp32", interval=HEALTH_INTERVAL):
+    """The LSTM row's trainer (seed 0) built with ``--health_interval``
+    ``interval`` (0: without the feature)."""
+    from paddle_tpu_torch.config.model_config import OptimizationConfig
+    from paddle_tpu_torch.layers.network import NeuralNetwork
+    from paddle_tpu_torch.models import lstm_text_classifier
+    from paddle_tpu_torch.trainer.trainer import Trainer
+    set_flags(health_interval=interval)
+    try:
+        return Trainer(NeuralNetwork(lstm_text_classifier(**dims)),
+                       OptimizationConfig(**TRAIN_OPT, precision=precision),
+                       seed=0, device=dev)
+    finally:
+        set_flags(health_interval=0)
+
+
+def _health_norms64(session, grads, old, new):
+    """Each layer's (gradient, parameter, update) L2 norms in float64
+    from one step's tensors (host copies)."""
+    out = {}
+    for layer, names in session.pairs:
+        sq = [0.0, 0.0, 0.0]
+        for n in names:
+            g, w, w1 = grads[n], old[n], new[n]
+            sq[0] += float((g * g).sum())
+            sq[1] += float((w * w).sum())
+            sq[2] += float(((w1 - w) ** 2).sum())
+        out[layer] = [float(np.sqrt(x)) for x in sq]
+    return out
+
+
+def _health_rel(drained, want):
+    """max over layers and the three norms of |drained - want| / want."""
+    worst = 0.0
+    for layer, w in want.items():
+        row = drained[layer]
+        for got, ref in zip((row["grad_norm"], row["param_norm"],
+                             row["update_norm"]), w):
+            worst = max(worst, abs(got - ref) / max(ref, 1e-30))
+    return worst
+
+
+def _health_plant(module, attr, step_of, make):
+    """Wrap ``module.attr`` so that its output's gradient dict gets
+    ``make(grads)`` applied at the step ``step_of()`` names (a counter
+    of the wrapped calls that carry gradients) → a restore function."""
+    orig = getattr(module, attr)
+    calls = []
+
+    def planted(grads, *args):
+        out = orig(grads, *args)
+        if out:
+            calls.append(1)
+            if len(calls) - 1 == step_of():
+                out = make(dict(out))
+        return out
+
+    setattr(module, attr, planted)
+    return lambda: setattr(module, attr, orig)
+
+
+def phase_obs_health(dev, step, syncs, dims=TRAIN):
+    """Phase 4z-obs (f): the training health around the LSTM row; (i)
+    norms against float64, (ii) a NaN planted in one gradient found in
+    its layer at its step, with ``/healthz`` and ``/health``, (iii) a
+    bf16 loss-scale skip benign, (iv) host syncs and launches of a step
+    with health on against (b)'s off, (v) ms/step off and on.  ``syncs``
+    is (b)'s result."""
+    import torch
+    from paddle_tpu_torch import observe
+    from paddle_tpu_torch.observe import health
+    from paddle_tpu_torch.observe.http import ObservabilityServer
+    from paddle_tpu_torch.optimizer import loss_scale as ls
+    from paddle_tpu_torch.trainer import trainer as tmod
+    t0 = time.perf_counter()
+    v = dims["vocab_size"]
+    feeds = [train_feed(100 + s, TRAIN_B, TRAIN_T, v, dev)
+             for s in range(HEALTH_STEPS)]
+    health.reset()
+    observe.REGISTRY.reset()
+    m = {}
+    # (i) the drained norms against float64 from the same step's tensors
+    tr = _health_trainer(dev, dims)
+    sess = tr._health
+    fold, kept, calls = sess.fold, [], [0]
+
+    def capture(grads, params, new_params, **kw):
+        calls[0] += 1
+        if calls[0] > HEALTH_STEPS - 2:          # the last two steps
+            kept.append(tuple({n: x.detach().double().cpu()
+                               for n, x in d.items()}
+                              for d in (grads, params, new_params)))
+        return fold(grads, params, new_params, **kw)
+
+    sess.fold = capture
+    reset_counts()
+    losses = [float(tr.train_one_batch(f)) for f in feeds]
+    launches = read_counts()
+    rep = health.latest_report()
+    if rep is None or rep["base_step"] + rep["steps"] != HEALTH_STEPS:
+        fail(f"4z-obs (f)(i): the last drain {rep}")
+    want = _health_norms64(sess, *kept[-1])
+    stale = _health_norms64(sess, *kept[-2])
+    honest, planted = (_health_rel(rep["layers"], w) for w in (want, stale))
+    drains = observe.counter("health_drains_total").value()
+    log(f"  (f)(i) {HEALTH_STEPS} steps at --health_interval "
+        f"{HEALTH_INTERVAL}: {int(drains)} drains, layers "
+        f"{list(rep['layers'])}; drained norms against float64 from the "
+        f"drained step's tensors: {honest:.3e}, the state one step stale "
+        f"{planted:.3e}; gate {HEALTH_NORM_RTOL}; launches "
+        f"{ {k: n for k, n in launches.items() if n} }")
+    if not (honest <= HEALTH_NORM_RTOL < planted) or drains != \
+            HEALTH_STEPS // HEALTH_INTERVAL or not np.all(np.isfinite(losses)):
+        fail(f"4z-obs (f)(i): honest {honest}, planted {planted}, drains "
+             f"{drains}, losses {losses}")
+    check_launches(launches, {k: dims["lstm_num"] * HEALTH_STEPS
+                              for k in TRAINING_KERNELS}, "4z-obs (f)(i)")
+    m["norms"] = {"honest_rel": honest, "stale_rel": planted,
+                  "gate": HEALTH_NORM_RTOL, "layers": list(rep["layers"]),
+                  "launches": {k: launches[k] for k in TRAINING_KERNELS}}
+    sess.fold = fold
+    # (ii) a NaN in one parameter's gradient at step 7 of 8
+    layer, names = sess.pairs[1]
+    target, plant_at = names[0], 2 * HEALTH_INTERVAL - 1
+
+    def nan(grads):
+        g = grads[target].clone()
+        g.view(-1)[0] = float("nan")
+        grads[target] = g
+        return grads
+
+    health.reset()
+    observe.REGISTRY.reset()
+    tr2 = _health_trainer(dev, dims)
+    restore = _health_plant(tmod, "apply_prune_grads", lambda: plant_at, nan)
+    try:
+        for f in feeds[:plant_at + 1]:
+            tr2.train_one_batch(f)
+    finally:
+        restore()
+    rep = health.latest_report()
+    row = rep["layers"][layer]
+    alerts = observe.counter("health_alerts_total")
+    with ObservabilityServer(port=0) as srv:
+        code_z, hz = _obs_get(srv.port, "/healthz")
+        code_h, body = _obs_get(srv.port, "/health")
+    hz, body = json.loads(hz), json.loads(body)
+    others = [l for l in rep["layers"] if l != layer
+              and rep["layers"][l]["nonfinite_steps"]]
+    log(f"  (f)(ii) NaN planted in {target}'s gradient at step {plant_at}: "
+        f"layer {layer} nonfinite_steps {row['nonfinite_steps']}, "
+        f"first_nonfinite {row['first_nonfinite']} (base {rep['base_step']})"
+        f", health_alerts_total{{nonfinite,{layer}}} "
+        f"{alerts.value(kind='nonfinite', layer=layer)}; other layers "
+        f"non-finite {others}; /healthz {code_z} {hz['status']}, /health "
+        f"{code_h} with {len(body['layers'])} layers")
+    if row["nonfinite_steps"] != 1 or rep["base_step"] + \
+            row["first_nonfinite"] != plant_at or others or \
+            alerts.value(kind="nonfinite", layer=layer) != 1 or \
+            alerts.total() != 1 or code_z != 200 or \
+            hz["status"] != "degraded" or code_h != 200 or \
+            sorted(body["layers"]) != sorted(rep["layers"]):
+        fail(f"4z-obs (f)(ii): report {rep}, /healthz {code_z} {hz}")
+    m["nonfinite"] = {"layer": layer, "param": target, "step": plant_at,
+                      "healthz": hz["status"]}
+    del tr2
+    # (iii) --precision=bf16: an inf in one gradient is a loss-scale skip,
+    # benign, no alert
+    health.reset()
+    observe.REGISTRY.reset()
+    tr3 = _health_trainer(dev, dims, precision="bf16")
+    skip_at = 1
+
+    def inf(grads):
+        g = grads[target].clone()
+        g.view(-1)[0] = float("inf")
+        grads[target] = g
+        return grads
+
+    restore = _health_plant(ls, "unscale", lambda: skip_at, inf)
+    try:
+        for f in feeds[:HEALTH_INTERVAL]:
+            tr3.train_one_batch(f)
+    finally:
+        restore()
+    tr3._sync_precision_metrics()
+    nf = observe.counter("health_nonfinite_steps_total")
+    skipped = observe.counter("loss_scale_skipped_steps_total").value()
+    benign = nf.value(layer=layer, benign="true")
+    patho = sum(nf.value(layer=l, benign="false")
+                for l in health.latest_report()["layers"])
+    log(f"  (f)(iii) --precision=bf16, inf in {target}'s gradient at step "
+        f"{skip_at}: loss_scale_skipped_steps_total {skipped}, benign "
+        f"non-finite steps of {layer} {benign}, pathological {patho}, "
+        f"alerts {observe.counter('health_alerts_total').total()}, status "
+        f"{health.status_summary()['status']}")
+    if skipped != 1 or benign != 1 or patho or \
+            observe.counter("health_alerts_total").total() or \
+            health.status_summary()["status"] != "ok":
+        fail("4z-obs (f)(iii): the bf16 skip was not benign")
+    m["bf16_skip"] = {"skipped": skipped, "benign": benign}
+    del tr3
+    # (iv) host syncs and launches of one step: health on, off a drain and
+    # at one, against (b)'s off
+    health.reset()
+    tr4 = _health_trainer(dev, dims)
+    for f in feeds[:2]:
+        tr4.train_one_batch(f)                 # two of the interval's 4
+    plain, plain_launch = step_sync_calls(tr4, feeds[2])
+    drain, drain_launch = step_sync_calls(tr4, feeds[3])
+    extra = list(drain)
+    for name in plain:
+        if name in extra:
+            extra.remove(name)
+    off, off_launch = syncs["off"], syncs["off_launches"]
+    log(f"  (f)(iv) one step's synchronizing runtime calls with health on: "
+        f"{len(plain)} {plain} (off a drain), {len(drain)} {drain} (a "
+        f"drain; off: {len(off)}); launch calls {plain_launch} and "
+        f"{drain_launch} (off: {off_launch}): health adds "
+        f"{plain_launch - off_launch} a step and {drain_launch - plain_launch}"
+        f" more at a drain")
+    if plain != off or len(drain) != len(off) + 1:
+        fail(f"4z-obs (f)(iv): syncs {plain} / {drain} against {off}")
+    m["syncs"] = {"on": plain, "drain": drain, "off": off,
+                  "launches_on": plain_launch, "launches_drain": drain_launch,
+                  "launches_off": off_launch,
+                  "health_launches": plain_launch - off_launch}
+    # (v) ms/step off and on, in this call
+    tr_off = _health_trainer(dev, dims, interval=0)
+    for t in (tr_off, tr4):
+        t.train_one_batch(feeds[0])
+    rows = {}
+    for name, t in (("off", tr_off), ("on", tr4), ("off_again", tr_off)):
+        _, _, ms, wall, _ = timed_steps(t, feeds[0], HEALTH_TIMED)
+        rows[name] = {"ms_per_step": ms, "host_wall_ms": wall}
+    log(f"  (f)(v) {HEALTH_TIMED} steps: off {rows['off']['ms_per_step']:.3f}"
+        f" ms/step, on (--health_interval {HEALTH_INTERVAL}) "
+        f"{rows['on']['ms_per_step']:.3f}, off again "
+        f"{rows['off_again']['ms_per_step']:.3f}; 4d "
+        f"{step['ms_per_step']:.3f}")
+    # the path's launches: (i)'s run, the counts set to 0 just before it
+    m["speed"], m["launches"] = rows, launches
+    del tr, tr4, tr_off
+    health.reset()
+    observe.REGISTRY.reset()
+    torch.cuda.empty_cache() if dev.type == "cuda" else None
+    m["seconds"] = time.perf_counter() - t0
+    log(f"  4z-obs (f) took {m['seconds']:.1f} s")
+    return m
+
+
 def phase_obs(dev, step):
     """Phase 4z-obs: the telemetry core around the LSTM row at 4d's
     width (fp32): (a) sinks off and on, (b) synchronizations a step, (c)
     speed, (d) a profiler window, (e) the blocking timer; ``step`` is
-    4d's metrics."""
+    4d's metrics; (f) the training health."""
     import tempfile
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -5824,6 +6108,8 @@ def phase_obs(dev, step):
         m["profile"] = phase_obs_profile(trainer, feed, tmp)
         m["timer"] = phase_obs_timer(trainer, feed)
         del trainer
+        mark_phase("4z-obs-health")
+        m["health"] = phase_obs_health(dev, step, m["syncs"])
     m["seconds"] = time.perf_counter() - t0
     log(f"  4z-obs took {m['seconds']:.1f} s")
     return m
@@ -8127,6 +8413,16 @@ def phase_roll_swap(dev, tmp):
     REGISTRY.reset()
     res = {"export_s": export_s}
     srv = _roll_server(m_a, ver[art_a]).start()
+    # the fleet: this serving process pushes as role=serving to a
+    # loopback aggregator, once at boot and once after the POST swap
+    from paddle_tpu_torch.observe import fleet
+    t_fleet = time.perf_counter()
+    agg = fleet.FleetAggregator(0).start()
+    fleet.set_identity(role="serving", name="serve-0")
+    pusher = fleet.FleetPusher(agg.addr, interval_s=60.0)
+    booted = pusher.push() and json.loads(fleet._http_get(
+        agg.addr, "/fleet/topology"))["procs"].get("serve-0", {})
+    fleet_s = time.perf_counter() - t_fleet
     try:
         _roll_window(srv, p0[:MAX_BATCH])                      # warm
         reqs0, steady, _ = _roll_window(srv, p0)
@@ -8216,8 +8512,30 @@ def phase_roll_swap(dev, tmp):
         log(f"  POST /v1/swap -> {post['result']} (pause "
             f"{post['pause_s'] * 1e3:.3f} ms), re-POST -> "
             f"{post2['result']}")
+        t_fleet = time.perf_counter()
+        pushed = pusher.push()
+        topo = json.loads(fleet._http_get(agg.addr, "/fleet/topology"))
+        swapped = topo["procs"].get("serve-0", {})
+        fleet_s += time.perf_counter() - t_fleet
+        log(f"  fleet: serve-0 pushed as role {swapped.get('role')}; "
+            f"/fleet/topology model_version {booted.get('model_version',
+                                                       '?')[:12]} at boot, "
+            f"{swapped.get('model_version', '?')[:12]} after the swap "
+            f"(rollout_state {swapped.get('rollout_state')}); "
+            f"{fleet_s:.3f} s")
+        if not (booted and pushed and booted.get("role") == "serving"
+                and booted.get("model_version") == ver[art_a]
+                and swapped.get("role") == "serving"
+                and swapped.get("model_version") == ver[art_b]
+                and swapped.get("rollout_state") == "serving"):
+            fail(f"4z-roll fleet: at boot {booted}, after the swap {swapped}")
+        res["fleet"] = {"seconds": fleet_s,
+                        "boot_version": booted["model_version"],
+                        "swapped_version": swapped["model_version"]}
     finally:
         srv.stop()
+        agg.stop()
+        fleet.reset_identity()
     kill = _roll_server(m_a, ver[art_a], rollout=False)
     if set(kill.stats()) != PRE_ROLLOUT_STATS:
         fail(f"4z-roll --rollout=false: stats() keys {sorted(kill.stats())}")
@@ -8540,6 +8858,11 @@ DIST_PARAM_RTOL = 1e-2
 DIST_LOSS_RTOL = 1e-4
 DIST_STEPS, DIST_KILL_AFTER, DIST_CHUNKS = 4, 4, 12
 DIST_DEADLINE_S, DIST_TASK_TIMEOUT_S = 120.0, 5.0
+#: (c)'s fleet: the elastic trainers push to a loopback aggregator the
+#: script hosts every DIST_FLEET_INTERVAL_S seconds, as one logical id,
+#: with --health_interval HEALTH_INTERVAL (the frames carry its digest);
+#: the aggregator's staleness factor is the flag's default, 3
+DIST_FLEET_ID, DIST_FLEET_INTERVAL_S = "trainer-0", 0.5
 
 #: a 4z-dist child process runs :func:`_dist_child` with its kind, its
 #: spec (JSON) and its rank or mode as arguments
@@ -8686,8 +9009,12 @@ def _dist_elastic(spec, mode) -> None:
     tr = trainer()
     client = MasterClient(spec["master"], retry_max=5)
     et = ElasticTrainer(tr, client, load_chunk, spec["save_dir"],
-                        trainer_id=f"trainer-{mode}", checkpoint_every_s=1e9)
+                        trainer_id=DIST_FLEET_ID, checkpoint_every_s=1e9)
     _dist_wait_go()
+    # the fleet push client (--fleet_addr in the spec's flags): released
+    # with the child, so only one incarnation of the id pushes at a time
+    from paddle_tpu_torch import observe
+    observe.start_from_flags()
     L.reset_launch_counts()
     if mode == "first":
         reader = batch(cloud_reader(spec["path"], client, read_ahead=1),
@@ -8953,6 +9280,8 @@ def phase_dist(dev, dims=TRAIN):
              "--task_timeout", str(DIST_TASK_TIMEOUT_S)], env=env,
             text=True, stdout=subprocess.PIPE, stderr=master_log)
         children = []
+        from paddle_tpu_torch.observe.fleet import FleetAggregator
+        agg = FleetAggregator(0).start()
         try:
             addr = f"127.0.0.1:{_obs_free_port()}"
             ranks = [_DistChild("rank", [json.dumps(
@@ -8967,7 +9296,10 @@ def phase_dist(dev, dims=TRAIN):
             maddr = f"127.0.0.1:{int(line.rsplit(':', 1)[1])}"
             el = {**base, "master": maddr, "path": path,
                   "save_dir": os.path.join(tmp, "elastic"),
-                  "kill_after": DIST_KILL_AFTER}
+                  "kill_after": DIST_KILL_AFTER,
+                  "flags": {**flags, "fleet_addr": agg.addr,
+                            "metrics_interval_s": DIST_FLEET_INTERVAL_S,
+                            "health_interval": HEALTH_INTERVAL}}
             first = _DistChild("elastic", [json.dumps(el), "first"],
                                env, "elastic first")
             second = _DistChild("elastic", [json.dumps(el), "resume"],
@@ -9010,7 +9342,7 @@ def phase_dist(dev, dims=TRAIN):
                      f"before (c): {open(master_log.name).read()[-3000:]}")
             try:
                 res["master"] = _dist_master(first, second, maddr,
-                                             dev.type == "cuda")
+                                             dev.type == "cuda", agg)
             except SystemExit:
                 master_log.flush()
                 log(f"  the master: {master.poll()}, its log: "
@@ -9019,6 +9351,7 @@ def phase_dist(dev, dims=TRAIN):
         finally:
             for c in children:
                 c.kill()
+            agg.stop()
             master.terminate()
             try:
                 master.wait(timeout=10)
@@ -9115,22 +9448,81 @@ def _dist_load_one(dev, dims, ckpt):
     return {n: p.detach().cpu().numpy() for n, p in tr.params.items()}
 
 
-def _dist_master(first, second, maddr, on_card):
+def _fleet_wait(agg, pred, timeout_s, what):
+    """Poll the aggregator's rollup entry of DIST_FLEET_ID until
+    ``pred(entry)``; the seconds it took (fails at ``timeout_s``)."""
+    t0 = time.perf_counter()
+    while True:
+        entry = agg.state.rollup()["procs"].get(DIST_FLEET_ID, {})
+        if pred(entry):
+            return time.perf_counter() - t0
+        if time.perf_counter() - t0 > timeout_s:
+            fail(f"4z-dist (c) fleet: {what} not seen in {timeout_s} s: "
+                 f"{entry}")
+        time.sleep(0.05)
+
+
+def _dist_master(first, second, maddr, on_card, agg):
     """4z-dist (c): the first trainer through 4 chunks, SIGKILLed; the
-    second resumes and drains the pass; the master's counts after."""
+    second resumes and drains the pass; the master's counts after.  The
+    fleet: both push to ``agg`` as DIST_FLEET_ID; the killed one reads
+    ``missing`` on /fleet/healthz, the resumed one ``ok`` again, then
+    ``down`` after its goodbye frame; the frames carry the health
+    digest."""
     from paddle_tpu_torch.distributed import MasterClient
+    from paddle_tpu_torch.observe.fleet import _http_get
     first.line("READY")
     second.line("READY")
     first.go()
     chunk = None
     for _ in range(DIST_KILL_AFTER):
         chunk = json.loads(first.line("CHUNK "))
+    t_fleet = time.perf_counter()
+    fl = {"up_s": _fleet_wait(
+        agg, lambda e: e.get("status") == "ok"
+        and e.get("pid") == first.proc.pid, 30.0, "the first trainer ok")}
+    digest = agg.state._procs[DIST_FLEET_ID]["health"]
     first.kill()
     t_kill = time.perf_counter()
+    fl["missing_s"] = _fleet_wait(
+        agg, lambda e: e.get("status") == "missing", 30.0,
+        "the killed trainer missing")
+    doc = json.loads(_http_get(agg.addr, "/fleet/healthz"))
+    if doc["status"] != "missing" or \
+            doc["procs"][DIST_FLEET_ID]["status"] != "missing":
+        fail(f"4z-dist (c) fleet: /fleet/healthz after the kill {doc}")
+    t_go = time.perf_counter()
     second.go()
+    fl["ok_again_s"] = _fleet_wait(
+        agg, lambda e: e.get("status") == "ok"
+        and e.get("pid") == second.proc.pid, 60.0,
+        "the resumed trainer ok")
+    doc = json.loads(_http_get(agg.addr, "/fleet/healthz"))
+    restarts = doc["procs"][DIST_FLEET_ID]["restarts"]
+    fl["ok_again_s"] += t_go - t_kill
+    fleet_s = time.perf_counter() - t_fleet
     res = json.loads(second.line("ELASTIC "))
     second.wait()
     res["kill_to_done_s"] = time.perf_counter() - t_kill
+    t0 = time.perf_counter()
+    fl["down_s"] = _fleet_wait(agg, lambda e: e.get("status") == "down",
+                               10.0, "the resumed trainer's goodbye")
+    fleet_s += time.perf_counter() - t0
+    resumed_digest = agg.state._procs[DIST_FLEET_ID]["health"]
+    log(f"  (c) fleet: {DIST_FLEET_ID} ok {fl['up_s']:.2f} s after the 4th "
+        f"chunk, missing {fl['missing_s']:.2f} s after the SIGKILL "
+        f"(interval {DIST_FLEET_INTERVAL_S} s x the stale factor), ok "
+        f"again as the resumed pid {fl['ok_again_s']:.2f} s after the kill "
+        f"(restarts {restarts}), down {fl['down_s']:.2f} s after it exited;"
+        f" the frames' health digest: {digest.get('health')}, after the "
+        f"resume {resumed_digest.get('health')}; the fleet checks took "
+        f"{fleet_s:.1f} s of the phase")
+    if restarts < 1 or "health" not in digest or \
+            resumed_digest.get("health", {}).get("drained_steps", 0) <= 0:
+        fail(f"4z-dist (c) fleet: restarts {restarts}, digests {digest} "
+             f"{resumed_digest}")
+    res["fleet"] = dict(fl, restarts=restarts, seconds=fleet_s,
+                        digest=digest.get("health"))
     counts, epoch = res["counts"], res["epoch"]
     with MasterClient(maddr, retry_max=2) as c:
         c.reset_epoch(c.current_epoch() + 1)
@@ -9309,6 +9701,8 @@ def main() -> int:
         obs = phase_obs(dev, train)
         for name in launches:
             launches[name]["obs"] = obs["launches"].get(name, 0)
+            launches[name]["obs_health"] = \
+                obs["health"]["launches"].get(name, 0)
         log("== phase 4z-roll: hot swap under load at phase 4's config "
             "(the watcher's int8 exports, drain and reprefill flips, a "
             "torn artifact, POST /v1/swap, --rollout=false), the canary "

@@ -22,14 +22,15 @@ shards parameters and optimizer state over ``data``, and
 ``local_sgd_steps`` in the config selects local SGD
 (``parallel.local_sgd.make_trainer``).  The telemetry options ``--metrics_jsonl``,
 ``--metrics_interval_s``, ``--trace_jsonl``, ``--metrics_port``,
-``--metrics_bind`` and ``--debug_dump_signal`` set their flags, and
+``--metrics_bind``, ``--debug_dump_signal``, the fleet options
+``--fleet_addr``, ``--fleet_port``, ``--fleet_id`` and
+``--health_interval`` set their flags (``master --fleet_port`` /
+``--fleet_bind`` host the fleet aggregator beside the master), and
 ``observe.start_from_flags`` starts what they configure before the job
-runs, as the reference's CLI does.  What the port lacks refuses by name
-before a job runs: the fleet and health options (``--fleet_addr``,
-``--fleet_port``, ``--fleet_id``, ``--health_interval``; queue A10b),
-and a test every ``--test_period`` batches of ``--job train`` (queue
-A8): the job tests once a pass when the config's data source has a
-``test_list``.
+runs, as the reference's CLI does.  ``--test_period`` N > 0 under ``--job
+train`` refuses: the job tests once a pass when the config's data source
+has a ``test_list``, and the reference's CLI has no test every N batches
+either (it ignores the option there).
 """
 
 from __future__ import annotations
@@ -46,12 +47,11 @@ from .utils import FLAGS, PaddleTpuError, get_logger
 
 log = get_logger("cli")
 
-#: train options of the fleet and health telemetry, refused when set
-#: (A10b)
-_FLEET_OPTIONS = ("fleet_addr", "fleet_port", "fleet_id", "health_interval")
-#: train options of the telemetry core that set the flag of their name
+#: options of the telemetry that set the flag of their name
 _OBSERVE_OPTIONS = ("metrics_jsonl", "metrics_interval_s", "trace_jsonl",
-                    "metrics_port", "metrics_bind", "debug_dump_signal")
+                    "metrics_port", "metrics_bind", "debug_dump_signal",
+                    "fleet_addr", "fleet_port", "fleet_id", "fleet_bind",
+                    "health_interval")
 
 
 def _build_reader(ds, opt, test: bool = False):
@@ -84,28 +84,13 @@ def _feeder_for(provider, model):
 
 
 def _refuse_unported(args) -> None:
-    """Refuse, by name and before a job runs, what the port lacks."""
-    if args.command == "master":
-        for name in ("fleet_port", "fleet_bind"):
-            if getattr(args, name) not in (None, ""):
-                raise PaddleTpuError(
-                    f"master --{name} is not ported yet (the fleet "
-                    "aggregator, observe/fleet.py, queue A10b); leave it "
-                    "unset")
-        return
-    if args.command != "train":
-        return
-    if args.job == "train" and args.test_period:
+    """Refuse, by name and before a job runs, what neither CLI does."""
+    if args.command == "train" and args.job == "train" and args.test_period:
         raise PaddleTpuError(
-            "--test_period > 0 for --job train (a test every N batches) is "
-            "not ported yet (queue A8); --test_period 0 tests once a pass "
-            "when the config's data source has a test_list")
-    for name in _FLEET_OPTIONS:
-        if getattr(args, name) not in (None, "", False):
-            raise PaddleTpuError(
-                f"--{name} is not ported yet (the fleet and health "
-                "telemetry, observe/fleet.py and observe/health.py, queue "
-                "A10b); leave it unset")
+            "--test_period > 0 for --job train (a test every N batches): "
+            "the reference's CLI has no such test either; --test_period 0 "
+            "tests once a pass when the config's data source has a "
+            "test_list")
 
 
 def _require_cuda(args) -> None:
@@ -309,9 +294,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     tp.add_argument("--init_model_path", default="")
     tp.add_argument("--test_period", type=int,
                     default=FLAGS.get("test_period"),
-                    help="--job train: 0 tests once a pass (N > 0 is not "
-                         "ported); --job time: the number of timed "
-                         "batches (0: 20)")
+                    help="--job train: 0 tests once a pass (N > 0 "
+                         "refuses: the reference tests every N batches "
+                         "nowhere either); --job time: the number of "
+                         "timed batches (0: 20)")
     tp.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="run on the CUDA card (default) or, asked for, "
                          "the plain PyTorch versions on the CPU")
@@ -327,8 +313,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     tp.add_argument("--log_level", default="",
                     help="framework log level "
                          "(debug|info|warning|error|fatal)")
-    # the telemetry core's options, and the fleet and health options
-    # (not ported: A10b)
+    # the telemetry's options
     for name in ("metrics_jsonl", "trace_jsonl", "metrics_bind",
                  "fleet_addr", "fleet_id"):
         tp.add_argument(f"--{name}", default=None)
@@ -385,10 +370,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     sp.add_argument("--local_only", action="store_true",
                     help="bind loopback instead of all interfaces")
     sp.add_argument("--fleet_port", type=int, default=None,
-                    help="the fleet telemetry aggregator (not ported: "
-                         "A10b)")
+                    help="also host the fleet telemetry aggregator on "
+                         "this port (observe/fleet.py) — the natural "
+                         "home: trainers already know the master's "
+                         "address (0 = off)")
     sp.add_argument("--fleet_bind", default=None,
-                    help="aggregator bind address (not ported: A10b)")
+                    help="aggregator bind address (default loopback; "
+                         "non-loopback warns — not an external API)")
     sp.set_defaults(fn=cmd_master)
 
     vp = sub.add_parser("version", help="print build info")
@@ -407,11 +395,12 @@ def main(argv: Optional[List[str]] = None) -> int:
         set_log_level(FLAGS.get("log_level"))
     for name in _OBSERVE_OPTIONS:
         value = getattr(args, name, None)
-        if value not in (None, "", False):
+        if value is not None and value is not False and value != "":
             FLAGS.set(name, value)
-    # umbrella: --metrics_jsonl reporter, --trace_jsonl span sink,
-    # --metrics_port endpoint, --debug_dump_signal handler — each a
-    # no-op when its flag is unset (no thread starts)
+    # umbrella: --metrics_jsonl reporter (+ --fleet_addr pusher),
+    # --trace_jsonl span sink, --metrics_port endpoint, --fleet_port
+    # aggregator, --debug_dump_signal handler — each a no-op when its
+    # flag is unset (no thread starts)
     from . import observe
     observe.start_from_flags()
     return args.fn(args)

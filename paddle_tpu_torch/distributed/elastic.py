@@ -9,9 +9,10 @@ model+optimizer state lives in periodic checkpoints (the Go pserver's
 at any point; a restart recovers the latest checkpoint and the master
 re-leases unfinished shards.
 
-The JAX trainer also registers its ``trainer_id`` as its fleet identity
-(``observe.fleet``, queue A10b, not ported yet): the port keeps the id on
-the trainer (``ElasticTrainer.trainer_id``) for that to wire.
+The trainer registers its ``trainer_id`` as its fleet identity
+(``observe.fleet``, role ``trainer``): a restarted trainer pushes under
+the same logical id, so the aggregator's rollup flips it from
+``missing`` back to ``ok``.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import os
 import time
 from typing import Callable, List, Optional
 
-from ..observe import counter
+from ..observe import counter, fleet
 from ..trainer.trainer import Trainer
 from ..utils import get_logger
 
@@ -44,6 +45,11 @@ class ElasticTrainer:
         self.ckpt_fail_max = ckpt_fail_max
         self._last_ckpt = 0.0
         self._ckpt_failures = 0  # consecutive save failures
+        # fleet identity: the trainer_id IS the stable logical id —
+        # a SIGKILLed-and-restarted trainer re-registers under the
+        # same key, so the /fleet/healthz rollup flips its 'missing'
+        # entry back to ok instead of mourning a ghost pid forever
+        fleet.set_identity(role="trainer", name=trainer_id)
 
     def resume(self) -> bool:
         """Load the newest *valid* checkpoint if one exists (corrupt

@@ -140,11 +140,55 @@ class MultiHeadAttentionLayer(Layer):
         return self.finalize(like(inputs[0], out), ctx)
 
 
+class _LayerNorm(torch.autograd.Function):
+    """Layer normalization whose backward is the closed form on the
+    centred input, ``rstd·(g − mean(g) − x̂·mean(g·x̂))`` with ``g = dy·w``
+    and ``x̂ = (x − mean)·rstd`` (the form of ``F.layer_norm``'s CUDA
+    backward); the forward is ``torch.native_layer_norm``, which also
+    returns the mean and rstd."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, eps):
+        y, mean, rstd = torch.native_layer_norm(x, (x.shape[-1],), w, b,
+                                                eps)
+        ctx.save_for_backward(x, w, mean, rstd)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, mean, rstd = ctx.saved_tensors
+        lead = x.shape[:-1] + (1,)
+        mean, rstd = mean.reshape(lead), rstd.reshape(lead)
+        xhat = (x - mean) * rstd
+        g = dy * w
+        dx = torch.addcmul(g - g.mean(-1, keepdim=True), xhat,
+                           (g * xhat).mean(-1, keepdim=True),
+                           value=-1).mul_(rstd)
+        rows = tuple(range(dy.dim() - 1))
+        dw = (dy * xhat).sum(rows) if ctx.needs_input_grad[1] else None
+        db = dy.sum(rows) if ctx.needs_input_grad[2] else None
+        return dx, dw, db, None
+
+
+def layer_norm(x, w, b, eps):
+    """Layer normalization of the last dim (``x``, ``w`` and ``b`` in
+    fp32; ``b`` may be None).  ``F.layer_norm``'s CPU backward works from
+    the uncentred input and reached four times the JAX package's fp32
+    error on ill-conditioned rows, so a CPU tensor takes
+    :class:`_LayerNorm`; on the card ``F.layer_norm``'s fused backward
+    is already the centred form (``tools/layer_norm_f64.py`` holds both
+    against float64 there)."""
+    if x.is_cuda:
+        return F.layer_norm(x, (x.shape[-1],), w, b, eps)
+    return _LayerNorm.apply(x, w, b, eps)
+
+
 @register_layer("layer_norm")
 class LayerNormLayer(Layer):
     """Layer normalization of the last (feature) dim with learned gain
     (the weight of input 0) and bias: statistics in f32, ε from the
-    ``epsilon`` attr, the output in the input's dtype."""
+    ``epsilon`` attr, the output in the input's dtype
+    (:func:`layer_norm`)."""
 
     def param_specs(self):
         specs = [self._weight_spec(0, (self.conf.size,), initial_mean=1.0,
@@ -155,10 +199,10 @@ class LayerNormLayer(Layer):
 
     def forward(self, params, inputs, ctx):
         x = value_of(inputs[0])
-        bias = params[self.bias_name()] if self.conf.with_bias else None
-        y = F.layer_norm(x.float(), (x.shape[-1],),
-                         params[self.weight_name(0)], bias,
-                         self.conf.attrs.get("epsilon", 1e-5))
+        bias = params[self.bias_name()].float() if self.conf.with_bias \
+            else None
+        y = layer_norm(x.float(), params[self.weight_name(0)].float(), bias,
+                       self.conf.attrs.get("epsilon", 1e-5))
         return self.finalize(like(inputs[0], y.to(x.dtype)), ctx)
 
 

@@ -33,7 +33,16 @@ package's metric names and label keys):
   per-request latency (``serving/loader.py``); the hot swap's
   ``rollout_*`` family (``serving/rollout.py``);
 - SLOs: ``--slo`` objectives evaluated on the reporter's interval
-  (``observe/slo.py``), on ``/slo`` and ``/healthz``.
+  (``observe/slo.py``), on ``/slo`` and ``/healthz``;
+- training health: per-layer gradient/parameter norms, update ratios,
+  non-finite localization and detector alerts, drained from device
+  accumulators every ``--health_interval`` steps
+  (``observe/health.py``, ``trainer/trainer.py``), on ``/health`` and
+  ``/healthz``;
+- the fleet plane: every process with ``--fleet_addr`` ships its
+  snapshot + recent spans + health digest to an aggregator any process
+  hosts with ``--fleet_port`` (cluster rollup, merged Prometheus, one
+  merged trace; ``observe/fleet.py``).
 
 Overhead contract: with no sink attached every instrument is a dict
 lookup + lock + add; anything more expensive (the step's fence) is
@@ -41,8 +50,9 @@ gated on :func:`active` or :func:`trace.fences_steps`.  Importing this
 package imports no torch.
 
 Not ported yet, and refused by name when reached through this package:
-``fleet``, ``health``, ``benchgate`` and ``costmodel`` (queue A10b).
-``slo`` is a submodule imported on first use (``from
+``benchgate`` and ``costmodel`` (queue A10b part 3).  ``health`` and
+``slo`` are submodules imported on first use (``health`` by a trainer
+built with ``--health_interval`` > 0) (``from
 paddle_tpu_torch.observe import slo``, or ``--slo`` through
 :func:`start_from_flags`), as in the reference.
 """
@@ -68,12 +78,11 @@ from .report import (  # noqa: F401
 )
 from .report import start_from_flags as _start_reporter_from_flags
 from .report import stop_global as _stop_reporter_global
-from . import dump, http, memory, shutdown, trace  # noqa: F401
+from . import dump, fleet, http, memory, shutdown, trace  # noqa: F401
 
 #: modules of the reference's observe/ that the port lacks, and the queue
 #: that ports them
-_UNPORTED = {"fleet": "A10b", "health": "A10b", "benchgate": "A10b",
-             "costmodel": "A10b"}
+_UNPORTED = {"benchgate": "A10b part 3", "costmodel": "A10b part 3"}
 
 
 def __getattr__(name: str):
@@ -88,27 +97,30 @@ def __getattr__(name: str):
 def start_from_flags():
     """One call a long-running entry point makes (``Trainer.train``, the
     CLI): start every flag-configured observability surface — the
-    ``--metrics_jsonl`` reporter, the ``--trace_jsonl`` span sink, the
-    ``--metrics_port`` HTTP endpoint, the ``--debug_dump_signal``
-    SIGUSR2 handler, and the SIGTERM flush hook (installed only once
-    some surface above actually got configured).  Each piece is
-    individually idempotent and a no-op when its flag is unset, so with
-    nothing configured this is a few dict lookups and no thread
-    starts.  The reference's fleet aggregator comes with queue A10b."""
+    ``--metrics_jsonl`` reporter (with the ``--fleet_addr`` push client
+    folded in), the ``--trace_jsonl`` span sink, the ``--metrics_port``
+    HTTP endpoint, the ``--fleet_port`` aggregator, the
+    ``--debug_dump_signal`` SIGUSR2 handler, and the SIGTERM flush hook
+    (installed only once some surface above actually got configured).
+    Each piece is individually idempotent and a no-op when its flag is
+    unset, so with nothing configured this is a few dict lookups and no
+    thread starts."""
     reporter = _start_reporter_from_flags()
     trace.start_from_flags()
     http.start_from_flags()
+    fleet.start_from_flags()
     dump.install_from_flags()
     shutdown.install_from_flags()
     return reporter
 
 
 def stop_global():
-    """Stop every process-wide observability surface (reporter + HTTP
-    endpoint + trace sink + SIGTERM hook) — the mirror of
-    :func:`start_from_flags`."""
+    """Stop every process-wide observability surface (reporter and its
+    pusher + HTTP endpoint + fleet aggregator + trace sink + SIGTERM
+    hook) — the mirror of :func:`start_from_flags`."""
     _stop_reporter_global()
     http.stop_global()
+    fleet.stop_global()
     trace.disable()
     shutdown.uninstall()
 
@@ -118,5 +130,5 @@ __all__ = [
     "MetricsRegistry", "REGISTRY", "counter", "gauge", "histogram",
     "format_labels", "MetricsReporter", "active", "attach",
     "prometheus_dump", "start_from_flags", "stop_global",
-    "trace", "http", "dump", "memory", "shutdown",
+    "trace", "http", "dump", "memory", "fleet", "shutdown",
 ]

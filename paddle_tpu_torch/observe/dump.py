@@ -18,9 +18,9 @@ files:
 thread, and never raises — a failed dump logs and returns, it must not
 take down the run it was asked to diagnose.  Opt-in by flag because
 library code must not steal process-wide signal dispositions by
-default.  The reference's ``.health.json`` and ``.fleet.json`` files
-come with queue A10b (their modules are probed through ``sys.modules``
-and never found, as in a JAX process that never loaded them).
+default.  A process whose training-health observatory drained writes
+its latest report as ``.health.json``; a process hosting a fleet
+aggregator writes the rollup and topology as ``.fleet.json``.
 """
 
 from __future__ import annotations
@@ -45,9 +45,13 @@ _install_lock = named_lock("observe.dump.install")
 def debug_dump(out_dir: Optional[str] = None) -> Tuple[str, str]:
     """Write the dump files now; returns the (metrics, trace) paths.
     Usable directly (tests, a REPL on a live run) — the signal handler
-    is just this plus plumbing.  The reference's ``.health.json`` and
-    ``.fleet.json`` companions are written when their modules (queue
-    A10b) are loaded, which in the port they never are."""
+    is just this plus plumbing.  When the training-health observatory
+    has drained at least once this process, its latest structured
+    report is dumped alongside as ``.health.json`` (resolved through
+    ``sys.modules`` — a run that never enabled ``--health_interval``
+    writes exactly the two files); when this process HOSTS a fleet
+    aggregator (``--fleet_port``), the cluster rollup + topology land as
+    ``.fleet.json`` too."""
     from ..utils import FLAGS
 
     out_dir = out_dir or FLAGS.get("debug_dump_dir") \
@@ -69,8 +73,9 @@ def debug_dump(out_dir: Optional[str] = None) -> Tuple[str, str]:
             json.dump({"report": health_report,
                        "summary": hmod.status_summary()}, f, indent=1)
     # a process HOSTING the fleet aggregator dumps the cluster view
-    # too (resolved through sys.modules like health; the port's fleet
-    # comes with queue A10b, so nothing is found)
+    # too: the rollup + topology of every registered peer at dump time
+    # (resolved through sys.modules like health — the module is always
+    # imported with the package, the gate is whether it is hosting)
     fmod = sys.modules.get("paddle_tpu_torch.observe.fleet")
     if fmod is not None and fmod.hosting():
         with open(stem + ".fleet.json", "w") as f:

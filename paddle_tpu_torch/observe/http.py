@@ -8,7 +8,11 @@ A stdlib ``http.server`` thread (name ``ptpu-metrics-http``) behind
   the ``StatSet`` timer table
   (:func:`paddle_tpu_torch.observe.prometheus_dump`);
 - ``GET /healthz``  — liveness JSON (``{"status": "ok", ...}`` with pid
-  and uptime), for load-balancer / k8s probes;
+  and uptime), for load-balancer / k8s probes; when the training-health
+  observatory is live its digest rides along (``status`` degrades to
+  ``"degraded"`` on standing alerts — degraded-but-ALIVE: the code
+  stays 200, a health alert must never convince an orchestrator to
+  kill a recoverable run);
 - ``GET /trace``    — the flight recorder as a Chrome trace-event JSON
   array, loadable directly in Perfetto — "what were the last N spans of
   this live run" without attaching a debugger;
@@ -17,14 +21,17 @@ A stdlib ``http.server`` thread (name ``ptpu-metrics-http``) behind
   carries its ``slo`` digest (a standing breach reads ``degraded``);
   without ``--slo`` ``/slo`` answers 404 and ``/healthz`` has no ``slo``
   field;
-- ``GET /roofline`` and ``/health`` — the reference's reports of its
-  cost model and training-health observatory, which come with queue
-  A10b: they answer 404 with the reference's text — exactly what a JAX
-  process that never loaded those modules answers — and ``/healthz``
-  carries no ``health`` field.
+- ``GET /health`` — the most recent drained training-health report
+  (``observe/health.py``): per-layer grad/param norms, update ratios,
+  non-finite localization, recent alerts — detail beyond ``/healthz``
+  (404 before the first drain);
+- ``GET /roofline`` — the reference's cost-model report, which comes
+  with queue A10b part 3: it answers 404 with the reference's text,
+  exactly what a JAX process that never ran the cost model answers.
 
 The handler resolves the engine and the observatories through
-``sys.modules`` at request time, as the reference does.
+``sys.modules`` at request time, as the reference does: a
+``/metrics``-only run never imports them.
 
 Nothing here imports torch.  Starting the server does NOT enable
 tracing: the first ``/trace`` request flips on ring-only recording
@@ -80,7 +87,7 @@ def make_threading_server(host: str, port: int,
 
 
 def resolve_bind_host(flag_name: str) -> str:
-    """Resolve a bind-address flag (``metrics_bind`` /
+    """Resolve a bind-address flag (``metrics_bind`` / ``fleet_bind`` /
     ``serve_bind``): empty keeps the loopback default; anything else
     is an EXPLICIT opt-in (cross-container scraping on a trusted
     network) and logs a loud structured warning — these endpoints are

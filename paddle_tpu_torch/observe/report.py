@@ -21,10 +21,9 @@ whether a sink is attached — callers use it to gate work that is NOT
 near-zero-cost, e.g. the trainer's per-step fence that the host/device
 time split needs.
 
-The fleet push client (``fleet_addr``, ``observe/fleet.py``) comes with
-queue A10b: a reporter asked for one refuses by name, and
-:func:`start_from_flags` reads no ``--fleet_addr``.  ``--slo`` alone
-starts the reporter (the SLO engine, ``observe/slo.py``, evaluates on
+With ``--fleet_addr`` (or ``fleet_addr=``) the reporter also drives a
+fleet push client (``observe/fleet.py``) from its own thread.
+``--slo`` alone starts the reporter (the SLO engine, ``observe/slo.py``, evaluates on
 its interval thread); each interval the reporter finds the engine
 through ``sys.modules`` as the reference does, so a process without
 ``--slo`` pays one dict lookup.
@@ -39,7 +38,6 @@ import time
 from typing import Any, Dict, List, Optional
 
 from ..analysis.lockorder import named_lock
-from ..utils.error import PaddleTpuError
 from .metrics import REGISTRY, MetricsRegistry
 
 
@@ -52,18 +50,22 @@ def _timer_snapshot(stat) -> List[Dict[str, Any]]:
 
 
 class MetricsReporter:
-    """Periodic snapshot writer over (registry, stat-timer) state."""
+    """Periodic snapshot writer over (registry, stat-timer) state.
+
+    With ``fleet_addr`` set the reporter additionally drives a
+    :class:`paddle_tpu_torch.observe.fleet.FleetPusher` from the same
+    background thread: each interval pushes one self-describing frame
+    (metrics + recent spans + health digest) to the aggregator, and
+    :meth:`stop` sends a final going-down frame.  The pusher degrades
+    independently of the JSONL sink (a dead aggregator never wedges
+    the trainer, a dead disk never stops the push) and adds NO thread
+    beyond the reporter's own."""
 
     def __init__(self, path: Optional[str] = None,
                  interval_s: float = 10.0,
                  registry: Optional[MetricsRegistry] = None,
                  stat: Any = "global",
                  fleet_addr: Optional[str] = None):
-        if fleet_addr:
-            raise PaddleTpuError(
-                f"MetricsReporter(fleet_addr={fleet_addr!r}): the fleet "
-                "push client (observe/fleet.py) is not ported yet "
-                "(queue A10b)")
         if stat == "global":
             from ..utils.stat import global_stat
             stat = global_stat
@@ -71,6 +73,27 @@ class MetricsReporter:
         self.interval_s = interval_s
         self.registry = REGISTRY if registry is None else registry
         self.stat = stat
+        self.fleet = None
+        if fleet_addr:
+            from .fleet import FleetPusher
+
+            try:
+                self.fleet = FleetPusher(
+                    fleet_addr, interval_s=interval_s,
+                    registry=self.registry, stat=self.stat,
+                    jsonl_degraded=lambda: self.degraded
+                    and bool(self.path))
+            except ValueError as e:
+                # telemetry never kills: a typo'd --fleet_addr warns
+                # (the contract of a typo'd --metrics_jsonl path) and
+                # the run proceeds without a push client
+                from ..utils.logger import get_logger, warn_once
+
+                warn_once(
+                    f"fleet_addr_invalid:{fleet_addr}",
+                    "--fleet_addr %r is not usable (%s); the fleet "
+                    "push client is OFF for this run", fleet_addr, e,
+                    logger=get_logger("observe"))
         # a sink that cannot be written is DEGRADED: snapshots are being
         # dropped, so active() must stop claiming someone is listening —
         # otherwise the trainer keeps paying its per-step fence for
@@ -147,6 +170,10 @@ class MetricsReporter:
                     # observes: an unwritable sink or a non-JSON value
                     # is reported once, then the loop keeps retrying
                     self._warn_flush_failure(e)
+                if self.fleet is not None:
+                    # never raises (degrade/backoff inside); honors the
+                    # pusher's own backoff window across intervals
+                    self.fleet.maybe_push()
 
         self._thread = threading.Thread(
             target=loop, name="ptpu-metrics-reporter", daemon=True)
@@ -154,7 +181,8 @@ class MetricsReporter:
         return self
 
     def _evaluate_slo(self) -> None:
-        """One SLO evaluation pass before the flush, through the
+        """One SLO evaluation pass before the flush, so the verdicts ride
+        this interval's JSONL line and fleet frame, through the
         reference's ``sys.modules`` probe: without ``--slo`` the engine
         module is never imported and this is one dict lookup."""
         import sys
@@ -175,7 +203,10 @@ class MetricsReporter:
             logger=get_logger("observe"))
 
     def stop(self) -> None:
-        """Stop the flush thread and write one final snapshot."""
+        """Stop the flush thread and write one final snapshot; with a
+        fleet pusher attached, also push the final going-down frame so
+        the aggregator's rollup records a CLEAN shutdown (vs a SIGKILL,
+        which goes 'missing' via staleness)."""
         self._stop.set()
         t, self._thread = self._thread, None
         if t is not None:
@@ -184,6 +215,10 @@ class MetricsReporter:
             self.flush()
         except Exception as e:  # noqa: BLE001 — see loop()
             self._warn_flush_failure(e)
+        if self.fleet is not None:
+            # direct push (not maybe_push): the goodbye frame ignores
+            # the backoff window — it is the last chance to say so
+            self.fleet.push(going_down=True)
 
 
 # --------------------------------------------------------------- global
@@ -193,9 +228,9 @@ _global_lock = named_lock("observe.reporter.global")
 
 def start_from_flags() -> Optional[MetricsReporter]:
     """Start the process-wide reporter from ``--metrics_jsonl`` /
-    ``--metrics_interval_s`` / ``--slo``.  Idempotent; returns the
-    reporter (None when no sink or SLO engine is configured — no thread
-    starts, no work happens).  ``--slo`` alone starts the reporter too:
+    ``--fleet_addr`` / ``--metrics_interval_s`` / ``--slo``.
+    Idempotent; returns the reporter (None when no sink, push client or
+    SLO engine is configured — no thread starts, no work happens).  ``--slo`` alone starts the reporter too:
     the engine needs the interval thread to evaluate on.  Every
     long-running entry point calls this once (``Trainer.train``, the
     CLI)."""
@@ -203,8 +238,9 @@ def start_from_flags() -> Optional[MetricsReporter]:
     from ..utils import FLAGS
 
     path = FLAGS.get("metrics_jsonl")
+    fleet_addr = FLAGS.get("fleet_addr")
     slo_spec = str(FLAGS.get("slo") or "").strip()
-    if not path and not slo_spec:
+    if not path and not fleet_addr and not slo_spec:
         return _global
     if slo_spec:
         # import (not a sys.modules probe): --slo set is the opt-in that
@@ -217,16 +253,22 @@ def start_from_flags() -> Optional[MetricsReporter]:
         if _global is None:
             _global = MetricsReporter(
                 path=path or None,
-                interval_s=FLAGS.get("metrics_interval_s"))
+                interval_s=FLAGS.get("metrics_interval_s"),
+                fleet_addr=fleet_addr or None)
             _global.start()
             atexit.register(stop_global)
-            # probe the sink NOW: a typo'd path warns at startup, not
-            # after a multi-hour run produced zero telemetry
+            # probe the sinks NOW: a typo'd path (or a dead aggregator)
+            # warns at startup, not after a multi-hour run produced zero
+            # telemetry — and the first fleet push IS the registration,
+            # so /fleet/topology shows this process immediately instead
+            # of one interval late
             if path:
                 try:
                     _global.flush()
                 except Exception as e:  # noqa: BLE001
                     _global._warn_flush_failure(e)
+            if _global.fleet is not None:
+                _global.fleet.maybe_push()
     return _global
 
 
@@ -256,11 +298,17 @@ def active() -> bool:
     """True iff a sink is attached AND delivering — instrumentation
     whose cost is NOT negligible (the step's fence for the host/device
     split) keys on this, so telemetry is effectively free when nobody
-    is listening.  A degraded sink (every flush failing — bad path,
-    full disk) reports False: nobody IS listening, so the hot loop must
+    is listening.  The fleet push client counts as a sink: a trainer
+    started with only ``--fleet_addr`` IS being listened to.  A
+    degraded sink (every flush/push failing — bad path, full disk, dead
+    aggregator) reports False: nobody IS listening, so the hot loop must
     not keep paying for snapshots that are being dropped."""
     r = _global
-    return r is not None and bool(r.path) and not r.degraded
+    if r is None:
+        return False
+    if r.path and not r.degraded:
+        return True
+    return r.fleet is not None and not r.fleet.degraded
 
 
 def prometheus_dump() -> str:

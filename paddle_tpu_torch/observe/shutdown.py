@@ -3,14 +3,17 @@
 
 A preempted/descheduled process gets SIGTERM and a grace window.  The
 default SIGTERM disposition terminates immediately — ``atexit`` never
-runs — so without this hook the last metrics interval and the closing
-``]`` of the ``--trace_jsonl`` array are lost.
+runs — so without this hook the last metrics interval, the closing
+``]`` of the ``--trace_jsonl`` array and the fleet's final frame are
+lost.
 
 :func:`install_from_flags` installs a SIGTERM hook (``--sigterm_flush``,
 default on, only when a telemetry surface is actually configured —
 otherwise the process's signal dispositions are left untouched) that:
 
-1. flushes the reporter's final snapshot line,
+1. flushes the reporter's final snapshot line and pushes a final
+   **going-down** fleet frame (so the aggregator's rollup records a
+   clean ``down``, not a staleness ``missing``),
 2. finalizes the ``--trace_jsonl`` Chrome trace array (writes ``]``),
 3. then **chains**: a previously-installed Python handler is called;
    otherwise the default disposition is restored and the signal
@@ -25,8 +28,7 @@ thread and returns; that thread performs the flush (blocking until the
 main thread releases whatever it holds) and then re-raises SIGTERM,
 whose second delivery — again on the main thread, as CPython requires
 for ``signal.signal`` — performs the chaining.  Repeat SIGTERMs during
-the flush are coalesced.  The reference's going-down fleet frame comes
-with queue A10b.
+the flush are coalesced.
 """
 
 from __future__ import annotations
@@ -54,9 +56,9 @@ def installed() -> bool:
 
 
 def flush_for_shutdown() -> None:
-    """The actual goodbye: final reporter flush
-    (``report.stop_global``), then finalize the trace sink (writes the
-    closing ``]``).  Best-effort on every leg — a failing
+    """The actual goodbye: final reporter flush + going-down fleet
+    frame (``report.stop_global``), then finalize the trace sink (writes
+    the closing ``]``).  Best-effort on every leg — a failing
     sink must not block the termination path."""
     from ..utils.logger import get_logger
     from . import trace
@@ -64,7 +66,7 @@ def flush_for_shutdown() -> None:
 
     log = get_logger("observe")
     try:
-        stop_reporter()          # final JSONL line
+        stop_reporter()          # final JSONL line + going-down frame
     except Exception as e:       # noqa: BLE001 — dying anyway; the
         log.warning("SIGTERM flush: reporter stop failed: %s: %s",
                     type(e).__name__, e)    # flush is best-effort
@@ -113,19 +115,18 @@ def _handler(signum, frame) -> None:
 def install_from_flags() -> bool:
     """Install the chaining SIGTERM hook iff ``--sigterm_flush`` (on by
     default) AND some telemetry surface is configured in this process
-    (a reporter or a trace sink) —
+    (a reporter/pusher, a trace sink, or a hosted fleet aggregator) —
     a process with nothing to flush keeps its signal dispositions
     untouched.  Idempotent; main-thread only (a worker-thread entry
     point degrades gracefully, same contract as ``dump.py``)."""
     global _installed, _prev_handler, _phase
     from ..utils import FLAGS
-    from . import report, trace
+    from . import fleet, report, trace
 
     if not FLAGS.get("sigterm_flush"):
         return _installed
-    # the reference also counts a hosted fleet aggregator
-    # (fleet.hosting()); the port has none until queue A10b
-    if report._global is None and not trace.enabled():
+    if report._global is None and not trace.enabled() \
+            and not fleet.hosting():
         return _installed
     with _lock:
         if _installed:

@@ -35,8 +35,9 @@ Surfaces: the ``slo_status{objective}`` (1 ok / 0 breach) and
 ``slo_burn_rate{objective}`` gauges on every evaluation, and the
 ``/slo`` and ``/healthz`` endpoints (:mod:`paddle_tpu_torch.observe.
 http`), which find the engine through ``sys.modules`` as the reference's
-do.  :meth:`SloEngine.frame_digest` is the fleet frame's ``slo`` field;
-the fleet push client that sends it comes with queue A10b.
+do.  :meth:`SloEngine.frame_digest` is the fleet frame's ``slo`` field
+(``observe/fleet.FleetPusher.build_frame``): a standing breach marks the
+process degraded in the aggregator's rollup.
 
 Telemetry never kills: an objective over a missing metric or an empty
 window is ``no_data`` (ok, burn 0), and an evaluator fault warns once

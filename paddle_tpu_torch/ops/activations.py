@@ -64,9 +64,30 @@ def exp(x):
     return torch.exp(x)
 
 
+class _Relu(torch.autograd.Function):
+    """``torch.relu`` differentiated as ``jax.nn.relu`` is: the gradient
+    passes where the output is > 0 and is 0 elsewhere, NaN inputs
+    included (``torch.relu``'s own backward passes a NaN row's gradient,
+    so one non-finite step made every later gradient NaN where the JAX
+    package recovers, and the training-health report differed from the
+    reference's).  Its backward is a Python call and two kernels where
+    ``torch.relu``'s is one (its cost on the card: PERF.md §6)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.relu(x)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        y, = ctx.saved_tensors
+        return torch.where(y > 0, g, 0.0)
+
+
 @_act("relu")
 def relu(x):
-    return torch.relu(x)
+    return _Relu.apply(x)
 
 
 @_act("tanh")

@@ -14,7 +14,7 @@ so a step never waits for the device to decide.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Union
+from typing import Dict, NamedTuple, Optional, Sequence, Union
 
 import torch
 
@@ -54,6 +54,15 @@ def all_finite(grads: Dict[str, torch.Tensor]) -> torch.Tensor:
     if not flags:
         return torch.tensor(True)
     return torch.stack(flags).all()
+
+
+def leaf_finite_flags(grads: Dict[str, torch.Tensor],
+                      names: Sequence[str]) -> torch.Tensor:
+    """Bool tensor, one flag a name of ``names``: that gradient is finite
+    (the counterpart of the JAX package's ``leaf_nonfinite_counts``: the
+    training-health path reads the flags, the skip decision their
+    ``all()``, from one sweep)."""
+    return torch.stack([torch.isfinite(grads[n]).all() for n in names])
 
 
 def unscale(grads: Dict[str, torch.Tensor], scale: torch.Tensor

@@ -50,14 +50,6 @@ def all_reduce_sum(tensors: Sequence[torch.Tensor], group
     return out
 
 
-def all_reduce_flag(ok: torch.Tensor, group) -> torch.Tensor:
-    """True on every rank iff ``ok`` (a bool scalar) is True on every
-    rank: one rank's Inf skips every rank's mixed-precision step."""
-    bad = (~ok).to(torch.int32).reshape(1)
-    dist.all_reduce(bad, op=dist.ReduceOp.SUM, group=group)
-    return bad[0] == 0
-
-
 class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):

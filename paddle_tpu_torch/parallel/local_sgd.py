@@ -18,9 +18,11 @@ no gradient exchange (its batch-norm statistics its rows'), and every
 K-th step the parameters and buffers are averaged over the ``data`` axis
 (one all-reduce, the JAX program's ``mean`` over the replica axis; the
 optimizer slots stay each rank's, as there).  The reported loss is the
-ranks' mean.  Each rank draws its dropout masks from the step's seed (the
-JAX package folds the replica index into its key; neither package's
-masks reproduce the other's).
+ranks' mean.  Each rank draws its own dropout masks: its ``data``
+coordinate is folded into the step's seed, as the JAX package folds the
+replica index into each shard's key (neither package's masks reproduce
+the other's).  Every feed leaf's batch must divide over ``data``, as
+the JAX package's ``_shard_feed_local`` requires.
 """
 
 from __future__ import annotations
@@ -30,8 +32,9 @@ from typing import Any, Dict
 import torch
 
 from ..core.device import DATA_AXIS
+from ..core.sequence import NestedSequenceBatch, SequenceBatch
 from ..trainer.trainer import Trainer
-from ..utils import PaddleTpuError, get_logger, warn_once
+from ..utils import PaddleTpuError, enforce, get_logger, warn_once
 from . import collectives as coll
 
 log = get_logger("local_sgd")
@@ -58,6 +61,8 @@ class LocalSGDTrainer(Trainer):
                 "semantics are not wired into the local-SGD step",
                 logger=log)
             self._ls_state = None
+        # the JAX local-SGD step carries no health aux: health is ignored
+        self._health = None
         self.local_steps = max(
             1, getattr(opt_config, "local_sgd_steps", 1) or 1)
         self.n_shards = self._data_n
@@ -82,6 +87,34 @@ class LocalSGDTrainer(Trainer):
         for n, s in zip(names, sums):
             out[n] = (s / self.n_shards).to(tree[n].dtype)
         return out
+
+    def _step_seed(self) -> int:
+        """The step's seed with this rank's ``data`` coordinate folded in:
+        each shard draws its own dropout masks."""
+        base = super()._step_seed()
+        if self.n_shards <= 1:
+            return base
+        return (base * 1000003 + 1 + self.mesh.coordinate(DATA_AXIS)) \
+            % (2 ** 31)
+
+    def _shard_feed(self, feed: Dict[str, Any]):
+        """This rank's rows of every leaf; a batch that does not divide
+        over ``data`` raises (the synchronous trainer would run it whole
+        on every rank)."""
+        def check(x):
+            if isinstance(x, SequenceBatch):
+                return check(x.data)
+            if isinstance(x, NestedSequenceBatch):
+                return check(x.data)
+            if isinstance(x, torch.Tensor) and x.dim() >= 1:
+                b = x.shape[0]
+                enforce(b % self.n_shards == 0,
+                        f"local SGD: batch {b} not divisible by "
+                        f"{self.n_shards} shards")
+
+        for v in feed.values():
+            check(v)
+        return super()._shard_feed(feed)
 
     def _step(self, feed: Dict[str, Any]) -> torch.Tensor:
         loss = super()._step(feed)

@@ -25,8 +25,8 @@ The request-serving half:
   :class:`InferenceServer` (admission, fixed-width decode batch, the
   sequential kill switch, HTTP front, telemetry, the hot swap);
 - :mod:`paddle_tpu_torch.serving.rollout` — the zero-downtime
-  train→serve pipeline: checkpoint watcher, hot swap with rollback and
-  the canary bake (the fleet's rolling coordinator is queue A10b).
+  train→serve pipeline: checkpoint watcher, hot swap with rollback, the
+  canary bake, and the fleet-supervised rolling coordinator.
 """
 
 from .export import export_inference_fn, export_network  # noqa: F401

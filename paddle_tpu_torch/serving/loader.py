@@ -50,9 +50,10 @@ from ..core.device import resolve_device
 # that ships just this file runs without it
 try:
     from ..observe import counter as _counter, gauge as _gauge
-    from ..observe import histogram as _histogram, trace as _trace
+    from ..observe import histogram as _histogram
+    from ..observe import fleet as _fleet, trace as _trace
 except ImportError:  # pragma: no cover - standalone copy
-    _counter = _gauge = _histogram = _trace = None
+    _counter = _gauge = _histogram = _trace = _fleet = None
 
 #: The port's program file; the JAX package's is ``model.stablehlo``.
 MODULE_FILE = "model.pt2"
@@ -192,6 +193,10 @@ class ServedModel:
         """Load an artifact onto ``device`` (default the card; raises
         without CUDA unless ``device="cpu"``).  ``verify`` re-hashes the
         payload first (:class:`TornArtifact`)."""
+        if _fleet is not None:
+            # a process loading a serving artifact pushes (when
+            # --fleet_addr is set) as role=serving; a dict write, free
+            _fleet.set_identity(role="serving")
         dev = resolve_device(device)
         manifest = read_manifest(dirname)
         if verify:

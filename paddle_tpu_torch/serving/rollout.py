@@ -31,21 +31,28 @@ restart:
    With ``--rollout_canary`` a bake window follows the flip and rolls
    back to the predecessor artifact on a latency or error breach.
 
-``RollingCoordinator`` (the fleet-supervised walk over replicas) reads
-``/fleet/healthz`` through ``observe.fleet`` and comes with queue A10b;
-it refuses by name.  Threads are ``ptpu-rollout-*``; spans are
-``rollout_export`` / ``rollout_swap``; metrics are the ``rollout_*``
-family.
+4. :class:`RollingCoordinator` — the fleet-supervised walk over N
+   serving replicas: per replica a pre-check of its ``/fleet/healthz``
+   row (a replica that is not ``ok`` is skipped), the swap through its
+   ``POST /v1/swap``, a post-check, and a halt that leaves every replica
+   not yet walked on the old version; with ``--rollout_canary`` the
+   first healthy replica bakes alone against the pooled others first.
+
+Threads are ``ptpu-rollout-*``; spans are ``rollout_export`` /
+``rollout_swap`` / ``rollout_coordinator``; metrics are the
+``rollout_*`` family.
 """
 
 from __future__ import annotations
 
+import http.client
+import json
 import os
 import shutil
 import tempfile
 import threading
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -54,7 +61,7 @@ from ..observe import REGISTRY as _registry
 from ..observe import counter as _counter
 from ..observe import histogram as _histogram, trace as _trace
 from ..trainer import checkpoint as _ckpt
-from ..utils import FLAGS, PaddleTpuError, enforce, get_logger
+from ..utils import FLAGS, enforce, get_logger
 from .loader import TornArtifact, artifact_digest, read_manifest, \
     verify_artifact
 from .model import DecoderConfig, DecoderModel, export_decoder
@@ -552,14 +559,276 @@ class CheckpointWatcher:
 
 
 # --------------------------------------------------------- coordinator
-class RollingCoordinator:
-    """The fleet-supervised rolling rollout across serving replicas
-    (``paddle_tpu/serving/rollout.py:609-860``) reads each replica's
-    ``/fleet/healthz`` row through ``observe.fleet``, which comes with
-    queue A10b; until then it refuses by name."""
+def _http_post_json(addr: str, path: str, payload: Dict[str, Any],
+                    timeout_s: float = 120.0
+                    ) -> Tuple[int, Dict[str, Any]]:
+    """POST JSON to ``host:port``; returns (status, decoded body)."""
+    host, _, port = addr.rpartition(":")
+    body = json.dumps(payload)
+    conn = http.client.HTTPConnection(host or "127.0.0.1", int(port),
+                                      timeout=timeout_s)
+    try:
+        conn.request("POST", path, body=body,
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        data = resp.read()
+    finally:
+        conn.close()
+    try:
+        doc = json.loads(data.decode("utf-8", "replace"))
+    except ValueError:
+        doc = {"error": data[:200].decode("utf-8", "replace")}
+    return resp.status, doc
 
-    def __init__(self, *args, **kwargs):
-        raise PaddleTpuError(
-            "RollingCoordinator is not ported yet (queue A10b: it reads "
-            "/fleet/healthz through observe.fleet); swap one server with "
-            "swap_from_artifact or POST /v1/swap")
+
+class RollingCoordinator:
+    """Fleet-supervised rolling rollout across N serving replicas.
+
+    ``replicas`` is a sequence of ``(fleet_name, serve_addr)`` pairs:
+    the fleet name keys the replica's row in the aggregator's
+    ``/fleet/healthz`` rollup, the serve addr is its ``/v1/swap``
+    endpoint.  Per replica: pre-check fleet health — a replica that is
+    not ``ok`` is SKIPPED (it keeps its old version; landing a swap on
+    a sick replica is how availability is lost, skipping is how it is
+    kept) — then swap, then post-check: a failed swap or a freshly
+    swapped replica going degraded HALTS the rollout so every
+    not-yet-walked replica keeps serving the old version.
+
+    With ``--rollout_canary`` the walk gains the **canary bake
+    policy**: the first healthy replica swaps alone and bakes for
+    ``--rollout_bake_s``, its windowed p99 TTFT / error rate (pushed
+    on its fleet frames) compared against the POOLED remaining
+    baseline replicas each poll.  A breach rolls the canary back to
+    the predecessor artifact (reason lands on its ``/healthz``) and
+    HALTS; a canary that vanishes mid-bake (fleet status missing —
+    e.g. SIGKILL) halts without a rollback target; only a clean bake
+    lets the remaining replicas walk.  Outcomes land on
+    ``rollout_canary_total{result}``."""
+
+    def __init__(self, fleet_addr: str,
+                 replicas: Sequence[Tuple[str, str]],
+                 inflight: Optional[str] = None,
+                 swap_timeout_s: float = 120.0,
+                 canary: Optional[bool] = None,
+                 bake_s: Optional[float] = None,
+                 canary_factor: Optional[float] = None,
+                 poll_s: float = 0.5):
+        self.fleet_addr = fleet_addr
+        self.replicas = list(replicas)
+        self.inflight = inflight
+        self.swap_timeout_s = swap_timeout_s
+        self.canary = bool(FLAGS.get("rollout_canary")) \
+            if canary is None else bool(canary)
+        self.bake_s = float(FLAGS.get("rollout_bake_s")) \
+            if bake_s is None else float(bake_s)
+        self.canary_factor = float(FLAGS.get("rollout_canary_factor")) \
+            if canary_factor is None else float(canary_factor)
+        self.poll_s = float(poll_s)
+
+    def _fleet_status(self, name: str) -> str:
+        from ..observe.fleet import _http_get
+
+        try:
+            doc = json.loads(_http_get(self.fleet_addr, "/fleet/healthz"))
+        except (OSError, ValueError) as e:
+            log.warning("coordinator: fleet healthz unreachable (%s)", e)
+            return "missing"
+        return str(doc.get("procs", {}).get(name, {}).get(
+            "status", "missing"))
+
+    def _fleet_topology(self) -> Dict[str, Any]:
+        from ..observe.fleet import _http_get
+
+        try:
+            doc = json.loads(_http_get(self.fleet_addr,
+                                       "/fleet/topology"))
+        except (OSError, ValueError) as e:
+            log.warning("coordinator: fleet topology unreachable (%s)",
+                        e)
+            return {}
+        return doc.get("procs", {})
+
+    def _bake_signals(self, canary_name: str
+                      ) -> Tuple[Optional[float], float,
+                                 Optional[float], float]:
+        """(canary p99, canary err, pooled baseline p99, pooled
+        baseline err) straight off the replicas' fleet frames."""
+        procs = self._fleet_topology()
+        c = procs.get(canary_name, {})
+        c_p99 = c.get("ttft_p99_s")
+        c_err = float(c.get("error_rate_s") or 0.0)
+        base_p99s, base_errs = [], []
+        for name, _ in self.replicas:
+            if name == canary_name:
+                continue
+            p = procs.get(name, {})
+            if p.get("ttft_p99_s") is not None:
+                base_p99s.append(float(p["ttft_p99_s"]))
+            base_errs.append(float(p.get("error_rate_s") or 0.0))
+        base_p99 = sum(base_p99s) / len(base_p99s) if base_p99s \
+            else None
+        base_err = sum(base_errs) / len(base_errs) if base_errs \
+            else 0.0
+        return (None if c_p99 is None else float(c_p99), c_err,
+                base_p99, base_err)
+
+    def _step(self, name: str, addr: str, artifact: str
+              ) -> Dict[str, Any]:
+        step: Dict[str, Any] = {"replica": name, "addr": addr}
+        status = self._fleet_status(name)
+        step["pre_status"] = status
+        if status != "ok":
+            # refuse to land on a degraded/missing/down replica: it
+            # keeps its old (working) version
+            step["action"] = "skipped"
+            _counter("rollout_coordinator_steps_total",
+                     "rolling-rollout per-replica steps by outcome"
+                     ).inc(result="skipped")
+            log.warning("coordinator: skipping %s (fleet status %s)",
+                        name, status)
+            return step
+        code, doc = _http_post_json(
+            addr, "/v1/swap",
+            {"artifact": artifact,
+             **({"inflight": self.inflight} if self.inflight else {})},
+            timeout_s=self.swap_timeout_s)
+        step["swap"] = doc
+        ok = code == 200 and doc.get("result") in ("ok", "unchanged")
+        post = self._fleet_status(name)
+        step["post_status"] = post
+        # a replica that answered its swap 200 is alive; "missing" here
+        # just means its next fleet frame has not landed yet — only an
+        # actively DEGRADED verdict proves the new version made it sick
+        step["action"] = "swapped" if ok and post != "degraded" \
+            else "halt"
+        _counter("rollout_coordinator_steps_total",
+                 "rolling-rollout per-replica steps by outcome").inc(
+            result="ok" if step["action"] == "swapped" else "halted")
+        return step
+
+    def _bake_fleet(self, name: str, addr: str, artifact: str,
+                    prev_version: str) -> Dict[str, Any]:
+        """Bake the freshly swapped canary: each ``poll_s`` read the
+        fleet for its status and windowed signals vs the pooled
+        baseline until ``bake_s`` elapses.  ``result`` is ``promoted``
+        (clean bake), ``rolled_back`` (signal breach — the canary was
+        swapped back to the predecessor with the reason), or
+        ``missing`` (the canary vanished mid-bake; nothing to roll
+        back, the halt keeps the baselines untouched)."""
+        out: Dict[str, Any] = {"replica": name, "bake_s": self.bake_s}
+        deadline = time.monotonic() + self.bake_s
+        reason: Optional[str] = None
+        while True:
+            status = self._fleet_status(name)
+            if status == "missing":
+                out.update(result="missing",
+                           reason="canary vanished mid-bake (fleet "
+                                  "status missing)")
+                _count_canary("missing")
+                log.error("coordinator: canary %s went missing "
+                          "mid-bake; halting", name)
+                return out
+            c_p99, c_err, b_p99, b_err = self._bake_signals(name)
+            out.update(p99_s=c_p99, error_rate_s=c_err,
+                       baseline_p99_s=b_p99,
+                       baseline_error_rate_s=b_err)
+            reason = _canary_verdict(c_p99, c_err, b_p99, b_err,
+                                     self.canary_factor)
+            if reason is not None:
+                break
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                out["result"] = "promoted"
+                _count_canary("promoted")
+                log.info("coordinator: canary %s promoted after "
+                         "%.1fs bake", name, self.bake_s)
+                return out
+            time.sleep(min(self.poll_s, max(remaining, 0.01)))
+        out.update(result="rolled_back", reason=reason)
+        prev_dir = previous_artifact_dir(artifact, prev_version)
+        if prev_dir is not None:
+            # the "reason" key makes the replica record the bake
+            # verdict on its /healthz after the rollback swap lands
+            code, doc = _http_post_json(
+                addr, "/v1/swap",
+                {"artifact": prev_dir,
+                 "reason": f"canary bake: {reason}",
+                 **({"inflight": self.inflight}
+                    if self.inflight else {})},
+                timeout_s=self.swap_timeout_s)
+            out["rollback"] = doc.get("result") if code == 200 \
+                else f"failed({code})"
+        else:
+            out["rollback"] = "no_predecessor"
+        _count_canary("rolled_back")
+        log.error("coordinator: canary %s rolled back (%s)", name,
+                  reason)
+        return out
+
+    def _halt(self, report: Dict[str, Any], name: str,
+              step: Dict[str, Any]) -> None:
+        report["result"] = "halted"
+        log.error("coordinator: rollout halted at %s "
+                  "(swap=%s post_status=%s)", name,
+                  (step.get("swap") or {}).get("result"),
+                  step.get("post_status"))
+
+    def rollout(self, artifact: str) -> Dict[str, Any]:
+        """Walk the replicas; returns the rollout report.  ``result``
+        is ``ok`` when every healthy replica swapped (skipped replicas
+        are reported, not fatal), ``halted`` when a swap failed or a
+        swapped replica degraded — the walk stops there and every
+        remaining replica keeps the old version.
+
+        Canary mode (``self.canary``, ≥ 2 replicas): the first healthy
+        replica swaps and bakes (:meth:`_bake_fleet`) BEFORE anyone
+        else moves; only ``promoted`` lets the walk continue, and the
+        bake verdict rides the report under ``"canary"``."""
+        report: Dict[str, Any] = {"artifact": artifact, "steps": [],
+                                  "result": "ok"}
+        with _trace.span("rollout_coordinator",
+                         artifact=os.path.basename(artifact),
+                         replicas=len(self.replicas)):
+            walk = list(self.replicas)
+            if self.canary and len(walk) > 1:
+                baked = self._canary_leg(report, walk, artifact)
+                if not baked:
+                    walk = []
+            for name, addr in walk:
+                step = self._step(name, addr, artifact)
+                report["steps"].append(step)
+                if step["action"] == "halt":
+                    self._halt(report, name, step)
+                    break
+        report["skipped"] = [s["replica"] for s in report["steps"]
+                             if s["action"] == "skipped"]
+        return report
+
+    def _canary_leg(self, report: Dict[str, Any],
+                    walk: List[Tuple[str, str]], artifact: str) -> bool:
+        """Swap + bake the canary (first HEALTHY replica); consumes the
+        walked prefix of ``walk`` in place.  True iff the remaining
+        replicas may proceed."""
+        while walk:
+            name, addr = walk.pop(0)
+            # the canary's pre-swap artifact digest is the rollback
+            # target — read it before the swap changes it
+            prev_version = str(self._fleet_topology().get(
+                name, {}).get("model_version") or "")
+            step = self._step(name, addr, artifact)
+            report["steps"].append(step)
+            if step["action"] == "halt":
+                self._halt(report, name, step)
+                return False
+            if step["action"] == "swapped":
+                bake = self._bake_fleet(name, addr, artifact,
+                                        prev_version)
+                report["canary"] = bake
+                if bake["result"] != "promoted":
+                    report["result"] = "halted"
+                    log.error("coordinator: rollout halted — canary "
+                              "%s bake %s", name, bake["result"])
+                    return False
+                return True
+            # skipped: try the next replica as the canary
+        return False   # nobody healthy enough to canary on

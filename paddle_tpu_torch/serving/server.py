@@ -48,9 +48,10 @@ and ``POST /v1/swap`` runs the whole pipeline (500 with the rolled-back
 report).  ``--rollout=false`` is the kill switch: no swap surface, and
 ``stats()``, ``/healthz`` and the 404 body keep their pre-rollout bytes.
 ``--serve_slo_ms`` > 0 adds the windowed ``ttft_p99_ms`` and
-``slo_met``.  The fleet's serving info (``_publish_serving_info``) comes
-with queue A10b and is a no-op until then, as in a JAX process without
-``observe.fleet``.  The decode and HTTP threads are named
+``slo_met``.  With rollout on, the model version and rollout state are
+published into the fleet identity (``observe.fleet.set_serving_info``),
+so every frame this process pushes carries them.  The decode and HTTP
+threads are named
 ``ptpu-serve-torch-*``.
 """
 
@@ -67,7 +68,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from ..analysis.lockorder import named_condition
-from ..observe import REGISTRY, counter, gauge, histogram, trace
+from ..observe import REGISTRY, counter, fleet, gauge, histogram, trace
 from ..observe.http import make_threading_server, resolve_bind_host
 from ..utils import FLAGS, enforce, get_logger
 from .model import DecoderModel
@@ -444,10 +445,15 @@ class InferenceServer:
         return reprefill
 
     def _publish_serving_info(self) -> None:
-        """The model version and rollout state for the fleet identity:
-        the fleet push client (``observe/fleet.py``) comes with queue
-        A10b, so this is a no-op, as in a JAX process without
-        ``observe.fleet``."""
+        """Push model version + rollout state into the fleet identity so
+        every frame this process pushes carries them (``/fleet/topology``
+        and the ``--watch`` version column)."""
+        if not self.rollout_enabled:
+            return
+        fleet.set_serving_info(version=self.model_version,
+                               state=self.rollout_state,
+                               exported_at=self.model_exported_at,
+                               error=self.last_swap_error)
 
     # ---------------------------------------------------------- decode loop
     def _loop(self) -> None:

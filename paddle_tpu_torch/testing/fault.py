@@ -30,11 +30,15 @@ reproducible:
   lease) every Nth call.
 - :class:`MasterServerProcess` — the TCP master in a child process that
   can be SIGKILLed and restarted from its snapshot on the same port.
+- :class:`FleetPusherProcess` — a child running the real fleet push
+  client against a real aggregator, SIGKILL-able (the aggregator must
+  notice via staleness) or SIGTERM-able (the shutdown hook pushes the
+  going-down frame), restarted under the same logical fleet id.
 
 The children run the port's modules on ``device`` (``None``: the card;
-the CPU tests pass ``"cpu"``).  Not ported yet, and refused by name:
-:class:`FleetPusherProcess` and any ``fleet_addr=`` (the fleet
-observatory, queue A10b).
+the CPU tests pass ``"cpu"``).  With ``fleet_addr=`` the pipeline's
+children push to that aggregator under ``fleet_id`` (roles trainer,
+exporter, serving), their spans parented under ``parent_ctx``.
 
 Everything is loopback/local-fs only; no network is touched.
 """
@@ -50,20 +54,30 @@ import sys
 import time
 from typing import Callable, Iterable, Optional
 
-from ..utils import PaddleTpuError, get_logger
+from ..utils import get_logger
 
 log = get_logger("fault")
 
-
-def _refuse(what: str, queue: str, why: str):
-    raise PaddleTpuError(f"{what} is not ported yet (queue {queue}: "
-                         f"{why})")
-
-
-def _no_fleet(fleet_addr: str) -> None:
-    if fleet_addr:
-        _refuse("fleet_addr=", "A10b", "the fleet push client, "
-                "observe/fleet.py")
+#: The start of every pipeline child: with a fleet address (the script's
+#: ``fleet_addr fleet_id role parent_ctx`` arguments, read from
+#: ``sys.argv[1:5]``) the child pushes to that aggregator every 0.2 s,
+#: its spans riding the frames; ``ctx`` is the parent's trace context.
+_FLEET_PRELUDE = r"""
+import os, sys, time
+from paddle_tpu_torch.utils import FLAGS
+from paddle_tpu_torch import observe
+from paddle_tpu_torch.observe import trace
+fleet_addr, fleet_id, fleet_role, parent_ctx = sys.argv[1:5]
+del sys.argv[1:5]
+if fleet_addr:
+    FLAGS.set("fleet_addr", fleet_addr)
+    FLAGS.set("fleet_id", fleet_id)
+    FLAGS.set("fleet_role", fleet_role)
+    FLAGS.set("metrics_interval_s", 0.2)
+    trace.ensure_ring()          # spans ride the push frames
+    observe.start_from_flags()
+ctx = trace.parse_header(parent_ctx) if parent_ctx else None
+"""
 
 
 # --------------------------------------------------------- TCP faults
@@ -207,13 +221,122 @@ class MasterServerProcess:
         self.kill()
 
 
-# --------------------------------------------------- refused by name
-class FleetPusherProcess:
-    """A fleet-pushing child process — queue A10b."""
+# ---------------------------------------------- fleet pusher processes
+# The child runs the real fleet push client (observe/fleet.py folded
+# into the reporter) against a real aggregator: it registers with its
+# role/pid/node identity, bumps a counter and closes one span per tick
+# (spans parented under an optional CTX header handed over by the
+# parent, so every process's spans share one trace id on the merged
+# /fleet/trace timeline), and relies on the default SIGTERM hook for its
+# goodbye frame.
+_PUSHER_SCRIPT = r"""
+import os, sys, time
+(addr, fleet_id, interval_s, parent_ctx, jsonl, role, trace_jsonl,
+ master_addr) = sys.argv[1:9]
+from paddle_tpu_torch.utils import FLAGS
+from paddle_tpu_torch import observe
+from paddle_tpu_torch.observe import trace
 
-    def __init__(self, *args, **kwargs):
-        _refuse("FleetPusherProcess", "A10b", "the fleet push client, "
-                "observe/fleet.py")
+FLAGS.set("fleet_addr", addr)
+FLAGS.set("fleet_id", fleet_id)
+FLAGS.set("fleet_role", role)
+FLAGS.set("metrics_interval_s", float(interval_s))
+if jsonl:
+    FLAGS.set("metrics_jsonl", jsonl)
+if trace_jsonl:
+    FLAGS.set("trace_jsonl", trace_jsonl)
+trace.ensure_ring()          # ring-only: spans ride the push frames
+observe.start_from_flags()   # reporter + pusher + SIGTERM flush hook
+ctx = trace.parse_header(parent_ctx) if parent_ctx else None
+print("READY", os.getpid(), flush=True)
+step = 0
+with trace.span("child_pass", remote_parent=ctx, child=fleet_id):
+    if master_addr:          # one RPC: the master echoes our CTX
+        from paddle_tpu_torch.distributed.master import MasterClient
+        c = MasterClient(master_addr, retry_max=2)
+        c.ping()             # -> master_rpc + master.handle spans
+        c.close()
+    while True:
+        with trace.span("child_step", step=step, child=fleet_id):
+            observe.counter("fleet_child_steps_total",
+                            "chaos pusher ticks").inc()
+        step += 1
+        time.sleep(float(interval_s) / 4.0)
+"""
+
+
+class FleetPusherProcess:
+    """A real fleet-pushing child process for chaos tests.
+
+    ``start()`` spawns it and waits for the READY line (printed after
+    the first registration push), ``kill()`` SIGKILLs it (the
+    preemption model — no goodbye frame, the aggregator must notice
+    via staleness), ``terminate()`` SIGTERMs it (the orchestrator
+    grace path — the shutdown hook flushes and pushes the going-down
+    frame), and a later ``start()`` re-registers under the SAME
+    ``fleet_id``, flipping the rollup back to ok."""
+
+    def __init__(self, aggregator_addr: str, fleet_id: str,
+                 interval_s: float = 0.2, parent_ctx: str = "",
+                 jsonl_path: str = "", role: str = "trainer",
+                 trace_jsonl: str = "", master_addr: str = ""):
+        self.aggregator_addr = aggregator_addr
+        self.fleet_id = fleet_id
+        self.interval_s = interval_s
+        self.parent_ctx = parent_ctx
+        self.jsonl_path = jsonl_path
+        self.role = role
+        self.trace_jsonl = trace_jsonl
+        self.master_addr = master_addr
+        self.proc: Optional[subprocess.Popen] = None
+
+    def start(self, ready_timeout_s: float = 60.0) -> "FleetPusherProcess":
+        assert self.proc is None or self.proc.poll() is not None, \
+            "pusher process already running"
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", _PUSHER_SCRIPT,
+             self.aggregator_addr, self.fleet_id, str(self.interval_s),
+             self.parent_ctx, self.jsonl_path, self.role,
+             self.trace_jsonl, self.master_addr],
+            stdout=subprocess.PIPE, text=True, env=_child_env())
+        line = self.proc.stdout.readline()   # blocks until READY
+        assert line.startswith("READY"), \
+            f"pusher child failed to start: {line!r}"
+        return self
+
+    @property
+    def pid(self) -> int:
+        assert self.proc is not None
+        return self.proc.pid
+
+    def kill(self) -> None:
+        """SIGKILL — preemption: no shutdown hook runs, no goodbye
+        frame; the aggregator flips this process to 'missing' only
+        via staleness."""
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.proc = None
+
+    def terminate(self, timeout_s: float = 15.0) -> int:
+        """SIGTERM — graceful: the shutdown hook flushes the last
+        interval and pushes the going-down frame, then the process dies
+        by the default disposition.  Returns the exit code."""
+        assert self.proc is not None
+        self.proc.terminate()
+        try:
+            rc = self.proc.wait(timeout=timeout_s)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            rc = self.proc.wait()
+        self.proc = None
+        return rc
+
+    def __enter__(self) -> "FleetPusherProcess":
+        return self.start()
+
+    def __exit__(self, *exc) -> None:
+        self.kill()
 
 
 # --------------------------------------------- serving server process
@@ -357,8 +480,7 @@ class ServeServerProcess(_LineChild):
 # The three stages of the train→serve pipeline as child processes (the
 # port's save_checkpoint, CheckpointWatcher and InferenceServer hot
 # swap), each killable at any instant.
-_TRAINER_SCRIPT = r"""
-import os, sys, time
+_TRAINER_SCRIPT = _FLEET_PRELUDE + r"""
 save_dir, n_passes, interval_s, keep, seed_base = sys.argv[1:6]
 from paddle_tpu_torch.serving.model import DecoderConfig, init_decoder_params
 from paddle_tpu_torch.trainer.checkpoint import save_checkpoint
@@ -371,7 +493,8 @@ while int(n_passes) < 0 or i < int(n_passes):
     # the watcher's exactly-once set is exercised (seed_base shifts a
     # RESTARTED trainer onto digests it never saved before)
     params = init_decoder_params(cfg, seed=int(seed_base) + i)
-    save_checkpoint(save_dir, i, params, keep=int(keep))
+    with trace.context_scope(ctx):
+        save_checkpoint(save_dir, i, params, keep=int(keep))
     print("SAVED", i, flush=True)
     i += 1
     time.sleep(float(interval_s))
@@ -388,20 +511,21 @@ class TrainerLoopProcess(_LineChild):
 
     def __init__(self, save_dir: str, n_passes: int = -1,
                  interval_s: float = 0.05, keep: int = 3,
-                 seed_base: int = 0, fleet_addr: str = ""):
-        _no_fleet(fleet_addr)
+                 seed_base: int = 0, fleet_addr: str = "",
+                 fleet_id: str = "", parent_ctx: str = ""):
         self.save_dir = save_dir
         self.n_passes = n_passes
         self.interval_s = interval_s
         self.keep = keep
         self.seed_base = seed_base
+        self.fleet = [fleet_addr, fleet_id, "trainer", parent_ctx]
         self.saved = 0          # SAVED lines seen so far
 
     def start(self) -> "TrainerLoopProcess":
         self.saved = 0
         self._spawn(_TRAINER_SCRIPT,
-                    [self.save_dir, self.n_passes, self.interval_s,
-                     self.keep, self.seed_base])
+                    [*self.fleet, self.save_dir, self.n_passes,
+                     self.interval_s, self.keep, self.seed_base])
         return self
 
     def _dispatch(self, fields: list) -> None:
@@ -416,8 +540,7 @@ class TrainerLoopProcess(_LineChild):
         return self.saved
 
 
-_EXPORTER_SCRIPT = r"""
-import os, sys, time
+_EXPORTER_SCRIPT = _FLEET_PRELUDE + r"""
 save_dir, export_dir, poll_s, quantize = sys.argv[1:5]
 from paddle_tpu_torch.serving.model import DecoderConfig
 from paddle_tpu_torch.serving.rollout import CheckpointWatcher
@@ -427,7 +550,9 @@ w = CheckpointWatcher(save_dir, cfg, export_dir=export_dir,
                       poll_s=float(poll_s), quantize=quantize or None)
 print("READY", os.getpid(), flush=True)
 while True:
-    for a in w.poll_once():
+    with trace.context_scope(ctx):
+        arts = w.poll_once()
+    for a in arts:
         print("EXPORTED", a, flush=True)
     time.sleep(float(poll_s))
 """
@@ -443,19 +568,20 @@ class ExporterProcess(_LineChild):
 
     def __init__(self, save_dir: str, export_dir: str,
                  poll_s: float = 0.1, quantize: str = "int8",
-                 fleet_addr: str = ""):
-        _no_fleet(fleet_addr)
+                 fleet_addr: str = "", fleet_id: str = "",
+                 parent_ctx: str = ""):
         self.save_dir = save_dir
         self.export_dir = export_dir
         self.poll_s = poll_s
         self.quantize = quantize
+        self.fleet = [fleet_addr, fleet_id, "exporter", parent_ctx]
         self.exported: list = []     # artifact dirs, in export order
 
     def start(self) -> "ExporterProcess":
         self.exported = []
         self._spawn(_EXPORTER_SCRIPT,
-                    [self.save_dir, self.export_dir, self.poll_s,
-                     self.quantize])
+                    [*self.fleet, self.save_dir, self.export_dir,
+                     self.poll_s, self.quantize])
         return self
 
     def _dispatch(self, fields: list) -> None:
@@ -470,8 +596,8 @@ class ExporterProcess(_LineChild):
         return list(self.exported)
 
 
-_ROLLOUT_SERVE_SCRIPT = r"""
-import os, sys, threading, time
+_ROLLOUT_SERVE_SCRIPT = _FLEET_PRELUDE + r"""
+import threading
 export_dir, poll_s, inflight, serve_load, device = sys.argv[1:6]
 from paddle_tpu_torch.serving.loader import artifact_digest, read_manifest
 from paddle_tpu_torch.serving.model import (DecoderConfig, DecoderModel,
@@ -501,7 +627,8 @@ def _watch():
         a = latest_valid_artifact(export_dir)
         if not a:
             continue
-        rep = swap_from_artifact(srv, a, inflight=inflight or None)
+        with trace.context_scope(ctx):
+            rep = swap_from_artifact(srv, a, inflight=inflight or None)
         if rep.get("result") == "ok":
             print("SWAPPED", rep.get("version"), flush=True)
 
@@ -510,8 +637,9 @@ threading.Thread(target=_watch, name="ptpu-rollout-swapper",
 print("READY", os.getpid(), port, version, flush=True)
 i = 0
 while serve_load == "1":
-    r = srv.submit([2 + (i % 60)] * (2 + i % 10), max_new_tokens=6)
-    toks = srv.result(r, timeout=60.0)
+    with trace.context_scope(ctx), trace.span("serve_request", i=i):
+        r = srv.submit([2 + (i % 60)] * (2 + i % 10), max_new_tokens=6)
+        toks = srv.result(r, timeout=60.0)
     assert toks, "empty generation"
     print("SERVED", i, srv.model_version, flush=True)
     i += 1
@@ -535,13 +663,14 @@ class RolloutServeProcess(_LineChild):
 
     def __init__(self, export_dir: str, poll_s: float = 0.1,
                  inflight: str = "drain", serve_load: bool = True,
-                 device: Optional[str] = None, fleet_addr: str = ""):
-        _no_fleet(fleet_addr)
+                 device: Optional[str] = None, fleet_addr: str = "",
+                 fleet_id: str = "", parent_ctx: str = ""):
         self.export_dir = export_dir
         self.poll_s = poll_s
         self.inflight = inflight
         self.serve_load = serve_load
         self.device = device
+        self.fleet = [fleet_addr, fleet_id, "serving", parent_ctx]
         self.port = 0
         self.boot_version = ""
         self.served = 0
@@ -553,8 +682,9 @@ class RolloutServeProcess(_LineChild):
         self.swaps = []
         self.served_versions = []
         self._spawn(_ROLLOUT_SERVE_SCRIPT,
-                    [self.export_dir, self.poll_s, self.inflight,
-                     "1" if self.serve_load else "0", self.device or ""])
+                    [*self.fleet, self.export_dir, self.poll_s,
+                     self.inflight, "1" if self.serve_load else "0",
+                     self.device or ""])
         return self
 
     @property

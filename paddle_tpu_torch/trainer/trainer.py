@@ -2,8 +2,7 @@
 fp32 step, its ``--precision=bf16`` mixed step and its mesh).
 
 ``Trainer.train_one_batch(feed)`` runs forward, autograd backward and
-the optimizer update: the JAX package's jitted step without its health
-branch.
+the optimizer update: the JAX package's jitted step.
 
 On a mesh (``mesh=``, default ``core.device.get_mesh()``: one process a
 device, ``{data: 1}`` without a process group) every rank is given the
@@ -103,7 +102,19 @@ gauges at pass boundaries while a sink or the endpoint is live, and logs
 ``--show_parameter_stats_period`` batches; ``test`` runs under a
 ``test_pass`` span.  The JAX trainer's ``jit_recompiles`` counter has no
 counterpart in an eager step.  What the loop reaches and the port lacks
-refuses by name before a step runs: ``--roofline_dump`` (A10b).
+refuses by name before a step runs: ``--roofline_dump`` (A10b part 3).
+
+Training health (``--health_interval N > 0``, ``observe/health.py``, as
+the JAX trainer wires it): a :class:`~..observe.health.HealthSession`
+built with the trainer folds each step's per-layer gradient, parameter
+and update norms and non-finite flags into device tensors inside
+``_apply`` (under ``--precision=bf16`` the flags come from the loss
+scale's own sweep, and a skipped step's non-finites count as benign);
+every N steps and at pass ends the state is drained — one
+device-to-host copy with the step's loss — into the ``health_*``
+metrics, the detectors, ``/health`` and the ``train_step`` span.  The
+sparse gradient exchange is vetoed while it is on (the health path reads
+dense per-parameter gradients).  At 0 the step is unchanged.
 """
 
 from __future__ import annotations
@@ -260,6 +271,13 @@ class Trainer:
         # reduce gradients over the data axis (local SGD turns it off)
         self._sync_grads = True
         self._prune_masks: Optional[Dict[str, torch.Tensor]] = None
+        # --health_interval N > 0: the per-layer health telemetry
+        # (observe/health.py) folded into the step, drained every N steps
+        self._health = None
+        if int(FLAGS.get("health_interval")) > 0:
+            from ..observe.health import HealthSession
+            self._health = HealthSession(network,
+                                         int(FLAGS.get("health_interval")))
         if FLAGS.get("init_model_path"):
             self.load(FLAGS.get("init_model_path"))
         # static pruning hooks (ParameterUpdaterHook.cpp:39): masks from
@@ -269,6 +287,8 @@ class Trainer:
                                               self.params)
         self.params = apply_prune_init(self.params, self._prune_masks)
         self._place_state()
+        if self._health is not None:
+            self._bind_health()
 
     # ------------------------------------------------------- the mesh
     @property
@@ -328,6 +348,24 @@ class Trainer:
                      if tuple(x.shape) == tuple(self.params[n].shape)
                      else x for x in slot)
             for n, slot in slots.items()})
+
+    def _bind_health(self) -> None:
+        """The health session on this trainer's device; on a mesh of more
+        than one member it folds only the parameters (shards) this rank
+        owns — a parameter's replicated part belongs to the rank at
+        coordinate 0 of the axes it is not sharded on — and its drain
+        gathers over the job in one collective."""
+        if self.mesh.size <= 1:
+            self._health.bind(self.device)
+            return
+        import torch.distributed as dist
+        owned = []
+        for name, p in self.params.items():
+            sharded = {self.mesh.axis_names[m] for m, _ in _shard_dims(p)}
+            if all(self.mesh.coordinate(a) == 0
+                   for a in self.mesh.axis_names if a not in sharded):
+                owned.append(name)
+        self._health.bind(self.device, owned, world=dist.group.WORLD)
 
     def _full_params(self) -> Dict[str, torch.Tensor]:
         """Every parameter whole (placed ones gathered)."""
@@ -410,9 +448,10 @@ class Trainer:
         A ``sparse_update`` table is eligible when it is a 2-D table, not
         static, not pruned, used outside recurrent groups, and only by
         embedding layers fed directly by a data layer.  An ineligible
-        table keeps the masked update, with a one-time notice.  The
-        reference's other veto, ``--health_interval``, comes with the
-        health telemetry (queue A10b)."""
+        table keeps the masked update, with a one-time notice.  While
+        ``--health_interval`` is on no table is exchanged (the reference's
+        other veto: the health path reads dense per-parameter
+        gradients)."""
         if self._sparse_plan is None:
             self._sparse_plan = self._build_sparse_exchange_plan()
         return self._sparse_plan
@@ -422,6 +461,14 @@ class Trainer:
         sparse_names = {n for n, s in net.param_specs.items()
                         if s.sparse_update and n not in net.static_params}
         if not FLAGS.get("sparse_grads") or not sparse_names:
+            return {}
+        if self._health is not None:
+            warn_once(
+                "trainer.sparse_exchange:health",
+                "sparse gradient exchange disabled while "
+                "--health_interval is active (health telemetry reads "
+                "dense per-parameter gradients) — sparse tables take "
+                "the lazy dense-masked update", logger=_log)
             return {}
         data_layers = {n for n, lyr in net.layers.items()
                        if lyr.conf.type == "data"}
@@ -525,10 +572,20 @@ class Trainer:
 
         Telemetry: the ``train_step`` span and the histograms and
         counters of the module docstring; the step waits for its loss
-        only while a metrics sink or an opened trace listens."""
-        with trace.span("train_step", samples_seen=self.samples_seen):
+        only while a metrics sink or an opened trace listens, or at a
+        health drain."""
+        with trace.span("train_step",
+                        samples_seen=self.samples_seen) as sp:
             t0, t_feed, t_done, batch, loss = \
                 self._traced_step_body(feed, placed)
+            if self._health is not None and self._health.step_done():
+                # drain due: its one device-to-host copy (the loss rides
+                # it) is the health path's only fence; its summary lands
+                # on this step's span
+                report = self._health.drain(loss=loss)
+                if report is not None \
+                        and isinstance(getattr(sp, "attrs", None), dict):
+                    sp.attrs.update(self._health.span_summary(report))
         observe.histogram(
             "train_host_feed_seconds",
             "host time sharding/placing the feed per step"
@@ -599,6 +656,10 @@ class Trainer:
             ).inc(delta)
             self._skipped_reported = skipped
 
+    def _step_seed(self) -> int:
+        """The step's dropout seed, as the JAX trainer derives its key."""
+        return (self.seed * 1000003 + self.samples_seen) % (2 ** 31)
+
     def _step(self, feed: Dict[str, Any]) -> torch.Tensor:
         """Forward, backward and update on a placed feed; returns the
         loss (``samples_seen`` is advanced by the caller)."""
@@ -614,9 +675,8 @@ class Trainer:
         # layers read their blocks
         tables = {n: full_tensor(self.params[n]) for n in ex_plan}
         inputs = [*dense.values(), *blocks.values()]
-        # the step's dropout seed, as the JAX trainer derives its key
         rng = torch.Generator(device=self.device).manual_seed(
-            (self.seed * 1000003 + self.samples_seen) % (2 ** 31))
+            self._step_seed())
         state = self._ls_state
         scope = data_parallel_scope(self.mesh) \
             if split and self._sync_grads else contextlib.nullcontext()
@@ -643,15 +703,24 @@ class Trainer:
                 raw = torch.autograd.grad(scaled, inputs)
         grads = dict(zip(dense, raw[:len(dense)]))
         block_grads = dict(zip(blocks, raw[len(dense):]))
-        finite = None
+        finite = flags = None
         if state is not None:
             grads = ls.unscale(grads, state.scale)
             block_grads = ls.unscale(block_grads, state.scale)
-            finite = ls.all_finite({**grads, **{
-                f"{n}/block": g for n, g in block_grads.items()}})
+            leaves = {**grads, **{f"{n}/block": g
+                                  for n, g in block_grads.items()}}
+            # one isfinite sweep, a flag a leaf: the skip decision is
+            # their all(); with health on they come in its order (it
+            # names every dense parameter, and no table is exchanged)
+            flags = ls.leaf_finite_flags(
+                leaves, list(leaves) if self._health is None
+                else self._health.names)
             if self.mesh.size > 1 and self._sync_grads:
-                # one rank's Inf skips every rank's step
-                finite = coll.all_reduce_flag(finite, None)
+                # the global batch's flags in one all-reduce: one rank's
+                # Inf skips every rank's step
+                flags = coll.all_reduce_sum(
+                    [(~flags).to(torch.int32)], None)[0] == 0
+            finite = flags.all()
         grads = apply_prune_grads(grads, self._prune_masks)
         if self._sync_grads:
             # the global batch's gradients (clipping, the lazy rows'
@@ -663,7 +732,8 @@ class Trainer:
                         list(block_grads.values()),
                         self.mesh.group(DATA_AXIS)))))
             loss = self._reduce_mean(loss)
-        self._apply(dense, grads, ex_plan, ex_rows, block_grads, lr, finite)
+        self._apply(dense, grads, ex_plan, ex_rows, block_grads, lr, finite,
+                    flags)
         # sorted, as the reference's jitted step returns its buffers
         new_buffers = {n: buffers[n].detach() for n in sorted(buffers)}
         if state is None:
@@ -674,11 +744,13 @@ class Trainer:
         return loss.detach()
 
     def _apply(self, dense, grads, ex_plan, ex_rows, block_grads, lr,
-               finite) -> None:
+               finite, health_flags=None) -> None:
         """The update: the dense parameters through ``Optimizer.apply``,
         ``sparse_update`` tables outside the exchange with their touched
         rows' masks, the exchanged tables row by row; under the mixed
-        step a non-finite ``finite`` keeps everything as it was."""
+        step a non-finite ``finite`` keeps everything as it was.  With
+        health on, the step's stats are folded in after the select (a
+        skipped step reports a zero update and benign non-finites)."""
         masks = {n: psparse.touched_row_mask(grads[n])
                  for n, s in self.network.param_specs.items()
                  if s.sparse_update and n in grads}
@@ -694,6 +766,10 @@ class Trainer:
         if finite is not None:
             new_params = ls.select(finite, new_params, old)
             new_opt = ls.select(finite, new_opt, old_opt)
+        if self._health is not None:
+            self._health.fold(grads, old, new_params,
+                              applied=True if finite is None else finite,
+                              finite_flags=health_flags)
         new_slots = dict(slots)
         new_slots.update({n: tuple(like_placed(x, r) for x, r in
                                    zip(slot, slots[n]))
@@ -787,15 +863,21 @@ class Trainer:
         if FLAGS.get("roofline_dump"):
             raise PaddleTpuError(
                 "--roofline_dump is not ported yet (the cost attribution "
-                "of observe/costmodel.py, queue A10b); leave it empty")
+                "of observe/costmodel.py, queue A10b part 3); leave it "
+                "empty")
 
     def _pass_boundary_observability(self) -> None:
-        """Once-per-pass telemetry kept off the step: the HBM gauges
-        (``observe/memory.sample``), sampled only when a metrics sink or
-        the ``/metrics`` endpoint is live."""
+        """Once-per-pass telemetry kept off the step: the health drain of
+        a partial interval, and the HBM gauges (``observe/memory.sample``),
+        sampled only when a metrics sink or the ``/metrics`` endpoint is
+        live."""
         from ..observe import http as ohttp
         from ..observe import memory as omem
 
+        if self._health is not None and self._health.pending():
+            # end-of-pass drain: whatever accumulated since the last
+            # interval boundary is published before the pass closes
+            self._health.drain()
         if observe.active() or ohttp.serving():
             omem.sample(self)
 

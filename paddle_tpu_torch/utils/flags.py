@@ -269,14 +269,96 @@ FLAGS.define("debug_dump_signal", False,
 FLAGS.define("debug_dump_dir", "",
              "output directory for --debug_dump_signal dumps (empty = "
              "the process's temp directory, $TMPDIR)")
+FLAGS.define("fleet_addr", "",
+             "fleet aggregator address (host:port, observe/fleet.py): "
+             "when set, this process pushes one self-describing "
+             "telemetry frame — metrics snapshot, recent "
+             "flight-recorder spans, health digest — every "
+             "--metrics_interval_s seconds from the reporter thread.  "
+             "A dead/version-skewed aggregator degrades the push sink "
+             "(warn-once, exponential backoff + jitter) and never "
+             "touches the training loop; empty (default) = no push "
+             "client, no reporter thread, zero new work")
+FLAGS.define("fleet_port", 0,
+             "host the fleet aggregator in THIS process on this port "
+             "(observe/fleet.py): serves GET /fleet/metrics (merged "
+             "Prometheus with role/pid/node labels), /fleet/healthz "
+             "(cluster rollup with staleness detection), /fleet/trace "
+             "(all processes' spans merged into one Chrome trace-event "
+             "timeline) and /fleet/topology, plus POST /fleet/push "
+             "frame intake; 0 (default) hosts nothing")
+FLAGS.define("fleet_bind", "",
+             "bind address for the --fleet_port aggregator (empty = "
+             "127.0.0.1).  Non-loopback is an explicit opt-in and "
+             "warns loudly — same not-an-external-API rule as "
+             "--metrics_bind")
+FLAGS.define("fleet_id", "",
+             "logical fleet identity of this process (e.g. trainer-0):"
+             " the key the aggregator's staleness tracking uses, so a "
+             "restarted process with the same id supersedes its dead "
+             "entry and the /fleet/healthz rollup recovers.  Empty = "
+             "derived role@node:pid (a restart then registers as a "
+             "NEW process and the old entry stays missing)")
+FLAGS.define("fleet_role", "trainer",
+             "fleet role this process registers as (trainer | "
+             "master-client | serving | bench by convention); the "
+             "elastic trainer, serving loader and bench override this "
+             "programmatically")
+FLAGS.define("fleet_stale_factor", 3.0,
+             "staleness multiplier for the /fleet/healthz rollup: a "
+             "process that has not pushed for this many multiples of "
+             "its own advertised interval is reported 'missing' "
+             "(a restarted process pushing under the same --fleet_id "
+             "flips it back to ok)")
+FLAGS.define("fleet_ring_size", 4096,
+             "per-process span retention in the hosted aggregator: "
+             "the newest N spans of each registered process kept for "
+             "the merged /fleet/trace timeline")
+FLAGS.define("fleet_push_timeout_s", 2.0,
+             "socket timeout for one fleet push POST; a slow or dead "
+             "aggregator costs the reporter thread at most this long "
+             "before the degrade/backoff path takes over")
 FLAGS.define("sigterm_flush", True,
              "install a chaining SIGTERM hook when any telemetry "
              "surface is configured (observe/shutdown.py): the final "
-             "metrics interval is flushed and the --trace_jsonl array "
-             "is finalized before the previous handler (or the default "
+             "metrics interval is flushed, a last going-down fleet "
+             "frame is pushed, and the --trace_jsonl array is "
+             "finalized before the previous handler (or the default "
              "die-by-signal disposition) runs; off = the atexit-only "
              "flush, which a SIGTERM-then-SIGKILL orchestrator window "
              "can lose")
+FLAGS.define("health_interval", 0,
+             "training-health telemetry (observe/health.py): every N "
+             "steps drain the on-device per-layer accumulators — "
+             "gradient/parameter norms, update ratios ||dw||/||w||, "
+             "non-finite localization — into observe gauges, /metrics "
+             "and the host-side detectors (loss spike/plateau, "
+             "dead/exploding layers).  The step folds its per-layer "
+             "sums into a few device tensors and never reads them "
+             "back; the drain's one device-to-host copy is the only "
+             "fence, amortized over N steps.  0 (default) = off: the "
+             "step runs without any of it")
+FLAGS.define("health_window", 32,
+             "rolling window (in drains) for the loss median/MAD "
+             "robust statistics behind the spike/plateau detectors")
+FLAGS.define("health_spike_mad", 8.0,
+             "loss-spike threshold: alert when loss exceeds the "
+             "rolling median by this many robust sigmas (1.4826*MAD)")
+FLAGS.define("health_plateau_rtol", 1e-4,
+             "loss-plateau threshold: alert when the loss window's "
+             "full range stays within this relative tolerance of the "
+             "median for a whole window")
+FLAGS.define("health_dead_ratio", 1e-10,
+             "dead-layer threshold: alert when a layer's update ratio "
+             "||dw||/||w|| stays at or below this for "
+             "--health_patience consecutive drains")
+FLAGS.define("health_explode_ratio", 0.5,
+             "exploding-layer threshold: alert when a layer's update "
+             "ratio exceeds this for --health_patience consecutive "
+             "drains")
+FLAGS.define("health_patience", 2,
+             "consecutive drains a dead/exploding condition must "
+             "persist before its alert fires")
 FLAGS.define("enable_timers", True,
              "collect named wall timers (utils/stat.py, the Stat.h "
              "equivalent); false makes every StatSet.timer a no-op")

@@ -12,9 +12,9 @@
   ``Trainer(seed=1).train`` writes in process.
 - ``--job test`` / ``time`` / ``checkgrad`` print the reference CLI's
   JSON keys; ``diagram`` and ``merge_model`` write what the reference's
-  helpers write; the six telemetry options set their flags and start
-  their surfaces; every flag the port lacks refuses by name (queue
-  A10b).
+  helpers write; the telemetry options (the fleet and health ones
+  too) set their flags and start their surfaces; a test every
+  ``--test_period`` batches refuses, as neither CLI has one.
 - The cluster options: ``--distributed`` with no ``PADDLE_COORDINATOR``
   trains in the one process, ``--mesh_shape`` names a mesh that must
   match the process count (the JAX package's check), a coordinator
@@ -290,14 +290,50 @@ def test_version_names_torch(capsys):
 
 
 @pytest.mark.parametrize("extra,queue", [
-    pytest.param(["--fleet_addr", "h:1"], "A10b", id="extra2-A10b"),
-    pytest.param(["--fleet_port", "9"], "A10b", id="extra3-A10b"),
-    pytest.param(["--fleet_id", "trainer-0"], "A10b", id="extra4-A10b"),
-    pytest.param(["--health_interval", "5"], "A10b", id="extra5-A10b"),
-    pytest.param(["--test_period", "2"], "A8", id="extra6-A8")])
+    pytest.param(["--test_period", "2"],
+                 "reference's CLI has no such test", id="extra6-A8")])
 def test_unported_train_options_refuse_by_name(extra, queue):
+    """A test every ``--test_period`` batches of ``--job train`` refuses
+    before the job runs: neither CLI has one."""
     with pytest.raises(PaddleTpuError, match=queue):
         cli.main(["train", "--config", RNN, "--device", "cpu", *extra])
+
+
+def _free_port():
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+@pytest.mark.parametrize("option", ["fleet_addr", "fleet_port", "fleet_id",
+                                    "health_interval"])
+def test_fleet_and_health_options_set_their_flags(option, monkeypatch):
+    """``train --fleet_addr / --fleet_port / --fleet_id /
+    --health_interval`` set the flag of their name before the job runs,
+    as the reference's CLI does, and ``observe.start_from_flags`` starts
+    the push client or the aggregator they configure."""
+    from paddle_tpu_torch import observe
+    value = {"fleet_addr": f"127.0.0.1:{_free_port()}",
+             "fleet_port": _free_port(), "fleet_id": "trainer-7",
+             "health_interval": 5}[option]
+    seen = {}
+    monkeypatch.setattr(cli, "cmd_train", lambda args: seen.update(
+        value=FLAGS.get(option), reporter=observe.report._global,
+        hosting=observe.fleet.hosting()) or 0)
+    saved = FLAGS.get(option)
+    try:
+        assert cli.main(["train", "--config", RNN, "--device", "cpu",
+                         f"--{option}", str(value)]) == 0
+    finally:
+        observe.stop_global()
+        FLAGS.set(option, saved)
+    assert seen["value"] == value
+    if option == "fleet_addr":
+        assert seen["reporter"].fleet.addr == value
+    assert seen["hosting"] == (option == "fleet_port")
 
 
 @pytest.mark.parametrize("extra", [["--distributed"],
@@ -423,7 +459,8 @@ def test_coordinator_and_master_refuse_by_name(monkeypatch, tmp_path):
     TCP (the JAX package's client leases them) and snapshots on SIGTERM;
     ``PADDLE_COORDINATOR`` without ``PADDLE_NUM_NODES`` /
     ``PADDLE_NODE_ID`` is exit code 2 before any step, as in the JAX
-    CLI.  The master's fleet options refuse by name (A10b)."""
+    CLI.  ``master --fleet_port`` hosts the fleet aggregator beside the
+    master."""
     from paddle_tpu.distributed.master import MasterClient as JClient
     from paddle_tpu_torch.data import recordio as rio
     rec = str(tmp_path / "d.rec")
@@ -431,9 +468,11 @@ def test_coordinator_and_master_refuse_by_name(monkeypatch, tmp_path):
         for i in range(5):
             w.write(str(i).encode())
     snap = str(tmp_path / "snap")
+    fport = _free_port()
     proc = subprocess.Popen(
         [sys.executable, "-m", "paddle_tpu_torch", "master", "--port", "0",
-         "--dataset", rec, "--chunked", "--local_only", "--snapshot", snap],
+         "--dataset", rec, "--chunked", "--local_only", "--snapshot", snap,
+         "--fleet_port", str(fport)],
         cwd=REPO, stdout=subprocess.PIPE, text=True)
     try:
         assert proc.stdout.readline().strip() == "dataset: 3 task(s)"
@@ -443,14 +482,16 @@ def test_coordinator_and_master_refuse_by_name(monkeypatch, tmp_path):
             assert payload == f"{rec}\t{rio.load_index(rec)[0][0]}"
             assert c.counts() == {"todo": 2, "pending": 1, "done": 0,
                                   "failed": 0}
+        from paddle_tpu_torch.observe import fleet
+        assert json.loads(fleet._http_get(f"127.0.0.1:{fport}",
+                                          "/fleet/healthz"))["status"] \
+            == "empty"
         proc.send_signal(signal.SIGTERM)
         assert proc.wait(timeout=30) == 0
     finally:
         if proc.poll() is None:
             proc.kill()
     assert os.path.exists(snap)
-    with pytest.raises(PaddleTpuError, match="fleet_port.*A10b"):
-        cli.main(["master", "--fleet_port", "9"])
     monkeypatch.setenv("PADDLE_COORDINATOR", "localhost:1")
     monkeypatch.delenv("PADDLE_NUM_NODES", raising=False)
     assert cli.main(["train", "--config", RNN, "--device", "cpu"]) == 2

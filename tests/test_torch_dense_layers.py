@@ -120,12 +120,15 @@ def port_net(jnet):
     return TNet(TModel.from_json(jnet.config.to_json()))
 
 
-def check_parity(jnet, np_feed, objective="readout", jit=False):
+def check_parity(jnet, np_feed, objective="readout", jit=False, f64=None):
     """Forward output of ``test`` and the gradients of the objective
     (``readout``: the sweep's ``scalar_loss``; ``loss``: the network's
     cost) in every parameter and float input, JAX against the port
     (``jit``: the JAX side compiled whole, which is quicker for nets
-    with a time loop)."""
+    with a time loop).  ``f64`` maps a gradient's name to ``(float64
+    value, bound)``: that gradient of each package is held against the
+    float64 value within ``bound * max|value|`` instead of against the
+    other package's."""
     tnet = port_net(jnet)
     jparams, tparams = carried_params(jnet, tnet)
     fnames = [k for k, v in np_feed.items() if _floating(v)]
@@ -162,8 +165,16 @@ def check_parity(jnet, np_feed, objective="readout", jit=False):
     assert set(got) == set(want)
     for name, g in want.items():
         t = got[name]
-        close(np.zeros_like(np.asarray(g)) if t is None else t.numpy(), g,
-              f"gradient of {name}")
+        t = np.zeros_like(np.asarray(g)) if t is None else t.numpy()
+        if f64 and name in f64:
+            ref, bound = f64[name]
+            for side, v in (("port", t), ("jax", g)):
+                err = np.abs(np.asarray(v, np.float64) - ref).max()
+                assert err <= bound * np.abs(ref).max(), \
+                    (f"gradient of {name} ({side}) off float64 by {err:.3g}",
+                     bound)
+            continue
+        close(t, g, f"gradient of {name}")
 
     # the forward value itself
     def jforward(params, feed):

@@ -432,40 +432,46 @@ def test_elastic_kill_and_resume(tmp_path):
     """Kill a trainer mid-epoch; a fresh one resumes from the checkpoint
     and the master re-leases unfinished shards."""
     from paddle_tpu_torch.utils import FLAGS
+    saved = FLAGS.get("save_dir")
     FLAGS.set("save_dir", "")
-    save_dir = str(tmp_path / "ckpt")
-    snap = str(tmp_path / "master_snap")
+    try:
+        save_dir = str(tmp_path / "ckpt")
+        snap = str(tmp_path / "master_snap")
 
-    m = Master(timeout_s=5, failure_max=3, snapshot_path=snap)
-    m.set_dataset([f"shard-{i}" for i in range(6)])
+        m = Master(timeout_s=5, failure_max=3, snapshot_path=snap)
+        m.set_dataset([f"shard-{i}" for i in range(6)])
 
-    tr, feeder = _tiny_trainer()
-    et = ElasticTrainer(tr, m, _shard_samples, save_dir,
-                        checkpoint_every_s=0.0)  # checkpoint every batch
+        tr, feeder = _tiny_trainer()
+        et = ElasticTrainer(tr, m, _shard_samples, save_dir,
+                            checkpoint_every_s=0.0)  # checkpoint every batch
 
-    # process half the shards, then "die"
-    consumed = 0
-    reader = master_reader(m, _shard_samples)
-    batch = []
-    for s in reader():
-        batch.append(s)
-        if len(batch) == 8:
-            et.trainer.train_one_batch(feeder.convert(batch))
-            et._maybe_checkpoint(0, force=True)
-            batch = []
-            consumed += 1
-        if consumed == 3:
-            break  # simulated preemption (lease for shard 3 stays pending)
-    del et, tr
+        # process half the shards, then "die"
+        consumed = 0
+        reader = master_reader(m, _shard_samples)
+        batch = []
+        for s in reader():
+            batch.append(s)
+            if len(batch) == 8:
+                et.trainer.train_one_batch(feeder.convert(batch))
+                et._maybe_checkpoint(0, force=True)
+                batch = []
+                consumed += 1
+            if consumed == 3:
+                break  # simulated preemption (lease for shard 3 stays pending)
+        del et, tr
 
-    # fresh trainer + recovered master: finish the epoch
-    m2 = Master(timeout_s=0.01, failure_max=3, snapshot_path=snap)
-    time.sleep(0.05)
-    tr2, feeder2 = _tiny_trainer(seed=123)
-    et2 = ElasticTrainer(tr2, m2, _shard_samples, save_dir,
-                         checkpoint_every_s=1e9)
-    assert et2.resume() is True
-    assert et2.trainer.samples_seen > 0   # checkpoint carried progress
-    et2.train(feeder2, batch_size=8, num_epochs=1)
-    c = m2.counts()
-    assert c["todo"] == 6 and c["pending"] == 0  # epoch reset after drain
+        # fresh trainer + recovered master: finish the epoch
+        m2 = Master(timeout_s=0.01, failure_max=3, snapshot_path=snap)
+        time.sleep(0.05)
+        tr2, feeder2 = _tiny_trainer(seed=123)
+        et2 = ElasticTrainer(tr2, m2, _shard_samples, save_dir,
+                             checkpoint_every_s=1e9)
+        assert et2.resume() is True
+        assert et2.trainer.samples_seen > 0   # checkpoint carried progress
+        et2.train(feeder2, batch_size=8, num_epochs=1)
+        c = m2.counts()
+        assert c["todo"] == 6 and c["pending"] == 0  # epoch reset after drain
+    finally:
+        FLAGS.set("save_dir", saved)
+        from paddle_tpu_torch.observe import fleet
+        fleet.reset_identity()      # the elastic trainer's fleet identity

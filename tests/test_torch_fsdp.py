@@ -234,6 +234,12 @@ def runs(tmp_path_factory):
     cases = {"fsdp": {**base, "fsdp": True,
                       "save_dir": str(root / "port"), "load": j8_ckpt},
              "rep": {**base, "fsdp": False}}
+    # the health telemetry over sharded and replicated parameters: one
+    # drain after two steps, and the same steps in one process
+    for name, fsdp in (("fsdp_health", True), ("rep_health", False)):
+        cases[name] = {**base, "fn": "train_case", "fsdp": fsdp,
+                       "feeds": [_feed()] * 2, "single": fsdp,
+                       "flags": {"health_interval": 2}}
     port = run_ranks(run_cases, 4, cases, deadline_s=150.0)
     return {"jlosses": jlosses, "j8": j8, "j8_ckpt": j8_ckpt,
             "root": root}, port
@@ -336,3 +342,29 @@ def test_sharded_ckpt_bitflip_one_shard_quarantines_whole_dir(runs):
     assert ".corrupt-pass-00001" in dirs and "pass-00001" not in dirs
     assert shard_file in os.listdir(
         os.path.join(save_dir, ".corrupt-pass-00001"))
+
+
+def test_health_norms_of_sharded_params_are_whole_param_norms(runs):
+    """``--health_interval`` under FSDP and replicated on 4 ranks: each
+    rank folds the sums of squares of the shards it owns, the drain
+    all-reduces them once, and every rank's report gives the one-process
+    trainer's per-layer norms (counts exactly; norms within rtol 1e-4:
+    the sharded step's rounding) — no parameter summed twice or
+    missed."""
+    _, port = runs
+    want = port[0]["fsdp_health"]["single"]["health"]
+    assert want["steps"] == 2 and len(want["layers"]) >= 5
+    for case in ("fsdp_health", "rep_health"):
+        for r in range(4):
+            got = port[r][case]["health"]
+            assert got["steps"] == 2 and sorted(got["layers"]) == \
+                sorted(want["layers"])
+            for layer, w in want["layers"].items():
+                g = got["layers"][layer]
+                for k in ("nonfinite_steps", "benign_nonfinite_steps",
+                          "first_nonfinite"):
+                    assert g[k] == w[k], (case, r, layer, k)
+                for k in ("grad_norm", "param_norm", "update_norm"):
+                    np.testing.assert_allclose(
+                        g[k], w[k], rtol=1e-4, err_msg=f"{case} {r} "
+                        f"{layer} {k}")

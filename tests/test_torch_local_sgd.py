@@ -50,6 +50,20 @@ def _mlp_config(in_dim=8, classes=3):
         return dsl.topology(dsl.classification_cost(y, lab))
 
 
+#: rows of a rank and width of the dropout layer in the mask case
+MASK_ROWS, MASK_WIDTH = 64, 32
+
+
+def _dropout_config(in_dim=8, classes=3):
+    with config_scope():
+        x = dsl.data("x", dense_vector(in_dim))
+        h = dsl.fc(x, size=MASK_WIDTH, act=dsl.Activation("tanh"),
+                   layer_attr=dsl.ExtraAttr(drop_rate=0.5))
+        y = dsl.fc(h, size=classes, act=dsl.Activation("softmax"))
+        lab = dsl.data("label", integer_value(classes))
+        return dsl.topology(dsl.classification_cost(y, lab))
+
+
 def _data(rng, n, in_dim=8, classes=3):
     x = rng.randn(n, in_dim).astype(np.float32)
     w = rng.randn(in_dim, classes).astype(np.float32)
@@ -111,6 +125,13 @@ def runs(tmp_path_factory):
                                           learning_method=method,
                                           learning_rate=lr,
                                           local_sgd_steps=k)
+    drop = {"config": _dropout_config().to_json(), "fn": "local_sgd_mask_case",
+            "opt": {"learning_method": "sgd", "learning_rate": 0.1,
+                    "local_sgd_steps": 2}, "mesh": {"data": 2}, "seed": 3}
+    cases["masks"] = {**drop, "feeds": [_data(np.random.RandomState(6),
+                                              2 * MASK_ROWS)]}
+    cases["undivided"] = {**drop, "feeds": [_data(np.random.RandomState(7),
+                                                  15)]}
     port = run_ranks(run_cases, 2, cases, deadline_s=120.0)
     return {"losses": jlosses, "params": jparams, "init": init}, port
 
@@ -157,3 +178,31 @@ def test_local_sgd_matches_the_jax_trainer(runs):
     for k, v in tck.load_params(jax_side["init"]).items():
         np.testing.assert_array_equal(before[k], v, err_msg=k)
     assert np.isfinite(got["test_before"]["test_cost"])
+
+
+def test_each_rank_draws_its_own_dropout_masks(runs):
+    """Fault C9: the two ranks' keep-masks at rate 0.5 on equal-shaped
+    rows agree on about half their elements (p^2 + (1 - p)^2 = 0.5 for
+    independent masks, as the JAX package's per-shard keys give), within
+    5 binomial standard deviations; one shared seed would agree on all."""
+    _, port = runs
+    m0, m1 = (port[r]["masks"]["masks"] for r in (0, 1))
+    assert len(m0) == len(m1) == 1
+    assert m0[0].shape == m1[0].shape == (MASK_ROWS, MASK_WIDTH)
+    for m in (m0[0], m1[0]):
+        sigma = np.sqrt(0.25 / m.size)
+        assert abs(m.mean() - 0.5) < 5 * sigma
+    agree = (m0[0] == m1[0]).mean()
+    assert abs(agree - 0.5) < 5 * np.sqrt(0.25 / m0[0].size), agree
+
+
+def test_an_undivided_batch_raises(runs):
+    """Fault C10: 15 rows do not divide over two ranks; local SGD raises
+    the JAX package's message on every rank rather than stepping on the
+    whole batch."""
+    _, port = runs
+    for r in (0, 1):
+        got = port[r]["undivided"]
+        assert "masks" not in got
+        assert got["error"] == ("PaddleTpuError: local SGD: batch 15 not "
+                                "divisible by 2 shards"), got

@@ -16,7 +16,7 @@
   counterpart of — and the same span names and parentage.
 - The port's own pieces: the step's fence (``block_until_ready``), the
   timers' ``--enable_timers``, the memory gauges on the CPU, the SIGTERM
-  flush, ``enable_fp_exceptions``, the refusals of A10b, the SLO
+  flush, ``enable_fp_exceptions``, the refusals of A10b part 3, the SLO
   engine found on ``/slo`` and ``/healthz`` (``tests/test_torch_slo.py``
   holds the engine itself; ``tests/test_torch_port_rules.py`` holds
   that importing ``paddle_tpu_torch.observe`` loads no torch).
@@ -792,14 +792,16 @@ def test_enable_fp_exceptions_traps_at_the_op():
 
 
 def test_unported_observe_modules_refuse_by_name():
-    for name, queue in (("fleet", "A10b"), ("benchgate", "A10b"),
-                        ("health", "A10b"), ("costmodel", "A10b")):
-        with pytest.raises(PaddleTpuError, match=f"{name}.*{queue}"):
+    """Part 3 of queue A10b (the cost model and the bench gate) refuses
+    by name; ``fleet`` and ``health`` are ported: importable, and a
+    reporter asked for a push client has one."""
+    for name in ("benchgate", "costmodel"):
+        with pytest.raises(PaddleTpuError, match=f"{name}.*A10b part 3"):
             getattr(observe, name)
-    with pytest.raises(PaddleTpuError, match="A10b"):
-        from paddle_tpu_torch.observe import fleet  # noqa: F401
-    with pytest.raises(PaddleTpuError, match="fleet_addr.*A10b"):
-        MetricsReporter(fleet_addr="h:1")
+    from paddle_tpu_torch.observe import fleet, health
+    assert observe.fleet is fleet and health.HealthSession
+    r = MetricsReporter(fleet_addr="127.0.0.1:1")
+    assert r.fleet is not None and r.fleet.addr == "127.0.0.1:1"
     with pytest.raises(AttributeError):
         observe.no_such_thing
 

@@ -152,14 +152,15 @@ def test_serving_entry_points_raise_without_cuda(monkeypatch, tmp_path):
 
 
 def test_unported_rollout_pieces_refuse_by_name(tmp_path):
+    """The rollout pieces that waited for the fleet (queue A10b parts 1
+    and 2) no longer refuse: the coordinator, the pusher child and the
+    pipeline children's ``fleet_addr=`` construct."""
     from paddle_tpu_torch.serving.rollout import RollingCoordinator
     from paddle_tpu_torch.testing import fault
-    with pytest.raises(PaddleTpuError, match="A10b"):
-        RollingCoordinator("127.0.0.1:1", [])
-    with pytest.raises(PaddleTpuError, match="A10b"):
-        fault.FleetPusherProcess("127.0.0.1:1", "x")
-    with pytest.raises(PaddleTpuError, match="fleet_addr.*A10b"):
-        fault.TrainerLoopProcess("/nonexistent", fleet_addr="h:1")
+    assert RollingCoordinator("127.0.0.1:1", []).replicas == []
+    assert fault.FleetPusherProcess("127.0.0.1:1", "x").proc is None
+    assert fault.TrainerLoopProcess("/nonexistent",
+                                    fleet_addr="h:1").fleet[0] == "h:1"
     # the master's injectors are ported: a served child master, and a
     # client whose dropped connections are replayed
     from paddle_tpu_torch.distributed import MasterClient
@@ -169,6 +170,65 @@ def test_unported_rollout_pieces_refuse_by_name(tmp_path):
             with fault.drop_master_connection(c, every=2) as stats:
                 assert [c.get_task()[1] for _ in range(2)] == ["a", "b"]
             assert stats["dropped"] == 1
+
+
+#: queue A10b parts 1 and 2: the JAX package's files and the port's
+#: counterparts at the same paths
+A10B_FILES = ("observe/health.py", "observe/fleet.py")
+#: what stays unported in observe/, and the part of the queue that ports
+#: it
+A10B_PART3 = ("observe/benchgate.py", "observe/costmodel.py")
+
+
+def test_health_and_fleet_files_are_ported_and_no_refusal_names_them():
+    """``observe/health.py`` and ``observe/fleet.py`` exist at the JAX
+    package's paths and the scan covers them; part 3's files are still
+    missing and refuse by name with "A10b part 3"; no port file refuses
+    anything naming the fleet or health any more."""
+    jax_pkg = PORT.parent / "paddle_tpu"
+    scanned = {str(f.relative_to(PORT)) for f in PORT.rglob("*.py")}
+    for rel in A10B_FILES:
+        assert (jax_pkg / rel).is_file()
+        assert rel in scanned
+        assert not set(_imported_roots(PORT / rel)) & FORBIDDEN
+    for rel in A10B_PART3:
+        assert (jax_pkg / rel).is_file() and rel not in scanned
+    from paddle_tpu_torch import observe
+    assert sorted(observe._UNPORTED) == ["benchgate", "costmodel"]
+    assert set(observe._UNPORTED.values()) == {"A10b part 3"}
+    stale = []
+    for f in PORT.rglob("*.py"):
+        for line in f.read_text().splitlines():
+            if "A10b" in line and "part 3" not in line:
+                stale.append(f"{f.relative_to(PORT)}: {line.strip()}")
+    assert stale == []
+
+
+def test_part_3_refusals_stay_by_name(tmp_path):
+    """What part 3 ports refuses by name until then: ``--roofline_dump``
+    before a step, ``/roofline`` answering 404, and the two
+    ``roofline_peak_*`` flags, which the port does not define."""
+    import json
+    import urllib.error
+    import urllib.request
+    from paddle_tpu_torch.observe.http import ObservabilityServer
+    from paddle_tpu_torch.trainer.trainer import Trainer
+    from paddle_tpu_torch.utils import FLAGS
+    for name in ("roofline_peak_flops", "roofline_peak_gbps"):
+        assert name not in FLAGS.specs
+    saved = FLAGS.get("roofline_dump")
+    FLAGS.set("roofline_dump", str(tmp_path / "r.json"))
+    try:
+        with pytest.raises(PaddleTpuError,
+                           match="roofline_dump.*A10b part 3"):
+            Trainer._refuse_unported()
+    finally:
+        FLAGS.set("roofline_dump", saved)
+    with ObservabilityServer(port=0) as srv:
+        with pytest.raises(urllib.error.HTTPError) as ei:
+            urllib.request.urlopen(f"http://127.0.0.1:{srv.port}/roofline")
+        assert ei.value.code == 404
+        assert "roofline" in json.loads(ei.value.read())["error"]
 
 
 def test_importing_observe_loads_no_torch():

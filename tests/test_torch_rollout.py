@@ -1,7 +1,7 @@
 """The port's train→serve pipeline (``paddle_tpu_torch.serving.rollout``,
 the server's hot swap) on the CPU: the cases of ``tests/test_rollout.py``
-less its coordinator and fleet-plumbing cases (queue A10b), at its
-``DecoderConfig(64, 32, 2, 1, 64, 64)``.
+at its ``DecoderConfig(64, 32, 2, 1, 64, 64)``, the fleet-supervised
+coordinator's walk over CPU servers and the fleet plumbing included.
 
 Against the JAX package: a JAX checkpoint exported by the JAX watcher
 verifies, swaps into the port's server and generates the JAX server's
@@ -45,10 +45,13 @@ def _flag(name, value):
 @pytest.fixture(autouse=True)
 def _port_registry():
     """The port's registry is its own (tests/conftest.py resets only the
-    JAX package's): every case starts and ends empty."""
+    JAX package's): every case starts and ends empty, with no fleet
+    identity or serving info another file's server left."""
     REGISTRY.reset()
+    observe.fleet.reset_identity()
     yield
     observe.stop_global()
+    observe.fleet.reset_identity()
     REGISTRY.reset()
 
 
@@ -521,13 +524,6 @@ def test_rollout_metrics_served_on_metrics_endpoint(cfg, tmp_path):
     assert f'rollout_model_version{{digest="{digest}"}} 1.0' in text
 
 
-def test_coordinator_refuses_by_name():
-    from paddle_tpu_torch.serving import rollout as ro
-
-    with pytest.raises(PaddleTpuError, match="RollingCoordinator.*A10b"):
-        ro.RollingCoordinator("127.0.0.1:1", [])
-
-
 # ------------------------------------------------------- canary bake
 def _export_as_rollback_target(cfg, export_dir, seed, **extra):
     """Export under the canonical ``model-<digest12>`` name so a later
@@ -748,3 +744,231 @@ def test_bf16_dequant_decoder_matches_jax(cfg, tmp_path):
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl, np.float32),
                                atol=2e-2, rtol=0)
     np.testing.assert_array_equal(tn, np.asarray(jn))
+
+
+# ------------------------------------------------------- coordinator
+def _ingest(agg, name, status="ok", pid=100, serving=None):
+    frame = {"schema": 1, "kind": "fleet-frame", "role": "serving",
+             "name": name, "node": "host-a", "pid": pid, "seq": 0,
+             "ts": time.time(), "uptime_s": 1.0, "interval_s": 600.0,
+             "going_down": False, "health": {"status": status},
+             "metrics": [], "timers": [], "spans": []}
+    if serving is not None:
+        frame["serving"] = serving
+    agg.state.ingest(frame)
+
+
+def test_coordinator_skips_degraded_and_missing(cfg, tmp_path):
+    from paddle_tpu_torch.observe.fleet import FleetAggregator
+    from paddle_tpu_torch.serving import rollout as ro
+
+    art = _export(cfg, tmp_path / "a", seed=1)
+    digest = artifact_digest(read_manifest(art))
+    with FleetAggregator(0) as agg, \
+            _server(cfg, seed=0) as good, _server(cfg, seed=0) as sick:
+        gport, sport = good.start_http(0), sick.start_http(0)
+        _ingest(agg, "serve-good", status="ok", pid=101)
+        _ingest(agg, "serve-sick", status="degraded", pid=102)
+        # "serve-gone" never pushed a frame at all
+        coord = ro.RollingCoordinator(agg.addr, [
+            ("serve-sick", f"127.0.0.1:{sport}"),
+            ("serve-gone", "127.0.0.1:1"),
+            ("serve-good", f"127.0.0.1:{gport}"),
+        ])
+        report = coord.rollout(art)
+        assert report["result"] == "ok"
+        assert report["skipped"] == ["serve-sick", "serve-gone"]
+        actions = [s["action"] for s in report["steps"]]
+        assert actions == ["skipped", "skipped", "swapped"]
+        # the skipped replica kept its old version; the healthy one
+        # landed the new one — availability preserved either way
+        assert sick.model_version == "unversioned"
+        assert good.model_version == digest
+    assert observe.counter("rollout_coordinator_steps_total",
+                           "").value(result="skipped") == 2
+    assert observe.counter("rollout_coordinator_steps_total",
+                           "").value(result="ok") == 1
+
+
+def test_coordinator_halts_on_failed_swap(cfg, tmp_path):
+    from paddle_tpu_torch.observe.fleet import FleetAggregator
+    from paddle_tpu_torch.serving import rollout as ro
+    from paddle_tpu_torch.testing.fault import corrupt_artifact
+
+    art = _export(cfg, tmp_path / "a", seed=1)
+    corrupt_artifact(art, mode="bitflip")
+    with FleetAggregator(0) as agg, \
+            _server(cfg, seed=0) as first, _server(cfg, seed=0) as rest:
+        fport, rport = first.start_http(0), rest.start_http(0)
+        _ingest(agg, "serve-0", status="ok", pid=101)
+        _ingest(agg, "serve-1", status="ok", pid=102)
+        coord = ro.RollingCoordinator(agg.addr, [
+            ("serve-0", f"127.0.0.1:{fport}"),
+            ("serve-1", f"127.0.0.1:{rport}"),
+        ])
+        report = coord.rollout(art)
+        assert report["result"] == "halted"
+        assert len(report["steps"]) == 1       # the walk stopped there
+        assert report["steps"][0]["action"] == "halt"
+        assert report["steps"][0]["swap"]["result"] == "rolled_back"
+        # the not-yet-walked replica was never touched: old version
+        # keeps serving everywhere — the zero-downtime property
+        assert rest.model_version == "unversioned"
+        assert rest.rollout_state == "serving"
+        assert first.generate([2, 3], 3, timeout=120.0)
+    assert observe.counter("rollout_coordinator_steps_total",
+                           "").value(result="halted") == 1
+
+
+# ---------------------------------------------------- fleet plumbing
+def test_fleet_frames_topology_watch_carry_version():
+    from paddle_tpu_torch.observe import fleet
+    from paddle_tpu_torch.observe.fleet import FleetAggregator, FleetPusher
+
+    with FleetAggregator(0) as agg, _flag("fleet_id", "serve-0"):
+        fleet.set_serving_info(version="a" * 64, state="serving",
+                               exported_at=123.0)
+        try:
+            p = FleetPusher(agg.addr, interval_s=600.0)
+            frame = p.build_frame()
+            assert frame["serving"]["model_version"] == "a" * 64
+            assert frame["serving"]["rollout_state"] == "serving"
+            assert p.push() is True
+        finally:
+            fleet.reset_identity()     # also clears the serving info
+        assert fleet.serving_info() == {}
+        topo = agg.state.topology()
+        entry = topo["procs"]["serve-0"]
+        assert entry["model_version"] == "a" * 64
+        assert entry["rollout_state"] == "serving"
+        assert entry["model_exported_at"] == 123.0
+        assert "swap_error" not in entry       # only surfaced when set
+        rows = agg.state.watch_rows()
+        (row,) = [r for r in rows if r["proc"] == "serve-0"]
+        assert row["version"] == "a" * 64
+        rendered = fleet.render_watch(agg.state.rollup(), rows)
+        assert "version" in rendered
+        assert ("a" * 64)[:12] in rendered
+
+
+def test_fleet_watch_marks_non_serving_rollout_state():
+    from paddle_tpu_torch.observe import fleet
+    from paddle_tpu_torch.observe.fleet import FleetAggregator
+
+    with FleetAggregator(0) as agg:
+        _ingest(agg, "serve-0", pid=101,
+                serving={"model_version": "b" * 64,
+                         "rollout_state": "rolled_back",
+                         "swap_error": "verify: boom"})
+        entry = agg.state.topology()["procs"]["serve-0"]
+        assert entry["rollout_state"] == "rolled_back"
+        assert entry["swap_error"] == "verify: boom"
+        rendered = fleet.render_watch(agg.state.rollup(),
+                                      agg.state.watch_rows())
+        assert "rolled_back" in rendered
+
+
+def test_server_publishes_serving_info_on_swap(cfg, tmp_path):
+    """The server pushes version + rollout state into the fleet
+    identity at start and after every swap/rollback."""
+    from paddle_tpu_torch.observe import fleet
+    from paddle_tpu_torch.serving import rollout as ro
+
+    art = _export(cfg, tmp_path / "a", seed=1)
+    digest = artifact_digest(read_manifest(art))
+    try:
+        with _server(cfg, seed=0) as srv:
+            assert fleet.serving_info()["model_version"] == "unversioned"
+            ro.swap_from_artifact(srv, art)
+            info = fleet.serving_info()
+            assert info["model_version"] == digest
+            assert info["rollout_state"] == "serving"
+            ro.swap_from_artifact(srv, str(tmp_path / "missing"))
+            info = fleet.serving_info()
+            assert info["rollout_state"] == "rolled_back"
+            assert "verify:" in info["swap_error"]
+    finally:
+        fleet.reset_identity()
+
+
+def test_coordinator_canary_promotes_then_walks(cfg, tmp_path):
+    """Fleet-side canary: the first replica swaps alone, bakes against
+    the pooled baseline signals riding the fleet frames, and only a
+    clean bake lets the remaining replicas walk."""
+    from paddle_tpu_torch.observe.fleet import FleetAggregator
+    from paddle_tpu_torch.serving import rollout as ro
+
+    art = _export(cfg, tmp_path / "a", seed=1)
+    digest = artifact_digest(read_manifest(art))
+    with FleetAggregator(0) as agg, \
+            _server(cfg, seed=0) as canary, _server(cfg, seed=0) as base:
+        cport, bport = canary.start_http(0), base.start_http(0)
+        _ingest(agg, "serve-canary", pid=101, serving={
+            "model_version": "unversioned", "rollout_state": "serving",
+            "ttft_p99_s": 0.0012, "error_rate_s": 0.0})
+        _ingest(agg, "serve-base", pid=102, serving={
+            "model_version": "unversioned", "rollout_state": "serving",
+            "ttft_p99_s": 0.0010, "error_rate_s": 0.0})
+        coord = ro.RollingCoordinator(agg.addr, [
+            ("serve-canary", f"127.0.0.1:{cport}"),
+            ("serve-base", f"127.0.0.1:{bport}"),
+        ], canary=True, bake_s=0.3, canary_factor=2.0, poll_s=0.05)
+        report = coord.rollout(art)
+        assert report["result"] == "ok"
+        assert report["canary"]["result"] == "promoted"
+        assert report["canary"]["replica"] == "serve-canary"
+        assert [s["action"] for s in report["steps"]] == \
+            ["swapped", "swapped"]
+        assert canary.model_version == digest
+        assert base.model_version == digest
+    assert observe.counter("rollout_canary_total",
+                           "").value(result="promoted") == 1
+
+
+def test_coordinator_canary_rolls_back_and_halts(cfg, tmp_path):
+    """Fleet-side breach: the canary's windowed p99 (off its frames)
+    blows past the pooled baseline, the coordinator rolls it back to
+    the predecessor artifact (bake verdict on the replica's /healthz)
+    and HALTS — the baseline replicas never swap."""
+    from paddle_tpu_torch.observe.fleet import FleetAggregator
+    from paddle_tpu_torch.serving import rollout as ro
+
+    exp = tmp_path / "export"
+    os.makedirs(exp)
+    prev_art, dig_prev = _export_as_rollback_target(cfg, exp, seed=1)
+    new_art, _ = _export_as_rollback_target(cfg, exp, seed=2)
+
+    with FleetAggregator(0) as agg, \
+            _server(cfg, seed=0) as canary, _server(cfg, seed=0) as base:
+        cport, bport = canary.start_http(0), base.start_http(0)
+        # the canary advertises its pre-swap version (the rollback
+        # target) and a 50 ms windowed p99; the pool holds 1 ms
+        _ingest(agg, "serve-canary", pid=101, serving={
+            "model_version": dig_prev, "rollout_state": "serving",
+            "ttft_p99_s": 0.050, "error_rate_s": 0.0})
+        _ingest(agg, "serve-base", pid=102, serving={
+            "model_version": dig_prev, "rollout_state": "serving",
+            "ttft_p99_s": 0.001, "error_rate_s": 0.0})
+        coord = ro.RollingCoordinator(agg.addr, [
+            ("serve-canary", f"127.0.0.1:{cport}"),
+            ("serve-base", f"127.0.0.1:{bport}"),
+        ], canary=True, bake_s=30.0, canary_factor=2.0, poll_s=0.05)
+        report = coord.rollout(new_art)
+        assert report["result"] == "halted"
+        can = report["canary"]
+        assert can["result"] == "rolled_back"
+        assert can["rollback"] == "ok"
+        assert "p99 TTFT" in can["reason"]
+        assert len(report["steps"]) == 1        # baselines never walked
+        # the canary is back on the predecessor, verdict on /healthz
+        assert canary.model_version == dig_prev
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{cport}/healthz", timeout=30) as resp:
+            health = json.loads(resp.read())
+        assert health["rollout_state"] == "rolled_back"
+        assert health["last_swap_error"].startswith("canary bake:")
+        # the not-yet-walked replica was never touched
+        assert base.model_version == "unversioned"
+        assert base.rollout_state == "serving"
+    assert observe.counter("rollout_canary_total",
+                           "").value(result="rolled_back") == 1

@@ -1,7 +1,7 @@
 """The port's windowed reservoirs and SLO engine
 (``paddle_tpu_torch/observe/metrics.py``, ``observe/slo.py``) on the
-CPU: the cases of ``tests/test_slo.py`` less its two fleet cases (queue
-A10b), run against the port, and the same objectives over the same
+CPU: the cases of ``tests/test_slo.py``, its two fleet cases included,
+run against the port, and the same objectives over the same
 samples through both packages' engines, which must give the same
 verdicts, values and burn rates (exactly: both are the same float64
 arithmetic over the same samples).
@@ -28,10 +28,12 @@ from paddle_tpu_torch.utils import FLAGS
 
 @pytest.fixture(autouse=True)
 def _port_state():
-    """The port's registry and engine are its own (tests/conftest.py
-    resets only the JAX package's)."""
+    """The port's registry, engine and fleet identity are its own
+    (tests/conftest.py resets only the JAX package's)."""
+    observe.fleet.reset_identity()
     yield
     observe.stop_global()
+    observe.fleet.reset_identity()
     REGISTRY.reset()
     slo_mod.reset()
 
@@ -470,6 +472,79 @@ def test_start_from_flags_starts_reporter_for_slo_alone():
         finally:
             report.stop_global()
             slo_mod.reset()
+
+
+def test_fleet_frame_rollup_and_watch_carry_slo():
+    from paddle_tpu_torch.observe import fleet
+    from paddle_tpu_torch.observe.fleet import FleetAggregator
+
+    def frame(name, slo=None, serving=None):
+        f = {"schema": 1, "kind": "fleet-frame", "role": "serving",
+             "name": name, "node": "host-a", "pid": 7, "seq": 0,
+             "ts": 0.0, "uptime_s": 1.0, "interval_s": 600.0,
+             "going_down": False, "health": {"status": "ok"},
+             "metrics": [], "timers": [], "spans": []}
+        if slo is not None:
+            f["slo"] = slo
+        if serving is not None:
+            f["serving"] = serving
+        return f
+
+    with FleetAggregator(0) as agg:
+        breach = {"status": "breach",
+                  "breached": ["serve_ttft_seconds:p99<0.5:60s"],
+                  "objectives": {}}
+        agg.state.ingest(frame(
+            "serve-bad", slo=breach,
+            serving={"model_version": "a" * 64,
+                     "rollout_state": "serving",
+                     "ttft_p99_s": 0.75, "error_rate_s": 0.0}))
+        agg.state.ingest(frame(
+            "serve-good", slo={"status": "ok", "breached": [],
+                               "objectives": {}}))
+        roll = agg.state.rollup()
+        # an SLO breach marks the process degraded, objective named
+        assert roll["procs"]["serve-bad"]["status"] == "degraded"
+        assert roll["procs"]["serve-bad"]["slo"] == "breach"
+        assert roll["procs"]["serve-bad"]["slo_breached"] == \
+            ["serve_ttft_seconds:p99<0.5:60s"]
+        assert roll["procs"]["serve-good"]["status"] == "ok"
+        topo = agg.state.topology()
+        assert topo["procs"]["serve-bad"]["ttft_p99_s"] == 0.75
+        assert topo["procs"]["serve-bad"]["slo"] == "breach"
+        rows = agg.state.watch_rows()
+        (bad,) = [r for r in rows if r["proc"] == "serve-bad"]
+        assert bad["ttft_p99_s"] == 0.75 and bad["slo"] == "breach"
+        rendered = fleet.render_watch(roll, rows)
+        assert "p99_ttft" in rendered and "slo" in rendered
+        assert "750ms" in rendered and "breach" in rendered
+        # a frame with NO slo field renders "-" (older pushers)
+        (good,) = [r for r in rows if r["proc"] == "serve-good"]
+        assert good["ttft_p99_s"] is None
+
+
+def test_pusher_frame_carries_slo_and_windowed_ttft():
+    from paddle_tpu_torch.observe import fleet
+    from paddle_tpu_torch.observe.fleet import FleetPusher
+
+    clk = FakeClock()
+    h = REGISTRY.histogram("serve_ttft_seconds", "ttft", clock=clk)
+    eng = SloEngine(["serve_ttft_seconds:p99<0.5:60s"], clock=clk)
+    try:
+        slo_mod.set_engine(eng)
+        for _ in range(60):
+            h.observe(0.2)
+            clk.advance(1.0)
+        eng.evaluate()
+        fleet.set_serving_info(version="c" * 64, state="serving")
+        p = FleetPusher("127.0.0.1:1", interval_s=600.0)
+        frame = p.build_frame()
+        assert frame["slo"]["status"] == "ok"
+        assert frame["serving"]["ttft_p99_s"] == pytest.approx(
+            0.2, rel=0.01)
+    finally:
+        fleet.reset_identity()
+        slo_mod.reset()
 
 
 # ----------------------------------------------- against the JAX package

@@ -273,8 +273,9 @@ def test_endpoints_metrics_healthz_trace():
         with pytest.raises(urllib.error.HTTPError) as ei:
             _get(srv.port, "/nope")
         assert ei.value.code == 404
-        # the reports of queue A10b, and /slo with no --slo engine,
-        # answer as a JAX process that never loaded their modules
+        # the cost model's report (A10b part 3), /health before any
+        # drain, and /slo with no --slo engine answer 404 as a JAX
+        # process does
         for path in ("/roofline", "/health", "/slo"):
             with pytest.raises(urllib.error.HTTPError) as ei:
                 _get(srv.port, path)
@@ -321,7 +322,13 @@ def test_healthz_reports_dropped_span_count():
         health = json.loads(body)
         assert health["trace_spans_dropped"] == 0
         assert health["trace_enabled"] is True
-        assert "health" not in health and "slo" not in health
+        # the training-health digest rides /healthz once its module is
+        # loaded (a trainer built with --health_interval imports it), as
+        # in the reference; no --slo engine, no slo field
+        import sys
+        assert ("health" in health) == \
+            ("paddle_tpu_torch.observe.health" in sys.modules)
+        assert "slo" not in health
 
 
 def test_metrics_port_flag_gating():

@@ -168,7 +168,10 @@ def train_case(spec) -> dict:
     losses with :func:`state_of`; ``flags`` are set for the case and put
     back; ``test_feeds`` runs ``Trainer.test`` after; ``save_dir`` saves
     the trainer (pass 0) after the steps; ``single`` runs the same steps
-    in this process alone as well (a ``{data: 1}`` trainer)."""
+    in this process alone as well (a ``{data: 1}`` trainer).  With
+    ``--health_interval`` set by ``flags``, ``health`` is the last
+    drained report (and ``single``'s its own)."""
+    from paddle_tpu_torch.observe import health
     from paddle_tpu_torch.utils import FLAGS
     flags = spec.get("flags", {})
     old = {k: FLAGS.get(k) for k in flags}
@@ -179,6 +182,8 @@ def train_case(spec) -> dict:
         losses = [float(tr.train_one_batch(to_feed(f)))
                   for f in spec["feeds"]]
         out = {"losses": losses, **state_of(tr)}
+        if tr._health is not None:
+            out["health"] = health.latest_report()
         if tr._ls_state is not None:
             out["loss_scale"] = float(tr._ls_state.scale)
         if spec.get("test_feeds"):
@@ -190,6 +195,8 @@ def train_case(spec) -> dict:
             one = make_trainer({**spec, "mesh": None})
             out["single"] = {"losses": [float(one.train_one_batch(
                 to_feed(f))) for f in spec["feeds"]], **state_of(one)}
+            if one._health is not None:
+                out["single"]["health"] = health.latest_report()
         return out
     finally:
         for k, v in old.items():
@@ -244,6 +251,29 @@ def local_sgd_case(spec) -> dict:
     out["params"] = {n: p.detach().numpy()
                      for n, p in tr._full_params().items()}
     return out
+
+
+def local_sgd_mask_case(spec) -> dict:
+    """One local-SGD step on ``feeds[0]``: the keep-masks its dropout
+    layers drew on this rank (``masks``), or the step's error
+    (``error``)."""
+    from paddle_tpu_torch.layers import base
+    masks, orig = [], base.dropout_op
+
+    def spy(x, gen, rate=0.5, is_training=True):
+        out = orig(x, gen, rate=rate, is_training=is_training)
+        masks.append((out != 0).numpy())
+        return out
+
+    base.dropout_op = spy
+    try:
+        tr = make_trainer(spec)
+        tr.train_one_batch(to_feed(spec["feeds"][0]))
+    except Exception as e:  # noqa: BLE001 — the case reports it
+        return {"error": f"{type(e).__name__}: {e}"}
+    finally:
+        base.dropout_op = orig
+    return {"masks": masks}
 
 
 def attention_case(spec) -> dict:
